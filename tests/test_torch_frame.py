@@ -1,0 +1,171 @@
+"""The port's slice as a whole on the CPU: progressive sessions against
+the JAX package's progressive_step, the accumulation contracts, the HUD,
+the CLI, and the port's independence from JAX.
+
+Session tolerances at tests/test_wavefront.py's CFG (64x36, spp 4,
+depth 10), measured over 3 frames then gated at about twice that: a
+1-ulp transcendental difference flips a few Monte-Carlo decisions per
+frame at this depth, so ray counts differ by up to 6.4e-4 relative (gate
+1.5e-3), 99.3% of pixels agree within 1e-4 (gate 98.5%), mean |diff|
+up to 2.1e-5 (gate 5e-5).  The accumulation contracts are exact.
+"""
+
+import ast
+import pathlib
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from toypathtracer_tpu import RenderConfig as JConfig
+from toypathtracer_tpu import make_scene as j_make_scene
+from toypathtracer_tpu import profiling as j_profiling
+from toypathtracer_tpu.render import frame as j_frame
+from toypathtracer_torch import (FLAG_ANIMATE, FLAG_PROGRESSIVE,
+                                 RenderConfig, make_scene, profiling)
+from toypathtracer_torch.cli import main as cli_main
+from toypathtracer_torch.ops import cuda_render
+from toypathtracer_torch.render import frame as frame_mod
+from toypathtracer_torch.render.frame import RenderSession
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+SMALL = RenderConfig(width=24, height=12, samples_per_pixel=1, max_depth=3)
+
+
+def test_session_matches_jax_progressive_step():
+    cfg, jcfg = RenderConfig(width=64, height=36), JConfig(width=64,
+                                                           height=36)
+    sess = RenderSession(make_scene(big=True), cfg, device="cpu")
+    jscene = j_make_scene(big=True)
+    st = j_frame.init_frame_state(jcfg)
+    for _ in range(3):
+        img, rays = sess.step(0.0)
+        img = img.clone().numpy()
+        st, jimg, jrays = j_frame.progressive_step(
+            st, jscene, jnp.float32(0.0), jcfg, FLAG_PROGRESSIVE)
+        jimg = np.asarray(jimg)
+        assert abs(int(rays) - int(jrays)) <= 1.5e-3 * int(jrays)
+        d = np.abs(img - jimg)
+        assert (d.max(axis=-1) <= 1e-4).mean() >= 0.985
+        assert d.mean() <= 5e-5
+    assert sess.state.frame == 3 == int(st.frame)
+
+
+def test_progressive_blend_contract():
+    scene = make_scene(big=False)
+    sess = RenderSession(scene, SMALL, device="cpu")
+    img1 = sess.step(0.0)[0].clone()
+    img2 = sess.step(0.0)[0].clone()
+    f0, _ = cuda_render.render_frame(scene, SMALL, 0, device="cpu")
+    f1, _ = cuda_render.render_frame(scene, SMALL, 1, device="cpu")
+    # frame 0: lerpFac 0 -> the raw frame; frame 1: the 0.5/0.5 blend
+    np.testing.assert_array_equal(img1.numpy(), f0.numpy())
+    np.testing.assert_array_equal(img2.numpy(), (f0 * 0.5 + f1 * 0.5).numpy())
+    assert sess.state.frame == 2
+
+
+def test_lerp_factor_matches_jax():
+    jcfg = JConfig()
+    for frame in (0, 1, 4, 1000):
+        for flags in (0, FLAG_PROGRESSIVE, FLAG_PROGRESSIVE | FLAG_ANIMATE,
+                      FLAG_ANIMATE):
+            want = j_frame.lerp_factor(jnp.int32(frame), flags, jcfg)
+            got = frame_mod.lerp_factor(frame, flags, RenderConfig())
+            assert np.float32(got) == np.float32(want)
+
+
+def test_flag_toggle_resets_accumulator():
+    sess = RenderSession(make_scene(big=False), SMALL, device="cpu")
+    sess.step(0.0)
+    sess.set_flags(FLAG_PROGRESSIVE)   # unchanged: keeps accumulating
+    assert sess.state.frame == 1
+    sess.set_flags(FLAG_PROGRESSIVE | FLAG_ANIMATE)
+    assert sess.state.frame == 0
+    assert not sess.state.accum.any()
+    img, _ = sess.step(1.0)
+    animated, _ = cuda_render.render_frame(make_scene(big=False).animate(1.0),
+                                           SMALL, 0, device="cpu")
+    np.testing.assert_array_equal(img.numpy(), animated.numpy())
+
+
+def test_nan_guard_on_history():
+    scene = make_scene(big=False)
+    sess = RenderSession(scene, SMALL, device="cpu")
+    sess.step(0.0)
+    sess.state.accum[0, 0, 0] = float("nan")
+    sess.state.accum[1, 2, 1] = float("inf")
+    img, _ = sess.step(0.0)
+    assert torch.isfinite(img).all()
+    f1, _ = cuda_render.render_frame(scene, SMALL, 1, device="cpu")
+    assert img[0, 0, 0] == f1[0, 0, 0] * 0.5
+    assert img[1, 2, 1] == f1[1, 2, 1] * 0.5
+
+
+def test_sum_rays_is_int64():
+    sess = RenderSession(make_scene(big=False), SMALL, device="cpu")
+    img, rays = sess.steps(0.0, 3)
+    assert rays.shape == (3,) and rays.dtype == torch.int64
+    assert frame_mod.sum_rays(rays) == int(rays.sum())
+    big = torch.full((4,), 2**31 - 1, dtype=torch.int32)
+    assert frame_mod.sum_rays(big) == 4 * (2**31 - 1)
+
+
+@pytest.mark.parametrize("title,seconds,rays,frames", [
+    ("CUDA path tracer", 0.0153, 16772198, 7),
+    ("CPU path tracer", 0.0, 0, 0),
+    ("x", 2.5, 123456789012, 100000),
+])
+def test_hud_string_byte_identical(title, seconds, rays, frames):
+    assert profiling.hud_string(title, seconds, rays, frames) == \
+        j_profiling.hud_string(title, seconds, rays, frames)
+
+
+def test_frame_timer_matches_jax():
+    t = profiling.FrameTimer(title="T")
+    j = j_profiling.FrameTimer(title="T")
+    for i, (dt, rays, n) in enumerate([(0.01, 1000, 1), (0.05, 8000, 4),
+                                       (0.3, 90000, 12), (0.02, 3000, 1)]):
+        t.add(dt, rays, n)
+        j.add(dt, rays, n)
+        assert t.hud() == j.hud() and t.frames == j.frames
+        assert t.mray_s() == j.mray_s()
+
+
+def test_cli_cpu_render(tmp_path, capsys):
+    from PIL import Image
+    out = tmp_path / "out.png"
+    assert cli_main(["--device", "cpu", "--width", "32", "--height", "16",
+                     "--spp", "1", "--max-depth", "3", "--frames", "2",
+                     "--output", str(out)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    hud = [ln for ln in lines if re.fullmatch(
+        r"CPU path tracer \d+\.\d\dms \(\d+\.\d FPS\) \d+\.\dMrays/s "
+        r"\d+\.\d\dMrays/frame frames \d+", ln)]
+    assert len(hud) == 2 and hud[-1].endswith("frames 2")
+    with Image.open(out) as im:
+        assert im.size == (32, 16) and im.mode == "RGB"
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((ROOT / "toypathtracer_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "toypathtracer_tpu"), \
+                f"{path.relative_to(ROOT)} imports {mod}"

@@ -1,0 +1,91 @@
+"""Headless CLI: render N frames, print the reference HUD, write an image
+(counterpart of toypathtracer_tpu/cli.py; reference: Cs/Program.cs:7-59).
+
+Usage:
+    python -m toypathtracer_torch [--frames 30] [--width 1280 --height 720]
+        [--spp 4] [--max-depth 10] [--small] [--animate] [--no-progressive]
+        [--no-light-sampling] [--mitsuba-compare] [--output out.png|out.tga]
+        [--device cuda|cpu]
+
+Renders on the card by default; `--device cpu` runs the plain PyTorch
+renderer on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+from . import io as image_io
+from .config import FLAG_ANIMATE, FLAG_PROGRESSIVE, RenderConfig
+from .profiling import hud_string
+from .render.frame import RenderSession, sum_rays
+from .scene import make_scene
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="toypathtracer_torch",
+        description="PyTorch/CUDA path tracer (ToyPathTracer capabilities)")
+    ap.add_argument("--width", type=int, default=1280)
+    ap.add_argument("--height", type=int, default=720)
+    ap.add_argument("--spp", type=int, default=4)
+    ap.add_argument("--max-depth", type=int, default=10)
+    ap.add_argument("--frames", type=int, default=30,
+                    help="frames to render (reference CLI renders 30)")
+    ap.add_argument("--small", action="store_true",
+                    help="9-sphere scene instead of the 46-sphere big scene")
+    ap.add_argument("--mitsuba-compare", action="store_true",
+                    help="flat sky / zero aperture / mirror metal, for "
+                         "comparison against Mitsuba")
+    ap.add_argument("--no-light-sampling", action="store_true")
+    ap.add_argument("--animate", action="store_true",
+                    help="animate spheres 1 and 8 (kFlagAnimate)")
+    ap.add_argument("--no-progressive", action="store_true",
+                    help="disable progressive accumulation (kFlagProgressive)")
+    ap.add_argument("--output", default="output.png",
+                    help=".png or .tga (reference dumps output.tga)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cuda: the CUDA kernel (default); cpu: the plain "
+                         "PyTorch renderer")
+    args = ap.parse_args(argv)
+
+    cfg = RenderConfig(
+        width=args.width, height=args.height,
+        samples_per_pixel=args.spp, max_depth=args.max_depth,
+        do_light_sampling=not args.no_light_sampling,
+        do_mitsuba_compare=args.mitsuba_compare)
+    scene = make_scene(big=not args.small,
+                       mitsuba_compare=args.mitsuba_compare)
+    flags = 0
+    if not args.no_progressive:
+        flags |= FLAG_PROGRESSIVE
+    if args.animate:
+        flags |= FLAG_ANIMATE
+
+    sess = RenderSession(scene, cfg, flags=flags, device=args.device)
+    if sess.device.type == "cuda":
+        import torch
+        kind = torch.cuda.get_device_name(sess.device)
+    else:
+        kind = "cpu"
+    print(f"device={args.device} ({kind}) "
+          f"scene={9 if args.small else 46}-sphere "
+          f"{cfg.width}x{cfg.height} spp={cfg.samples_per_pixel}")
+    title = f"{args.device.upper()} path tracer"
+    img = None
+    for f in range(args.frames):
+        t0 = time.perf_counter()
+        img, raycount = sess.step(time=f / 60.0)
+        rays = sum_rays(raycount)  # host copy: waits for the frame
+        dt = time.perf_counter() - t0
+        print(hud_string(title, dt, rays, f + 1))
+
+    if args.output and img is not None:
+        image_io.write_image(args.output, img.cpu().numpy())
+        print(f"wrote {args.output}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,516 @@
+"""Plain PyTorch trace core (forward subset of toypathtracer_tpu/ops/
+tracecore.py).
+
+The reference's GPU-port path-tracing math -- XorShift32 RNG, closed-form
+samplers, thin-lens camera, ray/sphere nearest hit, Lambert/metal/
+dielectric scatter, next-event estimation (NEE) with double-count
+suppression -- in eager PyTorch over 1-D batches of pixel lanes.  It is
+the plain version of the CUDA kernel (csrc/trace.cuh): the same function,
+with the same float32 expression order, evaluated lane-parallel in the
+lockstep form (for each sample, for each depth, one masked bounce).
+
+Conventions:
+  * a vec3 is a tuple of three equal-shape float32 tensors, so every dot
+    product and sum keeps the JAX package's (and the kernel's) left-to-
+    right association;
+  * RNG states are int64 tensors holding uint32 values (torch on the CPU
+    has no `<<` for uint32), masked back to 32 bits after every shift;
+  * the scene is the packed (14, N) table of ops/cuda_render.pack_scene,
+    the kernel's own input, with the sphere axis broadcast as (P, N);
+  * every material branch draws from its own copy of the RNG state and
+    the lane's material selects the consuming copy, so each pixel consumes
+    exactly the draws a per-pixel loop would.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import KPI, RenderConfig
+
+# Rows of the packed (SCENE_ROWS, N) scene table (the layout of
+# toypathtracer_tpu/ops/pallas_render.py:53-58 and csrc/trace.cuh).
+ROW_CX, ROW_CY, ROW_CZ, ROW_SQR, ROW_INVR, ROW_R = range(6)
+ROW_ALB = 6     # 6, 7, 8
+ROW_EM = 9      # 9, 10, 11
+ROW_ROUGH = 12
+ROW_RI = 13
+SCENE_ROWS = 14
+
+MASK32 = 0xFFFFFFFF
+
+# Constants the JAX package builds as jnp.float32(<double expression>):
+# evaluated in double, rounded once.
+TWO_PI = float(np.float32(2.0 * KPI))
+PI_F = float(np.float32(KPI))
+THIRD = float(np.float32(1.0 / 3.0))
+INV_2_24 = 1.0 / 16777216.0
+
+
+# ---------------------------------------------------------------------------
+# vec3 helpers (reference: Maths.h:250-313)
+# ---------------------------------------------------------------------------
+
+
+def add3(a, b):
+    return (a[0] + b[0], a[1] + b[1], a[2] + b[2])
+
+
+def sub3(a, b):
+    return (a[0] - b[0], a[1] - b[1], a[2] - b[2])
+
+
+def mul3(a, b):
+    return (a[0] * b[0], a[1] * b[1], a[2] * b[2])
+
+
+def scale3(a, s):
+    return (a[0] * s, a[1] * s, a[2] * s)
+
+
+def neg3(a):
+    return (-a[0], -a[1], -a[2])
+
+
+def dot3(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def cross3(a, b):
+    return (
+        a[1] * b[2] - a[2] * b[1],
+        -(a[0] * b[2] - a[2] * b[0]),
+        a[0] * b[1] - a[1] * b[0],
+    )
+
+
+def normalize3(a):
+    # 1/sqrt, not rsqrt: IEEE division and sqrt round like the reference.
+    inv = 1.0 / torch.sqrt(dot3(a, a))
+    return scale3(a, inv)
+
+
+def sel3(mask, a, b):
+    return (torch.where(mask, a[0], b[0]),
+            torch.where(mask, a[1], b[1]),
+            torch.where(mask, a[2], b[2]))
+
+
+def reflect3(v, n):
+    d = dot3(v, n)
+    return sub3(v, scale3(n, 2.0 * d))
+
+
+def sqrt_pos(x):
+    """sqrt(max(x, 0)), real-valued everywhere."""
+    return torch.sqrt(torch.clamp_min(x, 0.0))
+
+
+def schlick(cosine, ri):
+    """Fresnel approximation (reference: Maths.h:327-332, with the HLSL
+    port's saturate, ComputeShader.hlsl:68-74)."""
+    r0 = (1.0 - ri) / (1.0 + ri)
+    r0 = r0 * r0
+    x = torch.clamp(1.0 - cosine, 0.0, 1.0)
+    x2 = x * x
+    return r0 + (1.0 - r0) * (x2 * x2 * x)
+
+
+# ---------------------------------------------------------------------------
+# RNG: XorShift32 (reference: Maths.cpp:5-18, ComputeShader.hlsl:3-16)
+# ---------------------------------------------------------------------------
+
+
+def xorshift32(state):
+    x = state
+    x = x ^ ((x << 13) & MASK32)
+    x = x ^ (x >> 17)
+    x = x ^ ((x << 15) & MASK32)
+    return x
+
+
+def rand01(state):
+    """(XorShift32(state) & 0xFFFFFF) / 16777216 (Maths.cpp:15-18).
+    Returns (new_state, float32 value)."""
+    state = xorshift32(state)
+    return state, (state & 0xFFFFFF).to(torch.float32) * INV_2_24
+
+
+def seed_pixels(x, y, frame: int):
+    """Per-pixel seed (x*1973 + y*9277 + frame*26699) | 1, modulo 2^32
+    (ComputeShader.hlsl:380)."""
+    s = (x.to(torch.int64) * 1973 + y.to(torch.int64) * 9277
+         + (int(frame) & MASK32) * 26699)
+    return (s & MASK32) | 1
+
+
+def random_in_unit_disk(state):
+    """Polar disk sample, 2 draws (ComputeShader.hlsl:18-24)."""
+    state, r1 = rand01(state)
+    a = r1 * TWO_PI
+    state, r2 = rand01(state)
+    r = torch.sqrt(r2)
+    return state, (torch.cos(a) * r, torch.sin(a) * r)
+
+
+def random_in_unit_sphere(state):
+    """Sphere-volume sample, 3 draws (ComputeShader.hlsl:25-35); the cube
+    root is exp(log(x)/3), as in the JAX package."""
+    state, r1 = rand01(state)
+    z = r1 * 2.0 - 1.0
+    state, r2 = rand01(state)
+    t = r2 * TWO_PI
+    r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    x = r * torch.cos(t)
+    y = r * torch.sin(t)
+    state, r3 = rand01(state)
+    cube = torch.exp(torch.log(r3) * THIRD)
+    return state, (x * cube, y * cube, z * cube)
+
+
+def random_unit_vector(state):
+    """Uniform direction, 2 draws (ComputeShader.hlsl:36-44)."""
+    state, r1 = rand01(state)
+    z = r1 * 2.0 - 1.0
+    state, r2 = rand01(state)
+    a = r2 * TWO_PI
+    r = torch.sqrt(1.0 - z * z)
+    return state, (r * torch.cos(a), r * torch.sin(a), z)
+
+
+# ---------------------------------------------------------------------------
+# Geometry queries.  `tab` is the packed (SCENE_ROWS, N) table; per-sphere
+# rows broadcast against (P, 1) lane columns into (P, N).
+# ---------------------------------------------------------------------------
+
+
+def sphere_t(cx, cy, cz, sq_radius, ro, rd, t_min):
+    """Nearest valid root of the sphere quadratic (Maths.cpp:97-117's -b
+    trick).  Returns (t, valid); broadcasts sphere scalars/rows against
+    ray lanes."""
+    cox = cx - ro[0]
+    coy = cy - ro[1]
+    coz = cz - ro[2]
+    nb = cox * rd[0] + coy * rd[1] + coz * rd[2]
+    c = cox * cox + coy * coy + coz * coz - sq_radius
+    discr = nb * nb - c
+    discr_sq = sqrt_pos(discr)
+    t0 = nb - discr_sq
+    t1 = nb + discr_sq
+    t = torch.where(t0 > t_min, t0, t1)
+    return t, (discr > 0.0) & (t > t_min)
+
+
+def occ_test(nb, c, t_min, t_l):
+    """Does the root interval [t0, t1] overlap the shadow segment
+    (t_min, t_l)?  The JAX package's sqrt-free interval-overlap form
+    (tracecore._occ_test), comparison for comparison: d > 0,
+    d > b*|b|, d > -(a*|a|) with a = nb - t_min, b = nb - t_l.  It reports
+    "occluded" for a ray that starts inside a sphere whose interval spans
+    the light, unlike an exact nearest-hit test (scene.validate_scene)."""
+    d = nb * nb - c
+    a = nb - t_min
+    b = nb - t_l
+    return (d > 0.0) & (d > b * torch.abs(b)) & (d > -(a * torch.abs(a)))
+
+
+def _col(x):
+    return x[:, None]
+
+
+def nearest_hit(tab, ro, rd, t_min: float, t_max: float):
+    """Nearest hit over all spheres: (hit_t, hit_id), id -1 on a miss.
+    The first index of the minimum valid t equals the JAX package's
+    strict `<` select chain (tracecore.py:1012-1014)."""
+    t, valid = sphere_t(tab[ROW_CX], tab[ROW_CY], tab[ROW_CZ], tab[ROW_SQR],
+                        tuple(map(_col, ro)), tuple(map(_col, rd)), t_min)
+    t = torch.where(valid, t, torch.inf)
+    best, idx = torch.min(t, dim=1)
+    hit = best < t_max
+    return torch.where(hit, best, t_max), torch.where(hit, idx, -1)
+
+
+class Work(NamedTuple):
+    """Per-lane int64 work counters: camera/bounce rays, NEE shadow rays,
+    and the sphere tests of the shadow rays' occlusion loops."""
+    traced: torch.Tensor
+    shadow: torch.Tensor
+    occlusion_tests: torch.Tensor
+
+
+class Winner(NamedTuple):
+    """Attributes of the sphere each lane hit (zeros on a miss)."""
+    center: tuple
+    inv_radius: torch.Tensor
+    alb: tuple
+    em: tuple
+    roughness: torch.Tensor
+    ri: torch.Tensor
+    mat: torch.Tensor
+
+
+def gather_winner(tab, mat, hit_id) -> Winner:
+    """Fetch the hit sphere's table columns (tracecore.gather_winner)."""
+    hit = hit_id >= 0
+    g = tab[:, hit_id.clamp_min(0)]
+    g = torch.where(hit, g, 0.0)
+    m = torch.where(hit, mat[hit_id.clamp_min(0)], -1)
+    return Winner(center=(g[ROW_CX], g[ROW_CY], g[ROW_CZ]),
+                  inv_radius=g[ROW_INVR],
+                  alb=(g[ROW_ALB], g[ROW_ALB + 1], g[ROW_ALB + 2]),
+                  em=(g[ROW_EM], g[ROW_EM + 1], g[ROW_EM + 2]),
+                  roughness=g[ROW_ROUGH], ri=g[ROW_RI], mat=m)
+
+
+def occluded(tab, pos, l, light: int, t_min: float, t_l):
+    """OR over every sphere except `light` of occ_test along l from pos.
+    Returns (occluded, tests): `tests` counts the spheres that a loop in
+    sphere order, stopping at the first occluder and skipping the light,
+    tests -- the kernel's work for this shadow ray."""
+    cox = tab[ROW_CX] - _col(pos[0])
+    coy = tab[ROW_CY] - _col(pos[1])
+    coz = tab[ROW_CZ] - _col(pos[2])
+    c = cox * cox + coy * coy + coz * coz - tab[ROW_SQR]
+    nb = cox * _col(l[0]) + coy * _col(l[1]) + coz * _col(l[2])
+    blocks = occ_test(nb, c, t_min, _col(t_l))
+    blocks[:, light] = False
+    occ = blocks.any(dim=1)
+    first = torch.argmax(blocks.to(torch.int32), dim=1)
+    tests = torch.where(occ, first + 1 - (first > light).to(first.dtype),
+                        blocks.shape[1] - 1)
+    return occ, tests
+
+
+def sky_color(rd, cfg: RenderConfig):
+    """Vertical-gradient sky * 0.3, or the Mitsuba-compare constant
+    (Test.cpp:224-232; ComputeShader.hlsl:330-338)."""
+    if cfg.do_mitsuba_compare:
+        z = torch.zeros_like(rd[1])
+        return (z + 0.15, z + 0.21, z + 0.3)
+    t = 0.5 * (rd[1] + 1.0)
+    one_t = 1.0 - t
+    return ((one_t * 1.0 + t * 0.5) * 0.3,
+            (one_t * 1.0 + t * 0.7) * 0.3,
+            (one_t * 1.0 + t * 1.0) * 0.3)
+
+
+def camera_get_ray(cam: dict, s, t, state):
+    """Thin-lens ray (Maths.h:437-442, GPU disk sampler): lens offset from
+    2 draws, direction ((((llc + s*h) + t*v) - origin) - offset)."""
+    state, (dx, dy) = random_in_unit_disk(state)
+    rdx = cam["lens_radius"] * dx
+    rdy = cam["lens_radius"] * dy
+    off = add3(scale3(cam["u"], rdx), scale3(cam["v"], rdy))
+    ro = add3(cam["origin"], off)
+    d = sub3(sub3(add3(add3(cam["lower_left"], scale3(cam["horizontal"], s)),
+                       scale3(cam["vertical"], t)),
+                  cam["origin"]),
+             off)
+    return state, ro, normalize3(d)
+
+
+# ---------------------------------------------------------------------------
+# Scatter and NEE
+# ---------------------------------------------------------------------------
+
+
+def nee_cones(tab, emissive_ids, pos, hit_id, active, state):
+    """Per-light solid-angle cone sample (Test.cpp:94-121): 2 draws per
+    light in emissive_ids order, consumed only on lanes where
+    active & hit_id != light.  Returns (state, [(light, lane_on, l,
+    cos_a_max)])."""
+    cones = []
+    for e in emissive_ids:
+        lane_on = active & (hit_id != e)
+        sc = (tab[ROW_CX, e], tab[ROW_CY, e], tab[ROW_CZ, e])
+        r = tab[ROW_R, e]
+        sw = normalize3(sub3(sc, pos))
+        flat = torch.abs(sw[0]) > 0.01
+        up = (torch.where(flat, 0.0, 1.0), torch.where(flat, 1.0, 0.0),
+              torch.zeros_like(sw[0]))
+        su = normalize3(cross3(up, sw))
+        sv = cross3(sw, su)
+        dp = sub3(pos, sc)
+        d2 = dot3(dp, dp)
+        cos_a_max = sqrt_pos(1.0 - r * r / d2)
+        st2, eps1 = rand01(state)
+        st2, eps2 = rand01(st2)
+        state = torch.where(lane_on, st2, state)
+        cos_a = 1.0 - eps1 + eps1 * cos_a_max
+        sin_a = sqrt_pos(1.0 - cos_a * cos_a)
+        phi = TWO_PI * eps2
+        l = add3(add3(scale3(su, torch.cos(phi) * sin_a),
+                      scale3(sv, torch.sin(phi) * sin_a)),
+                 scale3(sw, cos_a))
+        cones.append((e, lane_on, l, cos_a_max))
+    return state, cones
+
+
+def nee_light_e(tab, cfg: RenderConfig, cones, pos, alb, normal, rd):
+    """Visibility and contribution of each cone sample, in light order
+    (Test.cpp:123-133; tracecore._nee_light_e hard-shadow branch).  The
+    light is hit when its own root t_l < max_t and no other sphere's root
+    interval overlaps (t_min, t_l).  Returns (light_e vec3, shadow ray
+    count, occlusion sphere tests): one shadow ray per light with
+    hit_id != light, visible or not; the occlusion loop runs only where
+    the light itself is hit."""
+    light_e = tuple(torch.zeros_like(normal[0]) for _ in range(3))
+    shadow_cnt = torch.zeros(normal[0].shape, dtype=torch.int64,
+                             device=normal[0].device)
+    occ_tests = shadow_cnt
+    nl = sel3(dot3(normal, rd) < 0.0, normal, neg3(normal))
+    for e, lane_on, l, cos_a_max in cones:
+        t_l, valid = sphere_t(tab[ROW_CX, e], tab[ROW_CY, e], tab[ROW_CZ, e],
+                              tab[ROW_SQR, e], pos, l, cfg.min_t)
+        light_hit = valid & (t_l < cfg.max_t)
+        occ, tests = occluded(tab, pos, l, e, cfg.min_t, t_l)
+        see = light_hit & ~occ
+        occ_tests = occ_tests + torch.where(lane_on & light_hit, tests, 0)
+        omega = TWO_PI * (1.0 - cos_a_max)
+        fac = torch.clamp_min(dot3(l, nl), 0.0) * omega / PI_F
+        on = lane_on & see
+        em = (tab[ROW_EM, e], tab[ROW_EM + 1, e], tab[ROW_EM + 2, e])
+        light_e = tuple(torch.where(on, light_e[k] + (alb[k] * em[k]) * fac,
+                                    light_e[k]) for k in range(3))
+        shadow_cnt = shadow_cnt + lane_on.to(torch.int64)
+    return light_e, shadow_cnt, occ_tests
+
+
+def scatter_metal(state, refl, rough):
+    """Mirror plus roughness fuzz, 3 draws (Test.cpp:137-150)."""
+    state, rius = random_in_unit_sphere(state)
+    return state, normalize3(add3(refl, scale3(rius, rough)))
+
+
+def scatter_dielectric(state, rd, normal, refl, ri):
+    """Schlick-weighted reflect/refract, 1 draw (Test.cpp:151-186)."""
+    rdn = dot3(rd, normal)
+    entering = rdn <= 0.0
+    outward = sel3(entering, normal, neg3(normal))
+    safe_ri = torch.where(ri == 0.0, 1.0, ri)
+    nint = torch.where(entering, 1.0 / safe_ri, ri)
+    cosine = torch.where(entering, -rdn, ri * rdn)
+    dt = dot3(rd, outward)
+    discr = 1.0 - nint * nint * (1.0 - dt * dt)
+    refr = sub3(scale3(sub3(rd, scale3(outward, dt)), nint),
+                scale3(outward, sqrt_pos(discr)))
+    refl_prob = torch.where(discr > 0.0, schlick(cosine, ri), 1.0)
+    state, rr = rand01(state)
+    return state, normalize3(sel3(rr < refl_prob, refl, refr))
+
+
+def bounce(tab, mat, emissive_ids, cfg: RenderConfig, carry):
+    """One bounce over all lanes (tracecore.bounce_parts with GPU
+    samplers and the fused hard-shadow NEE).
+
+    carry = (ro, rd, alive, do_me, state, work).  Returns (carry, e, c),
+    with e and c the per-lane emission and continuation attenuation of
+    this depth: miss -> (sky, 0); scattered -> (gated emission + NEE,
+    albedo); absorbed -> (ungated emission, 0); dead -> (0, 1)."""
+    ro, rd, alive, do_me, state, work = carry
+    traced, shadow, occ_tests = work
+    traced = traced + alive.to(torch.int64)
+    hit_t, hit_id = nearest_hit(tab, ro, rd, cfg.min_t, cfg.max_t)
+    hit = alive & (hit_id >= 0)
+    no_hit = alive & (hit_id < 0)
+    w = gather_winner(tab, mat, hit_id)
+    sky = sky_color(rd, cfg)
+    pos = add3(ro, scale3(rd, hit_t))
+    normal = scale3(sub3(pos, w.center), w.inv_radius)
+    lam_on = hit & (w.mat == 0)
+    met_on = hit & (w.mat == 1)
+    die_on = hit & (w.mat == 2)
+    refl = reflect3(rd, normal)
+
+    # Lambert: direction, then the NEE cones (own RNG thread)
+    st_l, ruv = random_unit_vector(state)
+    sdir_l = normalize3(sub3(add3(add3(pos, normal), ruv), pos))
+    zero = torch.zeros_like(rd[0])
+    light_e = (zero, zero, zero)
+    if cfg.do_light_sampling:
+        st_l, cones = nee_cones(tab, emissive_ids, pos, hit_id, lam_on, st_l)
+        light_e, shadow_cnt, tests = nee_light_e(tab, cfg, cones, pos, w.alb,
+                                                 normal, rd)
+        shadow = shadow + torch.where(lam_on, shadow_cnt, 0)
+        occ_tests = occ_tests + torch.where(lam_on, tests, 0)
+
+    rough = torch.zeros_like(w.roughness) if cfg.do_mitsuba_compare \
+        else w.roughness
+    st_m, sdir_m = scatter_metal(state, refl, rough)
+    met_ok = dot3(sdir_m, normal) > 0.0
+    st_d, sdir_d = scatter_dielectric(state, rd, normal, refl, w.ri)
+
+    new_state = torch.where(lam_on, st_l, torch.where(
+        met_on, st_m, torch.where(die_on, st_d, state)))
+    scatter_ok = lam_on | (met_on & met_ok) | die_on
+    new_dir = sel3(lam_on, sdir_l, sel3(met_on, sdir_m, sdir_d))
+    one = torch.ones_like(zero)
+    attenuation = sel3(lam_on | met_on, w.alb,
+                       sel3(die_on, (one, one, one), (one, zero, one)))
+
+    # emission with NEE double-count suppression (hlsl:314-325)
+    mat_e = w.em
+    if cfg.do_light_sampling:
+        gated_e = sel3(do_me, mat_e, (zero, zero, zero))
+        upd = hit & scatter_ok
+        do_me = (upd & ~lam_on) | (~upd & do_me)
+    else:
+        gated_e = mat_e
+    scat = hit & scatter_ok
+    died = hit & ~scatter_ok
+    e = sel3(scat, add3(gated_e, light_e),
+             sel3(died, mat_e, sel3(no_hit, sky, (zero, zero, zero))))
+    c = sel3(scat, attenuation,
+             sel3(died | no_hit, (zero, zero, zero), (one, one, one)))
+
+    ro = sel3(scat, pos, ro)
+    rd = sel3(scat, new_dir, rd)
+    state = torch.where(hit, new_state, state)
+    work = Work(traced, shadow, occ_tests)
+    return (ro, rd, scat, do_me, state, work), e, c
+
+
+def render_pixels(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
+                  px, py, frame: int):
+    """Render 1-D lanes of pixels (px, py: int64 global coordinates, y=0
+    the bottom row): seed, spp thin-lens samples each traced for up to
+    max_depth bounces, average (tracecore.render_pixels_lockstep; the
+    kernel runs the same per-pixel sequence as a loop).
+
+    A sample that scatters at depth max_depth keeps that bounce's
+    emission and NEE and adds no sky (ComputeShader.hlsl:300).  Returns
+    (col vec3, per-lane Work); the reference's ray count is
+    work.traced + work.shadow."""
+    state = seed_pixels(px, py, frame)
+    fx = px.to(torch.float32)
+    fy = py.to(torch.float32)
+    inv_w = float(np.float32(cfg.inv_width))
+    inv_h = float(np.float32(cfg.inv_height))
+    zero = torch.zeros_like(fx)
+    col_sum = (zero, zero, zero)
+    izero = torch.zeros_like(px, dtype=torch.int64)
+    work = Work(izero, izero, izero)
+    for _ in range(cfg.samples_per_pixel):
+        state, ur = rand01(state)
+        u = (fx + ur) * inv_w
+        state, vr = rand01(state)
+        v = (fy + vr) * inv_h
+        state, ro, rd = camera_get_ray(cam, u, v, state)
+        col = (zero, zero, zero)
+        atten = (zero + 1.0, zero + 1.0, zero + 1.0)
+        alive = torch.ones_like(px, dtype=torch.bool)
+        do_me = alive
+        for _ in range(cfg.max_depth):
+            (ro, rd, alive, do_me, state, work), e, c = bounce(
+                tab, mat, emissive_ids, cfg,
+                (ro, rd, alive, do_me, state, work))
+            col = add3(col, mul3(atten, e))
+            atten = mul3(atten, c)
+            if not bool(alive.any()):
+                break
+        col_sum = add3(col_sum, col)
+    inv_spp = float(np.float32(1.0 / cfg.samples_per_pixel))
+    return scale3(col_sum, inv_spp), work

@@ -1,0 +1,56 @@
+"""Whole-frame plain PyTorch renderer (counterpart of toypathtracer_tpu/
+render/wavefront.py).
+
+`render_frame_plain` is the plain version of the CUDA render kernel: the
+same inputs (packed scene table, material types, emissive ids, the
+22-float camera), the same per-pixel function, vectorised over pixels in
+eager torch.  ops/cuda_render takes it for CPU tensors, and chip_smoke.py
+holds the kernel against it on the card.  Nothing on the main path calls
+it when a card is present.
+
+Image layout: (H, W, 3) float32 with row 0 at the bottom (v ~ 0), the
+reference backbuffer layout (Test.cpp:278-297).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..camera import make_camera
+from ..config import RenderConfig
+from ..ops import tracecore as tc
+from ..ops.cuda_render import pack_scene
+from ..scene import Scene
+
+
+def camera_scalars(scene: Scene, cfg: RenderConfig) -> dict:
+    """The camera dict with plain Python floats (exact float32 values)."""
+    cam = make_camera(scene.camera, cfg.width / cfg.height)
+    return {k: (float(v) if k == "lens_radius" else tuple(map(float, v)))
+            for k, v in cam.items()}
+
+
+def render_tile_plain(scene: Scene, cfg: RenderConfig, frame: int, x0: int,
+                      y0: int, height: int, width: int):
+    """Render the (height, width) sub-image whose lower-left pixel is the
+    global pixel (x0, y0), on the scene's device.  Returns
+    ((height, width, 3) float32, int64 ray count as a 0-d tensor)."""
+    dev = scene.device
+    yy, xx = torch.meshgrid(
+        torch.arange(y0, y0 + height, device=dev, dtype=torch.int64),
+        torch.arange(x0, x0 + width, device=dev, dtype=torch.int64),
+        indexing="ij")
+    tab = pack_scene(scene)
+    mat = torch.tensor(scene.mat_type, dtype=torch.int64, device=dev)
+    col, work = tc.render_pixels(
+        tab, mat, scene.emissive_ids, cfg, camera_scalars(scene, cfg),
+        xx.reshape(-1), yy.reshape(-1), frame)
+    img = torch.stack(col, dim=-1).reshape(height, width, 3)
+    return img, work.traced.sum() + work.shadow.sum()
+
+
+def render_frame_plain(scene: Scene, cfg: RenderConfig, frame: int):
+    """Render one full frame on the scene's device.  `frame` seeds the
+    per-pixel RNG (ComputeShader.hlsl:380).  Returns ((H, W, 3) float32,
+    0-d int64 ray count)."""
+    return render_tile_plain(scene, cfg, frame, 0, 0, cfg.height, cfg.width)
