@@ -14,7 +14,15 @@ non-zero):
      the 16-frame image against 16 plain frames (8x8 block gates), and one
      kernel launch per frame.
   4. timing with CUDA events: 64 steady frames after 4 warm-up frames.
-  5. the `kernels` line.
+  5. gradient kernel (K3) and lockstep kernel (K4) vs plain autograd at
+     320x176, spp 2, depth 4, the big and the small scene, frames 0-1.
+  6. the training path at 1280x720, spp 4, depth 10, 46 spheres:
+     InverseRenderer Adam steps from a perturbed albedo (one render and
+     one gradient launch a step; with lockstep_primal, one lockstep and
+     one gradient launch), the full frame's gradient against 45 bands of
+     16 rows, one band against plain autograd, finite differences.
+  7. gradient timing with CUDA events and the host clock.
+  8. the `kernels` line: render, grad, lockstep.
 Then the card's name and power limit as nvidia-smi reports them, and the
 `ok` line last.  Exits non-zero without a CUDA device.
 """
@@ -67,6 +75,15 @@ def compare(img_k, rays_k, img_p, rays_p):
 def check(ok: bool, what: str):
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def row_rel(got, want):
+    """Per row of a (14, N) table: max |got - want| / max |want| (0 where
+    both rows are zero)."""
+    err = (got - want).abs().amax(dim=1)
+    scale = want.abs().amax(dim=1)
+    return [float(e / s) if s > 0 else (0.0 if e == 0 else float("inf"))
+            for e, s in zip(err, scale)]
 
 
 def main() -> int:
@@ -192,7 +209,8 @@ def main() -> int:
     # the kernel alone (wrapper call) and the plain version, same inputs
     kernel_s, _ = time_device_call(cuda_render.render_tile, scene_d, cfg, 0,
                                    0, 0, cfg.height, cfg.width, repeats=16)
-    plain_s, _ = time_device_call(render_frame_plain, scene_d, cfg, 0)
+    plain_s, (plain_img, _) = time_device_call(render_frame_plain, scene_d,
+                                               cfg, 0)
     kernel_ms, plain_ms = kernel_s * 1e3, plain_s * 1e3
 
     # Bound: the FP32 arithmetic the kernel does on frame 0's data, counted
@@ -235,6 +253,11 @@ def main() -> int:
           "bound_peak": "67 TFLOP/s FP32 (H100 SXM, 700 W)",
           "library_call": None})
 
+    grad = grad_phases(cfg, scene, scene_d, smi,
+                       dict(ops=ops, bytes=n_bytes, traced=traced,
+                            shadow=shadow, plain_ms=plain_ms,
+                            plain_img=plain_img))
+
     emit({"kernels": [{
         "name": "render", "route": "cuda",
         "source": "toypathtracer_torch/csrc/render.cu",
@@ -248,12 +271,255 @@ def main() -> int:
                      "rays_rel_diff": f0["rays_rel_diff"],
                      "mean_abs_diff": f0["mean_abs_diff"],
                      "frac_within_1e-4": f0["frac_within_1e-4"],
-                     "block_mean_abs": bm, "block_max_abs": bx}}]})
+                     "block_mean_abs": bm, "block_max_abs": bx}},
+        *grad]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def grad_phases(cfg, scene, scene_d, smi, k1):
+    """Phases 5-7: the gradient (K3) and lockstep (K4) kernels against
+    plain autograd, the training path at full size, and their timing.
+    `k1` carries the render kernel's frame-0 work counts, bound terms and
+    plain version from phase 4.  Returns the two kernels' entries of the
+    `kernels` line."""
+    import numpy as np
+
+    from toypathtracer_torch import make_scene
+    from toypathtracer_torch.inverse import InverseRenderer, image_l2
+    from toypathtracer_torch.ops import cuda_grad, cuda_render
+    from toypathtracer_torch.profiling import time_device_call
+    from toypathtracer_torch.render.wavefront import render_tile_grad_plain
+
+    dev = scene_d.device
+
+    def cotangent(seed, h, w):
+        return torch.from_numpy(np.random.RandomState(seed).rand(h, w, 3)
+                                .astype(np.float32)).to(dev)
+
+    # ---- 5. K3 / K4 vs plain autograd, small size ---------------------
+    small_cfg = cfg.replace(width=320, height=176, samples_per_pixel=2,
+                            max_depth=4)
+    small_rel = 0.0
+    for name, big in (("big", True), ("small", False)):
+        sc = make_scene(big=big).to(dev)
+        for frame in range(2):
+            g = cotangent(frame, 176, 320)
+            args = (sc, small_cfg, frame, g, 0, 0, 176, 320)
+            img_k, rays_k, d_k = cuda_grad.render_tile_grad(*args)
+            _, _, d_k2 = cuda_grad.render_tile_grad(*args)
+            img_l, rays_l = cuda_grad.render_tile_lockstep(
+                sc, small_cfg, frame, 0, 0, 176, 320)
+            img_p, rays_p, d_p = render_tile_grad_plain(*args)
+            torch.cuda.synchronize()
+            rel = row_rel(d_k, d_p)
+            small_rel = max(small_rel, max(rel))
+            r = {"phase": "grad_vs_plain", "case": name, "frame": frame,
+                 "rays_kernel": int(rays_k), "rays_plain": int(rays_p),
+                 "rays_lockstep": int(rays_l),
+                 "d_packed_row_rel_max": max(rel), "d_packed_row_rel": rel,
+                 "img_max_abs_diff": float((img_k - img_p).abs().max()),
+                 "lockstep_bit_equal": bool(torch.equal(img_l, img_k)),
+                 "grad_deterministic": bool(torch.equal(d_k, d_k2)),
+                 "finite": bool(torch.isfinite(d_k).all())}
+            emit(r)
+            what = f"grad {name} frame {frame}"
+            check(r["finite"], f"{what}: finite")
+            check(r["rays_kernel"] == r["rays_plain"] == r["rays_lockstep"],
+                  f"{what}: rays")
+            check(max(rel) <= 1e-3, f"{what}: d_packed vs plain")
+            check(r["lockstep_bit_equal"], f"{what}: K4 image == K3 primal")
+            check(r["grad_deterministic"], f"{what}: two launches differ")
+
+    # ---- 6. the training path at full size ----------------------------
+    H, W = cfg.height, cfg.width
+    target, _ = cuda_render.render_frame(scene, cfg, 0)
+    rng = np.random.default_rng(7)
+    a_jit = rng.normal(0, 0.15, scene.albedo.shape).astype(np.float32)
+    a_jit[list(scene.emissive_ids)] = 0.0
+    start = scene.replace(albedo=torch.clamp(
+        scene.albedo + torch.from_numpy(a_jit), 0.02, 0.98))
+    for k in cuda_render.launches:
+        cuda_render.launches[k] = 0
+    for k in cuda_grad.launches:
+        cuda_grad.launches[k] = 0
+    inv = InverseRenderer(cfg, target, trainable=("albedo",),
+                          learning_rate=2e-2)
+    _, losses = inv.fit(start, steps=4, resample=False)
+    after_fit = {"render": cuda_render.launches["render"],
+                 **cuda_grad.launches}
+    inv_l = InverseRenderer(cfg, target, trainable=("albedo",),
+                            learning_rate=2e-2, lockstep_primal=True)
+    _, losses_l = inv_l.fit(start, steps=2, resample=False)
+    torch.cuda.synchronize()
+    train_launches = {"render": cuda_render.launches["render"],
+                      **cuda_grad.launches}
+    emit({"phase": "training_path", "losses": losses,
+          "losses_lockstep_primal": losses_l,
+          "launches_after_4_steps": after_fit,
+          "launches": train_launches})
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"Adam losses not strictly decreasing: {losses}")
+    check(all(b < a for a, b in zip(losses_l, losses_l[1:])),
+          f"lockstep-primal losses not strictly decreasing: {losses_l}")
+    check(after_fit == {"render": 4, "grad": 4, "lockstep": 0},
+          f"4 steps launched {after_fit}")
+    check(train_launches == {"render": 4, "grad": 6, "lockstep": 2},
+          f"training path launched {train_launches}")
+
+    # value and gradient of every field through render_frame_diff
+    leaves = {f: getattr(scene, f).clone().requires_grad_(True)
+              for f in cuda_grad.PARAM_FIELDS}
+    img, _ = cuda_grad.render_frame_diff(scene.replace(**leaves), cfg, 0)
+    loss = image_l2(img, target * 0.9)
+    loss.backward()
+    finite = bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(t.grad).all()) for t in leaves.values())
+    check(finite, "render_frame_diff value/grad finite")
+
+    w = cotangent(11, H, W)
+    img_g, rays_g, d_full = cuda_grad.render_tile_grad(scene_d, cfg, 0, w, 0,
+                                                       0, H, W)
+    _, _, d_again = cuda_grad.render_tile_grad(scene_d, cfg, 0, w, 0, 0, H, W)
+    img_l, rays_l = cuda_grad.render_tile_lockstep(scene_d, cfg, 0, 0, 0, H,
+                                                   W)
+    img_k1, _ = cuda_render.render_tile(scene_d, cfg, 0, 0, 0, H, W)
+    band, n_bands = 16, H // 16
+    d_bands = torch.zeros_like(d_full)
+    rays_bands = 0
+    d_band_k = {}
+    for b in range(n_bands):
+        _, r_b, d_b = cuda_grad.render_tile_grad(
+            scene_d, cfg, 0, w[b * band:(b + 1) * band], 0, b * band, band, W)
+        d_bands += d_b
+        rays_bands += int(r_b)
+        d_band_k[b] = d_b
+    # the plain version, band by band (its graph cannot hold the frame)
+    d_plain = torch.zeros_like(d_full)
+    d_band_p = {}
+
+    def plain_frame():
+        d_plain.zero_()
+        for b in range(n_bands):
+            _, _, d_b = render_tile_grad_plain(
+                scene_d, cfg, 0, w[b * band:(b + 1) * band], 0, b * band,
+                band, W)
+            d_plain.add_(d_b)
+            d_band_p[b] = d_b
+    grad_plain_s, _ = time_device_call(plain_frame)
+    torch.cuda.synchronize()
+    mid = n_bands // 2
+    band_rel = row_rel(d_band_k[mid], d_band_p[mid])
+    bands_rel = row_rel(d_bands, d_full)
+    full_rel = row_rel(d_full, d_plain)
+
+    # central differences of L = sum(img * w) in float64 on 3 albedo
+    # entries of visible Lambert spheres (albedo moves no path)
+    tab = cuda_render.pack_scene(scene_d)
+    w64 = w.double()
+    fd = []
+    for i, c in ((0, 0), (2, 1), (1, 2)):
+        row = 6 + c
+        vals = []
+        for sign in (1.0, -1.0):
+            t = tab.clone()
+            t[row, i] += sign * 1e-2
+            im, _ = cuda_render.render_tile(scene_d, cfg, 0, 0, 0, H, W,
+                                            tab=t)
+            vals.append(float((im.double() * w64).sum()))
+        g_fd = (vals[0] - vals[1]) / 2e-2
+        g_k = float(d_full[row, i])
+        fd.append({"sphere": i, "channel": c, "kernel": g_k, "fd": g_fd,
+                   "rel": abs(g_k - g_fd) / abs(g_fd)})
+    r = {"phase": "grad_full_size", "rays": int(rays_g),
+         "rays_bands": rays_bands, "rays_lockstep": int(rays_l),
+         "value_grad_finite": finite,
+         "grad_deterministic": bool(torch.equal(d_full, d_again)),
+         "lockstep_bit_equal": bool(torch.equal(img_l, img_g)),
+         "render_kernel_bit_equal": bool(torch.equal(img_k1, img_g)),
+         "bands_vs_full_row_rel_max": max(bands_rel),
+         "band_vs_plain_row_rel_max": max(band_rel),
+         "band_vs_plain_row_rel": band_rel,
+         "full_vs_plain_bands_row_rel_max": max(full_rel),
+         "full_vs_plain_bands_max_abs": float((d_full - d_plain).abs().max()),
+         "lockstep_vs_plain_img_max_abs": float(
+             (img_l - k1["plain_img"]).abs().max()),
+         "finite_differences": fd}
+    emit(r)
+    check(r["grad_deterministic"], "full-size d_packed not deterministic")
+    check(r["lockstep_bit_equal"] and int(rays_l) == int(rays_g),
+          "full-size K4 image != K3 primal")
+    check(rays_bands == int(rays_g), "band rays != full-frame rays")
+    check(max(bands_rel) <= 1e-4, "45 bands' d_packed != the full frame's")
+    check(max(band_rel) <= 1e-3, "band d_packed vs plain autograd")
+    check(all(f["rel"] <= 1e-2 for f in fd), "K3 vs finite differences")
+
+    # ---- 7. timing ------------------------------------------------------
+    grad_s, _ = time_device_call(cuda_grad.render_tile_grad, scene_d, cfg, 0,
+                                 w, 0, 0, H, W, repeats=3)
+    lock_s, _ = time_device_call(cuda_grad.render_tile_lockstep, scene_d, cfg,
+                                 0, 0, 0, H, W, repeats=16)
+    n_steps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inv.fit(start, steps=n_steps, resample=False)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / n_steps
+    # Bound of K3: K1's forward count (the same sphere tests, fwd_ops) plus
+    # the adjoint's FP32 arithmetic counted from csrc/trace.cuh: ~150 per
+    # traced ray (bounce_adj with sphere_t_adj, reflect and normal
+    # adjoints) and ~270 per shadow ray (cone recomputed, cone_adj), for
+    # every traced and shadow ray (misses and unseen lights do less).  The
+    # replays are this kernel's design, not the function's work, and are
+    # not counted.  Bytes: K1's plus the cotangent read.
+    grad_ops = k1["ops"] + 150 * k1["traced"] + 270 * k1["shadow"]
+    grad_bytes = k1["bytes"] + 4 * 3 * H * W
+    grad_bound = max(grad_ops / 67e12, grad_bytes / 3.35e12) * 1e3
+    lock_bound = max(k1["ops"] / 67e12, k1["bytes"] / 3.35e12) * 1e3
+    t = {"phase": "grad_timing", "nvidia_smi": smi,
+         "grad_kernel_ms": grad_s * 1e3, "lockstep_kernel_ms": lock_s * 1e3,
+         "train_step_ms": step_s * 1e3,
+         "fwd_bwd_mray_s": int(rays_g) / step_s * 1e-6,
+         "primal_rays_per_step": int(rays_g),
+         "grad_plain_ms": grad_plain_s * 1e3,
+         "lockstep_plain_ms": k1["plain_ms"],
+         "grad_bound_fp32_ops": grad_ops, "grad_bound_bytes": grad_bytes,
+         "grad_bound_ms": grad_bound, "lockstep_bound_ms": lock_bound,
+         "bound_peak": "67 TFLOP/s FP32, 3.35 TB/s (H100 SXM, 700 W)"}
+    emit(t)
+    return [
+        {"name": "grad", "route": "cuda",
+         "source": "toypathtracer_torch/csrc/grad.cu",
+         "replaces": "toypathtracer_tpu/ops/pallas_grad.py:127",
+         "launches": train_launches["grad"],
+         "max_abs_err": r["full_vs_plain_bands_max_abs"],
+         "ms": grad_s * 1e3, "plain_ms": grad_plain_s * 1e3,
+         "bound_ms": grad_bound, "bound_by": "operations",
+         "library_ms": None,
+         "vs_plain": {"tolerance": "d_packed per row <= 1e-3 x row max "
+                                   "(320x176 cases, one 16-row band), rays "
+                                   "exact; bands sum to the frame <= 1e-4; "
+                                   "finite differences <= 1e-2",
+                      "small_row_rel_max": small_rel,
+                      "band_row_rel_max": max(band_rel),
+                      "full_frame_row_rel_max": max(full_rel),
+                      "fd_rel_max": max(f["rel"] for f in fd)}},
+        {"name": "lockstep", "route": "cuda",
+         "source": "toypathtracer_torch/csrc/grad.cu",
+         "replaces": "toypathtracer_tpu/ops/pallas_grad.py:181",
+         "launches": train_launches["lockstep"],
+         "max_abs_err": r["lockstep_vs_plain_img_max_abs"],
+         "ms": lock_s * 1e3, "plain_ms": k1["plain_ms"],
+         "bound_ms": lock_bound,
+         "bound_by": "operations", "library_ms": None,
+         "vs_plain": {"tolerance": "image bit-equal to K3's primal, rays "
+                                   "exact",
+                      "bit_equal_to_grad_primal": r["lockstep_bit_equal"],
+                      "bit_equal_to_render_kernel":
+                          r["render_kernel_bit_equal"]}}]
 
 
 if __name__ == "__main__":

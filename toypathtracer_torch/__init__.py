@@ -2,17 +2,25 @@
 
 The same path tracer (46-sphere scene, Lambert/metal/dielectric, explicit
 light sampling, XorShift32 RNG, thin-lens camera, progressive
-accumulation, animation, Mray/s HUD) rendered on an NVIDIA H100 by a
-hand-written CUDA kernel, with a plain PyTorch version of the same
-function for the CPU.  It imports neither jax nor toypathtracer_tpu.
+accumulation, animation, Mray/s HUD) and its inverse rendering (scene
+gradients, Adam) on an NVIDIA H100 through hand-written CUDA kernels,
+with a plain PyTorch version of each for the CPU.  It imports neither jax
+nor toypathtracer_tpu.
 
 Layer map:
-  ops/tracecore.py      plain PyTorch path-tracing math (lockstep lanes)
+  inverse.py            InverseRenderer, losses, Adam (the training step)
+  demo_inverse.py       albedo-recovery demo (python -m ...demo_inverse)
+  ops/tracecore.py      plain PyTorch path-tracing math (lockstep lanes),
+                        differentiable with autograd
   ops/cuda_render.py    the render kernel's wrapper, pack_scene, launches
+  ops/cuda_grad.py      the gradient and lockstep kernels' wrappers and the
+                        autograd Function of the training step
   ops/_build.py         nvcc build of csrc/ at first use, ctypes binding
-  csrc/trace.cuh        the kernel's per-pixel code (also builds with g++)
-  csrc/render.cu        the CUDA kernel and its launcher
-  render/wavefront.py   render_frame_plain, the kernel's plain version
+  csrc/trace.cuh        the kernels' per-pixel code and its hand-written
+                        adjoint (also builds with g++)
+  csrc/render.cu        the render kernel and its launcher
+  csrc/grad.cu          the gradient and lockstep kernels and launchers
+  render/wavefront.py   the kernels' plain versions
   render/frame.py       progressive accumulation and RenderSession
   cli.py                headless HUD CLI
   io.py                 sRGB + TGA/PNG output

@@ -1,4 +1,6 @@
-// Per-pixel path-tracing core of the render kernel (csrc/render.cu).
+// Per-pixel path-tracing core of the render kernel (csrc/render.cu) and of
+// the gradient and lockstep kernels (csrc/grad.cu): render_pixel, and its
+// hand-written reverse mode grad_pixel at the end of this file.
 //
 // Replaces the TPU kernel toypathtracer_tpu/ops/pallas_render.py::
 // _render_kernel, whose body is tracecore.render_pixels_fused_merged.  The
@@ -232,51 +234,76 @@ TPT_HD void camera_ray(const float* cam, float s, float t, uint32_t& st,
                      off));
 }
 
+// NEE's cone sample toward light e from pos (Test.cpp:94-121), given its
+// two draws: the frame (sw toward the light's center, su, sv), the cone's
+// half-angle cosine cos_a_max from the light's radius, and the sampled
+// direction l.  Both nee and its adjoint build it here.
+struct Cone {
+  V3 sc, dp, sw, up, w1, su, sv, l;
+  float r, d2, cos_a_max, cos_a, sin_a, cphi, sphi;
+};
+
+TPT_HD Cone cone(const SceneView& S, int e, V3 pos, float eps1, float eps2) {
+  Cone q;
+  q.sc = v3(S.at(ROW_CX, e), S.at(ROW_CY, e), S.at(ROW_CZ, e));
+  q.r = S.at(ROW_R, e);
+  q.sw = normalize(sub(q.sc, pos));
+  q.up = fabsf(q.sw.x) > 0.01f ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
+  q.w1 = cross(q.up, q.sw);
+  q.su = normalize(q.w1);
+  q.sv = cross(q.sw, q.su);
+  q.dp = sub(pos, q.sc);
+  q.d2 = dot(q.dp, q.dp);
+  q.cos_a_max = sqrt_pos(1.0f - q.r * q.r / q.d2);
+  q.cos_a = 1.0f - eps1 + eps1 * q.cos_a_max;
+  q.sin_a = sqrt_pos(1.0f - q.cos_a * q.cos_a);
+  const float phi = TPT_TWO_PI * eps2;
+  q.cphi = cosf(phi);
+  q.sphi = sinf(phi);
+  q.l = add(add(scale(q.su, q.cphi * q.sin_a), scale(q.sv, q.sphi * q.sin_a)),
+            scale(q.sw, q.cos_a));
+  return q;
+}
+
 // Lambert NEE (Test.cpp:94-133): per light in emissive-id order, unless the
 // hit sphere is that light, a cone sample (2 draws), one shadow ray, and the
-// contribution if the light is visible.  Adds the shadow rays to `rays`.
+// contribution if the light is visible.  Adds the shadow rays to `rays` and
+// sets bit k of `see` when light k contributed.  vis=false skips the shadow
+// tests (no light is seen) but draws and counts the same: the gradient
+// kernel's replays need the path and the RNG state, not the radiance.
 TPT_HD V3 nee(const SceneView& S, const RenderParams& p, V3 pos, V3 normal,
-              V3 rd, V3 alb, int hit_id, uint32_t& st, uint32_t& rays) {
+              V3 rd, V3 alb, int hit_id, bool vis, uint32_t& st,
+              uint32_t& rays, uint32_t& see) {
   V3 light_e = v3(0.0f, 0.0f, 0.0f);
   V3 nl = dot(normal, rd) < 0.0f ? normal : neg(normal);
+  see = 0;
   for (int k = 0; k < S.n_lights; ++k) {
     int e = S.lights[k];
     if (e == hit_id) continue;  // self-skip (ComputeShader.hlsl:204)
-    V3 sc = v3(S.at(ROW_CX, e), S.at(ROW_CY, e), S.at(ROW_CZ, e));
-    float r = S.at(ROW_R, e);
-    V3 sw = normalize(sub(sc, pos));
-    V3 up = fabsf(sw.x) > 0.01f ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
-    V3 su = normalize(cross(up, sw));
-    V3 sv = cross(sw, su);
-    V3 dp = sub(pos, sc);
-    float d2 = dot(dp, dp);
-    float cos_a_max = sqrt_pos(1.0f - r * r / d2);
     float eps1 = rand01(st);
     float eps2 = rand01(st);
-    float cos_a = 1.0f - eps1 + eps1 * cos_a_max;
-    float sin_a = sqrt_pos(1.0f - cos_a * cos_a);
-    float phi = TPT_TWO_PI * eps2;
-    V3 l = add(add(scale(su, cosf(phi) * sin_a), scale(sv, sinf(phi) * sin_a)),
-               scale(sw, cos_a));
     ++rays;
+    if (!vis) continue;
+    Cone q = cone(S, e, pos, eps1, eps2);
     float t_l;
-    bool see = sphere_t(S, e, pos, l, p.t_min, t_l) && t_l < p.t_max &&
-               !occluded(S, pos, l, e, p.t_min, t_l);
-    float omega = TPT_TWO_PI * (1.0f - cos_a_max);
-    float fac = max0(dot(l, nl)) * omega / TPT_PI;
-    if (see) {
-      V3 em = v3(S.at(ROW_EM, e), S.at(ROW_EM + 1, e), S.at(ROW_EM + 2, e));
-      light_e = v3(light_e.x + (alb.x * em.x) * fac,
-                   light_e.y + (alb.y * em.y) * fac,
-                   light_e.z + (alb.z * em.z) * fac);
-    }
+    bool seen = sphere_t(S, e, pos, q.l, p.t_min, t_l) && t_l < p.t_max &&
+                !occluded(S, pos, q.l, e, p.t_min, t_l);
+    if (!seen) continue;
+    float omega = TPT_TWO_PI * (1.0f - q.cos_a_max);
+    float fac = max0(dot(q.l, nl)) * omega / TPT_PI;
+    V3 em = v3(S.at(ROW_EM, e), S.at(ROW_EM + 1, e), S.at(ROW_EM + 2, e));
+    light_e = v3(light_e.x + (alb.x * em.x) * fac,
+                 light_e.y + (alb.y * em.y) * fac,
+                 light_e.z + (alb.z * em.z) * fac);
+    see |= 1u << k;
   }
   return light_e;
 }
 
-// Schlick-weighted reflect/refract, 1 draw (Test.cpp:151-186).
+// Schlick-weighted reflect/refract, 1 draw (Test.cpp:151-186); `took_refl`
+// says which branch the draw chose.
 TPT_HD V3 scatter_dielectric(uint32_t& st, V3 rd, V3 normal, V3 refl,
-                             float ri) {
+                             float ri, bool& took_refl) {
   float rdn = dot(rd, normal);
   bool entering = rdn <= 0.0f;
   V3 outward = entering ? normal : neg(normal);
@@ -297,78 +324,385 @@ TPT_HD V3 scatter_dielectric(uint32_t& st, V3 rd, V3 normal, V3 refl,
     refl_prob = r0 + (1.0f - r0) * (x2 * x2 * x);
   }
   float rr = rand01(st);
-  return normalize(rr < refl_prob ? refl : refr);
+  took_refl = rr < refl_prob;
+  return normalize(took_refl ? refl : refr);
 }
 
-// One pixel: spp samples, each traced up to max_depth bounces; writes the
-// sample mean to out[0..2] and returns the pixel's rays (camera, bounce and
-// shadow rays).  A sample that scatters at depth max_depth keeps that
-// bounce's emission and NEE and adds no sky (ComputeShader.hlsl:300).
+// What the adjoint of a bounce needs besides the bounce's inputs.
+struct BounceRec {
+  int id;          // the sphere hit, -1 on a miss
+  float t;         // its root
+  bool scattered;  // the path goes on (false: a miss or an absorbed metal ray)
+  bool gated;      // the sphere's emission counts (the do_me gate, hlsl:314)
+  bool refl;       // dielectric: the draw chose the reflected ray
+  uint32_t see;    // NEE: bit k set when light k contributed
+};
+
+// One bounce of one sample (ComputeShader.hlsl:294-343): trace (ro, rd),
+// shade the nearest hit with NEE, scatter.  Sets this depth's emission e
+// and continuation attenuation c (the sample adds atten * e, then
+// atten *= c), advances (ro, rd, st, do_me), and returns false where the
+// path ends: a miss (e = sky) or an absorbed metal ray (e = the ungated
+// emission).
+TPT_HD bool bounce(const SceneView& S, const RenderParams& p, bool vis,
+                   V3& ro, V3& rd, uint32_t& st, bool& do_me, uint32_t& rays,
+                   V3& e, V3& c, BounceRec& rec) {
+  ++rays;
+  float t;
+  int id = nearest_hit(S, ro, rd, p.t_min, p.t_max, t);
+  rec.id = id;
+  rec.t = t;
+  rec.scattered = false;
+  rec.gated = !p.light_sampling || do_me;
+  rec.refl = false;
+  rec.see = 0;
+  c = v3(0.0f, 0.0f, 0.0f);
+  if (id < 0) {
+    e = sky_color(rd, p.mitsuba != 0);
+    return false;
+  }
+  V3 pos = add(ro, scale(rd, t));
+  V3 cen = v3(S.at(ROW_CX, id), S.at(ROW_CY, id), S.at(ROW_CZ, id));
+  V3 normal = scale(sub(pos, cen), S.at(ROW_INVR, id));
+  V3 alb = v3(S.at(ROW_ALB, id), S.at(ROW_ALB + 1, id), S.at(ROW_ALB + 2, id));
+  V3 em = v3(S.at(ROW_EM, id), S.at(ROW_EM + 1, id), S.at(ROW_EM + 2, id));
+  int mt = S.mat[id];
+  V3 refl = reflect(rd, normal);
+  V3 dir;
+  V3 light_e = v3(0.0f, 0.0f, 0.0f);
+  V3 attenuation = alb;
+  if (mt == MAT_LAMBERT) {
+    V3 ruv = unit_vector(st);
+    dir = normalize(sub(add(add(pos, normal), ruv), pos));
+    if (p.light_sampling)
+      light_e = nee(S, p, pos, normal, rd, alb, id, vis, st, rays, rec.see);
+  } else if (mt == MAT_METAL) {
+    float rough = p.mitsuba ? 0.0f : S.at(ROW_ROUGH, id);
+    V3 rius = unit_sphere(st);
+    dir = normalize(add(refl, scale(rius, rough)));
+    if (!(dot(dir, normal) > 0.0f)) {
+      e = em;
+      return false;
+    }
+  } else {
+    dir = scatter_dielectric(st, rd, normal, refl, S.at(ROW_RI, id), rec.refl);
+    attenuation = v3(1.0f, 1.0f, 1.0f);
+  }
+  V3 gated = rec.gated ? em : v3(0.0f, 0.0f, 0.0f);
+  if (p.light_sampling) do_me = mt != MAT_LAMBERT;
+  e = add(gated, light_e);
+  c = attenuation;
+  rec.scattered = true;
+  ro = pos;
+  rd = dir;
+  return true;
+}
+
+// A sample's camera ray: two jitter draws, then the thin-lens ray.
+TPT_HD void sample_ray(const float* cam, const RenderParams& p, int x, int y,
+                       uint32_t& st, V3& ro, V3& rd) {
+  float ur = rand01(st);
+  float u = ((float)x + ur) * p.inv_w;
+  float vr = rand01(st);
+  float v = ((float)y + vr) * p.inv_h;
+  camera_ray(cam, u, v, st, ro, rd);
+}
+
+// One sample traced to its end, at most max_depth bounces: returns its
+// radiance and sets `depth` to the bounces it ran.  A sample that scatters
+// at depth max_depth keeps that bounce's emission and NEE and adds no sky
+// (ComputeShader.hlsl:300).
+TPT_HD V3 trace_sample(const SceneView& S, const RenderParams& p, V3 ro,
+                       V3 rd, uint32_t& st, uint32_t& rays, int& depth) {
+  V3 col = v3(0.0f, 0.0f, 0.0f);
+  V3 atten = v3(1.0f, 1.0f, 1.0f);
+  bool do_me = true;  // emission not yet counted by NEE (hlsl:314-325)
+  V3 e, c;
+  BounceRec rec;
+  depth = 0;
+  while (depth < p.max_depth) {
+    bool go = bounce(S, p, true, ro, rd, st, do_me, rays, e, c, rec);
+    col = add(col, mul(atten, e));
+    ++depth;
+    if (!go) break;
+    atten = mul(atten, c);
+  }
+  return col;
+}
+
+// One pixel: spp samples; writes the sample mean to out[0..2] and returns
+// the pixel's rays (camera, bounce and shadow rays).
 TPT_HD uint32_t render_pixel(const SceneView& S, const float* cam,
                              const RenderParams& p, int x, int y,
                              float* out) {
   uint32_t st = seed_pixel((uint32_t)x, (uint32_t)y, p.frame);
   uint32_t rays = 0;
-  float fx = (float)x;
-  float fy = (float)y;
   V3 sum = v3(0.0f, 0.0f, 0.0f);
   for (int s = 0; s < p.spp; ++s) {
-    float ur = rand01(st);
-    float u = (fx + ur) * p.inv_w;
-    float vr = rand01(st);
-    float v = (fy + vr) * p.inv_h;
     V3 ro, rd;
-    camera_ray(cam, u, v, st, ro, rd);
-    V3 col = v3(0.0f, 0.0f, 0.0f);
-    V3 atten = v3(1.0f, 1.0f, 1.0f);
-    bool do_me = true;  // emission not yet counted by NEE (hlsl:314-325)
-    for (int depth = 0; depth < p.max_depth; ++depth) {
-      ++rays;
-      float t;
-      int id = nearest_hit(S, ro, rd, p.t_min, p.t_max, t);
-      if (id < 0) {
-        col = add(col, mul(atten, sky_color(rd, p.mitsuba != 0)));
-        break;
+    sample_ray(cam, p, x, y, st, ro, rd);
+    int depth;
+    sum = add(sum, trace_sample(S, p, ro, rd, st, rays, depth));
+  }
+  out[0] = sum.x * p.inv_spp;
+  out[1] = sum.y * p.inv_spp;
+  out[2] = sum.z * p.inv_spp;
+  return rays;
+}
+
+// ---- Adjoint: the gradient kernel's per-pixel code (csrc/grad.cu) ----
+//
+// Reverse mode written by hand: d(pixel)/d(packed scene table), the
+// function autograd differentiates through the plain version
+// (render/wavefront.render_tile_grad_plain) and the TPU kernel through
+// jax.vjp.  Hard selects are straight-through, as autograd sees them: the
+// nearest-hit argmin, the material branch, the dielectric draw, the shadow
+// test and the do_me gate pass no gradient, and a gradient reaches only
+// the values the taken branch used.  `acc` is a (SCENE_ROWS, n) cotangent
+// table that each adjoint adds to.
+
+TPT_HD void acc3(float* acc, int n, int row, int i, V3 g) {
+  acc[row * n + i] += g.x;
+  acc[(row + 1) * n + i] += g.y;
+  acc[(row + 2) * n + i] += g.z;
+}
+
+// The cotangent of a for the cotangent g of normalize(a).
+TPT_HD V3 normalize_adj(V3 a, V3 g) {
+  float inv = 1.0f / sqrtf(dot(a, a));
+  float k = dot(a, g) * inv * inv * inv;
+  return sub(scale(g, inv), scale(a, k));
+}
+
+// The winner's root t = nb -/+ sqrt(nb^2 - c) (sphere_t, same branch) back
+// to sphere i's center and radius^2 and to the ray.
+TPT_HD void sphere_t_adj(const SceneView& S, int i, V3 ro, V3 rd, float t_min,
+                         float g_t, V3& g_ro, V3& g_rd, float* acc) {
+  V3 co = v3(S.at(ROW_CX, i) - ro.x, S.at(ROW_CY, i) - ro.y,
+             S.at(ROW_CZ, i) - ro.z);
+  float nb = co.x * rd.x + co.y * rd.y + co.z * rd.z;
+  float c = co.x * co.x + co.y * co.y + co.z * co.z - S.at(ROW_SQR, i);
+  float discr = nb * nb - c;
+  float ds = sqrt_pos(discr);
+  float sign = nb - ds > t_min ? -1.0f : 1.0f;
+  float g_discr = discr > 0.0f ? sign * g_t * 0.5f / ds : 0.0f;
+  float g_nb = g_t + 2.0f * nb * g_discr;
+  float g_c = -g_discr;
+  V3 g_co = add(scale(rd, g_nb), scale(co, 2.0f * g_c));
+  g_rd = add(g_rd, scale(co, g_nb));
+  g_ro = sub(g_ro, g_co);
+  acc3(acc, S.n, ROW_CX, i, g_co);
+  acc[ROW_SQR * S.n + i] -= g_c;
+}
+
+// The cone sample back from the cotangents of l and of cos_a_max to light
+// e's center and radius and to pos.
+TPT_HD void cone_adj(const SceneView& S, int e, const Cone& q, float eps1,
+                     V3 g_l, float g_cam, V3& g_pos, float* acc) {
+  V3 g_su = scale(g_l, q.cphi * q.sin_a);
+  V3 g_sv = scale(g_l, q.sphi * q.sin_a);
+  V3 g_sw = scale(g_l, q.cos_a);
+  float g_sin = dot(g_l, q.su) * q.cphi + dot(g_l, q.sv) * q.sphi;
+  float g_cos = dot(g_l, q.sw);
+  if (1.0f - q.cos_a * q.cos_a > 0.0f) g_cos -= g_sin * q.cos_a / q.sin_a;
+  g_cam += g_cos * eps1;
+  // sv = sw x su; su = normalize(up x sw); sw = normalize(sc - pos)
+  g_sw = add(g_sw, cross(q.su, g_sv));
+  g_su = add(g_su, cross(g_sv, q.sw));
+  g_sw = add(g_sw, cross(normalize_adj(q.w1, g_su), q.up));
+  V3 g_sc = normalize_adj(neg(q.dp), g_sw);
+  g_pos = sub(g_pos, g_sc);
+  // cos_a_max = sqrt_pos(1 - r*r/d2), d2 = |pos - sc|^2
+  if (1.0f - q.r * q.r / q.d2 > 0.0f) {
+    float g_x = g_cam * 0.5f / q.cos_a_max;
+    acc[ROW_R * S.n + e] += g_x * (-2.0f * q.r / q.d2);
+    V3 g_dp = scale(q.dp, 2.0f * (g_x * (q.r * q.r / (q.d2 * q.d2))));
+    g_pos = add(g_pos, g_dp);
+    g_sc = sub(g_sc, g_dp);
+  }
+  acc3(acc, S.n, ROW_CX, e, g_sc);
+}
+
+// Adjoint of nee for the cotangent g_le of its light_e; st is the state
+// nee started from and see the lights it saw.
+TPT_HD void nee_adj(const SceneView& S, V3 pos, V3 normal, V3 rd, V3 alb,
+                    int hit_id, uint32_t st, uint32_t see, V3 g_le, V3& g_pos,
+                    V3& g_n, float* acc) {
+  bool front = dot(normal, rd) < 0.0f;
+  V3 nl = front ? normal : neg(normal);
+  V3 g_nl = v3(0.0f, 0.0f, 0.0f);
+  for (int k = 0; k < S.n_lights; ++k) {
+    int e = S.lights[k];
+    if (e == hit_id) continue;
+    float eps1 = rand01(st);
+    float eps2 = rand01(st);
+    if (!((see >> k) & 1u)) continue;
+    Cone q = cone(S, e, pos, eps1, eps2);
+    float omega = TPT_TWO_PI * (1.0f - q.cos_a_max);
+    float dl = dot(q.l, nl);
+    float fac = max0(dl) * omega / TPT_PI;
+    V3 em = v3(S.at(ROW_EM, e), S.at(ROW_EM + 1, e), S.at(ROW_EM + 2, e));
+    // light_e += (alb * em) * fac
+    acc3(acc, S.n, ROW_ALB, hit_id, mul(g_le, scale(em, fac)));
+    acc3(acc, S.n, ROW_EM, e, mul(g_le, scale(alb, fac)));
+    if (!(dl > 0.0f)) continue;  // fac = max(dl, 0) * omega / pi = 0
+    float g_fac = dot(g_le, mul(alb, em));
+    float g_dl = g_fac * omega / TPT_PI;
+    float g_cam = -TPT_TWO_PI * (g_fac * dl / TPT_PI);
+    g_nl = add(g_nl, scale(q.l, g_dl));
+    cone_adj(S, e, q, eps1, scale(nl, g_dl), g_cam, g_pos, acc);
+  }
+  g_n = add(g_n, front ? g_nl : neg(g_nl));
+}
+
+// The refracted direction of scatter_dielectric back to the ray, the normal
+// and the sphere's ri, for the cotangent g_dir of normalize(refr).
+TPT_HD void refract_adj(const SceneView& S, int id, V3 rd, V3 normal,
+                        V3 g_dir, V3& g_rd, V3& g_n, float* acc) {
+  float ri = S.at(ROW_RI, id);
+  bool entering = dot(rd, normal) <= 0.0f;
+  V3 o = entering ? normal : neg(normal);
+  float safe_ri = ri == 0.0f ? 1.0f : ri;
+  float nint = entering ? 1.0f / safe_ri : ri;
+  float dt = dot(rd, o);
+  float w = 1.0f - dt * dt;
+  float discr = 1.0f - nint * nint * w;
+  float sq = sqrt_pos(discr);
+  V3 u = sub(rd, scale(o, dt));
+  // refr = u * nint - o * sq, u = rd - o * dt
+  V3 g_r = normalize_adj(sub(scale(u, nint), scale(o, sq)), g_dir);
+  V3 g_u = scale(g_r, nint);
+  float g_nint = dot(u, g_r);
+  V3 g_o = sub(scale(g_r, -sq), scale(g_u, dt));
+  float g_dt = -dot(o, g_u);
+  if (discr > 0.0f) {  // discr = 1 - nint^2 (1 - dt^2)
+    float g_discr = -dot(o, g_r) * 0.5f / sq;
+    g_nint -= g_discr * (2.0f * nint * w);
+    g_dt += g_discr * (2.0f * nint * nint * dt);
+  }
+  g_rd = add(g_rd, add(g_u, scale(o, g_dt)));
+  g_o = add(g_o, scale(rd, g_dt));
+  if (!entering)
+    acc[ROW_RI * S.n + id] += g_nint;
+  else if (ri != 0.0f)
+    acc[ROW_RI * S.n + id] -= g_nint / (safe_ri * safe_ri);
+  g_n = add(g_n, entering ? g_o : neg(g_o));
+}
+
+// Adjoint of one bounce.  In: the bounce's inputs (ro, rd, and st as it
+// was when the bounce started), its record, the cotangents of its e and c,
+// and in g_ro/g_rd those of the ray it passed on.  Out: g_ro/g_rd hold
+// the cotangents of the ray it was given; the scene's are added to acc.
+TPT_HD void bounce_adj(const SceneView& S, const RenderParams& p, V3 ro,
+                       V3 rd, uint32_t st, const BounceRec& rec, V3 g_e,
+                       V3 g_c, V3& g_ro, V3& g_rd, float* acc) {
+  const V3 zero = v3(0.0f, 0.0f, 0.0f);
+  const V3 g_pos_out = g_ro;
+  const V3 g_dir = g_rd;
+  g_ro = zero;
+  g_rd = zero;
+  const int n = S.n;
+  const int id = rec.id;
+  if (id < 0) {  // e = sky_color(rd) = 0.3 * ((1 - t) + t * b), t = (rd.y+1)/2
+    if (!p.mitsuba)
+      g_rd.y = 0.5f * (g_e.x * ((0.5f - 1.0f) * 0.3f) +
+                       g_e.y * ((0.7f - 1.0f) * 0.3f));
+    return;
+  }
+  if (rec.gated || !rec.scattered) acc3(acc, n, ROW_EM, id, g_e);
+  if (!rec.scattered) return;  // absorbed metal: e is the emission alone
+  const V3 pos = add(ro, scale(rd, rec.t));
+  const V3 pc = sub(pos, v3(S.at(ROW_CX, id), S.at(ROW_CY, id),
+                            S.at(ROW_CZ, id)));
+  const float invr = S.at(ROW_INVR, id);
+  const V3 normal = scale(pc, invr);
+  const int mt = S.mat[id];
+  V3 g_pos = g_pos_out;
+  V3 g_n = zero;
+  V3 g_refl = zero;
+  if (mt != MAT_DIELECTRIC) acc3(acc, n, ROW_ALB, id, g_c);  // c = albedo
+  if (mt == MAT_LAMBERT) {
+    V3 ruv = unit_vector(st);
+    // (pos + normal + ruv) - pos: its derivative in pos is exactly 0
+    g_n = normalize_adj(sub(add(add(pos, normal), ruv), pos), g_dir);
+    if (p.light_sampling)
+      nee_adj(S, pos, normal, rd,
+              v3(S.at(ROW_ALB, id), S.at(ROW_ALB + 1, id),
+                 S.at(ROW_ALB + 2, id)),
+              id, st, rec.see, g_e, g_pos, g_n, acc);
+  } else if (mt == MAT_METAL) {
+    V3 rius = unit_sphere(st);
+    float rough = p.mitsuba ? 0.0f : S.at(ROW_ROUGH, id);
+    g_refl =
+        normalize_adj(add(reflect(rd, normal), scale(rius, rough)), g_dir);
+    if (!p.mitsuba) acc[ROW_ROUGH * n + id] += dot(rius, g_refl);
+  } else if (rec.refl) {
+    g_refl = normalize_adj(reflect(rd, normal), g_dir);
+  } else {
+    refract_adj(S, id, rd, normal, g_dir, g_rd, g_n, acc);
+  }
+  // refl = rd - normal * (2 (rd . normal))
+  float dn = dot(rd, normal);
+  float ng = dot(normal, g_refl);
+  g_rd = add(g_rd, sub(g_refl, scale(normal, 2.0f * ng)));
+  g_n = sub(g_n, add(scale(g_refl, 2.0f * dn), scale(rd, 2.0f * ng)));
+  // normal = (pos - center) * inv_radius
+  V3 g_pc = scale(g_n, invr);
+  g_pos = add(g_pos, g_pc);
+  acc3(acc, n, ROW_CX, id, neg(g_pc));
+  acc[ROW_INVR * n + id] += dot(pc, g_n);
+  // pos = ro + rd * t
+  g_ro = add(g_ro, g_pos);
+  g_rd = add(g_rd, scale(g_pos, rec.t));
+  sphere_t_adj(S, id, ro, rd, p.t_min, dot(g_pos, rd), g_ro, g_rd, acc);
+}
+
+// One pixel of the gradient kernel: render_pixel's primal, bit for bit,
+// into out[0..2] (returning its rays), and the pixel's scene cotangent for
+// the pixel cotangent g[0..2] added to acc.  Each sample is traced once
+// forward; then its bounces are differentiated last to first, bounce d
+// replayed from the sample's camera ray and RNG state (bounces before d
+// without NEE's shadow tests: the replay needs their path and attenuation,
+// not their radiance).  A path of L bounces costs O(L^2) bounces; most end
+// by depth 3-4.
+TPT_HD uint32_t grad_pixel(const SceneView& S, const float* cam,
+                           const RenderParams& p, int x, int y,
+                           const float* g, float* out, float* acc) {
+  const V3 zero = v3(0.0f, 0.0f, 0.0f);
+  uint32_t st = seed_pixel((uint32_t)x, (uint32_t)y, p.frame);
+  uint32_t rays = 0;
+  uint32_t replay_rays = 0;
+  // img = (sum of sample radiances) * inv_spp
+  const V3 G = v3(g[0] * p.inv_spp, g[1] * p.inv_spp, g[2] * p.inv_spp);
+  V3 sum = zero;
+  for (int s = 0; s < p.spp; ++s) {
+    V3 ro0, rd0;
+    sample_ray(cam, p, x, y, st, ro0, rd0);
+    const uint32_t st0 = st;
+    int depth;
+    sum = add(sum, trace_sample(S, p, ro0, rd0, st, rays, depth));
+    V3 g_atten = zero;
+    V3 g_ro = zero;
+    V3 g_rd = zero;
+    for (int d = depth - 1; d >= 0; --d) {
+      V3 ro = ro0, rd = rd0, atten = v3(1.0f, 1.0f, 1.0f), e, c;
+      uint32_t rs = st0;
+      bool do_me = true;
+      BounceRec rec;
+      for (int k = 0; k < d; ++k) {
+        bounce(S, p, false, ro, rd, rs, do_me, replay_rays, e, c, rec);
+        atten = mul(atten, c);
       }
-      V3 pos = add(ro, scale(rd, t));
-      V3 cen = v3(S.at(ROW_CX, id), S.at(ROW_CY, id), S.at(ROW_CZ, id));
-      V3 normal = scale(sub(pos, cen), S.at(ROW_INVR, id));
-      V3 alb = v3(S.at(ROW_ALB, id), S.at(ROW_ALB + 1, id),
-                  S.at(ROW_ALB + 2, id));
-      V3 em = v3(S.at(ROW_EM, id), S.at(ROW_EM + 1, id), S.at(ROW_EM + 2, id));
-      int mt = S.mat[id];
-      V3 refl = reflect(rd, normal);
-      V3 dir;
-      V3 light_e = v3(0.0f, 0.0f, 0.0f);
-      V3 attenuation = alb;
-      if (mt == MAT_LAMBERT) {
-        V3 ruv = unit_vector(st);
-        dir = normalize(sub(add(add(pos, normal), ruv), pos));
-        if (p.light_sampling)
-          light_e = nee(S, p, pos, normal, rd, alb, id, st, rays);
-      } else if (mt == MAT_METAL) {
-        float rough = p.mitsuba ? 0.0f : S.at(ROW_ROUGH, id);
-        V3 rius = unit_sphere(st);
-        dir = normalize(add(refl, scale(rius, rough)));
-        if (!(dot(dir, normal) > 0.0f)) {  // absorbed: ungated emission
-          col = add(col, mul(atten, em));
-          break;
-        }
-      } else {
-        dir = scatter_dielectric(st, rd, normal, refl, S.at(ROW_RI, id));
-        attenuation = v3(1.0f, 1.0f, 1.0f);
-      }
-      V3 gated = em;
-      if (p.light_sampling) {
-        if (!do_me) gated = v3(0.0f, 0.0f, 0.0f);
-        do_me = mt != MAT_LAMBERT;
-      }
-      col = add(col, mul(atten, add(gated, light_e)));
-      atten = mul(atten, attenuation);
-      ro = pos;
-      rd = dir;
+      const V3 ro_in = ro, rd_in = rd;
+      const uint32_t st_in = rs;
+      bounce(S, p, true, ro, rd, rs, do_me, replay_rays, e, c, rec);
+      // col += atten * e; atten *= c -- reversed
+      V3 g_e = mul(atten, G);
+      V3 g_c = mul(g_atten, atten);
+      g_atten = add(mul(G, e), mul(g_atten, c));
+      bounce_adj(S, p, ro_in, rd_in, st_in, rec, g_e, g_c, g_ro, g_rd, acc);
     }
-    sum = add(sum, col);
+    // the camera ray depends on no scene parameter: g_ro, g_rd end here
   }
   out[0] = sum.x * p.inv_spp;
   out[1] = sum.y * p.inv_spp;

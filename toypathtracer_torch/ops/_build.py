@@ -2,10 +2,12 @@
 with ctypes.
 
 The library is a plain C interface (no PyTorch headers), so nvcc takes
-seconds.  It lands in build/torch_kernels/ at the root of the checkout,
-named by a hash of the sources and flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is.  Nothing is built or loaded at
-import time.  A failed build raises; there is no fallback.
+seconds.  Each source compiles in its own nvcc process, all started
+together, and one more links them.  The library lands in
+build/torch_kernels/ at the root of the checkout, named by a hash of the
+sources and flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is.  Nothing is built or loaded at import time.  A failed
+build raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # sum as the plain PyTorch version does (see PERF.md).  No --use_fast_math:
 # sinf/cosf/expf/logf stay the accurate library functions.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("render.cu",)
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
+SOURCES = ("render.cu", "grad.cu")
 HEADERS = ("trace.cuh",)
 
 
@@ -64,39 +66,61 @@ def _digest() -> str:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/ into build/torch_kernels/libtpt_render_<hash>.so
-    unless that file exists; returns its path.  The compile goes to a
-    temporary name and is renamed into place, so concurrent processes
-    never load a half-written library."""
-    out = BUILD_DIR / f"libtpt_render_{_digest()}.so"
+    """Compile csrc/ into build/torch_kernels/libtpt_kernels_<hash>.so
+    unless that file exists; returns its path.  The objects and the
+    library are written in a temporary directory and the library is
+    renamed into place, so concurrent processes never load a half-written
+    one."""
+    out = BUILD_DIR / f"libtpt_kernels_{_digest()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, out)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in SOURCES:
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-c", "-o", os.path.join(tmp, src + ".o"), str(CSRC / src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        logs = []
+        for cmd, proc in jobs:
+            stdout, stderr = proc.communicate()
+            logs.append((cmd, proc.returncode, stdout, stderr))
+        so = os.path.join(tmp, "lib.so")
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", so,
+                *(os.path.join(tmp, src + ".o") for src in SOURCES)]
+        if all(rc == 0 for _, rc, _, _ in logs):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            logs.append((link, proc.returncode, proc.stdout, proc.stderr))
+        for cmd, rc, stdout, stderr in logs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
+                                   f"{stdout}{stderr}")
+        if verbose:
+            print("".join(o + e for _, _, o, e in logs), flush=True)
+        os.replace(so, out)
     return out
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C
-    interface of csrc/render.cu."""
+    interface of csrc/render.cu and csrc/grad.cu."""
     lib = ctypes.CDLL(str(build()))
     ptr = ctypes.c_void_p
-    lib.tpt_render_launch.argtypes = [ptr, ptr, ptr, ptr,
-                                      ctypes.POINTER(RenderParams),
-                                      ptr, ptr, ptr]
-    lib.tpt_render_launch.restype = ctypes.c_int
+    params = ctypes.POINTER(RenderParams)
+    lib.tpt_render_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr,
+                                      ptr]
+    lib.tpt_lockstep_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr,
+                                        ptr]
+    lib.tpt_grad_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr, ptr,
+                                    ptr, ptr, ptr]
+    lib.tpt_grad_blocks.argtypes = [params]
+    for fn in (lib.tpt_render_launch, lib.tpt_lockstep_launch,
+               lib.tpt_grad_launch, lib.tpt_grad_blocks):
+        fn.restype = ctypes.c_int
     lib.tpt_error_string.argtypes = [ctypes.c_int]
     lib.tpt_error_string.restype = ctypes.c_char_p
     return lib

@@ -79,55 +79,99 @@ def _check_scene(scene: Scene):
                              f"got {t.dtype} {tuple(t.shape)}")
 
 
-def _launch(scene: Scene, cfg: RenderConfig, frame: int, x0: int, y0: int,
-            height: int, width: int):
+def check_device(scene: Scene, *tensors):
+    """Every scene field and every given tensor on the scene's device."""
     dev = scene.device
     for name in ("center", "radius", "albedo", "emissive", "roughness", "ri"):
         if getattr(scene, name).device != dev:
             raise ValueError(f"scene.{name} is on "
                              f"{getattr(scene, name).device}, not {dev}")
-    lib = _build.load_library()
-    tab = pack_scene(scene)
-    # Host data goes up through pinned buffers without blocking, so frames
-    # queue back to back instead of draining the stream at every call.
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"a tensor is on {t.device}, not {dev}")
+
+
+def kernel_inputs(scene: Scene, cfg: RenderConfig):
+    """The kernels' static inputs on the scene's device: int32 material
+    types, emissive ids and the 22-float camera.  Host data goes up through
+    pinned buffers without blocking, so frames queue back to back instead
+    of draining the stream at every call."""
+    dev = scene.device
     n = scene.n_spheres
     ids = np.array(scene.mat_type + (scene.emissive_ids or (0,)), np.int32)
     ids = torch.from_numpy(ids).pin_memory().to(dev, non_blocking=True)
-    mat, lights = ids[:n], ids[n:]
     cam = torch.from_numpy(camera_to_array(
         make_camera(scene.camera, cfg.width / cfg.height)))
     cam = cam.pin_memory().to(dev, non_blocking=True)
+    return ids[:n], ids[n:], cam
+
+
+def checked_tab(scene: Scene, x0: int, y0: int, height: int, width: int,
+                tab=None) -> torch.Tensor:
+    """Validate a kernel call on the (height, width) sub-image at (x0, y0)
+    and return the packed table it reads (default pack_scene(scene)):
+    (SCENE_ROWS, N) float32, contiguous, detached, on the scene's
+    device."""
+    _check_scene(scene)
+    if not (height >= 1 and width >= 1 and x0 >= 0 and y0 >= 0):
+        raise ValueError(f"bad sub-image {height}x{width} at ({x0}, {y0})")
+    if tab is None:
+        tab = pack_scene(scene)
+    if tab.shape != (14, scene.n_spheres) or tab.dtype != torch.float32:
+        raise ValueError(f"packed table must be float32 (14, "
+                         f"{scene.n_spheres}), got {tab.dtype} "
+                         f"{tuple(tab.shape)}")
+    check_device(scene, tab)
+    return tab.detach().contiguous()
+
+
+def cuda_call(lib, name: str, code: int):
+    if code != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} "
+                           f"({lib.tpt_error_string(code).decode()})")
+
+
+def launch_forward(kernel: str, scene: Scene, tab: torch.Tensor,
+                   cfg: RenderConfig, frame: int, x0: int, y0: int,
+                   height: int, width: int):
+    """Launch the forward kernel tpt_<kernel>_launch ("render" or
+    "lockstep") on the current stream; returns ((height, width, 3)
+    float32 image, 0-d int64 ray count)."""
+    lib = _build.load_library()
+    mat, lights, cam = kernel_inputs(scene, cfg)
+    dev = scene.device
     out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     params = render_params(scene, cfg, frame, x0, y0, height, width)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.tpt_render_launch(
+        code = getattr(lib, f"tpt_{kernel}_launch")(
             tab.data_ptr(), mat.data_ptr(), lights.data_ptr(), cam.data_ptr(),
             ctypes.byref(params), out.data_ptr(), rays.data_ptr(), stream)
-    if code != 0:
-        raise RuntimeError(f"render kernel launch failed: CUDA error {code} "
-                           f"({lib.tpt_error_string(code).decode()})")
-    launches["render"] += 1
+    cuda_call(lib, kernel, code)
     return out, rays
 
 
 def render_tile(scene: Scene, cfg: RenderConfig, frame: int, x0: int,
-                y0: int, height: int, width: int):
+                y0: int, height: int, width: int, tab=None):
     """Render the (height, width) sub-image whose lower-left pixel is the
     global pixel (x0, y0), on the scene's device: the CUDA kernel for a
     scene on a card, the plain PyTorch version for a scene on the CPU.
+    `tab` is the packed table to render (default pack_scene(scene)); the
+    kernel does not differentiate it (ops/cuda_grad does).
 
     Returns ((height, width, 3) float32 image, 0-d int64 ray count: every
     camera, bounce and shadow ray of the sub-image's pixels)."""
-    _check_scene(scene)
-    if not (height >= 1 and width >= 1 and x0 >= 0 and y0 >= 0):
-        raise ValueError(f"bad sub-image {height}x{width} at ({x0}, {y0})")
+    tab = checked_tab(scene, x0, y0, height, width, tab)
     if scene.device.type == "cuda":
-        return _launch(scene, cfg, frame, x0, y0, height, width)
+        out = launch_forward("render", scene, tab, cfg, frame, x0, y0, height,
+                             width)
+        launches["render"] += 1
+        return out
     if scene.device.type == "cpu":
         from ..render.wavefront import render_tile_plain
-        return render_tile_plain(scene, cfg, frame, x0, y0, height, width)
+        return render_tile_plain(scene, cfg, frame, x0, y0, height, width,
+                                 tab=tab)
     raise ValueError(f"no renderer for device {scene.device}")
 
 

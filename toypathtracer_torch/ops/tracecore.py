@@ -1,13 +1,18 @@
-"""Plain PyTorch trace core (forward subset of toypathtracer_tpu/ops/
-tracecore.py).
+"""Plain PyTorch trace core (the lockstep subset of toypathtracer_tpu/ops/
+tracecore.py, with its hard-select gradients).
 
 The reference's GPU-port path-tracing math -- XorShift32 RNG, closed-form
 samplers, thin-lens camera, ray/sphere nearest hit, Lambert/metal/
 dielectric scatter, next-event estimation (NEE) with double-count
 suppression -- in eager PyTorch over 1-D batches of pixel lanes.  It is
-the plain version of the CUDA kernel (csrc/trace.cuh): the same function,
+the plain version of the CUDA kernels (csrc/trace.cuh): the same function,
 with the same float32 expression order, evaluated lane-parallel in the
 lockstep form (for each sample, for each depth, one masked bounce).
+
+Autograd through it gives the gradient the JAX package's
+trace(differentiable=True) gives and the gradient kernel computes:
+torch.where and torch.min route a cotangent only into the selected value,
+and no masked-out lane produces inf or NaN in the backward (sqrt_pos).
 
 Conventions:
   * a vec3 is a tuple of three equal-shape float32 tensors, so every dot
@@ -105,8 +110,13 @@ def reflect3(v, n):
 
 
 def sqrt_pos(x):
-    """sqrt(max(x, 0)), real-valued everywhere."""
-    return torch.sqrt(torch.clamp_min(x, 0.0))
+    """sqrt(max(x, 0)), real-valued everywhere, with a finite gradient
+    everywhere (tracecore.safe_sqrt_pos): sqrt(clamp_min(x, 0)) would
+    back-propagate 0 * inf = NaN at x <= 0 even where a later torch.where
+    drops the value (the double-where trap), so the sqrt only ever sees
+    x > 0 or 1."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
 
 
 def schlick(cosine, ri):

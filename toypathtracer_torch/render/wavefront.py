@@ -1,12 +1,14 @@
 """Whole-frame plain PyTorch renderer (counterpart of toypathtracer_tpu/
 render/wavefront.py).
 
-`render_frame_plain` is the plain version of the CUDA render kernel: the
-same inputs (packed scene table, material types, emissive ids, the
-22-float camera), the same per-pixel function, vectorised over pixels in
-eager torch.  ops/cuda_render takes it for CPU tensors, and chip_smoke.py
-holds the kernel against it on the card.  Nothing on the main path calls
-it when a card is present.
+`render_tile_plain` is the plain version of the CUDA render kernel and of
+the lockstep kernel: the same inputs (packed scene table, material types,
+emissive ids, the 22-float camera), the same per-pixel function,
+vectorised over pixels in eager torch.  `render_tile_grad_plain` runs
+autograd through it: the plain version of the gradient kernel.  The
+ops/ wrappers take them for CPU tensors, and chip_smoke.py holds the
+kernels against them on the card.  Nothing on the main path calls them
+when a card is present.
 
 Image layout: (H, W, 3) float32 with row 0 at the bottom (v ~ 0), the
 reference backbuffer layout (Test.cpp:278-297).
@@ -30,17 +32,33 @@ def camera_scalars(scene: Scene, cfg: RenderConfig) -> dict:
             for k, v in cam.items()}
 
 
+def check_hard_gradients(cfg: RenderConfig):
+    """The gradient routes differentiate the hard-select estimator only.
+    The soft-silhouette estimator changes the gradient and not the image,
+    so ignoring it would hand back a wrong gradient without a sign."""
+    if cfg.soft_silhouette_eps > 0.0:
+        raise NotImplementedError(
+            "soft_silhouette_eps > 0: the soft-silhouette gradient estimator "
+            "is not ported yet (ROADMAP.md queue 1 item 7b); "
+            "use soft_silhouette_eps=0")
+
+
 def render_tile_plain(scene: Scene, cfg: RenderConfig, frame: int, x0: int,
-                      y0: int, height: int, width: int):
+                      y0: int, height: int, width: int, tab=None):
     """Render the (height, width) sub-image whose lower-left pixel is the
-    global pixel (x0, y0), on the scene's device.  Returns
-    ((height, width, 3) float32, int64 ray count as a 0-d tensor)."""
+    global pixel (x0, y0), on the scene's device, from `tab` (default
+    pack_scene(scene)).  Autograd runs through it when `tab` or the scene
+    requires grad.  Returns ((height, width, 3) float32, int64 ray count
+    as a 0-d tensor)."""
     dev = scene.device
     yy, xx = torch.meshgrid(
         torch.arange(y0, y0 + height, device=dev, dtype=torch.int64),
         torch.arange(x0, x0 + width, device=dev, dtype=torch.int64),
         indexing="ij")
-    tab = pack_scene(scene)
+    if tab is None:
+        tab = pack_scene(scene)
+    if torch.is_grad_enabled() and tab.requires_grad:
+        check_hard_gradients(cfg)
     mat = torch.tensor(scene.mat_type, dtype=torch.int64, device=dev)
     col, work = tc.render_pixels(
         tab, mat, scene.emissive_ids, cfg, camera_scalars(scene, cfg),
@@ -54,3 +72,23 @@ def render_frame_plain(scene: Scene, cfg: RenderConfig, frame: int):
     per-pixel RNG (ComputeShader.hlsl:380).  Returns ((H, W, 3) float32,
     0-d int64 ray count)."""
     return render_tile_plain(scene, cfg, frame, 0, 0, cfg.height, cfg.width)
+
+
+def render_tile_grad_plain(scene: Scene, cfg: RenderConfig, frame: int,
+                           g_img, x0: int, y0: int, height: int, width: int,
+                           tab=None):
+    """Value and packed-scene cotangent of a sub-image for the pixel
+    cotangent g_img ((height, width, 3)): autograd through
+    render_tile_plain, the gradient kernel's plain version.  Its graph
+    holds every bounce's (pixels, spheres) intermediates, so it takes a
+    band of a large frame, not the frame.  Returns (image, 0-d int64 ray
+    count, d_packed (SCENE_ROWS, N) float32)."""
+    check_hard_gradients(cfg)
+    if tab is None:
+        tab = pack_scene(scene)
+    tab = tab.detach().requires_grad_(True)
+    with torch.enable_grad():
+        img, rays = render_tile_plain(scene, cfg, frame, x0, y0, height,
+                                      width, tab=tab)
+        d_tab, = torch.autograd.grad(img, tab, g_img.to(img))
+    return img.detach(), rays, d_tab
