@@ -22,7 +22,18 @@ non-zero):
      one gradient launch), the full frame's gradient against 45 bands of
      16 rows, one band against plain autograd, finite differences.
   7. gradient timing with CUDA events and the host clock.
-  8. the `kernels` line: render, grad, lockstep.
+  8. the scaled path (make_scaled_scene(100_000): 100,096 spheres in 391
+     chunks, 8 beacons) at 1280x720, spp 4, depth 10: RenderSession, 4
+     progressive frames plus 1 animated frame (one scaled_render launch a
+     frame), and the ChunkedScenePort queries on frame 0's camera rays
+     (K5) and on their first Lambert hits' cone samples (K6).
+  9. K5 (camera rays and 65,536 random rays) and K6 (the 8 lights' cone
+     samples) vs their plain versions at the full scene; the scaled render
+     kernel vs plain at 320x176 / spp 1 / depth 4 (frames 0-1) and on a
+     16-row band at full size; the full frame's plain work counts.
+ 10. scaled timing with CUDA events, bounds from the plain work counters.
+ 11. the `kernels` line: render, grad, lockstep, scaled_render,
+     hit_chunks, shadow_chunks.
 Then the card's name and power limit as nvidia-smi reports them, and the
 `ok` line last.  Exits non-zero without a CUDA device.
 """
@@ -230,7 +241,8 @@ def main() -> int:
     _, work = tc.render_pixels(
         tab, mat, scene.emissive_ids, cfg, camera_scalars(scene, cfg),
         xx.reshape(-1), yy.reshape(-1), 0)
-    traced, shadow, occ_tests = (int(w.sum()) for w in work)
+    traced, shadow, occ_tests = (int(w.sum()) for w in (
+        work.traced, work.shadow, work.occlusion_tests))
     ops = (19 * scene.n_spheres * traced + 19 * shadow + 20 * occ_tests)
     ops_ms = ops / 67e12 * 1e3
     # bytes: the packed scene, material ids, lights and camera read once,
@@ -257,6 +269,7 @@ def main() -> int:
                        dict(ops=ops, bytes=n_bytes, traced=traced,
                             shadow=shadow, plain_ms=plain_ms,
                             plain_img=plain_img))
+    scaled = scaled_phases(cfg, smi)
 
     emit({"kernels": [{
         "name": "render", "route": "cuda",
@@ -272,7 +285,7 @@ def main() -> int:
                      "mean_abs_diff": f0["mean_abs_diff"],
                      "frac_within_1e-4": f0["frac_within_1e-4"],
                      "block_mean_abs": bm, "block_max_abs": bx}},
-        *grad]})
+        *grad, *scaled]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -520,6 +533,313 @@ def grad_phases(cfg, scene, scene_d, smi, k1):
                       "bit_equal_to_grad_primal": r["lockstep_bit_equal"],
                       "bit_equal_to_render_kernel":
                           r["render_kernel_bit_equal"]}}]
+
+
+def scaled_phases(cfg, smi):
+    """Phases 8-10: the scaled scene's main path, its kernels against
+    their plain versions at the full 100k-sphere scene, and their timing.
+    Returns the three kernels' entries of the `kernels` line."""
+    import numpy as np
+
+    from toypathtracer_torch import (FLAG_ANIMATE, FLAG_PROGRESSIVE,
+                                     make_scaled_scene)
+    from toypathtracer_torch.ops import cuda_render, cuda_scaled
+    from toypathtracer_torch.ops import tracecore as tc
+    from toypathtracer_torch.profiling import time_device_call
+    from toypathtracer_torch.render import frame as frame_mod
+    from toypathtracer_torch.render.wavefront import camera_scalars
+    from toypathtracer_torch.scaled import (ChunkedScenePort, ChunkTraversal,
+                                            pack_chunks,
+                                            render_tile_scaled_plain)
+
+    dev = torch.device("cuda")
+    t_min, t_max = float(np.float32(cfg.min_t)), float(np.float32(cfg.max_t))
+    H, W = cfg.height, cfg.width
+    scene = make_scaled_scene(100_000)
+    sd = scene.to(dev)
+    K, C = sd.chunk, sd.n_chunks
+    rows = pack_chunks(sd)
+    tab = cuda_render.pack_scene(sd)
+    mat = sd.mat_ids().long()
+    trav = ChunkTraversal(rows, K)
+    lights = list(sd.emissive_ids)
+    scene_bytes = 4 * (tab.numel() + rows.numel() + mat.numel())
+
+    # frame 0's camera rays, one per pixel (each pixel's first sample)
+    yy, xx = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    px, py = xx.reshape(-1), yy.reshape(-1)
+    st = tc.seed_pixels(px, py, 0)
+    st, ur = tc.rand01(st)
+    st, vr = tc.rand01(st)
+    u = (px.to(torch.float32) + ur) * float(np.float32(cfg.inv_width))
+    v = (py.to(torch.float32) + vr) * float(np.float32(cfg.inv_height))
+    st, cam_ro, cam_rd = tc.camera_get_ray(camera_scalars(scene, cfg), u, v,
+                                           st)
+
+    # ---- 8. the scaled main path ----------------------------------------
+    t0 = time.perf_counter()
+    for k in cuda_scaled.launches:
+        cuda_scaled.launches[k] = 0
+    sess = frame_mod.RenderSession(scene, cfg, flags=FLAG_PROGRESSIVE,
+                                   device="cuda")
+    rays = []
+    img0 = None
+    for f in range(4):
+        img, r = sess.step(time=0.0)
+        if f == 0:
+            img0 = img.clone()
+        rays.append(r)
+    accum = sess.state.accum.clone()
+    sess.set_flags(FLAG_PROGRESSIVE | FLAG_ANIMATE)
+    img_anim, rays_anim = sess.step(time=1.0)
+    img_anim = img_anim.clone()
+    # the traversal queries of ChunkedScenePort: frame 0's camera rays (K5),
+    # then NEE's shadow rays from their first Lambert hits (K6), the cone
+    # samples drawn as tracecore.bounce draws them
+    port = ChunkedScenePort(sess.scene)
+    hit_t, hit_id = port.hit_chunks(cam_ro, cam_rd, cfg.min_t, cfg.max_t)
+    idl = hit_id.long()
+    sel = ((idl >= 0) & (mat[idl.clamp_min(0)] == 0)).nonzero().squeeze(1)
+    pos = tuple((o + d * hit_t)[sel] for o, d in zip(cam_ro, cam_rd))
+    st_l, _ = tc.random_unit_vector(st[sel])
+    _, cones = tc.nee_cones(tab, lights, pos, idl[sel],
+                            torch.ones_like(sel, dtype=torch.bool), st_l)
+    dirs = [c[2] for c in cones]
+    visible = port.lights_visible(pos, dirs, lights, cfg.min_t, cfg.max_t)
+    torch.cuda.synchronize()
+    main_launches = dict(cuda_scaled.launches)
+    rays = [int(r) for r in rays]
+    anim_diff = float((img_anim - img0).abs().max())
+    main = {"phase": "scaled_main_path", "spheres": sd.n_spheres,
+            "chunks": C, "lights": len(lights), "frames": 5,
+            "launches": main_launches, "rays_per_frame": rays,
+            "rays_animated": int(rays_anim),
+            "accum_finite": bool(torch.isfinite(accum).all()),
+            "animated_vs_static_max_abs": anim_diff,
+            "camera_rays": int(hit_id.numel()),
+            "camera_hits": int((hit_id >= 0).sum()),
+            "lambert_hits": int(sel.numel()),
+            "visible_light_samples": int(sum(int(x.sum()) for x in visible)),
+            "seconds": time.perf_counter() - t0}
+    emit(main)
+    check(main_launches == {"scaled_render": 5, "hit_chunks": 1,
+                            "shadow_chunks": 1},
+          f"scaled main path launched {main_launches}")
+    check(tuple(accum.shape) == (720, 1280, 3) and main["accum_finite"],
+          "scaled accumulated image shape/finite")
+    check(anim_diff > 1e-3, "the animated frame equals the static one")
+    check(min(rays) > H * W, "scaled frames traced too few rays")
+
+    # ---- 9. kernels vs plain at the full scene ----------------------------
+    def hit_case(name, ro, rd):
+        t1 = time.perf_counter()
+        t_k, id_k = cuda_scaled.hit_chunks(rows, ro, rd, K, t_min, t_max)
+        plain_s, (t_p, id_p, slabs, spheres) = time_device_call(
+            trav.nearest_hit, ro, rd, t_min, t_max)
+        ms = time_device_call(cuda_scaled.hit_chunks, rows, ro, rd, K, t_min,
+                              t_max, repeats=3)[0] * 1e3
+        agree = id_k.long() == id_p
+        both = agree & (id_p >= 0)
+        n = int(id_k.numel())
+        ops = 12 * int(slabs.sum()) + 19 * int(spheres.sum())
+        n_bytes = 4 * rows.numel() + n * (6 * 4 + 8)
+        check(bool(both.any()), f"K5 {name}: no ray hit")
+        r = {"phase": "hit_chunks_vs_plain", "case": name, "rays": n,
+             "hits": int((id_p >= 0).sum()),
+             "id_mismatch": int((~agree).sum()),
+             "t_rel_max": float(((t_k - t_p).abs() / t_p.abs())[both].max()),
+             "t_abs_max": float((t_k - t_p).abs()[both].max()),
+             "slab_tests": int(slabs.sum()),
+             "sphere_tests": int(spheres.sum()), "ms": ms,
+             "plain_ms": plain_s * 1e3, "bound_fp32_ops": ops,
+             "bound_bytes": n_bytes,
+             "bound_ms": max(ops / 67e12, n_bytes / 3.35e12) * 1e3,
+             "bound_by": "operations" if ops / 67e12 >= n_bytes / 3.35e12
+             else "bytes", "seconds": time.perf_counter() - t1}
+        emit(r)
+        check(r["id_mismatch"] <= 1e-5 * n, f"K5 {name}: ids")
+        check(r["t_rel_max"] <= 1e-6, f"K5 {name}: t")
+        return r, (slabs, spheres)
+
+    k5, k5_work = hit_case("camera_1280x720", cam_ro, cam_rd)
+    rng = np.random.default_rng(5)
+    o = rng.uniform((-150.0, 0.5, -150.0), (150.0, 12.0, 150.0),
+                    (65536, 3)).astype(np.float32).T
+    d = rng.normal(size=(3, 65536)).astype(np.float32)
+    d /= np.sqrt((d * d).sum(axis=0))
+    hit_case("random_65536", tuple(torch.from_numpy(o.copy()).to(dev)),
+             tuple(torch.from_numpy(d).to(dev)))
+
+    t1 = time.perf_counter()
+    t_ls = [tc.sphere_t(tab[0, e], tab[1, e], tab[2, e], tab[3, e], pos, l,
+                        t_min)[0] for e, l in zip(lights, dirs)]
+    flat = tuple(x for l in dirs for x in l)
+    bits_k = cuda_scaled.shadow_chunks(rows, pos, flat, tuple(t_ls), K,
+                                       lights, t_min)
+    plain_s, (bits_p, slabs, spheres) = time_device_call(
+        trav.occlusion_bits, pos, dirs, t_ls, lights, t_min)
+    ms = time_device_call(cuda_scaled.shadow_chunks, rows, pos, flat,
+                          tuple(t_ls), K, lights, t_min, repeats=3)[0] * 1e3
+    n = int(bits_k.numel())
+    diff = bits_k ^ bits_p
+    ops = 12 * int(slabs.sum()) + 20 * int(spheres.sum())
+    n_bytes = 4 * rows.numel() + n * 4 * (3 + 4 * len(lights) + 1)
+    k6 = {"phase": "shadow_chunks_vs_plain", "rays": n,
+          "lights": len(lights), "ray_mismatch": int((diff != 0).sum()),
+          "bit_mismatch": int(sum(int(((diff >> k) & 1).sum())
+                                  for k in range(len(lights)))),
+          "occluded_bits": int(sum(int(((bits_p >> k) & 1).sum())
+                                   for k in range(len(lights)))),
+          "slab_tests": int(slabs.sum()), "sphere_tests": int(spheres.sum()),
+          "ms": ms, "plain_ms": plain_s * 1e3, "bound_fp32_ops": ops,
+          "bound_bytes": n_bytes,
+          "bound_ms": max(ops / 67e12, n_bytes / 3.35e12) * 1e3,
+          "bound_by": "operations" if ops / 67e12 >= n_bytes / 3.35e12
+          else "bytes", "seconds": time.perf_counter() - t1}
+    emit(k6)
+    check(k6["ray_mismatch"] <= 1e-5 * n, "K6: occlusion bits")
+
+    small = cfg.replace(width=320, height=176, samples_per_pixel=1,
+                        max_depth=4)
+    for frame in range(2):
+        t1 = time.perf_counter()
+        img_k, rays_k = cuda_scaled.render_tile_scaled(sd, small, frame, 0, 0,
+                                                       176, 320)
+        img_p, rays_p = render_tile_scaled_plain(sd, small, frame, 0, 0, 176,
+                                                 320)
+        torch.cuda.synchronize()
+        r = compare(img_k, rays_k, img_p, rays_p)
+        emit({"phase": "scaled_render_vs_plain", "size": "320x176",
+              "frame": frame, **r, "seconds": time.perf_counter() - t1})
+        check(r["finite"], f"scaled 320x176 frame {frame}: finite")
+        check(r["rays_rel_diff"] <= 5e-4, f"scaled 320x176 frame {frame}: "
+              "rays")
+        check(r["mean_abs_diff"] <= 1e-3, f"scaled 320x176 frame {frame}: "
+              "mean")
+    t1 = time.perf_counter()
+    y0 = H // 2 - 8
+    img_k, rays_k = cuda_scaled.render_tile_scaled(sd, cfg, 0, 0, y0, 16, W)
+    img_p, rays_p = render_tile_scaled_plain(sd, cfg, 0, 0, y0, 16, W)
+    torch.cuda.synchronize()
+    band = compare(img_k, rays_k, img_p, rays_p)
+    emit({"phase": "scaled_render_vs_plain", "size": f"16x{W} band at row "
+          f"{y0} of 1280x720, spp 4, depth 10", "frame": 0, **band,
+          "seconds": time.perf_counter() - t1})
+    check(band["finite"] and band["rays_rel_diff"] <= 5e-4
+          and band["mean_abs_diff"] <= 1e-3, "scaled full-size band")
+
+    # the full frame through the plain version: its work counters give the
+    # bound, and its image one more comparison
+    t1 = time.perf_counter()
+    full_plain_s, (img_fp, rays_fp, work) = time_device_call(
+        render_tile_scaled_plain, sd, cfg, 0, 0, 0, H, W, True)
+    img_fk, rays_fk = cuda_scaled.render_tile_scaled(sd, cfg, 0, 0, 0, H, W)
+    torch.cuda.synchronize()
+    full = compare(img_fk, rays_fk, img_fp, rays_fp)
+    w = {k: int(getattr(work, k).sum()) for k in work._fields}
+    emit({"phase": "scaled_render_vs_plain", "size": "1280x720", "frame": 0,
+          **full, "work": w, "seconds": time.perf_counter() - t1})
+    check(full["finite"] and full["rays_rel_diff"] <= 5e-4
+          and full["mean_abs_diff"] <= 1e-3, "scaled full frame vs plain")
+
+    # ---- 10. timing ------------------------------------------------------
+    t1 = time.perf_counter()
+    small_s, _ = time_device_call(cuda_scaled.render_tile_scaled, sd, small,
+                                  0, 0, 0, 176, 320, repeats=3)
+    small_plain_s, (_, small_rays, small_work) = time_device_call(
+        render_tile_scaled_plain, sd, small, 0, 0, 0, 176, 320, True)
+    full_s, _ = time_device_call(cuda_scaled.render_tile_scaled, sd, cfg, 0,
+                                 0, 0, H, W, repeats=3)
+    sess = frame_mod.RenderSession(scene, cfg, flags=FLAG_PROGRESSIVE,
+                                   device="cuda")
+    sess.step(time=0.0)
+    timed = []
+    step_s, _ = time_device_call(
+        lambda: timed.append(sess.step(time=0.0)[1]), repeats=3)
+    step_rays = frame_mod.sum_rays(torch.stack(timed)) / len(timed)
+
+    def render_bound(w, pixels):
+        ops = (12 * w["slab_tests"] + 19 * w["hit_tests"]
+               + 19 * w["shadow"] + 20 * w["occlusion_tests"])
+        n_bytes = scene_bytes + 4 * 3 * pixels + 8
+        return ops, n_bytes, max(ops / 67e12, n_bytes / 3.35e12) * 1e3
+
+    def warp_efficiency(lane_ops, rows, cols):
+        """sum / (32 x the warp's most) of per-lane operation counts over
+        the kernel's warps of rows x cols lanes: the share of a warp's
+        lane-steps that do work if each warp runs as long as its busiest
+        lane (an upper count: lanes also wait on each other inside a
+        pixel's sequence of loops)."""
+        h, w = lane_ops.shape
+        g = lane_ops.double().reshape(h // rows, rows, w // cols, cols)
+        g = g.permute(0, 2, 1, 3).reshape(-1, rows * cols)
+        return float(g.sum() / (g.amax(dim=1).sum() * rows * cols))
+
+    pix_ops = (12 * work.slab_tests + 19 * work.hit_tests + 19 * work.shadow
+               + 20 * work.occlusion_tests).reshape(H, W)
+    # K5/K6: 32 consecutive rays a warp; the render kernel: 16x2 pixels
+    divergence = {
+        "render_1280x720": warp_efficiency(pix_ops, 2, 16),
+        "hit_chunks_camera": warp_efficiency(
+            (12 * k5_work[0] + 19 * k5_work[1]).reshape(-1, 32), 1, 32),
+    }
+    sw = {k: int(getattr(small_work, k).sum()) for k in small_work._fields}
+    ops_f, bytes_f, bound_f = render_bound(w, H * W)
+    ops_s, bytes_s, bound_s = render_bound(sw, 176 * 320)
+    timing = {"phase": "scaled_timing", "nvidia_smi": smi,
+              "full_kernel_ms": full_s * 1e3,
+              "full_plain_ms": full_plain_s * 1e3,
+              "full_rays": int(rays_fk),
+              "full_kernel_mray_s": int(rays_fk) / full_s * 1e-6,
+              "session_step_ms": step_s * 1e3,
+              "session_mray_s": step_rays / step_s * 1e-6,
+              "full_bound_fp32_ops": ops_f, "full_bound_bytes": bytes_f,
+              "full_bound_ms": bound_f,
+              "small_kernel_ms": small_s * 1e3,
+              "small_plain_ms": small_plain_s * 1e3,
+              "small_rays": int(small_rays),
+              "small_kernel_mray_s": int(small_rays) / small_s * 1e-6,
+              "small_work": sw, "small_bound_fp32_ops": ops_s,
+              "small_bound_ms": bound_s,
+              "hit_chunks_ms": k5["ms"], "shadow_chunks_ms": k6["ms"],
+              "warp_work_efficiency": divergence,
+              "bound_peak": "67 TFLOP/s FP32, 3.35 TB/s (H100 SXM, 700 W)",
+              "seconds": time.perf_counter() - t1}
+    emit(timing)
+    tol = "rays rel <= 5e-4, mean |diff| <= 1e-3 (320x176 frames 0-1, " \
+          "16-row band and full frame at 1280x720)"
+    return [
+        {"name": "scaled_render", "route": "cuda",
+         "source": "toypathtracer_torch/csrc/scaled.cu",
+         "replaces": "toypathtracer_tpu/scaled.py:816",
+         "launches": main_launches["scaled_render"],
+         "max_abs_err": full["max_abs_diff"],
+         "ms": full_s * 1e3, "plain_ms": full_plain_s * 1e3,
+         "bound_ms": bound_f,
+         "bound_by": "operations" if ops_f / 67e12 >= bytes_f / 3.35e12
+         else "bytes", "library_ms": None,
+         "vs_plain": {"tolerance": tol, "band": band, "full_frame": full}},
+        {"name": "hit_chunks", "route": "cuda",
+         "source": "toypathtracer_torch/csrc/scaled.cu",
+         "replaces": "toypathtracer_tpu/ops/scaled_pallas.py:64",
+         "launches": main_launches["hit_chunks"],
+         "max_abs_err": k5["t_abs_max"], "ms": k5["ms"],
+         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+         "bound_by": k5["bound_by"], "library_ms": None,
+         "vs_plain": {"tolerance": "ids equal on all but 1e-5 of the rays, "
+                                   "t rel <= 1e-6 where they agree",
+                      "id_mismatch": k5["id_mismatch"],
+                      "t_rel_max": k5["t_rel_max"]}},
+        {"name": "shadow_chunks", "route": "cuda",
+         "source": "toypathtracer_torch/csrc/scaled.cu",
+         "replaces": "toypathtracer_tpu/ops/scaled_pallas.py:143",
+         "launches": main_launches["shadow_chunks"],
+         "max_abs_err": float(k6["bit_mismatch"] > 0), "ms": k6["ms"],
+         "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
+         "bound_by": k6["bound_by"], "library_ms": None,
+         "vs_plain": {"tolerance": "bits equal on all but 1e-5 of the rays",
+                      "ray_mismatch": k6["ray_mismatch"]}}]
 
 
 if __name__ == "__main__":

@@ -9,7 +9,10 @@ Tolerances: the gates of chip_smoke.py.  Render kernel: rays 5e-4
 relative, mean |diff| 1e-3; measured on an H100 at 320x176: rays exact,
 max |diff| 1.9e-6.  Gradient kernel: rays exact, d_packed per row within
 1e-3 x the row's max |plain autograd|; measured on an H100 at 320x176:
-at most 4.9e-6.
+at most 4.9e-6.  Scaled kernels (n=3000, chunk 256): the traversal K5 and
+the shadow bitmask K6 equal to their plain versions on all but 1e-5 of
+the rays, t within 1e-6 relative where the ids agree; the scaled render
+kernel at 64x32 with the render kernel's gates.
 """
 
 import numpy as np
@@ -18,10 +21,14 @@ import torch
 
 from toypathtracer_torch import FLAG_PROGRESSIVE, RenderConfig, make_scene
 from toypathtracer_torch.inverse import InverseRenderer
-from toypathtracer_torch.ops import cuda_grad, cuda_render
+from toypathtracer_torch.ops import cuda_grad, cuda_render, cuda_scaled
+from toypathtracer_torch.ops import tracecore as tc
 from toypathtracer_torch.render.frame import RenderSession
 from toypathtracer_torch.render.wavefront import (render_frame_plain,
                                                   render_tile_grad_plain)
+from toypathtracer_torch.scaled import (ChunkTraversal, ChunkedScenePort,
+                                        make_scaled_scene, pack_chunks,
+                                        render_frame_scaled_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -117,3 +124,76 @@ def test_inverse_renderer_on_the_card(card):
                              resample=False)
     assert fitted.albedo.device.type == "cuda"
     assert losses[-1] < losses[0] * 0.3, losses
+
+
+def random_rays(card, n, seed):
+    rng = np.random.default_rng(seed)
+    ro = rng.uniform(-30, 30, (3, n)).astype(np.float32)
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    d /= np.sqrt((d * d).sum(axis=0))
+    return (tuple(torch.from_numpy(ro).to(card)),
+            tuple(torch.from_numpy(d).to(card)))
+
+
+def test_hit_chunks_kernel_matches_plain(card):
+    scene = make_scaled_scene(n=3000, chunk=256, extent=40.0).to(card)
+    ro, rd = random_rays(card, 8192, 5)
+    before = cuda_scaled.launches["hit_chunks"]
+    t, hid = ChunkedScenePort(scene).hit_chunks(ro, rd, 1e-3, 1e7)
+    assert cuda_scaled.launches["hit_chunks"] == before + 1
+    tp, idp, _, _ = ChunkTraversal(pack_chunks(scene), 256).nearest_hit(
+        ro, rd, float(np.float32(1e-3)), 1e7)
+    torch.cuda.synchronize()
+    agree = hid.long() == idp
+    assert int((~agree).sum()) <= 1e-5 * hid.numel()
+    rel = ((t - tp).abs() / tp.abs())[agree]
+    assert float(rel.max()) <= 1e-6 and int((hid >= 0).sum()) > 100
+
+
+def test_shadow_chunks_kernel_matches_plain(card):
+    scene = make_scaled_scene(n=3000, chunk=256, extent=40.0).to(card)
+    ro, _ = random_rays(card, 8192, 3)
+    lights = list(scene.emissive_ids)[:4]
+    dirs, t_ls = [], []
+    for e in lights:
+        c = scene.center[e]
+        d = tuple(c[a] - ro[a] for a in range(3))
+        dirs.append(tc.normalize3(d))
+        t_ls.append(tc.sphere_t(c[0], c[1], c[2], scene.radius[e] ** 2, ro,
+                                dirs[-1], 1e-3)[0])
+    rows = pack_chunks(scene)
+    before = cuda_scaled.launches["shadow_chunks"]
+    bits = cuda_scaled.shadow_chunks(rows, ro, tuple(x for l in dirs
+                                                     for x in l),
+                                     tuple(t_ls), 256, lights, 1e-3)
+    assert cuda_scaled.launches["shadow_chunks"] == before + 1
+    want, _, _ = ChunkTraversal(rows, 256).occlusion_bits(
+        ro, dirs, t_ls, lights, float(np.float32(1e-3)))
+    torch.cuda.synchronize()
+    assert int((bits != want).sum()) <= 1e-5 * bits.numel()
+    assert 0 < float((want != 0).double().mean()) < 1
+
+
+def test_scaled_render_kernel_matches_plain(card):
+    scene = make_scaled_scene(n=3000, chunk=256, extent=40.0).to(card)
+    cfg = RenderConfig(width=64, height=32, samples_per_pixel=2, max_depth=4)
+    before = cuda_scaled.launches["scaled_render"]
+    img, rays = cuda_scaled.render_frame_scaled(scene, cfg, 1)
+    assert cuda_scaled.launches["scaled_render"] == before + 1
+    plain, prays = render_frame_scaled_plain(scene, cfg, 1)
+    torch.cuda.synchronize()
+    assert img.device.type == "cuda" and torch.isfinite(img).all()
+    assert abs(int(rays) - int(prays)) <= 5e-4 * int(prays)
+    assert float((img - plain).abs().mean()) <= 1e-3
+
+
+def test_scaled_session_runs_on_the_card(card):
+    cfg = RenderConfig(width=64, height=32, samples_per_pixel=1, max_depth=4)
+    sess = RenderSession(make_scaled_scene(n=3000, chunk=256, extent=40.0),
+                         cfg, flags=FLAG_PROGRESSIVE)
+    before = cuda_scaled.launches["scaled_render"]
+    img, rays = sess.steps(0.0, 3)
+    torch.cuda.synchronize()
+    assert cuda_scaled.launches["scaled_render"] == before + 3
+    assert img.device.type == "cuda" and torch.isfinite(img).all()
+    assert rays.shape == (3,) and int(rays.min()) > 0

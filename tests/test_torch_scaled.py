@@ -1,0 +1,295 @@
+"""The scaled scene in the port (toypathtracer_torch/scaled.py and
+ops/cuda_scaled.py on the CPU) against the JAX package's scaled.py and
+ops/scaled_pallas.py.
+
+Tolerances:
+  * scene arrays: bit-equal (the same numpy construction); animated
+    beacons within 1e-5 relative (torch and XLA cos/sin differ in the last
+    bits), everything else bit-equal;
+  * the traversal, against the jnp chunk scan and the Pallas kernels in
+    interpret mode: ids and occlusion bits exactly equal; t within 2e-4
+    relative.  XLA on the CPU contracts the root's products into FMAs
+    (emulating that reproduces its t on 74% of hit lanes, the port's
+    unfused arithmetic on 10%), and discr = nb^2 - c cancels (nb^2 ~
+    3600 against r^2 ~ 0.1), so t differs on 90% of hit lanes, by up to
+    8.9e-5 relative (measured).  The port's rounding is the CUDA
+    kernels' (-fmad=false): tests/test_torch_scaled_kernel_cpu.py holds
+    the two exactly;
+  * the render against render_frame_scaled(pallas=False) at 48x16, spp 1,
+    depth 3, n=800, chunk 128, frames 0-1: a 1-ulp transcendental
+    difference (torch CPU vs XLA CPU) flips a few Monte-Carlo decisions,
+    and with beacons of emission 10-40 a flipped pixel moves by up to
+    0.2.  Measured: rays exact, 3 of 768 pixels beyond 1e-4, mean |diff|
+    2.6e-4 (frame 0) and 2.1e-4 (frame 1).  Gates: rays within 1e-3
+    relative, 98.5% of pixels within 1e-4 (tests/test_torch_frame.py's
+    gate), mean |diff| <= 6e-4;
+  * culling: bit for bit against a single chunk.
+"""
+
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from toypathtracer_tpu import RenderConfig as JConfig
+from toypathtracer_tpu import scaled as jscaled
+from toypathtracer_tpu.ops.scaled_pallas import (LANE_TILE, hit_chunks_tiles,
+                                                 shadow_chunks_tiles)
+from toypathtracer_torch import (FLAG_ANIMATE, FLAG_PROGRESSIVE,
+                                 RenderConfig, ScaledScene,
+                                 make_scaled_scene, scaled_scene_from_arrays)
+from toypathtracer_torch.cli import main as cli_main
+from toypathtracer_torch.ops import cuda_scaled
+from toypathtracer_torch.render.frame import RenderSession
+from toypathtracer_torch.scaled import (ChunkedScenePort, pack_chunks,
+                                        render_frame_scaled_plain)
+
+torch.set_num_threads(1)
+
+FIELDS = ("center", "radius", "albedo", "emissive", "roughness", "ri",
+          "mat_is_lam", "mat_is_met", "mat_is_die", "chunk_aabb")
+CFG = RenderConfig(width=48, height=16, samples_per_pixel=1, max_depth=3)
+JCFG = JConfig(width=48, height=16, samples_per_pixel=1, max_depth=3)
+
+
+def to_jax_arrays(s):
+    return {f: np.asarray(getattr(s, f)) for f in FIELDS}
+
+
+def assert_bounds(scene: ScaledScene):
+    K = scene.chunk
+    c = scene.center.numpy().reshape(-1, K, 3)
+    r = scene.radius.numpy().reshape(-1, K)
+    aabb = scene.chunk_aabb.numpy()
+    assert (c - r[..., None] >= aabb[:, None, :3]).all()
+    assert (c + r[..., None] <= aabb[:, None, 3:]).all()
+
+
+@pytest.mark.parametrize("kw", [dict(n=800, chunk=128),
+                                dict(n=3000, chunk=256, extent=40.0),
+                                dict(n=100_000)],
+                         ids=["800", "3000", "100k"])
+def test_scene_build_is_bit_equal(kw):
+    s = make_scaled_scene(**kw)
+    j = jscaled.make_scaled_scene(**kw)
+    for f, want in to_jax_arrays(j).items():
+        got = getattr(s, f).numpy()
+        assert got.dtype == want.dtype and got.shape == want.shape, f
+        np.testing.assert_array_equal(got, want, err_msg=f)
+    assert (s.chunk, s.n_real, s.emissive_ids) == (j.chunk, j.n_real,
+                                                   j.emissive_ids)
+    assert s.camera.__dict__ == j.camera.__dict__
+    assert_bounds(s)
+    # the state carried across from the JAX scene is the same scene
+    c = scaled_scene_from_arrays(**to_jax_arrays(j), chunk=j.chunk,
+                                 n_real=j.n_real, emissive_ids=j.emissive_ids,
+                                 camera=s.camera)
+    for f in FIELDS:
+        assert torch.equal(getattr(c, f), getattr(s, f)), f
+
+
+def test_animate_matches_jax():
+    s = make_scaled_scene(n=800, chunk=128, extent=30.0)
+    j = jscaled.make_scaled_scene(n=800, chunk=128, extent=30.0)
+    sa, ja = s.animate(1.3), j.animate(jnp.float32(1.3))
+    nl = len(s.emissive_ids)
+    got, want = sa.center.numpy(), np.asarray(ja.center)
+    np.testing.assert_array_equal(got[nl:], want[nl:])
+    np.testing.assert_allclose(got[:nl], want[:nl], rtol=1e-5, atol=0)
+    assert not np.allclose(got[:nl], s.center.numpy()[:nl])
+    assert_bounds(sa)
+    assert torch.equal(sa.center, s.animate(1.3).center)
+
+
+def lanes(seed):
+    """The ray lanes of tests/test_scaled.py:101 and :169: (2, 32, 128)."""
+    rng = np.random.default_rng(seed)
+    shape = (2,) + LANE_TILE
+    ro = tuple(rng.uniform(-30, 30, shape).astype(np.float32)
+               for _ in range(3))
+    return rng, shape, ro
+
+
+@pytest.fixture(scope="module")
+def scene3k():
+    return (make_scaled_scene(n=3000, chunk=256, extent=40.0),
+            jscaled.make_scaled_scene(n=3000, chunk=256, extent=40.0))
+
+
+@pytest.mark.parametrize("route", ["jnp_scan", "pallas_interpret"])
+def test_hit_chunks_matches_jax(scene3k, route):
+    s, j = scene3k
+    rng, shape, ro = lanes(5)
+    d = tuple(rng.normal(size=shape).astype(np.float32) for _ in range(3))
+    norm = np.sqrt(d[0] ** 2 + d[1] ** 2 + d[2] ** 2)
+    rd = tuple(x / norm for x in d)
+    jro, jrd = tuple(map(jnp.asarray, ro)), tuple(map(jnp.asarray, rd))
+    if route == "jnp_scan":
+        ref = jscaled.ChunkedScenePort(j).hit_chunks(jro, jrd, 1e-3, 1e7,
+                                                     want_material=False)
+        want_t, want_id = np.asarray(ref.t), np.asarray(ref.hit_id)
+    else:
+        port = jscaled.ChunkedScenePort(j, use_pallas=True,
+                                        pallas_interpret=True)
+        want_t, want_id = map(np.asarray, hit_chunks_tiles(
+            port._packed, jro, jrd, chunk=256, t_min=1e-3, t_max=1e7,
+            interpret=True))
+    t, hid = ChunkedScenePort(s).hit_chunks(
+        tuple(map(torch.from_numpy, ro)), tuple(map(torch.from_numpy, rd)),
+        1e-3, 1e7)
+    assert hid.dtype == torch.int32 and tuple(hid.shape) == shape
+    np.testing.assert_array_equal(hid.numpy(), want_id)
+    np.testing.assert_allclose(t.numpy(), want_t, rtol=2e-4, atol=0)
+    assert (want_id >= 0).sum() > 100
+
+
+def shadow_rays(s, j):
+    rng, shape, ro = lanes(3)
+    lights = list(j.emissive_ids)[:4]
+    c = s.center.numpy()
+    dirs = []
+    for e in lights:
+        d = tuple(c[e, a] - ro[a] + rng.normal(0, 2, shape).astype(np.float32)
+                  for a in range(3))
+        norm = np.sqrt(d[0] ** 2 + d[1] ** 2 + d[2] ** 2)
+        dirs.append(tuple(x / norm for x in d))
+    return ro, lights, dirs
+
+
+@pytest.mark.parametrize("route", ["jnp_scan", "pallas_interpret"])
+def test_shadow_chunks_matches_jax(scene3k, route):
+    s, j = scene3k
+    ro, lights, dirs = shadow_rays(s, j)
+    tro = tuple(map(torch.from_numpy, ro))
+    tdirs = [tuple(map(torch.from_numpy, l)) for l in dirs]
+    port = ChunkedScenePort(s)
+    if route == "jnp_scan":
+        want = jscaled.ChunkedScenePort(j).lights_visible(
+            tuple(map(jnp.asarray, ro)),
+            [tuple(map(jnp.asarray, l)) for l in dirs], lights, 1e-3, 1e7)
+        got = port.lights_visible(tro, tdirs, lights, 1e-3, 1e7)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        return
+    # the raw bitmask of the fused shadow kernel, on the same t_l planes
+    jport = jscaled.ChunkedScenePort(j, use_pallas=True,
+                                     pallas_interpret=True)
+    jro = tuple(map(jnp.asarray, ro))
+    t_ls = [np.array(jscaled.tc._sphere_t(jport.sphere(e), jro,
+                                            tuple(map(jnp.asarray, l)), 1e-3,
+                                            safe=False)[0])
+            for e, l in zip(lights, dirs)]
+    flat = tuple(c for l in dirs for c in l)
+    want = np.asarray(shadow_chunks_tiles(
+        jport._packed, jro, tuple(map(jnp.asarray, flat)),
+        tuple(map(jnp.asarray, t_ls)), chunk=256, light_ids=tuple(lights),
+        t_min=1e-3, n_l=len(lights), interpret=True))
+    got = cuda_scaled.shadow_chunks(
+        pack_chunks(s), tro, tuple(map(torch.from_numpy, flat)),
+        tuple(map(torch.from_numpy, t_ls)), 256, lights, 1e-3)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < (want != 0).mean() < 1
+
+
+@pytest.fixture(scope="module")
+def scene800():
+    return (make_scaled_scene(n=800, chunk=128),
+            jscaled.make_scaled_scene(n=800, chunk=128))
+
+
+@pytest.mark.parametrize("frame", [0, 1])
+def test_plain_render_matches_jax(scene800, frame):
+    s, j = scene800
+    img, rays = render_frame_scaled_plain(s, CFG, frame)
+    jimg, jrays = jscaled.render_frame_scaled(j, JCFG, jnp.int32(frame),
+                                              pallas=False)
+    jimg = np.asarray(jimg)
+    assert abs(int(rays) - int(jrays)) <= 1e-3 * int(jrays)
+    d = np.abs(img.numpy() - jimg)
+    assert (d.max(axis=-1) <= 1e-4).mean() >= 0.985
+    assert d.mean() <= 6e-4
+    assert np.isfinite(img.numpy()).all() and img.numpy().max() > 0.05
+
+
+def test_chunk_culling_is_exact_in_the_port(scene800):
+    s_many = scene800[0]
+    s_one = make_scaled_scene(n=800, chunk=1024)
+    assert s_one.n_chunks == 1 and s_many.n_chunks == 7
+    img_m, rays_m = cuda_scaled.render_frame_scaled(s_many, CFG, 1,
+                                                    device="cpu")
+    img_o, rays_o = cuda_scaled.render_frame_scaled(s_one, CFG, 1,
+                                                    device="cpu")
+    assert int(rays_m) == int(rays_o)
+    assert torch.equal(img_m, img_o)
+
+
+def test_session_accumulates_and_animates(scene800):
+    s = scene800[0]
+    small = RenderConfig(width=24, height=12, samples_per_pixel=1,
+                         max_depth=3)
+    sess = RenderSession(s, small, device="cpu")
+    img1 = sess.step(0.0)[0].clone()
+    img2 = sess.step(0.0)[0].clone()
+    f0, _ = cuda_scaled.render_frame_scaled(s, small, 0, device="cpu")
+    f1, _ = cuda_scaled.render_frame_scaled(s, small, 1, device="cpu")
+    assert torch.equal(img1, f0)
+    assert torch.equal(img2, f0 * 0.5 + f1 * 0.5)
+    sess.set_flags(FLAG_PROGRESSIVE | FLAG_ANIMATE)
+    anim, _ = sess.step(1.0)
+    want, _ = cuda_scaled.render_frame_scaled(s.animate(1.0), small, 0,
+                                              device="cpu")
+    assert torch.equal(anim, want) and not torch.equal(anim, f0)
+
+
+def test_cli_renders_the_scaled_scene(tmp_path, capsys):
+    out = tmp_path / "scaled.png"
+    assert cli_main(["--scaled", "800", "--device", "cpu", "--width", "32",
+                     "--height", "16", "--spp", "1", "--max-depth", "3",
+                     "--frames", "2", "--output", str(out)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert "scene=800-sphere" in lines[0]
+    assert sum(bool(re.match(r"CPU path tracer .* frames \d+$", ln))
+               for ln in lines) == 2
+    assert out.exists()
+
+
+@pytest.mark.parametrize("call", ["differentiable", "silhouette_chunks",
+                                  "lights_occlusion_proximity", "sharded"])
+def test_out_of_slice_routes_raise(scene800, call):
+    s = scene800[0]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if call == "differentiable":
+            cuda_scaled.render_frame_scaled(s, CFG, 0, device="cpu",
+                                            differentiable=True)
+        elif call == "sharded":
+            cuda_scaled.render_frame_scaled_sharded(s, CFG, 0, mesh=None)
+        else:
+            getattr(ChunkedScenePort(s), call)()
+
+
+@pytest.mark.parametrize("case", ["rows_shape", "too_many_chunks",
+                                  "too_many_lights", "ragged_scene",
+                                  "plane_dtype"])
+def test_wrappers_refuse_unsupported_inputs(scene800, case):
+    s = scene800[0]
+    rows = pack_chunks(s)
+    ro = tuple(torch.zeros(4) for _ in range(3))
+    with pytest.raises(ValueError):
+        if case == "rows_shape":
+            cuda_scaled.hit_chunks(rows, ro, ro, 256, 1e-3, 1e7)
+        elif case == "too_many_chunks":
+            big = torch.zeros((cuda_scaled.MAX_CHUNKS + 1, 4 * 1 + 8))
+            cuda_scaled.hit_chunks(big, ro, ro, 1, 1e-3, 1e7)
+        elif case == "too_many_lights":
+            cuda_scaled.shadow_chunks(rows, ro, ro * 17, (ro[0],) * 17, 128,
+                                      list(range(17)), 1e-3)
+        elif case == "ragged_scene":
+            cuda_scaled.render_frame_scaled(
+                s.replace(chunk_aabb=s.chunk_aabb[:-1]), CFG, 0,
+                device="cpu")
+        else:
+            cuda_scaled.hit_chunks(rows, ro, tuple(x.double() for x in ro),
+                                   128, 1e-3, 1e7)

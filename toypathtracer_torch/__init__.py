@@ -1,10 +1,10 @@
 """toypathtracer_torch: the PyTorch/CUDA port of toypathtracer_tpu.
 
-The same path tracer (46-sphere scene, Lambert/metal/dielectric, explicit
-light sampling, XorShift32 RNG, thin-lens camera, progressive
-accumulation, animation, Mray/s HUD) and its inverse rendering (scene
-gradients, Adam) on an NVIDIA H100 through hand-written CUDA kernels,
-with a plain PyTorch version of each for the CPU.  It imports neither jax
+The same path tracer (46-sphere and 100k-sphere scenes, Lambert/metal/
+dielectric, explicit light sampling, XorShift32 RNG, thin-lens camera,
+progressive accumulation, animation, Mray/s HUD) and its inverse
+rendering (scene gradients, Adam) on an NVIDIA H100 through hand-written
+CUDA kernels, with a plain PyTorch version of each for the CPU.  It imports neither jax
 nor toypathtracer_tpu.
 
 Layer map:
@@ -15,11 +15,17 @@ Layer map:
   ops/cuda_render.py    the render kernel's wrapper, pack_scene, launches
   ops/cuda_grad.py      the gradient and lockstep kernels' wrappers and the
                         autograd Function of the training step
+  ops/cuda_scaled.py    the scaled scene's kernel wrappers: chunk traversal
+                        (hit_chunks), shadow bitmask, scaled render
+  scaled.py             the 100k-sphere chunked scene, its plain traversal
+                        and plain render
   ops/_build.py         nvcc build of csrc/ at first use, ctypes binding
   csrc/trace.cuh        the kernels' per-pixel code and its hand-written
                         adjoint (also builds with g++)
   csrc/render.cu        the render kernel and its launcher
   csrc/grad.cu          the gradient and lockstep kernels and launchers
+  csrc/chunks.cuh       the per-ray chunk traversal (also builds with g++)
+  csrc/scaled.cu        the traversal, shadow and scaled render kernels
   render/wavefront.py   the kernels' plain versions
   render/frame.py       progressive accumulation and RenderSession
   cli.py                headless HUD CLI
@@ -27,6 +33,8 @@ Layer map:
 """
 
 from .config import FLAG_ANIMATE, FLAG_PROGRESSIVE, RenderConfig
+from .scaled import (ScaledScene, make_scaled_scene, refresh_chunk_aabb,
+                     scaled_scene_from_arrays)
 from .scene import Scene, make_scene
 
 __version__ = "0.1.0"
@@ -35,6 +43,10 @@ __all__ = [
     "RenderConfig",
     "Scene",
     "make_scene",
+    "ScaledScene",
+    "make_scaled_scene",
+    "refresh_chunk_aabb",
+    "scaled_scene_from_arrays",
     "FLAG_ANIMATE",
     "FLAG_PROGRESSIVE",
 ]

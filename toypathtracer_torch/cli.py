@@ -5,10 +5,11 @@ Usage:
     python -m toypathtracer_torch [--frames 30] [--width 1280 --height 720]
         [--spp 4] [--max-depth 10] [--small] [--animate] [--no-progressive]
         [--no-light-sampling] [--mitsuba-compare] [--output out.png|out.tga]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--scaled N]
 
 Renders on the card by default; `--device cpu` runs the plain PyTorch
-renderer on the CPU.
+renderer on the CPU.  `--scaled N` renders the procedurally instanced
+N-sphere scene (the chunked traversal; `--animate` orbits its beacons).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from . import io as image_io
 from .config import FLAG_ANIMATE, FLAG_PROGRESSIVE, RenderConfig
 from .profiling import hud_string
 from .render.frame import RenderSession, sum_rays
+from .scaled import make_scaled_scene
 from .scene import make_scene
 
 
@@ -35,6 +37,10 @@ def main(argv=None) -> int:
                     help="frames to render (reference CLI renders 30)")
     ap.add_argument("--small", action="store_true",
                     help="9-sphere scene instead of the 46-sphere big scene")
+    ap.add_argument("--scaled", type=int, default=0, metavar="N",
+                    help="render the procedurally instanced N-sphere scene "
+                         "(chunked AABB-culled traversal) instead of the "
+                         "46-sphere scene")
     ap.add_argument("--mitsuba-compare", action="store_true",
                     help="flat sky / zero aperture / mirror metal, for "
                          "comparison against Mitsuba")
@@ -55,8 +61,13 @@ def main(argv=None) -> int:
         samples_per_pixel=args.spp, max_depth=args.max_depth,
         do_light_sampling=not args.no_light_sampling,
         do_mitsuba_compare=args.mitsuba_compare)
-    scene = make_scene(big=not args.small,
-                       mitsuba_compare=args.mitsuba_compare)
+    if args.scaled:
+        scene = make_scaled_scene(n=args.scaled)
+        n_spheres = args.scaled
+    else:
+        scene = make_scene(big=not args.small,
+                           mitsuba_compare=args.mitsuba_compare)
+        n_spheres = scene.n_spheres
     flags = 0
     if not args.no_progressive:
         flags |= FLAG_PROGRESSIVE
@@ -70,7 +81,7 @@ def main(argv=None) -> int:
     else:
         kind = "cpu"
     print(f"device={args.device} ({kind}) "
-          f"scene={9 if args.small else 46}-sphere "
+          f"scene={n_spheres}-sphere "
           f"{cfg.width}x{cfg.height} spp={cfg.samples_per_pixel}")
     title = f"{args.device.upper()} path tracer"
     img = None

@@ -1,0 +1,159 @@
+// Chunk traversal of the scaled scene, per ray: the bodies of the
+// traversal kernels (K5 hit_chunks_kernel, K6 shadow_chunks_kernel) and of
+// the scaled render kernel (csrc/scaled.cu).
+//
+// Replaces the TPU kernels toypathtracer_tpu/ops/scaled_pallas.py::
+// _hit_kernel and ::_shadow_kernel.  Those walk (32, 128) ray tiles over a
+// (tiles, chunks) grid, skip a chunk for the whole tile with pl.when and
+// stream each chunk's sphere scalars through SMEM, because Mosaic allows
+// no per-lane gathers and only 128-aligned dynamic VMEM indices.  A GPU
+// thread gates its own ray, which is the semantics of the jnp chunk scan
+// (scaled.py:575-663, :299-394) that the TPU kernels reproduce: for each
+// chunk in order, a slab test of the chunk's AABB against (t_min, the
+// ray's running best t) -- (t_min, t_l) for a shadow ray -- and the
+// chunk's sphere tests only when the box can still hold a closer hit (an
+// occluder).
+//
+// Arithmetic is the JAX code's, comparison for comparison:
+// (aabb - ro) * inv with inv = 1 / (d, or +-1e-12 where |d| < 1e-12; -0.0
+// goes to +1e-12), never a division by d in the slab; an inclusive t0 <=
+// t1; a sphere wins with discr > 0 && t > t_min && t < best (strict `<`,
+// so the first sphere of least t wins across and within chunks).
+// jnp.maximum / jnp.minimum propagate NaN, so a ray whose origin, inverse
+// direction or t_l is NaN enters no chunk there; the loops below test that
+// once per ray and then select without NaN (no other input can make one:
+// every other operand is finite, |inv| <= 1e12).
+//
+// Everything is __host__ __device__, so tests build it with g++.
+
+#pragma once
+
+#include "trace.cuh"
+
+namespace tpt {
+
+// Largest chunk count whose AABBs the kernels stage in shared memory
+// (24 bytes a chunk; ops/cuda_scaled.MAX_CHUNKS).
+constexpr int kMaxChunks = 4096;
+
+// The scaled scene as the kernels read it: the packed (SCENE_ROWS, n)
+// table for shading, the pack_chunks rows (n_chunks, 4 * chunk + 8:
+// cx, cy, cz, r^2 of the chunk's spheres, aabb, base, pad) for the sphere
+// tests, and the chunk AABBs (n_chunks, 6), staged in shared memory.
+struct ChunkedView {
+  const float* tab;       // (SCENE_ROWS, n)
+  const int32_t* mat;     // (n,)
+  const int32_t* lights;  // (n_lights,)
+  const float* rows;      // (n_chunks, 4 * chunk + 8)
+  const float* box;       // (n_chunks, 6)
+  int n, n_lights, chunk, n_chunks;
+  TPT_HD float at(int row, int i) const { return tab[row * n + i]; }
+  TPT_HD const float* chunk_row(int c) const {
+    return rows + static_cast<size_t>(c) * (4 * chunk + 8);
+  }
+};
+
+TPT_HD float safe_inv(float d) {
+  const float s = fabsf(d) < 1e-12f ? (d >= 0.0f ? 1e-12f : -1e-12f) : d;
+  return 1.0f / s;
+}
+
+TPT_HD bool is_nan(float x) { return x != x; }
+TPT_HD bool any_nan(V3 a) { return is_nan(a.x) || is_nan(a.y) || is_nan(a.z); }
+TPT_HD float fmin_sel(float a, float b) { return a < b ? a : b; }
+TPT_HD float fmax_sel(float a, float b) { return a > b ? a : b; }
+
+// Does the ray enter box b = (min xyz, max xyz) within [t0, t1]?  The
+// slab chain of scaled.py:616-624 on NaN-free operands.
+TPT_HD bool slab(const float* b, V3 ro, V3 inv, float t0, float t1) {
+  float lo = (b[0] - ro.x) * inv.x;
+  float hi = (b[3] - ro.x) * inv.x;
+  t0 = fmax_sel(t0, fmin_sel(lo, hi));
+  t1 = fmin_sel(t1, fmax_sel(lo, hi));
+  lo = (b[1] - ro.y) * inv.y;
+  hi = (b[4] - ro.y) * inv.y;
+  t0 = fmax_sel(t0, fmin_sel(lo, hi));
+  t1 = fmin_sel(t1, fmax_sel(lo, hi));
+  lo = (b[2] - ro.z) * inv.z;
+  hi = (b[5] - ro.z) * inv.z;
+  t0 = fmax_sel(t0, fmin_sel(lo, hi));
+  t1 = fmin_sel(t1, fmax_sel(lo, hi));
+  return t0 <= t1;
+}
+
+// K5 for one ray: the nearest hit over all chunks; sets t (t_max on a
+// miss) and returns the sphere's global id, -1 on a miss.
+TPT_HD int hit_chunks_ray(const ChunkedView& V, V3 ro, V3 rd, float t_min,
+                          float t_max, float& t) {
+  t = t_max;
+  int id = -1;
+  const V3 inv = v3(safe_inv(rd.x), safe_inv(rd.y), safe_inv(rd.z));
+  if (any_nan(ro) || any_nan(inv)) return -1;
+  const int K = V.chunk;
+  for (int c = 0; c < V.n_chunks; ++c) {
+    if (!slab(V.box + 6 * c, ro, inv, t_min, t)) continue;
+    const float* r = V.chunk_row(c);
+    const int base = c * K;
+    for (int j = 0; j < K; ++j) {
+      const float cox = r[j] - ro.x;
+      const float coy = r[K + j] - ro.y;
+      const float coz = r[2 * K + j] - ro.z;
+      const float nb = cox * rd.x + coy * rd.y + coz * rd.z;
+      const float cq = cox * cox + coy * coy + coz * coz - r[3 * K + j];
+      const float discr = nb * nb - cq;
+      const float ds = sqrt_pos(discr);
+      const float r0 = nb - ds;
+      const float r1 = nb + ds;
+      const float tt = r0 > t_min ? r0 : r1;
+      if (discr > 0.0f && tt > t_min && tt < t) {
+        t = tt;
+        id = base + j;
+      }
+    }
+  }
+  return id;
+}
+
+// K6 for one ray and one light: does any sphere but `light` (a global id)
+// overlap (t_min, t_l) along l from pos?  The interval-overlap test of
+// tracecore._occ_test; the answer is an OR over chunks, so the loop stops
+// at the first occluder.
+TPT_HD bool occluded_chunks(const ChunkedView& V, V3 pos, V3 l, int light,
+                            float t_min, float t_l) {
+  const V3 inv = v3(safe_inv(l.x), safe_inv(l.y), safe_inv(l.z));
+  if (any_nan(pos) || any_nan(inv) || is_nan(t_l)) return false;
+  const int K = V.chunk;
+  for (int c = 0; c < V.n_chunks; ++c) {
+    if (!slab(V.box + 6 * c, pos, inv, t_min, t_l)) continue;
+    const float* r = V.chunk_row(c);
+    const int base = c * K;
+    for (int j = 0; j < K; ++j) {
+      const float cox = r[j] - pos.x;
+      const float coy = r[K + j] - pos.y;
+      const float coz = r[2 * K + j] - pos.z;
+      const float cq = cox * cox + coy * coy + coz * coz - r[3 * K + j];
+      const float nb = cox * l.x + coy * l.y + coz * l.z;
+      const float d = nb * nb - cq;
+      const float a = nb - t_min;
+      const float b = nb - t_l;
+      if (d > 0.0f && d > b * fabsf(b) && d > -(a * fabsf(a)) &&
+          base + j != light)
+        return true;
+    }
+  }
+  return false;
+}
+
+// The traversal of the scaled render: render_pixel<ChunkedView> (trace.cuh)
+// finds these by argument-dependent lookup.
+TPT_HD int nearest_hit(const ChunkedView& S, V3 ro, V3 rd, float t_min,
+                       float t_max, float& hit_t) {
+  return hit_chunks_ray(S, ro, rd, t_min, t_max, hit_t);
+}
+
+TPT_HD bool occluded(const ChunkedView& S, V3 pos, V3 l, int light,
+                     float t_min, float t_l) {
+  return occluded_chunks(S, pos, l, light, t_min, t_l);
+}
+
+}  // namespace tpt

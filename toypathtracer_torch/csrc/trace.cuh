@@ -1,6 +1,8 @@
-// Per-pixel path-tracing core of the render kernel (csrc/render.cu) and of
-// the gradient and lockstep kernels (csrc/grad.cu): render_pixel, and its
-// hand-written reverse mode grad_pixel at the end of this file.
+// Per-pixel path-tracing core of the render kernel (csrc/render.cu), of
+// the gradient and lockstep kernels (csrc/grad.cu) and of the scaled render
+// kernel (csrc/scaled.cu, through csrc/chunks.cuh's ChunkedView):
+// render_pixel, and its hand-written reverse mode grad_pixel at the end of
+// this file.
 //
 // Replaces the TPU kernel toypathtracer_tpu/ops/pallas_render.py::
 // _render_kernel, whose body is tracecore.render_pixels_fused_merged.  The
@@ -153,7 +155,12 @@ TPT_HD V3 unit_vector(uint32_t& s) {
 // ---- geometry ----
 
 // Nearest valid root of sphere i (Maths.cpp:97-117); false if none.
-TPT_HD bool sphere_t(const SceneView& S, int i, V3 ro, V3 rd, float t_min,
+// The forward code below is templated on the scene view: SceneView (the
+// whole table, brute force) or ChunkedView (csrc/chunks.cuh); its calls of
+// nearest_hit and occluded find the view's overloads by argument-dependent
+// lookup.
+template <class View>
+TPT_HD bool sphere_t(const View& S, int i, V3 ro, V3 rd, float t_min,
                      float& t) {
   float cox = S.at(ROW_CX, i) - ro.x;
   float coy = S.at(ROW_CY, i) - ro.y;
@@ -243,7 +250,8 @@ struct Cone {
   float r, d2, cos_a_max, cos_a, sin_a, cphi, sphi;
 };
 
-TPT_HD Cone cone(const SceneView& S, int e, V3 pos, float eps1, float eps2) {
+template <class View>
+TPT_HD Cone cone(const View& S, int e, V3 pos, float eps1, float eps2) {
   Cone q;
   q.sc = v3(S.at(ROW_CX, e), S.at(ROW_CY, e), S.at(ROW_CZ, e));
   q.r = S.at(ROW_R, e);
@@ -271,7 +279,8 @@ TPT_HD Cone cone(const SceneView& S, int e, V3 pos, float eps1, float eps2) {
 // sets bit k of `see` when light k contributed.  vis=false skips the shadow
 // tests (no light is seen) but draws and counts the same: the gradient
 // kernel's replays need the path and the RNG state, not the radiance.
-TPT_HD V3 nee(const SceneView& S, const RenderParams& p, V3 pos, V3 normal,
+template <class View>
+TPT_HD V3 nee(const View& S, const RenderParams& p, V3 pos, V3 normal,
               V3 rd, V3 alb, int hit_id, bool vis, uint32_t& st,
               uint32_t& rays, uint32_t& see) {
   V3 light_e = v3(0.0f, 0.0f, 0.0f);
@@ -344,7 +353,8 @@ struct BounceRec {
 // atten *= c), advances (ro, rd, st, do_me), and returns false where the
 // path ends: a miss (e = sky) or an absorbed metal ray (e = the ungated
 // emission).
-TPT_HD bool bounce(const SceneView& S, const RenderParams& p, bool vis,
+template <class View>
+TPT_HD bool bounce(const View& S, const RenderParams& p, bool vis,
                    V3& ro, V3& rd, uint32_t& st, bool& do_me, uint32_t& rays,
                    V3& e, V3& c, BounceRec& rec) {
   ++rays;
@@ -412,7 +422,8 @@ TPT_HD void sample_ray(const float* cam, const RenderParams& p, int x, int y,
 // radiance and sets `depth` to the bounces it ran.  A sample that scatters
 // at depth max_depth keeps that bounce's emission and NEE and adds no sky
 // (ComputeShader.hlsl:300).
-TPT_HD V3 trace_sample(const SceneView& S, const RenderParams& p, V3 ro,
+template <class View>
+TPT_HD V3 trace_sample(const View& S, const RenderParams& p, V3 ro,
                        V3 rd, uint32_t& st, uint32_t& rays, int& depth) {
   V3 col = v3(0.0f, 0.0f, 0.0f);
   V3 atten = v3(1.0f, 1.0f, 1.0f);
@@ -432,7 +443,8 @@ TPT_HD V3 trace_sample(const SceneView& S, const RenderParams& p, V3 ro,
 
 // One pixel: spp samples; writes the sample mean to out[0..2] and returns
 // the pixel's rays (camera, bounce and shadow rays).
-TPT_HD uint32_t render_pixel(const SceneView& S, const float* cam,
+template <class View>
+TPT_HD uint32_t render_pixel(const View& S, const float* cam,
                              const RenderParams& p, int x, int y,
                              float* out) {
   uint32_t st = seed_pixel((uint32_t)x, (uint32_t)y, p.frame);

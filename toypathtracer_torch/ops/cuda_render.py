@@ -96,14 +96,22 @@ def kernel_inputs(scene: Scene, cfg: RenderConfig):
     types, emissive ids and the 22-float camera.  Host data goes up through
     pinned buffers without blocking, so frames queue back to back instead
     of draining the stream at every call."""
+    mat = np.array(scene.mat_type, np.int32)
+    mat = torch.from_numpy(mat).pin_memory().to(scene.device,
+                                                 non_blocking=True)
+    return (mat, *kernel_camera(scene, cfg))
+
+
+def kernel_camera(scene, cfg: RenderConfig):
+    """The int32 emissive ids and the 22-float camera on the scene's
+    device (a Scene or a ScaledScene), uploaded as kernel_inputs does."""
     dev = scene.device
-    n = scene.n_spheres
-    ids = np.array(scene.mat_type + (scene.emissive_ids or (0,)), np.int32)
+    ids = np.array(scene.emissive_ids or (0,), np.int32)
     ids = torch.from_numpy(ids).pin_memory().to(dev, non_blocking=True)
     cam = torch.from_numpy(camera_to_array(
         make_camera(scene.camera, cfg.width / cfg.height)))
     cam = cam.pin_memory().to(dev, non_blocking=True)
-    return ids[:n], ids[n:], cam
+    return ids, cam
 
 
 def checked_tab(scene: Scene, x0: int, y0: int, height: int, width: int,

@@ -1,0 +1,212 @@
+"""The scaled scene's kernel wrappers (counterpart of toypathtracer_tpu/ops/
+scaled_pallas.py and of scaled.py's renderer).
+
+`hit_chunks` (K5, the port of scaled_pallas.py::_hit_kernel) and
+`shadow_chunks` (K6, ::_shadow_kernel) take the JAX layout: the
+pack_chunks rows and tuples of ray lane planes of any one shape.
+`render_tile_scaled` / `render_frame_scaled` render a ScaledScene through
+the scaled render kernel, one launch a frame (the port of
+scaled.py::_render_frame_scaled_pallas).  All three are in
+csrc/scaled.cu.  CUDA tensors launch the kernels; CPU tensors take the
+plain versions (scaled.ChunkTraversal, scaled.render_tile_scaled_plain).
+There is no fallback: on a CUDA tensor a failed build, a refused launch or
+an unsupported shape raises.  `launches` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..config import RenderConfig, resolve_device
+from ..scaled import (ChunkTraversal, ScaledScene, pack_chunks,
+                      render_tile_scaled_plain)
+from . import _build
+from .cuda_render import (MAX_LIGHTS, cuda_call, kernel_camera, pack_scene,
+                          render_params)
+
+# Largest chunk count whose AABBs the kernels stage in shared memory
+# (csrc/chunks.cuh kMaxChunks).
+MAX_CHUNKS = 4096
+
+launches = {"scaled_render": 0, "hit_chunks": 0, "shadow_chunks": 0}
+
+def _check_rows(rows: torch.Tensor, chunk: int):
+    if chunk < 1 or rows.dim() != 2 or rows.shape[1] != 4 * chunk + 8:
+        raise ValueError(f"chunk rows must be (C, 4 * {chunk} + 8), got "
+                         f"{tuple(rows.shape)}")
+    if not 1 <= rows.shape[0] <= MAX_CHUNKS:
+        raise ValueError(f"the kernels stage 1..{MAX_CHUNKS} chunk boxes in "
+                         f"shared memory, got {rows.shape[0]} chunks")
+    if rows.dtype != torch.float32 or not rows.is_contiguous():
+        raise ValueError("chunk rows must be contiguous float32")
+
+
+def _planes(planes, shape, dev) -> torch.Tensor:
+    """Lane planes of one shape -> a contiguous (len(planes), P) float32
+    tensor on `dev`."""
+    for p in planes:
+        if p.shape != shape or p.dtype != torch.float32 or p.device != dev:
+            raise ValueError(f"lane planes must be float32 {tuple(shape)} on "
+                             f"{dev}, got {p.dtype} {tuple(p.shape)} on "
+                             f"{p.device}")
+    return torch.stack([p.reshape(-1) for p in planes]).contiguous()
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def hit_chunks(rows: torch.Tensor, ro, rd, chunk: int, t_min: float,
+               t_max: float):
+    """Nearest hit of each ray over all chunks (hit_chunks_tiles):
+    (t float32, id int32) in the lanes' shape, t_max and -1 on a miss.
+    `rows` is pack_chunks' output; ro and rd are 3 lane planes each."""
+    _check_rows(rows, chunk)
+    dev = rows.device
+    shape = ro[0].shape
+    R, D = _planes(ro, shape, dev), _planes(rd, shape, dev)
+    n = R.shape[1]
+    if dev.type == "cuda":
+        lib = _build.load_library()
+        t = torch.empty((n,), dtype=torch.float32, device=dev)
+        hid = torch.empty((n,), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            code = lib.tpt_hit_chunks_launch(
+                rows.data_ptr(), rows.shape[0], chunk, R.data_ptr(),
+                D.data_ptr(), n, _f32(t_min), _f32(t_max), t.data_ptr(),
+                hid.data_ptr(), _stream(dev))
+        cuda_call(lib, "hit_chunks", code)
+        launches["hit_chunks"] += 1
+    elif dev.type == "cpu":
+        t, hid, _, _ = ChunkTraversal(rows, chunk).nearest_hit(
+            tuple(R), tuple(D), _f32(t_min), _f32(t_max))
+        hid = hid.to(torch.int32)
+    else:
+        raise ValueError(f"no traversal for device {dev}")
+    return t.reshape(shape), hid.reshape(shape)
+
+
+def shadow_chunks(rows: torch.Tensor, ro, dirs, t_ls, chunk: int,
+                  light_ids, t_min: float):
+    """NEE occlusion bitmask (shadow_chunks_tiles): bit k of each ray is
+    set when a sphere other than light k overlaps (t_min, t_ls[k]) along
+    light k's direction.  ro: 3 lane planes; dirs: 3 * n_l planes, light
+    by light; t_ls: n_l planes.  Returns int32 lanes."""
+    _check_rows(rows, chunk)
+    n_l = len(light_ids)
+    if n_l > MAX_LIGHTS or len(dirs) != 3 * n_l or len(t_ls) != n_l:
+        raise ValueError(f"{n_l} lights (at most {MAX_LIGHTS}) need "
+                         f"{3 * n_l} direction and {n_l} t_l planes, got "
+                         f"{len(dirs)} and {len(t_ls)}")
+    dev = rows.device
+    shape = ro[0].shape
+    R = _planes(ro, shape, dev)
+    L = _planes(dirs, shape, dev) if n_l else R[:0]
+    T = _planes(t_ls, shape, dev) if n_l else R[:0]
+    n = R.shape[1]
+    if dev.type == "cuda":
+        lib = _build.load_library()
+        ids = torch.tensor(list(light_ids) or [0], dtype=torch.int32,
+                           device=dev)
+        occ = torch.empty((n,), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            code = lib.tpt_shadow_chunks_launch(
+                rows.data_ptr(), rows.shape[0], chunk, R.data_ptr(),
+                L.data_ptr(), T.data_ptr(), ids.data_ptr(), n_l, n,
+                _f32(t_min), occ.data_ptr(), _stream(dev))
+        cuda_call(lib, "shadow_chunks", code)
+        launches["shadow_chunks"] += 1
+    elif dev.type == "cpu":
+        occ, _, _ = ChunkTraversal(rows, chunk).occlusion_bits(
+            tuple(R), [tuple(L[3 * k:3 * k + 3]) for k in range(n_l)], T,
+            light_ids, _f32(t_min))
+    else:
+        raise ValueError(f"no traversal for device {dev}")
+    return occ.reshape(shape)
+
+
+def _check_scene(scene: ScaledScene):
+    n, K = scene.n_spheres, scene.chunk
+    if n % K or scene.chunk_aabb.shape != (n // K, 6):
+        raise ValueError(f"{n} spheres in chunks of {K} need "
+                         f"({n // K}, 6) chunk boxes, got "
+                         f"{tuple(scene.chunk_aabb.shape)}")
+    if n // K > MAX_CHUNKS:
+        raise ValueError(f"the scaled render kernel stages at most "
+                         f"{MAX_CHUNKS} chunk boxes in shared memory, got "
+                         f"{n // K}")
+    if len(scene.emissive_ids) > MAX_LIGHTS:
+        raise ValueError(f"the scaled render kernel takes at most "
+                         f"{MAX_LIGHTS} emissive spheres, got "
+                         f"{len(scene.emissive_ids)}")
+    if any(not 0 <= e < n for e in scene.emissive_ids):
+        raise ValueError(f"emissive ids out of range: {scene.emissive_ids}")
+    for name in ("center", "radius", "albedo", "emissive", "roughness", "ri",
+                 "chunk_aabb"):
+        t = getattr(scene, name)
+        if t.dtype != torch.float32 or t.device != scene.device:
+            raise ValueError(f"scene.{name} must be float32 on "
+                             f"{scene.device}, got {t.dtype} on {t.device}")
+
+
+def render_tile_scaled(scene: ScaledScene, cfg: RenderConfig, frame: int,
+                       x0: int, y0: int, height: int, width: int):
+    """Render the (height, width) sub-image of a ScaledScene whose
+    lower-left pixel is the global pixel (x0, y0), on the scene's device:
+    the scaled render kernel on a card, the plain version on the CPU.
+    Returns ((height, width, 3) float32, 0-d int64 ray count)."""
+    _check_scene(scene)
+    if not (height >= 1 and width >= 1 and x0 >= 0 and y0 >= 0):
+        raise ValueError(f"bad sub-image {height}x{width} at ({x0}, {y0})")
+    dev = scene.device
+    if dev.type == "cpu":
+        return render_tile_scaled_plain(scene, cfg, frame, x0, y0, height,
+                                        width)
+    if dev.type != "cuda":
+        raise ValueError(f"no renderer for device {dev}")
+    lib = _build.load_library()
+    tab = pack_scene(scene).detach().contiguous()
+    rows = pack_chunks(scene)
+    mat = scene.mat_ids().contiguous()
+    lights, cam = kernel_camera(scene, cfg)
+    out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    params = render_params(scene, cfg, frame, x0, y0, height, width)
+    with torch.cuda.device(dev):
+        code = lib.tpt_scaled_render_launch(
+            tab.data_ptr(), rows.data_ptr(), mat.data_ptr(),
+            lights.data_ptr(), cam.data_ptr(), ctypes.byref(params),
+            scene.n_chunks, scene.chunk, out.data_ptr(), rays.data_ptr(),
+            _stream(dev))
+    cuda_call(lib, "scaled_render", code)
+    launches["scaled_render"] += 1
+    return out, rays
+
+
+def render_frame_scaled(scene: ScaledScene, cfg: RenderConfig, frame: int,
+                        device="cuda", row_blocks: int = 8,
+                        differentiable: bool = False):
+    """Render one full frame of a ScaledScene on `device` (default: the
+    card; "cpu" runs the plain version).  `row_blocks` is accepted and
+    ignored: it never changes the image.  Returns ((H, W, 3) float32, 0-d
+    int64 ray count)."""
+    if differentiable:
+        raise NotImplementedError(
+            "render_frame_scaled(differentiable=True), the scaled scene's "
+            "gradient, is not ported yet (ROADMAP.md queue 1 item 11b)")
+    scene = scene.to(resolve_device(device))
+    return render_tile_scaled(scene, cfg, frame, 0, 0, cfg.height, cfg.width)
+
+
+def render_frame_scaled_sharded(*args, **kw):
+    """The row-sharded multi-device scaled render (scaled.py:830)."""
+    raise NotImplementedError(
+        "render_frame_scaled_sharded, the multi-device scaled render, is "
+        "not ported yet (ROADMAP.md queue 1 item 10)")

@@ -245,10 +245,40 @@ def nearest_hit(tab, ro, rd, t_min: float, t_max: float):
 
 class Work(NamedTuple):
     """Per-lane int64 work counters: camera/bounce rays, NEE shadow rays,
-    and the sphere tests of the shadow rays' occlusion loops."""
+    the sphere tests of the shadow rays' occlusion loops, the sphere root
+    tests of the camera/bounce rays, and the chunk-box slab tests of both
+    (0 for the brute-force traversal)."""
     traced: torch.Tensor
     shadow: torch.Tensor
     occlusion_tests: torch.Tensor
+    hit_tests: torch.Tensor = 0
+    slab_tests: torch.Tensor = 0
+
+
+class OcclusionWork(NamedTuple):
+    """Per-lane sphere and slab tests of NEE's occlusion loops."""
+    spheres: torch.Tensor
+    slabs: torch.Tensor
+
+
+class BruteForce(NamedTuple):
+    """The default traversal of bounce/nee_light_e/render_pixels: every
+    sphere of the packed table for every ray.  A traversal answers
+    nearest_hit(ro, rd, t_min, t_max, active) -> (t, id, slab tests,
+    sphere tests) and occluded(pos, l, light, t_min, t_l, active) ->
+    (occluded, slab tests, sphere tests), with per-lane counters that the
+    caller masks; `active` may restrict the lanes it has to answer for
+    (scaled.ChunkTraversal is the chunked one, the port's form of the JAX
+    package's hit_chunks / lights_visible hooks)."""
+    tab: torch.Tensor
+
+    def nearest_hit(self, ro, rd, t_min: float, t_max: float, active=None):
+        t, i = nearest_hit(self.tab, ro, rd, t_min, t_max)
+        return t, i, 0, self.tab.shape[1]
+
+    def occluded(self, pos, l, light: int, t_min: float, t_l, active=None):
+        occ, tests = occluded(self.tab, pos, l, light, t_min, t_l)
+        return occ, 0, tests
 
 
 class Winner(NamedTuple):
@@ -359,26 +389,33 @@ def nee_cones(tab, emissive_ids, pos, hit_id, active, state):
     return state, cones
 
 
-def nee_light_e(tab, cfg: RenderConfig, cones, pos, alb, normal, rd):
+def nee_light_e(tab, cfg: RenderConfig, cones, pos, alb, normal, rd,
+                traversal=None):
     """Visibility and contribution of each cone sample, in light order
     (Test.cpp:123-133; tracecore._nee_light_e hard-shadow branch).  The
     light is hit when its own root t_l < max_t and no other sphere's root
     interval overlaps (t_min, t_l).  Returns (light_e vec3, shadow ray
-    count, occlusion sphere tests): one shadow ray per light with
-    hit_id != light, visible or not; the occlusion loop runs only where
-    the light itself is hit."""
+    count, OcclusionWork of the occlusion loops): one shadow ray per
+    light with hit_id != light, visible or not; the occlusion loop runs
+    only where the light itself is hit.  `traversal` answers the
+    occlusion queries (default BruteForce(tab))."""
+    if traversal is None:
+        traversal = BruteForce(tab)
     light_e = tuple(torch.zeros_like(normal[0]) for _ in range(3))
     shadow_cnt = torch.zeros(normal[0].shape, dtype=torch.int64,
                              device=normal[0].device)
-    occ_tests = shadow_cnt
+    occ_tests = occ_slabs = shadow_cnt
     nl = sel3(dot3(normal, rd) < 0.0, normal, neg3(normal))
     for e, lane_on, l, cos_a_max in cones:
         t_l, valid = sphere_t(tab[ROW_CX, e], tab[ROW_CY, e], tab[ROW_CZ, e],
                               tab[ROW_SQR, e], pos, l, cfg.min_t)
         light_hit = valid & (t_l < cfg.max_t)
-        occ, tests = occluded(tab, pos, l, e, cfg.min_t, t_l)
+        tested = lane_on & light_hit
+        occ, slabs, tests = traversal.occluded(pos, l, e, cfg.min_t, t_l,
+                                               active=tested)
         see = light_hit & ~occ
-        occ_tests = occ_tests + torch.where(lane_on & light_hit, tests, 0)
+        occ_tests = occ_tests + torch.where(tested, tests, 0)
+        occ_slabs = occ_slabs + torch.where(tested, slabs, 0)
         omega = TWO_PI * (1.0 - cos_a_max)
         fac = torch.clamp_min(dot3(l, nl), 0.0) * omega / PI_F
         on = lane_on & see
@@ -386,7 +423,7 @@ def nee_light_e(tab, cfg: RenderConfig, cones, pos, alb, normal, rd):
         light_e = tuple(torch.where(on, light_e[k] + (alb[k] * em[k]) * fac,
                                     light_e[k]) for k in range(3))
         shadow_cnt = shadow_cnt + lane_on.to(torch.int64)
-    return light_e, shadow_cnt, occ_tests
+    return light_e, shadow_cnt, OcclusionWork(occ_tests, occ_slabs)
 
 
 def scatter_metal(state, refl, rough):
@@ -412,18 +449,26 @@ def scatter_dielectric(state, rd, normal, refl, ri):
     return state, normalize3(sel3(rr < refl_prob, refl, refr))
 
 
-def bounce(tab, mat, emissive_ids, cfg: RenderConfig, carry):
+def bounce(tab, mat, emissive_ids, cfg: RenderConfig, carry,
+           traversal=None):
     """One bounce over all lanes (tracecore.bounce_parts with GPU
     samplers and the fused hard-shadow NEE).
 
     carry = (ro, rd, alive, do_me, state, work).  Returns (carry, e, c),
     with e and c the per-lane emission and continuation attenuation of
     this depth: miss -> (sky, 0); scattered -> (gated emission + NEE,
-    albedo); absorbed -> (ungated emission, 0); dead -> (0, 1)."""
+    albedo); absorbed -> (ungated emission, 0); dead -> (0, 1).
+    `traversal` answers the ray queries (default BruteForce(tab)); the
+    winner's attributes come from `tab` either way."""
+    if traversal is None:
+        traversal = BruteForce(tab)
     ro, rd, alive, do_me, state, work = carry
-    traced, shadow, occ_tests = work
+    traced, shadow, occ_tests, hit_tests, slab_tests = work
     traced = traced + alive.to(torch.int64)
-    hit_t, hit_id = nearest_hit(tab, ro, rd, cfg.min_t, cfg.max_t)
+    hit_t, hit_id, slabs, tests = traversal.nearest_hit(
+        ro, rd, cfg.min_t, cfg.max_t, active=alive)
+    hit_tests = hit_tests + torch.where(alive, tests, 0)
+    slab_tests = slab_tests + torch.where(alive, slabs, 0)
     hit = alive & (hit_id >= 0)
     no_hit = alive & (hit_id < 0)
     w = gather_winner(tab, mat, hit_id)
@@ -442,10 +487,11 @@ def bounce(tab, mat, emissive_ids, cfg: RenderConfig, carry):
     light_e = (zero, zero, zero)
     if cfg.do_light_sampling:
         st_l, cones = nee_cones(tab, emissive_ids, pos, hit_id, lam_on, st_l)
-        light_e, shadow_cnt, tests = nee_light_e(tab, cfg, cones, pos, w.alb,
-                                                 normal, rd)
+        light_e, shadow_cnt, occ_work = nee_light_e(
+            tab, cfg, cones, pos, w.alb, normal, rd, traversal)
         shadow = shadow + torch.where(lam_on, shadow_cnt, 0)
-        occ_tests = occ_tests + torch.where(lam_on, tests, 0)
+        occ_tests = occ_tests + torch.where(lam_on, occ_work.spheres, 0)
+        slab_tests = slab_tests + torch.where(lam_on, occ_work.slabs, 0)
 
     rough = torch.zeros_like(w.roughness) if cfg.do_mitsuba_compare \
         else w.roughness
@@ -479,12 +525,12 @@ def bounce(tab, mat, emissive_ids, cfg: RenderConfig, carry):
     ro = sel3(scat, pos, ro)
     rd = sel3(scat, new_dir, rd)
     state = torch.where(hit, new_state, state)
-    work = Work(traced, shadow, occ_tests)
+    work = Work(traced, shadow, occ_tests, hit_tests, slab_tests)
     return (ro, rd, scat, do_me, state, work), e, c
 
 
 def render_pixels(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
-                  px, py, frame: int):
+                  px, py, frame: int, traversal=None):
     """Render 1-D lanes of pixels (px, py: int64 global coordinates, y=0
     the bottom row): seed, spp thin-lens samples each traced for up to
     max_depth bounces, average (tracecore.render_pixels_lockstep; the
@@ -493,7 +539,8 @@ def render_pixels(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
     A sample that scatters at depth max_depth keeps that bounce's
     emission and NEE and adds no sky (ComputeShader.hlsl:300).  Returns
     (col vec3, per-lane Work); the reference's ray count is
-    work.traced + work.shadow."""
+    work.traced + work.shadow.  `traversal` answers the ray queries
+    (default BruteForce(tab); scaled.ChunkTraversal for a ScaledScene)."""
     state = seed_pixels(px, py, frame)
     fx = px.to(torch.float32)
     fy = py.to(torch.float32)
@@ -502,7 +549,7 @@ def render_pixels(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
     zero = torch.zeros_like(fx)
     col_sum = (zero, zero, zero)
     izero = torch.zeros_like(px, dtype=torch.int64)
-    work = Work(izero, izero, izero)
+    work = Work(izero, izero, izero, izero, izero)
     for _ in range(cfg.samples_per_pixel):
         state, ur = rand01(state)
         u = (fx + ur) * inv_w
@@ -516,7 +563,7 @@ def render_pixels(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
         for _ in range(cfg.max_depth):
             (ro, rd, alive, do_me, state, work), e, c = bounce(
                 tab, mat, emissive_ids, cfg,
-                (ro, rd, alive, do_me, state, work))
+                (ro, rd, alive, do_me, state, work), traversal)
             col = add3(col, mul3(atten, e))
             atten = mul3(atten, c)
             if not bool(alive.any()):

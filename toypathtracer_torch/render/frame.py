@@ -13,7 +13,8 @@ import torch
 
 from ..config import FLAG_ANIMATE, FLAG_PROGRESSIVE, RenderConfig, \
     resolve_device
-from ..ops import cuda_render
+from ..ops import cuda_render, cuda_scaled
+from ..scaled import ScaledScene
 from ..scene import Scene, validate_scene
 
 
@@ -48,7 +49,8 @@ def lerp_factor(frame: int, flags: int, cfg: RenderConfig) -> np.float32:
 
 
 def scene_for_frame(scene: Scene, time, flags: int) -> Scene:
-    """UpdateTest's scene mutation (Test.cpp:304-308)."""
+    """UpdateTest's scene mutation (Test.cpp:304-308; a ScaledScene's
+    beacon orbit)."""
     if flags & FLAG_ANIMATE:
         return scene.animate(time)
     return scene
@@ -60,8 +62,8 @@ def progressive_step(state: FrameState, scene: Scene, time,
     """One UpdateTest+DrawTest step: animate, render, blend into the
     accumulator.  Returns (state, displayed image, 0-d int64 ray count).
 
-    `render_fn(scene, cfg, frame) -> (img, rays)` defaults to
-    ops/cuda_render.render_tile on the scene's device.
+    `render_fn(scene, cfg, frame) -> (img, rays)` defaults to the render
+    kernel of the scene's kind on the scene's device.
 
     The blend updates `state.accum` IN PLACE, and the returned image IS
     that accumulator (the reference GPU port's ping-pong texture pair,
@@ -99,23 +101,29 @@ def sum_rays(raycount) -> int:
     return int(torch.as_tensor(raycount).to(torch.int64).sum())
 
 
-def _render_on_scene_device(scene: Scene, cfg: RenderConfig, frame: int):
-    return cuda_render.render_tile(scene, cfg, frame, 0, 0, cfg.height,
-                                   cfg.width)
+def _render_on_scene_device(scene, cfg: RenderConfig, frame: int):
+    """The whole frame on the scene's device: the render kernel for a
+    Scene, the scaled render kernel for a ScaledScene (their plain
+    versions on the CPU)."""
+    render = cuda_scaled.render_tile_scaled \
+        if isinstance(scene, ScaledScene) else cuda_render.render_tile
+    return render(scene, cfg, frame, 0, 0, cfg.height, cfg.width)
 
 
 class RenderSession:
     """Owns a FrameState on one device and resets it on flag toggles
     (reference: TestWin.cpp:419-432).  Renders on the card unless
-    device="cpu" is asked for."""
+    device="cpu" is asked for.  `scene` is a Scene or a ScaledScene."""
 
-    def __init__(self, scene: Scene, cfg: RenderConfig,
+    def __init__(self, scene, cfg: RenderConfig,
                  flags: int = FLAG_PROGRESSIVE,
                  render_fn: Optional[Callable] = None, device="cuda"):
         self.device = resolve_device(device)
         # the host-side seam every user scene passes through: warn where
-        # the interval-overlap shadow test darkens NEE
-        validate_scene(scene)
+        # the interval-overlap shadow test darkens NEE (a ScaledScene's
+        # generated layout keeps its beacons above the field)
+        if not isinstance(scene, ScaledScene):
+            validate_scene(scene)
         self.scene = scene.to(self.device)
         self.cfg = cfg
         self.flags = flags
