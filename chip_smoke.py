@@ -32,8 +32,21 @@ non-zero):
      kernel vs plain at 320x176 / spp 1 / depth 4 (frames 0-1) and on a
      16-row band at full size; the full frame's plain work counts.
  10. scaled timing with CUDA events, bounds from the plain work counters.
- 11. the `kernels` line: render, grad, lockstep, scaled_render,
-     hit_chunks, shadow_chunks.
+ 11. the stats render kernel (K2) at 320x176, spp 2, depth 6, frames 0-1:
+     16x128 tiles unmerged and a padded shape (32x128 tiles, 2 pixels a
+     lane, merged); image and rays bit-equal to K1's, per-pixel trip
+     counts, tile and warp counters against the plain version.
+ 12. K2's main path: tools.occupancy at its defaults (1280x720, spp 4,
+     depth 10, 16x128 tiles, frame 0), one K2 launch; rays, work and
+     iters against the TPU's counts; K2 and K1 timed in turns; K1's warp
+     work efficiency from K2's counters beside the plain version's.
+ 13. the issue-rate probe (T1): six cases at 64 trips against their plain
+     versions, the launch floor (T2) against its plain version; then
+     tools.roofline's main path: the full-size rates, both floors, the SM
+     clock under load, and every thread of each case's and each floor's
+     launches against the plain version.
+ 14. the `kernels` line: render, grad, lockstep, scaled_render,
+     hit_chunks, shadow_chunks, render_stats, issue_rate, launch_floor.
 Then the card's name and power limit as nvidia-smi reports them, and the
 `ok` line last.  Exits non-zero without a CUDA device.
 """
@@ -270,6 +283,9 @@ def main() -> int:
                             shadow=shadow, plain_ms=plain_ms,
                             plain_img=plain_img))
     scaled = scaled_phases(cfg, smi)
+    stats = stats_phases(cfg, smi, dict(ops=ops, bytes=n_bytes,
+                                        kernel_ms=kernel_ms))
+    probe = probe_phases(smi)
 
     emit({"kernels": [{
         "name": "render", "route": "cuda",
@@ -285,7 +301,7 @@ def main() -> int:
                      "mean_abs_diff": f0["mean_abs_diff"],
                      "frac_within_1e-4": f0["frac_within_1e-4"],
                      "block_mean_abs": bm, "block_max_abs": bx}},
-        *grad, *scaled]})
+        *grad, *scaled, stats, *probe]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -840,6 +856,276 @@ def scaled_phases(cfg, smi):
          "bound_by": k6["bound_by"], "library_ms": None,
          "vs_plain": {"tolerance": "bits equal on all but 1e-5 of the rays",
                       "ray_mismatch": k6["ray_mismatch"]}}]
+
+
+def stats_phases(cfg, smi, k1):
+    """Phases 11-12: the stats render kernel (K2) against the render
+    kernel and the plain version, and its main path, the occupancy tool
+    at full size.  `k1` carries phase 4's K1 time and bound terms.
+    Returns K2's entry of the `kernels` line."""
+    from toypathtracer_torch import make_scene
+    from toypathtracer_torch.ops import cuda_render
+    from toypathtracer_torch.profiling import time_device_call
+    from toypathtracer_torch.render.wavefront import render_tile_stats_plain
+    from toypathtracer_torch.tools import occupancy
+
+    dev = torch.device("cuda")
+    scene_d = make_scene(big=True).to(dev)
+
+    def agreement(c, cnt_k, cnt_p):
+        """Pixels whose trip counts differ, and the tiles and warps whose
+        counters differ where none of their pixels does."""
+        bad = torch.zeros_like(cnt_k.bounces, dtype=torch.bool)
+        for a, b in zip(cnt_k[:3], cnt_p[:3]):
+            bad |= a != b
+        gh, gw = bad.shape[0] // c.tile_h, bad.shape[1] // c.tile_w
+        tile_bad = bad.reshape(gh, c.tile_h, gw, c.tile_w).any(3).any(1)
+        it_k, wk_k = cuda_render.tile_counters(cnt_k, c)
+        it_p, wk_p = cuda_render.tile_counters(cnt_p, c)
+        tiles = (it_k != it_p) | (wk_k != wk_p)
+        wr, wc = cnt_k.warp_iters.shape
+        wbad = torch.zeros((2 * wr, 16 * wc), dtype=torch.bool, device=dev)
+        wbad[:bad.shape[0], :bad.shape[1]] = bad
+        warp_bad = wbad.reshape(wr, 2, wc, 16).any(3).any(1)
+        warps = ((cnt_k.warp_iters != cnt_p.warp_iters)
+                 | (cnt_k.warp_work != cnt_p.warp_work))
+        return {"pixels": bad.numel(), "pixel_mismatch": int(bad.sum()),
+                "pixel_mismatch_frac": float(bad.double().mean()),
+                "tiles": tiles.numel(), "tiles_differ": int(tiles.sum()),
+                "tiles_differ_unexplained": int((tiles & ~tile_bad).sum()),
+                "warps": warps.numel(), "warps_differ": int(warps.sum()),
+                "warps_differ_unexplained": int((warps & ~warp_bad).sum()),
+                "iters_sum": [int(it_k.sum()), int(it_p.sum())],
+                "work_sum": [int(wk_k.sum()), int(wk_p.sum())]}
+
+    def counter_gates(what, a):
+        check(a["pixel_mismatch_frac"] <= 1e-4, f"{what}: trip counts")
+        check(a["tiles_differ_unexplained"] == 0, f"{what}: tile counters")
+        check(a["warps_differ_unexplained"] == 0, f"{what}: warp counters")
+
+    # ---- 11. K2 vs K1 and plain, small size ------------------------------
+    small = cfg.replace(width=320, height=176, samples_per_pixel=2,
+                        max_depth=6)
+    cases = {"tile16x128": small,
+             "tile32x128_ppl2_merged": small.replace(
+                 tile_h=32, pix_per_lane=2, merged_wavefront=True)}
+    small_mismatch = 0.0
+    for name, c in cases.items():
+        for frame in range(2):
+            t1 = time.perf_counter()
+            img_s, rays_s, cnt_k = cuda_render.render_tile_stats(scene_d, c,
+                                                                 frame)
+            img_1, rays_1 = cuda_render.render_tile(scene_d, c, frame, 0, 0,
+                                                    c.height, c.width)
+            img_p, rays_p, cnt_p = render_tile_stats_plain(scene_d, c, frame)
+            torch.cuda.synchronize()
+            a = agreement(c, cnt_k, cnt_p)
+            small_mismatch = max(small_mismatch, a["pixel_mismatch_frac"])
+            r = {"phase": "stats_vs_plain", "case": name, "frame": frame,
+                 "grid": list(cnt_k.bounces.shape),
+                 "bit_equal_to_render_kernel": bool(torch.equal(img_s,
+                                                                img_1)),
+                 "rays_equal_to_render_kernel": int(rays_s) == int(rays_1),
+                 **compare(img_s, rays_s, img_p, rays_p), **a,
+                 "seconds": time.perf_counter() - t1}
+            emit(r)
+            what = f"K2 {name} frame {frame}"
+            check(r["bit_equal_to_render_kernel"]
+                  and r["rays_equal_to_render_kernel"], f"{what}: != K1")
+            check(r["finite"] and r["rays_rel_diff"] <= 5e-4
+                  and r["mean_abs_diff"] <= 1e-3, f"{what}: image vs plain")
+            counter_gates(what, a)
+
+    # ---- 12. the occupancy tool's path at full size ---------------------
+    t1 = time.perf_counter()
+    for k in cuda_render.launches:
+        cuda_render.launches[k] = 0
+    occ = occupancy.main([])
+    torch.cuda.synchronize()
+    occ_launches = dict(cuda_render.launches)
+    check(occ_launches == {"render": 0, "render_stats": 1},
+          f"occupancy path launched {occ_launches}")
+    tpu = {"rays": 16772198,               # docs/measured/tpu_parity.json:49
+           "work_lane_bounces": 9320687,   # docs/measured/occupancy.json
+           "iters_sum": 10823}
+    rel = {"rays": abs(occ["rays"] - tpu["rays"]) / tpu["rays"],
+           "work_lane_bounces": abs(occ["work_lane_bounces"]
+                                    - tpu["work_lane_bounces"])
+           / tpu["work_lane_bounces"],
+           "iters_sum": abs(occ["iters"]["sum"] - tpu["iters_sum"])
+           / tpu["iters_sum"]}
+    plain_s, (img_p, rays_p, cnt_p) = time_device_call(
+        render_tile_stats_plain, scene_d, cfg, 0)
+    img_k, rays_k, cnt_k = cuda_render.render_tile_stats(scene_d, cfg, 0)
+    torch.cuda.synchronize()
+    full = compare(img_k, rays_k, img_p, rays_p)
+    a = agreement(cfg, cnt_k, cnt_p)
+    # K1 and K2 in turns: K1, K2, K2, K1
+    times = {"render": [], "render_stats": []}
+    for name in ("render", "render_stats", "render_stats", "render"):
+        args = ((scene_d, cfg, 0, 0, 0, cfg.height, cfg.width)
+                if name == "render" else (scene_d, cfg, 0))
+        fn = getattr(cuda_render, "render_tile" if name == "render"
+                     else "render_tile_stats")
+        times[name].append(time_device_call(fn, *args, repeats=16)[0] * 1e3)
+    k1_ms = sum(times["render"]) / 2
+    k2_ms = sum(times["render_stats"]) / 2
+    eff_plain = float(cnt_p.warp_work.double().sum()
+                      / (32 * cnt_p.warp_iters.double().sum()))
+    # bound: K1's operations and bytes (phase 4, the same frame) plus two
+    # warp reductions a sample per warp and the counters written
+    n_warps = cnt_k.warp_iters.numel()
+    ops = k1["ops"] + 2 * cfg.samples_per_pixel * n_warps
+    n_bytes = (k1["bytes"] + 4 * 3 * cnt_k.bounces.numel()
+               + 4 * 2 * n_warps)
+    bound_ms = max(ops / 67e12, n_bytes / 3.35e12) * 1e3
+    r = {"phase": "occupancy_path", "nvidia_smi": smi,
+         "launches": occ_launches, "occupancy": occ,
+         "tpu": tpu, "rel_vs_tpu": rel, "vs_plain": full, **a,
+         "k1_ms": k1_ms, "k2_ms": k2_ms, "k1_ms_runs": times["render"],
+         "k2_ms_runs": times["render_stats"], "k2_over_k1": k2_ms / k1_ms,
+         "k1_ms_phase4": k1["kernel_ms"],
+         "k1_warp_efficiency_kernel": occ["warp"]["efficiency"],
+         "k1_warp_efficiency_plain": eff_plain,
+         "plain_ms": plain_s * 1e3, "bound_fp32_ops": ops,
+         "bound_bytes": n_bytes, "bound_ms": bound_ms,
+         "seconds": time.perf_counter() - t1}
+    emit(r)
+    check(rel["rays"] <= 5e-4, "occupancy rays vs the TPU's")
+    check(rel["work_lane_bounces"] <= 5e-4, "occupancy work vs the TPU's")
+    check(rel["iters_sum"] <= 5e-3, "occupancy iters vs the TPU's")
+    check(full["finite"] and full["rays_rel_diff"] <= 5e-4
+          and full["mean_abs_diff"] <= 1e-3, "K2 full frame vs plain")
+    counter_gates("K2 full frame", a)
+    return {
+        "name": "render_stats", "route": "cuda",
+        "source": "toypathtracer_torch/csrc/render.cu",
+        "replaces": "toypathtracer_tpu/ops/pallas_render.py:337",
+        "launches": occ_launches["render_stats"],
+        "max_abs_err": full["max_abs_diff"], "ms": k2_ms,
+        "plain_ms": plain_s * 1e3, "bound_ms": bound_ms,
+        "bound_by": "operations" if ops / 67e12 >= n_bytes / 3.35e12
+        else "bytes", "library_ms": None,
+        "vs_plain": {"tolerance": "image and rays bit-equal to K1's; trip "
+                                  "counts equal on all but 1e-4 of the "
+                                  "pixels, tile and warp counters equal "
+                                  "where their pixels' counts are; image "
+                                  "vs plain as K1's gates",
+                     "pixel_mismatch_frac_320x176": small_mismatch,
+                     "pixel_mismatch_frac_1280x720":
+                         a["pixel_mismatch_frac"],
+                     "tiles_differ": a["tiles_differ"],
+                     "warps_differ": a["warps_differ"]}}
+
+
+def probe_phases(smi):
+    """Phase 13: the issue-rate probe (T1) and its launch floor (T2)
+    against their plain versions, then the roofline tool's main path.
+    Returns their entries of the `kernels` line."""
+    from toypathtracer_torch.profiling import time_device_call
+    from toypathtracer_torch.tools import roofline
+
+    dev = torch.device("cuda")
+    t1 = time.perf_counter()
+    n = roofline.grid_blocks(1) * roofline.THREADS
+    checks = {}
+    for case in roofline.CASES:
+        out = torch.empty(n, device=dev)
+        k_s, _ = time_device_call(roofline.issue_rate, case, out, 64)
+        p_s, want = time_device_call(roofline.chains_plain, case, 64, n, dev)
+        err = (out - want).abs()
+        checks[case] = {"max_abs_err": float(err.max()),
+                        "max_rel_err": float((err / want.abs()).max()),
+                        "ms_k64": k_s * 1e3, "plain_ms_k64": p_s * 1e3,
+                        "finite": bool(torch.isfinite(out).all())}
+        check(checks[case]["finite"] and checks[case]["max_rel_err"] <= 1e-6,
+              f"issue_rate {case} vs plain at 64 trips")
+    big = roofline.grid_blocks(max(c.waves for c in roofline.CASES.values()))
+    out = torch.empty(big * roofline.THREADS, device=dev)
+    f_s, _ = time_device_call(roofline.launch_floor, out)
+    fp_s, want = time_device_call(roofline.chains_plain, "fma", 1,
+                                  out.numel(), dev)
+    floor_err = float((out - want).abs().max())
+    del want
+    check(floor_err == 0.0, "launch floor vs plain")
+    emit({"phase": "issue_rate_vs_plain", "threads": n, "trips": 64,
+          "tolerance": "max relative error <= 1e-6", "cases": checks,
+          "launch_floor": {"threads": out.numel(), "max_abs_err": floor_err,
+                           "ms": f_s * 1e3, "plain_ms": fp_s * 1e3},
+          "seconds": time.perf_counter() - t1})
+
+    t1 = time.perf_counter()
+    for k in roofline.launches:
+        roofline.launches[k] = 0
+    res = roofline.main([])
+    torch.cuda.synchronize()
+    launches = dict(roofline.launches)
+    cases = res["cases"]
+    main_checks = {**{k: v["vs_plain"] for k, v in cases.items()},
+                   **{f"floor_{w}_waves": f["vs_plain"]
+                      for w, f in res["floors"].items()}}
+    emit({"phase": "issue_rate", "nvidia_smi": smi, "launches": launches,
+          "vs_plain": main_checks,
+          "sm_clock_mhz_under_load": res["sm_clock_mhz_under_load"],
+          "sm_clock_max_mhz": res["sm_clock_max_mhz"],
+          "floors": res["floors"],
+          "ops_per_s": {k: v["ops_per_s"] for k, v in cases.items()},
+          "fma_flops_per_s": res["fma_flops_per_s"],
+          "fma_vs_fp32_peak": res["fma_vs_fp32_peak"],
+          "bound_share": {k: v["bound_s"] / (v["best_time_s"] - v["floor_s"])
+                          for k, v in cases.items() if v["bound_s"]},
+          "seconds": time.perf_counter() - t1})
+    check(launches["issue_rate"] > 0 and launches["launch_floor"] > 0,
+          f"roofline path launched {launches}")
+    for k, v in main_checks.items():
+        check(v["finite"] and v["max_rel_err"] <= 1e-6,
+              f"roofline path {k} vs plain, every thread at "
+              f"{v['trips']} trips")
+    check(all(0 < v["ops_per_s"] < 1e15 for v in cases.values()),
+          "issue rates out of range")
+    check(all(0 < f["event_s"] < 1 and 0 < f["host_s"] < 1
+              for f in res["floors"].values()), "launch floors out of range")
+    check(res["bound_clock_mhz"] is not None, "no SM clock from nvidia-smi")
+    floors = res["floors"]
+    top = str(max(int(w) for w in floors))
+    return [
+        {"name": "issue_rate", "route": "cuda",
+         "source": "toypathtracer_torch/csrc/probe.cu",
+         "replaces": "tools/vpu_roofline.py:125",
+         "launches": launches["issue_rate"],
+         "max_abs_err": max(c["max_abs_err"] for c in (
+             *checks.values(), *(v["vs_plain"] for v in cases.values()))),
+         "ms": sum(v["best_time_s"] for v in cases.values()) * 1e3,
+         "plain_ms": sum(c["plain_ms_k64"] for c in checks.values()),
+         "bound_ms": sum(v["bound_s"] for v in cases.values()) * 1e3,
+         "bound_by": "operations", "library_ms": None,
+         "ms_per_case": {k: v["best_time_s"] * 1e3 for k, v in cases.items()},
+         "bound_ms_per_case": {k: v["bound_s"] * 1e3
+                               for k, v in cases.items()},
+         "note": "ms and bound_ms: one full-size launch of each of the six "
+                 "cases (K=2048 trips, each case's grid), summed; plain_ms: "
+                 "64 trips on one wave of threads, beside the kernel's ms "
+                 "there (vs_plain); max_abs_err: over those and every "
+                 "thread of the full-size launches",
+         "vs_plain": {"tolerance": "max relative error <= 1e-6",
+                      "cases_64_trips": checks,
+                      "cases_main_path": {k: v["vs_plain"]
+                                          for k, v in cases.items()}}},
+        {"name": "launch_floor", "route": "cuda",
+         "source": "toypathtracer_torch/csrc/probe.cu",
+         "replaces": "tools/vpu_roofline.py:162",
+         "launches": launches["launch_floor"],
+         "max_abs_err": max(floor_err, *(f["vs_plain"]["max_abs_err"]
+                                         for f in floors.values())),
+         "ms": floors[top]["event_s"] * 1e3, "plain_ms": fp_s * 1e3,
+         "bound_ms": 4 * out.numel() / 3.35e12 * 1e3, "bound_by": "bytes",
+         "library_ms": None,
+         "ms_per_grid": {w: f["event_s"] * 1e3 for w, f in floors.items()},
+         "host_ms_per_grid": {w: f["host_s"] * 1e3
+                              for w, f in floors.items()},
+         "note": f"ms: the event floor of the {top}-wave grid "
+                 f"({out.numel()} threads); bound: its output written once",
+         "vs_plain": {"tolerance": "bit-equal", "max_abs_err": floor_err}}]
 
 
 if __name__ == "__main__":

@@ -12,7 +12,12 @@ max |diff| 1.9e-6.  Gradient kernel: rays exact, d_packed per row within
 at most 4.9e-6.  Scaled kernels (n=3000, chunk 256): the traversal K5 and
 the shadow bitmask K6 equal to their plain versions on all but 1e-5 of
 the rays, t within 1e-6 relative where the ids agree; the scaled render
-kernel at 64x32 with the render kernel's gates.
+kernel at 64x32 with the render kernel's gates.  Stats render kernel (K2):
+image and rays bit-equal to the render kernel's; per-pixel trip counts
+equal to the plain version's on all but 1e-4 of the pixels, tile and warp
+counters equal wherever their pixels' counts are.  Issue-rate probe (T1):
+each case at 64 trips within 1e-6 relative of its plain version; the
+launch floor (T2) positive and finite.
 """
 
 import numpy as np
@@ -25,10 +30,12 @@ from toypathtracer_torch.ops import cuda_grad, cuda_render, cuda_scaled
 from toypathtracer_torch.ops import tracecore as tc
 from toypathtracer_torch.render.frame import RenderSession
 from toypathtracer_torch.render.wavefront import (render_frame_plain,
-                                                  render_tile_grad_plain)
+                                                  render_tile_grad_plain,
+                                                  render_tile_stats_plain)
 from toypathtracer_torch.scaled import (ChunkTraversal, ChunkedScenePort,
                                         make_scaled_scene, pack_chunks,
                                         render_frame_scaled_plain)
+from toypathtracer_torch.tools import roofline
 
 pytestmark = pytest.mark.cuda
 
@@ -197,3 +204,53 @@ def test_scaled_session_runs_on_the_card(card):
     assert cuda_scaled.launches["scaled_render"] == before + 3
     assert img.device.type == "cuda" and torch.isfinite(img).all()
     assert rays.shape == (3,) and int(rays.min()) > 0
+
+
+@pytest.mark.parametrize("kw", [
+    dict(tile_h=16, tile_w=128),
+    dict(tile_h=32, tile_w=128, pix_per_lane=2, merged_wavefront=True)])
+def test_stats_kernel_matches_render_kernel_and_plain(card, kw):
+    scene = make_scene(big=True).to(card)
+    cfg = RenderConfig(width=100, height=40, samples_per_pixel=2,
+                       max_depth=6, **kw)
+    before = cuda_render.launches["render_stats"]
+    img, rays, cnt = cuda_render.render_tile_stats(scene, cfg, 1)
+    assert cuda_render.launches["render_stats"] == before + 1
+    img1, rays1 = cuda_render.render_tile(scene, cfg, 1, 0, 0, 40, 100)
+    _, prays, pcnt = render_tile_stats_plain(scene, cfg, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(img, img1) and int(rays) == int(rays1)
+    assert abs(int(rays) - int(prays)) <= 5e-4 * int(prays)
+    bad = torch.zeros_like(cnt.bounces, dtype=torch.bool)
+    for k, p in zip(cnt[:3], pcnt[:3]):
+        bad |= k != p
+    assert float(bad.double().mean()) <= 1e-4
+    if not bool(bad.any()):
+        for k, p in zip(cuda_render.tile_counters(cnt, cfg),
+                        cuda_render.tile_counters(pcnt, cfg)):
+            assert torch.equal(k, p)
+        assert torch.equal(cnt.warp_iters, pcnt.warp_iters)
+        assert torch.equal(cnt.warp_work, pcnt.warp_work)
+
+
+@pytest.mark.parametrize("case", list(roofline.CASES))
+def test_probe_kernel_matches_plain(card, case):
+    out = torch.empty(8 * 256, device=card)
+    before = roofline.launches["issue_rate"]
+    roofline.issue_rate(case, out, trips=64)
+    assert roofline.launches["issue_rate"] == before + 1
+    want = roofline.chains_plain(case, 64, out.numel(), card)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert float(((out - want).abs() / want.abs()).max()) <= 1e-6
+
+
+def test_launch_floor_is_positive_and_finite(card):
+    out = torch.empty(roofline.grid_blocks(1) * 256, device=card)
+    busy = torch.empty(roofline.grid_blocks(4) * 256, device=card)
+    ev = roofline.queued_event_s(lambda: roofline.launch_floor(out),
+                                 lambda: roofline.issue_rate("fma", busy),
+                                 8, 3)
+    host = roofline.best_host_s(lambda: roofline.launch_floor(out), 3)
+    assert 0 < ev < 1 and 0 < host < 1
+    assert torch.equal(out[:256], roofline.chains_plain("fma", 1, 256, card))

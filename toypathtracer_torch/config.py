@@ -3,8 +3,10 @@
 The same fields and validation rules as the JAX package's `RenderConfig`,
 so a configuration means the same render in both packages.  The TPU
 tuning knobs (`tile_h`, `tile_w`, `pix_per_lane`, `grad_tile_*`,
-`merged_wavefront`) are accepted and validated but ignored here: they
-never change the image, and the CUDA kernel runs one thread per pixel.
+`merged_wavefront`) never change the image, and the CUDA kernels run one
+thread per pixel; only the stats render reads the first four of them, to
+report the TPU kernel's per-tile occupancy counters
+(ops/cuda_render.render_frame_stats).
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ class RenderConfig:
     animate_smoothing: float = 0.9
 
     # TPU tuning knobs of the JAX package: accepted so that configurations
-    # move between the packages unchanged, ignored by the port.
+    # move between the packages unchanged; the renders ignore them.
     tile_h: int = 16
     tile_w: int = 128
     pix_per_lane: int = 1

@@ -1,8 +1,8 @@
-// Per-pixel path-tracing core of the render kernel (csrc/render.cu), of
-// the gradient and lockstep kernels (csrc/grad.cu) and of the scaled render
-// kernel (csrc/scaled.cu, through csrc/chunks.cuh's ChunkedView):
-// render_pixel, and its hand-written reverse mode grad_pixel at the end of
-// this file.
+// Per-pixel path-tracing core of the render and stats render kernels
+// (csrc/render.cu), of the gradient and lockstep kernels (csrc/grad.cu) and
+// of the scaled render kernel (csrc/scaled.cu, through csrc/chunks.cuh's
+// ChunkedView): render_pixel, and its hand-written reverse mode grad_pixel
+// at the end of this file.
 //
 // Replaces the TPU kernel toypathtracer_tpu/ops/pallas_render.py::
 // _render_kernel, whose body is tracecore.render_pixels_fused_merged.  The
@@ -419,47 +419,90 @@ TPT_HD void sample_ray(const float* cam, const RenderParams& p, int x, int y,
 }
 
 // One sample traced to its end, at most max_depth bounces: returns its
-// radiance and sets `depth` to the bounces it ran.  A sample that scatters
-// at depth max_depth keeps that bounce's emission and NEE and adds no sky
-// (ComputeShader.hlsl:300).
+// radiance, sets `depth` to the bounces it ran and `cut` to whether it was
+// still alive after them (ended by the depth cutoff, not by a miss or an
+// absorbed ray).  A sample that scatters at depth max_depth keeps that
+// bounce's emission and NEE and adds no sky (ComputeShader.hlsl:300).
 template <class View>
 TPT_HD V3 trace_sample(const View& S, const RenderParams& p, V3 ro,
-                       V3 rd, uint32_t& st, uint32_t& rays, int& depth) {
+                       V3 rd, uint32_t& st, uint32_t& rays, int& depth,
+                       bool& cut) {
   V3 col = v3(0.0f, 0.0f, 0.0f);
   V3 atten = v3(1.0f, 1.0f, 1.0f);
   bool do_me = true;  // emission not yet counted by NEE (hlsl:314-325)
   V3 e, c;
   BounceRec rec;
   depth = 0;
+  cut = false;
   while (depth < p.max_depth) {
     bool go = bounce(S, p, true, ro, rd, st, do_me, rays, e, c, rec);
     col = add(col, mul(atten, e));
     ++depth;
+    cut = go;
     if (!go) break;
     atten = mul(atten, c);
   }
   return col;
 }
 
-// One pixel: spp samples; writes the sample mean to out[0..2] and returns
-// the pixel's rays (camera, bounce and shadow rays).
-template <class View>
+// What render_pixel reports of each sample besides the image.  The render
+// kernels pass NoTrips, which compiles to nothing; the stats render kernel
+// (K2, csrc/render.cu) passes a counter derived from Trips.  A counter
+// whose live() is false makes render_pixel trace nothing: the thread walks
+// the sample loop with depth 0, so that a warp-wide reduction in sample()
+// still sees every lane at the same call.
+struct NoTrips {
+  TPT_HD bool live() const { return true; }
+  TPT_HD void sample(int, bool) {}
+};
+
+// A pixel's trip counts, from which the TPU kernel's per-tile occupancy
+// counters follow exactly (ops/cuda_render.tile_counters).
+struct Trips {
+  int32_t bounces = 0;      // b: bounce() calls over the samples
+  int32_t cutoffs = 0;      // c: samples still alive after max_depth
+  int32_t last_cutoff = 0;  // l: 1 when the last sample was one of them
+  TPT_HD bool live() const { return true; }
+  TPT_HD void sample(int depth, bool cut) {
+    bounces += depth;
+    cutoffs += cut ? 1 : 0;
+    last_cutoff = cut ? 1 : 0;
+  }
+};
+
+// One pixel: spp samples; writes the sample mean to out[0..2], reports
+// each sample's bounces to `trips`, and returns the pixel's rays (camera,
+// bounce and shadow rays).
+template <class View, class Counter>
 TPT_HD uint32_t render_pixel(const View& S, const float* cam,
                              const RenderParams& p, int x, int y,
-                             float* out) {
+                             float* out, Counter& trips) {
   uint32_t st = seed_pixel((uint32_t)x, (uint32_t)y, p.frame);
   uint32_t rays = 0;
   V3 sum = v3(0.0f, 0.0f, 0.0f);
+  const bool live = trips.live();
   for (int s = 0; s < p.spp; ++s) {
-    V3 ro, rd;
-    sample_ray(cam, p, x, y, st, ro, rd);
-    int depth;
-    sum = add(sum, trace_sample(S, p, ro, rd, st, rays, depth));
+    int depth = 0;
+    bool cut = false;
+    if (live) {
+      V3 ro, rd;
+      sample_ray(cam, p, x, y, st, ro, rd);
+      sum = add(sum, trace_sample(S, p, ro, rd, st, rays, depth, cut));
+    }
+    trips.sample(depth, cut);
   }
   out[0] = sum.x * p.inv_spp;
   out[1] = sum.y * p.inv_spp;
   out[2] = sum.z * p.inv_spp;
   return rays;
+}
+
+template <class View>
+TPT_HD uint32_t render_pixel(const View& S, const float* cam,
+                             const RenderParams& p, int x, int y,
+                             float* out) {
+  NoTrips none;
+  return render_pixel(S, cam, p, x, y, out, none);
 }
 
 // ---- Adjoint: the gradient kernel's per-pixel code (csrc/grad.cu) ----
@@ -692,7 +735,8 @@ TPT_HD uint32_t grad_pixel(const SceneView& S, const float* cam,
     sample_ray(cam, p, x, y, st, ro0, rd0);
     const uint32_t st0 = st;
     int depth;
-    sum = add(sum, trace_sample(S, p, ro0, rd0, st, rays, depth));
+    bool cut;
+    sum = add(sum, trace_sample(S, p, ro0, rd0, st, rays, depth, cut));
     V3 g_atten = zero;
     V3 g_ro = zero;
     V3 g_rd = zero;

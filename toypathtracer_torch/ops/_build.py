@@ -29,8 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # sinf/cosf/expf/logf stay the accurate library functions.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
-SOURCES = ("render.cu", "grad.cu", "scaled.cu")
-HEADERS = ("trace.cuh", "chunks.cuh")
+SOURCES = ("render.cu", "grad.cu", "scaled.cu", "probe.cu")
+HEADERS = ("trace.cuh", "chunks.cuh", "probe.cuh")
 
 
 class RenderParams(ctypes.Structure):
@@ -107,28 +107,32 @@ def build(verbose: bool = False) -> Path:
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C
-    interface of csrc/render.cu, csrc/grad.cu and csrc/scaled.cu."""
+    interface of csrc/render.cu, grad.cu, scaled.cu and probe.cu."""
     lib = ctypes.CDLL(str(build()))
     ptr = ctypes.c_void_p
     params = ctypes.POINTER(RenderParams)
     lib.tpt_render_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr,
                                       ptr]
+    i32, f32 = ctypes.c_int, ctypes.c_float
+    lib.tpt_render_stats_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr,
+                                            ptr, i32, i32, ptr, ptr, ptr]
     lib.tpt_lockstep_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr,
                                         ptr]
     lib.tpt_grad_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr, ptr,
                                     ptr, ptr, ptr]
     lib.tpt_grad_blocks.argtypes = [params]
-    i32, f32 = ctypes.c_int, ctypes.c_float
     lib.tpt_hit_chunks_launch.argtypes = [ptr, i32, i32, ptr, ptr, i32, f32,
                                           f32, ptr, ptr, ptr]
     lib.tpt_shadow_chunks_launch.argtypes = [ptr, i32, i32, ptr, ptr, ptr,
                                              ptr, i32, i32, f32, ptr, ptr]
     lib.tpt_scaled_render_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, params,
                                              i32, i32, ptr, ptr, ptr]
-    for fn in (lib.tpt_render_launch, lib.tpt_lockstep_launch,
-               lib.tpt_grad_launch, lib.tpt_grad_blocks,
-               lib.tpt_hit_chunks_launch, lib.tpt_shadow_chunks_launch,
-               lib.tpt_scaled_render_launch):
+    lib.tpt_probe_launch.argtypes = [i32, i32, i32, ptr, ptr]
+    for fn in (lib.tpt_render_launch, lib.tpt_render_stats_launch,
+               lib.tpt_lockstep_launch, lib.tpt_grad_launch,
+               lib.tpt_grad_blocks, lib.tpt_hit_chunks_launch,
+               lib.tpt_shadow_chunks_launch, lib.tpt_scaled_render_launch,
+               lib.tpt_probe_launch):
         fn.restype = ctypes.c_int
     lib.tpt_error_string.argtypes = [ctypes.c_int]
     lib.tpt_error_string.restype = ctypes.c_char_p

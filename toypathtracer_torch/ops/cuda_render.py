@@ -1,17 +1,20 @@
-"""The render kernel's wrapper (counterpart of toypathtracer_tpu/ops/
+"""The render kernel's wrappers (counterpart of toypathtracer_tpu/ops/
 pallas_render.py).
 
 `render_tile` and `render_frame` launch the hand-written CUDA kernel of
 csrc/render.cu (the port of pallas_render.py::_render_kernel) on CUDA
 tensors and run the plain PyTorch version (render/wavefront.py) on CPU
-tensors.  There is no fallback: on a CUDA tensor a failed build or launch
-raises.  `launches["render"]` counts kernel launches, so a run can show
-that its frames went through the kernel.
+tensors.  `render_tile_stats` and `render_frame_stats` do the same for its
+stats instance, the counterpart of `render_frame_pallas_stats`: the image,
+the rays and the occupancy counters.  There is no fallback: on a CUDA
+tensor a failed build or launch raises.  `launches` counts kernel launches
+by kernel, so a run can show that its frames went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -25,7 +28,7 @@ from . import _build
 MAX_SPHERES = 512
 MAX_LIGHTS = 16
 
-launches = {"render": 0}
+launches = {"render": 0, "render_stats": 0}
 
 
 def pack_scene(scene: Scene) -> torch.Tensor:
@@ -141,10 +144,11 @@ def cuda_call(lib, name: str, code: int):
 
 def launch_forward(kernel: str, scene: Scene, tab: torch.Tensor,
                    cfg: RenderConfig, frame: int, x0: int, y0: int,
-                   height: int, width: int):
-    """Launch the forward kernel tpt_<kernel>_launch ("render" or
-    "lockstep") on the current stream; returns ((height, width, 3)
-    float32 image, 0-d int64 ray count)."""
+                   height: int, width: int, *extra):
+    """Launch the forward kernel tpt_<kernel>_launch ("render",
+    "render_stats" or "lockstep") on the current stream, with `extra`
+    arguments after the ray counter; returns ((height, width, 3) float32
+    image, 0-d int64 ray count)."""
     lib = _build.load_library()
     mat, lights, cam = kernel_inputs(scene, cfg)
     dev = scene.device
@@ -155,7 +159,8 @@ def launch_forward(kernel: str, scene: Scene, tab: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = getattr(lib, f"tpt_{kernel}_launch")(
             tab.data_ptr(), mat.data_ptr(), lights.data_ptr(), cam.data_ptr(),
-            ctypes.byref(params), out.data_ptr(), rays.data_ptr(), stream)
+            ctypes.byref(params), out.data_ptr(), rays.data_ptr(), *extra,
+            stream)
     cuda_call(lib, kernel, code)
     return out, rays
 
@@ -190,3 +195,112 @@ def render_frame(scene: Scene, cfg: RenderConfig, frame: int,
     card.  Returns ((H, W, 3) float32, 0-d int64 ray count)."""
     scene = scene.to(resolve_device(device))
     return render_tile(scene, cfg, frame, 0, 0, cfg.height, cfg.width)
+
+
+# ---- the stats render (K2) -------------------------------------------------
+
+
+class StatsCounters(NamedTuple):
+    """The stats render's counters, int32 tensors on the scene's device.
+    Per pixel of the padded tile grid (grid_h, grid_w): the trip counts
+    of csrc/trace.cuh tpt::Trips.  Per warp of the render kernel (16x2
+    pixels; row r, column c covers pixel rows 2r, 2r+1 and columns 16c to
+    16c+15), over the pixels of the image: `warp_iters`, the sum over
+    samples of the warp's deepest lane, and `warp_work`, the lanes'
+    bounces summed."""
+    bounces: torch.Tensor
+    cutoffs: torch.Tensor
+    last_cutoff: torch.Tensor
+    warp_iters: torch.Tensor
+    warp_work: torch.Tensor
+
+
+def resolve_pix_per_lane(cfg: RenderConfig, pad_h: int, pad_w: int) -> int:
+    """The TPU kernel's pixels per lane K for this call
+    (pallas_render._resolve_pix_per_lane): cfg.pix_per_lane, or 1 when the
+    tile cannot hold K row bands of a multiple of 8 rows."""
+    k = cfg.pix_per_lane
+    if k <= 1:
+        return 1
+    if cfg.tile_h % k or (cfg.tile_h // k) % 8:
+        return 1
+    return k
+
+
+def padded_grid(cfg: RenderConfig):
+    """(grid_h, grid_w): the frame padded up to whole TPU tiles."""
+    return (cfg.height + -cfg.height % cfg.tile_h,
+            cfg.width + -cfg.width % cfg.tile_w)
+
+
+def warp_grid(grid_h: int, grid_w: int):
+    """Shape of the per-warp counters over a (grid_h, grid_w) launch."""
+    return 4 * -(-grid_h // 8), -(-grid_w // 16)
+
+
+def tile_counters(counters: StatsCounters, cfg: RenderConfig):
+    """Per-pixel trip counts -> the TPU kernel's (gh, gw) int32 per-tile
+    `iters` (loop trips) and `work` (live lanes summed over trips) for
+    cfg's tile, pix_per_lane and loop.  A lane of a (tile_h, tile_w) tile
+    with K pixels per lane owns rows r + k*tile_h/K of its column and runs
+    L trips: the unmerged loop bounces once a trip and refills in the
+    same trip, L = sum(b); the merged loop spends one trip on the first
+    refill and an idle one after each depth-cutoff sample but the lane's
+    last, L = 1 + sum(b + c) - l_last.  A tile runs its longest lane and
+    its work is the lanes' sum.  Padded pixels count, as on the TPU."""
+    grid_h, grid_w = padded_grid(cfg)
+    th, tw = cfg.tile_h, cfg.tile_w
+    k = resolve_pix_per_lane(cfg, grid_h - cfg.height, grid_w - cfg.width)
+    gh, gw = grid_h // th, grid_w // tw
+
+    def lanes(x):  # (grid_h, grid_w) -> (gh, K, tile_h/K, gw, tile_w)
+        return x.to(torch.int64).reshape(gh, k, th // k, gw, tw)
+    b = lanes(counters.bounces).sum(dim=1)
+    if cfg.merged_wavefront:
+        trips = (1 + b + lanes(counters.cutoffs).sum(dim=1)
+                 - lanes(counters.last_cutoff)[:, k - 1])
+    else:
+        trips = b
+    return (trips.amax(dim=(1, 3)).to(torch.int32),
+            trips.sum(dim=(1, 3)).to(torch.int32))
+
+
+def render_tile_stats(scene: Scene, cfg: RenderConfig, frame: int,
+                      tab=None):
+    """The frame rendered over its padded tile grid with the occupancy
+    counters, on the scene's device: the stats instance of the render
+    kernel (K2) for a scene on a card, render/wavefront.
+    render_tile_stats_plain for a scene on the CPU.  The image and rays
+    are the render kernel's, bit for bit.
+
+    Returns ((H, W, 3) float32, 0-d int64 rays of the image's pixels,
+    StatsCounters)."""
+    H, W = cfg.height, cfg.width
+    tab = checked_tab(scene, 0, 0, H, W, tab)
+    if scene.device.type == "cpu":
+        from ..render.wavefront import render_tile_stats_plain
+        return render_tile_stats_plain(scene, cfg, frame, tab=tab)
+    if scene.device.type != "cuda":
+        raise ValueError(f"no renderer for device {scene.device}")
+    grid_h, grid_w = padded_grid(cfg)
+    trips = torch.empty((3, grid_h, grid_w), dtype=torch.int32,
+                        device=scene.device)
+    warps = torch.empty((2, *warp_grid(grid_h, grid_w)), dtype=torch.int32,
+                        device=scene.device)
+    out, rays = launch_forward("render_stats", scene, tab, cfg, frame, 0, 0,
+                               H, W, grid_h, grid_w, trips.data_ptr(),
+                               warps.data_ptr())
+    launches["render_stats"] += 1
+    return out, rays, StatsCounters(*trips, *warps)
+
+
+def render_frame_stats(scene: Scene, cfg: RenderConfig, frame: int,
+                       device="cuda"):
+    """Instrumented full-frame render on `device` (default: the card;
+    "cpu" runs the plain version), the counterpart of
+    render_frame_pallas_stats.  Returns ((H, W, 3) float32, 0-d int64
+    rays, iters (gh, gw) int32, work (gh, gw) int32); occupancy of a tile
+    = work / (iters * lanes), lanes = tile_h * tile_w / pix_per_lane."""
+    scene = scene.to(resolve_device(device))
+    img, rays, counters = render_tile_stats(scene, cfg, frame)
+    return (img, rays, *tile_counters(counters, cfg))

@@ -529,8 +529,19 @@ def bounce(tab, mat, emissive_ids, cfg: RenderConfig, carry,
     return (ro, rd, scat, do_me, state, work), e, c
 
 
+class Trips(NamedTuple):
+    """Per-lane trip counts of render_pixels(stats=True): the plain form of
+    the stats render kernel's counters (csrc/trace.cuh tpt::Trips), from
+    which the TPU kernel's occupancy counters follow exactly
+    (ops/cuda_render.tile_counters).  int64 tensors."""
+    bounces: torch.Tensor      # b: bounces over the samples (= Work.traced)
+    cutoffs: torch.Tensor      # c: samples still alive after max_depth
+    last_cutoff: torch.Tensor  # l: 1 when the last sample was one of them
+    depths: torch.Tensor       # (P, spp): each sample's bounces
+
+
 def render_pixels(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
-                  px, py, frame: int, traversal=None):
+                  px, py, frame: int, traversal=None, stats: bool = False):
     """Render 1-D lanes of pixels (px, py: int64 global coordinates, y=0
     the bottom row): seed, spp thin-lens samples each traced for up to
     max_depth bounces, average (tracecore.render_pixels_lockstep; the
@@ -540,7 +551,9 @@ def render_pixels(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
     emission and NEE and adds no sky (ComputeShader.hlsl:300).  Returns
     (col vec3, per-lane Work); the reference's ray count is
     work.traced + work.shadow.  `traversal` answers the ray queries
-    (default BruteForce(tab); scaled.ChunkTraversal for a ScaledScene)."""
+    (default BruteForce(tab); scaled.ChunkTraversal for a ScaledScene).
+    stats=True appends the per-lane Trips; the colour and Work are the
+    same either way."""
     state = seed_pixels(px, py, frame)
     fx = px.to(torch.float32)
     fy = py.to(torch.float32)
@@ -550,6 +563,7 @@ def render_pixels(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
     col_sum = (zero, zero, zero)
     izero = torch.zeros_like(px, dtype=torch.int64)
     work = Work(izero, izero, izero, izero, izero)
+    depths, cuts = [], []
     for _ in range(cfg.samples_per_pixel):
         state, ur = rand01(state)
         u = (fx + ur) * inv_w
@@ -560,6 +574,7 @@ def render_pixels(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
         atten = (zero + 1.0, zero + 1.0, zero + 1.0)
         alive = torch.ones_like(px, dtype=torch.bool)
         do_me = alive
+        traced0 = work.traced
         for _ in range(cfg.max_depth):
             (ro, rd, alive, do_me, state, work), e, c = bounce(
                 tab, mat, emissive_ids, cfg,
@@ -569,5 +584,12 @@ def render_pixels(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
             if not bool(alive.any()):
                 break
         col_sum = add3(col_sum, col)
+        # still alive here only after max_depth bounces: the depth cutoff
+        depths.append(work.traced - traced0)
+        cuts.append(alive.to(torch.int64))
     inv_spp = float(np.float32(1.0 / cfg.samples_per_pixel))
-    return scale3(col_sum, inv_spp), work
+    col = scale3(col_sum, inv_spp)
+    if not stats:
+        return col, work
+    return col, work, Trips(work.traced, sum(cuts), cuts[-1],
+                            torch.stack(depths, dim=1))

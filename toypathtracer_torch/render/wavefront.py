@@ -5,7 +5,9 @@ render/wavefront.py).
 the lockstep kernel: the same inputs (packed scene table, material types,
 emissive ids, the 22-float camera), the same per-pixel function,
 vectorised over pixels in eager torch.  `render_tile_grad_plain` runs
-autograd through it: the plain version of the gradient kernel.  The
+autograd through it: the plain version of the gradient kernel.
+`render_tile_stats_plain` is the plain version of the stats render
+kernel, with its occupancy counters.  The
 ops/ wrappers take them for CPU tensors, and chip_smoke.py holds the
 kernels against them on the card.  Nothing on the main path calls them
 when a card is present.
@@ -21,7 +23,8 @@ import torch
 from ..camera import make_camera
 from ..config import RenderConfig
 from ..ops import tracecore as tc
-from ..ops.cuda_render import pack_scene
+from ..ops.cuda_render import (StatsCounters, pack_scene, padded_grid,
+                               warp_grid)
 from ..scene import Scene
 
 
@@ -50,21 +53,31 @@ def render_tile_plain(scene: Scene, cfg: RenderConfig, frame: int, x0: int,
     pack_scene(scene)).  Autograd runs through it when `tab` or the scene
     requires grad.  Returns ((height, width, 3) float32, int64 ray count
     as a 0-d tensor)."""
+    if tab is None:
+        tab = pack_scene(scene)
+    if torch.is_grad_enabled() and tab.requires_grad:
+        check_hard_gradients(cfg)
+    col, work = render_pixel_grid(scene, cfg, frame, height, width, tab,
+                                  x0, y0)
+    img = torch.stack(col, dim=-1).reshape(height, width, 3)
+    return img, work.traced.sum() + work.shadow.sum()
+
+
+def render_pixel_grid(scene: Scene, cfg: RenderConfig, frame: int,
+                      height: int, width: int, tab, x0: int = 0, y0: int = 0,
+                      stats: bool = False):
+    """tracecore.render_pixels over the (height, width) pixels whose
+    lower-left is the global pixel (x0, y0), row-major, from the packed
+    table `tab`."""
     dev = scene.device
     yy, xx = torch.meshgrid(
         torch.arange(y0, y0 + height, device=dev, dtype=torch.int64),
         torch.arange(x0, x0 + width, device=dev, dtype=torch.int64),
         indexing="ij")
-    if tab is None:
-        tab = pack_scene(scene)
-    if torch.is_grad_enabled() and tab.requires_grad:
-        check_hard_gradients(cfg)
     mat = torch.tensor(scene.mat_type, dtype=torch.int64, device=dev)
-    col, work = tc.render_pixels(
+    return tc.render_pixels(
         tab, mat, scene.emissive_ids, cfg, camera_scalars(scene, cfg),
-        xx.reshape(-1), yy.reshape(-1), frame)
-    img = torch.stack(col, dim=-1).reshape(height, width, 3)
-    return img, work.traced.sum() + work.shadow.sum()
+        xx.reshape(-1), yy.reshape(-1), frame, stats=stats)
 
 
 def render_frame_plain(scene: Scene, cfg: RenderConfig, frame: int):
@@ -92,3 +105,42 @@ def render_tile_grad_plain(scene: Scene, cfg: RenderConfig, frame: int,
                                       width, tab=tab)
         d_tab, = torch.autograd.grad(img, tab, g_img.to(img))
     return img.detach(), rays, d_tab
+
+
+def warp_counters(depths, height: int, width: int):
+    """The stats render kernel's per-warp counters from each pixel's
+    per-sample bounces `depths` (grid_h, grid_w, spp) over its launch grid
+    of 16x8-pixel blocks, four 16x2-pixel warps each: per warp, the sum
+    over samples of its deepest lane (`iters`) and its lanes' bounces
+    summed (`work`), over the pixels of the (height, width) image (the
+    others count 0).  Returns int32 (iters, work), each warp_grid-shaped."""
+    grid_h, grid_w, spp = depths.shape
+    wr, wc = warp_grid(grid_h, grid_w)
+    d = torch.zeros((2 * wr, 16 * wc, spp), dtype=torch.int64,
+                    device=depths.device)
+    d[:height, :width] = depths[:height, :width]
+    d = d.reshape(wr, 2, wc, 16, spp)
+    return (d.amax(dim=(1, 3)).sum(dim=-1).to(torch.int32),
+            d.sum(dim=(1, 3, 4)).to(torch.int32))
+
+
+def render_tile_stats_plain(scene: Scene, cfg: RenderConfig, frame: int,
+                            tab=None):
+    """The plain version of the stats render kernel: every pixel of the
+    frame padded to whole TPU tiles rendered with its trip counts
+    (tracecore.render_pixels(stats=True)), the image cropped and the rays
+    counted over the image's pixels.  Returns ((H, W, 3) float32, 0-d
+    int64 rays, ops/cuda_render.StatsCounters)."""
+    grid_h, grid_w = padded_grid(cfg)
+    col, work, trips = render_pixel_grid(
+        scene, cfg, frame, grid_h, grid_w,
+        pack_scene(scene) if tab is None else tab, stats=True)
+    H, W = cfg.height, cfg.width
+    img = torch.stack(col, dim=-1).reshape(grid_h, grid_w, 3)[:H, :W]
+    rays = (work.traced + work.shadow).reshape(grid_h, grid_w)[:H, :W].sum()
+
+    def plane(x):
+        return x.reshape(grid_h, grid_w).to(torch.int32)
+    return img, rays, StatsCounters(
+        plane(trips.bounces), plane(trips.cutoffs), plane(trips.last_cutoff),
+        *warp_counters(trips.depths.reshape(grid_h, grid_w, -1), H, W))
