@@ -5,7 +5,9 @@ kernel against the plain PyTorch version.
 
 Phases (one JSON line each on stdout; any failure raises and exits
 non-zero):
-  1. device: the card, torch/CUDA versions, the nvcc build of csrc/.
+  1. device: the card, torch/CUDA versions, the nvcc build of csrc/;
+     each kernel's registers, stack and spills from -Xptxas -v, with K1,
+     K3, K4 and the per-lane scaled render kernel held at their counts.
   2. kernel vs plain at 320x176, spp 2, depth 6, frames 0-3: the big
      scene, the big scene without light sampling, the small scene.
   3. the main path: RenderSession(device="cuda") at 1280x720, spp 4,
@@ -24,14 +26,26 @@ non-zero):
   7. gradient timing with CUDA events and the host clock.
   8. the scaled path (make_scaled_scene(100_000): 100,096 spheres in 391
      chunks, 8 beacons) at 1280x720, spp 4, depth 10: RenderSession, 4
-     progressive frames plus 1 animated frame (one scaled_render launch a
-     frame), and the ChunkedScenePort queries on frame 0's camera rays
-     (K5) and on their first Lambert hits' cone samples (K6).
+     progressive frames plus 1 animated frame (one launch a frame of the
+     warp-cooperative scaled render kernel, none of the per-lane form),
+     and the ChunkedScenePort queries on frame 0's camera rays (K5) and
+     on their first Lambert hits' cone samples (K6).
   9. K5 (camera rays and 65,536 random rays) and K6 (the 8 lights' cone
      samples) vs their plain versions at the full scene; the scaled render
-     kernel vs plain at 320x176 / spp 1 / depth 4 (frames 0-1) and on a
-     16-row band at full size; the full frame's plain work counts.
- 10. scaled timing with CUDA events, bounds from the plain work counters.
+     kernel vs plain at 320x176 / spp 1 / depth 4 (frames 0-1), on a
+     16-row band and on the full frame at full size (whose plain work
+     counts give the bounds), and in every one of those and on the
+     animated frame bit-equal to the per-lane form and to the staged
+     cooperative form; both forms' stats instances on frame 0 (image
+     bit-equal, the hit rays' sphere tests equal to the plain count, and
+     the per-lane form's shadow and slab tests; sphere-loop SIMT
+     efficiency for hit and shadow calls; the cooperative form's cycles
+     by part of the path loop).
+ 10. scaled timing with CUDA events: the cooperative, staged and per-lane
+     forms in turns at 1280x720 and 320x176; tools.coop_sweep (the
+     cooperative kernel's kCoopMin x kCoopBlocks grid, each variant
+     bit-equal to the shipped build, timed in turns); the session; bounds
+     from the plain work counters.
  11. the stats render kernel (K2) at 320x176, spp 2, depth 6, frames 0-1:
      16x128 tiles unmerged and a padded shape (32x128 tiles, 2 pixels a
      lane, merged); image and rays bit-equal to K1's, per-pixel trip
@@ -59,6 +73,17 @@ import sys
 import time
 
 import torch
+
+
+# Registers and spill bytes of the kernels that the scaled render's redesign
+# must leave as they were (-Xptxas -v of their sources before it): K1, K3,
+# K4 and the per-lane scaled render kernel.
+KEPT_USAGE = {
+    "render_kernel<0>": {"registers": 80, "spill_stores": 48},
+    "lockstep_kernel<1>": {"registers": 116, "spill_stores": 0},
+    "lockstep_kernel<0>": {"registers": 80, "spill_stores": 52},
+    "scaled_render_kernel<0>": {"registers": 80, "spill_stores": 32},
+}
 
 
 def emit(obj):
@@ -134,6 +159,13 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "build_s": build_s, "library": str(lib_path.name)})
+    usage = _build.ptxas_usage(
+        lib_path.with_suffix(".ptxas.txt").read_text())
+    emit({"phase": "ptxas", "kernels": usage})
+    for label, want in KEPT_USAGE.items():
+        got = usage.get(label, {})
+        check(all(got.get(k) == v for k, v in want.items()),
+              f"{label}: registers/spills {got}, expected {want}")
 
     # ---- 2. kernel vs plain, small size ---------------------------------
     small_cfg = RenderConfig(width=320, height=176, samples_per_pixel=2,
@@ -282,7 +314,7 @@ def main() -> int:
                        dict(ops=ops, bytes=n_bytes, traced=traced,
                             shadow=shadow, plain_ms=plain_ms,
                             plain_img=plain_img))
-    scaled = scaled_phases(cfg, smi)
+    scaled = scaled_phases(cfg, smi, usage)
     stats = stats_phases(cfg, smi, dict(ops=ops, bytes=n_bytes,
                                         kernel_ms=kernel_ms))
     probe = probe_phases(smi)
@@ -551,10 +583,12 @@ def grad_phases(cfg, scene, scene_d, smi, k1):
                           r["render_kernel_bit_equal"]}}]
 
 
-def scaled_phases(cfg, smi):
+def scaled_phases(cfg, smi, usage):
     """Phases 8-10: the scaled scene's main path, its kernels against
-    their plain versions at the full 100k-sphere scene, and their timing.
-    Returns the three kernels' entries of the `kernels` line."""
+    their plain versions at the full 100k-sphere scene, the scaled render
+    kernel's forms against each other, and their timing.  `usage` is
+    phase 1's -Xptxas -v table.  Returns the three kernels' entries of the
+    `kernels` line."""
     import numpy as np
 
     from toypathtracer_torch import (FLAG_ANIMATE, FLAG_PROGRESSIVE,
@@ -567,6 +601,7 @@ def scaled_phases(cfg, smi):
     from toypathtracer_torch.scaled import (ChunkedScenePort, ChunkTraversal,
                                             pack_chunks,
                                             render_tile_scaled_plain)
+    from toypathtracer_torch.tools import coop_sweep
 
     dev = torch.device("cuda")
     t_min, t_max = float(np.float32(cfg.min_t)), float(np.float32(cfg.max_t))
@@ -639,7 +674,9 @@ def scaled_phases(cfg, smi):
             "visible_light_samples": int(sum(int(x.sum()) for x in visible)),
             "seconds": time.perf_counter() - t0}
     emit(main)
-    check(main_launches == {"scaled_render": 5, "hit_chunks": 1,
+    check(main_launches == {"scaled_render": 5, "scaled_render_lane": 0,
+                            "scaled_render_staged": 0,
+                            "scaled_render_stats": 0, "hit_chunks": 1,
                             "shadow_chunks": 1},
           f"scaled main path launched {main_launches}")
     check(tuple(accum.shape) == (720, 1280, 3) and main["accum_finite"],
@@ -716,8 +753,27 @@ def scaled_phases(cfg, smi):
     emit(k6)
     check(k6["ray_mismatch"] <= 1e-5 * n, "K6: occlusion bits")
 
+    def forms_equal(what, sc, c, frame, y0, h, main):
+        """The per-lane and staged forms on the same tile as the main
+        path's form: image and rays bit-equal."""
+        img, rays = main
+        r = {}
+        for form in ("lane", "staged"):
+            img_f, rays_f = cuda_scaled.render_tile_scaled_form(
+                sc, c, frame, 0, y0, h, c.width, form)
+            torch.cuda.synchronize()
+            r[form] = {"bit_equal": bool(torch.equal(img_f, img)),
+                       "rays_equal": int(rays_f) == int(rays),
+                       "pixels_differ": int((img_f != img).any(-1).sum())}
+        emit({"phase": "scaled_forms_bit_equal", "case": what, **r})
+        for form, v in r.items():
+            check(v["bit_equal"] and v["rays_equal"],
+                  f"scaled {what}: the {form} form differs from coop")
+        return r
+
     small = cfg.replace(width=320, height=176, samples_per_pixel=1,
                         max_depth=4)
+    bit_equal = {}
     for frame in range(2):
         t1 = time.perf_counter()
         img_k, rays_k = cuda_scaled.render_tile_scaled(sd, small, frame, 0, 0,
@@ -733,6 +789,9 @@ def scaled_phases(cfg, smi):
               "rays")
         check(r["mean_abs_diff"] <= 1e-3, f"scaled 320x176 frame {frame}: "
               "mean")
+        bit_equal[f"320x176_frame{frame}"] = forms_equal(
+            f"320x176 frame {frame}", sd, small, frame, 0, 176,
+            (img_k, rays_k))
     t1 = time.perf_counter()
     y0 = H // 2 - 8
     img_k, rays_k = cuda_scaled.render_tile_scaled(sd, cfg, 0, 0, y0, 16, W)
@@ -744,6 +803,8 @@ def scaled_phases(cfg, smi):
           "seconds": time.perf_counter() - t1})
     check(band["finite"] and band["rays_rel_diff"] <= 5e-4
           and band["mean_abs_diff"] <= 1e-3, "scaled full-size band")
+    bit_equal["band"] = forms_equal("16-row band", sd, cfg, 0, y0, 16,
+                                    (img_k, rays_k))
 
     # the full frame through the plain version: its work counters give the
     # bound, and its image one more comparison
@@ -758,15 +819,65 @@ def scaled_phases(cfg, smi):
           **full, "work": w, "seconds": time.perf_counter() - t1})
     check(full["finite"] and full["rays_rel_diff"] <= 5e-4
           and full["mean_abs_diff"] <= 1e-3, "scaled full frame vs plain")
+    bit_equal["1280x720"] = forms_equal("1280x720 frame 0", sd, cfg, 0, 0, H,
+                                        (img_fk, rays_fk))
+    sd_anim = sd.animate(1.0)
+    img_ak, rays_ak = cuda_scaled.render_tile_scaled(sd_anim, cfg, 0, 0, 0, H,
+                                                     W)
+    bit_equal["animated"] = forms_equal("1280x720 animated (t=1)", sd_anim,
+                                        cfg, 0, 0, H, (img_ak, rays_ak))
+
+    # step 0: both forms' stats instances on frame 0.  Their images are
+    # the timed instances'; the sphere tests the hit rays need are the
+    # plain version's count, and in the per-lane form, which takes every
+    # chunk in order, the shadow rays' tests and the slab tests too.
+    t1 = time.perf_counter()
+    simt = {}
+    for form in ("lane", "coop"):
+        img_s, rays_s, st_k = cuda_scaled.render_tile_scaled_form(
+            sd, cfg, 0, 0, 0, H, W, form, stats=True)
+        torch.cuda.synchronize()
+        simt[form] = st_k
+        same = bool(torch.equal(img_s, img_fk)) and int(rays_s) == int(rays_fk)
+        need = {"hit": w["hit_tests"]}
+        if form == "lane":
+            need["shadow"] = w["occlusion_tests"]
+        rel = {k: abs(st_k[k]["need"] - v) / max(v, 1)
+               for k, v in need.items()}
+        emit({"phase": "scaled_traversal_stats", "form": form,
+              "bit_equal_to_timed": same, "need_rel_vs_plain": rel,
+              "plain_slab_tests": w["slab_tests"], **st_k,
+              "seconds": time.perf_counter() - t1})
+        check(same, f"scaled {form} stats instance != its timed instance")
+        check(max(rel.values()) <= 1e-4,
+              f"scaled {form} stats: sphere tests needed vs plain {rel}")
+        if form == "lane":
+            slabs = st_k["hit"]["slabs"] + st_k["shadow"]["slabs"]
+            check(abs(slabs - w["slab_tests"]) <= 1e-4 * w["slab_tests"],
+                  f"scaled lane stats: slab tests {slabs} vs plain "
+                  f"{w['slab_tests']}")
 
     # ---- 10. timing ------------------------------------------------------
+    # the forms in turns at both sizes: coop, staged, lane, lane, staged,
+    # coop; each entry the mean of its two runs
     t1 = time.perf_counter()
-    small_s, _ = time_device_call(cuda_scaled.render_tile_scaled, sd, small,
-                                  0, 0, 0, 176, 320, repeats=3)
+    form_ms = {}
+    for name, c, h, reps in (("1280x720", cfg, H, 3),
+                             ("320x176", small, 176, 10)):
+        runs = {}
+        for form in ("coop", "staged", "lane", "lane", "staged", "coop"):
+            runs.setdefault(form, []).append(time_device_call(
+                cuda_scaled.render_tile_scaled_form, sd, c, 0, 0, 0, h,
+                c.width, form, repeats=reps)[0] * 1e3)
+        form_ms[name] = {f: {"ms": sum(v) / len(v), "runs": v}
+                         for f, v in runs.items()}
+    sweep = coop_sweep.main([])
+    check(all(v["bit_equal_to_shipped"] for v in sweep["variants"]),
+          "a coop_sweep variant differs from the shipped kernel")
+    full_s = form_ms["1280x720"][cuda_scaled.MAIN_FORM]["ms"] * 1e-3
+    small_s = form_ms["320x176"][cuda_scaled.MAIN_FORM]["ms"] * 1e-3
     small_plain_s, (_, small_rays, small_work) = time_device_call(
         render_tile_scaled_plain, sd, small, 0, 0, 0, 176, 320, True)
-    full_s, _ = time_device_call(cuda_scaled.render_tile_scaled, sd, cfg, 0,
-                                 0, 0, H, W, repeats=3)
     sess = frame_mod.RenderSession(scene, cfg, flags=FLAG_PROGRESSIVE,
                                    device="cuda")
     sess.step(time=0.0)
@@ -819,12 +930,31 @@ def scaled_phases(cfg, smi):
               "small_work": sw, "small_bound_fp32_ops": ops_s,
               "small_bound_ms": bound_s,
               "hit_chunks_ms": k5["ms"], "shadow_chunks_ms": k6["ms"],
+              "forms_ms": form_ms,
+              "coop_sweep": {"best": sweep["best"],
+                             "shipped": sweep["shipped"],
+                             "ms": {f"{v['coop_min']},{v['blocks']}": v["ms"]
+                                    for v in sweep["variants"]}},
+              "sphere_loop_simt_efficiency": {
+                  f: {k: simt[f][k]["simt_efficiency"]
+                      for k in ("hit", "shadow")} for f in simt},
+              "path_loop_busy_share_coop": simt["coop"]["loop"]["busy"]
+              / (32 * simt["coop"]["loop"]["iters"]),
+              "coop_cycle_shares": {
+                  k: simt["coop"]["loop"][f"cycles_{k}"]
+                  / simt["coop"]["loop"]["cycles"]
+                  for k in ("hit", "nee", "shadow")},
               "warp_work_efficiency": divergence,
               "bound_peak": "67 TFLOP/s FP32, 3.35 TB/s (H100 SXM, 700 W)",
               "seconds": time.perf_counter() - t1}
     emit(timing)
     tol = "rays rel <= 5e-4, mean |diff| <= 1e-3 (320x176 frames 0-1, " \
-          "16-row band and full frame at 1280x720)"
+          "16-row band and full frame at 1280x720); bit-equal to the " \
+          "per-lane form there and on the animated frame"
+    reg = {f: usage.get(k, {}) for f, k in (
+        ("coop", "coop_render_kernel<0,0>"),
+        ("staged", "coop_render_kernel<1,0>"),
+        ("lane", "scaled_render_kernel<0>"))}
     return [
         {"name": "scaled_render", "route": "cuda",
          "source": "toypathtracer_torch/csrc/scaled.cu",
@@ -835,7 +965,18 @@ def scaled_phases(cfg, smi):
          "bound_ms": bound_f,
          "bound_by": "operations" if ops_f / 67e12 >= bytes_f / 3.35e12
          else "bytes", "library_ms": None,
-         "vs_plain": {"tolerance": tol, "band": band, "full_frame": full}},
+         "form": cuda_scaled.MAIN_FORM,
+         "baseline_ms": form_ms["1280x720"]["lane"]["ms"],
+         "baseline": "the per-lane form it replaced "
+                     "(scaled_render_kernel<0>), timed in turns with it",
+         "staged_ms": form_ms["1280x720"]["staged"]["ms"],
+         "ms_320x176": form_ms["320x176"],
+         "sphere_loop_simt_efficiency": {
+             f: {k: simt[f][k]["simt_efficiency"] for k in ("hit", "shadow")}
+             for f in simt},
+         "ptxas": reg,
+         "vs_plain": {"tolerance": tol, "band": band, "full_frame": full,
+                      "bit_equal_to_lane_form": bit_equal}},
         {"name": "hit_chunks", "route": "cuda",
          "source": "toypathtracer_torch/csrc/scaled.cu",
          "replaces": "toypathtracer_tpu/ops/scaled_pallas.py:64",

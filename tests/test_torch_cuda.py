@@ -12,7 +12,10 @@ max |diff| 1.9e-6.  Gradient kernel: rays exact, d_packed per row within
 at most 4.9e-6.  Scaled kernels (n=3000, chunk 256): the traversal K5 and
 the shadow bitmask K6 equal to their plain versions on all but 1e-5 of
 the rays, t within 1e-6 relative where the ids agree; the scaled render
-kernel at 64x32 with the render kernel's gates.  Stats render kernel (K2):
+kernel at 64x32 with the render kernel's gates, and its warp-cooperative
+form bit-equal to the per-lane form (and to the staged form) at 320x176 on
+the 100k-sphere scene; the stats instances' images bit-equal to the timed
+ones and their sphere tests needed equal to the plain version's counts.  Stats render kernel (K2):
 image and rays bit-equal to the render kernel's; per-pixel trip counts
 equal to the plain version's on all but 1e-4 of the pixels, tile and warp
 counters equal wherever their pixels' counts are.  Issue-rate probe (T1):
@@ -204,6 +207,58 @@ def test_scaled_session_runs_on_the_card(card):
     assert cuda_scaled.launches["scaled_render"] == before + 3
     assert img.device.type == "cuda" and torch.isfinite(img).all()
     assert rays.shape == (3,) and int(rays.min()) > 0
+
+
+@pytest.mark.parametrize("frame", [0, 1])
+def test_scaled_render_forms_bit_equal(card, frame):
+    scene = make_scaled_scene(100_000).to(card)
+    cfg = RenderConfig(width=320, height=176, samples_per_pixel=1,
+                       max_depth=4)
+    before = dict(cuda_scaled.launches)
+    img, rays = cuda_scaled.render_tile_scaled(scene, cfg, frame, 0, 0, 176,
+                                               320)
+    for form in ("lane", "staged"):
+        img_f, rays_f = cuda_scaled.render_tile_scaled_form(
+            scene, cfg, frame, 0, 0, 176, 320, form)
+        torch.cuda.synchronize()
+        assert torch.equal(img_f, img) and int(rays_f) == int(rays)
+    after = {k: cuda_scaled.launches[k] - before[k] for k in before}
+    assert after == {"scaled_render": 1, "scaled_render_lane": 1,
+                     "scaled_render_staged": 1, "scaled_render_stats": 0,
+                     "hit_chunks": 0, "shadow_chunks": 0}
+    assert torch.isfinite(img).all() and int(rays) > 176 * 320
+
+
+@pytest.mark.parametrize("form", ["lane", "coop"])
+def test_scaled_stats_instance_matches_timed_and_plain(card, form):
+    scene = make_scaled_scene(n=3000, chunk=256, extent=40.0).to(card)
+    cfg = RenderConfig(width=64, height=32, samples_per_pixel=2, max_depth=4)
+    img, rays = cuda_scaled.render_tile_scaled_form(scene, cfg, 1, 0, 0, 32,
+                                                    64, form)
+    img_s, rays_s, st = cuda_scaled.render_tile_scaled_form(
+        scene, cfg, 1, 0, 0, 32, 64, form, stats=True)
+    _, _, lane = cuda_scaled.render_tile_scaled_form(
+        scene, cfg, 1, 0, 0, 32, 64, "lane", stats=True)
+    _, prays, plain = cuda_scaled.render_tile_scaled_form(
+        scene.to("cpu"), cfg, 1, 0, 0, 32, 64, form, stats=True)
+    torch.cuda.synchronize()
+    assert torch.equal(img_s, img) and int(rays_s) == int(rays)
+    # the plain version's paths agree within the rays gate here, its counts
+    # within the same
+    assert abs(int(rays) - int(prays)) <= 5e-4 * int(prays)
+    assert st["hit"]["need"] == lane["hit"]["need"]
+    assert abs(st["hit"]["need"] - plain["hit"]["need"]) <= \
+        5e-4 * plain["hit"]["need"]
+    for kind in ("hit", "shadow"):
+        assert 0 < st[kind]["simt_efficiency"] <= 1
+    if form == "lane":
+        assert abs(st["shadow"]["need"] - plain["shadow"]["need"]) <= \
+            5e-4 * plain["shadow"]["need"]
+        slabs = st["hit"]["slabs"] + st["shadow"]["slabs"]
+        assert abs(slabs - plain["slabs"]) <= 5e-4 * plain["slabs"]
+    else:
+        assert st["loop"]["busy"] <= 32 * st["loop"]["iters"]
+        assert 0 < st["loop"]["cycles_hit"] < st["loop"]["cycles"]
 
 
 @pytest.mark.parametrize("kw", [

@@ -1,7 +1,8 @@
 """The scaled kernels' per-ray code (toypathtracer_torch/csrc/chunks.cuh and
 render_pixel<ChunkedView> of csrc/trace.cuh), built with g++ for the CPU,
 against their plain PyTorch versions (scaled.ChunkTraversal and
-scaled.render_tile_scaled_plain).
+scaled.render_tile_scaled_plain); and the warp-cooperative form of the
+scaled render kernel (csrc/coop.cuh) against the per-lane form.
 
 The traversal is held exactly: the same ids, the same t, the same
 occlusion bits, on the rays of tests/test_scaled.py plus rays along the
@@ -11,6 +12,15 @@ lets them enter no chunk).  The render is held with
 tests/test_torch_kernel_cpu.py's gates (ray count 1e-4 relative, 99.9% of
 pixels within 1e-4, mean |diff| 5e-7): glibc's sinf/cosf/expf/logf
 against torch's vectorised ones.
+
+The cooperative form is held exactly: a warp of 32 lanes emulated here
+(each lane's share of a chunk's spheres, then the butterfly combine of
+(t, j) in the warp's xor order; the shadow vote step by step) gives the
+sequential traversal's ids, t and bits, on those rays and on a chunk
+whose duplicated spheres force equal roots; the group boxes pass every
+ray that one of their chunks passes, on the 100k scene; and
+render_pixel_merged, under the one-lane warp policy and with the chunks
+staged or not, renders the per-lane form's image and rays bit for bit.
 """
 
 import ctypes
@@ -24,14 +34,14 @@ import torch
 from toypathtracer_torch import RenderConfig
 from toypathtracer_torch.camera import camera_to_array, make_camera
 from toypathtracer_torch.ops import _build, cuda_render
-from toypathtracer_torch.scaled import (ChunkTraversal, make_scaled_scene,
-                                        pack_chunks,
+from toypathtracer_torch.scaled import (ChunkTraversal, group_boxes,
+                                        make_scaled_scene, pack_chunks,
                                         render_tile_scaled_plain)
 
 torch.set_num_threads(1)
 
 HARNESS = r"""
-#include "chunks.cuh"
+#include "coop.cuh"
 
 static tpt::ChunkedView view(const float* rows, const float* box, int C,
                              int K) {
@@ -86,6 +96,134 @@ extern "C" unsigned long long tpt_scaled_render_cpu(
                                 out + ((size_t)y * p->width + x) * 3);
   return rays;
 }
+
+// The cooperative form's per-pixel loop under the one-lane warp policy.
+extern "C" unsigned long long tpt_merged_render_cpu(
+    const float* tab, const float* rows, const float* box, const float* gbox,
+    int G, const int32_t* mat, const int32_t* lights, const float* cam,
+    const tpt::RenderParams* p, int C, int K, int staged, float* stage,
+    float* out) {
+  tpt::CoopView S;
+  static_cast<tpt::ChunkedView&>(S) = view(rows, box, C, K);
+  S.tab = tab; S.mat = mat; S.lights = lights;
+  S.n = p->n_spheres; S.n_lights = p->n_lights;
+  float nee[tpt::kMaxLights * 7];  // nee_words(kMaxLights, 1)
+  S.gbox = gbox; S.n_groups = G; S.nee = nee; S.stage = stage;
+  const tpt::HostLane w;
+  tpt::NoCoopCount none;
+  unsigned long long rays = 0;
+  for (int y = 0; y < p->height; ++y)
+    for (int x = 0; x < p->width; ++x) {
+      float* o = out + ((size_t)y * p->width + x) * 3;
+      rays += staged
+          ? tpt::render_pixel_merged<true>(w, S, cam, *p, p->x0 + x,
+                                           p->y0 + y, true, o, none)
+          : tpt::render_pixel_merged<false>(w, S, cam, *p, p->x0 + x,
+                                            p->y0 + y, true, o, none);
+    }
+  return rays;
+}
+
+// A warp of 32 lanes, emulated: every chunk a ray enters is tested by all
+// lanes (lane l: spheres l, l + 32, ...) and their (t, j) combined in the
+// butterfly order of the card's shfl_xor reduction.
+extern "C" void tpt_warp_hit_cpu(const float* rows, const float* box, int C,
+                                 int K, const float* ro, const float* rd,
+                                 int n, float t_min, float t_max, float* t,
+                                 int32_t* id) {
+  tpt::ChunkedView V = view(rows, box, C, K);
+  for (int i = 0; i < n; ++i) {
+    const tpt::V3 o = tpt::v3(ro[i], ro[n + i], ro[2 * n + i]);
+    const tpt::V3 d = tpt::v3(rd[i], rd[n + i], rd[2 * n + i]);
+    const tpt::V3 inv = tpt::v3(tpt::safe_inv(d.x), tpt::safe_inv(d.y),
+                                tpt::safe_inv(d.z));
+    float best = t_max;
+    int hid = -1;
+    if (!tpt::any_nan(o) && !tpt::any_nan(inv))
+      for (int c = 0; c < C; ++c) {
+        if (!tpt::slab(V.box + 6 * c, o, inv, t_min, best)) continue;
+        float bt[32], nt[32];
+        int bj[32], nj[32];
+        for (int l = 0; l < 32; ++l)
+          tpt::coop_hit_lane(V.chunk_row(c), K, l, 32, o, d, t_min, best,
+                             bt[l], bj[l]);
+        for (int off = 16; off > 0; off >>= 1) {
+          for (int l = 0; l < 32; ++l) {
+            nt[l] = bt[l];
+            nj[l] = bj[l];
+            tpt::coop_combine(nt[l], nj[l], bt[l ^ off], bj[l ^ off]);
+          }
+          for (int l = 0; l < 32; ++l) {
+            bt[l] = nt[l];
+            bj[l] = nj[l];
+          }
+        }
+        for (int l = 1; l < 32; ++l)
+          if (bt[l] != bt[0] || bj[l] != bj[0]) { id[i] = -2; return; }
+        if (bj[0] < K) {
+          best = bt[0];
+          hid = c * K + bj[0];
+        }
+      }
+    t[i] = best;
+    id[i] = hid;
+  }
+}
+
+// The shadow test of an emulated warp: per chunk a ray enters, steps of
+// 32 spheres, one a lane, until a step holds an occluder.
+extern "C" void tpt_warp_occ_cpu(const float* rows, const float* box, int C,
+                                 int K, const float* ro, const float* dirs,
+                                 const float* t_ls, const int32_t* ids,
+                                 int n_l, int n, float t_min, int32_t* out) {
+  tpt::ChunkedView V = view(rows, box, C, K);
+  for (int i = 0; i < n; ++i) {
+    int32_t bits = 0;
+    const tpt::V3 pos = tpt::v3(ro[i], ro[n + i], ro[2 * n + i]);
+    for (int k = 0; k < n_l; ++k) {
+      const float* dk = dirs + (size_t)3 * k * n;
+      const tpt::V3 l = tpt::v3(dk[i], dk[n + i], dk[2 * n + i]);
+      const float t_l = t_ls[(size_t)k * n + i];
+      const tpt::V3 inv = tpt::v3(tpt::safe_inv(l.x), tpt::safe_inv(l.y),
+                                  tpt::safe_inv(l.z));
+      if (tpt::any_nan(pos) || tpt::any_nan(inv) || tpt::is_nan(t_l))
+        continue;
+      bool occ = false;
+      for (int c = 0; c < C && !occ; ++c) {
+        if (!tpt::slab(V.box + 6 * c, pos, inv, t_min, t_l)) continue;
+        for (int s = 0; s * 32 < K && !occ; ++s)
+          for (int lane = 0; lane < 32; ++lane)
+            occ = occ || tpt::coop_occ_lane(V.chunk_row(c), K, c * K, lane,
+                                            32, s, pos, l, ids[k], t_min,
+                                            t_l);
+      }
+      if (occ) bits |= 1 << k;
+    }
+    out[i] = bits;
+  }
+}
+
+// (ray, chunk) pairs where the chunk's slab test passes and its group's
+// fails (counts[0]), and where the chunk's passes (counts[1]), for rays
+// against (t_min, t1[i]).
+extern "C" void tpt_group_check_cpu(const float* box, const float* gbox,
+                                    int C, int group, const float* ro,
+                                    const float* rd, const float* t1, int n,
+                                    float t_min, long long* counts) {
+  counts[0] = counts[1] = 0;
+  for (int i = 0; i < n; ++i) {
+    const tpt::V3 o = tpt::v3(ro[i], ro[n + i], ro[2 * n + i]);
+    const tpt::V3 inv = tpt::v3(tpt::safe_inv(rd[i]),
+                                tpt::safe_inv(rd[n + i]),
+                                tpt::safe_inv(rd[2 * n + i]));
+    for (int c = 0; c < C; ++c) {
+      if (!tpt::slab(box + 6 * c, o, inv, t_min, t1[i])) continue;
+      ++counts[1];
+      if (!tpt::slab(gbox + 6 * (c / group), o, inv, t_min, t1[i]))
+        ++counts[0];
+    }
+  }
+}
 """
 
 
@@ -111,6 +249,14 @@ def host_lib(tmp_path_factory):
         ptr, ptr, ptr, ptr, ptr, ptr, ctypes.POINTER(_build.RenderParams),
         i32, i32, ptr]
     lib.tpt_scaled_render_cpu.restype = ctypes.c_ulonglong
+    lib.tpt_merged_render_cpu.argtypes = [
+        ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr,
+        ctypes.POINTER(_build.RenderParams), i32, i32, i32, ptr, ptr]
+    lib.tpt_merged_render_cpu.restype = ctypes.c_ulonglong
+    lib.tpt_warp_hit_cpu.argtypes = lib.tpt_hit_cpu.argtypes
+    lib.tpt_warp_occ_cpu.argtypes = lib.tpt_occ_cpu.argtypes
+    lib.tpt_group_check_cpu.argtypes = [ptr, ptr, i32, i32, ptr, ptr, ptr,
+                                        i32, f32, ptr]
     return lib
 
 
@@ -163,14 +309,12 @@ def test_hit_chunks_ray_matches_plain(host_lib):
     assert (hid[-10:-2] >= 0).sum() >= 4  # the axis rays hit the field
 
 
-def test_occluded_chunks_matches_plain(host_lib):
+def shadow_inputs(scene, n=8192):
     """tests/test_scaled.py:169's shadow rays: toward 4 beacons with
-    jittered directions, t_l from the beacon's own root."""
+    jittered directions, t_l from the beacon's own root.  Returns the
+    origins (3, n), directions (4, 3, n), t_l (4, n) and light ids."""
     from toypathtracer_torch.ops import tracecore as tc
-    scene = make_scaled_scene(n=3000, chunk=256, extent=40.0)
-    rows, box = chunk_inputs(scene)
     rng = np.random.default_rng(3)
-    n = 8192
     ro = rng.uniform(-30, 30, (3, n)).astype(np.float32)
     c = scene.center.numpy()
     r2 = scene.radius.numpy() ** 2
@@ -185,24 +329,137 @@ def test_occluded_chunks_matches_plain(host_lib):
                              tuple(torch.from_numpy(d)),
                              float(np.float32(1e-3)))
         t_ls.append(t_l.numpy())
-    D = np.ascontiguousarray(np.stack(dirs))
-    T = np.ascontiguousarray(np.stack(t_ls))
-    ids = np.array(lights, np.int32)
+    return (ro, np.ascontiguousarray(np.stack(dirs)),
+            np.ascontiguousarray(np.stack(t_ls)), np.array(lights, np.int32))
+
+
+def occlusion_bits(fn, rows, box, ro, D, T, ids):
+    n = ro.shape[1]
     out = np.zeros(n, np.int32)
-    host_lib.tpt_occ_cpu(c_ptr(rows), c_ptr(box), rows.shape[0], 256,
-                         c_ptr(ro), c_ptr(D), c_ptr(T), c_ptr(ids),
-                         len(lights), n, 1e-3, c_ptr(out))
+    fn(c_ptr(rows), c_ptr(box), rows.shape[0], 256, c_ptr(ro), c_ptr(D),
+       c_ptr(T), c_ptr(ids), len(ids), n, 1e-3, c_ptr(out))
+    return out
+
+
+def test_occluded_chunks_matches_plain(host_lib):
+    """tests/test_scaled.py:169's shadow rays: toward 4 beacons with
+    jittered directions, t_l from the beacon's own root."""
+    scene = make_scaled_scene(n=3000, chunk=256, extent=40.0)
+    rows, box = chunk_inputs(scene)
+    ro, D, T, ids = shadow_inputs(scene)
+    n = ro.shape[1]
+    out = occlusion_bits(host_lib.tpt_occ_cpu, rows, box, ro, D, T, ids)
     trav = ChunkTraversal(torch.from_numpy(rows), 256)
     want = np.zeros(n, np.int32)
-    for k, e in enumerate(lights):
+    for k, e in enumerate(ids):
         occ, slabs, spheres = trav.occluded(
-            tuple(torch.from_numpy(ro)), tuple(torch.from_numpy(D[k])), e,
-            float(np.float32(1e-3)), torch.from_numpy(T[k]))
+            tuple(torch.from_numpy(ro)), tuple(torch.from_numpy(D[k])),
+            int(e), float(np.float32(1e-3)), torch.from_numpy(T[k]))
         want |= occ.numpy().astype(np.int32) << k
         assert (slabs.numpy() <= rows.shape[0]).all()
         assert (spheres.numpy() <= 256 * slabs.numpy()).all()
     np.testing.assert_array_equal(out, want)
     assert 0 < (out != 0).mean() < 1
+
+
+def tie_inputs():
+    """The n=3000 field with sphere 17 of chunk 2 copied to its spheres 49
+    (the same lane of a warp, one step later), 20, 130 and 255 (other
+    lanes), and rays aimed at its center from around it: their nearest
+    roots tie between the copies, and the first copy has to win."""
+    scene = make_scaled_scene(n=3000, chunk=256, extent=40.0)
+    rows, _ = chunk_inputs(scene)
+    K, c, j0 = 256, 2, 17
+    for j in (49, 20, 130, 255):
+        for q in range(4):
+            rows[c, q * K + j] = rows[c, q * K + j0]
+    box = np.ascontiguousarray(rows[:, 4 * K:4 * K + 6])
+    center = rows[c, [j0, K + j0, 2 * K + j0]]
+    rng = np.random.default_rng(11)
+    n = 2048
+    ro = (center[:, None]
+          + rng.normal(0, 1, (3, n)) * rng.uniform(2, 12, n)
+          ).astype(np.float32)
+    ro[1] = np.abs(ro[1]) + 0.5
+    d = (center[:, None] + rng.normal(0, 0.05, (3, n)) - ro).astype(np.float32)
+    rd = (d / np.sqrt((d * d).sum(axis=0))).astype(np.float32)
+    return rows, box, np.ascontiguousarray(ro), np.ascontiguousarray(rd), \
+        c * K + j0
+
+
+@pytest.mark.parametrize("case", ["field", "ties"])
+def test_warp_hit_matches_sequential(host_lib, case):
+    """The emulated warp's chunk test -- 32 lanes' shares combined over
+    (t, j) -- against hit_chunks_ray, the sequential scan: ids and t
+    exact, the first of equal roots winning."""
+    if case == "field":
+        rows, box = chunk_inputs(make_scaled_scene(n=3000, chunk=256,
+                                                   extent=40.0))
+        ro, rd = scaled_rays()
+    else:
+        rows, box, ro, rd, first = tie_inputs()
+    n = ro.shape[1]
+    got = []
+    for fn in (host_lib.tpt_hit_cpu, host_lib.tpt_warp_hit_cpu):
+        t = np.zeros(n, np.float32)
+        hid = np.zeros(n, np.int32)
+        fn(c_ptr(rows), c_ptr(box), rows.shape[0], 256, c_ptr(ro),
+           c_ptr(rd), n, 1e-3, 1e7, c_ptr(t), c_ptr(hid))
+        got.append((t, hid))
+    (t_s, id_s), (t_w, id_w) = got
+    np.testing.assert_array_equal(id_w, id_s)
+    np.testing.assert_array_equal(t_w, t_s)
+    assert (id_s >= 0).sum() > 100
+    if case == "ties":
+        assert (id_s == first).mean() > 0.5
+        assert not np.isin(id_s, first + np.array([3, 32, 113, 238])).any()
+
+
+def test_warp_shadow_matches_sequential(host_lib):
+    """The emulated warp's shadow vote against occluded_chunks: the same
+    bits for every ray and light."""
+    scene = make_scaled_scene(n=3000, chunk=256, extent=40.0)
+    rows, box = chunk_inputs(scene)
+    args = (rows, box, *shadow_inputs(scene))
+    want = occlusion_bits(host_lib.tpt_occ_cpu, *args)
+    got = occlusion_bits(host_lib.tpt_warp_occ_cpu, *args)
+    np.testing.assert_array_equal(got, want)
+    assert 0 < (want != 0).mean() < 1
+
+
+def test_group_boxes_are_conservative(host_lib):
+    """On the 100k scene (391 chunks, 25 groups, the last one partial) and
+    131,072 seeded rays against a far and a near bound: no chunk's slab
+    test passes where its group's fails, so skipping a group the warp does
+    not enter skips no chunk that a ray enters."""
+    scene = make_scaled_scene(100_000)
+    rows_t = pack_chunks(scene)
+    K = scene.chunk
+    gbox_t = group_boxes(rows_t, K)
+    rows = rows_t.numpy()
+    box = np.ascontiguousarray(rows[:, 4 * K:4 * K + 6])
+    C = box.shape[0]
+    G = gbox_t.shape[0]
+    assert (C, G) == (391, 25)
+    pad = np.concatenate([box, np.tile([np.inf] * 3 + [-np.inf] * 3,
+                                       (16 * G - C, 1))]).reshape(G, 16, 6)
+    want = np.concatenate([pad[:, :, :3].min(1), pad[:, :, 3:].max(1)], 1)
+    gbox = gbox_t.numpy()
+    np.testing.assert_array_equal(gbox, want.astype(np.float32))
+    rng = np.random.default_rng(2024)
+    n = 1 << 17
+    ro = rng.uniform((-150.0, 0.2, -150.0), (150.0, 30.0, 150.0),
+                     (n, 3)).astype(np.float32).T.copy()
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    rd = (d / np.sqrt((d * d).sum(axis=0))).astype(np.float32)
+    t1 = np.where(np.arange(n) % 2 == 0, np.float32(1e7),
+                  rng.uniform(0.01, 300.0, n)).astype(np.float32)
+    counts = np.zeros(2, np.int64)
+    host_lib.tpt_group_check_cpu(c_ptr(box), c_ptr(gbox), C, 16, c_ptr(ro),
+                                 c_ptr(rd), c_ptr(t1), n, 1e-3,
+                                 c_ptr(counts))
+    assert counts[0] == 0
+    assert counts[1] > n
 
 
 def render_host(lib, scene, cfg, frame, x0, y0, h, w):
@@ -234,3 +491,45 @@ def test_scaled_render_source_matches_plain(host_lib, frame, x0, y0):
     d = np.abs(out - img)
     assert (d.max(axis=-1) <= 1e-4).mean() >= 0.999
     assert d.mean() <= 5e-7
+
+
+def render_merged_host(lib, scene, cfg, frame, x0, y0, h, w, staged):
+    """render_pixel_merged over the tile, under the one-lane warp."""
+    tab = cuda_render.pack_scene(scene).numpy()
+    rows_t = pack_chunks(scene)
+    gbox = group_boxes(rows_t, scene.chunk).numpy()
+    rows, box = chunk_inputs(scene)
+    mat = scene.mat_ids().numpy()
+    lights = np.array(scene.emissive_ids, np.int32)
+    cam = camera_to_array(make_camera(scene.camera, cfg.width / cfg.height))
+    stage = np.zeros(8 * scene.chunk, np.float32)
+    out = np.zeros((h, w, 3), np.float32)
+    params = cuda_render.render_params(scene, cfg, frame, x0, y0, h, w)
+    rays = lib.tpt_merged_render_cpu(
+        c_ptr(tab), c_ptr(rows), c_ptr(box), c_ptr(gbox), gbox.shape[0],
+        c_ptr(mat), c_ptr(lights), c_ptr(cam), ctypes.byref(params),
+        scene.n_chunks, scene.chunk, int(staged), c_ptr(stage),
+        out.ctypes.data)
+    return out, rays
+
+
+@pytest.mark.parametrize("n,chunk,extent,nee,staged,frame,x0,y0", [
+    (800, 128, 100.0, True, False, 0, 0, 0),
+    (800, 128, 100.0, True, True, 5, 40, 7),
+    (3000, 256, 40.0, True, True, 2, 16, 9),
+    (3000, 256, 40.0, False, False, 3, 8, 4)])
+def test_merged_render_bit_equal_to_per_lane(host_lib, n, chunk, extent, nee,
+                                             staged, frame, x0, y0):
+    """The cooperative form's path loop (merged samples, the light loop
+    and the group and chunk skips, chunks staged or read in place) renders
+    the per-lane form's image and ray count bit for bit."""
+    scene = make_scaled_scene(n=n, chunk=chunk, extent=extent)
+    cfg = RenderConfig(width=64, height=32, samples_per_pixel=2, max_depth=4,
+                       do_light_sampling=nee)
+    h, w = 16, 32
+    want, rays = render_host(host_lib, scene, cfg, frame, x0, y0, h, w)
+    got, mrays = render_merged_host(host_lib, scene, cfg, frame, x0, y0, h,
+                                    w, staged)
+    assert want.max() > 0.05 and rays > 2 * h * w
+    np.testing.assert_array_equal(got, want)
+    assert mrays == rays

@@ -81,67 +81,133 @@ TPT_HD bool slab(const float* b, V3 ro, V3 inv, float t0, float t1) {
   return t0 <= t1;
 }
 
+// Sphere j of a chunk row r (chunk size K) for one ray: its nearest valid
+// root tt (Maths.cpp:97-117) and whether it is one (discr > 0, tt > t_min).
+TPT_HD bool sphere_root(const float* r, int K, int j, V3 ro, V3 rd,
+                        float t_min, float& tt) {
+  const float cox = r[j] - ro.x;
+  const float coy = r[K + j] - ro.y;
+  const float coz = r[2 * K + j] - ro.z;
+  const float nb = cox * rd.x + coy * rd.y + coz * rd.z;
+  const float cq = cox * cox + coy * coy + coz * coz - r[3 * K + j];
+  const float discr = nb * nb - cq;
+  const float ds = sqrt_pos(discr);
+  const float r0 = nb - ds;
+  const float r1 = nb + ds;
+  tt = r0 > t_min ? r0 : r1;
+  return discr > 0.0f && tt > t_min;
+}
+
+// Does sphere j of a chunk row overlap (t_min, t_l) along l from pos?  The
+// interval-overlap test of tracecore._occ_test.
+TPT_HD bool sphere_overlaps(const float* r, int K, int j, V3 pos, V3 l,
+                            float t_min, float t_l) {
+  const float cox = r[j] - pos.x;
+  const float coy = r[K + j] - pos.y;
+  const float coz = r[2 * K + j] - pos.z;
+  const float cq = cox * cox + coy * coy + coz * coz - r[3 * K + j];
+  const float nb = cox * l.x + coy * l.y + coz * l.z;
+  const float d = nb * nb - cq;
+  const float a = nb - t_min;
+  const float b = nb - t_l;
+  return d > 0.0f && d > b * fabsf(b) && d > -(a * fabsf(a));
+}
+
+// Spheres j = j0, j0 + step, ... of a chunk for one ray, with a strict `<`
+// against the ray's best t: lowers t to the nearest root below it and
+// returns that sphere's index, or K if none is below it.  (j0, step) =
+// (0, 1) is the sequential scan of one chunk; (lane, 32) is one lane's
+// share of a warp's test of the whole chunk (csrc/coop.cuh).
+TPT_HD int nearest_in_chunk(const float* r, int K, int j0, int step, V3 ro,
+                            V3 rd, float t_min, float& t) {
+  int jw = K;
+  for (int j = j0; j < K; j += step) {
+    float tt;
+    if (sphere_root(r, K, j, ro, rd, t_min, tt) && tt < t) {
+      t = tt;
+      jw = j;
+    }
+  }
+  return jw;
+}
+
+// The first sphere of a chunk (global ids base..base+K-1) but `light` that
+// overlaps (t_min, t_l) along l from pos: its index, or K if none.
+TPT_HD int first_overlap_in_chunk(const float* r, int K, int base, V3 pos,
+                                  V3 l, int light, float t_min, float t_l) {
+  for (int j = 0; j < K; ++j)
+    if (sphere_overlaps(r, K, j, pos, l, t_min, t_l) && base + j != light)
+      return j;
+  return K;
+}
+
+// What a traversal reports of its work besides its answer.  The kernels
+// pass NoChunkCount, which compiles to nothing; the stats instances of the
+// scaled render kernel (csrc/scaled.cu) pass a counter with the same calls.
+// call() at the start of a traversal; chunk() after each chunk step, by
+// every lane of the loop: whether the lane's ray entered the chunk and how
+// many of its spheres it tested.
+struct NoChunkCount {
+  TPT_HD void call(bool) {}
+  TPT_HD void chunk(bool, bool, int) {}
+};
+
 // K5 for one ray: the nearest hit over all chunks; sets t (t_max on a
 // miss) and returns the sphere's global id, -1 on a miss.
+template <class Count>
 TPT_HD int hit_chunks_ray(const ChunkedView& V, V3 ro, V3 rd, float t_min,
-                          float t_max, float& t) {
+                          float t_max, float& t, Count& cnt) {
+  cnt.call(false);
   t = t_max;
   int id = -1;
   const V3 inv = v3(safe_inv(rd.x), safe_inv(rd.y), safe_inv(rd.z));
   if (any_nan(ro) || any_nan(inv)) return -1;
   const int K = V.chunk;
   for (int c = 0; c < V.n_chunks; ++c) {
-    if (!slab(V.box + 6 * c, ro, inv, t_min, t)) continue;
-    const float* r = V.chunk_row(c);
-    const int base = c * K;
-    for (int j = 0; j < K; ++j) {
-      const float cox = r[j] - ro.x;
-      const float coy = r[K + j] - ro.y;
-      const float coz = r[2 * K + j] - ro.z;
-      const float nb = cox * rd.x + coy * rd.y + coz * rd.z;
-      const float cq = cox * cox + coy * coy + coz * coz - r[3 * K + j];
-      const float discr = nb * nb - cq;
-      const float ds = sqrt_pos(discr);
-      const float r0 = nb - ds;
-      const float r1 = nb + ds;
-      const float tt = r0 > t_min ? r0 : r1;
-      if (discr > 0.0f && tt > t_min && tt < t) {
-        t = tt;
-        id = base + j;
-      }
+    const bool entered = slab(V.box + 6 * c, ro, inv, t_min, t);
+    if (entered) {
+      const int j = nearest_in_chunk(V.chunk_row(c), K, 0, 1, ro, rd, t_min,
+                                     t);
+      if (j < K) id = c * K + j;
     }
+    cnt.chunk(false, entered, entered ? K : 0);
   }
   return id;
+}
+
+TPT_HD int hit_chunks_ray(const ChunkedView& V, V3 ro, V3 rd, float t_min,
+                          float t_max, float& t) {
+  NoChunkCount none;
+  return hit_chunks_ray(V, ro, rd, t_min, t_max, t, none);
 }
 
 // K6 for one ray and one light: does any sphere but `light` (a global id)
 // overlap (t_min, t_l) along l from pos?  The interval-overlap test of
 // tracecore._occ_test; the answer is an OR over chunks, so the loop stops
 // at the first occluder.
+template <class Count>
 TPT_HD bool occluded_chunks(const ChunkedView& V, V3 pos, V3 l, int light,
-                            float t_min, float t_l) {
+                            float t_min, float t_l, Count& cnt) {
+  cnt.call(true);
   const V3 inv = v3(safe_inv(l.x), safe_inv(l.y), safe_inv(l.z));
   if (any_nan(pos) || any_nan(inv) || is_nan(t_l)) return false;
   const int K = V.chunk;
   for (int c = 0; c < V.n_chunks; ++c) {
-    if (!slab(V.box + 6 * c, pos, inv, t_min, t_l)) continue;
-    const float* r = V.chunk_row(c);
-    const int base = c * K;
-    for (int j = 0; j < K; ++j) {
-      const float cox = r[j] - pos.x;
-      const float coy = r[K + j] - pos.y;
-      const float coz = r[2 * K + j] - pos.z;
-      const float cq = cox * cox + coy * coy + coz * coz - r[3 * K + j];
-      const float nb = cox * l.x + coy * l.y + coz * l.z;
-      const float d = nb * nb - cq;
-      const float a = nb - t_min;
-      const float b = nb - t_l;
-      if (d > 0.0f && d > b * fabsf(b) && d > -(a * fabsf(a)) &&
-          base + j != light)
-        return true;
-    }
+    const bool entered = slab(V.box + 6 * c, pos, inv, t_min, t_l);
+    int j = K;
+    if (entered)
+      j = first_overlap_in_chunk(V.chunk_row(c), K, c * K, pos, l, light,
+                                 t_min, t_l);
+    cnt.chunk(true, entered, entered ? (j < K ? j + 1 : K) : 0);
+    if (j < K) return true;
   }
   return false;
+}
+
+TPT_HD bool occluded_chunks(const ChunkedView& V, V3 pos, V3 l, int light,
+                            float t_min, float t_l) {
+  NoChunkCount none;
+  return occluded_chunks(V, pos, l, light, t_min, t_l, none);
 }
 
 // The traversal of the scaled render: render_pixel<ChunkedView> (trace.cuh)

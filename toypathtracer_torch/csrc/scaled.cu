@@ -1,32 +1,45 @@
 // The scaled scene's kernels for NVIDIA Hopper (sm_90a): the chunk
-// traversal K5, the fused shadow test K6, and the scaled render kernel.
+// traversal K5, the fused shadow test K6, and the scaled render kernel in
+// two forms.
 //
 // K5 hit_chunks_kernel replaces toypathtracer_tpu/ops/scaled_pallas.py::
 // _hit_kernel, K6 shadow_chunks_kernel replaces ::_shadow_kernel (bit k of
-// a ray's mask = light k occluded), and scaled_render_kernel replaces the
-// whole of toypathtracer_tpu/scaled.py::_render_frame_scaled_pallas, the
-// jnp wavefront that calls K5 and K6 once per bounce: it runs
-// tpt::render_pixel<ChunkedView> (trace.cuh, chunks.cuh), so a frame is one
-// launch and the traversal bodies are inlined into the bounce loop.  On a
-// GPU the per-bounce glue between kernel calls would be the cost.
+// a ray's mask = light k occluded), and the scaled render kernel replaces
+// the whole of toypathtracer_tpu/scaled.py::_render_frame_scaled_pallas,
+// the jnp wavefront that calls K5 and K6 once per bounce: a frame is one
+// launch and the traversal is inlined into the path loop.  On a GPU the
+// per-bounce glue between kernel calls would be the cost.
+//
+// The render kernel on the main path is coop_render_kernel: one thread per
+// pixel (16x8 blocks), the warp-cooperative path loop and chunk traversal
+// of csrc/coop.cuh.  The TPU kernels cull chunks for a whole lane tile at
+// once (scaled_pallas.py:64 skips a chunk for the tile, scaled.py:712-760
+// renders in row blocks so that the skip fires); the Hopper form of that
+// packet is the warp.  scaled_render_kernel is the per-lane form it
+// replaced (tpt::render_pixel<ChunkedView>: a warp whose rays enter
+// different chunks runs each of those chunks' 256-sphere loops, and a lane
+// whose sample ended waits for the warp's deepest lane); it stays as the
+// baseline that the cooperative form is held bit-equal to and timed
+// against, and is never on the main path.  Each form has a stats instance
+// that also counts the traversal's work per warp (coop.cuh kSt*): the
+// sphere-loop trips the warp ran against the sphere tests its lanes needed.
 //
 // One thread per ray (K5, K6; 128-thread blocks) or per pixel (the render
-// kernel; 16x8 blocks, the ray count reduced as csrc/render.cu does).  Each
+// kernels; 16x8 blocks, the ray count reduced as csrc/render.cu does).  Each
 // block stages the chunk AABBs (24 bytes a chunk: 9.4 KB at 100k spheres in
-// 391 chunks), and the render kernel also the emissive ids and the camera,
-// in shared memory.  Sphere data is read from device memory as each thread
-// needs it: the 14-row table (5.6 MB at 100k spheres) and the pack_chunks
-// rows (1.6 MB) sit in the 50 MB L2.
+// 391 chunks), and the render kernels also the emissive ids and the camera,
+// the cooperative one the group boxes too, in shared memory.  Sphere data
+// is read from device memory (the 14-row table, 5.6 MB at 100k spheres, and
+// the pack_chunks rows, 1.6 MB, sit in the 50 MB L2), or in the staged
+// cooperative instance copied per warp into shared memory with cp.async.
 //
-// Bound: FP32 ALU work, ~12 operations per chunk slab test (every chunk for
-// every ray) and ~19-20 per sphere test in the chunks a ray enters, against
-// a few MB of scene data and the outputs.  The simple kernel comes first:
-// a warp whose rays enter different chunks serialises their 256-sphere
-// loops (divergence), which a later, faster version has to attack.
+// Bound: FP32 ALU work, ~12 operations per chunk slab test and ~19-20 per
+// sphere test in the chunks a ray enters, against a few MB of scene data
+// and the outputs.
 
 #include <cuda_runtime.h>
 
-#include "chunks.cuh"
+#include "coop.cuh"
 
 namespace {
 
@@ -102,6 +115,158 @@ shadow_chunks_kernel(const float* __restrict__ rows, int n_chunks, int chunk,
   out[i] = bits;
 }
 
+constexpr unsigned kFull = 0xffffffffu;
+
+// The warp of the calling thread, for csrc/coop.cuh.  Every lane of the
+// warp calls each collective at the same point of the path loop.
+struct DeviceWarp {
+  static constexpr int kWidth = 32;
+  int lane_;
+  __device__ explicit DeviceWarp(int tid) : lane_(tid & 31) {}
+  __device__ int lane() const { return lane_; }
+  __device__ unsigned ballot(bool b) const { return __ballot_sync(kFull, b); }
+  __device__ bool any(bool b) const { return __any_sync(kFull, b); }
+  __device__ float shfl(float v, int src) const {
+    return __shfl_sync(kFull, v, src);
+  }
+  __device__ int shfl(int v, int src) const {
+    return __shfl_sync(kFull, v, src);
+  }
+  __device__ float shfl_xor(float v, int m) const {
+    return __shfl_xor_sync(kFull, v, m);
+  }
+  __device__ int shfl_xor(int v, int m) const {
+    return __shfl_xor_sync(kFull, v, m);
+  }
+  __device__ unsigned reduce_max(unsigned v) const {
+    return __reduce_max_sync(kFull, v);
+  }
+  __device__ unsigned reduce_add(unsigned v) const {
+    return __reduce_add_sync(kFull, v);
+  }
+  // n floats (a multiple of 4, 16-byte aligned at both ends) from device
+  // memory into this warp's shared buffer, 16 bytes a lane per step, as one
+  // cp.async group.
+  __device__ void stage(float* dst, const float* src, int n) const {
+    for (int i = 4 * lane_; i < n; i += 4 * kWidth) {
+      const unsigned d =
+          static_cast<unsigned>(__cvta_generic_to_shared(dst + i));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                   "l"(src + i)
+                   : "memory");
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  // Every group but the newest has landed, for the whole warp.
+  __device__ void wait_all_but_newest() const {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncwarp();
+  }
+  __device__ void wait_all() const {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncwarp();
+  }
+  // Orders this warp's shared-memory writes before its later reads.
+  __device__ void sync() const { __syncwarp(); }
+  __device__ long long clock() const { return clock64(); }
+  __device__ void or_mask(unsigned* p, unsigned bits) const {
+    atomicOr(p, bits);
+  }
+};
+
+// Adds each of a thread's kStSlots counters, summed over its warp, to the
+// frame's totals.  Every lane of the warp calls it.
+__device__ void flush_stats(const unsigned long long* v,
+                            unsigned long long* __restrict__ stats, int tid) {
+  for (int i = 0; i < tpt::kStSlots; ++i) {
+    unsigned long long x = v[i];
+    for (int off = 16; off > 0; off >>= 1)
+      x += __shfl_down_sync(kFull, x, off);
+    if ((tid & 31) == 0 && x) atomicAdd(stats + i, x);
+  }
+}
+
+// The per-lane form's counter: the lanes that run a traversal step
+// together are the active mask there, and its lowest lane counts the step
+// for them (the warp runs a chunk's sphere loop as long as its busiest
+// entering lane).
+struct LaneStats {
+  unsigned long long v[tpt::kStSlots] = {};
+  int lane;
+  __device__ explicit LaneStats(int tid) : lane(tid & 31) {}
+  // __host__ __device__ only because the traversals that call it are;
+  // it runs on the card alone.
+  __host__ __device__ void call(bool shadow) {
+#ifdef __CUDA_ARCH__
+    const unsigned a = __activemask();
+    if (lane != tpt::lowest(a)) return;
+    const int k = shadow ? tpt::kStKind : 0;
+    v[k + tpt::kStCalls] += 1;
+    v[k + tpt::kStLanes] += tpt::popc(a);
+#endif
+  }
+  __host__ __device__ void chunk(bool shadow, bool, int tests) {
+#ifdef __CUDA_ARCH__
+    const unsigned a = __activemask();
+    const unsigned most = __reduce_max_sync(a, static_cast<unsigned>(tests));
+    const unsigned all = __reduce_add_sync(a, static_cast<unsigned>(tests));
+    if (lane != tpt::lowest(a)) return;
+    const int k = shadow ? tpt::kStKind : 0;
+    v[k + tpt::kStBoxes] += 1;
+    v[k + tpt::kStSlabs] += tpt::popc(a);
+    v[k + tpt::kStTrips] += most;
+    v[k + tpt::kStNeed] += all;
+#endif
+  }
+};
+
+// The cooperative form's counter: its counts are warp-uniform, lane 0
+// keeps them.
+struct CoopStats {
+  static constexpr bool kOn = true;
+  unsigned long long v[tpt::kStSlots] = {};
+  bool lead;
+  __device__ explicit CoopStats(int tid) : lead((tid & 31) == 0) {}
+  __device__ void add(int i, unsigned long long x) {
+    if (lead) v[i] += x;
+  }
+};
+
+// ChunkedView whose traversals count into a LaneStats: render_pixel finds
+// these overloads by argument-dependent lookup.
+struct CountedView : tpt::ChunkedView {
+  LaneStats* cnt;
+};
+
+__host__ __device__ int nearest_hit(const CountedView& S, tpt::V3 ro, tpt::V3 rd,
+                           float t_min, float t_max, float& hit_t) {
+  return tpt::hit_chunks_ray(S, ro, rd, t_min, t_max, hit_t, *S.cnt);
+}
+
+__host__ __device__ bool occluded(const CountedView& S, tpt::V3 pos, tpt::V3 l,
+                         int light, float t_min, float t_l) {
+  return tpt::occluded_chunks(S, pos, l, light, t_min, t_l, *S.cnt);
+}
+
+// Sums each warp's rays and adds the block's total to `rays` with one
+// atomic.  Every thread of the block calls it.
+__device__ void add_rays(unsigned long long count,
+                         unsigned long long* warp_rays,
+                         unsigned long long* __restrict__ rays, int tid) {
+  for (int off = 16; off > 0; off >>= 1)
+    count += __shfl_down_sync(kFull, count, off);
+  if ((tid & 31) == 0) warp_rays[tid >> 5] = count;
+  __syncthreads();
+  if (tid == 0) {
+    unsigned long long total = 0;
+    for (int w = 0; w < kWarps; ++w) total += warp_rays[w];
+    if (total) atomicAdd(rays, total);
+  }
+}
+
+// The per-lane form (the baseline): render_pixel<ChunkedView> per thread.
+// kStats adds the traversal counters (stats: kStSlots totals).
+template <bool kStats>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 scaled_render_kernel(const float* __restrict__ tab,
                      const float* __restrict__ rows,
@@ -109,7 +274,8 @@ scaled_render_kernel(const float* __restrict__ tab,
                      const int32_t* __restrict__ lights,
                      const float* __restrict__ cam, tpt::RenderParams p,
                      int n_chunks, int chunk, float* __restrict__ out,
-                     unsigned long long* __restrict__ rays) {
+                     unsigned long long* __restrict__ rays,
+                     unsigned long long* __restrict__ stats) {
   extern __shared__ float smem[];
   __shared__ unsigned long long warp_rays[kWarps];
   float* s_box = smem;
@@ -124,30 +290,117 @@ scaled_render_kernel(const float* __restrict__ tab,
 
   const int lx = blockIdx.x * kBlockX + threadIdx.x;
   const int ly = blockIdx.y * kBlockY + threadIdx.y;
+  const bool in_image = lx < p.width && ly < p.height;
   unsigned long long count = 0;
-  if (lx < p.width && ly < p.height) {
+  float c[3];
+  if constexpr (kStats) {
+    LaneStats ls(tid);
+    if (in_image) {
+      CountedView S;
+      static_cast<tpt::ChunkedView&>(S) = rows_view(rows, s_box, n_chunks,
+                                                    chunk);
+      S.tab = tab;
+      S.mat = mat;
+      S.lights = s_lights;
+      S.n = p.n_spheres;
+      S.n_lights = p.n_lights;
+      S.cnt = &ls;
+      count = tpt::render_pixel(S, s_cam, p, p.x0 + lx, p.y0 + ly, c);
+    }
+    flush_stats(ls.v, stats, tid);
+  } else if (in_image) {
     tpt::ChunkedView S = rows_view(rows, s_box, n_chunks, chunk);
     S.tab = tab;
     S.mat = mat;
     S.lights = s_lights;
     S.n = p.n_spheres;
     S.n_lights = p.n_lights;
-    float c[3];
     count = tpt::render_pixel(S, s_cam, p, p.x0 + lx, p.y0 + ly, c);
+  }
+  if (in_image) {
     const size_t o = (static_cast<size_t>(ly) * p.width + lx) * 3;
     out[o] = c[0];
     out[o + 1] = c[1];
     out[o + 2] = c[2];
   }
-  for (int off = 16; off > 0; off >>= 1)
-    count += __shfl_down_sync(0xffffffffu, count, off);
-  if ((tid & 31) == 0) warp_rays[tid >> 5] = count;
+  add_rays(count, warp_rays, rays, tid);
+}
+
+// Blocks of the cooperative kernel that must fit on an SM at once: caps
+// its registers at 65536 / (128 * kCoopBlocks) a thread, 102 at 5 (chosen
+// from tools/coop_sweep.py's timings; the define is for its builds alone).
+#ifndef TPT_COOP_BLOCKS
+#define TPT_COOP_BLOCKS 5
+#endif
+constexpr int kCoopBlocks = TPT_COOP_BLOCKS;
+
+// The cooperative form (csrc/coop.cuh): every thread of the block runs
+// render_pixel_merged, those outside the image with no samples.  Dynamic
+// shared memory: [kStaged: 2 buffers of 4 * chunk floats per warp] [NEE
+// scratch per warp] [chunk boxes] [group boxes] [camera] [emissive ids].
+template <bool kStaged, bool kStats>
+__global__ void __launch_bounds__(kBlockX * kBlockY, kCoopBlocks)
+coop_render_kernel(const float* __restrict__ tab,
+                   const float* __restrict__ rows,
+                   const float* __restrict__ gbox, int n_groups,
+                   const int32_t* __restrict__ mat,
+                   const int32_t* __restrict__ lights,
+                   const float* __restrict__ cam, tpt::RenderParams p,
+                   int n_chunks, int chunk, float* __restrict__ out,
+                   unsigned long long* __restrict__ rays,
+                   unsigned long long* __restrict__ stats) {
+  extern __shared__ float4 smem4[];
+  __shared__ unsigned long long warp_rays[kWarps];
+  float* s_stage = reinterpret_cast<float*>(smem4);
+  const int nee = tpt::nee_words(p.n_lights, 32);
+  float* s_nee = s_stage + (kStaged ? kWarps * 8 * chunk : 0);
+  float* s_box = s_nee + kWarps * nee;
+  float* s_gbox = s_box + 6 * n_chunks;
+  float* s_cam = s_gbox + 6 * n_groups;
+  int32_t* s_lights = reinterpret_cast<int32_t*>(s_cam + tpt::kCameraFloats);
+
+  const int tid = threadIdx.y * kBlockX + threadIdx.x;
+  stage_boxes(rows, n_chunks, chunk, s_box, tid, kBlockX * kBlockY);
+  for (int i = tid; i < 6 * n_groups; i += kBlockX * kBlockY)
+    s_gbox[i] = gbox[i];
+  if (tid < tpt::kCameraFloats) s_cam[tid] = cam[tid];
+  if (tid < p.n_lights) s_lights[tid] = lights[tid];
   __syncthreads();
-  if (tid == 0) {
-    unsigned long long total = 0;
-    for (int w = 0; w < kWarps; ++w) total += warp_rays[w];
-    if (total) atomicAdd(rays, total);
+
+  const int lx = blockIdx.x * kBlockX + threadIdx.x;
+  const int ly = blockIdx.y * kBlockY + threadIdx.y;
+  const bool in_image = lx < p.width && ly < p.height;
+  tpt::CoopView S;
+  static_cast<tpt::ChunkedView&>(S) = rows_view(rows, s_box, n_chunks, chunk);
+  S.tab = tab;
+  S.mat = mat;
+  S.lights = s_lights;
+  S.n = p.n_spheres;
+  S.n_lights = p.n_lights;
+  S.gbox = s_gbox;
+  S.n_groups = n_groups;
+  S.nee = s_nee + (tid >> 5) * nee;
+  S.stage = s_stage + (tid >> 5) * 8 * chunk;
+  const DeviceWarp w(tid);
+  float c[3];
+  unsigned long long count;
+  if constexpr (kStats) {
+    CoopStats cs(tid);
+    count = tpt::render_pixel_merged<kStaged>(w, S, s_cam, p, p.x0 + lx,
+                                              p.y0 + ly, in_image, c, cs);
+    flush_stats(cs.v, stats, tid);
+  } else {
+    tpt::NoCoopCount none;
+    count = tpt::render_pixel_merged<kStaged>(w, S, s_cam, p, p.x0 + lx,
+                                              p.y0 + ly, in_image, c, none);
   }
+  if (in_image) {
+    const size_t o = (static_cast<size_t>(ly) * p.width + lx) * 3;
+    out[o] = c[0];
+    out[o + 1] = c[1];
+    out[o + 2] = c[2];
+  }
+  add_rays(count, warp_rays, rays, tid);
 }
 
 bool bad_chunks(int n_chunks, int chunk) {
@@ -205,27 +458,58 @@ int tpt_shadow_chunks_launch(const float* rows, int n_chunks, int chunk,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The scaled render kernel on `stream`: image `out` (height, width, 3) and
-// the ray count added to `rays` (zeroed by the caller).
+// Group boxes the cooperative kernel takes for n_chunks chunks.
+int tpt_scaled_groups(int n_chunks) {
+  return (n_chunks + tpt::kGroup - 1) / tpt::kGroup;
+}
+
+// A scaled render kernel on `stream`: image `out` (height, width, 3) and
+// the ray count added to `rays` (zeroed by the caller).  form 0: the
+// per-lane kernel; 1: the cooperative kernel; 2: the cooperative kernel
+// with chunks staged in shared memory (chunk a multiple of 4).  gbox:
+// (tpt_scaled_groups(n_chunks), 6) group boxes (forms 1, 2).  stats: null,
+// or kStSlots zeroed totals that the stats instance (forms 0, 1) adds to.
 int tpt_scaled_render_launch(const float* tab, const float* rows,
-                             const int32_t* mat, const int32_t* lights,
-                             const float* cam, const tpt::RenderParams* p,
-                             int n_chunks, int chunk, float* out,
-                             unsigned long long* rays, void* stream) {
+                             const float* gbox, const int32_t* mat,
+                             const int32_t* lights, const float* cam,
+                             const tpt::RenderParams* p, int n_chunks,
+                             int chunk, int form, float* out,
+                             unsigned long long* rays,
+                             unsigned long long* stats, void* stream) {
   if (bad_chunks(n_chunks, chunk) || p->n_spheres != n_chunks * chunk ||
       p->n_lights < 0 || p->n_lights > tpt::kMaxLights || p->height < 1 ||
-      p->width < 1)
+      p->width < 1 || form < 0 || form > 2 || (form == 2 && stats) ||
+      (form == 2 && chunk % 4) || (form > 0 && !gbox))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (6 * n_chunks + tpt::kCameraFloats) +
-                      sizeof(int32_t) * p->n_lights;
-  cudaError_t err = allow_smem(scaled_render_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_groups = tpt_scaled_groups(n_chunks);
+  size_t smem = sizeof(float) * (6 * n_chunks + tpt::kCameraFloats) +
+                sizeof(int32_t) * p->n_lights;
+  if (form > 0)
+    smem += sizeof(float) * (6 * n_groups +
+                             kWarps * tpt::nee_words(p->n_lights, 32));
+  if (form == 2) smem += sizeof(float) * kWarps * 8 * chunk;
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((p->width + kBlockX - 1) / kBlockX,
                   (p->height + kBlockY - 1) / kBlockY);
-  scaled_render_kernel<<<grid, block, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      tab, rows, mat, lights, cam, *p, n_chunks, chunk, out, rays);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (form == 0) {
+    auto kernel = stats ? scaled_render_kernel<true>
+                        : scaled_render_kernel<false>;
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, block, smem, s>>>(tab, rows, mat, lights, cam, *p,
+                                     n_chunks, chunk, out, rays, stats);
+  } else {
+    auto kernel = form == 2 ? coop_render_kernel<true, false>
+                  : stats   ? coop_render_kernel<false, true>
+                            : coop_render_kernel<false, false>;
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, block, smem, s>>>(tab, rows, gbox, n_groups, mat, lights,
+                                     cam, *p, n_chunks, chunk, out, rays,
+                                     stats);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 SOURCES = ("render.cu", "grad.cu", "scaled.cu", "probe.cu")
-HEADERS = ("trace.cuh", "chunks.cuh", "probe.cuh")
+HEADERS = ("trace.cuh", "chunks.cuh", "coop.cuh", "probe.cuh")
 
 
 class RenderParams(ctypes.Structure):
@@ -57,29 +57,34 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(defines=()) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False, defines=()) -> Path:
     """Compile csrc/ into build/torch_kernels/libtpt_kernels_<hash>.so
     unless that file exists; returns its path.  The objects and the
     library are written in a temporary directory and the library is
     renamed into place, so concurrent processes never load a half-written
-    one."""
-    out = BUILD_DIR / f"libtpt_kernels_{_digest()}.so"
-    if out.exists():
+    one.  verbose: compile with -Xptxas -v (rebuilding where that report
+    is missing), print the compilers' output and keep it beside the
+    library for ptxas_usage.  defines: extra -D flags, for a tuning sweep's
+    variant library (a library of its own)."""
+    out = BUILD_DIR / f"libtpt_kernels_{_digest(defines)}.so"
+    report = out.with_suffix(".ptxas.txt")
+    if out.exists() and (report.exists() or not verbose):
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         jobs = []
         for src in SOURCES:
-            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+            cmd = [nvcc, *NVCC_FLAGS, *defines,
+                   *(["-Xptxas", "-v"] if verbose else []),
                    "-c", "-o", os.path.join(tmp, src + ".o"), str(CSRC / src)]
             jobs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -99,16 +104,67 @@ def build(verbose: bool = False) -> Path:
                 raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
                                    f"{stdout}{stderr}")
         if verbose:
-            print("".join(o + e for _, _, o, e in logs), flush=True)
+            text = "".join(o + e for _, _, o, e in logs)
+            print(text, flush=True)
+            report.write_text(text)
         os.replace(so, out)
     return out
 
 
+def ptxas_usage(text: str) -> dict:
+    """Registers, stack and spill bytes per kernel from `nvcc -Xptxas -v`
+    output (build(verbose=True) keeps it as <library>.ptxas.txt): {label:
+    {"registers", "stack", "spill_stores", "spill_loads"}}, the label the
+    kernel's name with its template arguments, e.g.
+    "coop_render_kernel<0,0>"."""
+    import re
+    usage, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            usage.setdefault(name, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage.setdefault(name, {})["registers"] = int(m.group(1))
+    out = {}
+    for mangled, u in usage.items():
+        if "registers" not in u:
+            continue
+        # _ZN <length><name>... : the last name of the nested name, then
+        # its template arguments
+        pos, label = 3 if mangled.startswith("_ZN") else 2, None
+        while True:
+            m = re.match(r"\d+", mangled[pos:])
+            if not m:
+                break
+            start = pos + m.end()
+            pos = start + int(m.group())
+            label = mangled[start:pos]
+        if label is None:
+            continue
+        targs = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[pos:])
+        if targs:
+            label += "<" + ",".join(re.findall(r"\d+", targs.group(1))) + ">"
+        out[label] = u
+    return out
+
+
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
+def load_library(defines=()) -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C
-    interface of csrc/render.cu, grad.cu, scaled.cu and probe.cu."""
-    lib = ctypes.CDLL(str(build()))
+    interface of csrc/render.cu, grad.cu, scaled.cu and probe.cu.
+    defines: a tuple of -D flags, for a tuning sweep's variant library."""
+    lib = ctypes.CDLL(str(build(defines=tuple(defines))))
     ptr = ctypes.c_void_p
     params = ctypes.POINTER(RenderParams)
     lib.tpt_render_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr,
@@ -125,14 +181,16 @@ def load_library() -> ctypes.CDLL:
                                           f32, ptr, ptr, ptr]
     lib.tpt_shadow_chunks_launch.argtypes = [ptr, i32, i32, ptr, ptr, ptr,
                                              ptr, i32, i32, f32, ptr, ptr]
-    lib.tpt_scaled_render_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, params,
-                                             i32, i32, ptr, ptr, ptr]
+    lib.tpt_scaled_render_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
+                                             params, i32, i32, i32, ptr, ptr,
+                                             ptr, ptr]
+    lib.tpt_scaled_groups.argtypes = [i32]
     lib.tpt_probe_launch.argtypes = [i32, i32, i32, ptr, ptr]
     for fn in (lib.tpt_render_launch, lib.tpt_render_stats_launch,
                lib.tpt_lockstep_launch, lib.tpt_grad_launch,
                lib.tpt_grad_blocks, lib.tpt_hit_chunks_launch,
                lib.tpt_shadow_chunks_launch, lib.tpt_scaled_render_launch,
-               lib.tpt_probe_launch):
+               lib.tpt_scaled_groups, lib.tpt_probe_launch):
         fn.restype = ctypes.c_int
     lib.tpt_error_string.argtypes = [ctypes.c_int]
     lib.tpt_error_string.restype = ctypes.c_char_p

@@ -39,6 +39,10 @@ _TENSORS = ("center", "radius", "albedo", "emissive", "roughness", "ri",
 # on a card) at any ray count.
 _BATCHES = {"cpu": (1 << 15, 1 << 14), "cuda": (1 << 18, 1 << 17)}
 
+# Chunks under one group box of the scaled render kernel (csrc/coop.cuh
+# kGroup).
+GROUP = 16
+
 
 def _morton3(ix, iy, iz):
     """Interleave 10-bit cell coords into a 30-bit Morton key (numpy)."""
@@ -486,6 +490,23 @@ def pack_chunks(scene: ScaledScene) -> torch.Tensor:
         (torch.arange(C, dtype=torch.float32, device=dev) * K)[:, None],
         torch.zeros((C, 1), dtype=torch.float32, device=dev),
     ], dim=1).to(torch.float32).detach().contiguous()
+
+
+def group_boxes(rows: torch.Tensor, chunk: int,
+                group: int = GROUP) -> torch.Tensor:
+    """(ceil(C / group), 6) boxes over runs of `group` consecutive chunks
+    of pack_chunks rows (C, 4 * chunk + 8): each the min of its children's
+    box minima and the max of their maxima (exact: min and max round
+    nothing).  The scaled render kernel tests a group box before the
+    group's chunk boxes and skips all of them where no ray enters it."""
+    box = rows[:, 4 * chunk:4 * chunk + 6]
+    C = box.shape[0]
+    G = -(-C // group)
+    pad = G * group - C
+    lo = torch.cat([box[:, :3], box.new_full((pad, 3), torch.inf)])
+    hi = torch.cat([box[:, 3:], box.new_full((pad, 3), -torch.inf)])
+    return torch.cat([lo.reshape(G, group, 3).amin(dim=1),
+                      hi.reshape(G, group, 3).amax(dim=1)], dim=1).contiguous()
 
 
 class ChunkedScenePort:
