@@ -7,7 +7,8 @@ Phases (one JSON line each on stdout; any failure raises and exits
 non-zero):
   1. device: the card, torch/CUDA versions, the nvcc build of csrc/;
      each kernel's registers, stack and spills from -Xptxas -v, with K1,
-     K3, K4 and the per-lane scaled render kernel held at their counts.
+     K3, K4, K5, K6 and the per-lane scaled render kernel held at their
+     counts.
   2. kernel vs plain at 320x176, spp 2, depth 6, frames 0-3: the big
      scene, the big scene without light sampling, the small scene.
   3. the main path: RenderSession(device="cuda") at 1280x720, spp 4,
@@ -35,17 +36,16 @@ non-zero):
      kernel vs plain at 320x176 / spp 1 / depth 4 (frames 0-1), on a
      16-row band and on the full frame at full size (whose plain work
      counts give the bounds), and in every one of those and on the
-     animated frame bit-equal to the per-lane form and to the staged
-     cooperative form; both forms' stats instances on frame 0 (image
+     animated frame bit-equal to the per-lane form; both forms' stats
+     instances on frame 0 (image
      bit-equal, the hit rays' sphere tests equal to the plain count, and
      the per-lane form's shadow and slab tests; sphere-loop SIMT
      efficiency for hit and shadow calls; the cooperative form's cycles
      by part of the path loop).
- 10. scaled timing with CUDA events: the cooperative, staged and per-lane
-     forms in turns at 1280x720 and 320x176; tools.coop_sweep (the
-     cooperative kernel's kCoopMin x kCoopBlocks grid, each variant
-     bit-equal to the shipped build, timed in turns); the session; bounds
-     from the plain work counters.
+ 10. scaled timing with CUDA events: the cooperative and per-lane forms
+     in turns at 1280x720 and 320x176; the session; bounds from the
+     lesser, term by term, of the plain version's work counters and the
+     cooperative stats instance's (at 320x176 its second launch).
  11. the stats render kernel (K2) at 320x176, spp 2, depth 6, frames 0-1:
      16x128 tiles unmerged and a padded shape (32x128 tiles, 2 pixels a
      lane, merged); image and rays bit-equal to K1's, per-pixel trip
@@ -77,12 +77,14 @@ import torch
 
 # Registers and spill bytes of the kernels that the scaled render's redesign
 # must leave as they were (-Xptxas -v of their sources before it): K1, K3,
-# K4 and the per-lane scaled render kernel.
+# K4, K5, K6 and the per-lane scaled render kernel.
 KEPT_USAGE = {
     "render_kernel<0>": {"registers": 80, "spill_stores": 48},
     "lockstep_kernel<1>": {"registers": 116, "spill_stores": 0},
     "lockstep_kernel<0>": {"registers": 80, "spill_stores": 52},
     "scaled_render_kernel<0>": {"registers": 80, "spill_stores": 32},
+    "hit_chunks_kernel": {"registers": 40, "spill_stores": 0},
+    "shadow_chunks_kernel": {"registers": 32, "spill_stores": 0},
 }
 
 
@@ -601,7 +603,6 @@ def scaled_phases(cfg, smi, usage):
     from toypathtracer_torch.scaled import (ChunkedScenePort, ChunkTraversal,
                                             pack_chunks,
                                             render_tile_scaled_plain)
-    from toypathtracer_torch.tools import coop_sweep
 
     dev = torch.device("cuda")
     t_min, t_max = float(np.float32(cfg.min_t)), float(np.float32(cfg.max_t))
@@ -675,7 +676,6 @@ def scaled_phases(cfg, smi, usage):
             "seconds": time.perf_counter() - t0}
     emit(main)
     check(main_launches == {"scaled_render": 5, "scaled_render_lane": 0,
-                            "scaled_render_staged": 0,
                             "scaled_render_stats": 0, "hit_chunks": 1,
                             "shadow_chunks": 1},
           f"scaled main path launched {main_launches}")
@@ -754,21 +754,18 @@ def scaled_phases(cfg, smi, usage):
     check(k6["ray_mismatch"] <= 1e-5 * n, "K6: occlusion bits")
 
     def forms_equal(what, sc, c, frame, y0, h, main):
-        """The per-lane and staged forms on the same tile as the main
-        path's form: image and rays bit-equal."""
+        """The per-lane form on the same tile as the main path's form:
+        image and rays bit-equal."""
         img, rays = main
-        r = {}
-        for form in ("lane", "staged"):
-            img_f, rays_f = cuda_scaled.render_tile_scaled_form(
-                sc, c, frame, 0, y0, h, c.width, form)
-            torch.cuda.synchronize()
-            r[form] = {"bit_equal": bool(torch.equal(img_f, img)),
-                       "rays_equal": int(rays_f) == int(rays),
-                       "pixels_differ": int((img_f != img).any(-1).sum())}
+        img_f, rays_f = cuda_scaled.render_tile_scaled_form(
+            sc, c, frame, 0, y0, h, c.width, "lane")
+        torch.cuda.synchronize()
+        r = {"bit_equal": bool(torch.equal(img_f, img)),
+             "rays_equal": int(rays_f) == int(rays),
+             "pixels_differ": int((img_f != img).any(-1).sum())}
         emit({"phase": "scaled_forms_bit_equal", "case": what, **r})
-        for form, v in r.items():
-            check(v["bit_equal"] and v["rays_equal"],
-                  f"scaled {what}: the {form} form differs from coop")
+        check(r["bit_equal"] and r["rays_equal"],
+              f"scaled {what}: the per-lane form differs from coop")
         return r
 
     small = cfg.replace(width=320, height=176, samples_per_pixel=1,
@@ -827,7 +824,7 @@ def scaled_phases(cfg, smi, usage):
     bit_equal["animated"] = forms_equal("1280x720 animated (t=1)", sd_anim,
                                         cfg, 0, 0, H, (img_ak, rays_ak))
 
-    # step 0: both forms' stats instances on frame 0.  Their images are
+    # both forms' stats instances on frame 0.  Their images are
     # the timed instances'; the sphere tests the hit rays need are the
     # plain version's count, and in the per-lane form, which takes every
     # chunk in order, the shadow rays' tests and the slab tests too.
@@ -858,26 +855,25 @@ def scaled_phases(cfg, smi, usage):
                   f"{w['slab_tests']}")
 
     # ---- 10. timing ------------------------------------------------------
-    # the forms in turns at both sizes: coop, staged, lane, lane, staged,
-    # coop; each entry the mean of its two runs
+    # the forms in turns at both sizes: coop, lane, lane, coop; each entry
+    # the mean of its two runs
     t1 = time.perf_counter()
     form_ms = {}
     for name, c, h, reps in (("1280x720", cfg, H, 3),
                              ("320x176", small, 176, 10)):
         runs = {}
-        for form in ("coop", "staged", "lane", "lane", "staged", "coop"):
+        for form in ("coop", "lane", "lane", "coop"):
             runs.setdefault(form, []).append(time_device_call(
                 cuda_scaled.render_tile_scaled_form, sd, c, 0, 0, 0, h,
                 c.width, form, repeats=reps)[0] * 1e3)
         form_ms[name] = {f: {"ms": sum(v) / len(v), "runs": v}
                          for f, v in runs.items()}
-    sweep = coop_sweep.main([])
-    check(all(v["bit_equal_to_shipped"] for v in sweep["variants"]),
-          "a coop_sweep variant differs from the shipped kernel")
     full_s = form_ms["1280x720"][cuda_scaled.MAIN_FORM]["ms"] * 1e-3
     small_s = form_ms["320x176"][cuda_scaled.MAIN_FORM]["ms"] * 1e-3
     small_plain_s, (_, small_rays, small_work) = time_device_call(
         render_tile_scaled_plain, sd, small, 0, 0, 0, 176, 320, True)
+    _, _, small_stats = cuda_scaled.render_tile_scaled_form(
+        sd, small, 0, 0, 0, 176, 320, "coop", stats=True)
     sess = frame_mod.RenderSession(scene, cfg, flags=FLAG_PROGRESSIVE,
                                    device="cuda")
     sess.step(time=0.0)
@@ -886,11 +882,21 @@ def scaled_phases(cfg, smi, usage):
         lambda: timed.append(sess.step(time=0.0)[1]), repeats=3)
     step_rays = frame_mod.sum_rays(torch.stack(timed)) / len(timed)
 
-    def render_bound(w, pixels):
-        ops = (12 * w["slab_tests"] + 19 * w["hit_tests"]
-               + 19 * w["shadow"] + 20 * w["occlusion_tests"])
+    def render_bound(w, st, pixels):
+        """The scaled render's counted work: each term the lesser of the
+        plain version's count (w, the sequential scan) and the cooperative
+        stats instance's (st), which tests a shadow ray's own chunk first
+        and skips chunks by group boxes, so the function needs no more."""
+        terms = {"slab_tests": min(w["slab_tests"], st["hit"]["slabs"]
+                                   + st["shadow"]["slabs"]),
+                 "hit_tests": min(w["hit_tests"], st["hit"]["need"]),
+                 "shadow": w["shadow"],
+                 "occlusion_tests": min(w["occlusion_tests"],
+                                        st["shadow"]["need"])}
+        ops = (12 * terms["slab_tests"] + 19 * terms["hit_tests"]
+               + 19 * terms["shadow"] + 20 * terms["occlusion_tests"])
         n_bytes = scene_bytes + 4 * 3 * pixels + 8
-        return ops, n_bytes, max(ops / 67e12, n_bytes / 3.35e12) * 1e3
+        return ops, n_bytes, max(ops / 67e12, n_bytes / 3.35e12) * 1e3, terms
 
     def warp_efficiency(lane_ops, rows, cols):
         """sum / (32 x the warp's most) of per-lane operation counts over
@@ -905,15 +911,18 @@ def scaled_phases(cfg, smi, usage):
 
     pix_ops = (12 * work.slab_tests + 19 * work.hit_tests + 19 * work.shadow
                + 20 * work.occlusion_tests).reshape(H, W)
-    # K5/K6: 32 consecutive rays a warp; the render kernel: 16x2 pixels
+    # K5/K6: 32 consecutive rays a warp; the per-lane render kernel: 16x2
+    # pixels (a model of that form only: the cooperative form's figures are
+    # its stats instance's SIMT efficiencies and path-loop busy share)
     divergence = {
-        "render_1280x720": warp_efficiency(pix_ops, 2, 16),
+        "lane_form_render_1280x720": warp_efficiency(pix_ops, 2, 16),
         "hit_chunks_camera": warp_efficiency(
             (12 * k5_work[0] + 19 * k5_work[1]).reshape(-1, 32), 1, 32),
     }
     sw = {k: int(getattr(small_work, k).sum()) for k in small_work._fields}
-    ops_f, bytes_f, bound_f = render_bound(w, H * W)
-    ops_s, bytes_s, bound_s = render_bound(sw, 176 * 320)
+    ops_f, bytes_f, bound_f, terms_f = render_bound(w, simt["coop"], H * W)
+    ops_s, bytes_s, bound_s, terms_s = render_bound(sw, small_stats,
+                                                    176 * 320)
     timing = {"phase": "scaled_timing", "nvidia_smi": smi,
               "full_kernel_ms": full_s * 1e3,
               "full_plain_ms": full_plain_s * 1e3,
@@ -922,19 +931,16 @@ def scaled_phases(cfg, smi, usage):
               "session_step_ms": step_s * 1e3,
               "session_mray_s": step_rays / step_s * 1e-6,
               "full_bound_fp32_ops": ops_f, "full_bound_bytes": bytes_f,
-              "full_bound_ms": bound_f,
+              "full_bound_ms": bound_f, "full_bound_work": terms_f,
               "small_kernel_ms": small_s * 1e3,
               "small_plain_ms": small_plain_s * 1e3,
               "small_rays": int(small_rays),
               "small_kernel_mray_s": int(small_rays) / small_s * 1e-6,
-              "small_work": sw, "small_bound_fp32_ops": ops_s,
+              "small_work": sw, "small_bound_work": terms_s,
+              "small_bound_fp32_ops": ops_s,
               "small_bound_ms": bound_s,
               "hit_chunks_ms": k5["ms"], "shadow_chunks_ms": k6["ms"],
               "forms_ms": form_ms,
-              "coop_sweep": {"best": sweep["best"],
-                             "shipped": sweep["shipped"],
-                             "ms": {f"{v['coop_min']},{v['blocks']}": v["ms"]
-                                    for v in sweep["variants"]}},
               "sphere_loop_simt_efficiency": {
                   f: {k: simt[f][k]["simt_efficiency"]
                       for k in ("hit", "shadow")} for f in simt},
@@ -952,8 +958,7 @@ def scaled_phases(cfg, smi, usage):
           "16-row band and full frame at 1280x720); bit-equal to the " \
           "per-lane form there and on the animated frame"
     reg = {f: usage.get(k, {}) for f, k in (
-        ("coop", "coop_render_kernel<0,0>"),
-        ("staged", "coop_render_kernel<1,0>"),
+        ("coop", "coop_render_kernel<0>"),
         ("lane", "scaled_render_kernel<0>"))}
     return [
         {"name": "scaled_render", "route": "cuda",
@@ -969,7 +974,6 @@ def scaled_phases(cfg, smi, usage):
          "baseline_ms": form_ms["1280x720"]["lane"]["ms"],
          "baseline": "the per-lane form it replaced "
                      "(scaled_render_kernel<0>), timed in turns with it",
-         "staged_ms": form_ms["1280x720"]["staged"]["ms"],
          "ms_320x176": form_ms["320x176"],
          "sphere_loop_simt_efficiency": {
              f: {k: simt[f][k]["simt_efficiency"] for k in ("hit", "shadow")}

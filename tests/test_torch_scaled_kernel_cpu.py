@@ -19,8 +19,8 @@ The cooperative form is held exactly: a warp of 32 lanes emulated here
 sequential traversal's ids, t and bits, on those rays and on a chunk
 whose duplicated spheres force equal roots; the group boxes pass every
 ray that one of their chunks passes, on the 100k scene; and
-render_pixel_merged, under the one-lane warp policy and with the chunks
-staged or not, renders the per-lane form's image and rays bit for bit.
+render_tiles_merged, under the one-lane warp policy, renders the per-lane
+form's image and rays bit for bit.
 """
 
 import ctypes
@@ -97,31 +97,64 @@ extern "C" unsigned long long tpt_scaled_render_cpu(
   return rays;
 }
 
+// The counting traversals of the per-lane stats instance, with a counter
+// that sums each lane's chunk steps and sphere tests: answers into t/id or
+// out, steps and tests into work (2, n).
+struct HostCount {
+  static constexpr bool kOn = true;
+  long long steps = 0, tests = 0;
+  void call(bool) {}
+  void chunk(bool, bool, int t) { ++steps; tests += t; }
+};
+
+extern "C" void tpt_hit_counted_cpu(const float* rows, const float* box,
+                                    int C, int K, const float* ro,
+                                    const float* rd, int n, float t_min,
+                                    float t_max, float* t, int32_t* id,
+                                    long long* work) {
+  tpt::ChunkedView V = view(rows, box, C, K);
+  for (int i = 0; i < n; ++i) {
+    HostCount cnt;
+    id[i] = tpt::hit_chunks_ray(
+        V, tpt::v3(ro[i], ro[n + i], ro[2 * n + i]),
+        tpt::v3(rd[i], rd[n + i], rd[2 * n + i]), t_min, t_max, t[i], cnt);
+    work[i] = cnt.steps;
+    work[n + i] = cnt.tests;
+  }
+}
+
+extern "C" void tpt_occ_counted_cpu(const float* rows, const float* box,
+                                    int C, int K, const float* ro,
+                                    const float* dir, const float* t_l,
+                                    int light, int n, float t_min,
+                                    int32_t* out, long long* work) {
+  tpt::ChunkedView V = view(rows, box, C, K);
+  for (int i = 0; i < n; ++i) {
+    HostCount cnt;
+    out[i] = tpt::occluded_chunks(
+        V, tpt::v3(ro[i], ro[n + i], ro[2 * n + i]),
+        tpt::v3(dir[i], dir[n + i], dir[2 * n + i]), light, t_min, t_l[i],
+        cnt);
+    work[i] = cnt.steps;
+    work[n + i] = cnt.tests;
+  }
+}
+
 // The cooperative form's per-pixel loop under the one-lane warp policy.
 extern "C" unsigned long long tpt_merged_render_cpu(
     const float* tab, const float* rows, const float* box, const float* gbox,
     int G, const int32_t* mat, const int32_t* lights, const float* cam,
-    const tpt::RenderParams* p, int C, int K, int staged, float* stage,
-    float* out) {
+    const tpt::RenderParams* p, int C, int K, float* out) {
   tpt::CoopView S;
   static_cast<tpt::ChunkedView&>(S) = view(rows, box, C, K);
   S.tab = tab; S.mat = mat; S.lights = lights;
   S.n = p->n_spheres; S.n_lights = p->n_lights;
   float nee[tpt::kMaxLights * 7];  // nee_words(kMaxLights, 1)
-  S.gbox = gbox; S.n_groups = G; S.nee = nee; S.stage = stage;
+  S.gbox = gbox; S.n_groups = G; S.nee = nee;
   const tpt::HostLane w;
   tpt::NoCoopCount none;
-  unsigned long long rays = 0;
-  for (int y = 0; y < p->height; ++y)
-    for (int x = 0; x < p->width; ++x) {
-      float* o = out + ((size_t)y * p->width + x) * 3;
-      rays += staged
-          ? tpt::render_pixel_merged<true>(w, S, cam, *p, p->x0 + x,
-                                           p->y0 + y, true, o, none)
-          : tpt::render_pixel_merged<false>(w, S, cam, *p, p->x0 + x,
-                                            p->y0 + y, true, o, none);
-    }
-  return rays;
+  int next_tile = 0;
+  return tpt::render_tiles_merged(w, S, cam, *p, &next_tile, out, none);
 }
 
 // A warp of 32 lanes, emulated: every chunk a ray enters is tested by all
@@ -251,8 +284,12 @@ def host_lib(tmp_path_factory):
     lib.tpt_scaled_render_cpu.restype = ctypes.c_ulonglong
     lib.tpt_merged_render_cpu.argtypes = [
         ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr,
-        ctypes.POINTER(_build.RenderParams), i32, i32, i32, ptr, ptr]
+        ctypes.POINTER(_build.RenderParams), i32, i32, ptr]
     lib.tpt_merged_render_cpu.restype = ctypes.c_ulonglong
+    lib.tpt_hit_counted_cpu.argtypes = [ptr, ptr, i32, i32, ptr, ptr, i32,
+                                        f32, f32, ptr, ptr, ptr]
+    lib.tpt_occ_counted_cpu.argtypes = [ptr, ptr, i32, i32, ptr, ptr, ptr,
+                                        i32, i32, f32, ptr, ptr]
     lib.tpt_warp_hit_cpu.argtypes = lib.tpt_hit_cpu.argtypes
     lib.tpt_warp_occ_cpu.argtypes = lib.tpt_occ_cpu.argtypes
     lib.tpt_group_check_cpu.argtypes = [ptr, ptr, i32, i32, ptr, ptr, ptr,
@@ -360,6 +397,50 @@ def test_occluded_chunks_matches_plain(host_lib):
         assert (spheres.numpy() <= 256 * slabs.numpy()).all()
     np.testing.assert_array_equal(out, want)
     assert 0 < (out != 0).mean() < 1
+
+
+@pytest.mark.parametrize("kind", ["hit", "shadow"])
+def test_counted_traversals_match_plain(host_lib, kind):
+    """K5's and K6's traversals with a counter (the per-lane stats
+    instance's) give their answers and count the plain version's slab and
+    sphere tests exactly."""
+    scene = make_scaled_scene(n=3000, chunk=256, extent=40.0)
+    rows, box = chunk_inputs(scene)
+    trav = ChunkTraversal(torch.from_numpy(rows), 256)
+    t_min = float(np.float32(1e-3))
+    if kind == "hit":
+        ro, rd = scaled_rays()
+        n = ro.shape[1]
+        t = np.zeros(n, np.float32)
+        hid = np.zeros(n, np.int32)
+        work = np.zeros((2, n), np.int64)
+        host_lib.tpt_hit_counted_cpu(c_ptr(rows), c_ptr(box), rows.shape[0],
+                                     256, c_ptr(ro), c_ptr(rd), n, 1e-3, 1e7,
+                                     c_ptr(t), c_ptr(hid), c_ptr(work))
+        pt, pid, slabs, spheres = trav.nearest_hit(
+            tuple(torch.from_numpy(ro)), tuple(torch.from_numpy(rd)), t_min,
+            1e7)
+        np.testing.assert_array_equal(hid, pid.numpy())
+        np.testing.assert_array_equal(t, pt.numpy())
+        live = ~np.isnan(ro).any(0) & ~np.isnan(rd).any(0)
+    else:
+        ro, D, T, ids = shadow_inputs(scene)
+        n = ro.shape[1]
+        occ = np.zeros(n, np.int32)
+        work = np.zeros((2, n), np.int64)
+        host_lib.tpt_occ_counted_cpu(c_ptr(rows), c_ptr(box), rows.shape[0],
+                                     256, c_ptr(ro), c_ptr(D[1]), c_ptr(T[1]),
+                                     int(ids[1]), n, 1e-3, c_ptr(occ),
+                                     c_ptr(work))
+        pocc, slabs, spheres = trav.occluded(
+            tuple(torch.from_numpy(ro)), tuple(torch.from_numpy(D[1])),
+            int(ids[1]), t_min, torch.from_numpy(T[1]))
+        np.testing.assert_array_equal(occ, pocc.numpy().astype(np.int32))
+        assert 0 < occ.mean() < 1
+        live = np.ones(n, bool)
+    np.testing.assert_array_equal(work[0][live], slabs.numpy()[live])
+    np.testing.assert_array_equal(work[1], spheres.numpy())
+    assert work[1].sum() > 0
 
 
 def tie_inputs():
@@ -493,8 +574,8 @@ def test_scaled_render_source_matches_plain(host_lib, frame, x0, y0):
     assert d.mean() <= 5e-7
 
 
-def render_merged_host(lib, scene, cfg, frame, x0, y0, h, w, staged):
-    """render_pixel_merged over the tile, under the one-lane warp."""
+def render_merged_host(lib, scene, cfg, frame, x0, y0, h, w):
+    """render_tiles_merged over the tile, under the one-lane warp."""
     tab = cuda_render.pack_scene(scene).numpy()
     rows_t = pack_chunks(scene)
     gbox = group_boxes(rows_t, scene.chunk).numpy()
@@ -502,34 +583,32 @@ def render_merged_host(lib, scene, cfg, frame, x0, y0, h, w, staged):
     mat = scene.mat_ids().numpy()
     lights = np.array(scene.emissive_ids, np.int32)
     cam = camera_to_array(make_camera(scene.camera, cfg.width / cfg.height))
-    stage = np.zeros(8 * scene.chunk, np.float32)
     out = np.zeros((h, w, 3), np.float32)
     params = cuda_render.render_params(scene, cfg, frame, x0, y0, h, w)
     rays = lib.tpt_merged_render_cpu(
         c_ptr(tab), c_ptr(rows), c_ptr(box), c_ptr(gbox), gbox.shape[0],
         c_ptr(mat), c_ptr(lights), c_ptr(cam), ctypes.byref(params),
-        scene.n_chunks, scene.chunk, int(staged), c_ptr(stage),
-        out.ctypes.data)
+        scene.n_chunks, scene.chunk, out.ctypes.data)
     return out, rays
 
 
-@pytest.mark.parametrize("n,chunk,extent,nee,staged,frame,x0,y0", [
-    (800, 128, 100.0, True, False, 0, 0, 0),
-    (800, 128, 100.0, True, True, 5, 40, 7),
-    (3000, 256, 40.0, True, True, 2, 16, 9),
-    (3000, 256, 40.0, False, False, 3, 8, 4)])
+@pytest.mark.parametrize("n,chunk,extent,nee,frame,x0,y0", [
+    (800, 128, 100.0, True, 0, 0, 0),
+    (800, 128, 100.0, True, 5, 40, 7),
+    (3000, 256, 40.0, True, 2, 16, 9),
+    (3000, 256, 40.0, False, 3, 8, 4)])
 def test_merged_render_bit_equal_to_per_lane(host_lib, n, chunk, extent, nee,
-                                             staged, frame, x0, y0):
-    """The cooperative form's path loop (merged samples, the light loop
-    and the group and chunk skips, chunks staged or read in place) renders
-    the per-lane form's image and ray count bit for bit."""
+                                             frame, x0, y0):
+    """The cooperative form's path loop (merged samples, the compacted
+    shadow rays with their own chunks first, the group and chunk skips)
+    renders the per-lane form's image and ray count bit for bit."""
     scene = make_scaled_scene(n=n, chunk=chunk, extent=extent)
     cfg = RenderConfig(width=64, height=32, samples_per_pixel=2, max_depth=4,
                        do_light_sampling=nee)
     h, w = 16, 32
     want, rays = render_host(host_lib, scene, cfg, frame, x0, y0, h, w)
     got, mrays = render_merged_host(host_lib, scene, cfg, frame, x0, y0, h,
-                                    w, staged)
+                                    w)
     assert want.max() > 0.05 and rays > 2 * h * w
     np.testing.assert_array_equal(got, want)
     assert mrays == rays

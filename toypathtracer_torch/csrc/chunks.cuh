@@ -141,13 +141,14 @@ TPT_HD int first_overlap_in_chunk(const float* r, int K, int base, V3 pos,
   return K;
 }
 
-// What a traversal reports of its work besides its answer.  The kernels
-// pass NoChunkCount, which compiles to nothing; the stats instances of the
-// scaled render kernel (csrc/scaled.cu) pass a counter with the same calls.
-// call() at the start of a traversal; chunk() after each chunk step, by
-// every lane of the loop: whether the lane's ray entered the chunk and how
-// many of its spheres it tested.
+// A traversal counter that counts nothing: K5, K6 and the timed render
+// kernels.  A counter's call(shadow) runs at the start of a traversal and
+// its chunk(shadow, entered, tests) after each chunk step, by every lane of
+// the loop: whether the lane's ray entered the chunk and how many of its
+// spheres it tested (the per-lane scaled render's stats instance,
+// csrc/scaled.cu, counts them).
 struct NoChunkCount {
+  static constexpr bool kOn = false;
   TPT_HD void call(bool) {}
   TPT_HD void chunk(bool, bool, int) {}
 };
@@ -166,9 +167,16 @@ TPT_HD int hit_chunks_ray(const ChunkedView& V, V3 ro, V3 rd, float t_min,
   for (int c = 0; c < V.n_chunks; ++c) {
     const bool entered = slab(V.box + 6 * c, ro, inv, t_min, t);
     if (entered) {
-      const int j = nearest_in_chunk(V.chunk_row(c), K, 0, 1, ro, rd, t_min,
-                                     t);
-      if (j < K) id = c * K + j;
+      // nearest_in_chunk's scan with the global id set in the loop: K5
+      // keeps its 40 registers (a returned index compiles to 38)
+      const float* r = V.chunk_row(c);
+      for (int j = 0; j < K; ++j) {
+        float tt;
+        if (sphere_root(r, K, j, ro, rd, t_min, tt) && tt < t) {
+          t = tt;
+          id = c * K + j;
+        }
+      }
     }
     cnt.chunk(false, entered, entered ? K : 0);
   }
@@ -182,9 +190,8 @@ TPT_HD int hit_chunks_ray(const ChunkedView& V, V3 ro, V3 rd, float t_min,
 }
 
 // K6 for one ray and one light: does any sphere but `light` (a global id)
-// overlap (t_min, t_l) along l from pos?  The interval-overlap test of
-// tracecore._occ_test; the answer is an OR over chunks, so the loop stops
-// at the first occluder.
+// overlap (t_min, t_l) along l from pos?  The answer is an OR over chunks,
+// so the loop stops at the first occluder.
 template <class Count>
 TPT_HD bool occluded_chunks(const ChunkedView& V, V3 pos, V3 l, int light,
                             float t_min, float t_l, Count& cnt) {
@@ -194,12 +201,33 @@ TPT_HD bool occluded_chunks(const ChunkedView& V, V3 pos, V3 l, int light,
   const int K = V.chunk;
   for (int c = 0; c < V.n_chunks; ++c) {
     const bool entered = slab(V.box + 6 * c, pos, inv, t_min, t_l);
-    int j = K;
-    if (entered)
-      j = first_overlap_in_chunk(V.chunk_row(c), K, c * K, pos, l, light,
-                                 t_min, t_l);
-    cnt.chunk(true, entered, entered ? (j < K ? j + 1 : K) : 0);
-    if (j < K) return true;
+    const float* r = V.chunk_row(c);
+    if constexpr (Count::kOn) {
+      // every lane of the loop reports the step together, then returns
+      const int j = entered ? first_overlap_in_chunk(r, K, c * K, pos, l,
+                                                     light, t_min, t_l)
+                            : K;
+      cnt.chunk(true, entered, entered ? (j < K ? j + 1 : K) : 0);
+      if (j < K) return true;
+    } else if (entered) {
+      // sphere_overlaps written out: through the helper (or
+      // first_overlap_in_chunk), K6 and the per-lane render kernel ran
+      // ~15% and ~11% slower on an H100, with the same registers (PERF.md)
+      const int base = c * K;
+      for (int j = 0; j < K; ++j) {
+        const float cox = r[j] - pos.x;
+        const float coy = r[K + j] - pos.y;
+        const float coz = r[2 * K + j] - pos.z;
+        const float cq = cox * cox + coy * coy + coz * coz - r[3 * K + j];
+        const float nb = cox * l.x + coy * l.y + coz * l.z;
+        const float d = nb * nb - cq;
+        const float a = nb - t_min;
+        const float b = nb - t_l;
+        if (d > 0.0f && d > b * fabsf(b) && d > -(a * fabsf(a)) &&
+            base + j != light)
+          return true;
+      }
+    }
   }
   return false;
 }

@@ -7,11 +7,12 @@
 // entered that chunk, so it pays for the union of its lanes' chunk sets;
 // and a lane whose sample has ended waits at the bounce loop's exit for
 // the warp's deepest lane.  Here:
-//   1. render_pixel_merged runs one loop of iterations in which every lane
-//      traces one ray: its sample's next bounce, or the camera ray of its
-//      next sample once the last one ended (the per-lane form of the TPU's
-//      refilling wavefront, tracecore.render_pixels_fused_merged).  A lane
-//      with no samples left stays in the loop with no ray, so all lanes
+//   1. render_tiles_merged runs one loop of iterations in which every lane
+//      traces one ray: its pixel's sample's next bounce, or the camera ray
+//      of the next sample once the last one ended, or of the next pixel of
+//      the warp's tiles once its pixel is done (the per-lane form of the
+//      TPU's refilling wavefront, tracecore.render_pixels_fused_merged).  A
+//      lane with no pixel left stays in the loop with no ray, so all lanes
 //      reach each traversal together; NEE's loop over the lights is
 //      warp-uniform for the same reason.
 //   2. coop_nearest_hit / coop_occluded walk the chunks once for the warp:
@@ -24,34 +25,32 @@
 //      is a butterfly reduction over (t, j), least t and then least j,
 //      which is exactly the sequential scan's "first sphere of least t"
 //      against the best carried from earlier chunks; a shadow ray's answer
-//      is a vote, stopped at the first 32 spheres that hold an occluder.
-//   3. Optionally (kStaged) each chunk the warp enters is copied into a
-//      per-warp double buffer in shared memory with cp.async, the next
-//      entered chunk (found with the bounds as they stand) while the
-//      current one is tested.  A chunk whose test then fails wastes its
-//      copy; it never changes an answer, because a box that fails against
-//      a bound fails against every smaller one.
+//      is a vote, stopped at the first step that holds an occluder.
+//   3. NEE's shadow rays are compacted across lights, 32 to a pass, and
+//      each is first tested against its own chunk (the hit sphere's),
+//      where most occluders lie: an OR over chunks may take them in any
+//      order.  The rays that pass are compacted again and walk the rest.
 //   4. Boxes over runs of kGroup consecutive Morton chunks: a group box no
 //      lane enters skips its children.  Rounding of (b - o) * inv is
 //      monotone in b, so a child box's slab interval lies inside its
 //      group's, and a child that passes has a group that passes.
 // The image and the ray count are bit-equal to the per-lane form: each
-// pixel's samples run in order on the same RNG state, each ray's
-// arithmetic is the same, and each chunk's slab test sees the ray's best
-// as it stood after the chunks before it.
+// pixel's samples run in order on the same RNG state, whichever lane takes
+// it, each ray's arithmetic is the same, and each chunk's slab test sees
+// the ray's best as it stood after the chunks before it.
 //
 // Tensor cores do not serve this test: a matrix-product form of c.d and
 // c.o rounds differently from (c - o) first under -fmad=false, which
-// would break the bit-equality and the plain version's gates.
+// would break the bit-equality and the plain version's gates.  Copying each
+// entered chunk into a per-warp double buffer in shared memory (cp.async)
+// was tried and was slower than reading the rows through L1 (PERF.md).
 //
 // The collectives come from a warp policy W: DeviceWarp (csrc/scaled.cu)
 // on the card, and a warp of one lane for the g++ tests, under which this
 // code is the sequential scan.  Counters (kOn false compiles to nothing)
-// report the work: see coop_stats below.
+// report the work: the kSt* slots below.
 
 #pragma once
-
-#include <string.h>
 
 #include "chunks.cuh"
 
@@ -64,12 +63,9 @@
 namespace tpt {
 
 // A chunk's entering lanes at or above which each runs its own sphere loop
-// (chosen from tools/coop_sweep.py's timings; PERF.md).  The define is for
-// that sweep's builds alone.
-#ifndef TPT_COOP_MIN
-#define TPT_COOP_MIN 24
-#endif
-constexpr int kCoopMin = TPT_COOP_MIN;
+// (the fastest of 16, 24 and 32 in this kernel's timings on an H100;
+// PERF.md).
+constexpr int kCoopMin = 24;
 // Chunks under one group box.
 constexpr int kGroup = 16;
 
@@ -91,27 +87,25 @@ TPT_HD int lowest(unsigned m) {
 }
 
 // The scaled scene as the cooperative kernel reads it: ChunkedView plus the
-// group boxes (n_groups, 6), this warp's scratch for NEE (nee_words) and,
-// for the staged form, its two buffers of 4 * chunk floats, the last two
-// in shared memory.
+// group boxes (n_groups, 6) and this warp's scratch for NEE (nee_words), in
+// shared memory.
 struct CoopView : ChunkedView {
   const float* gbox;
   int n_groups;
   float* nee;
-  float* stage;
 };
 
 // Slots of the traversal counters (per kind: hit rays 0-5, shadow rays
 // 6-11): warp calls, lanes that took part, box steps (chunk or group boxes
 // the warp tested), lane slab tests, sphere-loop trips the warp ran, and
 // the sphere tests its lanes needed (each ray: all K spheres of each chunk
-// it entered, or up to the first occluder).  Then the
-// merged path loop's iterations and the lanes with a ray in them, the SM
-// clock cycles each warp spent in the whole loop, in the hit traversals, in
-// NEE and, within NEE, in the shadow traversals, and the shadow rays that
-// their own chunk occluded (the cooperative form only).  A ray's tests are
-// counted in the order its form visits chunks: for hit rays, and for the
-// per-lane form's shadow rays, that is the sequential scan's count.
+// it entered, or up to the first occluder).  Then the merged path loop's
+// iterations and the lanes with a ray in them, the SM clock cycles each
+// warp spent in the whole loop, in the hit traversals, in NEE and, within
+// NEE, in the shadow traversals, and the shadow rays that their own chunk
+// occluded (the cooperative form only).  A ray's tests are counted in the
+// order its form visits chunks: for hit rays, and for the per-lane form's
+// shadow rays, that is the sequential scan's count.
 enum {
   kStCalls = 0, kStLanes, kStBoxes, kStSlabs, kStTrips, kStNeed,
   kStKind = 6,
@@ -134,7 +128,7 @@ TPT_HD void coop_combine(float& t, int& j, float ot, int oj) {
   }
 }
 
-// One lane's share of step 2's few-lane hit test: spheres lane,
+// One lane's share of the few-lane hit test (item 2 above): spheres lane,
 // lane + width, ... of a chunk against the entering ray with best tb.  The
 // warp then combines the lanes' (bt, bj) with coop_combine; bj = K where a
 // lane found no root below tb.
@@ -156,7 +150,10 @@ TPT_HD bool coop_occ_lane(const float* r, int K, int base, int lane,
 
 // The next chunk at or after c that a lane with `part` set enters against
 // its own bound t1, skipping every group of kGroup chunks whose box no such
-// lane enters; sets m to the entering lanes.  V.n_chunks if none.
+// lane enters; sets m to the entering lanes.  V.n_chunks if none.  Two
+// chunk boxes a step: their slab chains are independent and overlap, and
+// the second's answer is dropped where the first is entered (the bounds
+// may change there).
 template <class W, class Cnt>
 TPT_WARP int next_chunk(const W& w, const CoopView& V, bool part, V3 o,
                         V3 inv, float t_min, float t1, int c, unsigned& m,
@@ -176,71 +173,47 @@ TPT_WARP int next_chunk(const W& w, const CoopView& V, bool part, V3 o,
         continue;
       }
     }
+    const bool two = c + 1 < V.n_chunks && (c + 1) % kGroup != 0;
     if constexpr (Cnt::kOn) {
-      cnt.add(kind + kStBoxes, 1);
-      cnt.add(kind + kStSlabs, popc(pm));
+      cnt.add(kind + kStBoxes, two ? 2 : 1);
+      cnt.add(kind + kStSlabs, popc(pm) * (two ? 2 : 1));
     }
-    m = w.ballot(part && slab(V.box + 6 * c, o, inv, t_min, t1));
+    const bool e1 = part && slab(V.box + 6 * c, o, inv, t_min, t1);
+    const bool e2 =
+        two && part && slab(V.box + 6 * (c + 1), o, inv, t_min, t1);
+    m = w.ballot(e1);
+    const unsigned m2 = w.ballot(e2);
     if (m) return c;
-    ++c;
+    if (m2) {
+      m = m2;
+      return c + 1;
+    }
+    c += two ? 2 : 1;
   }
   return V.n_chunks;
 }
 
 // Walks the chunks that some lane enters, in order, calling
-// visit(c, m, row) with the entering lanes m and the chunk's sphere rows
-// (device memory, or this warp's staging buffer).  bound() gives a lane's
-// current upper bound and part() whether it still takes part; both may
-// change inside visit, and each chunk's test sees them as they stand
-// after the chunks before it.
-template <bool kStaged, class W, class Cnt, class Bound, class Part,
-          class Visit>
+// visit(c, m, row) with the entering lanes m and the chunk's sphere rows.
+// bound() gives a lane's current upper bound and part() whether it still
+// takes part; both may change inside visit, and each chunk's test sees them
+// as they stand after the chunks before it.
+template <class W, class Cnt, class Bound, class Part, class Visit>
 TPT_WARP void walk_chunks(const W& w, const CoopView& V, V3 o, V3 inv,
                           float t_min, Bound bound, Part part, Cnt& cnt,
                           int kind, Visit visit) {
-  const int C = V.n_chunks;
   unsigned m;
-  if constexpr (!kStaged) {
-    for (int c = next_chunk(w, V, part(), o, inv, t_min, bound(), 0, m, cnt,
-                            kind);
-         c < C; c = next_chunk(w, V, part(), o, inv, t_min, bound(), c + 1,
-                               m, cnt, kind))
-      visit(c, m, V.chunk_row(c));
-  } else {
-    const int n = 4 * V.chunk;
-    int c = next_chunk(w, V, part(), o, inv, t_min, bound(), 0, m, cnt, kind);
-    int b = 0;
-    if (c < C) w.stage(V.stage, V.chunk_row(c), n);
-    while (c < C) {
-      // the chunk's own test, against the bounds as they stand now
-      if constexpr (Cnt::kOn) cnt.add(kind + kStSlabs, popc(w.ballot(part())));
-      m = w.ballot(part() && slab(V.box + 6 * c, o, inv, t_min, bound()));
-      // find the next chunk with the same bounds and start its copy
-      unsigned m2;
-      const int nx = next_chunk(w, V, part(), o, inv, t_min, bound(), c + 1,
-                                m2, cnt, kind);
-      if (nx < C) {
-        w.wait_all_but_newest();
-        w.stage(V.stage + (b ^ 1) * n, V.chunk_row(nx), n);
-      }
-      if (m) {
-        if (nx < C)
-          w.wait_all_but_newest();
-        else
-          w.wait_all();
-        visit(c, m, V.stage + b * n);
-      }
-      c = nx;
-      b ^= 1;
-    }
-    w.wait_all();
-  }
+  for (int c = next_chunk(w, V, part(), o, inv, t_min, bound(), 0, m, cnt,
+                          kind);
+       c < V.n_chunks; c = next_chunk(w, V, part(), o, inv, t_min, bound(),
+                                      c + 1, m, cnt, kind))
+    visit(c, m, V.chunk_row(c));
 }
 
 // The nearest hit over all chunks of each participating lane's ray, as
 // hit_chunks_ray: t (t_max on a miss) and the global id, -1 on a miss.
 // Every lane of the warp calls it; lanes with part false get -1.
-template <bool kStaged, class W, class Cnt>
+template <class W, class Cnt>
 TPT_WARP int coop_nearest_hit(const W& w, const CoopView& V, bool part,
                               V3 ro, V3 rd, float t_min, float t_max,
                               float& t, Cnt& cnt) {
@@ -257,11 +230,12 @@ TPT_WARP int coop_nearest_hit(const W& w, const CoopView& V, bool part,
   }
   const int K = V.chunk;
   const int lane = w.lane();
-  walk_chunks<kStaged>(
+  walk_chunks(
       w, V, ro, inv, t_min, [&] { return t; }, [&] { return part; }, cnt, 0,
       [&](int c, unsigned m, const float* r) {
         const int n = popc(m);
-        if constexpr (Cnt::kOn) cnt.add(kStNeed, static_cast<unsigned>(n) * K);
+        if constexpr (Cnt::kOn)
+          cnt.add(kStNeed, static_cast<unsigned long long>(n) * K);
         if (n >= kCoopMin) {
           if ((m >> lane) & 1u) {
             const int j = nearest_in_chunk(r, K, 0, 1, ro, rd, t_min, t);
@@ -272,8 +246,10 @@ TPT_WARP int coop_nearest_hit(const W& w, const CoopView& V, bool part,
           while (m) {
             const int L = lowest(m);
             m &= m - 1;
-            const V3 o = v3(w.shfl(ro.x, L), w.shfl(ro.y, L), w.shfl(ro.z, L));
-            const V3 d = v3(w.shfl(rd.x, L), w.shfl(rd.y, L), w.shfl(rd.z, L));
+            const V3 o =
+                v3(w.shfl(ro.x, L), w.shfl(ro.y, L), w.shfl(ro.z, L));
+            const V3 d =
+                v3(w.shfl(rd.x, L), w.shfl(rd.y, L), w.shfl(rd.z, L));
             float bt;
             int bj;
             coop_hit_lane(r, K, lane, W::kWidth, o, d, t_min, w.shfl(t, L),
@@ -293,8 +269,9 @@ TPT_WARP int coop_nearest_hit(const W& w, const CoopView& V, bool part,
 }
 
 // The whole warp tests lane L's shadow ray against chunk c (sphere rows r),
-// one sphere a lane per step, and stops at the first step that holds an
-// occluder: returns that sphere's index in the chunk, or K.
+// two spheres a lane per step (two independent tests and votes), and stops
+// at the first step that holds an occluder: returns that sphere's index in
+// the chunk, or K.
 template <class W, class Cnt>
 TPT_WARP int vote_chunk(const W& w, const float* r, int K, int c, int L,
                         V3 pos, V3 l, int light, float t_min, float t_l,
@@ -306,11 +283,15 @@ TPT_WARP int vote_chunk(const W& w, const float* r, int K, int c, int L,
   const int e = w.shfl(light, L);
   int first = K;
   int s = 0;
-  for (; s * W::kWidth < K; ++s) {
-    const unsigned hm = w.ballot(
+  for (; s * W::kWidth < K; s += 2) {
+    const unsigned h1 = w.ballot(
         coop_occ_lane(r, K, c * K, lane, W::kWidth, s, o, d, e, t_min, tl));
-    if (hm) {
-      first = s * W::kWidth + lowest(hm);
+    const unsigned h2 = w.ballot(coop_occ_lane(r, K, c * K, lane, W::kWidth,
+                                               s + 1, o, d, e, t_min, tl));
+    if (h1 | h2) {
+      first = h1 ? s * W::kWidth + lowest(h1)
+                 : (s + 1) * W::kWidth + lowest(h2);
+      s += 1;
       break;
     }
   }
@@ -325,7 +306,7 @@ TPT_WARP int vote_chunk(const W& w, const float* r, int K, int c, int L,
 // each participating lane, as occluded_chunks, leaving out chunk `skip`
 // (-1: none), which the caller has tested?  Every lane calls it; a lane
 // stops taking part once its ray is occluded.
-template <bool kStaged, class W, class Cnt>
+template <class W, class Cnt>
 TPT_WARP bool coop_occluded(const W& w, const CoopView& V, bool part, V3 pos,
                             V3 l, int light, float t_min, float t_l, int skip,
                             Cnt& cnt) {
@@ -341,7 +322,7 @@ TPT_WARP bool coop_occluded(const W& w, const CoopView& V, bool part, V3 pos,
   bool occ = false;
   const int K = V.chunk;
   const int lane = w.lane();
-  walk_chunks<kStaged>(
+  walk_chunks(
       w, V, pos, inv, t_min, [&] { return t_l; },
       [&] { return part && !occ; }, cnt, kStKind,
       [&](int c, unsigned m, const float* r) {
@@ -387,7 +368,7 @@ TPT_HD int nee_words(int n_lights, int width) {
 // traversal runs with the warp full and not with the lanes that one light
 // leaves (an OR over chunks does not depend on which rays share a pass);
 // last each lane adds its visible lights in light order.
-template <bool kStaged, class W, class Cnt>
+template <class W, class Cnt>
 TPT_WARP V3 nee_merged(const W& w, const CoopView& S, const RenderParams& p,
                        bool lambert, V3 pos, V3 normal, V3 rd, V3 alb,
                        int hit_id, uint32_t& st, uint32_t& rays, Cnt& cnt) {
@@ -438,22 +419,35 @@ TPT_WARP V3 nee_merged(const W& w, const CoopView& S, const RenderParams& p,
   long long c0 = 0;
   if constexpr (Cnt::kOn) c0 = w.clock();
   const int K = S.chunk;
+  struct Ray {
+    bool valid;
+    int code, k, owner, own;
+    V3 o, l;
+    float t_l;
+  };
+  // this lane's candidate of queue[i], for i < n
+  auto ray = [&](int i, int n) {
+    Ray r;
+    r.valid = i < n;
+    r.code = r.valid ? queue[i] : lane;
+    r.k = r.code / WD;
+    r.owner = r.code % WD;
+    r.o = v3(w.shfl(pos.x, r.owner), w.shfl(pos.y, r.owner),
+             w.shfl(pos.z, r.owner));
+    r.own = w.shfl(hit_id, r.owner) / K;
+    r.l = r.valid ? v3(lx[r.code], ly[r.code], lz[r.code])
+                  : v3(0.0f, 0.0f, 0.0f);
+    r.t_l = r.valid ? tl[r.code] : 0.0f;
+    return r;
+  };
   int n_s = 0;
   for (int b = 0; b < n_q; b += WD) {
-    const bool valid = b + lane < n_q;
-    const int code = valid ? queue[b + lane] : lane;
-    const int k = code / WD;
-    const int owner = code % WD;
-    const V3 o = v3(w.shfl(pos.x, owner), w.shfl(pos.y, owner),
-                    w.shfl(pos.z, owner));
-    const int own = w.shfl(hit_id, owner) / K;
-    const V3 l = valid ? v3(lx[code], ly[code], lz[code])
-                       : v3(0.0f, 0.0f, 0.0f);
-    const float t_l = valid ? tl[code] : 0.0f;
-    const V3 inv = v3(safe_inv(l.x), safe_inv(l.y), safe_inv(l.z));
-    const bool part = valid && !any_nan(o) && !any_nan(inv) && !is_nan(t_l);
+    const Ray r = ray(b + lane, n_q);
+    const V3 inv = v3(safe_inv(r.l.x), safe_inv(r.l.y), safe_inv(r.l.z));
+    const bool part = r.valid && !any_nan(r.o) && !any_nan(inv) &&
+                      !is_nan(r.t_l);
     unsigned m =
-        w.ballot(part && slab(S.box + 6 * own, o, inv, p.t_min, t_l));
+        w.ballot(part && slab(S.box + 6 * r.own, r.o, inv, p.t_min, r.t_l));
     if constexpr (Cnt::kOn) {
       cnt.add(kStKind + kStBoxes, 1);
       cnt.add(kStKind + kStSlabs, popc(w.ballot(part)));
@@ -462,35 +456,26 @@ TPT_WARP V3 nee_merged(const W& w, const CoopView& S, const RenderParams& p,
     while (m) {
       const int L = lowest(m);
       m &= m - 1;
-      const int c = w.shfl(own, L);
-      if (vote_chunk(w, S.chunk_row(c), K, c, L, o, l, S.lights[k], p.t_min,
-                     t_l, cnt) < K &&
+      const int c = w.shfl(r.own, L);
+      if (vote_chunk(w, S.chunk_row(c), K, c, L, r.o, r.l, S.lights[r.k],
+                     p.t_min, r.t_l, cnt) < K &&
           lane == L)
         blocked = true;
     }
-    if (blocked) w.or_mask(occ + k, 1u << owner);
-    const unsigned left = w.ballot(valid && !blocked);
+    if (blocked) w.or_mask(occ + r.k, 1u << r.owner);
+    const unsigned left = w.ballot(r.valid && !blocked);
     if constexpr (Cnt::kOn) cnt.add(kStOwnBlocked, popc(w.ballot(blocked)));
     w.sync();
-    if (valid && !blocked)
-      queue[n_s + popc(left & ((1u << lane) - 1u))] = code;
+    if (r.valid && !blocked)
+      queue[n_s + popc(left & ((1u << lane) - 1u))] = r.code;
     n_s += popc(left);
   }
   w.sync();
   for (int b = 0; b < n_s; b += WD) {
-    const bool valid = b + lane < n_s;
-    const int code = valid ? queue[b + lane] : lane;
-    const int k = code / WD;
-    const int owner = code % WD;
-    const V3 o = v3(w.shfl(pos.x, owner), w.shfl(pos.y, owner),
-                    w.shfl(pos.z, owner));
-    const int own = w.shfl(hit_id, owner) / K;
-    const V3 l = valid ? v3(lx[code], ly[code], lz[code])
-                       : v3(0.0f, 0.0f, 0.0f);
-    const float t_l = valid ? tl[code] : 0.0f;
-    if (coop_occluded<kStaged>(w, S, valid, o, l, S.lights[k], p.t_min, t_l,
-                               own, cnt))
-      w.or_mask(occ + k, 1u << owner);
+    const Ray r = ray(b + lane, n_s);
+    if (coop_occluded(w, S, r.valid, r.o, r.l, S.lights[r.k], p.t_min, r.t_l,
+                      r.own, cnt))
+      w.or_mask(occ + r.k, 1u << r.owner);
   }
   if constexpr (Cnt::kOn) cnt.add(kStCycShadow, w.clock() - c0);
   w.sync();
@@ -516,7 +501,7 @@ TPT_WARP V3 nee_merged(const W& w, const CoopView& S, const RenderParams& p,
 // One bounce of a lane's ray when busy (trace.cuh bounce, with vis true and
 // the traversals cooperative): every lane calls it; lanes that are not busy
 // draw nothing, count nothing and return false.
-template <bool kStaged, class W, class Cnt>
+template <class W, class Cnt>
 TPT_WARP bool bounce_merged(const W& w, const CoopView& S,
                             const RenderParams& p, bool busy, V3& ro,
                             V3& rd, uint32_t& st, bool& do_me,
@@ -526,7 +511,7 @@ TPT_WARP bool bounce_merged(const W& w, const CoopView& S,
   long long c0 = 0;
   if constexpr (Cnt::kOn) c0 = w.clock();
   const int id =
-      coop_nearest_hit<kStaged>(w, S, busy, ro, rd, p.t_min, p.t_max, t, cnt);
+      coop_nearest_hit(w, S, busy, ro, rd, p.t_min, p.t_max, t, cnt);
   if constexpr (Cnt::kOn) cnt.add(kStCycHit, w.clock() - c0);
   const bool hit = busy && id >= 0;
   c = v3(0.0f, 0.0f, 0.0f);
@@ -550,8 +535,8 @@ TPT_WARP bool bounce_merged(const W& w, const CoopView& S,
   V3 light_e = v3(0.0f, 0.0f, 0.0f);
   if constexpr (Cnt::kOn) c0 = w.clock();
   if (p.light_sampling)
-    light_e = nee_merged<kStaged>(w, S, p, hit && mt == MAT_LAMBERT, pos,
-                                  normal, rd, alb, id, st, rays, cnt);
+    light_e = nee_merged(w, S, p, hit && mt == MAT_LAMBERT, pos, normal, rd,
+                         alb, id, st, rays, cnt);
   if constexpr (Cnt::kOn) cnt.add(kStCycNee, w.clock() - c0);
   if (!hit) return false;
   V3 attenuation = alb;
@@ -578,28 +563,68 @@ TPT_WARP bool bounce_merged(const W& w, const CoopView& S,
   return true;
 }
 
-// One pixel through the merged path loop: render_pixel's image and rays,
-// bit for bit.  Every lane of the warp calls it; a lane with live false
-// (outside the image) has no samples and only takes part in the
-// collectives.  Writes the sample mean to out[0..2] when live.
-template <bool kStaged, class W, class Cnt>
-TPT_WARP uint32_t render_pixel_merged(const W& w, const CoopView& S,
-                                      const float* cam,
-                                      const RenderParams& p, int x, int y,
-                                      bool live, float* out, Cnt& cnt) {
-  uint32_t st = seed_pixel((uint32_t)x, (uint32_t)y, p.frame);
-  uint32_t rays = 0;
-  V3 sum = v3(0.0f, 0.0f, 0.0f);
-  int left = live ? p.spp : 0;
+// The warp's pixels through the merged path loop: render_pixel's image and
+// rays, bit for bit, for every pixel of the (p.height, p.width) sub-image
+// at (p.x0, p.y0) that this warp takes.  Pixels come in tiles of W::kTileW
+// x W::kTileH (row-major over the sub-image); *next_tile counts the tiles
+// handed out over the whole launch.  A lane whose pixel is done writes it
+// to out (height, width, 3) and takes the next pixel of the warp's tile, or
+// of a new tile, so that the warp's lanes stay busy until the tiles run
+// out; a lane with no pixel left only takes part in the collectives.
+// Returns the rays of this lane's pixels.
+template <class W, class Cnt>
+TPT_WARP unsigned long long render_tiles_merged(const W& w, const CoopView& S,
+                                                const float* cam,
+                                                const RenderParams& p,
+                                                int* next_tile, float* out,
+                                                Cnt& cnt) {
+  const int TW = W::kTileW;
+  const int TP = W::kTileW * W::kTileH;
+  const int tiles_x = (p.width + TW - 1) / TW;
+  const int n_tiles = tiles_x * ((p.height + W::kTileH - 1) / W::kTileH);
+  const int lane = w.lane();
+  int tile = 0;
+  int cursor = TP;  // the next pixel of `tile` to hand out
+  unsigned long long total = 0;
+  bool has = false;  // this lane holds a pixel
   bool busy = false;
+  int px = 0, py = 0, left = 0, depth = 0;
+  uint32_t st = 0, rays = 0;
+  V3 sum = v3(0.0f, 0.0f, 0.0f);
   V3 ro = sum, rd = sum, col = sum, atten = sum;
   bool do_me = true;
-  int depth = 0;
   long long c0 = 0;
   if constexpr (Cnt::kOn) c0 = w.clock();
   for (;;) {
-    if (!busy && left > 0) {
-      sample_ray(cam, p, x, y, st, ro, rd);
+    // lanes without a pixel take the next ones of the warp's tiles; a new
+    // tile is taken only when one is needed, so that every warp gets work
+    for (;;) {
+      const unsigned need = w.ballot(!has);
+      if (!need) break;
+      if (cursor == TP && tile < n_tiles) {
+        tile = w.grab(next_tile);
+        cursor = 0;
+      }
+      if (tile >= n_tiles) break;
+      const int avail = TP - cursor;
+      const int rank = popc(need & ((1u << lane) - 1u));
+      if (!has && rank < avail) {
+        const int i = cursor + rank;
+        px = (tile % tiles_x) * TW + i % TW;
+        py = (tile / tiles_x) * W::kTileH + i / TW;
+        if (px < p.width && py < p.height) {  // else: ask again
+          has = true;
+          st = seed_pixel((uint32_t)(p.x0 + px), (uint32_t)(p.y0 + py),
+                          p.frame);
+          rays = 0;
+          sum = v3(0.0f, 0.0f, 0.0f);
+          left = p.spp;
+        }
+      }
+      cursor += popc(need) < avail ? popc(need) : avail;
+    }
+    if (has && !busy) {  // the pixel's next sample
+      sample_ray(cam, p, p.x0 + px, p.y0 + py, st, ro, rd);
       col = v3(0.0f, 0.0f, 0.0f);
       atten = v3(1.0f, 1.0f, 1.0f);
       do_me = true;
@@ -615,8 +640,7 @@ TPT_WARP uint32_t render_pixel_merged(const W& w, const CoopView& S,
     }
     V3 e, c;
     const bool go =
-        bounce_merged<kStaged>(w, S, p, busy, ro, rd, st, do_me, rays, e, c,
-                               cnt);
+        bounce_merged(w, S, p, busy, ro, rd, st, do_me, rays, e, c, cnt);
     if (busy) {
       col = add(col, mul(atten, e));
       ++depth;
@@ -625,23 +649,27 @@ TPT_WARP uint32_t render_pixel_merged(const W& w, const CoopView& S,
       } else {
         sum = add(sum, col);
         busy = false;
+        if (left == 0) {  // the pixel is done
+          float* o = out + (static_cast<size_t>(py) * p.width + px) * 3;
+          o[0] = sum.x * p.inv_spp;
+          o[1] = sum.y * p.inv_spp;
+          o[2] = sum.z * p.inv_spp;
+          total += rays;
+          has = false;
+        }
       }
     }
   }
   if constexpr (Cnt::kOn) cnt.add(kStCycLoop, w.clock() - c0);
-  if (live) {
-    out[0] = sum.x * p.inv_spp;
-    out[1] = sum.y * p.inv_spp;
-    out[2] = sum.z * p.inv_spp;
-  }
-  return rays;
+  return total;
 }
 
-// A warp of one lane, on the host: the collectives are identities, the
-// staging a copy, and the cooperative code is the sequential scan.  The
-// g++ tests run render_pixel_merged and the traversals through it.
+// A warp of one lane, on the host: the collectives are identities, and the
+// cooperative code is the sequential scan.  The g++ tests run
+// render_tiles_merged and the traversals through it.
 struct HostLane {
   static constexpr int kWidth = 1;
+  static constexpr int kTileW = 1, kTileH = 1;
   int lane() const { return 0; }
   unsigned ballot(bool b) const { return b ? 1u : 0u; }
   bool any(bool b) const { return b; }
@@ -651,14 +679,10 @@ struct HostLane {
   int shfl_xor(int v, int) const { return v; }
   unsigned reduce_max(unsigned v) const { return v; }
   unsigned reduce_add(unsigned v) const { return v; }
-  void stage(float* dst, const float* src, int n) const {
-    memcpy(dst, src, sizeof(float) * n);
-  }
-  void wait_all_but_newest() const {}
-  void wait_all() const {}
   void sync() const {}
   void or_mask(unsigned* p, unsigned bits) const { *p |= bits; }
   long long clock() const { return 0; }
+  int grab(int* counter) const { return (*counter)++; }
 };
 
 }  // namespace tpt

@@ -10,9 +10,10 @@
 // launch and the traversal is inlined into the path loop.  On a GPU the
 // per-bounce glue between kernel calls would be the cost.
 //
-// The render kernel on the main path is coop_render_kernel: one thread per
-// pixel (16x8 blocks), the warp-cooperative path loop and chunk traversal
-// of csrc/coop.cuh.  The TPU kernels cull chunks for a whole lane tile at
+// The render kernel on the main path is coop_render_kernel: persistent
+// 128-thread blocks whose warps take 16x2-pixel tiles and run the
+// warp-cooperative path loop and chunk traversal of csrc/coop.cuh, a lane
+// a pixel at a time.  The TPU kernels cull chunks for a whole lane tile at
 // once (scaled_pallas.py:64 skips a chunk for the tile, scaled.py:712-760
 // renders in row blocks so that the skip fires); the Hopper form of that
 // packet is the warp.  scaled_render_kernel is the per-lane form it
@@ -24,14 +25,14 @@
 // that also counts the traversal's work per warp (coop.cuh kSt*): the
 // sphere-loop trips the warp ran against the sphere tests its lanes needed.
 //
-// One thread per ray (K5, K6; 128-thread blocks) or per pixel (the render
-// kernels; 16x8 blocks, the ray count reduced as csrc/render.cu does).  Each
+// One thread per ray (K5, K6; 128-thread blocks) or per pixel (the
+// per-lane render kernel; 16x8 blocks; the ray count reduced as
+// csrc/render.cu does, in both render kernels).  Each
 // block stages the chunk AABBs (24 bytes a chunk: 9.4 KB at 100k spheres in
 // 391 chunks), and the render kernels also the emissive ids and the camera,
 // the cooperative one the group boxes too, in shared memory.  Sphere data
 // is read from device memory (the 14-row table, 5.6 MB at 100k spheres, and
-// the pack_chunks rows, 1.6 MB, sit in the 50 MB L2), or in the staged
-// cooperative instance copied per warp into shared memory with cp.async.
+// the pack_chunks rows, 1.6 MB, sit in the 50 MB L2).
 //
 // Bound: FP32 ALU work, ~12 operations per chunk slab test and ~19-20 per
 // sphere test in the chunks a ray enters, against a few MB of scene data
@@ -121,6 +122,7 @@ constexpr unsigned kFull = 0xffffffffu;
 // warp calls each collective at the same point of the path loop.
 struct DeviceWarp {
   static constexpr int kWidth = 32;
+  static constexpr int kTileW = 16, kTileH = 2;
   int lane_;
   __device__ explicit DeviceWarp(int tid) : lane_(tid & 31) {}
   __device__ int lane() const { return lane_; }
@@ -144,31 +146,15 @@ struct DeviceWarp {
   __device__ unsigned reduce_add(unsigned v) const {
     return __reduce_add_sync(kFull, v);
   }
-  // n floats (a multiple of 4, 16-byte aligned at both ends) from device
-  // memory into this warp's shared buffer, 16 bytes a lane per step, as one
-  // cp.async group.
-  __device__ void stage(float* dst, const float* src, int n) const {
-    for (int i = 4 * lane_; i < n; i += 4 * kWidth) {
-      const unsigned d =
-          static_cast<unsigned>(__cvta_generic_to_shared(dst + i));
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                   "l"(src + i)
-                   : "memory");
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  }
-  // Every group but the newest has landed, for the whole warp.
-  __device__ void wait_all_but_newest() const {
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    __syncwarp();
-  }
-  __device__ void wait_all() const {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncwarp();
-  }
   // Orders this warp's shared-memory writes before its later reads.
   __device__ void sync() const { __syncwarp(); }
   __device__ long long clock() const { return clock64(); }
+  // The next value of a launch-wide counter, for the whole warp.
+  __device__ int grab(int* counter) const {
+    int v = 0;
+    if (lane_ == 0) v = atomicAdd(counter, 1);
+    return __shfl_sync(kFull, v, 0);
+  }
   __device__ void or_mask(unsigned* p, unsigned bits) const {
     atomicOr(p, bits);
   }
@@ -191,6 +177,7 @@ __device__ void flush_stats(const unsigned long long* v,
 // for them (the warp runs a chunk's sphere loop as long as its busiest
 // entering lane).
 struct LaneStats {
+  static constexpr bool kOn = true;
   unsigned long long v[tpt::kStSlots] = {};
   int lane;
   __device__ explicit LaneStats(int tid) : lane(tid & 31) {}
@@ -238,21 +225,23 @@ struct CountedView : tpt::ChunkedView {
   LaneStats* cnt;
 };
 
-__host__ __device__ int nearest_hit(const CountedView& S, tpt::V3 ro, tpt::V3 rd,
-                           float t_min, float t_max, float& hit_t) {
+__host__ __device__ int nearest_hit(const CountedView& S, tpt::V3 ro,
+                                    tpt::V3 rd, float t_min, float t_max,
+                                    float& hit_t) {
   return tpt::hit_chunks_ray(S, ro, rd, t_min, t_max, hit_t, *S.cnt);
 }
 
-__host__ __device__ bool occluded(const CountedView& S, tpt::V3 pos, tpt::V3 l,
-                         int light, float t_min, float t_l) {
+__host__ __device__ bool occluded(const CountedView& S, tpt::V3 pos,
+                                  tpt::V3 l, int light, float t_min,
+                                  float t_l) {
   return tpt::occluded_chunks(S, pos, l, light, t_min, t_l, *S.cnt);
 }
 
 // Sums each warp's rays and adds the block's total to `rays` with one
 // atomic.  Every thread of the block calls it.
-__device__ void add_rays(unsigned long long count,
-                         unsigned long long* warp_rays,
-                         unsigned long long* __restrict__ rays, int tid) {
+__device__ __forceinline__ void add_rays(
+    unsigned long long count, unsigned long long* warp_rays,
+    unsigned long long* __restrict__ rays, int tid) {
   for (int off = 16; off > 0; off >>= 1)
     count += __shfl_down_sync(kFull, count, off);
   if ((tid & 31) == 0) warp_rays[tid >> 5] = count;
@@ -265,7 +254,8 @@ __device__ void add_rays(unsigned long long count,
 }
 
 // The per-lane form (the baseline): render_pixel<ChunkedView> per thread.
-// kStats adds the traversal counters (stats: kStSlots totals).
+// kStats adds the traversal counters (stats: kStSlots totals); the timed
+// instance is the kernel as it was before the cooperative form.
 template <bool kStats>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 scaled_render_kernel(const float* __restrict__ tab,
@@ -290,12 +280,10 @@ scaled_render_kernel(const float* __restrict__ tab,
 
   const int lx = blockIdx.x * kBlockX + threadIdx.x;
   const int ly = blockIdx.y * kBlockY + threadIdx.y;
-  const bool in_image = lx < p.width && ly < p.height;
   unsigned long long count = 0;
-  float c[3];
   if constexpr (kStats) {
     LaneStats ls(tid);
-    if (in_image) {
+    if (lx < p.width && ly < p.height) {
       CountedView S;
       static_cast<tpt::ChunkedView&>(S) = rows_view(rows, s_box, n_chunks,
                                                     chunk);
@@ -305,19 +293,23 @@ scaled_render_kernel(const float* __restrict__ tab,
       S.n = p.n_spheres;
       S.n_lights = p.n_lights;
       S.cnt = &ls;
+      float c[3];
       count = tpt::render_pixel(S, s_cam, p, p.x0 + lx, p.y0 + ly, c);
+      const size_t o = (static_cast<size_t>(ly) * p.width + lx) * 3;
+      out[o] = c[0];
+      out[o + 1] = c[1];
+      out[o + 2] = c[2];
     }
     flush_stats(ls.v, stats, tid);
-  } else if (in_image) {
+  } else if (lx < p.width && ly < p.height) {
     tpt::ChunkedView S = rows_view(rows, s_box, n_chunks, chunk);
     S.tab = tab;
     S.mat = mat;
     S.lights = s_lights;
     S.n = p.n_spheres;
     S.n_lights = p.n_lights;
+    float c[3];
     count = tpt::render_pixel(S, s_cam, p, p.x0 + lx, p.y0 + ly, c);
-  }
-  if (in_image) {
     const size_t o = (static_cast<size_t>(ly) * p.width + lx) * 3;
     out[o] = c[0];
     out[o + 1] = c[1];
@@ -327,18 +319,15 @@ scaled_render_kernel(const float* __restrict__ tab,
 }
 
 // Blocks of the cooperative kernel that must fit on an SM at once: caps
-// its registers at 65536 / (128 * kCoopBlocks) a thread, 102 at 5 (chosen
-// from tools/coop_sweep.py's timings; the define is for its builds alone).
-#ifndef TPT_COOP_BLOCKS
-#define TPT_COOP_BLOCKS 5
-#endif
-constexpr int kCoopBlocks = TPT_COOP_BLOCKS;
+// its registers at 65536 / (128 * kCoopBlocks) a thread, 102 at 5 (the
+// fastest of 4, 5 and 6 in this kernel's timings on an H100; PERF.md).
+constexpr int kCoopBlocks = 5;
 
-// The cooperative form (csrc/coop.cuh): every thread of the block runs
-// render_pixel_merged, those outside the image with no samples.  Dynamic
-// shared memory: [kStaged: 2 buffers of 4 * chunk floats per warp] [NEE
+// The cooperative form (csrc/coop.cuh): persistent blocks whose warps take
+// 16x2-pixel tiles from the launch-wide counter *next_tile (zeroed by the
+// caller) through render_tiles_merged.  Dynamic shared memory: [NEE
 // scratch per warp] [chunk boxes] [group boxes] [camera] [emissive ids].
-template <bool kStaged, bool kStats>
+template <bool kStats>
 __global__ void __launch_bounds__(kBlockX * kBlockY, kCoopBlocks)
 coop_render_kernel(const float* __restrict__ tab,
                    const float* __restrict__ rows,
@@ -348,12 +337,11 @@ coop_render_kernel(const float* __restrict__ tab,
                    const float* __restrict__ cam, tpt::RenderParams p,
                    int n_chunks, int chunk, float* __restrict__ out,
                    unsigned long long* __restrict__ rays,
+                   int* __restrict__ next_tile,
                    unsigned long long* __restrict__ stats) {
-  extern __shared__ float4 smem4[];
+  extern __shared__ float s_nee[];
   __shared__ unsigned long long warp_rays[kWarps];
-  float* s_stage = reinterpret_cast<float*>(smem4);
   const int nee = tpt::nee_words(p.n_lights, 32);
-  float* s_nee = s_stage + (kStaged ? kWarps * 8 * chunk : 0);
   float* s_box = s_nee + kWarps * nee;
   float* s_gbox = s_box + 6 * n_chunks;
   float* s_cam = s_gbox + 6 * n_groups;
@@ -367,9 +355,6 @@ coop_render_kernel(const float* __restrict__ tab,
   if (tid < p.n_lights) s_lights[tid] = lights[tid];
   __syncthreads();
 
-  const int lx = blockIdx.x * kBlockX + threadIdx.x;
-  const int ly = blockIdx.y * kBlockY + threadIdx.y;
-  const bool in_image = lx < p.width && ly < p.height;
   tpt::CoopView S;
   static_cast<tpt::ChunkedView&>(S) = rows_view(rows, s_box, n_chunks, chunk);
   S.tab = tab;
@@ -380,25 +365,15 @@ coop_render_kernel(const float* __restrict__ tab,
   S.gbox = s_gbox;
   S.n_groups = n_groups;
   S.nee = s_nee + (tid >> 5) * nee;
-  S.stage = s_stage + (tid >> 5) * 8 * chunk;
   const DeviceWarp w(tid);
-  float c[3];
   unsigned long long count;
   if constexpr (kStats) {
     CoopStats cs(tid);
-    count = tpt::render_pixel_merged<kStaged>(w, S, s_cam, p, p.x0 + lx,
-                                              p.y0 + ly, in_image, c, cs);
+    count = tpt::render_tiles_merged(w, S, s_cam, p, next_tile, out, cs);
     flush_stats(cs.v, stats, tid);
   } else {
     tpt::NoCoopCount none;
-    count = tpt::render_pixel_merged<kStaged>(w, S, s_cam, p, p.x0 + lx,
-                                              p.y0 + ly, in_image, c, none);
-  }
-  if (in_image) {
-    const size_t o = (static_cast<size_t>(ly) * p.width + lx) * 3;
-    out[o] = c[0];
-    out[o + 1] = c[1];
-    out[o + 2] = c[2];
+    count = tpt::render_tiles_merged(w, S, s_cam, p, next_tile, out, none);
   }
   add_rays(count, warp_rays, rays, tid);
 }
@@ -465,32 +440,25 @@ int tpt_scaled_groups(int n_chunks) {
 
 // A scaled render kernel on `stream`: image `out` (height, width, 3) and
 // the ray count added to `rays` (zeroed by the caller).  form 0: the
-// per-lane kernel; 1: the cooperative kernel; 2: the cooperative kernel
-// with chunks staged in shared memory (chunk a multiple of 4).  gbox:
-// (tpt_scaled_groups(n_chunks), 6) group boxes (forms 1, 2).  stats: null,
-// or kStSlots zeroed totals that the stats instance (forms 0, 1) adds to.
+// per-lane kernel; 1: the cooperative kernel, which takes gbox, the
+// (tpt_scaled_groups(n_chunks), 6) group boxes, and next_tile, one int
+// zeroed by the caller.  stats: null, or kStSlots zeroed totals that the
+// form's stats instance adds to.
 int tpt_scaled_render_launch(const float* tab, const float* rows,
                              const float* gbox, const int32_t* mat,
                              const int32_t* lights, const float* cam,
                              const tpt::RenderParams* p, int n_chunks,
                              int chunk, int form, float* out,
-                             unsigned long long* rays,
+                             unsigned long long* rays, int* next_tile,
                              unsigned long long* stats, void* stream) {
   if (bad_chunks(n_chunks, chunk) || p->n_spheres != n_chunks * chunk ||
       p->n_lights < 0 || p->n_lights > tpt::kMaxLights || p->height < 1 ||
-      p->width < 1 || form < 0 || form > 2 || (form == 2 && stats) ||
-      (form == 2 && chunk % 4) || (form > 0 && !gbox))
+      p->width < 1 || form < 0 || form > 1 ||
+      (form == 1 && (!gbox || !next_tile)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_groups = tpt_scaled_groups(n_chunks);
   size_t smem = sizeof(float) * (6 * n_chunks + tpt::kCameraFloats) +
                 sizeof(int32_t) * p->n_lights;
-  if (form > 0)
-    smem += sizeof(float) * (6 * n_groups +
-                             kWarps * tpt::nee_words(p->n_lights, 32));
-  if (form == 2) smem += sizeof(float) * kWarps * 8 * chunk;
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((p->width + kBlockX - 1) / kBlockX,
-                  (p->height + kBlockY - 1) / kBlockY);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (form == 0) {
@@ -498,17 +466,29 @@ int tpt_scaled_render_launch(const float* tab, const float* rows,
                         : scaled_render_kernel<false>;
     err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 block(kBlockX, kBlockY);
+    const dim3 grid((p->width + kBlockX - 1) / kBlockX,
+                    (p->height + kBlockY - 1) / kBlockY);
     kernel<<<grid, block, smem, s>>>(tab, rows, mat, lights, cam, *p,
                                      n_chunks, chunk, out, rays, stats);
   } else {
-    auto kernel = form == 2 ? coop_render_kernel<true, false>
-                  : stats   ? coop_render_kernel<false, true>
-                            : coop_render_kernel<false, false>;
+    smem += sizeof(float) * (6 * n_groups +
+                             kWarps * tpt::nee_words(p->n_lights, 32));
+    auto kernel = stats ? coop_render_kernel<true> : coop_render_kernel<false>;
     err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, block, smem, s>>>(tab, rows, gbox, n_groups, mat, lights,
-                                     cam, *p, n_chunks, chunk, out, rays,
-                                     stats);
+    // as many blocks as fit on the card at once, or as the tiles need
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int tiles = ((p->width + 15) / 16) * ((p->height + 1) / 2);
+    const int blocks = (tiles + kWarps - 1) / kWarps;
+    const dim3 block(kBlockX, kBlockY);
+    kernel<<<blocks < sms * kCoopBlocks ? blocks : sms * kCoopBlocks, block,
+             smem, s>>>(tab, rows, gbox, n_groups, mat, lights, cam, *p,
+                        n_chunks, chunk, out, rays, next_tile, stats);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -57,24 +58,23 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def _digest(defines=()) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False, defines=()) -> Path:
+def build(verbose: bool = False) -> Path:
     """Compile csrc/ into build/torch_kernels/libtpt_kernels_<hash>.so
     unless that file exists; returns its path.  The objects and the
     library are written in a temporary directory and the library is
     renamed into place, so concurrent processes never load a half-written
     one.  verbose: compile with -Xptxas -v (rebuilding where that report
     is missing), print the compilers' output and keep it beside the
-    library for ptxas_usage.  defines: extra -D flags, for a tuning sweep's
-    variant library (a library of its own)."""
-    out = BUILD_DIR / f"libtpt_kernels_{_digest(defines)}.so"
+    library for ptxas_usage."""
+    out = BUILD_DIR / f"libtpt_kernels_{_digest()}.so"
     report = out.with_suffix(".ptxas.txt")
     if out.exists() and (report.exists() or not verbose):
         return out
@@ -83,8 +83,7 @@ def build(verbose: bool = False, defines=()) -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         jobs = []
         for src in SOURCES:
-            cmd = [nvcc, *NVCC_FLAGS, *defines,
-                   *(["-Xptxas", "-v"] if verbose else []),
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
                    "-c", "-o", os.path.join(tmp, src + ".o"), str(CSRC / src)]
             jobs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -116,8 +115,7 @@ def ptxas_usage(text: str) -> dict:
     output (build(verbose=True) keeps it as <library>.ptxas.txt): {label:
     {"registers", "stack", "spill_stores", "spill_loads"}}, the label the
     kernel's name with its template arguments, e.g.
-    "coop_render_kernel<0,0>"."""
-    import re
+    "coop_render_kernel<0>"."""
     usage, name = {}, None
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -160,11 +158,10 @@ def ptxas_usage(text: str) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(defines=()) -> ctypes.CDLL:
+def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C
-    interface of csrc/render.cu, grad.cu, scaled.cu and probe.cu.
-    defines: a tuple of -D flags, for a tuning sweep's variant library."""
-    lib = ctypes.CDLL(str(build(defines=tuple(defines))))
+    interface of csrc/render.cu, grad.cu, scaled.cu and probe.cu."""
+    lib = ctypes.CDLL(str(build()))
     ptr = ctypes.c_void_p
     params = ctypes.POINTER(RenderParams)
     lib.tpt_render_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr,
@@ -183,7 +180,7 @@ def load_library(defines=()) -> ctypes.CDLL:
                                              ptr, i32, i32, f32, ptr, ptr]
     lib.tpt_scaled_render_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
                                              params, i32, i32, i32, ptr, ptr,
-                                             ptr, ptr]
+                                             ptr, ptr, ptr]
     lib.tpt_scaled_groups.argtypes = [i32]
     lib.tpt_probe_launch.argtypes = [i32, i32, i32, ptr, ptr]
     for fn in (lib.tpt_render_launch, lib.tpt_render_stats_launch,

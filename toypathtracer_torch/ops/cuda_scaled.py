@@ -7,15 +7,14 @@ pack_chunks rows and tuples of ray lane planes of any one shape.
 `render_tile_scaled` / `render_frame_scaled` render a ScaledScene through
 the scaled render kernel, one launch a frame (the port of
 scaled.py::_render_frame_scaled_pallas): the warp-cooperative form
-(csrc/coop.cuh).  `render_tile_scaled_form` reaches every form of that
-kernel -- "coop" (the main path's), "lane" (the per-lane form it
-replaced, the baseline it is held bit-equal to), "staged" (coop with the
-chunks copied into shared memory) -- and their stats instances, which
-also return the traversal's work counters.  All are in csrc/scaled.cu.
-CUDA tensors launch the kernels; CPU tensors take the plain versions
-(scaled.ChunkTraversal, scaled.render_tile_scaled_plain).  There is no
-fallback: on a CUDA tensor a failed build, a refused launch or an
-unsupported shape raises.  `launches` counts kernel launches, per form.
+(csrc/coop.cuh).  `render_tile_scaled_form` reaches both forms of that
+kernel -- "coop" (the main path's) and "lane" (the per-lane form it
+replaced, the baseline it is held bit-equal to) -- and their stats
+instances, which also return the traversal's work counters.  All are in
+csrc/scaled.cu.  CUDA tensors launch the kernels; CPU tensors take the
+plain versions (scaled.ChunkTraversal, scaled.render_tile_scaled_plain).
+There is no fallback: on a CUDA tensor a failed build, a refused launch or
+an unsupported shape raises.  `launches` counts kernel launches, per form.
 """
 
 from __future__ import annotations
@@ -38,14 +37,12 @@ MAX_CHUNKS = 4096
 
 # The scaled render kernel's forms (tpt_scaled_render_launch's `form`)
 # and their launch counters: "scaled_render" counts the main path's form.
-FORMS = {"lane": 0, "coop": 1, "staged": 2}
+FORMS = {"lane": 0, "coop": 1}
 MAIN_FORM = "coop"
-COUNTERS = {"coop": "scaled_render", "lane": "scaled_render_lane",
-            "staged": "scaled_render_staged"}
+COUNTERS = {"coop": "scaled_render", "lane": "scaled_render_lane"}
 
 launches = {"scaled_render": 0, "scaled_render_lane": 0,
-            "scaled_render_staged": 0, "scaled_render_stats": 0,
-            "hit_chunks": 0, "shadow_chunks": 0}
+            "scaled_render_stats": 0, "hit_chunks": 0, "shadow_chunks": 0}
 
 # The stats instances' counters (csrc/coop.cuh kSt*), per kind of ray: warp
 # traversal calls, lanes in them, box steps, lane slab tests, sphere-loop
@@ -57,6 +54,7 @@ STAT_FIELDS = ("calls", "lanes", "boxes", "slabs", "trips", "need")
 LOOP_FIELDS = ("iters", "busy", "cycles", "cycles_hit", "cycles_nee",
                "cycles_shadow", "own_chunk_blocked")
 STAT_SLOTS = 2 * len(STAT_FIELDS) + len(LOOP_FIELDS)
+
 
 def _check_rows(rows: torch.Tensor, chunk: int):
     if chunk < 1 or rows.dim() != 2 or rows.shape[1] != 4 * chunk + 8:
@@ -209,15 +207,16 @@ def stats_dict(v) -> dict:
 def render_tile_scaled_form(scene: ScaledScene, cfg: RenderConfig,
                             frame: int, x0: int, y0: int, height: int,
                             width: int, form: str, stats: bool = False):
-    """render_tile_scaled through the kernel form `form` (FORMS); all
+    """render_tile_scaled through the kernel form `form` (FORMS); both
     forms compute the same image and ray count.  stats=True launches the
-    form's stats instance ("coop" or "lane") and returns a third value,
-    stats_dict of its counters; on the CPU the plain version's work
-    counters give the sphere tests the rays need ("need") and, for
-    "lane", the slab tests, the counts that do not depend on warps."""
+    form's stats instance and returns a third value, stats_dict of its
+    counters.  On the CPU it returns the counts the plain version's work
+    counters give that do not depend on warps: the hit rays' sphere tests
+    ("need") and, for "lane", whose shadow rays take the chunks in order,
+    theirs and the slab tests of both kinds ("slabs")."""
     _check_scene(scene)
-    if form not in FORMS or (stats and form == "staged"):
-        raise ValueError(f"no scaled render form {form!r} (stats={stats})")
+    if form not in FORMS:
+        raise ValueError(f"no scaled render form {form!r}")
     if not (height >= 1 and width >= 1 and x0 >= 0 and y0 >= 0):
         raise ValueError(f"bad sub-image {height}x{width} at ({x0}, {y0})")
     dev = scene.device
@@ -227,26 +226,14 @@ def render_tile_scaled_form(scene: ScaledScene, cfg: RenderConfig,
                                             height, width)
         img, rays, work = render_tile_scaled_plain(scene, cfg, frame, x0, y0,
                                                    height, width, True)
-        counts = {"hit": {"need": int(work.hit_tests.sum())},
-                  "shadow": {"need": int(work.occlusion_tests.sum())}}
+        counts = {"hit": {"need": int(work.hit_tests.sum())}}
         if form == "lane":
+            counts["shadow"] = {"need": int(work.occlusion_tests.sum())}
             counts["slabs"] = int(work.slab_tests.sum())
         return img, rays, counts
     if dev.type != "cuda":
         raise ValueError(f"no renderer for device {dev}")
-    return launch_form(_build.load_library(), scene, cfg, frame, x0, y0,
-                       height, width, form, stats)
-
-
-def launch_form(lib, scene: ScaledScene, cfg: RenderConfig, frame: int,
-                x0: int, y0: int, height: int, width: int, form: str,
-                stats: bool = False):
-    """render_tile_scaled_form's launch on a card through the library
-    `lib` (_build.load_library(), or a tuning sweep's variant of it)."""
-    if form == "staged" and scene.chunk % 4:
-        raise ValueError(f"the staged form copies chunks in 16-byte pieces: "
-                         f"chunk {scene.chunk} is not a multiple of 4")
-    dev = scene.device
+    lib = _build.load_library()
     tab = pack_scene(scene).detach().contiguous()
     rows = pack_chunks(scene)
     gbox = group_boxes(rows, scene.chunk)
@@ -258,14 +245,15 @@ def launch_form(lib, scene: ScaledScene, cfg: RenderConfig, frame: int,
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     counts = torch.zeros((STAT_SLOTS,), dtype=torch.int64, device=dev) \
         if stats else None
+    next_tile = torch.zeros((1,), dtype=torch.int32, device=dev)
     params = render_params(scene, cfg, frame, x0, y0, height, width)
     with torch.cuda.device(dev):
         code = lib.tpt_scaled_render_launch(
             tab.data_ptr(), rows.data_ptr(), gbox.data_ptr(), mat.data_ptr(),
             lights.data_ptr(), cam.data_ptr(), ctypes.byref(params),
             scene.n_chunks, scene.chunk, FORMS[form], out.data_ptr(),
-            rays.data_ptr(), counts.data_ptr() if stats else None,
-            _stream(dev))
+            rays.data_ptr(), next_tile.data_ptr(),
+            counts.data_ptr() if stats else None, _stream(dev))
     cuda_call(lib, "scaled_render", code)
     launches["scaled_render_stats" if stats else COUNTERS[form]] += 1
     if stats:
