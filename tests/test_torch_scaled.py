@@ -28,6 +28,7 @@ Tolerances:
 
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -101,6 +102,23 @@ def test_animate_matches_jax():
     assert not np.allclose(got[:nl], s.center.numpy()[:nl])
     assert_bounds(sa)
     assert torch.equal(sa.center, s.animate(1.3).center)
+
+
+def test_animate_time_gradient_matches_jax():
+    """d(center)/dt of the beacon orbit through a tensor time against
+    jax.jacfwd of the JAX ScaledScene.animate at t = 0.7, within 1e-6."""
+    s = make_scaled_scene(n=800, chunk=128, extent=30.0)
+    j = jscaled.make_scaled_scene(n=800, chunk=128, extent=30.0)
+    t = torch.tensor(0.7, requires_grad=True)
+    got = torch.autograd.functional.jacobian(lambda x: s.animate(x).center,
+                                             t)
+    want = np.asarray(jax.jacfwd(lambda x: j.animate(x).center)(
+        jnp.float32(0.7)))
+    nl = len(s.emissive_ids)
+    assert got.shape == want.shape == tuple(s.center.shape)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    assert np.abs(want[:nl]).min(axis=1).max() > 0 and not want[nl:].any()
+    assert torch.equal(s.animate(t).center.detach(), s.animate(0.7).center)
 
 
 def lanes(seed):

@@ -29,7 +29,8 @@ import torch
 from .config import RenderConfig
 from .ops import tracecore as tc
 from .ops.cuda_render import pack_scene
-from .scene import CameraSpec, MAT_DIELECTRIC, MAT_LAMBERT, MAT_METAL
+from .scene import (CameraSpec, MAT_DIELECTRIC, MAT_LAMBERT, MAT_METAL,
+                    animation_time)
 
 _TENSORS = ("center", "radius", "albedo", "emissive", "roughness", "ri",
             "mat_is_lam", "mat_is_met", "mat_is_die", "chunk_aabb")
@@ -110,12 +111,12 @@ class ScaledScene:
         rest position in the XZ plane at twice its radius with a
         phase-offset vertical bob; the field stays static and the chunk
         AABBs are refreshed, so culling stays exact.  A pure function of
-        the base scene, computed in float32."""
+        the base scene, computed in float32; a tensor `time` carries its
+        gradient into the centers."""
         nl = len(self.emissive_ids)
         dev = self.center.device
         li = torch.arange(nl, dtype=torch.float32, device=dev)
-        t = torch.full((), float(np.float32(time)), dtype=torch.float32,
-                       device=dev)
+        t = animation_time(time, dev)
         phase = t + li * float(np.float32(2.0 * np.pi / max(nl, 1)))
         amp = self.radius[:nl] * 2.0
         off = torch.stack([torch.cos(phase) * amp,

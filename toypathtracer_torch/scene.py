@@ -71,13 +71,22 @@ class Scene:
 
     def animate(self, time) -> "Scene":
         """Reference animation: sphere 1 bobs in y, sphere 8 sways in z
-        (reference: Test.cpp:304-308).  `time` is computed in float32."""
-        t = torch.full((), float(time), dtype=torch.float32,
-                       device=self.center.device)
+        (reference: Test.cpp:304-308).  `time` is computed in float32; a
+        tensor `time` carries its gradient into the centers."""
+        t = animation_time(time, self.center.device)
         center = self.center.clone()
         center[1, 1] = torch.cos(t) + 1.0
         center[8, 2] = torch.sin(t) * 0.3
         return self.replace(center=center)
+
+
+def animation_time(time, device) -> torch.Tensor:
+    """`time` as a 0-d float32 tensor on `device`: a tensor keeps its
+    autograd graph, a Python or numpy number is rounded to float32 once."""
+    if isinstance(time, torch.Tensor):
+        return time.to(device=device, dtype=torch.float32).reshape(())
+    return torch.full((), float(np.float32(time)), dtype=torch.float32,
+                      device=device)
 
 
 def _base_scene_rows():
