@@ -7,8 +7,8 @@ Phases (one JSON line each on stdout; any failure raises and exits
 non-zero):
   1. device: the card, torch/CUDA versions, the nvcc build of csrc/;
      each kernel's registers, stack and spills from -Xptxas -v, with K1,
-     K3, K4, K5, K6 and the per-lane scaled render kernel held at their
-     counts.
+     K3 (both forms), K4, K5, K6 and the per-lane scaled render kernel
+     held at their counts.
   2. kernel vs plain at 320x176, spp 2, depth 6, frames 0-3: the big
      scene, the big scene without light sampling, the small scene.
   3. the main path: RenderSession(device="cuda") at 1280x720, spp 4,
@@ -17,14 +17,22 @@ non-zero):
      the 16-frame image against 16 plain frames (8x8 block gates), and one
      kernel launch per frame.
   4. timing with CUDA events: 64 steady frames after 4 warm-up frames.
-  5. gradient kernel (K3) and lockstep kernel (K4) vs plain autograd at
-     320x176, spp 2, depth 4, the big and the small scene, frames 0-1.
+  5. gradient kernel (K3: its warp form, the main path's, and PR 2's
+     replaying form, the baseline) and lockstep kernel (K4) vs plain
+     autograd at 320x176, spp 2, depth 4, the big and the small scene,
+     frames 0-1, and the warp form on a 130-sphere scene; each form
+     bit-equal launch to launch, PR 2's bit-equal to its stored-carry
+     form.
   6. the training path at 1280x720, spp 4, depth 10, 46 spheres:
      InverseRenderer Adam steps from a perturbed albedo (one render and
-     one gradient launch a step; with lockstep_primal, one lockstep and
-     one gradient launch), the full frame's gradient against 45 bands of
-     16 rows, one band against plain autograd, finite differences.
-  7. gradient timing with CUDA events and the host clock.
+     one warp-form gradient launch a step; with lockstep_primal, one
+     lockstep and one gradient launch), both K3 forms' full-frame
+     gradients against 45 plain bands and finite differences, the warp
+     form's against its own 45 bands and one band against plain.
+  7. K3's cycle shares by part (tools.grad_stats: both forms' stats
+     instances, and each form's final sum timed alone); the warp, replay
+     and stored-carry forms timed in turns with CUDA events; the training
+     step on the host clock.
   8. the scaled path (make_scaled_scene(100_000): 100,096 spheres in 391
      chunks, 8 beacons) at 1280x720, spp 4, depth 10: RenderSession, 4
      progressive frames plus 1 animated frame (one launch a frame of the
@@ -59,8 +67,9 @@ non-zero):
      tools.roofline's main path: the full-size rates, both floors, the SM
      clock under load, and every thread of each case's and each floor's
      launches against the plain version.
- 14. the `kernels` line: render, grad, lockstep, scaled_render,
-     hit_chunks, shadow_chunks, render_stats, issue_rate, launch_floor.
+ 14. the `kernels` line: render, grad, grad_replay, lockstep,
+     scaled_render, hit_chunks, shadow_chunks, render_stats, issue_rate,
+     launch_floor.
 Then the card's name and power limit as nvidia-smi reports them, and the
 `ok` line last.  Exits non-zero without a CUDA device.
 """
@@ -75,13 +84,14 @@ import time
 import torch
 
 
-# Registers and spill bytes of the kernels that the scaled render's redesign
-# must leave as they were (-Xptxas -v of their sources before it): K1, K3,
-# K4, K5, K6 and the per-lane scaled render kernel.
+# Registers and spill bytes of the kernels that the redesigns must leave as
+# they were (-Xptxas -v of their sources before them): K1, PR 2's K3
+# (lockstep_kernel<1,0>), K4 (<0,0>), K5, K6 and the per-lane scaled render
+# kernel; and K3's warp form at its own counts.
 KEPT_USAGE = {
     "render_kernel<0>": {"registers": 80, "spill_stores": 48},
-    "lockstep_kernel<1>": {"registers": 116, "spill_stores": 0},
-    "lockstep_kernel<0>": {"registers": 80, "spill_stores": 52},
+    "lockstep_kernel<1,0>": {"registers": 116, "spill_stores": 0},
+    "lockstep_kernel<0,0>": {"registers": 80, "spill_stores": 52},
     "scaled_render_kernel<0>": {"registers": 80, "spill_stores": 32},
     "hit_chunks_kernel": {"registers": 40, "spill_stores": 0},
     "shadow_chunks_kernel": {"registers": 32, "spill_stores": 0},
@@ -315,7 +325,7 @@ def main() -> int:
     grad = grad_phases(cfg, scene, scene_d, smi,
                        dict(ops=ops, bytes=n_bytes, traced=traced,
                             shadow=shadow, plain_ms=plain_ms,
-                            plain_img=plain_img))
+                            plain_img=plain_img), usage)
     scaled = scaled_phases(cfg, smi, usage)
     stats = stats_phases(cfg, smi, dict(ops=ops, bytes=n_bytes,
                                         kernel_ms=kernel_ms))
@@ -343,12 +353,38 @@ def main() -> int:
     return 0
 
 
-def grad_phases(cfg, scene, scene_d, smi, k1):
-    """Phases 5-7: the gradient (K3) and lockstep (K4) kernels against
-    plain autograd, the training path at full size, and their timing.
-    `k1` carries the render kernel's frame-0 work counts, bound terms and
-    plain version from phase 4.  Returns the two kernels' entries of the
-    `kernels` line."""
+def crowded_scene(scene, extra=84, seed=3):
+    """`scene` with `extra` small spheres appended on the floor in front of
+    the camera (130 spheres from the 46-sphere scene): Lambert, metal and
+    dielectric in turn, albedos from a seeded numpy generator.  K3's warp
+    form takes up to 512 spheres; PR 2's took 64."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    idx = np.arange(extra)
+    cen = np.stack([-3.3 + 0.6 * (idx % 12), np.full(extra, -0.38),
+                    -2.2 + 0.55 * (idx // 12)], 1)
+
+    def cat(field, new):
+        return torch.cat([getattr(scene, field),
+                          torch.as_tensor(new, dtype=torch.float32)])
+    return scene.replace(
+        center=cat("center", cen),
+        radius=cat("radius", np.full(extra, 0.12)),
+        albedo=cat("albedo", rng.uniform(0.2, 0.9, (extra, 3))),
+        emissive=cat("emissive", np.zeros((extra, 3))),
+        roughness=cat("roughness", rng.uniform(0.0, 0.5, extra)),
+        ri=cat("ri", np.where(idx % 3 == 2, 1.5, 0.0)),
+        mat_type=scene.mat_type + tuple(int(i % 3) for i in idx))
+
+
+def grad_phases(cfg, scene, scene_d, smi, k1, usage):
+    """Phases 5-7: the gradient kernel (K3: its warp form on the main path
+    and PR 2's replaying form, the baseline) and the lockstep kernel (K4)
+    against plain autograd, the training path at full size, K3's cycle
+    shares by part, and the timing, the two K3 forms in turns.  `k1`
+    carries the render kernel's frame-0 work counts, bound terms and plain
+    version from phase 4; `usage` is phase 1's -Xptxas -v table.  Returns
+    the kernels' entries of the `kernels` line."""
     import numpy as np
 
     from toypathtracer_torch import make_scene
@@ -356,46 +392,68 @@ def grad_phases(cfg, scene, scene_d, smi, k1):
     from toypathtracer_torch.ops import cuda_grad, cuda_render
     from toypathtracer_torch.profiling import time_device_call
     from toypathtracer_torch.render.wavefront import render_tile_grad_plain
+    from toypathtracer_torch.tools import grad_stats
 
     dev = scene_d.device
+    main_form = cuda_grad.MAIN_FORM
 
     def cotangent(seed, h, w):
-        return torch.from_numpy(np.random.RandomState(seed).rand(h, w, 3)
-                                .astype(np.float32)).to(dev)
+        return grad_stats.cotangent(h, w, seed, dev)
 
     # ---- 5. K3 / K4 vs plain autograd, small size ---------------------
     small_cfg = cfg.replace(width=320, height=176, samples_per_pixel=2,
                             max_depth=4)
-    small_rel = 0.0
-    for name, big in (("big", True), ("small", False)):
-        sc = make_scene(big=big).to(dev)
-        for frame in range(2):
+    small_rel = {"warp": 0.0, "replay": 0.0}
+    cases = [("big", make_scene(big=True)), ("small", make_scene(big=False)),
+             ("crowded", crowded_scene(make_scene(big=True)))]
+    for name, sc in cases:
+        sc = sc.to(dev)
+        for frame in range(1 if name == "crowded" else 2):
             g = cotangent(frame, 176, 320)
             args = (sc, small_cfg, frame, g, 0, 0, 176, 320)
-            img_k, rays_k, d_k = cuda_grad.render_tile_grad(*args)
-            _, _, d_k2 = cuda_grad.render_tile_grad(*args)
+            img_p, rays_p, d_p = render_tile_grad_plain(*args)
             img_l, rays_l = cuda_grad.render_tile_lockstep(
                 sc, small_cfg, frame, 0, 0, 176, 320)
-            img_p, rays_p, d_p = render_tile_grad_plain(*args)
-            torch.cuda.synchronize()
-            rel = row_rel(d_k, d_p)
-            small_rel = max(small_rel, max(rel))
-            r = {"phase": "grad_vs_plain", "case": name, "frame": frame,
-                 "rays_kernel": int(rays_k), "rays_plain": int(rays_p),
-                 "rays_lockstep": int(rays_l),
-                 "d_packed_row_rel_max": max(rel), "d_packed_row_rel": rel,
-                 "img_max_abs_diff": float((img_k - img_p).abs().max()),
-                 "lockstep_bit_equal": bool(torch.equal(img_l, img_k)),
-                 "grad_deterministic": bool(torch.equal(d_k, d_k2)),
-                 "finite": bool(torch.isfinite(d_k).all())}
-            emit(r)
-            what = f"grad {name} frame {frame}"
-            check(r["finite"], f"{what}: finite")
-            check(r["rays_kernel"] == r["rays_plain"] == r["rays_lockstep"],
-                  f"{what}: rays")
-            check(max(rel) <= 1e-3, f"{what}: d_packed vs plain")
-            check(r["lockstep_bit_equal"], f"{what}: K4 image == K3 primal")
-            check(r["grad_deterministic"], f"{what}: two launches differ")
+            forms = ("warp",) if name == "crowded" else ("warp", "replay")
+            for form in forms:
+                img_k, rays_k, d_k = cuda_grad.render_tile_grad_form(
+                    *args, form)
+                _, _, d_k2 = cuda_grad.render_tile_grad_form(*args, form)
+                torch.cuda.synchronize()
+                rel = row_rel(d_k, d_p)
+                small_rel[form] = max(small_rel[form], max(rel))
+                r = {"phase": "grad_vs_plain", "case": name, "form": form,
+                     "frame": frame, "spheres": sc.n_spheres,
+                     "rays_kernel": int(rays_k), "rays_plain": int(rays_p),
+                     "rays_lockstep": int(rays_l),
+                     "d_packed_row_rel_max": max(rel),
+                     "d_packed_row_rel": rel,
+                     "img_max_abs_diff": float((img_k - img_p).abs().max()),
+                     "lockstep_bit_equal": bool(torch.equal(img_l, img_k)),
+                     "grad_deterministic": bool(torch.equal(d_k, d_k2)),
+                     "finite": bool(torch.isfinite(d_k).all())}
+                if form == "replay":  # step (a) alone: bit-equal to PR 2's
+                    st = cuda_grad.render_tile_grad_form(*args, "stored")
+                    r["stored_bit_equal"] = all(
+                        bool(torch.equal(x, y))
+                        for x, y in zip(st, (img_k, rays_k, d_k)))
+                    check(r["stored_bit_equal"],
+                          f"stored form != replay form, {name} {frame}")
+                if name == "crowded":
+                    r["appended_spheres_reached"] = int(
+                        (d_k[:, 46:].abs().sum(dim=0) > 0).sum())
+                    check(r["appended_spheres_reached"] >= 5,
+                          "crowded scene: no gradient reaches the appended "
+                          "spheres")
+                emit(r)
+                what = f"grad {form} {name} frame {frame}"
+                check(r["finite"], f"{what}: finite")
+                check(r["rays_kernel"] == r["rays_plain"]
+                      == r["rays_lockstep"], f"{what}: rays")
+                check(max(rel) <= 1e-3, f"{what}: d_packed vs plain")
+                check(r["lockstep_bit_equal"],
+                      f"{what}: K4 image == K3 primal")
+                check(r["grad_deterministic"], f"{what}: two launches differ")
 
     # ---- 6. the training path at full size ----------------------------
     H, W = cfg.height, cfg.width
@@ -405,6 +463,11 @@ def grad_phases(cfg, scene, scene_d, smi, k1):
     a_jit[list(scene.emissive_ids)] = 0.0
     start = scene.replace(albedo=torch.clamp(
         scene.albedo + torch.from_numpy(a_jit), 0.02, 0.98))
+
+    def step_launches():
+        return {"render": cuda_render.launches["render"],
+                "grad": cuda_grad.launches["grad"],
+                "lockstep": cuda_grad.launches["lockstep"]}
     for k in cuda_render.launches:
         cuda_render.launches[k] = 0
     for k in cuda_grad.launches:
@@ -412,18 +475,18 @@ def grad_phases(cfg, scene, scene_d, smi, k1):
     inv = InverseRenderer(cfg, target, trainable=("albedo",),
                           learning_rate=2e-2)
     _, losses = inv.fit(start, steps=4, resample=False)
-    after_fit = {"render": cuda_render.launches["render"],
-                 **cuda_grad.launches}
+    after_fit = step_launches()
     inv_l = InverseRenderer(cfg, target, trainable=("albedo",),
                             learning_rate=2e-2, lockstep_primal=True)
     _, losses_l = inv_l.fit(start, steps=2, resample=False)
     torch.cuda.synchronize()
-    train_launches = {"render": cuda_render.launches["render"],
-                      **cuda_grad.launches}
+    train_launches = step_launches()
+    other = {k: v for k, v in cuda_grad.launches.items()
+             if k not in train_launches}
     emit({"phase": "training_path", "losses": losses,
           "losses_lockstep_primal": losses_l,
           "launches_after_4_steps": after_fit,
-          "launches": train_launches})
+          "launches": train_launches, "other_grad_launches": other})
     check(all(b < a for a, b in zip(losses, losses[1:])),
           f"Adam losses not strictly decreasing: {losses}")
     check(all(b < a for a, b in zip(losses_l, losses_l[1:])),
@@ -432,6 +495,7 @@ def grad_phases(cfg, scene, scene_d, smi, k1):
           f"4 steps launched {after_fit}")
     check(train_launches == {"render": 4, "grad": 6, "lockstep": 2},
           f"training path launched {train_launches}")
+    check(not any(other.values()), f"other K3 forms launched: {other}")
 
     # value and gradient of every field through render_frame_diff
     leaves = {f: getattr(scene, f).clone().requires_grad_(True)
@@ -444,9 +508,14 @@ def grad_phases(cfg, scene, scene_d, smi, k1):
     check(finite, "render_frame_diff value/grad finite")
 
     w = cotangent(11, H, W)
-    img_g, rays_g, d_full = cuda_grad.render_tile_grad(scene_d, cfg, 0, w, 0,
-                                                       0, H, W)
-    _, _, d_again = cuda_grad.render_tile_grad(scene_d, cfg, 0, w, 0, 0, H, W)
+    full = {}
+    for form in ("warp", "replay"):
+        img_f, rays_f, d_f = cuda_grad.render_tile_grad_form(
+            scene_d, cfg, 0, w, 0, 0, H, W, form)
+        _, _, d_again = cuda_grad.render_tile_grad_form(
+            scene_d, cfg, 0, w, 0, 0, H, W, form)
+        full[form] = (img_f, rays_f, d_f, bool(torch.equal(d_f, d_again)))
+    img_g, rays_g, d_full, _ = full[main_form]
     img_l, rays_l = cuda_grad.render_tile_lockstep(scene_d, cfg, 0, 0, 0, H,
                                                    W)
     img_k1, _ = cuda_render.render_tile(scene_d, cfg, 0, 0, 0, H, W)
@@ -477,7 +546,7 @@ def grad_phases(cfg, scene, scene_d, smi, k1):
     mid = n_bands // 2
     band_rel = row_rel(d_band_k[mid], d_band_p[mid])
     bands_rel = row_rel(d_bands, d_full)
-    full_rel = row_rel(d_full, d_plain)
+    full_rel = {f: row_rel(full[f][2], d_plain) for f in full}
 
     # central differences of L = sum(img * w) in float64 on 3 albedo
     # entries of visible Lambert spheres (albedo moves no path)
@@ -494,35 +563,64 @@ def grad_phases(cfg, scene, scene_d, smi, k1):
                                             tab=t)
             vals.append(float((im.double() * w64).sum()))
         g_fd = (vals[0] - vals[1]) / 2e-2
-        g_k = float(d_full[row, i])
-        fd.append({"sphere": i, "channel": c, "kernel": g_k, "fd": g_fd,
-                   "rel": abs(g_k - g_fd) / abs(g_fd)})
-    r = {"phase": "grad_full_size", "rays": int(rays_g),
+        entry = {"sphere": i, "channel": c, "fd": g_fd}
+        for f in full:
+            entry[f] = float(full[f][2][row, i])
+            entry[f"rel_{f}"] = abs(entry[f] - g_fd) / abs(g_fd)
+        fd.append(entry)
+    r = {"phase": "grad_full_size", "form": main_form, "rays": int(rays_g),
          "rays_bands": rays_bands, "rays_lockstep": int(rays_l),
          "value_grad_finite": finite,
-         "grad_deterministic": bool(torch.equal(d_full, d_again)),
+         "grad_deterministic": {f: full[f][3] for f in full},
          "lockstep_bit_equal": bool(torch.equal(img_l, img_g)),
          "render_kernel_bit_equal": bool(torch.equal(img_k1, img_g)),
+         "replay_primal_bit_equal": bool(torch.equal(full["replay"][0],
+                                                     img_g)),
+         "replay_rays": int(full["replay"][1]),
          "bands_vs_full_row_rel_max": max(bands_rel),
          "band_vs_plain_row_rel_max": max(band_rel),
          "band_vs_plain_row_rel": band_rel,
-         "full_vs_plain_bands_row_rel_max": max(full_rel),
-         "full_vs_plain_bands_max_abs": float((d_full - d_plain).abs().max()),
+         "full_vs_plain_bands_row_rel_max": {f: max(v)
+                                             for f, v in full_rel.items()},
+         "full_vs_plain_bands_max_abs": {
+             f: float((full[f][2] - d_plain).abs().max()) for f in full},
+         "warp_vs_replay_row_rel_max": max(row_rel(d_full,
+                                                   full["replay"][2])),
          "lockstep_vs_plain_img_max_abs": float(
              (img_l - k1["plain_img"]).abs().max()),
          "finite_differences": fd}
     emit(r)
-    check(r["grad_deterministic"], "full-size d_packed not deterministic")
+    for f in full:
+        check(full[f][3], f"full-size d_packed of the {f} form not "
+                          "deterministic")
+        check(max(full_rel[f]) <= 1e-3,
+              f"full-size {f} d_packed vs plain autograd")
+        check(all(e[f"rel_{f}"] <= 1e-2 for e in fd),
+              f"K3 {f} vs finite differences")
     check(r["lockstep_bit_equal"] and int(rays_l) == int(rays_g),
           "full-size K4 image != K3 primal")
+    check(r["replay_primal_bit_equal"] and r["replay_rays"] == int(rays_g),
+          "full-size primal of the two K3 forms differ")
     check(rays_bands == int(rays_g), "band rays != full-frame rays")
     check(max(bands_rel) <= 1e-4, "45 bands' d_packed != the full frame's")
     check(max(band_rel) <= 1e-3, "band d_packed vs plain autograd")
-    check(all(f["rel"] <= 1e-2 for f in fd), "K3 vs finite differences")
 
-    # ---- 7. timing ------------------------------------------------------
-    grad_s, _ = time_device_call(cuda_grad.render_tile_grad, scene_d, cfg, 0,
-                                 w, 0, 0, H, W, repeats=3)
+    # ---- 7. cycle shares and timing -----------------------------------
+    t1 = time.perf_counter()
+    shares = {f: grad_stats.form_stats(scene_d, cfg, f, w)
+              for f in ("replay", "warp")}
+    for f, st in shares.items():
+        emit({"phase": "grad_cycle_shares", "nvidia_smi": smi, **st})
+    # the forms in turns: warp, replay, stored, stored, replay, warp; each
+    # entry the mean of its two runs
+    runs = {}
+    for form in ("warp", "replay", "stored", "stored", "replay", "warp"):
+        runs.setdefault(form, []).append(time_device_call(
+            cuda_grad.render_tile_grad_form, scene_d, cfg, 0, w, 0, 0, H, W,
+            form, repeats=3)[0] * 1e3)
+    form_ms = {f: {"ms": sum(v) / len(v), "runs": v}
+               for f, v in runs.items()}
+    grad_ms = form_ms[main_form]["ms"]
     lock_s, _ = time_device_call(cuda_grad.render_tile_lockstep, scene_d, cfg,
                                  0, 0, 0, H, W, repeats=16)
     n_steps = 5
@@ -535,41 +633,67 @@ def grad_phases(cfg, scene, scene_d, smi, k1):
     # the adjoint's FP32 arithmetic counted from csrc/trace.cuh: ~150 per
     # traced ray (bounce_adj with sphere_t_adj, reflect and normal
     # adjoints) and ~270 per shadow ray (cone recomputed, cone_adj), for
-    # every traced and shadow ray (misses and unseen lights do less).  The
-    # replays are this kernel's design, not the function's work, and are
-    # not counted.  Bytes: K1's plus the cotangent read.
+    # every traced and shadow ray (misses and unseen lights do less).
+    # Replays are a kernel's design, not the function's work, and are not
+    # counted.  Bytes: K1's plus the cotangent read.
     grad_ops = k1["ops"] + 150 * k1["traced"] + 270 * k1["shadow"]
     grad_bytes = k1["bytes"] + 4 * 3 * H * W
     grad_bound = max(grad_ops / 67e12, grad_bytes / 3.35e12) * 1e3
     lock_bound = max(k1["ops"] / 67e12, k1["bytes"] / 3.35e12) * 1e3
-    t = {"phase": "grad_timing", "nvidia_smi": smi,
-         "grad_kernel_ms": grad_s * 1e3, "lockstep_kernel_ms": lock_s * 1e3,
+    t = {"phase": "grad_timing", "nvidia_smi": smi, "form": main_form,
+         "grad_kernel_ms": grad_ms, "forms_ms": form_ms,
+         "lockstep_kernel_ms": lock_s * 1e3,
          "train_step_ms": step_s * 1e3,
          "fwd_bwd_mray_s": int(rays_g) / step_s * 1e-6,
          "primal_rays_per_step": int(rays_g),
          "grad_plain_ms": grad_plain_s * 1e3,
          "lockstep_plain_ms": k1["plain_ms"],
+         "sum_ms": {f: shares[f]["sum_ms"] for f in shares},
          "grad_bound_fp32_ops": grad_ops, "grad_bound_bytes": grad_bytes,
          "grad_bound_ms": grad_bound, "lockstep_bound_ms": lock_bound,
-         "bound_peak": "67 TFLOP/s FP32, 3.35 TB/s (H100 SXM, 700 W)"}
+         "bound_peak": "67 TFLOP/s FP32, 3.35 TB/s (H100 SXM, 700 W)",
+         "seconds": time.perf_counter() - t1}
     emit(t)
+    tol = ("d_packed per row <= 1e-3 x row max (320x176 cases, the full "
+           "frame against 45 plain bands), rays exact; bit-equal launch to "
+           "launch; finite differences <= 1e-2")
     return [
         {"name": "grad", "route": "cuda",
          "source": "toypathtracer_torch/csrc/grad.cu",
          "replaces": "toypathtracer_tpu/ops/pallas_grad.py:127",
          "launches": train_launches["grad"],
-         "max_abs_err": r["full_vs_plain_bands_max_abs"],
-         "ms": grad_s * 1e3, "plain_ms": grad_plain_s * 1e3,
+         "max_abs_err": r["full_vs_plain_bands_max_abs"][main_form],
+         "ms": grad_ms, "plain_ms": grad_plain_s * 1e3,
          "bound_ms": grad_bound, "bound_by": "operations",
-         "library_ms": None,
-         "vs_plain": {"tolerance": "d_packed per row <= 1e-3 x row max "
-                                   "(320x176 cases, one 16-row band), rays "
-                                   "exact; bands sum to the frame <= 1e-4; "
-                                   "finite differences <= 1e-2",
-                      "small_row_rel_max": small_rel,
+         "library_ms": None, "form": main_form,
+         "baseline_ms": form_ms["replay"]["ms"],
+         "baseline": "PR 2's replaying form (lockstep_kernel<1,0>), timed "
+                     "in turns with it",
+         "stored_ms": form_ms["stored"]["ms"],
+         "ptxas": usage.get("warp_grad_kernel<0>", {}),
+         "cycle_shares": shares[main_form]["cycle_shares"],
+         "vs_plain": {"tolerance": tol + "; also at 130 spheres (320x176); "
+                                         "bands sum to the frame <= 1e-4",
+                      "small_row_rel_max": small_rel[main_form],
                       "band_row_rel_max": max(band_rel),
-                      "full_frame_row_rel_max": max(full_rel),
-                      "fd_rel_max": max(f["rel"] for f in fd)}},
+                      "full_frame_row_rel_max": max(full_rel[main_form]),
+                      "fd_rel_max": max(e[f"rel_{main_form}"] for e in fd)}},
+        {"name": "grad_replay", "route": "cuda",
+         "source": "toypathtracer_torch/csrc/grad.cu",
+         "replaces": "toypathtracer_tpu/ops/pallas_grad.py:127",
+         "launches": other["grad_replay"],
+         "max_abs_err": r["full_vs_plain_bands_max_abs"]["replay"],
+         "ms": form_ms["replay"]["ms"], "plain_ms": grad_plain_s * 1e3,
+         "bound_ms": grad_bound, "bound_by": "operations",
+         "library_ms": None, "form": "replay",
+         "baseline": "PR 2's K3, kept beside the warp form as its A/B and "
+                     "equality baseline; not on the main path",
+         "ptxas": usage.get("lockstep_kernel<1,0>", {}),
+         "cycle_shares": shares["replay"]["cycle_shares"],
+         "vs_plain": {"tolerance": tol,
+                      "small_row_rel_max": small_rel["replay"],
+                      "full_frame_row_rel_max": max(full_rel["replay"]),
+                      "fd_rel_max": max(e["rel_replay"] for e in fd)}},
         {"name": "lockstep", "route": "cuda",
          "source": "toypathtracer_torch/csrc/grad.cu",
          "replaces": "toypathtracer_tpu/ops/pallas_grad.py:181",

@@ -8,14 +8,17 @@ without the JAX-side conftest (the card's machine has no JAX):
 Tolerances: the gates of chip_smoke.py.  Render kernel: rays 5e-4
 relative, mean |diff| 1e-3; measured on an H100 at 320x176: rays exact,
 max |diff| 1.9e-6.  Gradient kernel: rays exact, d_packed per row within
-1e-3 x the row's max |plain autograd|; measured on an H100 at 320x176:
-at most 4.9e-6.  Scaled kernels (n=3000, chunk 256): the traversal K5 and
-the shadow bitmask K6 equal to their plain versions on all but 1e-5 of
-the rays, t within 1e-6 relative where the ids agree; the scaled render
-kernel at 64x32 with the render kernel's gates, and its warp-cooperative
-form bit-equal to the per-lane form at 320x176 on the 100k-sphere scene;
-the stats instances' images bit-equal to the timed ones and their counts
-of the sphere tests the rays need within the rays gate of the plain
+1e-3 x the row's max |plain autograd| (its warp form also at 130
+spheres; PR 2's form measured on an H100 at 320x176: at most 4.9e-6), two
+launches bit-equal, the stored-carry form and the stats instances
+bit-equal to the forms they measure.  Scaled kernels (n=3000, chunk
+256): the traversal K5 and the shadow bitmask K6 equal to their plain
+versions on all but 1e-5 of the rays, t within 1e-6 relative where the
+ids agree; the scaled render kernel at 64x32 with the render kernel's
+gates, and its warp-cooperative form bit-equal to the per-lane form at
+320x176 on the 100k-sphere scene; the stats instances' images bit-equal
+to the timed ones and their counts of the sphere tests the rays need
+within the rays gate of the plain
 version's.  Stats render kernel (K2):
 image and rays bit-equal to the render kernel's; per-pixel trip counts
 equal to the plain version's on all but 1e-4 of the pixels, tile and warp
@@ -40,6 +43,8 @@ from toypathtracer_torch.scaled import (ChunkTraversal, ChunkedScenePort,
                                         make_scaled_scene, pack_chunks,
                                         render_frame_scaled_plain)
 from toypathtracer_torch.tools import roofline
+
+from test_torch_grad_kernel_cpu import crowded_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -103,6 +108,70 @@ def test_grad_kernel_matches_plain_autograd(card, big):
     for r in range(14):
         scale = float(d_p[r].abs().max())
         assert float((d[r] - d_p[r]).abs().max()) <= 1e-3 * scale, r
+
+
+def assert_rows_close(got, want, rtol):
+    for r in range(want.shape[0]):
+        scale = float(want[r].abs().max())
+        assert float((got[r] - want[r]).abs().max()) <= rtol * scale, r
+
+
+@pytest.mark.parametrize("crowded", [False, True], ids=["46", "130"])
+def test_warp_grad_kernel_matches_plain_autograd(card, crowded):
+    """K3's warp form at 46 spheres and at 130 (PR 2's form took 64):
+    plain autograd per row within 1e-3 x the row's max, rays exact, two
+    launches bit-equal, the image bit-equal to K4's."""
+    scene = (crowded_scene() if crowded else make_scene(big=True)).to(card)
+    cfg = RenderConfig(width=96, height=40, samples_per_pixel=2, max_depth=4)
+    g = torch.from_numpy(np.random.RandomState(4).rand(40, 96, 3)
+                         .astype(np.float32)).to(card)
+    args = (scene, cfg, 2, g, 0, 0, 40, 96)
+    img, rays, d = cuda_grad.render_tile_grad_form(*args, "warp")
+    _, _, d2 = cuda_grad.render_tile_grad_form(*args, "warp")
+    img_l, rays_l = cuda_grad.render_tile_lockstep(scene, cfg, 2, 0, 0, 40,
+                                                   96)
+    img_p, rays_p, d_p = render_tile_grad_plain(*args)
+    torch.cuda.synchronize()
+    assert int(rays) == int(rays_p) == int(rays_l)
+    assert torch.equal(d, d2) and torch.equal(img, img_l)
+    assert float((img - img_p).abs().mean()) <= 1e-3
+    assert_rows_close(d, d_p, 1e-3)
+    if crowded:
+        assert int((d[:, 64:].abs().sum(dim=0) > 0).sum()) >= 5
+
+
+def test_stored_grad_form_bit_equal_to_replay(card):
+    """PR 2's kernel with stored carries: image, rays and cotangent
+    bit-equal to the replaying kernel."""
+    scene = make_scene(big=True).to(card)
+    cfg = RenderConfig(width=96, height=40, samples_per_pixel=2, max_depth=6)
+    g = torch.from_numpy(np.random.RandomState(5).rand(40, 96, 3)
+                         .astype(np.float32)).to(card)
+    args = (scene, cfg, 1, g, 0, 0, 40, 96)
+    a = cuda_grad.render_tile_grad_form(*args, "replay")
+    b = cuda_grad.render_tile_grad_form(*args, "stored")
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("form", ["replay", "warp"])
+def test_grad_stats_instance_bit_equal_to_timed(card, form):
+    """The stats instances compute what the timed instances do, bit for
+    bit, and count cycles in each part they have."""
+    scene = make_scene(big=True).to(card)
+    cfg = RenderConfig(width=96, height=40, samples_per_pixel=2, max_depth=4)
+    g = torch.from_numpy(np.random.RandomState(6).rand(40, 96, 3)
+                         .astype(np.float32)).to(card)
+    args = (scene, cfg, 0, g, 0, 0, 40, 96)
+    timed = cuda_grad.render_tile_grad_form(*args, form)
+    *got, counts = cuda_grad.render_tile_grad_form(*args, form, stats=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(timed, got))
+    parts = ["cycles_fwd", "cycles_adj", "cycles_zero", "cycles_reduce",
+             "cycles_all", "adj_bounces"]
+    parts += ["cycles_replay", "replay_bounces"] if form == "replay" else [
+        "cycles_group", "adj_slots", "hit_groups", "hit_lanes"]
+    assert all(counts[k] > 0 for k in parts), counts
 
 
 @pytest.mark.parametrize("lockstep", [False, True])

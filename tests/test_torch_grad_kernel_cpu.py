@@ -10,6 +10,13 @@ adds every pixel's cotangent into one table; the card sums them in
 another order (per block, then over blocks), which the sub-image test
 stands in for.
 
+The stored-carry form (grad_pixel_stored) and the warp form under a
+one-lane warp (gradwarp.cuh grad_tiles with HostLane) are held bit-equal
+to grad_pixel, image, rays and table; the warp form with 32-lane warps of
+host threads (ThreadWarp: a collective that not every lane reaches stalls
+it) against plain autograd, and its grouped add, emulated lane by lane,
+exact against the sequential sum.
+
 Tolerances: d_packed row by row within 1e-3 x the row's max |plain|
 (measured at most 1.5e-5 over these cases); ray counts exact
 (measured); the image as tests/test_torch_kernel_cpu.py; K4's image
@@ -33,7 +40,84 @@ from toypathtracer_torch.render.wavefront import render_tile_grad_plain
 torch.set_num_threads(1)
 
 HARNESS = r"""
-#include "trace.cuh"
+#include <chrono>
+#include <condition_variable>
+#include <mutex>
+#include <thread>
+#include <vector>
+
+#include "gradwarp.cuh"
+
+// A warp of 32 host threads: each collective is a barrier, an exchange
+// through shared slots and a second barrier, so a collective that not
+// every lane reaches stalls the warp.  A barrier that waits 20 s marks the
+// run broken and every later one returns at once.
+struct Lanes {
+  std::mutex m;
+  std::condition_variable cv;
+  int count = 0;
+  unsigned gen = 0;
+  bool broken = false;
+  int ikey[32];
+  float f[32];
+  unsigned u[32];
+  void wait() {
+    std::unique_lock<std::mutex> l(m);
+    if (broken) return;
+    const unsigned g = gen;
+    if (++count == 32) {
+      count = 0;
+      ++gen;
+      cv.notify_all();
+    } else if (!cv.wait_for(l, std::chrono::seconds(20),
+                            [&] { return gen != g || broken; })) {
+      broken = true;
+      cv.notify_all();
+    }
+  }
+};
+
+struct ThreadWarp {
+  static constexpr int kWidth = 32;
+  static constexpr int kTileW = 16, kTileH = 2;
+  Lanes* L;
+  int lane_;
+  int lane() const { return lane_; }
+  unsigned ballot(bool b) const {
+    L->u[lane_] = b;
+    L->wait();
+    unsigned m = 0;
+    for (int l = 0; l < 32; ++l) m |= L->u[l] ? 1u << l : 0u;
+    L->wait();
+    return m;
+  }
+  bool any(bool b) const { return ballot(b) != 0; }
+  unsigned match_any(int key) const {
+    L->ikey[lane_] = key;
+    L->wait();
+    unsigned m = 0;
+    for (int l = 0; l < 32; ++l) m |= L->ikey[l] == key ? 1u << l : 0u;
+    L->wait();
+    return m;
+  }
+  float shfl(float v, int src) const {
+    L->f[lane_] = v;
+    L->wait();
+    const float r = L->f[src];
+    L->wait();
+    return r;
+  }
+  unsigned reduce_max(unsigned v) const {
+    L->u[lane_] = v;
+    L->wait();
+    unsigned r = 0;
+    for (int l = 0; l < 32; ++l) r = L->u[l] > r ? L->u[l] : r;
+    L->wait();
+    return r;
+  }
+  void sync() const { L->wait(); }
+  long long clock() const { return 0; }
+};
 
 static tpt::SceneView view(const float* tab, const int32_t* mat,
                            const int32_t* lights, const tpt::RenderParams* p) {
@@ -61,6 +145,98 @@ extern "C" unsigned long long tpt_grad_cpu(
   return rays;
 }
 
+// form 1: grad_pixel_stored a pixel at a time; form 2: the warp form
+// under a one-lane warp over the whole sub-image.
+extern "C" unsigned long long tpt_grad_form_cpu(
+    const float* tab, const int32_t* mat, const int32_t* lights,
+    const float* cam, const tpt::RenderParams* p, const float* g, float* out,
+    float* acc, int form) {
+  tpt::SceneView S = view(tab, mat, lights, p);
+  std::vector<tpt::Carry> carries(p->max_depth);
+  tpt::ArrayTape tape{carries.data()};
+  unsigned long long rays = 0;
+  if (form == 2) {
+    tpt::HostLane w;
+    tpt::NoGradCount none;
+    return tpt::grad_tiles(w, S, cam, *p, g, out, acc, tape, 0, 1, none);
+  }
+  for (int y = 0; y < p->height; ++y)
+    for (int x = 0; x < p->width; ++x) {
+      size_t o = ((size_t)y * p->width + x) * 3;
+      rays += tpt::grad_pixel_stored(S, cam, *p, p->x0 + x, p->y0 + y,
+                                     g + o, out + o, acc, tape);
+    }
+  return rays;
+}
+
+// The warp form with 32-lane warps of host threads: n_warps warps, each
+// with its own table, run one after the other; the tables are then summed
+// in warp order into acc, as the kernel's block does.  Returns the rays,
+// or -1 if a warp stalled.
+extern "C" long long tpt_grad_warp32_cpu(
+    const float* tab, const int32_t* mat, const int32_t* lights,
+    const float* cam, const tpt::RenderParams* p, const float* g, float* out,
+    float* acc, int n_warps) {
+  tpt::SceneView S = view(tab, mat, lights, p);
+  const int m = tpt::SCENE_ROWS * p->n_spheres;
+  std::vector<float> tables((size_t)n_warps * m, 0.0f);
+  long long rays = 0;
+  for (int wi = 0; wi < n_warps; ++wi) {
+    Lanes lanes;
+    unsigned long long lane_rays[32];
+    std::vector<std::thread> threads;
+    for (int l = 0; l < 32; ++l)
+      threads.emplace_back([&, l] {
+        ThreadWarp w{&lanes, l};
+        std::vector<tpt::Carry> carries(p->max_depth);
+        tpt::ArrayTape tape{carries.data()};
+        tpt::NoGradCount none;
+        lane_rays[l] = tpt::grad_tiles(w, S, cam, *p, g, out,
+                                       tables.data() + (size_t)wi * m, tape,
+                                       wi, n_warps, none);
+      });
+    for (auto& t : threads) t.join();
+    if (lanes.broken) return -1;
+    for (int l = 0; l < 32; ++l) rays += lane_rays[l];
+  }
+  for (int j = 0; j < m; ++j) {
+    float s = 0.0f;
+    for (int wi = 0; wi < n_warps; ++wi) s += tables[(size_t)wi * m + j];
+    acc[j] += s;
+  }
+  return rays;
+}
+
+// The 32-lane grouped add of csrc/gradwarp.cuh (group_tree, group_add)
+// emulated lane by lane: lanes with key >= 0 add vals[lane] to
+// table[key]; the shuffles of a step all read the values before it.
+extern "C" void tpt_group_add_model(const int* keys, const float* vals,
+                                    float* table) {
+  unsigned mask[32];
+  int most = 0;
+  for (int l = 0; l < 32; ++l) {
+    mask[l] = 1u << l;
+    if (keys[l] >= 0)
+      for (int k = 0; k < 32; ++k)
+        if (k != l && keys[k] == keys[l]) mask[l] |= 1u << k;
+    const int c = tpt::popc(mask[l]);
+    most = c > most ? c : most;
+  }
+  tpt::Group g[32];
+  float v[32], o[32];
+  for (int l = 0; l < 32; ++l) {
+    g[l] = tpt::group_tree(mask[l], l, most, keys[l] >= 0);
+    v[l] = vals[l];
+  }
+  for (int k = 0; k < g[0].steps; ++k) {
+    for (int l = 0; l < 32; ++l) o[l] = v[(g[l].tree >> (5 * k)) & 31u];
+    for (int l = 0; l < 32; ++l)
+      if ((g[l].tree >> (25 + k)) & 1u) v[l] = v[l] + o[l];
+  }
+  for (int l = 0; l < 32; ++l)
+    if (g[l].lead) table[keys[l]] += v[l];
+}
+
 extern "C" unsigned long long tpt_lockstep_cpu(
     const float* tab, const int32_t* mat, const int32_t* lights,
     const float* cam, const tpt::RenderParams* p, float* out) {
@@ -85,13 +261,21 @@ def host_lib(tmp_path_factory):
     so = d / "libgrad_cpu.so"
     # -ffp-contract=off: no FMA contraction, as the CUDA build's -fmad=false
     subprocess.run([gxx, "-O2", "-shared", "-fPIC", "-std=c++17",
-                    "-ffp-contract=off", f"-I{_build.CSRC}", "-o", str(so),
+                    "-ffp-contract=off", "-pthread", f"-I{_build.CSRC}",
+                    "-o", str(so),
                     str(d / "host.cpp")], check=True)
     lib = ctypes.CDLL(str(so))
     ptr = ctypes.c_void_p
     params = ctypes.POINTER(_build.RenderParams)
     lib.tpt_grad_cpu.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr, ptr]
     lib.tpt_grad_cpu.restype = ctypes.c_ulonglong
+    lib.tpt_grad_form_cpu.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr,
+                                      ptr, ctypes.c_int]
+    lib.tpt_grad_form_cpu.restype = ctypes.c_ulonglong
+    lib.tpt_group_add_model.argtypes = [ptr, ptr, ptr]
+    lib.tpt_grad_warp32_cpu.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr,
+                                        ptr, ctypes.c_int]
+    lib.tpt_grad_warp32_cpu.restype = ctypes.c_longlong
     lib.tpt_lockstep_cpu.argtypes = [ptr, ptr, ptr, ptr, params, ptr]
     lib.tpt_lockstep_cpu.restype = ctypes.c_ulonglong
     return lib
@@ -129,6 +313,52 @@ def lockstep_host(lib, scene, cfg, frame, x0, y0, h, w):
                                 lights.ctypes.data, cam.ctypes.data,
                                 ctypes.byref(params), out.ctypes.data)
     return out, rays
+
+
+def grad_form_host(lib, scene, cfg, frame, g, x0, y0, form):
+    """As grad_host through the stored-carry form (1), the warp form under
+    a one-lane warp (2), or the warp form in warps of 32 host threads,
+    `form` - 30 of them (form >= 31)."""
+    h, w, _ = g.shape
+    tab, mat, lights, cam = inputs(scene, cfg)
+    out = np.zeros((h, w, 3), np.float32)
+    acc = np.zeros_like(tab)
+    params = cuda_render.render_params(scene, cfg, frame, x0, y0, h, w)
+    g = np.ascontiguousarray(g, np.float32)
+    args = (tab.ctypes.data, mat.ctypes.data, lights.ctypes.data,
+            cam.ctypes.data, ctypes.byref(params), g.ctypes.data,
+            out.ctypes.data, acc.ctypes.data)
+    if form > 30:
+        rays = lib.tpt_grad_warp32_cpu(*args, form - 30)
+        assert rays >= 0, "a 32-lane warp stalled at a collective"
+    else:
+        rays = lib.tpt_grad_form_cpu(*args, form)
+    return out, rays, acc
+
+
+def crowded_scene(extra=84, seed=3):
+    """make_scene(big=True) with `extra` small spheres appended on the
+    floor in front of the camera (130 spheres by default): Lambert, metal
+    and dielectric in turn, albedos from a seeded numpy generator."""
+    scene = make_scene(big=True)
+    rng = np.random.RandomState(seed)
+    cols = 12
+    idx = np.arange(extra)
+    cen = np.stack([-3.3 + 0.6 * (idx % cols), np.full(extra, -0.38),
+                    -2.2 + 0.55 * (idx // cols)], 1).astype(np.float32)
+    mats = tuple(int(i % 3) for i in idx)
+
+    def cat(field, new):
+        return torch.cat([getattr(scene, field),
+                          torch.as_tensor(new, dtype=torch.float32)])
+    return scene.replace(
+        center=cat("center", cen),
+        radius=cat("radius", np.full(extra, 0.12)),
+        albedo=cat("albedo", rng.uniform(0.2, 0.9, (extra, 3))),
+        emissive=cat("emissive", np.zeros((extra, 3))),
+        roughness=cat("roughness", rng.uniform(0.0, 0.5, extra)),
+        ri=cat("ri", np.where(idx % 3 == 2, 1.5, 0.0)),
+        mat_type=scene.mat_type + mats)
 
 
 def assert_rows_close(got, want, rtol):
@@ -196,3 +426,88 @@ def test_zero_cotangent_gives_zero_gradient(host_lib):
     _, _, acc = grad_host(host_lib, scene, cfg, 0,
                           np.zeros((8, 8, 3), np.float32), 0, 0)
     assert not acc.any()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("frame,x0,y0", [(1, 0, 0), (4, 40, 7)])
+@pytest.mark.parametrize("form", [1, 2], ids=["stored", "warp_one_lane"])
+def test_forms_bit_equal_to_replays(host_lib, case, frame, x0, y0, form):
+    """Stored carries instead of replays (form 1), and the warp form under
+    a one-lane warp (form 2): image, rays and table bit-equal to
+    grad_pixel's loop over pixels."""
+    scene_kw, cfg_kw = CASES[case]
+    scene = make_scene(**scene_kw)
+    cfg = RenderConfig(width=32, height=16, samples_per_pixel=2, max_depth=4,
+                       **cfg_kw)
+    g = np.random.RandomState(frame).rand(16, 32, 3).astype(np.float32)
+    out, rays, acc = grad_host(host_lib, scene, cfg, frame, g, x0, y0)
+    f_out, f_rays, f_acc = grad_form_host(host_lib, scene, cfg, frame, g, x0,
+                                          y0, form)
+    np.testing.assert_array_equal(f_out, out)
+    assert f_rays == rays
+    np.testing.assert_array_equal(f_acc, acc)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_warp_form_32_lanes_matches_plain_autograd(host_lib, case):
+    """The warp form in 32-lane warps (2 warps of 16x2-pixel tiles over a
+    32x8 image): the image bit-equal to grad_pixel's, rays exact, the table
+    within 1e-3 of plain autograd row by row and within 1e-5 of the
+    sequential sum, and two runs bit-equal."""
+    scene_kw, cfg_kw = CASES[case]
+    scene = make_scene(**scene_kw)
+    cfg = RenderConfig(width=32, height=8, samples_per_pixel=1, max_depth=4,
+                       **cfg_kw)
+    g = np.random.RandomState(6).rand(8, 32, 3).astype(np.float32)
+    out, rays, acc = grad_host(host_lib, scene, cfg, 2, g, 0, 0)
+    w_out, w_rays, w_acc = grad_form_host(host_lib, scene, cfg, 2, g, 0, 0,
+                                          32)
+    np.testing.assert_array_equal(w_out, out)
+    assert w_rays == rays
+    assert_rows_close(w_acc, acc, 1e-5)
+    _, _, d = render_tile_grad_plain(scene, cfg, 2, torch.from_numpy(g), 0,
+                                     0, 8, 32)
+    assert_rows_close(w_acc, d.numpy(), 1e-3)
+    _, _, again = grad_form_host(host_lib, scene, cfg, 2, g, 0, 0, 32)
+    np.testing.assert_array_equal(again, w_acc)
+
+
+@pytest.mark.parametrize("lanes", ["one_group", "groups_and_idle",
+                                   "all_distinct", "random"])
+def test_group_add_exact(host_lib, lanes):
+    """The 32-lane grouped add against the sequential sum: values that are
+    multiples of 1/4 below 2^10 sum exactly in any order, so the tree must
+    give the sequential sum bit for bit; lanes with key -1 add nothing."""
+    rng = np.random.RandomState(len(lanes))
+    keys = {"one_group": np.full(32, 5),
+            "groups_and_idle": np.array([3, 3, -1, 5, 3] + [7] * 10 +
+                                        [-1] * 5 + [5] * 12),
+            "all_distinct": np.arange(32) * 2,
+            "random": rng.randint(-1, 6, 32)}[lanes].astype(np.int32)
+    vals = (rng.randint(-400, 400, 32) * 0.25).astype(np.float32)
+    table = (rng.randint(0, 8, 64) * 0.5).astype(np.float32)
+    want = table.copy()
+    for k, v in zip(keys, vals):
+        if k >= 0:
+            want[k] += v
+    host_lib.tpt_group_add_model(keys.ctypes.data, vals.ctypes.data,
+                                 table.ctypes.data)
+    np.testing.assert_array_equal(table, want)
+
+
+@pytest.mark.parametrize("form", [2, 31], ids=["one_lane", "32_lanes"])
+def test_warp_form_beyond_64_spheres(host_lib, form):
+    """130 spheres (PR 2's kernel took 64): the warp form within 1e-3 of
+    plain autograd row by row at 16x8, spp 1, depth 4, rays exact, and
+    gradients reach the appended spheres."""
+    scene = crowded_scene()
+    assert scene.n_spheres == 130
+    cfg = RenderConfig(width=16, height=8, samples_per_pixel=1, max_depth=4)
+    g = np.random.RandomState(8).rand(8, 16, 3).astype(np.float32)
+    out, rays, acc = grad_form_host(host_lib, scene, cfg, 0, g, 0, 0, form)
+    img, prays, d = render_tile_grad_plain(scene, cfg, 0,
+                                           torch.from_numpy(g), 0, 0, 8, 16)
+    assert rays == int(prays)
+    assert_rows_close(acc, d.numpy(), 1e-3)
+    assert np.abs(out - img.numpy()).max() <= 1e-4
+    assert np.count_nonzero(np.abs(acc[:, 64:]).sum(axis=0)) >= 5

@@ -45,7 +45,7 @@
 // entered chunk into a per-warp double buffer in shared memory (cp.async)
 // was tried and was slower than reading the rows through L1 (PERF.md).
 //
-// The collectives come from a warp policy W: DeviceWarp (csrc/scaled.cu)
+// The collectives come from a warp policy W (csrc/warp.cuh): DeviceWarp
 // on the card, and a warp of one lane for the g++ tests, under which this
 // code is the sequential scan.  Counters (kOn false compiles to nothing)
 // report the work: the kSt* slots below.
@@ -53,12 +53,7 @@
 #pragma once
 
 #include "chunks.cuh"
-
-#ifdef __CUDACC__
-#define TPT_WARP __device__ __forceinline__
-#else
-#define TPT_WARP inline
-#endif
+#include "warp.cuh"
 
 namespace tpt {
 
@@ -68,23 +63,6 @@ namespace tpt {
 constexpr int kCoopMin = 24;
 // Chunks under one group box.
 constexpr int kGroup = 16;
-
-TPT_HD int popc(unsigned m) {
-#ifdef __CUDA_ARCH__
-  return __popc(m);
-#else
-  return __builtin_popcount(m);
-#endif
-}
-
-// Index of the lowest set bit of a non-zero mask.
-TPT_HD int lowest(unsigned m) {
-#ifdef __CUDA_ARCH__
-  return __ffs(m) - 1;
-#else
-  return __builtin_ffs(static_cast<int>(m)) - 1;
-#endif
-}
 
 // The scaled scene as the cooperative kernel reads it: ChunkedView plus the
 // group boxes (n_groups, 6) and this warp's scratch for NEE (nee_words), in
@@ -663,26 +641,5 @@ TPT_WARP unsigned long long render_tiles_merged(const W& w, const CoopView& S,
   if constexpr (Cnt::kOn) cnt.add(kStCycLoop, w.clock() - c0);
   return total;
 }
-
-// A warp of one lane, on the host: the collectives are identities, and the
-// cooperative code is the sequential scan.  The g++ tests run
-// render_tiles_merged and the traversals through it.
-struct HostLane {
-  static constexpr int kWidth = 1;
-  static constexpr int kTileW = 1, kTileH = 1;
-  int lane() const { return 0; }
-  unsigned ballot(bool b) const { return b ? 1u : 0u; }
-  bool any(bool b) const { return b; }
-  float shfl(float v, int) const { return v; }
-  int shfl(int v, int) const { return v; }
-  float shfl_xor(float v, int) const { return v; }
-  int shfl_xor(int v, int) const { return v; }
-  unsigned reduce_max(unsigned v) const { return v; }
-  unsigned reduce_add(unsigned v) const { return v; }
-  void sync() const {}
-  void or_mask(unsigned* p, unsigned bits) const { *p |= bits; }
-  long long clock() const { return 0; }
-  int grab(int* counter) const { return (*counter)++; }
-};
 
 }  // namespace tpt

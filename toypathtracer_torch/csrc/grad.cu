@@ -3,32 +3,39 @@
 // toypathtracer_tpu/ops/pallas_grad.py::_grad_kernel and
 // ::_lockstep_fwd_kernel.
 //
-// One thread per pixel over 16x16 blocks; the block stages the packed scene,
-// material types, emissive ids and camera in shared memory as the render
-// kernel does.  K3's thread runs tpt::grad_pixel (trace.cuh): the pixel's
-// primal, bit-equal to tpt::render_pixel, and its reverse sweep seeded by
-// the pixel's cotangent, adding the pixel's (SCENE_ROWS, n) scene cotangent
-// into a table in its own local memory.  K4's thread runs tpt::render_pixel
-// itself, so its image is bit-equal to K3's primal (and to the render
-// kernel's: in this port the lockstep and the fused formulations run the
-// same per-pixel sequence).
+// K3 on the main path is warp_grad_kernel (csrc/gradwarp.cuh): persistent
+// 128-thread blocks whose warps take 16x2-pixel tiles round robin by warp
+// index, a lane a pixel.  Each sample is traced once, its bounces' carries
+// stored in a strided scratch in device memory (15 words a bounce, read
+// back once by the reverse sweep), and the lanes run the reverse sweep
+// together so that every add into the scene cotangent is a warp collective
+// into the warp's (SCENE_ROWS, n) table in shared memory: lanes that add
+// to one sphere sum in a fixed tree and one of them adds the sum.  The
+// block then sums its warps' tables in warp order into its partial row,
+// and sum_rows adds the rows, one warp an entry, in a fixed order.  No
+// floating-point atomic, and the pixels of a warp follow from its index:
+// two launches on the same inputs give bit-equal results.
 //
-// The scene cotangent is reduced without atomics, so two launches on the
-// same inputs give bit-equal results: each block sums its threads' tables
-// in a fixed order (warp shuffles, then the warps in turn) into one partial
-// per block, and a second kernel adds the partials in block order, in
-// double.  On the TPU the sequential grid carried the sum instead.
+// lockstep_kernel is PR 2's design, one thread a pixel over 16x16 blocks
+// with the scene staged in shared memory.  kMode 0 is K4: render_pixel,
+// so its image is bit-equal to K3's primal and to the render kernel's.
+// kMode 1 is PR 2's K3, kept as the baseline the warp form is timed
+// against: tpt::grad_pixel replays bounces 0..d-1 before differentiating
+// bounce d and adds into a (SCENE_ROWS, 64) table in the thread's local
+// memory; the block sums its threads' tables and sum_partials adds the
+// blocks' partials serially in double.  kMode 2 is kMode 1 with stored
+// carries instead of the replays (tpt::grad_pixel_stored, bit-equal to
+// kMode 1), which measures the replays alone.  The stats instances
+// (kStats) count SM cycles by part (trace.cuh kGc*).
 //
-// Bound: FP32 ALU work, as the render kernel: the forward trace, the
-// reverse sweep's replays (O(L^2) bounces for a path of L bounces; the
-// replays before the differentiated bounce skip NEE's shadow tests) and
-// the adjoint arithmetic.  Memory traffic is the cotangent read, the
-// image write and the per-thread table in local memory (3.5 KB a thread
-// at kGradMaxSpheres).  A simple kernel that is right comes first.
+// Bound: FP32 ALU work -- the forward trace and the adjoint arithmetic --
+// against a few MB of traffic (the cotangent read, the image written, the
+// carries written and read once).  PR 2's form also spends the replays
+// (O(L^2) bounces for a path of L) and a 3.5 KB table per thread.
 
 #include <cuda_runtime.h>
 
-#include "trace.cuh"
+#include "gradwarp.cuh"
 
 namespace {
 
@@ -36,20 +43,68 @@ constexpr int kBlockX = 16;
 constexpr int kBlockY = 16;
 constexpr int kThreads = kBlockX * kBlockY;
 constexpr int kWarps = kThreads / 32;
-// The per-thread cotangent table has SCENE_ROWS * kGradMaxSpheres floats
-// (ops/cuda_grad.MAX_SPHERES).
+// PR 2's per-thread cotangent table has SCENE_ROWS * kGradMaxSpheres floats
+// (ops/cuda_grad.FORM_MAX_SPHERES).
 constexpr int kGradMaxSpheres = 64;
-// Table entries reduced per round of the block reduction.
+// Table entries reduced per round of PR 2's block reduction.
 constexpr int kChunk = 32;
+// Deepest path the stored-carry form (kMode 2) keeps in local memory.
+constexpr int kStoredDepth = 16;
+// The warp form: 4 warps a block, 4 blocks an SM (128 registers a thread).
+constexpr int kWarpThreads = 128;
+constexpr int kGradWarps = kWarpThreads / 32;
+constexpr int kWarpBlocks = 4;
+constexpr unsigned kFull = 0xffffffffu;
 
-template <bool kGrad>
+// The stats instances' counters: kGcSlots per thread, summed over the
+// block by flush_stats.
+struct GradStats {
+  static constexpr bool kOn = true;
+  unsigned long long v[tpt::kGcSlots] = {};
+  // __host__ __device__ only because grad_pixel, which calls it, is; it
+  // runs on the card alone.
+  __host__ __device__ void add(int i, unsigned long long x) { v[i] += x; }
+};
+
+// Adds a thread's counters, summed over its warp, to the launch's totals.
+// Every lane of the warp calls it.
+__device__ void flush_stats(const GradStats& cs,
+                            unsigned long long* __restrict__ stats, int tid) {
+  for (int i = 0; i < tpt::kGcSlots; ++i) {
+    unsigned long long x = cs.v[i];
+    for (int off = 16; off > 0; off >>= 1)
+      x += __shfl_down_sync(kFull, x, off);
+    if ((tid & 31) == 0 && x) atomicAdd(stats + i, x);
+  }
+}
+
+// Sums each warp's rays and adds the block's total to `rays` with one
+// atomic.  Every thread of the block calls it.
+template <int kBlockWarps>
+__device__ __forceinline__ void add_rays(
+    unsigned long long count, unsigned long long* warp_rays,
+    unsigned long long* __restrict__ rays, int tid) {
+  for (int off = 16; off > 0; off >>= 1)
+    count += __shfl_down_sync(kFull, count, off);
+  if ((tid & 31) == 0) warp_rays[tid >> 5] = count;
+  __syncthreads();
+  if (tid == 0) {
+    unsigned long long total = 0;
+    for (int w = 0; w < kBlockWarps; ++w) total += warp_rays[w];
+    if (total) atomicAdd(rays, total);
+  }
+}
+
+template <int kMode, bool kStats>
 __global__ void __launch_bounds__(kThreads)
 lockstep_kernel(const float* __restrict__ tab, const int32_t* __restrict__ mat,
                 const int32_t* __restrict__ lights,
                 const float* __restrict__ cam, tpt::RenderParams p,
                 const float* __restrict__ g, float* __restrict__ out,
                 unsigned long long* __restrict__ rays,
-                float* __restrict__ partial) {
+                float* __restrict__ partial,
+                unsigned long long* __restrict__ stats) {
+  constexpr bool kGrad = kMode != 0;
   extern __shared__ float smem[];
   __shared__ unsigned long long warp_rays[kWarps];
   __shared__ float warp_part[kWarps][kChunk];
@@ -58,6 +113,9 @@ lockstep_kernel(const float* __restrict__ tab, const int32_t* __restrict__ mat,
   int32_t* s_mat = reinterpret_cast<int32_t*>(s_tab + tpt::SCENE_ROWS * n);
   int32_t* s_lights = s_mat + n;
   float* s_cam = reinterpret_cast<float*>(s_lights + p.n_lights);
+  GradStats cs;
+  long long c_all = 0, c0 = 0;
+  if constexpr (kStats) c_all = clock64();
 
   const int tid = threadIdx.y * kBlockX + threadIdx.x;
   for (int i = tid; i < tpt::SCENE_ROWS * n; i += kThreads) s_tab[i] = tab[i];
@@ -68,8 +126,10 @@ lockstep_kernel(const float* __restrict__ tab, const int32_t* __restrict__ mat,
 
   const int m = tpt::SCENE_ROWS * n;
   float acc[kGrad ? tpt::SCENE_ROWS * kGradMaxSpheres : 1];
+  if constexpr (kStats) c0 = clock64();
   if (kGrad)
     for (int j = 0; j < m; ++j) acc[j] = 0.0f;
+  if constexpr (kStats) cs.add(tpt::kGcCycZero, clock64() - c0);
 
   const int lx = blockIdx.x * kBlockX + threadIdx.x;
   const int ly = blockIdx.y * kBlockY + threadIdx.y;
@@ -83,11 +143,21 @@ lockstep_kernel(const float* __restrict__ tab, const int32_t* __restrict__ mat,
     S.n_lights = p.n_lights;
     const size_t o = (static_cast<size_t>(ly) * p.width + lx) * 3;
     float c[3];
-    if (kGrad)
-      count = tpt::grad_pixel(S, s_cam, p, p.x0 + lx, p.y0 + ly, g + o, c,
-                              acc);
-    else
+    if constexpr (kMode == 0) {
       count = tpt::render_pixel(S, s_cam, p, p.x0 + lx, p.y0 + ly, c);
+    } else if constexpr (kMode == 1) {
+      if constexpr (kStats)
+        count = tpt::grad_pixel(S, s_cam, p, p.x0 + lx, p.y0 + ly, g + o, c,
+                                acc, cs);
+      else
+        count = tpt::grad_pixel(S, s_cam, p, p.x0 + lx, p.y0 + ly, g + o, c,
+                                acc);
+    } else {
+      tpt::Carry carries[kStoredDepth];
+      tpt::ArrayTape tape{carries};
+      count = tpt::grad_pixel_stored(S, s_cam, p, p.x0 + lx, p.y0 + ly,
+                                     g + o, c, acc, tape);
+    }
     out[o] = c[0];
     out[o + 1] = c[1];
     out[o + 2] = c[2];
@@ -96,19 +166,12 @@ lockstep_kernel(const float* __restrict__ tab, const int32_t* __restrict__ mat,
   // take part in the full-warp shuffles below.
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  for (int off = 16; off > 0; off >>= 1)
-    count += __shfl_down_sync(0xffffffffu, count, off);
-  if (lane == 0) warp_rays[warp] = count;
-  __syncthreads();
-  if (tid == 0) {
-    unsigned long long total = 0;
-    for (int w = 0; w < kWarps; ++w) total += warp_rays[w];
-    if (total) atomicAdd(rays, total);
-  }
+  add_rays<kWarps>(count, warp_rays, rays, tid);
   if (!kGrad) return;
 
   // The block's tables, summed in a fixed order: kChunk entries a round,
   // each warp's 32 by a shuffle tree, then the warps in order.
+  if constexpr (kStats) c0 = clock64();
   const size_t block =
       static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
   for (int base = 0; base < m; base += kChunk) {
@@ -126,9 +189,16 @@ lockstep_kernel(const float* __restrict__ tab, const int32_t* __restrict__ mat,
     }
     __syncthreads();
   }
+  if constexpr (kStats) {
+    const long long c1 = clock64();
+    cs.add(tpt::kGcCycReduce, c1 - c0);
+    cs.add(tpt::kGcCycAll, c1 - c_all);
+    flush_stats(cs, stats, tid);
+  }
 }
 
-// d_tab[j] = sum over blocks, in block order, of partial[block][j].
+// d_tab[j] = sum over blocks, in block order, of partial[block][j]: PR 2's
+// serial sum, a thread an entry.
 __global__ void sum_partials(const float* __restrict__ partial, int blocks,
                              int m, float* __restrict__ d_tab) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
@@ -137,6 +207,99 @@ __global__ void sum_partials(const float* __restrict__ partial, int blocks,
   for (int b = 0; b < blocks; ++b)
     s += partial[static_cast<size_t>(b) * m + j];
   d_tab[j] = static_cast<float>(s);
+}
+
+// The warp form of K3 (csrc/gradwarp.cuh).  Dynamic shared memory: [scene
+// table] [material ids] [emissive ids] [camera] [kGradWarps cotangent
+// tables of SCENE_ROWS * n].  `tape`: kCarryWords * max_depth floats per
+// thread of the grid, strided by the grid's threads.
+template <bool kStats>
+__global__ void __launch_bounds__(kWarpThreads, kWarpBlocks)
+warp_grad_kernel(const float* __restrict__ tab,
+                 const int32_t* __restrict__ mat,
+                 const int32_t* __restrict__ lights,
+                 const float* __restrict__ cam, tpt::RenderParams p,
+                 const float* __restrict__ g, float* __restrict__ out,
+                 unsigned long long* __restrict__ rays, float* tape,
+                 float* __restrict__ partial,
+                 unsigned long long* __restrict__ stats) {
+  extern __shared__ float smem[];
+  __shared__ unsigned long long warp_rays[kGradWarps];
+  const int n = p.n_spheres;
+  const int m = tpt::SCENE_ROWS * n;
+  float* s_tab = smem;
+  int32_t* s_mat = reinterpret_cast<int32_t*>(s_tab + m);
+  int32_t* s_lights = s_mat + n;
+  float* s_cam = reinterpret_cast<float*>(s_lights + p.n_lights);
+  float* s_acc = s_cam + tpt::kCameraFloats;
+  GradStats cs;
+  tpt::NoGradCount none;
+  long long c_all = 0, c0 = 0;
+  if constexpr (kStats) c_all = clock64();
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < m; i += kWarpThreads) s_tab[i] = tab[i];
+  for (int i = tid; i < n; i += kWarpThreads) s_mat[i] = mat[i];
+  if (tid < p.n_lights) s_lights[tid] = lights[tid];
+  if (tid < tpt::kCameraFloats) s_cam[tid] = cam[tid];
+  if constexpr (kStats) c0 = clock64();
+  for (int i = tid; i < kGradWarps * m; i += kWarpThreads) s_acc[i] = 0.0f;
+  if constexpr (kStats) cs.add(tpt::kGcCycZero, clock64() - c0);
+  __syncthreads();
+
+  tpt::SceneView S;
+  S.tab = s_tab;
+  S.mat = s_mat;
+  S.lights = s_lights;
+  S.n = n;
+  S.n_lights = p.n_lights;
+  const int warp = tid >> 5;
+  const tpt::DeviceWarp w(tid);
+  const size_t stride = static_cast<size_t>(gridDim.x) * kWarpThreads;
+  tpt::StridedTape t{tape + static_cast<size_t>(blockIdx.x) * kWarpThreads +
+                         tid,
+                     stride};
+  unsigned long long count;
+  if constexpr (kStats)
+    count = tpt::grad_tiles(w, S, s_cam, p, g, out, s_acc + warp * m, t,
+                            blockIdx.x * kGradWarps + warp,
+                            gridDim.x * kGradWarps, cs);
+  else
+    count = tpt::grad_tiles(w, S, s_cam, p, g, out, s_acc + warp * m, t,
+                            blockIdx.x * kGradWarps + warp,
+                            gridDim.x * kGradWarps, none);
+  add_rays<kGradWarps>(count, warp_rays, rays, tid);  // syncs the block
+
+  // the block's partial row: its warps' tables in warp order
+  if constexpr (kStats) c0 = clock64();
+  float* row = partial + static_cast<size_t>(blockIdx.x) * m;
+  for (int j = tid; j < m; j += kWarpThreads) {
+    float s = 0.0f;
+    for (int k = 0; k < kGradWarps; ++k) s += s_acc[k * m + j];
+    row[j] = s;
+  }
+  if constexpr (kStats) {
+    const long long c1 = clock64();
+    cs.add(tpt::kGcCycReduce, c1 - c0);
+    cs.add(tpt::kGcCycAll, c1 - c_all);
+    flush_stats(cs, stats, tid);
+  }
+}
+
+// d_tab[j] = the sum of partial[.][j] over `rows` rows, one warp an entry:
+// lane l adds rows l, l + 32, ... in double, then a fixed shuffle tree.
+constexpr int kSumThreads = 256;
+__global__ void __launch_bounds__(kSumThreads)
+sum_rows(const float* __restrict__ partial, int rows, int m,
+         float* __restrict__ d_tab) {
+  const int j = blockIdx.x * (kSumThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (j >= m) return;  // the whole warp
+  double s = 0.0;
+  for (int b = lane; b < rows; b += 32)
+    s += partial[static_cast<size_t>(b) * m + j];
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
+  if (lane == 0) d_tab[j] = static_cast<float>(s);
 }
 
 bool bad_params(const tpt::RenderParams* p, int max_spheres) {
@@ -151,42 +314,133 @@ size_t stage_bytes(const tpt::RenderParams* p) {
          sizeof(float) * tpt::kCameraFloats;
 }
 
+size_t warp_smem(const tpt::RenderParams* p) {
+  return stage_bytes(p) +
+         sizeof(float) * kGradWarps * tpt::SCENE_ROWS * p->n_spheres;
+}
+
 dim3 grid_of(const tpt::RenderParams* p) {
   return dim3((p->width + kBlockX - 1) / kBlockX,
               (p->height + kBlockY - 1) / kBlockY);
+}
+
+// Dynamic shared memory above the default 48 KB needs the kernel's opt-in.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// Blocks of the warp form: as many as fit on the card at once (the timed
+// instance's occupancy, so that the stats instance deals the same tiles to
+// the same warps), or as the tiles need.
+cudaError_t warp_grid(const tpt::RenderParams* p, int* blocks) {
+  const size_t smem = warp_smem(p);
+  cudaError_t err = allow_smem(warp_grad_kernel<false>, smem);
+  if (err == cudaSuccess) err = allow_smem(warp_grad_kernel<true>, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, warp_grad_kernel<false>, kWarpThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int tiles = ((p->width + 15) / 16) * ((p->height + 1) / 2);
+  const int need = (tiles + kGradWarps - 1) / kGradWarps;
+  *blocks = need < sms * per_sm ? need : sms * per_sm;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Blocks of the gradient kernel's grid: the rows of its `partial` scratch.
-int tpt_grad_blocks(const tpt::RenderParams* p) {
-  const dim3 grid = grid_of(p);
-  return static_cast<int>(grid.x * grid.y);
+// The scratch a K3 launch of form `form` (0: PR 2's, with replays; 1: PR
+// 2's with stored carries; 2: the warp form) takes: *rows rows of
+// SCENE_ROWS * n partial sums and *tape_floats floats of carries (0 but
+// for the warp form).  Returns 0, or a CUDA error code.
+int tpt_grad_scratch(const tpt::RenderParams* p, int form, int* rows,
+                     long long* tape_floats) {
+  if (form < 0 || form > 2) return static_cast<int>(cudaErrorInvalidValue);
+  *tape_floats = 0;
+  if (form < 2) {
+    const dim3 grid = grid_of(p);
+    *rows = static_cast<int>(grid.x * grid.y);
+    return 0;
+  }
+  const cudaError_t err = warp_grid(p, rows);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *tape_floats = static_cast<long long>(*rows) * kWarpThreads *
+                 tpt::kCarryWords * p->max_depth;
+  return 0;
 }
 
-// K3 on `stream`: image `out` (height, width, 3), ray count added to `rays`
-// (zeroed by the caller), scene cotangent d_tab (SCENE_ROWS, n) for the
-// pixel cotangent `g` (height, width, 3).  `partial` is scratch of
-// tpt_grad_blocks(p) * SCENE_ROWS * n floats.  Returns cudaGetLastError()
-// after both launches (0 when both were accepted).
+// The largest n_spheres a form takes.
+int tpt_grad_max_spheres(int form) {
+  return form == 2 ? tpt::kMaxSpheres : kGradMaxSpheres;
+}
+
+// K3 of form `form` on `stream`: image `out` (height, width, 3), ray
+// count added to `rays` (zeroed by the caller), scene cotangent d_tab
+// (SCENE_ROWS, n) for the pixel cotangent `g` (height, width, 3).
+// `partial` and `tape` are the scratch tpt_grad_scratch names; stats: null,
+// or kGcSlots zeroed totals that the form's stats instance (forms 0 and 2)
+// adds to.  Returns cudaGetLastError() after both launches (0 when both
+// were accepted).
 int tpt_grad_launch(const float* tab, const int32_t* mat,
                     const int32_t* lights, const float* cam,
                     const tpt::RenderParams* p, const float* g, float* out,
-                    unsigned long long* rays, float* partial, float* d_tab,
+                    unsigned long long* rays, float* partial, float* tape,
+                    float* d_tab, int form, unsigned long long* stats,
                     void* stream) {
-  if (bad_params(p, kGradMaxSpheres))
+  if (form < 0 || form > 2 || bad_params(p, tpt_grad_max_spheres(form)) ||
+      (form == 1 && (p->max_depth > kStoredDepth || stats)) ||
+      (form == 2 && !tape))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int m = tpt::SCENE_ROWS * p->n_spheres;
+  if (form == 2) {
+    int blocks = 0;
+    cudaError_t err = warp_grid(p, &blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    auto kernel = stats ? warp_grad_kernel<true> : warp_grad_kernel<false>;
+    kernel<<<blocks, kWarpThreads, warp_smem(p), s>>>(
+        tab, mat, lights, cam, *p, g, out, rays, tape, partial, stats);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sum_rows<<<(m + kSumThreads / 32 - 1) / (kSumThreads / 32), kSumThreads,
+               0, s>>>(partial, blocks, m, d_tab);
+    return static_cast<int>(cudaGetLastError());
+  }
   const dim3 grid = grid_of(p);
-  lockstep_kernel<true><<<grid, dim3(kBlockX, kBlockY), stage_bytes(p), s>>>(
-      tab, mat, lights, cam, *p, g, out, rays, partial);
+  auto kernel = form == 1 ? lockstep_kernel<2, false>
+                          : stats ? lockstep_kernel<1, true>
+                                  : lockstep_kernel<1, false>;
+  kernel<<<grid, dim3(kBlockX, kBlockY), stage_bytes(p), s>>>(
+      tab, mat, lights, cam, *p, g, out, rays, partial, stats);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int m = tpt::SCENE_ROWS * p->n_spheres;
   sum_partials<<<(m + 127) / 128, 128, 0, s>>>(
       partial, static_cast<int>(grid.x * grid.y), m, d_tab);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The final sum of a K3 launch of form `form` alone, on `stream`: d_tab
+// from `rows` partial rows.  For timing it apart from the kernel.
+int tpt_grad_sum_launch(const float* partial, int rows, int m, float* d_tab,
+                        int form, void* stream) {
+  if (rows < 1 || m < 1 || form < 0 || form > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (form == 2)
+    sum_rows<<<(m + kSumThreads / 32 - 1) / (kSumThreads / 32), kSumThreads,
+               0, s>>>(partial, rows, m, d_tab);
+  else
+    sum_partials<<<(m + 127) / 128, 128, 0, s>>>(partial, rows, m, d_tab);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -197,9 +451,10 @@ int tpt_lockstep_launch(const float* tab, const int32_t* mat,
                         unsigned long long* rays, void* stream) {
   if (bad_params(p, tpt::kMaxSpheres))
     return static_cast<int>(cudaErrorInvalidValue);
-  lockstep_kernel<false><<<grid_of(p), dim3(kBlockX, kBlockY), stage_bytes(p),
-                           static_cast<cudaStream_t>(stream)>>>(
-      tab, mat, lights, cam, *p, nullptr, out, rays, nullptr);
+  lockstep_kernel<0, false><<<grid_of(p), dim3(kBlockX, kBlockY),
+                              stage_bytes(p),
+                              static_cast<cudaStream_t>(stream)>>>(
+      tab, mat, lights, cam, *p, nullptr, out, rays, nullptr, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 

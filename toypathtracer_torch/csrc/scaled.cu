@@ -118,48 +118,6 @@ shadow_chunks_kernel(const float* __restrict__ rows, int n_chunks, int chunk,
 
 constexpr unsigned kFull = 0xffffffffu;
 
-// The warp of the calling thread, for csrc/coop.cuh.  Every lane of the
-// warp calls each collective at the same point of the path loop.
-struct DeviceWarp {
-  static constexpr int kWidth = 32;
-  static constexpr int kTileW = 16, kTileH = 2;
-  int lane_;
-  __device__ explicit DeviceWarp(int tid) : lane_(tid & 31) {}
-  __device__ int lane() const { return lane_; }
-  __device__ unsigned ballot(bool b) const { return __ballot_sync(kFull, b); }
-  __device__ bool any(bool b) const { return __any_sync(kFull, b); }
-  __device__ float shfl(float v, int src) const {
-    return __shfl_sync(kFull, v, src);
-  }
-  __device__ int shfl(int v, int src) const {
-    return __shfl_sync(kFull, v, src);
-  }
-  __device__ float shfl_xor(float v, int m) const {
-    return __shfl_xor_sync(kFull, v, m);
-  }
-  __device__ int shfl_xor(int v, int m) const {
-    return __shfl_xor_sync(kFull, v, m);
-  }
-  __device__ unsigned reduce_max(unsigned v) const {
-    return __reduce_max_sync(kFull, v);
-  }
-  __device__ unsigned reduce_add(unsigned v) const {
-    return __reduce_add_sync(kFull, v);
-  }
-  // Orders this warp's shared-memory writes before its later reads.
-  __device__ void sync() const { __syncwarp(); }
-  __device__ long long clock() const { return clock64(); }
-  // The next value of a launch-wide counter, for the whole warp.
-  __device__ int grab(int* counter) const {
-    int v = 0;
-    if (lane_ == 0) v = atomicAdd(counter, 1);
-    return __shfl_sync(kFull, v, 0);
-  }
-  __device__ void or_mask(unsigned* p, unsigned bits) const {
-    atomicOr(p, bits);
-  }
-};
-
 // Adds each of a thread's kStSlots counters, summed over its warp, to the
 // frame's totals.  Every lane of the warp calls it.
 __device__ void flush_stats(const unsigned long long* v,
@@ -365,7 +323,7 @@ coop_render_kernel(const float* __restrict__ tab,
   S.gbox = s_gbox;
   S.n_groups = n_groups;
   S.nee = s_nee + (tid >> 5) * nee;
-  const DeviceWarp w(tid);
+  const tpt::DeviceWarp w(tid);
   unsigned long long count;
   if constexpr (kStats) {
     CoopStats cs(tid);

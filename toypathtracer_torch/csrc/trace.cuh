@@ -712,6 +712,34 @@ TPT_HD void bounce_adj(const SceneView& S, const RenderParams& p, V3 ro,
   sphere_t_adj(S, id, ro, rd, p.t_min, dot(g_pos, rd), g_ro, g_rd, acc);
 }
 
+// What the gradient kernels' stats instances count (csrc/grad.cu): SM
+// clock cycles, summed over threads, in each part of the kernel -- the
+// forward trace, the replays (PR 2's form), the adjoint sweep, within it
+// the warp form's grouped adds, zeroing the cotangent tables, the block
+// reduction, and the whole thread; then the adjoint bounces run, the
+// replayed bounces, the lane slots of the warp form's reverse steps (32 a
+// step of a warp), and the hit groups its adds formed and the lanes in
+// them.  The timed instances pass NoGradCount, which compiles to nothing.
+enum {
+  kGcCycFwd = 0, kGcCycReplay, kGcCycAdj, kGcCycGroup, kGcCycZero,
+  kGcCycReduce, kGcCycAll, kGcAdjBounces, kGcReplayBounces, kGcAdjSlots,
+  kGcHitGroups, kGcHitLanes, kGcSlots
+};
+
+struct NoGradCount {
+  static constexpr bool kOn = false;
+  TPT_HD void add(int, unsigned long long) {}
+};
+
+// The SM clock on the card, 0 on the host.
+TPT_HD long long sm_clock() {
+#ifdef __CUDA_ARCH__
+  return clock64();
+#else
+  return 0;
+#endif
+}
+
 // One pixel of the gradient kernel: render_pixel's primal, bit for bit,
 // into out[0..2] (returning its rays), and the pixel's scene cotangent for
 // the pixel cotangent g[0..2] added to acc.  Each sample is traced once
@@ -719,10 +747,12 @@ TPT_HD void bounce_adj(const SceneView& S, const RenderParams& p, V3 ro,
 // replayed from the sample's camera ray and RNG state (bounces before d
 // without NEE's shadow tests: the replay needs their path and attenuation,
 // not their radiance).  A path of L bounces costs O(L^2) bounces; most end
-// by depth 3-4.
+// by depth 3-4.  This is PR 2's form, kept as the baseline of
+// grad_pixel_stored and of the warp form (csrc/gradwarp.cuh).
+template <class Cnt>
 TPT_HD uint32_t grad_pixel(const SceneView& S, const float* cam,
                            const RenderParams& p, int x, int y,
-                           const float* g, float* out, float* acc) {
+                           const float* g, float* out, float* acc, Cnt& cnt) {
   const V3 zero = v3(0.0f, 0.0f, 0.0f);
   uint32_t st = seed_pixel((uint32_t)x, (uint32_t)y, p.frame);
   uint32_t rays = 0;
@@ -730,13 +760,20 @@ TPT_HD uint32_t grad_pixel(const SceneView& S, const float* cam,
   // img = (sum of sample radiances) * inv_spp
   const V3 G = v3(g[0] * p.inv_spp, g[1] * p.inv_spp, g[2] * p.inv_spp);
   V3 sum = zero;
+  long long c0 = 0;
   for (int s = 0; s < p.spp; ++s) {
+    if constexpr (Cnt::kOn) c0 = sm_clock();
     V3 ro0, rd0;
     sample_ray(cam, p, x, y, st, ro0, rd0);
     const uint32_t st0 = st;
     int depth;
     bool cut;
     sum = add(sum, trace_sample(S, p, ro0, rd0, st, rays, depth, cut));
+    if constexpr (Cnt::kOn) {
+      const long long c1 = sm_clock();
+      cnt.add(kGcCycFwd, c1 - c0);
+      c0 = c1;
+    }
     V3 g_atten = zero;
     V3 g_ro = zero;
     V3 g_rd = zero;
@@ -752,13 +789,152 @@ TPT_HD uint32_t grad_pixel(const SceneView& S, const float* cam,
       const V3 ro_in = ro, rd_in = rd;
       const uint32_t st_in = rs;
       bounce(S, p, true, ro, rd, rs, do_me, replay_rays, e, c, rec);
+      if constexpr (Cnt::kOn) {
+        const long long c1 = sm_clock();
+        cnt.add(kGcCycReplay, c1 - c0);
+        cnt.add(kGcReplayBounces, d + 1);
+        c0 = c1;
+      }
       // col += atten * e; atten *= c -- reversed
       V3 g_e = mul(atten, G);
       V3 g_c = mul(g_atten, atten);
       g_atten = add(mul(G, e), mul(g_atten, c));
       bounce_adj(S, p, ro_in, rd_in, st_in, rec, g_e, g_c, g_ro, g_rd, acc);
+      if constexpr (Cnt::kOn) {
+        const long long c1 = sm_clock();
+        cnt.add(kGcCycAdj, c1 - c0);
+        cnt.add(kGcAdjBounces, 1);
+        c0 = c1;
+      }
     }
     // the camera ray depends on no scene parameter: g_ro, g_rd end here
+  }
+  out[0] = sum.x * p.inv_spp;
+  out[1] = sum.y * p.inv_spp;
+  out[2] = sum.z * p.inv_spp;
+  return rays;
+}
+
+TPT_HD uint32_t grad_pixel(const SceneView& S, const float* cam,
+                           const RenderParams& p, int x, int y,
+                           const float* g, float* out, float* acc) {
+  NoGradCount none;
+  return grad_pixel(S, cam, p, x, y, g, out, acc, none);
+}
+
+// ---- Stored carries: the adjoint sweep without replays ----
+//
+// What the adjoint of bounce d reads, kept by the forward trace instead of
+// replayed: the bounce's ray, the RNG state it started from, its record,
+// its emission e and the attenuation the sample carried into it.  Its
+// continuation attenuation c is not kept: carry_c rebuilds it from the
+// record and the scene.  A replay with vis=false draws and counts as the
+// forward trace does, so every field equals what PR 2's replay computed,
+// and the sweep below is bit-equal to grad_pixel.
+enum { kCarryWords = 15 };
+
+struct Carry {
+  V3 ro, rd;
+  float t;
+  uint32_t st;
+  uint32_t bits;  // id + 1 (bits 0-9), scattered, gated, refl (10-12),
+                  // see (16-31)
+  V3 e, atten;
+};
+
+TPT_HD uint32_t pack_rec(const BounceRec& r) {
+  return (uint32_t)(r.id + 1) | (r.scattered ? 1u << 10 : 0u) |
+         (r.gated ? 1u << 11 : 0u) | (r.refl ? 1u << 12 : 0u) |
+         (r.see << 16);
+}
+
+TPT_HD BounceRec unpack_rec(uint32_t bits, float t) {
+  BounceRec r;
+  r.id = (int)(bits & 1023u) - 1;
+  r.t = t;
+  r.scattered = (bits >> 10) & 1u;
+  r.gated = (bits >> 11) & 1u;
+  r.refl = (bits >> 12) & 1u;
+  r.see = bits >> 16;
+  return r;
+}
+
+// The continuation attenuation c that bounce() set: the albedo, 1 for a
+// dielectric, 0 where the path ended.
+TPT_HD V3 carry_c(const SceneView& S, const BounceRec& r) {
+  if (!r.scattered) return v3(0.0f, 0.0f, 0.0f);
+  if (S.mat[r.id] == MAT_DIELECTRIC) return v3(1.0f, 1.0f, 1.0f);
+  return v3(S.at(ROW_ALB, r.id), S.at(ROW_ALB + 1, r.id),
+            S.at(ROW_ALB + 2, r.id));
+}
+
+// A tape of Carry records in an array (the g++ tests, and the stored
+// form's per-thread array in local memory).
+struct ArrayTape {
+  Carry* c;
+  TPT_HD void put(int d, const Carry& x) { c[d] = x; }
+  TPT_HD Carry get(int d) const { return c[d]; }
+};
+
+// trace_sample, recording each bounce's Carry in tape[depth].
+template <class View, class Tape>
+TPT_HD V3 trace_sample_tape(const View& S, const RenderParams& p, V3 ro,
+                            V3 rd, uint32_t& st, uint32_t& rays, int& depth,
+                            Tape& tape) {
+  V3 col = v3(0.0f, 0.0f, 0.0f);
+  V3 atten = v3(1.0f, 1.0f, 1.0f);
+  bool do_me = true;
+  V3 e, c;
+  BounceRec rec;
+  depth = 0;
+  while (depth < p.max_depth) {
+    Carry k;
+    k.ro = ro;
+    k.rd = rd;
+    k.st = st;
+    k.atten = atten;
+    bool go = bounce(S, p, true, ro, rd, st, do_me, rays, e, c, rec);
+    k.t = rec.t;
+    k.bits = pack_rec(rec);
+    k.e = e;
+    tape.put(depth, k);
+    col = add(col, mul(atten, e));
+    ++depth;
+    if (!go) break;
+    atten = mul(atten, c);
+  }
+  return col;
+}
+
+// grad_pixel with stored carries: the same image, rays and cotangent adds
+// in the same order, each bounce traced once.  `tape` holds max_depth
+// records.
+template <class Tape>
+TPT_HD uint32_t grad_pixel_stored(const SceneView& S, const float* cam,
+                                  const RenderParams& p, int x, int y,
+                                  const float* g, float* out, float* acc,
+                                  Tape& tape) {
+  const V3 zero = v3(0.0f, 0.0f, 0.0f);
+  uint32_t st = seed_pixel((uint32_t)x, (uint32_t)y, p.frame);
+  uint32_t rays = 0;
+  const V3 G = v3(g[0] * p.inv_spp, g[1] * p.inv_spp, g[2] * p.inv_spp);
+  V3 sum = zero;
+  for (int s = 0; s < p.spp; ++s) {
+    V3 ro0, rd0;
+    sample_ray(cam, p, x, y, st, ro0, rd0);
+    int depth;
+    sum = add(sum, trace_sample_tape(S, p, ro0, rd0, st, rays, depth, tape));
+    V3 g_atten = zero;
+    V3 g_ro = zero;
+    V3 g_rd = zero;
+    for (int d = depth - 1; d >= 0; --d) {
+      const Carry k = tape.get(d);
+      const BounceRec rec = unpack_rec(k.bits, k.t);
+      V3 g_e = mul(k.atten, G);
+      V3 g_c = mul(g_atten, k.atten);
+      g_atten = add(mul(G, k.e), mul(g_atten, carry_c(S, rec)));
+      bounce_adj(S, p, k.ro, k.rd, k.st, rec, g_e, g_c, g_ro, g_rd, acc);
+    }
   }
   out[0] = sum.x * p.inv_spp;
   out[1] = sum.y * p.inv_spp;

@@ -31,7 +31,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 SOURCES = ("render.cu", "grad.cu", "scaled.cu", "probe.cu")
-HEADERS = ("trace.cuh", "chunks.cuh", "coop.cuh", "probe.cuh")
+HEADERS = ("trace.cuh", "warp.cuh", "gradwarp.cuh", "chunks.cuh", "coop.cuh",
+           "probe.cuh")
 
 
 class RenderParams(ctypes.Structure):
@@ -172,8 +173,10 @@ def load_library() -> ctypes.CDLL:
     lib.tpt_lockstep_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr,
                                         ptr]
     lib.tpt_grad_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr, ptr,
-                                    ptr, ptr, ptr]
-    lib.tpt_grad_blocks.argtypes = [params]
+                                    ptr, ptr, ptr, i32, ptr, ptr]
+    lib.tpt_grad_scratch.argtypes = [params, i32, ptr, ptr]
+    lib.tpt_grad_max_spheres.argtypes = [i32]
+    lib.tpt_grad_sum_launch.argtypes = [ptr, i32, i32, ptr, i32, ptr]
     lib.tpt_hit_chunks_launch.argtypes = [ptr, i32, i32, ptr, ptr, i32, f32,
                                           f32, ptr, ptr, ptr]
     lib.tpt_shadow_chunks_launch.argtypes = [ptr, i32, i32, ptr, ptr, ptr,
@@ -185,7 +188,8 @@ def load_library() -> ctypes.CDLL:
     lib.tpt_probe_launch.argtypes = [i32, i32, i32, ptr, ptr]
     for fn in (lib.tpt_render_launch, lib.tpt_render_stats_launch,
                lib.tpt_lockstep_launch, lib.tpt_grad_launch,
-               lib.tpt_grad_blocks, lib.tpt_hit_chunks_launch,
+               lib.tpt_grad_scratch, lib.tpt_grad_max_spheres,
+               lib.tpt_grad_sum_launch, lib.tpt_hit_chunks_launch,
                lib.tpt_shadow_chunks_launch, lib.tpt_scaled_render_launch,
                lib.tpt_scaled_groups, lib.tpt_probe_launch):
         fn.restype = ctypes.c_int

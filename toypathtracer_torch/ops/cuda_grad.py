@@ -1,15 +1,24 @@
 """The gradient and lockstep kernels' wrappers (counterpart of
 toypathtracer_tpu/ops/pallas_grad.py).
 
-`render_tile_grad` launches the hand-written CUDA gradient kernel of
-csrc/grad.cu (the port of pallas_grad.py::_grad_kernel) and
-`render_tile_lockstep` its primal-only twin (::_lockstep_fwd_kernel) on
+`render_tile_grad` launches the hand-written CUDA gradient kernel (K3, the
+port of pallas_grad.py::_grad_kernel) and `render_tile_lockstep` its
+primal-only twin (K4, ::_lockstep_fwd_kernel), both in csrc/grad.cu, on
 CUDA tensors; on CPU tensors they run the plain versions
 (render/wavefront.render_tile_grad_plain and render_tile_plain).  There is
 no fallback: on a CUDA tensor a failed build or launch raises.
-`launches["grad"]` and `launches["lockstep"]` count wrapper launches (one
-gradient launch is the kernel and the small kernel that sums its
-per-block partials).
+
+K3 has three forms (`render_tile_grad_form`): "warp", the main path's
+(csrc/gradwarp.cuh: stored carries and a warp-level cotangent table, up to
+512 spheres); "replay", PR 2's kernel it replaced (bounces replayed, a
+per-thread table, up to 64 spheres), kept as the baseline it is timed
+against; and "stored", PR 2's kernel with stored carries instead of the
+replays (bit-equal to "replay"), which measures the replays alone.
+"replay" and "warp" have stats instances that count SM cycles by part.
+`launches` counts wrapper launches: "grad" the main path's form (one
+launch is the kernel and the small kernel that sums its per-block
+partials), "grad_replay", "grad_stored", "grad_stats" the others,
+"lockstep" K4.
 
 `render_frame_diff` / `render_tile_diff` are the differentiable renders of
 the training step: a torch.autograd.Function on the packed scene table
@@ -33,40 +42,104 @@ from ..render.wavefront import (check_hard_gradients, render_tile_grad_plain,
                                 render_tile_plain)
 from ..scene import Scene
 from . import _build
-from .cuda_render import (check_device, checked_tab, cuda_call,
-                          kernel_inputs, launch_forward, pack_scene,
-                          render_params, render_tile)
+from .cuda_render import (MAX_SPHERES, check_device, checked_tab,
+                          cuda_call, kernel_inputs, launch_forward,
+                          pack_scene, render_params, render_tile)
 
-# The gradient kernel keeps a (14, N) cotangent table per thread
-# (csrc/grad.cu kGradMaxSpheres).
-MAX_SPHERES = 64
+# K3's forms (tpt_grad_launch's `form`), their launch counters, and the
+# spheres each takes: the warp form's table is per warp in shared memory,
+# up to tpt::kMaxSpheres (MAX_SPHERES, as the render kernel); PR 2's is
+# per thread (csrc/grad.cu kGradMaxSpheres).  The stored form keeps at
+# most STORED_MAX_DEPTH bounces a sample in local memory.
+FORMS = {"replay": 0, "stored": 1, "warp": 2}
+MAIN_FORM = "warp"
+COUNTERS = {"warp": "grad", "replay": "grad_replay", "stored": "grad_stored"}
+FORM_MAX_SPHERES = {"warp": MAX_SPHERES, "replay": 64, "stored": 64}
+STORED_MAX_DEPTH = 16
+
+# The stats instances' counters (csrc/trace.cuh kGc*), summed over threads:
+# SM cycles in the forward trace, the replays, the adjoint sweep, the warp
+# form's grouping of lanes, zeroing the tables, the block reduction and the
+# whole thread; adjoint bounces, replayed bounces, lane slots of the warp
+# form's reverse steps, its hit groups and the lanes in them.
+STAT_FIELDS = ("cycles_fwd", "cycles_replay", "cycles_adj", "cycles_group",
+               "cycles_zero", "cycles_reduce", "cycles_all", "adj_bounces",
+               "replay_bounces", "adj_slots", "hit_groups", "hit_lanes")
 
 PARAM_FIELDS = ("center", "radius", "albedo", "emissive", "roughness", "ri")
 
-launches = {"grad": 0, "lockstep": 0}
+launches = {"grad": 0, "grad_replay": 0, "grad_stored": 0, "grad_stats": 0,
+            "lockstep": 0}
 
 
-def _launch_grad(scene, tab, cfg, frame, g_img, x0, y0, height, width):
+def grad_scratch(scene: Scene, cfg: RenderConfig, frame: int, x0: int,
+                 y0: int, height: int, width: int, form: str):
+    """The scratch a K3 launch of `form` takes on the scene's card: (rows
+    of its (rows, 14, N) per-block partial sums, floats of its stored
+    carries)."""
+    lib = _build.load_library()
+    params = render_params(scene, cfg, frame, x0, y0, height, width)
+    rows, tape_floats = ctypes.c_int(), ctypes.c_longlong()
+    with torch.cuda.device(scene.device):
+        cuda_call(lib, "grad", lib.tpt_grad_scratch(
+            ctypes.byref(params), FORMS[form], ctypes.byref(rows),
+            ctypes.byref(tape_floats)))
+    return rows.value, tape_floats.value
+
+
+def _launch_grad(scene, tab, cfg, frame, g_img, x0, y0, height, width, form,
+                 stats):
     lib = _build.load_library()
     mat, lights, cam = kernel_inputs(scene, cfg)
     dev = scene.device
     out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     params = render_params(scene, cfg, frame, x0, y0, height, width)
-    blocks = lib.tpt_grad_blocks(ctypes.byref(params))
-    partial = torch.empty((blocks, 14, scene.n_spheres), dtype=torch.float32,
-                          device=dev)
-    d_tab = torch.empty((14, scene.n_spheres), dtype=torch.float32,
-                        device=dev)
+    rows, tape_floats = grad_scratch(scene, cfg, frame, x0, y0, height,
+                                     width, form)
+    n = scene.n_spheres
+    partial = torch.empty((rows, 14, n), dtype=torch.float32, device=dev)
+    tape = torch.empty((tape_floats,), dtype=torch.float32, device=dev)
+    d_tab = torch.empty((14, n), dtype=torch.float32, device=dev)
+    counts = torch.zeros((len(STAT_FIELDS),), dtype=torch.int64,
+                         device=dev) if stats else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.tpt_grad_launch(
             tab.data_ptr(), mat.data_ptr(), lights.data_ptr(), cam.data_ptr(),
             ctypes.byref(params), g_img.data_ptr(), out.data_ptr(),
-            rays.data_ptr(), partial.data_ptr(), d_tab.data_ptr(), stream)
+            rays.data_ptr(), partial.data_ptr(),
+            tape.data_ptr() if tape.numel() else None, d_tab.data_ptr(),
+            FORMS[form], counts.data_ptr() if stats else None, stream)
     cuda_call(lib, "grad", code)
-    launches["grad"] += 1
+    launches["grad_stats" if stats else COUNTERS[form]] += 1
+    if stats:
+        return out, rays, d_tab, dict(zip(STAT_FIELDS,
+                                          (int(v) for v in counts.cpu())))
     return out, rays, d_tab
+
+
+def sum_partials(partial, form: str):
+    """K3's final sum alone: the (14, N) cotangent from a form's (rows, 14,
+    N) per-block partial sums, by that form's summing kernel (PR 2's
+    serial sum for "replay" and "stored", the warp form's fixed tree for
+    "warp").  For timing the sum apart from the kernel; CUDA tensors
+    only."""
+    if form not in FORMS:
+        raise ValueError(f"no gradient kernel form {form!r}")
+    if partial.device.type != "cuda" or partial.dim() != 3:
+        raise ValueError("sum_partials takes a (rows, 14, N) CUDA tensor")
+    partial = partial.contiguous()
+    lib = _build.load_library()
+    d_tab = torch.empty(partial.shape[1:], dtype=torch.float32,
+                        device=partial.device)
+    with torch.cuda.device(partial.device):
+        code = lib.tpt_grad_sum_launch(
+            partial.data_ptr(), partial.shape[0], d_tab.numel(),
+            d_tab.data_ptr(), FORMS[form],
+            torch.cuda.current_stream(partial.device).cuda_stream)
+    cuda_call(lib, "grad_sum", code)
+    return d_tab
 
 
 def render_tile_lockstep(scene: Scene, cfg: RenderConfig, frame: int,
@@ -91,15 +164,36 @@ def render_tile_grad(scene: Scene, cfg: RenderConfig, frame: int, g_img,
                      x0: int, y0: int, height: int, width: int, tab=None):
     """Value and packed-scene cotangent of the (height, width) sub-image at
     global pixel (x0, y0) for the pixel cotangent g_img ((height, width, 3)):
-    the gradient kernel (K3) on a card, autograd through the plain version
-    on the CPU.  `tab` is the packed table (default pack_scene(scene)).
+    the gradient kernel (K3, its warp form, up to MAX_SPHERES spheres) on a
+    card, autograd through the plain version on the CPU.  `tab` is the
+    packed table (default pack_scene(scene)).
 
     Returns ((height, width, 3) float32 image, 0-d int64 ray count,
     d_packed (14, N) float32)."""
+    return render_tile_grad_form(scene, cfg, frame, g_img, x0, y0, height,
+                                 width, MAIN_FORM, tab=tab)
+
+
+def render_tile_grad_form(scene: Scene, cfg: RenderConfig, frame: int, g_img,
+                          x0: int, y0: int, height: int, width: int,
+                          form: str, tab=None, stats: bool = False):
+    """render_tile_grad through K3's form `form` (FORMS): on a card that
+    form's kernel, on the CPU the plain version whatever the form.
+    stats=True launches the form's stats instance ("replay" and "warp", on
+    a card) and returns a fourth value, its counters by STAT_FIELDS."""
     check_hard_gradients(cfg)
-    if scene.n_spheres > MAX_SPHERES:
-        raise ValueError(f"the gradient kernel takes at most {MAX_SPHERES} "
-                         f"spheres, got {scene.n_spheres}")
+    if form not in FORMS:
+        raise ValueError(f"no gradient kernel form {form!r}")
+    cap = FORM_MAX_SPHERES[form]
+    if scene.n_spheres > cap:
+        raise ValueError(f"the gradient kernel's {form} form takes at most "
+                         f"{cap} spheres, got {scene.n_spheres}")
+    if form == "stored" and cfg.max_depth > STORED_MAX_DEPTH:
+        raise ValueError(f"the stored form keeps at most {STORED_MAX_DEPTH} "
+                         f"bounces, got max_depth {cfg.max_depth}")
+    if stats and (form == "stored" or scene.device.type != "cuda"):
+        raise ValueError("stats instances exist for the replay and warp "
+                         "forms, on a card")
     tab = checked_tab(scene, x0, y0, height, width, tab)
     if tuple(g_img.shape) != (height, width, 3):
         raise ValueError(f"pixel cotangent must be ({height}, {width}, 3), "
@@ -108,7 +202,7 @@ def render_tile_grad(scene: Scene, cfg: RenderConfig, frame: int, g_img,
     g_img = g_img.detach().to(torch.float32).contiguous()
     if scene.device.type == "cuda":
         return _launch_grad(scene, tab, cfg, frame, g_img, x0, y0, height,
-                            width)
+                            width, form, stats)
     if scene.device.type == "cpu":
         return render_tile_grad_plain(scene, cfg, frame, g_img, x0, y0,
                                       height, width, tab=tab)

@@ -1,0 +1,110 @@
+"""Where the gradient kernel (K3) spends its SM cycles.
+
+    python -m toypathtracer_torch.tools.grad_stats [--forms replay,warp]
+        [--width 1280] [--height 720] [--spp 4] [--depth 10] [--frame 0]
+        [--out PATH]
+
+Launches each form's stats instance once (ops/cuda_grad.
+render_tile_grad_form with stats=True) on the 46-sphere frame for a
+random pixel cotangent (numpy seed 11), and reports its SM-cycle counters
+(csrc/trace.cuh kGc*) as shares of its threads' cycles, its work counts,
+and the form's final sum of the per-block partials timed alone with CUDA
+events (ops/cuda_grad.sum_partials).  The counters are summed over
+threads, and the clock reads cost cycles of their own, so the shares are
+what to read, not the totals.  "other" is what no part holds: staging the
+scene, the ray count, and the waits of threads whose pixels ended early.
+
+Needs a card: cycle counts and times are never taken on the CPU.  Writes
+build/grad_stats_torch.json at the root of the checkout (or --out) and
+prints the same JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..config import RenderConfig
+from ..ops import cuda_grad
+from ..profiling import time_device_call
+from ..scene import make_scene
+
+OUT = Path(__file__).resolve().parents[2] / "build" / "grad_stats_torch.json"
+
+PARTS = ("fwd", "replay", "adj", "group", "zero", "reduce")
+
+
+def cotangent(height: int, width: int, seed: int = 11, device="cuda"):
+    """The pixel cotangent the gradient measurements use: uniform [0, 1)
+    from a seeded numpy generator."""
+    g = np.random.RandomState(seed).rand(height, width, 3)
+    return torch.from_numpy(g.astype(np.float32)).to(device)
+
+
+def form_stats(scene, cfg: RenderConfig, form: str, g, frame: int = 0,
+               sum_repeats: int = 20) -> dict:
+    """One stats launch of K3's `form` over the whole frame and the form's
+    final sum timed alone; `scene` and `g` on the card."""
+    H, W = cfg.height, cfg.width
+    _, rays, _, c = cuda_grad.render_tile_grad_form(
+        scene, cfg, frame, g, 0, 0, H, W, form, stats=True)
+    total = c["cycles_all"]
+    shares = {k: c[f"cycles_{k}"] / total for k in PARTS}
+    # the warp form's grouping runs inside its adjoint sweep
+    shares["other"] = 1.0 - sum(v for k, v in shares.items() if k != "group")
+    rows, _ = cuda_grad.grad_scratch(scene, cfg, frame, 0, 0, H, W, form)
+    partial = torch.ones((rows, 14, scene.n_spheres), dtype=torch.float32,
+                         device=scene.device)
+    cuda_grad.sum_partials(partial, form)
+    sum_s, _ = time_device_call(cuda_grad.sum_partials, partial, form,
+                                repeats=sum_repeats)
+    samples = H * W * cfg.samples_per_pixel
+    out = {"form": form, "rays": int(rays), "counters": c,
+           "cycle_shares": shares,
+           "adjoint_bounces_per_sample": c["adj_bounces"] / samples,
+           "partial_rows": rows, "sum_ms": sum_s * 1e3}
+    if form == "replay":
+        out["replayed_bounces_per_adjoint_bounce"] = (
+            c["replay_bounces"] / max(c["adj_bounces"], 1))
+    else:
+        out["reverse_lane_busy"] = c["adj_bounces"] / max(c["adj_slots"], 1)
+        out["mean_hit_group"] = c["hit_lanes"] / max(c["hit_groups"], 1)
+    return out
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--forms", default="replay,warp")
+    ap.add_argument("--width", type=int, default=1280)
+    ap.add_argument("--height", type=int, default=720)
+    ap.add_argument("--spp", type=int, default=4)
+    ap.add_argument("--depth", type=int, default=10)
+    ap.add_argument("--frame", type=int, default=0)
+    ap.add_argument("--out", default=None,
+                    help=f"output path (default {OUT})")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("grad_stats: needs a CUDA device")
+    cfg = RenderConfig(width=args.width, height=args.height,
+                       samples_per_pixel=args.spp, max_depth=args.depth)
+    scene = make_scene(big=True).to("cuda")
+    g = cotangent(cfg.height, cfg.width)
+    res = {"device": torch.cuda.get_device_name(0),
+           "config": {"width": cfg.width, "height": cfg.height,
+                      "spp": cfg.samples_per_pixel,
+                      "max_depth": cfg.max_depth, "frame": args.frame},
+           "forms": [form_stats(scene, cfg, f, g, args.frame)
+                     for f in args.forms.split(",")]}
+    out = Path(args.out) if args.out else OUT
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(res, indent=1))
+    print(json.dumps(res), flush=True)
+    return res
+
+
+if __name__ == "__main__":
+    main()
