@@ -17,12 +17,12 @@ non-zero):
      the 16-frame image against 16 plain frames (8x8 block gates), and one
      kernel launch per frame.
   4. timing with CUDA events: 64 steady frames after 4 warm-up frames.
-  5. gradient kernel (K3: its warp form, the main path's, and PR 2's
-     replaying form, the baseline) and lockstep kernel (K4) vs plain
-     autograd at 320x176, spp 2, depth 4, the big and the small scene,
-     frames 0-1, and the warp form on a 130-sphere scene; each form
-     bit-equal launch to launch, PR 2's bit-equal to its stored-carry
-     form.
+  5. gradient kernel (K3: its warp form, the main path's, and the
+     replaying form it replaced, the baseline) and lockstep kernel (K4)
+     vs plain autograd at 320x176, spp 2, depth 4, the big and the small
+     scene, frames 0-1, and the warp form on a 130-sphere scene; each
+     form bit-equal launch to launch, the replaying form bit-equal to
+     its stored-carry form.
   6. the training path at 1280x720, spp 4, depth 10, 46 spheres:
      InverseRenderer Adam steps from a perturbed albedo (one render and
      one warp-form gradient launch a step; with lockstep_primal, one
@@ -85,13 +85,14 @@ import torch
 
 
 # Registers and spill bytes of the kernels that the redesigns must leave as
-# they were (-Xptxas -v of their sources before them): K1, PR 2's K3
-# (lockstep_kernel<1,0>), K4 (<0,0>), K5, K6 and the per-lane scaled render
+# they were (-Xptxas -v of their sources before them): K1, the replaying
+# K3 (lockstep_kernel<1,0>), K4 (<0,0>), K5, K6 and the per-lane scaled render
 # kernel; and K3's warp form at its own counts.
 KEPT_USAGE = {
     "render_kernel<0>": {"registers": 80, "spill_stores": 48},
     "lockstep_kernel<1,0>": {"registers": 116, "spill_stores": 0},
     "lockstep_kernel<0,0>": {"registers": 80, "spill_stores": 52},
+    "warp_grad_kernel<0>": {"registers": 40, "spill_stores": 1154},
     "scaled_render_kernel<0>": {"registers": 80, "spill_stores": 32},
     "hit_chunks_kernel": {"registers": 40, "spill_stores": 0},
     "shadow_chunks_kernel": {"registers": 32, "spill_stores": 0},
@@ -357,7 +358,7 @@ def crowded_scene(scene, extra=84, seed=3):
     """`scene` with `extra` small spheres appended on the floor in front of
     the camera (130 spheres from the 46-sphere scene): Lambert, metal and
     dielectric in turn, albedos from a seeded numpy generator.  K3's warp
-    form takes up to 512 spheres; PR 2's took 64."""
+    form takes up to 512 spheres; the replaying form, 64."""
     import numpy as np
     rng = np.random.RandomState(seed)
     idx = np.arange(extra)
@@ -379,9 +380,9 @@ def crowded_scene(scene, extra=84, seed=3):
 
 def grad_phases(cfg, scene, scene_d, smi, k1, usage):
     """Phases 5-7: the gradient kernel (K3: its warp form on the main path
-    and PR 2's replaying form, the baseline) and the lockstep kernel (K4)
-    against plain autograd, the training path at full size, K3's cycle
-    shares by part, and the timing, the two K3 forms in turns.  `k1`
+    and the replaying form it replaced, the baseline) and the lockstep
+    kernel (K4) against plain autograd, the training path at full size,
+    K3's cycle shares by part, and the timing, the K3 forms in turns.  `k1`
     carries the render kernel's frame-0 work counts, bound terms and plain
     version from phase 4; `usage` is phase 1's -Xptxas -v table.  Returns
     the kernels' entries of the `kernels` line."""
@@ -432,7 +433,7 @@ def grad_phases(cfg, scene, scene_d, smi, k1, usage):
                      "lockstep_bit_equal": bool(torch.equal(img_l, img_k)),
                      "grad_deterministic": bool(torch.equal(d_k, d_k2)),
                      "finite": bool(torch.isfinite(d_k).all())}
-                if form == "replay":  # step (a) alone: bit-equal to PR 2's
+                if form == "replay":  # stored carries: bit-equal
                     st = cuda_grad.render_tile_grad_form(*args, "stored")
                     r["stored_bit_equal"] = all(
                         bool(torch.equal(x, y))
@@ -667,7 +668,7 @@ def grad_phases(cfg, scene, scene_d, smi, k1, usage):
          "bound_ms": grad_bound, "bound_by": "operations",
          "library_ms": None, "form": main_form,
          "baseline_ms": form_ms["replay"]["ms"],
-         "baseline": "PR 2's replaying form (lockstep_kernel<1,0>), timed "
+         "baseline": "the replaying form (lockstep_kernel<1,0>), timed "
                      "in turns with it",
          "stored_ms": form_ms["stored"]["ms"],
          "ptxas": usage.get("warp_grad_kernel<0>", {}),
@@ -686,8 +687,8 @@ def grad_phases(cfg, scene, scene_d, smi, k1, usage):
          "ms": form_ms["replay"]["ms"], "plain_ms": grad_plain_s * 1e3,
          "bound_ms": grad_bound, "bound_by": "operations",
          "library_ms": None, "form": "replay",
-         "baseline": "PR 2's K3, kept beside the warp form as its A/B and "
-                     "equality baseline; not on the main path",
+         "baseline": "the replaying K3, kept beside the warp form as its "
+                     "A/B and equality baseline; not on the main path",
          "ptxas": usage.get("lockstep_kernel<1,0>", {}),
          "cycle_shares": shares["replay"]["cycle_shares"],
          "vs_plain": {"tolerance": tol,

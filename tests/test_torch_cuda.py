@@ -9,8 +9,8 @@ Tolerances: the gates of chip_smoke.py.  Render kernel: rays 5e-4
 relative, mean |diff| 1e-3; measured on an H100 at 320x176: rays exact,
 max |diff| 1.9e-6.  Gradient kernel: rays exact, d_packed per row within
 1e-3 x the row's max |plain autograd| (its warp form also at 130
-spheres; PR 2's form measured on an H100 at 320x176: at most 4.9e-6), two
-launches bit-equal, the stored-carry form and the stats instances
+spheres; the replaying form measured on an H100 at 320x176: at most
+4.9e-6), two launches bit-equal, the stored-carry form and the stats instances
 bit-equal to the forms they measure.  Scaled kernels (n=3000, chunk
 256): the traversal K5 and the shadow bitmask K6 equal to their plain
 versions on all but 1e-5 of the rays, t within 1e-6 relative where the
@@ -42,7 +42,7 @@ from toypathtracer_torch.render.wavefront import (render_frame_plain,
 from toypathtracer_torch.scaled import (ChunkTraversal, ChunkedScenePort,
                                         make_scaled_scene, pack_chunks,
                                         render_frame_scaled_plain)
-from toypathtracer_torch.tools import roofline
+from toypathtracer_torch.tools import grad_stats, roofline
 
 from test_torch_grad_kernel_cpu import crowded_scene
 
@@ -118,7 +118,7 @@ def assert_rows_close(got, want, rtol):
 
 @pytest.mark.parametrize("crowded", [False, True], ids=["46", "130"])
 def test_warp_grad_kernel_matches_plain_autograd(card, crowded):
-    """K3's warp form at 46 spheres and at 130 (PR 2's form took 64):
+    """K3's warp form at 46 spheres and at 130 (the replaying form takes 64):
     plain autograd per row within 1e-3 x the row's max, rays exact, two
     launches bit-equal, the image bit-equal to K4's."""
     scene = (crowded_scene() if crowded else make_scene(big=True)).to(card)
@@ -141,7 +141,7 @@ def test_warp_grad_kernel_matches_plain_autograd(card, crowded):
 
 
 def test_stored_grad_form_bit_equal_to_replay(card):
-    """PR 2's kernel with stored carries: image, rays and cotangent
+    """The replaying kernel with stored carries: image, rays and cotangent
     bit-equal to the replaying kernel."""
     scene = make_scene(big=True).to(card)
     cfg = RenderConfig(width=96, height=40, samples_per_pixel=2, max_depth=6)
@@ -172,6 +172,22 @@ def test_grad_stats_instance_bit_equal_to_timed(card, form):
     parts += ["cycles_replay", "replay_bounces"] if form == "replay" else [
         "cycles_group", "adj_slots", "hit_groups", "hit_lanes"]
     assert all(counts[k] > 0 for k in parts), counts
+
+
+def test_grad_stats_tool_on_the_card(card, tmp_path):
+    """tools.grad_stats at a small size: both forms' cycle shares lie in
+    [0, 1] and, with "other", cover the threads' cycles; the rays are the
+    plain version's; the final sums were timed."""
+    out = grad_stats.main(["--width", "64", "--height", "32", "--spp", "2",
+                           "--depth", "4", "--out", str(tmp_path / "g.json")])
+    cfg = RenderConfig(width=64, height=32, samples_per_pixel=2, max_depth=4)
+    _, rays = render_frame_plain(make_scene(big=True).to(card), cfg, 0)
+    assert [f["form"] for f in out["forms"]] == ["replay", "warp"]
+    for f in out["forms"]:
+        sh = f["cycle_shares"]
+        assert all(0.0 <= v <= 1.0 for v in sh.values()), sh
+        assert abs(sum(v for k, v in sh.items() if k != "group") - 1) < 1e-9
+        assert f["rays"] == int(rays) and f["sum_ms"] > 0
 
 
 @pytest.mark.parametrize("lockstep", [False, True])

@@ -34,8 +34,9 @@ import torch
 
 from toypathtracer_torch import RenderConfig, make_scene
 from toypathtracer_torch.camera import camera_to_array, make_camera
-from toypathtracer_torch.ops import _build, cuda_render
+from toypathtracer_torch.ops import _build, cuda_grad, cuda_render
 from toypathtracer_torch.render.wavefront import render_tile_grad_plain
+from toypathtracer_torch.tools import grad_stats
 
 torch.set_num_threads(1)
 
@@ -158,7 +159,12 @@ extern "C" unsigned long long tpt_grad_form_cpu(
   if (form == 2) {
     tpt::HostLane w;
     tpt::NoGradCount none;
-    return tpt::grad_tiles(w, S, cam, *p, g, out, acc, tape, 0, 1, none);
+    std::vector<float> recs(tpt::grad_batch(*p) * p->max_depth *
+                            tpt::kRecWords);
+    std::vector<float> ws(tpt::grad_scratch_words(1));
+    return tpt::grad_tiles(w, S, cam, *p, g, out, acc,
+                           tpt::WarpTape{recs.data(), 1, 0}, ws.data(), 0, 1,
+                           none);
   }
   for (int y = 0; y < p->height; ++y)
     for (int x = 0; x < p->width; ++x) {
@@ -184,16 +190,17 @@ extern "C" long long tpt_grad_warp32_cpu(
   for (int wi = 0; wi < n_warps; ++wi) {
     Lanes lanes;
     unsigned long long lane_rays[32];
+    std::vector<float> recs(32 * tpt::grad_batch(*p) * p->max_depth *
+                            tpt::kRecWords);
+    std::vector<float> ws(tpt::grad_scratch_words(32));
     std::vector<std::thread> threads;
     for (int l = 0; l < 32; ++l)
       threads.emplace_back([&, l] {
         ThreadWarp w{&lanes, l};
-        std::vector<tpt::Carry> carries(p->max_depth);
-        tpt::ArrayTape tape{carries.data()};
         tpt::NoGradCount none;
-        lane_rays[l] = tpt::grad_tiles(w, S, cam, *p, g, out,
-                                       tables.data() + (size_t)wi * m, tape,
-                                       wi, n_warps, none);
+        lane_rays[l] = tpt::grad_tiles(
+            w, S, cam, *p, g, out, tables.data() + (size_t)wi * m,
+            tpt::WarpTape{recs.data(), 32, l}, ws.data(), wi, n_warps, none);
       });
     for (auto& t : threads) t.join();
     if (lanes.broken) return -1;
@@ -497,7 +504,7 @@ def test_group_add_exact(host_lib, lanes):
 
 @pytest.mark.parametrize("form", [2, 31], ids=["one_lane", "32_lanes"])
 def test_warp_form_beyond_64_spheres(host_lib, form):
-    """130 spheres (PR 2's kernel took 64): the warp form within 1e-3 of
+    """130 spheres (the replaying form takes 64): the warp form within 1e-3 of
     plain autograd row by row at 16x8, spp 1, depth 4, rays exact, and
     gradients reach the appended spheres."""
     scene = crowded_scene()
@@ -511,3 +518,57 @@ def test_warp_form_beyond_64_spheres(host_lib, form):
     assert_rows_close(acc, d.numpy(), 1e-3)
     assert np.abs(out - img.numpy()).max() <= 1e-4
     assert np.count_nonzero(np.abs(acc[:, 64:]).sum(axis=0)) >= 5
+
+
+@pytest.mark.parametrize("spp,depth", [(5, 4), (3, 15)])
+@pytest.mark.parametrize("form", [2, 31], ids=["one_lane", "32_lanes"])
+def test_warp_form_sample_batches(host_lib, spp, depth, form):
+    """More samples than one batch holds (grad_batch: 4 at depth 4, 2 at
+    depth 15): the image bit-equal to grad_pixel's, rays exact, and the
+    table bit-equal under a one-lane warp, within 1e-5 row by row in
+    32-lane warps."""
+    scene = make_scene(big=True)
+    cfg = RenderConfig(width=16, height=4, samples_per_pixel=spp,
+                       max_depth=depth)
+    g = np.random.RandomState(spp).rand(4, 16, 3).astype(np.float32)
+    out, rays, acc = grad_host(host_lib, scene, cfg, 3, g, 0, 0)
+    w_out, w_rays, w_acc = grad_form_host(host_lib, scene, cfg, 3, g, 0, 0,
+                                          form)
+    np.testing.assert_array_equal(w_out, out)
+    assert w_rays == rays
+    if form == 2:
+        np.testing.assert_array_equal(w_acc, acc)
+    else:
+        assert_rows_close(w_acc, acc, 1e-5)
+
+
+def test_wrapper_caps_and_forms_on_the_cpu(monkeypatch):
+    """render_tile_grad takes the warp form's 512 spheres (on the CPU, plain
+    autograd); the replaying forms keep their 64, the stored form its
+    depth, and the stats instances and the cycle tool need a card."""
+    scene = crowded_scene()
+    cfg = RenderConfig(width=8, height=4, samples_per_pixel=1, max_depth=2)
+    g = torch.ones((4, 8, 3))
+    img, rays, d = cuda_grad.render_tile_grad(scene, cfg, 0, g, 0, 0, 4, 8)
+    assert d.shape == (14, 130) and torch.isfinite(d).all() and int(rays) > 0
+    for form in ("replay", "stored"):
+        with pytest.raises(ValueError, match="at most 64"):
+            cuda_grad.render_tile_grad_form(scene, cfg, 0, g, 0, 0, 4, 8,
+                                            form)
+    small = make_scene(big=False)
+    with pytest.raises(ValueError, match="at most 16 bounces"):
+        cuda_grad.render_tile_grad_form(small, cfg.replace(max_depth=17), 0,
+                                        g, 0, 0, 4, 8, "stored")
+    with pytest.raises(ValueError, match="no gradient kernel form"):
+        cuda_grad.render_tile_grad_form(small, cfg, 0, g, 0, 0, 4, 8, "lane")
+    with pytest.raises(ValueError, match="on a card"):
+        cuda_grad.render_tile_grad_form(small, cfg, 0, g, 0, 0, 4, 8, "warp",
+                                        stats=True)
+    big = scene.replace(**{f: getattr(scene, f).repeat(
+        (4,) + (1,) * (getattr(scene, f).dim() - 1))
+        for f in cuda_grad.PARAM_FIELDS}, mat_type=scene.mat_type * 4)
+    with pytest.raises(ValueError, match="at most 512"):
+        cuda_grad.render_tile_grad(big, cfg, 0, g, 0, 0, 4, 8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        grad_stats.main(["--width", "8", "--height", "4"])

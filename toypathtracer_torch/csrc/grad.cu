@@ -4,34 +4,37 @@
 // ::_lockstep_fwd_kernel.
 //
 // K3 on the main path is warp_grad_kernel (csrc/gradwarp.cuh): persistent
-// 128-thread blocks whose warps take 16x2-pixel tiles round robin by warp
-// index, a lane a pixel.  Each sample is traced once, its bounces' carries
-// stored in a strided scratch in device memory (15 words a bounce, read
-// back once by the reverse sweep), and the lanes run the reverse sweep
-// together so that every add into the scene cotangent is a warp collective
-// into the warp's (SCENE_ROWS, n) table in shared memory: lanes that add
-// to one sphere sum in a fixed tree and one of them adds the sum.  The
-// block then sums its warps' tables in warp order into its partial row,
-// and sum_rows adds the rows, one warp an entry, in a fixed order.  No
+// 128-thread blocks whose warps take 8x4-pixel tiles round robin by warp
+// index, a lane a pixel.  A lane traces a batch of its pixel's samples
+// once, keeping each bounce's carries (16 words) in the warp's scratch in
+// device memory; then the warp sweeps the batch's samples in reverse, a
+// lane taking the next sample of the warp's queue when its own is done,
+// and every add into the scene cotangent is a warp collective into the
+// warp's (SCENE_ROWS, n) table in shared memory: lanes that add to one
+// sphere sum in a fixed tree and one of them adds the sum.  The block
+// then sums its warps' tables in warp order into its partial row, and
+// sum_rows adds the rows, one warp an entry, in a fixed order.  No
 // floating-point atomic, and the pixels of a warp follow from its index:
 // two launches on the same inputs give bit-equal results.
 //
-// lockstep_kernel is PR 2's design, one thread a pixel over 16x16 blocks
-// with the scene staged in shared memory.  kMode 0 is K4: render_pixel,
-// so its image is bit-equal to K3's primal and to the render kernel's.
-// kMode 1 is PR 2's K3, kept as the baseline the warp form is timed
-// against: tpt::grad_pixel replays bounces 0..d-1 before differentiating
-// bounce d and adds into a (SCENE_ROWS, 64) table in the thread's local
-// memory; the block sums its threads' tables and sum_partials adds the
-// blocks' partials serially in double.  kMode 2 is kMode 1 with stored
-// carries instead of the replays (tpt::grad_pixel_stored, bit-equal to
-// kMode 1), which measures the replays alone.  The stats instances
-// (kStats) count SM cycles by part (trace.cuh kGc*).
+// lockstep_kernel is the first design, one thread a pixel over 16x16
+// blocks with the scene staged in shared memory.  kMode 0 is K4:
+// render_pixel, so its image is bit-equal to K3's primal and to the render
+// kernel's.  kMode 1 is the replaying K3 that the warp form replaced, kept
+// as the baseline it is timed against: tpt::grad_pixel replays bounces
+// 0..d-1 before differentiating bounce d and adds into a (SCENE_ROWS, 64)
+// table in the thread's local memory; the block sums its threads' tables
+// and sum_partials adds the blocks' partials serially in double.  kMode 2
+// is kMode 1 with stored carries instead of the replays
+// (tpt::grad_pixel_stored, bit-equal to kMode 1), which measures the
+// replays alone.  The stats instances (kStats) count SM cycles by part
+// (trace.cuh kGc*).
 //
 // Bound: FP32 ALU work -- the forward trace and the adjoint arithmetic --
-// against a few MB of traffic (the cotangent read, the image written, the
-// carries written and read once).  PR 2's form also spends the replays
-// (O(L^2) bounces for a path of L) and a 3.5 KB table per thread.
+// against a few hundred MB of traffic (the carries written and read once,
+// the cotangent read, the image written).  The replaying form also spends
+// the replays (O(L^2) bounces for a path of L) and a 3.5 KB table a
+// thread.
 
 #include <cuda_runtime.h>
 
@@ -43,17 +46,20 @@ constexpr int kBlockX = 16;
 constexpr int kBlockY = 16;
 constexpr int kThreads = kBlockX * kBlockY;
 constexpr int kWarps = kThreads / 32;
-// PR 2's per-thread cotangent table has SCENE_ROWS * kGradMaxSpheres floats
-// (ops/cuda_grad.FORM_MAX_SPHERES).
+// The replaying form's per-thread cotangent table has SCENE_ROWS *
+// kGradMaxSpheres floats (ops/cuda_grad.FORM_MAX_SPHERES).
 constexpr int kGradMaxSpheres = 64;
-// Table entries reduced per round of PR 2's block reduction.
+// Table entries reduced per round of the replaying form's block reduction.
 constexpr int kChunk = 32;
 // Deepest path the stored-carry form (kMode 2) keeps in local memory.
 constexpr int kStoredDepth = 16;
-// The warp form: 4 warps a block, 4 blocks an SM (128 registers a thread).
+// The warp form: 4 warps a block; 12 blocks an SM cap its registers at 40
+// a thread, which spills but keeps 48 warps an SM in flight to hide the
+// latency of its shared-memory, shuffle and local-memory chains (the
+// fastest of 3-13 blocks in this kernel's timings on an H100: PERF.md).
 constexpr int kWarpThreads = 128;
 constexpr int kGradWarps = kWarpThreads / 32;
-constexpr int kWarpBlocks = 4;
+constexpr int kWarpBlocks = 12;
 constexpr unsigned kFull = 0xffffffffu;
 
 // The stats instances' counters: kGcSlots per thread, summed over the
@@ -197,7 +203,7 @@ lockstep_kernel(const float* __restrict__ tab, const int32_t* __restrict__ mat,
   }
 }
 
-// d_tab[j] = sum over blocks, in block order, of partial[block][j]: PR 2's
+// d_tab[j] = sum over blocks, in block order, of partial[block][j]: the
 // serial sum, a thread an entry.
 __global__ void sum_partials(const float* __restrict__ partial, int blocks,
                              int m, float* __restrict__ d_tab) {
@@ -209,10 +215,16 @@ __global__ void sum_partials(const float* __restrict__ partial, int blocks,
   d_tab[j] = static_cast<float>(s);
 }
 
+// Floats of one warp's carries (csrc/gradwarp.cuh WarpTape).
+__host__ __device__ size_t warp_tape_floats(const tpt::RenderParams& p) {
+  return static_cast<size_t>(32) * tpt::kRecWords * p.max_depth *
+         tpt::grad_batch(p);
+}
+
 // The warp form of K3 (csrc/gradwarp.cuh).  Dynamic shared memory: [scene
 // table] [material ids] [emissive ids] [camera] [kGradWarps cotangent
-// tables of SCENE_ROWS * n].  `tape`: kCarryWords * max_depth floats per
-// thread of the grid, strided by the grid's threads.
+// tables of SCENE_ROWS * n] [kGradWarps scratches of grad_tiles].
+// `tape`: warp_tape_floats(p) floats for each warp of the grid.
 template <bool kStats>
 __global__ void __launch_bounds__(kWarpThreads, kWarpBlocks)
 warp_grad_kernel(const float* __restrict__ tab,
@@ -232,6 +244,7 @@ warp_grad_kernel(const float* __restrict__ tab,
   int32_t* s_lights = s_mat + n;
   float* s_cam = reinterpret_cast<float*>(s_lights + p.n_lights);
   float* s_acc = s_cam + tpt::kCameraFloats;
+  float* s_ws = s_acc + kGradWarps * m;
   GradStats cs;
   tpt::NoGradCount none;
   long long c_all = 0, c0 = 0;
@@ -255,19 +268,17 @@ warp_grad_kernel(const float* __restrict__ tab,
   S.n_lights = p.n_lights;
   const int warp = tid >> 5;
   const tpt::DeviceWarp w(tid);
-  const size_t stride = static_cast<size_t>(gridDim.x) * kWarpThreads;
-  tpt::StridedTape t{tape + static_cast<size_t>(blockIdx.x) * kWarpThreads +
-                         tid,
-                     stride};
+  const int gw = blockIdx.x * kGradWarps + warp;
+  const tpt::WarpTape t{tape + static_cast<size_t>(gw) * warp_tape_floats(p),
+                        32, tid & 31};
+  float* ws = s_ws + warp * tpt::grad_scratch_words(32);
   unsigned long long count;
   if constexpr (kStats)
-    count = tpt::grad_tiles(w, S, s_cam, p, g, out, s_acc + warp * m, t,
-                            blockIdx.x * kGradWarps + warp,
-                            gridDim.x * kGradWarps, cs);
+    count = tpt::grad_tiles(w, S, s_cam, p, g, out, s_acc + warp * m, t, ws,
+                            gw, gridDim.x * kGradWarps, cs);
   else
-    count = tpt::grad_tiles(w, S, s_cam, p, g, out, s_acc + warp * m, t,
-                            blockIdx.x * kGradWarps + warp,
-                            gridDim.x * kGradWarps, none);
+    count = tpt::grad_tiles(w, S, s_cam, p, g, out, s_acc + warp * m, t, ws,
+                            gw, gridDim.x * kGradWarps, none);
   add_rays<kGradWarps>(count, warp_rays, rays, tid);  // syncs the block
 
   // the block's partial row: its warps' tables in warp order
@@ -316,7 +327,8 @@ size_t stage_bytes(const tpt::RenderParams* p) {
 
 size_t warp_smem(const tpt::RenderParams* p) {
   return stage_bytes(p) +
-         sizeof(float) * kGradWarps * tpt::SCENE_ROWS * p->n_spheres;
+         sizeof(float) * kGradWarps *
+             (tpt::SCENE_ROWS * p->n_spheres + tpt::grad_scratch_words(32));
 }
 
 dim3 grid_of(const tpt::RenderParams* p) {
@@ -349,7 +361,7 @@ cudaError_t warp_grid(const tpt::RenderParams* p, int* blocks) {
         &per_sm, warp_grad_kernel<false>, kWarpThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int tiles = ((p->width + 15) / 16) * ((p->height + 1) / 2);
+  const int tiles = ((p->width + 7) / 8) * ((p->height + 3) / 4);
   const int need = (tiles + kGradWarps - 1) / kGradWarps;
   *blocks = need < sms * per_sm ? need : sms * per_sm;
   return cudaSuccess;
@@ -359,8 +371,8 @@ cudaError_t warp_grid(const tpt::RenderParams* p, int* blocks) {
 
 extern "C" {
 
-// The scratch a K3 launch of form `form` (0: PR 2's, with replays; 1: PR
-// 2's with stored carries; 2: the warp form) takes: *rows rows of
+// The scratch a K3 launch of form `form` (0: the replaying form; 1: it
+// with stored carries; 2: the warp form) takes: *rows rows of
 // SCENE_ROWS * n partial sums and *tape_floats floats of carries (0 but
 // for the warp form).  Returns 0, or a CUDA error code.
 int tpt_grad_scratch(const tpt::RenderParams* p, int form, int* rows,
@@ -374,8 +386,8 @@ int tpt_grad_scratch(const tpt::RenderParams* p, int form, int* rows,
   }
   const cudaError_t err = warp_grid(p, rows);
   if (err != cudaSuccess) return static_cast<int>(err);
-  *tape_floats = static_cast<long long>(*rows) * kWarpThreads *
-                 tpt::kCarryWords * p->max_depth;
+  *tape_floats = static_cast<long long>(*rows) * kGradWarps *
+                 static_cast<long long>(warp_tape_floats(*p));
   return 0;
 }
 

@@ -1,33 +1,36 @@
 // The warp form of the gradient kernel's per-pixel code (csrc/grad.cu's
 // warp_grad_kernel, on the training step's path): a warp's 32 lanes take
-// 32 pixels, trace each sample forward once with stored carries
-// (trace.cuh trace_sample_tape), and run the samples' reverse sweeps
-// together, bounce d of every lane at once, from the warp's deepest path
-// down (a lane whose path is shorter waits with active = false).
+// 32 pixels, trace a batch of each pixel's samples forward once with
+// stored carries (trace.cuh trace_sample_tape, records in WarpTape), and
+// then sweep the batch's samples in reverse together, a bounce of one
+// sample per lane and step, every lane taking the next sample of the
+// warp's queue when its own is done (grad_tiles).
 //
-// Why.  PR 2's kernel (grad_pixel, one thread a pixel) replays bounces
-// 0..d-1 before differentiating bounce d, and adds each adjoint into a
-// dense (SCENE_ROWS, 64) table of its own in local memory: 3.5 KB a
-// thread, zeroed and reduced on every launch, scattered read-modify-writes
-// that live in device memory, and a cap of 64 spheres.  Here the table is
-// one per warp, (SCENE_ROWS, n) in shared memory, and every add into it is
-// a warp collective at a point every lane reaches: lanes that add to the
-// same sphere are grouped (match_any), each group sums its values by a
-// fixed tree over its lanes' ranks, and the group's lowest lane adds the
-// sum to the table.  A lane with nothing to add at an add passes key -1,
-// or adds 0 in its sphere's group; a table entry starts at +0 and is
-// never -0, so adding 0 leaves it bit for bit.
+// Why.  The replaying form (grad_pixel, one thread a pixel) replays
+// bounces 0..d-1 before differentiating bounce d and adds each adjoint
+// into a dense (SCENE_ROWS, 64) table of its own in local memory: 3.5 KB
+// a thread, zeroed and reduced on every launch, and a cap of 64 spheres.
+// Here the table is one per warp, (SCENE_ROWS, n) in shared memory, and
+// every add into it is a warp collective at a point every lane reaches:
+// lanes that add to the same sphere are grouped (match_any), each group
+// sums its values by a fixed tree over its lanes' ranks, and the group's
+// lowest lane adds the sum to the table.  The adds of one bounce come in
+// a few batches whose trees run together (group_add).  A lane with
+// nothing to add passes key -1, or adds 0 in its sphere's group; a table
+// entry starts at +0 and is never -0, so adding 0 leaves it bit for bit.
 //
 // The adjoint below is trace.cuh's bounce_adj (with nee_adj, cone_adj,
 // refract_adj and sphere_t_adj) written out so that its adds happen at
-// warp-uniform points: the same arithmetic, the same adds in the same
-// order for each lane.  So under HostLane (a warp of one lane, the
-// sequential loop over pixels) the image, the rays and the table are
-// bit-equal to grad_pixel's.  PR 2's functions stay as they were: its
-// kernel is the baseline and keeps its registers.
+// warp-uniform points: the same arithmetic, and for each table entry the
+// same adds in the same order for each lane.  So under HostLane (a warp
+// of one lane: the sequential loop over pixels) the image, the rays and
+// the table are bit-equal to grad_pixel's.  The replaying form's
+// functions stay as they were: its kernel is the baseline and keeps its
+// registers.
 //
 // Determinism: a warp's pixels follow from its index (tiles dealt round
-// robin), each group sums in a fixed order, and nothing is added with a
+// robin), which lane sweeps which sample follows from the depths alone,
+// each group sums in a fixed order, and nothing is added with a
 // floating-point atomic, so two launches on the same inputs are bit-equal.
 
 #pragma once
@@ -106,34 +109,46 @@ TPT_WARP Group make_group_uniform(const W& w, int key) {
                     key >= 0);
 }
 
-// T[row][key] += the group's sum of v.  Every lane calls it.  The warp
-// syncs first: an entry that another lane added to at an earlier add is
-// read after that write.
-template <class W>
-TPT_WARP void group_add(const W& w, const Group& g, float* T, int n, int row,
-                        int key, float v) {
+// N adds of one group: T[row[i]][key] += the group's sum of v[i].
+template <int N>
+struct Adds {
+  int row[N];
+  float v[N];
+};
+
+// The adds of `a`, summed over each group of g: the N trees run together,
+// then the group's first lane adds the sums in order.  Every lane calls
+// it.  The warp syncs first: an entry that another lane added to at an
+// earlier call is read after that write.
+template <class W, int N>
+TPT_WARP void group_add(const W& w, const Group& g, float* T, int n, int key,
+                        Adds<N> a) {
   w.sync();
   for (int k = 0; k < g.steps; ++k) {
-    const float o = w.shfl(v, (int)((g.tree >> (5 * k)) & 31u));
-    if ((g.tree >> (25 + k)) & 1u) v = v + o;
+    const int src = (int)((g.tree >> (5 * k)) & 31u);
+    const bool take = (g.tree >> (25 + k)) & 1u;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float o = w.shfl(a.v[i], src);
+      if (take) a.v[i] = a.v[i] + o;
+    }
   }
-  if (g.lead) T[row * n + key] += v;
+  if (g.lead) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) T[a.row[i] * n + key] += a.v[i];
+  }
 }
 
-template <class W>
-TPT_WARP void group_add3(const W& w, const Group& g, float* T, int n,
-                         int row, int key, V3 v) {
-  group_add(w, g, T, n, row, key, v.x);
-  group_add(w, g, T, n, row + 1, key, v.y);
-  group_add(w, g, T, n, row + 2, key, v.z);
-}
+// A warp's carries: record (slot, lane) at base[(slot * width + lane) *
+// kRecWords], a Carry and a word of padding, so that a lane writes its
+// records and reads any lane's as four 16-byte words.  Slot j * max_depth
+// + d holds bounce d of the j-th sample of a batch.
+enum { kRecWords = 16 };
 
-// A lane's carries in device memory, word j of bounce d at
-// base[(d * kCarryWords + j) * stride]: the lanes of a warp write and
-// read consecutive words.
-struct StridedTape {
+struct WarpTape {
   float* base;
-  size_t stride;
+  int width;  // lanes
+  int lane;
   TPT_HD static float as_float(uint32_t u) {
     float f;
     memcpy(&f, &u, sizeof f);
@@ -144,21 +159,37 @@ struct StridedTape {
     memcpy(&u, &f, sizeof u);
     return u;
   }
-  TPT_HD float* at(int d) const {
-    return base + static_cast<size_t>(d) * kCarryWords * stride;
+  TPT_HD float* rec(int owner, int slot) const {
+    return base + (static_cast<size_t>(slot) * width + owner) * kRecWords;
   }
-  TPT_HD void put(int d, const Carry& c) const {
-    float* q = at(d);
-    const float w[kCarryWords] = {
+  TPT_HD void put(int slot, const Carry& c) const {
+    const float w[kRecWords] = {
         c.ro.x, c.ro.y, c.ro.z, c.rd.x, c.rd.y, c.rd.z, c.t,
         as_float(c.st), as_float(c.bits), c.e.x, c.e.y, c.e.z,
-        c.atten.x, c.atten.y, c.atten.z};
-    for (int j = 0; j < kCarryWords; ++j) q[j * stride] = w[j];
+        c.atten.x, c.atten.y, c.atten.z, 0.0f};
+    float* q = rec(lane, slot);
+#ifdef __CUDA_ARCH__
+    for (int j = 0; j < kRecWords; j += 4)
+      *reinterpret_cast<float4*>(q + j) =
+          make_float4(w[j], w[j + 1], w[j + 2], w[j + 3]);
+#else
+    for (int j = 0; j < kRecWords; ++j) q[j] = w[j];
+#endif
   }
-  TPT_HD Carry get(int d) const {
-    const float* q = at(d);
-    float w[kCarryWords];
-    for (int j = 0; j < kCarryWords; ++j) w[j] = q[j * stride];
+  TPT_HD Carry get(int owner, int slot) const {
+    const float* q = rec(owner, slot);
+    float w[kRecWords];
+#ifdef __CUDA_ARCH__
+    for (int j = 0; j < kRecWords; j += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(q + j);
+      w[j] = v.x;
+      w[j + 1] = v.y;
+      w[j + 2] = v.z;
+      w[j + 3] = v.w;
+    }
+#else
+    for (int j = 0; j < kRecWords; ++j) w[j] = q[j];
+#endif
     Carry c;
     c.ro = v3(w[0], w[1], w[2]);
     c.rd = v3(w[3], w[4], w[5]);
@@ -289,11 +320,15 @@ TPT_WARP void nee_adj_warp(const W& w, const SceneView& S, bool lam, V3 pos,
         cone_adj_vals(q, eps1, scale(nl, g_dl), g_cam, g_pos, g_r, g_sc);
       }
     }
-    group_add3(w, gh, T, S.n, ROW_ALB, hit_id, g_alb);
+    group_add(w, gh, T, S.n, hit_id,
+              Adds<3>{{ROW_ALB, ROW_ALB + 1, ROW_ALB + 2},
+                      {g_alb.x, g_alb.y, g_alb.z}});
     const Group ge = make_group_uniform(w, at ? e : -1);
-    group_add3(w, ge, T, S.n, ROW_EM, e, g_em);
-    group_add(w, ge, T, S.n, ROW_R, e, g_r);
-    group_add3(w, ge, T, S.n, ROW_CX, e, g_sc);
+    group_add(w, ge, T, S.n, e,
+              Adds<7>{{ROW_EM, ROW_EM + 1, ROW_EM + 2, ROW_R, ROW_CX,
+                       ROW_CY, ROW_CZ},
+                      {g_em.x, g_em.y, g_em.z, g_r, g_sc.x, g_sc.y,
+                       g_sc.z}});
   }
   if (lam) g_n = add(g_n, front ? g_nl : neg(g_nl));
 }
@@ -326,8 +361,6 @@ TPT_WARP void bounce_adj_warp(const W& w, const SceneView& S,
     cnt.add(kGcHitGroups, gh.lead ? 1 : 0);
     cnt.add(kGcHitLanes, hit ? 1 : 0);
   }
-  group_add3(w, gh, T, n, ROW_EM, id,
-             hit && (rec.gated || !rec.scattered) ? g_e : zero);
   V3 pos = zero, pc = zero, normal = zero;
   float invr = 0.0f;
   int mt = -1;
@@ -338,11 +371,17 @@ TPT_WARP void bounce_adj_warp(const W& w, const SceneView& S,
     normal = scale(pc, invr);
     mt = S.mat[id];
   }
+  {
+    const V3 em = hit && (rec.gated || !rec.scattered) ? g_e : zero;
+    const V3 alb = sc && mt != MAT_DIELECTRIC ? g_c : zero;  // c = albedo
+    group_add(w, gh, T, n, id,
+              Adds<6>{{ROW_EM, ROW_EM + 1, ROW_EM + 2, ROW_ALB, ROW_ALB + 1,
+                       ROW_ALB + 2},
+                      {em.x, em.y, em.z, alb.x, alb.y, alb.z}});
+  }
   V3 g_pos = g_pos_out;
   V3 g_n = zero;
   V3 g_refl = zero;
-  group_add3(w, gh, T, n, ROW_ALB, id,
-             sc && mt != MAT_DIELECTRIC ? g_c : zero);  // c = albedo
   const bool lam = sc && mt == MAT_LAMBERT;
   V3 alb = zero;
   if (lam) {
@@ -367,8 +406,6 @@ TPT_WARP void bounce_adj_warp(const W& w, const SceneView& S,
     else
       g_ri = refract_adj_vals(S, id, rd, normal, g_dir, g_rd, g_n);
   }
-  group_add(w, gh, T, n, ROW_ROUGH, id, g_rough);
-  group_add(w, gh, T, n, ROW_RI, id, g_ri);
   V3 g_pc = zero, g_co = zero;
   float g_invr = 0.0f, g_sqr = 0.0f;
   if (sc) {
@@ -387,85 +424,151 @@ TPT_WARP void bounce_adj_warp(const W& w, const SceneView& S,
     sphere_t_adj_vals(S, id, ro, rd, p.t_min, dot(g_pos, rd), g_ro, g_rd,
                       g_co, g_sqr);
   }
-  group_add3(w, gh, T, n, ROW_CX, id, neg(g_pc));
-  group_add(w, gh, T, n, ROW_INVR, id, g_invr);
-  group_add3(w, gh, T, n, ROW_CX, id, g_co);
-  group_add(w, gh, T, n, ROW_SQR, id, g_sqr);
+  group_add(w, gh, T, n, id,
+            Adds<10>{{ROW_ROUGH, ROW_RI, ROW_CX, ROW_CY, ROW_CZ, ROW_INVR,
+                      ROW_CX, ROW_CY, ROW_CZ, ROW_SQR},
+                     {g_rough, g_ri, -g_pc.x, -g_pc.y, -g_pc.z, g_invr,
+                      g_co.x, g_co.y, g_co.z, g_sqr}});
 }
 
+// Samples a lane traces forward before the warp's reverse sweep of them:
+// at most kGradBatch, and at most kGradSlots bounces of carries a lane.
+constexpr int kGradBatch = 4;
+constexpr int kGradSlots = 40;
+
+TPT_HD int grad_batch(const RenderParams& p) {
+  const int by_slots = p.max_depth < kGradSlots ? kGradSlots / p.max_depth : 1;
+  const int b = by_slots < kGradBatch ? by_slots : kGradBatch;
+  return p.spp < b ? p.spp : b;
+}
+
+// The pixels a warp takes at a time: 8x4 for a warp of 32 lanes (more
+// coherent than the render kernels' 16x2: 3% faster in this kernel's
+// timings on an H100), one for a one-lane warp.
+template <int kWidth>
+struct GradTile {
+  static constexpr int kW = kWidth == 32 ? 8 : 1;
+  static constexpr int kH = kWidth / kW;
+};
+
+// Floats of a warp's scratch for grad_tiles with `width` lanes: each
+// lane's pixel cotangent, and the bounces of each sample of a batch.
+TPT_HD int grad_scratch_words(int width) { return (3 + kGradBatch) * width; }
+
 // The warp's pixels of the (p.height, p.width) sub-image at (p.x0, p.y0):
-// tiles of W::kTileW x W::kTileH pixels, row-major, the warp taking tiles
+// tiles of GradTile pixels, row-major, the warp taking tiles
 // warp, warp + n_warps, ...; a lane a pixel.  Writes each pixel's image to
 // out (height, width, 3), adds the pixels' scene cotangent for the pixel
 // cotangent g (height, width, 3) to the warp's table T (SCENE_ROWS, n),
-// and returns this lane's rays.  `tape` holds this lane's max_depth
-// carries.
-template <class W, class Tape, class Cnt>
+// and returns this lane's rays.  `tape` holds grad_batch(p) * max_depth
+// slots of the warp's lanes; `ws` is the warp's scratch
+// (grad_scratch_words).
+//
+// Each lane traces grad_batch(p) samples of its pixel forward, back to
+// back, storing their carries.  Then the warp sweeps the batch's samples
+// in reverse as a queue: sample j of lane o is item j * width + o, and a
+// lane whose sample is done takes the next item, whichever lane traced
+// it, so that the lanes stay busy until the queue runs out (a lane with
+// nothing left only takes part in the collectives).  Which lane sweeps
+// which sample follows from the depths alone, so the order of every add
+// is the same from launch to launch.  Under a one-lane warp the samples
+// are swept in order after their forward traces, and the adds come in
+// grad_pixel's order.
+template <class W, class Cnt>
 TPT_WARP unsigned long long grad_tiles(const W& w, const SceneView& S,
                                        const float* cam,
                                        const RenderParams& p, const float* g,
-                                       float* out, float* T, Tape& tape,
+                                       float* out, float* T,
+                                       const WarpTape& tape, float* ws,
                                        int warp, int n_warps, Cnt& cnt) {
   const V3 zero = v3(0.0f, 0.0f, 0.0f);
-  const int TW = W::kTileW;
+  const int WD = W::kWidth;
+  const int TW = GradTile<W::kWidth>::kW, TH = GradTile<W::kWidth>::kH;
   const int tiles_x = (p.width + TW - 1) / TW;
-  const int n_tiles = tiles_x * ((p.height + W::kTileH - 1) / W::kTileH);
+  const int n_tiles = tiles_x * ((p.height + TH - 1) / TH);
   const int lane = w.lane();
+  float* s_g = ws;                                    // (WD, 3)
+  int* s_depth = reinterpret_cast<int*>(ws + 3 * WD);  // (kGradBatch, WD)
   unsigned long long total = 0;
   for (int tile = warp; tile < n_tiles; tile += n_warps) {
     const int px = (tile % tiles_x) * TW + lane % TW;
-    const int py = (tile / tiles_x) * W::kTileH + lane / TW;
+    const int py = (tile / tiles_x) * TH + lane / TW;
     const bool valid = px < p.width && py < p.height;
     const int x = p.x0 + px, y = p.y0 + py;
     const size_t o = valid ? (static_cast<size_t>(py) * p.width + px) * 3 : 0;
     uint32_t st = seed_pixel((uint32_t)x, (uint32_t)y, p.frame);
     uint32_t rays = 0;
     // img = (sum of sample radiances) * inv_spp
-    const V3 G = valid ? v3(g[o] * p.inv_spp, g[o + 1] * p.inv_spp,
-                            g[o + 2] * p.inv_spp)
-                       : zero;
+    for (int c = 0; c < 3; ++c)
+      s_g[3 * lane + c] = valid ? g[o + c] * p.inv_spp : 0.0f;
     V3 sum = zero;
-    for (int s = 0; s < p.spp; ++s) {
+    const int batch = grad_batch(p);
+    for (int s0 = 0; s0 < p.spp; s0 += batch) {
+      const int nb = p.spp - s0 < batch ? p.spp - s0 : batch;
       long long c0 = 0;
       if constexpr (Cnt::kOn) c0 = w.clock();
-      int depth = 0;
-      if (valid) {
-        V3 ro0, rd0;
-        sample_ray(cam, p, x, y, st, ro0, rd0);
-        sum = add(sum, trace_sample_tape(S, p, ro0, rd0, st, rays, depth,
-                                         tape));
+      for (int j = 0; j < nb; ++j) {
+        int depth = 0;
+        if (valid) {
+          V3 ro0, rd0;
+          sample_ray(cam, p, x, y, st, ro0, rd0);
+          sum = add(sum, trace_sample_tape(S, p, ro0, rd0, st, rays, depth,
+                                           tape, j * p.max_depth));
+        }
+        s_depth[j * WD + lane] = depth;
       }
-      const int most = (int)w.reduce_max((unsigned)depth);
+      w.sync();
       if constexpr (Cnt::kOn) {
         const long long c1 = w.clock();
         cnt.add(kGcCycFwd, c1 - c0);
         c0 = c1;
       }
-      V3 g_atten = zero;
-      V3 g_ro = zero;
-      V3 g_rd = zero;
-      for (int d = most - 1; d >= 0; --d) {
-        const bool active = d < depth;
+      const int n_items = nb * WD;
+      int cursor = 0;  // the next item to hand out
+      bool has = false;
+      int item = 0, d = -1;
+      V3 G = zero, g_atten = zero, g_ro = zero, g_rd = zero;
+      for (;;) {
+        // lanes without a sample take the next items of the queue
+        for (;;) {
+          const unsigned need = w.ballot(!has);
+          if (!need || cursor >= n_items) break;
+          const int rank = popc(need & ((1u << lane) - 1u));
+          if (!has && cursor + rank < n_items) {
+            item = cursor + rank;
+            d = s_depth[item] - 1;
+            if (d >= 0) {  // else: an empty pixel; ask again
+              const int owner = item % WD;
+              has = true;
+              G = v3(s_g[3 * owner], s_g[3 * owner + 1], s_g[3 * owner + 2]);
+              g_atten = g_ro = g_rd = zero;
+            }
+          }
+          cursor += popc(need);
+        }
+        if (!w.any(has)) break;
         Carry k;
         k.ro = k.rd = zero;
         k.st = 0;
         BounceRec rec = unpack_rec(0u, 0.0f);  // id -1
         V3 g_e = zero, g_c = zero;
-        if (active) {
-          k = tape.get(d);
+        if (has) {
+          k = tape.get(item % WD, (item / WD) * p.max_depth + d);
           rec = unpack_rec(k.bits, k.t);
           // col += atten * e; atten *= c -- reversed
           g_e = mul(k.atten, G);
           g_c = mul(g_atten, k.atten);
           g_atten = add(mul(G, k.e), mul(g_atten, carry_c(S, rec)));
         }
-        bounce_adj_warp(w, S, p, active, k.ro, k.rd, k.st, rec, g_e, g_c,
-                        g_ro, g_rd, T, cnt);
+        bounce_adj_warp(w, S, p, has, k.ro, k.rd, k.st, rec, g_e, g_c, g_ro,
+                        g_rd, T, cnt);
         if constexpr (Cnt::kOn) {
-          cnt.add(kGcAdjBounces, active ? 1 : 0);
+          cnt.add(kGcAdjBounces, has ? 1 : 0);
           cnt.add(kGcAdjSlots, 1);
         }
+        if (has && --d < 0) has = false;
       }
+      w.sync();  // the next batch rewrites s_depth
       if constexpr (Cnt::kOn) cnt.add(kGcCycAdj, w.clock() - c0);
     }
     if (valid) {

@@ -714,12 +714,13 @@ TPT_HD void bounce_adj(const SceneView& S, const RenderParams& p, V3 ro,
 
 // What the gradient kernels' stats instances count (csrc/grad.cu): SM
 // clock cycles, summed over threads, in each part of the kernel -- the
-// forward trace, the replays (PR 2's form), the adjoint sweep, within it
-// the warp form's grouped adds, zeroing the cotangent tables, the block
-// reduction, and the whole thread; then the adjoint bounces run, the
-// replayed bounces, the lane slots of the warp form's reverse steps (32 a
-// step of a warp), and the hit groups its adds formed and the lanes in
-// them.  The timed instances pass NoGradCount, which compiles to nothing.
+// forward trace, the replays (the replaying form), the adjoint sweep,
+// within it the warp form's grouping of lanes by sphere, zeroing the
+// cotangent tables, the block reduction, and the whole thread; then the
+// adjoint bounces run, the replayed bounces, the lane slots of the warp
+// form's reverse steps (32 a step of a warp), and the hit groups its adds
+// formed and the lanes in them.  The timed instances pass NoGradCount,
+// which compiles to nothing.
 enum {
   kGcCycFwd = 0, kGcCycReplay, kGcCycAdj, kGcCycGroup, kGcCycZero,
   kGcCycReduce, kGcCycAll, kGcAdjBounces, kGcReplayBounces, kGcAdjSlots,
@@ -747,7 +748,7 @@ TPT_HD long long sm_clock() {
 // replayed from the sample's camera ray and RNG state (bounces before d
 // without NEE's shadow tests: the replay needs their path and attenuation,
 // not their radiance).  A path of L bounces costs O(L^2) bounces; most end
-// by depth 3-4.  This is PR 2's form, kept as the baseline of
+// by depth 3-4.  The replaying form, kept as the baseline of
 // grad_pixel_stored and of the warp form (csrc/gradwarp.cuh).
 template <class Cnt>
 TPT_HD uint32_t grad_pixel(const SceneView& S, const float* cam,
@@ -829,10 +830,8 @@ TPT_HD uint32_t grad_pixel(const SceneView& S, const float* cam,
 // its emission e and the attenuation the sample carried into it.  Its
 // continuation attenuation c is not kept: carry_c rebuilds it from the
 // record and the scene.  A replay with vis=false draws and counts as the
-// forward trace does, so every field equals what PR 2's replay computed,
+// forward trace does, so every field equals what the replay computed,
 // and the sweep below is bit-equal to grad_pixel.
-enum { kCarryWords = 15 };
-
 struct Carry {
   V3 ro, rd;
   float t;
@@ -872,15 +871,15 @@ TPT_HD V3 carry_c(const SceneView& S, const BounceRec& r) {
 // form's per-thread array in local memory).
 struct ArrayTape {
   Carry* c;
-  TPT_HD void put(int d, const Carry& x) { c[d] = x; }
+  TPT_HD void put(int d, const Carry& x) const { c[d] = x; }
   TPT_HD Carry get(int d) const { return c[d]; }
 };
 
-// trace_sample, recording each bounce's Carry in tape[depth].
+// trace_sample, recording bounce d's Carry in slot slot0 + d of `tape`.
 template <class View, class Tape>
 TPT_HD V3 trace_sample_tape(const View& S, const RenderParams& p, V3 ro,
                             V3 rd, uint32_t& st, uint32_t& rays, int& depth,
-                            Tape& tape) {
+                            const Tape& tape, int slot0) {
   V3 col = v3(0.0f, 0.0f, 0.0f);
   V3 atten = v3(1.0f, 1.0f, 1.0f);
   bool do_me = true;
@@ -897,7 +896,7 @@ TPT_HD V3 trace_sample_tape(const View& S, const RenderParams& p, V3 ro,
     k.t = rec.t;
     k.bits = pack_rec(rec);
     k.e = e;
-    tape.put(depth, k);
+    tape.put(slot0 + depth, k);
     col = add(col, mul(atten, e));
     ++depth;
     if (!go) break;
@@ -923,7 +922,8 @@ TPT_HD uint32_t grad_pixel_stored(const SceneView& S, const float* cam,
     V3 ro0, rd0;
     sample_ray(cam, p, x, y, st, ro0, rd0);
     int depth;
-    sum = add(sum, trace_sample_tape(S, p, ro0, rd0, st, rays, depth, tape));
+    sum = add(sum,
+              trace_sample_tape(S, p, ro0, rd0, st, rays, depth, tape, 0));
     V3 g_atten = zero;
     V3 g_ro = zero;
     V3 g_rd = zero;

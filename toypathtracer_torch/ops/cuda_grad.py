@@ -10,9 +10,9 @@ no fallback: on a CUDA tensor a failed build or launch raises.
 
 K3 has three forms (`render_tile_grad_form`): "warp", the main path's
 (csrc/gradwarp.cuh: stored carries and a warp-level cotangent table, up to
-512 spheres); "replay", PR 2's kernel it replaced (bounces replayed, a
+512 spheres); "replay", the kernel it replaced (bounces replayed, a
 per-thread table, up to 64 spheres), kept as the baseline it is timed
-against; and "stored", PR 2's kernel with stored carries instead of the
+against; and "stored", the replaying kernel with stored carries instead of the
 replays (bit-equal to "replay"), which measures the replays alone.
 "replay" and "warp" have stats instances that count SM cycles by part.
 `launches` counts wrapper launches: "grad" the main path's form (one
@@ -48,9 +48,10 @@ from .cuda_render import (MAX_SPHERES, check_device, checked_tab,
 
 # K3's forms (tpt_grad_launch's `form`), their launch counters, and the
 # spheres each takes: the warp form's table is per warp in shared memory,
-# up to tpt::kMaxSpheres (MAX_SPHERES, as the render kernel); PR 2's is
-# per thread (csrc/grad.cu kGradMaxSpheres).  The stored form keeps at
-# most STORED_MAX_DEPTH bounces a sample in local memory.
+# up to tpt::kMaxSpheres (MAX_SPHERES, as the render kernel); the
+# replaying form's is per thread (csrc/grad.cu kGradMaxSpheres).  The
+# stored form keeps at most STORED_MAX_DEPTH bounces a sample in local
+# memory.
 FORMS = {"replay": 0, "stored": 1, "warp": 2}
 MAIN_FORM = "warp"
 COUNTERS = {"warp": "grad", "replay": "grad_replay", "stored": "grad_stored"}
@@ -121,10 +122,10 @@ def _launch_grad(scene, tab, cfg, frame, g_img, x0, y0, height, width, form,
 
 def sum_partials(partial, form: str):
     """K3's final sum alone: the (14, N) cotangent from a form's (rows, 14,
-    N) per-block partial sums, by that form's summing kernel (PR 2's
-    serial sum for "replay" and "stored", the warp form's fixed tree for
-    "warp").  For timing the sum apart from the kernel; CUDA tensors
-    only."""
+    N) per-block partial sums, by that form's summing kernel (the
+    replaying form's serial sum for "replay" and "stored", the warp form's
+    fixed tree for "warp").  For timing the sum apart from the kernel;
+    CUDA tensors only."""
     if form not in FORMS:
         raise ValueError(f"no gradient kernel form {form!r}")
     if partial.device.type != "cuda" or partial.dim() != 3:
