@@ -391,11 +391,6 @@ int tpt_grad_scratch(const tpt::RenderParams* p, int form, int* rows,
   return 0;
 }
 
-// The largest n_spheres a form takes.
-int tpt_grad_max_spheres(int form) {
-  return form == 2 ? tpt::kMaxSpheres : kGradMaxSpheres;
-}
-
 // K3 of form `form` on `stream`: image `out` (height, width, 3), ray
 // count added to `rays` (zeroed by the caller), scene cotangent d_tab
 // (SCENE_ROWS, n) for the pixel cotangent `g` (height, width, 3).
@@ -409,7 +404,8 @@ int tpt_grad_launch(const float* tab, const int32_t* mat,
                     unsigned long long* rays, float* partial, float* tape,
                     float* d_tab, int form, unsigned long long* stats,
                     void* stream) {
-  if (form < 0 || form > 2 || bad_params(p, tpt_grad_max_spheres(form)) ||
+  if (form < 0 || form > 2 ||
+      bad_params(p, form == 2 ? tpt::kMaxSpheres : kGradMaxSpheres) ||
       (form == 1 && (p->max_depth > kStoredDepth || stats)) ||
       (form == 2 && !tape))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -19,14 +19,14 @@
 // nothing to add passes key -1, or adds 0 in its sphere's group; a table
 // entry starts at +0 and is never -0, so adding 0 leaves it bit for bit.
 //
-// The adjoint below is trace.cuh's bounce_adj (with nee_adj, cone_adj,
-// refract_adj and sphere_t_adj) written out so that its adds happen at
-// warp-uniform points: the same arithmetic, and for each table entry the
-// same adds in the same order for each lane.  So under HostLane (a warp
-// of one lane: the sequential loop over pixels) the image, the rays and
-// the table are bit-equal to grad_pixel's.  The replaying form's
-// functions stay as they were: its kernel is the baseline and keeps its
-// registers.
+// The adjoint below is trace.cuh's bounce_adj and nee_adj written out so
+// that their adds happen at warp-uniform points (the leaf adjoints,
+// sphere_t_adj_vals, cone_adj_vals and refract_adj_vals, are shared): the
+// same arithmetic, and for each table entry the same adds in the same
+// order for each lane.  So under HostLane (a warp of one lane: the
+// sequential loop over pixels) the image, the rays and the table are
+// bit-equal to grad_pixel's.  bounce_adj itself stays as it was: the
+// replaying kernel is the baseline and keeps its registers.
 //
 // Determinism: a warp's pixels follow from its index (tiles dealt round
 // robin), which lane sweeps which sample follows from the depths alone,
@@ -201,84 +201,6 @@ struct WarpTape {
     return c;
   }
 };
-
-// sphere_t_adj without the table: g_co and the radius^2 row's add.
-TPT_HD void sphere_t_adj_vals(const SceneView& S, int i, V3 ro, V3 rd,
-                              float t_min, float g_t, V3& g_ro, V3& g_rd,
-                              V3& g_co, float& g_sqr) {
-  V3 co = v3(S.at(ROW_CX, i) - ro.x, S.at(ROW_CY, i) - ro.y,
-             S.at(ROW_CZ, i) - ro.z);
-  float nb = co.x * rd.x + co.y * rd.y + co.z * rd.z;
-  float c = co.x * co.x + co.y * co.y + co.z * co.z - S.at(ROW_SQR, i);
-  float discr = nb * nb - c;
-  float ds = sqrt_pos(discr);
-  float sign = nb - ds > t_min ? -1.0f : 1.0f;
-  float g_discr = discr > 0.0f ? sign * g_t * 0.5f / ds : 0.0f;
-  float g_nb = g_t + 2.0f * nb * g_discr;
-  float g_c = -g_discr;
-  g_co = add(scale(rd, g_nb), scale(co, 2.0f * g_c));
-  g_rd = add(g_rd, scale(co, g_nb));
-  g_ro = sub(g_ro, g_co);
-  g_sqr = -g_c;
-}
-
-// cone_adj without the table: the radius row's add (0 where cone_adj adds
-// none) and the center rows'.
-TPT_HD void cone_adj_vals(const Cone& q, float eps1, V3 g_l, float g_cam,
-                          V3& g_pos, float& g_r, V3& g_sc) {
-  V3 g_su = scale(g_l, q.cphi * q.sin_a);
-  V3 g_sv = scale(g_l, q.sphi * q.sin_a);
-  V3 g_sw = scale(g_l, q.cos_a);
-  float g_sin = dot(g_l, q.su) * q.cphi + dot(g_l, q.sv) * q.sphi;
-  float g_cos = dot(g_l, q.sw);
-  if (1.0f - q.cos_a * q.cos_a > 0.0f) g_cos -= g_sin * q.cos_a / q.sin_a;
-  g_cam += g_cos * eps1;
-  g_sw = add(g_sw, cross(q.su, g_sv));
-  g_su = add(g_su, cross(g_sv, q.sw));
-  g_sw = add(g_sw, cross(normalize_adj(q.w1, g_su), q.up));
-  g_sc = normalize_adj(neg(q.dp), g_sw);
-  g_pos = sub(g_pos, g_sc);
-  g_r = 0.0f;
-  if (1.0f - q.r * q.r / q.d2 > 0.0f) {
-    float g_x = g_cam * 0.5f / q.cos_a_max;
-    g_r = g_x * (-2.0f * q.r / q.d2);
-    V3 g_dp = scale(q.dp, 2.0f * (g_x * (q.r * q.r / (q.d2 * q.d2))));
-    g_pos = add(g_pos, g_dp);
-    g_sc = sub(g_sc, g_dp);
-  }
-}
-
-// refract_adj without the table: returns the ri row's add (0 where
-// refract_adj adds none).
-TPT_HD float refract_adj_vals(const SceneView& S, int id, V3 rd, V3 normal,
-                              V3 g_dir, V3& g_rd, V3& g_n) {
-  float ri = S.at(ROW_RI, id);
-  bool entering = dot(rd, normal) <= 0.0f;
-  V3 o = entering ? normal : neg(normal);
-  float safe_ri = ri == 0.0f ? 1.0f : ri;
-  float nint = entering ? 1.0f / safe_ri : ri;
-  float dt = dot(rd, o);
-  float w = 1.0f - dt * dt;
-  float discr = 1.0f - nint * nint * w;
-  float sq = sqrt_pos(discr);
-  V3 u = sub(rd, scale(o, dt));
-  V3 g_r = normalize_adj(sub(scale(u, nint), scale(o, sq)), g_dir);
-  V3 g_u = scale(g_r, nint);
-  float g_nint = dot(u, g_r);
-  V3 g_o = sub(scale(g_r, -sq), scale(g_u, dt));
-  float g_dt = -dot(o, g_u);
-  if (discr > 0.0f) {
-    float g_discr = -dot(o, g_r) * 0.5f / sq;
-    g_nint -= g_discr * (2.0f * nint * w);
-    g_dt += g_discr * (2.0f * nint * nint * dt);
-  }
-  g_rd = add(g_rd, add(g_u, scale(o, g_dt)));
-  g_o = add(g_o, scale(rd, g_dt));
-  g_n = add(g_n, entering ? g_o : neg(g_o));
-  if (!entering) return g_nint;
-  if (ri != 0.0f) return -(g_nint / (safe_ri * safe_ri));
-  return 0.0f;
-}
 
 // nee_adj for the lanes with lam (a Lambert hit with NEE on); every lane
 // runs the light loop and its adds.  gh: the groups of the hit sphere.

@@ -529,10 +529,15 @@ TPT_HD V3 normalize_adj(V3 a, V3 g) {
   return sub(scale(g, inv), scale(a, k));
 }
 
+// The adjoints of a bounce's pieces, returning what they add to the scene
+// cotangent instead of adding it: bounce_adj below adds it to a table a
+// thread owns, the warp form (csrc/gradwarp.cuh) through warp collectives.
+
 // The winner's root t = nb -/+ sqrt(nb^2 - c) (sphere_t, same branch) back
-// to sphere i's center and radius^2 and to the ray.
-TPT_HD void sphere_t_adj(const SceneView& S, int i, V3 ro, V3 rd, float t_min,
-                         float g_t, V3& g_ro, V3& g_rd, float* acc) {
+// to the ray; sphere i's center rows take g_co, its radius^2 row g_sqr.
+TPT_HD void sphere_t_adj_vals(const SceneView& S, int i, V3 ro, V3 rd,
+                              float t_min, float g_t, V3& g_ro, V3& g_rd,
+                              V3& g_co, float& g_sqr) {
   V3 co = v3(S.at(ROW_CX, i) - ro.x, S.at(ROW_CY, i) - ro.y,
              S.at(ROW_CZ, i) - ro.z);
   float nb = co.x * rd.x + co.y * rd.y + co.z * rd.z;
@@ -543,17 +548,17 @@ TPT_HD void sphere_t_adj(const SceneView& S, int i, V3 ro, V3 rd, float t_min,
   float g_discr = discr > 0.0f ? sign * g_t * 0.5f / ds : 0.0f;
   float g_nb = g_t + 2.0f * nb * g_discr;
   float g_c = -g_discr;
-  V3 g_co = add(scale(rd, g_nb), scale(co, 2.0f * g_c));
+  g_co = add(scale(rd, g_nb), scale(co, 2.0f * g_c));
   g_rd = add(g_rd, scale(co, g_nb));
   g_ro = sub(g_ro, g_co);
-  acc3(acc, S.n, ROW_CX, i, g_co);
-  acc[ROW_SQR * S.n + i] -= g_c;
+  g_sqr = -g_c;
 }
 
-// The cone sample back from the cotangents of l and of cos_a_max to light
-// e's center and radius and to pos.
-TPT_HD void cone_adj(const SceneView& S, int e, const Cone& q, float eps1,
-                     V3 g_l, float g_cam, V3& g_pos, float* acc) {
+// The cone sample back from the cotangents of l and of cos_a_max to pos;
+// light e's radius row takes g_r (0 where the cone's half-angle is
+// clamped), its center rows g_sc.
+TPT_HD void cone_adj_vals(const Cone& q, float eps1, V3 g_l, float g_cam,
+                          V3& g_pos, float& g_r, V3& g_sc) {
   V3 g_su = scale(g_l, q.cphi * q.sin_a);
   V3 g_sv = scale(g_l, q.sphi * q.sin_a);
   V3 g_sw = scale(g_l, q.cos_a);
@@ -561,20 +566,69 @@ TPT_HD void cone_adj(const SceneView& S, int e, const Cone& q, float eps1,
   float g_cos = dot(g_l, q.sw);
   if (1.0f - q.cos_a * q.cos_a > 0.0f) g_cos -= g_sin * q.cos_a / q.sin_a;
   g_cam += g_cos * eps1;
-  // sv = sw x su; su = normalize(up x sw); sw = normalize(sc - pos)
   g_sw = add(g_sw, cross(q.su, g_sv));
   g_su = add(g_su, cross(g_sv, q.sw));
   g_sw = add(g_sw, cross(normalize_adj(q.w1, g_su), q.up));
-  V3 g_sc = normalize_adj(neg(q.dp), g_sw);
+  g_sc = normalize_adj(neg(q.dp), g_sw);
   g_pos = sub(g_pos, g_sc);
-  // cos_a_max = sqrt_pos(1 - r*r/d2), d2 = |pos - sc|^2
+  g_r = 0.0f;
   if (1.0f - q.r * q.r / q.d2 > 0.0f) {
     float g_x = g_cam * 0.5f / q.cos_a_max;
-    acc[ROW_R * S.n + e] += g_x * (-2.0f * q.r / q.d2);
+    g_r = g_x * (-2.0f * q.r / q.d2);
     V3 g_dp = scale(q.dp, 2.0f * (g_x * (q.r * q.r / (q.d2 * q.d2))));
     g_pos = add(g_pos, g_dp);
     g_sc = sub(g_sc, g_dp);
   }
+}
+
+// The refracted direction of scatter_dielectric back to the ray and the
+// normal, for the cotangent g_dir of normalize(refr); returns the add to
+// the sphere's ri row (0 for an entering ray at ri 0).
+TPT_HD float refract_adj_vals(const SceneView& S, int id, V3 rd, V3 normal,
+                              V3 g_dir, V3& g_rd, V3& g_n) {
+  float ri = S.at(ROW_RI, id);
+  bool entering = dot(rd, normal) <= 0.0f;
+  V3 o = entering ? normal : neg(normal);
+  float safe_ri = ri == 0.0f ? 1.0f : ri;
+  float nint = entering ? 1.0f / safe_ri : ri;
+  float dt = dot(rd, o);
+  float w = 1.0f - dt * dt;
+  float discr = 1.0f - nint * nint * w;
+  float sq = sqrt_pos(discr);
+  V3 u = sub(rd, scale(o, dt));
+  V3 g_r = normalize_adj(sub(scale(u, nint), scale(o, sq)), g_dir);
+  V3 g_u = scale(g_r, nint);
+  float g_nint = dot(u, g_r);
+  V3 g_o = sub(scale(g_r, -sq), scale(g_u, dt));
+  float g_dt = -dot(o, g_u);
+  if (discr > 0.0f) {
+    float g_discr = -dot(o, g_r) * 0.5f / sq;
+    g_nint -= g_discr * (2.0f * nint * w);
+    g_dt += g_discr * (2.0f * nint * nint * dt);
+  }
+  g_rd = add(g_rd, add(g_u, scale(o, g_dt)));
+  g_o = add(g_o, scale(rd, g_dt));
+  g_n = add(g_n, entering ? g_o : neg(g_o));
+  if (!entering) return g_nint;
+  if (ri != 0.0f) return -(g_nint / (safe_ri * safe_ri));
+  return 0.0f;
+}
+
+TPT_HD void sphere_t_adj(const SceneView& S, int i, V3 ro, V3 rd, float t_min,
+                         float g_t, V3& g_ro, V3& g_rd, float* acc) {
+  V3 g_co;
+  float g_sqr;
+  sphere_t_adj_vals(S, i, ro, rd, t_min, g_t, g_ro, g_rd, g_co, g_sqr);
+  acc3(acc, S.n, ROW_CX, i, g_co);
+  acc[ROW_SQR * S.n + i] += g_sqr;
+}
+
+TPT_HD void cone_adj(const SceneView& S, int e, const Cone& q, float eps1,
+                     V3 g_l, float g_cam, V3& g_pos, float* acc) {
+  float g_r;
+  V3 g_sc;
+  cone_adj_vals(q, eps1, g_l, g_cam, g_pos, g_r, g_sc);
+  if (1.0f - q.r * q.r / q.d2 > 0.0f) acc[ROW_R * S.n + e] += g_r;
   acc3(acc, S.n, ROW_CX, e, g_sc);
 }
 
@@ -610,38 +664,10 @@ TPT_HD void nee_adj(const SceneView& S, V3 pos, V3 normal, V3 rd, V3 alb,
   g_n = add(g_n, front ? g_nl : neg(g_nl));
 }
 
-// The refracted direction of scatter_dielectric back to the ray, the normal
-// and the sphere's ri, for the cotangent g_dir of normalize(refr).
 TPT_HD void refract_adj(const SceneView& S, int id, V3 rd, V3 normal,
                         V3 g_dir, V3& g_rd, V3& g_n, float* acc) {
-  float ri = S.at(ROW_RI, id);
-  bool entering = dot(rd, normal) <= 0.0f;
-  V3 o = entering ? normal : neg(normal);
-  float safe_ri = ri == 0.0f ? 1.0f : ri;
-  float nint = entering ? 1.0f / safe_ri : ri;
-  float dt = dot(rd, o);
-  float w = 1.0f - dt * dt;
-  float discr = 1.0f - nint * nint * w;
-  float sq = sqrt_pos(discr);
-  V3 u = sub(rd, scale(o, dt));
-  // refr = u * nint - o * sq, u = rd - o * dt
-  V3 g_r = normalize_adj(sub(scale(u, nint), scale(o, sq)), g_dir);
-  V3 g_u = scale(g_r, nint);
-  float g_nint = dot(u, g_r);
-  V3 g_o = sub(scale(g_r, -sq), scale(g_u, dt));
-  float g_dt = -dot(o, g_u);
-  if (discr > 0.0f) {  // discr = 1 - nint^2 (1 - dt^2)
-    float g_discr = -dot(o, g_r) * 0.5f / sq;
-    g_nint -= g_discr * (2.0f * nint * w);
-    g_dt += g_discr * (2.0f * nint * nint * dt);
-  }
-  g_rd = add(g_rd, add(g_u, scale(o, g_dt)));
-  g_o = add(g_o, scale(rd, g_dt));
-  if (!entering)
-    acc[ROW_RI * S.n + id] += g_nint;
-  else if (ri != 0.0f)
-    acc[ROW_RI * S.n + id] -= g_nint / (safe_ri * safe_ri);
-  g_n = add(g_n, entering ? g_o : neg(g_o));
+  acc[ROW_RI * S.n + id] +=
+      refract_adj_vals(S, id, rd, normal, g_dir, g_rd, g_n);
 }
 
 // Adjoint of one bounce.  In: the bounce's inputs (ro, rd, and st as it

@@ -175,7 +175,6 @@ def load_library() -> ctypes.CDLL:
     lib.tpt_grad_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr, ptr,
                                     ptr, ptr, ptr, i32, ptr, ptr]
     lib.tpt_grad_scratch.argtypes = [params, i32, ptr, ptr]
-    lib.tpt_grad_max_spheres.argtypes = [i32]
     lib.tpt_grad_sum_launch.argtypes = [ptr, i32, i32, ptr, i32, ptr]
     lib.tpt_hit_chunks_launch.argtypes = [ptr, i32, i32, ptr, ptr, i32, f32,
                                           f32, ptr, ptr, ptr]
@@ -188,8 +187,7 @@ def load_library() -> ctypes.CDLL:
     lib.tpt_probe_launch.argtypes = [i32, i32, i32, ptr, ptr]
     for fn in (lib.tpt_render_launch, lib.tpt_render_stats_launch,
                lib.tpt_lockstep_launch, lib.tpt_grad_launch,
-               lib.tpt_grad_scratch, lib.tpt_grad_max_spheres,
-               lib.tpt_grad_sum_launch, lib.tpt_hit_chunks_launch,
+               lib.tpt_grad_scratch, lib.tpt_grad_sum_launch, lib.tpt_hit_chunks_launch,
                lib.tpt_shadow_chunks_launch, lib.tpt_scaled_render_launch,
                lib.tpt_scaled_groups, lib.tpt_probe_launch):
         fn.restype = ctypes.c_int
