@@ -21,8 +21,7 @@ non-zero):
      replaying form it replaced, the baseline) and lockstep kernel (K4)
      vs plain autograd at 320x176, spp 2, depth 4, the big and the small
      scene, frames 0-1, and the warp form on a 130-sphere scene; each
-     form bit-equal launch to launch, the replaying form bit-equal to
-     its stored-carry form.
+     form bit-equal launch to launch.
   6. the training path at 1280x720, spp 4, depth 10, 46 spheres:
      InverseRenderer Adam steps from a perturbed albedo (one render and
      one warp-form gradient launch a step; with lockstep_primal, one
@@ -30,9 +29,9 @@ non-zero):
      gradients against 45 plain bands and finite differences, the warp
      form's against its own 45 bands and one band against plain.
   7. K3's cycle shares by part (tools.grad_stats: both forms' stats
-     instances, and each form's final sum timed alone); the warp, replay
-     and stored-carry forms timed in turns with CUDA events; the training
-     step on the host clock.
+     instances, and each form's final sum timed alone); the warp and
+     replay forms timed in turns with CUDA events; the training step on
+     the host clock.
   8. the scaled path (make_scaled_scene(100_000): 100,096 spheres in 391
      chunks, 8 beacons) at 1280x720, spp 4, depth 10: RenderSession, 4
      progressive frames plus 1 animated frame (one launch a frame of the
@@ -354,30 +353,6 @@ def main() -> int:
     return 0
 
 
-def crowded_scene(scene, extra=84, seed=3):
-    """`scene` with `extra` small spheres appended on the floor in front of
-    the camera (130 spheres from the 46-sphere scene): Lambert, metal and
-    dielectric in turn, albedos from a seeded numpy generator.  K3's warp
-    form takes up to 512 spheres; the replaying form, 64."""
-    import numpy as np
-    rng = np.random.RandomState(seed)
-    idx = np.arange(extra)
-    cen = np.stack([-3.3 + 0.6 * (idx % 12), np.full(extra, -0.38),
-                    -2.2 + 0.55 * (idx // 12)], 1)
-
-    def cat(field, new):
-        return torch.cat([getattr(scene, field),
-                          torch.as_tensor(new, dtype=torch.float32)])
-    return scene.replace(
-        center=cat("center", cen),
-        radius=cat("radius", np.full(extra, 0.12)),
-        albedo=cat("albedo", rng.uniform(0.2, 0.9, (extra, 3))),
-        emissive=cat("emissive", np.zeros((extra, 3))),
-        roughness=cat("roughness", rng.uniform(0.0, 0.5, extra)),
-        ri=cat("ri", np.where(idx % 3 == 2, 1.5, 0.0)),
-        mat_type=scene.mat_type + tuple(int(i % 3) for i in idx))
-
-
 def grad_phases(cfg, scene, scene_d, smi, k1, usage):
     """Phases 5-7: the gradient kernel (K3: its warp form on the main path
     and the replaying form it replaced, the baseline) and the lockstep
@@ -394,6 +369,7 @@ def grad_phases(cfg, scene, scene_d, smi, k1, usage):
     from toypathtracer_torch.profiling import time_device_call
     from toypathtracer_torch.render.wavefront import render_tile_grad_plain
     from toypathtracer_torch.tools import grad_stats
+    from toypathtracer_torch.tools.scenes import crowded_scene
 
     dev = scene_d.device
     main_form = cuda_grad.MAIN_FORM
@@ -406,7 +382,7 @@ def grad_phases(cfg, scene, scene_d, smi, k1, usage):
                             max_depth=4)
     small_rel = {"warp": 0.0, "replay": 0.0}
     cases = [("big", make_scene(big=True)), ("small", make_scene(big=False)),
-             ("crowded", crowded_scene(make_scene(big=True)))]
+             ("crowded", crowded_scene())]
     for name, sc in cases:
         sc = sc.to(dev)
         for frame in range(1 if name == "crowded" else 2):
@@ -433,13 +409,6 @@ def grad_phases(cfg, scene, scene_d, smi, k1, usage):
                      "lockstep_bit_equal": bool(torch.equal(img_l, img_k)),
                      "grad_deterministic": bool(torch.equal(d_k, d_k2)),
                      "finite": bool(torch.isfinite(d_k).all())}
-                if form == "replay":  # stored carries: bit-equal
-                    st = cuda_grad.render_tile_grad_form(*args, "stored")
-                    r["stored_bit_equal"] = all(
-                        bool(torch.equal(x, y))
-                        for x, y in zip(st, (img_k, rays_k, d_k)))
-                    check(r["stored_bit_equal"],
-                          f"stored form != replay form, {name} {frame}")
                 if name == "crowded":
                     r["appended_spheres_reached"] = int(
                         (d_k[:, 46:].abs().sum(dim=0) > 0).sum())
@@ -612,10 +581,20 @@ def grad_phases(cfg, scene, scene_d, smi, k1, usage):
               for f in ("replay", "warp")}
     for f, st in shares.items():
         emit({"phase": "grad_cycle_shares", "nvidia_smi": smi, **st})
-    # the forms in turns: warp, replay, stored, stored, replay, warp; each
-    # entry the mean of its two runs
+    # the warp form's carries: the scratch a full-frame launch allocates
+    # (device memory), and what its records move -- each bounce's record
+    # written once by the forward trace and read once by the reverse sweep
+    blocks, tape_floats = cuda_grad.grad_scratch(scene_d, cfg, 0, 0, 0, H, W,
+                                                 "warp")
+    rec_bytes = 4 * 16  # csrc/gradwarp.cuh kRecWords
+    moved = 2 * rec_bytes * shares["warp"]["counters"]["adj_bounces"]
+    carries = {"blocks": blocks, "tape_bytes": 4 * tape_floats,
+               "record_bytes": rec_bytes, "bytes_moved": moved,
+               "moved_ms_at_3.35TB/s": moved / 3.35e12 * 1e3}
+    # the forms in turns: warp, replay, replay, warp; each entry the mean of
+    # its two runs
     runs = {}
-    for form in ("warp", "replay", "stored", "stored", "replay", "warp"):
+    for form in ("warp", "replay", "replay", "warp"):
         runs.setdefault(form, []).append(time_device_call(
             cuda_grad.render_tile_grad_form, scene_d, cfg, 0, w, 0, 0, H, W,
             form, repeats=3)[0] * 1e3)
@@ -650,6 +629,7 @@ def grad_phases(cfg, scene, scene_d, smi, k1, usage):
          "grad_plain_ms": grad_plain_s * 1e3,
          "lockstep_plain_ms": k1["plain_ms"],
          "sum_ms": {f: shares[f]["sum_ms"] for f in shares},
+         "warp_carries": carries,
          "grad_bound_fp32_ops": grad_ops, "grad_bound_bytes": grad_bytes,
          "grad_bound_ms": grad_bound, "lockstep_bound_ms": lock_bound,
          "bound_peak": "67 TFLOP/s FP32, 3.35 TB/s (H100 SXM, 700 W)",
@@ -670,7 +650,6 @@ def grad_phases(cfg, scene, scene_d, smi, k1, usage):
          "baseline_ms": form_ms["replay"]["ms"],
          "baseline": "the replaying form (lockstep_kernel<1,0>), timed "
                      "in turns with it",
-         "stored_ms": form_ms["stored"]["ms"],
          "ptxas": usage.get("warp_grad_kernel<0>", {}),
          "cycle_shares": shares[main_form]["cycle_shares"],
          "vs_plain": {"tolerance": tol + "; also at 130 spheres (320x176); "

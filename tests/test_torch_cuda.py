@@ -10,8 +10,8 @@ relative, mean |diff| 1e-3; measured on an H100 at 320x176: rays exact,
 max |diff| 1.9e-6.  Gradient kernel: rays exact, d_packed per row within
 1e-3 x the row's max |plain autograd| (its warp form also at 130
 spheres; the replaying form measured on an H100 at 320x176: at most
-4.9e-6), two launches bit-equal, the stored-carry form and the stats instances
-bit-equal to the forms they measure.  Scaled kernels (n=3000, chunk
+4.9e-6), two launches bit-equal, the stats instances bit-equal to the
+forms they measure.  Scaled kernels (n=3000, chunk
 256): the traversal K5 and the shadow bitmask K6 equal to their plain
 versions on all but 1e-5 of the rays, t within 1e-6 relative where the
 ids agree; the scaled render kernel at 64x32 with the render kernel's
@@ -43,8 +43,7 @@ from toypathtracer_torch.scaled import (ChunkTraversal, ChunkedScenePort,
                                         make_scaled_scene, pack_chunks,
                                         render_frame_scaled_plain)
 from toypathtracer_torch.tools import grad_stats, roofline
-
-from test_torch_grad_kernel_cpu import crowded_scene
+from toypathtracer_torch.tools.scenes import crowded_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -138,20 +137,6 @@ def test_warp_grad_kernel_matches_plain_autograd(card, crowded):
     assert_rows_close(d, d_p, 1e-3)
     if crowded:
         assert int((d[:, 64:].abs().sum(dim=0) > 0).sum()) >= 5
-
-
-def test_stored_grad_form_bit_equal_to_replay(card):
-    """The replaying kernel with stored carries: image, rays and cotangent
-    bit-equal to the replaying kernel."""
-    scene = make_scene(big=True).to(card)
-    cfg = RenderConfig(width=96, height=40, samples_per_pixel=2, max_depth=6)
-    g = torch.from_numpy(np.random.RandomState(5).rand(40, 96, 3)
-                         .astype(np.float32)).to(card)
-    args = (scene, cfg, 1, g, 0, 0, 40, 96)
-    a = cuda_grad.render_tile_grad_form(*args, "replay")
-    b = cuda_grad.render_tile_grad_form(*args, "stored")
-    torch.cuda.synchronize()
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("form", ["replay", "warp"])

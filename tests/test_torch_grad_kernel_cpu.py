@@ -1,11 +1,11 @@
 """The gradient kernel's per-pixel code (csrc/trace.cuh grad_pixel, the
-body of csrc/grad.cu's K3) and the lockstep kernel's (render_pixel, K4),
-built with g++ for the CPU, against autograd through the plain version
-(render/wavefront.render_tile_grad_plain).
+body of csrc/grad.cu's replaying K3) and the lockstep kernel's
+(render_pixel, K4), built with g++ for the CPU, against autograd through
+the plain version (render/wavefront.render_tile_grad_plain).
 
-trace.cuh is all __host__ __device__ code; without nvcc its TPT_HD macro
-is plain `inline`, so a C loop over pixels runs the kernels' own logic
-here, through the same tpt::RenderParams the launchers take.  The loop
+Without nvcc the TPT_HD and TPT_WARP macros of trace.cuh and warp.cuh are
+plain `inline`, so a C loop over pixels runs the kernels' own logic here,
+through the same tpt::RenderParams the launchers take.  The loop
 adds every pixel's cotangent into one table; the card sums them in
 another order (per block, then over blocks), which the sub-image test
 stands in for.
@@ -37,6 +37,7 @@ from toypathtracer_torch.camera import camera_to_array, make_camera
 from toypathtracer_torch.ops import _build, cuda_grad, cuda_render
 from toypathtracer_torch.render.wavefront import render_tile_grad_plain
 from toypathtracer_torch.tools import grad_stats
+from toypathtracer_torch.tools.scenes import crowded_scene
 
 torch.set_num_threads(1)
 
@@ -343,31 +344,6 @@ def grad_form_host(lib, scene, cfg, frame, g, x0, y0, form):
     return out, rays, acc
 
 
-def crowded_scene(extra=84, seed=3):
-    """make_scene(big=True) with `extra` small spheres appended on the
-    floor in front of the camera (130 spheres by default): Lambert, metal
-    and dielectric in turn, albedos from a seeded numpy generator."""
-    scene = make_scene(big=True)
-    rng = np.random.RandomState(seed)
-    cols = 12
-    idx = np.arange(extra)
-    cen = np.stack([-3.3 + 0.6 * (idx % cols), np.full(extra, -0.38),
-                    -2.2 + 0.55 * (idx // cols)], 1).astype(np.float32)
-    mats = tuple(int(i % 3) for i in idx)
-
-    def cat(field, new):
-        return torch.cat([getattr(scene, field),
-                          torch.as_tensor(new, dtype=torch.float32)])
-    return scene.replace(
-        center=cat("center", cen),
-        radius=cat("radius", np.full(extra, 0.12)),
-        albedo=cat("albedo", rng.uniform(0.2, 0.9, (extra, 3))),
-        emissive=cat("emissive", np.zeros((extra, 3))),
-        roughness=cat("roughness", rng.uniform(0.0, 0.5, extra)),
-        ri=cat("ri", np.where(idx % 3 == 2, 1.5, 0.0)),
-        mat_type=scene.mat_type + mats)
-
-
 def assert_rows_close(got, want, rtol):
     for r in range(want.shape[0]):
         scale = np.abs(want[r]).max()
@@ -544,23 +520,21 @@ def test_warp_form_sample_batches(host_lib, spp, depth, form):
 
 def test_wrapper_caps_and_forms_on_the_cpu(monkeypatch):
     """render_tile_grad takes the warp form's 512 spheres (on the CPU, plain
-    autograd); the replaying forms keep their 64, the stored form its
-    depth, and the stats instances and the cycle tool need a card."""
+    autograd); the replaying form keeps its 64, the card has no other
+    form, and the stats instances and the cycle tool need a card."""
     scene = crowded_scene()
     cfg = RenderConfig(width=8, height=4, samples_per_pixel=1, max_depth=2)
     g = torch.ones((4, 8, 3))
     img, rays, d = cuda_grad.render_tile_grad(scene, cfg, 0, g, 0, 0, 4, 8)
     assert d.shape == (14, 130) and torch.isfinite(d).all() and int(rays) > 0
-    for form in ("replay", "stored"):
-        with pytest.raises(ValueError, match="at most 64"):
-            cuda_grad.render_tile_grad_form(scene, cfg, 0, g, 0, 0, 4, 8,
-                                            form)
+    with pytest.raises(ValueError, match="at most 64"):
+        cuda_grad.render_tile_grad_form(scene, cfg, 0, g, 0, 0, 4, 8,
+                                        "replay")
     small = make_scene(big=False)
-    with pytest.raises(ValueError, match="at most 16 bounces"):
-        cuda_grad.render_tile_grad_form(small, cfg.replace(max_depth=17), 0,
-                                        g, 0, 0, 4, 8, "stored")
-    with pytest.raises(ValueError, match="no gradient kernel form"):
-        cuda_grad.render_tile_grad_form(small, cfg, 0, g, 0, 0, 4, 8, "lane")
+    for form in ("lane", "stored"):
+        with pytest.raises(ValueError, match="no gradient kernel form"):
+            cuda_grad.render_tile_grad_form(small, cfg, 0, g, 0, 0, 4, 8,
+                                            form)
     with pytest.raises(ValueError, match="on a card"):
         cuda_grad.render_tile_grad_form(small, cfg, 0, g, 0, 0, 4, 8, "warp",
                                         stats=True)

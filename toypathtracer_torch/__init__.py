@@ -22,6 +22,8 @@ Layer map:
   ops/_build.py         nvcc build of csrc/ at first use, ctypes binding
   csrc/trace.cuh        the kernels' per-pixel code and its hand-written
                         adjoint (also builds with g++)
+  csrc/gradwarp.cuh     the gradient kernel's per-warp code (also with g++)
+  csrc/warp.cuh         the warp policies of the warp-level code
   csrc/render.cu        the render kernel and its launcher
   csrc/grad.cu          the gradient and lockstep kernels and launchers
   csrc/chunks.cuh       the per-ray chunk traversal (also builds with g++)

@@ -3,19 +3,19 @@
 // toypathtracer_tpu/ops/pallas_grad.py::_grad_kernel and
 // ::_lockstep_fwd_kernel.
 //
-// K3 on the main path is warp_grad_kernel (csrc/gradwarp.cuh): persistent
-// 128-thread blocks whose warps take 8x4-pixel tiles round robin by warp
-// index, a lane a pixel.  A lane traces a batch of its pixel's samples
-// once, keeping each bounce's carries (16 words) in the warp's scratch in
-// device memory; then the warp sweeps the batch's samples in reverse, a
-// lane taking the next sample of the warp's queue when its own is done,
-// and every add into the scene cotangent is a warp collective into the
-// warp's (SCENE_ROWS, n) table in shared memory: lanes that add to one
-// sphere sum in a fixed tree and one of them adds the sum.  The block
-// then sums its warps' tables in warp order into its partial row, and
-// sum_rows adds the rows, one warp an entry, in a fixed order.  No
-// floating-point atomic, and the pixels of a warp follow from its index:
-// two launches on the same inputs give bit-equal results.
+// K3 on the main path is warp_grad_kernel (csrc/gradwarp.cuh grad_tiles):
+// persistent 128-thread blocks whose warps take 8x4-pixel tiles round
+// robin by warp index, a lane a pixel.  A lane traces a batch of its
+// pixel's samples once, keeping each bounce's carries (16 words) in the
+// warp's scratch in device memory; then the warp sweeps the batch's
+// samples in reverse, a lane taking the next sample of the warp's queue
+// when its own is done, and every add into the scene cotangent is a warp
+// collective into the warp's (SCENE_ROWS, n) table in shared memory: lanes
+// that add to one sphere sum in a fixed tree and one of them adds the sum.
+// The block then sums its warps' tables in warp order into its partial
+// row, and sum_rows adds the rows, one warp an entry, in a fixed order.
+// No floating-point atomic, and the pixels of a warp follow from its
+// index: two launches on the same inputs give bit-equal results.
 //
 // lockstep_kernel is the first design, one thread a pixel over 16x16
 // blocks with the scene staged in shared memory.  kMode 0 is K4:
@@ -24,11 +24,8 @@
 // as the baseline it is timed against: tpt::grad_pixel replays bounces
 // 0..d-1 before differentiating bounce d and adds into a (SCENE_ROWS, 64)
 // table in the thread's local memory; the block sums its threads' tables
-// and sum_partials adds the blocks' partials serially in double.  kMode 2
-// is kMode 1 with stored carries instead of the replays
-// (tpt::grad_pixel_stored, bit-equal to kMode 1), which measures the
-// replays alone.  The stats instances (kStats) count SM cycles by part
-// (trace.cuh kGc*).
+// and sum_partials adds the blocks' partials serially in double.  The
+// stats instances (kStats) count SM cycles by part (trace.cuh kGc*).
 //
 // Bound: FP32 ALU work -- the forward trace and the adjoint arithmetic --
 // against a few hundred MB of traffic (the carries written and read once,
@@ -51,8 +48,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kGradMaxSpheres = 64;
 // Table entries reduced per round of the replaying form's block reduction.
 constexpr int kChunk = 32;
-// Deepest path the stored-carry form (kMode 2) keeps in local memory.
-constexpr int kStoredDepth = 16;
 // The warp form: 4 warps a block; 12 blocks an SM cap its registers at 40
 // a thread, which spills but keeps 48 warps an SM in flight to hide the
 // latency of its shared-memory, shuffle and local-memory chains (the
@@ -149,21 +144,14 @@ lockstep_kernel(const float* __restrict__ tab, const int32_t* __restrict__ mat,
     S.n_lights = p.n_lights;
     const size_t o = (static_cast<size_t>(ly) * p.width + lx) * 3;
     float c[3];
-    if constexpr (kMode == 0) {
+    if constexpr (!kGrad)
       count = tpt::render_pixel(S, s_cam, p, p.x0 + lx, p.y0 + ly, c);
-    } else if constexpr (kMode == 1) {
-      if constexpr (kStats)
-        count = tpt::grad_pixel(S, s_cam, p, p.x0 + lx, p.y0 + ly, g + o, c,
-                                acc, cs);
-      else
-        count = tpt::grad_pixel(S, s_cam, p, p.x0 + lx, p.y0 + ly, g + o, c,
-                                acc);
-    } else {
-      tpt::Carry carries[kStoredDepth];
-      tpt::ArrayTape tape{carries};
-      count = tpt::grad_pixel_stored(S, s_cam, p, p.x0 + lx, p.y0 + ly,
-                                     g + o, c, acc, tape);
-    }
+    else if constexpr (kStats)
+      count = tpt::grad_pixel(S, s_cam, p, p.x0 + lx, p.y0 + ly, g + o, c,
+                              acc, cs);
+    else
+      count = tpt::grad_pixel(S, s_cam, p, p.x0 + lx, p.y0 + ly, g + o, c,
+                              acc);
     out[o] = c[0];
     out[o + 1] = c[1];
     out[o + 2] = c[2];
@@ -221,9 +209,10 @@ __host__ __device__ size_t warp_tape_floats(const tpt::RenderParams& p) {
          tpt::grad_batch(p);
 }
 
-// The warp form of K3 (csrc/gradwarp.cuh).  Dynamic shared memory: [scene
-// table] [material ids] [emissive ids] [camera] [kGradWarps cotangent
-// tables of SCENE_ROWS * n] [kGradWarps scratches of grad_tiles].
+// The warp form of K3 (csrc/gradwarp.cuh grad_tiles).  Dynamic shared
+// memory: [scene table] [material ids] [emissive ids] [camera] [kGradWarps
+// cotangent tables of SCENE_ROWS * n] [kGradWarps scratches of
+// grad_tiles].
 // `tape`: warp_tape_floats(p) floats for each warp of the grid.
 template <bool kStats>
 __global__ void __launch_bounds__(kWarpThreads, kWarpBlocks)
@@ -371,15 +360,17 @@ cudaError_t warp_grid(const tpt::RenderParams* p, int* blocks) {
 
 extern "C" {
 
-// The scratch a K3 launch of form `form` (0: the replaying form; 1: it
-// with stored carries; 2: the warp form) takes: *rows rows of
-// SCENE_ROWS * n partial sums and *tape_floats floats of carries (0 but
-// for the warp form).  Returns 0, or a CUDA error code.
+// The scratch a K3 launch of form `form` (0: the replaying form; 1: the
+// warp form) takes: *rows rows of SCENE_ROWS * n partial sums (for the
+// warp form, its blocks) and *tape_floats floats of carries (0 for the
+// replaying form).  For the warp form it also lets both instances take the
+// dynamic shared memory the launch needs.  Returns 0, or a CUDA error
+// code.
 int tpt_grad_scratch(const tpt::RenderParams* p, int form, int* rows,
                      long long* tape_floats) {
-  if (form < 0 || form > 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (form < 0 || form > 1) return static_cast<int>(cudaErrorInvalidValue);
   *tape_floats = 0;
-  if (form < 2) {
+  if (form == 0) {
     const dim3 grid = grid_of(p);
     *rows = static_cast<int>(grid.x * grid.y);
     return 0;
@@ -394,46 +385,41 @@ int tpt_grad_scratch(const tpt::RenderParams* p, int form, int* rows,
 // K3 of form `form` on `stream`: image `out` (height, width, 3), ray
 // count added to `rays` (zeroed by the caller), scene cotangent d_tab
 // (SCENE_ROWS, n) for the pixel cotangent `g` (height, width, 3).
-// `partial` and `tape` are the scratch tpt_grad_scratch names; stats: null,
-// or kGcSlots zeroed totals that the form's stats instance (forms 0 and 2)
-// adds to.  Returns cudaGetLastError() after both launches (0 when both
-// were accepted).
+// `rows`, `partial` and `tape` are the scratch tpt_grad_scratch gave for
+// these parameters (it must have run first); stats: null, or kGcSlots
+// zeroed totals that the form's stats instance adds to.  Returns
+// cudaGetLastError() after both launches (0 when both were accepted).
 int tpt_grad_launch(const float* tab, const int32_t* mat,
                     const int32_t* lights, const float* cam,
                     const tpt::RenderParams* p, const float* g, float* out,
-                    unsigned long long* rays, float* partial, float* tape,
-                    float* d_tab, int form, unsigned long long* stats,
-                    void* stream) {
-  if (form < 0 || form > 2 ||
-      bad_params(p, form == 2 ? tpt::kMaxSpheres : kGradMaxSpheres) ||
-      (form == 1 && (p->max_depth > kStoredDepth || stats)) ||
-      (form == 2 && !tape))
+                    unsigned long long* rays, int rows, float* partial,
+                    float* tape, float* d_tab, int form,
+                    unsigned long long* stats, void* stream) {
+  if (form < 0 || form > 1 ||
+      bad_params(p, form == 1 ? tpt::kMaxSpheres : kGradMaxSpheres) ||
+      rows < 1 || (form == 1 && !tape))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = tpt::SCENE_ROWS * p->n_spheres;
-  if (form == 2) {
-    int blocks = 0;
-    cudaError_t err = warp_grid(p, &blocks);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (form == 1) {
     auto kernel = stats ? warp_grad_kernel<true> : warp_grad_kernel<false>;
-    kernel<<<blocks, kWarpThreads, warp_smem(p), s>>>(
+    kernel<<<rows, kWarpThreads, warp_smem(p), s>>>(
         tab, mat, lights, cam, *p, g, out, rays, tape, partial, stats);
-    err = cudaGetLastError();
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     sum_rows<<<(m + kSumThreads / 32 - 1) / (kSumThreads / 32), kSumThreads,
-               0, s>>>(partial, blocks, m, d_tab);
+               0, s>>>(partial, rows, m, d_tab);
     return static_cast<int>(cudaGetLastError());
   }
   const dim3 grid = grid_of(p);
-  auto kernel = form == 1 ? lockstep_kernel<2, false>
-                          : stats ? lockstep_kernel<1, true>
-                                  : lockstep_kernel<1, false>;
+  if (static_cast<unsigned>(rows) != grid.x * grid.y)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = stats ? lockstep_kernel<1, true> : lockstep_kernel<1, false>;
   kernel<<<grid, dim3(kBlockX, kBlockY), stage_bytes(p), s>>>(
       tab, mat, lights, cam, *p, g, out, rays, partial, stats);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_partials<<<(m + 127) / 128, 128, 0, s>>>(
-      partial, static_cast<int>(grid.x * grid.y), m, d_tab);
+  sum_partials<<<(m + 127) / 128, 128, 0, s>>>(partial, rows, m, d_tab);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -441,10 +427,10 @@ int tpt_grad_launch(const float* tab, const int32_t* mat,
 // from `rows` partial rows.  For timing it apart from the kernel.
 int tpt_grad_sum_launch(const float* partial, int rows, int m, float* d_tab,
                         int form, void* stream) {
-  if (rows < 1 || m < 1 || form < 0 || form > 2)
+  if (rows < 1 || m < 1 || form < 0 || form > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (form == 2)
+  if (form == 1)
     sum_rows<<<(m + kSumThreads / 32 - 1) / (kSumThreads / 32), kSumThreads,
                0, s>>>(partial, rows, m, d_tab);
   else

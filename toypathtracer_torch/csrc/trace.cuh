@@ -893,8 +893,8 @@ TPT_HD V3 carry_c(const SceneView& S, const BounceRec& r) {
             S.at(ROW_ALB + 2, r.id));
 }
 
-// A tape of Carry records in an array (the g++ tests, and the stored
-// form's per-thread array in local memory).
+// A tape of Carry records in an array: a sample's, for grad_pixel_stored
+// (the g++ tests).
 struct ArrayTape {
   Carry* c;
   TPT_HD void put(int d, const Carry& x) const { c[d] = x; }

@@ -173,7 +173,7 @@ def load_library() -> ctypes.CDLL:
     lib.tpt_lockstep_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr,
                                         ptr]
     lib.tpt_grad_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr, ptr,
-                                    ptr, ptr, ptr, i32, ptr, ptr]
+                                    i32, ptr, ptr, ptr, i32, ptr, ptr]
     lib.tpt_grad_scratch.argtypes = [params, i32, ptr, ptr]
     lib.tpt_grad_sum_launch.argtypes = [ptr, i32, i32, ptr, i32, ptr]
     lib.tpt_hit_chunks_launch.argtypes = [ptr, i32, i32, ptr, ptr, i32, f32,

@@ -8,16 +8,14 @@ CUDA tensors; on CPU tensors they run the plain versions
 (render/wavefront.render_tile_grad_plain and render_tile_plain).  There is
 no fallback: on a CUDA tensor a failed build or launch raises.
 
-K3 has three forms (`render_tile_grad_form`): "warp", the main path's
-(csrc/gradwarp.cuh: stored carries and a warp-level cotangent table, up to
-512 spheres); "replay", the kernel it replaced (bounces replayed, a
-per-thread table, up to 64 spheres), kept as the baseline it is timed
-against; and "stored", the replaying kernel with stored carries instead of the
-replays (bit-equal to "replay"), which measures the replays alone.
-"replay" and "warp" have stats instances that count SM cycles by part.
-`launches` counts wrapper launches: "grad" the main path's form (one
-launch is the kernel and the small kernel that sums its per-block
-partials), "grad_replay", "grad_stored", "grad_stats" the others,
+K3 has two forms (`render_tile_grad_form`): "warp", the main path's
+(csrc/gradwarp.cuh grad_tiles: stored carries and a warp-level cotangent
+table, up to 512 spheres), and "replay", the kernel it replaced (bounces
+replayed, a per-thread table, up to 64 spheres), kept as the baseline it
+is timed and held against.  Each has a stats instance that counts SM
+cycles by part.  `launches` counts wrapper launches: "grad" the main
+path's form (one launch is the kernel and the small kernel that sums its
+per-block partials), "grad_replay" and "grad_stats" the others,
 "lockstep" K4.
 
 `render_frame_diff` / `render_tile_diff` are the differentiable renders of
@@ -49,14 +47,11 @@ from .cuda_render import (MAX_SPHERES, check_device, checked_tab,
 # K3's forms (tpt_grad_launch's `form`), their launch counters, and the
 # spheres each takes: the warp form's table is per warp in shared memory,
 # up to tpt::kMaxSpheres (MAX_SPHERES, as the render kernel); the
-# replaying form's is per thread (csrc/grad.cu kGradMaxSpheres).  The
-# stored form keeps at most STORED_MAX_DEPTH bounces a sample in local
-# memory.
-FORMS = {"replay": 0, "stored": 1, "warp": 2}
+# replaying form's is per thread (csrc/grad.cu kGradMaxSpheres).
+FORMS = {"replay": 0, "warp": 1}
 MAIN_FORM = "warp"
-COUNTERS = {"warp": "grad", "replay": "grad_replay", "stored": "grad_stored"}
-FORM_MAX_SPHERES = {"warp": MAX_SPHERES, "replay": 64, "stored": 64}
-STORED_MAX_DEPTH = 16
+COUNTERS = {"warp": "grad", "replay": "grad_replay"}
+FORM_MAX_SPHERES = {"warp": MAX_SPHERES, "replay": 64}
 
 # The stats instances' counters (csrc/trace.cuh kGc*), summed over threads:
 # SM cycles in the forward trace, the replays, the adjoint sweep, the warp
@@ -69,15 +64,14 @@ STAT_FIELDS = ("cycles_fwd", "cycles_replay", "cycles_adj", "cycles_group",
 
 PARAM_FIELDS = ("center", "radius", "albedo", "emissive", "roughness", "ri")
 
-launches = {"grad": 0, "grad_replay": 0, "grad_stored": 0, "grad_stats": 0,
-            "lockstep": 0}
+launches = {"grad": 0, "grad_replay": 0, "grad_stats": 0, "lockstep": 0}
 
 
 def grad_scratch(scene: Scene, cfg: RenderConfig, frame: int, x0: int,
                  y0: int, height: int, width: int, form: str):
     """The scratch a K3 launch of `form` takes on the scene's card: (rows
     of its (rows, 14, N) per-block partial sums, floats of its stored
-    carries)."""
+    carries).  A launch of the warp form takes its rows as its blocks."""
     lib = _build.load_library()
     params = render_params(scene, cfg, frame, x0, y0, height, width)
     rows, tape_floats = ctypes.c_int(), ctypes.c_longlong()
@@ -109,7 +103,7 @@ def _launch_grad(scene, tab, cfg, frame, g_img, x0, y0, height, width, form,
         code = lib.tpt_grad_launch(
             tab.data_ptr(), mat.data_ptr(), lights.data_ptr(), cam.data_ptr(),
             ctypes.byref(params), g_img.data_ptr(), out.data_ptr(),
-            rays.data_ptr(), partial.data_ptr(),
+            rays.data_ptr(), rows, partial.data_ptr(),
             tape.data_ptr() if tape.numel() else None, d_tab.data_ptr(),
             FORMS[form], counts.data_ptr() if stats else None, stream)
     cuda_call(lib, "grad", code)
@@ -123,9 +117,8 @@ def _launch_grad(scene, tab, cfg, frame, g_img, x0, y0, height, width, form,
 def sum_partials(partial, form: str):
     """K3's final sum alone: the (14, N) cotangent from a form's (rows, 14,
     N) per-block partial sums, by that form's summing kernel (the
-    replaying form's serial sum for "replay" and "stored", the warp form's
-    fixed tree for "warp").  For timing the sum apart from the kernel;
-    CUDA tensors only."""
+    replaying form's serial sum, the warp form's fixed tree).  For timing
+    the sum apart from the kernel; CUDA tensors only."""
     if form not in FORMS:
         raise ValueError(f"no gradient kernel form {form!r}")
     if partial.device.type != "cuda" or partial.dim() != 3:
@@ -180,8 +173,8 @@ def render_tile_grad_form(scene: Scene, cfg: RenderConfig, frame: int, g_img,
                           form: str, tab=None, stats: bool = False):
     """render_tile_grad through K3's form `form` (FORMS): on a card that
     form's kernel, on the CPU the plain version whatever the form.
-    stats=True launches the form's stats instance ("replay" and "warp", on
-    a card) and returns a fourth value, its counters by STAT_FIELDS."""
+    stats=True launches the form's stats instance (on a card) and returns
+    a fourth value, its counters by STAT_FIELDS."""
     check_hard_gradients(cfg)
     if form not in FORMS:
         raise ValueError(f"no gradient kernel form {form!r}")
@@ -189,12 +182,8 @@ def render_tile_grad_form(scene: Scene, cfg: RenderConfig, frame: int, g_img,
     if scene.n_spheres > cap:
         raise ValueError(f"the gradient kernel's {form} form takes at most "
                          f"{cap} spheres, got {scene.n_spheres}")
-    if form == "stored" and cfg.max_depth > STORED_MAX_DEPTH:
-        raise ValueError(f"the stored form keeps at most {STORED_MAX_DEPTH} "
-                         f"bounces, got max_depth {cfg.max_depth}")
-    if stats and (form == "stored" or scene.device.type != "cuda"):
-        raise ValueError("stats instances exist for the replay and warp "
-                         "forms, on a card")
+    if stats and scene.device.type != "cuda":
+        raise ValueError("the stats instances run on a card")
     tab = checked_tab(scene, x0, y0, height, width, tab)
     if tuple(g_img.shape) != (height, width, 3):
         raise ValueError(f"pixel cotangent must be ({height}, {width}, 3), "
