@@ -6,17 +6,27 @@ kernel against the plain PyTorch version.
 Phases (one JSON line each on stdout; any failure raises and exits
 non-zero):
   1. device: the card, torch/CUDA versions, the nvcc build of csrc/;
-     each kernel's registers, stack and spills from -Xptxas -v, with K1,
-     K3 (both forms), K4, K5, K6 and the per-lane scaled render kernel
+     each kernel's registers, stack and spills from -Xptxas -v, with the
+     per-thread K1, K3 (both forms), K4's per-thread form, K5, K6, the
+     per-lane and the cooperative scaled render kernels and the merged K1
      held at their counts.
   2. kernel vs plain at 320x176, spp 2, depth 6, frames 0-3: the big
-     scene, the big scene without light sampling, the small scene.
+     scene, the big scene without light sampling, the small scene; in each
+     the merged K1 (the main path's) bit-equal to the per-thread K1 it
+     replaced and K4 bit-equal to it; then 600 spheres (past the
+     per-thread kernels' 512) against plain.
   3. the main path: RenderSession(device="cuda") at 1280x720, spp 4,
      depth 10, 46 spheres, 16 progressive frames plus one animated frame;
      frame 0's rays against the plain version and the TPU's frame-0 count,
-     the 16-frame image against 16 plain frames (8x8 block gates), and one
-     kernel launch per frame.
-  4. timing with CUDA events: 64 steady frames after 4 warm-up frames.
+     the 16-frame image against 16 plain frames (8x8 block gates), one
+     merged-K1 launch per frame and none of the per-thread K1; frame 0,
+     the animated frame and the 16-frame image bit-equal to the per-thread
+     K1's.
+  4. K1's step 1 and counted instance (tools.render_parts: the per-thread
+     K1's cycles by part, the merged K1's lane busy share and cycles by
+     part), tools.sass_loops (the sphere loops' instruction mix); timing
+     with CUDA events: 64 steady frames after 4 warm-up frames, the merged
+     and per-thread K1 in turns.
   5. gradient kernel (K3: its warp form, the main path's, and the
      replaying form it replaced, the baseline) and lockstep kernel (K4)
      vs plain autograd at 320x176, spp 2, depth 4, the big and the small
@@ -25,13 +35,14 @@ non-zero):
   6. the training path at 1280x720, spp 4, depth 10, 46 spheres:
      InverseRenderer Adam steps from a perturbed albedo (one render and
      one warp-form gradient launch a step; with lockstep_primal, one
-     lockstep and one gradient launch), both K3 forms' full-frame
+     lockstep and one gradient launch; none of the per-thread K1 or K4),
+     both K3 forms' full-frame
      gradients against 45 plain bands and finite differences, the warp
      form's against its own 45 bands and one band against plain.
   7. K3's cycle shares by part (tools.grad_stats: both forms' stats
      instances, and each form's final sum timed alone); the warp and
-     replay forms timed in turns with CUDA events; the training step on
-     the host clock.
+     replay forms timed in turns with CUDA events, and K4's merged and
+     per-thread forms; the training step on the host clock.
   8. the scaled path (make_scaled_scene(100_000): 100,096 spheres in 391
      chunks, 8 beacons) at 1280x720, spp 4, depth 10: RenderSession, 4
      progressive frames plus 1 animated frame (one launch a frame of the
@@ -66,15 +77,17 @@ non-zero):
      tools.roofline's main path: the full-size rates, both floors, the SM
      clock under load, and every thread of each case's and each floor's
      launches against the plain version.
- 14. the `kernels` line: render, grad, grad_replay, lockstep,
-     scaled_render, hit_chunks, shadow_chunks, render_stats, issue_rate,
-     launch_floor.
+ 14. the `kernels` line: render, render_baseline, grad, grad_replay,
+     lockstep, scaled_render, hit_chunks, shadow_chunks, render_stats,
+     issue_rate, launch_floor.
 Then the card's name and power limit as nvidia-smi reports them, and the
 `ok` line last.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -84,11 +97,15 @@ import torch
 
 
 # Registers and spill bytes of the kernels that the redesigns must leave as
-# they were (-Xptxas -v of their sources before them): K1, the replaying
-# K3 (lockstep_kernel<1,0>), K4 (<0,0>), K5, K6 and the per-lane scaled render
-# kernel; and K3's warp form at its own counts.
+# they were (-Xptxas -v of their sources before them): the per-thread K1
+# (render_kernel<0>), the replaying K3 (lockstep_kernel<1,0>), the
+# per-thread K4 (<0,0>), K5, K6, the per-lane scaled render kernel and the
+# cooperative one, whose path loop the merged K1 shares; and K3's warp form
+# and the merged K1 at their own counts.
 KEPT_USAGE = {
     "render_kernel<0>": {"registers": 80, "spill_stores": 48},
+    "merged_render_kernel<0>": {"registers": 64, "spill_stores": 788},
+    "coop_render_kernel<0>": {"registers": 96, "spill_stores": 110},
     "lockstep_kernel<1,0>": {"registers": 116, "spill_stores": 0},
     "lockstep_kernel<0,0>": {"registers": 80, "spill_stores": 52},
     "warp_grad_kernel<0>": {"registers": 40, "spill_stores": 1154},
@@ -147,18 +164,48 @@ def row_rel(got, want):
             for e, s in zip(err, scale)]
 
 
+class RootCount:
+    """The plain version's brute-force traversal (tracecore.BruteForce)
+    that also counts, over the lanes it answers for, the sphere tests whose
+    root the function needs: `hit_roots`, the camera/bounce rays' tests
+    with a positive discriminant, and `light_roots`, the shadow rays whose
+    light was hit (the lanes each occlusion query runs for)."""
+
+    def __init__(self, tab):
+        from toypathtracer_torch.ops import tracecore as tc
+        self.tc, self.tab = tc, tab
+        self.brute = tc.BruteForce(tab)
+        self.hit_roots = self.light_roots = 0
+
+    def nearest_hit(self, ro, rd, t_min, t_max, active=None):
+        tc, tab = self.tc, self.tab
+        _, discr = tc.sphere_discr(
+            tab[tc.ROW_CX], tab[tc.ROW_CY], tab[tc.ROW_CZ], tab[tc.ROW_SQR],
+            tuple(x[:, None] for x in ro), tuple(x[:, None] for x in rd))
+        n = (discr > 0.0).sum(dim=1)
+        self.hit_roots += int((n if active is None else n[active]).sum())
+        return self.brute.nearest_hit(ro, rd, t_min, t_max, active)
+
+    def occluded(self, pos, l, light, t_min, t_l, active=None):
+        self.light_roots += int(pos[0].numel() if active is None
+                                else active.sum())
+        return self.brute.occluded(pos, l, light, t_min, t_l, active)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 2
     from toypathtracer_torch import (FLAG_ANIMATE, FLAG_PROGRESSIVE,
                                      RenderConfig, make_scene)
-    from toypathtracer_torch.ops import _build, cuda_render
+    from toypathtracer_torch.ops import _build, cuda_grad, cuda_render
     from toypathtracer_torch.ops import tracecore as tc
     from toypathtracer_torch.profiling import time_device_call
     from toypathtracer_torch.render import frame as frame_mod
     from toypathtracer_torch.render.wavefront import (camera_scalars,
                                                       render_frame_plain)
+    from toypathtracer_torch.tools import render_parts, sass_loops
+    from toypathtracer_torch.tools.scenes import crowded_scene
 
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
@@ -186,20 +233,48 @@ def main() -> int:
              ("big_no_nee", make_scene(big=True),
               small_cfg.replace(do_light_sampling=False)),
              ("small", make_scene(big=False), small_cfg)]
+    forms_equal = {}
     for name, scene, cfg in cases:
         scene = scene.to(dev)
         for frame in range(4):
-            img_k, rays_k = cuda_render.render_tile(
-                scene, cfg, frame, 0, 0, cfg.height, cfg.width)
+            args = (scene, cfg, frame, 0, 0, cfg.height, cfg.width)
+            img_k, rays_k = cuda_render.render_tile(*args)
+            img_t, rays_t = cuda_render.render_tile_form(*args, "thread")
+            img_l, rays_l = cuda_grad.render_tile_lockstep(*args)
             img_p, rays_p = render_frame_plain(scene, cfg, frame)
             torch.cuda.synchronize()
             r = compare(img_k, rays_k, img_p, rays_p)
+            r["bit_equal_to_thread_kernel"] = bool(
+                torch.equal(img_k, img_t)) and int(rays_k) == int(rays_t)
+            r["lockstep_bit_equal"] = bool(
+                torch.equal(img_l, img_k)) and int(rays_l) == int(rays_k)
+            forms_equal[f"{name}_frame{frame}"] = (
+                r["bit_equal_to_thread_kernel"] and r["lockstep_bit_equal"])
             emit({"phase": "kernel_vs_plain", "case": name, "frame": frame,
                   **r})
             check(r["finite"] and tuple(img_k.shape) == (176, 320, 3),
                   f"{name} frame {frame}: shape/finite")
             check(r["rays_rel_diff"] <= 5e-4, f"{name} frame {frame}: rays")
             check(r["mean_abs_diff"] <= 1e-3, f"{name} frame {frame}: mean")
+            check(r["bit_equal_to_thread_kernel"],
+                  f"{name} frame {frame}: merged K1 != per-thread K1")
+            check(r["lockstep_bit_equal"], f"{name} frame {frame}: K4 != K1")
+    # 600 spheres: more than the per-thread kernels stage
+    crowd = crowded_scene(extra=554).to(dev)
+    img_k, rays_k = cuda_render.render_tile(crowd, small_cfg, 0, 0, 0, 176,
+                                            320)
+    img_l, rays_l = cuda_grad.render_tile_lockstep(crowd, small_cfg, 0, 0, 0,
+                                                   176, 320)
+    img_p, rays_p = render_frame_plain(crowd, small_cfg, 0)
+    torch.cuda.synchronize()
+    crowd_r = compare(img_k, rays_k, img_p, rays_p)
+    crowd_r["lockstep_bit_equal"] = bool(torch.equal(img_l, img_k)) and int(
+        rays_l) == int(rays_k)
+    emit({"phase": "kernel_vs_plain", "case": "crowded_600", "frame": 0,
+          "spheres": crowd.n_spheres, **crowd_r})
+    check(crowd_r["finite"] and crowd_r["rays_rel_diff"] <= 5e-4
+          and crowd_r["mean_abs_diff"] <= 1e-3, "600 spheres vs plain")
+    check(crowd_r["lockstep_bit_equal"], "600 spheres: K4 != K1")
 
     # ---- 3. the main path at full size ----------------------------------
     cfg = RenderConfig(width=1280, height=720, samples_per_pixel=4,
@@ -208,7 +283,8 @@ def main() -> int:
     n_frames = 16
     sess = frame_mod.RenderSession(scene, cfg, flags=FLAG_PROGRESSIVE,
                                    device="cuda")
-    cuda_render.launches["render"] = 0
+    for k in cuda_render.launches:
+        cuda_render.launches[k] = 0
     rays = []
     img0 = None
     for f in range(n_frames):
@@ -222,6 +298,8 @@ def main() -> int:
     img_anim = img_anim.clone()
     torch.cuda.synchronize()
     main_launches = cuda_render.launches["render"]
+    other_launches = {k: v for k, v in cuda_render.launches.items()
+                      if k != "render"}
     rays = [int(r) for r in rays]
 
     # the same frames through the plain version on the card
@@ -238,12 +316,35 @@ def main() -> int:
         plain_rays.append(int(r))
     anim_p, rays_anim_p = render_frame_plain(scene_d.animate(1.0), cfg, 0)
 
+    # the same frames through the per-thread K1 it replaced: bit-equal
+    def thread_frame(sc, c, f):
+        return cuda_render.render_tile_form(sc, c, f, 0, 0, c.height,
+                                            c.width, "thread")
+    st_t = frame_mod.init_frame_state(cfg, dev)
+    thread0 = None
+    thread_rays = []
+    for f in range(n_frames):
+        st_t, img_t, r = frame_mod.progressive_step(
+            st_t, scene_d, 0.0, cfg, FLAG_PROGRESSIVE, render_fn=thread_frame)
+        if f == 0:
+            thread0 = img_t.clone()
+        thread_rays.append(int(r))
+    anim_t, rays_anim_t = thread_frame(scene_d.animate(1.0), cfg, 0)
+    torch.cuda.synchronize()
+    thread_equal = {
+        "frame0": bool(torch.equal(img0, thread0)),
+        "animated": bool(torch.equal(img_anim, anim_t))
+        and int(rays_anim) == int(rays_anim_t),
+        "accum_16_frames": bool(torch.equal(accum, st_t.accum)),
+        "rays_per_frame": rays == thread_rays}
+
     tpu_rays_f0 = 16772198  # docs/measured/tpu_parity.json:49
     f0 = compare(img0, rays[0], plain0, plain_rays[0])
     bm, bx = block_gates(accum, st.accum)
     anim = compare(img_anim, rays_anim, anim_p, rays_anim_p)
     main = {"phase": "main_path", "frames": n_frames + 1,
-            "launches": main_launches, "frame0": f0,
+            "launches": main_launches, "other_launches": other_launches,
+            "bit_equal_to_thread_kernel": thread_equal, "frame0": f0,
             "frame0_rays_rel_vs_tpu": abs(rays[0] - tpu_rays_f0) / tpu_rays_f0,
             "rays_per_frame": rays,
             "rays_16f_rel_diff": abs(sum(rays) - sum(plain_rays))
@@ -254,6 +355,10 @@ def main() -> int:
     emit(main)
     check(main_launches == n_frames + 1,
           f"{main_launches} launches for {n_frames + 1} frames")
+    check(not any(other_launches.values()),
+          f"the main path launched other kernels: {other_launches}")
+    check(all(thread_equal.values()),
+          f"merged K1 != per-thread K1 on the main path: {thread_equal}")
     check(tuple(accum.shape) == (720, 1280, 3) and main["accum_finite"],
           "accumulated image shape/finite")
     check(f0["rays_rel_diff"] <= 5e-4, "frame 0 rays vs plain")
@@ -261,7 +366,23 @@ def main() -> int:
     check(bm <= 0.02 and bx <= 0.2, "16-frame block gates")
     check(anim["finite"] and anim["rays_rel_diff"] <= 5e-4, "animated frame")
 
-    # ---- 4. timing ------------------------------------------------------
+    # ---- 4. step 1, the counted instance, the sphere loops, timing -------
+    t1 = time.perf_counter()
+    parts = {f: render_parts.form_parts(scene_d, cfg, f)
+             for f in ("thread", "merged")}
+    for f, pr in parts.items():
+        emit({"phase": "render_cycle_shares", "nvidia_smi": smi, **pr})
+        check(pr["rays"] == rays[0], f"K1 {f} instrumented instance: rays")
+    with contextlib.redirect_stdout(io.StringIO()):  # its JSON: in build/
+        sass = sass_loops.main([])["kernels"]
+    emit({"phase": "render_sass_loops",
+          "loops": {k: [{x: lp[x] for x in ("start", "instructions",
+                                            "by_class", "mufu", "calls")}
+                        for lp in v["loops"] if lp["by_class"]["fp32"] >= 20]
+                    for k, v in sass.items()},
+          "seconds": time.perf_counter() - t1})
+    busy = parts["merged"]["lane_busy_share"]
+
     sess = frame_mod.RenderSession(scene, cfg, flags=FLAG_PROGRESSIVE,
                                    device="cuda")
     for f in range(4):
@@ -274,33 +395,45 @@ def main() -> int:
     step_ms = step_s * 1e3
     rays_per_frame = frame_mod.sum_rays(torch.stack(timed_rays)) / n_timed
 
-    # the kernel alone (wrapper call) and the plain version, same inputs
-    kernel_s, _ = time_device_call(cuda_render.render_tile, scene_d, cfg, 0,
-                                   0, 0, cfg.height, cfg.width, repeats=16)
+    # the kernel alone (wrapper call) in turns with the per-thread K1 it
+    # replaced (merged, thread, thread, merged), and the plain version, same
+    # inputs
+    runs = {"merged": [], "thread": []}
+    for form in ("merged", "thread", "thread", "merged"):
+        runs[form].append(time_device_call(
+            cuda_render.render_tile_form, scene_d, cfg, 0, 0, 0, cfg.height,
+            cfg.width, form, repeats=16)[0] * 1e3)
+    kernel_ms = sum(runs["merged"]) / 2
+    thread_ms = sum(runs["thread"]) / 2
     plain_s, (plain_img, _) = time_device_call(render_frame_plain, scene_d,
                                                cfg, 0)
-    kernel_ms, plain_ms = kernel_s * 1e3, plain_s * 1e3
+    plain_ms = plain_s * 1e3
 
-    # Bound: the FP32 arithmetic the kernel does on frame 0's data, counted
-    # from csrc/trace.cuh with the plain version's work counters: 19
-    # operations per sphere root test (3 sub, 5 for nb, 6 for c, 2 for the
-    # discriminant, sqrt, 2 roots) -- every sphere for each camera/bounce
-    # ray, the light's own sphere for each shadow ray -- and 20 per sphere
-    # of each shadow ray's occlusion loop, which stops at the first
-    # occluder.  Shading, compares and selects are not counted, and sqrt
-    # counts as one operation, so the bound is low.  67 TFLOP/s: H100 SXM
-    # FP32 peak at 700 W.
+    # Bound: the FP32 arithmetic the function needs on frame 0's data,
+    # counted from csrc/trace.cuh with the plain version's work counters: 16
+    # operations per sphere test (3 sub, 5 for nb, 6 for c, 2 for the
+    # discriminant) -- every sphere for each camera/bounce ray, the light's
+    # own sphere for each shadow ray -- and 3 more (sqrt, 2 roots) only
+    # where the root is needed: the tests whose discriminant is positive,
+    # and the shadow rays whose light was hit (a light test with a positive
+    # discriminant whose root falls outside (t_min, t_max) is not counted);
+    # then 20 per sphere of each shadow ray's occlusion loop, which stops
+    # at the first occluder.  Shading, compares and selects are not
+    # counted, and sqrt counts as one operation, so the bound is low.
+    # 67 TFLOP/s: H100 SXM FP32 peak at 700 W.
     tab = cuda_render.pack_scene(scene_d)
     mat = torch.tensor(scene.mat_type, dtype=torch.int64, device=dev)
     yy, xx = torch.meshgrid(torch.arange(cfg.height, device=dev),
                             torch.arange(cfg.width, device=dev),
                             indexing="ij")
+    roots = RootCount(tab)
     _, work = tc.render_pixels(
         tab, mat, scene.emissive_ids, cfg, camera_scalars(scene, cfg),
-        xx.reshape(-1), yy.reshape(-1), 0)
+        xx.reshape(-1), yy.reshape(-1), 0, traversal=roots)
     traced, shadow, occ_tests = (int(w.sum()) for w in (
         work.traced, work.shadow, work.occlusion_tests))
-    ops = (19 * scene.n_spheres * traced + 19 * shadow + 20 * occ_tests)
+    ops = (16 * scene.n_spheres * traced + 3 * roots.hit_roots
+           + 16 * shadow + 3 * roots.light_roots + 20 * occ_tests)
     ops_ms = ops / 67e12 * 1e3
     # bytes: the packed scene, material ids, lights and camera read once,
     # the image written once, the ray counter; 3.35 TB/s HBM3
@@ -312,10 +445,17 @@ def main() -> int:
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
     emit({"phase": "timing", "nvidia_smi": smi,
           "step_ms_per_frame": step_ms, "kernel_ms": kernel_ms,
+          "kernel_ms_runs": runs["merged"], "thread_kernel_ms": thread_ms,
+          "thread_kernel_ms_runs": runs["thread"],
+          "merged_over_thread": kernel_ms / thread_ms,
+          "lane_busy_share": busy,
           "mray_s": rays_per_frame / (step_ms * 1e-3) * 1e-6,
           "rays_per_frame": rays_per_frame, "plain_ms": plain_ms,
           "frame0_traced_rays": traced, "frame0_shadow_rays": shadow,
           "frame0_occlusion_sphere_tests": occ_tests,
+          "frame0_hit_tests": scene.n_spheres * traced,
+          "frame0_hit_roots": roots.hit_roots,
+          "frame0_light_roots": roots.light_roots,
           "bound_fp32_ops": ops, "bound_ops_ms": ops_ms,
           "bound_bytes": n_bytes, "bound_bytes_ms": bytes_ms,
           "bound_ms": bound_ms,
@@ -328,23 +468,51 @@ def main() -> int:
                             plain_img=plain_img), usage)
     scaled = scaled_phases(cfg, smi, usage)
     stats = stats_phases(cfg, smi, dict(ops=ops, bytes=n_bytes,
-                                        kernel_ms=kernel_ms))
+                                        kernel_ms=thread_ms))
     probe = probe_phases(smi)
 
-    emit({"kernels": [{
-        "name": "render", "route": "cuda",
-        "source": "toypathtracer_torch/csrc/render.cu",
-        "replaces": "toypathtracer_tpu/ops/pallas_render.py:152",
-        "launches": main_launches,
-        "max_abs_err": f0["max_abs_diff"],
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
-        "vs_plain": {"tolerance": "rays rel <= 5e-4, mean |diff| <= 1e-3, "
-                                  "8x8 block mean <= 0.02, max <= 0.2",
-                     "rays_rel_diff": f0["rays_rel_diff"],
-                     "mean_abs_diff": f0["mean_abs_diff"],
-                     "frac_within_1e-4": f0["frac_within_1e-4"],
-                     "block_mean_abs": bm, "block_max_abs": bx}},
+    tol = ("rays rel <= 5e-4, mean |diff| <= 1e-3, 8x8 block mean <= 0.02, "
+           "max <= 0.2; 600 spheres at 320x176 rays rel <= 5e-4, mean "
+           "|diff| <= 1e-3")
+    vs_plain = {"rays_rel_diff": f0["rays_rel_diff"],
+                "mean_abs_diff": f0["mean_abs_diff"],
+                "frac_within_1e-4": f0["frac_within_1e-4"],
+                "block_mean_abs": bm, "block_max_abs": bx,
+                "crowded_600": crowd_r}
+    emit({"kernels": [
+        {"name": "render", "route": "cuda",
+         "source": "toypathtracer_torch/csrc/render.cu",
+         "replaces": "toypathtracer_tpu/ops/pallas_render.py:152",
+         "launches": main_launches,
+         "max_abs_err": f0["max_abs_diff"],
+         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": bound_by, "library_ms": None,
+         "form": "merged (merged_render_kernel<0>: csrc/merged.cuh, "
+                 "flat.cuh)",
+         "baseline_ms": thread_ms,
+         "baseline": "the per-thread K1 it replaced (render_kernel<0>), "
+                     "timed in turns with it",
+         "lane_busy_share": busy,
+         "cycle_shares": parts["merged"]["cycle_shares"],
+         "ptxas": usage.get("merged_render_kernel<0>", {}),
+         "vs_plain": {"tolerance": tol + "; bit-equal to the per-thread K1 "
+                                         "in every case, K4 bit-equal to it",
+                      **vs_plain,
+                      "bit_equal_to_thread_kernel": {
+                          **forms_equal, **thread_equal}}},
+        {"name": "render_baseline", "route": "cuda",
+         "source": "toypathtracer_torch/csrc/render.cu",
+         "replaces": "toypathtracer_tpu/ops/pallas_render.py:152",
+         "launches": other_launches["render_baseline"],
+         "max_abs_err": float((thread0 - plain0).abs().max()),
+         "ms": thread_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+         "bound_by": bound_by, "library_ms": None,
+         "form": "thread (render_kernel<0>)",
+         "baseline": "the per-thread K1, kept beside the merged one as its "
+                     "A/B and equality baseline; not on the main path",
+         "cycle_shares": parts["thread"]["cycle_shares"],
+         "ptxas": usage.get("render_kernel<0>", {}),
+         "vs_plain": {"tolerance": "bit-equal to the merged K1"}},
         *grad, *scaled, stats, *probe]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -436,8 +604,10 @@ def grad_phases(cfg, scene, scene_d, smi, k1, usage):
 
     def step_launches():
         return {"render": cuda_render.launches["render"],
+                "render_baseline": cuda_render.launches["render_baseline"],
                 "grad": cuda_grad.launches["grad"],
-                "lockstep": cuda_grad.launches["lockstep"]}
+                "lockstep": cuda_grad.launches["lockstep"],
+                "lockstep_baseline": cuda_grad.launches["lockstep_baseline"]}
     for k in cuda_render.launches:
         cuda_render.launches[k] = 0
     for k in cuda_grad.launches:
@@ -461,9 +631,11 @@ def grad_phases(cfg, scene, scene_d, smi, k1, usage):
           f"Adam losses not strictly decreasing: {losses}")
     check(all(b < a for a, b in zip(losses_l, losses_l[1:])),
           f"lockstep-primal losses not strictly decreasing: {losses_l}")
-    check(after_fit == {"render": 4, "grad": 4, "lockstep": 0},
+    check(after_fit == {"render": 4, "render_baseline": 0, "grad": 4,
+                        "lockstep": 0, "lockstep_baseline": 0},
           f"4 steps launched {after_fit}")
-    check(train_launches == {"render": 4, "grad": 6, "lockstep": 2},
+    check(train_launches == {"render": 4, "render_baseline": 0, "grad": 6,
+                             "lockstep": 2, "lockstep_baseline": 0},
           f"training path launched {train_launches}")
     check(not any(other.values()), f"other K3 forms launched: {other}")
 
@@ -601,8 +773,16 @@ def grad_phases(cfg, scene, scene_d, smi, k1, usage):
     form_ms = {f: {"ms": sum(v) / len(v), "runs": v}
                for f, v in runs.items()}
     grad_ms = form_ms[main_form]["ms"]
-    lock_s, _ = time_device_call(cuda_grad.render_tile_lockstep, scene_d, cfg,
-                                 0, 0, 0, H, W, repeats=16)
+    # K4 and its per-thread baseline in turns: merged, thread, thread,
+    # merged
+    lock_fns = {"merged": cuda_grad.render_tile_lockstep,
+                "thread": cuda_grad.render_tile_lockstep_baseline}
+    lock_runs = {"merged": [], "thread": []}
+    for form in ("merged", "thread", "thread", "merged"):
+        lock_runs[form].append(time_device_call(
+            lock_fns[form], scene_d, cfg, 0, 0, 0, H, W, repeats=16)[0])
+    lock_s = sum(lock_runs["merged"]) / 2
+    lock_thread_s = sum(lock_runs["thread"]) / 2
     n_steps = 5
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -623,6 +803,9 @@ def grad_phases(cfg, scene, scene_d, smi, k1, usage):
     t = {"phase": "grad_timing", "nvidia_smi": smi, "form": main_form,
          "grad_kernel_ms": grad_ms, "forms_ms": form_ms,
          "lockstep_kernel_ms": lock_s * 1e3,
+         "lockstep_thread_kernel_ms": lock_thread_s * 1e3,
+         "lockstep_ms_runs": {f: [x * 1e3 for x in v]
+                              for f, v in lock_runs.items()},
          "train_step_ms": step_s * 1e3,
          "fwd_bwd_mray_s": int(rays_g) / step_s * 1e-6,
          "primal_rays_per_step": int(rays_g),
@@ -682,6 +865,10 @@ def grad_phases(cfg, scene, scene_d, smi, k1, usage):
          "ms": lock_s * 1e3, "plain_ms": k1["plain_ms"],
          "bound_ms": lock_bound,
          "bound_by": "operations", "library_ms": None,
+         "form": "merged (the merged K1, merged_render_kernel<0>)",
+         "baseline_ms": lock_thread_s * 1e3,
+         "baseline": "the per-thread K4 (lockstep_kernel<0,0>), timed in "
+                     "turns with it",
          "vs_plain": {"tolerance": "image bit-equal to K3's primal, rays "
                                    "exact",
                       "bit_equal_to_grad_primal": r["lockstep_bit_equal"],
@@ -1110,8 +1297,9 @@ def scaled_phases(cfg, smi, usage):
 def stats_phases(cfg, smi, k1):
     """Phases 11-12: the stats render kernel (K2) against the render
     kernel and the plain version, and its main path, the occupancy tool
-    at full size.  `k1` carries phase 4's K1 time and bound terms.
-    Returns K2's entry of the `kernels` line."""
+    at full size.  `k1` carries phase 4's per-thread K1 time (the kernel
+    K2 instruments) and K1's bound terms.  Returns K2's entry of the
+    `kernels` line."""
     from toypathtracer_torch import make_scene
     from toypathtracer_torch.ops import cuda_render
     from toypathtracer_torch.profiling import time_device_call
@@ -1192,7 +1380,8 @@ def stats_phases(cfg, smi, k1):
     occ = occupancy.main([])
     torch.cuda.synchronize()
     occ_launches = dict(cuda_render.launches)
-    check(occ_launches == {"render": 0, "render_stats": 1},
+    check(occ_launches == {"render": 0, "render_baseline": 0,
+                           "render_counted": 0, "render_stats": 1},
           f"occupancy path launched {occ_launches}")
     tpu = {"rays": 16772198,               # docs/measured/tpu_parity.json:49
            "work_lane_bounces": 9320687,   # docs/measured/occupancy.json
@@ -1209,13 +1398,14 @@ def stats_phases(cfg, smi, k1):
     torch.cuda.synchronize()
     full = compare(img_k, rays_k, img_p, rays_p)
     a = agreement(cfg, cnt_k, cnt_p)
-    # K1 and K2 in turns: K1, K2, K2, K1
+    # K2 in turns with the per-thread K1 it instruments: K1, K2, K2, K1
     times = {"render": [], "render_stats": []}
     for name in ("render", "render_stats", "render_stats", "render"):
-        args = ((scene_d, cfg, 0, 0, 0, cfg.height, cfg.width)
-                if name == "render" else (scene_d, cfg, 0))
-        fn = getattr(cuda_render, "render_tile" if name == "render"
-                     else "render_tile_stats")
+        if name == "render":
+            fn, args = cuda_render.render_tile_form, (
+                scene_d, cfg, 0, 0, 0, cfg.height, cfg.width, "thread")
+        else:
+            fn, args = cuda_render.render_tile_stats, (scene_d, cfg, 0)
         times[name].append(time_device_call(fn, *args, repeats=16)[0] * 1e3)
     k1_ms = sum(times["render"]) / 2
     k2_ms = sum(times["render_stats"]) / 2

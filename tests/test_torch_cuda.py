@@ -7,7 +7,10 @@ without the JAX-side conftest (the card's machine has no JAX):
 
 Tolerances: the gates of chip_smoke.py.  Render kernel: rays 5e-4
 relative, mean |diff| 1e-3; measured on an H100 at 320x176: rays exact,
-max |diff| 1.9e-6.  Gradient kernel: rays exact, d_packed per row within
+max |diff| 1.9e-6; its merged form (the main path's) bit-equal to the
+per-thread form it replaced, K4 bit-equal to it, and at 600 spheres
+against the plain version with the same gates.  Gradient kernel: rays
+exact, d_packed per row within
 1e-3 x the row's max |plain autograd| (its warp form also at 130
 spheres; the replaying form measured on an H100 at 320x176: at most
 4.9e-6), two launches bit-equal, the stats instances bit-equal to the
@@ -42,7 +45,8 @@ from toypathtracer_torch.render.wavefront import (render_frame_plain,
 from toypathtracer_torch.scaled import (ChunkTraversal, ChunkedScenePort,
                                         make_scaled_scene, pack_chunks,
                                         render_frame_scaled_plain)
-from toypathtracer_torch.tools import grad_stats, roofline
+from toypathtracer_torch.tools import (grad_stats, render_parts, roofline,
+                                      sass_loops)
 from toypathtracer_torch.tools.scenes import crowded_scene
 
 pytestmark = pytest.mark.cuda
@@ -83,6 +87,80 @@ def test_session_runs_on_the_card(card):
     assert cuda_render.launches["render"] == before + 3
     assert img.device.type == "cuda" and torch.isfinite(img).all()
     assert rays.shape == (3,) and int(rays.min()) > 0
+
+
+@pytest.mark.parametrize("case", ["big", "big_no_nee", "small",
+                                  "crowded_600"])
+def test_merged_kernel_bit_equal_to_thread_kernel(card, case):
+    """K1's merged form (the main path's) against the per-thread kernel it
+    replaced: image and rays bit-equal, at 600 spheres (past the per-thread
+    kernel's cap) against the plain version with K1's gates; K4's merged
+    form bit-equal to K1's; the counted instance bit-equal to the timed
+    one."""
+    scene = (crowded_scene(extra=554) if case == "crowded_600"
+             else make_scene(big=case != "small")).to(card)
+    cfg = RenderConfig(width=96, height=40, samples_per_pixel=2, max_depth=6,
+                       do_light_sampling=case != "big_no_nee")
+    before = dict(cuda_render.launches)
+    img, rays = cuda_render.render_tile(scene, cfg, 3, 0, 0, 40, 96)
+    img_c, rays_c, counts = cuda_render.render_tile_form(
+        scene, cfg, 3, 0, 0, 40, 96, "merged", counted=True)
+    img_l, rays_l = cuda_grad.render_tile_lockstep(scene, cfg, 3, 0, 0, 40,
+                                                   96)
+    if case == "crowded_600":
+        ref, ref_rays = render_frame_plain(scene, cfg, 3)
+    else:
+        ref, ref_rays = cuda_render.render_tile_form(scene, cfg, 3, 0, 0, 40,
+                                                     96, "thread")
+    torch.cuda.synchronize()
+    assert cuda_render.launches["render"] == before["render"] + 1
+    assert torch.equal(img_c, img) and int(rays_c) == int(rays)
+    assert torch.equal(img_l, img) and int(rays_l) == int(rays)
+    assert 0 < counts["busy"] <= 32 * counts["iters"]
+    assert 0 < counts["cycles_hit"] < counts["cycles"]
+    if case == "crowded_600":
+        assert torch.isfinite(img).all()
+        assert abs(int(rays) - int(ref_rays)) <= 5e-4 * int(ref_rays)
+        assert float((img - ref).abs().mean()) <= 1e-3
+    else:
+        assert torch.equal(img, ref) and int(rays) == int(ref_rays)
+
+
+def test_thread_kernel_parts_instance_bit_equal(card):
+    """The per-thread kernel's clocked instance computes what it does and
+    counts cycles in every part; the per-thread lockstep kernel (K4's
+    baseline) is bit-equal to it."""
+    scene = make_scene(big=True).to(card)
+    cfg = RenderConfig(width=96, height=40, samples_per_pixel=2, max_depth=6)
+    img, rays = cuda_render.render_tile_form(scene, cfg, 1, 0, 0, 40, 96,
+                                             "thread")
+    img_p, rays_p, parts = cuda_render.render_tile_form(
+        scene, cfg, 1, 0, 0, 40, 96, "thread", counted=True)
+    img_l, rays_l = cuda_grad.render_tile_lockstep_baseline(
+        scene, cfg, 1, 0, 0, 40, 96)
+    torch.cuda.synchronize()
+    assert torch.equal(img_p, img) and int(rays_p) == int(rays)
+    assert torch.equal(img_l, img) and int(rays_l) == int(rays)
+    assert parts["samples"] == 96 * 40 * 2
+    assert all(parts[k] > 0 for k in cuda_render.PART_FIELDS), parts
+
+
+def test_render_parts_and_sass_tools_on_the_card(card, tmp_path):
+    """tools.render_parts at a small size: each form's cycle shares lie in
+    [0, 1] and cover its cycles, the merged loop's lane busy share in (0,
+    1]; tools.sass_loops finds the per-thread kernel's loops, one of them
+    with the sphere test's square root."""
+    out = render_parts.main(["--width", "64", "--height", "32", "--spp",
+                             "2", "--depth", "4", "--out",
+                             str(tmp_path / "r.json")])
+    for f in out["forms"]:
+        sh = f["cycle_shares"]
+        assert all(0.0 <= v <= 1.0 for v in sh.values()), sh
+        assert abs(sum(sh.values()) - 1) < 1e-9
+    assert 0 < out["forms"][1]["lane_busy_share"] <= 1
+    sass = sass_loops.main(["--out", str(tmp_path / "s.json")])
+    loops = sass["kernels"]["render_kernel<0>"]["loops"]
+    assert any("MUFU.RSQ" in lp["mufu"] for lp in loops), loops
 
 
 @pytest.mark.parametrize("big", [True, False])

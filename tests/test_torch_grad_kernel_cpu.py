@@ -13,9 +13,9 @@ stands in for.
 The stored-carry form (grad_pixel_stored) and the warp form under a
 one-lane warp (gradwarp.cuh grad_tiles with HostLane) are held bit-equal
 to grad_pixel, image, rays and table; the warp form with 32-lane warps of
-host threads (ThreadWarp: a collective that not every lane reaches stalls
-it) against plain autograd, and its grouped add, emulated lane by lane,
-exact against the sequential sum.
+host threads (csrc/hostwarp.h ThreadWarp: a collective that not every
+lane reaches stalls it) against plain autograd, and its grouped add,
+emulated lane by lane, exact against the sequential sum.
 
 Tolerances: d_packed row by row within 1e-3 x the row's max |plain|
 (measured at most 1.5e-5 over these cases); ray counts exact
@@ -42,84 +42,11 @@ from toypathtracer_torch.tools.scenes import crowded_scene
 torch.set_num_threads(1)
 
 HARNESS = r"""
-#include <chrono>
-#include <condition_variable>
-#include <mutex>
 #include <thread>
 #include <vector>
 
 #include "gradwarp.cuh"
-
-// A warp of 32 host threads: each collective is a barrier, an exchange
-// through shared slots and a second barrier, so a collective that not
-// every lane reaches stalls the warp.  A barrier that waits 20 s marks the
-// run broken and every later one returns at once.
-struct Lanes {
-  std::mutex m;
-  std::condition_variable cv;
-  int count = 0;
-  unsigned gen = 0;
-  bool broken = false;
-  int ikey[32];
-  float f[32];
-  unsigned u[32];
-  void wait() {
-    std::unique_lock<std::mutex> l(m);
-    if (broken) return;
-    const unsigned g = gen;
-    if (++count == 32) {
-      count = 0;
-      ++gen;
-      cv.notify_all();
-    } else if (!cv.wait_for(l, std::chrono::seconds(20),
-                            [&] { return gen != g || broken; })) {
-      broken = true;
-      cv.notify_all();
-    }
-  }
-};
-
-struct ThreadWarp {
-  static constexpr int kWidth = 32;
-  static constexpr int kTileW = 16, kTileH = 2;
-  Lanes* L;
-  int lane_;
-  int lane() const { return lane_; }
-  unsigned ballot(bool b) const {
-    L->u[lane_] = b;
-    L->wait();
-    unsigned m = 0;
-    for (int l = 0; l < 32; ++l) m |= L->u[l] ? 1u << l : 0u;
-    L->wait();
-    return m;
-  }
-  bool any(bool b) const { return ballot(b) != 0; }
-  unsigned match_any(int key) const {
-    L->ikey[lane_] = key;
-    L->wait();
-    unsigned m = 0;
-    for (int l = 0; l < 32; ++l) m |= L->ikey[l] == key ? 1u << l : 0u;
-    L->wait();
-    return m;
-  }
-  float shfl(float v, int src) const {
-    L->f[lane_] = v;
-    L->wait();
-    const float r = L->f[src];
-    L->wait();
-    return r;
-  }
-  unsigned reduce_max(unsigned v) const {
-    L->u[lane_] = v;
-    L->wait();
-    unsigned r = 0;
-    for (int l = 0; l < 32; ++l) r = L->u[l] > r ? L->u[l] : r;
-    L->wait();
-    return r;
-  }
-  void sync() const { L->wait(); }
-  long long clock() const { return 0; }
-};
+#include "hostwarp.h"
 
 static tpt::SceneView view(const float* tab, const int32_t* mat,
                            const int32_t* lights, const tpt::RenderParams* p) {
@@ -189,7 +116,7 @@ extern "C" long long tpt_grad_warp32_cpu(
   std::vector<float> tables((size_t)n_warps * m, 0.0f);
   long long rays = 0;
   for (int wi = 0; wi < n_warps; ++wi) {
-    Lanes lanes;
+    tpt::Lanes lanes;
     unsigned long long lane_rays[32];
     std::vector<float> recs(32 * tpt::grad_batch(*p) * p->max_depth *
                             tpt::kRecWords);
@@ -197,7 +124,7 @@ extern "C" long long tpt_grad_warp32_cpu(
     std::vector<std::thread> threads;
     for (int l = 0; l < 32; ++l)
       threads.emplace_back([&, l] {
-        ThreadWarp w{&lanes, l};
+        tpt::ThreadWarp w{&lanes, l};
         tpt::NoGradCount none;
         lane_rays[l] = tpt::grad_tiles(
             w, S, cam, *p, g, out, tables.data() + (size_t)wi * m,

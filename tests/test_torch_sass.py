@@ -1,0 +1,54 @@
+"""tools/sass_loops.py's reading of `cuobjdump -sass` output, on a made-up
+listing: the kernel label from the mangled name, the innermost loops (the
+ranges closed by a backward branch holding no other), and each loop's
+instruction classes.  The tool itself needs the CUDA toolkit and runs on
+the card's machine (tests/test_torch_cuda.py)."""
+
+from toypathtracer_torch.tools import sass_loops
+
+LISTING = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_113render_kernelILi0EEEvPKfN3tpt12RenderParamsE
+        /*0000*/                   MOV R1, c[0x0][0x28] ;       /* 0x0 */
+        /*0010*/                   ISETP.GE.AND P0, PT, R0, 0x1, PT ;
+        /*0020*/                   LDS R2, [R3] ;
+        /*0030*/                   FADD R4, R2, -R5 ;
+        /*0040*/                   MUFU.RSQ R6, R4 ;
+        /*0050*/                   IADD3 R3, R3, 0x4, RZ ;
+        /*0060*/               @P0 BRA 0x20 ;
+        /*0070*/                   LDS.128 R8, [R3] ;
+        /*0080*/                   FFMA R9, R8, R8, R9 ;
+        /*0090*/              @!P1 BRA 0x70 ;
+        /*00a0*/                   CALL.REL.NOINC 0x200 ;
+        /*00b0*/                   BRA 0x10 ;
+        /*00c0*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_120merged_render_kernelILb1EEEvPKf
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_functions_are_labelled_by_kernel_and_template():
+    funcs = sass_loops.functions(LISTING)
+    assert sorted(funcs) == ["merged_render_kernel<1>", "render_kernel<0>"]
+    code = funcs["render_kernel<0>"]
+    assert code[0] == (0, "MOV R1, c[0x0][0x28]") and len(code) == 13
+
+
+def test_innermost_loops_and_their_mix():
+    code = sass_loops.functions(LISTING)["render_kernel<0>"]
+    # 0x10-0xb0 holds both others: only the two inner loops count
+    assert sass_loops.innermost_loops(code) == [(0x20, 0x60), (0x70, 0x90)]
+    hit = sass_loops.loop_mix(code, 0x20, 0x60)
+    assert hit["instructions"] == 5
+    assert hit["by_class"] == {"fp32": 2, "lds": 1, "ld_generic": 0,
+                               "ld_global": 0, "ld_const": 0, "int": 1,
+                               "branch": 1, "other": 0}
+    assert hit["mufu"] == {"MUFU.RSQ": 1} and hit["calls"] == 0
+    assert hit["opcodes"] == ["LDS", "FADD", "MUFU.RSQ", "IADD3", "BRA"]
+    assert sass_loops.loop_mix(code, 0x70, 0x90)["by_class"]["lds"] == 1
+
+
+def test_opcode_drops_predicates():
+    assert sass_loops.opcode("@!P1 BRA 0x70") == "BRA"
+    assert sass_loops.classify("IMAD.WIDE.U32") == "int"
+    assert sass_loops.classify("SHFL.IDX") == "other"

@@ -17,15 +17,21 @@
 // No floating-point atomic, and the pixels of a warp follow from its
 // index: two launches on the same inputs give bit-equal results.
 //
+// K4 on the main path is the render kernel K1's merged kernel
+// (csrc/render.cu merged_render_kernel), launched by ops/cuda_grad.py: the
+// TPU's K4 computes K3's primal, which here is render_pixel, K1's function,
+// so its image is bit-equal to K3's primal and to K1's.
+//
 // lockstep_kernel is the first design, one thread a pixel over 16x16
-// blocks with the scene staged in shared memory.  kMode 0 is K4:
-// render_pixel, so its image is bit-equal to K3's primal and to the render
-// kernel's.  kMode 1 is the replaying K3 that the warp form replaced, kept
-// as the baseline it is timed against: tpt::grad_pixel replays bounces
-// 0..d-1 before differentiating bounce d and adds into a (SCENE_ROWS, 64)
-// table in the thread's local memory; the block sums its threads' tables
-// and sum_partials adds the blocks' partials serially in double.  The
-// stats instances (kStats) count SM cycles by part (trace.cuh kGc*).
+// blocks with the scene staged in shared memory.  kMode 0 is K4's
+// baseline, kept as the kernel the merged one is timed against:
+// render_pixel a thread.  kMode 1 is the replaying K3 that the warp form
+// replaced, kept as the baseline it is timed against: tpt::grad_pixel
+// replays bounces 0..d-1 before differentiating bounce d and adds into a
+// (SCENE_ROWS, 64) table in the thread's local memory; the block sums its
+// threads' tables and sum_partials adds the blocks' partials serially in
+// double.  The stats instances (kStats) count SM cycles by part (trace.cuh
+// kGc*).
 //
 // Bound: FP32 ALU work -- the forward trace and the adjoint arithmetic --
 // against a few hundred MB of traffic (the carries written and read once,
@@ -438,7 +444,7 @@ int tpt_grad_sum_launch(const float* partial, int rows, int m, float* d_tab,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4 on `stream`: the primal of K3 alone.
+// K4's baseline on `stream`: the primal of K3 alone, a thread a pixel.
 int tpt_lockstep_launch(const float* tab, const int32_t* mat,
                         const int32_t* lights, const float* cam,
                         const tpt::RenderParams* p, float* out,

@@ -1,24 +1,36 @@
 // Render kernel for NVIDIA Hopper (sm_90a): the port of the TPU kernel
-// toypathtracer_tpu/ops/pallas_render.py::_render_kernel, in its two
-// instances: the render kernel K1 (render_tile_pallas, :282) and the stats
+// toypathtracer_tpu/ops/pallas_render.py::_render_kernel, in its
+// instances: the render kernel K1 (render_tile_pallas, :282), the stats
 // render kernel K2 (render_frame_pallas_stats, :337), which adds the
-// occupancy counters.
+// occupancy counters, and their instruments.
 //
-// One thread per pixel over 16x8 blocks (the HLSL port's 8x8 thread groups,
-// widened to four warps).  Each block first copies the packed scene table,
-// the material types, the emissive ids and the camera into shared memory
-// (the HLSL's groupshared staging, ComputeShader.hlsl:356-375); every
-// thread then runs tpt::render_pixel (trace.cuh) and writes its pixel of the
-// (height, width, 3) float32 image.  The ray count is reduced per warp with
-// shuffles, per block through shared memory, and added to one 64-bit
-// counter with a single atomic per block (the HLSL's InterlockedAdd).
+// K1 on the main path is merged_render_kernel: persistent 128-thread
+// blocks whose warps take 16x2-pixel tiles from a launch-wide counter and
+// run the merged path loop of csrc/merged.cuh with the flat scene's
+// traversals of csrc/flat.cuh, a lane a pixel at a time.  Each block
+// stages the sphere records, the packed table, the material types and the
+// emissive ids in shared memory when the scene has at most kMaxSpheres
+// spheres, and reads them from device memory otherwise; the camera and
+// each warp's NEE scratch are always in shared memory.  Its counted
+// instance (kCount) adds the loop's iterations, busy lanes and cycles by
+// part (merged.cuh kSt*).  K4 (ops/cuda_grad.render_tile_lockstep) launches
+// the same kernel.
+//
+// render_kernel<0> is the per-thread kernel it replaced, kept as the
+// baseline it is held bit-equal to and timed against: one thread per pixel
+// over 16x8 blocks (the HLSL port's 8x8 thread groups, widened to four
+// warps), the scene staged in shared memory as the HLSL's groupshared
+// staging (ComputeShader.hlsl:356-375), tpt::render_pixel (trace.cuh) per
+// thread, the ray count reduced per warp with shuffles, per block through
+// shared memory, and added with a single atomic per block (the HLSL's
+// InterlockedAdd).  render_kernel<2> is that kernel with SM-clock counters
+// by part of the per-pixel code (kPc* below).
 //
 // Bound: FP32 ALU work (sphere tests x rays); memory traffic is the image
-// write alone.  A correct, simple kernel comes first; divergence between
-// short and long paths inside a warp is the first thing to attack later.
+// write alone.
 //
-// K2 is the same kernel, template argument kStats = true, launched over the
-// frame padded to the TPU's tile grid.  The TPU kernel counts, per tile,
+// K2 is render_kernel<1>, launched over the frame padded to the TPU's tile
+// grid.  The TPU kernel counts, per tile,
 // the trips of its persistent wavefront loop and the live lanes of each
 // trip; those follow exactly from three trip counts per pixel (tpt::Trips:
 // bounces, depth-cutoff samples, whether the last sample was one), which
@@ -30,26 +42,48 @@
 // its deepest lane (__reduce_max_sync of the depths, summed over samples:
 // the warp's trips if it reconverges after each sample), and its work is
 // the lanes' bounces summed (__reduce_add_sync); pixels outside the image
-// count 0, as K1's idle threads do.  So sum(work) / (32 sum(iters)) is K1's
-// warp work efficiency, measured by the kernel itself.  Its bound is K1's
-// FP32 work plus two warp reductions per sample.  Triton does not serve
-// here: the kernel shares the per-pixel code of trace.cuh with K1.
+// count 0, as render_kernel<0>'s idle threads do.  So sum(work) / (32
+// sum(iters)) is that kernel's warp work efficiency, measured by the kernel
+// itself.  Its bound is K1's FP32 work plus two warp reductions per
+// sample.  Triton does not serve here: the kernels share the per-pixel code
+// of trace.cuh.
 
 #include <cuda_runtime.h>
 
-#include "trace.cuh"
+#include <mutex>
+#include <vector>
+
+#include "flat.cuh"
 
 namespace {
 
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 8;
 constexpr int kWarps = kBlockX * kBlockY / 32;
+constexpr unsigned kFull = 0xffffffffu;
 
-// Outputs of the stats instance (K2); unused by K1.
+// The per-thread kernel's instances.
+enum { kModeRender = 0, kModeStats = 1, kModeParts = 2 };
+
+// render_kernel<2>'s counters, per thread: SM clock cycles in the camera
+// ray setup (between one sample's end and the next one's trace, the
+// pixel's seeding included), in the nearest-hit sphere loops, in whole
+// bounces (the loops, shading, scatter and NEE), in NEE (its occlusion
+// loops included), in the occlusion loops, and waiting at each sample's
+// end for the warp's deepest lane; the whole thread; then the samples and
+// bounces traced.
+enum {
+  kPcCamera = 0, kPcHit, kPcBounce, kPcNee, kPcOcclusion, kPcWait, kPcAll,
+  kPcSamples, kPcBounces, kPcSlots
+};
+
+// Outputs of the instruments; unused by K1.
 struct StatsOut {
-  int32_t* trips;          // (3, grid_h, grid_w): bounces, cutoffs, last
-  int32_t* warps;          // (2, gridDim.y * kWarps, gridDim.x): iters, work
-  int32_t grid_h, grid_w;  // the padded tile grid
+  int32_t* trips;          // K2 (3, grid_h, grid_w): bounces, cutoffs, last
+  int32_t* warps;          // K2 (2, gridDim.y * kWarps, gridDim.x): iters,
+                           // work
+  int32_t grid_h, grid_w;  // K2's padded tile grid
+  unsigned long long* parts;  // render_kernel<2>: kPcSlots totals
 };
 
 // K2's per-thread counter: the pixel's trip counts where it lies in the
@@ -63,12 +97,127 @@ struct WarpTrips : tpt::Trips {
   __device__ void sample(int depth, bool cut) {
     tpt::Trips::sample(depth, cut);
     const int d = in_image ? depth : 0;
-    warp_iters += __reduce_max_sync(0xffffffffu, d);
-    warp_work += __reduce_add_sync(0xffffffffu, d);
+    warp_iters += __reduce_max_sync(kFull, d);
+    warp_work += __reduce_add_sync(kFull, d);
   }
 };
 
-template <bool kStats>
+// render_kernel<2>'s thread state: its counters, the clock at the last
+// mark (the pixel's start, then each sample's end) and at the end of its
+// last bounce, and the lanes of its warp that render a pixel.
+struct PartClock {
+  unsigned long long v[kPcSlots] = {};
+  long long mark = 0, last_end = 0;
+  unsigned lanes = 0;
+};
+
+// SceneView whose traversals, bounces and samples clock themselves into a
+// PartClock: the per-pixel code of trace.cuh finds these overloads by
+// argument-dependent lookup and calls them in place of its own, which they
+// call.  __host__ __device__ only because the code that calls them is; they
+// run on the card alone.
+struct ClockView : tpt::SceneView {
+  PartClock* pc;
+};
+
+__host__ __device__ int nearest_hit(const ClockView& S, tpt::V3 ro,
+                                    tpt::V3 rd, float t_min, float t_max,
+                                    float& hit_t) {
+  const long long t0 = tpt::sm_clock();
+  const int id = tpt::nearest_hit(static_cast<const tpt::SceneView&>(S), ro,
+                                  rd, t_min, t_max, hit_t);
+  S.pc->v[kPcHit] += tpt::sm_clock() - t0;
+  return id;
+}
+
+__host__ __device__ bool occluded(const ClockView& S, tpt::V3 pos,
+                                  tpt::V3 l, int light, float t_min,
+                                  float t_l) {
+  const long long t0 = tpt::sm_clock();
+  const bool occ = tpt::occluded(static_cast<const tpt::SceneView&>(S), pos,
+                                 l, light, t_min, t_l);
+  S.pc->v[kPcOcclusion] += tpt::sm_clock() - t0;
+  return occ;
+}
+
+__host__ __device__ tpt::V3 nee(const ClockView& S,
+                                const tpt::RenderParams& p, tpt::V3 pos,
+                                tpt::V3 normal, tpt::V3 rd, tpt::V3 alb,
+                                int hit_id, bool vis, uint32_t& st,
+                                uint32_t& rays, uint32_t& see) {
+  const long long t0 = tpt::sm_clock();
+  const tpt::V3 r = tpt::nee<ClockView>(S, p, pos, normal, rd, alb, hit_id,
+                                        vis, st, rays, see);
+  S.pc->v[kPcNee] += tpt::sm_clock() - t0;
+  return r;
+}
+
+__host__ __device__ bool bounce(const ClockView& S, const tpt::RenderParams& p,
+                                bool vis, tpt::V3& ro, tpt::V3& rd,
+                                uint32_t& st, bool& do_me, uint32_t& rays,
+                                tpt::V3& e, tpt::V3& c, tpt::BounceRec& rec) {
+  const long long t0 = tpt::sm_clock();
+  const bool go = tpt::bounce<ClockView>(S, p, vis, ro, rd, st, do_me, rays,
+                                         e, c, rec);
+  const long long t1 = tpt::sm_clock();
+  S.pc->v[kPcBounce] += t1 - t0;
+  S.pc->v[kPcBounces] += 1;
+  S.pc->last_end = t1;
+  return go;
+}
+
+__host__ __device__ tpt::V3 trace_sample(const ClockView& S,
+                                         const tpt::RenderParams& p,
+                                         tpt::V3 ro, tpt::V3 rd, uint32_t& st,
+                                         uint32_t& rays, int& depth,
+                                         bool& cut) {
+  PartClock& pc = *S.pc;
+  const long long t0 = tpt::sm_clock();
+  pc.v[kPcCamera] += t0 - pc.mark;
+  pc.last_end = t0;
+  const tpt::V3 col =
+      tpt::trace_sample<ClockView>(S, p, ro, rd, st, rays, depth, cut);
+#ifdef __CUDA_ARCH__
+  __syncwarp(pc.lanes);  // the sample's end: the warp's deepest lane
+#endif
+  const long long t1 = tpt::sm_clock();
+  pc.v[kPcWait] += t1 - pc.last_end;
+  pc.v[kPcSamples] += 1;
+  pc.mark = t1;
+  return col;
+}
+
+// Adds each thread's PartClock counters, summed over its warp, to the
+// launch's totals.  Every lane of the warp calls it.
+__device__ void flush_parts(const PartClock& pc,
+                            unsigned long long* __restrict__ parts,
+                            int tid) {
+  for (int i = 0; i < kPcSlots; ++i) {
+    unsigned long long x = pc.v[i];
+    for (int off = 16; off > 0; off >>= 1)
+      x += __shfl_down_sync(kFull, x, off);
+    if ((tid & 31) == 0 && x) atomicAdd(parts + i, x);
+  }
+}
+
+// Sums each warp's rays and adds the block's total to `rays` with one
+// atomic.  Every thread of the block calls it.
+template <int kBlockWarps>
+__device__ __forceinline__ void add_rays(
+    unsigned long long count, unsigned long long* warp_rays,
+    unsigned long long* __restrict__ rays, int tid) {
+  for (int off = 16; off > 0; off >>= 1)
+    count += __shfl_down_sync(kFull, count, off);
+  if ((tid & 31) == 0) warp_rays[tid >> 5] = count;
+  __syncthreads();
+  if (tid == 0) {
+    unsigned long long total = 0;
+    for (int w = 0; w < kBlockWarps; ++w) total += warp_rays[w];
+    if (total) atomicAdd(rays, total);
+  }
+}
+
+template <int kMode>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 render_kernel(const float* __restrict__ tab, const int32_t* __restrict__ mat,
               const int32_t* __restrict__ lights,
@@ -77,6 +226,8 @@ render_kernel(const float* __restrict__ tab, const int32_t* __restrict__ mat,
               StatsOut so) {
   extern __shared__ float smem[];
   __shared__ unsigned long long warp_rays[kWarps];
+  long long c_all = 0;
+  if constexpr (kMode == kModeParts) c_all = clock64();
   const int n = p.n_spheres;
   float* s_tab = smem;
   int32_t* s_mat = reinterpret_cast<int32_t*>(s_tab + tpt::SCENE_ROWS * n);
@@ -102,7 +253,7 @@ render_kernel(const float* __restrict__ tab, const int32_t* __restrict__ mat,
   S.n_lights = p.n_lights;
   unsigned long long count = 0;
   float c[3];
-  if constexpr (kStats) {
+  if constexpr (kMode == kModeStats) {
     // Every thread of the warp runs render_pixel, those past the padded
     // grid with depth 0, so the warp reductions see all 32 lanes.
     WarpTrips t(lx < so.grid_w && ly < so.grid_h, in_image);
@@ -131,6 +282,24 @@ render_kernel(const float* __restrict__ tab, const int32_t* __restrict__ mat,
       so.warps[w] = t.warp_iters;
       so.warps[plane + w] = t.warp_work;
     }
+  } else if constexpr (kMode == kModeParts) {
+    PartClock pc;
+    pc.lanes = __ballot_sync(kFull, in_image);
+    if (in_image) {
+      ClockView V;
+      static_cast<tpt::SceneView&>(V) = S;
+      V.pc = &pc;
+      pc.mark = clock64();
+      count = tpt::render_pixel(V, s_cam, p, p.x0 + lx, p.y0 + ly, c);
+      const size_t o = (static_cast<size_t>(ly) * p.width + lx) * 3;
+      out[o] = c[0];
+      out[o + 1] = c[1];
+      out[o + 2] = c[2];
+    }
+    add_rays<kWarps>(count, warp_rays, rays, tid);
+    pc.v[kPcAll] = clock64() - c_all;
+    flush_parts(pc, so.parts, tid);
+    return;
   } else if (in_image) {
     count = tpt::render_pixel(S, s_cam, p, p.x0 + lx, p.y0 + ly, c);
     const size_t o = (static_cast<size_t>(ly) * p.width + lx) * 3;
@@ -140,20 +309,104 @@ render_kernel(const float* __restrict__ tab, const int32_t* __restrict__ mat,
   }
   // Threads outside the image count nothing but still take part in the
   // full-warp shuffles below.
-  for (int off = 16; off > 0; off >>= 1)
-    count += __shfl_down_sync(0xffffffffu, count, off);
-  if ((tid & 31) == 0) warp_rays[tid >> 5] = count;
-  __syncthreads();
-  if (tid == 0) {
-    unsigned long long total = 0;
-    for (int w = 0; w < kWarps; ++w) total += warp_rays[w];
-    if (total) atomicAdd(rays, total);
-  }
+  add_rays<kWarps>(count, warp_rays, rays, tid);
 }
 
-bool bad_params(const tpt::RenderParams* p) {
-  return p->n_spheres < 1 || p->n_spheres > tpt::kMaxSpheres ||
-         p->n_lights < 0 || p->n_lights > tpt::kMaxLights || p->height < 1 ||
+// The merged kernel: 4 warps a block, and 8 blocks that must fit on an SM
+// at once, which caps its registers at 64 a thread: it spills, but 32
+// warps an SM hide the latency of its shared-memory and shuffle chains
+// (the fastest of 3, 4, 5, 6, 8 and 12 blocks in this kernel's timings on
+// an H100; PERF.md).
+constexpr int kMergedThreads = 128;
+constexpr int kMergedWarps = kMergedThreads / 32;
+constexpr int kMergedBlocks = 8;
+
+// Floats of the merged kernel's dynamic shared memory: [sphere records (16
+// bytes each)] [packed table] [material ids] [emissive ids], the four only
+// when staged, then [camera] [kMergedWarps NEE scratches].
+size_t merged_floats(const tpt::RenderParams* p, bool staged) {
+  const size_t n = static_cast<size_t>(p->n_spheres);
+  return (staged ? (4 + tpt::SCENE_ROWS + 1) * n + p->n_lights : 0) +
+         tpt::kCameraFloats +
+         kMergedWarps * static_cast<size_t>(tpt::flat_nee_words(p->n_lights,
+                                                                32));
+}
+
+// K1 (csrc/flat.cuh, merged.cuh).  sph: the (n, 4) sphere records in
+// device memory; staged: copy them, the table, the material and emissive
+// ids into shared memory first.  next_tile: one int zeroed by the caller.
+// kCount: the counted instance, adding kStSlots totals to `stats`.
+template <bool kCount>
+__global__ void __launch_bounds__(kMergedThreads, kMergedBlocks)
+merged_render_kernel(const float* __restrict__ tab,
+                     const tpt::Sphere4* __restrict__ sph,
+                     const int32_t* __restrict__ mat,
+                     const int32_t* __restrict__ lights,
+                     const float* __restrict__ cam, tpt::RenderParams p,
+                     int staged, float* __restrict__ out,
+                     unsigned long long* __restrict__ rays,
+                     int* __restrict__ next_tile,
+                     unsigned long long* __restrict__ stats) {
+  extern __shared__ float4 smem4[];
+  __shared__ unsigned long long warp_rays[kMergedWarps];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int n = p.n_spheres;
+  const int tid = threadIdx.x;
+  const tpt::DeviceWarp w(tid);
+  unsigned long long count;
+  // The loop runs on a view built inside each branch, so that a staged
+  // table is read with shared-memory loads: one pointer that may address
+  // either memory takes generic loads, slower in this kernel's timings on
+  // an H100 (PERF.md).
+  auto run = [&](tpt::FlatView& S, float* s_cam) {
+    S.n = n;
+    S.n_lights = p.n_lights;
+    if (tid < tpt::kCameraFloats) s_cam[tid] = cam[tid];
+    S.nee = s_cam + tpt::kCameraFloats +
+            (tid >> 5) * tpt::flat_nee_words(p.n_lights, 32);
+    __syncthreads();
+    if constexpr (kCount) {
+      tpt::LoopStats cs(tid);
+      count = tpt::render_tiles_merged(w, S, s_cam, p, next_tile, out, cs);
+      tpt::flush_loop_stats(cs.v, stats, tid);
+    } else {
+      tpt::NoCoopCount none;
+      count = tpt::render_tiles_merged(w, S, s_cam, p, next_tile, out, none);
+    }
+  };
+  tpt::FlatView S;
+  if (staged) {
+    tpt::Sphere4* s_sph = reinterpret_cast<tpt::Sphere4*>(smem4);
+    float* s_tab = smem + 4 * n;
+    int32_t* s_mat = reinterpret_cast<int32_t*>(s_tab + tpt::SCENE_ROWS * n);
+    int32_t* s_lights = s_mat + n;
+    for (int i = tid; i < n; i += kMergedThreads) s_sph[i] = sph[i];
+    for (int i = tid; i < tpt::SCENE_ROWS * n; i += kMergedThreads)
+      s_tab[i] = tab[i];
+    for (int i = tid; i < n; i += kMergedThreads) s_mat[i] = mat[i];
+    for (int i = tid; i < p.n_lights; i += kMergedThreads)
+      s_lights[i] = lights[i];
+    S.sph = s_sph;
+    S.tab = s_tab;
+    S.mat = s_mat;
+    S.lights = s_lights;
+    run(S, reinterpret_cast<float*>(s_lights + p.n_lights));
+  } else {
+    S.sph = sph;
+    S.tab = tab;
+    S.mat = mat;
+    S.lights = lights;
+    run(S, smem);
+  }
+  add_rays<kMergedWarps>(count, warp_rays, rays, tid);
+}
+
+// The merged kernel takes any number of spheres and lights; the
+// per-thread kernels stage at most kMaxSpheres and kMaxLights.
+bool bad_params(const tpt::RenderParams* p,
+                int max_spheres = INT32_MAX, int max_lights = INT32_MAX) {
+  return p->n_spheres < 1 || p->n_spheres > max_spheres ||
+         p->n_lights < 0 || p->n_lights > max_lights || p->height < 1 ||
          p->width < 1;
 }
 
@@ -163,23 +416,107 @@ size_t smem_bytes(const tpt::RenderParams* p) {
          sizeof(float) * tpt::kCameraFloats;
 }
 
+// Dynamic shared memory above the default 48 KB needs the kernel's opt-in.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// As many blocks of the merged kernel as fit on the current device at once
+// with `smem` bytes of dynamic shared memory (the timed instance's
+// occupancy, so that the counted instance deals tiles as it does).  The
+// shared-memory opt-in of both instances and the occupancy query run once
+// for each device and size; later launches read the cache.
+cudaError_t merged_capacity(size_t smem, int* capacity) {
+  struct Entry {
+    int dev;
+    size_t smem;
+    int capacity;
+  };
+  static std::mutex lock;
+  static std::vector<Entry> cache;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> guard(lock);
+  for (const Entry& e : cache)
+    if (e.dev == dev && e.smem == smem) {
+      *capacity = e.capacity;
+      return cudaSuccess;
+    }
+  int sms = 0, per_sm = 0;
+  err = allow_smem(merged_render_kernel<false>, smem);
+  if (err == cudaSuccess) err = allow_smem(merged_render_kernel<true>, smem);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, merged_render_kernel<false>, kMergedThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  cache.push_back({dev, smem, sms * per_sm});
+  *capacity = sms * per_sm;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream`; returns cudaGetLastError() (0 when the launch was
-// accepted).  `rays` must be zeroed by the caller; the kernel adds to it.
-int tpt_render_launch(const float* tab, const int32_t* mat,
-                      const int32_t* lights, const float* cam,
-                      const tpt::RenderParams* p, float* out,
-                      unsigned long long* rays, void* stream) {
-  if (bad_params(p)) return static_cast<int>(cudaErrorInvalidValue);
+// K1 on `stream`: the merged kernel over the (p->height, p->width)
+// sub-image, image `out` (height, width, 3) and the ray count added to
+// `rays`; sph the (n, 4) sphere records (cuda_render.pack_records);
+// next_tile one int; `rays` and next_tile zeroed by the caller.  stats:
+// null, or kStSlots zeroed totals that the counted instance adds to.
+// Returns cudaGetLastError() (0 when the launch was accepted).
+int tpt_render_launch(const float* tab, const tpt::Sphere4* sph,
+                      const int32_t* mat, const int32_t* lights,
+                      const float* cam, const tpt::RenderParams* p,
+                      float* out, unsigned long long* rays, int* next_tile,
+                      unsigned long long* stats, void* stream) {
+  if (bad_params(p) || !next_tile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool staged = p->n_spheres <= tpt::kMaxSpheres;
+  const size_t smem = sizeof(float) * merged_floats(p, staged);
+  auto kernel = stats ? merged_render_kernel<true>
+                      : merged_render_kernel<false>;
+  int capacity = 0;
+  const cudaError_t err = merged_capacity(smem, &capacity);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = ((p->width + tpt::DeviceWarp::kTileW - 1) /
+                     tpt::DeviceWarp::kTileW) *
+                    ((p->height + tpt::DeviceWarp::kTileH - 1) /
+                     tpt::DeviceWarp::kTileH);
+  const int need = (tiles + kMergedWarps - 1) / kMergedWarps;
+  const int blocks = need < capacity ? need : capacity;
+  kernel<<<blocks, kMergedThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      tab, sph, mat, lights, cam, *p, staged ? 1 : 0, out, rays, next_tile,
+      stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The per-thread kernel K1 replaced (render_kernel<0>), or with parts
+// non-null its clocked instance (render_kernel<2>, adding kPcSlots totals
+// to `parts`); otherwise as tpt_render_launch, at most kMaxSpheres spheres
+// and kMaxLights lights.
+int tpt_render_thread_launch(const float* tab, const int32_t* mat,
+                             const int32_t* lights, const float* cam,
+                             const tpt::RenderParams* p, float* out,
+                             unsigned long long* rays,
+                             unsigned long long* parts, void* stream) {
+  if (bad_params(p, tpt::kMaxSpheres, tpt::kMaxLights))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((p->width + kBlockX - 1) / kBlockX,
                   (p->height + kBlockY - 1) / kBlockY);
-  render_kernel<false><<<grid, block, smem_bytes(p),
-                         static_cast<cudaStream_t>(stream)>>>(
-      tab, mat, lights, cam, *p, out, rays, StatsOut{});
+  StatsOut so{};
+  so.parts = parts;
+  auto kernel = parts ? render_kernel<kModeParts> : render_kernel<kModeRender>;
+  kernel<<<grid, block, smem_bytes(p), static_cast<cudaStream_t>(stream)>>>(
+      tab, mat, lights, cam, *p, out, rays, so);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -192,15 +529,16 @@ int tpt_render_stats_launch(const float* tab, const int32_t* mat,
                             const tpt::RenderParams* p, float* out,
                             unsigned long long* rays, int grid_h, int grid_w,
                             int32_t* trips, int32_t* warps, void* stream) {
-  if (bad_params(p) || grid_h < p->height || grid_w < p->width)
+  if (bad_params(p, tpt::kMaxSpheres, tpt::kMaxLights) || grid_h < p->height ||
+      grid_w < p->width)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(kBlockX, kBlockY);
   const dim3 grid((grid_w + kBlockX - 1) / kBlockX,
                   (grid_h + kBlockY - 1) / kBlockY);
-  render_kernel<true><<<grid, block, smem_bytes(p),
-                        static_cast<cudaStream_t>(stream)>>>(
+  render_kernel<kModeStats><<<grid, block, smem_bytes(p),
+                              static_cast<cudaStream_t>(stream)>>>(
       tab, mat, lights, cam, *p, out, rays,
-      StatsOut{trips, warps, grid_h, grid_w});
+      StatsOut{trips, warps, grid_h, grid_w, nullptr});
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,18 +11,18 @@
 // per-bounce glue between kernel calls would be the cost.
 //
 // The render kernel on the main path is coop_render_kernel: persistent
-// 128-thread blocks whose warps take 16x2-pixel tiles and run the
-// warp-cooperative path loop and chunk traversal of csrc/coop.cuh, a lane
-// a pixel at a time.  The TPU kernels cull chunks for a whole lane tile at
-// once (scaled_pallas.py:64 skips a chunk for the tile, scaled.py:712-760
-// renders in row blocks so that the skip fires); the Hopper form of that
-// packet is the warp.  scaled_render_kernel is the per-lane form it
+// 128-thread blocks whose warps take 16x2-pixel tiles and run the merged
+// path loop of csrc/merged.cuh with the chunk traversal of csrc/coop.cuh,
+// a lane a pixel at a time.  The TPU kernels cull chunks for a whole lane
+// tile at once (scaled_pallas.py:64 skips a chunk for the tile,
+// scaled.py:712-760 renders in row blocks so that the skip fires); the
+// Hopper form of that packet is the warp.  scaled_render_kernel is the per-lane form it
 // replaced (tpt::render_pixel<ChunkedView>: a warp whose rays enter
 // different chunks runs each of those chunks' 256-sphere loops, and a lane
 // whose sample ended waits for the warp's deepest lane); it stays as the
 // baseline that the cooperative form is held bit-equal to and timed
 // against, and is never on the main path.  Each form has a stats instance
-// that also counts the traversal's work per warp (coop.cuh kSt*): the
+// that also counts the traversal's work per warp (merged.cuh kSt*): the
 // sphere-loop trips the warp ran against the sphere tests its lanes needed.
 //
 // One thread per ray (K5, K6; 128-thread blocks) or per pixel (the
@@ -118,18 +118,6 @@ shadow_chunks_kernel(const float* __restrict__ rows, int n_chunks, int chunk,
 
 constexpr unsigned kFull = 0xffffffffu;
 
-// Adds each of a thread's kStSlots counters, summed over its warp, to the
-// frame's totals.  Every lane of the warp calls it.
-__device__ void flush_stats(const unsigned long long* v,
-                            unsigned long long* __restrict__ stats, int tid) {
-  for (int i = 0; i < tpt::kStSlots; ++i) {
-    unsigned long long x = v[i];
-    for (int off = 16; off > 0; off >>= 1)
-      x += __shfl_down_sync(kFull, x, off);
-    if ((tid & 31) == 0 && x) atomicAdd(stats + i, x);
-  }
-}
-
 // The per-lane form's counter: the lanes that run a traversal step
 // together are the active mask there, and its lowest lane counts the step
 // for them (the warp runs a chunk's sphere loop as long as its busiest
@@ -162,18 +150,6 @@ struct LaneStats {
     v[k + tpt::kStTrips] += most;
     v[k + tpt::kStNeed] += all;
 #endif
-  }
-};
-
-// The cooperative form's counter: its counts are warp-uniform, lane 0
-// keeps them.
-struct CoopStats {
-  static constexpr bool kOn = true;
-  unsigned long long v[tpt::kStSlots] = {};
-  bool lead;
-  __device__ explicit CoopStats(int tid) : lead((tid & 31) == 0) {}
-  __device__ void add(int i, unsigned long long x) {
-    if (lead) v[i] += x;
   }
 };
 
@@ -258,7 +234,7 @@ scaled_render_kernel(const float* __restrict__ tab,
       out[o + 1] = c[1];
       out[o + 2] = c[2];
     }
-    flush_stats(ls.v, stats, tid);
+    tpt::flush_loop_stats(ls.v, stats, tid);
   } else if (lx < p.width && ly < p.height) {
     tpt::ChunkedView S = rows_view(rows, s_box, n_chunks, chunk);
     S.tab = tab;
@@ -283,7 +259,7 @@ constexpr int kCoopBlocks = 5;
 
 // The cooperative form (csrc/coop.cuh): persistent blocks whose warps take
 // 16x2-pixel tiles from the launch-wide counter *next_tile (zeroed by the
-// caller) through render_tiles_merged.  Dynamic shared memory: [NEE
+// caller) through merged.cuh render_tiles_merged.  Dynamic shared memory: [NEE
 // scratch per warp] [chunk boxes] [group boxes] [camera] [emissive ids].
 template <bool kStats>
 __global__ void __launch_bounds__(kBlockX * kBlockY, kCoopBlocks)
@@ -326,9 +302,9 @@ coop_render_kernel(const float* __restrict__ tab,
   const tpt::DeviceWarp w(tid);
   unsigned long long count;
   if constexpr (kStats) {
-    CoopStats cs(tid);
+    tpt::LoopStats cs(tid);
     count = tpt::render_tiles_merged(w, S, s_cam, p, next_tile, out, cs);
-    flush_stats(cs.v, stats, tid);
+    tpt::flush_loop_stats(cs.v, stats, tid);
   } else {
     tpt::NoCoopCount none;
     count = tpt::render_tiles_merged(w, S, s_cam, p, next_tile, out, none);

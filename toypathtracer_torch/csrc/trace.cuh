@@ -1,23 +1,26 @@
-// Per-pixel path-tracing core of the render and stats render kernels
-// (csrc/render.cu), of the gradient and lockstep kernels (csrc/grad.cu) and
-// of the scaled render kernel (csrc/scaled.cu, through csrc/chunks.cuh's
-// ChunkedView): render_pixel, and its hand-written reverse mode grad_pixel
-// at the end of this file.
+// Per-pixel path-tracing core of the render kernels (csrc/render.cu), of
+// the gradient and lockstep kernels (csrc/grad.cu) and of the scaled render
+// kernel (csrc/scaled.cu, through csrc/chunks.cuh's ChunkedView):
+// render_pixel, and its hand-written reverse mode grad_pixel at the end of
+// this file.  The merged path loops (csrc/merged.cuh: K1 on the main path
+// with csrc/flat.cuh, the scaled render with csrc/coop.cuh) run the same
+// per-ray arithmetic, taken from here, and are bit-equal to render_pixel.
 //
-// Replaces the TPU kernel toypathtracer_tpu/ops/pallas_render.py::
-// _render_kernel, whose body is tracecore.render_pixels_fused_merged.  The
-// TPU kernel runs a persistent wavefront over (tile_h, tile_w) lane tiles
-// with bit-packed lane state, because a TPU core is one wide vector unit.
-// A GPU runs one thread per pixel, so this is the reference's own compute
-// shader design (Cpp/Windows/ComputeShader.hlsl): each thread walks its spp
-// samples in order, and each sample runs up to max_depth bounces of
-// hit -> classify -> scatter + NEE -> accumulate.
+// render_pixel is the per-thread form of the TPU kernel
+// toypathtracer_tpu/ops/pallas_render.py::_render_kernel, whose body is
+// tracecore.render_pixels_fused_merged.  The TPU kernel runs a persistent
+// wavefront over (tile_h, tile_w) lane tiles with bit-packed lane state,
+// because a TPU core is one wide vector unit.  Here one thread takes a
+// pixel, as the reference's own compute shader does
+// (Cpp/Windows/ComputeShader.hlsl): each thread walks its spp samples in
+// order, and each sample runs up to max_depth bounces of hit -> classify ->
+// scatter + NEE -> accumulate.
 //
 // What bounds it: FP32 ALU work, ~20 operations per sphere per traced ray
 // and ~15 per sphere per shadow ray, against almost no memory traffic (the
-// scene sits in shared memory, the image is written once).  This first
-// kernel is the simple correct one; warp divergence between short and long
-// paths is what a later, faster version has to attack.
+// scene sits in shared memory, the image is written once).  A warp of such
+// threads waits at each sample's end for its deepest lane: the merged
+// loops exist for that.
 //
 // Everything here is __host__ __device__ and free of CUDA-only constructs,
 // so the same source also builds with a host C++ compiler for the CPU tests.
@@ -47,7 +50,9 @@ enum {
 };
 enum { MAT_LAMBERT = 0, MAT_METAL = 1, MAT_DIELECTRIC = 2 };
 
-// Largest scene the kernel stages in shared memory (60 bytes per sphere).
+// Largest scene the per-thread kernels stage in shared memory (60 bytes per
+// sphere), and their lights (NEE's `see` bits); the merged K1 stages up to
+// kMaxSpheres and reads device memory beyond, and takes any light count.
 constexpr int kMaxSpheres = 512;
 constexpr int kMaxLights = 16;
 constexpr int kCameraFloats = 22;

@@ -31,8 +31,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 SOURCES = ("render.cu", "grad.cu", "scaled.cu", "probe.cu")
-HEADERS = ("trace.cuh", "warp.cuh", "gradwarp.cuh", "chunks.cuh", "coop.cuh",
-           "probe.cuh")
+HEADERS = ("trace.cuh", "warp.cuh", "merged.cuh", "flat.cuh", "gradwarp.cuh",
+           "chunks.cuh", "coop.cuh", "probe.cuh")
 
 
 class RenderParams(ctypes.Structure):
@@ -137,25 +137,31 @@ def ptxas_usage(text: str) -> dict:
             usage.setdefault(name, {})["registers"] = int(m.group(1))
     out = {}
     for mangled, u in usage.items():
-        if "registers" not in u:
-            continue
-        # _ZN <length><name>... : the last name of the nested name, then
-        # its template arguments
-        pos, label = 3 if mangled.startswith("_ZN") else 2, None
-        while True:
-            m = re.match(r"\d+", mangled[pos:])
-            if not m:
-                break
-            start = pos + m.end()
-            pos = start + int(m.group())
-            label = mangled[start:pos]
-        if label is None:
-            continue
-        targs = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[pos:])
-        if targs:
-            label += "<" + ",".join(re.findall(r"\d+", targs.group(1))) + ">"
-        out[label] = u
+        label = kernel_label(mangled)
+        if "registers" in u and label is not None:
+            out[label] = u
     return out
+
+
+def kernel_label(mangled: str):
+    """A kernel's name with its template arguments from its mangled name,
+    e.g. "coop_render_kernel<0>"; None if it is not a mangled name."""
+    # _ZN <length><name>... : the last name of the nested name, then its
+    # template arguments
+    pos, label = 3 if mangled.startswith("_ZN") else 2, None
+    while True:
+        m = re.match(r"\d+", mangled[pos:])
+        if not m:
+            break
+        start = pos + m.end()
+        pos = start + int(m.group())
+        label = mangled[start:pos]
+    if label is None:
+        return None
+    targs = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[pos:])
+    if targs:
+        label += "<" + ",".join(re.findall(r"\d+", targs.group(1))) + ">"
+    return label
 
 
 @functools.lru_cache(maxsize=None)
@@ -165,9 +171,11 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     ptr = ctypes.c_void_p
     params = ctypes.POINTER(RenderParams)
-    lib.tpt_render_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr,
-                                      ptr]
     i32, f32 = ctypes.c_int, ctypes.c_float
+    lib.tpt_render_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, params, ptr,
+                                      ptr, ptr, ptr, ptr]
+    lib.tpt_render_thread_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr,
+                                             ptr, ptr, ptr]
     lib.tpt_render_stats_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr,
                                             ptr, i32, i32, ptr, ptr, ptr]
     lib.tpt_lockstep_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr,
@@ -185,9 +193,10 @@ def load_library() -> ctypes.CDLL:
                                              ptr, ptr, ptr]
     lib.tpt_scaled_groups.argtypes = [i32]
     lib.tpt_probe_launch.argtypes = [i32, i32, i32, ptr, ptr]
-    for fn in (lib.tpt_render_launch, lib.tpt_render_stats_launch,
-               lib.tpt_lockstep_launch, lib.tpt_grad_launch,
-               lib.tpt_grad_scratch, lib.tpt_grad_sum_launch, lib.tpt_hit_chunks_launch,
+    for fn in (lib.tpt_render_launch, lib.tpt_render_thread_launch,
+               lib.tpt_render_stats_launch, lib.tpt_lockstep_launch,
+               lib.tpt_grad_launch, lib.tpt_grad_scratch,
+               lib.tpt_grad_sum_launch, lib.tpt_hit_chunks_launch,
                lib.tpt_shadow_chunks_launch, lib.tpt_scaled_render_launch,
                lib.tpt_scaled_groups, lib.tpt_probe_launch):
         fn.restype = ctypes.c_int

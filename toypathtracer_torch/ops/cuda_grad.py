@@ -2,11 +2,17 @@
 toypathtracer_tpu/ops/pallas_grad.py).
 
 `render_tile_grad` launches the hand-written CUDA gradient kernel (K3, the
-port of pallas_grad.py::_grad_kernel) and `render_tile_lockstep` its
-primal-only twin (K4, ::_lockstep_fwd_kernel), both in csrc/grad.cu, on
-CUDA tensors; on CPU tensors they run the plain versions
+port of pallas_grad.py::_grad_kernel, csrc/grad.cu) and
+`render_tile_lockstep` its primal-only twin (K4, ::_lockstep_fwd_kernel)
+on CUDA tensors; on CPU tensors they run the plain versions
 (render/wavefront.render_tile_grad_plain and render_tile_plain).  There is
 no fallback: on a CUDA tensor a failed build or launch raises.
+
+On a card K4 is the render kernel's merged kernel (csrc/render.cu, any
+number of spheres): the TPU's K4 computes K3's primal, which here is K1's
+function.  `render_tile_lockstep_baseline` runs csrc/grad.cu's per-thread
+lockstep_kernel<0,0> (up to 512 spheres), kept as the kernel it is timed
+against.
 
 K3 has two forms (`render_tile_grad_form`): "warp", the main path's
 (csrc/gradwarp.cuh grad_tiles: stored carries and a warp-level cotangent
@@ -16,7 +22,7 @@ is timed and held against.  Each has a stats instance that counts SM
 cycles by part.  `launches` counts wrapper launches: "grad" the main
 path's form (one launch is the kernel and the small kernel that sums its
 per-block partials), "grad_replay" and "grad_stats" the others,
-"lockstep" K4.
+"lockstep" K4 and "lockstep_baseline" its baseline.
 
 `render_frame_diff` / `render_tile_diff` are the differentiable renders of
 the training step: a torch.autograd.Function on the packed scene table
@@ -24,7 +30,7 @@ whose forward is the render kernel (or the lockstep kernel) and whose
 backward is the gradient kernel; pack_scene's own autograd carries the
 table's cotangent back to the Scene fields.
 
-In this port the three kernels run one per-pixel function (csrc/trace.cuh
+In this port the kernels compute one per-pixel function (csrc/trace.cuh
 render_pixel), so the lockstep primal is bit-equal to the render kernel's
 image and `lockstep_primal` changes which kernel runs, not the value.
 """
@@ -40,14 +46,17 @@ from ..render.wavefront import (check_hard_gradients, render_tile_grad_plain,
                                 render_tile_plain)
 from ..scene import Scene
 from . import _build
-from .cuda_render import (MAX_SPHERES, check_device, checked_tab,
-                          cuda_call, kernel_inputs, launch_forward,
-                          pack_scene, render_params, render_tile)
+from .cuda_render import (MAX_LIGHTS, MAX_SPHERES, check_device,
+                          checked_tab, cuda_call, kernel_inputs,
+                          launch_forward, pack_scene, render_params,
+                          render_tile)
 
 # K3's forms (tpt_grad_launch's `form`), their launch counters, and the
 # spheres each takes: the warp form's table is per warp in shared memory,
-# up to tpt::kMaxSpheres (MAX_SPHERES, as the render kernel); the
-# replaying form's is per thread (csrc/grad.cu kGradMaxSpheres).
+# up to tpt::kMaxSpheres (MAX_SPHERES, as the per-thread render kernel);
+# the replaying form's is per thread (csrc/grad.cu kGradMaxSpheres).  These
+# caps hold on the CPU too: the gradient route takes the same scenes on
+# both devices.
 FORMS = {"replay": 0, "warp": 1}
 MAIN_FORM = "warp"
 COUNTERS = {"warp": "grad", "replay": "grad_replay"}
@@ -64,7 +73,8 @@ STAT_FIELDS = ("cycles_fwd", "cycles_replay", "cycles_adj", "cycles_group",
 
 PARAM_FIELDS = ("center", "radius", "albedo", "emissive", "roughness", "ri")
 
-launches = {"grad": 0, "grad_replay": 0, "grad_stats": 0, "lockstep": 0}
+launches = {"grad": 0, "grad_replay": 0, "grad_stats": 0, "lockstep": 0,
+            "lockstep_baseline": 0}
 
 
 def grad_scratch(scene: Scene, cfg: RenderConfig, frame: int, x0: int,
@@ -139,15 +149,36 @@ def sum_partials(partial, form: str):
 def render_tile_lockstep(scene: Scene, cfg: RenderConfig, frame: int,
                          x0: int, y0: int, height: int, width: int, tab=None):
     """The gradient kernel's primal alone (K4) for the (height, width)
-    sub-image at global pixel (x0, y0): the lockstep kernel on a card, the
-    plain version on the CPU.  Returns ((height, width, 3) float32, 0-d
-    int64 ray count of the sub-image's pixels)."""
+    sub-image at global pixel (x0, y0): the render kernel's merged kernel
+    on a card, the plain version on the CPU.  Returns ((height, width, 3)
+    float32, 0-d int64 ray count of the sub-image's pixels)."""
     tab = checked_tab(scene, x0, y0, height, width, tab)
+    if scene.device.type == "cuda":
+        out = launch_forward("render", scene, tab, cfg, frame, x0, y0,
+                             height, width, None, merged=True)
+        launches["lockstep"] += 1
+        return out
+    return _lockstep_plain(scene, cfg, frame, x0, y0, height, width, tab)
+
+
+def render_tile_lockstep_baseline(scene: Scene, cfg: RenderConfig,
+                                  frame: int, x0: int, y0: int, height: int,
+                                  width: int, tab=None):
+    """render_tile_lockstep through the per-thread kernel it replaced on a
+    card (csrc/grad.cu lockstep_kernel<0,0>, up to MAX_SPHERES spheres and
+    MAX_LIGHTS lights), the plain version on the CPU."""
+    tab = checked_tab(scene, x0, y0, height, width, tab,
+                      (MAX_SPHERES, MAX_LIGHTS), "the per-thread K4")
     if scene.device.type == "cuda":
         out = launch_forward("lockstep", scene, tab, cfg, frame, x0, y0,
                              height, width)
-        launches["lockstep"] += 1
+        launches["lockstep_baseline"] += 1
         return out
+    return _lockstep_plain(scene, cfg, frame, x0, y0, height, width, tab)
+
+
+def _lockstep_plain(scene: Scene, cfg: RenderConfig, frame: int, x0: int,
+                    y0: int, height: int, width: int, tab):
     if scene.device.type == "cpu":
         return render_tile_plain(scene, cfg, frame, x0, y0, height, width,
                                  tab=tab)
@@ -180,11 +211,15 @@ def render_tile_grad_form(scene: Scene, cfg: RenderConfig, frame: int, g_img,
         raise ValueError(f"no gradient kernel form {form!r}")
     cap = FORM_MAX_SPHERES[form]
     if scene.n_spheres > cap:
-        raise ValueError(f"the gradient kernel's {form} form takes at most "
+        table = "a (14, N) table per warp in shared memory" \
+            if form == "warp" else "a (14, 64) table per thread"
+        raise ValueError(f"the gradient kernel K3 ({form} form) adds the "
+                         f"scene cotangent into {table} and takes at most "
                          f"{cap} spheres, got {scene.n_spheres}")
     if stats and scene.device.type != "cuda":
         raise ValueError("the stats instances run on a card")
-    tab = checked_tab(scene, x0, y0, height, width, tab)
+    tab = checked_tab(scene, x0, y0, height, width, tab, (cap, MAX_LIGHTS),
+                      f"the gradient kernel's {form} form")
     if tuple(g_img.shape) != (height, width, 3):
         raise ValueError(f"pixel cotangent must be ({height}, {width}, 3), "
                          f"got {tuple(g_img.shape)}")

@@ -4,11 +4,21 @@ pallas_render.py).
 `render_tile` and `render_frame` launch the hand-written CUDA kernel of
 csrc/render.cu (the port of pallas_render.py::_render_kernel) on CUDA
 tensors and run the plain PyTorch version (render/wavefront.py) on CPU
-tensors.  `render_tile_stats` and `render_frame_stats` do the same for its
-stats instance, the counterpart of `render_frame_pallas_stats`: the image,
-the rays and the occupancy counters.  There is no fallback: on a CUDA
-tensor a failed build or launch raises.  `launches` counts kernel launches
-by kernel, so a run can show that its frames went through the kernels.
+tensors.  The kernel has two forms (`render_tile_form`): "merged", the main
+path's (merged_render_kernel: csrc/merged.cuh's merged path loop with
+csrc/flat.cuh's warp traversals, any number of spheres and lights), and
+"thread", the per-thread kernel it replaced (render_kernel<0>: one thread a
+pixel, up to MAX_SPHERES spheres and MAX_LIGHTS lights), kept as the
+baseline it is held bit-equal to and timed against.  Each has an
+instrumented instance: the merged form's counts its loop's iterations,
+busy lanes and cycles by part (LOOP_FIELDS), the per-thread form's its
+cycles by part of the per-pixel code (PART_FIELDS).
+`render_tile_stats` and `render_frame_stats` run the stats instance of the
+per-thread kernel (K2), the counterpart of `render_frame_pallas_stats`: the
+image, the rays and the occupancy counters.  There is no fallback: on a
+CUDA tensor a failed build or launch raises.  `launches` counts kernel
+launches by kernel, so a run can show that its frames went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -24,11 +34,41 @@ from ..config import RenderConfig, resolve_device
 from ..scene import Scene
 from . import _build
 
-# Largest scene the kernel stages in shared memory (csrc/trace.cuh).
+# Largest scene the per-thread kernels (K1's baseline, K2, K4's baseline,
+# K3) stage in shared memory, and their light cap (csrc/trace.cuh
+# kMaxSpheres, kMaxLights).  The merged form has neither cap.
 MAX_SPHERES = 512
 MAX_LIGHTS = 16
 
-launches = {"render": 0, "render_stats": 0}
+# K1's forms: the argument of render_tile_form, their launch counters and
+# the (spheres, lights) their storage takes (None: any).
+FORMS = ("merged", "thread")
+MAIN_FORM = "merged"
+COUNTERS = {"merged": "render", "thread": "render_baseline"}
+FORM_CAPS = {"merged": (None, None), "thread": (MAX_SPHERES, MAX_LIGHTS)}
+
+launches = {"render": 0, "render_baseline": 0, "render_counted": 0,
+            "render_stats": 0}
+
+# The merged loops' counters (csrc/merged.cuh kSt*), per kind of ray of the
+# chunked traversal (hit, shadow): warp traversal calls, lanes in them, box
+# steps, lane slab tests, sphere-loop trips the warp ran, sphere tests its
+# lanes needed; then the path loop's iterations and busy lanes, the SM
+# cycles its warps spent in the loop, the hit traversals, NEE and NEE's
+# shadow traversals, and the shadow rays their own chunk occluded.
+STAT_FIELDS = ("calls", "lanes", "boxes", "slabs", "trips", "need")
+LOOP_FIELDS = ("iters", "busy", "cycles", "cycles_hit", "cycles_nee",
+               "cycles_shadow", "own_chunk_blocked")
+STAT_SLOTS = 2 * len(STAT_FIELDS) + len(LOOP_FIELDS)
+
+# The per-thread kernel's clocked instance (csrc/render.cu kPc*), summed
+# over threads: SM cycles in camera-ray setup, the nearest-hit sphere
+# loops, whole bounces, NEE (with its occlusion loops), the occlusion
+# loops, and waiting at each sample's end for the warp's deepest lane; the
+# whole thread; then the samples and bounces traced.
+PART_FIELDS = ("cycles_camera", "cycles_hit", "cycles_bounce", "cycles_nee",
+               "cycles_occlusion", "cycles_wait", "cycles_all", "samples",
+               "bounces")
 
 
 def pack_scene(scene: Scene) -> torch.Tensor:
@@ -64,12 +104,8 @@ def render_params(scene: Scene, cfg: RenderConfig, frame: int, x0: int,
 
 def _check_scene(scene: Scene):
     n = scene.n_spheres
-    if not 1 <= n <= MAX_SPHERES:
-        raise ValueError(f"the render kernel takes 1..{MAX_SPHERES} spheres, "
-                         f"got {n}")
-    if len(scene.emissive_ids) > MAX_LIGHTS:
-        raise ValueError(f"the render kernel takes at most {MAX_LIGHTS} "
-                         f"emissive spheres, got {len(scene.emissive_ids)}")
+    if n < 1:
+        raise ValueError("a scene needs at least one sphere")
     if any(m not in (0, 1, 2) for m in scene.mat_type):
         raise ValueError(f"material types must be 0, 1 or 2: "
                          f"{scene.mat_type}")
@@ -80,6 +116,21 @@ def _check_scene(scene: Scene):
         if t.dtype != torch.float32 or t.shape[0] != n:
             raise ValueError(f"scene.{name} must be float32 with {n} rows, "
                              f"got {t.dtype} {tuple(t.shape)}")
+
+
+def check_caps(scene: Scene, caps, kernel: str):
+    """The (spheres, lights) limits of a kernel's own storage, None where
+    it has none; they bind on a card only, where the kernel runs."""
+    if scene.device.type != "cuda":
+        return
+    max_spheres, max_lights = caps
+    if max_spheres is not None and scene.n_spheres > max_spheres:
+        raise ValueError(f"{kernel} stages the scene in shared memory and "
+                         f"takes at most {max_spheres} spheres, got "
+                         f"{scene.n_spheres}")
+    if max_lights is not None and len(scene.emissive_ids) > max_lights:
+        raise ValueError(f"{kernel} takes at most {max_lights} emissive "
+                         f"spheres, got {len(scene.emissive_ids)}")
 
 
 def check_device(scene: Scene, *tensors):
@@ -118,12 +169,14 @@ def kernel_camera(scene, cfg: RenderConfig):
 
 
 def checked_tab(scene: Scene, x0: int, y0: int, height: int, width: int,
-                tab=None) -> torch.Tensor:
+                tab=None, caps=(None, None),
+                kernel: str = "the render kernel") -> torch.Tensor:
     """Validate a kernel call on the (height, width) sub-image at (x0, y0)
     and return the packed table it reads (default pack_scene(scene)):
-    (SCENE_ROWS, N) float32, contiguous, detached, on the scene's
-    device."""
+    (SCENE_ROWS, N) float32, contiguous, detached, on the scene's device.
+    `caps` are the kernel's (spheres, lights) limits (check_caps)."""
     _check_scene(scene)
+    check_caps(scene, caps, kernel)
     if not (height >= 1 and width >= 1 and x0 >= 0 and y0 >= 0):
         raise ValueError(f"bad sub-image {height}x{width} at ({x0}, {y0})")
     if tab is None:
@@ -136,6 +189,12 @@ def checked_tab(scene: Scene, x0: int, y0: int, height: int, width: int,
     return tab.detach().contiguous()
 
 
+def pack_records(tab: torch.Tensor) -> torch.Tensor:
+    """The merged kernel's (N, 4) float32 sphere records from the packed
+    table: center xyz and radius^2 (csrc/flat.cuh Sphere4)."""
+    return tab[:4].t().contiguous()
+
+
 def cuda_call(lib, name: str, code: int):
     if code != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} "
@@ -144,48 +203,83 @@ def cuda_call(lib, name: str, code: int):
 
 def launch_forward(kernel: str, scene: Scene, tab: torch.Tensor,
                    cfg: RenderConfig, frame: int, x0: int, y0: int,
-                   height: int, width: int, *extra):
+                   height: int, width: int, *extra, merged: bool = False):
     """Launch the forward kernel tpt_<kernel>_launch ("render",
-    "render_stats" or "lockstep") on the current stream, with `extra`
-    arguments after the ray counter; returns ((height, width, 3) float32
-    image, 0-d int64 ray count)."""
+    "render_thread", "render_stats" or "lockstep") on the current stream,
+    with `extra` arguments after the ray counter (merged: after the sphere
+    records, which follow the table, and the tile counter, which follows
+    the ray counter); returns ((height, width, 3) float32 image, 0-d int64
+    ray count)."""
     lib = _build.load_library()
     mat, lights, cam = kernel_inputs(scene, cfg)
     dev = scene.device
     out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    counters = torch.zeros((2,), dtype=torch.int64, device=dev)  # rays, tile
     params = render_params(scene, cfg, frame, x0, y0, height, width)
+    sph = pack_records(tab) if merged else None
+    head = (tab.data_ptr(), sph.data_ptr()) if merged else (tab.data_ptr(),)
+    tile = (counters[1].data_ptr(),) if merged else ()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = getattr(lib, f"tpt_{kernel}_launch")(
-            tab.data_ptr(), mat.data_ptr(), lights.data_ptr(), cam.data_ptr(),
-            ctypes.byref(params), out.data_ptr(), rays.data_ptr(), *extra,
-            stream)
+            *head, mat.data_ptr(), lights.data_ptr(), cam.data_ptr(),
+            ctypes.byref(params), out.data_ptr(), counters.data_ptr(), *tile,
+            *extra, stream)
     cuda_call(lib, kernel, code)
-    return out, rays
+    return out, counters[0]
 
 
 def render_tile(scene: Scene, cfg: RenderConfig, frame: int, x0: int,
                 y0: int, height: int, width: int, tab=None):
     """Render the (height, width) sub-image whose lower-left pixel is the
-    global pixel (x0, y0), on the scene's device: the CUDA kernel for a
-    scene on a card, the plain PyTorch version for a scene on the CPU.
-    `tab` is the packed table to render (default pack_scene(scene)); the
-    kernel does not differentiate it (ops/cuda_grad does).
+    global pixel (x0, y0), on the scene's device: the CUDA kernel (its
+    merged form) for a scene on a card, the plain PyTorch version for a
+    scene on the CPU.  `tab` is the packed table to render (default
+    pack_scene(scene)); the kernel does not differentiate it (ops/cuda_grad
+    does).
 
     Returns ((height, width, 3) float32 image, 0-d int64 ray count: every
     camera, bounce and shadow ray of the sub-image's pixels)."""
-    tab = checked_tab(scene, x0, y0, height, width, tab)
-    if scene.device.type == "cuda":
-        out = launch_forward("render", scene, tab, cfg, frame, x0, y0, height,
-                             width)
-        launches["render"] += 1
-        return out
+    return render_tile_form(scene, cfg, frame, x0, y0, height, width,
+                            MAIN_FORM, tab=tab)
+
+
+def render_tile_form(scene: Scene, cfg: RenderConfig, frame: int, x0: int,
+                     y0: int, height: int, width: int, form: str, tab=None,
+                     counted: bool = False):
+    """render_tile through K1's form `form` (FORMS); both compute the same
+    image and rays.  On the CPU the plain version, whatever the form.
+    counted=True launches the form's instrumented instance (on a card) and
+    returns a third value: for "merged" its loop counters by LOOP_FIELDS,
+    for "thread" its cycles by PART_FIELDS."""
+    if form not in FORMS:
+        raise ValueError(f"no render kernel form {form!r}")
+    tab = checked_tab(scene, x0, y0, height, width, tab, FORM_CAPS[form],
+                      f"the render kernel's {form} form")
     if scene.device.type == "cpu":
+        if counted:
+            raise ValueError("the instrumented instances run on a card")
         from ..render.wavefront import render_tile_plain
         return render_tile_plain(scene, cfg, frame, x0, y0, height, width,
                                  tab=tab)
-    raise ValueError(f"no renderer for device {scene.device}")
+    if scene.device.type != "cuda":
+        raise ValueError(f"no renderer for device {scene.device}")
+    fields = LOOP_FIELDS if form == "merged" else PART_FIELDS
+    slots = STAT_SLOTS if form == "merged" else len(PART_FIELDS)
+    counts = torch.zeros((slots,), dtype=torch.int64, device=scene.device) \
+        if counted else None
+    ptr = counts.data_ptr() if counted else None
+    if form == "merged":
+        out, rays = launch_forward("render", scene, tab, cfg, frame, x0, y0,
+                                   height, width, ptr, merged=True)
+    else:
+        out, rays = launch_forward("render_thread", scene, tab, cfg, frame,
+                                   x0, y0, height, width, ptr)
+    launches["render_counted" if counted else COUNTERS[form]] += 1
+    if not counted:
+        return out, rays
+    v = [int(x) for x in counts.cpu()][slots - len(fields):]
+    return out, rays, dict(zip(fields, v))
 
 
 def render_frame(scene: Scene, cfg: RenderConfig, frame: int,
@@ -276,7 +370,8 @@ def render_tile_stats(scene: Scene, cfg: RenderConfig, frame: int,
     Returns ((H, W, 3) float32, 0-d int64 rays of the image's pixels,
     StatsCounters)."""
     H, W = cfg.height, cfg.width
-    tab = checked_tab(scene, 0, 0, H, W, tab)
+    tab = checked_tab(scene, 0, 0, H, W, tab, (MAX_SPHERES, MAX_LIGHTS),
+                      "the stats render kernel")
     if scene.device.type == "cpu":
         from ..render.wavefront import render_tile_stats_plain
         return render_tile_stats_plain(scene, cfg, frame, tab=tab)

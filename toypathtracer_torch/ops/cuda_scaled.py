@@ -28,7 +28,8 @@ from ..config import RenderConfig, resolve_device
 from ..scaled import (ChunkTraversal, ScaledScene, group_boxes,
                       pack_chunks, render_tile_scaled_plain)
 from . import _build
-from .cuda_render import (MAX_LIGHTS, cuda_call, kernel_camera, pack_scene,
+from .cuda_render import (LOOP_FIELDS, MAX_LIGHTS, STAT_FIELDS, STAT_SLOTS,
+                          cuda_call, kernel_camera, pack_scene,
                           render_params)
 
 # Largest chunk count whose AABBs the kernels stage in shared memory
@@ -43,17 +44,6 @@ COUNTERS = {"coop": "scaled_render", "lane": "scaled_render_lane"}
 
 launches = {"scaled_render": 0, "scaled_render_lane": 0,
             "scaled_render_stats": 0, "hit_chunks": 0, "shadow_chunks": 0}
-
-# The stats instances' counters (csrc/coop.cuh kSt*), per kind of ray: warp
-# traversal calls, lanes in them, box steps, lane slab tests, sphere-loop
-# trips the warp ran, sphere tests its lanes needed; then the merged path
-# loop's iterations and busy lanes, the SM cycles its warps spent in the
-# loop, the hit traversals, NEE and NEE's shadow traversals, and the shadow
-# rays their own chunk occluded (the cooperative form only).
-STAT_FIELDS = ("calls", "lanes", "boxes", "slabs", "trips", "need")
-LOOP_FIELDS = ("iters", "busy", "cycles", "cycles_hit", "cycles_nee",
-               "cycles_shadow", "own_chunk_blocked")
-STAT_SLOTS = 2 * len(STAT_FIELDS) + len(LOOP_FIELDS)
 
 
 def _check_rows(rows: torch.Tensor, chunk: int):

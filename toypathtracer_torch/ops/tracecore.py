@@ -197,16 +197,23 @@ def random_unit_vector(state):
 # ---------------------------------------------------------------------------
 
 
-def sphere_t(cx, cy, cz, sq_radius, ro, rd, t_min):
-    """Nearest valid root of the sphere quadratic (Maths.cpp:97-117's -b
-    trick).  Returns (t, valid); broadcasts sphere scalars/rows against
-    ray lanes."""
+def sphere_discr(cx, cy, cz, sq_radius, ro, rd):
+    """(nb, discr) of the sphere quadratic (Maths.cpp:97-117's -b trick):
+    the ray meets the sphere only where discr > 0.  Broadcasts sphere
+    scalars/rows against ray lanes."""
     cox = cx - ro[0]
     coy = cy - ro[1]
     coz = cz - ro[2]
     nb = cox * rd[0] + coy * rd[1] + coz * rd[2]
     c = cox * cox + coy * coy + coz * coz - sq_radius
-    discr = nb * nb - c
+    return nb, nb * nb - c
+
+
+def sphere_t(cx, cy, cz, sq_radius, ro, rd, t_min):
+    """Nearest valid root of the sphere quadratic (Maths.cpp:97-117's -b
+    trick).  Returns (t, valid); broadcasts sphere scalars/rows against
+    ray lanes."""
+    nb, discr = sphere_discr(cx, cy, cz, sq_radius, ro, rd)
     discr_sq = sqrt_pos(discr)
     t0 = nb - discr_sq
     t1 = nb + discr_sq
