@@ -7,9 +7,9 @@ Phases (one JSON line each on stdout; any failure raises and exits
 non-zero):
   1. device: the card, torch/CUDA versions, the nvcc build of csrc/;
      each kernel's registers, stack and spills from -Xptxas -v, with the
-     per-thread K1, K3 (both forms), K4's per-thread form, K5, K6, the
-     per-lane and the cooperative scaled render kernels and the merged K1
-     held at their counts.
+     per-thread K1, K3 (both forms), K4's per-thread form, K5, both K6
+     forms, both K2 forms, the per-lane and the cooperative scaled render
+     kernels and the merged K1 held at their counts.
   2. kernel vs plain at 320x176, spp 2, depth 6, frames 0-3: the big
      scene, the big scene without light sampling, the small scene; in each
      the merged K1 (the main path's) bit-equal to the per-thread K1 it
@@ -48,9 +48,14 @@ non-zero):
      progressive frames plus 1 animated frame (one launch a frame of the
      warp-cooperative scaled render kernel, none of the per-lane form),
      and the ChunkedScenePort queries on frame 0's camera rays (K5) and
-     on their first Lambert hits' cone samples (K6).
-  9. K5 (camera rays and 65,536 random rays) and K6 (the 8 lights' cone
-     samples) vs their plain versions at the full scene; the scaled render
+     on their first Lambert hits' cone samples (K6, its cooperative form;
+     none of the per-thread form).
+  9. K5 (camera rays and 65,536 random rays) vs plain; K6 on the camera
+     rays' hits and on 65,536 random rays toward the beacons, the
+     cooperative form bit-equal to the per-thread form it replaced and
+     within its gate of plain; both K6 forms' counted instances
+     (tools.shadow_stats: step 1's SIMT efficiency, box steps, occluded
+     share), the two timed in turns, the old and the new bound; the scaled render
      kernel vs plain at 320x176 / spp 1 / depth 4 (frames 0-1), on a
      16-row band and on the full frame at full size (whose plain work
      counts give the bounds), and in every one of those and on the
@@ -64,21 +69,26 @@ non-zero):
      in turns at 1280x720 and 320x176; the session; bounds from the
      lesser, term by term, of the plain version's work counters and the
      cooperative stats instance's (at 320x176 its second launch).
- 11. the stats render kernel (K2) at 320x176, spp 2, depth 6, frames 0-1:
-     16x128 tiles unmerged and a padded shape (32x128 tiles, 2 pixels a
-     lane, merged); image and rays bit-equal to K1's, per-pixel trip
+ 11. the stats render kernel (K2, its merged form) at 320x176, spp 2,
+     depth 6, frames 0-1: 16x128 tiles unmerged, a padded shape (32x128
+     tiles, 2 pixels a lane, merged) and 600 spheres; image and rays
+     bit-equal to the merged K1's, image, rays and the five counter planes
+     equal to the per-thread form's (render_kernel<1>; not at 600), trip
      counts, tile and warp counters against the plain version.
  12. K2's main path: tools.occupancy at its defaults (1280x720, spp 4,
-     depth 10, 16x128 tiles, frame 0), one K2 launch; rays, work and
-     iters against the TPU's counts; K2 and K1 timed in turns; K1's warp
-     work efficiency from K2's counters beside the plain version's.
+     depth 10, 16x128 tiles, frame 0), one merged K2 launch and none of
+     the per-thread form; rays, work and iters against the TPU's counts;
+     both forms equal on the full frame; the merged K1 and K2's two forms
+     timed in turns; the per-thread K1's warp work efficiency from K2's
+     counters beside the plain version's.
  13. the issue-rate probe (T1): six cases at 64 trips against their plain
      versions, the launch floor (T2) against its plain version; then
      tools.roofline's main path: the full-size rates, both floors, the SM
      clock under load, and every thread of each case's and each floor's
      launches against the plain version.
  14. the `kernels` line: render, render_baseline, grad, grad_replay,
-     lockstep, scaled_render, hit_chunks, shadow_chunks, render_stats,
+     lockstep, scaled_render, hit_chunks, shadow_chunks,
+     shadow_chunks_baseline, render_stats, render_stats_baseline,
      issue_rate, launch_floor.
 Then the card's name and power limit as nvidia-smi reports them, and the
 `ok` line last.  Exits non-zero without a CUDA device.
@@ -98,11 +108,15 @@ import torch
 
 # Registers and spill bytes of the kernels that the redesigns must leave as
 # they were (-Xptxas -v of their sources before them): the per-thread K1
-# (render_kernel<0>), the replaying K3 (lockstep_kernel<1,0>), the
-# per-thread K4 (<0,0>), K5, K6, the per-lane scaled render kernel and the
-# cooperative one, whose path loop the merged K1 shares; and K3's warp form
-# and the merged K1 at their own counts.
+# (render_kernel<0>) and K2 (<1>), the replaying K3 (lockstep_kernel<1,0>),
+# the per-thread K4 (<0,0>), K5, the per-thread K6, the per-lane scaled
+# render kernel and the cooperative one, whose path loop and chunk walk the
+# merged K1 and the cooperative K6 share; and K3's warp form, the merged
+# K1, the cooperative K6 and the merged K2 at their own counts.
 KEPT_USAGE = {
+    "render_kernel<1>": {"registers": 72, "spill_stores": 16},
+    "coop_shadow_kernel<0>": {"registers": 40, "spill_stores": 12},
+    "merged_render_kernel<2>": {"registers": 64, "spill_stores": 876},
     "render_kernel<0>": {"registers": 80, "spill_stores": 48},
     "merged_render_kernel<0>": {"registers": 64, "spill_stores": 788},
     "coop_render_kernel<0>": {"registers": 96, "spill_stores": 110},
@@ -111,7 +125,7 @@ KEPT_USAGE = {
     "warp_grad_kernel<0>": {"registers": 40, "spill_stores": 1154},
     "scaled_render_kernel<0>": {"registers": 80, "spill_stores": 32},
     "hit_chunks_kernel": {"registers": 40, "spill_stores": 0},
-    "shadow_chunks_kernel": {"registers": 32, "spill_stores": 0},
+    "shadow_chunks_kernel<0>": {"registers": 32, "spill_stores": 0},
 }
 
 
@@ -467,8 +481,7 @@ def main() -> int:
                             shadow=shadow, plain_ms=plain_ms,
                             plain_img=plain_img), usage)
     scaled = scaled_phases(cfg, smi, usage)
-    stats = stats_phases(cfg, smi, dict(ops=ops, bytes=n_bytes,
-                                        kernel_ms=thread_ms))
+    stats = stats_phases(cfg, smi, dict(ops=ops, bytes=n_bytes), usage)
     probe = probe_phases(smi)
 
     tol = ("rays rel <= 5e-4, mean |diff| <= 1e-3, 8x8 block mean <= 0.02, "
@@ -513,7 +526,7 @@ def main() -> int:
          "cycle_shares": parts["thread"]["cycle_shares"],
          "ptxas": usage.get("render_kernel<0>", {}),
          "vs_plain": {"tolerance": "bit-equal to the merged K1"}},
-        *grad, *scaled, stats, *probe]})
+        *grad, *scaled, *stats, *probe]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -890,10 +903,10 @@ def scaled_phases(cfg, smi, usage):
     from toypathtracer_torch.ops import tracecore as tc
     from toypathtracer_torch.profiling import time_device_call
     from toypathtracer_torch.render import frame as frame_mod
-    from toypathtracer_torch.render.wavefront import camera_scalars
     from toypathtracer_torch.scaled import (ChunkedScenePort, ChunkTraversal,
                                             pack_chunks,
                                             render_tile_scaled_plain)
+    from toypathtracer_torch.tools import shadow_stats
 
     dev = torch.device("cuda")
     t_min, t_max = float(np.float32(cfg.min_t)), float(np.float32(cfg.max_t))
@@ -907,18 +920,6 @@ def scaled_phases(cfg, smi, usage):
     trav = ChunkTraversal(rows, K)
     lights = list(sd.emissive_ids)
     scene_bytes = 4 * (tab.numel() + rows.numel() + mat.numel())
-
-    # frame 0's camera rays, one per pixel (each pixel's first sample)
-    yy, xx = torch.meshgrid(torch.arange(H, device=dev),
-                            torch.arange(W, device=dev), indexing="ij")
-    px, py = xx.reshape(-1), yy.reshape(-1)
-    st = tc.seed_pixels(px, py, 0)
-    st, ur = tc.rand01(st)
-    st, vr = tc.rand01(st)
-    u = (px.to(torch.float32) + ur) * float(np.float32(cfg.inv_width))
-    v = (py.to(torch.float32) + vr) * float(np.float32(cfg.inv_height))
-    st, cam_ro, cam_rd = tc.camera_get_ray(camera_scalars(scene, cfg), u, v,
-                                           st)
 
     # ---- 8. the scaled main path ----------------------------------------
     t0 = time.perf_counter()
@@ -939,16 +940,11 @@ def scaled_phases(cfg, smi, usage):
     img_anim = img_anim.clone()
     # the traversal queries of ChunkedScenePort: frame 0's camera rays (K5),
     # then NEE's shadow rays from their first Lambert hits (K6), the cone
-    # samples drawn as tracecore.bounce draws them
+    # samples drawn as tracecore.bounce draws them (tools.shadow_stats)
     port = ChunkedScenePort(sess.scene)
-    hit_t, hit_id = port.hit_chunks(cam_ro, cam_rd, cfg.min_t, cfg.max_t)
-    idl = hit_id.long()
-    sel = ((idl >= 0) & (mat[idl.clamp_min(0)] == 0)).nonzero().squeeze(1)
-    pos = tuple((o + d * hit_t)[sel] for o, d in zip(cam_ro, cam_rd))
-    st_l, _ = tc.random_unit_vector(st[sel])
-    _, cones = tc.nee_cones(tab, lights, pos, idl[sel],
-                            torch.ones_like(sel, dtype=torch.bool), st_l)
-    dirs = [c[2] for c in cones]
+    wl = shadow_stats.workload(port, cfg)
+    cam_ro, cam_rd, hit_id = wl.cam_ro, wl.cam_rd, wl.hit_id
+    pos, dirs, t_ls = wl.pos, wl.dirs, wl.t_ls
     visible = port.lights_visible(pos, dirs, lights, cfg.min_t, cfg.max_t)
     torch.cuda.synchronize()
     main_launches = dict(cuda_scaled.launches)
@@ -962,13 +958,14 @@ def scaled_phases(cfg, smi, usage):
             "animated_vs_static_max_abs": anim_diff,
             "camera_rays": int(hit_id.numel()),
             "camera_hits": int((hit_id >= 0).sum()),
-            "lambert_hits": int(sel.numel()),
+            "lambert_hits": int(pos[0].numel()),
             "visible_light_samples": int(sum(int(x.sum()) for x in visible)),
             "seconds": time.perf_counter() - t0}
     emit(main)
     check(main_launches == {"scaled_render": 5, "scaled_render_lane": 0,
                             "scaled_render_stats": 0, "hit_chunks": 1,
-                            "shadow_chunks": 1},
+                            "shadow_chunks": 1, "shadow_chunks_baseline": 0,
+                            "shadow_chunks_counted": 0},
           f"scaled main path launched {main_launches}")
     check(tuple(accum.shape) == (720, 1280, 3) and main["accum_finite"],
           "scaled accumulated image shape/finite")
@@ -1015,34 +1012,108 @@ def scaled_phases(cfg, smi, usage):
     hit_case("random_65536", tuple(torch.from_numpy(o.copy()).to(dev)),
              tuple(torch.from_numpy(d).to(dev)))
 
+    def k6_case(name, pos, dirs, t_ls):
+        """K6's main-path form against the per-thread form it replaced
+        (bits equal on every pair) and against the plain version."""
+        t1 = time.perf_counter()
+        flat = tuple(x for l in dirs for x in l)
+        args = (rows, pos, flat, tuple(t_ls), K, lights, t_min)
+        bits_k = cuda_scaled.shadow_chunks(*args,
+                                           index=port.shadow_index)
+        bits_t = cuda_scaled.shadow_chunks_form(*args, "thread")
+        plain_s, (bits_p, slabs, spheres) = time_device_call(
+            trav.occlusion_bits, pos, dirs, t_ls, lights, t_min)
+        n = int(bits_k.numel())
+        diff = bits_k ^ bits_p
+        r = {"phase": "shadow_chunks_vs_plain", "case": name, "rays": n,
+             "lights": len(lights),
+             "bit_equal_to_thread_form": bool(torch.equal(bits_k, bits_t)),
+             "ray_mismatch": int((diff != 0).sum()),
+             "bit_mismatch": int(sum(int(((diff >> k) & 1).sum())
+                                     for k in range(len(lights)))),
+             "occluded_bits": int(sum(int(((bits_p >> k) & 1).sum())
+                                      for k in range(len(lights)))),
+             "slab_tests": int(slabs.sum()),
+             "sphere_tests": int(spheres.sum()),
+             "plain_ms": plain_s * 1e3, "seconds": time.perf_counter() - t1}
+        emit(r)
+        check(r["bit_equal_to_thread_form"],
+              f"K6 {name}: the cooperative form's bits != the per-thread "
+              "form's")
+        check(r["ray_mismatch"] <= 1e-5 * n, f"K6 {name}: occlusion bits")
+        return r, args
+
+    k6, k6_args = k6_case("camera_1280x720", pos, dirs, t_ls)
+    # 65,536 random origins over the field toward the beacons, jittered
+    o = torch.from_numpy(rng.uniform((-150.0, 0.5, -150.0),
+                                     (150.0, 12.0, 150.0),
+                                     (65536, 3)).astype(np.float32).T.copy())
+    r_pos = tuple(o.to(dev))
+    r_dirs, r_tls = [], []
+    for e in lights:
+        d = torch.from_numpy(rng.normal(0, 3.0, (3, 65536)).astype(
+            np.float32)).to(dev)
+        r_dirs.append(tc.normalize3(tuple(tab[a, e] - r_pos[a] + d[a]
+                                          for a in range(3))))
+        r_tls.append(tc.sphere_t(tab[0, e], tab[1, e], tab[2, e], tab[3, e],
+                                 r_pos, r_dirs[-1], t_min)[0])
+    k6_random, _ = k6_case("random_65536", r_pos, r_dirs, r_tls)
+
+    # step 1 and the cooperative form's work: both counted instances on
+    # the camera case (tools.shadow_stats); then the forms in turns:
+    # coop, thread, thread, coop, and the cooperative wrapper once more
+    # building its shadow index (walk order, group boxes, records) itself
     t1 = time.perf_counter()
-    t_ls = [tc.sphere_t(tab[0, e], tab[1, e], tab[2, e], tab[3, e], pos, l,
-                        t_min)[0] for e, l in zip(lights, dirs)]
-    flat = tuple(x for l in dirs for x in l)
-    bits_k = cuda_scaled.shadow_chunks(rows, pos, flat, tuple(t_ls), K,
-                                       lights, t_min)
-    plain_s, (bits_p, slabs, spheres) = time_device_call(
-        trav.occlusion_bits, pos, dirs, t_ls, lights, t_min)
-    ms = time_device_call(cuda_scaled.shadow_chunks, rows, pos, flat,
-                          tuple(t_ls), K, lights, t_min, repeats=3)[0] * 1e3
-    n = int(bits_k.numel())
-    diff = bits_k ^ bits_p
-    ops = 12 * int(slabs.sum()) + 20 * int(spheres.sum())
-    n_bytes = 4 * rows.numel() + n * 4 * (3 + 4 * len(lights) + 1)
-    k6 = {"phase": "shadow_chunks_vs_plain", "rays": n,
-          "lights": len(lights), "ray_mismatch": int((diff != 0).sum()),
-          "bit_mismatch": int(sum(int(((diff >> k) & 1).sum())
-                                  for k in range(len(lights)))),
-          "occluded_bits": int(sum(int(((bits_p >> k) & 1).sum())
-                                   for k in range(len(lights)))),
-          "slab_tests": int(slabs.sum()), "sphere_tests": int(spheres.sum()),
-          "ms": ms, "plain_ms": plain_s * 1e3, "bound_fp32_ops": ops,
-          "bound_bytes": n_bytes,
-          "bound_ms": max(ops / 67e12, n_bytes / 3.35e12) * 1e3,
-          "bound_by": "operations" if ops / 67e12 >= n_bytes / 3.35e12
-          else "bytes", "seconds": time.perf_counter() - t1}
-    emit(k6)
-    check(k6["ray_mismatch"] <= 1e-5 * n, "K6: occlusion bits")
+    k6_stats = {}
+    for form in ("thread", "coop"):
+        bits_s, k6_stats[form] = shadow_stats.form_stats(port, wl, cfg, form)
+        emit({"phase": "shadow_traversal_stats", "nvidia_smi": smi,
+              **k6_stats[form]})
+        check(bool(torch.equal(bits_s, cuda_scaled.shadow_chunks(
+            *k6_args, index=port.shadow_index))),
+              f"K6 {form} counted instance != the timed kernel")
+    k6_runs = {}
+    for form in ("coop", "thread", "thread", "coop"):
+        k6_runs.setdefault(form, []).append(time_device_call(
+            cuda_scaled.shadow_chunks_form, *k6_args, form,
+            port.shadow_index, repeats=3)[0] * 1e3)
+    k6_ms = {f: sum(v) / len(v) for f, v in k6_runs.items()}
+    index_in_wrapper_ms = time_device_call(
+        cuda_scaled.shadow_chunks_form, *k6_args, "coop",
+        repeats=3)[0] * 1e3
+    # Bounds: 12 operations per slab test, 20 per occlusion sphere test up
+    # to the first occluder.  Old: the plain version's counts (every chunk
+    # box of each pair, the chunks in the rows' order).  New: each term the
+    # lesser of the plain count and the cooperative counted instance's,
+    # whose group boxes over a spatial order skip chunk boxes and which
+    # takes the light's chunk last, so the function needs no more.
+    st_c = k6_stats["coop"]["counters"]
+    n_k6 = k6["rays"]
+    k6_bytes = 4 * rows.numel() + n_k6 * 4 * (3 + 4 * len(lights) + 1)
+    old_ops = 12 * k6["slab_tests"] + 20 * k6["sphere_tests"]
+    new_terms = {"slab_tests": min(k6["slab_tests"], st_c["slabs"]),
+                 "sphere_tests": min(k6["sphere_tests"], st_c["need"])}
+    new_ops = 12 * new_terms["slab_tests"] + 20 * new_terms["sphere_tests"]
+
+    def bound(ops):
+        ms = max(ops / 67e12, k6_bytes / 3.35e12) * 1e3
+        return ms, "operations" if ops / 67e12 >= k6_bytes / 3.35e12 \
+            else "bytes"
+    k6_bound_old, _ = bound(old_ops)
+    k6_bound, k6_bound_by = bound(new_ops)
+    k6_timing = {"phase": "shadow_chunks_timing", "nvidia_smi": smi,
+                 "ms": k6_ms, "runs": k6_runs,
+                 "coop_over_thread": k6_ms["coop"] / k6_ms["thread"],
+                 "coop_index_built_in_wrapper_ms": index_in_wrapper_ms,
+                 "plain_ms": k6["plain_ms"],
+                 "simt_efficiency": {f: k6_stats[f]["simt_efficiency"]
+                                     for f in k6_stats},
+                 "bound_fp32_ops_old": old_ops, "bound_ms_old": k6_bound_old,
+                 "bound_work_new": new_terms, "bound_fp32_ops": new_ops,
+                 "bound_bytes": k6_bytes, "bound_ms": k6_bound,
+                 "bound_by": k6_bound_by,
+                 "seconds": time.perf_counter() - t1}
+    emit(k6_timing)
 
     def forms_equal(what, sc, c, frame, y0, h, main):
         """The per-lane form on the same tile as the main path's form:
@@ -1230,7 +1301,8 @@ def scaled_phases(cfg, smi, usage):
               "small_work": sw, "small_bound_work": terms_s,
               "small_bound_fp32_ops": ops_s,
               "small_bound_ms": bound_s,
-              "hit_chunks_ms": k5["ms"], "shadow_chunks_ms": k6["ms"],
+              "hit_chunks_ms": k5["ms"],
+              "shadow_chunks_ms": k6_ms[cuda_scaled.SHADOW_MAIN_FORM],
               "forms_ms": form_ms,
               "sphere_loop_simt_efficiency": {
                   f: {k: simt[f][k]["simt_efficiency"]
@@ -1287,24 +1359,57 @@ def scaled_phases(cfg, smi, usage):
          "source": "toypathtracer_torch/csrc/scaled.cu",
          "replaces": "toypathtracer_tpu/ops/scaled_pallas.py:143",
          "launches": main_launches["shadow_chunks"],
-         "max_abs_err": float(k6["bit_mismatch"] > 0), "ms": k6["ms"],
-         "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
-         "bound_by": k6["bound_by"], "library_ms": None,
-         "vs_plain": {"tolerance": "bits equal on all but 1e-5 of the rays",
-                      "ray_mismatch": k6["ray_mismatch"]}}]
+         "max_abs_err": float(k6["bit_mismatch"] > 0),
+         "ms": k6_ms[cuda_scaled.SHADOW_MAIN_FORM],
+         "plain_ms": k6["plain_ms"], "bound_ms": k6_bound,
+         "bound_by": k6_bound_by, "library_ms": None,
+         "form": "coop (coop_shadow_kernel<0>: csrc/coop.cuh "
+                 "shadow_chunks_warp over scaled.shadow_index)",
+         "baseline_ms": k6_ms["thread"],
+         "baseline": "the per-thread K6 it replaced "
+                     "(shadow_chunks_kernel<0>), timed in turns with it",
+         "bound_ms_old": k6_bound_old,
+         "index_built_in_wrapper_ms": index_in_wrapper_ms,
+         "sphere_loop_simt_efficiency": k6_stats["coop"]["simt_efficiency"],
+         "ptxas": usage.get("coop_shadow_kernel<0>", {}),
+         "vs_plain": {"tolerance": "bits equal on all but 1e-5 of the rays; "
+                                   "bit-equal to the per-thread form on "
+                                   "every pair",
+                      "ray_mismatch": k6["ray_mismatch"],
+                      "ray_mismatch_random": k6_random["ray_mismatch"],
+                      "bit_equal_to_thread_form": {
+                          "camera_1280x720": k6["bit_equal_to_thread_form"],
+                          "random_65536":
+                              k6_random["bit_equal_to_thread_form"]}}},
+        {"name": "shadow_chunks_baseline", "route": "cuda",
+         "source": "toypathtracer_torch/csrc/scaled.cu",
+         "replaces": "toypathtracer_tpu/ops/scaled_pallas.py:143",
+         "launches": main_launches["shadow_chunks_baseline"],
+         "max_abs_err": float(k6["bit_mismatch"] > 0),
+         "ms": k6_ms["thread"], "plain_ms": k6["plain_ms"],
+         "bound_ms": k6_bound, "bound_by": k6_bound_by,
+         "library_ms": None, "form": "thread (shadow_chunks_kernel<0>)",
+         "baseline": "the per-thread K6, kept beside the cooperative one as "
+                     "its A/B and equality baseline; not on the main path",
+         "sphere_loop_simt_efficiency":
+             k6_stats["thread"]["simt_efficiency"],
+         "ptxas": usage.get("shadow_chunks_kernel<0>", {}),
+         "vs_plain": {"tolerance": "bit-equal to the cooperative form"}}]
 
 
-def stats_phases(cfg, smi, k1):
-    """Phases 11-12: the stats render kernel (K2) against the render
-    kernel and the plain version, and its main path, the occupancy tool
-    at full size.  `k1` carries phase 4's per-thread K1 time (the kernel
-    K2 instruments) and K1's bound terms.  Returns K2's entry of the
-    `kernels` line."""
+def stats_phases(cfg, smi, k1, usage):
+    """Phases 11-12: the stats render kernel (K2: its merged form on the
+    main path and the per-thread form it replaced, the baseline) against
+    the render kernel, each other and the plain version, and its main
+    path, the occupancy tool at full size.  `k1` carries K1's bound terms
+    from phase 4; `usage` is phase 1's -Xptxas -v table.  Returns K2's
+    entries of the `kernels` line."""
     from toypathtracer_torch import make_scene
     from toypathtracer_torch.ops import cuda_render
     from toypathtracer_torch.profiling import time_device_call
     from toypathtracer_torch.render.wavefront import render_tile_stats_plain
     from toypathtracer_torch.tools import occupancy
+    from toypathtracer_torch.tools.scenes import crowded_scene
 
     dev = torch.device("cuda")
     scene_d = make_scene(big=True).to(dev)
@@ -1340,37 +1445,57 @@ def stats_phases(cfg, smi, k1):
         check(a["tiles_differ_unexplained"] == 0, f"{what}: tile counters")
         check(a["warps_differ_unexplained"] == 0, f"{what}: warp counters")
 
-    # ---- 11. K2 vs K1 and plain, small size ------------------------------
+    def planes_equal(a, b):
+        return all(x.shape == y.shape and bool(torch.equal(x, y))
+                   for x, y in zip(a, b))
+
+    # ---- 11. K2 vs K1, its per-thread form and plain, small size ---------
     small = cfg.replace(width=320, height=176, samples_per_pixel=2,
                         max_depth=6)
-    cases = {"tile16x128": small,
-             "tile32x128_ppl2_merged": small.replace(
-                 tile_h=32, pix_per_lane=2, merged_wavefront=True)}
+    cases = {"tile16x128": (scene_d, small),
+             "tile32x128_ppl2_merged": (scene_d, small.replace(
+                 tile_h=32, pix_per_lane=2, merged_wavefront=True)),
+             "crowded_600": (crowded_scene(extra=554).to(dev), small)}
     small_mismatch = 0.0
-    for name, c in cases.items():
+    forms_equal = {}
+    for name, (sc, c) in cases.items():
         for frame in range(2):
             t1 = time.perf_counter()
-            img_s, rays_s, cnt_k = cuda_render.render_tile_stats(scene_d, c,
+            img_s, rays_s, cnt_k = cuda_render.render_tile_stats(sc, c,
                                                                  frame)
-            img_1, rays_1 = cuda_render.render_tile(scene_d, c, frame, 0, 0,
+            img_1, rays_1 = cuda_render.render_tile(sc, c, frame, 0, 0,
                                                     c.height, c.width)
-            img_p, rays_p, cnt_p = render_tile_stats_plain(scene_d, c, frame)
+            img_p, rays_p, cnt_p = render_tile_stats_plain(sc, c, frame)
+            r = {"phase": "stats_vs_plain", "case": name, "frame": frame,
+                 "spheres": sc.n_spheres, "grid": list(cnt_k.bounces.shape)}
+            if sc.n_spheres <= cuda_render.MAX_SPHERES:
+                img_t, rays_t, cnt_t = cuda_render.render_tile_stats_form(
+                    sc, c, frame, "thread")
+                r["bit_equal_to_thread_form"] = bool(
+                    torch.equal(img_s, img_t)) and int(rays_s) == int(rays_t)
+                r["counters_equal_to_thread_form"] = planes_equal(cnt_k,
+                                                                  cnt_t)
+                forms_equal[f"{name}_frame{frame}"] = (
+                    r["bit_equal_to_thread_form"]
+                    and r["counters_equal_to_thread_form"])
             torch.cuda.synchronize()
             a = agreement(c, cnt_k, cnt_p)
             small_mismatch = max(small_mismatch, a["pixel_mismatch_frac"])
-            r = {"phase": "stats_vs_plain", "case": name, "frame": frame,
-                 "grid": list(cnt_k.bounces.shape),
-                 "bit_equal_to_render_kernel": bool(torch.equal(img_s,
-                                                                img_1)),
-                 "rays_equal_to_render_kernel": int(rays_s) == int(rays_1),
-                 **compare(img_s, rays_s, img_p, rays_p), **a,
-                 "seconds": time.perf_counter() - t1}
+            r.update({"bit_equal_to_render_kernel": bool(torch.equal(img_s,
+                                                                     img_1)),
+                      "rays_equal_to_render_kernel": int(rays_s)
+                      == int(rays_1),
+                      **compare(img_s, rays_s, img_p, rays_p), **a,
+                      "seconds": time.perf_counter() - t1})
             emit(r)
             what = f"K2 {name} frame {frame}"
             check(r["bit_equal_to_render_kernel"]
                   and r["rays_equal_to_render_kernel"], f"{what}: != K1")
             check(r["finite"] and r["rays_rel_diff"] <= 5e-4
                   and r["mean_abs_diff"] <= 1e-3, f"{what}: image vs plain")
+            if "bit_equal_to_thread_form" in r:
+                check(forms_equal[f"{name}_frame{frame}"],
+                      f"{what}: the merged form != the per-thread form")
             counter_gates(what, a)
 
     # ---- 12. the occupancy tool's path at full size ---------------------
@@ -1381,7 +1506,8 @@ def stats_phases(cfg, smi, k1):
     torch.cuda.synchronize()
     occ_launches = dict(cuda_render.launches)
     check(occ_launches == {"render": 0, "render_baseline": 0,
-                           "render_counted": 0, "render_stats": 1},
+                           "render_counted": 0, "render_stats": 1,
+                           "render_stats_baseline": 0},
           f"occupancy path launched {occ_launches}")
     tpu = {"rays": 16772198,               # docs/measured/tpu_parity.json:49
            "work_lane_bounces": 9320687,   # docs/measured/occupancy.json
@@ -1395,35 +1521,47 @@ def stats_phases(cfg, smi, k1):
     plain_s, (img_p, rays_p, cnt_p) = time_device_call(
         render_tile_stats_plain, scene_d, cfg, 0)
     img_k, rays_k, cnt_k = cuda_render.render_tile_stats(scene_d, cfg, 0)
+    img_t, rays_t, cnt_t = cuda_render.render_tile_stats_form(scene_d, cfg,
+                                                              0, "thread")
     torch.cuda.synchronize()
     full = compare(img_k, rays_k, img_p, rays_p)
     a = agreement(cfg, cnt_k, cnt_p)
-    # K2 in turns with the per-thread K1 it instruments: K1, K2, K2, K1
-    times = {"render": [], "render_stats": []}
-    for name in ("render", "render_stats", "render_stats", "render"):
-        if name == "render":
-            fn, args = cuda_render.render_tile_form, (
-                scene_d, cfg, 0, 0, 0, cfg.height, cfg.width, "thread")
-        else:
-            fn, args = cuda_render.render_tile_stats, (scene_d, cfg, 0)
+    full_forms_equal = (bool(torch.equal(img_k, img_t))
+                        and int(rays_k) == int(rays_t)
+                        and planes_equal(cnt_k, cnt_t))
+    forms_equal["1280x720"] = full_forms_equal
+    # K2's two forms in turns with the merged K1: K1, K2, K2 per-thread,
+    # K2 per-thread, K2, K1
+    fns = {"render": (cuda_render.render_tile,
+                      (scene_d, cfg, 0, 0, 0, cfg.height, cfg.width)),
+           "render_stats": (cuda_render.render_tile_stats, (scene_d, cfg, 0)),
+           "render_stats_baseline": (cuda_render.render_tile_stats_form,
+                                     (scene_d, cfg, 0, "thread"))}
+    times = {k: [] for k in fns}
+    for name in ("render", "render_stats", "render_stats_baseline",
+                 "render_stats_baseline", "render_stats", "render"):
+        fn, args = fns[name]
         times[name].append(time_device_call(fn, *args, repeats=16)[0] * 1e3)
-    k1_ms = sum(times["render"]) / 2
-    k2_ms = sum(times["render_stats"]) / 2
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
     eff_plain = float(cnt_p.warp_work.double().sum()
                       / (32 * cnt_p.warp_iters.double().sum()))
-    # bound: K1's operations and bytes (phase 4, the same frame) plus two
-    # warp reductions a sample per warp and the counters written
+    # bound: K1's operations and bytes (phase 4, the same frame) plus the
+    # counters: two operations a sample per warp unit (its maximum and its
+    # sum), and the counters written
     n_warps = cnt_k.warp_iters.numel()
     ops = k1["ops"] + 2 * cfg.samples_per_pixel * n_warps
     n_bytes = (k1["bytes"] + 4 * 3 * cnt_k.bounces.numel()
                + 4 * 2 * n_warps)
     bound_ms = max(ops / 67e12, n_bytes / 3.35e12) * 1e3
+    bound_by = "operations" if ops / 67e12 >= n_bytes / 3.35e12 else "bytes"
     r = {"phase": "occupancy_path", "nvidia_smi": smi,
          "launches": occ_launches, "occupancy": occ,
          "tpu": tpu, "rel_vs_tpu": rel, "vs_plain": full, **a,
-         "k1_ms": k1_ms, "k2_ms": k2_ms, "k1_ms_runs": times["render"],
-         "k2_ms_runs": times["render_stats"], "k2_over_k1": k2_ms / k1_ms,
-         "k1_ms_phase4": k1["kernel_ms"],
+         "forms_equal_1280x720": full_forms_equal,
+         "k1_ms": ms["render"], "k2_ms": ms["render_stats"],
+         "k2_baseline_ms": ms["render_stats_baseline"], "ms_runs": times,
+         "k2_over_k1": ms["render_stats"] / ms["render"],
+         "k2_over_baseline": ms["render_stats"] / ms["render_stats_baseline"],
          "k1_warp_efficiency_kernel": occ["warp"]["efficiency"],
          "k1_warp_efficiency_plain": eff_plain,
          "plain_ms": plain_s * 1e3, "bound_fp32_ops": ops,
@@ -1435,26 +1573,48 @@ def stats_phases(cfg, smi, k1):
     check(rel["iters_sum"] <= 5e-3, "occupancy iters vs the TPU's")
     check(full["finite"] and full["rays_rel_diff"] <= 5e-4
           and full["mean_abs_diff"] <= 1e-3, "K2 full frame vs plain")
+    check(full_forms_equal, "K2 full frame: the merged form != the "
+                            "per-thread form")
     counter_gates("K2 full frame", a)
-    return {
-        "name": "render_stats", "route": "cuda",
-        "source": "toypathtracer_torch/csrc/render.cu",
-        "replaces": "toypathtracer_tpu/ops/pallas_render.py:337",
-        "launches": occ_launches["render_stats"],
-        "max_abs_err": full["max_abs_diff"], "ms": k2_ms,
-        "plain_ms": plain_s * 1e3, "bound_ms": bound_ms,
-        "bound_by": "operations" if ops / 67e12 >= n_bytes / 3.35e12
-        else "bytes", "library_ms": None,
-        "vs_plain": {"tolerance": "image and rays bit-equal to K1's; trip "
-                                  "counts equal on all but 1e-4 of the "
-                                  "pixels, tile and warp counters equal "
-                                  "where their pixels' counts are; image "
-                                  "vs plain as K1's gates",
-                     "pixel_mismatch_frac_320x176": small_mismatch,
-                     "pixel_mismatch_frac_1280x720":
-                         a["pixel_mismatch_frac"],
-                     "tiles_differ": a["tiles_differ"],
-                     "warps_differ": a["warps_differ"]}}
+    tol = ("image and rays bit-equal to K1's; trip counts equal on all but "
+           "1e-4 of the pixels, tile and warp counters equal where their "
+           "pixels' counts are; image vs plain as K1's gates")
+    return [
+        {"name": "render_stats", "route": "cuda",
+         "source": "toypathtracer_torch/csrc/render.cu",
+         "replaces": "toypathtracer_tpu/ops/pallas_render.py:337",
+         "launches": occ_launches["render_stats"],
+         "max_abs_err": full["max_abs_diff"], "ms": ms["render_stats"],
+         "plain_ms": plain_s * 1e3, "bound_ms": bound_ms,
+         "bound_by": bound_by, "library_ms": None,
+         "form": "merged (merged_render_kernel<2>: csrc/merged.cuh TripStats)",
+         "baseline_ms": ms["render_stats_baseline"],
+         "baseline": "the per-thread stats kernel it replaced "
+                     "(render_kernel<1>), timed in turns with it",
+         "k1_ms": ms["render"],
+         "ptxas": usage.get("merged_render_kernel<2>", {}),
+         "vs_plain": {"tolerance": tol + "; image, rays and the five "
+                                         "counter planes equal to the "
+                                         "per-thread form's",
+                      "pixel_mismatch_frac_320x176": small_mismatch,
+                      "pixel_mismatch_frac_1280x720":
+                          a["pixel_mismatch_frac"],
+                      "tiles_differ": a["tiles_differ"],
+                      "warps_differ": a["warps_differ"],
+                      "equal_to_thread_form": forms_equal}},
+        {"name": "render_stats_baseline", "route": "cuda",
+         "source": "toypathtracer_torch/csrc/render.cu",
+         "replaces": "toypathtracer_tpu/ops/pallas_render.py:337",
+         "launches": occ_launches["render_stats_baseline"],
+         "max_abs_err": float((img_t - img_p).abs().max()),
+         "ms": ms["render_stats_baseline"], "plain_ms": plain_s * 1e3,
+         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+         "form": "thread (render_kernel<1>)",
+         "baseline": "the per-thread stats kernel, kept beside the merged "
+                     "one as its A/B and equality baseline; not on the main "
+                     "path",
+         "ptxas": usage.get("render_kernel<1>", {}),
+         "vs_plain": {"tolerance": "bit-equal to the merged form"}}]
 
 
 def probe_phases(smi):

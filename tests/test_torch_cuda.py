@@ -17,15 +17,20 @@ spheres; the replaying form measured on an H100 at 320x176: at most
 forms they measure.  Scaled kernels (n=3000, chunk
 256): the traversal K5 and the shadow bitmask K6 equal to their plain
 versions on all but 1e-5 of the rays, t within 1e-6 relative where the
-ids agree; the scaled render kernel at 64x32 with the render kernel's
-gates, and its warp-cooperative form bit-equal to the per-lane form at
-320x176 on the 100k-sphere scene; the stats instances' images bit-equal
-to the timed ones and their counts of the sphere tests the rays need
-within the rays gate of the plain
-version's.  Stats render kernel (K2):
-image and rays bit-equal to the render kernel's; per-pixel trip counts
-equal to the plain version's on all but 1e-4 of the pixels, tile and warp
-counters equal wherever their pixels' counts are.  Issue-rate probe (T1):
+ids agree; K6's cooperative form bit-equal to its per-thread form at
+several sizes and light counts, their counted instances bit-equal to the
+timed ones; the scaled render kernel
+at 64x32 with the render kernel's gates, and its warp-cooperative form
+bit-equal to the per-lane form at 320x176 on the 100k-sphere scene; the
+stats instances' images bit-equal to the timed ones and their counts of
+the sphere tests the rays need within the rays gate of the plain
+version's.  Stats render kernel (K2): image and rays bit-equal to the
+render kernel's; per-pixel trip counts equal to the plain version's on
+all but 1e-4 of the pixels, tile and warp counters equal wherever their
+pixels' counts are; its merged form's image and rays bit-equal to the
+merged K1's and its five counter planes equal to the per-thread form's
+(at 600 spheres, past that form's cap, to the plain version's).
+Issue-rate probe (T1):
 each case at 64 trips within 1e-6 relative of its plain version; the
 launch floor (T2) positive and finite.
 """
@@ -333,6 +338,64 @@ def test_shadow_chunks_kernel_matches_plain(card):
     assert 0 < float((want != 0).double().mean()) < 1
 
 
+def beacon_rays(scene, card, n, n_lights, seed):
+    """n shadow rays of K6's layout toward the scene's first n_lights
+    beacons from seeded origins over the field, t_l from each beacon's own
+    root."""
+    rng = np.random.default_rng(seed)
+    ro = tuple(torch.from_numpy(rng.uniform(lo, hi, n).astype(np.float32))
+               .to(card) for lo, hi in ((-30, 30), (0, 12), (-30, 30)))
+    lights = list(scene.emissive_ids)[:n_lights]
+    dirs, t_ls = [], []
+    for e in lights:
+        c = scene.center[e]
+        jitter = torch.from_numpy(rng.normal(0, 1.5, (3, n)).astype(
+            np.float32)).to(card)
+        dirs.append(tc.normalize3(tuple(c[a] - ro[a] + jitter[a]
+                                        for a in range(3))))
+        t_ls.append(tc.sphere_t(c[0], c[1], c[2], scene.radius[e] ** 2, ro,
+                                dirs[-1], 1e-3)[0])
+    return ro, dirs, t_ls, lights
+
+
+@pytest.mark.parametrize("n,n_lights", [(45, 8), (8192, 8), (20000, 3),
+                                        (4099, 1)])
+def test_coop_shadow_kernel_bit_equal_to_thread_kernel(card, n, n_lights):
+    """K6's cooperative form (the main path's) against the per-thread form
+    it replaced: bits equal; both counted instances bit-equal to their
+    timed forms, counting every pair, the per-thread form the plain
+    version's sphere tests within the rays gate; the launch counters show
+    which form ran."""
+    scene = make_scaled_scene(n=3000, chunk=256, extent=40.0).to(card)
+    ro, dirs, t_ls, lights = beacon_rays(scene, card, n, n_lights, n)
+    rows = pack_chunks(scene)
+    flat = tuple(x for l in dirs for x in l)
+    args = (rows, ro, flat, tuple(t_ls), 256, lights, 1e-3)
+    before = dict(cuda_scaled.launches)
+    bits = cuda_scaled.shadow_chunks(*args)
+    base = cuda_scaled.shadow_chunks_form(*args, "thread")
+    bits_c, st = cuda_scaled.shadow_chunks_form(*args, "coop", stats=True)
+    base_c, st_t = cuda_scaled.shadow_chunks_form(*args, "thread",
+                                                  stats=True)
+    want, _, spheres = ChunkTraversal(rows, 256).occlusion_bits(
+        ro, dirs, t_ls, lights, float(np.float32(1e-3)))
+    torch.cuda.synchronize()
+    after = {k: cuda_scaled.launches[k] - before[k] for k in before}
+    assert after == {"scaled_render": 0, "scaled_render_lane": 0,
+                     "scaled_render_stats": 0, "hit_chunks": 0,
+                     "shadow_chunks": 1, "shadow_chunks_baseline": 1,
+                     "shadow_chunks_counted": 2}
+    assert torch.equal(bits, base)
+    assert torch.equal(bits_c, bits) and torch.equal(base_c, base)
+    assert int((bits != want).sum()) <= 1e-5 * n
+    assert 0 < float((want != 0).double().mean()) < 1
+    need = int(spheres.sum())
+    assert abs(st_t["shadow"]["need"] - need) <= 5e-4 * need
+    assert 0 < st["shadow"]["need"] and 0 < st["shadow"]["slabs"]
+    assert 0 < st["shadow"]["simt_efficiency"] <= 1
+    assert st["shadow"]["lanes"] == st_t["shadow"]["lanes"] == n * n_lights
+
+
 def test_scaled_render_kernel_matches_plain(card):
     scene = make_scaled_scene(n=3000, chunk=256, extent=40.0).to(card)
     cfg = RenderConfig(width=64, height=32, samples_per_pixel=2, max_depth=4)
@@ -373,7 +436,8 @@ def test_scaled_render_forms_bit_equal(card, frame):
     after = {k: cuda_scaled.launches[k] - before[k] for k in before}
     assert after == {"scaled_render": 1, "scaled_render_lane": 1,
                      "scaled_render_stats": 0, "hit_chunks": 0,
-                     "shadow_chunks": 0}
+                     "shadow_chunks": 0, "shadow_chunks_baseline": 0,
+                     "shadow_chunks_counted": 0}
     assert torch.isfinite(img).all() and int(rays) > 176 * 320
 
 
@@ -434,6 +498,57 @@ def test_stats_kernel_matches_render_kernel_and_plain(card, kw):
             assert torch.equal(k, p)
         assert torch.equal(cnt.warp_iters, pcnt.warp_iters)
         assert torch.equal(cnt.warp_work, pcnt.warp_work)
+
+
+@pytest.mark.parametrize("case", ["16x128", "32x128_ppl2", "crowded_600"])
+def test_merged_stats_kernel_matches_thread_form(card, case):
+    """K2's merged form (the main path's): image and rays bit-equal to the
+    merged K1's, and the five counter planes equal to the per-thread form's
+    (render_kernel<1>) over the padded grid, frames 0-1; at 600 spheres,
+    past that form's cap, against the plain version with the K2 gates
+    (trip counts on all but 1e-3 of the pixels, the warp counters wherever
+    their pixels' counts agree).  The launch counters show which form
+    ran."""
+    kw = {"16x128": dict(tile_h=16, tile_w=128),
+          "32x128_ppl2": dict(tile_h=32, tile_w=128, pix_per_lane=2,
+                              merged_wavefront=True),
+          "crowded_600": dict(tile_h=16, tile_w=128)}[case]
+    scene = (crowded_scene(extra=554) if case == "crowded_600"
+             else make_scene(big=True)).to(card)
+    cfg = RenderConfig(width=100, height=40, samples_per_pixel=2,
+                       max_depth=6, **kw)
+    for frame in (0, 1):
+        before = dict(cuda_render.launches)
+        img, rays, cnt = cuda_render.render_tile_stats(scene, cfg, frame)
+        img1, rays1 = cuda_render.render_tile(scene, cfg, frame, 0, 0, 40,
+                                              100)
+        if case == "crowded_600":
+            _, _, ref = render_tile_stats_plain(scene, cfg, frame)
+        else:
+            img_t, rays_t, ref = cuda_render.render_tile_stats_form(
+                scene, cfg, frame, "thread")
+        torch.cuda.synchronize()
+        after = {k: cuda_render.launches[k] - before[k] for k in before}
+        assert after == {"render": 1, "render_baseline": 0,
+                         "render_counted": 0, "render_stats": 1,
+                         "render_stats_baseline": int(case != "crowded_600")}
+        assert torch.equal(img, img1) and int(rays) == int(rays1)
+        assert int(cnt.warp_iters.sum()) > 0
+        if case != "crowded_600":
+            assert torch.equal(img_t, img) and int(rays_t) == int(rays)
+            for got, want in zip(cnt, ref):
+                assert got.shape == want.shape and torch.equal(got, want)
+            continue
+        bad = torch.zeros_like(cnt.bounces, dtype=torch.bool)
+        for k, p in zip(cnt[:3], ref[:3]):
+            bad |= k != p
+        assert float(bad.double().mean()) <= 1e-3
+        wr, wc = cnt.warp_iters.shape
+        wbad = torch.zeros((2 * wr, 16 * wc), dtype=torch.bool, device=card)
+        wbad[:bad.shape[0], :bad.shape[1]] = bad
+        ok = ~wbad.reshape(wr, 2, wc, 16).any(3).any(1)
+        assert torch.equal(cnt.warp_iters[ok], ref.warp_iters[ok])
+        assert torch.equal(cnt.warp_work[ok], ref.warp_work[ok])
 
 
 @pytest.mark.parametrize("case", list(roofline.CASES))

@@ -20,7 +20,12 @@ sequential traversal's ids, t and bits, on those rays and on a chunk
 whose duplicated spheres force equal roots; the group boxes pass every
 ray that one of their chunks passes, on the 100k scene; and
 render_tiles_merged, under the one-lane warp policy, renders the per-lane
-form's image and rays bit for bit.
+form's image and rays bit for bit.  K6's cooperative routine
+(shadow_chunks_warp, coop_shadow_kernel's) gives occluded_chunks' bits
+exactly, in a one-lane warp and in a warp of 32 host threads
+(csrc/hostwarp.h), with its own threshold and with thresholds that force
+each branch of the walk: 8 lights, NaN and zero direction components, a
+NaN t_l, origins inside a light's chunk, a tail of 45 rays.
 """
 
 import ctypes
@@ -36,12 +41,17 @@ from toypathtracer_torch.camera import camera_to_array, make_camera
 from toypathtracer_torch.ops import _build, cuda_render
 from toypathtracer_torch.scaled import (ChunkTraversal, group_boxes,
                                         make_scaled_scene, pack_chunks,
-                                        render_tile_scaled_plain)
+                                        render_tile_scaled_plain,
+                                        shadow_index)
 
 torch.set_num_threads(1)
 
 HARNESS = r"""
+#include <thread>
+#include <vector>
+
 #include "coop.cuh"
+#include "hostwarp.h"
 
 static tpt::ChunkedView view(const float* rows, const float* box, int C,
                              int K) {
@@ -236,6 +246,61 @@ extern "C" void tpt_warp_occ_cpu(const float* rows, const float* box, int C,
   }
 }
 
+// K6's cooperative routine over n rays in a warp of `width` lanes (1: the
+// one-lane warp; 32: 32 host threads), box holding the chunk boxes in the
+// walk's order `order`, with the shadow walk's threshold
+// kShadowCoopMin (mode 0), 1 (mode 1: every entered chunk run by its
+// lanes' own loops) or 33 (mode 2: every one voted on by the warp).
+// Returns 0, or -1 if the warp stalled.
+template <int kMin>
+int coop_shadow(const tpt::CoopView& V, const int32_t* order,
+                const tpt::Sphere4* rec, const float* ro, const float* dirs,
+                const float* t_ls, const int32_t* ids, int n_l, int n,
+                float t_min, int32_t* out, int width) {
+  int next = 0;
+  if (width == 1) {
+    tpt::HostLane w;
+    tpt::NoCoopCount none;
+    tpt::shadow_chunks_warp<kMin>(w, V, order, rec, ro, dirs, t_ls, ids,
+                                  n_l, n, t_min, &next, out, none);
+    return 0;
+  }
+  tpt::Lanes lanes;
+  std::vector<std::thread> threads;
+  for (int l = 0; l < 32; ++l)
+    threads.emplace_back([&, l] {
+      tpt::ThreadWarp w{&lanes, l};
+      tpt::NoCoopCount none;
+      tpt::shadow_chunks_warp<kMin>(w, V, order, rec, ro, dirs, t_ls, ids,
+                                    n_l, n, t_min, &next, out, none);
+    });
+  for (auto& t : threads) t.join();
+  return lanes.broken ? -1 : 0;
+}
+
+extern "C" int tpt_coop_shadow_cpu(const float* rows, const int32_t* order,
+                                   const float* rec4, const float* box,
+                                   const float* gbox, int G, int C, int K,
+                                   const float* ro, const float* dirs,
+                                   const float* t_ls, const int32_t* ids,
+                                   int n_l, int n, float t_min, int32_t* out,
+                                   int width, int mode) {
+  tpt::CoopView V;
+  static_cast<tpt::ChunkedView&>(V) = view(rows, box, C, K);
+  V.gbox = gbox;
+  V.n_groups = G;
+  V.nee = nullptr;
+  const tpt::Sphere4* rec = reinterpret_cast<const tpt::Sphere4*>(rec4);
+  if (mode == 1)
+    return coop_shadow<1>(V, order, rec, ro, dirs, t_ls, ids, n_l, n, t_min,
+                          out, width);
+  if (mode == 2)
+    return coop_shadow<33>(V, order, rec, ro, dirs, t_ls, ids, n_l, n, t_min,
+                           out, width);
+  return coop_shadow<tpt::kShadowCoopMin>(V, order, rec, ro, dirs, t_ls, ids,
+                                          n_l, n, t_min, out, width);
+}
+
 // (ray, chunk) pairs where the chunk's slab test passes and its group's
 // fails (counts[0]), and where the chunk's passes (counts[1]), for rays
 // against (t_min, t1[i]).
@@ -270,10 +335,13 @@ def host_lib(tmp_path_factory):
     so = d / "libchunks_cpu.so"
     # -ffp-contract=off: no FMA contraction, as the CUDA build's -fmad=false
     subprocess.run([gxx, "-O2", "-shared", "-fPIC", "-std=c++17",
-                    "-ffp-contract=off", f"-I{_build.CSRC}", "-o", str(so),
-                    str(d / "host.cpp")], check=True)
+                    "-ffp-contract=off", "-pthread", f"-I{_build.CSRC}",
+                    "-o", str(so), str(d / "host.cpp")], check=True)
     lib = ctypes.CDLL(str(so))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.tpt_coop_shadow_cpu.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                        i32, ptr, ptr, ptr, ptr, i32, i32,
+                                        f32, ptr, i32, i32]
     lib.tpt_hit_cpu.argtypes = [ptr, ptr, i32, i32, ptr, ptr, i32, f32, f32,
                                 ptr, ptr]
     lib.tpt_occ_cpu.argtypes = [ptr, ptr, i32, i32, ptr, ptr, ptr, ptr, i32,
@@ -508,6 +576,100 @@ def test_warp_shadow_matches_sequential(host_lib):
     assert 0 < (want != 0).mean() < 1
 
 
+def k6_inputs(scene, n, seed=7):
+    """Shadow rays of K6's layout toward the scene's 8 beacons from seeded
+    origins over the field (half of them among its spheres, in some chunk's
+    box), directions jittered, t_l from each beacon's own root; then the
+    edge cases: ray 0's first direction has a NaN
+    component, ray 1's second is (0, 1, 0) and ray 2's third (-0.0, -1,
+    0.0) with exact zero components, ray 3's fourth t_l is NaN, ray 4's
+    origin is NaN, rays 5-12 start inside their light's chunk box (at the
+    beacon's center and beside it).  Returns origins (3, n), directions
+    (8, 3, n), t_l (8, n) and the light ids."""
+    from toypathtracer_torch.ops import tracecore as tc
+    rng = np.random.default_rng(seed)
+    ro = rng.uniform((-30, 0.0, -30), (30, 12, 30), (n, 3)).astype(
+        np.float32).T.copy()
+    ro[1, 1::2] *= np.float32(0.1)  # half of them in the chunks' boxes
+    c = scene.center.numpy()
+    r2 = scene.radius.numpy() ** 2
+    lights = list(scene.emissive_ids)
+    assert len(lights) == 8
+    for j, e in enumerate(lights):
+        ro[:, 5 + j] = c[e] + np.float32(0.3) * j
+    dirs, t_ls = [], []
+    for k, e in enumerate(lights):
+        d = (c[e][:, None] - ro + rng.normal(0, 1.5, (3, n))).astype(
+            np.float32)
+        d = d / np.sqrt(d[0] ** 2 + d[1] ** 2 + d[2] ** 2)
+        if k == 0:
+            d[1, 0] = np.nan
+        if k == 1:
+            d[:, 1] = (0.0, 1.0, 0.0)
+        if k == 2:
+            d[:, 2] = (-0.0, -1.0, 0.0)
+        dirs.append(d)
+        t_l, _ = tc.sphere_t(*(float(x) for x in c[e]), float(r2[e]),
+                             tuple(torch.from_numpy(ro)),
+                             tuple(torch.from_numpy(d)),
+                             float(np.float32(1e-3)))
+        t_l = t_l.numpy().copy()
+        if k == 3:
+            t_l[3] = np.nan
+        t_ls.append(t_l)
+    ro[0, 4] = np.nan
+    return (np.ascontiguousarray(ro), np.ascontiguousarray(np.stack(dirs)),
+            np.ascontiguousarray(np.stack(t_ls)), np.array(lights, np.int32))
+
+
+def coop_bits(lib, rows, ro, D, T, ids, width, mode):
+    """K6's cooperative routine's bits, with the scene's shadow_index as
+    ops/cuda_scaled passes it."""
+    n = ro.shape[1]
+    out = np.full(n, -1, np.int32)
+    index = shadow_index(torch.from_numpy(rows), 256)
+    order, rec, gbox = (t.numpy() for t in (index.order, index.rec,
+                                            index.gbox))
+    box = np.ascontiguousarray(rows[order, 4 * 256:4 * 256 + 6])
+    code = lib.tpt_coop_shadow_cpu(
+        c_ptr(rows), c_ptr(order), c_ptr(rec), c_ptr(box), c_ptr(gbox),
+        gbox.shape[0], rows.shape[0], 256, c_ptr(ro), c_ptr(D), c_ptr(T),
+        c_ptr(ids), len(ids), n, 1e-3, c_ptr(out), width, mode)
+    assert code == 0, "a 32-lane warp stalled at a collective"
+    return out
+
+
+COOP_SHADOW = {  # (warp width, rays, coop_shadow_cpu mode)
+    "one_lane-kShadowCoopMin": (1, 4096, 0),
+    "one_lane-own_loops": (1, 4096, 1),
+    "one_lane-votes": (1, 4096, 2),
+    "32_lanes_tail45-kShadowCoopMin": (32, 45, 0),
+    "32_lanes_tail45-own_loops": (32, 45, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(COOP_SHADOW))
+def test_coop_shadow_matches_occluded_chunks(host_lib, case):
+    """K6's cooperative routine against occluded_chunks (the per-thread
+    K6's code) on the 3072-sphere field with its 8 beacons: the same bits
+    for every ray and light, the edge cases included.  A warp of 32 host
+    threads takes 45 rays: a full batch, then a tail whose lanes past n
+    take part with no ray; with its own threshold the warp both votes and
+    runs its lanes' own loops (a forced all-votes walk runs in the one-lane
+    warp only: 32 host threads' collectives are slow here)."""
+    width, n, mode = COOP_SHADOW[case]
+    scene = make_scaled_scene(n=3000, chunk=256, extent=40.0)
+    rows, box = chunk_inputs(scene)
+    ro, D, T, ids = k6_inputs(scene, n)
+    want = occlusion_bits(host_lib.tpt_occ_cpu, rows, box, ro, D, T, ids)
+    got = coop_bits(host_lib, rows, ro, D, T, ids, width, mode)
+    np.testing.assert_array_equal(got, want)
+    # the NaN cases give 0 for their light; the rest are occluded often
+    # enough to test both answers
+    assert not want[0] & 1 and not want[3] & 8 and not want[4]
+    assert 0.05 < float(np.mean([(want >> k) & 1 for k in range(8)])) < 0.95
+
+
 def test_group_boxes_are_conservative(host_lib):
     """On the 100k scene (391 chunks, 25 groups, the last one partial) and
     131,072 seeded rays against a far and a near bound: no chunk's slab
@@ -541,6 +703,36 @@ def test_group_boxes_are_conservative(host_lib):
                                  c_ptr(counts))
     assert counts[0] == 0
     assert counts[1] > n
+
+
+def test_shadow_index_orders_chunks_with_tight_groups():
+    """scaled.shadow_index on the 100k scene: its order is a permutation of
+    the 391 chunks with the outsized boxes last (the beacons' chunk 0 and
+    the padded last one among them); its group boxes are group_boxes over
+    that order and far tighter than over the rows' own order; its records
+    are the rows' spheres, (cx, cy, cz, r^2) each."""
+    scene = make_scaled_scene(100_000)
+    rows = pack_chunks(scene)
+    K = scene.chunk
+    index = shadow_index(rows, K)
+    order = index.order.numpy()
+    assert index.order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(391))
+    box = rows[:, 4 * K:4 * K + 6].numpy()
+    extent = (box[:, 3:] - box[:, :3]).max(axis=1)
+    n_big = int((extent > 4 * np.median(extent)).sum())
+    assert n_big >= 2 and {0, 390} <= set(order[-n_big:].tolist())
+    assert (extent[order[-n_big:]] > 4 * np.median(extent)).all()
+    assert torch.equal(index.gbox, group_boxes(rows[index.order.long()], K))
+
+    def median_extent(g):
+        return float(np.median((g[:, 3:] - g[:, :3]).numpy().max(axis=1)))
+    assert median_extent(index.gbox) < 0.6 * median_extent(
+        group_boxes(rows, K))
+    rec = index.rec.numpy().reshape(391, K, 4)
+    for q in range(4):
+        np.testing.assert_array_equal(rec[:, :, q],
+                                      rows[:, q * K:(q + 1) * K].numpy())
 
 
 def render_host(lib, scene, cfg, frame, x0, y0, h, w):

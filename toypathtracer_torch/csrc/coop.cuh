@@ -32,6 +32,9 @@
 //      lane enters skips its children.  Rounding of (b - o) * inv is
 //      monotone in b, so a child box's slab interval lies inside its
 //      group's, and a child that passes has a group that passes.
+// The NEE occlusion kernel K6 (coop_shadow_kernel) runs the same walk on
+// its own rays: shadow_chunks_warp below, over a spatial order of the
+// chunks and with each light's chunk last.
 // The image and the ray count are bit-equal to the per-lane form: each
 // pixel's samples run in order on the same RNG state, whichever lane takes
 // it, each ray's arithmetic is the same, and each chunk's slab test sees
@@ -59,6 +62,9 @@ namespace tpt {
 // (the fastest of 16, 24 and 32 in this kernel's timings on an H100;
 // PERF.md).
 constexpr int kCoopMin = 24;
+// The same threshold for K6's rays (shadow_chunks_warp; the fastest of
+// 16, 20, 24, 28 and 32 in its timings on an H100, 28 and 32 alike).
+constexpr int kShadowCoopMin = 28;
 // Chunks under one group box.
 constexpr int kGroup = 16;
 
@@ -304,6 +310,177 @@ TPT_WARP bool coop_occluded(const W& w, const CoopView& V, bool part, V3 pos,
         }
       });
   return occ;
+}
+
+// K6's test of chunk c against the entering lanes m (their pairs' rays
+// pos + t l, t in (t_min, t_l), the light's sphere `light`, a global id
+// and the same for every lane, left out): as coop_occluded's, with the
+// overlap test written out in both loops.  Through sphere_overlaps or
+// first_overlap_in_chunk, or one helper on the 16-byte record shared by
+// the two loops (by value or by reference), K6 ran slower on an H100: the
+// helper 3.78 ms against 2.99 (PERF.md).
+// Many entering lanes run their own loops over the chunk, reading the same
+// sphere (a broadcast); few are decided one at a time by the whole warp,
+// two spheres a lane per step.  Sets occ for the lanes that find an
+// occluder.
+template <int kMin, class W, class Cnt>
+TPT_WARP void shadow_chunk_test(const W& w, const CoopView& V,
+                                const Sphere4* rec, int c, unsigned m,
+                                V3 pos, V3 l, int light, float t_min,
+                                float t_l, bool& occ, Cnt& cnt) {
+  const int K = V.chunk;
+  const int lane = w.lane();
+  const int base = c * K;
+  const Sphere4* r = rec + base;
+  if (popc(m) >= kMin) {
+    int tests = 0;
+    if ((m >> lane) & 1u) {
+      int j = K;
+      for (int q = 0; q < K; ++q) {
+        const Sphere4 sp = r[q];
+        const float cox = sp.x - pos.x;
+        const float coy = sp.y - pos.y;
+        const float coz = sp.z - pos.z;
+        const float cq = cox * cox + coy * coy + coz * coz - sp.r2;
+        const float nb = cox * l.x + coy * l.y + coz * l.z;
+        const float d = nb * nb - cq;
+        const float a = nb - t_min;
+        const float b = nb - t_l;
+        if (d > 0.0f && d > b * fabsf(b) && d > -(a * fabsf(a)) &&
+            base + q != light) {
+          j = q;
+          break;
+        }
+      }
+      occ = j < K;
+      tests = occ ? j + 1 : K;
+    }
+    if constexpr (Cnt::kOn) {
+      cnt.add(kStKind + kStTrips, w.reduce_max(tests));
+      cnt.add(kStKind + kStNeed, w.reduce_add(tests));
+    }
+    return;
+  }
+  const int WD = W::kWidth;
+  while (m) {
+    const int L = lowest(m);
+    m &= m - 1;
+    const V3 o = v3(w.shfl(pos.x, L), w.shfl(pos.y, L), w.shfl(pos.z, L));
+    const V3 d = v3(w.shfl(l.x, L), w.shfl(l.y, L), w.shfl(l.z, L));
+    const float tl = w.shfl(t_l, L);
+    auto hit = [&](int j) {
+      if (j >= K) return false;
+      const Sphere4 sp = r[j];
+      const float cox = sp.x - o.x;
+      const float coy = sp.y - o.y;
+      const float coz = sp.z - o.z;
+      const float cq = cox * cox + coy * coy + coz * coz - sp.r2;
+      const float nb = cox * d.x + coy * d.y + coz * d.z;
+      const float dd = nb * nb - cq;
+      const float a = nb - t_min;
+      const float b = nb - tl;
+      return dd > 0.0f && dd > b * fabsf(b) && dd > -(a * fabsf(a)) &&
+             base + j != light;
+    };
+    int first = K;
+    int s = 0;
+    for (; s * WD < K; s += 2) {
+      const unsigned h1 = w.ballot(hit(lane + WD * s));
+      const unsigned h2 = w.ballot(hit(lane + WD * (s + 1)));
+      if (h1 | h2) {
+        first = h1 ? s * WD + lowest(h1) : (s + 1) * WD + lowest(h2);
+        s += 1;
+        break;
+      }
+    }
+    if (first < K && lane == L) occ = true;
+    if constexpr (Cnt::kOn) {
+      cnt.add(kStKind + kStTrips, first < K ? s + 1 : s);
+      cnt.add(kStKind + kStNeed, first < K ? first + 1 : K);
+    }
+  }
+}
+
+// The NEE occlusion bitmask K6 (csrc/scaled.cu's coop_shadow_kernel) for
+// the warp: it takes batches of W::kWidth consecutive rays from the
+// launch-wide counter *next (zeroed by the caller), a ray a lane, and
+// decides each lane's ray against each light in turn; each lane ORs its
+// ray's bits and writes them once: bit k of out[i] set when a sphere other
+// than light_ids[k] (a global id) overlaps (t_min, t_ls[k]) along light
+// k's direction.  ro: (3, n); dirs: (n_lights, 3, n); t_ls: (n_lights, n);
+// out: (n,); rec: the spheres' (x, y, z, r^2) records, chunk by chunk.
+// Lanes past n take part in every collective with no ray.  A pair's
+// chunks are tested (shadow_chunk_test) by coop_occluded's walk
+// (walk_chunks) over the chunks in the order `order` (V.box holds their
+// boxes in that order, V.gbox the group boxes over it), which
+// scaled.shadow_index makes spatial so that the group boxes skip; but the
+// light's chunk comes last: the ray ends in the light's sphere, so it
+// enters that chunk whenever it gets that far, and a pair occluded before
+// never scans it.  The bits are occluded_chunks', since an OR over spheres
+// does not depend on the order the chunks are taken in.
+template <int kMin, class W, class Cnt>
+TPT_WARP void shadow_chunks_warp(const W& w, const CoopView& V,
+                                 const int32_t* order, const Sphere4* rec,
+                                 const float* ro, const float* dirs,
+                                 const float* t_ls, const int32_t* light_ids,
+                                 int n_lights, int n, float t_min, int* next,
+                                 int32_t* out, Cnt& cnt) {
+  const int WD = W::kWidth;
+  const int K = V.chunk;
+  const int n_batches = (n + WD - 1) / WD;
+  for (int b = w.grab(next); b < n_batches; b = w.grab(next)) {
+    const int i = b * WD + w.lane();
+    const bool valid = i < n;
+    V3 pos = v3(0.0f, 0.0f, 0.0f);
+    if (valid) pos = v3(ro[i], ro[n + i], ro[2 * n + i]);
+    int32_t bits = 0;
+    for (int k = 0; k < n_lights; ++k) {
+      V3 l = v3(0.0f, 0.0f, 0.0f);
+      float t_l = 0.0f;
+      if (valid) {
+        const float* d = dirs + static_cast<size_t>(3 * k) * n;
+        l = v3(d[i], d[n + i], d[2 * n + i]);
+        t_l = t_ls[static_cast<size_t>(k) * n + i];
+      }
+      const int light = light_ids[k];
+      const int last = light / K;
+      const V3 inv = v3(safe_inv(l.x), safe_inv(l.y), safe_inv(l.z));
+      const bool part = valid && !any_nan(pos) && !any_nan(inv) &&
+                        !is_nan(t_l);
+      if constexpr (Cnt::kOn) {
+        const unsigned pm = w.ballot(part);
+        if (pm) {
+          cnt.add(kStKind + kStCalls, 1);
+          cnt.add(kStKind + kStLanes, popc(pm));
+        }
+      }
+      bool occ = false;
+      walk_chunks(
+          w, V, pos, inv, t_min, [&] { return t_l; },
+          [&] { return part && !occ; }, cnt, kStKind,
+          [&](int c, unsigned m, const float*) {
+            if (order[c] != last)
+              shadow_chunk_test<kMin>(w, V, rec, order[c], m, pos, l, light,
+                                      t_min, t_l, occ, cnt);
+          });
+      // the light's chunk
+      const bool go = part && !occ;
+      if constexpr (Cnt::kOn) {
+        const unsigned gm = w.ballot(go);
+        if (gm) {
+          cnt.add(kStKind + kStBoxes, 1);
+          cnt.add(kStKind + kStSlabs, popc(gm));
+        }
+      }
+      const unsigned m = w.ballot(
+          go && slab(V.chunk_row(last) + 4 * K, pos, inv, t_min, t_l));
+      if (m)
+        shadow_chunk_test<kMin>(w, V, rec, last, m, pos, l, light, t_min,
+                                t_l, occ, cnt);
+      if (occ) bits |= 1 << k;
+    }
+    if (valid) out[i] = bits;
+  }
 }
 
 // Words of per-warp scratch nee_warp keeps for n_lights lights and a warp

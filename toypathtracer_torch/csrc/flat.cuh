@@ -38,12 +38,6 @@
 
 namespace tpt {
 
-// A sphere's center and squared radius, rows ROW_CX..ROW_SQR of the packed
-// table (ops/cuda_render.pack_records).
-struct alignas(16) Sphere4 {
-  float x, y, z, r2;
-};
-
 // The flat scene as the merged kernel reads it: SceneView's table, plus
 // the sphere records and this warp's NEE scratch.
 struct FlatView : SceneView {

@@ -42,6 +42,7 @@
 #include <cuda_runtime.h>
 
 #include "gradwarp.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -331,22 +332,14 @@ dim3 grid_of(const tpt::RenderParams* p) {
               (p->height + kBlockY - 1) / kBlockY);
 }
 
-// Dynamic shared memory above the default 48 KB needs the kernel's opt-in.
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 // Blocks of the warp form: as many as fit on the card at once (the timed
 // instance's occupancy, so that the stats instance deals the same tiles to
 // the same warps), or as the tiles need.
 cudaError_t warp_grid(const tpt::RenderParams* p, int* blocks) {
   const size_t smem = warp_smem(p);
-  cudaError_t err = allow_smem(warp_grad_kernel<false>, smem);
-  if (err == cudaSuccess) err = allow_smem(warp_grad_kernel<true>, smem);
+  cudaError_t err = tpt::allow_smem(warp_grad_kernel<false>, smem);
+  if (err == cudaSuccess)
+    err = tpt::allow_smem(warp_grad_kernel<true>, smem);
   int dev = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)

@@ -21,7 +21,9 @@
 // The collectives come from a warp policy W (csrc/warp.cuh): DeviceWarp on
 // the card, and HostLane or a warp of host threads for the g++ tests.
 // Counters (kOn false compiles to nothing) report the work: the kSt* slots
-// below.
+// below.  A counter with kTrips set (TripStats, the stats render kernel
+// K2's) makes the loop walk a padded pixel grid and report each pixel's
+// samples; kTrips false compiles to the loop without it.
 
 #pragma once
 
@@ -51,6 +53,7 @@ enum {
 // The counter the timed kernels pass.
 struct NoCoopCount {
   static constexpr bool kOn = false;
+  static constexpr bool kTrips = false;
   TPT_HD void add(int, unsigned long long) {}
 };
 
@@ -59,6 +62,7 @@ struct NoCoopCount {
 // keeps them.
 struct LoopStats {
   static constexpr bool kOn = true;
+  static constexpr bool kTrips = false;
   unsigned long long v[kStSlots] = {};
   bool lead;
   __device__ explicit LoopStats(int tid) : lead((tid & 31) == 0) {}
@@ -80,6 +84,65 @@ __device__ __forceinline__ void flush_loop_stats(
   }
 }
 #endif
+
+TPT_HD void atomic_max_i32(int32_t* p, int32_t v) {
+#ifdef __CUDA_ARCH__
+  atomicMax(p, v);
+#else
+  int32_t cur = __atomic_load_n(p, __ATOMIC_RELAXED);
+  while (cur < v && !__atomic_compare_exchange_n(p, &cur, v, true,
+                                                 __ATOMIC_RELAXED,
+                                                 __ATOMIC_RELAXED)) {
+  }
+#endif
+}
+
+TPT_HD void atomic_add_i32(int32_t* p, int32_t v) {
+#ifdef __CUDA_ARCH__
+  atomicAdd(p, v);
+#else
+  __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
+#endif
+}
+
+// The stats render kernel's counter (K2, csrc/render.cu's
+// merged_render_kernel<2>): the loop walks the (grid_h, grid_w) padded tile
+// grid, and a pixel outside the image is traced for its counts only (no
+// image write, no rays).  Per pixel of the grid it writes render_pixel's
+// tpt::Trips to trips (3, grid_h, grid_w); per 16x2-pixel warp unit of
+// the per-thread kernel's layout (row py / 2, column px / 16, wc columns)
+// it adds the image pixels' bounces to work (rows, wc) and keeps each
+// sample's deepest image pixel in depth (rows, wc, spp), which the wrapper
+// sums over samples into the per-thread kernel's warp_iters.  Both are
+// zeroed by the caller and exact whatever the order of the lanes' samples.
+// One per lane: it holds the lane's pixel's trips.
+struct TripStats {
+  static constexpr bool kOn = false;
+  static constexpr bool kTrips = true;
+  int grid_h, grid_w, wc, spp;
+  int32_t* trips;
+  int32_t* work;
+  int32_t* depth;
+  Trips t;
+  TPT_HD void add(int, unsigned long long) {}
+  TPT_HD int unit(int px, int py) const { return (py / 2) * wc + px / 16; }
+  // sample s of pixel (px, py) ended after d bounces, cut by the depth
+  // cutoff or not
+  TPT_HD void sample(int px, int py, int s, int d, bool cut, bool image) {
+    t.sample(d, cut);
+    if (image && d > 0) atomic_max_i32(depth + unit(px, py) * spp + s, d);
+  }
+  // the pixel's samples are done
+  TPT_HD void pixel(int px, int py, bool image) {
+    const size_t plane = static_cast<size_t>(grid_h) * grid_w;
+    const size_t i = static_cast<size_t>(py) * grid_w + px;
+    trips[i] = t.bounces;
+    trips[plane + i] = t.cutoffs;
+    trips[2 * plane + i] = t.last_cutoff;
+    if (image && t.bounces) atomic_add_i32(work + unit(px, py), t.bounces);
+    t = Trips();
+  }
+};
 
 // One bounce of a lane's ray when busy (trace.cuh bounce, with vis true and
 // the view's warp traversals): every lane calls it; lanes that are not busy
@@ -154,7 +217,9 @@ TPT_WARP bool bounce_merged(const W& w, const View& S, const RenderParams& p,
 // to out (height, width, 3) and takes the next pixel of the warp's tile, or
 // of a new tile, so that the warp's lanes stay busy until the tiles run
 // out; a lane with no pixel left only takes part in the collectives.
-// Returns the rays of this lane's pixels.
+// Returns the rays of this lane's pixels.  With a kTrips counter the tiles
+// cover its (grid_h, grid_w) grid instead, and only the image's pixels
+// write and count rays.
 template <class W, class View, class Cnt>
 TPT_WARP unsigned long long render_tiles_merged(const W& w, const View& S,
                                                 const float* cam,
@@ -163,8 +228,13 @@ TPT_WARP unsigned long long render_tiles_merged(const W& w, const View& S,
                                                 Cnt& cnt) {
   const int TW = W::kTileW;
   const int TP = W::kTileW * W::kTileH;
-  const int tiles_x = (p.width + TW - 1) / TW;
-  const int n_tiles = tiles_x * ((p.height + W::kTileH - 1) / W::kTileH);
+  int span_h = p.height, span_w = p.width;
+  if constexpr (Cnt::kTrips) {
+    span_h = cnt.grid_h;
+    span_w = cnt.grid_w;
+  }
+  const int tiles_x = (span_w + TW - 1) / TW;
+  const int n_tiles = tiles_x * ((span_h + W::kTileH - 1) / W::kTileH);
   const int lane = w.lane();
   int tile = 0;
   int cursor = TP;  // the next pixel of `tile` to hand out
@@ -195,7 +265,7 @@ TPT_WARP unsigned long long render_tiles_merged(const W& w, const View& S,
         const int i = cursor + rank;
         px = (tile % tiles_x) * TW + i % TW;
         py = (tile / tiles_x) * W::kTileH + i / TW;
-        if (px < p.width && py < p.height) {  // else: ask again
+        if (px < span_w && py < span_h) {  // else: ask again
           has = true;
           st = seed_pixel((uint32_t)(p.x0 + px), (uint32_t)(p.y0 + py),
                           p.frame);
@@ -232,12 +302,20 @@ TPT_WARP unsigned long long render_tiles_merged(const W& w, const View& S,
       } else {
         sum = add(sum, col);
         busy = false;
+        bool image = true;
+        if constexpr (Cnt::kTrips) {
+          image = px < p.width && py < p.height;
+          cnt.sample(px, py, p.spp - 1 - left, depth, go, image);
+        }
         if (left == 0) {  // the pixel is done
-          float* o = out + (static_cast<size_t>(py) * p.width + px) * 3;
-          o[0] = sum.x * p.inv_spp;
-          o[1] = sum.y * p.inv_spp;
-          o[2] = sum.z * p.inv_spp;
-          total += rays;
+          if (image) {
+            float* o = out + (static_cast<size_t>(py) * p.width + px) * 3;
+            o[0] = sum.x * p.inv_spp;
+            o[1] = sum.y * p.inv_spp;
+            o[2] = sum.z * p.inv_spp;
+            total += rays;
+          }
+          if constexpr (Cnt::kTrips) cnt.pixel(px, py, image);
           has = false;
         }
       }

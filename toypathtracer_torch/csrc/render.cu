@@ -4,7 +4,7 @@
 // render kernel K2 (render_frame_pallas_stats, :337), which adds the
 // occupancy counters, and their instruments.
 //
-// K1 on the main path is merged_render_kernel: persistent 128-thread
+// K1 on the main path is merged_render_kernel<0>: persistent 128-thread
 // blocks whose warps take 16x2-pixel tiles from a launch-wide counter and
 // run the merged path loop of csrc/merged.cuh with the flat scene's
 // traversals of csrc/flat.cuh, a lane a pixel at a time.  Each block
@@ -12,8 +12,8 @@
 // emissive ids in shared memory when the scene has at most kMaxSpheres
 // spheres, and reads them from device memory otherwise; the camera and
 // each warp's NEE scratch are always in shared memory.  Its counted
-// instance (kCount) adds the loop's iterations, busy lanes and cycles by
-// part (merged.cuh kSt*).  K4 (ops/cuda_grad.render_tile_lockstep) launches
+// instance (merged_render_kernel<1>) adds the loop's iterations, busy lanes
+// and cycles by part (merged.cuh kSt*).  K4 (ops/cuda_grad.render_tile_lockstep) launches
 // the same kernel.
 //
 // render_kernel<0> is the per-thread kernel it replaced, kept as the
@@ -29,31 +29,38 @@
 // Bound: FP32 ALU work (sphere tests x rays); memory traffic is the image
 // write alone.
 //
-// K2 is render_kernel<1>, launched over the frame padded to the TPU's tile
-// grid.  The TPU kernel counts, per tile,
-// the trips of its persistent wavefront loop and the live lanes of each
-// trip; those follow exactly from three trip counts per pixel (tpt::Trips:
-// bounces, depth-cutoff samples, whether the last sample was one), which
-// this kernel writes per pixel as int32 and ops/cuda_render.tile_counters
-// turns into the TPU's (iters, work).  Pixels of the padded grid outside
-// the image are rendered for their counts only: they write no image and
-// count no rays.  The kernel also counts its own warps, the GPU's form of
-// the occupancy counter: per sample, the warp's bounce loop runs as long as
-// its deepest lane (__reduce_max_sync of the depths, summed over samples:
-// the warp's trips if it reconverges after each sample), and its work is
-// the lanes' bounces summed (__reduce_add_sync); pixels outside the image
-// count 0, as render_kernel<0>'s idle threads do.  So sum(work) / (32
-// sum(iters)) is that kernel's warp work efficiency, measured by the kernel
-// itself.  Its bound is K1's FP32 work plus two warp reductions per
-// sample.  Triton does not serve here: the kernels share the per-pixel code
-// of trace.cuh.
+// K2, the stats render kernel, runs over the frame padded to the TPU's
+// tile grid.  The TPU kernel counts, per tile, the trips of its persistent
+// wavefront loop and the live lanes of each trip; those follow exactly from
+// three trip counts per pixel (tpt::Trips: bounces, depth-cutoff samples,
+// whether the last sample was one), which K2 writes per pixel as int32 and
+// ops/cuda_render.tile_counters turns into the TPU's (iters, work).  Pixels
+// of the padded grid outside the image are traced for their counts only:
+// they write no image and count no rays.  K2 also counts the warps of the
+// per-thread layout (render_kernel<0>: 16x2 pixels a warp), the GPU's form
+// of the occupancy counter: per sample, that warp's bounce loop runs as
+// long as its deepest lane (summed over samples: the warp's trips if it
+// reconverges after each sample), and its work is the lanes' bounces
+// summed; pixels outside the image count 0, as render_kernel<0>'s idle
+// threads do.  So sum(work) / (32 sum(iters)) is the per-thread kernel's
+// warp work efficiency.
+//
+// K2 on the main path is merged_render_kernel<2>: K1's merged kernel with
+// the counter policy merged.cuh TripStats, which walks the padded grid and
+// writes each pixel's trips.  Its lanes run a 16x2 unit's samples at
+// different times, so the per-sample maximum is an atomicMax into a (unit,
+// sample) scratch that the wrapper sums over samples, and the work an
+// atomicAdd per pixel: exact whatever the order.  render_kernel<1> is the
+// per-thread kernel it replaced (K1's per-thread kernel with the counts,
+// the warp's reductions __reduce_max_sync / __reduce_add_sync at each
+// sample's end), kept as its baseline.  The bound is K1's FP32 work plus
+// the counters.  Triton does not serve here: the kernels share the
+// per-pixel code of trace.cuh.
 
 #include <cuda_runtime.h>
 
-#include <mutex>
-#include <vector>
-
 #include "flat.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -332,11 +339,29 @@ size_t merged_floats(const tpt::RenderParams* p, bool staged) {
                                                                 32));
 }
 
-// K1 (csrc/flat.cuh, merged.cuh).  sph: the (n, 4) sphere records in
-// device memory; staged: copy them, the table, the material and emissive
-// ids into shared memory first.  next_tile: one int zeroed by the caller.
-// kCount: the counted instance, adding kStSlots totals to `stats`.
-template <bool kCount>
+// The merged kernel's instances: the timed K1, its counted instance
+// (merged.cuh LoopStats, adding kStSlots totals to MergedOut::stats), and
+// K2's stats instance (merged.cuh TripStats over the MergedOut grid).
+enum { kMergedTimed = 0, kMergedCounted = 1, kMergedStats = 2 };
+
+// What an instance writes besides the image and the rays: the counted
+// instance's totals; the stats instance's padded (grid_h, grid_w) tile
+// grid, trips (3, grid_h, grid_w) written in full, work (wr, wc) and depth
+// (wr, wc, spp), wc = ceil(grid_w / 16), zeroed by the caller.
+struct MergedOut {
+  unsigned long long* stats;
+  int grid_h, grid_w;
+  int32_t* trips;
+  int32_t* work;
+  int32_t* depth;
+};
+
+// K1 (csrc/flat.cuh, merged.cuh) and its instances (kMode).  sph: the (n,
+// 4) sphere records in device memory; staged: copy them, the table, the
+// material and emissive ids into shared memory first.  next_tile: one int
+// zeroed by the caller.  The stats instance walks x's padded grid of the
+// (p.height, p.width) image; its image and rays are K1's, bit for bit.
+template <int kMode>
 __global__ void __launch_bounds__(kMergedThreads, kMergedBlocks)
 merged_render_kernel(const float* __restrict__ tab,
                      const tpt::Sphere4* __restrict__ sph,
@@ -345,8 +370,7 @@ merged_render_kernel(const float* __restrict__ tab,
                      const float* __restrict__ cam, tpt::RenderParams p,
                      int staged, float* __restrict__ out,
                      unsigned long long* __restrict__ rays,
-                     int* __restrict__ next_tile,
-                     unsigned long long* __restrict__ stats) {
+                     int* __restrict__ next_tile, MergedOut x) {
   extern __shared__ float4 smem4[];
   __shared__ unsigned long long warp_rays[kMergedWarps];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -365,10 +389,20 @@ merged_render_kernel(const float* __restrict__ tab,
     S.nee = s_cam + tpt::kCameraFloats +
             (tid >> 5) * tpt::flat_nee_words(p.n_lights, 32);
     __syncthreads();
-    if constexpr (kCount) {
+    if constexpr (kMode == kMergedCounted) {
       tpt::LoopStats cs(tid);
       count = tpt::render_tiles_merged(w, S, s_cam, p, next_tile, out, cs);
-      tpt::flush_loop_stats(cs.v, stats, tid);
+      tpt::flush_loop_stats(cs.v, x.stats, tid);
+    } else if constexpr (kMode == kMergedStats) {
+      tpt::TripStats ts;
+      ts.grid_h = x.grid_h;
+      ts.grid_w = x.grid_w;
+      ts.wc = (x.grid_w + 15) / 16;
+      ts.spp = p.spp;
+      ts.trips = x.trips;
+      ts.work = x.work;
+      ts.depth = x.depth;
+      count = tpt::render_tiles_merged(w, S, s_cam, p, next_tile, out, ts);
     } else {
       tpt::NoCoopCount none;
       count = tpt::render_tiles_merged(w, S, s_cam, p, next_tile, out, none);
@@ -416,50 +450,34 @@ size_t smem_bytes(const tpt::RenderParams* p) {
          sizeof(float) * tpt::kCameraFloats;
 }
 
-// Dynamic shared memory above the default 48 KB needs the kernel's opt-in.
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-// As many blocks of the merged kernel as fit on the current device at once
-// with `smem` bytes of dynamic shared memory (the timed instance's
-// occupancy, so that the counted instance deals tiles as it does).  The
-// shared-memory opt-in of both instances and the occupancy query run once
-// for each device and size; later launches read the cache.
-cudaError_t merged_capacity(size_t smem, int* capacity) {
-  struct Entry {
-    int dev;
-    size_t smem;
-    int capacity;
-  };
-  static std::mutex lock;
-  static std::vector<Entry> cache;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+// A merged instance's launch over the (h, w) pixel span of p in 16x2
+// tiles: as many blocks as the tiles need, at most as many of the timed
+// instance as fit on the card at once (the others deal tiles as it does).
+template <int kMode>
+cudaError_t launch_merged(const float* tab, const tpt::Sphere4* sph,
+                          const int32_t* mat, const int32_t* lights,
+                          const float* cam, const tpt::RenderParams* p,
+                          int h, int w, float* out, unsigned long long* rays,
+                          int* next_tile, const MergedOut& x, void* stream) {
+  const bool staged = p->n_spheres <= tpt::kMaxSpheres;
+  const size_t smem = sizeof(float) * merged_floats(p, staged);
+  int capacity = 0;
+  const cudaError_t err = tpt::cached_capacity(
+      kMergedThreads, smem, &capacity, merged_render_kernel<kMergedTimed>,
+      merged_render_kernel<kMergedCounted>,
+      merged_render_kernel<kMergedStats>);
   if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> guard(lock);
-  for (const Entry& e : cache)
-    if (e.dev == dev && e.smem == smem) {
-      *capacity = e.capacity;
-      return cudaSuccess;
-    }
-  int sms = 0, per_sm = 0;
-  err = allow_smem(merged_render_kernel<false>, smem);
-  if (err == cudaSuccess) err = allow_smem(merged_render_kernel<true>, smem);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, merged_render_kernel<false>, kMergedThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  cache.push_back({dev, smem, sms * per_sm});
-  *capacity = sms * per_sm;
-  return cudaSuccess;
+  const int tiles = ((w + tpt::DeviceWarp::kTileW - 1) /
+                     tpt::DeviceWarp::kTileW) *
+                    ((h + tpt::DeviceWarp::kTileH - 1) /
+                     tpt::DeviceWarp::kTileH);
+  const int need = (tiles + kMergedWarps - 1) / kMergedWarps;
+  merged_render_kernel<kMode><<<need < capacity ? need : capacity,
+                                kMergedThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      tab, sph, mat, lights, cam, *p, staged ? 1 : 0, out, rays, next_tile,
+      x);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -479,23 +497,35 @@ int tpt_render_launch(const float* tab, const tpt::Sphere4* sph,
                       unsigned long long* stats, void* stream) {
   if (bad_params(p) || !next_tile)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool staged = p->n_spheres <= tpt::kMaxSpheres;
-  const size_t smem = sizeof(float) * merged_floats(p, staged);
-  auto kernel = stats ? merged_render_kernel<true>
-                      : merged_render_kernel<false>;
-  int capacity = 0;
-  const cudaError_t err = merged_capacity(smem, &capacity);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = ((p->width + tpt::DeviceWarp::kTileW - 1) /
-                     tpt::DeviceWarp::kTileW) *
-                    ((p->height + tpt::DeviceWarp::kTileH - 1) /
-                     tpt::DeviceWarp::kTileH);
-  const int need = (tiles + kMergedWarps - 1) / kMergedWarps;
-  const int blocks = need < capacity ? need : capacity;
-  kernel<<<blocks, kMergedThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      tab, sph, mat, lights, cam, *p, staged ? 1 : 0, out, rays, next_tile,
-      stats);
-  return static_cast<int>(cudaGetLastError());
+  MergedOut x{};
+  x.stats = stats;
+  auto launch = stats ? launch_merged<kMergedCounted>
+                      : launch_merged<kMergedTimed>;
+  return static_cast<int>(launch(tab, sph, mat, lights, cam, p, p->height,
+                                 p->width, out, rays, next_tile, x, stream));
+}
+
+// The stats render kernel K2 on the merged loop (merged_render_kernel<2>)
+// over the (grid_h, grid_w) padded tile grid of the (p->height, p->width)
+// image: inputs, image, `rays` and next_tile as for tpt_render_launch;
+// `trips` (3, grid_h, grid_w) int32 written in full; `work` (4 *
+// ceil(grid_h / 8), ceil(grid_w / 16)) and `depth` (the same, times p->spp)
+// int32, zeroed by the caller (merged.cuh TripStats).
+int tpt_render_stats_merged_launch(const float* tab, const tpt::Sphere4* sph,
+                                   const int32_t* mat, const int32_t* lights,
+                                   const float* cam,
+                                   const tpt::RenderParams* p, float* out,
+                                   unsigned long long* rays, int* next_tile,
+                                   int grid_h, int grid_w, int32_t* trips,
+                                   int32_t* work, int32_t* depth,
+                                   void* stream) {
+  if (bad_params(p) || !next_tile || grid_h < p->height ||
+      grid_w < p->width || p->x0 != 0 || p->y0 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const MergedOut x{nullptr, grid_h, grid_w, trips, work, depth};
+  return static_cast<int>(launch_merged<kMergedStats>(
+      tab, sph, mat, lights, cam, p, grid_h, grid_w, out, rays, next_tile, x,
+      stream));
 }
 
 // The per-thread kernel K1 replaced (render_kernel<0>), or with parts
@@ -520,10 +550,11 @@ int tpt_render_thread_launch(const float* tab, const int32_t* mat,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The stats render kernel (K2) over the (grid_h, grid_w) padded tile grid
-// of the (p->height, p->width) image: `trips` is (3, grid_h, grid_w) int32
-// and `warps` (2, 4 * ceil(grid_h / 8), ceil(grid_w / 16)) int32, both
-// written in full; `rays` as for tpt_render_launch.
+// The per-thread stats render kernel (render_kernel<1>, K2's baseline) over
+// the (grid_h, grid_w) padded tile grid of the (p->height, p->width) image:
+// `trips` is (3, grid_h, grid_w) int32 and `warps` (2, 4 * ceil(grid_h /
+// 8), ceil(grid_w / 16)) int32, both written in full; `rays` as for
+// tpt_render_launch; at most kMaxSpheres spheres and kMaxLights lights.
 int tpt_render_stats_launch(const float* tab, const int32_t* mat,
                             const int32_t* lights, const float* cam,
                             const tpt::RenderParams* p, float* out,

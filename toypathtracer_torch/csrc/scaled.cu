@@ -1,14 +1,14 @@
 // The scaled scene's kernels for NVIDIA Hopper (sm_90a): the chunk
-// traversal K5, the fused shadow test K6, and the scaled render kernel in
-// two forms.
+// traversal K5, the fused shadow test K6 in two forms, and the scaled
+// render kernel in two forms.
 //
 // K5 hit_chunks_kernel replaces toypathtracer_tpu/ops/scaled_pallas.py::
-// _hit_kernel, K6 shadow_chunks_kernel replaces ::_shadow_kernel (bit k of
-// a ray's mask = light k occluded), and the scaled render kernel replaces
-// the whole of toypathtracer_tpu/scaled.py::_render_frame_scaled_pallas,
-// the jnp wavefront that calls K5 and K6 once per bounce: a frame is one
-// launch and the traversal is inlined into the path loop.  On a GPU the
-// per-bounce glue between kernel calls would be the cost.
+// _hit_kernel, K6 replaces ::_shadow_kernel (bit k of a ray's mask = light
+// k occluded), and the scaled render kernel replaces the whole of
+// toypathtracer_tpu/scaled.py::_render_frame_scaled_pallas, the jnp
+// wavefront that calls K5 and K6 once per bounce: a frame is one launch and
+// the traversal is inlined into the path loop.  On a GPU the per-bounce
+// glue between kernel calls would be the cost.
 //
 // The render kernel on the main path is coop_render_kernel: persistent
 // 128-thread blocks whose warps take 16x2-pixel tiles and run the merged
@@ -25,14 +25,24 @@
 // that also counts the traversal's work per warp (merged.cuh kSt*): the
 // sphere-loop trips the warp ran against the sphere tests its lanes needed.
 //
-// One thread per ray (K5, K6; 128-thread blocks) or per pixel (the
-// per-lane render kernel; 16x8 blocks; the ray count reduced as
-// csrc/render.cu does, in both render kernels).  Each
-// block stages the chunk AABBs (24 bytes a chunk: 9.4 KB at 100k spheres in
-// 391 chunks), and the render kernels also the emissive ids and the camera,
-// the cooperative one the group boxes too, in shared memory.  Sphere data
-// is read from device memory (the 14-row table, 5.6 MB at 100k spheres, and
-// the pack_chunks rows, 1.6 MB, sit in the 50 MB L2).
+// K6 on the main path is coop_shadow_kernel, for the same reason:
+// persistent 128-thread blocks whose warps take 32 consecutive rays and
+// decide each light's pairs with coop.cuh's walk (the group boxes, the
+// ballot skip, the whole warp voting on one ray where few lanes enter a
+// chunk).  shadow_chunks_kernel is the per-thread form it replaced (a
+// thread a ray, every chunk box for each light, and the warp runs a
+// chunk's sphere loop whenever any lane entered it), kept as the baseline
+// it is held bit-equal to and timed against.  Both have counted
+// instances.
+//
+// One thread per ray (K5, K6's baseline; 128-thread blocks) or per pixel
+// (the per-lane render kernel; 16x8 blocks; the ray count reduced as
+// csrc/render.cu does, in both render kernels).  Each block stages the
+// chunk AABBs (24 bytes a chunk: 9.4 KB at 100k spheres in 391 chunks),
+// and the render kernels also the emissive ids and the camera, the
+// cooperative kernels the group boxes too, in shared memory.  Sphere data
+// is read from device memory (the 14-row table, 5.6 MB at 100k spheres,
+// and the pack_chunks rows, 1.6 MB, sit in the 50 MB L2).
 //
 // Bound: FP32 ALU work, ~12 operations per chunk slab test and ~19-20 per
 // sphere test in the chunks a ray enters, against a few MB of scene data
@@ -41,6 +51,7 @@
 #include <cuda_runtime.h>
 
 #include "coop.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -90,32 +101,6 @@ hit_chunks_kernel(const float* __restrict__ rows, int n_chunks, int chunk,
   out_t[i] = t;
 }
 
-// ro: (3, n); dirs: (n_lights, 3, n); t_ls: (n_lights, n); out: (n,) bits.
-__global__ void __launch_bounds__(kRayThreads)
-shadow_chunks_kernel(const float* __restrict__ rows, int n_chunks, int chunk,
-                     const float* __restrict__ ro,
-                     const float* __restrict__ dirs,
-                     const float* __restrict__ t_ls,
-                     const int32_t* __restrict__ light_ids, int n_lights,
-                     int n, float t_min, int32_t* __restrict__ out) {
-  extern __shared__ float s_box[];
-  stage_boxes(rows, n_chunks, chunk, s_box, threadIdx.x, blockDim.x);
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const tpt::ChunkedView V = rows_view(rows, s_box, n_chunks, chunk);
-  const tpt::V3 pos = tpt::v3(ro[i], ro[n + i], ro[2 * n + i]);
-  int32_t bits = 0;
-  for (int k = 0; k < n_lights; ++k) {
-    const float* d = dirs + static_cast<size_t>(3 * k) * n;
-    if (tpt::occluded_chunks(V, pos, tpt::v3(d[i], d[n + i], d[2 * n + i]),
-                             light_ids[k], t_min,
-                             t_ls[static_cast<size_t>(k) * n + i]))
-      bits |= 1 << k;
-  }
-  out[i] = bits;
-}
-
 constexpr unsigned kFull = 0xffffffffu;
 
 // The per-lane form's counter: the lanes that run a traversal step
@@ -152,6 +137,99 @@ struct LaneStats {
 #endif
   }
 };
+
+// K6's per-thread form (the baseline): one thread a ray, occluded_chunks
+// per light.  ro: (3, n); dirs: (n_lights, 3, n); t_ls: (n_lights, n);
+// out: (n,) bits.  kStats: its counted instance, adding the traversals'
+// LaneStats (kStSlots totals) to `stats`.
+template <bool kStats>
+__global__ void __launch_bounds__(kRayThreads)
+shadow_chunks_kernel(const float* __restrict__ rows, int n_chunks, int chunk,
+                     const float* __restrict__ ro,
+                     const float* __restrict__ dirs,
+                     const float* __restrict__ t_ls,
+                     const int32_t* __restrict__ light_ids, int n_lights,
+                     int n, float t_min, int32_t* __restrict__ out,
+                     unsigned long long* __restrict__ stats) {
+  extern __shared__ float s_box[];
+  stage_boxes(rows, n_chunks, chunk, s_box, threadIdx.x, blockDim.x);
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const tpt::ChunkedView V = rows_view(rows, s_box, n_chunks, chunk);
+  auto bits_of = [&](auto& cnt) {
+    const tpt::V3 pos = tpt::v3(ro[i], ro[n + i], ro[2 * n + i]);
+    int32_t bits = 0;
+    for (int k = 0; k < n_lights; ++k) {
+      const float* d = dirs + static_cast<size_t>(3 * k) * n;
+      if (tpt::occluded_chunks(V, pos, tpt::v3(d[i], d[n + i], d[2 * n + i]),
+                               light_ids[k], t_min,
+                               t_ls[static_cast<size_t>(k) * n + i], cnt))
+        bits |= 1 << k;
+    }
+    return bits;
+  };
+  if constexpr (kStats) {
+    // every lane reaches the flush's full-warp shuffles
+    LaneStats ls(threadIdx.x);
+    if (i < n) out[i] = bits_of(ls);
+    tpt::flush_loop_stats(ls.v, stats, threadIdx.x);
+  } else if (i < n) {
+    tpt::NoChunkCount none;
+    out[i] = bits_of(none);
+  }
+}
+
+// K6 on the main path: persistent 128-thread blocks whose warps take 32
+// consecutive rays at a time from *next (zeroed by the caller) and decide
+// them light by light with coop.cuh's walk (shadow_chunks_warp) over the
+// chunks in the order `order` (scaled.shadow_index: Morton order of their
+// boxes, whose group boxes gbox are tight), the spheres read as 16-byte
+// records (rec, in the rows' order).  Dynamic shared memory: [chunk boxes
+// in walk order] [group boxes] [walk order] [light ids].
+template <bool kStats>
+__global__ void __launch_bounds__(kRayThreads)
+coop_shadow_kernel(const float* __restrict__ rows,
+                   const int32_t* __restrict__ order,
+                   const tpt::Sphere4* __restrict__ rec,
+                   const float* __restrict__ gbox, int n_groups,
+                   int n_chunks, int chunk, const float* __restrict__ ro,
+                   const float* __restrict__ dirs,
+                   const float* __restrict__ t_ls,
+                   const int32_t* __restrict__ light_ids, int n_lights,
+                   int n, float t_min, int* __restrict__ next,
+                   int32_t* __restrict__ out,
+                   unsigned long long* __restrict__ stats) {
+  extern __shared__ float s_box[];
+  float* s_gbox = s_box + 6 * n_chunks;
+  int32_t* s_order = reinterpret_cast<int32_t*>(s_gbox + 6 * n_groups);
+  int32_t* s_ids = s_order + n_chunks;
+  const int tid = threadIdx.x;
+  const size_t stride = 4 * chunk + 8;
+  for (int i = tid; i < 6 * n_chunks; i += kRayThreads)
+    s_box[i] = rows[order[i / 6] * stride + 4 * chunk + i % 6];
+  for (int i = tid; i < 6 * n_groups; i += kRayThreads) s_gbox[i] = gbox[i];
+  for (int i = tid; i < n_chunks; i += kRayThreads) s_order[i] = order[i];
+  if (tid < n_lights) s_ids[tid] = light_ids[tid];
+  __syncthreads();
+  tpt::CoopView V;
+  static_cast<tpt::ChunkedView&>(V) = rows_view(rows, s_box, n_chunks, chunk);
+  V.gbox = s_gbox;
+  V.n_groups = n_groups;
+  V.nee = nullptr;
+  const tpt::DeviceWarp w(tid);
+  if constexpr (kStats) {
+    tpt::LoopStats cs(tid);
+    tpt::shadow_chunks_warp<tpt::kShadowCoopMin>(
+        w, V, s_order, rec, ro, dirs, t_ls, s_ids, n_lights, n, t_min, next,
+        out, cs);
+    tpt::flush_loop_stats(cs.v, stats, tid);
+  } else {
+    tpt::NoCoopCount none;
+    tpt::shadow_chunks_warp<tpt::kShadowCoopMin>(
+        w, V, s_order, rec, ro, dirs, t_ls, s_ids, n_lights, n, t_min, next,
+        out, none);
+  }
+}
 
 // ChunkedView whose traversals count into a LaneStats: render_pixel finds
 // these overloads by argument-dependent lookup.
@@ -316,15 +394,6 @@ bool bad_chunks(int n_chunks, int chunk) {
   return n_chunks < 1 || n_chunks > tpt::kMaxChunks || chunk < 1;
 }
 
-// Dynamic shared memory above the default 48 KB needs the kernel's opt-in.
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 }  // namespace
 
 extern "C" {
@@ -339,7 +408,7 @@ int tpt_hit_chunks_launch(const float* rows, int n_chunks, int chunk,
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const size_t smem = sizeof(float) * 6 * n_chunks;
-  cudaError_t err = allow_smem(hit_chunks_kernel, smem);
+  cudaError_t err = tpt::allow_smem(hit_chunks_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   hit_chunks_kernel<<<(n + kRayThreads - 1) / kRayThreads, kRayThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
@@ -347,29 +416,57 @@ int tpt_hit_chunks_launch(const float* rows, int n_chunks, int chunk,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K6 on `stream` for n rays and n_lights lights.
-int tpt_shadow_chunks_launch(const float* rows, int n_chunks, int chunk,
-                             const float* ro, const float* dirs,
-                             const float* t_ls, const int32_t* light_ids,
-                             int n_lights, int n, float t_min, int32_t* out,
-                             void* stream) {
-  if (bad_chunks(n_chunks, chunk) || n < 0 || n_lights < 0 ||
-      n_lights > tpt::kMaxLights)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  const size_t smem = sizeof(float) * 6 * n_chunks;
-  cudaError_t err = allow_smem(shadow_chunks_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  shadow_chunks_kernel<<<(n + kRayThreads - 1) / kRayThreads, kRayThreads,
-                         smem, static_cast<cudaStream_t>(stream)>>>(
-      rows, n_chunks, chunk, ro, dirs, t_ls, light_ids, n_lights, n, t_min,
-      out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Group boxes the cooperative kernel takes for n_chunks chunks.
+// Group boxes the cooperative kernels take for n_chunks chunks.
 int tpt_scaled_groups(int n_chunks) {
   return (n_chunks + tpt::kGroup - 1) / tpt::kGroup;
+}
+
+// K6 on `stream` for n rays and n_lights lights (bits into out (n,)).
+// form 0: the per-thread kernel; 1: the cooperative kernel, which takes
+// scaled.shadow_index's order (n_chunks,), rec (n_chunks * chunk) sphere
+// records and gbox (tpt_scaled_groups(n_chunks), 6) group boxes over that
+// order, and next, one int zeroed by the caller.  stats: null, or kStSlots
+// zeroed totals that the form's counted instance adds to.
+int tpt_shadow_chunks_launch(const float* rows, const int32_t* order,
+                             const tpt::Sphere4* rec, const float* gbox,
+                             int n_chunks, int chunk, const float* ro,
+                             const float* dirs, const float* t_ls,
+                             const int32_t* light_ids, int n_lights, int n,
+                             float t_min, int form, int* next, int32_t* out,
+                             unsigned long long* stats, void* stream) {
+  if (bad_chunks(n_chunks, chunk) || n < 0 || n_lights < 0 ||
+      n_lights > tpt::kMaxLights || form < 0 || form > 1 ||
+      (form == 1 && (!order || !rec || !gbox || !next)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (form == 0) {
+    const size_t smem = sizeof(float) * 6 * n_chunks;
+    auto kernel = stats ? shadow_chunks_kernel<true>
+                        : shadow_chunks_kernel<false>;
+    err = tpt::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<(n + kRayThreads - 1) / kRayThreads, kRayThreads, smem, s>>>(
+        rows, n_chunks, chunk, ro, dirs, t_ls, light_ids, n_lights, n, t_min,
+        out, stats);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int n_groups = tpt_scaled_groups(n_chunks);
+  const size_t smem = sizeof(float) * 6 * (n_chunks + n_groups) +
+                      sizeof(int32_t) * (n_chunks + n_lights);
+  int capacity = 0;
+  err = tpt::cached_capacity(kRayThreads, smem, &capacity,
+                             coop_shadow_kernel<false>,
+                             coop_shadow_kernel<true>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int warps = (n + 31) / 32;
+  const int need = (warps + kRayThreads / 32 - 1) / (kRayThreads / 32);
+  auto kernel = stats ? coop_shadow_kernel<true> : coop_shadow_kernel<false>;
+  kernel<<<need < capacity ? need : capacity, kRayThreads, smem, s>>>(
+      rows, order, rec, gbox, n_groups, n_chunks, chunk, ro, dirs, t_ls,
+      light_ids, n_lights, n, t_min, next, out, stats);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // A scaled render kernel on `stream`: image `out` (height, width, 3) and
@@ -398,7 +495,7 @@ int tpt_scaled_render_launch(const float* tab, const float* rows,
   if (form == 0) {
     auto kernel = stats ? scaled_render_kernel<true>
                         : scaled_render_kernel<false>;
-    err = allow_smem(kernel, smem);
+    err = tpt::allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 block(kBlockX, kBlockY);
     const dim3 grid((p->width + kBlockX - 1) / kBlockX,
@@ -409,7 +506,7 @@ int tpt_scaled_render_launch(const float* tab, const float* rows,
     smem += sizeof(float) * (6 * n_groups +
                              kWarps * tpt::nee_words(p->n_lights, 32));
     auto kernel = stats ? coop_render_kernel<true> : coop_render_kernel<false>;
-    err = allow_smem(kernel, smem);
+    err = tpt::allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     // as many blocks as fit on the card at once, or as the tiles need
     int dev = 0, sms = 0;

@@ -70,6 +70,13 @@ struct RenderParams {
   float t_min, t_max;
 };
 
+// A sphere's center and squared radius, rows ROW_CX..ROW_SQR of the packed
+// table: the merged K1's records (ops/cuda_render.pack_records) and the
+// cooperative K6's (scaled.shadow_index).
+struct alignas(16) Sphere4 {
+  float x, y, z, r2;
+};
+
 struct SceneView {
   const float* tab;         // (SCENE_ROWS, n) row-major
   const int32_t* mat;       // (n,)

@@ -32,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 SOURCES = ("render.cu", "grad.cu", "scaled.cu", "probe.cu")
 HEADERS = ("trace.cuh", "warp.cuh", "merged.cuh", "flat.cuh", "gradwarp.cuh",
-           "chunks.cuh", "coop.cuh", "probe.cuh")
+           "chunks.cuh", "coop.cuh", "probe.cuh", "launch.cuh")
 
 
 class RenderParams(ctypes.Structure):
@@ -178,6 +178,9 @@ def load_library() -> ctypes.CDLL:
                                              ptr, ptr, ptr]
     lib.tpt_render_stats_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr,
                                             ptr, i32, i32, ptr, ptr, ptr]
+    lib.tpt_render_stats_merged_launch.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, params, ptr, ptr, ptr, i32, i32, ptr, ptr,
+        ptr, ptr]
     lib.tpt_lockstep_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr,
                                         ptr]
     lib.tpt_grad_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr, ptr,
@@ -186,15 +189,17 @@ def load_library() -> ctypes.CDLL:
     lib.tpt_grad_sum_launch.argtypes = [ptr, i32, i32, ptr, i32, ptr]
     lib.tpt_hit_chunks_launch.argtypes = [ptr, i32, i32, ptr, ptr, i32, f32,
                                           f32, ptr, ptr, ptr]
-    lib.tpt_shadow_chunks_launch.argtypes = [ptr, i32, i32, ptr, ptr, ptr,
-                                             ptr, i32, i32, f32, ptr, ptr]
+    lib.tpt_shadow_chunks_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32,
+                                             ptr, ptr, ptr, ptr, i32, i32,
+                                             f32, i32, ptr, ptr, ptr, ptr]
     lib.tpt_scaled_render_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
                                              params, i32, i32, i32, ptr, ptr,
                                              ptr, ptr, ptr]
     lib.tpt_scaled_groups.argtypes = [i32]
     lib.tpt_probe_launch.argtypes = [i32, i32, i32, ptr, ptr]
     for fn in (lib.tpt_render_launch, lib.tpt_render_thread_launch,
-               lib.tpt_render_stats_launch, lib.tpt_lockstep_launch,
+               lib.tpt_render_stats_launch,
+               lib.tpt_render_stats_merged_launch, lib.tpt_lockstep_launch,
                lib.tpt_grad_launch, lib.tpt_grad_scratch,
                lib.tpt_grad_sum_launch, lib.tpt_hit_chunks_launch,
                lib.tpt_shadow_chunks_launch, lib.tpt_scaled_render_launch,

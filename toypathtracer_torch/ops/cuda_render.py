@@ -13,10 +13,15 @@ baseline it is held bit-equal to and timed against.  Each has an
 instrumented instance: the merged form's counts its loop's iterations,
 busy lanes and cycles by part (LOOP_FIELDS), the per-thread form's its
 cycles by part of the per-pixel code (PART_FIELDS).
-`render_tile_stats` and `render_frame_stats` run the stats instance of the
-per-thread kernel (K2), the counterpart of `render_frame_pallas_stats`: the
-image, the rays and the occupancy counters.  There is no fallback: on a
-CUDA tensor a failed build or launch raises.  `launches` counts kernel
+`render_tile_stats` and `render_frame_stats` run the stats render kernel
+(K2), the counterpart of `render_frame_pallas_stats`: the image, the rays
+and the occupancy counters.  It has two forms (`render_tile_stats_form`):
+"merged", the main path's (merged_render_kernel<2>: the merged loop with the
+counter policy csrc/merged.cuh TripStats, any number of spheres and
+lights), and "thread", the per-thread kernel's stats instance it replaced
+(render_kernel<1>, up to MAX_SPHERES spheres and MAX_LIGHTS lights), kept
+as its baseline.  There is no fallback: on a CUDA tensor a failed build or
+launch raises.  `launches` counts kernel
 launches by kernel, so a run can show that its frames went through the
 kernels.
 """
@@ -47,8 +52,11 @@ MAIN_FORM = "merged"
 COUNTERS = {"merged": "render", "thread": "render_baseline"}
 FORM_CAPS = {"merged": (None, None), "thread": (MAX_SPHERES, MAX_LIGHTS)}
 
+# K2's forms (those of K1, FORMS) and their launch counters.
+STATS_COUNTERS = {"merged": "render_stats", "thread": "render_stats_baseline"}
+
 launches = {"render": 0, "render_baseline": 0, "render_counted": 0,
-            "render_stats": 0}
+            "render_stats": 0, "render_stats_baseline": 0}
 
 # The merged loops' counters (csrc/merged.cuh kSt*), per kind of ray of the
 # chunked traversal (hit, shadow): warp traversal calls, lanes in them, box
@@ -205,7 +213,8 @@ def launch_forward(kernel: str, scene: Scene, tab: torch.Tensor,
                    cfg: RenderConfig, frame: int, x0: int, y0: int,
                    height: int, width: int, *extra, merged: bool = False):
     """Launch the forward kernel tpt_<kernel>_launch ("render",
-    "render_thread", "render_stats" or "lockstep") on the current stream,
+    "render_thread", "render_stats", "render_stats_merged" or "lockstep")
+    on the current stream,
     with `extra` arguments after the ray counter (merged: after the sphere
     records, which follow the table, and the tile counter, which follows
     the ray counter); returns ((height, width, 3) float32 image, 0-d int64
@@ -362,31 +371,54 @@ def tile_counters(counters: StatsCounters, cfg: RenderConfig):
 def render_tile_stats(scene: Scene, cfg: RenderConfig, frame: int,
                       tab=None):
     """The frame rendered over its padded tile grid with the occupancy
-    counters, on the scene's device: the stats instance of the render
-    kernel (K2) for a scene on a card, render/wavefront.
+    counters, on the scene's device: the stats render kernel (K2, its
+    merged form) for a scene on a card, render/wavefront.
     render_tile_stats_plain for a scene on the CPU.  The image and rays
     are the render kernel's, bit for bit.
 
     Returns ((H, W, 3) float32, 0-d int64 rays of the image's pixels,
     StatsCounters)."""
+    return render_tile_stats_form(scene, cfg, frame, MAIN_FORM, tab=tab)
+
+
+def render_tile_stats_form(scene: Scene, cfg: RenderConfig, frame: int,
+                           form: str, tab=None):
+    """render_tile_stats through K2's form `form` (FORMS: "merged" or
+    "thread"); both give the same image, rays and counters.  On the CPU the
+    plain version, whatever the form."""
+    if form not in FORMS:
+        raise ValueError(f"no stats render kernel form {form!r}")
     H, W = cfg.height, cfg.width
-    tab = checked_tab(scene, 0, 0, H, W, tab, (MAX_SPHERES, MAX_LIGHTS),
-                      "the stats render kernel")
+    tab = checked_tab(scene, 0, 0, H, W, tab, FORM_CAPS[form],
+                      f"the stats render kernel's {form} form")
     if scene.device.type == "cpu":
         from ..render.wavefront import render_tile_stats_plain
         return render_tile_stats_plain(scene, cfg, frame, tab=tab)
     if scene.device.type != "cuda":
         raise ValueError(f"no renderer for device {scene.device}")
+    dev = scene.device
     grid_h, grid_w = padded_grid(cfg)
-    trips = torch.empty((3, grid_h, grid_w), dtype=torch.int32,
-                        device=scene.device)
-    warps = torch.empty((2, *warp_grid(grid_h, grid_w)), dtype=torch.int32,
-                        device=scene.device)
-    out, rays = launch_forward("render_stats", scene, tab, cfg, frame, 0, 0,
-                               H, W, grid_h, grid_w, trips.data_ptr(),
-                               warps.data_ptr())
-    launches["render_stats"] += 1
-    return out, rays, StatsCounters(*trips, *warps)
+    wr, wc = warp_grid(grid_h, grid_w)
+    trips = torch.empty((3, grid_h, grid_w), dtype=torch.int32, device=dev)
+    if form == "merged":
+        # the per-thread layout's warp units: the bounces of their image
+        # pixels, and each sample's deepest one, summed over samples here
+        work = torch.zeros((wr, wc), dtype=torch.int32, device=dev)
+        depth = torch.zeros((wr, wc, cfg.samples_per_pixel),
+                            dtype=torch.int32, device=dev)
+        out, rays = launch_forward(
+            "render_stats_merged", scene, tab, cfg, frame, 0, 0, H, W,
+            grid_h, grid_w, trips.data_ptr(), work.data_ptr(),
+            depth.data_ptr(), merged=True)
+        iters = depth.sum(dim=-1, dtype=torch.int32)
+    else:
+        warps = torch.empty((2, wr, wc), dtype=torch.int32, device=dev)
+        out, rays = launch_forward("render_stats", scene, tab, cfg, frame, 0,
+                                   0, H, W, grid_h, grid_w, trips.data_ptr(),
+                                   warps.data_ptr())
+        iters, work = warps
+    launches[STATS_COUNTERS[form]] += 1
+    return out, rays, StatsCounters(*trips, iters, work)
 
 
 def render_frame_stats(scene: Scene, cfg: RenderConfig, frame: int,

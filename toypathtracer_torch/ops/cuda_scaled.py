@@ -4,6 +4,10 @@ scaled_pallas.py and of scaled.py's renderer).
 `hit_chunks` (K5, the port of scaled_pallas.py::_hit_kernel) and
 `shadow_chunks` (K6, ::_shadow_kernel) take the JAX layout: the
 pack_chunks rows and tuples of ray lane planes of any one shape.
+`shadow_chunks_form` reaches both forms of K6 -- "coop" (the main path's:
+the warp-cooperative chunk walk of csrc/coop.cuh over the scene's
+scaled.shadow_index) and "thread" (the per-thread form it replaced, the
+baseline it is held bit-equal to) -- and their counted instances.
 `render_tile_scaled` / `render_frame_scaled` render a ScaledScene through
 the scaled render kernel, one launch a frame (the port of
 scaled.py::_render_frame_scaled_pallas): the warp-cooperative form
@@ -25,8 +29,8 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig, resolve_device
-from ..scaled import (ChunkTraversal, ScaledScene, group_boxes,
-                      pack_chunks, render_tile_scaled_plain)
+from ..scaled import (ChunkTraversal, ScaledScene, group_boxes, pack_chunks,
+                      render_tile_scaled_plain, shadow_index)
 from . import _build
 from .cuda_render import (LOOP_FIELDS, MAX_LIGHTS, STAT_FIELDS, STAT_SLOTS,
                           cuda_call, kernel_camera, pack_scene,
@@ -42,8 +46,16 @@ FORMS = {"lane": 0, "coop": 1}
 MAIN_FORM = "coop"
 COUNTERS = {"coop": "scaled_render", "lane": "scaled_render_lane"}
 
+# K6's forms (tpt_shadow_chunks_launch's `form`) and their launch
+# counters: "shadow_chunks" counts the main path's form.
+SHADOW_FORMS = {"thread": 0, "coop": 1}
+SHADOW_MAIN_FORM = "coop"
+SHADOW_COUNTERS = {"coop": "shadow_chunks",
+                   "thread": "shadow_chunks_baseline"}
+
 launches = {"scaled_render": 0, "scaled_render_lane": 0,
-            "scaled_render_stats": 0, "hit_chunks": 0, "shadow_chunks": 0}
+            "scaled_render_stats": 0, "hit_chunks": 0, "shadow_chunks": 0,
+            "shadow_chunks_baseline": 0, "shadow_chunks_counted": 0}
 
 
 def _check_rows(rows: torch.Tensor, chunk: int):
@@ -107,12 +119,27 @@ def hit_chunks(rows: torch.Tensor, ro, rd, chunk: int, t_min: float,
 
 
 def shadow_chunks(rows: torch.Tensor, ro, dirs, t_ls, chunk: int,
-                  light_ids, t_min: float):
+                  light_ids, t_min: float, index=None):
     """NEE occlusion bitmask (shadow_chunks_tiles): bit k of each ray is
     set when a sphere other than light k overlaps (t_min, t_ls[k]) along
     light k's direction.  ro: 3 lane planes; dirs: 3 * n_l planes, light
-    by light; t_ls: n_l planes.  Returns int32 lanes."""
+    by light; t_ls: n_l planes.  index: the rows' scaled.shadow_index,
+    built here when None (ChunkedScenePort passes its own).  Returns int32
+    lanes."""
+    return shadow_chunks_form(rows, ro, dirs, t_ls, chunk, light_ids, t_min,
+                              SHADOW_MAIN_FORM, index=index)
+
+
+def shadow_chunks_form(rows: torch.Tensor, ro, dirs, t_ls, chunk: int,
+                       light_ids, t_min: float, form: str, index=None,
+                       stats: bool = False):
+    """shadow_chunks through K6's form `form` (SHADOW_FORMS); both give the
+    same bits.  stats=True launches the form's counted instance and returns
+    a second value, stats_dict of its counters (on a card only).  On the
+    CPU the plain version, whatever the form."""
     _check_rows(rows, chunk)
+    if form not in SHADOW_FORMS:
+        raise ValueError(f"no K6 form {form!r}")
     n_l = len(light_ids)
     if n_l > MAX_LIGHTS or len(dirs) != 3 * n_l or len(t_ls) != n_l:
         raise ValueError(f"{n_l} lights (at most {MAX_LIGHTS}) need "
@@ -124,24 +151,51 @@ def shadow_chunks(rows: torch.Tensor, ro, dirs, t_ls, chunk: int,
     L = _planes(dirs, shape, dev) if n_l else R[:0]
     T = _planes(t_ls, shape, dev) if n_l else R[:0]
     n = R.shape[1]
-    if dev.type == "cuda":
-        lib = _build.load_library()
-        ids = torch.tensor(list(light_ids) or [0], dtype=torch.int32,
-                           device=dev)
-        occ = torch.empty((n,), dtype=torch.int32, device=dev)
-        with torch.cuda.device(dev):
-            code = lib.tpt_shadow_chunks_launch(
-                rows.data_ptr(), rows.shape[0], chunk, R.data_ptr(),
-                L.data_ptr(), T.data_ptr(), ids.data_ptr(), n_l, n,
-                _f32(t_min), occ.data_ptr(), _stream(dev))
-        cuda_call(lib, "shadow_chunks", code)
-        launches["shadow_chunks"] += 1
-    elif dev.type == "cpu":
+    if dev.type == "cpu":
+        if stats:
+            raise ValueError("K6's counted instances run on a card")
         occ, _, _ = ChunkTraversal(rows, chunk).occlusion_bits(
             tuple(R), [tuple(L[3 * k:3 * k + 3]) for k in range(n_l)], T,
             light_ids, _f32(t_min))
-    else:
+        return occ.reshape(shape)
+    if dev.type != "cuda":
         raise ValueError(f"no traversal for device {dev}")
+    lib = _build.load_library()
+    coop = form == "coop"
+    if coop:
+        index = shadow_index(rows, chunk) if index is None else index
+        C = rows.shape[0]
+        for name, t, want, dtype in (
+                ("order", index.order, (C,), torch.int32),
+                ("group boxes", index.gbox, (lib.tpt_scaled_groups(C), 6),
+                 torch.float32),
+                ("sphere records", index.rec, (C * chunk, 4),
+                 torch.float32)):
+            if (t.shape != want or t.dtype != dtype or t.device != dev
+                    or not t.is_contiguous()):
+                raise ValueError(f"shadow index {name} must be contiguous "
+                                 f"{dtype} {want} on {dev}, got {t.dtype} "
+                                 f"{tuple(t.shape)} on {t.device}")
+    # pinned and without blocking, as ops/cuda_render.kernel_camera
+    ids = torch.from_numpy(np.array(list(light_ids) or [0], np.int32))
+    ids = ids.pin_memory().to(dev, non_blocking=True)
+    occ = torch.empty((n,), dtype=torch.int32, device=dev)
+    next_ray = torch.zeros((1,), dtype=torch.int32, device=dev)
+    counts = torch.zeros((STAT_SLOTS,), dtype=torch.int64, device=dev) \
+        if stats else None
+    with torch.cuda.device(dev):
+        code = lib.tpt_shadow_chunks_launch(
+            rows.data_ptr(), *((index.order.data_ptr(), index.rec.data_ptr(),
+                                index.gbox.data_ptr()) if coop
+                               else (None, None, None)),
+            rows.shape[0], chunk, R.data_ptr(), L.data_ptr(), T.data_ptr(),
+            ids.data_ptr(), n_l, n, _f32(t_min), SHADOW_FORMS[form],
+            next_ray.data_ptr(), occ.data_ptr(),
+            counts.data_ptr() if stats else None, _stream(dev))
+    cuda_call(lib, "shadow_chunks", code)
+    launches["shadow_chunks_counted" if stats else SHADOW_COUNTERS[form]] += 1
+    if stats:
+        return occ.reshape(shape), stats_dict(counts.cpu())
     return occ.reshape(shape)
 
 

@@ -21,7 +21,7 @@ csrc/chunks.cuh) -- and the traversal hook it hands ops/tracecore.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -498,8 +498,9 @@ def group_boxes(rows: torch.Tensor, chunk: int,
     """(ceil(C / group), 6) boxes over runs of `group` consecutive chunks
     of pack_chunks rows (C, 4 * chunk + 8): each the min of its children's
     box minima and the max of their maxima (exact: min and max round
-    nothing).  The scaled render kernel tests a group box before the
-    group's chunk boxes and skips all of them where no ray enters it."""
+    nothing).  The cooperative kernels (the scaled render, K6) test a
+    group box before the group's chunk boxes and skip all of them where no
+    ray enters it."""
     box = rows[:, 4 * chunk:4 * chunk + 6]
     C = box.shape[0]
     G = -(-C // group)
@@ -508,6 +509,43 @@ def group_boxes(rows: torch.Tensor, chunk: int,
     hi = torch.cat([box[:, 3:], box.new_full((pad, 3), -torch.inf)])
     return torch.cat([lo.reshape(G, group, 3).amin(dim=1),
                       hi.reshape(G, group, 3).amax(dim=1)], dim=1).contiguous()
+
+
+class ShadowIndex(NamedTuple):
+    """What the cooperative K6 reads beside the chunk rows, built once per
+    scene (shadow_index): `order`, the chunks in the order its walk takes
+    them (int32); `gbox`, the group boxes over runs of GROUP chunks of that
+    order; `rec`, the spheres' (cx, cy, cz, r^2) records in the rows'
+    order, so that a sphere is one 16-byte load instead of four."""
+    order: torch.Tensor
+    gbox: torch.Tensor
+    rec: torch.Tensor
+
+
+def shadow_index(rows: torch.Tensor, chunk: int) -> ShadowIndex:
+    """K6's ShadowIndex of pack_chunks rows (C, 4 * chunk + 8).  The walk
+    takes the chunks in Morton order of their box centers, so that a group
+    of GROUP consecutive ones is compact and its box tight, and the chunks
+    whose box is more than 4 times the median's widest extent (the
+    beacons' chunk, a padded one) last, so that they widen no group of
+    compact ones: an OR over chunks may take them in any order, and the
+    rows' own order (front to back from the camera) makes groups whose
+    boxes nearly every ray enters."""
+    C = rows.shape[0]
+    box = rows[:, 4 * chunk:4 * chunk + 6].double().cpu().numpy()
+    mid = (box[:, :3] + box[:, 3:]) * 0.5
+    lo, span = mid.min(axis=0), np.ptp(mid, axis=0)
+    cell = np.clip((mid - lo) / np.where(span > 0, span, 1.0) * 1023, 0,
+                   1023).astype(np.uint32)
+    morton = np.argsort(_morton3(cell[:, 0], cell[:, 1], cell[:, 2]),
+                        kind="stable")
+    extent = (box[:, 3:] - box[:, :3]).max(axis=1)[morton]
+    big = extent > 4 * np.median(extent)
+    order = torch.from_numpy(np.concatenate([morton[~big], morton[big]])
+                             .astype(np.int32)).to(rows.device)
+    rec = rows[:, :4 * chunk].reshape(C, 4, chunk).transpose(1, 2)
+    return ShadowIndex(order, group_boxes(rows[order.long()], chunk),
+                       rec.reshape(C * chunk, 4).contiguous())
 
 
 class ChunkedScenePort:
@@ -520,6 +558,7 @@ class ChunkedScenePort:
     def __init__(self, scene: ScaledScene):
         self.scene = scene
         self.rows = pack_chunks(scene)
+        self.shadow_index = shadow_index(self.rows, scene.chunk)
 
     def hit_chunks(self, ro, rd, t_min: float, t_max: float):
         """Nearest (t float32, id int32) over all chunks, id -1 on a
@@ -543,7 +582,7 @@ class ChunkedScenePort:
             hits.append(valid & (t_l < t_max))
         occ = cuda_scaled.shadow_chunks(
             self.rows, ro, tuple(c for l in dirs for c in l), tuple(t_ls),
-            s.chunk, tuple(light_ids), t_min)
+            s.chunk, tuple(light_ids), t_min, index=self.shadow_index)
         return [h & (((occ >> k) & 1) == 0) for k, h in enumerate(hits)]
 
     def silhouette_chunks(self, *args, **kw):

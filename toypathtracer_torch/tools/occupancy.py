@@ -11,10 +11,13 @@ counters, derived exactly from the per-pixel trip counts
 (ops/cuda_render.tile_counters), under the JAX tool's keys: occupancy of
 a tile = work / (iters x lanes), the share of the wavefront loop's lane
 slots doing a bounce.  The counts are deterministic.  The `warp` block
-holds the GPU's own form, counted by the kernel per warp of the render
-kernel (16x2 pixels): efficiency = work / (32 x iters), the share of a
-warp's lane-steps that do a bounce when the warp runs each sample as long
-as its deepest lane.
+holds the GPU's own form for the per-thread render kernel's layout
+(render_kernel<0>: a thread a pixel, 16x2 pixels a warp), counted by K2
+per such warp: efficiency = work / (32 x iters), the share of a warp's
+lane-steps that do a bounce when the warp runs each sample as long as its
+deepest lane (0.480 at the defaults).  K2 itself runs the merged loop,
+whose lanes do not wait so (its lane busy share is the merged K1's counted
+instance's, tools.render_parts), and counts that layout's warps exactly.
 
 Writes build/occupancy_torch.json at the root of the checkout (or --out)
 and prints the same JSON.  --device cpu runs the plain version.
