@@ -7,9 +7,9 @@ Phases (one JSON line each on stdout; any failure raises and exits
 non-zero):
   1. device: the card, torch/CUDA versions, the nvcc build of csrc/;
      each kernel's registers, stack and spills from -Xptxas -v, with the
-     per-thread K1, K3 (both forms), K4's per-thread form, K5, both K6
-     forms, both K2 forms, the per-lane and the cooperative scaled render
-     kernels and the merged K1 held at their counts.
+     per-thread K1, K3 (both forms), K4's per-thread form, both K5 forms,
+     both K6 forms, both K2 forms, the per-lane and the cooperative scaled
+     render kernels and the merged K1 held at their counts.
   2. kernel vs plain at 320x176, spp 2, depth 6, frames 0-3: the big
      scene, the big scene without light sampling, the small scene; in each
      the merged K1 (the main path's) bit-equal to the per-thread K1 it
@@ -48,9 +48,14 @@ non-zero):
      progressive frames plus 1 animated frame (one launch a frame of the
      warp-cooperative scaled render kernel, none of the per-lane form),
      and the ChunkedScenePort queries on frame 0's camera rays (K5) and
-     on their first Lambert hits' cone samples (K6, its cooperative form;
-     none of the per-thread form).
-  9. K5 (camera rays and 65,536 random rays) vs plain; K6 on the camera
+     on their first Lambert hits' cone samples (K6); one launch each of
+     K5's and K6's cooperative forms, none of the per-thread forms.
+  9. K5 on the camera rays and on 65,536 random rays, the cooperative form
+     bit-equal (ids and t) to PR 3's per-thread form it replaced and
+     within its gates of plain; both K5 forms' counted instances
+     (tools.hit_stats: step 1's slab and sphere tests, chunk 0's share,
+     SIMT efficiency; the sphere tests equal to plain's), the two timed
+     in turns, the old and the new bound; K6 on the camera
      rays' hits and on 65,536 random rays toward the beacons, the
      cooperative form bit-equal to the per-thread form it replaced and
      within its gate of plain; both K6 forms' counted instances
@@ -87,7 +92,7 @@ non-zero):
      clock under load, and every thread of each case's and each floor's
      launches against the plain version.
  14. the `kernels` line: render, render_baseline, grad, grad_replay,
-     lockstep, scaled_render, hit_chunks, shadow_chunks,
+     lockstep, scaled_render, hit_chunks, hit_chunks_baseline, shadow_chunks,
      shadow_chunks_baseline, render_stats, render_stats_baseline,
      issue_rate, launch_floor.
 Then the card's name and power limit as nvidia-smi reports them, and the
@@ -109,10 +114,11 @@ import torch
 # Registers and spill bytes of the kernels that the redesigns must leave as
 # they were (-Xptxas -v of their sources before them): the per-thread K1
 # (render_kernel<0>) and K2 (<1>), the replaying K3 (lockstep_kernel<1,0>),
-# the per-thread K4 (<0,0>), K5, the per-thread K6, the per-lane scaled
-# render kernel and the cooperative one, whose path loop and chunk walk the
-# merged K1 and the cooperative K6 share; and K3's warp form, the merged
-# K1, the cooperative K6 and the merged K2 at their own counts.
+# the per-thread K4 (<0,0>), PR 3's K5, the per-thread K6, the per-lane
+# scaled render kernel and the cooperative one, whose path loop and chunk
+# walk the merged K1 and the cooperative K6 share; and K3's warp form, the
+# merged K1, the cooperative K5 and K6 and the merged K2 at their own
+# counts.
 KEPT_USAGE = {
     "render_kernel<1>": {"registers": 72, "spill_stores": 16},
     "coop_shadow_kernel<0>": {"registers": 40, "spill_stores": 12},
@@ -906,7 +912,7 @@ def scaled_phases(cfg, smi, usage):
     from toypathtracer_torch.scaled import (ChunkedScenePort, ChunkTraversal,
                                             pack_chunks,
                                             render_tile_scaled_plain)
-    from toypathtracer_torch.tools import shadow_stats
+    from toypathtracer_torch.tools import hit_stats, shadow_stats
 
     dev = torch.device("cuda")
     t_min, t_max = float(np.float32(cfg.min_t)), float(np.float32(cfg.max_t))
@@ -964,6 +970,8 @@ def scaled_phases(cfg, smi, usage):
     emit(main)
     check(main_launches == {"scaled_render": 5, "scaled_render_lane": 0,
                             "scaled_render_stats": 0, "hit_chunks": 1,
+                            "hit_chunks_baseline": 0,
+                            "hit_chunks_counted": 0,
                             "shadow_chunks": 1, "shadow_chunks_baseline": 0,
                             "shadow_chunks_counted": 0},
           f"scaled main path launched {main_launches}")
@@ -974,43 +982,104 @@ def scaled_phases(cfg, smi, usage):
 
     # ---- 9. kernels vs plain at the full scene ----------------------------
     def hit_case(name, ro, rd):
+        """K5's main-path form against PR 3's kernel it replaced (ids and
+        t bit-equal on every ray) and against the plain version."""
         t1 = time.perf_counter()
-        t_k, id_k = cuda_scaled.hit_chunks(rows, ro, rd, K, t_min, t_max)
+        args = (rows, ro, rd, K, t_min, t_max)
+        t_k, id_k = cuda_scaled.hit_chunks(*args, index=port.shadow_index)
+        t_b, id_b = cuda_scaled.hit_chunks_form(*args, "thread")
         plain_s, (t_p, id_p, slabs, spheres) = time_device_call(
             trav.nearest_hit, ro, rd, t_min, t_max)
-        ms = time_device_call(cuda_scaled.hit_chunks, rows, ro, rd, K, t_min,
-                              t_max, repeats=3)[0] * 1e3
         agree = id_k.long() == id_p
         both = agree & (id_p >= 0)
         n = int(id_k.numel())
-        ops = 12 * int(slabs.sum()) + 19 * int(spheres.sum())
-        n_bytes = 4 * rows.numel() + n * (6 * 4 + 8)
         check(bool(both.any()), f"K5 {name}: no ray hit")
         r = {"phase": "hit_chunks_vs_plain", "case": name, "rays": n,
              "hits": int((id_p >= 0).sum()),
+             "bit_equal_to_thread_form": bool(
+                 torch.equal(id_k, id_b)
+                 and torch.equal(t_k.view(torch.int32),
+                                 t_b.view(torch.int32))),
              "id_mismatch": int((~agree).sum()),
              "t_rel_max": float(((t_k - t_p).abs() / t_p.abs())[both].max()),
              "t_abs_max": float((t_k - t_p).abs()[both].max()),
              "slab_tests": int(slabs.sum()),
-             "sphere_tests": int(spheres.sum()), "ms": ms,
-             "plain_ms": plain_s * 1e3, "bound_fp32_ops": ops,
-             "bound_bytes": n_bytes,
-             "bound_ms": max(ops / 67e12, n_bytes / 3.35e12) * 1e3,
-             "bound_by": "operations" if ops / 67e12 >= n_bytes / 3.35e12
-             else "bytes", "seconds": time.perf_counter() - t1}
+             "sphere_tests": int(spheres.sum()),
+             "plain_ms": plain_s * 1e3, "seconds": time.perf_counter() - t1}
         emit(r)
+        check(r["bit_equal_to_thread_form"],
+              f"K5 {name}: the cooperative form's ids or t != PR 3's kernel's")
         check(r["id_mismatch"] <= 1e-5 * n, f"K5 {name}: ids")
         check(r["t_rel_max"] <= 1e-6, f"K5 {name}: t")
-        return r, (slabs, spheres)
+        return r, (slabs, spheres), args
 
-    k5, k5_work = hit_case("camera_1280x720", cam_ro, cam_rd)
+    k5, k5_work, k5_args = hit_case("camera_1280x720", cam_ro, cam_rd)
     rng = np.random.default_rng(5)
     o = rng.uniform((-150.0, 0.5, -150.0), (150.0, 12.0, 150.0),
                     (65536, 3)).astype(np.float32).T
     d = rng.normal(size=(3, 65536)).astype(np.float32)
     d /= np.sqrt((d * d).sum(axis=0))
-    hit_case("random_65536", tuple(torch.from_numpy(o.copy()).to(dev)),
-             tuple(torch.from_numpy(d).to(dev)))
+    k5_random, _, _ = hit_case(
+        "random_65536", tuple(torch.from_numpy(o.copy()).to(dev)),
+        tuple(torch.from_numpy(d).to(dev)))
+
+    # step 1 and the cooperative form's work: both counted instances on the
+    # camera rays (tools.hit_stats); then the forms in turns: coop, thread,
+    # thread, coop, and the cooperative wrapper once more building its
+    # index itself
+    t1 = time.perf_counter()
+    k5_stats = hit_stats.measure(port, cfg)
+    emit({"phase": "hit_traversal_stats", "nvidia_smi": smi, **k5_stats})
+    check(k5_stats["bit_equal"], "K5 counted instances: ids or t differ")
+    k5_st = {f["form"]: f for f in k5_stats["forms"]}
+    for f in k5_st.values():
+        check(f["counters"]["hit"]["need"] == k5["sphere_tests"],
+              f"K5 {f['form']} counted instance: sphere tests "
+              f"{f['counters']['hit']['need']} vs plain {k5['sphere_tests']}")
+    check(k5_st["thread"]["counters"]["hit"]["slabs"] == k5["slab_tests"],
+          "K5 thread counted instance: slab tests vs plain")
+    k5_runs = {}
+    for form in ("coop", "thread", "thread", "coop"):
+        k5_runs.setdefault(form, []).append(time_device_call(
+            cuda_scaled.hit_chunks_form, *k5_args, form, port.shadow_index,
+            repeats=3)[0] * 1e3)
+    k5_ms = {f: sum(v) / len(v) for f, v in k5_runs.items()}
+    k5_index_in_wrapper_ms = time_device_call(
+        cuda_scaled.hit_chunks_form, *k5_args, "coop", repeats=3)[0] * 1e3
+    # Bounds: 12 operations per slab test, 19 per sphere test.  Old: the
+    # plain version's counts (every chunk box of each ray).  New: each term
+    # the lesser of the plain count and the cooperative counted
+    # instance's, whose prefilter tests 25 group boxes a ray and the chunk
+    # boxes of the groups its warp enters, so the function needs no more.
+    n_k5 = k5["rays"]
+    k5_bytes = 4 * rows.numel() + n_k5 * (6 * 4 + 8)
+    k5_old_ops = 12 * k5["slab_tests"] + 19 * k5["sphere_tests"]
+    st_c = k5_st["coop"]["counters"]
+    k5_terms = {"slab_tests": min(k5["slab_tests"], st_c["hit"]["slabs"]
+                                  + st_c["groups"]["slabs"]),
+                "sphere_tests": min(k5["sphere_tests"],
+                                    st_c["hit"]["need"])}
+    k5_ops = 12 * k5_terms["slab_tests"] + 19 * k5_terms["sphere_tests"]
+
+    def k5_bound(ops):
+        ms = max(ops / 67e12, k5_bytes / 3.35e12) * 1e3
+        return ms, "operations" if ops / 67e12 >= k5_bytes / 3.35e12 \
+            else "bytes"
+    k5_bound_old, _ = k5_bound(k5_old_ops)
+    k5_bound_ms, k5_bound_by = k5_bound(k5_ops)
+    k5_timing = {"phase": "hit_chunks_timing", "nvidia_smi": smi,
+                 "ms": k5_ms, "runs": k5_runs,
+                 "coop_over_thread": k5_ms["coop"] / k5_ms["thread"],
+                 "coop_index_built_in_wrapper_ms": k5_index_in_wrapper_ms,
+                 "plain_ms": k5["plain_ms"],
+                 "simt_efficiency": {f: k5_st[f]["simt_efficiency"]
+                                     for f in k5_st},
+                 "bound_fp32_ops_old": k5_old_ops,
+                 "bound_ms_old": k5_bound_old, "bound_work_new": k5_terms,
+                 "bound_fp32_ops": k5_ops, "bound_bytes": k5_bytes,
+                 "bound_ms": k5_bound_ms, "bound_by": k5_bound_by,
+                 "seconds": time.perf_counter() - t1}
+    emit(k5_timing)
 
     def k6_case(name, pos, dirs, t_ls):
         """K6's main-path form against the per-thread form it replaced
@@ -1301,7 +1370,7 @@ def scaled_phases(cfg, smi, usage):
               "small_work": sw, "small_bound_work": terms_s,
               "small_bound_fp32_ops": ops_s,
               "small_bound_ms": bound_s,
-              "hit_chunks_ms": k5["ms"],
+              "hit_chunks_ms": k5_ms[cuda_scaled.HIT_MAIN_FORM],
               "shadow_chunks_ms": k6_ms[cuda_scaled.SHADOW_MAIN_FORM],
               "forms_ms": form_ms,
               "sphere_loop_simt_efficiency": {
@@ -1348,13 +1417,43 @@ def scaled_phases(cfg, smi, usage):
          "source": "toypathtracer_torch/csrc/scaled.cu",
          "replaces": "toypathtracer_tpu/ops/scaled_pallas.py:64",
          "launches": main_launches["hit_chunks"],
-         "max_abs_err": k5["t_abs_max"], "ms": k5["ms"],
-         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
-         "bound_by": k5["bound_by"], "library_ms": None,
+         "max_abs_err": k5["t_abs_max"],
+         "ms": k5_ms[cuda_scaled.HIT_MAIN_FORM],
+         "plain_ms": k5["plain_ms"], "bound_ms": k5_bound_ms,
+         "bound_by": k5_bound_by, "library_ms": None,
+         "form": "coop (coop_hit_kernel<0>: csrc/coop.cuh hit_chunks_warp "
+                 "with scaled.shadow_index's group boxes)",
+         "baseline_ms": k5_ms["thread"],
+         "baseline": "PR 3's per-thread K5 it replaced "
+                     "(hit_chunks_kernel), timed in turns with it",
+         "bound_ms_old": k5_bound_old,
+         "index_built_in_wrapper_ms": k5_index_in_wrapper_ms,
+         "sphere_loop_simt_efficiency": k5_st["coop"]["simt_efficiency"],
+         "ptxas": usage.get("coop_hit_kernel<0>", {}),
          "vs_plain": {"tolerance": "ids equal on all but 1e-5 of the rays, "
-                                   "t rel <= 1e-6 where they agree",
+                                   "t rel <= 1e-6 where they agree; ids and "
+                                   "t bit-equal to PR 3's kernel on every "
+                                   "ray",
                       "id_mismatch": k5["id_mismatch"],
-                      "t_rel_max": k5["t_rel_max"]}},
+                      "id_mismatch_random": k5_random["id_mismatch"],
+                      "t_rel_max": k5["t_rel_max"],
+                      "bit_equal_to_thread_form": {
+                          "camera_1280x720": k5["bit_equal_to_thread_form"],
+                          "random_65536":
+                              k5_random["bit_equal_to_thread_form"]}}},
+        {"name": "hit_chunks_baseline", "route": "cuda",
+         "source": "toypathtracer_torch/csrc/scaled.cu",
+         "replaces": "toypathtracer_tpu/ops/scaled_pallas.py:64",
+         "launches": main_launches["hit_chunks_baseline"],
+         "max_abs_err": k5["t_abs_max"], "ms": k5_ms["thread"],
+         "plain_ms": k5["plain_ms"], "bound_ms": k5_bound_ms,
+         "bound_by": k5_bound_by, "library_ms": None,
+         "form": "thread (hit_chunks_kernel)",
+         "baseline": "PR 3's per-thread K5, kept beside the cooperative one "
+                     "as its A/B and equality baseline; not on the main path",
+         "sphere_loop_simt_efficiency": k5_st["thread"]["simt_efficiency"],
+         "ptxas": usage.get("hit_chunks_kernel", {}),
+         "vs_plain": {"tolerance": "bit-equal to the cooperative form"}},
         {"name": "shadow_chunks", "route": "cuda",
          "source": "toypathtracer_torch/csrc/scaled.cu",
          "replaces": "toypathtracer_tpu/ops/scaled_pallas.py:143",

@@ -17,9 +17,10 @@ spheres; the replaying form measured on an H100 at 320x176: at most
 forms they measure.  Scaled kernels (n=3000, chunk
 256): the traversal K5 and the shadow bitmask K6 equal to their plain
 versions on all but 1e-5 of the rays, t within 1e-6 relative where the
-ids agree; K6's cooperative form bit-equal to its per-thread form at
-several sizes and light counts, their counted instances bit-equal to the
-timed ones; the scaled render kernel
+ids agree; K5's cooperative form bit-equal (ids and t) to its per-thread
+form on that scene and on the 100k-sphere one, K6's to its per-thread
+form, at several sizes (and light counts), their counted instances
+bit-equal to the timed ones; the scaled render kernel
 at 64x32 with the render kernel's gates, and its warp-cooperative form
 bit-equal to the per-lane form at 320x176 on the 100k-sphere scene; the
 stats instances' images bit-equal to the timed ones and their counts of
@@ -314,6 +315,60 @@ def test_hit_chunks_kernel_matches_plain(card):
     assert float(rel.max()) <= 1e-6 and int((hid >= 0).sum()) > 100
 
 
+@pytest.mark.parametrize("n,big", [(45, False), (8192, False),
+                                   (4099, True), (65543, True)])
+def test_coop_hit_kernel_bit_equal_to_thread_kernel(card, n, big):
+    """K5's cooperative form (the main path's) against PR 3's per-thread
+    form it replaced, on the 3072-sphere field and the 100k scene: ids and
+    t bit-equal; both counted instances bit-equal to their timed forms,
+    counting the plain version's sphere tests exactly (the thread form its
+    slab tests too); the launch counters show which form ran."""
+    if big:
+        scene = make_scaled_scene(100_000).to(card)
+        rng = np.random.default_rng(n)
+        o = rng.uniform((-150.0, 0.5, -150.0), (150.0, 12.0, 150.0),
+                        (n, 3)).astype(np.float32).T.copy()
+        d = rng.normal(size=(3, n)).astype(np.float32)
+        d /= np.sqrt((d * d).sum(axis=0))
+        ro = tuple(torch.from_numpy(o).to(card))
+        rd = tuple(torch.from_numpy(d).to(card))
+    else:
+        scene = make_scaled_scene(n=3000, chunk=256, extent=40.0).to(card)
+        ro, rd = random_rays(card, n, n)
+    K = scene.chunk
+    port = ChunkedScenePort(scene)
+    args = (port.rows, ro, rd, K, 1e-3, 1e7)
+    before = dict(cuda_scaled.launches)
+    t, hid = port.hit_chunks(ro, rd, 1e-3, 1e7)
+    t_b, id_b = cuda_scaled.hit_chunks_form(*args, "thread")
+    t_c, id_c, st = cuda_scaled.hit_chunks_form(
+        *args, "coop", index=port.shadow_index, stats=True)
+    t_bc, id_bc, st_t = cuda_scaled.hit_chunks_form(*args, "thread",
+                                                    stats=True)
+    _, idp, slabs, spheres = ChunkTraversal(port.rows, K).nearest_hit(
+        ro, rd, float(np.float32(1e-3)), 1e7)
+    torch.cuda.synchronize()
+    after = {k: cuda_scaled.launches[k] - before[k] for k in before}
+    assert after == {"scaled_render": 0, "scaled_render_lane": 0,
+                     "scaled_render_stats": 0, "hit_chunks": 1,
+                     "hit_chunks_baseline": 1, "hit_chunks_counted": 2,
+                     "shadow_chunks": 0, "shadow_chunks_baseline": 0,
+                     "shadow_chunks_counted": 0}
+
+    def bits(x):
+        return x.view(torch.int32)
+    assert torch.equal(hid, id_b) and torch.equal(bits(t), bits(t_b))
+    assert torch.equal(id_c, hid) and torch.equal(bits(t_c), bits(t))
+    assert torch.equal(id_bc, id_b) and torch.equal(bits(t_bc), bits(t_b))
+    assert int((hid.long() != idp).sum()) <= 1e-5 * n
+    assert int((idp >= 0).sum()) > 0
+    assert st["hit"]["need"] == st_t["hit"]["need"] == int(spheres.sum())
+    assert st_t["hit"]["slabs"] == int(slabs.sum())
+    assert st["hit"]["lanes"] == st_t["hit"]["lanes"] == n
+    assert st["groups"]["slabs"] == n * port.shadow_index.gbox.shape[0]
+    assert 0 < st["hit"]["simt_efficiency"] <= 1
+
+
 def test_shadow_chunks_kernel_matches_plain(card):
     scene = make_scaled_scene(n=3000, chunk=256, extent=40.0).to(card)
     ro, _ = random_rays(card, 8192, 3)
@@ -383,6 +438,7 @@ def test_coop_shadow_kernel_bit_equal_to_thread_kernel(card, n, n_lights):
     after = {k: cuda_scaled.launches[k] - before[k] for k in before}
     assert after == {"scaled_render": 0, "scaled_render_lane": 0,
                      "scaled_render_stats": 0, "hit_chunks": 0,
+                     "hit_chunks_baseline": 0, "hit_chunks_counted": 0,
                      "shadow_chunks": 1, "shadow_chunks_baseline": 1,
                      "shadow_chunks_counted": 2}
     assert torch.equal(bits, base)
@@ -436,6 +492,7 @@ def test_scaled_render_forms_bit_equal(card, frame):
     after = {k: cuda_scaled.launches[k] - before[k] for k in before}
     assert after == {"scaled_render": 1, "scaled_render_lane": 1,
                      "scaled_render_stats": 0, "hit_chunks": 0,
+                     "hit_chunks_baseline": 0, "hit_chunks_counted": 0,
                      "shadow_chunks": 0, "shadow_chunks_baseline": 0,
                      "shadow_chunks_counted": 0}
     assert torch.isfinite(img).all() and int(rays) > 176 * 320

@@ -29,6 +29,7 @@ NaN t_l, origins inside a light's chunk, a tail of 45 rays.
 """
 
 import ctypes
+import functools
 import shutil
 import subprocess
 
@@ -301,6 +302,105 @@ extern "C" int tpt_coop_shadow_cpu(const float* rows, const int32_t* order,
                                           n_l, n, t_min, out, width);
 }
 
+// K5's cooperative routine over n rays in a warp of `width` lanes (1: the
+// one-lane warp; 32: 32 host threads), box holding the chunk boxes in the
+// rows' order and gbox the group boxes over `order`, with the threshold
+// kHitCoopMin (mode 0), 1 (mode 1: every entered chunk run by its lanes'
+// own loops) or 33 (mode 2: every one decided by the whole warp).  Returns
+// 0, or -1 if the warp stalled.
+template <int kMin>
+int coop_hit(const tpt::CoopView& V, const int32_t* order,
+             const tpt::Sphere4* rec, const float* ro, const float* rd, int n,
+             float t_min, float t_max, float* t, int32_t* id, int width) {
+  int next = 0;
+  std::vector<unsigned> mask(tpt::chunk_words(V.n_chunks));
+  if (width == 1) {
+    tpt::HostLane w;
+    tpt::NoCoopCount none;
+    tpt::hit_chunks_warp<kMin>(w, V, order, rec, mask.data(), ro, rd, n,
+                               t_min, t_max, &next, t, id, none);
+    return 0;
+  }
+  tpt::Lanes lanes;
+  std::vector<std::thread> threads;
+  for (int l = 0; l < 32; ++l)
+    threads.emplace_back([&, l] {
+      tpt::ThreadWarp w{&lanes, l};
+      tpt::NoCoopCount none;
+      tpt::hit_chunks_warp<kMin>(w, V, order, rec, mask.data(), ro, rd, n,
+                                 t_min, t_max, &next, t, id, none);
+    });
+  for (auto& th : threads) th.join();
+  return lanes.broken ? -1 : 0;
+}
+
+extern "C" int tpt_coop_hit_cpu(const float* rows, const int32_t* order,
+                                const float* rec4, const float* box,
+                                const float* gbox, int G, int C, int K,
+                                const float* ro, const float* rd, int n,
+                                float t_min, float t_max, float* t,
+                                int32_t* id, int width, int mode) {
+  tpt::CoopView V;
+  static_cast<tpt::ChunkedView&>(V) = view(rows, box, C, K);
+  V.gbox = gbox;
+  V.n_groups = G;
+  V.nee = nullptr;
+  const tpt::Sphere4* rec = reinterpret_cast<const tpt::Sphere4*>(rec4);
+  if (mode == 1)
+    return coop_hit<1>(V, order, rec, ro, rd, n, t_min, t_max, t, id, width);
+  if (mode == 2)
+    return coop_hit<33>(V, order, rec, ro, rd, n, t_min, t_max, t, id, width);
+  return coop_hit<tpt::kHitCoopMin>(V, order, rec, ro, rd, n, t_min, t_max, t,
+                                    id, width);
+}
+
+// K5's prefilter for each ray alone (a one-lane warp) against the chunks
+// hit_chunks_ray enters: counts[0] the entered chunks the mask lacks,
+// counts[1] the entered chunks, counts[2] the mask's chunks, summed over
+// the rays.
+struct EnterLog {
+  static constexpr bool kOn = true;
+  std::vector<int> entered;
+  int c = 0;
+  void call(bool) {}
+  void chunk(bool, bool e, int) {
+    if (e) entered.push_back(c);
+    ++c;
+  }
+};
+
+extern "C" void tpt_hit_mask_cpu(const float* rows, const int32_t* order,
+                                 const float* box, const float* gbox, int G,
+                                 int C, int K, const float* ro,
+                                 const float* rd, int n, float t_min,
+                                 float t_max, long long* counts) {
+  tpt::CoopView V;
+  static_cast<tpt::ChunkedView&>(V) = view(rows, box, C, K);
+  V.gbox = gbox;
+  V.n_groups = G;
+  V.nee = nullptr;
+  std::vector<unsigned> mask(tpt::chunk_words(C));
+  counts[0] = counts[1] = counts[2] = 0;
+  for (int i = 0; i < n; ++i) {
+    const tpt::V3 o = tpt::v3(ro[i], ro[n + i], ro[2 * n + i]);
+    const tpt::V3 d = tpt::v3(rd[i], rd[n + i], rd[2 * n + i]);
+    const tpt::V3 inv = tpt::v3(tpt::safe_inv(d.x), tpt::safe_inv(d.y),
+                                tpt::safe_inv(d.z));
+    const bool part = !tpt::any_nan(o) && !tpt::any_nan(inv);
+    tpt::HostLane w;
+    tpt::NoCoopCount none;
+    tpt::hit_prefilter(w, V, order, part, o, inv, t_min, t_max, mask.data(),
+                       none);
+    EnterLog log;
+    float t;
+    tpt::hit_chunks_ray(V, o, d, t_min, t_max, t, log);
+    for (int c : log.entered)
+      if (!((mask[c / 32] >> (c % 32)) & 1u)) ++counts[0];
+    counts[1] += static_cast<long long>(log.entered.size());
+    for (unsigned word : mask) counts[2] += __builtin_popcount(word);
+  }
+}
+
 // (ray, chunk) pairs where the chunk's slab test passes and its group's
 // fails (counts[0]), and where the chunk's passes (counts[1]), for rays
 // against (t_min, t1[i]).
@@ -362,6 +462,11 @@ def host_lib(tmp_path_factory):
     lib.tpt_warp_occ_cpu.argtypes = lib.tpt_occ_cpu.argtypes
     lib.tpt_group_check_cpu.argtypes = [ptr, ptr, i32, i32, ptr, ptr, ptr,
                                         i32, f32, ptr]
+    lib.tpt_coop_hit_cpu.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                     ptr, ptr, i32, f32, f32, ptr, ptr, i32,
+                                     i32]
+    lib.tpt_hit_mask_cpu.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr,
+                                     ptr, i32, f32, f32, ptr]
     return lib
 
 
@@ -804,3 +909,269 @@ def test_merged_render_bit_equal_to_per_lane(host_lib, n, chunk, extent, nee,
     assert want.max() > 0.05 and rays > 2 * h * w
     np.testing.assert_array_equal(got, want)
     assert mrays == rays
+
+
+# ---- K5's cooperative routine (hit_chunks_warp) ----------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def field_100k():
+    """The 100k-sphere scene's rows (391 chunks of 256, 25 groups)."""
+    return pack_chunks(make_scaled_scene(100_000)).numpy()
+
+
+def camera_rays_100k(px, py):
+    """Frame 0's first camera rays of pixels (px, py) at 1280x720 on the
+    100k scene, as the render draws them."""
+    from toypathtracer_torch.tools.shadow_stats import camera_rays
+    cfg = RenderConfig(width=1280, height=720, samples_per_pixel=4,
+                       max_depth=10)
+    ro, rd, _ = camera_rays(make_scaled_scene(100_000), cfg, 0,
+                            torch.as_tensor(px), torch.as_tensor(py))
+    return (np.ascontiguousarray(torch.stack(ro).numpy()),
+            np.ascontiguousarray(torch.stack(rd).numpy()))
+
+
+def set_box(rows, K, c):
+    """Chunk c's box in its row, from its spheres."""
+    ctr = rows[c, :3 * K].reshape(3, K)
+    r = np.sqrt(rows[c, 3 * K:4 * K])
+    rows[c, 4 * K:4 * K + 3] = (ctr - r).min(axis=1)
+    rows[c, 4 * K + 3:4 * K + 6] = (ctr + r).max(axis=1)
+
+
+def aimed_rays(center, rng, n):
+    """Rays aimed at `center` from around it (above the ground)."""
+    ro = (center[:, None]
+          + rng.normal(0, 1, (3, n)) * rng.uniform(2, 12, n)
+          ).astype(np.float32)
+    ro[1] = np.abs(ro[1]) + 0.5
+    d = (center[:, None] + rng.normal(0, 0.05, (3, n)) - ro).astype(np.float32)
+    return ro, (d / np.sqrt((d * d).sum(axis=0))).astype(np.float32)
+
+
+def hit_inputs(name):
+    """(rows, ro, rd, check) of K5's g++ cases; the last 45 rays are the
+    32-lane warp's (a full batch and a 13-ray tail)."""
+    rng = np.random.default_rng(31)
+    if name == "camera_100k":
+        # every 24th pixel of the frame, then 45 consecutive ones of a row
+        yy, xx = np.meshgrid(np.arange(0, 720, 24), np.arange(0, 1280, 24),
+                             indexing="ij")
+        px = np.concatenate([xx.ravel(), np.arange(600, 645)])
+        py = np.concatenate([yy.ravel(), np.full(45, 361)])
+        return (field_100k(), *camera_rays_100k(px, py), None)
+    if name == "origins_in_chunk0_100k":
+        # origins inside chunk 0's box (it holds the 8 beacons and spans
+        # the field): at the beacons' centers, inside their spheres, and
+        # among the field's spheres
+        rows = field_100k()
+        K = 256
+        n = 1024
+        ro = rng.uniform((-150.0, 0.2, -150.0), (150.0, 14.0, 150.0),
+                         (n, 3)).astype(np.float32).T.copy()
+        beacons = rows[0, :3 * K].reshape(3, K)[:, :8]
+        ro[:, -8:] = beacons
+        ro[:, -16:-8] = beacons + np.float32(1.0)
+        d = rng.normal(size=(3, n)).astype(np.float32)
+        rd = (d / np.sqrt((d * d).sum(axis=0))).astype(np.float32)
+        lo, hi = rows[0, 4 * K:4 * K + 3], rows[0, 4 * K + 3:4 * K + 6]
+        assert ((ro >= lo[:, None]) & (ro <= hi[:, None])).all(axis=0).mean() \
+            > 0.5
+        return rows, np.ascontiguousarray(ro), rd, None
+    scene = make_scaled_scene(n=3000, chunk=32, extent=40.0)
+    rows, _ = chunk_inputs(scene)
+    K = 32
+    if name == "random":
+        # scaled_rays: the last 10 are the axis rays, a NaN direction
+        # component, a NaN origin, zero and -0.0 components
+        ro, rd = scaled_rays(4096)
+        return rows, ro, rd, None
+    if name == "ties_across_groups":
+        # sphere 5 of chunk 60 copied over sphere 9 of chunk 7, whose
+        # group in the spatial order is another: equal roots in two
+        # chunks, and the lower id (chunk 7's) has to win
+        c1, j1, c2, j2 = 60, 5, 7, 9
+        for q in range(4):
+            rows[c2, q * K + j2] = rows[c1, q * K + j1]
+        set_box(rows, K, c2)
+        order = shadow_index(torch.from_numpy(rows), K).order.numpy()
+        pos = np.argsort(order)
+        assert pos[c1] // 16 != pos[c2] // 16
+        ro, rd = aimed_rays(rows[c1, [j1, K + j1, 2 * K + j1]], rng, 1024)
+        return rows, ro, rd, ("first", c2 * K + j2, c1 * K + j1)
+    if name == "ties_within_chunk":
+        rows, _, ro, rd, first = tie_inputs()
+        return rows, ro, rd, ("first", first, None)
+    # grazing: tangent to spheres (offset by a few ulps either way), then
+    # in the planes of chunk box faces and along their edges, from just
+    # inside, on and just outside them
+    real = np.nonzero(rows[:, 3 * K:4 * K].ravel() > 0)[0]
+    n = 2048
+    idx = rng.choice(real, n)
+    ctr = np.stack([rows[:, q * K:(q + 1) * K].ravel()[idx]
+                    for q in range(3)])
+    r = np.sqrt(rows[:, 3 * K:4 * K].ravel()[idx])
+    d = rng.normal(size=(3, n))
+    d /= np.sqrt((d * d).sum(axis=0))
+    u = rng.normal(size=(3, n))
+    u -= (u * d).sum(axis=0) * d
+    u /= np.sqrt((u * u).sum(axis=0))
+    scale = 1.0 + rng.choice([-3e-7, -1e-7, 0.0, 1e-7, 3e-7], n)
+    ro = (ctr + u * r * scale - d * rng.uniform(1, 40, n)).astype(np.float32)
+    rd = d.astype(np.float32)
+    m = 512
+    c = rng.integers(0, rows.shape[0] - 1, m)
+    box = rows[c, 4 * K:4 * K + 6].T
+    axis = rng.integers(0, 3, m)
+    side = rng.integers(0, 2, m)
+    fo = np.stack([rng.uniform(box[a], box[a + 3]) for a in range(3)])
+    fd = rng.normal(size=(3, m))
+    for k in range(m):
+        a = axis[k]
+        plane = np.float32(box[a + 3 * side[k], k])
+        fo[a, k] = np.nextafter(plane, np.float32(
+            [-np.inf, 0, np.inf][k % 3]), dtype=np.float32) \
+            if k % 3 != 1 else plane
+        fd[a, k] = [0.0, -0.0][k % 2]
+        if k % 5 == 0:  # along an edge: a second face's plane too
+            b = (a + 1) % 3
+            fo[b, k] = box[b + 3 * (k % 2), k]
+            fd[b, k] = 0.0
+    fd /= np.sqrt((fd * fd).sum(axis=0))
+    # back off along the ray: the face coordinates stay (their d is 0)
+    fo = (fo - fd * rng.uniform(1, 30, m)).astype(np.float32)
+    ro = np.concatenate([ro, fo], axis=1)
+    rd = np.concatenate([rd, fd.astype(np.float32)], axis=1)
+    return rows, np.ascontiguousarray(ro), np.ascontiguousarray(rd), None
+
+
+def hit_sequential(lib, rows, ro, rd, K, t_max=1e7):
+    n = ro.shape[1]
+    t = np.zeros(n, np.float32)
+    hid = np.zeros(n, np.int32)
+    box = np.ascontiguousarray(rows[:, 4 * K:4 * K + 6])
+    lib.tpt_hit_cpu(c_ptr(rows), c_ptr(box), rows.shape[0], K, c_ptr(ro),
+                    c_ptr(rd), n, 1e-3, t_max, c_ptr(t), c_ptr(hid))
+    return t, hid
+
+
+def hit_coop(lib, rows, ro, rd, K, width, mode, t_max=1e7):
+    """K5's cooperative routine with the rows' shadow_index, as
+    ops/cuda_scaled passes it."""
+    n = ro.shape[1]
+    t = np.full(n, np.nan, np.float32)
+    hid = np.full(n, -2, np.int32)
+    index = shadow_index(torch.from_numpy(rows), K)
+    order, rec, gbox = (x.numpy() for x in (index.order, index.rec,
+                                            index.gbox))
+    box = np.ascontiguousarray(rows[:, 4 * K:4 * K + 6])
+    code = lib.tpt_coop_hit_cpu(
+        c_ptr(rows), c_ptr(order), c_ptr(rec), c_ptr(box), c_ptr(gbox),
+        gbox.shape[0], rows.shape[0], K, c_ptr(ro), c_ptr(rd), n, 1e-3,
+        t_max, c_ptr(t), c_ptr(hid), width, mode)
+    assert code == 0, "a 32-lane warp stalled at a collective"
+    return t, hid
+
+
+HIT_INPUTS = ["camera_100k", "origins_in_chunk0_100k", "random",
+              "ties_across_groups", "ties_within_chunk", "grazing"]
+HIT_WARPS = {  # (warp width, coop_hit_cpu mode, rays: all or the last 45)
+    "one_lane": (1, 0, None),
+    "32_lanes_tail45": (32, 0, 45),
+    "32_lanes_tail45-own_loops": (32, 1, 45),
+    "32_lanes_tail45-votes": (32, 2, 45),
+}
+HIT_CASES = [(i, w) for i in HIT_INPUTS for w in ("one_lane",
+                                                  "32_lanes_tail45")] + [
+    ("random", "32_lanes_tail45-own_loops"),
+    ("random", "32_lanes_tail45-votes"),
+    ("ties_within_chunk", "32_lanes_tail45-votes")]
+
+
+@pytest.mark.parametrize("inputs,warp", HIT_CASES)
+def test_coop_hit_bit_equal_to_hit_chunks_ray(host_lib, inputs, warp):
+    """K5's cooperative routine against hit_chunks_ray (PR 3's K5): ids and
+    t bit for bit, in a one-lane warp and in a warp of 32 host threads
+    (with its own threshold, and forced to run every entered chunk by its
+    lanes' own loops or by the whole warp's votes), on the 100k scene's
+    camera rays and origins inside chunk 0's box, and on a field of 94
+    chunks in 6 groups: random rays with NaN and zero direction
+    components, equal roots in two chunks of different groups and within
+    one chunk (the first wins), rays grazing spheres and chunk boxes."""
+    rows, ro, rd, check = hit_inputs(inputs)
+    width, mode, tail = HIT_WARPS[warp]
+    if tail:
+        ro = np.ascontiguousarray(ro[:, -tail:])
+        rd = np.ascontiguousarray(rd[:, -tail:])
+    K = (rows.shape[1] - 8) // 4
+    t_s, id_s = hit_sequential(host_lib, rows, ro, rd, K)
+    t_w, id_w = hit_coop(host_lib, rows, ro, rd, K, width, mode)
+    np.testing.assert_array_equal(id_w, id_s)
+    np.testing.assert_array_equal(t_w.view(np.int32), t_s.view(np.int32))
+    assert (id_s >= 0).mean() > 0.05
+    if check and not tail:
+        _, first, second = check
+        assert (id_s == first).mean() > 0.5
+        if second is not None:
+            assert not (id_s == second).any()
+
+
+@pytest.mark.parametrize("inputs", ["camera_100k", "random", "grazing"])
+def test_hit_prefilter_keeps_every_entered_chunk(host_lib, inputs):
+    """The prefilter's chunk mask, each ray alone, holds every chunk that
+    hit_chunks_ray enters, and far fewer than all chunks on the 100k
+    scene's camera rays."""
+    rows, ro, rd, _ = hit_inputs(inputs)
+    K = (rows.shape[1] - 8) // 4
+    index = shadow_index(torch.from_numpy(rows), K)
+    order, gbox = index.order.numpy(), index.gbox.numpy()
+    box = np.ascontiguousarray(rows[:, 4 * K:4 * K + 6])
+    counts = np.zeros(3, np.int64)
+    n = ro.shape[1]
+    host_lib.tpt_hit_mask_cpu(c_ptr(rows), c_ptr(order), c_ptr(box),
+                              c_ptr(gbox), gbox.shape[0], rows.shape[0], K,
+                              c_ptr(ro), c_ptr(rd), n, 1e-3, 1e7,
+                              c_ptr(counts))
+    missing, entered, kept = counts
+    assert missing == 0 and entered > n
+    if inputs == "camera_100k":
+        assert kept < 0.4 * rows.shape[0] * n
+
+
+def test_hit_stats_plain_counts(host_lib):
+    """tools.hit_stats' counts from the plain slab chain, on the CPU at the
+    94-chunk field: the chunk boxes a ray crosses are the ones
+    hit_chunks_ray's counter sees it enter at its initial bound (at least
+    those it enters under its running best), the groups a warp enters
+    hold those its rays enter, and the spatial order's groups are entered
+    less often than the rows' order's."""
+    from toypathtracer_torch.scaled import ChunkedScenePort
+    from toypathtracer_torch.tools import hit_stats
+    scene = make_scaled_scene(n=3000, chunk=32, extent=40.0)
+    port = ChunkedScenePort(scene)
+    rows = port.rows.numpy()
+    ro, rd = scaled_rays(2048)
+    ro, rd = ro[:, :2048], rd[:, :2048]   # no NaN rays: 64 full warps
+    cfg = RenderConfig(width=64, height=32)
+    _, hid = hit_sequential(host_lib, rows, ro, rd, 32, t_max=cfg.max_t)
+    res = hit_stats.plain_counts(
+        port, tuple(torch.from_numpy(ro)), tuple(torch.from_numpy(rd)),
+        torch.from_numpy(hid).long(), cfg)
+    n = ro.shape[1]
+    work = np.zeros((2, n), np.int64)
+    box = np.ascontiguousarray(rows[:, 4 * 32:4 * 32 + 6])
+    t = np.zeros(n, np.float32)
+    host_lib.tpt_hit_counted_cpu(c_ptr(rows), c_ptr(box), rows.shape[0], 32,
+                                 c_ptr(ro), c_ptr(rd), n, 1e-3, cfg.max_t,
+                                 c_ptr(t), c_ptr(hid), c_ptr(work))
+    entered = work[1].sum() / 32 / n
+    assert res["chunk_boxes_crossed_per_ray"] >= entered > 0
+    assert res["rays_hit"] == pytest.approx(float((hid >= 0).mean()))
+    assert 0 < res["rays_entering_chunk0"] <= 1
+    g = res["groups"]
+    for k in g:
+        assert 0 < g[k]["entered_per_ray"] <= g[k]["entered_per_warp"] \
+            <= g[k]["of"]
+    assert g["groups_index_order"]["entered_per_ray"] < \
+        g["groups_rows_order"]["entered_per_ray"]

@@ -34,7 +34,9 @@
 //      group's, and a child that passes has a group that passes.
 // The NEE occlusion kernel K6 (coop_shadow_kernel) runs the same walk on
 // its own rays: shadow_chunks_warp below, over a spatial order of the
-// chunks and with each light's chunk last.
+// chunks and with each light's chunk last.  The chunk-traversal kernel K5
+// (coop_hit_kernel) runs hit_chunks_warp below: the chunks in the rows'
+// order, but only those of the spatial groups that some lane enters.
 // The image and the ray count are bit-equal to the per-lane form: each
 // pixel's samples run in order on the same RNG state, whichever lane takes
 // it, each ray's arithmetic is the same, and each chunk's slab test sees
@@ -65,6 +67,8 @@ constexpr int kCoopMin = 24;
 // The same threshold for K6's rays (shadow_chunks_warp; the fastest of
 // 16, 20, 24, 28 and 32 in its timings on an H100, 28 and 32 alike).
 constexpr int kShadowCoopMin = 28;
+// The same threshold for K5's rays (hit_chunks_warp).
+constexpr int kHitCoopMin = 24;
 // Chunks under one group box.
 constexpr int kGroup = 16;
 
@@ -480,6 +484,199 @@ TPT_WARP void shadow_chunks_warp(const W& w, const CoopView& V,
       if (occ) bits |= 1 << k;
     }
     if (valid) out[i] = bits;
+  }
+}
+
+// Spheres j = j0, j0 + step, ... of a chunk's 16-byte records r (K of them)
+// for one ray, as nearest_in_chunk: lowers t to the nearest root below it
+// (strict `<`) and returns that sphere's index, or K if none is below it.
+// sphere_root's arithmetic, operation for operation, with the root taken
+// only where discr > 0: elsewhere sphere_root's answer is false whatever
+// the root, so the result is the same and a warp whose lanes all miss a
+// sphere skips the square root.
+TPT_HD int nearest_in_records(const Sphere4* r, int K, int j0, int step,
+                              V3 ro, V3 rd, float t_min, float& t) {
+  int jw = K;
+  for (int j = j0; j < K; j += step) {
+    const Sphere4 sp = r[j];
+    const float cox = sp.x - ro.x;
+    const float coy = sp.y - ro.y;
+    const float coz = sp.z - ro.z;
+    const float nb = cox * rd.x + coy * rd.y + coz * rd.z;
+    const float cq = cox * cox + coy * coy + coz * coz - sp.r2;
+    const float discr = nb * nb - cq;
+    if (discr > 0.0f) {
+      const float ds = sqrtf(discr);
+      const float r0 = nb - ds;
+      const float tt = r0 > t_min ? r0 : nb + ds;
+      if (tt > t_min && tt < t) {
+        t = tt;
+        jw = j;
+      }
+    }
+  }
+  return jw;
+}
+
+// K5's counters: the prefilter's group boxes go to the shadow kind's box
+// slots (K5 traces no shadow rays), the chunk walk to the hit kind's.
+constexpr int kStGroupBoxes = kStKind + kStBoxes;
+constexpr int kStGroupSlabs = kStKind + kStSlabs;
+
+// Words of K5's chunk mask for n_chunks chunks (hit_chunks_warp's `mask`).
+TPT_HD int chunk_words(int n_chunks) { return (n_chunks + 31) / 32; }
+
+// K5's exact prefilter for the warp: sets `mask` (chunk_words(V.n_chunks)
+// words, this warp's scratch) to the chunks of every group of kGroup
+// consecutive chunks of `order` (V.gbox holds their boxes) whose box some
+// lane with `part` set enters at its initial bound (t_min, t_max).  A chunk
+// left out fails its own slab test at every t1 <= t_max, for every lane:
+// its group's box holds its box, so its slab interval lies inside its
+// group's (item 4 above), and a slab test passes for t1 if it passes for a
+// smaller one.  Every lane calls it.
+template <class W, class Cnt>
+TPT_WARP void hit_prefilter(const W& w, const CoopView& V,
+                            const int32_t* order, bool part, V3 o, V3 inv,
+                            float t_min, float t_max, unsigned* mask,
+                            Cnt& cnt) {
+  const int WD = W::kWidth;
+  const int words = chunk_words(V.n_chunks);
+  for (int q = w.lane(); q < words; q += WD) mask[q] = 0u;
+  w.sync();
+  if constexpr (Cnt::kOn) {
+    const unsigned pm = w.ballot(part);
+    if (pm) {
+      cnt.add(kStGroupBoxes, V.n_groups);
+      cnt.add(kStGroupSlabs,
+              static_cast<unsigned long long>(popc(pm)) * V.n_groups);
+    }
+  }
+  for (int g = 0; g < V.n_groups; ++g) {
+    if (!w.any(part && slab(V.gbox + 6 * g, o, inv, t_min, t_max))) continue;
+    const int end = (g + 1) * kGroup < V.n_chunks ? (g + 1) * kGroup
+                                                  : V.n_chunks;
+    for (int q = g * kGroup + w.lane(); q < end; q += WD) {
+      const int c = order[q];
+      w.or_mask(mask + c / 32, 1u << (c % 32));
+    }
+  }
+  w.sync();
+}
+
+// K5's test of chunk c (records r) against its entering lanes m, each with
+// its own ray (o, d) and best (t, id): as hit_chunks_ray's scan of the
+// chunk.  Many entering lanes run their own loops over the chunk, reading
+// the same sphere (a broadcast); few are decided one at a time by the
+// whole warp, spheres lane, lane + 32, ... a lane, and the butterfly over
+// (t, j), least t and then least j, that nearest_hit_warp uses.
+template <int kMin, class W, class Cnt>
+TPT_WARP void hit_chunk_test(const W& w, const Sphere4* r, int K, int c,
+                             unsigned m, V3 o, V3 d, float t_min, float& t,
+                             int& id, Cnt& cnt) {
+  const int lane = w.lane();
+  const int n = popc(m);
+  if constexpr (Cnt::kOn)
+    cnt.add(kStNeed, static_cast<unsigned long long>(n) * K);
+  if (n >= kMin) {
+    if ((m >> lane) & 1u) {
+      const int j = nearest_in_records(r, K, 0, 1, o, d, t_min, t);
+      if (j < K) id = c * K + j;
+    }
+    if constexpr (Cnt::kOn) cnt.add(kStTrips, K);
+    return;
+  }
+  while (m) {
+    const int L = lowest(m);
+    m &= m - 1;
+    const V3 oL = v3(w.shfl(o.x, L), w.shfl(o.y, L), w.shfl(o.z, L));
+    const V3 dL = v3(w.shfl(d.x, L), w.shfl(d.y, L), w.shfl(d.z, L));
+    float bt = w.shfl(t, L);
+    int bj = nearest_in_records(r, K, lane, W::kWidth, oL, dL, t_min, bt);
+    for (int off = W::kWidth / 2; off > 0; off >>= 1)
+      coop_combine(bt, bj, w.shfl_xor(bt, off), w.shfl_xor(bj, off));
+    if (lane == L && bj < K) {
+      t = bt;
+      id = c * K + bj;
+    }
+    if constexpr (Cnt::kOn)
+      cnt.add(kStTrips, (K + W::kWidth - 1) / W::kWidth);
+  }
+}
+
+// The chunk-traversal kernel K5 (csrc/scaled.cu's coop_hit_kernel) for the
+// warp: it takes batches of W::kWidth consecutive rays from the
+// launch-wide counter *next (zeroed by the caller), a ray a lane, and
+// writes each ray's nearest hit as hit_chunks_ray does: out_t (t_max on a
+// miss) and out_id (the global id, -1 on a miss).  ro, rd: (3, n) planes;
+// rec: the spheres' (x, y, z, r^2) records, chunk by chunk; V.box: the
+// chunk boxes in the rows' order; V.gbox: the group boxes over `order`
+// (scaled.shadow_index's spatial order); mask: this warp's
+// chunk_words(V.n_chunks) words of scratch.  Lanes past n take part in
+// every collective with no ray.
+// The prefilter (hit_prefilter) keeps the chunks of the spatial groups
+// that some lane enters; the warp then walks the kept chunks in ascending
+// index, the rows' order, each lane slab-testing each against its own
+// running best and a ballot skipping the chunk where no lane entered it.
+// So every lane tests the chunks that hit_chunks_ray enters, in the same
+// order, against the same running t, with the same arithmetic: the ids and
+// t are hit_chunks_ray's, ties and grazing roots included.  (A walk in the
+// spatial order with a (t, id) combine would not be: a sphere's computed
+// root can lie below its box's computed entry where nb^2 - cq cancels, and
+// a running t from a later chunk would then cut a chunk whose hit
+// hit_chunks_ray finds.)
+template <int kMin, class W, class Cnt>
+TPT_WARP void hit_chunks_warp(const W& w, const CoopView& V,
+                              const int32_t* order, const Sphere4* rec,
+                              unsigned* mask, const float* ro,
+                              const float* rd, int n, float t_min,
+                              float t_max, int* next, float* out_t,
+                              int32_t* out_id, Cnt& cnt) {
+  const int WD = W::kWidth;
+  const int K = V.chunk;
+  const int words = chunk_words(V.n_chunks);
+  const int n_batches = (n + WD - 1) / WD;
+  for (int b = w.grab(next); b < n_batches; b = w.grab(next)) {
+    const int i = b * WD + w.lane();
+    const bool valid = i < n;
+    V3 o = v3(0.0f, 0.0f, 0.0f), d = v3(0.0f, 0.0f, 0.0f);
+    if (valid) {
+      o = v3(ro[i], ro[n + i], ro[2 * n + i]);
+      d = v3(rd[i], rd[n + i], rd[2 * n + i]);
+    }
+    const V3 inv = v3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
+    const bool part = valid && !any_nan(o) && !any_nan(inv);
+    if constexpr (Cnt::kOn) {
+      const unsigned pm = w.ballot(part);
+      if (pm) {
+        cnt.add(kStCalls, 1);
+        cnt.add(kStLanes, popc(pm));
+      }
+    }
+    float t = t_max;
+    int id = -1;
+    hit_prefilter(w, V, order, part, o, inv, t_min, t_max, mask, cnt);
+    for (int q = 0; q < words; ++q) {
+      for (unsigned bits = mask[q]; bits; bits &= bits - 1) {
+        const int c = 32 * q + lowest(bits);
+        if constexpr (Cnt::kOn) {
+          const unsigned pm = w.ballot(part);
+          if (pm) {
+            cnt.add(kStBoxes, 1);
+            cnt.add(kStSlabs, popc(pm));
+          }
+        }
+        const unsigned m =
+            w.ballot(part && slab(V.box + 6 * c, o, inv, t_min, t));
+        if (m) hit_chunk_test<kMin>(w, rec + c * K, K, c, m, o, d, t_min, t,
+                                    id, cnt);
+      }
+    }
+    if (valid) {
+      out_t[i] = t;
+      out_id[i] = id;
+    }
+    // every lane has read the mask before the next batch clears it
+    w.sync();
   }
 }
 

@@ -1,8 +1,8 @@
 // The scaled scene's kernels for NVIDIA Hopper (sm_90a): the chunk
-// traversal K5, the fused shadow test K6 in two forms, and the scaled
-// render kernel in two forms.
+// traversal K5, the fused shadow test K6 and the scaled render kernel, each
+// in two forms.
 //
-// K5 hit_chunks_kernel replaces toypathtracer_tpu/ops/scaled_pallas.py::
+// K5 replaces toypathtracer_tpu/ops/scaled_pallas.py::
 // _hit_kernel, K6 replaces ::_shadow_kernel (bit k of a ray's mask = light
 // k occluded), and the scaled render kernel replaces the whole of
 // toypathtracer_tpu/scaled.py::_render_frame_scaled_pallas, the jnp
@@ -25,6 +25,17 @@
 // that also counts the traversal's work per warp (merged.cuh kSt*): the
 // sphere-loop trips the warp ran against the sphere tests its lanes needed.
 //
+// K5 on the main path is coop_hit_kernel: persistent 128-thread blocks
+// whose warps take 32 consecutive rays and run coop.cuh's hit_chunks_warp.
+// PR 3's hit_chunks_kernel (a thread a ray, every chunk box in the rows'
+// order) slab-tested all 391 chunk boxes of the 100k scene for a camera
+// ray that crosses ~3; the cooperative form first tests the 25 boxes of
+// groups of 16 chunks in a spatial order (scaled.shadow_index) and walks,
+// in the rows' order, only the chunks of the groups some lane enters, so
+// its ids and t are PR 3's bit for bit; it reads the spheres as 16-byte
+// records.  hit_chunks_kernel stays as the baseline it is held bit-equal
+// to and timed against; both have counted instances.
+//
 // K6 on the main path is coop_shadow_kernel, for the same reason:
 // persistent 128-thread blocks whose warps take 32 consecutive rays and
 // decide each light's pairs with coop.cuh's walk (the group boxes, the
@@ -35,8 +46,8 @@
 // it is held bit-equal to and timed against.  Both have counted
 // instances.
 //
-// One thread per ray (K5, K6's baseline; 128-thread blocks) or per pixel
-// (the per-lane render kernel; 16x8 blocks; the ray count reduced as
+// One thread per ray (K5's and K6's baselines; 128-thread blocks) or per
+// pixel (the per-lane render kernel; 16x8 blocks; the ray count reduced as
 // csrc/render.cu does, in both render kernels).  Each block stages the
 // chunk AABBs (24 bytes a chunk: 9.4 KB at 100k spheres in 391 chunks),
 // and the render kernels also the emissive ids and the camera, the
@@ -137,6 +148,81 @@ struct LaneStats {
 #endif
   }
 };
+
+// K5's per-thread form's counted instance: hit_chunks_kernel with the
+// traversal's LaneStats (kStSlots totals added to `stats`).
+__global__ void __launch_bounds__(kRayThreads)
+hit_chunks_counted_kernel(const float* __restrict__ rows, int n_chunks,
+                          int chunk, const float* __restrict__ ro,
+                          const float* __restrict__ rd, int n, float t_min,
+                          float t_max, float* __restrict__ out_t,
+                          int32_t* __restrict__ out_id,
+                          unsigned long long* __restrict__ stats) {
+  extern __shared__ float s_box[];
+  stage_boxes(rows, n_chunks, chunk, s_box, threadIdx.x, blockDim.x);
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const tpt::ChunkedView V = rows_view(rows, s_box, n_chunks, chunk);
+  // every lane reaches the flush's full-warp shuffles
+  LaneStats ls(threadIdx.x);
+  if (i < n) {
+    float t;
+    out_id[i] = tpt::hit_chunks_ray(
+        V, tpt::v3(ro[i], ro[n + i], ro[2 * n + i]),
+        tpt::v3(rd[i], rd[n + i], rd[2 * n + i]), t_min, t_max, t, ls);
+    out_t[i] = t;
+  }
+  tpt::flush_loop_stats(ls.v, stats, threadIdx.x);
+}
+
+// K5 on the main path: persistent 128-thread blocks whose warps take 32
+// consecutive rays at a time from *next (zeroed by the caller) and run
+// coop.cuh's hit_chunks_warp: the group boxes gbox over the walk order
+// `order` (scaled.shadow_index) as the prefilter, then the kept chunks in
+// the rows' order, the spheres read as 16-byte records (rec, in the rows'
+// order).  Dynamic shared memory: [chunk boxes in the rows' order] [group
+// boxes] [walk order] [each warp's chunk mask].  kStats: its counted
+// instance (coop.cuh's counters, kStSlots totals added to `stats`).
+template <bool kStats>
+__global__ void __launch_bounds__(kRayThreads)
+coop_hit_kernel(const float* __restrict__ rows,
+                const int32_t* __restrict__ order,
+                const tpt::Sphere4* __restrict__ rec,
+                const float* __restrict__ gbox, int n_groups, int n_chunks,
+                int chunk, const float* __restrict__ ro,
+                const float* __restrict__ rd, int n, float t_min,
+                float t_max, int* __restrict__ next,
+                float* __restrict__ out_t, int32_t* __restrict__ out_id,
+                unsigned long long* __restrict__ stats) {
+  extern __shared__ float s_box[];
+  float* s_gbox = s_box + 6 * n_chunks;
+  int32_t* s_order = reinterpret_cast<int32_t*>(s_gbox + 6 * n_groups);
+  unsigned* s_mask = reinterpret_cast<unsigned*>(s_order + n_chunks);
+  const int tid = threadIdx.x;
+  stage_boxes(rows, n_chunks, chunk, s_box, tid, kRayThreads);
+  for (int i = tid; i < 6 * n_groups; i += kRayThreads) s_gbox[i] = gbox[i];
+  for (int i = tid; i < n_chunks; i += kRayThreads) s_order[i] = order[i];
+  __syncthreads();
+  tpt::CoopView V;
+  static_cast<tpt::ChunkedView&>(V) = rows_view(rows, s_box, n_chunks, chunk);
+  V.gbox = s_gbox;
+  V.n_groups = n_groups;
+  V.nee = nullptr;
+  unsigned* mask = s_mask + (tid >> 5) * tpt::chunk_words(n_chunks);
+  const tpt::DeviceWarp w(tid);
+  if constexpr (kStats) {
+    tpt::LoopStats cs(tid);
+    tpt::hit_chunks_warp<tpt::kHitCoopMin>(w, V, s_order, rec, mask, ro, rd,
+                                           n, t_min, t_max, next, out_t,
+                                           out_id, cs);
+    tpt::flush_loop_stats(cs.v, stats, tid);
+  } else {
+    tpt::NoCoopCount none;
+    tpt::hit_chunks_warp<tpt::kHitCoopMin>(w, V, s_order, rec, mask, ro, rd,
+                                           n, t_min, t_max, next, out_t,
+                                           out_id, none);
+  }
+}
 
 // K6's per-thread form (the baseline): one thread a ray, occluded_chunks
 // per light.  ro: (3, n); dirs: (n_lights, 3, n); t_ls: (n_lights, n);
@@ -398,27 +484,74 @@ bool bad_chunks(int n_chunks, int chunk) {
 
 extern "C" {
 
-// K5 on `stream` for n rays; returns cudaGetLastError() (0 when the launch
-// was accepted).
+// Group boxes the cooperative kernels take for n_chunks chunks.
+int tpt_scaled_groups(int n_chunks) {
+  return (n_chunks + tpt::kGroup - 1) / tpt::kGroup;
+}
+
+// K5's per-thread form (PR 3's kernel, the baseline) on `stream` for n
+// rays; returns cudaGetLastError() (0 when the launch was accepted).
+// stats: null, or kStSlots zeroed totals that its counted instance adds to.
 int tpt_hit_chunks_launch(const float* rows, int n_chunks, int chunk,
                           const float* ro, const float* rd, int n,
                           float t_min, float t_max, float* out_t,
-                          int32_t* out_id, void* stream) {
+                          int32_t* out_id, unsigned long long* stats,
+                          void* stream) {
   if (bad_chunks(n_chunks, chunk) || n < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const size_t smem = sizeof(float) * 6 * n_chunks;
-  cudaError_t err = tpt::allow_smem(hit_chunks_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  hit_chunks_kernel<<<(n + kRayThreads - 1) / kRayThreads, kRayThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      rows, n_chunks, chunk, ro, rd, n, t_min, t_max, out_t, out_id);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (n + kRayThreads - 1) / kRayThreads;
+  cudaError_t err;
+  if (stats) {
+    err = tpt::allow_smem(hit_chunks_counted_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    hit_chunks_counted_kernel<<<blocks, kRayThreads, smem, s>>>(
+        rows, n_chunks, chunk, ro, rd, n, t_min, t_max, out_t, out_id,
+        stats);
+  } else {
+    err = tpt::allow_smem(hit_chunks_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    hit_chunks_kernel<<<blocks, kRayThreads, smem, s>>>(
+        rows, n_chunks, chunk, ro, rd, n, t_min, t_max, out_t, out_id);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Group boxes the cooperative kernels take for n_chunks chunks.
-int tpt_scaled_groups(int n_chunks) {
-  return (n_chunks + tpt::kGroup - 1) / tpt::kGroup;
+// K5's cooperative form (the main path's) on `stream` for n rays: t and ids
+// into out_t, out_id (n,).  It takes scaled.shadow_index's order
+// (n_chunks,), rec (n_chunks * chunk) sphere records and gbox
+// (tpt_scaled_groups(n_chunks), 6) group boxes over that order, and next,
+// one int zeroed by the caller.  stats: null, or kStSlots zeroed totals
+// that its counted instance adds to.
+int tpt_coop_hit_launch(const float* rows, const int32_t* order,
+                        const tpt::Sphere4* rec, const float* gbox,
+                        int n_chunks, int chunk, const float* ro,
+                        const float* rd, int n, float t_min, float t_max,
+                        int* next, float* out_t, int32_t* out_id,
+                        unsigned long long* stats, void* stream) {
+  if (bad_chunks(n_chunks, chunk) || n < 0 || !order || !rec || !gbox ||
+      !next)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const int n_groups = tpt_scaled_groups(n_chunks);
+  const size_t smem =
+      sizeof(float) * 6 * (n_chunks + n_groups) + sizeof(int32_t) * n_chunks +
+      sizeof(unsigned) * (kRayThreads / 32) * tpt::chunk_words(n_chunks);
+  int capacity = 0;
+  cudaError_t err = tpt::cached_capacity(
+      kRayThreads, smem, &capacity, coop_hit_kernel<false>,
+      coop_hit_kernel<true>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int warps = (n + 31) / 32;
+  const int need = (warps + kRayThreads / 32 - 1) / (kRayThreads / 32);
+  auto kernel = stats ? coop_hit_kernel<true> : coop_hit_kernel<false>;
+  kernel<<<need < capacity ? need : capacity, kRayThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      rows, order, rec, gbox, n_groups, n_chunks, chunk, ro, rd, n, t_min,
+      t_max, next, out_t, out_id, stats);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K6 on `stream` for n rays and n_lights lights (bits into out (n,)).

@@ -188,7 +188,10 @@ def load_library() -> ctypes.CDLL:
     lib.tpt_grad_scratch.argtypes = [params, i32, ptr, ptr]
     lib.tpt_grad_sum_launch.argtypes = [ptr, i32, i32, ptr, i32, ptr]
     lib.tpt_hit_chunks_launch.argtypes = [ptr, i32, i32, ptr, ptr, i32, f32,
-                                          f32, ptr, ptr, ptr]
+                                          f32, ptr, ptr, ptr, ptr]
+    lib.tpt_coop_hit_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr,
+                                        ptr, i32, f32, f32, ptr, ptr, ptr,
+                                        ptr, ptr]
     lib.tpt_shadow_chunks_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32,
                                              ptr, ptr, ptr, ptr, i32, i32,
                                              f32, i32, ptr, ptr, ptr, ptr]
@@ -202,6 +205,7 @@ def load_library() -> ctypes.CDLL:
                lib.tpt_render_stats_merged_launch, lib.tpt_lockstep_launch,
                lib.tpt_grad_launch, lib.tpt_grad_scratch,
                lib.tpt_grad_sum_launch, lib.tpt_hit_chunks_launch,
+               lib.tpt_coop_hit_launch,
                lib.tpt_shadow_chunks_launch, lib.tpt_scaled_render_launch,
                lib.tpt_scaled_groups, lib.tpt_probe_launch):
         fn.restype = ctypes.c_int

@@ -4,10 +4,11 @@ scaled_pallas.py and of scaled.py's renderer).
 `hit_chunks` (K5, the port of scaled_pallas.py::_hit_kernel) and
 `shadow_chunks` (K6, ::_shadow_kernel) take the JAX layout: the
 pack_chunks rows and tuples of ray lane planes of any one shape.
-`shadow_chunks_form` reaches both forms of K6 -- "coop" (the main path's:
-the warp-cooperative chunk walk of csrc/coop.cuh over the scene's
-scaled.shadow_index) and "thread" (the per-thread form it replaced, the
-baseline it is held bit-equal to) -- and their counted instances.
+`hit_chunks_form` and `shadow_chunks_form` reach both forms of each --
+"coop" (the main path's: the warp-cooperative chunk walk of csrc/coop.cuh
+with the scene's scaled.shadow_index) and "thread" (the per-thread form it
+replaced, the baseline it is held bit-equal to) -- and their counted
+instances.
 `render_tile_scaled` / `render_frame_scaled` render a ScaledScene through
 the scaled render kernel, one launch a frame (the port of
 scaled.py::_render_frame_scaled_pallas): the warp-cooperative form
@@ -46,16 +47,22 @@ FORMS = {"lane": 0, "coop": 1}
 MAIN_FORM = "coop"
 COUNTERS = {"coop": "scaled_render", "lane": "scaled_render_lane"}
 
-# K6's forms (tpt_shadow_chunks_launch's `form`) and their launch
-# counters: "shadow_chunks" counts the main path's form.
-SHADOW_FORMS = {"thread": 0, "coop": 1}
+# K5's and K6's forms and their launch counters: "hit_chunks" and
+# "shadow_chunks" count the main path's forms, "*_counted" the counted
+# instances of either form.
+HIT_FORMS = ("coop", "thread")
+HIT_MAIN_FORM = "coop"
+HIT_COUNTERS = {"coop": "hit_chunks", "thread": "hit_chunks_baseline"}
+SHADOW_FORMS = {"thread": 0, "coop": 1}  # tpt_shadow_chunks_launch's form
 SHADOW_MAIN_FORM = "coop"
 SHADOW_COUNTERS = {"coop": "shadow_chunks",
                    "thread": "shadow_chunks_baseline"}
 
 launches = {"scaled_render": 0, "scaled_render_lane": 0,
-            "scaled_render_stats": 0, "hit_chunks": 0, "shadow_chunks": 0,
-            "shadow_chunks_baseline": 0, "shadow_chunks_counted": 0}
+            "scaled_render_stats": 0, "hit_chunks": 0,
+            "hit_chunks_baseline": 0, "hit_chunks_counted": 0,
+            "shadow_chunks": 0, "shadow_chunks_baseline": 0,
+            "shadow_chunks_counted": 0}
 
 
 def _check_rows(rows: torch.Tensor, chunk: int):
@@ -88,34 +95,85 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
+def _check_index(index, rows: torch.Tensor, chunk: int, lib):
+    """Refuse a scaled.shadow_index that does not fit the rows."""
+    C, dev = rows.shape[0], rows.device
+    for name, t, want, dtype in (
+            ("order", index.order, (C,), torch.int32),
+            ("group boxes", index.gbox, (lib.tpt_scaled_groups(C), 6),
+             torch.float32),
+            ("sphere records", index.rec, (C * chunk, 4), torch.float32)):
+        if (t.shape != want or t.dtype != dtype or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"shadow index {name} must be contiguous "
+                             f"{dtype} {want} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
 def hit_chunks(rows: torch.Tensor, ro, rd, chunk: int, t_min: float,
-               t_max: float):
+               t_max: float, index=None):
     """Nearest hit of each ray over all chunks (hit_chunks_tiles):
     (t float32, id int32) in the lanes' shape, t_max and -1 on a miss.
-    `rows` is pack_chunks' output; ro and rd are 3 lane planes each."""
+    `rows` is pack_chunks' output; ro and rd are 3 lane planes each.
+    index: the rows' scaled.shadow_index, built here when None
+    (ChunkedScenePort passes its own)."""
+    return hit_chunks_form(rows, ro, rd, chunk, t_min, t_max,
+                           HIT_MAIN_FORM, index=index)
+
+
+def hit_chunks_form(rows: torch.Tensor, ro, rd, chunk: int, t_min: float,
+                    t_max: float, form: str, index=None,
+                    stats: bool = False):
+    """hit_chunks through K5's form `form` (HIT_FORMS); both give the same
+    ids and t bit for bit.  stats=True launches the form's counted instance
+    and returns a third value, stats_dict of its counters (on a card only;
+    the cooperative form's prefilter counts its group boxes under
+    "groups").  On the CPU the plain version, whatever the form."""
     _check_rows(rows, chunk)
+    if form not in HIT_FORMS:
+        raise ValueError(f"no K5 form {form!r}")
     dev = rows.device
     shape = ro[0].shape
     R, D = _planes(ro, shape, dev), _planes(rd, shape, dev)
     n = R.shape[1]
-    if dev.type == "cuda":
-        lib = _build.load_library()
-        t = torch.empty((n,), dtype=torch.float32, device=dev)
-        hid = torch.empty((n,), dtype=torch.int32, device=dev)
-        with torch.cuda.device(dev):
+    if dev.type == "cpu":
+        if stats:
+            raise ValueError("K5's counted instances run on a card")
+        t, hid, _, _ = ChunkTraversal(rows, chunk).nearest_hit(
+            tuple(R), tuple(D), _f32(t_min), _f32(t_max))
+        return t.reshape(shape), hid.to(torch.int32).reshape(shape)
+    if dev.type != "cuda":
+        raise ValueError(f"no traversal for device {dev}")
+    lib = _build.load_library()
+    coop = form == "coop"
+    if coop:
+        index = shadow_index(rows, chunk) if index is None else index
+        _check_index(index, rows, chunk, lib)
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    hid = torch.empty((n,), dtype=torch.int32, device=dev)
+    counts = torch.zeros((STAT_SLOTS,), dtype=torch.int64, device=dev) \
+        if stats else None
+    st = counts.data_ptr() if stats else None
+    with torch.cuda.device(dev):
+        if coop:
+            next_ray = torch.zeros((1,), dtype=torch.int32, device=dev)
+            code = lib.tpt_coop_hit_launch(
+                rows.data_ptr(), index.order.data_ptr(),
+                index.rec.data_ptr(), index.gbox.data_ptr(), rows.shape[0],
+                chunk, R.data_ptr(), D.data_ptr(), n, _f32(t_min),
+                _f32(t_max), next_ray.data_ptr(), t.data_ptr(),
+                hid.data_ptr(), st, _stream(dev))
+        else:
             code = lib.tpt_hit_chunks_launch(
                 rows.data_ptr(), rows.shape[0], chunk, R.data_ptr(),
                 D.data_ptr(), n, _f32(t_min), _f32(t_max), t.data_ptr(),
-                hid.data_ptr(), _stream(dev))
-        cuda_call(lib, "hit_chunks", code)
-        launches["hit_chunks"] += 1
-    elif dev.type == "cpu":
-        t, hid, _, _ = ChunkTraversal(rows, chunk).nearest_hit(
-            tuple(R), tuple(D), _f32(t_min), _f32(t_max))
-        hid = hid.to(torch.int32)
-    else:
-        raise ValueError(f"no traversal for device {dev}")
-    return t.reshape(shape), hid.reshape(shape)
+                hid.data_ptr(), st, _stream(dev))
+    cuda_call(lib, "hit_chunks", code)
+    launches["hit_chunks_counted" if stats else HIT_COUNTERS[form]] += 1
+    out = (t.reshape(shape), hid.reshape(shape))
+    if stats:
+        return (*out, stats_dict(counts.cpu(), groups=coop))
+    return out
 
 
 def shadow_chunks(rows: torch.Tensor, ro, dirs, t_ls, chunk: int,
@@ -164,18 +222,7 @@ def shadow_chunks_form(rows: torch.Tensor, ro, dirs, t_ls, chunk: int,
     coop = form == "coop"
     if coop:
         index = shadow_index(rows, chunk) if index is None else index
-        C = rows.shape[0]
-        for name, t, want, dtype in (
-                ("order", index.order, (C,), torch.int32),
-                ("group boxes", index.gbox, (lib.tpt_scaled_groups(C), 6),
-                 torch.float32),
-                ("sphere records", index.rec, (C * chunk, 4),
-                 torch.float32)):
-            if (t.shape != want or t.dtype != dtype or t.device != dev
-                    or not t.is_contiguous()):
-                raise ValueError(f"shadow index {name} must be contiguous "
-                                 f"{dtype} {want} on {dev}, got {t.dtype} "
-                                 f"{tuple(t.shape)} on {t.device}")
+        _check_index(index, rows, chunk, lib)
     # pinned and without blocking, as ops/cuda_render.kernel_camera
     ids = torch.from_numpy(np.array(list(light_ids) or [0], np.int32))
     ids = ids.pin_memory().to(dev, non_blocking=True)
@@ -233,10 +280,13 @@ def render_tile_scaled(scene: ScaledScene, cfg: RenderConfig, frame: int,
                                    MAIN_FORM)
 
 
-def stats_dict(v) -> dict:
+def stats_dict(v, groups: bool = False) -> dict:
     """A stats instance's STAT_SLOTS totals as {"hit": {...}, "shadow":
     {...}, "loop": {...}} of ints, with each kind's sphere-loop SIMT
-    efficiency need / (32 trips)."""
+    efficiency need / (32 trips).  groups=True (K5's cooperative form,
+    whose prefilter counts its group boxes in the shadow kind's box slots,
+    coop.cuh kStGroupBoxes): {"hit": {...}, "groups": {"boxes", "slabs"}}
+    instead."""
     v = [int(x) for x in v]
     out = {}
     for k, kind in enumerate(("hit", "shadow")):
@@ -245,6 +295,10 @@ def stats_dict(v) -> dict:
             if d["trips"] else None
         out[kind] = d
     out["loop"] = dict(zip(LOOP_FIELDS, v[12:]))
+    if groups:
+        shadow = out.pop("shadow")
+        del out["loop"]
+        out["groups"] = {"boxes": shadow["boxes"], "slabs": shadow["slabs"]}
     return out
 
 

@@ -512,25 +512,28 @@ def group_boxes(rows: torch.Tensor, chunk: int,
 
 
 class ShadowIndex(NamedTuple):
-    """What the cooperative K6 reads beside the chunk rows, built once per
-    scene (shadow_index): `order`, the chunks in the order its walk takes
-    them (int32); `gbox`, the group boxes over runs of GROUP chunks of that
-    order; `rec`, the spheres' (cx, cy, cz, r^2) records in the rows'
-    order, so that a sphere is one 16-byte load instead of four."""
+    """What the cooperative K6 and K5 read beside the chunk rows, built
+    once per scene (shadow_index): `order`, the chunks in the order K6's
+    walk takes them (int32); `gbox`, the group boxes over runs of GROUP
+    chunks of that order, K6's group skip and K5's prefilter (K5 walks the
+    chunks of the groups its rays enter in the rows' order); `rec`, the
+    spheres' (cx, cy, cz, r^2) records in the rows' order, so that a
+    sphere is one 16-byte load instead of four."""
     order: torch.Tensor
     gbox: torch.Tensor
     rec: torch.Tensor
 
 
 def shadow_index(rows: torch.Tensor, chunk: int) -> ShadowIndex:
-    """K6's ShadowIndex of pack_chunks rows (C, 4 * chunk + 8).  The walk
+    """The ShadowIndex of pack_chunks rows (C, 4 * chunk + 8).  The order
     takes the chunks in Morton order of their box centers, so that a group
     of GROUP consecutive ones is compact and its box tight, and the chunks
     whose box is more than 4 times the median's widest extent (the
     beacons' chunk, a padded one) last, so that they widen no group of
-    compact ones: an OR over chunks may take them in any order, and the
+    compact ones: K6's OR over chunks may take them in any order, and the
     rows' own order (front to back from the camera) makes groups whose
-    boxes nearly every ray enters."""
+    boxes nearly every ray enters (a camera ray of the 100k scene enters
+    5 of its 25 groups in this order, 18 in the rows')."""
     C = rows.shape[0]
     box = rows[:, 4 * chunk:4 * chunk + 6].double().cpu().numpy()
     mid = (box[:, :3] + box[:, 3:]) * 0.5
@@ -565,7 +568,7 @@ class ChunkedScenePort:
         miss, in the lanes' shape."""
         from .ops import cuda_scaled
         return cuda_scaled.hit_chunks(self.rows, ro, rd, self.scene.chunk,
-                                      t_min, t_max)
+                                      t_min, t_max, index=self.shadow_index)
 
     def lights_visible(self, ro, dirs, light_ids, t_min: float,
                        t_max: float):

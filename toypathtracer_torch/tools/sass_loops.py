@@ -18,6 +18,12 @@ of the nearest-hit loop takes a MUFU.RSQ, the occlusion loop none.  The
 counts are static: an instruction under a branch inside the loop counts
 once, whether or not it runs.
 
+With --compare DIR (the root of another checkout of the repo, e.g. the
+parent commit unpacked with `git archive` into a directory that .gitignore
+lists) it builds that checkout's library too, in a process of its own, and
+lists instead the kernels whose SASS is identical in the two libraries,
+those that differ, and those that only one has.
+
 Needs the CUDA toolkit (nvcc and cuobjdump), so it runs where the kernels
 build, on the machine with the card.  Writes build/sass_loops.json at the
 root of the checkout (or --out) and prints the same JSON.
@@ -31,6 +37,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 from ..ops import _build
@@ -131,26 +138,52 @@ def loop_mix(code, start: int, end: int) -> dict:
             "opcodes": body}
 
 
+def disassemble(lib) -> dict:
+    """functions() of a library's cuobjdump -sass output."""
+    return functions(subprocess.run([find_cuobjdump(), "-sass", str(lib)],
+                                    check=True, capture_output=True,
+                                    text=True).stdout)
+
+
+def compare(funcs: dict, other: Path) -> dict:
+    """Kernels of `funcs` whose SASS equals, or differs from, that of the
+    checkout at `other` (its library built by its own _build)."""
+    lib = subprocess.run(
+        [sys.executable, "-c", "from toypathtracer_torch.ops import _build; "
+         "print(_build.build())"], cwd=other, check=True,
+        capture_output=True, text=True).stdout.strip().splitlines()[-1]
+    theirs = disassemble(lib)
+    common = sorted(set(funcs) & set(theirs))
+    return {"other": str(other),
+            "identical": [k for k in common if funcs[k] == theirs[k]],
+            "differ": [k for k in common if funcs[k] != theirs[k]],
+            "only_here": sorted(set(funcs) - set(theirs)),
+            "only_there": sorted(set(theirs) - set(funcs))}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", default=",".join(DEFAULT))
+    ap.add_argument("--compare", default=None, metavar="DIR",
+                    help="another checkout whose SASS to compare with")
     ap.add_argument("--out", default=None,
                     help=f"output path (default {OUT})")
     args = ap.parse_args(argv)
     lib = _build.build()
-    sass = subprocess.run([find_cuobjdump(), "-sass", str(lib)], check=True,
-                          capture_output=True, text=True).stdout
-    funcs = functions(sass)
-    res = {"library": lib.name, "kernels": {}}
-    for label in args.kernels.split(","):
-        if label not in funcs:
-            raise SystemExit(f"sass_loops: no kernel {label!r} in "
-                             f"{sorted(funcs)}")
-        code = funcs[label]
-        res["kernels"][label] = {
-            "instructions": len(code),
-            "loops": [loop_mix(code, a, b)
-                      for a, b in innermost_loops(code)]}
+    funcs = disassemble(lib)
+    if args.compare:
+        res = {"library": lib.name, **compare(funcs, Path(args.compare))}
+    else:
+        res = {"library": lib.name, "kernels": {}}
+        for label in args.kernels.split(","):
+            if label not in funcs:
+                raise SystemExit(f"sass_loops: no kernel {label!r} in "
+                                 f"{sorted(funcs)}")
+            code = funcs[label]
+            res["kernels"][label] = {
+                "instructions": len(code),
+                "loops": [loop_mix(code, a, b)
+                          for a, b in innermost_loops(code)]}
     out = Path(args.out) if args.out else OUT
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(res, indent=1))

@@ -63,22 +63,31 @@ class Workload(NamedTuple):
     st: torch.Tensor
 
 
-def workload(port: ChunkedScenePort, cfg: RenderConfig,
-             frame: int = 0) -> Workload:
-    """K6's workload on `port`'s scene (one K5 launch for the hits)."""
-    scene = port.scene
+def camera_rays(scene, cfg: RenderConfig, frame: int = 0, px=None,
+                py=None):
+    """The first camera ray of each pixel (px, py) of `frame` (default:
+    every pixel, row by row) on the scene's device, drawn as the render
+    draws them: (ro 3 planes, rd 3 planes, RNG states after the draw)."""
     dev = scene.device
-    H, W = cfg.height, cfg.width
-    yy, xx = torch.meshgrid(torch.arange(H, device=dev),
-                            torch.arange(W, device=dev), indexing="ij")
-    px, py = xx.reshape(-1), yy.reshape(-1)
+    if px is None:
+        yy, xx = torch.meshgrid(torch.arange(cfg.height, device=dev),
+                                torch.arange(cfg.width, device=dev),
+                                indexing="ij")
+        px, py = xx.reshape(-1), yy.reshape(-1)
     st = tc.seed_pixels(px, py, frame)
     st, ur = tc.rand01(st)
     st, vr = tc.rand01(st)
     u = (px.to(torch.float32) + ur) * float(np.float32(cfg.inv_width))
     v = (py.to(torch.float32) + vr) * float(np.float32(cfg.inv_height))
-    st, cam_ro, cam_rd = tc.camera_get_ray(camera_scalars(scene, cfg), u, v,
-                                           st)
+    st, ro, rd = tc.camera_get_ray(camera_scalars(scene, cfg), u, v, st)
+    return ro, rd, st
+
+
+def workload(port: ChunkedScenePort, cfg: RenderConfig,
+             frame: int = 0) -> Workload:
+    """K6's workload on `port`'s scene (one K5 launch for the hits)."""
+    scene = port.scene
+    cam_ro, cam_rd, st = camera_rays(scene, cfg, frame)
     hit_t, hit_id = port.hit_chunks(cam_ro, cam_rd, cfg.min_t, cfg.max_t)
     idl = hit_id.long()
     mat = scene.mat_ids().long()
