@@ -131,6 +131,7 @@ KEPT_USAGE = {
     "warp_grad_kernel<0>": {"registers": 40, "spill_stores": 1154},
     "scaled_render_kernel<0>": {"registers": 80, "spill_stores": 32},
     "hit_chunks_kernel": {"registers": 40, "spill_stores": 0},
+    "coop_hit_kernel<0>": {"registers": 40, "spill_stores": 32},
     "shadow_chunks_kernel<0>": {"registers": 32, "spill_stores": 0},
 }
 
@@ -1042,10 +1043,10 @@ def scaled_phases(cfg, smi, usage):
     for form in ("coop", "thread", "thread", "coop"):
         k5_runs.setdefault(form, []).append(time_device_call(
             cuda_scaled.hit_chunks_form, *k5_args, form, port.shadow_index,
-            repeats=3)[0] * 1e3)
+            repeats=10)[0] * 1e3)
     k5_ms = {f: sum(v) / len(v) for f, v in k5_runs.items()}
     k5_index_in_wrapper_ms = time_device_call(
-        cuda_scaled.hit_chunks_form, *k5_args, "coop", repeats=3)[0] * 1e3
+        cuda_scaled.hit_chunks_form, *k5_args, "coop", repeats=10)[0] * 1e3
     # Bounds: 12 operations per slab test, 19 per sphere test.  Old: the
     # plain version's counts (every chunk box of each ray).  New: each term
     # the lesser of the plain count and the cooperative counted

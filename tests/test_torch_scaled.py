@@ -290,7 +290,8 @@ def test_out_of_slice_routes_raise(scene800, call):
 
 @pytest.mark.parametrize("case", ["rows_shape", "too_many_chunks",
                                   "too_many_lights", "ragged_scene",
-                                  "plane_dtype"])
+                                  "plane_dtype", "hit_form",
+                                  "hit_counted_on_cpu"])
 def test_wrappers_refuse_unsupported_inputs(scene800, case):
     s = scene800[0]
     rows = pack_chunks(s)
@@ -308,6 +309,11 @@ def test_wrappers_refuse_unsupported_inputs(scene800, case):
             cuda_scaled.render_frame_scaled(
                 s.replace(chunk_aabb=s.chunk_aabb[:-1]), CFG, 0,
                 device="cpu")
-        else:
+        elif case == "plane_dtype":
             cuda_scaled.hit_chunks(rows, ro, tuple(x.double() for x in ro),
                                    128, 1e-3, 1e7)
+        elif case == "hit_form":
+            cuda_scaled.hit_chunks_form(rows, ro, ro, 128, 1e-3, 1e7, "lane")
+        else:
+            cuda_scaled.hit_chunks_form(rows, ro, ro, 128, 1e-3, 1e7,
+                                        "thread", stats=True)

@@ -67,8 +67,10 @@ constexpr int kCoopMin = 24;
 // The same threshold for K6's rays (shadow_chunks_warp; the fastest of
 // 16, 20, 24, 28 and 32 in its timings on an H100, 28 and 32 alike).
 constexpr int kShadowCoopMin = 28;
-// The same threshold for K5's rays (hit_chunks_warp).
-constexpr int kHitCoopMin = 24;
+// The same threshold for K5's rays (hit_chunks_warp): only a chunk that
+// every lane entered is run by the lanes' own loops (the fastest of 8, 16,
+// 24, 28, 32 and 33 in its timings on an H100, 24-32 within 1%; PERF.md).
+constexpr int kHitCoopMin = 32;
 // Chunks under one group box.
 constexpr int kGroup = 16;
 
