@@ -567,10 +567,11 @@ TPT_WARP void hit_prefilter(const W& w, const CoopView& V,
 
 // K5's test of chunk c (records r) against its entering lanes m, each with
 // its own ray (o, d) and best (t, id): as hit_chunks_ray's scan of the
-// chunk.  Many entering lanes run their own loops over the chunk, reading
-// the same sphere (a broadcast); few are decided one at a time by the
-// whole warp, spheres lane, lane + 32, ... a lane, and the butterfly over
-// (t, j), least t and then least j, that nearest_hit_warp uses.
+// chunk.  kMin or more entering lanes run their own loops over the chunk,
+// reading the same sphere (a broadcast); fewer are decided one at a time
+// by the whole warp, spheres lane, lane + 32, ... a lane, and the
+// butterfly over (t, j), least t and then least j, that nearest_hit_warp
+// uses.
 template <int kMin, class W, class Cnt>
 TPT_WARP void hit_chunk_test(const W& w, const Sphere4* r, int K, int c,
                              unsigned m, V3 o, V3 d, float t_min, float& t,
