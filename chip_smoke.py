@@ -130,7 +130,7 @@ KEPT_USAGE = {
     "lockstep_kernel<0,0>": {"registers": 80, "spill_stores": 52},
     "warp_grad_kernel<0>": {"registers": 40, "spill_stores": 1154},
     "scaled_render_kernel<0>": {"registers": 80, "spill_stores": 32},
-    "hit_chunks_kernel": {"registers": 40, "spill_stores": 0},
+    "hit_chunks_kernel<0>": {"registers": 40, "spill_stores": 0},
     "coop_hit_kernel<0>": {"registers": 40, "spill_stores": 32},
     "shadow_chunks_kernel<0>": {"registers": 32, "spill_stores": 0},
 }
@@ -987,10 +987,10 @@ def scaled_phases(cfg, smi, usage):
         t bit-equal on every ray) and against the plain version."""
         t1 = time.perf_counter()
         args = (rows, ro, rd, K, t_min, t_max)
-        t_k, id_k = cuda_scaled.hit_chunks(*args, index=port.shadow_index)
+        t_k, id_k = cuda_scaled.hit_chunks(*args, index=port.chunk_index)
         t_b, id_b = cuda_scaled.hit_chunks_form(*args, "thread")
-        plain_s, (t_p, id_p, slabs, spheres) = time_device_call(
-            trav.nearest_hit, ro, rd, t_min, t_max)
+        plain_s, (t_p, id_p, slabs, spheres, roots) = time_device_call(
+            trav.nearest_hit_roots, ro, rd, t_min, t_max)
         agree = id_k.long() == id_p
         both = agree & (id_p >= 0)
         n = int(id_k.numel())
@@ -1006,13 +1006,14 @@ def scaled_phases(cfg, smi, usage):
              "t_abs_max": float((t_k - t_p).abs()[both].max()),
              "slab_tests": int(slabs.sum()),
              "sphere_tests": int(spheres.sum()),
+             "root_tests": int(roots.sum()),
              "plain_ms": plain_s * 1e3, "seconds": time.perf_counter() - t1}
         emit(r)
         check(r["bit_equal_to_thread_form"],
               f"K5 {name}: the cooperative form's ids or t != PR 3's kernel's")
         check(r["id_mismatch"] <= 1e-5 * n, f"K5 {name}: ids")
         check(r["t_rel_max"] <= 1e-6, f"K5 {name}: t")
-        return r, (slabs, spheres), args
+        return r, (slabs, spheres, roots), args
 
     k5, k5_work, k5_args = hit_case("camera_1280x720", cam_ro, cam_rd)
     rng = np.random.default_rng(5)
@@ -1042,25 +1043,30 @@ def scaled_phases(cfg, smi, usage):
     k5_runs = {}
     for form in ("coop", "thread", "thread", "coop"):
         k5_runs.setdefault(form, []).append(time_device_call(
-            cuda_scaled.hit_chunks_form, *k5_args, form, port.shadow_index,
+            cuda_scaled.hit_chunks_form, *k5_args, form, port.chunk_index,
             repeats=10)[0] * 1e3)
     k5_ms = {f: sum(v) / len(v) for f, v in k5_runs.items()}
     k5_index_in_wrapper_ms = time_device_call(
         cuda_scaled.hit_chunks_form, *k5_args, "coop", repeats=10)[0] * 1e3
-    # Bounds: 12 operations per slab test, 19 per sphere test.  Old: the
+    # Bounds: 12 operations per slab test, 16 per sphere test (K1's count)
+    # and 3 more (sqrt, 2 roots) per root test, a sphere test whose
+    # discriminant is positive (the plain version's count).  Old: the
     # plain version's counts (every chunk box of each ray).  New: each term
     # the lesser of the plain count and the cooperative counted
     # instance's, whose prefilter tests 25 group boxes a ray and the chunk
     # boxes of the groups its warp enters, so the function needs no more.
     n_k5 = k5["rays"]
     k5_bytes = 4 * rows.numel() + n_k5 * (6 * 4 + 8)
-    k5_old_ops = 12 * k5["slab_tests"] + 19 * k5["sphere_tests"]
+    k5_old_ops = (12 * k5["slab_tests"] + 16 * k5["sphere_tests"]
+                  + 3 * k5["root_tests"])
     st_c = k5_st["coop"]["counters"]
     k5_terms = {"slab_tests": min(k5["slab_tests"], st_c["hit"]["slabs"]
                                   + st_c["groups"]["slabs"]),
                 "sphere_tests": min(k5["sphere_tests"],
-                                    st_c["hit"]["need"])}
-    k5_ops = 12 * k5_terms["slab_tests"] + 19 * k5_terms["sphere_tests"]
+                                    st_c["hit"]["need"]),
+                "root_tests": k5["root_tests"]}
+    k5_ops = (12 * k5_terms["slab_tests"] + 16 * k5_terms["sphere_tests"]
+              + 3 * k5_terms["root_tests"])
 
     def k5_bound(ops):
         ms = max(ops / 67e12, k5_bytes / 3.35e12) * 1e3
@@ -1089,7 +1095,7 @@ def scaled_phases(cfg, smi, usage):
         flat = tuple(x for l in dirs for x in l)
         args = (rows, pos, flat, tuple(t_ls), K, lights, t_min)
         bits_k = cuda_scaled.shadow_chunks(*args,
-                                           index=port.shadow_index)
+                                           index=port.chunk_index)
         bits_t = cuda_scaled.shadow_chunks_form(*args, "thread")
         plain_s, (bits_p, slabs, spheres) = time_device_call(
             trav.occlusion_bits, pos, dirs, t_ls, lights, t_min)
@@ -1132,7 +1138,7 @@ def scaled_phases(cfg, smi, usage):
     # step 1 and the cooperative form's work: both counted instances on
     # the camera case (tools.shadow_stats); then the forms in turns:
     # coop, thread, thread, coop, and the cooperative wrapper once more
-    # building its shadow index (walk order, group boxes, records) itself
+    # building its chunk index (walk order, group boxes, records) itself
     t1 = time.perf_counter()
     k6_stats = {}
     for form in ("thread", "coop"):
@@ -1140,13 +1146,13 @@ def scaled_phases(cfg, smi, usage):
         emit({"phase": "shadow_traversal_stats", "nvidia_smi": smi,
               **k6_stats[form]})
         check(bool(torch.equal(bits_s, cuda_scaled.shadow_chunks(
-            *k6_args, index=port.shadow_index))),
+            *k6_args, index=port.chunk_index))),
               f"K6 {form} counted instance != the timed kernel")
     k6_runs = {}
     for form in ("coop", "thread", "thread", "coop"):
         k6_runs.setdefault(form, []).append(time_device_call(
             cuda_scaled.shadow_chunks_form, *k6_args, form,
-            port.shadow_index, repeats=3)[0] * 1e3)
+            port.chunk_index, repeats=3)[0] * 1e3)
     k6_ms = {f: sum(v) / len(v) for f, v in k6_runs.items()}
     index_in_wrapper_ms = time_device_call(
         cuda_scaled.shadow_chunks_form, *k6_args, "coop",
@@ -1349,7 +1355,8 @@ def scaled_phases(cfg, smi, usage):
     divergence = {
         "lane_form_render_1280x720": warp_efficiency(pix_ops, 2, 16),
         "hit_chunks_camera": warp_efficiency(
-            (12 * k5_work[0] + 19 * k5_work[1]).reshape(-1, 32), 1, 32),
+            (12 * k5_work[0] + 16 * k5_work[1] + 3 * k5_work[2])
+            .reshape(-1, 32), 1, 32),
     }
     sw = {k: int(getattr(small_work, k).sum()) for k in small_work._fields}
     ops_f, bytes_f, bound_f, terms_f = render_bound(w, simt["coop"], H * W)
@@ -1423,10 +1430,10 @@ def scaled_phases(cfg, smi, usage):
          "plain_ms": k5["plain_ms"], "bound_ms": k5_bound_ms,
          "bound_by": k5_bound_by, "library_ms": None,
          "form": "coop (coop_hit_kernel<0>: csrc/coop.cuh hit_chunks_warp "
-                 "with scaled.shadow_index's group boxes)",
+                 "with scaled.chunk_index's group boxes)",
          "baseline_ms": k5_ms["thread"],
          "baseline": "PR 3's per-thread K5 it replaced "
-                     "(hit_chunks_kernel), timed in turns with it",
+                     "(hit_chunks_kernel<0>), timed in turns with it",
          "bound_ms_old": k5_bound_old,
          "index_built_in_wrapper_ms": k5_index_in_wrapper_ms,
          "sphere_loop_simt_efficiency": k5_st["coop"]["simt_efficiency"],
@@ -1449,11 +1456,11 @@ def scaled_phases(cfg, smi, usage):
          "max_abs_err": k5["t_abs_max"], "ms": k5_ms["thread"],
          "plain_ms": k5["plain_ms"], "bound_ms": k5_bound_ms,
          "bound_by": k5_bound_by, "library_ms": None,
-         "form": "thread (hit_chunks_kernel)",
+         "form": "thread (hit_chunks_kernel<0>)",
          "baseline": "PR 3's per-thread K5, kept beside the cooperative one "
                      "as its A/B and equality baseline; not on the main path",
          "sphere_loop_simt_efficiency": k5_st["thread"]["simt_efficiency"],
-         "ptxas": usage.get("hit_chunks_kernel", {}),
+         "ptxas": usage.get("hit_chunks_kernel<0>", {}),
          "vs_plain": {"tolerance": "bit-equal to the cooperative form"}},
         {"name": "shadow_chunks", "route": "cuda",
          "source": "toypathtracer_torch/csrc/scaled.cu",
@@ -1464,7 +1471,7 @@ def scaled_phases(cfg, smi, usage):
          "plain_ms": k6["plain_ms"], "bound_ms": k6_bound,
          "bound_by": k6_bound_by, "library_ms": None,
          "form": "coop (coop_shadow_kernel<0>: csrc/coop.cuh "
-                 "shadow_chunks_warp over scaled.shadow_index)",
+                 "shadow_chunks_warp over scaled.chunk_index)",
          "baseline_ms": k6_ms["thread"],
          "baseline": "the per-thread K6 it replaced "
                      "(shadow_chunks_kernel<0>), timed in turns with it",

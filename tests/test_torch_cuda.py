@@ -342,11 +342,11 @@ def test_coop_hit_kernel_bit_equal_to_thread_kernel(card, n, big):
     t, hid = port.hit_chunks(ro, rd, 1e-3, 1e7)
     t_b, id_b = cuda_scaled.hit_chunks_form(*args, "thread")
     t_c, id_c, st = cuda_scaled.hit_chunks_form(
-        *args, "coop", index=port.shadow_index, stats=True)
+        *args, "coop", index=port.chunk_index, stats=True)
     t_bc, id_bc, st_t = cuda_scaled.hit_chunks_form(*args, "thread",
                                                     stats=True)
-    _, idp, slabs, spheres = ChunkTraversal(port.rows, K).nearest_hit(
-        ro, rd, float(np.float32(1e-3)), 1e7)
+    _, idp, slabs, spheres, roots = ChunkTraversal(
+        port.rows, K).nearest_hit_roots(ro, rd, float(np.float32(1e-3)), 1e7)
     torch.cuda.synchronize()
     after = {k: cuda_scaled.launches[k] - before[k] for k in before}
     assert after == {"scaled_render": 0, "scaled_render_lane": 0,
@@ -364,8 +364,10 @@ def test_coop_hit_kernel_bit_equal_to_thread_kernel(card, n, big):
     assert int((idp >= 0).sum()) > 0
     assert st["hit"]["need"] == st_t["hit"]["need"] == int(spheres.sum())
     assert st_t["hit"]["slabs"] == int(slabs.sum())
+    assert 0 < int(roots.sum()) < int(spheres.sum())
     assert st["hit"]["lanes"] == st_t["hit"]["lanes"] == n
-    assert st["groups"]["slabs"] == n * port.shadow_index.gbox.shape[0]
+    assert st["groups"]["slabs"] == n * port.chunk_index.gbox.shape[0]
+    assert st_t["groups"] == {"boxes": 0, "slabs": 0}
     assert 0 < st["hit"]["simt_efficiency"] <= 1
 
 

@@ -52,3 +52,23 @@ def test_opcode_drops_predicates():
     assert sass_loops.opcode("@!P1 BRA 0x70") == "BRA"
     assert sass_loops.classify("IMAD.WIDE.U32") == "int"
     assert sass_loops.classify("SHFL.IDX") == "other"
+
+
+def test_sass_diff_pairs_renamed_kernels():
+    """--compare's verdicts: a kernel that became a template (here
+    "render_kernel<0>", there a plain "render_kernel") is compared under
+    its old name when --same pairs them, and the rest by label."""
+    here = sass_loops.functions(LISTING)
+    code = here["render_kernel<0>"]
+    there = {"render_kernel": list(code),
+             "merged_render_kernel<1>": [(0, "NOP")],
+             "old_kernel": [(0, "EXIT")]}
+    d = sass_loops.sass_diff(here, there,
+                             {"render_kernel<0>": "render_kernel"})
+    assert d == {"identical": ["render_kernel<0>"],
+                 "differ": ["merged_render_kernel<1>"],
+                 "only_here": [], "only_there": ["old_kernel"]}
+    plain = sass_loops.sass_diff(here, there)
+    assert plain["only_here"] == ["render_kernel<0>"]
+    assert "render_kernel" in plain["only_there"] and there.keys() == {
+        "render_kernel", "merged_render_kernel<1>", "old_kernel"}

@@ -43,7 +43,7 @@ from toypathtracer_torch.ops import _build, cuda_render
 from toypathtracer_torch.scaled import (ChunkTraversal, group_boxes,
                                         make_scaled_scene, pack_chunks,
                                         render_tile_scaled_plain,
-                                        shadow_index)
+                                        chunk_index)
 
 torch.set_num_threads(1)
 
@@ -401,6 +401,35 @@ extern "C" void tpt_hit_mask_cpu(const float* rows, const int32_t* order,
   }
 }
 
+// Per ray, the root tests of hit_chunks_ray's scan: the sphere tests in
+// the chunks it enters whose discriminant is positive (sphere_root's
+// arithmetic), into roots (n,).
+extern "C" void tpt_hit_roots_cpu(const float* rows, const float* box, int C,
+                                  int K, const float* ro, const float* rd,
+                                  int n, float t_min, float t_max,
+                                  long long* roots) {
+  tpt::ChunkedView V = view(rows, box, C, K);
+  for (int i = 0; i < n; ++i) {
+    const tpt::V3 o = tpt::v3(ro[i], ro[n + i], ro[2 * n + i]);
+    const tpt::V3 d = tpt::v3(rd[i], rd[n + i], rd[2 * n + i]);
+    EnterLog log;
+    float t;
+    tpt::hit_chunks_ray(V, o, d, t_min, t_max, t, log);
+    roots[i] = 0;
+    for (int c : log.entered) {
+      const float* r = V.chunk_row(c);
+      for (int j = 0; j < K; ++j) {
+        const float cox = r[j] - o.x;
+        const float coy = r[K + j] - o.y;
+        const float coz = r[2 * K + j] - o.z;
+        const float nb = cox * d.x + coy * d.y + coz * d.z;
+        const float cq = cox * cox + coy * coy + coz * coz - r[3 * K + j];
+        if (nb * nb - cq > 0.0f) ++roots[i];
+      }
+    }
+  }
+}
+
 // (ray, chunk) pairs where the chunk's slab test passes and its group's
 // fails (counts[0]), and where the chunk's passes (counts[1]), for rays
 // against (t_min, t1[i]).
@@ -467,6 +496,8 @@ def host_lib(tmp_path_factory):
                                      i32]
     lib.tpt_hit_mask_cpu.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr,
                                      ptr, i32, f32, f32, ptr]
+    lib.tpt_hit_roots_cpu.argtypes = [ptr, ptr, i32, i32, ptr, ptr, i32, f32,
+                                      f32, ptr]
     return lib
 
 
@@ -728,11 +759,11 @@ def k6_inputs(scene, n, seed=7):
 
 
 def coop_bits(lib, rows, ro, D, T, ids, width, mode):
-    """K6's cooperative routine's bits, with the scene's shadow_index as
+    """K6's cooperative routine's bits, with the scene's chunk_index as
     ops/cuda_scaled passes it."""
     n = ro.shape[1]
     out = np.full(n, -1, np.int32)
-    index = shadow_index(torch.from_numpy(rows), 256)
+    index = chunk_index(torch.from_numpy(rows), 256)
     order, rec, gbox = (t.numpy() for t in (index.order, index.rec,
                                             index.gbox))
     box = np.ascontiguousarray(rows[order, 4 * 256:4 * 256 + 6])
@@ -811,7 +842,7 @@ def test_group_boxes_are_conservative(host_lib):
 
 
 def test_shadow_index_orders_chunks_with_tight_groups():
-    """scaled.shadow_index on the 100k scene: its order is a permutation of
+    """scaled.chunk_index on the 100k scene: its order is a permutation of
     the 391 chunks with the outsized boxes last (the beacons' chunk 0 and
     the padded last one among them); its group boxes are group_boxes over
     that order and far tighter than over the rows' own order; its records
@@ -819,7 +850,7 @@ def test_shadow_index_orders_chunks_with_tight_groups():
     scene = make_scaled_scene(100_000)
     rows = pack_chunks(scene)
     K = scene.chunk
-    index = shadow_index(rows, K)
+    index = chunk_index(rows, K)
     order = index.order.numpy()
     assert index.order.dtype == torch.int32
     assert sorted(order.tolist()) == list(range(391))
@@ -915,9 +946,14 @@ def test_merged_render_bit_equal_to_per_lane(host_lib, n, chunk, extent, nee,
 
 
 @functools.lru_cache(maxsize=None)
+def scene_100k():
+    return make_scaled_scene(100_000)
+
+
+@functools.lru_cache(maxsize=None)
 def field_100k():
     """The 100k-sphere scene's rows (391 chunks of 256, 25 groups)."""
-    return pack_chunks(make_scaled_scene(100_000)).numpy()
+    return pack_chunks(scene_100k()).numpy()
 
 
 def camera_rays_100k(px, py):
@@ -926,8 +962,8 @@ def camera_rays_100k(px, py):
     from toypathtracer_torch.tools.shadow_stats import camera_rays
     cfg = RenderConfig(width=1280, height=720, samples_per_pixel=4,
                        max_depth=10)
-    ro, rd, _ = camera_rays(make_scaled_scene(100_000), cfg, 0,
-                            torch.as_tensor(px), torch.as_tensor(py))
+    ro, rd, _ = camera_rays(scene_100k(), cfg, 0, torch.as_tensor(px),
+                            torch.as_tensor(py))
     return (np.ascontiguousarray(torch.stack(ro).numpy()),
             np.ascontiguousarray(torch.stack(rd).numpy()))
 
@@ -950,9 +986,28 @@ def aimed_rays(center, rng, n):
     return ro, (d / np.sqrt((d * d).sum(axis=0))).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
 def hit_inputs(name):
-    """(rows, ro, rd, check) of K5's g++ cases; the last 45 rays are the
-    32-lane warp's (a full batch and a 13-ray tail)."""
+    """(rows, ro, rd, check) of K5's g++ cases, made once and read only;
+    the last 45 rays are the 32-lane warp's (a full batch and a 13-ray
+    tail)."""
+    rows, ro, rd, check = make_hit_inputs(name)
+    for a in (rows, ro, rd):
+        a.flags.writeable = False
+    return rows, ro, rd, check
+
+
+@functools.lru_cache(maxsize=None)
+def hit_index(name):
+    """(order, rec, gbox) of hit_inputs(name)'s rows' chunk_index, as
+    ops/cuda_scaled passes it."""
+    rows = hit_inputs(name)[0]
+    index = chunk_index(torch.from_numpy(rows.copy()),
+                        (rows.shape[1] - 8) // 4)
+    return tuple(x.numpy() for x in (index.order, index.rec, index.gbox))
+
+
+def make_hit_inputs(name):
     rng = np.random.default_rng(31)
     if name == "camera_100k":
         # every 24th pixel of the frame, then 45 consecutive ones of a row
@@ -995,7 +1050,7 @@ def hit_inputs(name):
         for q in range(4):
             rows[c2, q * K + j2] = rows[c1, q * K + j1]
         set_box(rows, K, c2)
-        order = shadow_index(torch.from_numpy(rows), K).order.numpy()
+        order = chunk_index(torch.from_numpy(rows), K).order.numpy()
         pos = np.argsort(order)
         assert pos[c1] // 16 != pos[c2] // 16
         ro, rd = aimed_rays(rows[c1, [j1, K + j1, 2 * K + j1]], rng, 1024)
@@ -1056,15 +1111,15 @@ def hit_sequential(lib, rows, ro, rd, K, t_max=1e7):
     return t, hid
 
 
-def hit_coop(lib, rows, ro, rd, K, width, mode, t_max=1e7):
-    """K5's cooperative routine with the rows' shadow_index, as
-    ops/cuda_scaled passes it."""
+def hit_coop(lib, inputs, ro, rd, width, mode, t_max=1e7):
+    """K5's cooperative routine on the rows of hit_inputs(inputs) with
+    their chunk_index."""
+    rows = hit_inputs(inputs)[0]
+    K = (rows.shape[1] - 8) // 4
     n = ro.shape[1]
     t = np.full(n, np.nan, np.float32)
     hid = np.full(n, -2, np.int32)
-    index = shadow_index(torch.from_numpy(rows), K)
-    order, rec, gbox = (x.numpy() for x in (index.order, index.rec,
-                                            index.gbox))
+    order, rec, gbox = hit_index(inputs)
     box = np.ascontiguousarray(rows[:, 4 * K:4 * K + 6])
     code = lib.tpt_coop_hit_cpu(
         c_ptr(rows), c_ptr(order), c_ptr(rec), c_ptr(box), c_ptr(gbox),
@@ -1106,7 +1161,7 @@ def test_coop_hit_bit_equal_to_hit_chunks_ray(host_lib, inputs, warp):
         rd = np.ascontiguousarray(rd[:, -tail:])
     K = (rows.shape[1] - 8) // 4
     t_s, id_s = hit_sequential(host_lib, rows, ro, rd, K)
-    t_w, id_w = hit_coop(host_lib, rows, ro, rd, K, width, mode)
+    t_w, id_w = hit_coop(host_lib, inputs, ro, rd, width, mode)
     np.testing.assert_array_equal(id_w, id_s)
     np.testing.assert_array_equal(t_w.view(np.int32), t_s.view(np.int32))
     assert (id_s >= 0).mean() > 0.05
@@ -1124,8 +1179,7 @@ def test_hit_prefilter_keeps_every_entered_chunk(host_lib, inputs):
     scene's camera rays."""
     rows, ro, rd, _ = hit_inputs(inputs)
     K = (rows.shape[1] - 8) // 4
-    index = shadow_index(torch.from_numpy(rows), K)
-    order, gbox = index.order.numpy(), index.gbox.numpy()
+    order, _, gbox = hit_index(inputs)
     box = np.ascontiguousarray(rows[:, 4 * K:4 * K + 6])
     counts = np.zeros(3, np.int64)
     n = ro.shape[1]
@@ -1175,3 +1229,27 @@ def test_hit_stats_plain_counts(host_lib):
             <= g[k]["of"]
     assert g["groups_index_order"]["entered_per_ray"] < \
         g["groups_rows_order"]["entered_per_ray"]
+
+
+@pytest.mark.parametrize("inputs", ["camera_100k", "random"])
+def test_plain_root_tests_match_hit_chunks_ray(host_lib, inputs):
+    """ChunkTraversal.nearest_hit_roots' root tests (the bound's count of
+    the square roots K5 takes) ray by ray against hit_chunks_ray's scan:
+    the sphere tests with a positive discriminant in the chunks it
+    enters, NaN and zero direction components included."""
+    rows, ro, rd, _ = hit_inputs(inputs)
+    K = (rows.shape[1] - 8) // 4
+    n = ro.shape[1]
+    want = np.zeros(n, np.int64)
+    box = np.ascontiguousarray(rows[:, 4 * K:4 * K + 6])
+    host_lib.tpt_hit_roots_cpu(c_ptr(rows), c_ptr(box), rows.shape[0], K,
+                               c_ptr(ro), c_ptr(rd), n, 1e-3, 1e7,
+                               c_ptr(want))
+    t_s, id_s = hit_sequential(host_lib, rows, ro, rd, K)
+    t, hid, _, spheres, roots = ChunkTraversal(
+        torch.from_numpy(rows.copy()), K).nearest_hit_roots(
+        tuple(torch.from_numpy(ro.copy())), tuple(torch.from_numpy(rd.copy())),
+        float(np.float32(1e-3)), 1e7)
+    np.testing.assert_array_equal(hid.numpy(), id_s)
+    np.testing.assert_array_equal(roots.numpy(), want)
+    assert 0 < want.sum() < spheres.sum().item()

@@ -419,7 +419,7 @@ TPT_WARP void shadow_chunk_test(const W& w, const CoopView& V,
 // chunks are tested (shadow_chunk_test) by coop_occluded's walk
 // (walk_chunks) over the chunks in the order `order` (V.box holds their
 // boxes in that order, V.gbox the group boxes over it), which
-// scaled.shadow_index makes spatial so that the group boxes skip; but the
+// scaled.chunk_index makes spatial so that the group boxes skip; but the
 // light's chunk comes last: the ray ends in the light's sphere, so it
 // enters that chunk whenever it gets that far, and a pair occluded before
 // never scans it.  The bits are occluded_chunks', since an OR over spheres
@@ -613,7 +613,7 @@ TPT_WARP void hit_chunk_test(const W& w, const Sphere4* r, int K, int c,
 // miss) and out_id (the global id, -1 on a miss).  ro, rd: (3, n) planes;
 // rec: the spheres' (x, y, z, r^2) records, chunk by chunk; V.box: the
 // chunk boxes in the rows' order; V.gbox: the group boxes over `order`
-// (scaled.shadow_index's spatial order); mask: this warp's
+// (scaled.chunk_index's spatial order); mask: this warp's
 // chunk_words(V.n_chunks) words of scratch.  Lanes past n take part in
 // every collective with no ray.
 // The prefilter (hit_prefilter) keeps the chunks of the spatial groups

@@ -2,38 +2,55 @@
 // (csrc/merged.cuh with flat.cuh, csrc/gradwarp.cuh): the warp policy of
 // csrc/warp.cuh with DeviceWarp's collectives, each a barrier, an exchange
 // through shared slots and a second barrier, so that a collective that not
-// every lane reaches stalls the warp.  A barrier that waits 20 s marks the
-// warp broken and every later one returns at once; the caller reports the
-// run as stalled.  Host code only: the card never includes it.
+// every lane reaches stalls the warp.  A lane arrives with an atomic count;
+// the last one advances the generation, and the others yield a few times
+// before they sleep on the condition variable (a barrier that only slept
+// made the 32-thread tests wait on the scheduler twice a collective).  A
+// barrier that waits 20 s marks the warp broken and every later one
+// returns at once; the caller reports the run as stalled.  Host code
+// only: the card never includes it.
 
 #pragma once
 
+#include <atomic>
 #include <chrono>
 #include <condition_variable>
 #include <mutex>
+#include <thread>
 
 namespace tpt {
 
 struct Lanes {
   std::mutex m;
   std::condition_variable cv;
-  int count = 0;
-  unsigned gen = 0;
-  bool broken = false;
+  std::atomic<int> count{0};
+  std::atomic<unsigned> gen{0};
+  std::atomic<bool> broken{false};
   int ikey[32];
   float f[32];
   unsigned u[32];
   void wait() {
-    std::unique_lock<std::mutex> l(m);
-    if (broken) return;
-    const unsigned g = gen;
-    if (++count == 32) {
-      count = 0;
-      ++gen;
+    if (broken.load(std::memory_order_acquire)) return;
+    const unsigned g = gen.load(std::memory_order_acquire);
+    if (count.fetch_add(1, std::memory_order_acq_rel) == 31) {
+      count.store(0, std::memory_order_relaxed);
+      {
+        std::lock_guard<std::mutex> l(m);
+        gen.store(g + 1, std::memory_order_release);
+      }
       cv.notify_all();
-    } else if (!cv.wait_for(l, std::chrono::seconds(20),
-                            [&] { return gen != g || broken; })) {
-      broken = true;
+      return;
+    }
+    for (int i = 0; i < 64; ++i) {
+      if (gen.load(std::memory_order_acquire) != g) return;
+      std::this_thread::yield();
+    }
+    std::unique_lock<std::mutex> l(m);
+    if (!cv.wait_for(l, std::chrono::seconds(20), [&] {
+          return gen.load(std::memory_order_acquire) != g ||
+                 broken.load(std::memory_order_acquire);
+        })) {
+      broken.store(true, std::memory_order_release);
       cv.notify_all();
     }
   }

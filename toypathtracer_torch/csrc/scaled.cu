@@ -30,7 +30,7 @@
 // PR 3's hit_chunks_kernel (a thread a ray, every chunk box in the rows'
 // order) slab-tested all 391 chunk boxes of the 100k scene for a camera
 // ray that crosses ~3; the cooperative form first tests the 25 boxes of
-// groups of 16 chunks in a spatial order (scaled.shadow_index) and walks,
+// groups of 16 chunks in a spatial order (scaled.chunk_index) and walks,
 // in the rows' order, only the chunks of the groups some lane enters, so
 // its ids and t are PR 3's bit for bit; it reads the spheres as 16-byte
 // records.  hit_chunks_kernel stays as the baseline it is held bit-equal
@@ -93,25 +93,6 @@ __device__ tpt::ChunkedView rows_view(const float* rows, const float* box,
   return V;
 }
 
-// ro, rd: (3, n) planes; out_t, out_id: (n,).
-__global__ void __launch_bounds__(kRayThreads)
-hit_chunks_kernel(const float* __restrict__ rows, int n_chunks, int chunk,
-                  const float* __restrict__ ro, const float* __restrict__ rd,
-                  int n, float t_min, float t_max, float* __restrict__ out_t,
-                  int32_t* __restrict__ out_id) {
-  extern __shared__ float s_box[];
-  stage_boxes(rows, n_chunks, chunk, s_box, threadIdx.x, blockDim.x);
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const tpt::ChunkedView V = rows_view(rows, s_box, n_chunks, chunk);
-  float t;
-  out_id[i] = tpt::hit_chunks_ray(V, tpt::v3(ro[i], ro[n + i], ro[2 * n + i]),
-                                  tpt::v3(rd[i], rd[n + i], rd[2 * n + i]),
-                                  t_min, t_max, t);
-  out_t[i] = t;
-}
-
 constexpr unsigned kFull = 0xffffffffu;
 
 // The per-lane form's counter: the lanes that run a traversal step
@@ -149,36 +130,44 @@ struct LaneStats {
   }
 };
 
-// K5's per-thread form's counted instance: hit_chunks_kernel with the
-// traversal's LaneStats (kStSlots totals added to `stats`).
+// K5's per-thread form (PR 3's kernel, the baseline): one thread a ray,
+// hit_chunks_ray over every chunk box.  ro, rd: (3, n) planes; out_t,
+// out_id: (n,).  kStats: its counted instance, adding the traversal's
+// LaneStats (kStSlots totals) to `stats`.
+template <bool kStats>
 __global__ void __launch_bounds__(kRayThreads)
-hit_chunks_counted_kernel(const float* __restrict__ rows, int n_chunks,
-                          int chunk, const float* __restrict__ ro,
-                          const float* __restrict__ rd, int n, float t_min,
-                          float t_max, float* __restrict__ out_t,
-                          int32_t* __restrict__ out_id,
-                          unsigned long long* __restrict__ stats) {
+hit_chunks_kernel(const float* __restrict__ rows, int n_chunks, int chunk,
+                  const float* __restrict__ ro, const float* __restrict__ rd,
+                  int n, float t_min, float t_max, float* __restrict__ out_t,
+                  int32_t* __restrict__ out_id,
+                  unsigned long long* __restrict__ stats) {
   extern __shared__ float s_box[];
   stage_boxes(rows, n_chunks, chunk, s_box, threadIdx.x, blockDim.x);
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const tpt::ChunkedView V = rows_view(rows, s_box, n_chunks, chunk);
-  // every lane reaches the flush's full-warp shuffles
-  LaneStats ls(threadIdx.x);
-  if (i < n) {
+  auto hit = [&](auto& cnt) {
     float t;
     out_id[i] = tpt::hit_chunks_ray(
         V, tpt::v3(ro[i], ro[n + i], ro[2 * n + i]),
-        tpt::v3(rd[i], rd[n + i], rd[2 * n + i]), t_min, t_max, t, ls);
+        tpt::v3(rd[i], rd[n + i], rd[2 * n + i]), t_min, t_max, t, cnt);
     out_t[i] = t;
+  };
+  if constexpr (kStats) {
+    // every lane reaches the flush's full-warp shuffles
+    LaneStats ls(threadIdx.x);
+    if (i < n) hit(ls);
+    tpt::flush_loop_stats(ls.v, stats, threadIdx.x);
+  } else if (i < n) {
+    tpt::NoChunkCount none;
+    hit(none);
   }
-  tpt::flush_loop_stats(ls.v, stats, threadIdx.x);
 }
 
 // K5 on the main path: persistent 128-thread blocks whose warps take 32
 // consecutive rays at a time from *next (zeroed by the caller) and run
 // coop.cuh's hit_chunks_warp: the group boxes gbox over the walk order
-// `order` (scaled.shadow_index) as the prefilter, then the kept chunks in
+// `order` (scaled.chunk_index) as the prefilter, then the kept chunks in
 // the rows' order, the spheres read as 16-byte records (rec, in the rows'
 // order).  Dynamic shared memory: [chunk boxes in the rows' order] [group
 // boxes] [walk order] [each warp's chunk mask].  kStats: its counted
@@ -268,7 +257,7 @@ shadow_chunks_kernel(const float* __restrict__ rows, int n_chunks, int chunk,
 // K6 on the main path: persistent 128-thread blocks whose warps take 32
 // consecutive rays at a time from *next (zeroed by the caller) and decide
 // them light by light with coop.cuh's walk (shadow_chunks_warp) over the
-// chunks in the order `order` (scaled.shadow_index: Morton order of their
+// chunks in the order `order` (scaled.chunk_index: Morton order of their
 // boxes, whose group boxes gbox are tight), the spheres read as 16-byte
 // records (rec, in the rows' order).  Dynamic shared memory: [chunk boxes
 // in walk order] [group boxes] [walk order] [light ids].
@@ -503,24 +492,17 @@ int tpt_hit_chunks_launch(const float* rows, int n_chunks, int chunk,
   const size_t smem = sizeof(float) * 6 * n_chunks;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = (n + kRayThreads - 1) / kRayThreads;
-  cudaError_t err;
-  if (stats) {
-    err = tpt::allow_smem(hit_chunks_counted_kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    hit_chunks_counted_kernel<<<blocks, kRayThreads, smem, s>>>(
-        rows, n_chunks, chunk, ro, rd, n, t_min, t_max, out_t, out_id,
-        stats);
-  } else {
-    err = tpt::allow_smem(hit_chunks_kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    hit_chunks_kernel<<<blocks, kRayThreads, smem, s>>>(
-        rows, n_chunks, chunk, ro, rd, n, t_min, t_max, out_t, out_id);
-  }
+  auto kernel = stats ? hit_chunks_kernel<true> : hit_chunks_kernel<false>;
+  const cudaError_t err = tpt::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, kRayThreads, smem, s>>>(rows, n_chunks, chunk, ro, rd, n,
+                                           t_min, t_max, out_t, out_id,
+                                           stats);
   return static_cast<int>(cudaGetLastError());
 }
 
 // K5's cooperative form (the main path's) on `stream` for n rays: t and ids
-// into out_t, out_id (n,).  It takes scaled.shadow_index's order
+// into out_t, out_id (n,).  It takes scaled.chunk_index's order
 // (n_chunks,), rec (n_chunks * chunk) sphere records and gbox
 // (tpt_scaled_groups(n_chunks), 6) group boxes over that order, and next,
 // one int zeroed by the caller.  stats: null, or kStSlots zeroed totals
@@ -556,7 +538,7 @@ int tpt_coop_hit_launch(const float* rows, const int32_t* order,
 
 // K6 on `stream` for n rays and n_lights lights (bits into out (n,)).
 // form 0: the per-thread kernel; 1: the cooperative kernel, which takes
-// scaled.shadow_index's order (n_chunks,), rec (n_chunks * chunk) sphere
+// scaled.chunk_index's order (n_chunks,), rec (n_chunks * chunk) sphere
 // records and gbox (tpt_scaled_groups(n_chunks), 6) group boxes over that
 // order, and next, one int zeroed by the caller.  stats: null, or kStSlots
 // zeroed totals that the form's counted instance adds to.

@@ -72,7 +72,7 @@ struct RenderParams {
 
 // A sphere's center and squared radius, rows ROW_CX..ROW_SQR of the packed
 // table: the merged K1's records (ops/cuda_render.pack_records) and the
-// cooperative K6's (scaled.shadow_index).
+// cooperative K6's (scaled.chunk_index).
 struct alignas(16) Sphere4 {
   float x, y, z, r2;
 };

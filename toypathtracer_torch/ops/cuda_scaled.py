@@ -6,7 +6,7 @@ scaled_pallas.py and of scaled.py's renderer).
 pack_chunks rows and tuples of ray lane planes of any one shape.
 `hit_chunks_form` and `shadow_chunks_form` reach both forms of each --
 "coop" (the main path's: the warp-cooperative chunk walk of csrc/coop.cuh
-with the scene's scaled.shadow_index) and "thread" (the per-thread form it
+with the scene's scaled.chunk_index) and "thread" (the per-thread form it
 replaced, the baseline it is held bit-equal to) -- and their counted
 instances.
 `render_tile_scaled` / `render_frame_scaled` render a ScaledScene through
@@ -31,7 +31,7 @@ import torch
 
 from ..config import RenderConfig, resolve_device
 from ..scaled import (ChunkTraversal, ScaledScene, group_boxes, pack_chunks,
-                      render_tile_scaled_plain, shadow_index)
+                      render_tile_scaled_plain, chunk_index)
 from . import _build
 from .cuda_render import (LOOP_FIELDS, MAX_LIGHTS, STAT_FIELDS, STAT_SLOTS,
                           cuda_call, kernel_camera, pack_scene,
@@ -96,7 +96,7 @@ def _f32(x) -> float:
 
 
 def _check_index(index, rows: torch.Tensor, chunk: int, lib):
-    """Refuse a scaled.shadow_index that does not fit the rows."""
+    """Refuse a scaled.chunk_index that does not fit the rows."""
     C, dev = rows.shape[0], rows.device
     for name, t, want, dtype in (
             ("order", index.order, (C,), torch.int32),
@@ -105,7 +105,7 @@ def _check_index(index, rows: torch.Tensor, chunk: int, lib):
             ("sphere records", index.rec, (C * chunk, 4), torch.float32)):
         if (t.shape != want or t.dtype != dtype or t.device != dev
                 or not t.is_contiguous()):
-            raise ValueError(f"shadow index {name} must be contiguous "
+            raise ValueError(f"chunk index {name} must be contiguous "
                              f"{dtype} {want} on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
 
@@ -115,7 +115,7 @@ def hit_chunks(rows: torch.Tensor, ro, rd, chunk: int, t_min: float,
     """Nearest hit of each ray over all chunks (hit_chunks_tiles):
     (t float32, id int32) in the lanes' shape, t_max and -1 on a miss.
     `rows` is pack_chunks' output; ro and rd are 3 lane planes each.
-    index: the rows' scaled.shadow_index, built here when None
+    index: the rows' scaled.chunk_index, built here when None
     (ChunkedScenePort passes its own)."""
     return hit_chunks_form(rows, ro, rd, chunk, t_min, t_max,
                            HIT_MAIN_FORM, index=index)
@@ -126,9 +126,10 @@ def hit_chunks_form(rows: torch.Tensor, ro, rd, chunk: int, t_min: float,
                     stats: bool = False):
     """hit_chunks through K5's form `form` (HIT_FORMS); both give the same
     ids and t bit for bit.  stats=True launches the form's counted instance
-    and returns a third value, stats_dict of its counters (on a card only;
-    the cooperative form's prefilter counts its group boxes under
-    "groups").  On the CPU the plain version, whatever the form."""
+    and returns a third value (on a card only), its counters as {"hit":
+    stats_dict's kind, "groups": {"boxes", "slabs"}}: the chunk walk, and
+    the cooperative form's prefilter (0 for the per-thread form).  On the
+    CPU the plain version, whatever the form."""
     _check_rows(rows, chunk)
     if form not in HIT_FORMS:
         raise ValueError(f"no K5 form {form!r}")
@@ -147,7 +148,7 @@ def hit_chunks_form(rows: torch.Tensor, ro, rd, chunk: int, t_min: float,
     lib = _build.load_library()
     coop = form == "coop"
     if coop:
-        index = shadow_index(rows, chunk) if index is None else index
+        index = chunk_index(rows, chunk) if index is None else index
         _check_index(index, rows, chunk, lib)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     hid = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -172,7 +173,14 @@ def hit_chunks_form(rows: torch.Tensor, ro, rd, chunk: int, t_min: float,
     launches["hit_chunks_counted" if stats else HIT_COUNTERS[form]] += 1
     out = (t.reshape(shape), hid.reshape(shape))
     if stats:
-        return (*out, stats_dict(counts.cpu(), groups=coop))
+        # K5 traces no shadow rays: the cooperative form's prefilter counts
+        # its group boxes in the shadow kind's box slots (coop.cuh
+        # kStGroupBoxes), and the per-thread form leaves them 0
+        st = stats_dict(counts.cpu())
+        shadow = st.pop("shadow")
+        del st["loop"]
+        st["groups"] = {"boxes": shadow["boxes"], "slabs": shadow["slabs"]}
+        return (*out, st)
     return out
 
 
@@ -181,7 +189,7 @@ def shadow_chunks(rows: torch.Tensor, ro, dirs, t_ls, chunk: int,
     """NEE occlusion bitmask (shadow_chunks_tiles): bit k of each ray is
     set when a sphere other than light k overlaps (t_min, t_ls[k]) along
     light k's direction.  ro: 3 lane planes; dirs: 3 * n_l planes, light
-    by light; t_ls: n_l planes.  index: the rows' scaled.shadow_index,
+    by light; t_ls: n_l planes.  index: the rows' scaled.chunk_index,
     built here when None (ChunkedScenePort passes its own).  Returns int32
     lanes."""
     return shadow_chunks_form(rows, ro, dirs, t_ls, chunk, light_ids, t_min,
@@ -221,7 +229,7 @@ def shadow_chunks_form(rows: torch.Tensor, ro, dirs, t_ls, chunk: int,
     lib = _build.load_library()
     coop = form == "coop"
     if coop:
-        index = shadow_index(rows, chunk) if index is None else index
+        index = chunk_index(rows, chunk) if index is None else index
         _check_index(index, rows, chunk, lib)
     # pinned and without blocking, as ops/cuda_render.kernel_camera
     ids = torch.from_numpy(np.array(list(light_ids) or [0], np.int32))
@@ -280,13 +288,10 @@ def render_tile_scaled(scene: ScaledScene, cfg: RenderConfig, frame: int,
                                    MAIN_FORM)
 
 
-def stats_dict(v, groups: bool = False) -> dict:
+def stats_dict(v) -> dict:
     """A stats instance's STAT_SLOTS totals as {"hit": {...}, "shadow":
     {...}, "loop": {...}} of ints, with each kind's sphere-loop SIMT
-    efficiency need / (32 trips).  groups=True (K5's cooperative form,
-    whose prefilter counts its group boxes in the shadow kind's box slots,
-    coop.cuh kStGroupBoxes): {"hit": {...}, "groups": {"boxes", "slabs"}}
-    instead."""
+    efficiency need / (32 trips)."""
     v = [int(x) for x in v]
     out = {}
     for k, kind in enumerate(("hit", "shadow")):
@@ -295,10 +300,6 @@ def stats_dict(v, groups: bool = False) -> dict:
             if d["trips"] else None
         out[kind] = d
     out["loop"] = dict(zip(LOOP_FIELDS, v[12:]))
-    if groups:
-        shadow = out.pop("shadow")
-        del out["loop"]
-        out["groups"] = {"boxes": shadow["boxes"], "slabs": shadow["slabs"]}
     return out
 
 

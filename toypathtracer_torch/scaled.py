@@ -337,24 +337,32 @@ class ChunkTraversal:
         """(t, id, slab tests, sphere tests) per lane: the nearest hit
         over all chunks (scaled.py:575-663), t_max and -1 on a miss and
         on inactive lanes."""
+        return self.nearest_hit_roots(ro, rd, t_min, t_max, active)[:4]
+
+    def nearest_hit_roots(self, ro, rd, t_min: float, t_max: float,
+                          active=None):
+        """nearest_hit's (t, id, slab tests, sphere tests) and per lane
+        the root tests: the sphere tests in the chunks it entered whose
+        discriminant is positive, where a kernel takes the square root and
+        the two roots."""
         P = ro[0].shape[0]
         dev = ro[0].device
         t = torch.full((P,), t_max, dtype=torch.float32, device=dev)
         hid = torch.full((P,), -1, dtype=torch.int64, device=dev)
         spheres = torch.zeros((P,), dtype=torch.int64, device=dev)
+        roots = torch.zeros((P,), dtype=torch.int64, device=dev)
         lanes = torch.arange(P, device=dev) if active is None else \
             active.nonzero().squeeze(1)
         for s in _spans(lanes.shape[0], dev):
             idx = lanes[s]
-            bt, bi, bs = self._hit_lanes(
+            t[idx], hid[idx], spheres[idx], roots[idx] = self._hit_lanes(
                 tuple(x[idx] for x in ro), tuple(x[idx] for x in rd),
                 t_min, t_max)
-            t[idx], hid[idx], spheres[idx] = bt, bi, bs
         slabs = torch.full((P,), self.n_chunks, dtype=torch.int64,
                            device=dev)
         if active is not None:
             slabs = torch.where(active, slabs, 0)
-        return t, hid, slabs, spheres
+        return t, hid, slabs, spheres, roots
 
     def _hit_lanes(self, ro, rd, t_min, t_max):
         P = ro[0].shape[0]
@@ -367,6 +375,7 @@ class ChunkTraversal:
         n = pi.shape[0]
         t_c = torch.empty((n,), dtype=torch.float32, device=dev)
         jc = torch.empty((n,), dtype=torch.int64, device=dev)
+        nr = torch.empty((n,), dtype=torch.int64, device=dev)
         for s in _spans(n, dev, pairs=True):
             c_, p_ = ci[s], pi[s]
             cox, coy, coz, cq = self._pair_geometry(c_, p_, ro)
@@ -379,14 +388,16 @@ class ChunkTraversal:
             tt = torch.where(r0 > t_min, r0, r1)
             tt = torch.where((discr > 0.0) & (tt > t_min), tt, torch.inf)
             t_c[s], jc[s] = torch.min(tt, dim=1)
+            nr[s] = (discr > 0.0).sum(dim=1)
         # replay the scan's sequential rule: rank r = the lane's r-th
         # candidate chunk in chunk order
         counts = cand.sum(dim=0)
         best = torch.full((P,), t_max, dtype=torch.float32, device=dev)
         bid = torch.full((P,), -1, dtype=torch.int64, device=dev)
         live_n = torch.zeros((P,), dtype=torch.int64, device=dev)
+        roots = torch.zeros((P,), dtype=torch.int64, device=dev)
         if n == 0:
-            return best, bid, live_n
+            return best, bid, live_n, roots
         R = int(counts.max())
         rank = torch.arange(n, device=dev) - (torch.cumsum(counts, 0)
                                               - counts)[pi]
@@ -394,17 +405,20 @@ class ChunkTraversal:
         T1 = torch.full((R, P), -torch.inf, device=dev)
         TC = torch.full((R, P), torch.inf, device=dev)
         ID = torch.full((R, P), -1, dtype=torch.int64, device=dev)
+        NR = torch.zeros((R, P), dtype=torch.int64, device=dev)
         T0[rank, pi] = t0[ci, pi]
         T1[rank, pi] = t1[ci, pi]
         TC[rank, pi] = t_c
         ID[rank, pi] = self.base[ci] + jc
+        NR[rank, pi] = nr
         for r in range(R):
             live = T0[r] <= torch.minimum(best, T1[r])
             upd = live & (TC[r] < best)
             best = torch.where(upd, TC[r], best)
             bid = torch.where(upd, ID[r], bid)
             live_n += live
-        return best, bid, live_n * K
+            roots += torch.where(live, NR[r], 0)
+        return best, bid, live_n * K, roots
 
     def occluded(self, pos, l, light: int, t_min: float, t_l, active=None):
         """(occluded, slab tests, sphere tests) per lane: does any sphere
@@ -511,21 +525,21 @@ def group_boxes(rows: torch.Tensor, chunk: int,
                       hi.reshape(G, group, 3).amax(dim=1)], dim=1).contiguous()
 
 
-class ShadowIndex(NamedTuple):
-    """What the cooperative K6 and K5 read beside the chunk rows, built
-    once per scene (shadow_index): `order`, the chunks in the order K6's
-    walk takes them (int32); `gbox`, the group boxes over runs of GROUP
-    chunks of that order, K6's group skip and K5's prefilter (K5 walks the
-    chunks of the groups its rays enter in the rows' order); `rec`, the
-    spheres' (cx, cy, cz, r^2) records in the rows' order, so that a
-    sphere is one 16-byte load instead of four."""
+class ChunkIndex(NamedTuple):
+    """What the cooperative K5 and K6 read beside the chunk rows, built
+    once per scene (chunk_index): `order`, the chunks in a spatial order
+    (int32), the order K6's walk takes them in; `gbox`, the group boxes
+    over runs of GROUP chunks of that order, K6's group skip and K5's
+    prefilter (K5 walks the chunks of the groups its rays enter in the
+    rows' order); `rec`, the spheres' (cx, cy, cz, r^2) records in the
+    rows' order, so that a sphere is one 16-byte load instead of four."""
     order: torch.Tensor
     gbox: torch.Tensor
     rec: torch.Tensor
 
 
-def shadow_index(rows: torch.Tensor, chunk: int) -> ShadowIndex:
-    """The ShadowIndex of pack_chunks rows (C, 4 * chunk + 8).  The order
+def chunk_index(rows: torch.Tensor, chunk: int) -> ChunkIndex:
+    """The ChunkIndex of pack_chunks rows (C, 4 * chunk + 8).  The order
     takes the chunks in Morton order of their box centers, so that a group
     of GROUP consecutive ones is compact and its box tight, and the chunks
     whose box is more than 4 times the median's widest extent (the
@@ -547,7 +561,7 @@ def shadow_index(rows: torch.Tensor, chunk: int) -> ShadowIndex:
     order = torch.from_numpy(np.concatenate([morton[~big], morton[big]])
                              .astype(np.int32)).to(rows.device)
     rec = rows[:, :4 * chunk].reshape(C, 4, chunk).transpose(1, 2)
-    return ShadowIndex(order, group_boxes(rows[order.long()], chunk),
+    return ChunkIndex(order, group_boxes(rows[order.long()], chunk),
                        rec.reshape(C * chunk, 4).contiguous())
 
 
@@ -561,14 +575,14 @@ class ChunkedScenePort:
     def __init__(self, scene: ScaledScene):
         self.scene = scene
         self.rows = pack_chunks(scene)
-        self.shadow_index = shadow_index(self.rows, scene.chunk)
+        self.chunk_index = chunk_index(self.rows, scene.chunk)
 
     def hit_chunks(self, ro, rd, t_min: float, t_max: float):
         """Nearest (t float32, id int32) over all chunks, id -1 on a
         miss, in the lanes' shape."""
         from .ops import cuda_scaled
         return cuda_scaled.hit_chunks(self.rows, ro, rd, self.scene.chunk,
-                                      t_min, t_max, index=self.shadow_index)
+                                      t_min, t_max, index=self.chunk_index)
 
     def lights_visible(self, ro, dirs, light_ids, t_min: float,
                        t_max: float):
@@ -585,7 +599,7 @@ class ChunkedScenePort:
             hits.append(valid & (t_l < t_max))
         occ = cuda_scaled.shadow_chunks(
             self.rows, ro, tuple(c for l in dirs for c in l), tuple(t_ls),
-            s.chunk, tuple(light_ids), t_min, index=self.shadow_index)
+            s.chunk, tuple(light_ids), t_min, index=self.chunk_index)
         return [h & (((occ >> k) & 1) == 0) for k, h in enumerate(hits)]
 
     def silhouette_chunks(self, *args, **kw):

@@ -8,11 +8,11 @@ first camera ray of each pixel of frame 0, 921,600 rays.  Launches each
 form's counted instance once on those rays (ops/cuda_scaled.hit_chunks_form
 with stats=True):
 
-- "thread", PR 3's per-thread form (hit_chunks_counted_kernel: a thread a
+- "thread", PR 3's per-thread form (hit_chunks_kernel<1>: a thread a
   ray, hit_chunks_ray over every chunk box in the rows' order, a warp step
   counted for the lanes active in it);
 - "coop", the main path's warp-cooperative form (coop_hit_kernel<1>: the
-  group boxes of scaled.shadow_index as the prefilter, then the kept
+  group boxes of scaled.chunk_index as the prefilter, then the kept
   chunks in the rows' order).
 
 For each: per ray the slab tests (for "coop" the group boxes' and the
@@ -59,11 +59,11 @@ def form_stats(port: ChunkedScenePort, ro, rd, cfg: RenderConfig,
     dict)."""
     t, hid, st = cuda_scaled.hit_chunks_form(
         port.rows, ro, rd, port.scene.chunk, cfg.min_t, cfg.max_t, form,
-        index=port.shadow_index, stats=True)
+        index=port.chunk_index, stats=True)
     h = st["hit"]
     rays = max(h["lanes"], 1)
     calls = max(h["calls"], 1)
-    group_slabs = st["groups"]["slabs"] if "groups" in st else 0
+    group_slabs = st["groups"]["slabs"]
     return t, hid, {
         "form": form, "rays": int(hid.numel()), "counters": st,
         "simt_efficiency": h["simt_efficiency"],
@@ -84,7 +84,7 @@ def plain_counts(port: ChunkedScenePort, ro, rd, hit_id, cfg: RenderConfig):
     t_max = float(np.float32(cfg.max_t))
     box = rows[:, 4 * K:4 * K + 6]
     boxes = {"chunks": box, "groups_rows_order": group_boxes(rows, K),
-             "groups_index_order": port.shadow_index.gbox}
+             "groups_index_order": port.chunk_index.gbox}
     n = int(ro[0].numel())
     crossed = {k: torch.zeros((n,), dtype=torch.int64, device=ro[0].device)
                for k in boxes}

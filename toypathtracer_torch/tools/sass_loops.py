@@ -1,7 +1,7 @@
 """The instruction mix of a kernel's innermost loops, from its SASS.
 
     python -m toypathtracer_torch.tools.sass_loops [--kernels LABEL,...]
-        [--out PATH]
+        [--compare DIR [--same HERE=THERE,...]] [--out PATH]
 
 Builds csrc/ (ops/_build), disassembles the library with the CUDA
 toolkit's `cuobjdump -sass`, and for each named kernel (labels as
@@ -22,7 +22,9 @@ With --compare DIR (the root of another checkout of the repo, e.g. the
 parent commit unpacked with `git archive` into a directory that .gitignore
 lists) it builds that checkout's library too, in a process of its own, and
 lists instead the kernels whose SASS is identical in the two libraries,
-those that differ, and those that only one has.
+those that differ, and those that only one has.  --same HERE=THERE,...
+compares a kernel renamed here with its name there (a kernel that became
+a template: --same "hit_chunks_kernel<0>=hit_chunks_kernel").
 
 Needs the CUDA toolkit (nvcc and cuobjdump), so it runs where the kernels
 build, on the machine with the card.  Writes build/sass_loops.json at the
@@ -145,17 +147,26 @@ def disassemble(lib) -> dict:
                                     text=True).stdout)
 
 
-def compare(funcs: dict, other: Path) -> dict:
-    """Kernels of `funcs` whose SASS equals, or differs from, that of the
-    checkout at `other` (its library built by its own _build)."""
+def compare(funcs: dict, other: Path, same=None) -> dict:
+    """sass_diff of `funcs` against the checkout at `other` (its library
+    built by its own _build)."""
     lib = subprocess.run(
         [sys.executable, "-c", "from toypathtracer_torch.ops import _build; "
          "print(_build.build())"], cwd=other, check=True,
         capture_output=True, text=True).stdout.strip().splitlines()[-1]
-    theirs = disassemble(lib)
+    return {"other": str(other), **sass_diff(funcs, disassemble(lib), same)}
+
+
+def sass_diff(funcs: dict, theirs: dict, same=None) -> dict:
+    """Kernels of `funcs` whose SASS equals, or differs from, that of
+    `theirs` (functions() of two libraries); `same` maps a label here to
+    the label of the same kernel there."""
+    theirs = dict(theirs)
+    for here, there in (same or {}).items():
+        if there in theirs:
+            theirs[here] = theirs.pop(there)
     common = sorted(set(funcs) & set(theirs))
-    return {"other": str(other),
-            "identical": [k for k in common if funcs[k] == theirs[k]],
+    return {"identical": [k for k in common if funcs[k] == theirs[k]],
             "differ": [k for k in common if funcs[k] != theirs[k]],
             "only_here": sorted(set(funcs) - set(theirs)),
             "only_there": sorted(set(theirs) - set(funcs))}
@@ -166,13 +177,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--kernels", default=",".join(DEFAULT))
     ap.add_argument("--compare", default=None, metavar="DIR",
                     help="another checkout whose SASS to compare with")
+    ap.add_argument("--same", default="", metavar="HERE=THERE,...",
+                    help="kernels renamed here, compared with their old "
+                         "names there")
     ap.add_argument("--out", default=None,
                     help=f"output path (default {OUT})")
     args = ap.parse_args(argv)
     lib = _build.build()
     funcs = disassemble(lib)
     if args.compare:
-        res = {"library": lib.name, **compare(funcs, Path(args.compare))}
+        same = dict(p.split("=", 1) for p in args.same.split(",") if p)
+        res = {"library": lib.name,
+               **compare(funcs, Path(args.compare), same)}
     else:
         res = {"library": lib.name, "kernels": {}}
         for label in args.kernels.split(","):

@@ -14,7 +14,7 @@ Then launches each form's counted instance once on those ray-light pairs
   occluded_chunks per light, a warp step counted for the lanes active in
   it);
 - "coop", the main path's warp-cooperative form (coop_shadow_kernel<1>:
-  the warp walks the chunks together in scaled.shadow_index's spatial
+  the warp walks the chunks together in scaled.chunk_index's spatial
   order, group boxes first, the light's chunk last).
 
 For each: the sphere-loop SIMT efficiency (the sphere tests the pairs
@@ -114,7 +114,7 @@ def form_stats(port: ChunkedScenePort, wl: Workload, cfg: RenderConfig,
     bits, st = cuda_scaled.shadow_chunks_form(
         port.rows, wl.pos, flat, tuple(wl.t_ls), port.scene.chunk,
         wl.lights, float(np.float32(cfg.min_t)), form,
-        index=port.shadow_index, stats=True)
+        index=port.chunk_index, stats=True)
     s = st["shadow"]
     n = int(bits.numel())
     pairs = n * len(wl.lights)

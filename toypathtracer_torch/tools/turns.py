@@ -22,7 +22,7 @@ process imports its own checkout's package, renders one warm-up frame
   steps; the process reports their mean and each;
 - "k6_ms": ops.cuda_scaled.shadow_chunks on tools.shadow_stats's workload
   (the 100k-sphere scene's frame-0 ray-light pairs) with the port's
-  shadow index, CUDA events over 16 calls, where the checkout has that
+  chunk index, CUDA events over 16 calls, where the checkout has that
   tool;
 - "k5_ms": ops.cuda_scaled.hit_chunks on the same workload's camera rays
   (frame 0's 921,600) with the port's index, CUDA events over 16 calls,
@@ -98,12 +98,13 @@ if shadow_stats is not None and {"k5_ms", "k6_ms"} & set(want):
     from toypathtracer_torch.scaled import ChunkedScenePort, make_scaled_scene
     port = ChunkedScenePort(make_scaled_scene(100_000).to("cuda"))
     wl = shadow_stats.workload(port, cfg)
+    # the index's name before it was chunk_index
+    index = getattr(port, "chunk_index", None) or port.shadow_index
     if "k6_ms" in want:
         args = (port.rows, wl.pos, tuple(x for d in wl.dirs for x in d),
                 tuple(wl.t_ls), port.scene.chunk, wl.lights,
                 float(np.float32(cfg.min_t)))
-        k6 = lambda: cuda_scaled.shadow_chunks(*args,
-                                               index=port.shadow_index)
+        k6 = lambda: cuda_scaled.shadow_chunks(*args, index=index)
         k6()
         r["k6_ms"] = time_device_call(k6, repeats=16)[0] * 1e3
     if "k5_ms" in want:
