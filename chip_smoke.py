@@ -51,7 +51,7 @@ non-zero):
      on their first Lambert hits' cone samples (K6); one launch each of
      K5's and K6's cooperative forms, none of the per-thread forms.
   9. K5 on the camera rays and on 65,536 random rays, the cooperative form
-     bit-equal (ids and t) to PR 3's per-thread form it replaced and
+     bit-equal (ids and t) to the per-thread form it replaced and
      within its gates of plain; both K5 forms' counted instances
      (tools.hit_stats: step 1's slab and sphere tests, chunk 0's share,
      SIMT efficiency; the sphere tests equal to plain's), the two timed
@@ -114,7 +114,7 @@ import torch
 # Registers and spill bytes of the kernels that the redesigns must leave as
 # they were (-Xptxas -v of their sources before them): the per-thread K1
 # (render_kernel<0>) and K2 (<1>), the replaying K3 (lockstep_kernel<1,0>),
-# the per-thread K4 (<0,0>), PR 3's K5, the per-thread K6, the per-lane
+# the per-thread K4 (<0,0>), the per-thread K5, the per-thread K6, the per-lane
 # scaled render kernel and the cooperative one, whose path loop and chunk
 # walk the merged K1 and the cooperative K6 share; and K3's warp form, the
 # merged K1, the cooperative K5 and K6 and the merged K2 at their own
@@ -983,8 +983,9 @@ def scaled_phases(cfg, smi, usage):
 
     # ---- 9. kernels vs plain at the full scene ----------------------------
     def hit_case(name, ro, rd):
-        """K5's main-path form against PR 3's kernel it replaced (ids and
-        t bit-equal on every ray) and against the plain version."""
+        """K5's main-path form against the per-thread kernel it replaced
+        (ids and t bit-equal on every ray) and against the plain
+        version."""
         t1 = time.perf_counter()
         args = (rows, ro, rd, K, t_min, t_max)
         t_k, id_k = cuda_scaled.hit_chunks(*args, index=port.chunk_index)
@@ -1010,7 +1011,8 @@ def scaled_phases(cfg, smi, usage):
              "plain_ms": plain_s * 1e3, "seconds": time.perf_counter() - t1}
         emit(r)
         check(r["bit_equal_to_thread_form"],
-              f"K5 {name}: the cooperative form's ids or t != PR 3's kernel's")
+              f"K5 {name}: the cooperative form's ids or t != the "
+              "per-thread kernel's")
         check(r["id_mismatch"] <= 1e-5 * n, f"K5 {name}: ids")
         check(r["t_rel_max"] <= 1e-6, f"K5 {name}: t")
         return r, (slabs, spheres, roots), args
@@ -1432,7 +1434,7 @@ def scaled_phases(cfg, smi, usage):
          "form": "coop (coop_hit_kernel<0>: csrc/coop.cuh hit_chunks_warp "
                  "with scaled.chunk_index's group boxes)",
          "baseline_ms": k5_ms["thread"],
-         "baseline": "PR 3's per-thread K5 it replaced "
+         "baseline": "the per-thread K5 it replaced "
                      "(hit_chunks_kernel<0>), timed in turns with it",
          "bound_ms_old": k5_bound_old,
          "index_built_in_wrapper_ms": k5_index_in_wrapper_ms,
@@ -1440,8 +1442,8 @@ def scaled_phases(cfg, smi, usage):
          "ptxas": usage.get("coop_hit_kernel<0>", {}),
          "vs_plain": {"tolerance": "ids equal on all but 1e-5 of the rays, "
                                    "t rel <= 1e-6 where they agree; ids and "
-                                   "t bit-equal to PR 3's kernel on every "
-                                   "ray",
+                                   "t bit-equal to the per-thread kernel on "
+                                   "every ray",
                       "id_mismatch": k5["id_mismatch"],
                       "id_mismatch_random": k5_random["id_mismatch"],
                       "t_rel_max": k5["t_rel_max"],
@@ -1457,7 +1459,7 @@ def scaled_phases(cfg, smi, usage):
          "plain_ms": k5["plain_ms"], "bound_ms": k5_bound_ms,
          "bound_by": k5_bound_by, "library_ms": None,
          "form": "thread (hit_chunks_kernel<0>)",
-         "baseline": "PR 3's per-thread K5, kept beside the cooperative one "
+         "baseline": "the per-thread K5, kept beside the cooperative one "
                      "as its A/B and equality baseline; not on the main path",
          "sphere_loop_simt_efficiency": k5_st["thread"]["simt_efficiency"],
          "ptxas": usage.get("hit_chunks_kernel<0>", {}),

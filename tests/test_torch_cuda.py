@@ -318,7 +318,7 @@ def test_hit_chunks_kernel_matches_plain(card):
 @pytest.mark.parametrize("n,big", [(45, False), (8192, False),
                                    (4099, True), (65543, True)])
 def test_coop_hit_kernel_bit_equal_to_thread_kernel(card, n, big):
-    """K5's cooperative form (the main path's) against PR 3's per-thread
+    """K5's cooperative form (the main path's) against the per-thread
     form it replaced, on the 3072-sphere field and the 100k scene: ids and
     t bit-equal; both counted instances bit-equal to their timed forms,
     counting the plain version's sphere tests exactly (the thread form its

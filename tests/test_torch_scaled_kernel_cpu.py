@@ -1146,8 +1146,9 @@ HIT_CASES = [(i, w) for i in HIT_INPUTS for w in ("one_lane",
 
 @pytest.mark.parametrize("inputs,warp", HIT_CASES)
 def test_coop_hit_bit_equal_to_hit_chunks_ray(host_lib, inputs, warp):
-    """K5's cooperative routine against hit_chunks_ray (PR 3's K5): ids and
-    t bit for bit, in a one-lane warp and in a warp of 32 host threads
+    """K5's cooperative routine against hit_chunks_ray (the per-thread
+    K5): ids and t bit for bit, in a one-lane warp and in a warp of 32 host
+    threads
     (with its own threshold, and forced to run every entered chunk by its
     lanes' own loops or by the whole warp's votes), on the 100k scene's
     camera rays and origins inside chunk 0's box, and on a field of 94

@@ -27,14 +27,15 @@
 //
 // K5 on the main path is coop_hit_kernel: persistent 128-thread blocks
 // whose warps take 32 consecutive rays and run coop.cuh's hit_chunks_warp.
-// PR 3's hit_chunks_kernel (a thread a ray, every chunk box in the rows'
-// order) slab-tested all 391 chunk boxes of the 100k scene for a camera
-// ray that crosses ~3; the cooperative form first tests the 25 boxes of
-// groups of 16 chunks in a spatial order (scaled.chunk_index) and walks,
-// in the rows' order, only the chunks of the groups some lane enters, so
-// its ids and t are PR 3's bit for bit; it reads the spheres as 16-byte
-// records.  hit_chunks_kernel stays as the baseline it is held bit-equal
-// to and timed against; both have counted instances.
+// The per-thread hit_chunks_kernel (a thread a ray, every chunk box in the
+// rows' order) slab-tested all 391 chunk boxes of the 100k scene for a
+// camera ray that crosses ~3; the cooperative form first tests the 25
+// boxes of groups of 16 chunks in a spatial order (scaled.chunk_index)
+// and walks, in the rows' order, only the chunks of the groups some lane
+// enters, so its ids and t are the per-thread form's bit for bit; it
+// reads the spheres as 16-byte records.  hit_chunks_kernel stays as the
+// baseline it is held bit-equal to and timed against; both have counted
+// instances.
 //
 // K6 on the main path is coop_shadow_kernel, for the same reason:
 // persistent 128-thread blocks whose warps take 32 consecutive rays and
@@ -130,7 +131,7 @@ struct LaneStats {
   }
 };
 
-// K5's per-thread form (PR 3's kernel, the baseline): one thread a ray,
+// K5's per-thread form (the baseline): one thread a ray,
 // hit_chunks_ray over every chunk box.  ro, rd: (3, n) planes; out_t,
 // out_id: (n,).  kStats: its counted instance, adding the traversal's
 // LaneStats (kStSlots totals) to `stats`.
@@ -478,7 +479,7 @@ int tpt_scaled_groups(int n_chunks) {
   return (n_chunks + tpt::kGroup - 1) / tpt::kGroup;
 }
 
-// K5's per-thread form (PR 3's kernel, the baseline) on `stream` for n
+// K5's per-thread form (the baseline) on `stream` for n
 // rays; returns cudaGetLastError() (0 when the launch was accepted).
 // stats: null, or kStSlots zeroed totals that its counted instance adds to.
 int tpt_hit_chunks_launch(const float* rows, int n_chunks, int chunk,

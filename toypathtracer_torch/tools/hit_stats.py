@@ -8,7 +8,7 @@ first camera ray of each pixel of frame 0, 921,600 rays.  Launches each
 form's counted instance once on those rays (ops/cuda_scaled.hit_chunks_form
 with stats=True):
 
-- "thread", PR 3's per-thread form (hit_chunks_kernel<1>: a thread a
+- "thread", the per-thread form (hit_chunks_kernel<1>: a thread a
   ray, hit_chunks_ray over every chunk box in the rows' order, a warp step
   counted for the lanes active in it);
 - "coop", the main path's warp-cooperative form (coop_hit_kernel<1>: the
