@@ -7,7 +7,8 @@ Phases (one JSON line each on stdout; any failure raises and exits
 non-zero):
   1. device: the card, torch/CUDA versions, the nvcc build of csrc/;
      each kernel's registers, stack and spills from -Xptxas -v, with the
-     per-thread K1, K3 (both forms), K4's per-thread form, both K5 forms,
+     per-thread K1, K3 (both forms' hard instances; the soft instances'
+     counts recorded in phase 7g), K4's per-thread form, both K5 forms,
      both K6 forms, both K2 forms, the per-lane and the cooperative scaled
      render kernels and the merged K1 held at their counts.
   2. kernel vs plain at 320x176, spp 2, depth 6, frames 0-3: the big
@@ -43,6 +44,26 @@ non-zero):
      instances, and each form's final sum timed alone); the warp and
      replay forms timed in turns with CUDA events, and K4's merged and
      per-thread forms; the training step on the host clock.
+ 7b. K3's soft instances (the soft-silhouette estimator, eps 0.05) at
+     1280x720, spp 4, depth 10: both forms against plain autograd over the
+     frame's 45 bands (per row within 1e-3), the image bit-equal to K3 at
+     eps 0 and to K1, rays exact, two launches bit-equal, 45 soft band
+     launches summing to the frame.
+ 7c. finite differences of sum(img * w) on sphere 2's x and radius, 32
+     frames a side, against K3's soft and hard instances: the soft sign.
+ 7d. the training path with trainable centres and radii (InverseRenderer,
+     tonemapped loss, 10 Adam steps): one render and one soft K3 launch a
+     step and no other gradient launch, the loss finite and lower after
+     the fit than before it, ms/step; the hard instance's fit from the
+     same start beside it.
+ 7e. the motion AD-vs-FD check of tests/test_motion.py:33 (96x32, spp 2,
+     depth 2, eps 0.02, t 0.7, dt 0.05, 32 frames) through K3's soft
+     instance: sign equal, rel err < 0.40; the hard instance's beside it.
+ 7f. demo_motion at its defaults (192x108, 150 Adam steps): the loss
+     falls; t_abs_err printed.
+ 7g. the soft instances' cycle shares (tools.grad_stats), both forms'
+     soft and hard instances timed in turns, the soft bound from the plain
+     version's soft counters.
   8. the scaled path (make_scaled_scene(100_000): 100,096 spheres in 391
      chunks, 8 beacons) at 1280x720, spp 4, depth 10: RenderSession, 4
      progressive frames plus 1 animated frame (one launch a frame of the
@@ -92,7 +113,7 @@ non-zero):
      clock under load, and every thread of each case's and each floor's
      launches against the plain version.
  14. the `kernels` line: render, render_baseline, grad, grad_replay,
-     lockstep, scaled_render, hit_chunks, hit_chunks_baseline, shadow_chunks,
+     lockstep, grad_soft, scaled_render, hit_chunks, hit_chunks_baseline, shadow_chunks,
      shadow_chunks_baseline, render_stats, render_stats_baseline,
      issue_rate, launch_floor.
 Then the card's name and power limit as nvidia-smi reports them, and the
@@ -487,6 +508,9 @@ def main() -> int:
                        dict(ops=ops, bytes=n_bytes, traced=traced,
                             shadow=shadow, plain_ms=plain_ms,
                             plain_img=plain_img), usage)
+    soft = soft_phases(cfg, scene, scene_d, smi,
+                       dict(ops=ops, bytes=n_bytes, traced=traced,
+                            shadow=shadow), usage)
     scaled = scaled_phases(cfg, smi, usage)
     stats = stats_phases(cfg, smi, dict(ops=ops, bytes=n_bytes), usage)
     probe = probe_phases(smi)
@@ -533,7 +557,7 @@ def main() -> int:
          "cycle_shares": parts["thread"]["cycle_shares"],
          "ptxas": usage.get("render_kernel<0>", {}),
          "vs_plain": {"tolerance": "bit-equal to the merged K1"}},
-        *grad, *scaled, *stats, *probe]})
+        *grad, soft, *scaled, *stats, *probe]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -894,6 +918,327 @@ def grad_phases(cfg, scene, scene_d, smi, k1, usage):
                       "bit_equal_to_grad_primal": r["lockstep_bit_equal"],
                       "bit_equal_to_render_kernel":
                           r["render_kernel_bit_equal"]}}]
+
+
+def soft_phases(cfg, scene, scene_d, smi, k1, usage):
+    """Phases 7b-7g: K3's soft instances (the soft-silhouette estimator,
+    eps 0.05) at the reference workload -- both forms against plain
+    autograd over the frame's 45 bands, image bit-equal to K3 at eps 0 and
+    to K1, rays exact, two launches bit-equal, the bands summing to the
+    frame; finite differences on a centre and a radius, 32 frames a side;
+    the training path with trainable centres and radii (InverseRenderer,
+    one render and one soft K3 launch a step); the motion AD-vs-FD check
+    of tests/test_motion.py at its configuration through K3's soft
+    instance, the hard one's beside it; demo_motion at its defaults; the
+    soft instances' cycle shares (tools.grad_stats) and both forms timed in
+    turns with their hard instances.  `k1` carries the render kernel's
+    frame-0 work counts and bound terms; `usage` is phase 1's -Xptxas -v
+    table.  Returns the `kernels` line's grad_soft entry."""
+    import numpy as np
+
+    from toypathtracer_torch import FLAG_ANIMATE, RenderConfig, demo_motion
+    from toypathtracer_torch.inverse import (InverseRenderer,
+                                             image_l2_tonemapped)
+    from toypathtracer_torch.ops import cuda_grad, cuda_render
+    from toypathtracer_torch.ops import tracecore as tc
+    from toypathtracer_torch.profiling import time_device_call
+    from toypathtracer_torch.render.frame import scene_for_frame
+    from toypathtracer_torch.render.wavefront import (camera_scalars,
+                                                      render_tile_grad_plain)
+    from toypathtracer_torch.tools import grad_stats
+
+    dev = scene_d.device
+    eps = 0.05
+    cfg_s = cfg.replace(soft_silhouette_eps=eps)
+    H, W = cfg.height, cfg.width
+    w = grad_stats.cotangent(H, W, 11, dev)
+
+    def zero_counts():
+        for k in cuda_grad.launches:
+            cuda_grad.launches[k] = 0
+        for k in cuda_render.launches:
+            cuda_render.launches[k] = 0
+
+    # ---- 7b. both soft forms against plain autograd over 45 bands ------
+    zero_counts()
+    full = {}
+    for form in ("warp", "replay"):
+        img_f, rays_f, d_f = cuda_grad.render_tile_grad_form(
+            scene_d, cfg_s, 0, w, 0, 0, H, W, form)
+        _, _, d_again = cuda_grad.render_tile_grad_form(
+            scene_d, cfg_s, 0, w, 0, 0, H, W, form)
+        full[form] = (img_f, rays_f, d_f, bool(torch.equal(d_f, d_again)))
+    soft_launches = {k: v for k, v in cuda_grad.launches.items() if v}
+    img_h, rays_h, d_h = cuda_grad.render_tile_grad(scene_d, cfg, 0, w, 0, 0,
+                                                    H, W)
+    img_k1, rays_k1 = cuda_render.render_tile(scene_d, cfg, 0, 0, 0, H, W)
+    band, n_bands = 16, H // 16
+    d_bands = torch.zeros_like(d_h)
+    rays_bands = 0
+    for b in range(n_bands):
+        _, r_b, d_b = cuda_grad.render_tile_grad(
+            scene_d, cfg_s, 0, w[b * band:(b + 1) * band], 0, b * band, band,
+            W)
+        d_bands += d_b
+        rays_bands += int(r_b)
+    d_plain = torch.zeros_like(d_h)
+    rays_plain = [0]
+
+    def plain_frame():
+        d_plain.zero_()
+        rays_plain[0] = 0
+        for b in range(n_bands):
+            _, r_b, d_b = render_tile_grad_plain(
+                scene_d, cfg_s, 0, w[b * band:(b + 1) * band], 0, b * band,
+                band, W)
+            d_plain.add_(d_b)
+            rays_plain[0] += int(r_b)
+    plain_s, _ = time_device_call(plain_frame)
+    torch.cuda.synchronize()
+    rel = {f: row_rel(full[f][2], d_plain) for f in full}
+    worst = {f: int(np.argmax(rel[f])) for f in full}
+    r = {"phase": "grad_soft_vs_plain", "soft_eps": eps,
+         "launches": soft_launches,
+         "rays": {f: int(full[f][1]) for f in full},
+         "rays_hard": int(rays_h), "rays_k1": int(rays_k1),
+         "rays_plain": rays_plain[0], "rays_bands": rays_bands,
+         "image_bit_equal_to_hard_k3": {
+             f: bool(torch.equal(full[f][0], img_h)) for f in full},
+         "image_bit_equal_to_k1": {
+             f: bool(torch.equal(full[f][0], img_k1)) for f in full},
+         "deterministic": {f: full[f][3] for f in full},
+         "row_rel_max": {f: max(v) for f, v in rel.items()},
+         "row_rel": rel,
+         "worst_row": worst,
+         "max_abs": {f: float((full[f][2] - d_plain).abs().max())
+                     for f in full},
+         "bands_vs_full_row_rel_max": max(row_rel(d_bands, full["warp"][2])),
+         "vs_hard_row_rel_max": max(row_rel(full["warp"][2], d_h)),
+         "finite": {f: bool(torch.isfinite(full[f][2]).all()) for f in full},
+         "plain_45_bands_ms": plain_s * 1e3}
+    emit(r)
+    check(soft_launches == {"grad_soft": 2, "grad_replay_soft": 2},
+          f"soft launches {soft_launches}")
+    for f in full:
+        what = f"K3 soft {f}"
+        check(r["finite"][f], f"{what}: finite")
+        check(r["image_bit_equal_to_hard_k3"][f]
+              and r["image_bit_equal_to_k1"][f], f"{what}: image")
+        check(r["rays"][f] == int(rays_h) == int(rays_k1) == rays_plain[0],
+              f"{what}: rays")
+        check(full[f][3], f"{what}: two launches differ")
+        check(max(rel[f]) <= 1e-3, f"{what}: d_packed vs plain autograd")
+    check(rays_bands == int(rays_h), "K3 soft: band rays")
+    check(r["bands_vs_full_row_rel_max"] <= 1e-4,
+          "K3 soft: 45 bands' d_packed != the full frame's")
+
+    # ---- 7c. finite differences on a centre and a radius ---------------
+    # L = sum(img * w) over 32 frames: AD through K3 (soft, and hard
+    # beside it), central differences of K1's images; sphere 2 (the green
+    # Lambert sphere in front of the camera), its x and its radius
+    n_fd, h = 32, 0.02
+    ad = {0.0: None, eps: None}
+    for e in ad:
+        c = cfg.replace(soft_silhouette_eps=e)
+        d_sum = torch.zeros_like(d_h)
+        for f in range(n_fd):
+            d_sum += cuda_grad.render_tile_grad(scene_d, c, f, w, 0, 0, H,
+                                                W)[2]
+        ad[e] = cuda_grad.scene_cotangent_from_packed(scene_d, d_sum / n_fd)
+    w64 = w.double()
+    fd = []
+    for field, idx in (("center", (2, 0)), ("radius", (2,))):
+        vals = []
+        for sign in (1.0, -1.0):
+            x = getattr(scene_d, field).clone()
+            x[idx] += sign * h
+            s = scene_d.replace(**{field: x})
+            vals.append(sum(float((cuda_render.render_tile(
+                s, cfg, f, 0, 0, H, W)[0].double() * w64).sum())
+                for f in range(n_fd)))
+        g_fd = (vals[0] - vals[1]) / (2 * h * n_fd)
+        g_soft = float(getattr(ad[eps], field)[idx])
+        g_hard = float(getattr(ad[0.0], field)[idx])
+        fd.append({"field": field, "index": list(idx), "fd": g_fd,
+                   "ad_soft": g_soft, "ad_hard": g_hard,
+                   "rel_soft": abs(g_soft - g_fd) / abs(g_fd),
+                   "rel_hard": abs(g_hard - g_fd) / abs(g_fd)})
+    emit({"phase": "grad_soft_finite_differences", "frames": n_fd, "h": h,
+          "soft_eps": eps, "entries": fd})
+    for e in fd:
+        check(np.sign(e["ad_soft"]) == np.sign(e["fd"]),
+              f"K3 soft vs finite differences, {e['field']}: sign")
+
+    # ---- 7d. the training path with centres and radii ------------------
+    # Every sphere but the floor and the lights moved (sigma 0.03, radii
+    # 0.02), Adam at lr 1e-3 with the recipe's tonemapped loss and
+    # adam_eps; the hard instance's fit from the same start beside it
+    target, _ = cuda_render.render_frame(scene, cfg, 0)
+    rng = np.random.default_rng(7)
+    c_jit = rng.normal(0, 0.03, scene.center.shape).astype(np.float32)
+    r_jit = rng.normal(0, 0.02, scene.radius.shape).astype(np.float32)
+    still = [0] + list(scene.emissive_ids)
+    c_jit[still] = 0.0
+    r_jit[still] = 0.0
+    start = scene.replace(center=scene.center + torch.from_numpy(c_jit),
+                          radius=scene.radius + torch.from_numpy(r_jit))
+
+    def fitter(c):
+        return InverseRenderer(c, target, trainable=("center", "radius"),
+                               learning_rate=1e-3,
+                               loss_fn=image_l2_tonemapped, adam_eps=1e-3)
+    inv = fitter(cfg_s)
+    inv.fit(start, steps=1, resample=False)  # warm-up
+    n_steps = 10
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitted, losses = inv.fit(start, steps=n_steps, resample=False)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    fit_launches = {"render": cuda_render.launches["render"],
+                    **{k: v for k, v in cuda_grad.launches.items()}}
+    main_soft_launches = cuda_grad.launches["grad_soft"]
+    _, losses_hard = fitter(cfg).fit(start, steps=n_steps, resample=False)
+    emit({"phase": "training_path_soft", "soft_eps": eps,
+          "trainable": ["center", "radius"], "losses": losses,
+          "losses_hard_instance": losses_hard, "step_ms": step_ms,
+          "launches": fit_launches,
+          "center_moved": float((fitted.center.cpu()
+                                 - start.center).abs().max())})
+    check(all(np.isfinite(losses)), f"soft fit losses {losses}")
+    check(losses[-1] < losses[0], f"soft fit loss not falling: {losses}")
+    check(fit_launches["render"] == n_steps
+          and main_soft_launches == n_steps
+          and fit_launches["grad"] == 0
+          and not any(v for k, v in fit_launches.items()
+                      if k not in ("render", "grad_soft")),
+          f"soft fit launched {fit_launches}")
+
+    # ---- 7e. motion AD vs FD (tests/test_motion.py:33) ------------------
+    cfg_m = RenderConfig(width=96, height=32, samples_per_pixel=2,
+                         max_depth=2, soft_silhouette_eps=0.02)
+    t_at, dt, n_m = 0.7, 0.05, 32
+    motion = {}
+    for name, c in (("soft", cfg_m),
+                    ("hard", cfg_m.replace(soft_silhouette_eps=0.0))):
+        g_sum = 0.0
+        for f in range(n_m):
+            t = torch.tensor(t_at, device=dev, requires_grad=True)
+            img, _ = cuda_grad.render_frame_diff(
+                scene_for_frame(scene_d, t, FLAG_ANIMATE), c, f)
+            g_t, = torch.autograd.grad(img.mean(), t)
+            g_sum += float(g_t)
+        motion[name] = g_sum / n_m
+    fp = fm = 0.0
+    for f in range(n_m):
+        fp += float(cuda_render.render_frame(scene_for_frame(
+            scene_d, t_at + dt, FLAG_ANIMATE), cfg_m, f)[0].mean())
+        fm += float(cuda_render.render_frame(scene_for_frame(
+            scene_d, t_at - dt, FLAG_ANIMATE), cfg_m, f)[0].mean())
+    m_fd = (fp - fm) / (2 * dt * n_m)
+    m = {"phase": "motion_ad_vs_fd", "config": "96x32, spp 2, depth 2, "
+         "eps 0.02, t 0.7, dt 0.05, 32 frames (tests/test_motion.py:33)",
+         "fd": m_fd, "ad_soft": motion["soft"], "ad_hard": motion["hard"],
+         "rel_soft": abs(motion["soft"] - m_fd) / abs(m_fd),
+         "rel_hard": abs(motion["hard"] - m_fd) / abs(m_fd),
+         "jax_rel_err_measured": 0.288}
+    emit(m)
+    check(np.sign(m["ad_soft"]) == np.sign(m_fd), "motion AD vs FD: sign")
+    check(m["rel_soft"] < 0.40, f"motion AD vs FD: rel err {m['rel_soft']}")
+
+    # ---- 7f. demo_motion at its defaults -------------------------------
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        demo = demo_motion.main([])
+    emit({"phase": "demo_motion", **demo,
+          "wall_s": time.perf_counter() - t1})
+    check(demo["loss_final"] < demo["loss_initial"],
+          f"demo_motion loss {demo['loss_initial']} -> {demo['loss_final']}")
+    check(np.isfinite(demo["t_recovered"]), "demo_motion t finite")
+
+    # ---- 7g. cycle shares, timing in turns, bound ----------------------
+    shares = {f: grad_stats.form_stats(scene_d, cfg_s, f, w)
+              for f in ("warp", "replay")}
+    for f, st in shares.items():
+        emit({"phase": "grad_soft_cycle_shares", "nvidia_smi": smi, **st})
+    runs = {}
+    for form in ("warp", "replay"):
+        for e in (0.0, eps, eps, 0.0):
+            runs.setdefault((form, e), []).append(time_device_call(
+                cuda_grad.render_tile_grad_form, scene_d,
+                cfg.replace(soft_silhouette_eps=e), 0, w, 0, 0, H, W, form,
+                repeats=3)[0] * 1e3)
+    ms = {f"{form}_{'soft' if e else 'hard'}": sum(v) / len(v)
+          for (form, e), v in runs.items()}
+    # Bound of the soft instance: the hard K3's count (K1's forward plus
+    # the adjoint) and the estimator's work, from the plain version's soft
+    # counters on frame 0: 16 operations per silhouette test (every
+    # sphere for a ray that missed, the winner for one that hit) and per
+    # shadow-boundary test (every sphere but the light for each shadow ray
+    # whose light lies in front of the surface); 40 per traced ray (the
+    # soft weight and the discriminant's adjoint), 100 per missed ray (the
+    # tangent point's radiance with two lights) and 40 per shadow-boundary
+    # scan (its sigmoid and the adjoint into the occluder and the cone).
+    tab = cuda_render.pack_scene(scene_d)
+    mat = torch.tensor(scene.mat_type, dtype=torch.int64, device=dev)
+    yy, xx = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    with torch.no_grad():
+        _, work = tc.render_pixels(
+            tab, mat, scene.emissive_ids, cfg, camera_scalars(scene, cfg),
+            xx.reshape(-1), yy.reshape(-1), 0, soft_eps=eps)
+    n = scene.n_spheres
+    sil, prox, traced = (int(x.sum()) for x in (
+        work.silhouette_tests, work.proximity_tests, work.traced))
+    misses = (sil - traced) // (n - 1)
+    scans = prox // (n - 1)
+    grad_ops = k1["ops"] + 150 * k1["traced"] + 270 * k1["shadow"]
+    soft_ops = (grad_ops + 16 * sil + 16 * prox + 40 * traced + 100 * misses
+                + 40 * scans)
+    grad_bytes = k1["bytes"] + 4 * 3 * H * W
+    bound = max(soft_ops / 67e12, grad_bytes / 3.35e12) * 1e3
+    t = {"phase": "grad_soft_timing", "nvidia_smi": smi, "soft_eps": eps,
+         "ms": ms, "runs": {f"{f}_{e}": v for (f, e), v in runs.items()},
+         "soft_over_hard": {f: ms[f"{f}_soft"] / ms[f"{f}_hard"]
+                            for f in ("warp", "replay")},
+         "silhouette_tests": sil, "proximity_tests": prox,
+         "missed_rays": misses, "boundary_scans": scans,
+         "traced_rays": traced, "bound_fp32_ops": soft_ops,
+         "bound_ms": bound,
+         "hard_bound_ms": max(grad_ops / 67e12,
+                              grad_bytes / 3.35e12) * 1e3,
+         "bound_peak": "67 TFLOP/s FP32, 3.35 TB/s (H100 SXM, 700 W)",
+         "ptxas": {k: usage.get(k, {}) for k in (
+             "soft_warp_grad_kernel<0>", "lockstep_kernel<2,0>",
+             "warp_grad_kernel<0>", "lockstep_kernel<1,0>")}}
+    emit(t)
+    check(traced == k1["traced"], "soft plain counters: traced rays")
+    tol = ("d_packed per row <= 1e-3 x row max against plain autograd over "
+           "45 bands (both forms), image bit-equal to K3 at eps 0 and to "
+           "K1, rays exact, bit-equal launch to launch, 45 bands sum to the "
+           "frame <= 1e-4; finite differences: sign; motion AD vs FD: sign, "
+           "rel err < 0.40")
+    return {"name": "grad_soft", "route": "cuda",
+            "source": "toypathtracer_torch/csrc/grad.cu",
+            "replaces": "toypathtracer_tpu/ops/pallas_grad.py:127",
+            "launches": main_soft_launches,
+            "max_abs_err": r["max_abs"]["warp"],
+            "ms": ms["warp_soft"], "plain_ms": plain_s * 1e3,
+            "bound_ms": bound, "bound_by": "operations", "library_ms": None,
+            "form": "warp, soft instance (soft_warp_grad_kernel<0>: "
+                    "csrc/gradwarp.cuh grad_tiles<true>), eps 0.05",
+            "hard_ms": ms["warp_hard"],
+            "baseline_ms": ms["replay_soft"],
+            "baseline": "the replaying form's soft instance "
+                        "(lockstep_kernel<2,0>), timed in turns with its "
+                        "hard one",
+            "ptxas": usage.get("soft_warp_grad_kernel<0>", {}),
+            "cycle_shares": shares["warp"]["cycle_shares"],
+            "vs_plain": {"tolerance": tol,
+                         "full_frame_row_rel_max": r["row_rel_max"],
+                         "finite_differences": fd,
+                         "motion_rel_err": m["rel_soft"]}}
 
 
 def scaled_phases(cfg, smi, usage):

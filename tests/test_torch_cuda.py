@@ -14,7 +14,9 @@ exact, d_packed per row within
 1e-3 x the row's max |plain autograd| (its warp form also at 130
 spheres; the replaying form measured on an H100 at 320x176: at most
 4.9e-6), two launches bit-equal, the stats instances bit-equal to the
-forms they measure.  Scaled kernels (n=3000, chunk
+forms they measure; the soft instances (soft_silhouette_eps 0.05) with
+the same gates, their images bit-equal to the hard instances'.  Scaled
+kernels (n=3000, chunk
 256): the traversal K5 and the shadow bitmask K6 equal to their plain
 versions on all but 1e-5 of the rays, t within 1e-6 relative where the
 ids agree; K5's cooperative form bit-equal (ids and t) to its per-thread
@@ -53,7 +55,8 @@ from toypathtracer_torch.scaled import (ChunkTraversal, ChunkedScenePort,
                                         render_frame_scaled_plain)
 from toypathtracer_torch.tools import (grad_stats, render_parts, roofline,
                                       sass_loops)
-from toypathtracer_torch.tools.scenes import crowded_scene
+from toypathtracer_torch.tools.scenes import (crowded_scene,
+                                              shadow_boundary_scene)
 
 pytestmark = pytest.mark.cuda
 
@@ -255,8 +258,56 @@ def test_grad_stats_tool_on_the_card(card, tmp_path):
     for f in out["forms"]:
         sh = f["cycle_shares"]
         assert all(0.0 <= v <= 1.0 for v in sh.values()), sh
-        assert abs(sum(v for k, v in sh.items() if k != "group") - 1) < 1e-9
+        assert abs(sum(v for k, v in sh.items()
+                       if k not in grad_stats.WITHIN_ADJ) - 1) < 1e-9
         assert f["rays"] == int(rays) and f["sum_ms"] > 0
+
+
+@pytest.mark.parametrize("form", ["warp", "replay"])
+@pytest.mark.parametrize("which", ["big", "shadow_boundary"])
+def test_soft_grad_instances_match_plain_autograd(card, form, which):
+    """K3's soft instances (soft_silhouette_eps 0.05): plain autograd with
+    the estimator on per row within 1e-3 x the row's max, rays exact, the
+    image bit-equal to the hard instance's, two launches bit-equal, and
+    each launch counted as the form's soft launch."""
+    scene = (make_scene(big=True) if which == "big"
+             else shadow_boundary_scene()).to(card)
+    cfg = RenderConfig(width=96, height=40, samples_per_pixel=2, max_depth=4,
+                       soft_silhouette_eps=0.05)
+    g = torch.from_numpy(np.random.RandomState(5).rand(40, 96, 3)
+                         .astype(np.float32)).to(card)
+    args = (scene, cfg, 1, g, 0, 0, 40, 96)
+    counter = cuda_grad.COUNTERS[form] + cuda_grad.SOFT_SUFFIX
+    before = dict(cuda_grad.launches)
+    img, rays, d = cuda_grad.render_tile_grad_form(*args, form)
+    _, _, d2 = cuda_grad.render_tile_grad_form(*args, form)
+    img_h, rays_h, d_h = cuda_grad.render_tile_grad_form(
+        scene, cfg.replace(soft_silhouette_eps=0.0), 1, g, 0, 0, 40, 96,
+        form)
+    img_p, rays_p, d_p = render_tile_grad_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda_grad.launches[counter] == before[counter] + 2
+    assert int(rays) == int(rays_p) == int(rays_h)
+    assert torch.equal(d, d2) and torch.equal(img, img_h)
+    assert_rows_close(d, d_p, 1e-3)
+    assert not torch.equal(d, d_h)
+
+
+def test_soft_stats_instance_bit_equal_to_timed(card):
+    """The warp form's soft stats instance computes what its timed soft
+    instance does, bit for bit, and counts the soft scans' cycles."""
+    scene = make_scene(big=True).to(card)
+    cfg = RenderConfig(width=96, height=40, samples_per_pixel=2, max_depth=4,
+                       soft_silhouette_eps=0.05)
+    g = torch.from_numpy(np.random.RandomState(6).rand(40, 96, 3)
+                         .astype(np.float32)).to(card)
+    args = (scene, cfg, 0, g, 0, 0, 40, 96)
+    timed = cuda_grad.render_tile_grad_form(*args, "warp")
+    *got, counts = cuda_grad.render_tile_grad_form(*args, "warp", stats=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(timed, got))
+    assert counts["cycles_soft"] > 0
+    assert counts["cycles_soft"] < counts["cycles_adj"]
 
 
 @pytest.mark.parametrize("lockstep", [False, True])

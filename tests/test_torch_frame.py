@@ -169,3 +169,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "toypathtracer_tpu"), \
                 f"{path.relative_to(ROOT)} imports {mod}"
+
+
+def test_state_and_scene_loading_default_to_the_card(tmp_path, monkeypatch):
+    """init_frame_state and load_scene_npz take the card unless the caller
+    asks for the CPU, as every other entry point: without a card the
+    default raises instead of quietly using the CPU."""
+    from toypathtracer_torch.scene import load_scene_npz
+    from toypathtracer_tpu.checkpoint import save_scene as j_save_scene
+    path = str(tmp_path / "scene.npz")
+    j_save_scene(path, j_make_scene(big=False))
+    state = frame_mod.init_frame_state(SMALL, device="cpu")
+    assert state.accum.device.type == "cpu" and state.frame == 0
+    assert load_scene_npz(path, device="cpu").center.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device"):
+        frame_mod.init_frame_state(SMALL)
+    with pytest.raises(RuntimeError, match="device"):
+        load_scene_npz(path)

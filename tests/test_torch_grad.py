@@ -182,27 +182,62 @@ def test_sqrt_pos_gradient_is_finite_where_clamped():
     assert x.grad.tolist() == [0.0, 0.0, 0.25]
 
 
-def test_soft_silhouette_raises_on_every_gradient_route():
-    """soft_silhouette_eps changes the gradient and not the image, so a
-    route that ignored it would return a wrong gradient silently."""
+SOFT_ROUTES = ("render_tile_grad", "render_tile_diff", "render_frame_diff",
+               "render_loss", "inverse_renderer", "render_tile_plain")
+
+
+@pytest.mark.parametrize("route", SOFT_ROUTES)
+def test_soft_silhouette_on_every_gradient_route(route):
+    """soft_silhouette_eps changes the gradient and not the image: every
+    gradient route returns the soft-silhouette estimator's gradient, equal
+    to the plain route's (render_tile_grad_plain through pack_scene's
+    pullback) within 1e-6, and not the hard selects' (the center
+    gradient moves), for the loss sum(img * g)."""
     scene = make_scene(big=False)
     cfg = RenderConfig(width=8, height=4, samples_per_pixel=1, max_depth=2,
                        soft_silhouette_eps=0.05)
-    g = torch.ones(4, 8, 3)
-    target = torch.zeros(4, 8, 3)
-    leaves = scene.replace(albedo=scene.albedo.clone().requires_grad_(True))
-    calls = [
-        lambda: render_tile_grad_plain(scene, cfg, 0, g, 0, 0, 4, 8),
-        lambda: cuda_grad.render_tile_grad(scene, cfg, 0, g, 0, 0, 4, 8),
-        lambda: cuda_grad.render_tile_diff(scene, cfg, 0, 0, 0, 4, 8),
-        lambda: cuda_grad.render_frame_diff(scene, cfg, 0, device="cpu"),
-        lambda: render_loss(scene, target, cfg, 0),
-        lambda: InverseRenderer(cfg, target, device="cpu"),
-        lambda: render_tile_plain(leaves, cfg, 0, 0, 0, 4, 8),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="soft"):
-            call()
-    # the forward render is unaffected
-    img, _ = render_tile_plain(scene, cfg, 0, 0, 0, 4, 8)
-    assert torch.isfinite(img).all()
+    g = torch.from_numpy(np.random.RandomState(2).rand(4, 8, 3)
+                         .astype(np.float32))
+
+    def plain(c):
+        _, _, d = render_tile_grad_plain(scene, c, 0, g, 0, 0, 4, 8)
+        return d, cuda_grad.scene_cotangent_from_packed(scene, d)
+    d_ref, ref = plain(cfg)
+    _, hard = plain(cfg.replace(soft_silhouette_eps=0.0))
+    assert (ref.center - hard.center).abs().max() > 1e-3
+
+    def weighted(img, target):
+        return (img * target).sum()
+    leaves = {f: getattr(scene, f).clone().requires_grad_(True)
+              for f in FIELDS}
+    s = scene.replace(**leaves)
+    if route == "render_tile_grad":
+        img, _, d = cuda_grad.render_tile_grad(scene, cfg, 0, g, 0, 0, 4, 8)
+        torch.testing.assert_close(d, d_ref, rtol=1e-6, atol=1e-6)
+        got = cuda_grad.scene_cotangent_from_packed(scene, d)
+        got = {f: getattr(got, f) for f in FIELDS}
+    elif route == "inverse_renderer":
+        inv = InverseRenderer(cfg, g, trainable=FIELDS, loss_fn=weighted,
+                              device="cpu")
+        _, got = inv.value_and_grad(scene, 0)
+    else:
+        if route == "render_tile_diff":
+            img, _ = cuda_grad.render_tile_diff(s, cfg, 0, 0, 0, 4, 8)
+            loss = weighted(img, g)
+        elif route == "render_frame_diff":
+            img, _ = cuda_grad.render_frame_diff(s, cfg, 0, device="cpu")
+            loss = weighted(img, g)
+        elif route == "render_loss":
+            loss = render_loss(s, g, cfg, 0, loss_fn=weighted)
+        else:
+            img, _ = render_tile_plain(s, cfg, 0, 0, 0, 4, 8)
+            loss = weighted(img, g)
+        got = dict(zip(FIELDS, torch.autograd.grad(loss,
+                                                   list(leaves.values()))))
+    for f in FIELDS:
+        torch.testing.assert_close(got[f], getattr(ref, f), rtol=1e-6,
+                                   atol=1e-6, msg=f)
+    # the forward render is the hard one's
+    img, _ = render_tile_plain(s, cfg, 0, 0, 0, 4, 8)
+    ref_img, _ = render_tile_plain(scene, cfg, 0, 0, 0, 4, 8)
+    assert torch.equal(img.detach(), ref_img)

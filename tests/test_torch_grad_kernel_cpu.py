@@ -17,6 +17,17 @@ host threads (csrc/hostwarp.h ThreadWarp: a collective that not every
 lane reaches stalls it) against plain autograd, and its grouped add,
 emulated lane by lane, exact against the sequential sum.
 
+The soft instances (the soft-silhouette estimator: grad_pixel<true>,
+grad_tiles<true>, run wherever RenderParams::soft_eps > 0) are held the
+same way: grad_pixel<true> against plain autograd with the estimator on,
+the one-lane warp form bit-equal to it, the 32-lane warp form against
+plain autograd, on the four scenes and on tools/scenes.py's
+shadow_boundary_scene, whose shadow rays include occluded lights with the
+soft term and lanes where the interval-overlap test and the sign of d_occ
+disagree (measured at most 3.6e-5; the disagreeing lanes' fallback moves
+the table by 2.4e-3 at eps 0.5 where it is dropped, and occluded lights
+by 1.5e-2 at eps 0.05, in a copy with each removed).
+
 Tolerances: d_packed row by row within 1e-3 x the row's max |plain|
 (measured at most 1.5e-5 over these cases); ray counts exact
 (measured); the image as tests/test_torch_kernel_cpu.py; K4's image
@@ -35,9 +46,12 @@ import torch
 from toypathtracer_torch import RenderConfig, make_scene
 from toypathtracer_torch.camera import camera_to_array, make_camera
 from toypathtracer_torch.ops import _build, cuda_grad, cuda_render
-from toypathtracer_torch.render.wavefront import render_tile_grad_plain
+from toypathtracer_torch.ops import tracecore as tc
+from toypathtracer_torch.render.wavefront import (camera_scalars,
+                                                  render_tile_grad_plain)
 from toypathtracer_torch.tools import grad_stats
-from toypathtracer_torch.tools.scenes import crowded_scene
+from toypathtracer_torch.tools.scenes import (crowded_scene,
+                                              shadow_boundary_scene)
 
 torch.set_num_threads(1)
 
@@ -59,19 +73,41 @@ static tpt::SceneView view(const float* tab, const int32_t* mat,
   return S;
 }
 
+// Each entry point runs the soft instance where p->soft_eps > 0, as the
+// launcher does.
+template <bool kSoft>
+static unsigned long long grad_loop(const tpt::SceneView& S,
+                                    const float* cam,
+                                    const tpt::RenderParams* p,
+                                    const float* g, float* out, float* acc) {
+  unsigned long long rays = 0;
+  for (int y = 0; y < p->height; ++y)
+    for (int x = 0; x < p->width; ++x) {
+      size_t o = ((size_t)y * p->width + x) * 3;
+      rays += tpt::grad_pixel<kSoft>(S, cam, *p, p->x0 + x, p->y0 + y, g + o,
+                                     out + o, acc);
+    }
+  return rays;
+}
+
 extern "C" unsigned long long tpt_grad_cpu(
     const float* tab, const int32_t* mat, const int32_t* lights,
     const float* cam, const tpt::RenderParams* p, const float* g, float* out,
     float* acc) {
   tpt::SceneView S = view(tab, mat, lights, p);
-  unsigned long long rays = 0;
-  for (int y = 0; y < p->height; ++y)
-    for (int x = 0; x < p->width; ++x) {
-      size_t o = ((size_t)y * p->width + x) * 3;
-      rays += tpt::grad_pixel(S, cam, *p, p->x0 + x, p->y0 + y, g + o,
-                              out + o, acc);
-    }
-  return rays;
+  return p->soft_eps > 0.0f ? grad_loop<true>(S, cam, p, g, out, acc)
+                            : grad_loop<false>(S, cam, p, g, out, acc);
+}
+
+template <bool kSoft, class W>
+static unsigned long long tiles(const W& w, const tpt::SceneView& S,
+                                const float* cam, const tpt::RenderParams* p,
+                                const float* g, float* out, float* acc,
+                                const tpt::WarpTape& tape, float* ws,
+                                int warp, int n_warps) {
+  tpt::NoGradCount none;
+  return tpt::grad_tiles<kSoft>(w, S, cam, *p, g, out, acc, tape, ws, warp,
+                                n_warps, none);
 }
 
 // form 1: grad_pixel_stored a pixel at a time; form 2: the warp form
@@ -86,13 +122,14 @@ extern "C" unsigned long long tpt_grad_form_cpu(
   unsigned long long rays = 0;
   if (form == 2) {
     tpt::HostLane w;
-    tpt::NoGradCount none;
     std::vector<float> recs(tpt::grad_batch(*p) * p->max_depth *
                             tpt::kRecWords);
     std::vector<float> ws(tpt::grad_scratch_words(1));
-    return tpt::grad_tiles(w, S, cam, *p, g, out, acc,
-                           tpt::WarpTape{recs.data(), 1, 0}, ws.data(), 0, 1,
-                           none);
+    const tpt::WarpTape tape{recs.data(), 1, 0};
+    return p->soft_eps > 0.0f
+               ? tiles<true>(w, S, cam, p, g, out, acc, tape, ws.data(), 0, 1)
+               : tiles<false>(w, S, cam, p, g, out, acc, tape, ws.data(), 0,
+                              1);
   }
   for (int y = 0; y < p->height; ++y)
     for (int x = 0; x < p->width; ++x) {
@@ -125,10 +162,14 @@ extern "C" long long tpt_grad_warp32_cpu(
     for (int l = 0; l < 32; ++l)
       threads.emplace_back([&, l] {
         tpt::ThreadWarp w{&lanes, l};
-        tpt::NoGradCount none;
-        lane_rays[l] = tpt::grad_tiles(
-            w, S, cam, *p, g, out, tables.data() + (size_t)wi * m,
-            tpt::WarpTape{recs.data(), 32, l}, ws.data(), wi, n_warps, none);
+        float* table = tables.data() + (size_t)wi * m;
+        const tpt::WarpTape tape{recs.data(), 32, l};
+        lane_rays[l] =
+            p->soft_eps > 0.0f
+                ? tiles<true>(w, S, cam, p, g, out, table, tape, ws.data(),
+                              wi, n_warps)
+                : tiles<false>(w, S, cam, p, g, out, table, tape, ws.data(),
+                               wi, n_warps);
       });
     for (auto& t : threads) t.join();
     if (lanes.broken) return -1;
@@ -473,3 +514,95 @@ def test_wrapper_caps_and_forms_on_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA device"):
         grad_stats.main(["--width", "8", "--height", "4"])
+
+
+SOFT_CASES = {
+    "big": (lambda: make_scene(big=True), dict(), 0.02),
+    "big_no_nee": (lambda: make_scene(big=True),
+                   dict(do_light_sampling=False), 0.05),
+    "small": (lambda: make_scene(big=False), dict(), 0.05),
+    "mitsuba": (lambda: make_scene(big=False, mitsuba_compare=True),
+                dict(do_mitsuba_compare=True), 0.05),
+    "shadow_boundary": (shadow_boundary_scene, dict(), 0.05),
+    "shadow_boundary_wide": (shadow_boundary_scene, dict(), 0.5),
+}
+
+
+def soft_case(case, frame=1):
+    make, cfg_kw, eps = SOFT_CASES[case]
+    cfg = RenderConfig(width=32, height=16, samples_per_pixel=2, max_depth=4,
+                       soft_silhouette_eps=eps, **cfg_kw)
+    g = np.random.RandomState(frame).rand(16, 32, 3).astype(np.float32)
+    return make(), cfg, g
+
+
+def test_shadow_boundary_scene_has_every_case():
+    """shadow_boundary_scene's shadow rays at the soft cases' size (frame
+    1) through the plain version: occluded lights whose soft term applies
+    (the occluder in the segment, d_occ >= 0), occluded lights where the
+    interval-overlap test and the sign of d_occ disagree (the hard value
+    stands), and seen lights.  Measured 324, 5 and 382."""
+    counts = []
+
+    class Recording(tc.BruteForce):
+        def occluded(self, pos, l, light, t_min, t_l, active=None):
+            occ, slabs, tests = super().occluded(pos, l, light, t_min, t_l,
+                                                 active)
+            d_occ, _ = tc.lights_occlusion_proximity(self.tab, pos, l, light,
+                                                     t_min, t_l)
+            counts.append([int((active & x).sum()) for x in (
+                occ & (d_occ >= 0.0), occ & (d_occ < 0.0), ~occ)])
+            return occ, slabs, tests
+
+    scene, cfg, _ = soft_case("shadow_boundary")
+    tab = cuda_render.pack_scene(scene)
+    yy, xx = torch.meshgrid(torch.arange(16), torch.arange(32),
+                            indexing="ij")
+    tc.render_pixels(tab, torch.tensor(scene.mat_type), scene.emissive_ids,
+                     cfg, camera_scalars(scene, cfg), xx.reshape(-1),
+                     yy.reshape(-1), 1, traversal=Recording(tab),
+                     soft_eps=cfg.soft_silhouette_eps)
+    agree_occluded, disagree, seen = np.sum(counts, axis=0)
+    assert agree_occluded > 0 and disagree > 0 and seen > 0, counts
+
+
+@pytest.mark.parametrize("case", sorted(SOFT_CASES))
+def test_soft_grad_source_matches_plain_autograd(host_lib, case):
+    """K3's soft per-pixel code (grad_pixel<true>) against autograd through
+    the plain version with the estimator on: d_packed within 1e-3 row by
+    row, rays exact, the image bit-equal to the hard instance's, and the
+    table not the hard instance's."""
+    scene, cfg, g = soft_case(case)
+    out, rays, acc = grad_host(host_lib, scene, cfg, 1, g, 0, 0)
+    img, prays, d = render_tile_grad_plain(scene, cfg, 1, torch.from_numpy(g),
+                                           0, 0, 16, 32)
+    assert rays == int(prays)
+    assert np.isfinite(acc).all()
+    assert_rows_close(acc, d.numpy(), 1e-3)
+    h_out, h_rays, h_acc = grad_host(
+        host_lib, scene, cfg.replace(soft_silhouette_eps=0.0), 1, g, 0, 0)
+    np.testing.assert_array_equal(out, h_out)
+    assert rays == h_rays
+    assert np.abs(acc[:4] - h_acc[:4]).max() > 1e-3 * np.abs(h_acc[:4]).max()
+
+
+@pytest.mark.parametrize("case", sorted(SOFT_CASES))
+def test_soft_warp_forms(host_lib, case):
+    """The soft warp form (grad_tiles<true>) under a one-lane warp:
+    image, rays and table bit-equal to grad_pixel<true>'s; in 32-lane
+    warps of host threads: image bit-equal, rays exact, the table within
+    1e-3 of plain autograd row by row and within 1e-5 of the sequential
+    sum."""
+    scene, cfg, g = soft_case(case)
+    out, rays, acc = grad_host(host_lib, scene, cfg, 1, g, 0, 0)
+    o1, r1, a1 = grad_form_host(host_lib, scene, cfg, 1, g, 0, 0, 2)
+    np.testing.assert_array_equal(o1, out)
+    assert r1 == rays
+    np.testing.assert_array_equal(a1, acc)
+    o32, r32, a32 = grad_form_host(host_lib, scene, cfg, 1, g, 0, 0, 31)
+    np.testing.assert_array_equal(o32, out)
+    assert r32 == rays
+    assert_rows_close(a32, acc, 1e-5)
+    _, _, d = render_tile_grad_plain(scene, cfg, 1, torch.from_numpy(g), 0,
+                                     0, 16, 32)
+    assert_rows_close(a32, d.numpy(), 1e-3)

@@ -4,6 +4,8 @@ against the JAX package's, and the albedo recovery contract of
 tests/test_grad.py::test_inverse_rendering_recovers_albedo.
 """
 
+import json
+
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -120,3 +122,19 @@ def test_mesh_and_missing_card_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device"):
             InverseRenderer(cfg, target)
+
+
+def test_demo_inverse_geometry_with_soft_eps(tmp_path, capsys):
+    """demo_inverse's geometry recipe on the CPU at a toy size: --soft-eps
+    0.05 with --tonemap-loss trains centers and albedo, prints its JSON
+    line, and the loss falls."""
+    from toypathtracer_torch import demo_inverse
+    assert demo_inverse.main([
+        "--device", "cpu", "--width", "32", "--height", "18", "--steps",
+        "4", "--soft-eps", "0.05", "--tonemap-loss", "--trainable",
+        "center,albedo", "--center-jitter", "0.05", "--outdir",
+        str(tmp_path)]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["device"] == "cpu" and res["steps"] == 4
+    assert np.isfinite(res["center_maxerr_final"])
+    assert res["loss_final"] < res["loss_initial"]

@@ -133,7 +133,7 @@ def test_scene_carried_over_from_jax_checkpoint(tmp_path):
                       rng.normal(size=(46, 3)).astype(np.float32) * 0.01))
     path = str(tmp_path / "scene.npz")
     j_save_scene(path, j)
-    t = load_scene_npz(path)
+    t = load_scene_npz(path, device="cpu")
     assert_same_scene(t, j)
     arrays = scene_to_arrays(t)
     assert_same_scene(scene_from_arrays(**arrays), j)

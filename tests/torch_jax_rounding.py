@@ -9,6 +9,11 @@ prints JSON lines, on the CPU at tiny sizes (about a minute):
     CPU code rounds once, as a fused multiply-add, and the share rounded
     twice, as IEEE float32 without contraction (the port's plain version
     and the kernels, built with -fmad=false);
+  * `soft_gradient`: the soft-silhouette gradient of the port's plain
+    version against `jax.grad` at tests/test_pallas_grad.py's soft
+    configuration (the small scene, 16x8, spp 2, depth 3, eps 0.02, the
+    RandomState(0) cotangent), per field max |diff| / max |jax.grad|: the
+    sigmoids' 1/eps amplifies the rounding differences near silhouettes;
   * `render`: for the 46- and the 600-sphere scene (tools/scenes.py
     crowded_scene(extra=554)) at a few sizes and frames (spp 1, depth 3),
     the port's plain render against JAX's `render_frame`: rays, pixels
@@ -40,7 +45,8 @@ from toypathtracer_tpu.scene import Scene as JScene
 from toypathtracer_torch import RenderConfig, make_scene
 from toypathtracer_torch.ops import cuda_render
 from toypathtracer_torch.ops import tracecore as tc
-from toypathtracer_torch.render.wavefront import camera_scalars
+from toypathtracer_torch.render.wavefront import (camera_scalars,
+                                                  render_tile_plain)
 from toypathtracer_torch.tools.scenes import crowded_scene
 
 CASES = ((32, 16, 0), (32, 16, 5), (64, 32, 0), (64, 32, 7))
@@ -99,10 +105,34 @@ def jax_scene(scene):
         camera=JCameraSpec(**dataclasses.asdict(scene.camera)))
 
 
+def soft_gradient():
+    fields = ("center", "radius", "albedo", "emissive", "roughness", "ri")
+    kw = dict(width=16, height=8, samples_per_pixel=2, max_depth=3,
+              soft_silhouette_eps=0.02)
+    w = np.random.RandomState(0).rand(8, 16, 3).astype(np.float32)
+    scene = make_scene(big=False)
+    jg = jax.grad(lambda s: jnp.sum(j_wavefront.render_frame(
+        s, JConfig(**kw), jnp.int32(0), differentiable=True)[0] * w))(
+        jax_scene(scene))
+    leaves = {f: getattr(scene, f).clone().requires_grad_(True)
+              for f in fields}
+    img, _ = render_tile_plain(scene.replace(**leaves), RenderConfig(**kw),
+                               0, 0, 0, 8, 16)
+    (img * torch.from_numpy(w)).sum().backward()
+    rel = {}
+    for f in fields:
+        want = np.asarray(getattr(jg, f))
+        rel[f] = float(np.abs(leaves[f].grad.numpy() - want).max()
+                       / np.abs(want).max())
+    return rel
+
+
 def readings(xla_flags: str):
     torch.set_num_threads(2)
     print(json.dumps({"xla_flags": xla_flags, "contraction": contraction()}),
           flush=True)
+    print(json.dumps({"xla_flags": xla_flags,
+                      "soft_gradient": soft_gradient()}), flush=True)
     for name, scene in (("46", make_scene(big=True)),
                         ("600", crowded_scene(extra=554))):
         jscene = jax_scene(scene)

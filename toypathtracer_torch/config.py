@@ -78,6 +78,8 @@ class RenderConfig:
                              "(the differentiable wavefront IS the merged "
                              "loop run reverse-mode)")
         if self.diff_wavefront and self.soft_silhouette_eps > 0.0:
+            # as the JAX package: its merged differentiable loop
+            # (tracecore.bounce_parts_merged) has no soft branch
             raise ValueError("diff_wavefront does not implement the "
                              "soft-silhouette estimator; use the lockstep "
                              "differentiable route for geometry recovery")

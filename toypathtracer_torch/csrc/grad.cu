@@ -33,6 +33,13 @@
 // double.  The stats instances (kStats) count SM cycles by part (trace.cuh
 // kGc*).
 //
+// With RenderParams::soft_eps > 0 each form launches its soft instance
+// (soft_warp_grad_kernel; lockstep_kernel kMode 2): the soft-silhouette
+// estimator's adjoint (trace.cuh, grad_pixel<true>; gradwarp.cuh,
+// grad_tiles<true>), which finds each missed ray's silhouette candidate
+// and each shadow ray's occluder again in the reverse sweep.  The hard
+// instances keep their code: every soft term sits behind `if constexpr`.
+//
 // Bound: FP32 ALU work -- the forward trace and the adjoint arithmetic --
 // against a few hundred MB of traffic (the carries written and read once,
 // the cotangent read, the image written).  The replaying form also spends
@@ -113,6 +120,7 @@ lockstep_kernel(const float* __restrict__ tab, const int32_t* __restrict__ mat,
                 float* __restrict__ partial,
                 unsigned long long* __restrict__ stats) {
   constexpr bool kGrad = kMode != 0;
+  constexpr bool kSoft = kMode == 2;
   extern __shared__ float smem[];
   __shared__ unsigned long long warp_rays[kWarps];
   __shared__ float warp_part[kWarps][kChunk];
@@ -154,11 +162,11 @@ lockstep_kernel(const float* __restrict__ tab, const int32_t* __restrict__ mat,
     if constexpr (!kGrad)
       count = tpt::render_pixel(S, s_cam, p, p.x0 + lx, p.y0 + ly, c);
     else if constexpr (kStats)
-      count = tpt::grad_pixel(S, s_cam, p, p.x0 + lx, p.y0 + ly, g + o, c,
-                              acc, cs);
+      count = tpt::grad_pixel<kSoft>(S, s_cam, p, p.x0 + lx, p.y0 + ly,
+                                     g + o, c, acc, cs);
     else
-      count = tpt::grad_pixel(S, s_cam, p, p.x0 + lx, p.y0 + ly, g + o, c,
-                              acc);
+      count = tpt::grad_pixel<kSoft>(S, s_cam, p, p.x0 + lx, p.y0 + ly,
+                                     g + o, c, acc);
     out[o] = c[0];
     out[o + 1] = c[1];
     out[o + 2] = c[2];
@@ -216,21 +224,20 @@ __host__ __device__ size_t warp_tape_floats(const tpt::RenderParams& p) {
          tpt::grad_batch(p);
 }
 
-// The warp form of K3 (csrc/gradwarp.cuh grad_tiles).  Dynamic shared
-// memory: [scene table] [material ids] [emissive ids] [camera] [kGradWarps
+// The warp form of K3 (csrc/gradwarp.cuh grad_tiles<kSoft>), the body of
+// warp_grad_kernel and soft_warp_grad_kernel.  Dynamic shared memory:
+// [scene table] [material ids] [emissive ids] [camera] [kGradWarps
 // cotangent tables of SCENE_ROWS * n] [kGradWarps scratches of
 // grad_tiles].
 // `tape`: warp_tape_floats(p) floats for each warp of the grid.
-template <bool kStats>
-__global__ void __launch_bounds__(kWarpThreads, kWarpBlocks)
-warp_grad_kernel(const float* __restrict__ tab,
-                 const int32_t* __restrict__ mat,
-                 const int32_t* __restrict__ lights,
-                 const float* __restrict__ cam, tpt::RenderParams p,
-                 const float* __restrict__ g, float* __restrict__ out,
-                 unsigned long long* __restrict__ rays, float* tape,
-                 float* __restrict__ partial,
-                 unsigned long long* __restrict__ stats) {
+template <bool kStats, bool kSoft>
+__device__ __forceinline__ void warp_grad_body(
+    const float* __restrict__ tab, const int32_t* __restrict__ mat,
+    const int32_t* __restrict__ lights, const float* __restrict__ cam,
+    const tpt::RenderParams& p, const float* __restrict__ g,
+    float* __restrict__ out, unsigned long long* __restrict__ rays,
+    float* tape, float* __restrict__ partial,
+    unsigned long long* __restrict__ stats) {
   extern __shared__ float smem[];
   __shared__ unsigned long long warp_rays[kGradWarps];
   const int n = p.n_spheres;
@@ -270,11 +277,11 @@ warp_grad_kernel(const float* __restrict__ tab,
   float* ws = s_ws + warp * tpt::grad_scratch_words(32);
   unsigned long long count;
   if constexpr (kStats)
-    count = tpt::grad_tiles(w, S, s_cam, p, g, out, s_acc + warp * m, t, ws,
-                            gw, gridDim.x * kGradWarps, cs);
+    count = tpt::grad_tiles<kSoft>(w, S, s_cam, p, g, out, s_acc + warp * m,
+                                   t, ws, gw, gridDim.x * kGradWarps, cs);
   else
-    count = tpt::grad_tiles(w, S, s_cam, p, g, out, s_acc + warp * m, t, ws,
-                            gw, gridDim.x * kGradWarps, none);
+    count = tpt::grad_tiles<kSoft>(w, S, s_cam, p, g, out, s_acc + warp * m,
+                                   t, ws, gw, gridDim.x * kGradWarps, none);
   add_rays<kGradWarps>(count, warp_rays, rays, tid);  // syncs the block
 
   // the block's partial row: its warps' tables in warp order
@@ -291,6 +298,36 @@ warp_grad_kernel(const float* __restrict__ tab,
     cs.add(tpt::kGcCycAll, c1 - c_all);
     flush_stats(cs, stats, tid);
   }
+}
+
+// K3's warp form, hard selects (the training step's default).
+template <bool kStats>
+__global__ void __launch_bounds__(kWarpThreads, kWarpBlocks)
+warp_grad_kernel(const float* __restrict__ tab,
+                 const int32_t* __restrict__ mat,
+                 const int32_t* __restrict__ lights,
+                 const float* __restrict__ cam, tpt::RenderParams p,
+                 const float* __restrict__ g, float* __restrict__ out,
+                 unsigned long long* __restrict__ rays, float* tape,
+                 float* __restrict__ partial,
+                 unsigned long long* __restrict__ stats) {
+  warp_grad_body<kStats, false>(tab, mat, lights, cam, p, g, out, rays, tape,
+                                partial, stats);
+}
+
+// K3's warp form with the soft-silhouette estimator (p.soft_eps > 0).
+template <bool kStats>
+__global__ void __launch_bounds__(kWarpThreads, kWarpBlocks)
+soft_warp_grad_kernel(const float* __restrict__ tab,
+                      const int32_t* __restrict__ mat,
+                      const int32_t* __restrict__ lights,
+                      const float* __restrict__ cam, tpt::RenderParams p,
+                      const float* __restrict__ g, float* __restrict__ out,
+                      unsigned long long* __restrict__ rays, float* tape,
+                      float* __restrict__ partial,
+                      unsigned long long* __restrict__ stats) {
+  warp_grad_body<kStats, true>(tab, mat, lights, cam, p, g, out, rays, tape,
+                               partial, stats);
 }
 
 // d_tab[j] = the sum of partial[.][j] over `rows` rows, one warp an entry:
@@ -332,21 +369,26 @@ dim3 grid_of(const tpt::RenderParams* p) {
               (p->height + kBlockY - 1) / kBlockY);
 }
 
+// The soft instances run where the soft-silhouette estimator is on.
+bool soft(const tpt::RenderParams* p) { return p->soft_eps > 0.0f; }
+
 // Blocks of the warp form: as many as fit on the card at once (the timed
 // instance's occupancy, so that the stats instance deals the same tiles to
 // the same warps), or as the tiles need.
 cudaError_t warp_grid(const tpt::RenderParams* p, int* blocks) {
   const size_t smem = warp_smem(p);
-  cudaError_t err = tpt::allow_smem(warp_grad_kernel<false>, smem);
+  auto timed = soft(p) ? soft_warp_grad_kernel<false> : warp_grad_kernel<false>;
+  cudaError_t err = tpt::allow_smem(timed, smem);
   if (err == cudaSuccess)
-    err = tpt::allow_smem(warp_grad_kernel<true>, smem);
+    err = tpt::allow_smem(
+        soft(p) ? soft_warp_grad_kernel<true> : warp_grad_kernel<true>, smem);
   int dev = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, warp_grad_kernel<false>, kWarpThreads, smem);
+        &per_sm, timed, kWarpThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int tiles = ((p->width + 7) / 8) * ((p->height + 3) / 4);
@@ -362,9 +404,9 @@ extern "C" {
 // The scratch a K3 launch of form `form` (0: the replaying form; 1: the
 // warp form) takes: *rows rows of SCENE_ROWS * n partial sums (for the
 // warp form, its blocks) and *tape_floats floats of carries (0 for the
-// replaying form).  For the warp form it also lets both instances take the
-// dynamic shared memory the launch needs.  Returns 0, or a CUDA error
-// code.
+// replaying form).  For the warp form it also lets both instances (hard,
+// or soft where p->soft_eps > 0) take the dynamic shared memory the
+// launch needs.  Returns 0, or a CUDA error code.
 int tpt_grad_scratch(const tpt::RenderParams* p, int form, int* rows,
                      long long* tape_floats) {
   if (form < 0 || form > 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -386,7 +428,8 @@ int tpt_grad_scratch(const tpt::RenderParams* p, int form, int* rows,
 // (SCENE_ROWS, n) for the pixel cotangent `g` (height, width, 3).
 // `rows`, `partial` and `tape` are the scratch tpt_grad_scratch gave for
 // these parameters (it must have run first); stats: null, or kGcSlots
-// zeroed totals that the form's stats instance adds to.  Returns
+// zeroed totals that the form's stats instance adds to.  p->soft_eps > 0
+// launches the form's soft instance, and only then.  Returns
 // cudaGetLastError() after both launches (0 when both were accepted).
 int tpt_grad_launch(const float* tab, const int32_t* mat,
                     const int32_t* lights, const float* cam,
@@ -401,7 +444,11 @@ int tpt_grad_launch(const float* tab, const int32_t* mat,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = tpt::SCENE_ROWS * p->n_spheres;
   if (form == 1) {
-    auto kernel = stats ? warp_grad_kernel<true> : warp_grad_kernel<false>;
+    auto kernel = soft(p)
+                      ? (stats ? soft_warp_grad_kernel<true>
+                               : soft_warp_grad_kernel<false>)
+                      : (stats ? warp_grad_kernel<true>
+                               : warp_grad_kernel<false>);
     kernel<<<rows, kWarpThreads, warp_smem(p), s>>>(
         tab, mat, lights, cam, *p, g, out, rays, tape, partial, stats);
     cudaError_t err = cudaGetLastError();
@@ -413,7 +460,10 @@ int tpt_grad_launch(const float* tab, const int32_t* mat,
   const dim3 grid = grid_of(p);
   if (static_cast<unsigned>(rows) != grid.x * grid.y)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = stats ? lockstep_kernel<1, true> : lockstep_kernel<1, false>;
+  auto kernel = soft(p) ? (stats ? lockstep_kernel<2, true>
+                                 : lockstep_kernel<2, false>)
+                        : (stats ? lockstep_kernel<1, true>
+                                 : lockstep_kernel<1, false>);
   kernel<<<grid, dim3(kBlockX, kBlockY), stage_bytes(p), s>>>(
       tab, mat, lights, cam, *p, g, out, rays, partial, stats);
   cudaError_t err = cudaGetLastError();

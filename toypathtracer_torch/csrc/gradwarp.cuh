@@ -25,7 +25,11 @@
 // same arithmetic, and for each table entry the same adds in the same
 // order for each lane.  So under HostLane (a warp of one lane: the
 // sequential loop over pixels) the image, the rays and the table are
-// bit-equal to grad_pixel's.  bounce_adj itself stays as it was: the
+// bit-equal to grad_pixel's; the soft instance (kSoft: the
+// soft-silhouette estimator, trace.cuh's bounce_adj<true>) to
+// grad_pixel<true>'s.  Its silhouette term adds into the groups of the
+// lane's winner, or of a missed ray's silhouette candidate (whose other
+// adds are 0), and each light's occluder adds through groups of its own.  bounce_adj itself stays as it was: the
 // replaying kernel is the baseline and keeps its registers.  Written once
 // against a warp policy and run by the replaying kernel under a one-lane
 // warp, the adjoint moved that kernel from 116 registers and no spills to
@@ -207,12 +211,15 @@ struct WarpTape {
 };
 
 // nee_adj for the lanes with lam (a Lambert hit with NEE on); every lane
-// runs the light loop and its adds.  gh: the groups of the hit sphere.
-template <class W>
-TPT_WARP void nee_adj_warp(const W& w, const SceneView& S, bool lam, V3 pos,
+// runs the light loop and its adds.  gh: the groups of the hit sphere,
+// formed with key hit_id.  kSoft: with the soft shadow boundary, whose
+// occluders add through groups of their own.
+template <bool kSoft, class W, class Cnt>
+TPT_WARP void nee_adj_warp(const W& w, const SceneView& S,
+                           const RenderParams& p, bool lam, V3 pos,
                            V3 normal, V3 rd, V3 alb, int hit_id, uint32_t st,
                            uint32_t see, V3 g_le, const Group& gh, float* T,
-                           V3& g_pos, V3& g_n) {
+                           V3& g_pos, V3& g_n, Cnt& cnt) {
   const V3 zero = v3(0.0f, 0.0f, 0.0f);
   if (!w.any(lam)) return;  // every add would be 0
   const bool front = dot(normal, rd) < 0.0f;
@@ -220,51 +227,79 @@ TPT_WARP void nee_adj_warp(const W& w, const SceneView& S, bool lam, V3 pos,
   V3 g_nl = zero;
   for (int k = 0; k < S.n_lights; ++k) {
     const int e = S.lights[k];
-    bool at = lam && e != hit_id;
+    const bool on = lam && e != hit_id;
     float eps1 = 0.0f, eps2 = 0.0f;
-    if (at) {
+    if (on) {
       eps1 = rand01(st);
       eps2 = rand01(st);
     }
-    at = at && ((see >> k) & 1u);
-    if (!w.any(at)) continue;  // every add of this light would be 0
-    V3 g_alb = zero, g_em = zero, g_sc = zero;
-    float g_r = 0.0f;
-    if (at) {
+    const bool at = on && ((see >> k) & 1u);
+    // kSoft: every light of the lane may add (an occluded one through its
+    // occluder)
+    const bool run = kSoft ? on : at;
+    if (!w.any(run)) continue;  // every add of this light would be 0
+    V3 g_alb = zero, g_em = zero, g_sc = zero, g_co = zero;
+    float g_r = 0.0f, g_sqr = 0.0f;
+    int j = -1;
+    if (run) {
       Cone q = cone(S, e, pos, eps1, eps2);
       float omega = TPT_TWO_PI * (1.0f - q.cos_a_max);
       float dl = dot(q.l, nl);
       float fac = max0(dl) * omega / TPT_PI;
       V3 em = v3(S.at(ROW_EM, e), S.at(ROW_EM + 1, e), S.at(ROW_EM + 2, e));
-      g_alb = mul(g_le, scale(em, fac));
-      g_em = mul(g_le, scale(alb, fac));
+      if (at) {
+        g_alb = mul(g_le, scale(em, fac));
+        g_em = mul(g_le, scale(alb, fac));
+      }
       if (dl > 0.0f) {
         float g_fac = dot(g_le, mul(alb, em));
-        float g_dl = g_fac * omega / TPT_PI;
-        float g_cam = -TPT_TWO_PI * (g_fac * dl / TPT_PI);
-        g_nl = add(g_nl, scale(q.l, g_dl));
-        cone_adj_vals(q, eps1, scale(nl, g_dl), g_cam, g_pos, g_r, g_sc);
+        V3 g_l = zero;
+        float g_cam = 0.0f;
+        if (at) {
+          float g_dl = g_fac * omega / TPT_PI;
+          g_cam = -TPT_TWO_PI * (g_fac * dl / TPT_PI);
+          g_nl = add(g_nl, scale(q.l, g_dl));
+          g_l = scale(nl, g_dl);
+        }
+        if constexpr (kSoft) {
+          long long c0 = 0;
+          if constexpr (Cnt::kOn) c0 = w.clock();
+          j = shadow_adj_vals(S, p, e, pos, q.l, at, fac * g_fac, g_l, g_pos,
+                              g_co, g_sqr);
+          if constexpr (Cnt::kOn) cnt.add(kGcCycSoft, w.clock() - c0);
+        }
+        if (at || j >= 0)
+          cone_adj_vals(q, eps1, g_l, g_cam, g_pos, g_r, g_sc);
       }
     }
     group_add(w, gh, T, S.n, hit_id,
               Adds<3>{{ROW_ALB, ROW_ALB + 1, ROW_ALB + 2},
                       {g_alb.x, g_alb.y, g_alb.z}});
-    const Group ge = make_group_uniform(w, at ? e : -1);
+    const Group ge = make_group_uniform(w, at || j >= 0 ? e : -1);
     group_add(w, ge, T, S.n, e,
               Adds<7>{{ROW_EM, ROW_EM + 1, ROW_EM + 2, ROW_R, ROW_CX,
                        ROW_CY, ROW_CZ},
                       {g_em.x, g_em.y, g_em.z, g_r, g_sc.x, g_sc.y,
                        g_sc.z}});
+    if constexpr (kSoft) {
+      const Group gj = make_group(w, j);
+      group_add(w, gj, T, S.n, j,
+                Adds<4>{{ROW_CX, ROW_CY, ROW_CZ, ROW_SQR},
+                        {g_co.x, g_co.y, g_co.z, g_sqr}});
+    }
   }
   if (lam) g_n = add(g_n, front ? g_nl : neg(g_nl));
 }
 
 // bounce_adj for the lanes with `active`; every lane calls it.  The
 // groups of the hit sphere are formed once and serve all its adds.
-template <class W, class Cnt>
+// kSoft: with the soft-silhouette terms; a miss lane's groups are then
+// those of its silhouette candidate, which its silhouette term adds to
+// (its other adds are 0).
+template <bool kSoft, class W, class Cnt>
 TPT_WARP void bounce_adj_warp(const W& w, const SceneView& S,
                               const RenderParams& p, bool active, V3 ro,
-                              V3 rd, uint32_t st, const BounceRec& rec,
+                              V3 rd, uint32_t st, const BounceRec& rec, V3 e,
                               V3 g_e, V3 g_c, V3& g_ro, V3& g_rd, float* T,
                               Cnt& cnt) {
   const V3 zero = v3(0.0f, 0.0f, 0.0f);
@@ -280,12 +315,30 @@ TPT_WARP void bounce_adj_warp(const W& w, const SceneView& S,
   const int id = hit ? rec.id : -1;
   const bool sc = hit && rec.scattered;
   long long c0 = 0;
+  // the sphere whose groups the lane's adds take: the winner, or kSoft's
+  // silhouette candidate of a miss
+  int key = id;
+  float d_sil = 0.0f, g_w = 0.0f;
+  if constexpr (kSoft) {
+    if constexpr (Cnt::kOn) c0 = w.clock();
+    if (active && !hit) {  // e += w_m (L - sky), w_m = 0
+      float nb;
+      key = silhouette_candidate(S, ro, rd, p.t_min, d_sil, nb);
+      if (key >= 0)
+        g_w = dot(g_e, sub(tangent_radiance(S, p, key, nb, ro, rd),
+                           sky_color(rd, p.mitsuba != 0)));
+    } else if (hit) {
+      d_sil = discr(S, id, ro, rd);
+      g_w = hit_weight_grad(S, p, rec, rd, e, g_e, g_c);
+    }
+    if constexpr (Cnt::kOn) cnt.add(kGcCycSoft, w.clock() - c0);
+  }
   if constexpr (Cnt::kOn) c0 = w.clock();
-  const Group gh = make_group(w, id);
+  const Group gh = make_group(w, key);
   if constexpr (Cnt::kOn) {
     cnt.add(kGcCycGroup, w.clock() - c0);
     cnt.add(kGcHitGroups, gh.lead ? 1 : 0);
-    cnt.add(kGcHitLanes, hit ? 1 : 0);
+    cnt.add(kGcHitLanes, key >= 0 ? 1 : 0);
   }
   V3 pos = zero, pc = zero, normal = zero;
   float invr = 0.0f;
@@ -300,7 +353,7 @@ TPT_WARP void bounce_adj_warp(const W& w, const SceneView& S,
   {
     const V3 em = hit && (rec.gated || !rec.scattered) ? g_e : zero;
     const V3 alb = sc && mt != MAT_DIELECTRIC ? g_c : zero;  // c = albedo
-    group_add(w, gh, T, n, id,
+    group_add(w, gh, T, n, key,
               Adds<6>{{ROW_EM, ROW_EM + 1, ROW_EM + 2, ROW_ALB, ROW_ALB + 1,
                        ROW_ALB + 2},
                       {em.x, em.y, em.z, alb.x, alb.y, alb.z}});
@@ -317,8 +370,8 @@ TPT_WARP void bounce_adj_warp(const W& w, const SceneView& S,
     alb = v3(S.at(ROW_ALB, id), S.at(ROW_ALB + 1, id), S.at(ROW_ALB + 2, id));
   }
   if (p.light_sampling)
-    nee_adj_warp(w, S, lam, pos, normal, rd, alb, id, st, rec.see, g_e, gh,
-                 T, g_pos, g_n);
+    nee_adj_warp<kSoft>(w, S, p, lam, pos, normal, rd, alb, key, st, rec.see,
+                        g_e, gh, T, g_pos, g_n, cnt);
   float g_rough = 0.0f, g_ri = 0.0f;
   if (sc && mt == MAT_METAL) {
     V3 rius = unit_sphere(st);
@@ -350,11 +403,26 @@ TPT_WARP void bounce_adj_warp(const W& w, const SceneView& S,
     sphere_t_adj_vals(S, id, ro, rd, p.t_min, dot(g_pos, rd), g_ro, g_rd,
                       g_co, g_sqr);
   }
-  group_add(w, gh, T, n, id,
-            Adds<10>{{ROW_ROUGH, ROW_RI, ROW_CX, ROW_CY, ROW_CZ, ROW_INVR,
-                      ROW_CX, ROW_CY, ROW_CZ, ROW_SQR},
-                     {g_rough, g_ri, -g_pc.x, -g_pc.y, -g_pc.z, g_invr,
-                      g_co.x, g_co.y, g_co.z, g_sqr}});
+  if constexpr (kSoft) {
+    V3 g_co_s = zero;
+    float g_sqr_s = 0.0f;
+    if (key >= 0)
+      discr_adj_vals(S, key, ro, rd, soft_grad(d_sil, p.soft_eps, g_w), g_ro,
+                     g_rd, g_co_s, g_sqr_s);
+    group_add(w, gh, T, n, key,
+              Adds<14>{{ROW_ROUGH, ROW_RI, ROW_CX, ROW_CY, ROW_CZ, ROW_INVR,
+                        ROW_CX, ROW_CY, ROW_CZ, ROW_SQR, ROW_CX, ROW_CY,
+                        ROW_CZ, ROW_SQR},
+                       {g_rough, g_ri, -g_pc.x, -g_pc.y, -g_pc.z, g_invr,
+                        g_co.x, g_co.y, g_co.z, g_sqr, g_co_s.x, g_co_s.y,
+                        g_co_s.z, g_sqr_s}});
+  } else {
+    group_add(w, gh, T, n, id,
+              Adds<10>{{ROW_ROUGH, ROW_RI, ROW_CX, ROW_CY, ROW_CZ, ROW_INVR,
+                        ROW_CX, ROW_CY, ROW_CZ, ROW_SQR},
+                       {g_rough, g_ri, -g_pc.x, -g_pc.y, -g_pc.z, g_invr,
+                        g_co.x, g_co.y, g_co.z, g_sqr}});
+  }
 }
 
 // Samples a lane traces forward before the warp's reverse sweep of them:
@@ -400,7 +468,7 @@ TPT_HD int grad_scratch_words(int width) { return (3 + kGradBatch) * width; }
 // is the same from launch to launch.  Under a one-lane warp the samples
 // are swept in order after their forward traces, and the adds come in
 // grad_pixel's order.
-template <class W, class Cnt>
+template <bool kSoft = false, class W, class Cnt>
 TPT_WARP unsigned long long grad_tiles(const W& w, const SceneView& S,
                                        const float* cam,
                                        const RenderParams& p, const float* g,
@@ -474,7 +542,7 @@ TPT_WARP unsigned long long grad_tiles(const W& w, const SceneView& S,
         }
         if (!w.any(has)) break;
         Carry k;
-        k.ro = k.rd = zero;
+        k.ro = k.rd = k.e = zero;
         k.st = 0;
         BounceRec rec = unpack_rec(0u, 0.0f);  // id -1
         V3 g_e = zero, g_c = zero;
@@ -486,8 +554,8 @@ TPT_WARP unsigned long long grad_tiles(const W& w, const SceneView& S,
           g_c = mul(g_atten, k.atten);
           g_atten = add(mul(G, k.e), mul(g_atten, carry_c(S, rec)));
         }
-        bounce_adj_warp(w, S, p, has, k.ro, k.rd, k.st, rec, g_e, g_c, g_ro,
-                        g_rd, T, cnt);
+        bounce_adj_warp<kSoft>(w, S, p, has, k.ro, k.rd, k.st, rec, k.e, g_e,
+                               g_c, g_ro, g_rd, T, cnt);
         if constexpr (Cnt::kOn) {
           cnt.add(kGcAdjBounces, has ? 1 : 0);
           cnt.add(kGcAdjSlots, 1);

@@ -68,6 +68,7 @@ struct RenderParams {
   float inv_w, inv_h;       // float32(1/cfg.width), float32(1/cfg.height)
   float inv_spp;            // float32(1/spp)
   float t_min, t_max;
+  float soft_eps;           // the soft-silhouette estimator's eps (K3; 0: off)
 };
 
 // A sphere's center and squared radius, rows ROW_CX..ROW_SQR of the packed
@@ -644,11 +645,178 @@ TPT_HD void cone_adj(const SceneView& S, int e, const Cone& q, float eps1,
   acc3(acc, S.n, ROW_CX, e, g_sc);
 }
 
+// ---- The soft-silhouette estimator's adjoint (soft_eps > 0) ----
+//
+// tracecore.bounce_parts(soft=True): the hit/miss select and each NEE
+// light's visibility become straight-through sigmoids, sigma(d / eps), of
+// a ray-sphere discriminant d = nb^2 - c.  Their forward values are the
+// hard selects', so the image and the forward trace are as they were;
+// the backward adds sigma'(d / eps) / eps times the cotangent of the
+// weight into d, and through d into the sphere's center and radius^2 rows
+// and the ray.  Three terms:
+//   * a hit lane: the winner's d, the weight's cotangent
+//     g_e . (e - sky) + g_c . c (e and c the bounce's, sky the ray's);
+//   * a miss lane with a silhouette candidate (the sphere in front with
+//     the largest d): its d, the cotangent g_e . (L - sky), L the
+//     radiance at its tangent point (only L's value: its weight is 0);
+//   * each NEE light whose hard visibility agrees with the sign of d_occ,
+//     the largest d of the spheres whose closest approach lies in the
+//     shadow segment: -sigma'(-d_occ / eps) / eps times
+//     g_le . (alb * em) * fac into that occluder and, through the shadow
+//     direction, the cone sample -- for occluded lights too.
+// The candidate and the occluders are found again in the reverse sweep
+// from the bounce's ray: a scan over the spheres for a miss, and one per
+// light for a Lambert hit.
+
+// The cotangent of d for the cotangent g of sigmoid(d / eps).
+TPT_HD float soft_grad(float d, float eps, float g) {
+  const float s = 1.0f / (1.0f + expf(-(d / eps)));
+  return g * s * (1.0f - s) / eps;
+}
+
+// The miss side's silhouette candidate (tracecore.silhouette_query): the
+// sphere with the largest d among those in front of the ray (nb > t_min),
+// the first on ties, as a strict `>` chain from -1e9; -1 unless its d
+// exceeds -1e8.  Sets its d and nb.
+TPT_HD int silhouette_candidate(const SceneView& S, V3 ro, V3 rd,
+                                float t_min, float& d_best, float& nb_best) {
+  int cand = -1;
+  d_best = -1e9f;
+  nb_best = 0.0f;
+  for (int i = 0; i < S.n; ++i) {
+    float cox = S.at(ROW_CX, i) - ro.x;
+    float coy = S.at(ROW_CY, i) - ro.y;
+    float coz = S.at(ROW_CZ, i) - ro.z;
+    float nb = cox * rd.x + coy * rd.y + coz * rd.z;
+    float c = cox * cox + coy * coy + coz * coz - S.at(ROW_SQR, i);
+    float d = nb * nb - c;
+    if (nb > t_min && d > d_best) {
+      d_best = d;
+      nb_best = nb;
+      cand = i;
+    }
+  }
+  return d_best > -1e8f ? cand : -1;
+}
+
+// The soft shadow boundary's occluder (tracecore.
+// _lights_occlusion_proximity): the largest d over the spheres but the
+// light whose closest approach lies inside (t_min, t_l), the first on
+// ties; -1 where there is none (d_occ = -1e9).
+TPT_HD int shadow_occluder(const SceneView& S, V3 pos, V3 l, int light,
+                           float t_min, float t_l, float& d_occ) {
+  int j = -1;
+  d_occ = -1e9f;
+  for (int i = 0; i < S.n; ++i) {
+    if (i == light) continue;
+    float cox = S.at(ROW_CX, i) - pos.x;
+    float coy = S.at(ROW_CY, i) - pos.y;
+    float coz = S.at(ROW_CZ, i) - pos.z;
+    float nb = cox * l.x + coy * l.y + coz * l.z;
+    float c = cox * cox + coy * coy + coz * coz - S.at(ROW_SQR, i);
+    float d = nb * nb - c;
+    if (nb > t_min && nb < t_l && d > d_occ) {
+      d_occ = d;
+      j = i;
+    }
+  }
+  return j;
+}
+
+// The radiance a ray would carry if it grazed sphere i at its closest
+// approach nb (tracecore._tangent_radiance): Lambert -> emission + albedo
+// * (unoccluded NEE expectation over every light + sky at the normal);
+// metal -> albedo * sky(rd); dielectric -> sky(rd).  Its guards keep it
+// finite: a normal of max(|to_c|^2, 1e-12), a light distance^2 of at
+// least 1e-8.
+TPT_HD V3 tangent_radiance(const SceneView& S, const RenderParams& p, int i,
+                           float nb, V3 ro, V3 rd) {
+  const V3 pos = add(ro, scale(rd, nb));
+  const V3 to_c = sub(pos, v3(S.at(ROW_CX, i), S.at(ROW_CY, i),
+                              S.at(ROW_CZ, i)));
+  const float n2 = dot(to_c, to_c);
+  const V3 n = scale(to_c, 1.0f / sqrtf(n2 > 1e-12f ? n2 : 1e-12f));
+  const V3 sky_d = sky_color(rd, p.mitsuba != 0);
+  const V3 alb = v3(S.at(ROW_ALB, i), S.at(ROW_ALB + 1, i),
+                    S.at(ROW_ALB + 2, i));
+  const int mt = S.mat[i];
+  if (mt == MAT_METAL) return mul(alb, sky_d);
+  if (mt == MAT_DIELECTRIC) return sky_d;
+  V3 nee = v3(0.0f, 0.0f, 0.0f);
+  if (p.light_sampling) {
+    for (int k = 0; k < S.n_lights; ++k) {
+      const int e = S.lights[k];
+      const V3 to_l = sub(v3(S.at(ROW_CX, e), S.at(ROW_CY, e),
+                             S.at(ROW_CZ, e)), pos);
+      float d2 = dot(to_l, to_l);
+      d2 = d2 > 1e-8f ? d2 : 1e-8f;
+      const float r = S.at(ROW_R, e);
+      const float cos_a_max = sqrt_pos(1.0f - r * r / d2);
+      const float omega = TPT_TWO_PI * (1.0f - cos_a_max);
+      const V3 dir = scale(to_l, 1.0f / sqrtf(d2));
+      const float fac = max0(dot(dir, n)) * omega / TPT_PI;
+      nee = v3(nee.x + S.at(ROW_EM, e) * fac, nee.y + S.at(ROW_EM + 1, e) * fac,
+               nee.z + S.at(ROW_EM + 2, e) * fac);
+    }
+  }
+  const V3 sky_n = sky_color(n, p.mitsuba != 0);
+  const V3 em = v3(S.at(ROW_EM, i), S.at(ROW_EM + 1, i), S.at(ROW_EM + 2, i));
+  return add(em, mul(alb, add(nee, sky_n)));
+}
+
+// The discriminant d = nb^2 - c of sphere i along (ro, rd), as sphere_t
+// computes it.
+TPT_HD float discr(const SceneView& S, int i, V3 ro, V3 rd) {
+  float cox = S.at(ROW_CX, i) - ro.x;
+  float coy = S.at(ROW_CY, i) - ro.y;
+  float coz = S.at(ROW_CZ, i) - ro.z;
+  float nb = cox * rd.x + coy * rd.y + coz * rd.z;
+  float c = cox * cox + coy * coy + coz * coz - S.at(ROW_SQR, i);
+  return nb * nb - c;
+}
+
+// That discriminant back from its cotangent g_d: adds to g_ro and g_rd,
+// and returns sphere i's center (g_co) and radius^2 (g_sqr) cotangents.
+TPT_HD void discr_adj_vals(const SceneView& S, int i, V3 ro, V3 rd,
+                           float g_d, V3& g_ro, V3& g_rd, V3& g_co,
+                           float& g_sqr) {
+  V3 co = v3(S.at(ROW_CX, i) - ro.x, S.at(ROW_CY, i) - ro.y,
+             S.at(ROW_CZ, i) - ro.z);
+  float nb = co.x * rd.x + co.y * rd.y + co.z * rd.z;
+  float g_nb = 2.0f * nb * g_d;
+  g_co = add(scale(rd, g_nb), scale(co, -2.0f * g_d));
+  g_rd = add(g_rd, scale(co, g_nb));
+  g_ro = sub(g_ro, g_co);
+  g_sqr = g_d;
+}
+
+// NEE's soft shadow boundary for light e, whose cone sample leaves pos
+// along l and was seen or not: the occluder's cotangents (center g_co,
+// radius^2 g_sqr) for the cotangent g_vis of the light's visibility
+// sigmoid(-d_occ / eps), with l's and pos's added to g_l and g_pos (the
+// light's root t_l along l bounds the segment, valid or not).  Returns
+// the occluder, or -1 where the term is 0: no sphere in the segment, or
+// the interval-overlap test and the sign of d_occ disagree (the hard
+// value stands).
+TPT_HD int shadow_adj_vals(const SceneView& S, const RenderParams& p, int e,
+                           V3 pos, V3 l, bool seen, float g_vis, V3& g_l,
+                           V3& g_pos, V3& g_co, float& g_sqr) {
+  float t_l, d_occ;
+  sphere_t(S, e, pos, l, p.t_min, t_l);
+  const int j = shadow_occluder(S, pos, l, e, p.t_min, t_l, d_occ);
+  if (j < 0 || seen != (d_occ < 0.0f)) return -1;
+  discr_adj_vals(S, j, pos, l, -soft_grad(-d_occ, p.soft_eps, g_vis), g_pos,
+                 g_l, g_co, g_sqr);
+  return j;
+}
+
 // Adjoint of nee for the cotangent g_le of its light_e; st is the state
-// nee started from and see the lights it saw.
-TPT_HD void nee_adj(const SceneView& S, V3 pos, V3 normal, V3 rd, V3 alb,
-                    int hit_id, uint32_t st, uint32_t see, V3 g_le, V3& g_pos,
-                    V3& g_n, float* acc) {
+// nee started from and see the lights it saw.  kSoft adds the soft shadow
+// boundary (shadow_adj_vals), for unseen lights too.
+template <bool kSoft = false>
+TPT_HD void nee_adj(const SceneView& S, const RenderParams& p, V3 pos,
+                    V3 normal, V3 rd, V3 alb, int hit_id, uint32_t st,
+                    uint32_t see, V3 g_le, V3& g_pos, V3& g_n, float* acc) {
   bool front = dot(normal, rd) < 0.0f;
   V3 nl = front ? normal : neg(normal);
   V3 g_nl = v3(0.0f, 0.0f, 0.0f);
@@ -657,21 +825,39 @@ TPT_HD void nee_adj(const SceneView& S, V3 pos, V3 normal, V3 rd, V3 alb,
     if (e == hit_id) continue;
     float eps1 = rand01(st);
     float eps2 = rand01(st);
-    if (!((see >> k) & 1u)) continue;
+    const bool seen = (see >> k) & 1u;
+    if (!kSoft && !seen) continue;
     Cone q = cone(S, e, pos, eps1, eps2);
     float omega = TPT_TWO_PI * (1.0f - q.cos_a_max);
     float dl = dot(q.l, nl);
     float fac = max0(dl) * omega / TPT_PI;
     V3 em = v3(S.at(ROW_EM, e), S.at(ROW_EM + 1, e), S.at(ROW_EM + 2, e));
-    // light_e += (alb * em) * fac
-    acc3(acc, S.n, ROW_ALB, hit_id, mul(g_le, scale(em, fac)));
-    acc3(acc, S.n, ROW_EM, e, mul(g_le, scale(alb, fac)));
+    if (seen) {
+      // light_e += (alb * em) * fac
+      acc3(acc, S.n, ROW_ALB, hit_id, mul(g_le, scale(em, fac)));
+      acc3(acc, S.n, ROW_EM, e, mul(g_le, scale(alb, fac)));
+    }
     if (!(dl > 0.0f)) continue;  // fac = max(dl, 0) * omega / pi = 0
     float g_fac = dot(g_le, mul(alb, em));
-    float g_dl = g_fac * omega / TPT_PI;
-    float g_cam = -TPT_TWO_PI * (g_fac * dl / TPT_PI);
-    g_nl = add(g_nl, scale(q.l, g_dl));
-    cone_adj(S, e, q, eps1, scale(nl, g_dl), g_cam, g_pos, acc);
+    V3 g_l = v3(0.0f, 0.0f, 0.0f);
+    float g_cam = 0.0f;
+    if (seen) {
+      float g_dl = g_fac * omega / TPT_PI;
+      g_cam = -TPT_TWO_PI * (g_fac * dl / TPT_PI);
+      g_nl = add(g_nl, scale(q.l, g_dl));
+      g_l = scale(nl, g_dl);
+    }
+    int j = -1;
+    V3 g_co = v3(0.0f, 0.0f, 0.0f);
+    float g_sqr = 0.0f;
+    if constexpr (kSoft)
+      j = shadow_adj_vals(S, p, e, pos, q.l, seen, fac * g_fac, g_l, g_pos,
+                          g_co, g_sqr);
+    if (seen || j >= 0) cone_adj(S, e, q, eps1, g_l, g_cam, g_pos, acc);
+    if (j >= 0) {
+      acc3(acc, S.n, ROW_CX, j, g_co);
+      acc[ROW_SQR * S.n + j] += g_sqr;
+    }
   }
   g_n = add(g_n, front ? g_nl : neg(g_nl));
 }
@@ -682,13 +868,49 @@ TPT_HD void refract_adj(const SceneView& S, int id, V3 rd, V3 normal,
       refract_adj_vals(S, id, rd, normal, g_dir, g_rd, g_n);
 }
 
+// The silhouette term of a bounce's adjoint (kSoft): the weight's
+// cotangent g_w into sphere i's discriminant along the bounce's ray, the
+// ray's cotangents added to g_ro/g_rd and the sphere's to acc.
+TPT_HD void silhouette_adj(const SceneView& S, const RenderParams& p, int i,
+                           float d, V3 ro, V3 rd, float g_w, V3& g_ro,
+                           V3& g_rd, float* acc) {
+  V3 g_co;
+  float g_sqr;
+  discr_adj_vals(S, i, ro, rd, soft_grad(d, p.soft_eps, g_w), g_ro, g_rd,
+                 g_co, g_sqr);
+  acc3(acc, S.n, ROW_CX, i, g_co);
+  acc[ROW_SQR * S.n + i] += g_sqr;
+}
+
+// The continuation attenuation c that bounce() set: the albedo, 1 for a
+// dielectric, 0 where the path ended.
+TPT_HD V3 carry_c(const SceneView& S, const BounceRec& r) {
+  if (!r.scattered) return v3(0.0f, 0.0f, 0.0f);
+  if (S.mat[r.id] == MAT_DIELECTRIC) return v3(1.0f, 1.0f, 1.0f);
+  return v3(S.at(ROW_ALB, r.id), S.at(ROW_ALB + 1, r.id),
+            S.at(ROW_ALB + 2, r.id));
+}
+
+// The cotangent of a hit lane's soft weight w: e = w e_hit + (1 - w) sky
+// and c = w c_hit, with e and c the bounce's own.
+TPT_HD float hit_weight_grad(const SceneView& S, const RenderParams& p,
+                             const BounceRec& rec, V3 rd, V3 e, V3 g_e,
+                             V3 g_c) {
+  return dot(g_e, sub(e, sky_color(rd, p.mitsuba != 0))) +
+         dot(g_c, carry_c(S, rec));
+}
+
 // Adjoint of one bounce.  In: the bounce's inputs (ro, rd, and st as it
-// was when the bounce started), its record, the cotangents of its e and c,
-// and in g_ro/g_rd those of the ray it passed on.  Out: g_ro/g_rd hold
-// the cotangents of the ray it was given; the scene's are added to acc.
+// was when the bounce started), its record and emission e, the
+// cotangents of its e and c, and in g_ro/g_rd those of the ray it passed
+// on.  Out: g_ro/g_rd hold the cotangents of the ray it was given; the
+// scene's are added to acc.  kSoft adds the soft-silhouette estimator's
+// terms: the silhouette's, after the hard adjoint, and NEE's shadow
+// boundary.
+template <bool kSoft = false>
 TPT_HD void bounce_adj(const SceneView& S, const RenderParams& p, V3 ro,
-                       V3 rd, uint32_t st, const BounceRec& rec, V3 g_e,
-                       V3 g_c, V3& g_ro, V3& g_rd, float* acc) {
+                       V3 rd, uint32_t st, const BounceRec& rec, V3 e,
+                       V3 g_e, V3 g_c, V3& g_ro, V3& g_rd, float* acc) {
   const V3 zero = v3(0.0f, 0.0f, 0.0f);
   const V3 g_pos_out = g_ro;
   const V3 g_dir = g_rd;
@@ -700,10 +922,25 @@ TPT_HD void bounce_adj(const SceneView& S, const RenderParams& p, V3 ro,
     if (!p.mitsuba)
       g_rd.y = 0.5f * (g_e.x * ((0.5f - 1.0f) * 0.3f) +
                        g_e.y * ((0.7f - 1.0f) * 0.3f));
+    if constexpr (kSoft) {  // e += w_m (L - sky), w_m = 0
+      float d, nb;
+      const int cand = silhouette_candidate(S, ro, rd, p.t_min, d, nb);
+      if (cand >= 0)
+        silhouette_adj(S, p, cand, d, ro, rd,
+                       dot(g_e, sub(tangent_radiance(S, p, cand, nb, ro, rd),
+                                    sky_color(rd, p.mitsuba != 0))),
+                       g_ro, g_rd, acc);
+    }
     return;
   }
   if (rec.gated || !rec.scattered) acc3(acc, n, ROW_EM, id, g_e);
-  if (!rec.scattered) return;  // absorbed metal: e is the emission alone
+  if (!rec.scattered) {  // absorbed metal: e is the emission alone
+    if constexpr (kSoft)
+      silhouette_adj(S, p, id, discr(S, id, ro, rd), ro, rd,
+                     hit_weight_grad(S, p, rec, rd, e, g_e, g_c), g_ro, g_rd,
+                     acc);
+    return;
+  }
   const V3 pos = add(ro, scale(rd, rec.t));
   const V3 pc = sub(pos, v3(S.at(ROW_CX, id), S.at(ROW_CY, id),
                             S.at(ROW_CZ, id)));
@@ -719,10 +956,10 @@ TPT_HD void bounce_adj(const SceneView& S, const RenderParams& p, V3 ro,
     // (pos + normal + ruv) - pos: its derivative in pos is exactly 0
     g_n = normalize_adj(sub(add(add(pos, normal), ruv), pos), g_dir);
     if (p.light_sampling)
-      nee_adj(S, pos, normal, rd,
-              v3(S.at(ROW_ALB, id), S.at(ROW_ALB + 1, id),
-                 S.at(ROW_ALB + 2, id)),
-              id, st, rec.see, g_e, g_pos, g_n, acc);
+      nee_adj<kSoft>(S, p, pos, normal, rd,
+                     v3(S.at(ROW_ALB, id), S.at(ROW_ALB + 1, id),
+                        S.at(ROW_ALB + 2, id)),
+                     id, st, rec.see, g_e, g_pos, g_n, acc);
   } else if (mt == MAT_METAL) {
     V3 rius = unit_sphere(st);
     float rough = p.mitsuba ? 0.0f : S.at(ROW_ROUGH, id);
@@ -748,21 +985,27 @@ TPT_HD void bounce_adj(const SceneView& S, const RenderParams& p, V3 ro,
   g_ro = add(g_ro, g_pos);
   g_rd = add(g_rd, scale(g_pos, rec.t));
   sphere_t_adj(S, id, ro, rd, p.t_min, dot(g_pos, rd), g_ro, g_rd, acc);
+  if constexpr (kSoft)
+    silhouette_adj(S, p, id, discr(S, id, ro, rd), ro, rd,
+                   hit_weight_grad(S, p, rec, rd, e, g_e, g_c), g_ro, g_rd,
+                   acc);
 }
 
 // What the gradient kernels' stats instances count (csrc/grad.cu): SM
 // clock cycles, summed over threads, in each part of the kernel -- the
 // forward trace, the replays (the replaying form), the adjoint sweep,
-// within it the warp form's grouping of lanes by sphere, zeroing the
+// within it the warp form's grouping of lanes by sphere (and, in its soft
+// instance, the silhouette and shadow-boundary scans), zeroing the
 // cotangent tables, the block reduction, and the whole thread; then the
 // adjoint bounces run, the replayed bounces, the lane slots of the warp
-// form's reverse steps (32 a step of a warp), and the hit groups its adds
-// formed and the lanes in them.  The timed instances pass NoGradCount,
+// form's reverse steps (32 a step of a warp), the hit groups its adds
+// formed and the lanes in them, and last the cycles of the warp form's
+// soft scans.  The timed instances pass NoGradCount,
 // which compiles to nothing.
 enum {
   kGcCycFwd = 0, kGcCycReplay, kGcCycAdj, kGcCycGroup, kGcCycZero,
   kGcCycReduce, kGcCycAll, kGcAdjBounces, kGcReplayBounces, kGcAdjSlots,
-  kGcHitGroups, kGcHitLanes, kGcSlots
+  kGcHitGroups, kGcHitLanes, kGcCycSoft, kGcSlots
 };
 
 struct NoGradCount {
@@ -787,8 +1030,9 @@ TPT_HD long long sm_clock() {
 // without NEE's shadow tests: the replay needs their path and attenuation,
 // not their radiance).  A path of L bounces costs O(L^2) bounces; most end
 // by depth 3-4.  The replaying form, kept as the baseline of
-// grad_pixel_stored and of the warp form (csrc/gradwarp.cuh).
-template <class Cnt>
+// grad_pixel_stored and of the warp form (csrc/gradwarp.cuh).  kSoft: the
+// soft-silhouette estimator's cotangent (bounce_adj<true>).
+template <bool kSoft = false, class Cnt>
 TPT_HD uint32_t grad_pixel(const SceneView& S, const float* cam,
                            const RenderParams& p, int x, int y,
                            const float* g, float* out, float* acc, Cnt& cnt) {
@@ -838,7 +1082,8 @@ TPT_HD uint32_t grad_pixel(const SceneView& S, const float* cam,
       V3 g_e = mul(atten, G);
       V3 g_c = mul(g_atten, atten);
       g_atten = add(mul(G, e), mul(g_atten, c));
-      bounce_adj(S, p, ro_in, rd_in, st_in, rec, g_e, g_c, g_ro, g_rd, acc);
+      bounce_adj<kSoft>(S, p, ro_in, rd_in, st_in, rec, e, g_e, g_c, g_ro,
+                        g_rd, acc);
       if constexpr (Cnt::kOn) {
         const long long c1 = sm_clock();
         cnt.add(kGcCycAdj, c1 - c0);
@@ -854,11 +1099,12 @@ TPT_HD uint32_t grad_pixel(const SceneView& S, const float* cam,
   return rays;
 }
 
+template <bool kSoft = false>
 TPT_HD uint32_t grad_pixel(const SceneView& S, const float* cam,
                            const RenderParams& p, int x, int y,
                            const float* g, float* out, float* acc) {
   NoGradCount none;
-  return grad_pixel(S, cam, p, x, y, g, out, acc, none);
+  return grad_pixel<kSoft>(S, cam, p, x, y, g, out, acc, none);
 }
 
 // ---- Stored carries: the adjoint sweep without replays ----
@@ -894,15 +1140,6 @@ TPT_HD BounceRec unpack_rec(uint32_t bits, float t) {
   r.refl = (bits >> 12) & 1u;
   r.see = bits >> 16;
   return r;
-}
-
-// The continuation attenuation c that bounce() set: the albedo, 1 for a
-// dielectric, 0 where the path ended.
-TPT_HD V3 carry_c(const SceneView& S, const BounceRec& r) {
-  if (!r.scattered) return v3(0.0f, 0.0f, 0.0f);
-  if (S.mat[r.id] == MAT_DIELECTRIC) return v3(1.0f, 1.0f, 1.0f);
-  return v3(S.at(ROW_ALB, r.id), S.at(ROW_ALB + 1, r.id),
-            S.at(ROW_ALB + 2, r.id));
 }
 
 // A tape of Carry records in an array: a sample's, for grad_pixel_stored
@@ -971,7 +1208,8 @@ TPT_HD uint32_t grad_pixel_stored(const SceneView& S, const float* cam,
       V3 g_e = mul(k.atten, G);
       V3 g_c = mul(g_atten, k.atten);
       g_atten = add(mul(G, k.e), mul(g_atten, carry_c(S, rec)));
-      bounce_adj(S, p, k.ro, k.rd, k.st, rec, g_e, g_c, g_ro, g_rd, acc);
+      bounce_adj(S, p, k.ro, k.rd, k.st, rec, k.e, g_e, g_c, g_ro, g_rd,
+                 acc);
     }
   }
   out[0] = sum.x * p.inv_spp;

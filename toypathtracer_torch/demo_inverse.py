@@ -11,10 +11,12 @@ same keys as the JAX demo.
         [--width 192 --height 108] [--outdir build/inverse_demo]
         [--device cuda|cpu]
 
-The default recovers perturbed albedo.  --soft-eps > 0 (the
-soft-silhouette estimator that geometry recovery needs) raises until that
-estimator is ported; without it d(loss)/d(center) lacks the silhouette
-term, so geometry modes are not expected to converge.
+The default recovers perturbed albedo.  Geometry modes (--trainable
+center, --center-jitter) need the soft-silhouette estimator: --soft-eps
+0.05 with --tonemap-loss, the JAX package's recipe; without it
+d(loss)/d(center) lacks the silhouette term and they are not expected to
+converge.  On the card --soft-eps > 0 runs the gradient kernel's soft
+instance.
 """
 
 from __future__ import annotations
@@ -43,8 +45,8 @@ def main(argv=None) -> int:
     ap.add_argument("--center-jitter", type=float, default=0.0)
     ap.add_argument("--albedo-jitter", type=float, default=0.15)
     ap.add_argument("--soft-eps", type=float, default=0.0,
-                    help="soft-silhouette eps; > 0 is not ported yet and "
-                         "raises")
+                    help="the soft-silhouette estimator's eps (0: the hard "
+                         "selects' gradient)")
     ap.add_argument("--tonemap-loss", action="store_true",
                     help="L2 on Reinhard-compressed radiance")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],

@@ -7,10 +7,14 @@ card the render kernel (or with lockstep_primal the lockstep kernel)
 forward and the gradient kernel backward, on the CPU the plain versions,
 chosen by the device the renderer works on.  Discontinuous events
 (nearest-hit argmin, shadow visibility, the dielectric branch) pass the
-straight-through gradient of the taken branch, as in the JAX package.
-Not ported yet, and raising NotImplementedError rather than ignored: the
-soft-silhouette estimator (soft_silhouette_eps > 0) and row-sharded
-multi-device training (`mesh`).
+straight-through gradient of the taken branch, as in the JAX package,
+unless cfg.soft_silhouette_eps > 0: then the soft-silhouette estimator's
+sigmoid terms carry the silhouette and shadow-boundary gradients that
+geometry recovery (centers, radii, animation time) needs.  The JAX
+package's recipe for geometry (toypathtracer_tpu/inverse.py): a small eps
+such as 0.05 with image_l2_tonemapped.  Not ported yet, and raising
+NotImplementedError rather than ignored: row-sharded multi-device
+training (`mesh`).
 """
 
 from __future__ import annotations
@@ -22,7 +26,6 @@ import torch
 
 from .config import RenderConfig, resolve_device
 from .ops.cuda_grad import PARAM_FIELDS, render_frame_diff
-from .render.wavefront import check_hard_gradients
 from .scene import Scene
 
 
@@ -146,7 +149,6 @@ class InverseRenderer:
             raise NotImplementedError(
                 "mesh-sharded training is not ported yet (ROADMAP queue 1 "
                 "item 10); drop mesh to train on one device")
-        check_hard_gradients(self.cfg)
         _check_fields(self.trainable)
         self.device = resolve_device(self.device)
         self.target = torch.as_tensor(self.target, dtype=torch.float32,

@@ -48,6 +48,7 @@ class RenderParams(ctypes.Structure):
         ("inv_w", ctypes.c_float), ("inv_h", ctypes.c_float),
         ("inv_spp", ctypes.c_float),
         ("t_min", ctypes.c_float), ("t_max", ctypes.c_float),
+        ("soft_eps", ctypes.c_float),
     ]
 
 

@@ -19,9 +19,12 @@ K3 has two forms (`render_tile_grad_form`): "warp", the main path's
 table, up to 512 spheres), and "replay", the kernel it replaced (bounces
 replayed, a per-thread table, up to 64 spheres), kept as the baseline it
 is timed and held against.  Each has a stats instance that counts SM
-cycles by part.  `launches` counts wrapper launches: "grad" the main
-path's form (one launch is the kernel and the small kernel that sums its
-per-block partials), "grad_replay" and "grad_stats" the others,
+cycles by part, and a soft instance that computes the soft-silhouette
+estimator's cotangent: a config with soft_silhouette_eps > 0 launches it,
+and only it (the eps travels in RenderParams).  `launches` counts wrapper
+launches: "grad" the main path's form (one launch is the kernel and the
+small kernel that sums its per-block partials), "grad_soft" its soft
+instance, "grad_replay", "grad_replay_soft" and "grad_stats" the others,
 "lockstep" K4 and "lockstep_baseline" its baseline.
 
 `render_frame_diff` / `render_tile_diff` are the differentiable renders of
@@ -42,8 +45,7 @@ import ctypes
 import torch
 
 from ..config import RenderConfig, resolve_device
-from ..render.wavefront import (check_hard_gradients, render_tile_grad_plain,
-                                render_tile_plain)
+from ..render.wavefront import render_tile_grad_plain, render_tile_plain
 from ..scene import Scene
 from . import _build
 from .cuda_render import (MAX_LIGHTS, MAX_SPHERES, check_device,
@@ -60,20 +62,26 @@ from .cuda_render import (MAX_LIGHTS, MAX_SPHERES, check_device,
 FORMS = {"replay": 0, "warp": 1}
 MAIN_FORM = "warp"
 COUNTERS = {"warp": "grad", "replay": "grad_replay"}
+SOFT_SUFFIX = "_soft"
 FORM_MAX_SPHERES = {"warp": MAX_SPHERES, "replay": 64}
 
 # The stats instances' counters (csrc/trace.cuh kGc*), summed over threads:
 # SM cycles in the forward trace, the replays, the adjoint sweep, the warp
 # form's grouping of lanes, zeroing the tables, the block reduction and the
 # whole thread; adjoint bounces, replayed bounces, lane slots of the warp
-# form's reverse steps, its hit groups and the lanes in them.
+# form's reverse steps, its hit groups and the lanes in them (in the soft
+# instance, a miss lane's silhouette candidate forms its group too), and
+# the warp form's cycles in the soft instance's silhouette and
+# shadow-boundary scans (inside cycles_adj).
 STAT_FIELDS = ("cycles_fwd", "cycles_replay", "cycles_adj", "cycles_group",
                "cycles_zero", "cycles_reduce", "cycles_all", "adj_bounces",
-               "replay_bounces", "adj_slots", "hit_groups", "hit_lanes")
+               "replay_bounces", "adj_slots", "hit_groups", "hit_lanes",
+               "cycles_soft")
 
 PARAM_FIELDS = ("center", "radius", "albedo", "emissive", "roughness", "ri")
 
-launches = {"grad": 0, "grad_replay": 0, "grad_stats": 0, "lockstep": 0,
+launches = {"grad": 0, "grad_soft": 0, "grad_replay": 0,
+            "grad_replay_soft": 0, "grad_stats": 0, "lockstep": 0,
             "lockstep_baseline": 0}
 
 
@@ -117,7 +125,8 @@ def _launch_grad(scene, tab, cfg, frame, g_img, x0, y0, height, width, form,
             tape.data_ptr() if tape.numel() else None, d_tab.data_ptr(),
             FORMS[form], counts.data_ptr() if stats else None, stream)
     cuda_call(lib, "grad", code)
-    launches["grad_stats" if stats else COUNTERS[form]] += 1
+    soft = SOFT_SUFFIX if cfg.soft_silhouette_eps > 0.0 else ""
+    launches["grad_stats" if stats else COUNTERS[form] + soft] += 1
     if stats:
         return out, rays, d_tab, dict(zip(STAT_FIELDS,
                                           (int(v) for v in counts.cpu())))
@@ -191,7 +200,9 @@ def render_tile_grad(scene: Scene, cfg: RenderConfig, frame: int, g_img,
     global pixel (x0, y0) for the pixel cotangent g_img ((height, width, 3)):
     the gradient kernel (K3, its warp form, up to MAX_SPHERES spheres) on a
     card, autograd through the plain version on the CPU.  `tab` is the
-    packed table (default pack_scene(scene)).
+    packed table (default pack_scene(scene)).  With
+    cfg.soft_silhouette_eps > 0 it is the soft-silhouette estimator's
+    cotangent (K3's soft instance on a card).
 
     Returns ((height, width, 3) float32 image, 0-d int64 ray count,
     d_packed (14, N) float32)."""
@@ -206,7 +217,6 @@ def render_tile_grad_form(scene: Scene, cfg: RenderConfig, frame: int, g_img,
     form's kernel, on the CPU the plain version whatever the form.
     stats=True launches the form's stats instance (on a card) and returns
     a fourth value, its counters by STAT_FIELDS."""
-    check_hard_gradients(cfg)
     if form not in FORMS:
         raise ValueError(f"no gradient kernel form {form!r}")
     cap = FORM_MAX_SPHERES[form]
@@ -277,7 +287,6 @@ def render_tile_diff(scene: Scene, cfg: RenderConfig, frame: int, x0: int,
     gradient kernel; the plain versions on the CPU.  The band unit a
     multi-device step differentiates.  Returns ((height, width, 3) float32,
     0-d int64 ray count)."""
-    check_hard_gradients(cfg)
     tab = pack_scene(scene)
     return _PackedRender.apply(tab, scene, cfg, frame,
                                (x0, y0, height, width), lockstep_primal)

@@ -107,7 +107,8 @@ def render_params(scene: Scene, cfg: RenderConfig, frame: int, x0: int,
         n_spheres=scene.n_spheres, n_lights=len(scene.emissive_ids),
         inv_w=f32(cfg.inv_width), inv_h=f32(cfg.inv_height),
         inv_spp=f32(1.0 / cfg.samples_per_pixel),
-        t_min=f32(cfg.min_t), t_max=f32(cfg.max_t))
+        t_min=f32(cfg.min_t), t_max=f32(cfg.max_t),
+        soft_eps=f32(cfg.soft_silhouette_eps))
 
 
 def _check_scene(scene: Scene):

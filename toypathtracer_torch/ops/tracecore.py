@@ -1,5 +1,5 @@
 """Plain PyTorch trace core (the lockstep subset of toypathtracer_tpu/ops/
-tracecore.py, with its hard-select gradients).
+tracecore.py, with its hard-select and soft-silhouette gradients).
 
 The reference's GPU-port path-tracing math -- XorShift32 RNG, closed-form
 samplers, thin-lens camera, ray/sphere nearest hit, Lambert/metal/
@@ -13,6 +13,12 @@ Autograd through it gives the gradient the JAX package's
 trace(differentiable=True) gives and the gradient kernel computes:
 torch.where and torch.min route a cotangent only into the selected value,
 and no masked-out lane produces inf or NaN in the backward (sqrt_pos).
+With soft_eps > 0 (RenderConfig.soft_silhouette_eps) bounce and
+nee_light_e add the soft-silhouette estimator's terms
+(tracecore.bounce_parts(soft=True)): straight-through sigmoids of the
+silhouette and shadow-boundary discriminants, which leave every forward
+value bit for bit as it was and carry sigma' terms into sphere centers and
+radii in the backward.
 
 Conventions:
   * a vec3 is a tuple of three equal-shape float32 tensors, so every dot
@@ -253,19 +259,27 @@ def nearest_hit(tab, ro, rd, t_min: float, t_max: float):
 class Work(NamedTuple):
     """Per-lane int64 work counters: camera/bounce rays, NEE shadow rays,
     the sphere tests of the shadow rays' occlusion loops, the sphere root
-    tests of the camera/bounce rays, and the chunk-box slab tests of both
-    (0 for the brute-force traversal)."""
+    tests of the camera/bounce rays, the chunk-box slab tests of both (0
+    for the brute-force traversal), and the soft estimator's sphere tests
+    (0 without it): the silhouette queries' (every sphere for a ray that
+    missed, the winner for one that hit) and the shadow-boundary scans'
+    (every sphere but the light for each shadow ray whose light lies in
+    front of the surface)."""
     traced: torch.Tensor
     shadow: torch.Tensor
     occlusion_tests: torch.Tensor
     hit_tests: torch.Tensor = 0
     slab_tests: torch.Tensor = 0
+    silhouette_tests: torch.Tensor = 0
+    proximity_tests: torch.Tensor = 0
 
 
 class OcclusionWork(NamedTuple):
-    """Per-lane sphere and slab tests of NEE's occlusion loops."""
+    """Per-lane sphere and slab tests of NEE's occlusion loops, and of its
+    shadow-boundary scans (soft estimator)."""
     spheres: torch.Tensor
     slabs: torch.Tensor
+    proximity: torch.Tensor = 0
 
 
 class BruteForce(NamedTuple):
@@ -344,6 +358,106 @@ def sky_color(rd, cfg: RenderConfig):
             (one_t * 1.0 + t * 1.0) * 0.3)
 
 
+# ---------------------------------------------------------------------------
+# The soft-silhouette estimator's queries (differentiable renders only)
+# ---------------------------------------------------------------------------
+
+
+class Silhouette(NamedTuple):
+    """silhouette_query's result: the signed discriminant d of each lane
+    (the winner's on a hit, the candidate's on a miss), and the miss side's
+    candidate: its index (-1 where none), whether it exists, and its
+    closest-approach distance nb along the ray."""
+    d: torch.Tensor
+    cand: torch.Tensor
+    cand_on: torch.Tensor
+    nb: torch.Tensor
+
+
+def silhouette_query(tab, ro, rd, t_min: float, hit_id) -> Silhouette:
+    """Two-sided silhouette query (tracecore.silhouette_query): on a hit
+    lane the winning sphere's discriminant d = nb^2 - c (> 0, -> 0 at its
+    silhouette); on a miss lane the largest d over the spheres in front
+    (nb > t_min), first index on ties as the JAX package's strict `>`
+    chain from -1e9, with that candidate's index and nb.  cand_on: the
+    candidate's d exceeds -1e8.  Autograd reaches the selected sphere's
+    center and radius^2 rows and the ray."""
+    nb, d = sphere_discr(tab[ROW_CX], tab[ROW_CY], tab[ROW_CZ], tab[ROW_SQR],
+                         tuple(map(_col, ro)), tuple(map(_col, rd)))
+    d_hit = d.gather(1, hit_id.clamp_min(0)[:, None])[:, 0]
+    best, cand = torch.where(nb > t_min, d, -1e9).max(dim=1)
+    cand_on = best > -1e8
+    nb_c = nb.gather(1, cand[:, None])[:, 0]
+    return Silhouette(d=torch.where(hit_id >= 0, d_hit, best),
+                      cand=torch.where(cand_on, cand, -1), cand_on=cand_on,
+                      nb=nb_c)
+
+
+def lights_occlusion_proximity(tab, pos, l, light: int, t_min: float, t_l):
+    """Signed occlusion proximity of one shadow ray
+    (tracecore._lights_occlusion_proximity): the largest discriminant
+    d = nb^2 - c over the spheres but `light` whose closest approach lies
+    inside the shadow segment (t_min < nb < t_l), -1e9 where there is none,
+    first index on ties.  d > 0 ~ occluded, d < 0 ~ clear.  Returns
+    (d_occ, occluder index)."""
+    cox = tab[ROW_CX] - _col(pos[0])
+    coy = tab[ROW_CY] - _col(pos[1])
+    coz = tab[ROW_CZ] - _col(pos[2])
+    nb = cox * _col(l[0]) + coy * _col(l[1]) + coz * _col(l[2])
+    c = cox * cox + coy * coy + coz * coz - tab[ROW_SQR]
+    d = nb * nb - c
+    in_seg = (nb > t_min) & (nb < _col(t_l))
+    in_seg[:, light] = False
+    return torch.where(in_seg, d, -1e9).max(dim=1)
+
+
+@torch.no_grad()
+def tangent_radiance(tab, mat, emissive_ids, cfg: RenderConfig,
+                     q: Silhouette, ro, rd):
+    """The radiance a miss lane's ray would carry if it grazed its
+    silhouette candidate (tracecore._tangent_radiance): one-bounce shading
+    at the tangent point ro + rd * nb.  Lambert: emission + albedo *
+    (unoccluded NEE expectation over every light + sky at the normal);
+    metal: albedo * sky(rd); dielectric: sky(rd).  Computed without
+    autograd: the estimator weighs it by a value that is exactly 0, so its
+    gradient is 0.  It runs on every lane, and its guards keep the value
+    finite where no candidate exists (rsqrt of max(., 1e-12), d2 >= 1e-8,
+    sqrt_pos), since 0 * NaN would reach the image."""
+    i = q.cand.clamp_min(0)
+    g = tab[:, i]
+    m = mat[i]
+    pos_t = add3(ro, scale3(rd, q.nb))
+    to_c = sub3(pos_t, (g[ROW_CX], g[ROW_CY], g[ROW_CZ]))
+    n_t = scale3(to_c, torch.rsqrt(torch.clamp_min(dot3(to_c, to_c), 1e-12)))
+    sky_n = sky_color(n_t, cfg)
+    sky_d = sky_color(rd, cfg)
+    zero = torch.zeros_like(rd[0])
+    nee = (zero, zero, zero)
+    if cfg.do_light_sampling:
+        for e in emissive_ids:
+            to_l = sub3((tab[ROW_CX, e], tab[ROW_CY, e], tab[ROW_CZ, e]),
+                        pos_t)
+            d2 = torch.clamp_min(dot3(to_l, to_l), 1e-8)
+            r = tab[ROW_R, e]
+            cos_a_max = sqrt_pos(1.0 - r * r / d2)
+            omega = TWO_PI * (1.0 - cos_a_max)
+            dir_l = scale3(to_l, torch.rsqrt(d2))
+            fac = torch.clamp_min(dot3(dir_l, n_t), 0.0) * omega / PI_F
+            nee = tuple(nee[k] + tab[ROW_EM + k, e] * fac for k in range(3))
+    lam = (q.cand_on & (m == 0)).to(torch.float32)
+    met = (q.cand_on & (m == 1)).to(torch.float32)
+    die = (q.cand_on & (m == 2)).to(torch.float32)
+    return tuple(
+        lam * (g[ROW_EM + k] + g[ROW_ALB + k] * (nee[k] + sky_n[k]))
+        + met * (g[ROW_ALB + k] * sky_d[k]) + die * sky_d[k]
+        for k in range(3))
+
+
+def soft_weight(d, soft_eps: float):
+    """sigmoid(d / eps): the straight-through surrogate's soft weight."""
+    return torch.sigmoid(d / soft_eps)
+
+
 def camera_get_ray(cam: dict, s, t, state):
     """Thin-lens ray (Maths.h:437-442, GPU disk sampler): lens offset from
     2 draws, direction ((((llc + s*h) + t*v) - origin) - offset)."""
@@ -397,21 +511,30 @@ def nee_cones(tab, emissive_ids, pos, hit_id, active, state):
 
 
 def nee_light_e(tab, cfg: RenderConfig, cones, pos, alb, normal, rd,
-                traversal=None):
+                traversal=None, soft_eps: float = 0.0):
     """Visibility and contribution of each cone sample, in light order
-    (Test.cpp:123-133; tracecore._nee_light_e hard-shadow branch).  The
-    light is hit when its own root t_l < max_t and no other sphere's root
-    interval overlaps (t_min, t_l).  Returns (light_e vec3, shadow ray
-    count, OcclusionWork of the occlusion loops): one shadow ray per
-    light with hit_id != light, visible or not; the occlusion loop runs
-    only where the light itself is hit.  `traversal` answers the
-    occlusion queries (default BruteForce(tab))."""
+    (Test.cpp:123-133; tracecore._nee_light_e).  The light is hit when its
+    own root t_l < max_t and no other sphere's root interval overlaps
+    (t_min, t_l).  Returns (light_e vec3, shadow ray count, OcclusionWork
+    of the occlusion loops): one shadow ray per light with hit_id != light,
+    visible or not; the occlusion loop runs only where the light itself is
+    hit.  `traversal` answers the occlusion queries (default
+    BruteForce(tab)).
+
+    soft_eps > 0: the soft shadow boundary.  Each light's visibility is
+    the straight-through sigmoid of -d_occ / eps (lights_occlusion_
+    proximity), written in the JAX package's association: stop(see -
+    sigma) + sigma is `see` bit for bit (Sterbenz), and where the
+    interval-overlap test and the sign of d_occ disagree the hard value
+    stands with no gradient.  Its scans are counted in
+    OcclusionWork.proximity for the lanes whose light lies in front of the
+    surface (the others contribute 0)."""
     if traversal is None:
         traversal = BruteForce(tab)
     light_e = tuple(torch.zeros_like(normal[0]) for _ in range(3))
     shadow_cnt = torch.zeros(normal[0].shape, dtype=torch.int64,
                              device=normal[0].device)
-    occ_tests = occ_slabs = shadow_cnt
+    occ_tests = occ_slabs = prox_tests = shadow_cnt
     nl = sel3(dot3(normal, rd) < 0.0, normal, neg3(normal))
     for e, lane_on, l, cos_a_max in cones:
         t_l, valid = sphere_t(tab[ROW_CX, e], tab[ROW_CY, e], tab[ROW_CZ, e],
@@ -424,13 +547,30 @@ def nee_light_e(tab, cfg: RenderConfig, cones, pos, alb, normal, rd,
         occ_tests = occ_tests + torch.where(tested, tests, 0)
         occ_slabs = occ_slabs + torch.where(tested, slabs, 0)
         omega = TWO_PI * (1.0 - cos_a_max)
-        fac = torch.clamp_min(dot3(l, nl), 0.0) * omega / PI_F
-        on = lane_on & see
+        dl = dot3(l, nl)
+        fac = torch.clamp_min(dl, 0.0) * omega / PI_F
         em = (tab[ROW_EM, e], tab[ROW_EM + 1, e], tab[ROW_EM + 2, e])
-        light_e = tuple(torch.where(on, light_e[k] + (alb[k] * em[k]) * fac,
-                                    light_e[k]) for k in range(3))
+        if soft_eps > 0.0:
+            d_occ, _ = lights_occlusion_proximity(tab, pos, l, e, cfg.min_t,
+                                                  t_l.detach())
+            see_f = see.to(torch.float32)
+            vis_s = soft_weight(-d_occ, soft_eps)
+            agree = see == (d_occ < 0.0)
+            vis = torch.where(agree, (see_f - vis_s).detach() + vis_s,
+                              see_f)
+            lane_f = lane_on.to(torch.float32)
+            light_e = tuple(light_e[k] + (alb[k] * em[k]) * fac * vis
+                            * lane_f for k in range(3))
+            prox_tests = prox_tests + torch.where(
+                lane_on & (dl > 0.0), tab.shape[1] - 1, 0)
+        else:
+            on = lane_on & see
+            light_e = tuple(torch.where(
+                on, light_e[k] + (alb[k] * em[k]) * fac, light_e[k])
+                for k in range(3))
         shadow_cnt = shadow_cnt + lane_on.to(torch.int64)
-    return light_e, shadow_cnt, OcclusionWork(occ_tests, occ_slabs)
+    return light_e, shadow_cnt, OcclusionWork(occ_tests, occ_slabs,
+                                              prox_tests)
 
 
 def scatter_metal(state, refl, rough):
@@ -456,8 +596,19 @@ def scatter_dielectric(state, rd, normal, refl, ri):
     return state, normalize3(sel3(rr < refl_prob, refl, refr))
 
 
+def check_soft_traversal(traversal, soft_eps: float):
+    """The soft estimator's scans are written for the brute-force
+    traversal; the chunked one (a ScaledScene) has none yet."""
+    if soft_eps > 0.0 and not isinstance(traversal, BruteForce):
+        raise NotImplementedError(
+            "soft_silhouette_eps > 0 on a chunked scene: the scaled scene's "
+            "silhouette and shadow-boundary chunk scans belong to its "
+            "differentiable render, not ported yet (ROADMAP.md queue 1 "
+            "item 11b)")
+
+
 def bounce(tab, mat, emissive_ids, cfg: RenderConfig, carry,
-           traversal=None):
+           traversal=None, soft_eps: float = 0.0):
     """One bounce over all lanes (tracecore.bounce_parts with GPU
     samplers and the fused hard-shadow NEE).
 
@@ -466,11 +617,20 @@ def bounce(tab, mat, emissive_ids, cfg: RenderConfig, carry,
     this depth: miss -> (sky, 0); scattered -> (gated emission + NEE,
     albedo); absorbed -> (ungated emission, 0); dead -> (0, 1).
     `traversal` answers the ray queries (default BruteForce(tab)); the
-    winner's attributes come from `tab` either way."""
+    winner's attributes come from `tab` either way.
+
+    soft_eps > 0 adds the soft-silhouette estimator (bounce_parts(soft=
+    True)): the hit/miss select becomes straight-through sigmoids of the
+    silhouette discriminant, two-sided (hit lanes blend the hit radiance
+    against the sky, miss lanes with a candidate the tangent radiance
+    against the sky), and NEE gets the soft shadow boundary.  e and c keep
+    their values bit for bit; only the backward changes."""
     if traversal is None:
         traversal = BruteForce(tab)
+    check_soft_traversal(traversal, soft_eps)
     ro, rd, alive, do_me, state, work = carry
-    traced, shadow, occ_tests, hit_tests, slab_tests = work
+    (traced, shadow, occ_tests, hit_tests, slab_tests, sil_tests,
+     prox_tests) = work
     traced = traced + alive.to(torch.int64)
     hit_t, hit_id, slabs, tests = traversal.nearest_hit(
         ro, rd, cfg.min_t, cfg.max_t, active=alive)
@@ -495,10 +655,11 @@ def bounce(tab, mat, emissive_ids, cfg: RenderConfig, carry,
     if cfg.do_light_sampling:
         st_l, cones = nee_cones(tab, emissive_ids, pos, hit_id, lam_on, st_l)
         light_e, shadow_cnt, occ_work = nee_light_e(
-            tab, cfg, cones, pos, w.alb, normal, rd, traversal)
+            tab, cfg, cones, pos, w.alb, normal, rd, traversal, soft_eps)
         shadow = shadow + torch.where(lam_on, shadow_cnt, 0)
         occ_tests = occ_tests + torch.where(lam_on, occ_work.spheres, 0)
         slab_tests = slab_tests + torch.where(lam_on, occ_work.slabs, 0)
+        prox_tests = prox_tests + torch.where(lam_on, occ_work.proximity, 0)
 
     rough = torch.zeros_like(w.roughness) if cfg.do_mitsuba_compare \
         else w.roughness
@@ -524,15 +685,39 @@ def bounce(tab, mat, emissive_ids, cfg: RenderConfig, carry,
         gated_e = mat_e
     scat = hit & scatter_ok
     died = hit & ~scatter_ok
-    e = sel3(scat, add3(gated_e, light_e),
-             sel3(died, mat_e, sel3(no_hit, sky, (zero, zero, zero))))
-    c = sel3(scat, attenuation,
-             sel3(died | no_hit, (zero, zero, zero), (one, one, one)))
+    zero3 = (zero, zero, zero)
+    if soft_eps > 0.0:
+        # Forward: w is the hard select (stop(1 - sigma) + sigma == 1 on a
+        # hit lane, where d > 0 puts sigma >= 0.5; 0 on a miss lane) and
+        # w_m is 0.  Backward: sigma' into the winner (hit lanes) or the
+        # candidate (miss lanes with one) and the ray.
+        q = silhouette_query(tab, ro, rd, cfg.min_t, hit_id)
+        w_hard = hit_id.ge(0).to(torch.float32)
+        w_soft = soft_weight(q.d, soft_eps) * w_hard
+        w_hit = (w_hard - w_soft).detach() + w_soft
+        gate = (no_hit & q.cand_on).to(torch.float32)
+        w_m_soft = soft_weight(q.d, soft_eps) * gate
+        w_m = w_m_soft - w_m_soft.detach()
+        l_est = tangent_radiance(tab, mat, emissive_ids, cfg, q, ro, rd)
+        e_hit = sel3(scatter_ok, add3(gated_e, light_e), mat_e)
+        c_hit = sel3(scatter_ok, attenuation, zero3)
+        e = sel3(alive, tuple(
+            w_hit * e_hit[k] + (1.0 - w_hit) * sky[k]
+            + w_m * (l_est[k] - sky[k]) for k in range(3)), zero3)
+        c = sel3(alive, scale3(c_hit, w_hit), (one, one, one))
+        sil_tests = sil_tests + torch.where(
+            no_hit, tab.shape[1], torch.where(hit, 1, 0))
+    else:
+        e = sel3(scat, add3(gated_e, light_e),
+                 sel3(died, mat_e, sel3(no_hit, sky, zero3)))
+        c = sel3(scat, attenuation,
+                 sel3(died | no_hit, zero3, (one, one, one)))
 
     ro = sel3(scat, pos, ro)
     rd = sel3(scat, new_dir, rd)
     state = torch.where(hit, new_state, state)
-    work = Work(traced, shadow, occ_tests, hit_tests, slab_tests)
+    work = Work(traced, shadow, occ_tests, hit_tests, slab_tests, sil_tests,
+                prox_tests)
     return (ro, rd, scat, do_me, state, work), e, c
 
 
@@ -548,7 +733,8 @@ class Trips(NamedTuple):
 
 
 def render_pixels(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
-                  px, py, frame: int, traversal=None, stats: bool = False):
+                  px, py, frame: int, traversal=None, stats: bool = False,
+                  soft_eps: float = 0.0):
     """Render 1-D lanes of pixels (px, py: int64 global coordinates, y=0
     the bottom row): seed, spp thin-lens samples each traced for up to
     max_depth bounces, average (tracecore.render_pixels_lockstep; the
@@ -560,7 +746,8 @@ def render_pixels(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
     work.traced + work.shadow.  `traversal` answers the ray queries
     (default BruteForce(tab); scaled.ChunkTraversal for a ScaledScene).
     stats=True appends the per-lane Trips; the colour and Work are the
-    same either way."""
+    same either way.  soft_eps > 0 adds the soft-silhouette estimator's
+    backward terms (bounce); the colour stays bit for bit as it is."""
     state = seed_pixels(px, py, frame)
     fx = px.to(torch.float32)
     fy = py.to(torch.float32)
@@ -569,7 +756,7 @@ def render_pixels(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
     zero = torch.zeros_like(fx)
     col_sum = (zero, zero, zero)
     izero = torch.zeros_like(px, dtype=torch.int64)
-    work = Work(izero, izero, izero, izero, izero)
+    work = Work(izero, izero, izero, izero, izero, izero, izero)
     depths, cuts = [], []
     for _ in range(cfg.samples_per_pixel):
         state, ur = rand01(state)
@@ -585,7 +772,7 @@ def render_pixels(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
         for _ in range(cfg.max_depth):
             (ro, rd, alive, do_me, state, work), e, c = bounce(
                 tab, mat, emissive_ids, cfg,
-                (ro, rd, alive, do_me, state, work), traversal)
+                (ro, rd, alive, do_me, state, work), traversal, soft_eps)
             col = add3(col, mul3(atten, e))
             atten = mul3(atten, c)
             if not bool(alive.any()):

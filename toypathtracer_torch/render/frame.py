@@ -28,10 +28,12 @@ class FrameState:
     frame: int
 
 
-def init_frame_state(cfg: RenderConfig, device="cpu") -> FrameState:
+def init_frame_state(cfg: RenderConfig, device="cuda") -> FrameState:
+    """A zeroed accumulator on `device`: the card unless "cpu" is asked
+    for."""
     return FrameState(
         accum=torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
-                          device=device),
+                          device=resolve_device(device)),
         frame=0)
 
 

@@ -5,7 +5,8 @@ render/wavefront.py).
 the lockstep kernel: the same inputs (packed scene table, material types,
 emissive ids, the 22-float camera), the same per-pixel function,
 vectorised over pixels in eager torch.  `render_tile_grad_plain` runs
-autograd through it: the plain version of the gradient kernel.
+autograd through it: the plain version of the gradient kernel, the hard
+selects' or (soft_silhouette_eps > 0) the soft-silhouette estimator's.
 `render_tile_stats_plain` is the plain version of the stats render
 kernel, with its occupancy counters.  The
 ops/ wrappers take them for CPU tensors, and chip_smoke.py holds the
@@ -35,15 +36,14 @@ def camera_scalars(scene: Scene, cfg: RenderConfig) -> dict:
             for k, v in cam.items()}
 
 
-def check_hard_gradients(cfg: RenderConfig):
-    """The gradient routes differentiate the hard-select estimator only.
-    The soft-silhouette estimator changes the gradient and not the image,
-    so ignoring it would hand back a wrong gradient without a sign."""
-    if cfg.soft_silhouette_eps > 0.0:
-        raise NotImplementedError(
-            "soft_silhouette_eps > 0: the soft-silhouette gradient estimator "
-            "is not ported yet (ROADMAP.md queue 1 item 7b); "
-            "use soft_silhouette_eps=0")
+def gradient_soft_eps(cfg: RenderConfig, tab) -> float:
+    """The soft-silhouette estimator's eps for a render from `tab`: the
+    config's where autograd will differentiate the render (grad enabled and
+    the table requiring it), else 0.  The estimator changes the gradient
+    and not the image, so a render that is not differentiated skips it."""
+    if torch.is_grad_enabled() and tab.requires_grad:
+        return cfg.soft_silhouette_eps
+    return 0.0
 
 
 def render_tile_plain(scene: Scene, cfg: RenderConfig, frame: int, x0: int,
@@ -51,21 +51,21 @@ def render_tile_plain(scene: Scene, cfg: RenderConfig, frame: int, x0: int,
     """Render the (height, width) sub-image whose lower-left pixel is the
     global pixel (x0, y0), on the scene's device, from `tab` (default
     pack_scene(scene)).  Autograd runs through it when `tab` or the scene
-    requires grad.  Returns ((height, width, 3) float32, int64 ray count
-    as a 0-d tensor)."""
+    requires grad, with the soft-silhouette estimator's terms where
+    cfg.soft_silhouette_eps > 0.  Returns ((height, width, 3) float32,
+    int64 ray count as a 0-d tensor)."""
     if tab is None:
         tab = pack_scene(scene)
-    if torch.is_grad_enabled() and tab.requires_grad:
-        check_hard_gradients(cfg)
     col, work = render_pixel_grid(scene, cfg, frame, height, width, tab,
-                                  x0, y0)
+                                  x0, y0,
+                                  soft_eps=gradient_soft_eps(cfg, tab))
     img = torch.stack(col, dim=-1).reshape(height, width, 3)
     return img, work.traced.sum() + work.shadow.sum()
 
 
 def render_pixel_grid(scene: Scene, cfg: RenderConfig, frame: int,
                       height: int, width: int, tab, x0: int = 0, y0: int = 0,
-                      stats: bool = False):
+                      stats: bool = False, soft_eps: float = 0.0):
     """tracecore.render_pixels over the (height, width) pixels whose
     lower-left is the global pixel (x0, y0), row-major, from the packed
     table `tab`."""
@@ -77,7 +77,8 @@ def render_pixel_grid(scene: Scene, cfg: RenderConfig, frame: int,
     mat = torch.tensor(scene.mat_type, dtype=torch.int64, device=dev)
     return tc.render_pixels(
         tab, mat, scene.emissive_ids, cfg, camera_scalars(scene, cfg),
-        xx.reshape(-1), yy.reshape(-1), frame, stats=stats)
+        xx.reshape(-1), yy.reshape(-1), frame, stats=stats,
+        soft_eps=soft_eps)
 
 
 def render_frame_plain(scene: Scene, cfg: RenderConfig, frame: int):
@@ -95,8 +96,9 @@ def render_tile_grad_plain(scene: Scene, cfg: RenderConfig, frame: int,
     render_tile_plain, the gradient kernel's plain version.  Its graph
     holds every bounce's (pixels, spheres) intermediates, so it takes a
     band of a large frame, not the frame.  Returns (image, 0-d int64 ray
-    count, d_packed (SCENE_ROWS, N) float32)."""
-    check_hard_gradients(cfg)
+    count, d_packed (SCENE_ROWS, N) float32).  With
+    cfg.soft_silhouette_eps > 0 it is the soft-silhouette estimator's
+    cotangent."""
     if tab is None:
         tab = pack_scene(scene)
     tab = tab.detach().requires_grad_(True)

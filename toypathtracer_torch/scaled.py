@@ -604,13 +604,17 @@ class ChunkedScenePort:
 
     def silhouette_chunks(self, *args, **kw):
         raise NotImplementedError(
-            "the soft-silhouette chunk scan is not ported yet (ROADMAP.md "
-            "queue 1 item 7b)")
+            "the soft-silhouette chunk scan (the scaled scene's form of "
+            "ops/tracecore.silhouette_query) belongs to the scaled scene's "
+            "differentiable render, not ported yet (ROADMAP.md queue 1 "
+            "item 11b)")
 
     def lights_occlusion_proximity(self, *args, **kw):
         raise NotImplementedError(
-            "the soft NEE shadow-boundary chunk scan is not ported yet "
-            "(ROADMAP.md queue 1 item 7b)")
+            "the soft NEE shadow-boundary chunk scan (the scaled scene's "
+            "form of ops/tracecore.lights_occlusion_proximity) belongs to "
+            "the scaled scene's differentiable render, not ported yet "
+            "(ROADMAP.md queue 1 item 11b)")
 
 
 # ---------------------------------------------------------------------------

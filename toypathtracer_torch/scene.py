@@ -18,6 +18,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .config import resolve_device
+
 MAT_LAMBERT = 0
 MAT_METAL = 1
 MAT_DIELECTRIC = 2
@@ -175,10 +177,12 @@ def scene_to_arrays(scene: Scene) -> dict:
     return out
 
 
-def load_scene_npz(path: str, device="cpu") -> Scene:
+def load_scene_npz(path: str, device="cuda") -> Scene:
     """Read a scene saved by the JAX package's checkpoint.save_scene: six
     float arrays plus a JSON `meta` record (mat_type, emissive_ids,
-    camera) stored as uint8 bytes."""
+    camera) stored as uint8 bytes, onto `device`: the card unless "cpu"
+    is asked for."""
+    device = resolve_device(device)
     with np.load(path) as d:
         meta = json.loads(bytes(d["meta"]).decode())
         fields = {k: d[k] for k in _FIELDS}

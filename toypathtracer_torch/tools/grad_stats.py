@@ -2,7 +2,7 @@
 
     python -m toypathtracer_torch.tools.grad_stats [--forms replay,warp]
         [--width 1280] [--height 720] [--spp 4] [--depth 10] [--frame 0]
-        [--out PATH]
+        [--soft-eps 0.05] [--out PATH]
 
 Launches each form's stats instance once (ops/cuda_grad.
 render_tile_grad_form with stats=True) on the 46-sphere frame for a
@@ -13,6 +13,10 @@ events (ops/cuda_grad.sum_partials).  The counters are summed over
 threads, and the clock reads cost cycles of their own, so the shares are
 what to read, not the totals.  "other" is what no part holds: staging the
 scene, the ray count, and the waits of threads whose pixels ended early.
+With --soft-eps > 0 each form's soft instance runs (the soft-silhouette
+estimator); the warp form's "soft" share is then the cycles of its
+silhouette and shadow-boundary scans and their adjoints' setup, a part of
+"adj" as "group" is.
 
 Needs a card: cycle counts and times are never taken on the CPU.  Writes
 build/grad_stats_torch.json at the root of the checkout (or --out) and
@@ -35,7 +39,9 @@ from ..scene import make_scene
 
 OUT = Path(__file__).resolve().parents[2] / "build" / "grad_stats_torch.json"
 
-PARTS = ("fwd", "replay", "adj", "group", "zero", "reduce")
+PARTS = ("fwd", "replay", "adj", "group", "zero", "reduce", "soft")
+# Parts counted inside "adj".
+WITHIN_ADJ = ("group", "soft")
 
 
 def cotangent(height: int, width: int, seed: int = 11, device="cuda"):
@@ -54,8 +60,9 @@ def form_stats(scene, cfg: RenderConfig, form: str, g, frame: int = 0,
         scene, cfg, frame, g, 0, 0, H, W, form, stats=True)
     total = c["cycles_all"]
     shares = {k: c[f"cycles_{k}"] / total for k in PARTS}
-    # the warp form's grouping runs inside its adjoint sweep
-    shares["other"] = 1.0 - sum(v for k, v in shares.items() if k != "group")
+    # the warp form's grouping and soft scans run inside its adjoint sweep
+    shares["other"] = 1.0 - sum(v for k, v in shares.items()
+                                if k not in WITHIN_ADJ)
     rows, _ = cuda_grad.grad_scratch(scene, cfg, frame, 0, 0, H, W, form)
     partial = torch.ones((rows, 14, scene.n_spheres), dtype=torch.float32,
                          device=scene.device)
@@ -63,7 +70,8 @@ def form_stats(scene, cfg: RenderConfig, form: str, g, frame: int = 0,
     sum_s, _ = time_device_call(cuda_grad.sum_partials, partial, form,
                                 repeats=sum_repeats)
     samples = H * W * cfg.samples_per_pixel
-    out = {"form": form, "rays": int(rays), "counters": c,
+    out = {"form": form, "soft_eps": cfg.soft_silhouette_eps,
+           "rays": int(rays), "counters": c,
            "cycle_shares": shares,
            "adjoint_bounces_per_sample": c["adj_bounces"] / samples,
            "partial_rows": rows, "sum_ms": sum_s * 1e3}
@@ -84,19 +92,23 @@ def main(argv=None) -> dict:
     ap.add_argument("--spp", type=int, default=4)
     ap.add_argument("--depth", type=int, default=10)
     ap.add_argument("--frame", type=int, default=0)
+    ap.add_argument("--soft-eps", type=float, default=0.0,
+                    help="the soft-silhouette estimator's eps (0: off)")
     ap.add_argument("--out", default=None,
                     help=f"output path (default {OUT})")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("grad_stats: needs a CUDA device")
     cfg = RenderConfig(width=args.width, height=args.height,
-                       samples_per_pixel=args.spp, max_depth=args.depth)
+                       samples_per_pixel=args.spp, max_depth=args.depth,
+                       soft_silhouette_eps=args.soft_eps)
     scene = make_scene(big=True).to("cuda")
     g = cotangent(cfg.height, cfg.width)
     res = {"device": torch.cuda.get_device_name(0),
            "config": {"width": cfg.width, "height": cfg.height,
                       "spp": cfg.samples_per_pixel,
-                      "max_depth": cfg.max_depth, "frame": args.frame},
+                      "max_depth": cfg.max_depth, "frame": args.frame,
+                      "soft_eps": args.soft_eps},
            "forms": [form_stats(scene, cfg, f, g, args.frame)
                      for f in args.forms.split(",")]}
     out = Path(args.out) if args.out else OUT
