@@ -7,8 +7,9 @@ Phases (one JSON line each on stdout; any failure raises and exits
 non-zero):
   1. device: the card, torch/CUDA versions, the nvcc build of csrc/;
      each kernel's registers, stack and spills from -Xptxas -v, with the
-     per-thread K1, K3 (both forms' hard instances; the soft instances'
-     counts recorded in phase 7g), K4's per-thread form, both K5 forms,
+     per-thread K1, K3 (both forms' hard instances and the warp form's
+     soft one; the replaying soft instance's counts recorded in phase
+     7g), K4's per-thread form, both K5 forms,
      both K6 forms, both K2 forms, the per-lane and the cooperative scaled
      render kernels and the merged K1 held at their counts.
   2. kernel vs plain at 320x176, spp 2, depth 6, frames 0-3: the big
@@ -112,10 +113,27 @@ non-zero):
      tools.roofline's main path: the full-size rates, both floors, the SM
      clock under load, and every thread of each case's and each floor's
      launches against the plain version.
- 14. the `kernels` line: render, render_baseline, grad, grad_replay,
+ 14. the gradient kernel's pool instance (K3 with a table per warp in
+     device memory): bit-equal to the warp form on its grid at 46 and 130
+     spheres, hard and soft; at 600 spheres (past the warp form's 512)
+     against plain autograd at 320x176, hard and soft; Adam steps on the
+     600-sphere scene at 1280x720 (one render and one pool launch a
+     step); timed in turns with the warp form at 46 spheres.
+ 15. the scaled scene's gradient, render_frame_scaled(differentiable=
+     True) on the 100k-sphere scene at 1280x720, spp 4, depth 10, hard
+     and eps 0.05: one scaled render and one chunked K3 launch each.
+ 16. the chunked K3 there: rays equal to plain, the image bit-equal to
+     the scaled render kernel's, per row within 1e-3 of plain autograd on
+     three 8-row bands, two launches bit-equal, albedo AD vs FD, timing,
+     the bound from the plain version's work counters.
+ 17. the reference's configuration (2000 spheres, chunk 64, 32x8, spp 1,
+     depth 3, hard and eps 1.0) against plain, and the geometry recovery
+     of tests/test_scaled.py:305 through the soft instance (60 Adam
+     steps): final error < 0.4 x initial, final loss < 0.2 x first.
+ 18. the `kernels` line: render, render_baseline, grad, grad_replay,
      lockstep, grad_soft, scaled_render, hit_chunks, hit_chunks_baseline, shadow_chunks,
      shadow_chunks_baseline, render_stats, render_stats_baseline,
-     issue_rate, launch_floor.
+     issue_rate, launch_floor, grad_pool, scaled_grad, scaled_grad_soft.
 Then the card's name and power limit as nvidia-smi reports them, and the
 `ok` line last.  Exits non-zero without a CUDA device.
 """
@@ -137,9 +155,10 @@ import torch
 # (render_kernel<0>) and K2 (<1>), the replaying K3 (lockstep_kernel<1,0>),
 # the per-thread K4 (<0,0>), the per-thread K5, the per-thread K6, the per-lane
 # scaled render kernel and the cooperative one, whose path loop and chunk
-# walk the merged K1 and the cooperative K6 share; and K3's warp form, the
-# merged K1, the cooperative K5 and K6 and the merged K2 at their own
-# counts.
+# walk the merged K1 and the cooperative K6 share; and K3's warp form (its
+# hard and soft instances, which the pool and chunked instances beside
+# them must leave as they were), the merged K1, the cooperative K5 and K6
+# and the merged K2 at their own counts.
 KEPT_USAGE = {
     "render_kernel<1>": {"registers": 72, "spill_stores": 16},
     "coop_shadow_kernel<0>": {"registers": 40, "spill_stores": 12},
@@ -150,6 +169,7 @@ KEPT_USAGE = {
     "lockstep_kernel<1,0>": {"registers": 116, "spill_stores": 0},
     "lockstep_kernel<0,0>": {"registers": 80, "spill_stores": 52},
     "warp_grad_kernel<0>": {"registers": 40, "spill_stores": 1154},
+    "soft_warp_grad_kernel<0>": {"registers": 40, "spill_stores": 1402},
     "scaled_render_kernel<0>": {"registers": 80, "spill_stores": 32},
     "hit_chunks_kernel<0>": {"registers": 40, "spill_stores": 0},
     "coop_hit_kernel<0>": {"registers": 40, "spill_stores": 32},
@@ -514,6 +534,8 @@ def main() -> int:
     scaled = scaled_phases(cfg, smi, usage)
     stats = stats_phases(cfg, smi, dict(ops=ops, bytes=n_bytes), usage)
     probe = probe_phases(smi)
+    pool = pool_phases(cfg, smi, usage)
+    scaled_grad = scaled_grad_phases(cfg, smi, usage)
 
     tol = ("rays rel <= 5e-4, mean |diff| <= 1e-3, 8x8 block mean <= 0.02, "
            "max <= 0.2; 600 spheres at 320x176 rays rel <= 5e-4, mean "
@@ -557,7 +579,7 @@ def main() -> int:
          "cycle_shares": parts["thread"]["cycle_shares"],
          "ptxas": usage.get("render_kernel<0>", {}),
          "vs_plain": {"tolerance": "bit-equal to the merged K1"}},
-        *grad, soft, *scaled, *stats, *probe]})
+        *grad, soft, *scaled, *stats, *probe, pool, *scaled_grad]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -1315,7 +1337,8 @@ def scaled_phases(cfg, smi, usage):
             "seconds": time.perf_counter() - t0}
     emit(main)
     check(main_launches == {"scaled_render": 5, "scaled_render_lane": 0,
-                            "scaled_render_stats": 0, "hit_chunks": 1,
+                            "scaled_render_stats": 0, "scaled_grad": 0,
+                            "scaled_grad_soft": 0, "hit_chunks": 1,
                             "hit_chunks_baseline": 0,
                             "hit_chunks_counted": 0,
                             "shadow_chunks": 1, "shadow_chunks_baseline": 0,
@@ -1849,6 +1872,602 @@ def scaled_phases(cfg, smi, usage):
              k6_stats["thread"]["simt_efficiency"],
          "ptxas": usage.get("shadow_chunks_kernel<0>", {}),
          "vs_plain": {"tolerance": "bit-equal to the cooperative form"}}]
+
+
+class ChunkCount:
+    """The plain chunk traversal (scaled.ChunkTraversal) that also counts,
+    over the lanes it answers for, what the chunked gradient kernel's bound
+    needs beyond tracecore.Work: the sphere tests whose root the function
+    takes (a positive discriminant), the rays that miss, and the shadow
+    rays whose boundary scan runs."""
+
+    def __init__(self, rows, chunk, tab):
+        from toypathtracer_torch.scaled import ChunkTraversal
+        self.trav = ChunkTraversal(rows, chunk, tab=tab)
+        self.hit_roots = self.misses = self.scans = 0
+
+    def nearest_hit(self, ro, rd, t_min, t_max, active=None):
+        t, hid, slabs, spheres, roots = self.trav.nearest_hit_roots(
+            ro, rd, t_min, t_max, active)
+        act = torch.ones_like(hid, dtype=torch.bool) if active is None \
+            else active
+        self.hit_roots += int(roots[act].sum())
+        self.misses += int((act & (hid < 0)).sum())
+        return t, hid, slabs, spheres
+
+    def occluded(self, *args, **kw):
+        return self.trav.occluded(*args, **kw)
+
+    def silhouette(self, *args, **kw):
+        return self.trav.silhouette(*args, **kw)
+
+    def proximity(self, pos, l, light, t_min, t_l, soft_eps, active=None):
+        self.scans += int(pos[0].numel() if active is None else active.sum())
+        return self.trav.proximity(pos, l, light, t_min, t_l, soft_eps,
+                                   active)
+
+
+def chunked_grad_bound(scene, cfg, eps, n_lights):
+    """The chunked gradient kernel's bound on frame 0 of `cfg`, from the
+    plain version's work counters (ChunkCount, tracecore.Work): the
+    scaled render's forward count as K5's and K6's -- 12 operations per
+    slab test, 16 per sphere test and 3 more where the root is taken, 19
+    per shadow ray (its light's root), 20 per occlusion test, the slab,
+    sphere and occlusion tests each the lesser of the plain count and the
+    cooperative render stats instance's on the same frame (it tests a
+    shadow ray's own chunk first and skips chunks by group boxes, so the
+    function needs no more; render_bound in scaled_phases) -- then K3's
+    adjoint, ~150 per traced ray and ~270 per shadow ray, and with eps > 0
+    the estimator's: 16 per silhouette and boundary test, 40 per traced
+    ray, 40 + 30 per light for each missed ray (its tangent radiance), 40
+    per boundary scan.  Bytes: the packed scene and chunk rows and the
+    material ids read once, the pixel cotangent read, the image and the
+    (14, N) cotangent written.  Returns (ops, bytes, ms, counters): the
+    plain counters and, under "bound", the forward terms taken."""
+    from toypathtracer_torch.ops import cuda_scaled
+    from toypathtracer_torch.ops import tracecore as tc
+    from toypathtracer_torch.ops.cuda_render import pack_scene
+    from toypathtracer_torch.render.wavefront import camera_scalars
+    from toypathtracer_torch.scaled import pack_chunks
+    dev = scene.device
+    H, W = cfg.height, cfg.width
+    tab = pack_scene(scene).requires_grad_(eps > 0.0)
+    rows = pack_chunks(scene)
+    trav = ChunkCount(rows, scene.chunk, tab)
+    yy, xx = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    with torch.no_grad():
+        _, work = tc.render_pixels(
+            tab, scene.mat_ids().to(torch.int64), scene.emissive_ids, cfg,
+            camera_scalars(scene, cfg), xx.reshape(-1), yy.reshape(-1), 0,
+            traversal=trav, soft_eps=eps)
+    w = {k: int(getattr(work, k).sum()) for k in work._fields}
+    w.update(hit_roots=trav.hit_roots, misses=trav.misses,
+             boundary_scans=trav.scans)
+    _, _, st = cuda_scaled.render_tile_scaled_form(
+        scene, cfg.replace(soft_silhouette_eps=0.0), 0, 0, 0, H, W, "coop",
+        stats=True)
+    terms = {"slab_tests": min(w["slab_tests"], st["hit"]["slabs"]
+                               + st["shadow"]["slabs"]),
+             "hit_tests": min(w["hit_tests"], st["hit"]["need"]),
+             "occlusion_tests": min(w["occlusion_tests"],
+                                    st["shadow"]["need"])}
+    w["bound"] = terms
+    ops = (12 * terms["slab_tests"] + 16 * terms["hit_tests"]
+           + 3 * w["hit_roots"] + 19 * w["shadow"]
+           + 20 * terms["occlusion_tests"]
+           + 150 * w["traced"] + 270 * w["shadow"])
+    if eps > 0.0:
+        ops += (16 * (w["silhouette_tests"] + w["proximity_tests"])
+                + 40 * w["traced"] + (40 + 30 * n_lights) * w["misses"]
+                + 40 * w["boundary_scans"])
+    n_bytes = 4 * (tab.numel() + rows.numel() + scene.n_spheres
+                   + 2 * 3 * H * W + tab.numel())
+    return ops, n_bytes, max(ops / 67e12, n_bytes / 3.35e12) * 1e3, w
+
+
+# The first rows of the 8-row bands on which the full-size gradients (1280x720)
+# are held against plain autograd: the top, the middle, the bottom.
+GRAD_BANDS = (0, 356, 712)
+
+
+def pool_phases(cfg, smi, usage):
+    """Phase 14: the gradient kernel's pool instance (K3 with a table per
+    warp in device memory, any number of spheres) -- bit-equal to the
+    warp form on its grid at 46 and 130 spheres, hard and soft; against
+    plain autograd at 600 spheres (tools/scenes.crowded_scene(extra=554))
+    at 320x176, spp 2, depth 4, hard and soft; its main path, Adam steps
+    of InverseRenderer on the 600-sphere scene at 1280x720 (one render and
+    one pool launch a step); at that size, spp 4, depth 10, hard and soft,
+    three 8-row bands against plain autograd and the full frame's launch
+    bit-equal to itself, also where a first pool too small makes it run
+    again; timing with CUDA events, the pool instance in turns with the
+    warp form at 46 spheres.  Returns its entry of the `kernels` line."""
+    import numpy as np
+
+    from toypathtracer_torch import make_scene
+    from toypathtracer_torch.inverse import InverseRenderer
+    from toypathtracer_torch.ops import cuda_grad, cuda_render
+    from toypathtracer_torch.ops import tracecore as tc
+    from toypathtracer_torch.profiling import time_device_call
+    from toypathtracer_torch.render.wavefront import (camera_scalars,
+                                                      render_tile_grad_plain)
+    from toypathtracer_torch.tools import grad_stats
+    from toypathtracer_torch.tools.scenes import crowded_scene
+
+    dev = torch.device("cuda")
+    t1 = time.perf_counter()
+    small = cfg.replace(width=320, height=176, samples_per_pixel=2,
+                        max_depth=4)
+    g = grad_stats.cotangent(176, 320, 0, dev)
+    equal = {}
+    for name, sc in (("big", make_scene(big=True)),
+                     ("crowded", crowded_scene())):
+        sc = sc.to(dev)
+        for e in (0.0, 0.05):
+            c = small.replace(soft_silhouette_eps=e)
+            args = (sc, c, 0, g, 0, 0, 176, 320)
+            rows, _ = cuda_grad.grad_scratch(*args[:3], 0, 0, 176, 320,
+                                             "warp")
+            a = cuda_grad.render_tile_grad_form(*args, "warp")
+            b = cuda_grad.render_tile_grad_form(*args, "pool", blocks=rows)
+            torch.cuda.synchronize()
+            equal[f"{name}_{'soft' if e else 'hard'}"] = bool(
+                torch.equal(a[0], b[0]) and int(a[1]) == int(b[1])
+                and torch.equal(a[2], b[2]))
+    emit({"phase": "grad_pool_vs_warp", "size": "320x176, spp 2, depth 4",
+          "bit_equal_on_the_warp_grid": equal,
+          "seconds": time.perf_counter() - t1})
+    check(all(equal.values()), f"K3 pool != warp form: {equal}")
+
+    t1 = time.perf_counter()
+    crowd = crowded_scene(extra=554).to(dev)
+    vs = {}
+    for e in (0.0, 0.05):
+        c = small.replace(soft_silhouette_eps=e)
+        args = (crowd, c, 0, g, 0, 0, 176, 320)
+        before = dict(cuda_grad.launches)
+        img_k, rays_k, d_k = cuda_grad.render_tile_grad(*args)
+        _, _, d_k2 = cuda_grad.render_tile_grad(*args)
+        torch.cuda.synchronize()
+        counted = {k: cuda_grad.launches[k] - before[k] for k in before
+                   if cuda_grad.launches[k] != before[k]}
+        pool = dict(cuda_grad.last_pool)
+        plain_s, (img_p, rays_p, d_p) = time_device_call(
+            render_tile_grad_plain, *args)
+        ms, _ = time_device_call(cuda_grad.render_tile_grad, *args,
+                                 repeats=3)
+        rel = row_rel(d_k, d_p)
+        key = "soft" if e else "hard"
+        vs[key] = {"rays_kernel": int(rays_k), "rays_plain": int(rays_p),
+                   "d_packed_row_rel_max": max(rel),
+                   "max_abs": float((d_k - d_p).abs().max()),
+                   "img_max_abs_diff": float((img_k - img_p).abs().max()),
+                   "deterministic": bool(torch.equal(d_k, d_k2)),
+                   "finite": bool(torch.isfinite(d_k).all()),
+                   "launches": counted, "pool": pool, "ms": ms * 1e3,
+                   "plain_ms": plain_s * 1e3}
+        what = f"K3 pool 600 spheres {key}"
+        check(counted == {"grad_pool" + ("_soft" if e else ""): 2},
+              f"{what}: launches {counted}")
+        check(vs[key]["finite"] and vs[key]["deterministic"],
+              f"{what}: finite, deterministic")
+        check(int(rays_k) == int(rays_p), f"{what}: rays")
+        check(max(rel) <= 1e-3, f"{what}: d_packed vs plain autograd")
+    # bound at 320x176, 600 spheres: K1's count (every sphere for each
+    # camera/bounce ray, roots where the discriminant is positive, the
+    # light's root and the occlusion loop for each shadow ray) plus K3's
+    # adjoint (~150 per traced ray, ~270 per shadow ray)
+    tab = cuda_render.pack_scene(crowd)
+    roots = RootCount(tab)
+    yy, xx = torch.meshgrid(torch.arange(176, device=dev),
+                            torch.arange(320, device=dev), indexing="ij")
+    with torch.no_grad():
+        _, work = tc.render_pixels(
+            tab, torch.tensor(crowd.mat_type, dtype=torch.int64, device=dev),
+            crowd.emissive_ids, small, camera_scalars(crowd, small),
+            xx.reshape(-1), yy.reshape(-1), 0, traversal=roots)
+    traced, shadow, occ = (int(x.sum()) for x in (
+        work.traced, work.shadow, work.occlusion_tests))
+    ops = (16 * crowd.n_spheres * traced + 3 * roots.hit_roots
+           + 16 * shadow + 3 * roots.light_roots + 20 * occ
+           + 150 * traced + 270 * shadow)
+    n_bytes = 4 * (tab.numel() + crowd.n_spheres + 2 * 3 * 176 * 320
+                   + tab.numel())
+    bound = max(ops / 67e12, n_bytes / 3.35e12) * 1e3
+    emit({"phase": "grad_pool_vs_plain", "nvidia_smi": smi,
+          "spheres": crowd.n_spheres, "size": "320x176, spp 2, depth 4",
+          **vs, "bound_fp32_ops": ops, "bound_ms": bound,
+          "ptxas": {k: usage.get(k, {}) for k in (
+              "pool_grad_kernel<0>", "pool_grad_kernel<1>", "sum_pool")},
+          "seconds": time.perf_counter() - t1})
+
+    # the main path: Adam steps on the 600-sphere scene at full size
+    t1 = time.perf_counter()
+    target, _ = cuda_render.render_frame(crowd, cfg, 0)
+    rng = np.random.default_rng(7)
+    a_jit = rng.normal(0, 0.15, crowd.albedo.shape).astype(np.float32)
+    a_jit[list(crowd.emissive_ids)] = 0.0
+    start = crowd.replace(albedo=torch.clamp(
+        crowd.albedo + torch.from_numpy(a_jit).to(dev), 0.02, 0.98))
+    for k in cuda_render.launches:
+        cuda_render.launches[k] = 0
+    for k in cuda_grad.launches:
+        cuda_grad.launches[k] = 0
+    inv = InverseRenderer(cfg, target, trainable=("albedo",),
+                          learning_rate=2e-2)
+    steps = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, losses = inv.fit(start, steps=steps, resample=False)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    launched = {k: v for k, v in {**cuda_render.launches,
+                                  **cuda_grad.launches}.items() if v}
+    pool_full = dict(cuda_grad.last_pool)
+    w = grad_stats.cotangent(cfg.height, cfg.width, 11, dev)
+    full_ms, _ = time_device_call(cuda_grad.render_tile_grad, crowd, cfg, 0,
+                                  w, 0, 0, cfg.height, cfg.width)
+    # the pool instance and the warp form in turns on the 46-sphere frame:
+    # warp, pool, pool, warp
+    scene_d = make_scene(big=True).to(dev)
+    runs = {}
+    for form in ("warp", "pool", "pool", "warp"):
+        runs.setdefault(form, []).append(time_device_call(
+            cuda_grad.render_tile_grad_form, scene_d, cfg, 0, w, 0, 0,
+            cfg.height, cfg.width, form, repeats=3)[0] * 1e3)
+    turns = {f: sum(v) / len(v) for f, v in runs.items()}
+    emit({"phase": "grad_pool_training_path", "nvidia_smi": smi,
+          "spheres": crowd.n_spheres, "size": "1280x720, spp 4, depth 10",
+          "losses": losses, "launches": launched, "step_ms": step_s * 1e3,
+          "full_frame_ms": full_ms * 1e3, "pool_full_frame": pool_full,
+          "turns_46_spheres_ms": turns, "turns_runs": runs,
+          "seconds": time.perf_counter() - t1})
+    check(launched == {"render": steps, "grad_pool": steps},
+          f"600-sphere training path launched {launched}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"600-sphere Adam losses not decreasing: {losses}")
+
+    # the main path's size against plain autograd: three 8-row bands of
+    # the frame, and the full frame's launch twice and once with a first
+    # pool of half the slots it draws (so it runs again)
+    t1 = time.perf_counter()
+    H, W = cfg.height, cfg.width
+    full = {}
+    for e in (0.0, 0.05):
+        c = cfg.replace(soft_silhouette_eps=e)
+        bands = {}
+        for y0 in GRAD_BANDS:
+            wb = w[y0:y0 + 8].contiguous()
+            img_k, rays_k, d_k = cuda_grad.render_tile_grad(crowd, c, 0, wb,
+                                                            0, y0, 8, W)
+            plain_s, (img_p, rays_p, d_p) = time_device_call(
+                render_tile_grad_plain, crowd, c, 0, wb, 0, y0, 8, W)
+            rel = row_rel(d_k, d_p)
+            bands[y0] = {"rays_kernel": int(rays_k), "rays_plain": int(rays_p),
+                         "row_rel_max": max(rel),
+                         "max_abs": float((d_k - d_p).abs().max()),
+                         "img_max_abs_diff": float((img_k - img_p)
+                                                   .abs().max()),
+                         "plain_ms": plain_s * 1e3}
+        mat, lights, cam = cuda_render.kernel_inputs(crowd, c)
+        tab_c = cuda_render.pack_scene(crowd).contiguous()
+        params = cuda_render.render_params(crowd, c, 0, 0, 0, H, W)
+        first = cuda_grad.launch_pool(tab_c, mat, lights, cam, params, w,
+                                      dev)
+        room = dict(cuda_grad.last_pool)
+        again = cuda_grad.launch_pool(tab_c, mat, lights, cam, params, w,
+                                      dev)
+        rerun = cuda_grad.launch_pool(tab_c, mat, lights, cam, params, w,
+                                      dev, cap=room["slots"] // 2)
+        torch.cuda.synchronize()
+        key = "soft" if e else "hard"
+        full[key] = {
+            "bands": bands,
+            "band_row_rel_max": max(b["row_rel_max"] for b in bands.values()),
+            "full_frame_pool": room, "rerun_pool": dict(cuda_grad.last_pool),
+            "full_frame_deterministic": all(
+                torch.equal(a, b) for a, b in zip(first, again)),
+            "rerun_bit_equal": all(torch.equal(a, b)
+                                   for a, b in zip(first, rerun)),
+            "finite": bool(torch.isfinite(first[2]).all())}
+        what = f"K3 pool 600 spheres at 1280x720 {key}"
+        check(all(b["rays_kernel"] == b["rays_plain"]
+                  for b in bands.values()), f"{what}: band rays")
+        check(full[key]["band_row_rel_max"] <= 1e-3,
+              f"{what}: d_packed vs plain autograd on the bands")
+        check(full[key]["finite"] and full[key]["full_frame_deterministic"],
+              f"{what}: finite, deterministic")
+        check(room["launches"] == 1 and full[key]["rerun_pool"]["launches"]
+              == 2 and full[key]["rerun_bit_equal"],
+              f"{what}: a rerun launch != the launch that had room")
+    emit({"phase": "grad_pool_full_size_vs_plain", "nvidia_smi": smi,
+          "spheres": crowd.n_spheres, "size": "1280x720, spp 4, depth 10",
+          "rows": list(GRAD_BANDS), **full,
+          "seconds": time.perf_counter() - t1})
+    return {"name": "grad_pool", "route": "cuda",
+            "source": "toypathtracer_torch/csrc/grad.cu",
+            "replaces": "toypathtracer_tpu/ops/pallas_grad.py:127",
+            "launches": launched["grad_pool"],
+            "max_abs_err": vs["hard"]["max_abs"],
+            "ms": vs["hard"]["ms"], "plain_ms": vs["hard"]["plain_ms"],
+            "bound_ms": bound,
+            "bound_by": "operations" if ops / 67e12 >= n_bytes / 3.35e12
+            else "bytes", "library_ms": None,
+            "form": "pool (pool_grad_kernel<0>: gradwarp.cuh grad_tiles "
+                    "with a PoolTable a warp; soft instance "
+                    "pool_grad_kernel<1> where eps > 0)",
+            "workload": "600 spheres (crowded_scene(extra=554)), 320x176, "
+                        "spp 2, depth 4; launches: 3 Adam steps at "
+                        "1280x720",
+            "soft_ms": vs["soft"]["ms"], "full_frame_ms": full_ms * 1e3,
+            "turns_46_spheres_ms": turns,
+            "ptxas": usage.get("pool_grad_kernel<0>", {}),
+            "ptxas_soft": usage.get("pool_grad_kernel<1>", {}),
+            "vs_plain": {"tolerance": "d_packed per row <= 1e-3 x row max "
+                                      "against plain autograd (at 320x176 "
+                                      "and on three 8-row bands at "
+                                      "1280x720), rays exact, "
+                                      "bit-equal launch to launch and "
+                                      "where the pool reruns; "
+                                      "bit-equal to the warp form on its "
+                                      "grid at 46 and 130 spheres",
+                         "row_rel_max": {k: v["d_packed_row_rel_max"]
+                                         for k, v in vs.items()},
+                         "full_size_band_row_rel_max": {
+                             k: v["band_row_rel_max"]
+                             for k, v in full.items()},
+                         "bit_equal_to_warp_form": equal}}
+
+
+def scaled_grad_phases(cfg, smi, usage):
+    """Phases 15-17: the scaled scene's gradient (scaled.py:712
+    render_frame_scaled(differentiable=True)) on the 100k-sphere scene at
+    1280x720, spp 4, depth 10, hard and with eps 0.05 -- its main path
+    (one scaled render and one chunked K3 launch), the chunked K3 against
+    plain autograd on three 8-row bands, its image against the scaled
+    render kernel's, rays against plain, two launches, finite differences
+    on an albedo, timing and bound; the reference's own configuration
+    (tests/test_scaled.py:129: 2000 spheres, chunk 64, 32x8, spp 1, depth
+    3, hard and eps 1.0); the geometry recovery of tests/test_scaled.py:305
+    through the soft instance.  Returns the entries of the `kernels`
+    line."""
+    import numpy as np
+
+    from toypathtracer_torch import make_scaled_scene
+    from toypathtracer_torch.ops import cuda_grad, cuda_render, cuda_scaled
+    from toypathtracer_torch.profiling import time_device_call
+    from toypathtracer_torch.scaled import (refresh_chunk_aabb,
+                                            render_tile_scaled_grad_plain,
+                                            render_tile_scaled_plain)
+    from toypathtracer_torch.tools import grad_stats
+
+    fields = ("center", "radius", "albedo", "emissive", "roughness", "ri")
+    dev = torch.device("cuda")
+    H, W = cfg.height, cfg.width
+    sd = make_scaled_scene(100_000).to(dev)
+    w = grad_stats.cotangent(H, W, 11, dev)
+    eps_soft = 0.05
+    cases = {"hard": 0.0, "soft": eps_soft}
+
+    # ---- 15. the main path: render_frame_scaled(differentiable=True) ----
+    t1 = time.perf_counter()
+    for counter in (cuda_render.launches, cuda_grad.launches,
+                    cuda_scaled.launches):
+        for k in counter:
+            counter[k] = 0
+    route = {}
+    for name, e in cases.items():
+        leaves = {f: getattr(sd, f).clone().requires_grad_(True)
+                  for f in fields}
+        img, rays = cuda_scaled.render_frame_scaled(
+            sd.replace(**leaves), cfg.replace(soft_silhouette_eps=e), 0,
+            differentiable=True)
+        (img * w).sum().backward()
+        route[name] = (img.detach(), int(rays),
+                       {f: t.grad for f, t in leaves.items()})
+    torch.cuda.synchronize()
+    path = {k: v for c in (cuda_render.launches, cuda_grad.launches,
+                           cuda_scaled.launches) for k, v in c.items() if v}
+    emit({"phase": "scaled_grad_path", "launches": path,
+          "finite": {n: all(bool(torch.isfinite(t).all())
+                            for t in r[2].values())
+                     for n, r in route.items()},
+          "seconds": time.perf_counter() - t1})
+    check(path == {"scaled_render": 2, "scaled_grad": 1,
+                   "scaled_grad_soft": 1},
+          f"the scaled gradient's path launched {path}")
+
+    # ---- 16. the chunked K3 at full size ---------------------------------
+    t1 = time.perf_counter()
+    img_r, rays_r = cuda_scaled.render_tile_scaled(sd, cfg, 0, 0, 0, H, W)
+    _, rays_p = render_tile_scaled_plain(sd, cfg, 0, 0, 0, H, W)
+    out = {}
+    for name, e in cases.items():
+        c = cfg.replace(soft_silhouette_eps=e)
+        img, rays, d = cuda_scaled.render_tile_scaled_grad(sd, c, 0, w, 0, 0,
+                                                           H, W)
+        pool = dict(cuda_grad.last_pool)
+        _, _, d2 = cuda_scaled.render_tile_scaled_grad(sd, c, 0, w, 0, 0, H,
+                                                       W)
+        torch.cuda.synchronize()
+        bands = {}
+        for y0 in GRAD_BANDS:
+            wb = w[y0:y0 + 8].contiguous()
+            plain_s, (img_p, rays_b, d_p) = time_device_call(
+                render_tile_scaled_grad_plain, sd, c, 0, wb, 0, y0, 8, W)
+            band_s, (img_k, rays_k, d_k) = time_device_call(
+                cuda_scaled.render_tile_scaled_grad, sd, c, 0, wb, 0, y0, 8,
+                W)
+            rel = row_rel(d_k, d_p)
+            bands[y0] = {"rays_kernel": int(rays_k), "rays_plain": int(rays_b),
+                         "row_rel_max": max(rel), "row_rel": rel,
+                         "max_abs": float((d_k - d_p).abs().max()),
+                         "img_max_abs_diff": float((img_k - img_p)
+                                                   .abs().max()),
+                         "plain_ms": plain_s * 1e3, "ms": band_s * 1e3}
+        # the route's gradient is the kernel's: pack_scene carries d to the
+        # fields (albedo rows as they are)
+        route_albedo = bool(torch.equal(route[name][2]["albedo"].t(), d[6:9]))
+        # finite differences of L = sum(img * w) on the albedo entry with
+        # the largest gradient (albedo moves no path), the scaled render
+        # kernel's images, float64 sums, h 1e-2
+        alb = d[6:9]
+        c_i, i = np.unravel_index(int(alb.abs().argmax()), tuple(alb.shape))
+        h, vals = 1e-2, []
+        for sign in (1.0, -1.0):
+            a = sd.albedo.clone()
+            a[i, c_i] += sign * h
+            im, _ = cuda_scaled.render_tile_scaled(sd.replace(albedo=a), c, 0,
+                                                   0, 0, H, W)
+            vals.append(float((im.double() * w.double()).sum()))
+        fd = (vals[0] - vals[1]) / (2 * h)
+        ad = float(alb[c_i, i])
+        ms, _ = time_device_call(cuda_scaled.render_tile_scaled_grad, sd, c,
+                                 0, w, 0, 0, H, W, repeats=2)
+        ops, n_bytes, bound, work = chunked_grad_bound(
+            sd, c, e, len(sd.emissive_ids))
+        out[name] = {
+            "soft_eps": e, "rays_kernel": int(rays), "rays_plain": int(rays_p),
+            "image_bit_equal_to_scaled_render": bool(torch.equal(img, img_r)),
+            "rays_equal_to_scaled_render": int(rays) == int(rays_r),
+            "deterministic": bool(torch.equal(d, d2)),
+            "finite": bool(torch.isfinite(d).all()),
+            "route_gradient_is_the_kernels": route_albedo,
+            "route_image_bit_equal": bool(torch.equal(route[name][0], img)),
+            "bands": bands,
+            "band_row_rel_max": max(b["row_rel_max"] for b in bands.values()),
+            "band_plain_ms": sum(b["plain_ms"] for b in bands.values()),
+            "band_ms": sum(b["ms"] for b in bands.values()),
+            "fd": {"sphere": int(i), "channel": int(c_i), "h": h, "fd": fd,
+                   "ad": ad, "rel": abs(ad - fd) / abs(fd)},
+            "pool": pool, "ms": ms * 1e3, "bound_fp32_ops": ops,
+            "bound_bytes": n_bytes, "bound_ms": bound, "work": work}
+        emit({"phase": "scaled_grad_vs_plain", "nvidia_smi": smi,
+              "size": "1280x720, spp 4, depth 10, 100,096 spheres",
+              **out[name], "seconds": time.perf_counter() - t1})
+        r, what = out[name], f"chunked K3 {name}"
+        check(r["finite"] and r["deterministic"],
+              f"{what}: finite, deterministic")
+        check(r["image_bit_equal_to_scaled_render"]
+              and r["rays_equal_to_scaled_render"],
+              f"{what}: image != the scaled render kernel's")
+        check(r["rays_kernel"] == r["rays_plain"], f"{what}: rays vs plain")
+        check(all(b["rays_kernel"] == b["rays_plain"]
+                  for b in bands.values()), f"{what}: band rays")
+        check(r["band_row_rel_max"] <= 1e-3,
+              f"{what}: d_packed vs plain autograd on the bands")
+        check(route_albedo and r["route_image_bit_equal"],
+              f"{what}: the differentiable route is not the kernel's")
+        check(r["fd"]["rel"] <= 1e-2, f"{what}: albedo AD vs FD {r['fd']}")
+
+    # ---- 17. the reference's configuration and its recovery loop --------
+    t1 = time.perf_counter()
+    ref = make_scaled_scene(n=2000, chunk=64, extent=40.0).to(dev)
+    small = cfg.replace(width=32, height=8, samples_per_pixel=1, max_depth=3)
+    g8 = grad_stats.cotangent(8, 32, 0, dev)
+    ref_vs = {}
+    for name, e in (("hard", 0.0), ("soft", 1.0)):
+        c = small.replace(soft_silhouette_eps=e)
+        img_k, rays_k, d_k = cuda_scaled.render_tile_scaled_grad(
+            ref, c, 0, g8, 0, 0, 8, 32)
+        img_p, rays_q, d_p = render_tile_scaled_grad_plain(ref, c, 0, g8, 0,
+                                                           0, 8, 32)
+        img_r8, _ = cuda_scaled.render_tile_scaled(ref, c, 0, 0, 0, 8, 32)
+        torch.cuda.synchronize()
+        ref_vs[name] = {"rays_kernel": int(rays_k), "rays_plain": int(rays_q),
+                        "row_rel_max": max(row_rel(d_k, d_p)),
+                        "image_bit_equal_to_scaled_render": bool(
+                            torch.equal(img_k, img_r8))}
+        check(ref_vs[name]["rays_kernel"] == ref_vs[name]["rays_plain"]
+              and ref_vs[name]["row_rel_max"] <= 1e-3
+              and ref_vs[name]["image_bit_equal_to_scaled_render"],
+              f"reference configuration {name}: {ref_vs[name]}")
+    # tests/test_scaled.py:305: one sphere moved against the sky, its
+    # centre recovered through the soft instance (eps 1.0, 96x24, depth 2,
+    # Adam 3e-2, 60 steps)
+    sid = len(ref.emissive_ids)
+    center, radius = ref.center.clone(), ref.radius.clone()
+    center[sid] = torch.tensor([0.0, 10.0, 5.0], device=dev)
+    radius[sid] = 3.0
+    scene = refresh_chunk_aabb(ref.replace(center=center, radius=radius))
+    rc = cfg.replace(width=96, height=24, samples_per_pixel=1, max_depth=2,
+                     soft_silhouette_eps=1.0)
+    target, _ = cuda_scaled.render_frame_scaled(scene, rc, 0)
+    true_c = scene.center[sid].clone()
+    delta0 = torch.tensor([0.4, 0.2, 0.3], device=dev)
+    p = (true_c + delta0).requires_grad_(True)
+    opt = torch.optim.Adam([p], lr=3e-2)
+    for counter in (cuda_render.launches, cuda_grad.launches,
+                    cuda_scaled.launches):
+        for k in counter:
+            counter[k] = 0
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(60):
+        cen = scene.center.clone()
+        cen[sid] = p
+        img, _ = cuda_scaled.render_frame_scaled(
+            refresh_chunk_aabb(scene.replace(center=cen)), rc, 0,
+            differentiable=True)
+        loss = ((img - target) ** 2).mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    step_s = (time.perf_counter() - t0) / 60
+    fit = {k: v for c in (cuda_render.launches, cuda_grad.launches,
+                          cuda_scaled.launches) for k, v in c.items() if v}
+    err0 = float(delta0.norm())
+    err = float((p.detach() - true_c).norm())
+    emit({"phase": "scaled_grad_reference", "reference_configuration":
+          ref_vs, "recovery": {"err0": err0, "err": err,
+                               "loss_first": losses[0],
+                               "loss_last": losses[-1], "launches": fit,
+                               "step_ms": step_s * 1e3},
+          "seconds": time.perf_counter() - t1})
+    check(fit == {"scaled_render": 60, "scaled_grad_soft": 60},
+          f"recovery loop launched {fit}")
+    check(err < 0.4 * err0, f"recovery: err {err} vs {err0}")
+    check(losses[-1] < 0.2 * losses[0],
+          f"recovery: loss {losses[0]} -> {losses[-1]}")
+
+    tol = ("d_packed per row <= 1e-3 x row max against plain autograd on "
+           "three 8-row bands and at the reference configuration; rays "
+           "equal to plain; image bit-equal to the scaled render kernel's; "
+           "bit-equal launch to launch; albedo AD vs FD <= 1e-2")
+    entries = []
+    for name in cases:
+        r = out[name]
+        entries.append({
+            "name": "scaled_grad" + ("_soft" if name == "soft" else ""),
+            "route": "cuda", "source": "toypathtracer_torch/csrc/grad.cu",
+            "replaces": "toypathtracer_tpu/ops/pallas_grad.py:127",
+            "launches": path["scaled_grad" + ("_soft" if name == "soft"
+                                              else "")],
+            "max_abs_err": max(b["max_abs"] for b in r["bands"].values()),
+            "ms": r["ms"], "plain_ms": r["band_plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": "operations" if r["bound_fp32_ops"] / 67e12
+            >= r["bound_bytes"] / 3.35e12 else "bytes",
+            "library_ms": None,
+            "form": "chunked (chunk_grad_kernel<%d>: gradwarp.cuh grad_tiles "
+                    "over chunks.cuh GradChunkedView, a PoolTable a warp)"
+                    % (name == "soft"),
+            "soft_eps": r["soft_eps"],
+            "note": "ms and bound_ms: the full frame; plain_ms: the plain "
+                    "version on the three 8-row bands (rows %s), beside "
+                    "the kernel's ms there (bands_ms)"
+                    % ", ".join(map(str, GRAD_BANDS)),
+            "bands_ms": r["band_ms"],
+            "pool": r["pool"],
+            "ptxas": usage.get(f"chunk_grad_kernel<{int(name == 'soft')}>",
+                               {}),
+            "vs_plain": {"tolerance": tol,
+                         "band_row_rel_max": r["band_row_rel_max"],
+                         "reference_row_rel_max": ref_vs[name]["row_rel_max"],
+                         "fd": r["fd"]}})
+    return entries
 
 
 def stats_phases(cfg, smi, k1, usage):

@@ -15,7 +15,11 @@ exact, d_packed per row within
 spheres; the replaying form measured on an H100 at 320x176: at most
 4.9e-6), two launches bit-equal, the stats instances bit-equal to the
 forms they measure; the soft instances (soft_silhouette_eps 0.05) with
-the same gates, their images bit-equal to the hard instances'.  Scaled
+the same gates, their images bit-equal to the hard instances'; the pool
+instance (a table per warp in device memory) bit-equal to the warp form
+on its grid at 46 and 130 spheres, at 600 against plain autograd; the
+chunked instance (the scaled scene's gradient) at 2000 spheres against
+plain autograd, its image bit-equal to the scaled render kernel's.  Scaled
 kernels (n=3000, chunk
 256): the traversal K5 and the shadow bitmask K6 equal to their plain
 versions on all but 1e-5 of the rays, t within 1e-6 relative where the
@@ -401,7 +405,8 @@ def test_coop_hit_kernel_bit_equal_to_thread_kernel(card, n, big):
     torch.cuda.synchronize()
     after = {k: cuda_scaled.launches[k] - before[k] for k in before}
     assert after == {"scaled_render": 0, "scaled_render_lane": 0,
-                     "scaled_render_stats": 0, "hit_chunks": 1,
+                     "scaled_render_stats": 0, "scaled_grad": 0,
+                     "scaled_grad_soft": 0, "hit_chunks": 1,
                      "hit_chunks_baseline": 1, "hit_chunks_counted": 2,
                      "shadow_chunks": 0, "shadow_chunks_baseline": 0,
                      "shadow_chunks_counted": 0}
@@ -490,7 +495,8 @@ def test_coop_shadow_kernel_bit_equal_to_thread_kernel(card, n, n_lights):
     torch.cuda.synchronize()
     after = {k: cuda_scaled.launches[k] - before[k] for k in before}
     assert after == {"scaled_render": 0, "scaled_render_lane": 0,
-                     "scaled_render_stats": 0, "hit_chunks": 0,
+                     "scaled_render_stats": 0, "scaled_grad": 0,
+                     "scaled_grad_soft": 0, "hit_chunks": 0,
                      "hit_chunks_baseline": 0, "hit_chunks_counted": 0,
                      "shadow_chunks": 1, "shadow_chunks_baseline": 1,
                      "shadow_chunks_counted": 2}
@@ -544,7 +550,8 @@ def test_scaled_render_forms_bit_equal(card, frame):
     assert torch.equal(img_l, img) and int(rays_l) == int(rays)
     after = {k: cuda_scaled.launches[k] - before[k] for k in before}
     assert after == {"scaled_render": 1, "scaled_render_lane": 1,
-                     "scaled_render_stats": 0, "hit_chunks": 0,
+                     "scaled_render_stats": 0, "scaled_grad": 0,
+                     "scaled_grad_soft": 0, "hit_chunks": 0,
                      "hit_chunks_baseline": 0, "hit_chunks_counted": 0,
                      "shadow_chunks": 0, "shadow_chunks_baseline": 0,
                      "shadow_chunks_counted": 0}
@@ -682,3 +689,116 @@ def test_launch_floor_is_positive_and_finite(card):
     host = roofline.best_host_s(lambda: roofline.launch_floor(out), 3)
     assert 0 < ev < 1 and 0 < host < 1
     assert torch.equal(out[:256], roofline.chains_plain("fma", 1, 256, card))
+
+
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+@pytest.mark.parametrize("case", ["big", "crowded"])
+def test_pool_grad_instance_bit_equal_to_warp_form(card, case, soft):
+    """K3's pool instance (a table per warp in device memory) on the warp
+    form's grid at 46 and 130 spheres: image, rays and d_packed bit-equal
+    to the warp form's, and counted as the pool form's launch."""
+    scene = (make_scene(big=True) if case == "big"
+             else crowded_scene()).to(card)
+    cfg = RenderConfig(width=96, height=40, samples_per_pixel=2, max_depth=4,
+                       soft_silhouette_eps=0.05 if soft else 0.0)
+    g = torch.from_numpy(np.random.RandomState(5).rand(40, 96, 3)
+                         .astype(np.float32)).to(card)
+    args = (scene, cfg, 1, g, 0, 0, 40, 96)
+    rows, _ = cuda_grad.grad_scratch(scene, cfg, 1, 0, 0, 40, 96, "warp")
+    counter = "grad_pool" + ("_soft" if soft else "")
+    before = cuda_grad.launches[counter]
+    img, rays, d = cuda_grad.render_tile_grad_form(*args, "warp")
+    p_img, p_rays, p_d = cuda_grad.render_tile_grad_form(*args, "pool",
+                                                         blocks=rows)
+    torch.cuda.synchronize()
+    assert cuda_grad.launches[counter] == before + 1
+    assert torch.equal(p_img, img) and int(p_rays) == int(rays)
+    assert torch.equal(p_d, d)
+
+
+def test_pool_grad_instance_past_512_spheres(card):
+    """render_tile_grad takes the pool form past 512 spheres on a card:
+    600 spheres against plain autograd per row within 1e-3, rays exact,
+    two launches bit-equal, and a training step runs."""
+    scene = crowded_scene(extra=554).to(card)
+    cfg = RenderConfig(width=64, height=32, samples_per_pixel=2, max_depth=4)
+    g = torch.from_numpy(np.random.RandomState(7).rand(32, 64, 3)
+                         .astype(np.float32)).to(card)
+    args = (scene, cfg, 0, g, 0, 0, 32, 64)
+    before = cuda_grad.launches["grad_pool"]
+    img, rays, d = cuda_grad.render_tile_grad(*args)
+    _, _, d2 = cuda_grad.render_tile_grad(*args)
+    img_p, rays_p, d_p = render_tile_grad_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda_grad.launches["grad_pool"] == before + 2
+    assert int(rays) == int(rays_p) and torch.equal(d, d2)
+    assert_rows_close(d, d_p, 1e-3)
+    assert float((img - img_p).abs().max()) <= 1e-4
+    target, _ = cuda_render.render_frame(scene, cfg, 0)
+    inv = InverseRenderer(cfg, target * 0.9, trainable=("albedo",),
+                          learning_rate=1e-2)
+    _, losses = inv.fit(scene, steps=2, resample=False)
+    assert all(np.isfinite(losses))
+
+
+def test_pool_grad_instance_reruns_where_its_pool_runs_out(card):
+    """A pool launch whose first capacity is too small runs again with as
+    many slots as its warps drew, and gives the result of a launch that
+    had room (bit for bit)."""
+    scene = crowded_scene(extra=554).to(card)
+    cfg = RenderConfig(width=64, height=32, samples_per_pixel=1, max_depth=3)
+    g = torch.from_numpy(np.random.RandomState(3).rand(32, 64, 3)
+                         .astype(np.float32)).to(card)
+    mat, lights, cam = cuda_render.kernel_inputs(scene, cfg)
+    tab = cuda_render.pack_scene(scene).contiguous()
+    params = cuda_render.render_params(scene, cfg, 0, 0, 0, 32, 64)
+    want = cuda_grad.launch_pool(tab, mat, lights, cam, params, g, card)
+    room = dict(cuda_grad.last_pool)
+    got = cuda_grad.launch_pool(tab, mat, lights, cam, params, g, card,
+                                cap=16)
+    torch.cuda.synchronize()
+    assert room["launches"] == 1 and room["slots"] > 16
+    assert cuda_grad.last_pool["launches"] == 2
+    assert (cuda_grad.last_pool["slots"] == room["slots"]
+            <= cuda_grad.last_pool["cap"])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("eps", [0.0, 1.0], ids=["hard", "soft"])
+def test_chunked_grad_instance_matches_plain_autograd(card, eps):
+    """K3's chunked instance on tests/test_scaled.py:129's scene (2000
+    spheres, chunk 64) at 64x32, spp 1, depth 3: plain autograd through
+    the chunk traversal per row within 1e-3 (the soft instance 2e-3: one
+    pixel's grazing hit makes the estimator's gradient move by more than
+    that with one ulp of a centre, tests/test_torch_grad_kernel_cpu.py::
+    test_chunked_soft_gradient_is_ill_conditioned_at_a_grazing_hit;
+    measured 1.04e-3 on an H100 and with g++), rays exact, the image
+    bit-equal to the scaled render kernel's, two launches bit-equal, and
+    the differentiable route one scaled render and one chunked K3 launch
+    whose gradient is the kernel's."""
+    scene = make_scaled_scene(n=2000, chunk=64, extent=40.0).to(card)
+    cfg = RenderConfig(width=64, height=32, samples_per_pixel=1, max_depth=3,
+                       soft_silhouette_eps=eps)
+    g = torch.from_numpy(np.random.RandomState(0).rand(32, 64, 3)
+                         .astype(np.float32)).to(card)
+    args = (scene, cfg, 0, g, 0, 0, 32, 64)
+    img, rays, d = cuda_scaled.render_tile_scaled_grad(*args)
+    _, _, d2 = cuda_scaled.render_tile_scaled_grad(*args)
+    want, want_rays = cuda_scaled.render_tile_scaled(scene, cfg, 0, 0, 0, 32,
+                                                     64)
+    from toypathtracer_torch.scaled import render_tile_scaled_grad_plain
+    img_p, rays_p, d_p = render_tile_scaled_grad_plain(*args)
+    torch.cuda.synchronize()
+    assert int(rays) == int(rays_p) == int(want_rays)
+    assert torch.equal(img, want) and torch.equal(d, d2)
+    assert_rows_close(d, d_p, 2e-3 if eps else 1e-3)
+    counter = "scaled_grad" + ("_soft" if eps else "")
+    before = dict(cuda_scaled.launches)
+    leaf = scene.albedo.clone().requires_grad_(True)
+    out, _ = cuda_scaled.render_frame_scaled(scene.replace(albedo=leaf), cfg,
+                                             0, differentiable=True)
+    (out * g).sum().backward()
+    after = {k: cuda_scaled.launches[k] - before[k] for k in before}
+    assert after["scaled_render"] == 1 and after[counter] == 1
+    assert torch.equal(out.detach(), want)
+    torch.testing.assert_close(leaf.grad.t(), d[6:9], rtol=0, atol=0)

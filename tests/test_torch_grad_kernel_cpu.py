@@ -38,6 +38,7 @@ bit-equal to K3's primal (the same function); sub-images summed within
 import ctypes
 import shutil
 import subprocess
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -49,6 +50,10 @@ from toypathtracer_torch.ops import _build, cuda_grad, cuda_render
 from toypathtracer_torch.ops import tracecore as tc
 from toypathtracer_torch.render.wavefront import (camera_scalars,
                                                   render_tile_grad_plain)
+from toypathtracer_torch.scaled import (ScaledScene, make_scaled_scene,
+                                        pack_chunks,
+                                        render_tile_scaled_grad_plain,
+                                        soft_boxes)
 from toypathtracer_torch.tools import grad_stats
 from toypathtracer_torch.tools.scenes import (crowded_scene,
                                               shadow_boundary_scene)
@@ -59,6 +64,7 @@ HARNESS = r"""
 #include <thread>
 #include <vector>
 
+#include "chunks.cuh"
 #include "gradwarp.cuh"
 #include "hostwarp.h"
 
@@ -99,15 +105,18 @@ extern "C" unsigned long long tpt_grad_cpu(
                             : grad_loop<false>(S, cam, p, g, out, acc);
 }
 
-template <bool kSoft, class W>
-static unsigned long long tiles(const W& w, const tpt::SceneView& S,
-                                const float* cam, const tpt::RenderParams* p,
-                                const float* g, float* out, float* acc,
-                                const tpt::WarpTape& tape, float* ws,
-                                int warp, int n_warps) {
+// grad_tiles, its soft instance where p->soft_eps > 0.
+template <class W, class View, class Tab, class Tape>
+static unsigned long long tiles(const W& w, const View& S, const float* cam,
+                                const tpt::RenderParams* p, const float* g,
+                                float* out, Tab T, const Tape& tape,
+                                float* ws, int warp, int n_warps) {
   tpt::NoGradCount none;
-  return tpt::grad_tiles<kSoft>(w, S, cam, *p, g, out, acc, tape, ws, warp,
-                                n_warps, none);
+  return p->soft_eps > 0.0f
+             ? tpt::grad_tiles<true>(w, S, cam, *p, g, out, T, tape, ws,
+                                     warp, n_warps, none)
+             : tpt::grad_tiles<false>(w, S, cam, *p, g, out, T, tape, ws,
+                                      warp, n_warps, none);
 }
 
 // form 1: grad_pixel_stored a pixel at a time; form 2: the warp form
@@ -126,10 +135,7 @@ extern "C" unsigned long long tpt_grad_form_cpu(
                             tpt::kRecWords);
     std::vector<float> ws(tpt::grad_scratch_words(1));
     const tpt::WarpTape tape{recs.data(), 1, 0};
-    return p->soft_eps > 0.0f
-               ? tiles<true>(w, S, cam, p, g, out, acc, tape, ws.data(), 0, 1)
-               : tiles<false>(w, S, cam, p, g, out, acc, tape, ws.data(), 0,
-                              1);
+    return tiles(w, S, cam, p, g, out, acc, tape, ws.data(), 0, 1);
   }
   for (int y = 0; y < p->height; ++y)
     for (int x = 0; x < p->width; ++x) {
@@ -164,12 +170,8 @@ extern "C" long long tpt_grad_warp32_cpu(
         tpt::ThreadWarp w{&lanes, l};
         float* table = tables.data() + (size_t)wi * m;
         const tpt::WarpTape tape{recs.data(), 32, l};
-        lane_rays[l] =
-            p->soft_eps > 0.0f
-                ? tiles<true>(w, S, cam, p, g, out, table, tape, ws.data(),
-                              wi, n_warps)
-                : tiles<false>(w, S, cam, p, g, out, table, tape, ws.data(),
-                               wi, n_warps);
+        lane_rays[l] = tiles(w, S, cam, p, g, out, table, tape, ws.data(),
+                             wi, n_warps);
       });
     for (auto& t : threads) t.join();
     if (lanes.broken) return -1;
@@ -180,6 +182,83 @@ extern "C" long long tpt_grad_warp32_cpu(
     for (int wi = 0; wi < n_warps; ++wi) s += tables[(size_t)wi * m + j];
     acc[j] += s;
   }
+  return rays;
+}
+
+// The pool instances (csrc/grad.cu pool_grad_kernel, chunk_grad_kernel):
+// grad_tiles with a PoolTable a warp and WideTape carries, over the flat
+// scene (rows null) or the chunked one (GradChunkedView on pack_chunks
+// rows, the chunk boxes and, for the soft instance, the soft scans'
+// inflated boxes).  n_warps warps of `lanes` lanes (1: HostLane, 32:
+// ThreadWarp) run one after the other, sharing the pool by its counter as
+// a launch's warps do; acc gets each sphere's slots summed in warp order,
+// as the kernel's block does.  *slots: the slots drawn.  Returns the rays,
+// or -1 if a warp stalled.
+extern "C" long long tpt_grad_pool_cpu(
+    const float* tab, const int32_t* mat, const int32_t* lights,
+    const float* cam, const tpt::RenderParams* p, const float* g, float* out,
+    float* acc, int n_warps, int lanes, const float* rows, const float* box,
+    const float* sil_box, const float* prox_box, int n_chunks, int chunk,
+    long long* slots) {
+  const int n = p->n_spheres;
+  std::vector<int> dir((size_t)n * n_warps, -1);
+  const int cap = n * n_warps;
+  std::vector<float> pool((size_t)cap * tpt::kSlotFloats, 0.0f);
+  int next = 0;
+  const tpt::SceneView S = view(tab, mat, lights, p);
+  tpt::GradChunkedView C;
+  C.tab = tab;
+  C.mat = mat;
+  C.lights = lights;
+  C.rows = rows;
+  C.box = box;
+  C.n = n;
+  C.n_lights = p->n_lights;
+  C.chunk = chunk;
+  C.n_chunks = n_chunks;
+  C.sil_box = sil_box;
+  C.prox_box = prox_box;
+  long long rays = 0;
+  for (int wi = 0; wi < n_warps; ++wi) {
+    const tpt::PoolTable T{dir.data() + wi, n_warps, pool.data(), &next, cap};
+    std::vector<float> recs(lanes * tpt::grad_batch(*p) * p->max_depth *
+                            tpt::kRecWords);
+    std::vector<float> ws(tpt::grad_scratch_words(lanes));
+    if (lanes == 1) {
+      tpt::HostLane w;
+      const tpt::WideTape tape{recs.data(), 1, 0};
+      rays += rows ? tiles(w, C, cam, p, g, out, T, tape, ws.data(), wi,
+                           n_warps)
+                   : tiles(w, S, cam, p, g, out, T, tape, ws.data(), wi,
+                           n_warps);
+      continue;
+    }
+    tpt::Lanes ls;
+    unsigned long long lane_rays[32];
+    std::vector<std::thread> threads;
+    for (int l = 0; l < 32; ++l)
+      threads.emplace_back([&, l] {
+        tpt::ThreadWarp w{&ls, l};
+        const tpt::WideTape tape{recs.data(), 32, l};
+        lane_rays[l] = rows ? tiles(w, C, cam, p, g, out, T, tape, ws.data(),
+                                    wi, n_warps)
+                            : tiles(w, S, cam, p, g, out, T, tape, ws.data(),
+                                    wi, n_warps);
+      });
+    for (auto& t : threads) t.join();
+    if (ls.broken) return -1;
+    for (int l = 0; l < 32; ++l) rays += lane_rays[l];
+  }
+  for (int i = 0; i < n; ++i)
+    for (int r = 0; r < tpt::SCENE_ROWS; ++r) {
+      float s = 0.0f;
+      for (int wi = 0; wi < n_warps; ++wi) {
+        const int slot = dir[(size_t)i * n_warps + wi];
+        if (slot >= 0) s += pool[(size_t)slot * tpt::kSlotFloats + r];
+      }
+      acc[(size_t)r * n + i] += s;
+    }
+  *slots = next;
   return rays;
 }
 
@@ -252,6 +331,11 @@ def host_lib(tmp_path_factory):
     lib.tpt_grad_warp32_cpu.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr,
                                         ptr, ctypes.c_int]
     lib.tpt_grad_warp32_cpu.restype = ctypes.c_longlong
+    lib.tpt_grad_pool_cpu.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr,
+                                      ptr, ctypes.c_int, ctypes.c_int, ptr,
+                                      ptr, ptr, ptr, ctypes.c_int,
+                                      ctypes.c_int, ptr]
+    lib.tpt_grad_pool_cpu.restype = ctypes.c_longlong
     lib.tpt_lockstep_cpu.argtypes = [ptr, ptr, ptr, ptr, params, ptr]
     lib.tpt_lockstep_cpu.restype = ctypes.c_ulonglong
     return lib
@@ -310,6 +394,43 @@ def grad_form_host(lib, scene, cfg, frame, g, x0, y0, form):
     else:
         rays = lib.tpt_grad_form_cpu(*args, form)
     return out, rays, acc
+
+
+def grad_pool_host(lib, scene, cfg, frame, g, x0, y0, n_warps=1, lanes=1):
+    """K3's pool instance over a sub-image (n_warps warps of `lanes`
+    lanes), on the flat scene or, for a ScaledScene, on its chunks:
+    (image, rays, d_packed, slots drawn)."""
+    h, w, _ = g.shape
+    chunked = isinstance(scene, ScaledScene)
+    if chunked:
+        tab = cuda_render.pack_scene(scene).numpy()
+        mat = scene.mat_ids().numpy()
+        lights = np.array(scene.emissive_ids, np.int32)
+        cam = camera_to_array(make_camera(scene.camera,
+                                          cfg.width / cfg.height))
+        K = scene.chunk
+        rows = pack_chunks(scene)
+        box = rows[:, 4 * K:4 * K + 6].contiguous()
+        rmax = scene.radius.reshape(-1, K).amax(dim=1)
+        soft = soft_boxes(box, rmax, cfg.soft_silhouette_eps)
+        chunk = [np.ascontiguousarray(x.numpy()) for x in (
+            rows, box, soft["silhouette"], soft["proximity"])]
+        chunk_args = [x.ctypes.data for x in chunk] + [scene.n_chunks, K]
+    else:
+        tab, mat, lights, cam = inputs(scene, cfg)
+        chunk_args = [None] * 4 + [0, 0]
+    out = np.zeros((h, w, 3), np.float32)
+    acc = np.zeros_like(tab)
+    params = cuda_render.render_params(scene, cfg, frame, x0, y0, h, w)
+    g = np.ascontiguousarray(g, np.float32)
+    slots = ctypes.c_longlong()
+    rays = lib.tpt_grad_pool_cpu(
+        tab.ctypes.data, mat.ctypes.data, lights.ctypes.data,
+        cam.ctypes.data, ctypes.byref(params), g.ctypes.data,
+        out.ctypes.data, acc.ctypes.data, n_warps, lanes, *chunk_args,
+        ctypes.byref(slots))
+    assert rays >= 0, "a 32-lane warp stalled at a collective"
+    return out, rays, acc, slots.value
 
 
 def assert_rows_close(got, want, rtol):
@@ -487,33 +608,138 @@ def test_warp_form_sample_batches(host_lib, spp, depth, form):
 
 
 def test_wrapper_caps_and_forms_on_the_cpu(monkeypatch):
-    """render_tile_grad takes the warp form's 512 spheres (on the CPU, plain
-    autograd); the replaying form keeps its 64, the card has no other
-    form, and the stats instances and the cycle tool need a card."""
+    """render_tile_grad takes any scene on the CPU (plain autograd): the
+    forms' caps bind on a card only (the warp form's 512 spheres, the
+    replaying form's 64, every form's 16 lights), the card has no other
+    form, and the stats instances (none for the pool form) and the cycle
+    tool need a card."""
     scene = crowded_scene()
     cfg = RenderConfig(width=8, height=4, samples_per_pixel=1, max_depth=2)
     g = torch.ones((4, 8, 3))
     img, rays, d = cuda_grad.render_tile_grad(scene, cfg, 0, g, 0, 0, 4, 8)
     assert d.shape == (14, 130) and torch.isfinite(d).all() and int(rays) > 0
-    with pytest.raises(ValueError, match="at most 64"):
-        cuda_grad.render_tile_grad_form(scene, cfg, 0, g, 0, 0, 4, 8,
-                                        "replay")
+    _, _, d_replay = cuda_grad.render_tile_grad_form(scene, cfg, 0, g, 0, 0,
+                                                     4, 8, "replay")
+    assert torch.equal(d_replay, d)
+    card = SimpleNamespace(device=torch.device("cuda"), n_spheres=600,
+                           emissive_ids=tuple(range(17)))
+    for form, match in (("replay", "at most 64 spheres"),
+                        ("warp", "at most 512 spheres"),
+                        ("pool", "at most 16 emissive")):
+        with pytest.raises(ValueError, match=match):
+            cuda_render.check_caps(card, cuda_grad.FORM_CAPS[form], form)
     small = make_scene(big=False)
     for form in ("lane", "stored"):
         with pytest.raises(ValueError, match="no gradient kernel form"):
             cuda_grad.render_tile_grad_form(small, cfg, 0, g, 0, 0, 4, 8,
                                             form)
-    with pytest.raises(ValueError, match="on a card"):
-        cuda_grad.render_tile_grad_form(small, cfg, 0, g, 0, 0, 4, 8, "warp",
-                                        stats=True)
-    big = scene.replace(**{f: getattr(scene, f).repeat(
-        (4,) + (1,) * (getattr(scene, f).dim() - 1))
-        for f in cuda_grad.PARAM_FIELDS}, mat_type=scene.mat_type * 4)
-    with pytest.raises(ValueError, match="at most 512"):
-        cuda_grad.render_tile_grad(big, cfg, 0, g, 0, 0, 4, 8)
+    for form in ("warp", "pool"):
+        with pytest.raises(ValueError, match="on a card"):
+            cuda_grad.render_tile_grad_form(small, cfg, 0, g, 0, 0, 4, 8,
+                                            form, stats=True)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA device"):
         grad_stats.main(["--width", "8", "--height", "4"])
+
+
+def test_plain_gradient_past_512_spheres_matches_fd():
+    """600 spheres (tools/scenes.crowded_scene(extra=554)), past the warp
+    form's shared table: the plain gradient computes on the CPU, and on
+    the albedo entry with the largest gradient agrees with central
+    differences of sum(img * w) in float64 (h 1e-2: albedo moves no path)
+    within 1e-3."""
+    scene = crowded_scene(extra=554)
+    assert scene.n_spheres == 600
+    cfg = RenderConfig(width=16, height=8, samples_per_pixel=1, max_depth=3)
+    w = torch.from_numpy(np.random.RandomState(5).rand(8, 16, 3)
+                         .astype(np.float32))
+    _, _, d = cuda_grad.render_tile_grad(scene, cfg, 0, w, 0, 0, 8, 16)
+    leaves = scene.albedo.clone().requires_grad_(True)
+    img, _ = cuda_grad.render_frame_diff(scene.replace(albedo=leaves), cfg,
+                                         0, device="cpu")
+    (img * w).sum().backward()
+    ga = leaves.grad.numpy()
+    np.testing.assert_allclose(ga.T, d[tc.ROW_ALB:tc.ROW_ALB + 3].numpy(),
+                               rtol=1e-6, atol=1e-7)
+    i, c = np.unravel_index(np.abs(ga).argmax(), ga.shape)
+    h = 1e-2
+
+    def loss(sign):
+        alb = scene.albedo.clone()
+        alb[i, c] += sign * h
+        img, _ = cuda_render.render_frame(scene.replace(albedo=alb), cfg, 0,
+                                          device="cpu")
+        return float((img.double() * w.double()).sum())
+
+    fd = (loss(+1) - loss(-1)) / (2 * h)
+    assert abs(fd - ga[i, c]) <= 1e-3 * abs(fd), (fd, ga[i, c])
+
+
+@pytest.mark.parametrize("case", ["big", "crowded"])
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+@pytest.mark.parametrize("lanes", [1, 32])
+def test_pool_instance_bit_equal_to_shared_table(host_lib, case, soft,
+                                                 lanes):
+    """K3's pool instance (gradwarp.cuh PoolTable, WideTape) against the
+    warp form's shared table at 46 and 130 spheres: image, rays and table
+    bit-equal, one one-lane warp over the image and two 32-lane warps of
+    host threads (the slots summed in warp order, as sum_pool's block
+    does)."""
+    scene = make_scene(big=True) if case == "big" else crowded_scene()
+    cfg = RenderConfig(width=32, height=8, samples_per_pixel=1, max_depth=4,
+                       soft_silhouette_eps=0.05 if soft else 0.0)
+    g = np.random.RandomState(6).rand(8, 32, 3).astype(np.float32)
+    out, rays, acc = grad_form_host(host_lib, scene, cfg, 2, g, 0, 0,
+                                    2 if lanes == 1 else 32)
+    p_out, p_rays, p_acc, slots = grad_pool_host(
+        host_lib, scene, cfg, 2, g, 0, 0, 1 if lanes == 1 else 2, lanes)
+    np.testing.assert_array_equal(p_out, out)
+    assert p_rays == rays
+    np.testing.assert_array_equal(p_acc, acc)
+    assert 0 < slots <= scene.n_spheres * (1 if lanes == 1 else 2)
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+def test_pool_instance_past_512_spheres_matches_plain_autograd(host_lib,
+                                                               lanes):
+    """The pool instance at 600 spheres (crowded_scene(extra=554)), 16x8,
+    spp 1, depth 4: within 1e-3 of plain autograd row by row (measured
+    4.7e-6), rays exact, the image within 1e-4, and gradients reach the
+    appended spheres."""
+    scene = crowded_scene(extra=554)
+    cfg = RenderConfig(width=16, height=8, samples_per_pixel=1, max_depth=4)
+    g = np.random.RandomState(8).rand(8, 16, 3).astype(np.float32)
+    out, rays, acc, _ = grad_pool_host(host_lib, scene, cfg, 0, g, 0, 0,
+                                       1 if lanes == 1 else 2, lanes)
+    img, prays, d = render_tile_grad_plain(scene, cfg, 0,
+                                           torch.from_numpy(g), 0, 0, 8, 16)
+    assert rays == int(prays)
+    assert_rows_close(acc, d.numpy(), 1e-3)
+    assert np.abs(out - img.numpy()).max() <= 1e-4
+    assert np.count_nonzero(np.abs(acc[:, 46:]).sum(axis=0)) >= 5
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+@pytest.mark.parametrize("eps", [0.0, 1.0], ids=["hard", "soft"])
+def test_chunked_instance_matches_plain_autograd(host_lib, eps, lanes):
+    """K3's chunked instance (GradChunkedView: the chunk walks forward, the
+    soft scans over the inflated chunk boxes) on tests/test_scaled.py:129's
+    scene (2000 spheres in chunks of 64), 32x8, spp 1, depth 3, hard and
+    eps 1.0: within 1e-3 of plain autograd through the chunk traversal row
+    by row (measured 1.2e-5 hard, 1.1e-4 soft), rays exact, the image
+    within 1e-4."""
+    scene = make_scaled_scene(n=2000, chunk=64, extent=40.0)
+    cfg = RenderConfig(width=32, height=8, samples_per_pixel=1, max_depth=3,
+                       soft_silhouette_eps=eps)
+    g = np.random.RandomState(0).rand(8, 32, 3).astype(np.float32)
+    out, rays, acc, _ = grad_pool_host(host_lib, scene, cfg, 0, g, 0, 0,
+                                       1 if lanes == 1 else 2, lanes)
+    img, prays, d = render_tile_scaled_grad_plain(
+        scene, cfg, 0, torch.from_numpy(g), 0, 0, 8, 32)
+    assert rays == int(prays)
+    assert np.isfinite(acc).all()
+    assert_rows_close(acc, d.numpy(), 1e-3)
+    assert np.abs(out - img.numpy()).max() <= 1e-4
 
 
 SOFT_CASES = {
@@ -606,3 +832,47 @@ def test_soft_warp_forms(host_lib, case):
     _, _, d = render_tile_grad_plain(scene, cfg, 1, torch.from_numpy(g), 0,
                                      0, 16, 32)
     assert_rows_close(a32, d.numpy(), 1e-3)
+
+
+def test_chunked_soft_gradient_is_ill_conditioned_at_a_grazing_hit(host_lib):
+    """Where K3's chunked soft instance and plain autograd part most on
+    tests/test_scaled.py:129's scene at 64x32 (spp 1, depth 3, eps 1.0:
+    the inverse-radius entry of beacon 1, 1.04e-3 of its row's max over
+    the frame), one pixel, (22, 27), carries it: its bounce off the beacon
+    grazes sphere 962 (discriminant 6e-5 of nb^2), whose silhouette term
+    sends a cotangent some 4000 times larger back into the beacon's
+    normal.  There the gradient moves by more than the two part when the
+    grazed sphere's centre moves by one float32 ulp (measured: the two
+    part by 1.3e-3 of the entry, one ulp moves it by 9.2e-4 and by 40%,
+    two by 41%): rounding, not a different function.  So the chunked soft
+    instance's card gate at that size is 2e-3 (tests/test_torch_cuda.py);
+    the hard instance there agrees within 1.6e-5."""
+    scene = make_scaled_scene(n=2000, chunk=64, extent=40.0)
+    cfg = RenderConfig(width=64, height=32, samples_per_pixel=1, max_depth=3,
+                       soft_silhouette_eps=1.0)
+    x, y = 22, 27
+    g = np.random.RandomState(0).rand(32, 64, 3).astype(np.float32)
+    gp = np.ascontiguousarray(g[y:y + 1, x:x + 1])
+    _, _, acc, _ = grad_pool_host(host_lib, scene, cfg, 0, gp, x, y)
+    row, sph = tc.ROW_INVR, 1
+
+    def plain(center_x):
+        c = scene.center.clone()
+        c[962, 0] = float(center_x)
+        return float(render_tile_scaled_grad_plain(
+            scene.replace(center=c), cfg, 0, torch.from_numpy(gp), x, y, 1,
+            1)[2][row, sph])
+
+    x0 = np.float32(scene.center[962, 0])
+    want = plain(x0)
+    parted = abs(acc[row, sph] - want)
+    assert 1e-4 * abs(want) < parted < 2e-3 * abs(want)
+    moved = [abs(plain(np.nextafter(x0, np.float32(s * np.inf),
+                                    dtype=np.float32)) - want)
+             for s in (1, -1)]
+    assert max(moved) > 10 * parted, (moved, parted)
+    hard = cfg.replace(soft_silhouette_eps=0.0)
+    _, _, acc_h, _ = grad_pool_host(host_lib, scene, hard, 0, gp, x, y)
+    _, _, d_h = render_tile_scaled_grad_plain(
+        scene, hard, 0, torch.from_numpy(gp), x, y, 1, 1)
+    assert_rows_close(acc_h, d_h.numpy(), 1e-4)

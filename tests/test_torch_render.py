@@ -176,13 +176,22 @@ def test_render_beyond_512_spheres_matches_jax():
 
 
 def test_gradient_route_keeps_its_512_sphere_cap():
-    """K3 adds the scene cotangent into a (14, N) table per warp in shared
-    memory: its route raises above 512 spheres, naming that table."""
+    """K3's warp form adds the scene cotangent into a (14, N) table per
+    warp in shared memory: on a card it takes at most 512 spheres, naming
+    that table, and the route takes its pool form (a table in device
+    memory) past them; on the CPU the route computes any scene."""
     scene = crowded_scene(extra=554)
     cfg = RenderConfig(width=8, height=4, samples_per_pixel=1, max_depth=2)
     g = torch.ones((4, 8, 3))
+    _, rays, d = cuda_grad.render_tile_grad(scene, cfg, 0, g, 0, 0, 4, 8)
+    assert d.shape == (14, 600) and torch.isfinite(d).all() and int(rays)
+    card = SimpleNamespace(device=torch.device("cuda"), n_spheres=600,
+                           emissive_ids=(0, 1))
     with pytest.raises(ValueError, match=r"K3 .*table per warp.* 512"):
-        cuda_grad.render_tile_grad(scene, cfg, 0, g, 0, 0, 4, 8)
+        cuda_render.check_caps(card, cuda_grad.FORM_CAPS["warp"],
+                               "the gradient kernel K3 (warp form: "
+                               f"{cuda_grad.TABLES['warp']})")
+    cuda_render.check_caps(card, cuda_grad.FORM_CAPS["pool"], "pool")
 
 
 @pytest.mark.parametrize("form,raises", [("merged", False),

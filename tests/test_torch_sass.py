@@ -67,8 +67,23 @@ def test_sass_diff_pairs_renamed_kernels():
                              {"render_kernel<0>": "render_kernel"})
     assert d == {"identical": ["render_kernel<0>"],
                  "differ": ["merged_render_kernel<1>"],
+                 "parameter_offsets_only": [],
                  "only_here": [], "only_there": ["old_kernel"]}
     plain = sass_loops.sass_diff(here, there)
     assert plain["only_here"] == ["render_kernel<0>"]
     assert "render_kernel" in plain["only_there"] and there.keys() == {
         "render_kernel", "merged_render_kernel<1>", "old_kernel"}
+
+
+def test_sass_diff_tells_parameter_offsets_apart():
+    """A kernel whose SASS differs only in the parameter bank's offsets
+    (c[0x0][0x...]: a struct argument grew) is listed as differing and as
+    differing in parameter offsets only; one whose instructions differ
+    is not."""
+    here = {"a": [(0, "LDC R1, c[0x0][0x210]"), (16, "FADD R2, R1, R1")],
+            "b": [(0, "LDC R1, c[0x0][0x210]"), (16, "FMUL R2, R1, R1")]}
+    there = {"a": [(0, "LDC R1, c[0x0][0x214]"), (16, "FADD R2, R1, R1")],
+             "b": [(0, "LDC R1, c[0x0][0x214]"), (16, "FADD R2, R1, R1")]}
+    d = sass_loops.sass_diff(here, there)
+    assert d["differ"] == ["a", "b"]
+    assert d["parameter_offsets_only"] == ["a"]

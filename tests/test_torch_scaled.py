@@ -277,15 +277,40 @@ def test_cli_renders_the_scaled_scene(tmp_path, capsys):
 @pytest.mark.parametrize("call", ["differentiable", "silhouette_chunks",
                                   "lights_occlusion_proximity", "sharded"])
 def test_out_of_slice_routes_raise(scene800, call):
+    """The row-sharded render (ROADMAP.md queue 1 item 10) is not in the
+    port and raises, naming ROADMAP.md.  The scaled gradient's routes
+    compute: the differentiable frame (its image the forward render's) and
+    ChunkedScenePort's soft scans on a plane of lanes
+    (tests/test_torch_scaled_grad.py holds their values)."""
     s = scene800[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if call == "differentiable":
-            cuda_scaled.render_frame_scaled(s, CFG, 0, device="cpu",
-                                            differentiable=True)
-        elif call == "sharded":
+    if call == "sharded":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             cuda_scaled.render_frame_scaled_sharded(s, CFG, 0, mesh=None)
-        else:
-            getattr(ChunkedScenePort(s), call)()
+        return
+    if call == "differentiable":
+        center = s.center.clone().requires_grad_(True)
+        img, rays = cuda_scaled.render_frame_scaled(
+            s.replace(center=center), CFG, 0, device="cpu",
+            differentiable=True)
+        want, want_rays = cuda_scaled.render_frame_scaled(s, CFG, 0,
+                                                          device="cpu")
+        assert torch.equal(img.detach(), want) and int(rays) == int(want_rays)
+        img.mean().backward()
+        assert torch.isfinite(center.grad).all()
+        return
+    port = ChunkedScenePort(s)
+    lanes = (torch.zeros(4), torch.full((4,), 8.0), torch.full((4,), 30.0))
+    rd = (torch.linspace(-0.2, 0.2, 4), torch.full((4,), -0.26),
+          torch.full((4,), -0.96))
+    if call == "silhouette_chunks":
+        q = port.silhouette_chunks(lanes, rd, 1e-3,
+                                   torch.full((4,), -1, dtype=torch.int32),
+                                   0.05)
+        assert q.d.shape == (4,) and torch.isfinite(q.d).all()
+    else:
+        d_occ, = port.lights_occlusion_proximity(lanes, [rd], [0], 1e-3,
+                                                 [torch.full((4,), 50.0)])
+        assert d_occ.shape == (4,) and torch.isfinite(d_occ).all()
 
 
 @pytest.mark.parametrize("case", ["rows_shape", "too_many_chunks",

@@ -250,23 +250,35 @@ def test_inverse_renderer_recovers_center_soft_not_hard(one_target):
 
 
 def test_scaled_and_diff_wavefront_routes_raise():
-    """The scaled scene's soft scans and the differentiable wavefront's
-    soft estimator stay refused, saying where they belong."""
+    """The one refusal is the JAX package's own rule: the differentiable
+    wavefront has no soft estimator (RenderConfig raises).  The scaled
+    scene's soft routes compute: ChunkedScenePort's silhouette and
+    shadow-boundary chunk scans answer on lane planes, and a soft render
+    over ChunkTraversal gives the hard render's image
+    (tests/test_torch_scaled_grad.py holds their values against the JAX
+    package's)."""
     scene = make_scaled_scene(800)
     port = ChunkedScenePort(scene)
-    for call in ("silhouette_chunks", "lights_occlusion_proximity"):
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            getattr(port, call)()
+    ro = (torch.zeros(2, 3), torch.full((2, 3), 8.0), torch.full((2, 3), 30.0))
+    rd = (torch.zeros(2, 3), torch.full((2, 3), -0.26), torch.full((2, 3),
+                                                                   -0.97))
+    hit = torch.full((2, 3), -1, dtype=torch.int32)
+    q = port.silhouette_chunks(ro, rd, 1e-3, hit, 0.05)
+    assert q.d.shape == (2, 3) and torch.isfinite(q.d).all()
+    t_l = torch.full((2, 3), 40.0)
+    d_occ = port.lights_occlusion_proximity(ro, [rd], [0], 1e-3, [t_l])
+    assert len(d_occ) == 1 and d_occ[0].shape == (2, 3)
     cfg = RenderConfig(width=4, height=2, samples_per_pixel=1, max_depth=2)
     px = torch.arange(8) % 4
     py = torch.arange(8) // 4
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        tc.render_pixels(pack_scene(scene), scene.mat_ids().to(torch.int64),
-                         scene.emissive_ids,
-                         cfg, camera_scalars(scene, cfg), px, py, 0,
-                         traversal=ChunkTraversal(pack_chunks(scene),
-                                                  scene.chunk),
-                         soft_eps=0.05)
+    tab = pack_scene(scene).requires_grad_(True)
+    cols = [tc.render_pixels(tab, scene.mat_ids().to(torch.int64),
+                             scene.emissive_ids, cfg,
+                             camera_scalars(scene, cfg), px, py, 0,
+                             traversal=ChunkTraversal(pack_chunks(scene),
+                                                      scene.chunk, tab=tab),
+                             soft_eps=eps)[0] for eps in (0.05, 0.0)]
+    assert all(torch.equal(a, b) for a, b in zip(*cols))
     with pytest.raises(ValueError, match="soft-silhouette"):
         RenderConfig(diff_wavefront=True, merged_wavefront=True,
                      soft_silhouette_eps=0.05)

@@ -12,6 +12,7 @@ report the TPU kernel's per-tile occupancy counters
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 
@@ -94,6 +95,19 @@ class RenderConfig:
     @property
     def inv_height(self) -> float:
         return 1.0 / self.height
+
+
+def warn_diff_wavefront(cfg: RenderConfig):
+    """Every gradient route of the port runs the lockstep differentiable
+    form; the JAX package's differentiable wavefront (cfg.diff_wavefront,
+    tracecore.render_pixels_fused_merged) is not ported yet (ROADMAP.md
+    queue 1 item 14).  Where it is asked for, say so, as the JAX package
+    does where it falls back (ops/tracecore.py:2554-2568): a silently
+    mislabeled A/B wastes the time it was run for."""
+    if cfg.diff_wavefront:
+        warnings.warn(
+            "cfg.diff_wavefront ignored: the port's gradient routes run the "
+            "lockstep differentiable form instead", stacklevel=3)
 
 
 def resolve_device(device) -> torch.device:

@@ -250,4 +250,83 @@ TPT_HD bool occluded(const ChunkedView& S, V3 pos, V3 l, int light,
   return occluded_chunks(S, pos, l, light, t_min, t_l);
 }
 
+// The scaled scene as the gradient kernel's chunked instances read it
+// (csrc/grad.cu chunk_grad_kernel): a ChunkedView, its box read where it
+// lies, and the chunk boxes of the soft-silhouette estimator's two scans,
+// inflated by margins the wrapper computes (scaled.soft_boxes): each
+// chunk's box widened by delta_c = sqrt(rmax_c^2 + 8 eps) for the
+// silhouette scan, by sqrt(rmax_c^2 + 8 max(eps, 1)) for the shadow
+// boundary's (scaled.py:396, :502).  A ray that misses an inflated box
+// passes every sphere in it at a discriminant below -8 eps, where the
+// estimator's sigmoid and its gradient are below 3.4e-4 of their peak: the
+// scans skip such chunks, as the plain version and the JAX package do.
+struct GradChunkedView : ChunkedView {
+  const float* sil_box;   // (n_chunks, 6); null in the hard instance
+  const float* prox_box;  // (n_chunks, 6)
+};
+
+// The chunked form of trace.cuh's silhouette_candidate (the miss side of
+// scaled.ChunkTraversal.silhouette): over the chunks whose silhouette box
+// the ray enters within (t_min, 1e7), in order, the sphere with the
+// largest d among those in front of the ray (nb > t_min) and not padding
+// (r^2 > 0), the first on ties, from -1e9; -1 unless its d exceeds -1e8.
+TPT_HD int silhouette_candidate(const GradChunkedView& S, V3 ro, V3 rd,
+                                float t_min, float& d_best, float& nb_best) {
+  int cand = -1;
+  d_best = -1e9f;
+  nb_best = 0.0f;
+  const V3 inv = v3(safe_inv(rd.x), safe_inv(rd.y), safe_inv(rd.z));
+  if (any_nan(ro) || any_nan(inv)) return -1;
+  const int K = S.chunk;
+  for (int c = 0; c < S.n_chunks; ++c) {
+    if (!slab(S.sil_box + 6 * c, ro, inv, t_min, 1e7f)) continue;
+    const float* r = S.chunk_row(c);
+    for (int j = 0; j < K; ++j) {
+      const float cox = r[j] - ro.x;
+      const float coy = r[K + j] - ro.y;
+      const float coz = r[2 * K + j] - ro.z;
+      const float nb = cox * rd.x + coy * rd.y + coz * rd.z;
+      const float cq = cox * cox + coy * coy + coz * coz - r[3 * K + j];
+      const float d = nb * nb - cq;
+      if (nb > t_min && r[3 * K + j] > 0.0f && d > d_best) {
+        d_best = d;
+        nb_best = nb;
+        cand = c * K + j;
+      }
+    }
+  }
+  return d_best > -1e8f ? cand : -1;
+}
+
+// The chunked form of trace.cuh's shadow_occluder (scaled.ChunkTraversal.
+// proximity): over the chunks whose shadow-boundary box the shadow ray
+// enters within (t_min, t_l), the largest d of the spheres but the light
+// whose closest approach lies inside (t_min, t_l), the first on ties; -1
+// where there is none (d_occ = -1e9).
+TPT_HD int shadow_occluder(const GradChunkedView& S, V3 pos, V3 l, int light,
+                           float t_min, float t_l, float& d_occ) {
+  int j = -1;
+  d_occ = -1e9f;
+  const V3 inv = v3(safe_inv(l.x), safe_inv(l.y), safe_inv(l.z));
+  if (any_nan(pos) || any_nan(inv) || is_nan(t_l)) return -1;
+  const int K = S.chunk;
+  for (int c = 0; c < S.n_chunks; ++c) {
+    if (!slab(S.prox_box + 6 * c, pos, inv, t_min, t_l)) continue;
+    const float* r = S.chunk_row(c);
+    for (int i = 0; i < K; ++i) {
+      const float cox = r[i] - pos.x;
+      const float coy = r[K + i] - pos.y;
+      const float coz = r[2 * K + i] - pos.z;
+      const float nb = cox * l.x + coy * l.y + coz * l.z;
+      const float cq = cox * cox + coy * coy + coz * coz - r[3 * K + i];
+      const float d = nb * nb - cq;
+      if (nb > t_min && nb < t_l && c * K + i != light && d > d_occ) {
+        d_occ = d;
+        j = c * K + i;
+      }
+    }
+  }
+  return j;
+}
+
 }  // namespace tpt

@@ -48,6 +48,7 @@
 
 #include <cuda_runtime.h>
 
+#include "chunks.cuh"
 #include "gradwarp.cuh"
 #include "launch.cuh"
 
@@ -346,6 +347,169 @@ sum_rows(const float* __restrict__ partial, int rows, int m,
   if (lane == 0) d_tab[j] = static_cast<float>(s);
 }
 
+// ---- The pool instances: K3 past the shared table ----
+//
+// The TPU kernel takes any number of spheres; the warp form's (SCENE_ROWS,
+// n) tables in shared memory take 512.  The pool instances run grad_tiles
+// with a PoolTable a warp (gradwarp.cuh: a slot of device memory for each
+// sphere the warp adds to, found through a directory) and WideTape
+// carries (the sphere id whole), everything else as the warp form:
+// pool_grad_kernel reads the flat scene where it lies, and
+// chunk_grad_kernel the chunked one (chunks.cuh GradChunkedView: K5's and
+// K6's per-ray walks in the forward trace, the soft scans over inflated
+// chunk boxes), the scaled scene's gradient.  sum_pool then sums the
+// warps' slots in the shared instance's order, so that a launch on a
+// scene of up to 512 spheres, on the warp form's grid, is bit-equal to the
+// warp form's.  Both are plain forms: 8 blocks an SM (64 registers a
+// thread), no staging of the scene.
+//
+// The directory is dense: 4 bytes per (sphere, warp), over the launch's
+// 4 x 8 x (SMs) warps -- 16,896 bytes a sphere on a 132-SM H100, 1.69 GB
+// at n = 100,096, filled with -1 before each launch and read whole by
+// sum_pool.  It still grows as n x resident warps, so it caps the scene
+// at about 4.7 million spheres on an 80 GB card (less whatever else is
+// allocated).  Keying it per (chunk, warp), or writing (sphere, slot)
+// records and sorting them in a fixed order, would lift that cap.
+
+constexpr int kPoolBlocks = 8;
+
+// A pool launch's table: the (n, warps) directory (-1: no slot), the pool
+// of cap slots (zeroed) and its counter (0).
+struct PoolArgs {
+  int* dir;
+  float* pool;
+  int* next;
+  int cap;
+};
+
+// The chunked scene: pack_chunks rows, the chunk boxes and the soft
+// scans' inflated boxes (null in the hard instance).
+struct ChunkArgs {
+  const float* rows;
+  const float* box;
+  const float* sil_box;
+  const float* prox_box;
+  int n_chunks, chunk;
+};
+
+template <bool kSoft, class View>
+__device__ __forceinline__ void pool_grad_body(
+    const View& S, const float* __restrict__ cam, const tpt::RenderParams& p,
+    const float* __restrict__ g, float* __restrict__ out,
+    unsigned long long* __restrict__ rays, float* tape, const PoolArgs& a) {
+  __shared__ unsigned long long warp_rays[kGradWarps];
+  __shared__ float s_cam[tpt::kCameraFloats];
+  // kGradWarps scratches of grad_tiles (grad_scratch_words(32) floats)
+  __shared__ float s_ws[kGradWarps * (3 + tpt::kGradBatch) * 32];
+  const int tid = threadIdx.x;
+  if (tid < tpt::kCameraFloats) s_cam[tid] = cam[tid];
+  __syncthreads();
+  const int warp = tid >> 5;
+  const tpt::DeviceWarp w(tid);
+  const int gw = blockIdx.x * kGradWarps + warp;
+  const int n_warps = gridDim.x * kGradWarps;
+  const tpt::WideTape t{tape + static_cast<size_t>(gw) * warp_tape_floats(p),
+                        32, tid & 31};
+  const tpt::PoolTable T{a.dir + gw, n_warps, a.pool, a.next, a.cap};
+  tpt::NoGradCount none;
+  const unsigned long long count = tpt::grad_tiles<kSoft>(
+      w, S, s_cam, p, g, out, T, t, s_ws + warp * tpt::grad_scratch_words(32),
+      gw, n_warps, none);
+  add_rays<kGradWarps>(count, warp_rays, rays, tid);
+}
+
+template <bool kSoft>
+__global__ void __launch_bounds__(kWarpThreads, kPoolBlocks)
+pool_grad_kernel(const float* __restrict__ tab,
+                 const int32_t* __restrict__ mat,
+                 const int32_t* __restrict__ lights,
+                 const float* __restrict__ cam, tpt::RenderParams p,
+                 const float* __restrict__ g, float* __restrict__ out,
+                 unsigned long long* __restrict__ rays, float* tape,
+                 PoolArgs a) {
+  tpt::SceneView S;
+  S.tab = tab;
+  S.mat = mat;
+  S.lights = lights;
+  S.n = p.n_spheres;
+  S.n_lights = p.n_lights;
+  pool_grad_body<kSoft>(S, cam, p, g, out, rays, tape, a);
+}
+
+template <bool kSoft>
+__global__ void __launch_bounds__(kWarpThreads, kPoolBlocks)
+chunk_grad_kernel(const float* __restrict__ tab,
+                  const int32_t* __restrict__ mat,
+                  const int32_t* __restrict__ lights,
+                  const float* __restrict__ cam, ChunkArgs c,
+                  tpt::RenderParams p, const float* __restrict__ g,
+                  float* __restrict__ out,
+                  unsigned long long* __restrict__ rays, float* tape,
+                  PoolArgs a) {
+  tpt::GradChunkedView S;
+  S.tab = tab;
+  S.mat = mat;
+  S.lights = lights;
+  S.rows = c.rows;
+  S.box = c.box;
+  S.n = p.n_spheres;
+  S.n_lights = p.n_lights;
+  S.chunk = c.chunk;
+  S.n_chunks = c.n_chunks;
+  S.sil_box = c.sil_box;
+  S.prox_box = c.prox_box;
+  pool_grad_body<kSoft>(S, cam, p, g, out, rays, tape, a);
+}
+
+// d_tab[r][i] for the pool launch of `rows` blocks, one warp a sphere:
+// block b's partial is its warps' slots summed in warp order in float from
+// +0 (a warp without a slot adds nothing), and the partials are summed as
+// sum_rows sums the warp form's partial rows, so that the result is the
+// warp form's bit for bit where both run on one grid.
+__global__ void __launch_bounds__(kSumThreads)
+sum_pool(const int* __restrict__ dir, const float* __restrict__ pool,
+         int rows, int n, float* __restrict__ d_tab) {
+  const int i = blockIdx.x * (kSumThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (i >= n) return;  // the whole warp
+  const int* col = dir + static_cast<size_t>(i) * rows * kGradWarps;
+  double s[tpt::SCENE_ROWS];
+#pragma unroll
+  for (int r = 0; r < tpt::SCENE_ROWS; ++r) s[r] = 0.0;
+  for (int b = lane; b < rows; b += 32) {
+    float q[tpt::SCENE_ROWS];
+#pragma unroll
+    for (int r = 0; r < tpt::SCENE_ROWS; ++r) q[r] = 0.0f;
+    for (int k = 0; k < kGradWarps; ++k) {
+      const int slot = col[b * kGradWarps + k];
+      if (slot < 0) continue;
+      const float* e = pool + static_cast<size_t>(slot) * tpt::kSlotFloats;
+#pragma unroll
+      for (int r = 0; r < tpt::SCENE_ROWS; ++r) q[r] += e[r];
+    }
+#pragma unroll
+    for (int r = 0; r < tpt::SCENE_ROWS; ++r) s[r] += q[r];
+  }
+#pragma unroll
+  for (int r = 0; r < tpt::SCENE_ROWS; ++r) {
+    double v = s[r];
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_xor_sync(kFull, v, off);
+    if (lane == 0)
+      d_tab[static_cast<size_t>(r) * n + i] = static_cast<float>(v);
+  }
+}
+
+// Blocks of a pool instance that fit on an SM at once.
+template <bool kSoft>
+cudaError_t pool_per_sm(bool chunked, int* per_sm) {
+  if (chunked)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, chunk_grad_kernel<kSoft>, kWarpThreads, 0);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, pool_grad_kernel<kSoft>, kWarpThreads, 0);
+}
+
 bool bad_params(const tpt::RenderParams* p, int max_spheres) {
   return p->n_spheres < 1 || p->n_spheres > max_spheres ||
          p->n_lights < 0 || p->n_lights > tpt::kMaxLights || p->height < 1 ||
@@ -484,6 +648,76 @@ int tpt_grad_sum_launch(const float* partial, int rows, int m, float* d_tab,
                0, s>>>(partial, rows, m, d_tab);
   else
     sum_partials<<<(m + 127) / 128, 128, 0, s>>>(partial, rows, m, d_tab);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The scratch of a pool launch (chunked: the chunked instance): *rows
+// blocks, as many as fit on the card at once or as the tiles need, and
+// *tape_floats floats of carries.  Returns 0, or a CUDA error code.
+int tpt_grad_pool_scratch(const tpt::RenderParams* p, int chunked, int* rows,
+                          long long* tape_floats) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = soft(p) ? pool_per_sm<true>(chunked, &per_sm)
+                  : pool_per_sm<false>(chunked, &per_sm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int tiles = ((p->width + 7) / 8) * ((p->height + 3) / 4);
+  const int need = (tiles + kGradWarps - 1) / kGradWarps;
+  *rows = need < sms * per_sm ? need : sms * per_sm;
+  *tape_floats = static_cast<long long>(*rows) * kGradWarps *
+                 static_cast<long long>(warp_tape_floats(*p));
+  return 0;
+}
+
+// K3's pool instance on `stream` (chunk_rows null: the flat scene, else the
+// chunked one, with its n_chunks boxes `box` and, where p->soft_eps > 0,
+// the soft scans' inflated boxes): image `out` (height, width, 3), ray
+// count added to `rays`, the warps' slots in dir (n_spheres x rows *
+// kGradWarps ints, -1), pool (cap slots, 0) and next (0).  `rows` blocks
+// (any number; the warp form's grid makes the sum bit-equal to its) and
+// their `tape`.  The launcher reads *next afterwards: past cap the launch
+// dropped adds and must be run again with that many slots.  Returns
+// cudaGetLastError() after the launch.
+int tpt_grad_pool_launch(const float* tab, const int32_t* mat,
+                         const int32_t* lights, const float* cam,
+                         const float* chunk_rows, const float* box,
+                         const float* sil_box, const float* prox_box,
+                         int n_chunks, int chunk, const tpt::RenderParams* p,
+                         const float* g, float* out, unsigned long long* rays,
+                         int rows, float* tape, int* dir, float* pool,
+                         int* next, int cap, void* stream) {
+  if (bad_params(p, 1 << 30) || rows < 1 || !tape || !dir || !pool ||
+      !next || cap < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (chunk_rows &&
+      (!box || n_chunks < 1 || chunk < 1 || n_chunks * chunk != p->n_spheres ||
+       (soft(p) && (!sil_box || !prox_box))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PoolArgs a{dir, pool, next, cap};
+  if (chunk_rows) {
+    const ChunkArgs c{chunk_rows, box, sil_box, prox_box, n_chunks, chunk};
+    auto kernel = soft(p) ? chunk_grad_kernel<true> : chunk_grad_kernel<false>;
+    kernel<<<rows, kWarpThreads, 0, s>>>(tab, mat, lights, cam, c, *p, g, out,
+                                         rays, tape, a);
+  } else {
+    auto kernel = soft(p) ? pool_grad_kernel<true> : pool_grad_kernel<false>;
+    kernel<<<rows, kWarpThreads, 0, s>>>(tab, mat, lights, cam, *p, g, out,
+                                         rays, tape, a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// d_tab (SCENE_ROWS, n) from a pool launch of `rows` blocks (sum_pool).
+int tpt_grad_pool_sum_launch(const int* dir, const float* pool, int rows,
+                             int n, float* d_tab, void* stream) {
+  if (rows < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  sum_pool<<<(n + kSumThreads / 32 - 1) / (kSumThreads / 32), kSumThreads, 0,
+             static_cast<cudaStream_t>(stream)>>>(dir, pool, rows, n, d_tab);
   return static_cast<int>(cudaGetLastError());
 }
 

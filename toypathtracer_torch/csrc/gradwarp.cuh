@@ -45,6 +45,8 @@
 
 #include <string.h>
 
+#include <type_traits>
+
 #include "trace.cuh"
 #include "warp.cuh"
 
@@ -124,12 +126,71 @@ struct Adds {
   float v[N];
 };
 
+// The next value of a launch-wide int counter (an integer atomic: the
+// order in which lanes draw changes nothing that is summed).
+TPT_HD int claim(int* counter) {
+#ifdef __CUDA_ARCH__
+  return atomicAdd(counter, 1);
+#else
+  return __atomic_fetch_add(counter, 1, __ATOMIC_RELAXED);
+#endif
+}
+
+// Floats of a PoolTable slot: one sphere's SCENE_ROWS entries, padded to
+// 64 bytes.
+constexpr int kSlotFloats = 16;
+
+// A warp's cotangent table in device memory, for scenes of any size
+// (the pool instances of csrc/grad.cu).  A dense (SCENE_ROWS, n) table a
+// warp does not scale: 5.6 MB a warp at n = 100,096, tens of GB over the
+// resident warps.  Here a sphere gets a row of entries (a slot of
+// kSlotFloats floats, zeroed before the launch) the first time this warp
+// adds something other than +-0 to it, drawn from a pool the launch's
+// warps share by an integer counter; a directory with a column per warp,
+// dir[sphere * stride + warp], holds the sphere's slot or -1.  So the
+// scratch is the slots the launch's warps touch (64 bytes each) plus 4
+// bytes per (sphere, warp) of directory.  Each slot belongs to one warp
+// and its entries take the same adds in the same order as the shared
+// table's; adds of +-0, which the shared table makes and this one skips,
+// leave an entry that starts at +0 bit for bit (it is never -0), so the
+// two tables hold the same bits.  csrc/grad.cu's sum_pool then sums the
+// warps in the shared instance's order.  Where the pool runs out a claim
+// adds nothing, and the counter, which still counts it, tells the
+// launcher how many slots to give the relaunch.
+struct PoolTable {
+  int* dir;  // this warp's directory column: dir[sphere * stride]
+  int stride;
+  float* pool;
+  int* next;
+  int cap;
+  template <int N>
+  TPT_HD void add(bool lead, int key, const Adds<N>& a) const {
+    if (!lead) return;
+    bool some = false;
+#pragma unroll
+    for (int i = 0; i < N; ++i) some = some || a.v[i] != 0.0f;
+    if (!some) return;
+    int* d = dir + static_cast<size_t>(key) * stride;
+    int s = *d;
+    if (s < 0) {
+      s = claim(next);
+      if (s >= cap) return;
+      *d = s;
+    }
+    float* e = pool + static_cast<size_t>(s) * kSlotFloats;
+#pragma unroll
+    for (int i = 0; i < N; ++i) e[a.row[i]] += a.v[i];
+  }
+};
+
 // The adds of `a`, summed over each group of g: the N trees run together,
-// then the group's first lane adds the sums in order.  Every lane calls
-// it.  The warp syncs first: an entry that another lane added to at an
-// earlier call is read after that write.
-template <class W, int N>
-TPT_WARP void group_add(const W& w, const Group& g, float* T, int n, int key,
+// then the group's first lane adds the sums in order to the table T: a
+// warp's (SCENE_ROWS, n) table in shared memory (a float*: entry (row,
+// sphere) at T[row * n + sphere]) or a PoolTable (n unused).  Every lane
+// calls it.  The warp syncs first: an entry that another lane added to at
+// an earlier call is read after that write.
+template <class W, int N, class Tab>
+TPT_WARP void group_add(const W& w, const Group& g, Tab T, int n, int key,
                         Adds<N> a) {
   w.sync();
   for (int k = 0; k < g.steps; ++k) {
@@ -141,19 +202,26 @@ TPT_WARP void group_add(const W& w, const Group& g, float* T, int n, int key,
       if (take) a.v[i] = a.v[i] + o;
     }
   }
-  if (g.lead) {
+  if constexpr (std::is_pointer<Tab>::value) {
+    if (g.lead) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) T[a.row[i] * n + key] += a.v[i];
+      for (int i = 0; i < N; ++i) T[a.row[i] * n + key] += a.v[i];
+    }
+  } else {
+    T.add(g.lead, key, a);
   }
 }
 
 // A warp's carries: record (slot, lane) at base[(slot * width + lane) *
 // kRecWords], a Carry and a word of padding, so that a lane writes its
 // records and reads any lane's as four 16-byte words.  Slot j * max_depth
-// + d holds bounce d of the j-th sample of a batch.
+// + d holds bounce d of the j-th sample of a batch.  The packed bits hold
+// a sphere id below 1023 (trace.cuh pack_rec); kWide keeps the id whole
+// in the padding word instead, for scenes of any size.
 enum { kRecWords = 16 };
 
-struct WarpTape {
+template <bool kWide>
+struct WarpTapeOf {
   float* base;
   int width;  // lanes
   int lane;
@@ -170,11 +238,19 @@ struct WarpTape {
   TPT_HD float* rec(int owner, int slot) const {
     return base + (static_cast<size_t>(slot) * width + owner) * kRecWords;
   }
-  TPT_HD void put(int slot, const Carry& c) const {
+  TPT_HD void put(int slot, const Carry& c, const BounceRec& r) const {
+    uint32_t bits = c.bits;
+    float pad = 0.0f;
+    if constexpr (kWide) {
+      BounceRec flags = r;
+      flags.id = -1;
+      bits = pack_rec(flags);
+      pad = as_float(static_cast<uint32_t>(r.id + 1));
+    }
     const float w[kRecWords] = {
         c.ro.x, c.ro.y, c.ro.z, c.rd.x, c.rd.y, c.rd.z, c.t,
-        as_float(c.st), as_float(c.bits), c.e.x, c.e.y, c.e.z,
-        c.atten.x, c.atten.y, c.atten.z, 0.0f};
+        as_float(c.st), as_float(bits), c.e.x, c.e.y, c.e.z,
+        c.atten.x, c.atten.y, c.atten.z, pad};
     float* q = rec(lane, slot);
 #ifdef __CUDA_ARCH__
     for (int j = 0; j < kRecWords; j += 4)
@@ -184,7 +260,8 @@ struct WarpTape {
     for (int j = 0; j < kRecWords; ++j) q[j] = w[j];
 #endif
   }
-  TPT_HD Carry get(int owner, int slot) const {
+  // The record (slot, owner) and, in r, its bounce record.
+  TPT_HD Carry get(int owner, int slot, BounceRec& r) const {
     const float* q = rec(owner, slot);
     float w[kRecWords];
 #ifdef __CUDA_ARCH__
@@ -206,20 +283,25 @@ struct WarpTape {
     c.bits = as_bits(w[8]);
     c.e = v3(w[9], w[10], w[11]);
     c.atten = v3(w[12], w[13], w[14]);
+    r = unpack_rec(c.bits, c.t);
+    if constexpr (kWide) r.id = static_cast<int>(as_bits(w[15])) - 1;
     return c;
   }
 };
+
+using WarpTape = WarpTapeOf<false>;
+using WideTape = WarpTapeOf<true>;
 
 // nee_adj for the lanes with lam (a Lambert hit with NEE on); every lane
 // runs the light loop and its adds.  gh: the groups of the hit sphere,
 // formed with key hit_id.  kSoft: with the soft shadow boundary, whose
 // occluders add through groups of their own.
-template <bool kSoft, class W, class Cnt>
-TPT_WARP void nee_adj_warp(const W& w, const SceneView& S,
-                           const RenderParams& p, bool lam, V3 pos,
-                           V3 normal, V3 rd, V3 alb, int hit_id, uint32_t st,
-                           uint32_t see, V3 g_le, const Group& gh, float* T,
-                           V3& g_pos, V3& g_n, Cnt& cnt) {
+template <bool kSoft, class W, class Cnt, class View, class Tab>
+TPT_WARP void nee_adj_warp(const W& w, const View& S, const RenderParams& p,
+                           bool lam, V3 pos, V3 normal, V3 rd, V3 alb,
+                           int hit_id, uint32_t st, uint32_t see, V3 g_le,
+                           const Group& gh, Tab T, V3& g_pos, V3& g_n,
+                           Cnt& cnt) {
   const V3 zero = v3(0.0f, 0.0f, 0.0f);
   if (!w.any(lam)) return;  // every add would be 0
   const bool front = dot(normal, rd) < 0.0f;
@@ -296,12 +378,12 @@ TPT_WARP void nee_adj_warp(const W& w, const SceneView& S,
 // kSoft: with the soft-silhouette terms; a miss lane's groups are then
 // those of its silhouette candidate, which its silhouette term adds to
 // (its other adds are 0).
-template <bool kSoft, class W, class Cnt>
-TPT_WARP void bounce_adj_warp(const W& w, const SceneView& S,
+template <bool kSoft, class W, class Cnt, class View, class Tab>
+TPT_WARP void bounce_adj_warp(const W& w, const View& S,
                               const RenderParams& p, bool active, V3 ro,
                               V3 rd, uint32_t st, const BounceRec& rec, V3 e,
-                              V3 g_e, V3 g_c, V3& g_ro, V3& g_rd, float* T,
-                              Cnt& cnt) {
+                              V3 g_e, V3 g_c, V3& g_ro, V3& g_rd,
+                              Tab T, Cnt& cnt) {
   const V3 zero = v3(0.0f, 0.0f, 0.0f);
   const V3 g_pos_out = g_ro;
   const V3 g_dir = g_rd;
@@ -468,12 +550,13 @@ TPT_HD int grad_scratch_words(int width) { return (3 + kGradBatch) * width; }
 // is the same from launch to launch.  Under a one-lane warp the samples
 // are swept in order after their forward traces, and the adds come in
 // grad_pixel's order.
-template <bool kSoft = false, class W, class Cnt>
-TPT_WARP unsigned long long grad_tiles(const W& w, const SceneView& S,
+template <bool kSoft = false, class W, class Cnt, class View, class Tab,
+          class Tape>
+TPT_WARP unsigned long long grad_tiles(const W& w, const View& S,
                                        const float* cam,
                                        const RenderParams& p, const float* g,
-                                       float* out, float* T,
-                                       const WarpTape& tape, float* ws,
+                                       float* out, Tab T,
+                                       const Tape& tape, float* ws,
                                        int warp, int n_warps, Cnt& cnt) {
   const V3 zero = v3(0.0f, 0.0f, 0.0f);
   const int WD = W::kWidth;
@@ -547,8 +630,7 @@ TPT_WARP unsigned long long grad_tiles(const W& w, const SceneView& S,
         BounceRec rec = unpack_rec(0u, 0.0f);  // id -1
         V3 g_e = zero, g_c = zero;
         if (has) {
-          k = tape.get(item % WD, (item / WD) * p.max_depth + d);
-          rec = unpack_rec(k.bits, k.t);
+          k = tape.get(item % WD, (item / WD) * p.max_depth + d, rec);
           // col += atten * e; atten *= c -- reversed
           g_e = mul(k.atten, G);
           g_c = mul(g_atten, k.atten);

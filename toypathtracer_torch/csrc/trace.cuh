@@ -548,7 +548,8 @@ TPT_HD V3 normalize_adj(V3 a, V3 g) {
 
 // The winner's root t = nb -/+ sqrt(nb^2 - c) (sphere_t, same branch) back
 // to the ray; sphere i's center rows take g_co, its radius^2 row g_sqr.
-TPT_HD void sphere_t_adj_vals(const SceneView& S, int i, V3 ro, V3 rd,
+template <class View>
+TPT_HD void sphere_t_adj_vals(const View& S, int i, V3 ro, V3 rd,
                               float t_min, float g_t, V3& g_ro, V3& g_rd,
                               V3& g_co, float& g_sqr) {
   V3 co = v3(S.at(ROW_CX, i) - ro.x, S.at(ROW_CY, i) - ro.y,
@@ -597,7 +598,8 @@ TPT_HD void cone_adj_vals(const Cone& q, float eps1, V3 g_l, float g_cam,
 // The refracted direction of scatter_dielectric back to the ray and the
 // normal, for the cotangent g_dir of normalize(refr); returns the add to
 // the sphere's ri row (0 for an entering ray at ri 0).
-TPT_HD float refract_adj_vals(const SceneView& S, int id, V3 rd, V3 normal,
+template <class View>
+TPT_HD float refract_adj_vals(const View& S, int id, V3 rd, V3 normal,
                               V3 g_dir, V3& g_rd, V3& g_n) {
   float ri = S.at(ROW_RI, id);
   bool entering = dot(rd, normal) <= 0.0f;
@@ -729,7 +731,8 @@ TPT_HD int shadow_occluder(const SceneView& S, V3 pos, V3 l, int light,
 // metal -> albedo * sky(rd); dielectric -> sky(rd).  Its guards keep it
 // finite: a normal of max(|to_c|^2, 1e-12), a light distance^2 of at
 // least 1e-8.
-TPT_HD V3 tangent_radiance(const SceneView& S, const RenderParams& p, int i,
+template <class View>
+TPT_HD V3 tangent_radiance(const View& S, const RenderParams& p, int i,
                            float nb, V3 ro, V3 rd) {
   const V3 pos = add(ro, scale(rd, nb));
   const V3 to_c = sub(pos, v3(S.at(ROW_CX, i), S.at(ROW_CY, i),
@@ -766,7 +769,8 @@ TPT_HD V3 tangent_radiance(const SceneView& S, const RenderParams& p, int i,
 
 // The discriminant d = nb^2 - c of sphere i along (ro, rd), as sphere_t
 // computes it.
-TPT_HD float discr(const SceneView& S, int i, V3 ro, V3 rd) {
+template <class View>
+TPT_HD float discr(const View& S, int i, V3 ro, V3 rd) {
   float cox = S.at(ROW_CX, i) - ro.x;
   float coy = S.at(ROW_CY, i) - ro.y;
   float coz = S.at(ROW_CZ, i) - ro.z;
@@ -777,7 +781,8 @@ TPT_HD float discr(const SceneView& S, int i, V3 ro, V3 rd) {
 
 // That discriminant back from its cotangent g_d: adds to g_ro and g_rd,
 // and returns sphere i's center (g_co) and radius^2 (g_sqr) cotangents.
-TPT_HD void discr_adj_vals(const SceneView& S, int i, V3 ro, V3 rd,
+template <class View>
+TPT_HD void discr_adj_vals(const View& S, int i, V3 ro, V3 rd,
                            float g_d, V3& g_ro, V3& g_rd, V3& g_co,
                            float& g_sqr) {
   V3 co = v3(S.at(ROW_CX, i) - ro.x, S.at(ROW_CY, i) - ro.y,
@@ -798,7 +803,8 @@ TPT_HD void discr_adj_vals(const SceneView& S, int i, V3 ro, V3 rd,
 // the occluder, or -1 where the term is 0: no sphere in the segment, or
 // the interval-overlap test and the sign of d_occ disagree (the hard
 // value stands).
-TPT_HD int shadow_adj_vals(const SceneView& S, const RenderParams& p, int e,
+template <class View>
+TPT_HD int shadow_adj_vals(const View& S, const RenderParams& p, int e,
                            V3 pos, V3 l, bool seen, float g_vis, V3& g_l,
                            V3& g_pos, V3& g_co, float& g_sqr) {
   float t_l, d_occ;
@@ -884,7 +890,8 @@ TPT_HD void silhouette_adj(const SceneView& S, const RenderParams& p, int i,
 
 // The continuation attenuation c that bounce() set: the albedo, 1 for a
 // dielectric, 0 where the path ended.
-TPT_HD V3 carry_c(const SceneView& S, const BounceRec& r) {
+template <class View>
+TPT_HD V3 carry_c(const View& S, const BounceRec& r) {
   if (!r.scattered) return v3(0.0f, 0.0f, 0.0f);
   if (S.mat[r.id] == MAT_DIELECTRIC) return v3(1.0f, 1.0f, 1.0f);
   return v3(S.at(ROW_ALB, r.id), S.at(ROW_ALB + 1, r.id),
@@ -893,7 +900,8 @@ TPT_HD V3 carry_c(const SceneView& S, const BounceRec& r) {
 
 // The cotangent of a hit lane's soft weight w: e = w e_hit + (1 - w) sky
 // and c = w c_hit, with e and c the bounce's own.
-TPT_HD float hit_weight_grad(const SceneView& S, const RenderParams& p,
+template <class View>
+TPT_HD float hit_weight_grad(const View& S, const RenderParams& p,
                              const BounceRec& rec, V3 rd, V3 e, V3 g_e,
                              V3 g_c) {
   return dot(g_e, sub(e, sky_color(rd, p.mitsuba != 0))) +
@@ -1146,11 +1154,12 @@ TPT_HD BounceRec unpack_rec(uint32_t bits, float t) {
 // (the g++ tests).
 struct ArrayTape {
   Carry* c;
-  TPT_HD void put(int d, const Carry& x) const { c[d] = x; }
+  TPT_HD void put(int d, const Carry& x, const BounceRec&) const { c[d] = x; }
   TPT_HD Carry get(int d) const { return c[d]; }
 };
 
-// trace_sample, recording bounce d's Carry in slot slot0 + d of `tape`.
+// trace_sample, recording bounce d's Carry (and its record, which a tape
+// may keep beside the packed bits) in slot slot0 + d of `tape`.
 template <class View, class Tape>
 TPT_HD V3 trace_sample_tape(const View& S, const RenderParams& p, V3 ro,
                             V3 rd, uint32_t& st, uint32_t& rays, int& depth,
@@ -1171,7 +1180,7 @@ TPT_HD V3 trace_sample_tape(const View& S, const RenderParams& p, V3 ro,
     k.t = rec.t;
     k.bits = pack_rec(rec);
     k.e = e;
-    tape.put(slot0 + depth, k);
+    tape.put(slot0 + depth, k, rec);
     col = add(col, mul(atten, e));
     ++depth;
     if (!go) break;

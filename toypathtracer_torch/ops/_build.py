@@ -188,6 +188,11 @@ def load_library() -> ctypes.CDLL:
                                     i32, ptr, ptr, ptr, i32, ptr, ptr]
     lib.tpt_grad_scratch.argtypes = [params, i32, ptr, ptr]
     lib.tpt_grad_sum_launch.argtypes = [ptr, i32, i32, ptr, i32, ptr]
+    lib.tpt_grad_pool_scratch.argtypes = [params, i32, ptr, ptr]
+    lib.tpt_grad_pool_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                         ptr, i32, i32, params, ptr, ptr, ptr,
+                                         i32, ptr, ptr, ptr, ptr, i32, ptr]
+    lib.tpt_grad_pool_sum_launch.argtypes = [ptr, ptr, i32, i32, ptr, ptr]
     lib.tpt_hit_chunks_launch.argtypes = [ptr, i32, i32, ptr, ptr, i32, f32,
                                           f32, ptr, ptr, ptr, ptr]
     lib.tpt_coop_hit_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr,
@@ -205,7 +210,9 @@ def load_library() -> ctypes.CDLL:
                lib.tpt_render_stats_launch,
                lib.tpt_render_stats_merged_launch, lib.tpt_lockstep_launch,
                lib.tpt_grad_launch, lib.tpt_grad_scratch,
-               lib.tpt_grad_sum_launch, lib.tpt_hit_chunks_launch,
+               lib.tpt_grad_sum_launch, lib.tpt_grad_pool_scratch,
+               lib.tpt_grad_pool_launch, lib.tpt_grad_pool_sum_launch,
+               lib.tpt_hit_chunks_launch,
                lib.tpt_coop_hit_launch,
                lib.tpt_shadow_chunks_launch, lib.tpt_scaled_render_launch,
                lib.tpt_scaled_groups, lib.tpt_probe_launch):

@@ -14,18 +14,28 @@ function.  `render_tile_lockstep_baseline` runs csrc/grad.cu's per-thread
 lockstep_kernel<0,0> (up to 512 spheres), kept as the kernel it is timed
 against.
 
-K3 has two forms (`render_tile_grad_form`): "warp", the main path's
+K3 has three forms (`render_tile_grad_form`): "warp", the main path's
 (csrc/gradwarp.cuh grad_tiles: stored carries and a warp-level cotangent
-table, up to 512 spheres), and "replay", the kernel it replaced (bounces
-replayed, a per-thread table, up to 64 spheres), kept as the baseline it
-is timed and held against.  Each has a stats instance that counts SM
-cycles by part, and a soft instance that computes the soft-silhouette
+table in shared memory, up to 512 spheres); "pool", the same with the
+table in device memory (gradwarp.cuh PoolTable, any number of spheres),
+which `render_tile_grad` launches past 512 spheres; and "replay", the
+kernel the warp form replaced (bounces replayed, a per-thread table, up
+to 64 spheres), kept as the baseline it is timed and held against.  The
+warp and replaying forms have a stats instance that counts SM cycles by
+part; every form has a soft instance that computes the soft-silhouette
 estimator's cotangent: a config with soft_silhouette_eps > 0 launches it,
-and only it (the eps travels in RenderParams).  `launches` counts wrapper
-launches: "grad" the main path's form (one launch is the kernel and the
-small kernel that sums its per-block partials), "grad_soft" its soft
-instance, "grad_replay", "grad_replay_soft" and "grad_stats" the others,
-"lockstep" K4 and "lockstep_baseline" its baseline.
+and only it (the eps travels in RenderParams).  The sphere and light caps
+of each form's storage bind on a card only; the plain version takes any
+scene.  `launches` counts wrapper launches: "grad" the main path's form
+(one launch is the kernel and the small kernel that sums its per-block
+partials), "grad_soft" its soft instance, "grad_pool", "grad_pool_soft",
+"grad_replay", "grad_replay_soft" and "grad_stats" the others, "lockstep"
+K4 and "lockstep_baseline" its baseline.  `launch_pool` also runs the
+scaled scene's chunked instance (ops/cuda_scaled.render_tile_scaled_grad).
+
+Every gradient route warns where cfg.diff_wavefront asks for the
+differentiable wavefront, which the port does not have: the lockstep form
+runs (config.warn_diff_wavefront).
 
 `render_frame_diff` / `render_tile_diff` are the differentiable renders of
 the training step: a torch.autograd.Function on the packed scene table
@@ -44,7 +54,7 @@ import ctypes
 
 import torch
 
-from ..config import RenderConfig, resolve_device
+from ..config import RenderConfig, resolve_device, warn_diff_wavefront
 from ..render.wavefront import render_tile_grad_plain, render_tile_plain
 from ..scene import Scene
 from . import _build
@@ -53,17 +63,24 @@ from .cuda_render import (MAX_LIGHTS, MAX_SPHERES, check_device,
                           launch_forward, pack_scene, render_params,
                           render_tile)
 
-# K3's forms (tpt_grad_launch's `form`), their launch counters, and the
-# spheres each takes: the warp form's table is per warp in shared memory,
-# up to tpt::kMaxSpheres (MAX_SPHERES, as the per-thread render kernel);
-# the replaying form's is per thread (csrc/grad.cu kGradMaxSpheres).  These
-# caps hold on the CPU too: the gradient route takes the same scenes on
-# both devices.
+# K3's forms ("replay" and "warp" by their id for tpt_grad_launch; "pool"
+# has launchers of its own), their launch counters, and the (spheres,
+# lights) each takes on a card:
+# the warp form's table is per warp in shared memory, up to
+# tpt::kMaxSpheres (MAX_SPHERES, as the per-thread render kernel); the
+# replaying form's is per thread (csrc/grad.cu kGradMaxSpheres); the pool
+# form's in device memory, any number.  Each keeps a lane's seen lights as
+# 16 bits of its carry record (MAX_LIGHTS).  The caps bind on a card only
+# (cuda_render.check_caps): on the CPU the plain version takes any scene.
 FORMS = {"replay": 0, "warp": 1}
 MAIN_FORM = "warp"
-COUNTERS = {"warp": "grad", "replay": "grad_replay"}
+COUNTERS = {"warp": "grad", "replay": "grad_replay", "pool": "grad_pool"}
 SOFT_SUFFIX = "_soft"
-FORM_MAX_SPHERES = {"warp": MAX_SPHERES, "replay": 64}
+FORM_CAPS = {"warp": (MAX_SPHERES, MAX_LIGHTS), "replay": (64, MAX_LIGHTS),
+             "pool": (None, MAX_LIGHTS)}
+TABLES = {"warp": "a (14, N) table per warp in shared memory",
+          "replay": "a (14, 64) table per thread",
+          "pool": "a table per warp in device memory"}
 
 # The stats instances' counters (csrc/trace.cuh kGc*), summed over threads:
 # SM cycles in the forward trace, the replays, the adjoint sweep, the warp
@@ -80,16 +97,24 @@ STAT_FIELDS = ("cycles_fwd", "cycles_replay", "cycles_adj", "cycles_group",
 
 PARAM_FIELDS = ("center", "radius", "albedo", "emissive", "roughness", "ri")
 
-launches = {"grad": 0, "grad_soft": 0, "grad_replay": 0,
-            "grad_replay_soft": 0, "grad_stats": 0, "lockstep": 0,
-            "lockstep_baseline": 0}
+launches = {"grad": 0, "grad_soft": 0, "grad_pool": 0, "grad_pool_soft": 0,
+            "grad_replay": 0, "grad_replay_soft": 0, "grad_stats": 0,
+            "lockstep": 0, "lockstep_baseline": 0}
+
+# The last pool launch's scratch (launch_pool): blocks, the slots its
+# warps drew and the pool's capacity, launches (2 where the first ran out
+# of slots), and the bytes of its directory, pool and carries.
+last_pool = {}
 
 
 def grad_scratch(scene: Scene, cfg: RenderConfig, frame: int, x0: int,
                  y0: int, height: int, width: int, form: str):
-    """The scratch a K3 launch of `form` takes on the scene's card: (rows
-    of its (rows, 14, N) per-block partial sums, floats of its stored
-    carries).  A launch of the warp form takes its rows as its blocks."""
+    """The scratch a K3 launch of `form` ("warp" or "replay") takes on the
+    scene's card: (rows of its (rows, 14, N) per-block partial sums, floats
+    of its stored carries).  A launch of the warp form takes its rows as
+    its blocks."""
+    if form not in ("warp", "replay"):
+        raise ValueError(f"no partial rows for K3's {form!r} form")
     lib = _build.load_library()
     params = render_params(scene, cfg, frame, x0, y0, height, width)
     rows, tape_floats = ctypes.c_int(), ctypes.c_longlong()
@@ -130,6 +155,80 @@ def _launch_grad(scene, tab, cfg, frame, g_img, x0, y0, height, width, form,
     if stats:
         return out, rays, d_tab, dict(zip(STAT_FIELDS,
                                           (int(v) for v in counts.cpu())))
+    return out, rays, d_tab
+
+
+def launch_pool(tab, mat, lights, cam, params, g_img, dev, chunks=None,
+                blocks=None, cap=None):
+    """K3's pool instance on `dev` (csrc/grad.cu pool_grad_kernel, or with
+    `chunks`, a dict of the chunked scene's "rows", "box", "sil_box",
+    "prox_box", "n_chunks" and "chunk", chunk_grad_kernel): ((height,
+    width, 3) image, 0-d int64 rays, (14, N) d_tab) for the pixel cotangent
+    g_img.  `blocks`: the grid (default: as many blocks as fit on the card
+    at once); the warp form's grid makes the result bit-equal to the warp
+    form's.  The pool starts at a slot for every two pixel samples (a
+    slot is a sphere a warp adds to, 64 bytes; the 100k-sphere frame's
+    warps draw about one for every 16 samples, one for every 7 with the
+    soft estimator); where the launch's warps drew more, it runs again
+    with as many as they drew (`cap` sets the first capacity instead).
+    The directory is dense, 4 bytes per (sphere, warp), which caps the
+    scene at about 4.7 million spheres on an 80 GB card (csrc/grad.cu).
+    Records the scratch in `last_pool`."""
+    lib = _build.load_library()
+    height, width = params.height, params.width
+    n = params.n_spheres
+    rows, tape_floats = ctypes.c_int(), ctypes.c_longlong()
+    with torch.cuda.device(dev):
+        cuda_call(lib, "grad_pool", lib.tpt_grad_pool_scratch(
+            ctypes.byref(params), int(chunks is not None), ctypes.byref(rows),
+            ctypes.byref(tape_floats)))
+    n_blocks = rows.value if blocks is None else int(blocks)
+    per_block = tape_floats.value // rows.value
+    n_warps = 4 * n_blocks  # csrc/grad.cu kGradWarps
+    tape = torch.empty((n_blocks * per_block,), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    if cap is None:
+        cap = min(n_warps * n,
+                  max(1 << 16, height * width * params.spp // 2))
+    c = chunks or {}
+
+    def ptr(key):
+        t = c.get(key)
+        return None if t is None else t.data_ptr()
+    for attempt in (1, 2):
+        direc = torch.full((n * n_warps,), -1, dtype=torch.int32, device=dev)
+        pool = torch.zeros((cap * 16,), dtype=torch.float32, device=dev)
+        nxt = torch.zeros((1,), dtype=torch.int32, device=dev)
+        rays.zero_()
+        with torch.cuda.device(dev):
+            code = lib.tpt_grad_pool_launch(
+                tab.data_ptr(), mat.data_ptr(), lights.data_ptr(),
+                cam.data_ptr(), ptr("rows"), ptr("box"), ptr("sil_box"),
+                ptr("prox_box"), c.get("n_chunks", 0), c.get("chunk", 0),
+                ctypes.byref(params), g_img.data_ptr(), out.data_ptr(),
+                rays.data_ptr(), n_blocks, tape.data_ptr(), direc.data_ptr(),
+                pool.data_ptr(), nxt.data_ptr(), cap,
+                torch.cuda.current_stream(dev).cuda_stream)
+        cuda_call(lib, "grad_pool", code)
+        drawn = int(nxt.item())
+        if drawn <= cap:
+            break
+        if attempt == 2:
+            raise RuntimeError(f"K3's pool ran out twice ({drawn} slots "
+                               f"drawn of {cap})")
+        cap = drawn
+    d_tab = torch.empty((14, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.tpt_grad_pool_sum_launch(
+            direc.data_ptr(), pool.data_ptr(), n_blocks, n, d_tab.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    cuda_call(lib, "grad_pool_sum", code)
+    last_pool.clear()
+    last_pool.update(blocks=n_blocks, slots=drawn, cap=cap, launches=attempt,
+                     dir_bytes=4 * direc.numel(), pool_bytes=4 * pool.numel(),
+                     tape_bytes=4 * tape.numel())
     return out, rays, d_tab
 
 
@@ -198,43 +297,52 @@ def render_tile_grad(scene: Scene, cfg: RenderConfig, frame: int, g_img,
                      x0: int, y0: int, height: int, width: int, tab=None):
     """Value and packed-scene cotangent of the (height, width) sub-image at
     global pixel (x0, y0) for the pixel cotangent g_img ((height, width, 3)):
-    the gradient kernel (K3, its warp form, up to MAX_SPHERES spheres) on a
-    card, autograd through the plain version on the CPU.  `tab` is the
-    packed table (default pack_scene(scene)).  With
+    the gradient kernel (K3: its warp form up to MAX_SPHERES spheres, its
+    pool form past them) on a card, autograd through the plain version on
+    the CPU.  `tab` is the packed table (default pack_scene(scene)).  With
     cfg.soft_silhouette_eps > 0 it is the soft-silhouette estimator's
     cotangent (K3's soft instance on a card).
 
     Returns ((height, width, 3) float32 image, 0-d int64 ray count,
     d_packed (14, N) float32)."""
+    form = MAIN_FORM if scene.n_spheres <= MAX_SPHERES else "pool"
     return render_tile_grad_form(scene, cfg, frame, g_img, x0, y0, height,
-                                 width, MAIN_FORM, tab=tab)
+                                 width, form, tab=tab)
 
 
 def render_tile_grad_form(scene: Scene, cfg: RenderConfig, frame: int, g_img,
                           x0: int, y0: int, height: int, width: int,
-                          form: str, tab=None, stats: bool = False):
-    """render_tile_grad through K3's form `form` (FORMS): on a card that
+                          form: str, tab=None, stats: bool = False,
+                          blocks=None):
+    """render_tile_grad through K3's form `form` (FORM_CAPS): on a card that
     form's kernel, on the CPU the plain version whatever the form.
-    stats=True launches the form's stats instance (on a card) and returns
-    a fourth value, its counters by STAT_FIELDS."""
-    if form not in FORMS:
+    stats=True launches the form's stats instance (on a card; the warp and
+    replaying forms) and returns a fourth value, its counters by
+    STAT_FIELDS.  blocks: the pool form's grid (launch_pool)."""
+    if form not in FORM_CAPS:
         raise ValueError(f"no gradient kernel form {form!r}")
-    cap = FORM_MAX_SPHERES[form]
-    if scene.n_spheres > cap:
-        table = "a (14, N) table per warp in shared memory" \
-            if form == "warp" else "a (14, 64) table per thread"
-        raise ValueError(f"the gradient kernel K3 ({form} form) adds the "
-                         f"scene cotangent into {table} and takes at most "
-                         f"{cap} spheres, got {scene.n_spheres}")
+    warn_diff_wavefront(cfg)
     if stats and scene.device.type != "cuda":
         raise ValueError("the stats instances run on a card")
-    tab = checked_tab(scene, x0, y0, height, width, tab, (cap, MAX_LIGHTS),
-                      f"the gradient kernel's {form} form")
+    if stats and form == "pool":
+        raise ValueError("K3's pool form has no stats instance")
+    tab = checked_tab(scene, x0, y0, height, width, tab, FORM_CAPS[form],
+                      f"the gradient kernel K3 ({form} form: "
+                      f"{TABLES[form]})")
     if tuple(g_img.shape) != (height, width, 3):
         raise ValueError(f"pixel cotangent must be ({height}, {width}, 3), "
                          f"got {tuple(g_img.shape)}")
     check_device(scene, g_img)
     g_img = g_img.detach().to(torch.float32).contiguous()
+    if scene.device.type == "cuda" and form == "pool":
+        mat, lights, cam = kernel_inputs(scene, cfg)
+        out = launch_pool(tab, mat, lights, cam,
+                          render_params(scene, cfg, frame, x0, y0, height,
+                                        width), g_img, scene.device,
+                          blocks=blocks)
+        launches[COUNTERS[form] + (SOFT_SUFFIX if cfg.soft_silhouette_eps
+                                   > 0.0 else "")] += 1
+        return out
     if scene.device.type == "cuda":
         return _launch_grad(scene, tab, cfg, frame, g_img, x0, y0, height,
                             width, form, stats)
@@ -287,6 +395,7 @@ def render_tile_diff(scene: Scene, cfg: RenderConfig, frame: int, x0: int,
     gradient kernel; the plain versions on the CPU.  The band unit a
     multi-device step differentiates.  Returns ((height, width, 3) float32,
     0-d int64 ray count)."""
+    warn_diff_wavefront(cfg)
     tab = pack_scene(scene)
     return _PackedRender.apply(tab, scene, cfg, frame,
                                (x0, y0, height, width), lockstep_primal)

@@ -134,9 +134,8 @@ def check_caps(scene: Scene, caps, kernel: str):
         return
     max_spheres, max_lights = caps
     if max_spheres is not None and scene.n_spheres > max_spheres:
-        raise ValueError(f"{kernel} stages the scene in shared memory and "
-                         f"takes at most {max_spheres} spheres, got "
-                         f"{scene.n_spheres}")
+        raise ValueError(f"{kernel} takes at most {max_spheres} spheres, "
+                         f"got {scene.n_spheres}")
     if max_lights is not None and len(scene.emissive_ids) > max_lights:
         raise ValueError(f"{kernel} takes at most {max_lights} emissive "
                          f"spheres, got {len(scene.emissive_ids)}")

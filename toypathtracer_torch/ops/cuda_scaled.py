@@ -20,6 +20,19 @@ csrc/scaled.cu.  CUDA tensors launch the kernels; CPU tensors take the
 plain versions (scaled.ChunkTraversal, scaled.render_tile_scaled_plain).
 There is no fallback: on a CUDA tensor a failed build, a refused launch or
 an unsupported shape raises.  `launches` counts kernel launches, per form.
+
+The scaled scene's gradient (scaled.py:712 render_frame_scaled(...,
+differentiable=True), BASELINE config 5 with gradients):
+`render_tile_scaled_grad` launches the gradient kernel's chunked instance
+(csrc/grad.cu chunk_grad_kernel, K3 over csrc/chunks.cuh's chunk walks
+with a table per warp in device memory; its soft instance where
+cfg.soft_silhouette_eps > 0), autograd through the plain version on the
+CPU; `render_tile_scaled_diff` / `render_frame_scaled(...,
+differentiable=True)` are the differentiable renders: on a card a
+torch.autograd.Function on the packed scene table whose forward is the
+scaled render kernel and whose backward is the chunked K3, on the CPU
+autograd through the plain version.  Gradients reach every float field of
+the ScaledScene through pack_scene; the chunk boxes carry none.
 """
 
 from __future__ import annotations
@@ -29,10 +42,12 @@ import ctypes
 import numpy as np
 import torch
 
-from ..config import RenderConfig, resolve_device
-from ..scaled import (ChunkTraversal, ScaledScene, group_boxes, pack_chunks,
-                      render_tile_scaled_plain, chunk_index)
+from ..config import RenderConfig, resolve_device, warn_diff_wavefront
+from ..scaled import (ChunkTraversal, ScaledScene, chunk_index, group_boxes,
+                      pack_chunks, render_tile_scaled_grad_plain,
+                      render_tile_scaled_plain, soft_boxes)
 from . import _build
+from .cuda_grad import launch_pool
 from .cuda_render import (LOOP_FIELDS, MAX_LIGHTS, STAT_FIELDS, STAT_SLOTS,
                           cuda_call, kernel_camera, pack_scene,
                           render_params)
@@ -59,7 +74,8 @@ SHADOW_COUNTERS = {"coop": "shadow_chunks",
                    "thread": "shadow_chunks_baseline"}
 
 launches = {"scaled_render": 0, "scaled_render_lane": 0,
-            "scaled_render_stats": 0, "hit_chunks": 0,
+            "scaled_render_stats": 0, "scaled_grad": 0,
+            "scaled_grad_soft": 0, "hit_chunks": 0,
             "hit_chunks_baseline": 0, "hit_chunks_counted": 0,
             "shadow_chunks": 0, "shadow_chunks_baseline": 0,
             "shadow_chunks_counted": 0}
@@ -360,18 +376,114 @@ def render_tile_scaled_form(scene: ScaledScene, cfg: RenderConfig,
     return out, rays
 
 
+def render_tile_scaled_grad(scene: ScaledScene, cfg: RenderConfig,
+                            frame: int, g_img, x0: int, y0: int, height: int,
+                            width: int, tab=None):
+    """Value and packed-scene cotangent of the (height, width) sub-image of
+    a ScaledScene at global pixel (x0, y0) for the pixel cotangent g_img
+    ((height, width, 3)): the gradient kernel's chunked instance on a card
+    (with cfg.soft_silhouette_eps > 0 its soft instance, the soft scans
+    over scaled.soft_boxes), autograd through the plain version on the
+    CPU.  `tab`: the packed table (default pack_scene(scene)).  Returns
+    ((height, width, 3) float32 image, 0-d int64 ray count, d_packed (14,
+    N) float32)."""
+    _check_scene(scene)
+    if not (height >= 1 and width >= 1 and x0 >= 0 and y0 >= 0):
+        raise ValueError(f"bad sub-image {height}x{width} at ({x0}, {y0})")
+    if tuple(g_img.shape) != (height, width, 3):
+        raise ValueError(f"pixel cotangent must be ({height}, {width}, 3), "
+                         f"got {tuple(g_img.shape)}")
+    warn_diff_wavefront(cfg)
+    dev = scene.device
+    g_img = g_img.detach().to(device=dev, dtype=torch.float32).contiguous()
+    if dev.type == "cpu":
+        return render_tile_scaled_grad_plain(scene, cfg, frame, g_img, x0,
+                                             y0, height, width, tab=tab)
+    if dev.type != "cuda":
+        raise ValueError(f"no renderer for device {dev}")
+    tab = (pack_scene(scene) if tab is None else tab).detach().contiguous()
+    if tab.shape != (14, scene.n_spheres) or tab.device != dev:
+        raise ValueError(f"packed table must be (14, {scene.n_spheres}) on "
+                         f"{dev}, got {tuple(tab.shape)} on {tab.device}")
+    C, K = scene.n_chunks, scene.chunk
+    rows = pack_chunks(scene)
+    box = rows[:, 4 * K:4 * K + 6].contiguous()
+    chunks = dict(rows=rows, box=box, n_chunks=C, chunk=K)
+    soft = cfg.soft_silhouette_eps > 0.0
+    if soft:
+        rmax = scene.radius.detach().reshape(C, K).amax(dim=1)
+        b = soft_boxes(box, rmax, cfg.soft_silhouette_eps)
+        chunks.update(sil_box=b["silhouette"], prox_box=b["proximity"])
+    lights, cam = kernel_camera(scene, cfg)
+    out = launch_pool(tab, scene.mat_ids().contiguous(), lights, cam,
+                      render_params(scene, cfg, frame, x0, y0, height, width),
+                      g_img, dev, chunks=chunks)
+    launches["scaled_grad_soft" if soft else "scaled_grad"] += 1
+    return out
+
+
+class _ScaledPackedRender(torch.autograd.Function):
+    """image = render(tab) of a ScaledScene on a card: forward the scaled
+    render kernel, backward the gradient kernel's chunked instance.  The
+    forward is the reference's lockstep primal: the scaled render kernel's
+    image equals the chunked K3's primal bit for bit, since both run
+    csrc/trace.cuh's per-pixel function over csrc/chunks.cuh's walks (the
+    cooperative form is held bit-equal to the per-lane render_pixel), as
+    K1's image is K4's on the flat scene; chip_smoke.py holds the two
+    equal on the card.  So the forward takes the fast kernel."""
+
+    @staticmethod
+    def forward(ctx, tab, scene, cfg, frame, tile):
+        img, rays = render_tile_scaled(scene, cfg, frame, *tile)
+        ctx.save_for_backward(tab)
+        ctx.args = (scene, cfg, frame, tile)
+        ctx.mark_non_differentiable(rays)
+        return img, rays
+
+    @staticmethod
+    def backward(ctx, g_img, _g_rays):
+        tab, = ctx.saved_tensors
+        scene, cfg, frame, (x0, y0, height, width) = ctx.args
+        _, _, d_tab = render_tile_scaled_grad(scene, cfg, frame, g_img, x0,
+                                              y0, height, width, tab=tab)
+        return d_tab, None, None, None, None
+
+
+def render_tile_scaled_diff(scene: ScaledScene, cfg: RenderConfig,
+                            frame: int, x0: int, y0: int, height: int,
+                            width: int):
+    """Differentiable (height, width) sub-image of a ScaledScene at global
+    pixel (x0, y0) on the scene's device: on a card the scaled render
+    kernel forward and the chunked K3 backward, on the CPU autograd through
+    the plain version (with the soft estimator's chunk scans where
+    cfg.soft_silhouette_eps > 0).  Returns ((height, width, 3) float32,
+    0-d int64 ray count)."""
+    warn_diff_wavefront(cfg)
+    tab = pack_scene(scene)
+    if scene.device.type == "cuda":
+        return _ScaledPackedRender.apply(tab, scene, cfg, frame,
+                                         (x0, y0, height, width))
+    if scene.device.type != "cpu":
+        raise ValueError(f"no renderer for device {scene.device}")
+    _check_scene(scene)
+    return render_tile_scaled_plain(scene, cfg, frame, x0, y0, height, width,
+                                    tab=tab)
+
+
 def render_frame_scaled(scene: ScaledScene, cfg: RenderConfig, frame: int,
                         device="cuda", row_blocks: int = 8,
                         differentiable: bool = False):
     """Render one full frame of a ScaledScene on `device` (default: the
     card; "cpu" runs the plain version).  `row_blocks` is accepted and
-    ignored: it never changes the image.  Returns ((H, W, 3) float32, 0-d
-    int64 ray count)."""
-    if differentiable:
-        raise NotImplementedError(
-            "render_frame_scaled(differentiable=True), the scaled scene's "
-            "gradient, is not ported yet (ROADMAP.md queue 1 item 11b)")
+    ignored: it never changes the image.  differentiable=True: the
+    differentiable render (render_tile_scaled_diff; the JAX package's
+    lockstep form, whose image is the same), gradients reaching the
+    scene's float fields through the move to the device.  Returns ((H, W,
+    3) float32, 0-d int64 ray count)."""
     scene = scene.to(resolve_device(device))
+    if differentiable:
+        return render_tile_scaled_diff(scene, cfg, frame, 0, 0, cfg.height,
+                                       cfg.width)
     return render_tile_scaled(scene, cfg, frame, 0, 0, cfg.height, cfg.width)
 
 

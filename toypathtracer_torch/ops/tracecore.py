@@ -261,10 +261,11 @@ class Work(NamedTuple):
     the sphere tests of the shadow rays' occlusion loops, the sphere root
     tests of the camera/bounce rays, the chunk-box slab tests of both (0
     for the brute-force traversal), and the soft estimator's sphere tests
-    (0 without it): the silhouette queries' (every sphere for a ray that
-    missed, the winner for one that hit) and the shadow-boundary scans'
-    (every sphere but the light for each shadow ray whose light lies in
-    front of the surface)."""
+    (0 without it): the silhouette queries' (a ray that missed: every
+    sphere, or for the chunked traversal those of the chunks its scan
+    enters; the winner for one that hit) and the shadow-boundary scans'
+    (every sphere but the light, or those of the chunks entered, for each
+    shadow ray whose light lies in front of the surface)."""
     traced: torch.Tensor
     shadow: torch.Tensor
     occlusion_tests: torch.Tensor
@@ -288,9 +289,17 @@ class BruteForce(NamedTuple):
     nearest_hit(ro, rd, t_min, t_max, active) -> (t, id, slab tests,
     sphere tests) and occluded(pos, l, light, t_min, t_l, active) ->
     (occluded, slab tests, sphere tests), with per-lane counters that the
-    caller masks; `active` may restrict the lanes it has to answer for
-    (scaled.ChunkTraversal is the chunked one, the port's form of the JAX
-    package's hit_chunks / lights_visible hooks)."""
+    caller masks; `active` may restrict the lanes it has to answer for.
+    The soft-silhouette estimator's scans: silhouette(ro, rd, t_min,
+    hit_id, soft_eps, active) -> (Silhouette, the sphere tests of a missed
+    ray's candidate scan) and proximity(pos, l, light, t_min, t_l,
+    soft_eps, active) -> (d_occ, the sphere tests of the scan); `active`
+    may restrict the lanes whose scan is read (the missed rays, the shadow
+    rays whose light lies in front of the surface), and a lane outside it
+    may take no candidate (occluder).  scaled.ChunkTraversal is the
+    chunked one, the port's form of the JAX package's hit_chunks /
+    lights_visible / silhouette_chunks / lights_occlusion_proximity
+    hooks."""
     tab: torch.Tensor
 
     def nearest_hit(self, ro, rd, t_min: float, t_max: float, active=None):
@@ -300,6 +309,17 @@ class BruteForce(NamedTuple):
     def occluded(self, pos, l, light: int, t_min: float, t_l, active=None):
         occ, tests = occluded(self.tab, pos, l, light, t_min, t_l)
         return occ, 0, tests
+
+    def silhouette(self, ro, rd, t_min: float, hit_id, soft_eps: float,
+                   active=None):
+        return (silhouette_query(self.tab, ro, rd, t_min, hit_id),
+                self.tab.shape[1])
+
+    def proximity(self, pos, l, light: int, t_min: float, t_l,
+                  soft_eps: float, active=None):
+        d_occ, _ = lights_occlusion_proximity(self.tab, pos, l, light, t_min,
+                                              t_l)
+        return d_occ, self.tab.shape[1] - 1
 
 
 class Winner(NamedTuple):
@@ -522,8 +542,8 @@ def nee_light_e(tab, cfg: RenderConfig, cones, pos, alb, normal, rd,
     BruteForce(tab)).
 
     soft_eps > 0: the soft shadow boundary.  Each light's visibility is
-    the straight-through sigmoid of -d_occ / eps (lights_occlusion_
-    proximity), written in the JAX package's association: stop(see -
+    the straight-through sigmoid of -d_occ / eps (the traversal's
+    proximity scan, lights_occlusion_proximity for BruteForce), written in the JAX package's association: stop(see -
     sigma) + sigma is `see` bit for bit (Sterbenz), and where the
     interval-overlap test and the sign of d_occ disagree the hard value
     stands with no gradient.  Its scans are counted in
@@ -551,8 +571,12 @@ def nee_light_e(tab, cfg: RenderConfig, cones, pos, alb, normal, rd,
         fac = torch.clamp_min(dl, 0.0) * omega / PI_F
         em = (tab[ROW_EM, e], tab[ROW_EM + 1, e], tab[ROW_EM + 2, e])
         if soft_eps > 0.0:
-            d_occ, _ = lights_occlusion_proximity(tab, pos, l, e, cfg.min_t,
-                                                  t_l.detach())
+            # only lanes whose light lies in front of the surface carry
+            # the term (fac = 0 elsewhere); the others take no occluder
+            scanned = lane_on & (dl > 0.0)
+            d_occ, scan = traversal.proximity(pos, l, e, cfg.min_t,
+                                              t_l.detach(), soft_eps,
+                                              active=scanned)
             see_f = see.to(torch.float32)
             vis_s = soft_weight(-d_occ, soft_eps)
             agree = see == (d_occ < 0.0)
@@ -561,8 +585,7 @@ def nee_light_e(tab, cfg: RenderConfig, cones, pos, alb, normal, rd,
             lane_f = lane_on.to(torch.float32)
             light_e = tuple(light_e[k] + (alb[k] * em[k]) * fac * vis
                             * lane_f for k in range(3))
-            prox_tests = prox_tests + torch.where(
-                lane_on & (dl > 0.0), tab.shape[1] - 1, 0)
+            prox_tests = prox_tests + torch.where(scanned, scan, 0)
         else:
             on = lane_on & see
             light_e = tuple(torch.where(
@@ -596,17 +619,6 @@ def scatter_dielectric(state, rd, normal, refl, ri):
     return state, normalize3(sel3(rr < refl_prob, refl, refr))
 
 
-def check_soft_traversal(traversal, soft_eps: float):
-    """The soft estimator's scans are written for the brute-force
-    traversal; the chunked one (a ScaledScene) has none yet."""
-    if soft_eps > 0.0 and not isinstance(traversal, BruteForce):
-        raise NotImplementedError(
-            "soft_silhouette_eps > 0 on a chunked scene: the scaled scene's "
-            "silhouette and shadow-boundary chunk scans belong to its "
-            "differentiable render, not ported yet (ROADMAP.md queue 1 "
-            "item 11b)")
-
-
 def bounce(tab, mat, emissive_ids, cfg: RenderConfig, carry,
            traversal=None, soft_eps: float = 0.0):
     """One bounce over all lanes (tracecore.bounce_parts with GPU
@@ -627,7 +639,6 @@ def bounce(tab, mat, emissive_ids, cfg: RenderConfig, carry,
     their values bit for bit; only the backward changes."""
     if traversal is None:
         traversal = BruteForce(tab)
-    check_soft_traversal(traversal, soft_eps)
     ro, rd, alive, do_me, state, work = carry
     (traced, shadow, occ_tests, hit_tests, slab_tests, sil_tests,
      prox_tests) = work
@@ -691,7 +702,8 @@ def bounce(tab, mat, emissive_ids, cfg: RenderConfig, carry,
         # hit lane, where d > 0 puts sigma >= 0.5; 0 on a miss lane) and
         # w_m is 0.  Backward: sigma' into the winner (hit lanes) or the
         # candidate (miss lanes with one) and the ray.
-        q = silhouette_query(tab, ro, rd, cfg.min_t, hit_id)
+        q, scan = traversal.silhouette(ro, rd, cfg.min_t, hit_id, soft_eps,
+                                       active=no_hit)
         w_hard = hit_id.ge(0).to(torch.float32)
         w_soft = soft_weight(q.d, soft_eps) * w_hard
         w_hit = (w_hard - w_soft).detach() + w_soft
@@ -706,7 +718,7 @@ def bounce(tab, mat, emissive_ids, cfg: RenderConfig, carry,
             + w_m * (l_est[k] - sky[k]) for k in range(3)), zero3)
         c = sel3(alive, scale3(c_hit, w_hit), (one, one, one))
         sil_tests = sil_tests + torch.where(
-            no_hit, tab.shape[1], torch.where(hit, 1, 0))
+            no_hit, scan, torch.where(hit, 1, 0))
     else:
         e = sel3(scat, add3(gated_e, light_e),
                  sel3(died, mat_e, sel3(no_hit, sky, zero3)))

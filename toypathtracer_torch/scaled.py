@@ -306,8 +306,9 @@ def _spans(n: int, dev, pairs: bool = False):
 
 class ChunkTraversal:
     """The plain chunk traversal over pack_chunks rows (C, 4K+8): the
-    plain version of K5 (`nearest_hit`) and K6 (`occluded`), and the
-    traversal hook ops/tracecore.render_pixels takes for a ScaledScene.
+    plain version of K5 (`nearest_hit`) and K6 (`occluded`), of the soft
+    estimator's chunk scans (`silhouette`, `proximity`), and the traversal
+    hook ops/tracecore.render_pixels takes for a ScaledScene.
 
     Each query is the jnp chunk scan's function on 1-D lanes, computed
     without a Python loop over chunks: the slab tests of all chunks at
@@ -315,9 +316,18 @@ class ChunkTraversal:
     enters at all, then the scan's sequential rule replayed per lane in
     chunk order (a chunk is live when its entry lies within the running
     best; strict `<` across chunks).  Work counters are per lane: slab
-    tests and sphere tests as the kernels (csrc/chunks.cuh) do them."""
+    tests and sphere tests as the kernels (csrc/chunks.cuh) do them.
 
-    def __init__(self, rows: torch.Tensor, chunk: int):
+    Under autograd (`tab`, the packed scene table the render reads, given
+    and grad enabled) the scans pick their sphere without a graph, and the
+    value that carries the gradient is computed again from `tab` for that
+    sphere alone, as the JAX scan's argmin and gather hand the gradient to
+    the winner only (scaled.py:721-731): the hit's root t (straight
+    through: its value is the scan's), the silhouette's and the shadow
+    boundary's discriminants.  So the graph holds O(lanes) per bounce, not
+    O(lanes x chunks).  The chunk boxes only gate and carry no gradient."""
+
+    def __init__(self, rows: torch.Tensor, chunk: int, tab=None):
         K = chunk
         self.chunk = K
         self.n_chunks = rows.shape[0]
@@ -325,6 +335,28 @@ class ChunkTraversal:
                                                for i in range(4))
         self.box = rows[:, 4 * K:4 * K + 6]
         self.base = rows[:, 4 * K + 6].to(torch.int64)
+        self.tab = tab
+        self._soft_boxes = {}
+
+    def _grad(self) -> bool:
+        return (self.tab is not None and self.tab.requires_grad
+                and torch.is_grad_enabled())
+
+    def _column(self, i):
+        """The (cx, cy, cz, r^2) table rows at sphere ids i (autograd
+        reaches `tab`)."""
+        return tuple(self.tab[r][i] for r in (tc.ROW_CX, tc.ROW_CY,
+                                              tc.ROW_CZ, tc.ROW_SQR))
+
+    def soft_box(self, kind: str, eps: float):
+        """The soft scans' inflated chunk boxes (soft_boxes), kept per
+        (kind, eps)."""
+        key = (kind, float(eps))
+        if key not in self._soft_boxes:
+            rmax = self.tab[tc.ROW_R].detach().reshape(
+                self.n_chunks, self.chunk).amax(dim=1)
+            self._soft_boxes[key] = soft_boxes(self.box, rmax, eps)[kind]
+        return self._soft_boxes[key]
 
     def _pair_geometry(self, ci, pi, ro):
         cox = self.cx[ci] - ro[0][pi, None]
@@ -347,21 +379,27 @@ class ChunkTraversal:
         the two roots."""
         P = ro[0].shape[0]
         dev = ro[0].device
-        t = torch.full((P,), t_max, dtype=torch.float32, device=dev)
-        hid = torch.full((P,), -1, dtype=torch.int64, device=dev)
-        spheres = torch.zeros((P,), dtype=torch.int64, device=dev)
-        roots = torch.zeros((P,), dtype=torch.int64, device=dev)
-        lanes = torch.arange(P, device=dev) if active is None else \
-            active.nonzero().squeeze(1)
-        for s in _spans(lanes.shape[0], dev):
-            idx = lanes[s]
-            t[idx], hid[idx], spheres[idx], roots[idx] = self._hit_lanes(
-                tuple(x[idx] for x in ro), tuple(x[idx] for x in rd),
-                t_min, t_max)
-        slabs = torch.full((P,), self.n_chunks, dtype=torch.int64,
-                           device=dev)
-        if active is not None:
-            slabs = torch.where(active, slabs, 0)
+        with torch.no_grad():
+            t = torch.full((P,), t_max, dtype=torch.float32, device=dev)
+            hid = torch.full((P,), -1, dtype=torch.int64, device=dev)
+            spheres = torch.zeros((P,), dtype=torch.int64, device=dev)
+            roots = torch.zeros((P,), dtype=torch.int64, device=dev)
+            lanes = torch.arange(P, device=dev) if active is None else \
+                active.nonzero().squeeze(1)
+            for s in _spans(lanes.shape[0], dev):
+                idx = lanes[s]
+                t[idx], hid[idx], spheres[idx], roots[idx] = self._hit_lanes(
+                    tuple(x[idx] for x in ro), tuple(x[idx] for x in rd),
+                    t_min, t_max)
+            slabs = torch.full((P,), self.n_chunks, dtype=torch.int64,
+                               device=dev)
+            if active is not None:
+                slabs = torch.where(active, slabs, 0)
+        if self._grad():
+            # the winner's root again, for its gradient: the scan's value
+            tt, _ = tc.sphere_t(*self._column(hid.clamp_min(0)), ro, rd,
+                                t_min)
+            t = torch.where(hid >= 0, t + (tt - tt.detach()), t)
         return t, hid, slabs, spheres, roots
 
     def _hit_lanes(self, ro, rd, t_min, t_max):
@@ -428,17 +466,18 @@ class ChunkTraversal:
         counters follow a loop that stops at the first occluder."""
         P = pos[0].shape[0]
         dev = pos[0].device
-        occ = torch.zeros((P,), dtype=torch.bool, device=dev)
-        slabs = torch.zeros((P,), dtype=torch.int64, device=dev)
-        spheres = torch.zeros((P,), dtype=torch.int64, device=dev)
-        lanes = torch.arange(P, device=dev) if active is None else \
-            active.nonzero().squeeze(1)
-        for s in _spans(lanes.shape[0], dev):
-            idx = lanes[s]
-            o, sl, sp = self._occ_lanes(
-                tuple(x[idx] for x in pos), tuple(x[idx] for x in l),
-                light, t_min, t_l[idx])
-            occ[idx], slabs[idx], spheres[idx] = o, sl, sp
+        with torch.no_grad():
+            occ = torch.zeros((P,), dtype=torch.bool, device=dev)
+            slabs = torch.zeros((P,), dtype=torch.int64, device=dev)
+            spheres = torch.zeros((P,), dtype=torch.int64, device=dev)
+            lanes = torch.arange(P, device=dev) if active is None else \
+                active.nonzero().squeeze(1)
+            for s in _spans(lanes.shape[0], dev):
+                idx = lanes[s]
+                o, sl, sp = self._occ_lanes(
+                    tuple(x[idx] for x in pos), tuple(x[idx] for x in l),
+                    light, t_min, t_l[idx])
+                occ[idx], slabs[idx], spheres[idx] = o, sl, sp
         return occ, slabs, spheres
 
     def occlusion_bits(self, ro, dirs, t_ls, light_ids, t_min: float):
@@ -489,6 +528,132 @@ class ChunkTraversal:
         spheres.index_add_(0, pi, torch.where(before, K, 0)
                            + torch.where(at, first + 1, 0))
         return occ, torch.clamp_max(c_first + 1, C), spheres
+
+    def silhouette(self, ro, rd, t_min: float, hit_id, soft_eps: float,
+                   active=None):
+        """The silhouette query of the soft estimator (tracecore.Silhouette,
+        scaled.py:396 silhouette_chunks) and the sphere tests of each
+        lane's candidate scan.  A hit lane's d is its winner's; a lane that
+        missed (hit_id < 0) scans the chunks whose box, inflated by
+        delta_c = sqrt(rmax_c^2 + 8 eps), its ray enters within (t_min,
+        1e7), for the largest d among the spheres in front of it (nb >
+        t_min) and not padding (r^2 > 0), the first on ties, from -1e9;
+        its candidate is on where that d exceeds -1e8.  Hit lanes scan
+        nothing (their candidate is never read), nor misses outside
+        `active`.  Needs `tab`."""
+        P = ro[0].shape[0]
+        dev = ro[0].device
+        box = self.soft_box("silhouette", soft_eps)
+        with torch.no_grad():
+            cand = torch.full((P,), -1, dtype=torch.int64, device=dev)
+            tests = torch.zeros((P,), dtype=torch.int64, device=dev)
+            miss = hit_id < 0
+            lanes = (miss if active is None else miss & active).nonzero() \
+                .squeeze(1)
+            for s in _spans(lanes.shape[0], dev):
+                idx = lanes[s]
+                cand[idx], tests[idx] = self._scan_lanes(
+                    box, tuple(x[idx] for x in ro), tuple(x[idx] for x in rd),
+                    t_min, None, None)
+        hit = hit_id >= 0
+        key = torch.where(hit, hit_id, cand)
+        nb, d = tc.sphere_discr(*self._column(key.clamp_min(0)), ro, rd)
+        d = torch.where(key >= 0, d, -1e9)
+        cand_on = ~hit & (cand >= 0) & (d > -1e8)
+        return tc.Silhouette(d=d, cand=torch.where(cand_on, cand, -1),
+                             cand_on=cand_on, nb=nb), tests
+
+    def proximity(self, pos, l, light: int, t_min: float, t_l,
+                  soft_eps: float, active=None):
+        """The soft shadow boundary's signed occlusion proximity of one
+        light (scaled.py:502 lights_occlusion_proximity): over the chunks
+        whose box, inflated by sqrt(rmax_c^2 + 8 max(eps, 1)), the shadow
+        ray enters within (t_min, t_l), the largest d of the spheres but
+        `light` whose closest approach lies in (t_min, t_l), -1e9 where
+        there is none; and the sphere tests of the scan.  The chunks are
+        gated lane by lane; the JAX scan gates them for a batch of lanes at
+        once, so where a lane's largest d lies below the band the
+        estimator sees (-8 max(eps, 1)) its value there may be larger,
+        which no gradient can tell.  Lanes outside `active` scan nothing.
+        Needs `tab`."""
+        P = pos[0].shape[0]
+        dev = pos[0].device
+        box = self.soft_box("proximity", soft_eps)
+        with torch.no_grad():
+            occ = torch.full((P,), -1, dtype=torch.int64, device=dev)
+            tests = torch.zeros((P,), dtype=torch.int64, device=dev)
+            lanes = torch.arange(P, device=dev) if active is None else \
+                active.nonzero().squeeze(1)
+            for s in _spans(lanes.shape[0], dev):
+                idx = lanes[s]
+                occ[idx], tests[idx] = self._scan_lanes(
+                    box, tuple(x[idx] for x in pos), tuple(x[idx] for x in l),
+                    t_min, t_l[idx], light)
+        _, d = tc.sphere_discr(*self._column(occ.clamp_min(0)), pos, l)
+        return torch.where(occ >= 0, d, -1e9), tests
+
+    def _scan_lanes(self, box, ro, rd, t_min, t_l, light):
+        """The soft scans on a batch of lanes: with t_l None the
+        silhouette candidate's (segment (t_min, 1e7), spheres in front and
+        not padding), else the occluder of `light`'s shadow segment (t_min,
+        t_l).  The chunks whose `box` the ray enters, in order; the first
+        sphere of the largest d above -1e9 (the scans' strict `>` chains).
+        Returns (sphere id or -1, sphere tests) per lane."""
+        P = ro[0].shape[0]
+        dev = ro[0].device
+        K = self.chunk
+        inv = tuple(safe_inv(d) for d in rd)
+        t0, t1 = _slabs(box, ro, inv, t_min)
+        live = t0 <= (torch.clamp_max(t1, 1e7) if t_l is None
+                      else torch.minimum(t_l, t1))
+        pi, ci = live.t().nonzero(as_tuple=True)  # lane-major, chunks in order
+        n = pi.shape[0]
+        best = torch.empty((n,), dtype=torch.float32, device=dev)
+        jb = torch.empty((n,), dtype=torch.int64, device=dev)
+        j = torch.arange(K, device=dev)
+        for s in _spans(n, dev, pairs=True):
+            c_, p_ = ci[s], pi[s]
+            cox, coy, coz, cq = self._pair_geometry(c_, p_, ro)
+            nb = cox * rd[0][p_, None] + coy * rd[1][p_, None] \
+                + coz * rd[2][p_, None]
+            d = nb * nb - cq
+            if t_l is None:
+                keep = (nb > t_min) & (self.sqr[c_] > 0.0)
+            else:
+                keep = (nb > t_min) & (nb < t_l[p_, None]) \
+                    & ((self.base[c_, None] + j) != light)
+            best[s], jb[s] = torch.where(keep, d, -1e9).max(dim=1)
+        # per lane: the largest chunk best above -1e9, the first chunk of it
+        top = torch.full((P,), -1e9, dtype=torch.float32, device=dev)
+        top.scatter_reduce_(0, pi, best, "amax")
+        win = (best > -1e9) & (best == top[pi])
+        c_win = torch.full((P,), self.n_chunks, dtype=torch.int64,
+                           device=dev)
+        c_win.scatter_reduce_(0, pi[win], ci[win], "amin")
+        first = win & (ci == c_win[pi])
+        found = torch.full((P,), -1, dtype=torch.int64, device=dev)
+        found[pi[first]] = self.base[ci[first]] + jb[first]
+        return found, live.sum(dim=0) * K
+
+
+def soft_boxes(box: torch.Tensor, rmax: torch.Tensor, eps: float) -> dict:
+    """The chunk boxes (C, 6) of the soft estimator's two scans, each
+    widened on every side by a margin from its chunk's largest radius
+    (scaled.py:396, :502): {"silhouette": delta = sqrt(rmax^2 + 8 eps),
+    "proximity": sqrt(rmax^2 + 8 max(eps, 1))}, in float32 as the JAX
+    package rounds them (min - delta, max + delta), the square root
+    correctly rounded.  A ray that misses a widened box passes every
+    sphere in it at a discriminant below -8 eps, where the estimator's
+    sigmoid and its gradient are below 3.4e-4 of their peak.  The kernels
+    take the same boxes (ops/cuda_scaled)."""
+    r2 = (rmax * rmax).to(torch.float32)
+    out = {}
+    for kind, margin in (("silhouette", 8.0 * float(np.float32(eps))),
+                         ("proximity", 8.0 * max(float(eps), 1.0))):
+        delta = sqrt_rn(r2 + float(np.float32(margin)))[:, None]
+        out[kind] = torch.cat([box[:, :3] - delta, box[:, 3:] + delta],
+                              dim=1).contiguous()
+    return out
 
 
 def pack_chunks(scene: ScaledScene) -> torch.Tensor:
@@ -602,19 +767,39 @@ class ChunkedScenePort:
             s.chunk, tuple(light_ids), t_min, index=self.chunk_index)
         return [h & (((occ >> k) & 1) == 0) for k, h in enumerate(hits)]
 
-    def silhouette_chunks(self, *args, **kw):
-        raise NotImplementedError(
-            "the soft-silhouette chunk scan (the scaled scene's form of "
-            "ops/tracecore.silhouette_query) belongs to the scaled scene's "
-            "differentiable render, not ported yet (ROADMAP.md queue 1 "
-            "item 11b)")
+    def silhouette_chunks(self, ro, rd, t_min: float, hit_id, eps: float):
+        """The soft estimator's silhouette query over chunks (scaled.py:396)
+        on lane planes of any shape: tracecore.Silhouette (d, candidate id
+        or -1, cand_on, the candidate's nb) in the lanes' shape, through
+        the plain chunk scan (ChunkTraversal.silhouette) on any device.
+        Autograd reaches the scene's center and radius."""
+        shape = ro[0].shape
+        q, _ = self._traversal().silhouette(
+            _flat(ro), _flat(rd), t_min, hit_id.reshape(-1).to(torch.int64),
+            eps)
+        return tc.Silhouette(*(x.reshape(shape) for x in q))
 
-    def lights_occlusion_proximity(self, *args, **kw):
-        raise NotImplementedError(
-            "the soft NEE shadow-boundary chunk scan (the scaled scene's "
-            "form of ops/tracecore.lights_occlusion_proximity) belongs to "
-            "the scaled scene's differentiable render, not ported yet "
-            "(ROADMAP.md queue 1 item 11b)")
+    def lights_occlusion_proximity(self, ro, dirs, light_ids, t_min: float,
+                                   t_ls, eps: float = 1.0):
+        """The soft shadow boundary's occlusion proximity over chunks
+        (scaled.py:502), one lane plane per light: the largest discriminant
+        of the spheres but the light whose closest approach lies in (t_min,
+        t_l), -1e9 where there is none (ChunkTraversal.proximity).  `eps`
+        is the soft_silhouette_eps the sigmoid uses: the chunk boxes'
+        margin scales with max(eps, 1)."""
+        shape = ro[0].shape
+        trav = self._traversal()
+        return [trav.proximity(_flat(ro), _flat(l), int(e), t_min,
+                               t_l.reshape(-1), eps)[0].reshape(shape)
+                for e, l, t_l in zip(light_ids, dirs, t_ls)]
+
+    def _traversal(self) -> ChunkTraversal:
+        return ChunkTraversal(self.rows, self.scene.chunk,
+                              tab=pack_scene(self.scene))
+
+
+def _flat(planes):
+    return tuple(x.reshape(-1) for x in planes)
 
 
 # ---------------------------------------------------------------------------
@@ -624,26 +809,50 @@ class ChunkedScenePort:
 
 def render_tile_scaled_plain(scene: ScaledScene, cfg: RenderConfig,
                              frame: int, x0: int, y0: int, height: int,
-                             width: int, with_work: bool = False):
+                             width: int, with_work: bool = False, tab=None):
     """Render the (height, width) sub-image at global pixel (x0, y0) of a
     ScaledScene on its device: tracecore.render_pixels with the chunk
-    traversal -- the plain version of the scaled render kernel.  Returns
+    traversal -- the plain version of the scaled render kernel, and under
+    autograd (`tab`, default pack_scene(scene), requiring grad) the plain
+    version of the chunked gradient kernel, with the soft-silhouette
+    estimator's chunk scans where cfg.soft_silhouette_eps > 0.  Returns
     ((height, width, 3) float32, 0-d int64 ray count), plus the per-lane
     tracecore.Work when with_work."""
-    from .render.wavefront import camera_scalars
+    from .render.wavefront import camera_scalars, gradient_soft_eps
     dev = scene.device
+    if tab is None:
+        tab = pack_scene(scene)
     yy, xx = torch.meshgrid(
         torch.arange(y0, y0 + height, device=dev, dtype=torch.int64),
         torch.arange(x0, x0 + width, device=dev, dtype=torch.int64),
         indexing="ij")
     col, work = tc.render_pixels(
-        pack_scene(scene), scene.mat_ids().to(torch.int64),
+        tab, scene.mat_ids().to(torch.int64),
         scene.emissive_ids, cfg, camera_scalars(scene, cfg),
         xx.reshape(-1), yy.reshape(-1), frame,
-        traversal=ChunkTraversal(pack_chunks(scene), scene.chunk))
+        traversal=ChunkTraversal(pack_chunks(scene), scene.chunk, tab=tab),
+        soft_eps=gradient_soft_eps(cfg, tab))
     img = torch.stack(col, dim=-1).reshape(height, width, 3)
     rays = work.traced.sum() + work.shadow.sum()
     return (img, rays, work) if with_work else (img, rays)
+
+
+def render_tile_scaled_grad_plain(scene: ScaledScene, cfg: RenderConfig,
+                                  frame: int, g_img, x0: int, y0: int,
+                                  height: int, width: int, tab=None):
+    """Value and packed-scene cotangent of a sub-image of a ScaledScene for
+    the pixel cotangent g_img ((height, width, 3)): autograd through
+    render_tile_scaled_plain, the chunked gradient kernel's plain version
+    (with cfg.soft_silhouette_eps > 0 the soft estimator's cotangent).
+    Returns (image, 0-d int64 ray count, d_packed (SCENE_ROWS, N))."""
+    if tab is None:
+        tab = pack_scene(scene)
+    tab = tab.detach().requires_grad_(True)
+    with torch.enable_grad():
+        img, rays = render_tile_scaled_plain(scene, cfg, frame, x0, y0,
+                                             height, width, tab=tab)
+        d_tab, = torch.autograd.grad(img, tab, g_img.to(img))
+    return img.detach(), rays, d_tab
 
 
 def render_frame_scaled_plain(scene: ScaledScene, cfg: RenderConfig,

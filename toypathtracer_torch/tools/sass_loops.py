@@ -22,7 +22,9 @@ With --compare DIR (the root of another checkout of the repo, e.g. the
 parent commit unpacked with `git archive` into a directory that .gitignore
 lists) it builds that checkout's library too, in a process of its own, and
 lists instead the kernels whose SASS is identical in the two libraries,
-those that differ, and those that only one has.  --same HERE=THERE,...
+those that differ (and of these, those that differ only in the offsets of
+the parameters they read: a struct argument that grew moves them), and
+those that only one has.  --same HERE=THERE,...
 compares a kernel renamed here with its name there (a kernel that became
 a template: --same "hit_chunks_kernel<0>=hit_chunks_kernel").
 
@@ -166,10 +168,25 @@ def sass_diff(funcs: dict, theirs: dict, same=None) -> dict:
         if there in theirs:
             theirs[here] = theirs.pop(there)
     common = sorted(set(funcs) & set(theirs))
+    differ = [k for k in common if funcs[k] != theirs[k]]
     return {"identical": [k for k in common if funcs[k] == theirs[k]],
-            "differ": [k for k in common if funcs[k] != theirs[k]],
+            "differ": differ,
+            "parameter_offsets_only": [
+                k for k in differ
+                if without_parameter_offsets(funcs[k])
+                == without_parameter_offsets(theirs[k])],
             "only_here": sorted(set(funcs) - set(theirs)),
             "only_there": sorted(set(theirs) - set(funcs))}
+
+
+PARAM = re.compile(r"c\[0x0\]\[0x[0-9a-f]+\]")
+
+
+def without_parameter_offsets(code) -> list:
+    """A kernel's SASS with every read of its parameter bank,
+    c[0x0][offset], made the same: two kernels that differ only where a
+    parameter moved (a struct argument grew) are equal here."""
+    return [(a, PARAM.sub("c[0x0][PARAM]", t)) for a, t in code]
 
 
 def main(argv=None) -> dict:

@@ -13,7 +13,8 @@ def crowded_scene(extra: int = 84, seed: int = 3) -> Scene:
     floor in front of the camera (130 spheres by default): Lambert, metal
     and dielectric in turn, albedos and roughness from a seeded numpy
     generator.  More spheres than the gradient kernel's replaying form
-    takes (64); its warp form takes up to 512."""
+    takes (64); its warp form takes up to 512, and with extra=554 (600
+    spheres) the route takes its pool form."""
     scene = make_scene(big=True)
     rng = np.random.RandomState(seed)
     idx = np.arange(extra)

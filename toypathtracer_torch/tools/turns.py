@@ -2,7 +2,8 @@
 of the port in turns, on one card.
 
     python -m toypathtracer_torch.tools.turns DIR [DIR ...] [--rounds 4]
-        [--metrics k1_ms,k2_ms,step_ms,k6_ms,k5_ms] [--out PATH]
+        [--metrics k1_ms,k2_ms,step_ms,k6_ms,k5_ms,k3_ms,k3_soft_ms]
+        [--out PATH]
 
 Each DIR is the root of a checkout of the repo (this one is "."; an older
 commit can be unpacked with `git archive` into a directory that
@@ -26,7 +27,11 @@ process imports its own checkout's package, renders one warm-up frame
   tool;
 - "k5_ms": ops.cuda_scaled.hit_chunks on the same workload's camera rays
   (frame 0's 921,600) with the port's index, CUDA events over 16 calls,
-  where the checkout has that tool.
+  where the checkout has that tool;
+- "k3_ms", "k3_soft_ms": ops.cuda_grad.render_tile_grad_form's warp form
+  (the gradient kernel on the training step's path) for a seeded uniform
+  pixel cotangent, hard and with soft_silhouette_eps 0.05, CUDA events
+  over 8 calls after one warm-up call.
 
 --metrics times only the metrics named (default all).
 
@@ -112,10 +117,22 @@ if shadow_stats is not None and {"k5_ms", "k6_ms"} & set(want):
                                      cfg.max_t)
         k5()
         r["k5_ms"] = time_device_call(k5, repeats=16)[0] * 1e3
+for key, eps in (("k3_ms", 0.0), ("k3_soft_ms", 0.05)):
+    if key not in want:
+        continue
+    from toypathtracer_torch.ops import cuda_grad
+    g = torch.from_numpy(np.random.RandomState(11).rand(H, W, 3)
+                         .astype(np.float32)).to("cuda")
+    c = cfg.replace(soft_silhouette_eps=eps)
+    args = (scene, c, 0, g, 0, 0, H, W, "warp")
+    cuda_grad.render_tile_grad_form(*args)
+    r[key] = time_device_call(cuda_grad.render_tile_grad_form, *args,
+                              repeats=8)[0] * 1e3
 print(json.dumps(r), flush=True)
 '''
 
-METRICS = ("k1_ms", "k2_ms", "step_ms", "k6_ms", "k5_ms")
+METRICS = ("k1_ms", "k2_ms", "step_ms", "k6_ms", "k5_ms", "k3_ms",
+           "k3_soft_ms")
 
 
 def run_child(root: Path, metrics) -> dict:
