@@ -11,7 +11,11 @@ non-zero):
      soft one; the replaying soft instance's counts recorded in phase
      7g), K4's per-thread form, both K5 forms,
      both K6 forms, both K2 forms, the per-lane and the cooperative scaled
-     render kernels and the merged K1 held at their counts.
+     render kernels and the merged K1 held at their counts; the 16-light
+     instances of K3's warp and replaying forms and the cooperative
+     scaled render kernel held at the SASS they had before their lights
+     instances (KEPT_SASS digests, where the toolkit is the one they were
+     taken with).
   2. kernel vs plain at 320x176, spp 2, depth 6, frames 0-3: the big
      scene, the big scene without light sampling, the small scene; in each
      the merged K1 (the main path's) bit-equal to the per-thread K1 it
@@ -114,26 +118,39 @@ non-zero):
      clock under load, and every thread of each case's and each floor's
      launches against the plain version.
  14. the gradient kernel's pool instance (K3 with a table per warp in
-     device memory): bit-equal to the warp form on its grid at 46 and 130
-     spheres, hard and soft; at 600 spheres (past the warp form's 512)
-     against plain autograd at 320x176, hard and soft; Adam steps on the
+     device memory, found through a block directory): bit-equal to the
+     warp form on its grid at 46 and 130 spheres, hard and soft; at 600
+     spheres (past the warp form's 512) against plain autograd at
+     320x176, hard and soft; at 40 lights (past the carry record's 16
+     bits) the warp form's lights instance and the pool form against
+     plain autograd and bit-equal to each other; Adam steps on the
      600-sphere scene at 1280x720 (one render and one pool launch a
      step); timed in turns with the warp form at 46 spheres.
  15. the scaled scene's gradient, render_frame_scaled(differentiable=
      True) on the 100k-sphere scene at 1280x720, spp 4, depth 10, hard
-     and eps 0.05: one scaled render and one chunked K3 launch each.
- 16. the chunked K3 there: rays equal to plain, the image bit-equal to
-     the scaled render kernel's, per row within 1e-3 of plain autograd on
-     three 8-row bands, two launches bit-equal, albedo AD vs FD, timing,
-     the bound from the plain version's work counters.
+     and eps 0.05: one tape-writing render (its tape held across
+     autograd: the bytes the forward leaves allocated) and one sweep
+     launch each; step 1's cycle shares of the per-lane chunked instance.
+ 16. the cooperative chunked K3 there: rays equal to plain, the image
+     bit-equal to the scaled render kernel's, the cotangent bit-equal to
+     the per-lane chunk_grad_kernel on its grid, per row within 1e-3 of plain
+     autograd on three 8-row bands, two launches bit-equal, albedo AD vs
+     FD, the two forms timed in turns and the tape render and the sweep
+     alone, the directory's (<= 420 MB) and the tape's bytes, the bounds
+     from the plain version's work counters.
  17. the reference's configuration (2000 spheres, chunk 64, 32x8, spp 1,
-     depth 3, hard and eps 1.0) against plain, and the geometry recovery
-     of tests/test_scaled.py:305 through the soft instance (60 Adam
-     steps): final error < 0.4 x initial, final loss < 0.2 x first.
+     depth 3, hard and eps 1.0, and with 40 lights) against plain, and
+     the geometry recovery of tests/test_scaled.py:305 through the soft
+     instance (60 Adam steps, one tape render and one soft sweep a step):
+     final error < 0.4 x initial, final loss < 0.2 x first.
  18. the `kernels` line: render, render_baseline, grad, grad_replay,
      lockstep, grad_soft, scaled_render, hit_chunks, hit_chunks_baseline, shadow_chunks,
      shadow_chunks_baseline, render_stats, render_stats_baseline,
-     issue_rate, launch_floor, grad_pool, scaled_grad, scaled_grad_soft.
+     issue_rate, launch_floor, grad_pool, scaled_grad_sweep,
+     scaled_grad_sweep_soft (the cooperative form's sweeps),
+     scaled_grad_baseline,
+     scaled_grad_baseline_soft (the per-lane chunked instance),
+     scaled_grad_tape (the cooperative form's forward).
 Then the card's name and power limit as nvidia-smi reports them, and the
 `ok` line last.  Exits non-zero without a CUDA device.
 """
@@ -158,7 +175,12 @@ import torch
 # walk the merged K1 and the cooperative K6 share; and K3's warp form (its
 # hard and soft instances, which the pool and chunked instances beside
 # them must leave as they were), the merged K1, the cooperative K5 and K6
-# and the merged K2 at their own counts.
+# and the merged K2 at their own counts; the cooperative scaled render's
+# lights instance (past 16 lights; the 16-light kernel keeps its SASS,
+# KEPT_SASS), K3's lights
+# instances, its pool and chunked instances (their directory and, for the
+# pool's, lights repaired) and the cooperative chunked form's kernels at
+# their first counts.
 KEPT_USAGE = {
     "render_kernel<1>": {"registers": 72, "spill_stores": 16},
     "coop_shadow_kernel<0>": {"registers": 40, "spill_stores": 12},
@@ -174,7 +196,49 @@ KEPT_USAGE = {
     "hit_chunks_kernel<0>": {"registers": 40, "spill_stores": 0},
     "coop_hit_kernel<0>": {"registers": 40, "spill_stores": 32},
     "shadow_chunks_kernel<0>": {"registers": 32, "spill_stores": 0},
+    "lights_warp_grad_kernel<0>": {"registers": 40, "spill_stores": 1258},
+    "lights_warp_grad_kernel<1>": {"registers": 40, "spill_stores": 1486},
+    "pool_grad_kernel<0>": {"registers": 64, "spill_stores": 858},
+    "pool_grad_kernel<1>": {"registers": 64, "spill_stores": 950},
+    "chunk_grad_kernel<0>": {"registers": 64, "spill_stores": 790},
+    "chunk_grad_kernel<1>": {"registers": 64, "spill_stores": 990},
+    "tape_render_kernel<0>": {"registers": 96, "spill_stores": 122},
+    "tape_render_kernel<1>": {"registers": 96, "spill_stores": 350},
+    "lights_render_kernel": {"registers": 96, "spill_stores": 290},
+    "chunk_sweep_kernel<0>": {"registers": 64, "spill_stores": 552},
+    "chunk_sweep_kernel<1>": {"registers": 64, "spill_stores": 644},
 }
+
+
+# SHA-256 of the SASS (tools.sass_loops --digests) of the kernels whose
+# code the lights instances beside them must leave as it was: K3's warp
+# form's and replaying form's 16-light instances, timed and stats, and
+# the cooperative scaled render kernel (the scaled main path's), as the
+# sources before those lights instances built them on an H100 with this
+# nvcc (tools.sass_loops --compare against that checkout lists them
+# identical).  A build by another toolkit is not comparable.
+KEPT_SASS = {
+    "nvcc": "Cuda compilation tools, release 12.9, V12.9.86",
+    "digests": {
+        "warp_grad_kernel<0>":
+            "7d5b7b882fbecf2e76b4d466ea1847dcaca55ecd23df85b826833f0bfc5e5e8e",
+        "warp_grad_kernel<1>":
+            "22aa90c7a72d0c16e8b1862982ac48b94ccaf5b65085fde0883bad2c230204a8",
+        "soft_warp_grad_kernel<0>":
+            "8272125b2745630acc002a89526be09d75b12d7bb18968d77d419a6693ee95af",
+        "soft_warp_grad_kernel<1>":
+            "ec3198679c3a0f0ba7ed91e594f9db284cda3675884af9039f755ec15ed5558d",
+        "lockstep_kernel<1,0>":
+            "1480d34ccb5c4362469fd9014fc455190fb39030d47fb10cffb508c57286043c",
+        "lockstep_kernel<1,1>":
+            "b000fb099a0855ab4e2f1c1fb5f57b4519340c8dba92b0f904aa22c8d1aeea2f",
+        "lockstep_kernel<2,0>":
+            "2e6076401074a7f2135e7340ed4aa3f5a1568eb51d263ecceae45cb8f7c0a221",
+        "lockstep_kernel<2,1>":
+            "8f836ea46018af04b513e9913beb7442cddb6d14920b03262b64c3aece08bedb",
+        "coop_render_kernel<0>":
+            "67a41a31b6dafea3a83ca6d6da83ccdccb692d98bfff91a12b6b2714651059d8",
+    }}
 
 
 def emit(obj):
@@ -287,6 +351,19 @@ def main() -> int:
         got = usage.get(label, {})
         check(all(got.get(k) == v for k, v in want.items()),
               f"{label}: registers/spills {got}, expected {want}")
+    # the 16-light instances of K3's warp and replaying forms and the
+    # cooperative scaled render kernel: their SASS as the commit before
+    # their lights instances built it
+    t1 = time.perf_counter()
+    now = sass_loops.digests(sass_loops.disassemble(lib_path))
+    nvcc = sass_loops.nvcc_version()
+    kept = {k: now.get(k) == v for k, v in KEPT_SASS["digests"].items()}
+    comparable = nvcc == KEPT_SASS["nvcc"]
+    emit({"phase": "sass_kept", "nvcc": nvcc,
+          "recorded_with": KEPT_SASS["nvcc"], "comparable": comparable,
+          "identical": kept, "seconds": time.perf_counter() - t1})
+    check(not comparable or all(kept.values()),
+          f"the 16-light kernels' SASS changed: {kept}")
 
     # ---- 2. kernel vs plain, small size ---------------------------------
     small_cfg = RenderConfig(width=320, height=176, samples_per_pixel=2,
@@ -1336,13 +1413,8 @@ def scaled_phases(cfg, smi, usage):
             "visible_light_samples": int(sum(int(x.sum()) for x in visible)),
             "seconds": time.perf_counter() - t0}
     emit(main)
-    check(main_launches == {"scaled_render": 5, "scaled_render_lane": 0,
-                            "scaled_render_stats": 0, "scaled_grad": 0,
-                            "scaled_grad_soft": 0, "hit_chunks": 1,
-                            "hit_chunks_baseline": 0,
-                            "hit_chunks_counted": 0,
-                            "shadow_chunks": 1, "shadow_chunks_baseline": 0,
-                            "shadow_chunks_counted": 0},
+    check({k: v for k, v in main_launches.items() if v}
+          == {"scaled_render": 5, "hit_chunks": 1, "shadow_chunks": 1},
           f"scaled main path launched {main_launches}")
     check(tuple(accum.shape) == (720, 1280, 3) and main["accum_finite"],
           "scaled accumulated image shape/finite")
@@ -1907,7 +1979,7 @@ class ChunkCount:
                                    active)
 
 
-def chunked_grad_bound(scene, cfg, eps, n_lights):
+def chunked_grad_bound(scene, cfg, eps, n_lights, records):
     """The chunked gradient kernel's bound on frame 0 of `cfg`, from the
     plain version's work counters (ChunkCount, tracecore.Work): the
     scaled render's forward count as K5's and K6's -- 12 operations per
@@ -1923,7 +1995,15 @@ def chunked_grad_bound(scene, cfg, eps, n_lights):
     per boundary scan.  Bytes: the packed scene and chunk rows and the
     material ids read once, the pixel cotangent read, the image and the
     (14, N) cotangent written.  Returns (ops, bytes, ms, counters): the
-    plain counters and, under "bound", the forward terms taken."""
+    plain counters and, under "bound", the forward terms taken, and under
+    "split" the cooperative form's two kernels' own bounds: the
+    tape-writing forward (the forward terms; bytes: the scene read, the
+    image and the tape's used part written) and the sweep (the adjoint's
+    terms; bytes: the tape's used part read, the scene and cotangent as
+    above).  The tape's used part: `records` (the bounces this run's
+    samples took, the sum of the tape's depth array), each a 64-byte
+    record and light_words(n_lights) words of seen lights, and the depth
+    array; the rest of the tape is allocated and never touched."""
     from toypathtracer_torch.ops import cuda_scaled
     from toypathtracer_torch.ops import tracecore as tc
     from toypathtracer_torch.ops.cuda_render import pack_scene
@@ -1953,16 +2033,30 @@ def chunked_grad_bound(scene, cfg, eps, n_lights):
              "occlusion_tests": min(w["occlusion_tests"],
                                     st["shadow"]["need"])}
     w["bound"] = terms
-    ops = (12 * terms["slab_tests"] + 16 * terms["hit_tests"]
+    fwd = (12 * terms["slab_tests"] + 16 * terms["hit_tests"]
            + 3 * w["hit_roots"] + 19 * w["shadow"]
-           + 20 * terms["occlusion_tests"]
-           + 150 * w["traced"] + 270 * w["shadow"])
+           + 20 * terms["occlusion_tests"])
+    adj = 150 * w["traced"] + 270 * w["shadow"]
     if eps > 0.0:
-        ops += (16 * (w["silhouette_tests"] + w["proximity_tests"])
+        adj += (16 * (w["silhouette_tests"] + w["proximity_tests"])
                 + 40 * w["traced"] + (40 + 30 * n_lights) * w["misses"]
                 + 40 * w["boundary_scans"])
-    n_bytes = 4 * (tab.numel() + rows.numel() + scene.n_spheres
-                   + 2 * 3 * H * W + tab.numel())
+    ops = fwd + adj
+    scene_bytes = 4 * (tab.numel() + rows.numel() + scene.n_spheres)
+    n_bytes = scene_bytes + 4 * (2 * 3 * H * W + tab.numel())
+    words = -(-n_lights // 32)
+    used = records * (64 + 4 * words) + 4 * H * W * cfg.samples_per_pixel
+    w.update(tape_records=records, tape_used_bytes=used,
+             tape_allocated_bytes=cuda_scaled.tape_bytes(scene, cfg, H, W))
+    split = {}
+    for name, o, b in (("tape", fwd, scene_bytes + 4 * 3 * H * W + used),
+                       ("sweep", adj, scene_bytes + used
+                        + 4 * (3 * H * W + tab.numel()))):
+        split[name] = {"fp32_ops": o, "bytes": b,
+                       "ms": max(o / 67e12, b / 3.35e12) * 1e3,
+                       "by": "operations" if o / 67e12 >= b / 3.35e12
+                       else "bytes"}
+    w["split"] = split
     return ops, n_bytes, max(ops / 67e12, n_bytes / 3.35e12) * 1e3, w
 
 
@@ -1993,7 +2087,8 @@ def pool_phases(cfg, smi, usage):
     from toypathtracer_torch.render.wavefront import (camera_scalars,
                                                       render_tile_grad_plain)
     from toypathtracer_torch.tools import grad_stats
-    from toypathtracer_torch.tools.scenes import crowded_scene
+    from toypathtracer_torch.tools.scenes import (crowded_scene,
+                                                  many_lights_scene)
 
     dev = torch.device("cuda")
     t1 = time.perf_counter()
@@ -2080,6 +2175,42 @@ def pool_phases(cfg, smi, usage):
           **vs, "bound_fp32_ops": ops, "bound_ms": bound,
           "ptxas": {k: usage.get(k, {}) for k in (
               "pool_grad_kernel<0>", "pool_grad_kernel<1>", "sum_pool")},
+          "seconds": time.perf_counter() - t1})
+
+    # 40 lights (tools/scenes.many_lights_scene: past the 16 bits of a
+    # carry record and past a word of 32): the warp form's instance that
+    # keeps the seen lights in words of their own and the pool form,
+    # against plain autograd and bit-equal to each other on the warp
+    # form's grid
+    t1 = time.perf_counter()
+    lit = many_lights_scene().to(dev)
+    lights40 = {}
+    for e in (0.0, 0.05):
+        c = small.replace(soft_silhouette_eps=e)
+        args = (lit, c, 0, g, 0, 0, 176, 320)
+        rows, _ = cuda_grad.grad_scratch(*args[:3], 0, 0, 176, 320, "warp")
+        before = dict(cuda_grad.launches)
+        a = cuda_grad.render_tile_grad_form(*args, "warp")
+        b = cuda_grad.render_tile_grad_form(*args, "pool", blocks=rows)
+        img_p, rays_p, d_p = render_tile_grad_plain(*args)
+        torch.cuda.synchronize()
+        key = "soft" if e else "hard"
+        lights40[key] = {
+            "lights": len(lit.emissive_ids), "rays_kernel": int(a[1]),
+            "rays_plain": int(rays_p), "row_rel_max": max(row_rel(a[2], d_p)),
+            "pool_row_rel_max": max(row_rel(b[2], d_p)),
+            "warp_pool_bit_equal": bool(torch.equal(a[0], b[0])
+                                        and torch.equal(a[2], b[2])),
+            "launches": {k: cuda_grad.launches[k] - before[k] for k in before
+                         if cuda_grad.launches[k] != before[k]}}
+        r = lights40[key]
+        check(r["rays_kernel"] == r["rays_plain"] and r["row_rel_max"] <= 1e-3
+              and r["pool_row_rel_max"] <= 1e-3 and r["warp_pool_bit_equal"],
+              f"K3 at 40 lights {key}: {r}")
+    emit({"phase": "grad_40_lights_vs_plain", "size": "320x176, spp 2, "
+          "depth 4", **lights40,
+          "ptxas": {k: usage.get(k, {}) for k in (
+              "lights_warp_grad_kernel<0>", "lights_warp_grad_kernel<1>")},
           "seconds": time.perf_counter() - t1})
 
     # the main path: Adam steps on the 600-sphere scene at full size
@@ -2179,7 +2310,7 @@ def pool_phases(cfg, smi, usage):
         check(full[key]["finite"] and full[key]["full_frame_deterministic"],
               f"{what}: finite, deterministic")
         check(room["launches"] == 1 and full[key]["rerun_pool"]["launches"]
-              == 2 and full[key]["rerun_bit_equal"],
+              in (2, 3) and full[key]["rerun_bit_equal"],
               f"{what}: a rerun launch != the launch that had room")
     emit({"phase": "grad_pool_full_size_vs_plain", "nvidia_smi": smi,
           "spheres": crowd.n_spheres, "size": "1280x720, spp 4, depth 10",
@@ -2217,6 +2348,7 @@ def pool_phases(cfg, smi, usage):
                          "full_size_band_row_rel_max": {
                              k: v["band_row_rel_max"]
                              for k, v in full.items()},
+                         "lights_40": lights40,
                          "bit_equal_to_warp_form": equal}}
 
 
@@ -2224,14 +2356,18 @@ def scaled_grad_phases(cfg, smi, usage):
     """Phases 15-17: the scaled scene's gradient (scaled.py:712
     render_frame_scaled(differentiable=True)) on the 100k-sphere scene at
     1280x720, spp 4, depth 10, hard and with eps 0.05 -- its main path
-    (one scaled render and one chunked K3 launch), the chunked K3 against
-    plain autograd on three 8-row bands, its image against the scaled
-    render kernel's, rays against plain, two launches, finite differences
-    on an albedo, timing and bound; the reference's own configuration
-    (tests/test_scaled.py:129: 2000 spheres, chunk 64, 32x8, spp 1, depth
-    3, hard and eps 1.0); the geometry recovery of tests/test_scaled.py:305
-    through the soft instance.  Returns the entries of the `kernels`
-    line."""
+    (K3's cooperative chunked form: one tape-writing render, whose tape
+    autograd keeps, and one sweep launch), the cooperative form against
+    the per-lane chunked instance (image, rays and cotangent bit for bit, the
+    two timed in turns, the tape render and the sweep timed alone, the
+    directory's and the tape's bytes, the baseline's cycle shares by
+    part), against plain autograd on three 8-row bands, its image against
+    the scaled render kernel's, rays against plain, two launches, finite
+    differences on an albedo, the bounds; the reference's own
+    configuration (tests/test_scaled.py:129: 2000 spheres, chunk 64,
+    32x8, spp 1, depth 3, hard and eps 1.0) and with 40 lights; the
+    geometry recovery of tests/test_scaled.py:305 through the soft
+    instance.  Returns the entries of the `kernels` line."""
     import numpy as np
 
     from toypathtracer_torch import make_scaled_scene
@@ -2249,36 +2385,65 @@ def scaled_grad_phases(cfg, smi, usage):
     w = grad_stats.cotangent(H, W, 11, dev)
     eps_soft = 0.05
     cases = {"hard": 0.0, "soft": eps_soft}
+    counters = (cuda_render.launches, cuda_grad.launches,
+                cuda_scaled.launches)
+
+    def zero_counts():
+        for counter in counters:
+            for k in counter:
+                counter[k] = 0
+
+    def counted():
+        return {k: v for c in counters for k, v in c.items() if v}
 
     # ---- 15. the main path: render_frame_scaled(differentiable=True) ----
     t1 = time.perf_counter()
-    for counter in (cuda_render.launches, cuda_grad.launches,
-                    cuda_scaled.launches):
-        for k in counter:
-            counter[k] = 0
+    zero_counts()
     route = {}
+    held = {}
     for name, e in cases.items():
         leaves = {f: getattr(sd, f).clone().requires_grad_(True)
                   for f in fields}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
         img, rays = cuda_scaled.render_frame_scaled(
             sd.replace(**leaves), cfg.replace(soft_silhouette_eps=e), 0,
             differentiable=True)
+        torch.cuda.synchronize()
+        # what the forward leaves allocated for the backward: the tape
+        held[name] = torch.cuda.memory_allocated(dev) - base
         (img * w).sum().backward()
         route[name] = (img.detach(), int(rays),
                        {f: t.grad for f, t in leaves.items()})
     torch.cuda.synchronize()
-    path = {k: v for c in (cuda_render.launches, cuda_grad.launches,
-                           cuda_scaled.launches) for k, v in c.items() if v}
+    path = counted()
+    tape_bytes = cuda_scaled.tape_bytes(sd, cfg, H, W)
     emit({"phase": "scaled_grad_path", "launches": path,
+          "tape_bytes": tape_bytes, "held_across_autograd_bytes": held,
           "finite": {n: all(bool(torch.isfinite(t).all())
                             for t in r[2].values())
                      for n, r in route.items()},
           "seconds": time.perf_counter() - t1})
-    check(path == {"scaled_render": 2, "scaled_grad": 1,
+    check(path == {"scaled_tape": 2, "scaled_grad": 1,
                    "scaled_grad_soft": 1},
           f"the scaled gradient's path launched {path}")
+    check(all(h >= tape_bytes for h in held.values()),
+          f"the forward did not keep its tape: {held} < {tape_bytes}")
 
-    # ---- 16. the chunked K3 at full size ---------------------------------
+    # ---- step 1: the per-lane chunked instance's cycles by part -------
+    t1 = time.perf_counter()
+    shares = {name: grad_stats.chunk_stats(
+        sd, cfg.replace(soft_silhouette_eps=e), w)
+        for name, e in cases.items()}
+    emit({"phase": "scaled_grad_cycle_shares", "nvidia_smi": smi,
+          "form": "the per-lane chunk_grad_kernel (chunk_grad_stats_kernel)",
+          **{n: {k: v[k] for k in ("cycle_shares", "counters",
+                                   "adjoint_bounces_per_sample",
+                                   "reverse_lane_busy")}
+             for n, v in shares.items()},
+          "seconds": time.perf_counter() - t1})
+
+    # ---- 16. the cooperative chunked K3 at full size --------------------
     t1 = time.perf_counter()
     img_r, rays_r = cuda_scaled.render_tile_scaled(sd, cfg, 0, 0, 0, H, W)
     _, rays_p = render_tile_scaled_plain(sd, cfg, 0, 0, 0, H, W)
@@ -2290,17 +2455,23 @@ def scaled_grad_phases(cfg, smi, usage):
         pool = dict(cuda_grad.last_pool)
         _, _, d2 = cuda_scaled.render_tile_scaled_grad(sd, c, 0, w, 0, 0, H,
                                                        W)
+        img_b, rays_b, d_b = cuda_scaled.render_tile_scaled_grad_form(
+            sd, c, 0, w, 0, 0, H, W, "chunk")
+        pool_b = dict(cuda_grad.last_pool)
         torch.cuda.synchronize()
+        baseline_equal = bool(torch.equal(img, img_b) and int(rays) ==
+                              int(rays_b) and torch.equal(d, d_b))
         bands = {}
         for y0 in GRAD_BANDS:
             wb = w[y0:y0 + 8].contiguous()
-            plain_s, (img_p, rays_b, d_p) = time_device_call(
+            plain_s, (img_p, rays_b8, d_p) = time_device_call(
                 render_tile_scaled_grad_plain, sd, c, 0, wb, 0, y0, 8, W)
             band_s, (img_k, rays_k, d_k) = time_device_call(
                 cuda_scaled.render_tile_scaled_grad, sd, c, 0, wb, 0, y0, 8,
                 W)
             rel = row_rel(d_k, d_p)
-            bands[y0] = {"rays_kernel": int(rays_k), "rays_plain": int(rays_b),
+            bands[y0] = {"rays_kernel": int(rays_k),
+                         "rays_plain": int(rays_b8),
                          "row_rel_max": max(rel), "row_rel": rel,
                          "max_abs": float((d_k - d_p).abs().max()),
                          "img_max_abs_diff": float((img_k - img_p)
@@ -2323,14 +2494,29 @@ def scaled_grad_phases(cfg, smi, usage):
             vals.append(float((im.double() * w.double()).sum()))
         fd = (vals[0] - vals[1]) / (2 * h)
         ad = float(alb[c_i, i])
-        ms, _ = time_device_call(cuda_scaled.render_tile_scaled_grad, sd, c,
-                                 0, w, 0, 0, H, W, repeats=2)
+        # the two forms in turns (coop, chunk, chunk, coop), then the
+        # cooperative form's two kernels alone
+        runs = {"coop": [], "chunk": []}
+        for f in ("coop", "chunk", "chunk", "coop"):
+            runs[f].append(time_device_call(
+                cuda_scaled.render_tile_scaled_grad_form, sd, c, 0, w, 0, 0,
+                H, W, f, repeats=2)[0] * 1e3)
+        tape_s, (_, _, tape) = time_device_call(
+            cuda_scaled.render_tile_scaled_tape, sd, c, 0, 0, 0, H, W,
+            repeats=2)
+        sweep_s, _ = time_device_call(cuda_scaled.sweep_scaled_tape, sd, c, w,
+                                      tape, repeats=2)
+        records = int(tape["depth"].sum())
+        del tape
         ops, n_bytes, bound, work = chunked_grad_bound(
-            sd, c, e, len(sd.emissive_ids))
+            sd, c, e, len(sd.emissive_ids), records)
         out[name] = {
             "soft_eps": e, "rays_kernel": int(rays), "rays_plain": int(rays_p),
             "image_bit_equal_to_scaled_render": bool(torch.equal(img, img_r)),
+            "image_max_abs_diff_to_scaled_render": float(
+                (img - img_r).abs().max()),
             "rays_equal_to_scaled_render": int(rays) == int(rays_r),
+            "bit_equal_to_chunk_grad_kernel": baseline_equal,
             "deterministic": bool(torch.equal(d, d2)),
             "finite": bool(torch.isfinite(d).all()),
             "route_gradient_is_the_kernels": route_albedo,
@@ -2341,8 +2527,11 @@ def scaled_grad_phases(cfg, smi, usage):
             "band_ms": sum(b["ms"] for b in bands.values()),
             "fd": {"sphere": int(i), "channel": int(c_i), "h": h, "fd": fd,
                    "ad": ad, "rel": abs(ad - fd) / abs(fd)},
-            "pool": pool, "ms": ms * 1e3, "bound_fp32_ops": ops,
-            "bound_bytes": n_bytes, "bound_ms": bound, "work": work}
+            "pool": pool, "pool_baseline": pool_b, "tape_bytes": tape_bytes,
+            "ms": sum(runs["coop"]) / 2, "baseline_ms": sum(runs["chunk"]) / 2,
+            "runs": runs, "tape_ms": tape_s * 1e3, "sweep_ms": sweep_s * 1e3,
+            "bound_fp32_ops": ops, "bound_bytes": n_bytes, "bound_ms": bound,
+            "work": work}
         emit({"phase": "scaled_grad_vs_plain", "nvidia_smi": smi,
               "size": "1280x720, spp 4, depth 10, 100,096 spheres",
               **out[name], "seconds": time.perf_counter() - t1})
@@ -2352,6 +2541,8 @@ def scaled_grad_phases(cfg, smi, usage):
         check(r["image_bit_equal_to_scaled_render"]
               and r["rays_equal_to_scaled_render"],
               f"{what}: image != the scaled render kernel's")
+        check(r["bit_equal_to_chunk_grad_kernel"],
+              f"{what}: != the per-lane chunk_grad_kernel on its grid")
         check(r["rays_kernel"] == r["rays_plain"], f"{what}: rays vs plain")
         check(all(b["rays_kernel"] == b["rays_plain"]
                   for b in bands.values()), f"{what}: band rays")
@@ -2360,6 +2551,8 @@ def scaled_grad_phases(cfg, smi, usage):
         check(route_albedo and r["route_image_bit_equal"],
               f"{what}: the differentiable route is not the kernel's")
         check(r["fd"]["rel"] <= 1e-2, f"{what}: albedo AD vs FD {r['fd']}")
+        check(pool["dir_bytes"] <= 420e6,
+              f"{what}: the pool directory takes {pool['dir_bytes']} bytes")
 
     # ---- 17. the reference's configuration and its recovery loop --------
     t1 = time.perf_counter()
@@ -2367,21 +2560,31 @@ def scaled_grad_phases(cfg, smi, usage):
     small = cfg.replace(width=32, height=8, samples_per_pixel=1, max_depth=3)
     g8 = grad_stats.cotangent(8, 32, 0, dev)
     ref_vs = {}
-    for name, e in (("hard", 0.0), ("soft", 1.0)):
+    lit = ref.replace(emissive_ids=tuple(range(40)))
+    for name, sc, e in (("hard", ref, 0.0), ("soft", ref, 1.0),
+                        ("lights40_hard", lit, 0.0),
+                        ("lights40_soft", lit, 0.05)):
         c = small.replace(soft_silhouette_eps=e)
         img_k, rays_k, d_k = cuda_scaled.render_tile_scaled_grad(
-            ref, c, 0, g8, 0, 0, 8, 32)
-        img_p, rays_q, d_p = render_tile_scaled_grad_plain(ref, c, 0, g8, 0,
+            sc, c, 0, g8, 0, 0, 8, 32)
+        img_p, rays_q, d_p = render_tile_scaled_grad_plain(sc, c, 0, g8, 0,
                                                            0, 8, 32)
-        img_r8, _ = cuda_scaled.render_tile_scaled(ref, c, 0, 0, 0, 8, 32)
+        img_r8, _ = cuda_scaled.render_tile_scaled(sc, c, 0, 0, 0, 8, 32)
         torch.cuda.synchronize()
         ref_vs[name] = {"rays_kernel": int(rays_k), "rays_plain": int(rays_q),
+                        "lights": len(sc.emissive_ids), "soft_eps": e,
                         "row_rel_max": max(row_rel(d_k, d_p)),
                         "image_bit_equal_to_scaled_render": bool(
                             torch.equal(img_k, img_r8))}
+        if name.startswith("lights40"):
+            _, _, d_b = cuda_scaled.render_tile_scaled_grad(
+                ref, c, 0, g8, 0, 0, 8, 32)
+            ref_vs[name]["differs_from_8_lights"] = not bool(
+                torch.equal(d_b, d_k))
         check(ref_vs[name]["rays_kernel"] == ref_vs[name]["rays_plain"]
               and ref_vs[name]["row_rel_max"] <= 1e-3
-              and ref_vs[name]["image_bit_equal_to_scaled_render"],
+              and ref_vs[name]["image_bit_equal_to_scaled_render"]
+              and ref_vs[name].get("differs_from_8_lights", True),
               f"reference configuration {name}: {ref_vs[name]}")
     # tests/test_scaled.py:305: one sphere moved against the sky, its
     # centre recovered through the soft instance (eps 1.0, 96x24, depth 2,
@@ -2398,10 +2601,7 @@ def scaled_grad_phases(cfg, smi, usage):
     delta0 = torch.tensor([0.4, 0.2, 0.3], device=dev)
     p = (true_c + delta0).requires_grad_(True)
     opt = torch.optim.Adam([p], lr=3e-2)
-    for counter in (cuda_render.launches, cuda_grad.launches,
-                    cuda_scaled.launches):
-        for k in counter:
-            counter[k] = 0
+    zero_counts()
     losses = []
     t0 = time.perf_counter()
     for _ in range(60):
@@ -2416,8 +2616,7 @@ def scaled_grad_phases(cfg, smi, usage):
         opt.step()
         losses.append(float(loss.detach()))
     step_s = (time.perf_counter() - t0) / 60
-    fit = {k: v for c in (cuda_render.launches, cuda_grad.launches,
-                          cuda_scaled.launches) for k, v in c.items() if v}
+    fit = counted()
     err0 = float(delta0.norm())
     err = float((p.detach() - true_c).norm())
     emit({"phase": "scaled_grad_reference", "reference_configuration":
@@ -2426,47 +2625,104 @@ def scaled_grad_phases(cfg, smi, usage):
                                "loss_last": losses[-1], "launches": fit,
                                "step_ms": step_s * 1e3},
           "seconds": time.perf_counter() - t1})
-    check(fit == {"scaled_render": 60, "scaled_grad_soft": 60},
+    check(fit == {"scaled_tape": 60, "scaled_grad_soft": 60},
           f"recovery loop launched {fit}")
     check(err < 0.4 * err0, f"recovery: err {err} vs {err0}")
     check(losses[-1] < 0.2 * losses[0],
           f"recovery: loss {losses[0]} -> {losses[-1]}")
 
     tol = ("d_packed per row <= 1e-3 x row max against plain autograd on "
-           "three 8-row bands and at the reference configuration; rays "
-           "equal to plain; image bit-equal to the scaled render kernel's; "
-           "bit-equal launch to launch; albedo AD vs FD <= 1e-2")
+           "three 8-row bands and at the reference configuration (also "
+           "with 40 lights); rays equal to plain; image bit-equal to the "
+           "scaled render kernel's; d_packed bit-equal to the per-lane "
+           "chunk_grad_kernel on its grid; bit-equal launch to launch; "
+           "albedo AD vs FD <= 1e-2")
     entries = []
     for name in cases:
         r = out[name]
+        soft = name == "soft"
+        sweep = r["work"]["split"]["sweep"]
+        common = {"route": "cuda",
+                  "replaces": "toypathtracer_tpu/ops/pallas_grad.py:127",
+                  "max_abs_err": max(b["max_abs"]
+                                     for b in r["bands"].values()),
+                  "plain_ms": r["band_plain_ms"], "library_ms": None,
+                  "soft_eps": r["soft_eps"]}
         entries.append({
-            "name": "scaled_grad" + ("_soft" if name == "soft" else ""),
-            "route": "cuda", "source": "toypathtracer_torch/csrc/grad.cu",
-            "replaces": "toypathtracer_tpu/ops/pallas_grad.py:127",
-            "launches": path["scaled_grad" + ("_soft" if name == "soft"
-                                              else "")],
-            "max_abs_err": max(b["max_abs"] for b in r["bands"].values()),
-            "ms": r["ms"], "plain_ms": r["band_plain_ms"],
-            "bound_ms": r["bound_ms"],
-            "bound_by": "operations" if r["bound_fp32_ops"] / 67e12
-            >= r["bound_bytes"] / 3.35e12 else "bytes",
-            "library_ms": None,
-            "form": "chunked (chunk_grad_kernel<%d>: gradwarp.cuh grad_tiles "
-                    "over chunks.cuh GradChunkedView, a PoolTable a warp)"
-                    % (name == "soft"),
-            "soft_eps": r["soft_eps"],
-            "note": "ms and bound_ms: the full frame; plain_ms: the plain "
-                    "version on the three 8-row bands (rows %s), beside "
-                    "the kernel's ms there (bands_ms)"
+            "name": "scaled_grad_sweep" + ("_soft" if soft else ""),
+            "source": "toypathtracer_torch/csrc/chunkgrad.cu", **common,
+            "launches": path["scaled_grad" + ("_soft" if soft else "")],
+            "ms": r["sweep_ms"], "bound_ms": sweep["ms"],
+            "bound_by": sweep["by"],
+            "form": "the cooperative chunked form's sweep "
+                    "(chunk_sweep_kernel<%d>: coopgrad.cuh sweep_tiles over "
+                    "the frame tape, a PoolTable a warp%s), with sum_pool"
+                    % (soft, "; the soft scans as warp walks" if soft
+                       else ""),
+            "form_ms": r["ms"], "baseline_ms": r["baseline_ms"],
+            "baseline": "the per-lane chunk_grad_kernel<%d> (forward and "
+                        "sweep in one kernel), timed in turns with the "
+                        "cooperative form's two kernels (form_ms)" % soft,
+            "form_bound_ms": r["bound_ms"],
+            "note": "ms: the sweep's wrapper alone (scratch, sweep, "
+                    "sum_pool), bound_ms its own; form_ms: the tape render "
+                    "and the sweep, form_bound_ms theirs; plain_ms: the "
+                    "plain version on the three 8-row bands (rows %s)"
                     % ", ".join(map(str, GRAD_BANDS)),
-            "bands_ms": r["band_ms"],
-            "pool": r["pool"],
-            "ptxas": usage.get(f"chunk_grad_kernel<{int(name == 'soft')}>",
-                               {}),
+            "bands_ms": r["band_ms"], "pool": r["pool"],
+            "ptxas": usage.get(f"chunk_sweep_kernel<{int(soft)}>", {}),
             "vs_plain": {"tolerance": tol,
                          "band_row_rel_max": r["band_row_rel_max"],
                          "reference_row_rel_max": ref_vs[name]["row_rel_max"],
+                         "bit_equal_to_chunk_grad_kernel":
+                             r["bit_equal_to_chunk_grad_kernel"],
                          "fd": r["fd"]}})
+        entries.append({
+            "name": "scaled_grad_baseline" + ("_soft" if soft else ""),
+            "source": "toypathtracer_torch/csrc/grad.cu", **common,
+            "launches": path.get("scaled_grad_baseline"
+                                 + ("_soft" if soft else ""), 0),
+            "ms": r["baseline_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "operations" if r["bound_fp32_ops"] / 67e12
+            >= r["bound_bytes"] / 3.35e12 else "bytes",
+            "form": "the per-lane chunked instance (chunk_grad_kernel<%d>: "
+                    "gradwarp.cuh grad_tiles over chunks.cuh "
+                    "GradChunkedView), kept as the baseline; not on the "
+                    "main path" % soft,
+            "pool": r["pool_baseline"],
+            "cycle_shares": shares[name]["cycle_shares"],
+            "ptxas": usage.get(f"chunk_grad_kernel<{int(soft)}>", {}),
+            "vs_plain": {"tolerance": "bit-equal to the cooperative form"}})
+    r = out["hard"]
+    tape_b = r["work"]["split"]["tape"]
+    entries.append({
+        "name": "scaled_grad_tape", "route": "cuda",
+        "source": "toypathtracer_torch/csrc/scaled.cu",
+        "replaces": "toypathtracer_tpu/ops/pallas_grad.py:127",
+        "launches": path["scaled_tape"],
+        "max_abs_err": max(v["image_max_abs_diff_to_scaled_render"]
+                           for v in out.values()),
+        "ms": r["tape_ms"],
+        "plain_ms": r["band_plain_ms"], "bound_ms": tape_b["ms"],
+        "bound_by": tape_b["by"], "library_ms": None,
+        "form": "the cooperative chunked form's forward "
+                "(tape_render_kernel: coop_render_kernel's merged loop with "
+                "a TapeSink, coopgrad.cuh), the same for hard and soft",
+        "soft_ms": out["soft"]["tape_ms"],
+        "tape_bytes": tape_bytes,
+        "note": "max_abs_err: against the scaled render kernel's image, "
+                "which it equals bit for bit (the sweep's entries hold the "
+                "gradient against plain); plain_ms: the plain gradient on "
+                "the three 8-row bands",
+        "ptxas": usage.get("tape_render_kernel<0>", {}),
+        "ptxas_lights": usage.get("tape_render_kernel<1>", {}),
+        "vs_plain": {"tolerance": "image and rays bit-equal to the scaled "
+                                  "render kernel's (held against plain in "
+                                  "its own entry); the tape's records "
+                                  "trace_sample_tape's (g++ tests)",
+                     "image_bit_equal": {n: v[
+                         "image_bit_equal_to_scaled_render"]
+                         for n, v in out.items()}}})
     return entries
 
 

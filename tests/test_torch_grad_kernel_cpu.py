@@ -36,8 +36,12 @@ bit-equal to K3's primal (the same function); sub-images summed within
 """
 
 import ctypes
+import dataclasses
+import os
 import shutil
 import subprocess
+import sys
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -49,13 +53,16 @@ from toypathtracer_torch.camera import camera_to_array, make_camera
 from toypathtracer_torch.ops import _build, cuda_grad, cuda_render
 from toypathtracer_torch.ops import tracecore as tc
 from toypathtracer_torch.render.wavefront import (camera_scalars,
-                                                  render_tile_grad_plain)
+                                                  render_tile_grad_plain,
+                                                  render_tile_plain)
 from toypathtracer_torch.scaled import (ScaledScene, make_scaled_scene,
                                         pack_chunks,
                                         render_tile_scaled_grad_plain,
                                         soft_boxes)
 from toypathtracer_torch.tools import grad_stats
 from toypathtracer_torch.tools.scenes import (crowded_scene,
+                                              few_spheres_many_lights_scene,
+                                              many_lights_scene,
                                               shadow_boundary_scene)
 
 torch.set_num_threads(1)
@@ -185,15 +192,72 @@ extern "C" long long tpt_grad_warp32_cpu(
   return rays;
 }
 
+// The warp form's instance past 16 lights (csrc/grad.cu
+// lights_warp_grad_kernel): grad_tiles with LightTapeOf<false> carries,
+// the seen lights in words of their own, n_warps warps of `lanes` lanes
+// (1: HostLane, 32: ThreadWarp), each with its own table, summed in warp
+// order into acc.  Returns the rays, or -1 if a warp stalled.
+extern "C" long long tpt_grad_lights_cpu(
+    const float* tab, const int32_t* mat, const int32_t* lights,
+    const float* cam, const tpt::RenderParams* p, const float* g, float* out,
+    float* acc, int n_warps, int lanes) {
+  tpt::SceneView S = view(tab, mat, lights, p);
+  const int m = tpt::SCENE_ROWS * p->n_spheres;
+  const int words = tpt::light_words(p->n_lights);
+  const size_t slots = (size_t)lanes * tpt::grad_batch(*p) * p->max_depth;
+  std::vector<float> tables((size_t)n_warps * m, 0.0f);
+  long long rays = 0;
+  for (int wi = 0; wi < n_warps; ++wi) {
+    std::vector<float> recs(slots * tpt::kRecWords);
+    std::vector<uint32_t> see(slots * words);
+    std::vector<float> ws(tpt::grad_scratch_words(lanes));
+    float* table = tables.data() + (size_t)wi * m;
+    auto tape = [&](int l) {
+      tpt::LightTapeOf<false> t;
+      t.base = recs.data();
+      t.width = lanes;
+      t.lane = l;
+      t.see = see.data();
+      t.words = words;
+      return t;
+    };
+    if (lanes == 1) {
+      tpt::HostLane w;
+      rays += tiles(w, S, cam, p, g, out, table, tape(0), ws.data(), wi,
+                    n_warps);
+      continue;
+    }
+    tpt::Lanes ls;
+    unsigned long long lane_rays[32];
+    std::vector<std::thread> threads;
+    for (int l = 0; l < 32; ++l)
+      threads.emplace_back([&, l] {
+        tpt::ThreadWarp w{&ls, l};
+        lane_rays[l] = tiles(w, S, cam, p, g, out, table, tape(l), ws.data(),
+                             wi, n_warps);
+      });
+    for (auto& t : threads) t.join();
+    if (ls.broken) return -1;
+    for (int l = 0; l < 32; ++l) rays += lane_rays[l];
+  }
+  for (int j = 0; j < m; ++j) {
+    float s = 0.0f;
+    for (int wi = 0; wi < n_warps; ++wi) s += tables[(size_t)wi * m + j];
+    acc[j] += s;
+  }
+  return rays;
+}
+
 // The pool instances (csrc/grad.cu pool_grad_kernel, chunk_grad_kernel):
-// grad_tiles with a PoolTable a warp and WideTape carries, over the flat
-// scene (rows null) or the chunked one (GradChunkedView on pack_chunks
-// rows, the chunk boxes and, for the soft instance, the soft scans'
-// inflated boxes).  n_warps warps of `lanes` lanes (1: HostLane, 32:
-// ThreadWarp) run one after the other, sharing the pool by its counter as
+// grad_tiles with a PoolTable a warp, over the flat scene (rows null;
+// LightTapeOf<true> carries, any number of lights) or the chunked one
+// (GradChunkedView on pack_chunks rows, the chunk boxes and, for the soft
+// instance, the soft scans' inflated boxes; WideTape carries).  n_warps
+// warps of `lanes` lanes (1: HostLane, 32: ThreadWarp) run one after the
+// other, sharing the pool and the directory's blocks by their counters as
 // a launch's warps do; acc gets each sphere's slots summed in warp order,
-// as the kernel's block does.  *slots: the slots drawn.  Returns the rays,
-// or -1 if a warp stalled.
+// as the kernel's block does.  *slots: the slots drawn, slots[1] the
+// directory blocks.  Returns the rays, or -1 if a warp stalled.
 extern "C" long long tpt_grad_pool_cpu(
     const float* tab, const int32_t* mat, const int32_t* lights,
     const float* cam, const tpt::RenderParams* p, const float* g, float* out,
@@ -201,10 +265,14 @@ extern "C" long long tpt_grad_pool_cpu(
     const float* sil_box, const float* prox_box, int n_chunks, int chunk,
     long long* slots) {
   const int n = p->n_spheres;
-  std::vector<int> dir((size_t)n * n_warps, -1);
+  const int dir_rows = (n + tpt::kDirIds - 1) / tpt::kDirIds;
+  std::vector<int> dir((size_t)dir_rows * n_warps, -1);
+  const int block_cap = dir_rows * n_warps;
+  std::vector<int> blocks((size_t)block_cap * tpt::kDirIds, -1);
   const int cap = n * n_warps;
   std::vector<float> pool((size_t)cap * tpt::kSlotFloats, 0.0f);
-  int next = 0;
+  int next = 0, next_block = 0;
+  const int words = tpt::light_words(p->n_lights);
   const tpt::SceneView S = view(tab, mat, lights, p);
   tpt::GradChunkedView C;
   C.tab = tab;
@@ -220,17 +288,29 @@ extern "C" long long tpt_grad_pool_cpu(
   C.prox_box = prox_box;
   long long rays = 0;
   for (int wi = 0; wi < n_warps; ++wi) {
-    const tpt::PoolTable T{dir.data() + wi, n_warps, pool.data(), &next, cap};
-    std::vector<float> recs(lanes * tpt::grad_batch(*p) * p->max_depth *
-                            tpt::kRecWords);
+    const tpt::PoolTable T{dir.data() + wi, n_warps, blocks.data(),
+                           &next_block, block_cap, pool.data(), &next, cap};
+    const size_t n_slots = (size_t)lanes * tpt::grad_batch(*p) *
+                           p->max_depth;
+    std::vector<float> recs(n_slots * tpt::kRecWords);
+    std::vector<uint32_t> see(n_slots * words);
     std::vector<float> ws(tpt::grad_scratch_words(lanes));
+    auto light_tape = [&](int l) {
+      tpt::LightTapeOf<true> t;
+      t.base = recs.data();
+      t.width = lanes;
+      t.lane = l;
+      t.see = see.data();
+      t.words = words;
+      return t;
+    };
     if (lanes == 1) {
       tpt::HostLane w;
       const tpt::WideTape tape{recs.data(), 1, 0};
       rays += rows ? tiles(w, C, cam, p, g, out, T, tape, ws.data(), wi,
                            n_warps)
-                   : tiles(w, S, cam, p, g, out, T, tape, ws.data(), wi,
-                           n_warps);
+                   : tiles(w, S, cam, p, g, out, T, light_tape(0), ws.data(),
+                           wi, n_warps);
       continue;
     }
     tpt::Lanes ls;
@@ -242,8 +322,8 @@ extern "C" long long tpt_grad_pool_cpu(
         const tpt::WideTape tape{recs.data(), 32, l};
         lane_rays[l] = rows ? tiles(w, C, cam, p, g, out, T, tape, ws.data(),
                                     wi, n_warps)
-                            : tiles(w, S, cam, p, g, out, T, tape, ws.data(),
-                                    wi, n_warps);
+                            : tiles(w, S, cam, p, g, out, T, light_tape(l),
+                                    ws.data(), wi, n_warps);
       });
     for (auto& t : threads) t.join();
     if (ls.broken) return -1;
@@ -253,12 +333,15 @@ extern "C" long long tpt_grad_pool_cpu(
     for (int r = 0; r < tpt::SCENE_ROWS; ++r) {
       float s = 0.0f;
       for (int wi = 0; wi < n_warps; ++wi) {
-        const int slot = dir[(size_t)i * n_warps + wi];
+        const int b = dir[(size_t)(i / tpt::kDirIds) * n_warps + wi];
+        if (b < 0) continue;
+        const int slot = blocks[(size_t)b * tpt::kDirIds + i % tpt::kDirIds];
         if (slot >= 0) s += pool[(size_t)slot * tpt::kSlotFloats + r];
       }
       acc[(size_t)r * n + i] += s;
     }
-  *slots = next;
+  slots[0] = next;
+  slots[1] = next_block;
   return rays;
 }
 
@@ -336,6 +419,9 @@ def host_lib(tmp_path_factory):
                                       ptr, ptr, ptr, ctypes.c_int,
                                       ctypes.c_int, ptr]
     lib.tpt_grad_pool_cpu.restype = ctypes.c_longlong
+    lib.tpt_grad_lights_cpu.argtypes = [ptr, ptr, ptr, ptr, params, ptr, ptr,
+                                        ptr, ctypes.c_int, ctypes.c_int]
+    lib.tpt_grad_lights_cpu.restype = ctypes.c_longlong
     lib.tpt_lockstep_cpu.argtypes = [ptr, ptr, ptr, ptr, params, ptr]
     lib.tpt_lockstep_cpu.restype = ctypes.c_ulonglong
     return lib
@@ -396,6 +482,23 @@ def grad_form_host(lib, scene, cfg, frame, g, x0, y0, form):
     return out, rays, acc
 
 
+def grad_lights_host(lib, scene, cfg, frame, g, x0, y0, n_warps=1, lanes=1):
+    """K3's warp form past 16 lights (LightTapeOf records) over a
+    sub-image: (image, rays, d_packed)."""
+    h, w, _ = g.shape
+    tab, mat, lights, cam = inputs(scene, cfg)
+    out = np.zeros((h, w, 3), np.float32)
+    acc = np.zeros_like(tab)
+    params = cuda_render.render_params(scene, cfg, frame, x0, y0, h, w)
+    g = np.ascontiguousarray(g, np.float32)
+    rays = lib.tpt_grad_lights_cpu(
+        tab.ctypes.data, mat.ctypes.data, lights.ctypes.data,
+        cam.ctypes.data, ctypes.byref(params), g.ctypes.data,
+        out.ctypes.data, acc.ctypes.data, n_warps, lanes)
+    assert rays >= 0, "a 32-lane warp stalled at a collective"
+    return out, rays, acc
+
+
 def grad_pool_host(lib, scene, cfg, frame, g, x0, y0, n_warps=1, lanes=1):
     """K3's pool instance over a sub-image (n_warps warps of `lanes`
     lanes), on the flat scene or, for a ScaledScene, on its chunks:
@@ -423,14 +526,14 @@ def grad_pool_host(lib, scene, cfg, frame, g, x0, y0, n_warps=1, lanes=1):
     acc = np.zeros_like(tab)
     params = cuda_render.render_params(scene, cfg, frame, x0, y0, h, w)
     g = np.ascontiguousarray(g, np.float32)
-    slots = ctypes.c_longlong()
+    slots = (ctypes.c_longlong * 2)()
     rays = lib.tpt_grad_pool_cpu(
         tab.ctypes.data, mat.ctypes.data, lights.ctypes.data,
         cam.ctypes.data, ctypes.byref(params), g.ctypes.data,
         out.ctypes.data, acc.ctypes.data, n_warps, lanes, *chunk_args,
         ctypes.byref(slots))
     assert rays >= 0, "a 32-lane warp stalled at a collective"
-    return out, rays, acc, slots.value
+    return out, rays, acc, slots[0]
 
 
 def assert_rows_close(got, want, rtol):
@@ -610,9 +713,10 @@ def test_warp_form_sample_batches(host_lib, spp, depth, form):
 def test_wrapper_caps_and_forms_on_the_cpu(monkeypatch):
     """render_tile_grad takes any scene on the CPU (plain autograd): the
     forms' caps bind on a card only (the warp form's 512 spheres, the
-    replaying form's 64, every form's 16 lights), the card has no other
-    form, and the stats instances (none for the pool form) and the cycle
-    tool need a card."""
+    replaying form's 64 and 16 lights; the warp form past 16 lights and
+    the pool form keep the seen lights in words of their own, any
+    number), the card has no other form, and the stats instances (none
+    for the pool form) and the cycle tool need a card."""
     scene = crowded_scene()
     cfg = RenderConfig(width=8, height=4, samples_per_pixel=1, max_depth=2)
     g = torch.ones((4, 8, 3))
@@ -624,10 +728,16 @@ def test_wrapper_caps_and_forms_on_the_cpu(monkeypatch):
     card = SimpleNamespace(device=torch.device("cuda"), n_spheres=600,
                            emissive_ids=tuple(range(17)))
     for form, match in (("replay", "at most 64 spheres"),
-                        ("warp", "at most 512 spheres"),
-                        ("pool", "at most 16 emissive")):
+                        ("warp", "at most 512 spheres")):
         with pytest.raises(ValueError, match=match):
             cuda_render.check_caps(card, cuda_grad.FORM_CAPS[form], form)
+    cuda_render.check_caps(card, cuda_grad.FORM_CAPS["pool"], "pool")
+    lit = SimpleNamespace(device=torch.device("cuda"), n_spheres=60,
+                          emissive_ids=tuple(range(40)))
+    with pytest.raises(ValueError, match="at most 16 emissive"):
+        cuda_render.check_caps(lit, cuda_grad.FORM_CAPS["replay"], "replay")
+    for form in ("warp", "pool"):
+        cuda_render.check_caps(lit, cuda_grad.FORM_CAPS[form], form)
     small = make_scene(big=False)
     for form in ("lane", "stored"):
         with pytest.raises(ValueError, match="no gradient kernel form"):
@@ -876,3 +986,158 @@ def test_chunked_soft_gradient_is_ill_conditioned_at_a_grazing_hit(host_lib):
     _, _, d_h = render_tile_scaled_grad_plain(
         scene, hard, 0, torch.from_numpy(gp), x, y, 1, 1)
     assert_rows_close(acc_h, d_h.numpy(), 1e-4)
+
+
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+@pytest.mark.parametrize("lanes", [1, 32])
+def test_forty_lights_warp_and_pool_forms_match_plain_autograd(host_lib,
+                                                               soft, lanes):
+    """40 lights (tools/scenes.many_lights_scene: past the 16 bits of `see`
+    a carry record holds, and past a word of 32): K3's warp form with the
+    seen lights in words of their own (lights_warp_grad_kernel's
+    LightTapeOf<false>) and the pool form (LightTapeOf<true>), in one
+    one-lane warp and in two 32-lane warps, 16x8, spp 1, depth 3, hard and
+    eps 0.05: within 1e-3 of plain autograd row by row, rays exact, the
+    image within 1e-4, the two forms' tables bit-equal on the same warps,
+    and gradients reach the emission of the lights past the 32nd."""
+    scene = many_lights_scene()
+    assert len(scene.emissive_ids) == 40
+    cfg = RenderConfig(width=16, height=8, samples_per_pixel=1, max_depth=3,
+                       soft_silhouette_eps=0.05 if soft else 0.0)
+    g = np.random.RandomState(9).rand(8, 16, 3).astype(np.float32)
+    warps = 1 if lanes == 1 else 2
+    out, rays, acc = grad_lights_host(host_lib, scene, cfg, 0, g, 0, 0, warps,
+                                      lanes)
+    p_out, p_rays, p_acc, _ = grad_pool_host(host_lib, scene, cfg, 0, g, 0, 0,
+                                             warps, lanes)
+    np.testing.assert_array_equal(p_out, out)
+    assert p_rays == rays
+    np.testing.assert_array_equal(p_acc, acc)
+    img, prays, d = render_tile_grad_plain(scene, cfg, 0, torch.from_numpy(g),
+                                           0, 0, 8, 16)
+    assert rays == int(prays)
+    assert np.abs(out - img.numpy()).max() <= 1e-4
+    assert_rows_close(acc, d.numpy(), 1e-3)
+    late = list(scene.emissive_ids[32:])
+    assert np.abs(acc[tc.ROW_EM:tc.ROW_EM + 3][:, late]).max() > 0
+
+
+FIELDS = ("center", "radius", "albedo", "emissive", "roughness", "ri")
+LIGHTS_CFG = dict(width=16, height=8, samples_per_pixel=1, max_depth=1)
+
+# jax.grad of sum(img * w) through the JAX package's differentiable render
+# of the scene in the .npz argv[1] (its fields, mat_type, emissive_ids,
+# camera and w), config argv[3]; the fields' gradients to argv[2].
+JAX_LIGHTS = r"""
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from toypathtracer_tpu import RenderConfig
+from toypathtracer_tpu.render.wavefront import render_frame
+from toypathtracer_tpu.scene import CameraSpec, Scene
+
+d = dict(np.load(sys.argv[1], allow_pickle=True))
+fields = ("center", "radius", "albedo", "emissive", "roughness", "ri")
+scene = Scene(**{f: jnp.asarray(d[f]) for f in fields},
+              mat_type=tuple(int(m) for m in d["mat_type"]),
+              emissive_ids=tuple(int(e) for e in d["emissive_ids"]),
+              camera=CameraSpec(**d["camera"].item()))
+cfg = RenderConfig(**eval(sys.argv[3]))
+
+
+def loss(s):
+    img, _ = render_frame(s, cfg, jnp.int32(0), differentiable=True)
+    return jnp.sum(img * d["w"])
+
+
+g = jax.grad(loss)(scene)
+np.savez(sys.argv[2], **{f: np.asarray(getattr(g, f)) for f in fields})
+"""
+
+
+@pytest.fixture(scope="module")
+def lights_jax_ref(tmp_path_factory):
+    """(scene, w, JAX's gradients) of tools/scenes.
+    few_spheres_many_lights_scene (17 lights) at LIGHTS_CFG, jax.grad in a
+    child process whose XLA may not contract a product and a sum into one
+    multiply-add (XLA_FLAGS=--xla_cpu_max_isa=AVX, as tests/
+    test_torch_soft.py), so that it rounds as the port does."""
+    scene = few_spheres_many_lights_scene()
+    w = np.random.RandomState(9).rand(8, 16, 3).astype(np.float32)
+    d = tmp_path_factory.mktemp("lights_ref")
+    np.savez(d / "scene.npz", w=w, mat_type=np.array(scene.mat_type),
+             emissive_ids=np.array(scene.emissive_ids),
+             camera=np.array(dataclasses.asdict(scene.camera), dtype=object),
+             **{f: getattr(scene, f).numpy() for f in FIELDS})
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_cpu_max_isa=AVX",
+               PYTHONPATH=os.pathsep.join([str(root)]
+                                          + [q for q in sys.path if q]))
+    subprocess.run([sys.executable, "-c", JAX_LIGHTS, str(d / "scene.npz"),
+                    str(d / "grad.npz"), repr(LIGHTS_CFG)], env=env,
+                   check=True, cwd=root, timeout=900)
+    with np.load(d / "grad.npz") as g:
+        return scene, w, dict(g)
+
+
+@pytest.mark.parametrize("field", FIELDS)
+@pytest.mark.parametrize("source", ["plain", "kernel"])
+def test_seventeen_lights_gradient_matches_jax(host_lib, lights_jax_ref,
+                                               source, field):
+    """17 lights (one past the 16 bits of `see` a carry record holds)
+    against jax.grad of the JAX package's differentiable render, 16x8,
+    spp 1, depth 1, the RandomState(9) cotangent: the port's plain
+    version (autograd through render/wavefront.render_tile_plain) and
+    K3's warp form past 16 lights (LightTapeOf records, two 32-lane
+    warps) carried to the fields through pack_scene.  Per field, max
+    |diff| <= 1e-3 x the field's max |jax.grad| (tests/test_torch_soft.py's
+    gate); measured at most 3.4e-6 of it for the plain version and
+    2.6e-6 for the kernel (the centres).
+    At depth 1 no path scatters again, so roughness and ri take no
+    gradient on either side; the emission of the lights past the 16th
+    does."""
+    scene, w, want = lights_jax_ref
+    cfg = RenderConfig(**LIGHTS_CFG)
+    leaves = {f: getattr(scene, f).clone().requires_grad_(True)
+              for f in FIELDS}
+    live = scene.replace(**leaves)
+    if source == "plain":
+        img, _ = render_tile_plain(live, cfg, 0, 0, 0, 8, 16)
+        (img * torch.from_numpy(w)).sum().backward()
+    else:
+        _, _, acc = grad_lights_host(host_lib, scene, cfg, 0, w, 0, 0, 2, 32)
+        cuda_render.pack_scene(live).backward(torch.from_numpy(acc))
+    got = leaves[field].grad.numpy()
+    scale = np.abs(want[field]).max()
+    assert np.isfinite(got).all()
+    assert np.abs(got - want[field]).max() <= 1e-3 * scale, (
+        np.abs(got - want[field]).max(), scale)
+    if field in ("roughness", "ri"):
+        assert scale == 0.0 and not got.any()
+    else:
+        assert scale > 0
+    if field == "emissive":
+        late = list(scene.emissive_ids[16:])
+        assert np.abs(want[field][late]).max() > 0
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+def test_lights_instance_bit_equal_to_16_light_instance(host_lib, lanes):
+    """On the 46-sphere scene (2 lights) the warp form's lights instance
+    (seen lights in words of their own) gives the 16-light instance's
+    image, rays and table bit for bit, soft at eps 0.05."""
+    scene = make_scene(big=True)
+    cfg = RenderConfig(width=32, height=8, samples_per_pixel=2, max_depth=4,
+                       soft_silhouette_eps=0.05)
+    g = np.random.RandomState(6).rand(8, 32, 3).astype(np.float32)
+    form = 2 if lanes == 1 else 31
+    out, rays, acc = grad_form_host(host_lib, scene, cfg, 2, g, 0, 0, form)
+    l_out, l_rays, l_acc = grad_lights_host(host_lib, scene, cfg, 2, g, 0, 0,
+                                            1, lanes)
+    np.testing.assert_array_equal(l_out, out)
+    assert l_rays == rays
+    np.testing.assert_array_equal(l_acc, acc)

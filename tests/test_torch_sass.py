@@ -87,3 +87,23 @@ def test_sass_diff_tells_parameter_offsets_apart():
     d = sass_loops.sass_diff(here, there)
     assert d["differ"] == ["a", "b"]
     assert d["parameter_offsets_only"] == ["a"]
+
+
+def test_digests_equal_exactly_where_sass_diff_says_identical():
+    """--digests (chip_smoke.py's KEPT_SASS): a kernel's digest changes with
+    any instruction or address and with nothing else, so two libraries'
+    digests agree exactly for the kernels sass_diff calls identical."""
+    here = sass_loops.functions(LISTING)
+    moved = {k: [(a + 16, t) for a, t in v] for k, v in here.items()}
+    edited = {k: list(v) for k, v in here.items()}
+    edited["render_kernel<0>"][3] = (0x30, "FMUL R4, R2, -R5")
+    d0 = sass_loops.digests(here)
+    assert d0 == sass_loops.digests({k: list(v) for k, v in here.items()})
+    assert sorted(d0) == sorted(here) and all(len(v) == 64
+                                              for v in d0.values())
+    for other in (moved, edited):
+        d1 = sass_loops.digests(other)
+        same = sass_loops.sass_diff(here, other)["identical"]
+        assert [k for k in sorted(d0) if d0[k] == d1[k]] == same
+    assert sass_loops.sass_diff(here, edited)["identical"] == [
+        "merged_render_kernel<1>"]

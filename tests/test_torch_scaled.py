@@ -232,6 +232,95 @@ def test_plain_render_matches_jax(scene800, frame):
     assert np.isfinite(img.numpy()).all() and img.numpy().max() > 0.05
 
 
+def test_twenty_lights_render_and_differentiate_on_the_cpu():
+    """20 emissive ids on the 2048-sphere scene of chunk 64: the plain
+    scaled render and its gradient take any count of lights on the CPU
+    (the 16-light cap of the per-lane render form and of the per-lane
+    chunked K3 binds on a card only), and the render matches JAX's
+    render_frame_scaled(pallas=False) at 8x8, spp 1, depth 2 with the
+    gates of test_plain_render_matches_jax: rays within 1e-3, mean |diff|
+    within 6e-4, and at most 1.5% of the pixels beyond 1e-4, rounded up
+    to one of these 64 (measured: rays equal, one pixel at 1.47e-4 of an
+    image whose max is 38, mean 2.2e-6: XLA's CPU code fuses a*b - c,
+    ROADMAP.md queue 3's measured drift)."""
+    import dataclasses
+    lights = tuple(range(20))
+    s = make_scaled_scene(n=2048, chunk=64).replace(emissive_ids=lights)
+    j = dataclasses.replace(jscaled.make_scaled_scene(n=2048, chunk=64),
+                            emissive_ids=lights)
+    cfg = RenderConfig(width=8, height=8, samples_per_pixel=1, max_depth=2)
+    img, rays = cuda_scaled.render_frame_scaled(s, cfg, 0, device="cpu")
+    jimg, jrays = jscaled.render_frame_scaled(
+        j, JConfig(width=8, height=8, samples_per_pixel=1, max_depth=2),
+        jnp.int32(0), pallas=False)
+    jimg = np.asarray(jimg)
+    assert abs(int(rays) - int(jrays)) <= 1e-3 * int(jrays)
+    d = np.abs(img.numpy() - jimg)
+    assert (d.max(axis=-1) > 1e-4).sum() <= np.ceil(0.015 * 64)
+    assert d.mean() <= 6e-4
+    assert np.isfinite(img.numpy()).all() and img.numpy().max() > 0.05
+    albedo = s.albedo.clone().requires_grad_(True)
+    img_d, rays_d = cuda_scaled.render_frame_scaled(
+        s.replace(albedo=albedo), cfg, 0, device="cpu", differentiable=True)
+    assert torch.equal(img_d.detach(), img) and int(rays_d) == int(rays)
+    img_d.mean().backward()
+    assert torch.isfinite(albedo.grad).all() and albedo.grad.abs().sum() > 0
+    g = torch.ones((8, 8, 3))
+    _, _, d_tab = cuda_scaled.render_tile_scaled_grad(s, cfg, 0, g, 0, 0, 8,
+                                                      8)
+    assert d_tab.shape == (14, 2048) and torch.isfinite(d_tab).all()
+
+
+def test_scaled_autograd_frees_its_tape_and_writes_it_again(monkeypatch):
+    """The card's differentiable scaled route (cuda_scaled.
+    _ScaledPackedRender) with its two kernels stood in for by the plain
+    version, on the CPU: the forward's tape reaches the first backward,
+    which frees it; a second backward through the retained graph
+    (retain_graph=True, two losses on one render) writes the tape again
+    and gets its own cotangent, bit-equal to the plain gradient for its
+    weights."""
+    import weakref
+
+    from toypathtracer_torch.scaled import (render_tile_scaled_grad_plain,
+                                            render_tile_scaled_plain)
+    s = make_scaled_scene(n=2048, chunk=64)
+    cfg = RenderConfig(width=8, height=8, samples_per_pixel=1, max_depth=2)
+    written, swept = [], []
+
+    def tape(scene, c, frame, x0, y0, h, w, tab=None):
+        img, rays = render_tile_scaled_plain(scene, c, frame, x0, y0, h, w,
+                                             tab=tab.detach())
+        t = {"n": len(written), "rec": torch.zeros(1),
+             "tile": (frame, x0, y0, h, w)}
+        written.append(weakref.ref(t["rec"]))
+        return img, rays, t
+
+    def sweep(scene, c, g_img, t, tab=None):
+        swept.append(t["n"])
+        frame, x0, y0, h, w = t["tile"]
+        return render_tile_scaled_grad_plain(scene, c, frame, g_img, x0, y0,
+                                             h, w, tab=tab)[2]
+
+    monkeypatch.setattr(cuda_scaled, "render_tile_scaled_tape", tape)
+    monkeypatch.setattr(cuda_scaled, "sweep_scaled_tape", sweep)
+    tab = cuda_scaled.pack_scene(s).requires_grad_(True)
+    img, _ = cuda_scaled._ScaledPackedRender.apply(tab, s, cfg, 0,
+                                                   (0, 0, 8, 8))
+    rs = np.random.RandomState(1)
+    g1, g2 = (torch.from_numpy(rs.rand(8, 8, 3).astype(np.float32))
+              for _ in range(2))
+    d1, = torch.autograd.grad((img * g1).sum(), tab, retain_graph=True)
+    assert swept == [0] and len(written) == 1 and written[0]() is None
+    d2, = torch.autograd.grad((img * g2).sum(), tab)
+    assert swept == [0, 1] and len(written) == 2
+
+    def want(g):
+        return render_tile_scaled_grad_plain(s, cfg, 0, g, 0, 0, 8, 8,
+                                             tab=tab.detach())[2]
+    assert torch.equal(d1, want(g1)) and torch.equal(d2, want(g2))
+    assert d1.abs().sum() > 0 and not torch.equal(d1, d2)
+
+
 def test_chunk_culling_is_exact_in_the_port(scene800):
     s_many = scene800[0]
     s_one = make_scaled_scene(n=800, chunk=1024)

@@ -683,12 +683,169 @@ TPT_WARP void hit_chunks_warp(const W& w, const CoopView& V,
   }
 }
 
-// Words of per-warp scratch nee_warp keeps for n_lights lights and a warp
-// of `width` lanes: each (light, lane) pair's direction, t_l and cone
-// cosine, the queue of candidate pairs, and per light the occluded lanes.
-TPT_HD int nee_words(int n_lights, int width) {
-  return n_lights * (6 * width + 1);
+// Lights whose shadow rays one pass of nee_warp holds: the scaled scene's
+// 8 beacons and any scene up to kMaxLights take one pass (CoopView), more
+// lights take passes of kCoopNeeGroup in light order (CoopViewLights).
+constexpr int kCoopNeeGroup = 16;
+
+// The lights of one pass of nee_warp for a scene of n_lights lights.
+TPT_HD int nee_group(int n_lights) {
+  return n_lights < kCoopNeeGroup ? n_lights : kCoopNeeGroup;
 }
+
+// Words of per-warp scratch one pass of nee_warp keeps for g lights
+// (nee_group) and a warp of `width` lanes: each (light, lane) pair's
+// direction, t_l and cone cosine, the queue of candidate pairs, and per
+// light the occluded lanes.
+TPT_HD int nee_words(int g, int width) {
+  return g * (6 * width + 1);
+}
+
+// One pass of nee_warp past kCoopNeeGroup lights: the lights k0 .. k0 +
+// G - 1 (G the pass's size, kCoopNeeGroup or fewer), their contributions
+// added to light_e in light order; `word` carries a kTape counter's seen
+// lights of the current 32 from pass to pass.
+template <class W, class Cnt>
+TPT_WARP V3 nee_pass(const W& w, const CoopView& S, const RenderParams& p,
+                     bool lambert, V3 pos, V3 normal, V3 rd, V3 alb,
+                     int hit_id, uint32_t& st, uint32_t& rays, Cnt& cnt,
+                     int k0, int G, V3 light_e, uint32_t& word) {
+  const int n_l = S.n_lights;
+  const int WD = W::kWidth;
+  const int lane = w.lane();
+  float* lx = S.nee;
+  float* ly = lx + G * WD;
+  float* lz = ly + G * WD;
+  float* tl = lz + G * WD;
+  float* cm = tl + G * WD;
+  int* queue = reinterpret_cast<int*>(cm + G * WD);
+  unsigned* occ = reinterpret_cast<unsigned*>(queue + G * WD);
+  const int g = n_l - k0 < G ? n_l - k0 : G;
+  // the lanes' shadow rays, light by light (the draws of nee); occ[j]
+  // starts as the lanes without a candidate for light k0 + j
+  int n_q = 0;
+  for (int j = 0; j < g; ++j) {
+    const int e = S.lights[k0 + j];
+    bool cand = false;
+    if (lambert && e != hit_id) {  // self-skip (hlsl:204)
+      float eps1 = rand01(st);
+      float eps2 = rand01(st);
+      ++rays;
+      Cone q = cone(S, e, pos, eps1, eps2);
+      float t_l;
+      cand = sphere_t(S, e, pos, q.l, p.t_min, t_l) && t_l < p.t_max;
+      const int i = j * WD + lane;
+      lx[i] = q.l.x;
+      ly[i] = q.l.y;
+      lz[i] = q.l.z;
+      tl[i] = t_l;
+      cm[i] = q.cos_a_max;
+    }
+    const unsigned m = w.ballot(cand);
+    if (cand) queue[n_q + popc(m & ((1u << lane) - 1u))] = j * WD + lane;
+    if (lane == 0) occ[j] = ~m;
+    n_q += popc(m);
+  }
+  w.sync();
+  // the candidates' shadow tests, a warp's width at a time.  First each
+  // one's own chunk (its hit sphere's) where its box passes: most occluders
+  // lie next to the ray's origin, and an OR over chunks may take them in any
+  // order.  The rays that it leaves are compacted in the queue, then walk
+  // the other chunks.
+  long long c0 = 0;
+  if constexpr (Cnt::kOn) c0 = w.clock();
+  const int K = S.chunk;
+  struct Ray {
+    bool valid;
+    int code, k, owner, own;
+    V3 o, l;
+    float t_l;
+  };
+  // this lane's candidate of queue[i], for i < n
+  auto ray = [&](int i, int n) {
+    Ray r;
+    r.valid = i < n;
+    r.code = r.valid ? queue[i] : lane;
+    r.k = r.code / WD;
+    r.owner = r.code % WD;
+    r.o = v3(w.shfl(pos.x, r.owner), w.shfl(pos.y, r.owner),
+             w.shfl(pos.z, r.owner));
+    r.own = w.shfl(hit_id, r.owner) / K;
+    r.l = r.valid ? v3(lx[r.code], ly[r.code], lz[r.code])
+                  : v3(0.0f, 0.0f, 0.0f);
+    r.t_l = r.valid ? tl[r.code] : 0.0f;
+    return r;
+  };
+  int n_s = 0;
+  for (int b = 0; b < n_q; b += WD) {
+    const Ray r = ray(b + lane, n_q);
+    const int light = S.lights[k0 + r.k];
+    const V3 inv = v3(safe_inv(r.l.x), safe_inv(r.l.y), safe_inv(r.l.z));
+    const bool part = r.valid && !any_nan(r.o) && !any_nan(inv) &&
+                      !is_nan(r.t_l);
+    unsigned m =
+        w.ballot(part && slab(S.box + 6 * r.own, r.o, inv, p.t_min, r.t_l));
+    if constexpr (Cnt::kOn) {
+      cnt.add(kStKind + kStBoxes, 1);
+      cnt.add(kStKind + kStSlabs, popc(w.ballot(part)));
+    }
+    bool blocked = false;
+    while (m) {
+      const int L = lowest(m);
+      m &= m - 1;
+      const int c = w.shfl(r.own, L);
+      if (vote_chunk(w, S.chunk_row(c), K, c, L, r.o, r.l, light, p.t_min,
+                     r.t_l, cnt) < K &&
+          lane == L)
+        blocked = true;
+    }
+    if (blocked) w.or_mask(occ + r.k, 1u << r.owner);
+    const unsigned left = w.ballot(r.valid && !blocked);
+    if constexpr (Cnt::kOn) cnt.add(kStOwnBlocked, popc(w.ballot(blocked)));
+    w.sync();
+    if (r.valid && !blocked)
+      queue[n_s + popc(left & ((1u << lane) - 1u))] = r.code;
+    n_s += popc(left);
+  }
+  w.sync();
+  for (int b = 0; b < n_s; b += WD) {
+    const Ray r = ray(b + lane, n_s);
+    if (coop_occluded(w, S, r.valid, r.o, r.l, S.lights[k0 + r.k], p.t_min,
+                      r.t_l, r.own, cnt))
+      w.or_mask(occ + r.k, 1u << r.owner);
+  }
+  if constexpr (Cnt::kOn) cnt.add(kStCycShadow, w.clock() - c0);
+  w.sync();
+  // the visible lights' contributions, in light order
+  const V3 nl = dot(normal, rd) < 0.0f ? normal : neg(normal);
+  for (int j = 0; j < g; ++j) {
+    const int k = k0 + j;
+    const bool seen = !((occ[j] >> lane) & 1u);
+    if constexpr (Cnt::kTape) {
+      if (seen) word |= 1u << (k & 31);
+      if ((k & 31) == 31 || k == n_l - 1) {
+        if (lambert) cnt.see_word(k >> 5, word);
+        word = 0;
+      }
+    }
+    if (!seen) continue;
+    const int e = S.lights[k];
+    const int i = j * WD + lane;
+    const V3 l = v3(lx[i], ly[i], lz[i]);
+    float omega = TPT_TWO_PI * (1.0f - cm[i]);
+    float fac = max0(dot(l, nl)) * omega / TPT_PI;
+    V3 em = v3(S.at(ROW_EM, e), S.at(ROW_EM + 1, e), S.at(ROW_EM + 2, e));
+    light_e = v3(light_e.x + (alb.x * em.x) * fac,
+                 light_e.y + (alb.y * em.y) * fac,
+                 light_e.z + (alb.z * em.z) * fac);
+  }
+  w.sync();
+  return light_e;
+}
+
+// The cooperative view of a scene with more than kCoopNeeGroup lights:
+// nee_warp takes its lights in passes (csrc/scaled.cu's lights instances).
+struct CoopViewLights : CoopView {};
 
 // NEE (trace.cuh nee) for the warp.  Each lane that hit a Lambert sphere
 // draws, counts and builds its shadow rays light by light exactly as nee
@@ -696,7 +853,11 @@ TPT_HD int nee_words(int n_lights, int width) {
 // pairs in light-major order from a queue in S.nee, so that each shadow
 // traversal runs with the warp full and not with the lanes that one light
 // leaves (an OR over chunks does not depend on which rays share a pass);
-// last each lane adds its visible lights in light order.
+// last each lane adds its visible lights in light order.  A CoopView holds
+// at most kCoopNeeGroup lights, which take one pass; a CoopViewLights any
+// number, in passes (nee_pass).  A counter with kTape set (the
+// tape-writing instance of csrc/scaled.cu) receives each Lambert lane's
+// seen lights (see_word).
 template <class W, class Cnt>
 TPT_WARP V3 nee_warp(const W& w, const CoopView& S, const RenderParams& p,
                        bool lambert, V3 pos, V3 normal, V3 rd, V3 alb,
@@ -811,8 +972,10 @@ TPT_WARP V3 nee_warp(const W& w, const CoopView& S, const RenderParams& p,
   // the visible lights' contributions, in light order
   V3 light_e = v3(0.0f, 0.0f, 0.0f);
   V3 nl = dot(normal, rd) < 0.0f ? normal : neg(normal);
+  uint32_t seen = 0;  // kTape
   for (int k = 0; k < n_l; ++k) {
     if (!((cands >> k) & 1u) || ((occ[k] >> lane) & 1u)) continue;
+    if constexpr (Cnt::kTape) seen |= 1u << k;
     const int e = S.lights[k];
     const int i = k * WD + lane;
     const V3 l = v3(lx[i], ly[i], lz[i]);
@@ -823,7 +986,28 @@ TPT_WARP V3 nee_warp(const W& w, const CoopView& S, const RenderParams& p,
                  light_e.y + (alb.y * em.y) * fac,
                  light_e.z + (alb.z * em.z) * fac);
   }
+  if constexpr (Cnt::kTape) {
+    if (lambert && n_l > 0) cnt.see_word(0, seen);
+  }
   w.sync();
+  return light_e;
+}
+
+// nee_warp past kCoopNeeGroup lights: passes of kCoopNeeGroup (nee_pass),
+// each drawn, tested and added in light order, so that the draws, the rays
+// and the sum are nee's.
+template <class W, class Cnt>
+TPT_WARP V3 nee_warp(const W& w, const CoopViewLights& S,
+                       const RenderParams& p, bool lambert, V3 pos,
+                       V3 normal, V3 rd, V3 alb, int hit_id, uint32_t& st,
+                       uint32_t& rays, Cnt& cnt) {
+  const int n_l = S.n_lights;
+  const int G = nee_group(n_l);
+  uint32_t word = 0;  // kTape: the seen lights of the current 32
+  V3 light_e = v3(0.0f, 0.0f, 0.0f);
+  for (int k0 = 0; k0 < n_l; k0 += G)
+    light_e = nee_pass(w, S, p, lambert, pos, normal, rd, alb, hit_id, st,
+                       rays, cnt, k0, G, light_e, word);
   return light_e;
 }
 

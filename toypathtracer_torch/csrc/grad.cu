@@ -225,13 +225,38 @@ __host__ __device__ size_t warp_tape_floats(const tpt::RenderParams& p) {
          tpt::grad_batch(p);
 }
 
+// Floats of one warp's carries with their seen lights in words of their
+// own (csrc/gradwarp.cuh LightTapeOf): the records, then the words.
+__host__ __device__ size_t light_tape_floats(const tpt::RenderParams& p) {
+  return warp_tape_floats(p) + static_cast<size_t>(32) * p.max_depth *
+                                   tpt::grad_batch(p) *
+                                   tpt::light_words(p.n_lights);
+}
+
+// The tape of warp gw with LightBits (LightTapeOf), in tape's
+// light_tape_floats(p) floats a warp.
+template <bool kWide>
+__device__ __forceinline__ tpt::LightTapeOf<kWide> light_tape(
+    float* tape, const tpt::RenderParams& p, int gw, int lane) {
+  float* base = tape + static_cast<size_t>(gw) * light_tape_floats(p);
+  tpt::LightTapeOf<kWide> t;
+  t.base = base;
+  t.width = 32;
+  t.lane = lane;
+  t.see = reinterpret_cast<uint32_t*>(base + warp_tape_floats(p));
+  t.words = tpt::light_words(p.n_lights);
+  return t;
+}
+
 // The warp form of K3 (csrc/gradwarp.cuh grad_tiles<kSoft>), the body of
 // warp_grad_kernel and soft_warp_grad_kernel.  Dynamic shared memory:
 // [scene table] [material ids] [emissive ids] [camera] [kGradWarps
 // cotangent tables of SCENE_ROWS * n] [kGradWarps scratches of
 // grad_tiles].
-// `tape`: warp_tape_floats(p) floats for each warp of the grid.
-template <bool kStats, bool kSoft>
+// `tape`: warp_tape_floats(p) floats for each warp of the grid
+// (light_tape_floats(p) for kLights: the instances past kMaxLights lights,
+// whose records keep the seen lights in words of their own).
+template <bool kStats, bool kSoft, bool kLights = false>
 __device__ __forceinline__ void warp_grad_body(
     const float* __restrict__ tab, const int32_t* __restrict__ mat,
     const int32_t* __restrict__ lights, const float* __restrict__ cam,
@@ -258,6 +283,9 @@ __device__ __forceinline__ void warp_grad_body(
   for (int i = tid; i < m; i += kWarpThreads) s_tab[i] = tab[i];
   for (int i = tid; i < n; i += kWarpThreads) s_mat[i] = mat[i];
   if (tid < p.n_lights) s_lights[tid] = lights[tid];
+  if constexpr (kLights)
+    for (int i = tid + kWarpThreads; i < p.n_lights; i += kWarpThreads)
+      s_lights[i] = lights[i];
   if (tid < tpt::kCameraFloats) s_cam[tid] = cam[tid];
   if constexpr (kStats) c0 = clock64();
   for (int i = tid; i < kGradWarps * m; i += kWarpThreads) s_acc[i] = 0.0f;
@@ -277,7 +305,11 @@ __device__ __forceinline__ void warp_grad_body(
                         32, tid & 31};
   float* ws = s_ws + warp * tpt::grad_scratch_words(32);
   unsigned long long count;
-  if constexpr (kStats)
+  if constexpr (kLights)
+    count = tpt::grad_tiles<kSoft>(w, S, s_cam, p, g, out, s_acc + warp * m,
+                                   light_tape<false>(tape, p, gw, tid & 31),
+                                   ws, gw, gridDim.x * kGradWarps, none);
+  else if constexpr (kStats)
     count = tpt::grad_tiles<kSoft>(w, S, s_cam, p, g, out, s_acc + warp * m,
                                    t, ws, gw, gridDim.x * kGradWarps, cs);
   else
@@ -331,6 +363,22 @@ soft_warp_grad_kernel(const float* __restrict__ tab,
                                partial, stats);
 }
 
+// K3's warp form past kMaxLights lights (hard, or soft where p.soft_eps >
+// 0): its records keep the seen lights in words of their own; the 16-light
+// instances above keep them in the record's bits and their code.
+template <bool kSoft>
+__global__ void __launch_bounds__(kWarpThreads, kWarpBlocks)
+lights_warp_grad_kernel(const float* __restrict__ tab,
+                        const int32_t* __restrict__ mat,
+                        const int32_t* __restrict__ lights,
+                        const float* __restrict__ cam, tpt::RenderParams p,
+                        const float* __restrict__ g, float* __restrict__ out,
+                        unsigned long long* __restrict__ rays, float* tape,
+                        float* __restrict__ partial) {
+  warp_grad_body<false, kSoft, true>(tab, mat, lights, cam, p, g, out, rays,
+                                     tape, partial, nullptr);
+}
+
 // d_tab[j] = the sum of partial[.][j] over `rows` rows, one warp an entry:
 // lane l adds rows l, l + 32, ... in double, then a fixed shuffle tree.
 constexpr int kSumThreads = 256;
@@ -363,20 +411,30 @@ sum_rows(const float* __restrict__ partial, int rows, int m,
 // warp form's.  Both are plain forms: 8 blocks an SM (64 registers a
 // thread), no staging of the scene.
 //
-// The directory is dense: 4 bytes per (sphere, warp), over the launch's
-// 4 x 8 x (SMs) warps -- 16,896 bytes a sphere on a 132-SM H100, 1.69 GB
-// at n = 100,096, filled with -1 before each launch and read whole by
-// sum_pool.  It still grows as n x resident warps, so it caps the scene
-// at about 4.7 million spheres on an 80 GB card (less whatever else is
-// allocated).  Keying it per (chunk, warp), or writing (sphere, slot)
-// records and sorting them in a fixed order, would lift that cap.
+// The directory is keyed per (kDirIds spheres, warp) (gradwarp.cuh
+// PoolTable): 4 bytes per 64 spheres for each of the launch's 4 x 8 x (SMs)
+// warps -- 264 bytes a sphere on a 132-SM H100, 26.4 MB at n = 100,096 --
+// plus the blocks of 64 slot indices the warps draw (256 bytes each, no more
+// than the slots).  The dense (sphere, warp) directory it replaced took 16,896
+// bytes a sphere, 1.69 GB there, and alone filled an 80 GB card at about 4.7
+// million spheres; this one alone fills it at about 300 million, and with the
+// scene's own storage and its gradient (about 250 bytes a sphere more) at
+// about 150 million.  The pool instance for the flat scene keeps the seen
+// lights in words of their own (LightTapeOf: any number of lights); the
+// chunked instance keeps the per-lane walks and 16 lights, kept as the
+// baseline of csrc/chunkgrad.cu's cooperative form.
 
 constexpr int kPoolBlocks = 8;
 
-// A pool launch's table: the (n, warps) directory (-1: no slot), the pool
-// of cap slots (zeroed) and its counter (0).
+// A pool launch's table (gradwarp.cuh PoolTable): the (ceil(n /
+// kDirIds), warps) block directory (-1: no block), block_cap blocks of
+// kDirIds slot indices (-1) and their counter (0), the pool of cap slots
+// (zeroed) and its counter (0).
 struct PoolArgs {
   int* dir;
+  int* blocks;
+  int* next_block;
+  int block_cap;
   float* pool;
   int* next;
   int cap;
@@ -392,15 +450,21 @@ struct ChunkArgs {
   int n_chunks, chunk;
 };
 
-template <bool kSoft, class View>
+// kLights: LightTapeOf records (any number of lights), else WideTape's (at
+// most kMaxLights); `tape` holds light_tape_floats(p) or warp_tape_floats(p)
+// floats a warp.
+template <bool kSoft, bool kStats = false, bool kLights = false, class View>
 __device__ __forceinline__ void pool_grad_body(
     const View& S, const float* __restrict__ cam, const tpt::RenderParams& p,
     const float* __restrict__ g, float* __restrict__ out,
-    unsigned long long* __restrict__ rays, float* tape, const PoolArgs& a) {
+    unsigned long long* __restrict__ rays, float* tape, const PoolArgs& a,
+    unsigned long long* __restrict__ stats = nullptr) {
   __shared__ unsigned long long warp_rays[kGradWarps];
   __shared__ float s_cam[tpt::kCameraFloats];
   // kGradWarps scratches of grad_tiles (grad_scratch_words(32) floats)
   __shared__ float s_ws[kGradWarps * (3 + tpt::kGradBatch) * 32];
+  long long c_all = 0;
+  if constexpr (kStats) c_all = clock64();
   const int tid = threadIdx.x;
   if (tid < tpt::kCameraFloats) s_cam[tid] = cam[tid];
   __syncthreads();
@@ -408,14 +472,32 @@ __device__ __forceinline__ void pool_grad_body(
   const tpt::DeviceWarp w(tid);
   const int gw = blockIdx.x * kGradWarps + warp;
   const int n_warps = gridDim.x * kGradWarps;
-  const tpt::WideTape t{tape + static_cast<size_t>(gw) * warp_tape_floats(p),
-                        32, tid & 31};
-  const tpt::PoolTable T{a.dir + gw, n_warps, a.pool, a.next, a.cap};
-  tpt::NoGradCount none;
-  const unsigned long long count = tpt::grad_tiles<kSoft>(
-      w, S, s_cam, p, g, out, T, t, s_ws + warp * tpt::grad_scratch_words(32),
-      gw, n_warps, none);
-  add_rays<kGradWarps>(count, warp_rays, rays, tid);
+  const tpt::PoolTable T{a.dir + gw, n_warps, a.blocks, a.next_block,
+                         a.block_cap, a.pool, a.next, a.cap};
+  float* ws = s_ws + warp * tpt::grad_scratch_words(32);
+  if constexpr (kLights) {
+    tpt::NoGradCount none;
+    const unsigned long long count = tpt::grad_tiles<kSoft>(
+        w, S, s_cam, p, g, out, T, light_tape<true>(tape, p, gw, tid & 31),
+        ws, gw, n_warps, none);
+    add_rays<kGradWarps>(count, warp_rays, rays, tid);
+  } else {
+    const tpt::WideTape t{
+        tape + static_cast<size_t>(gw) * warp_tape_floats(p), 32, tid & 31};
+    if constexpr (kStats) {
+      GradStats cs;
+      const unsigned long long count = tpt::grad_tiles<kSoft>(
+          w, S, s_cam, p, g, out, T, t, ws, gw, n_warps, cs);
+      add_rays<kGradWarps>(count, warp_rays, rays, tid);
+      cs.add(tpt::kGcCycAll, clock64() - c_all);
+      flush_stats(cs, stats, tid);
+    } else {
+      tpt::NoGradCount none;
+      const unsigned long long count = tpt::grad_tiles<kSoft>(
+          w, S, s_cam, p, g, out, T, t, ws, gw, n_warps, none);
+      add_rays<kGradWarps>(count, warp_rays, rays, tid);
+    }
+  }
 }
 
 template <bool kSoft>
@@ -433,7 +515,7 @@ pool_grad_kernel(const float* __restrict__ tab,
   S.lights = lights;
   S.n = p.n_spheres;
   S.n_lights = p.n_lights;
-  pool_grad_body<kSoft>(S, cam, p, g, out, rays, tape, a);
+  pool_grad_body<kSoft, false, true>(S, cam, p, g, out, rays, tape, a);
 }
 
 template <bool kSoft>
@@ -461,18 +543,50 @@ chunk_grad_kernel(const float* __restrict__ tab,
   pool_grad_body<kSoft>(S, cam, p, g, out, rays, tape, a);
 }
 
+// The chunked instance's stats instance: its SM cycles by part (trace.cuh
+// kGc*: the forward trace, the reverse sweep, within it the grouping and
+// the soft scans), added to `stats`, on the timed instance's grid.
+template <bool kSoft>
+__global__ void __launch_bounds__(kWarpThreads, kPoolBlocks)
+chunk_grad_stats_kernel(const float* __restrict__ tab,
+                        const int32_t* __restrict__ mat,
+                        const int32_t* __restrict__ lights,
+                        const float* __restrict__ cam, ChunkArgs c,
+                        tpt::RenderParams p, const float* __restrict__ g,
+                        float* __restrict__ out,
+                        unsigned long long* __restrict__ rays, float* tape,
+                        PoolArgs a, unsigned long long* __restrict__ stats) {
+  tpt::GradChunkedView S;
+  S.tab = tab;
+  S.mat = mat;
+  S.lights = lights;
+  S.rows = c.rows;
+  S.box = c.box;
+  S.n = p.n_spheres;
+  S.n_lights = p.n_lights;
+  S.chunk = c.chunk;
+  S.n_chunks = c.n_chunks;
+  S.sil_box = c.sil_box;
+  S.prox_box = c.prox_box;
+  pool_grad_body<kSoft, true>(S, cam, p, g, out, rays, tape, a, stats);
+}
+
 // d_tab[r][i] for the pool launch of `rows` blocks, one warp a sphere:
 // block b's partial is its warps' slots summed in warp order in float from
 // +0 (a warp without a slot adds nothing), and the partials are summed as
 // sum_rows sums the warp form's partial rows, so that the result is the
-// warp form's bit for bit where both run on one grid.
+// warp form's bit for bit where both run on one grid.  The warps of a
+// block of this kernel read one row of the block directory.
 __global__ void __launch_bounds__(kSumThreads)
-sum_pool(const int* __restrict__ dir, const float* __restrict__ pool,
-         int rows, int n, float* __restrict__ d_tab) {
+sum_pool(const int* __restrict__ dir, const int* __restrict__ blocks,
+         const float* __restrict__ pool, int rows, int n,
+         float* __restrict__ d_tab) {
   const int i = blockIdx.x * (kSumThreads / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (i >= n) return;  // the whole warp
-  const int* col = dir + static_cast<size_t>(i) * rows * kGradWarps;
+  const int* col = dir + static_cast<size_t>(i / tpt::kDirIds) * rows *
+                             kGradWarps;
+  const int* ids = blocks + i % tpt::kDirIds;
   double s[tpt::SCENE_ROWS];
 #pragma unroll
   for (int r = 0; r < tpt::SCENE_ROWS; ++r) s[r] = 0.0;
@@ -481,7 +595,9 @@ sum_pool(const int* __restrict__ dir, const float* __restrict__ pool,
 #pragma unroll
     for (int r = 0; r < tpt::SCENE_ROWS; ++r) q[r] = 0.0f;
     for (int k = 0; k < kGradWarps; ++k) {
-      const int slot = col[b * kGradWarps + k];
+      const int block = col[b * kGradWarps + k];
+      if (block < 0) continue;
+      const int slot = ids[static_cast<size_t>(block) * tpt::kDirIds];
       if (slot < 0) continue;
       const float* e = pool + static_cast<size_t>(slot) * tpt::kSlotFloats;
 #pragma unroll
@@ -510,10 +626,17 @@ cudaError_t pool_per_sm(bool chunked, int* per_sm) {
       per_sm, pool_grad_kernel<kSoft>, kWarpThreads, 0);
 }
 
-bool bad_params(const tpt::RenderParams* p, int max_spheres) {
+bool bad_params(const tpt::RenderParams* p, int max_spheres,
+                int max_lights = tpt::kMaxLights) {
   return p->n_spheres < 1 || p->n_spheres > max_spheres ||
-         p->n_lights < 0 || p->n_lights > tpt::kMaxLights || p->height < 1 ||
+         p->n_lights < 0 || p->n_lights > max_lights || p->height < 1 ||
          p->width < 1;
+}
+
+// Launches past kMaxLights lights take the instances whose records keep
+// the seen lights in words of their own.
+bool many_lights(const tpt::RenderParams* p) {
+  return p->n_lights > tpt::kMaxLights;
 }
 
 size_t stage_bytes(const tpt::RenderParams* p) {
@@ -542,7 +665,26 @@ bool soft(const tpt::RenderParams* p) { return p->soft_eps > 0.0f; }
 cudaError_t warp_grid(const tpt::RenderParams* p, int* blocks) {
   const size_t smem = warp_smem(p);
   auto timed = soft(p) ? soft_warp_grad_kernel<false> : warp_grad_kernel<false>;
-  cudaError_t err = tpt::allow_smem(timed, smem);
+  cudaError_t err;
+  if (many_lights(p)) {
+    auto lights = soft(p) ? lights_warp_grad_kernel<true>
+                          : lights_warp_grad_kernel<false>;
+    err = tpt::allow_smem(lights, smem);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, lights, kWarpThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    const int tiles = ((p->width + 7) / 8) * ((p->height + 3) / 4);
+    const int need = (tiles + kGradWarps - 1) / kGradWarps;
+    *blocks = need < sms * per_sm ? need : sms * per_sm;
+    return cudaSuccess;
+  }
+  err = tpt::allow_smem(timed, smem);
   if (err == cudaSuccess)
     err = tpt::allow_smem(
         soft(p) ? soft_warp_grad_kernel<true> : warp_grad_kernel<true>, smem);
@@ -583,7 +725,9 @@ int tpt_grad_scratch(const tpt::RenderParams* p, int form, int* rows,
   const cudaError_t err = warp_grid(p, rows);
   if (err != cudaSuccess) return static_cast<int>(err);
   *tape_floats = static_cast<long long>(*rows) * kGradWarps *
-                 static_cast<long long>(warp_tape_floats(*p));
+                 static_cast<long long>(many_lights(p)
+                                            ? light_tape_floats(*p)
+                                            : warp_tape_floats(*p));
   return 0;
 }
 
@@ -593,7 +737,8 @@ int tpt_grad_scratch(const tpt::RenderParams* p, int form, int* rows,
 // `rows`, `partial` and `tape` are the scratch tpt_grad_scratch gave for
 // these parameters (it must have run first); stats: null, or kGcSlots
 // zeroed totals that the form's stats instance adds to.  p->soft_eps > 0
-// launches the form's soft instance, and only then.  Returns
+// launches the form's soft instance, and only then; past kMaxLights lights
+// the warp form launches its lights instance (no stats instance).  Returns
 // cudaGetLastError() after both launches (0 when both were accepted).
 int tpt_grad_launch(const float* tab, const int32_t* mat,
                     const int32_t* lights, const float* cam,
@@ -602,11 +747,23 @@ int tpt_grad_launch(const float* tab, const int32_t* mat,
                     float* tape, float* d_tab, int form,
                     unsigned long long* stats, void* stream) {
   if (form < 0 || form > 1 ||
-      bad_params(p, form == 1 ? tpt::kMaxSpheres : kGradMaxSpheres) ||
+      bad_params(p, form == 1 ? tpt::kMaxSpheres : kGradMaxSpheres,
+                 form == 1 && !stats ? 1 << 30 : tpt::kMaxLights) ||
       rows < 1 || (form == 1 && !tape))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int m = tpt::SCENE_ROWS * p->n_spheres;
+  if (form == 1 && many_lights(p)) {
+    auto kernel = soft(p) ? lights_warp_grad_kernel<true>
+                          : lights_warp_grad_kernel<false>;
+    kernel<<<rows, kWarpThreads, warp_smem(p), s>>>(
+        tab, mat, lights, cam, *p, g, out, rays, tape, partial);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sum_rows<<<(m + kSumThreads / 32 - 1) / (kSumThreads / 32), kSumThreads,
+               0, s>>>(partial, rows, m, d_tab);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (form == 1) {
     auto kernel = soft(p)
                       ? (stats ? soft_warp_grad_kernel<true>
@@ -669,42 +826,63 @@ int tpt_grad_pool_scratch(const tpt::RenderParams* p, int chunked, int* rows,
   const int need = (tiles + kGradWarps - 1) / kGradWarps;
   *rows = need < sms * per_sm ? need : sms * per_sm;
   *tape_floats = static_cast<long long>(*rows) * kGradWarps *
-                 static_cast<long long>(warp_tape_floats(*p));
+                 static_cast<long long>(chunked ? warp_tape_floats(*p)
+                                                : light_tape_floats(*p));
   return 0;
 }
+
+// Sphere ids a block of the pool's directory covers (gradwarp.cuh
+// kDirIds).
+int tpt_grad_dir_ids() { return tpt::kDirIds; }
 
 // K3's pool instance on `stream` (chunk_rows null: the flat scene, else the
 // chunked one, with its n_chunks boxes `box` and, where p->soft_eps > 0,
 // the soft scans' inflated boxes): image `out` (height, width, 3), ray
-// count added to `rays`, the warps' slots in dir (n_spheres x rows *
-// kGradWarps ints, -1), pool (cap slots, 0) and next (0).  `rows` blocks
+// count added to `rays`, the warps' slots found through dir
+// (ceil(n_spheres / kDirIds) x rows * kGradWarps ints, -1) and blocks
+// (block_cap x kDirIds ints, -1; next_block 0), in pool (cap slots, 0;
+// next 0).  `rows` blocks
 // (any number; the warp form's grid makes the sum bit-equal to its) and
-// their `tape`.  The launcher reads *next afterwards: past cap the launch
-// dropped adds and must be run again with that many slots.  Returns
-// cudaGetLastError() after the launch.
+// their `tape`.  The launcher reads *next and *next_block afterwards: past
+// cap or block_cap the launch dropped adds and must be run again with that
+// many.  The flat scene takes any number of lights, the chunked one (the
+// per-lane walks, kept as the baseline) kMaxLights.  stats: null,
+// or kGcSlots zeroed totals that the chunked instance's stats instance
+// adds to (chunked only).  Returns cudaGetLastError() after the launch.
 int tpt_grad_pool_launch(const float* tab, const int32_t* mat,
                          const int32_t* lights, const float* cam,
                          const float* chunk_rows, const float* box,
                          const float* sil_box, const float* prox_box,
                          int n_chunks, int chunk, const tpt::RenderParams* p,
                          const float* g, float* out, unsigned long long* rays,
-                         int rows, float* tape, int* dir, float* pool,
-                         int* next, int cap, void* stream) {
-  if (bad_params(p, 1 << 30) || rows < 1 || !tape || !dir || !pool ||
-      !next || cap < 0)
+                         int rows, float* tape, int* dir, int* blocks,
+                         int* next_block, int block_cap, float* pool,
+                         int* next, int cap, unsigned long long* stats,
+                         void* stream) {
+  if (bad_params(p, 1 << 30, chunk_rows ? tpt::kMaxLights : 1 << 30) ||
+      rows < 1 || !tape || !dir || !blocks || !next_block || block_cap < 0 ||
+      !pool || !next || cap < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (chunk_rows &&
       (!box || n_chunks < 1 || chunk < 1 || n_chunks * chunk != p->n_spheres ||
        (soft(p) && (!sil_box || !prox_box))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const PoolArgs a{dir, pool, next, cap};
+  const PoolArgs a{dir, blocks, next_block, block_cap, pool, next, cap};
   if (chunk_rows) {
     const ChunkArgs c{chunk_rows, box, sil_box, prox_box, n_chunks, chunk};
+    if (stats) {
+      auto kernel = soft(p) ? chunk_grad_stats_kernel<true>
+                            : chunk_grad_stats_kernel<false>;
+      kernel<<<rows, kWarpThreads, 0, s>>>(tab, mat, lights, cam, c, *p, g,
+                                           out, rays, tape, a, stats);
+      return static_cast<int>(cudaGetLastError());
+    }
     auto kernel = soft(p) ? chunk_grad_kernel<true> : chunk_grad_kernel<false>;
     kernel<<<rows, kWarpThreads, 0, s>>>(tab, mat, lights, cam, c, *p, g, out,
                                          rays, tape, a);
   } else {
+    if (stats) return static_cast<int>(cudaErrorInvalidValue);
     auto kernel = soft(p) ? pool_grad_kernel<true> : pool_grad_kernel<false>;
     kernel<<<rows, kWarpThreads, 0, s>>>(tab, mat, lights, cam, *p, g, out,
                                          rays, tape, a);
@@ -713,11 +891,13 @@ int tpt_grad_pool_launch(const float* tab, const int32_t* mat,
 }
 
 // d_tab (SCENE_ROWS, n) from a pool launch of `rows` blocks (sum_pool).
-int tpt_grad_pool_sum_launch(const int* dir, const float* pool, int rows,
-                             int n, float* d_tab, void* stream) {
+int tpt_grad_pool_sum_launch(const int* dir, const int* blocks,
+                             const float* pool, int rows, int n, float* d_tab,
+                             void* stream) {
   if (rows < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
   sum_pool<<<(n + kSumThreads / 32 - 1) / (kSumThreads / 32), kSumThreads, 0,
-             static_cast<cudaStream_t>(stream)>>>(dir, pool, rows, n, d_tab);
+             static_cast<cudaStream_t>(stream)>>>(dir, blocks, pool, rows, n,
+                                                  d_tab);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -139,6 +139,13 @@ TPT_HD int claim(int* counter) {
 // Floats of a PoolTable slot: one sphere's SCENE_ROWS entries, padded to
 // 64 bytes.
 constexpr int kSlotFloats = 16;
+// Sphere ids a block of a PoolTable's directory covers: ids b * kDirIds ..
+// b * kDirIds + kDirIds - 1.
+constexpr int kDirIds = 64;
+// A directory entry whose claim found its pool empty: later adds to it
+// claim nothing, so that the counters count each entry the launch needs
+// once.
+constexpr int kDropped = -2;
 
 // A warp's cotangent table in device memory, for scenes of any size
 // (the pool instances of csrc/grad.cu).  A dense (SCENE_ROWS, n) table a
@@ -146,36 +153,66 @@ constexpr int kSlotFloats = 16;
 // resident warps.  Here a sphere gets a row of entries (a slot of
 // kSlotFloats floats, zeroed before the launch) the first time this warp
 // adds something other than +-0 to it, drawn from a pool the launch's
-// warps share by an integer counter; a directory with a column per warp,
-// dir[sphere * stride + warp], holds the sphere's slot or -1.  So the
-// scratch is the slots the launch's warps touch (64 bytes each) plus 4
-// bytes per (sphere, warp) of directory.  Each slot belongs to one warp
-// and its entries take the same adds in the same order as the shared
-// table's; adds of +-0, which the shared table makes and this one skips,
-// leave an entry that starts at +0 bit for bit (it is never -0), so the
-// two tables hold the same bits.  csrc/grad.cu's sum_pool then sums the
-// warps in the shared instance's order.  Where the pool runs out a claim
-// adds nothing, and the counter, which still counts it, tells the
-// launcher how many slots to give the relaunch.
+// warps share by an integer counter.  The warp finds the slot in two
+// steps: its column of a block directory, dir[(sphere / kDirIds) *
+// stride], holds the block of kDirIds slot indices (-1 before the launch)
+// that the warp drew, from a second pool, the first time it added to one
+// of those kDirIds spheres; the sphere's index in the block holds its
+// slot.  So the scratch is the slots the launch's warps touch (64 bytes
+// each), the blocks they touch (256 bytes each, never more than the
+// slots) and 4 bytes per (kDirIds spheres, warp) of directory: 264 bytes a
+// sphere over an H100's 4,224 resident warps, where one entry per (sphere,
+// warp) took 16,896.  Each slot belongs to one warp and its entries take
+// the same adds in the same order as the shared table's; adds of +-0,
+// which the shared table makes and this one skips, leave an entry that
+// starts at +0 bit for bit (it is never -0), so the two tables hold the
+// same bits.  csrc/grad.cu's sum_pool then sums the warps in the shared
+// instance's order.  Where either pool runs out the claim adds nothing and
+// marks its entry kDropped, and the counters, which count every entry
+// claimed, tell the launcher how many to give the relaunch.  The group
+// leads of one add may need the same new block (two spheres of one run of
+// kDirIds): the warp claims it once, by the lowest such lane, and the
+// others read it after a warp sync; a slot has one lead.  Every lane of
+// the warp calls add.
 struct PoolTable {
-  int* dir;  // this warp's directory column: dir[sphere * stride]
+  int* dir;  // this warp's block directory column: dir[block * stride]
   int stride;
+  int* blocks;  // kDirIds slot indices a block
+  int* next_block;
+  int block_cap;
   float* pool;
   int* next;
   int cap;
-  template <int N>
-  TPT_HD void add(bool lead, int key, const Adds<N>& a) const {
-    if (!lead) return;
+  template <class W, int N>
+  TPT_WARP void add(const W& w, bool lead, int key, const Adds<N>& a) const {
     bool some = false;
 #pragma unroll
     for (int i = 0; i < N; ++i) some = some || a.v[i] != 0.0f;
-    if (!some) return;
-    int* d = dir + static_cast<size_t>(key) * stride;
-    int s = *d;
+    some = some && lead;
+    int* d = dir + static_cast<size_t>(some ? key / kDirIds : 0) * stride;
+    int b = some ? *d : kDropped;
+    const bool need = some && b == -1;
+    if (w.any(need)) {
+      // one claim for each run of kDirIds spheres the leads need
+      const unsigned same = w.match_any(need ? key / kDirIds : -1 - w.lane());
+      if (need && lowest(same) == w.lane()) {
+        b = claim(next_block);
+        *d = b < block_cap ? b : kDropped;
+      }
+      w.sync();
+      if (need) b = *d;
+    }
+    if (b < 0) return;
+    int* q = blocks + static_cast<size_t>(b) * kDirIds + key % kDirIds;
+    int s = *q;
     if (s < 0) {
+      if (s == kDropped) return;
       s = claim(next);
-      if (s >= cap) return;
-      *d = s;
+      if (s >= cap) {
+        *q = kDropped;
+        return;
+      }
+      *q = s;
     }
     float* e = pool + static_cast<size_t>(s) * kSlotFloats;
 #pragma unroll
@@ -208,7 +245,7 @@ TPT_WARP void group_add(const W& w, const Group& g, Tab T, int n, int key,
       for (int i = 0; i < N; ++i) T[a.row[i] * n + key] += a.v[i];
     }
   } else {
-    T.add(g.lead, key, a);
+    T.add(w, g.lead, key, a);
   }
 }
 
@@ -222,9 +259,12 @@ enum { kRecWords = 16 };
 
 template <bool kWide>
 struct WarpTapeOf {
+  using Rec = BounceRec;
   float* base;
   int width;  // lanes
   int lane;
+  TPT_HD void bind(Rec&, int) const {}
+  TPT_HD static Rec none() { return unpack_rec(0u, 0.0f); }
   TPT_HD static float as_float(uint32_t u) {
     float f;
     memcpy(&f, &u, sizeof f);
@@ -292,14 +332,69 @@ struct WarpTapeOf {
 using WarpTape = WarpTapeOf<false>;
 using WideTape = WarpTapeOf<true>;
 
+// A record with its seen lights in LightBits, from one with the flags.
+TPT_HD BounceRecOf<LightBits> with_bits(const BounceRec& b, LightBits see) {
+  BounceRecOf<LightBits> r;
+  r.id = b.id;
+  r.t = b.t;
+  r.scattered = b.scattered;
+  r.gated = b.gated;
+  r.refl = b.refl;
+  r.see = see;
+  return r;
+}
+
+// WarpTapeOf whose records keep their seen lights in words of their own,
+// LightBits of light_words(n_lights) words a record at see[(slot * width +
+// lane) * words]: the gradient kernels' instances past kMaxLights lights
+// (the record's 16 bits of `see` and, in WideTape, its padding word are
+// taken).
+template <bool kWide>
+struct LightTapeOf : WarpTapeOf<kWide> {
+  using Rec = BounceRecOf<LightBits>;
+  uint32_t* see;
+  int words;
+  TPT_HD LightBits bits(int owner, int slot) const {
+    return LightBits{see + (static_cast<size_t>(slot) * this->width + owner) *
+                               words};
+  }
+  TPT_HD static Rec none() {
+    return with_bits(unpack_rec(0u, 0.0f), LightBits{nullptr});
+  }
+  TPT_HD void bind(Rec& r, int slot) const { r.see = bits(this->lane, slot); }
+  TPT_HD void put(int slot, const Carry& c, const Rec& r) const {
+    BounceRec b = unpack_rec(0u, r.t);
+    b.id = r.id;
+    b.scattered = r.scattered;
+    b.gated = r.gated;
+    b.refl = r.refl;
+    WarpTapeOf<kWide>::put(slot, c, b);
+  }
+  TPT_HD Carry get(int owner, int slot, Rec& r) const {
+    BounceRec b;
+    const Carry c = WarpTapeOf<kWide>::get(owner, slot, b);
+    r = with_bits(b, bits(owner, slot));
+    return c;
+  }
+};
+
+// Whether a view's soft scans run as warp walks (the cooperative sweep of
+// csrc/coopgrad.cuh specializes it for its view): bounce_adj_warp then
+// calls them with every lane, and nee_adj_coop takes nee_adj_warp's place
+// in the soft instance.
+template <class View>
+struct coop_scans {
+  static constexpr bool value = false;
+};
+
 // nee_adj for the lanes with lam (a Lambert hit with NEE on); every lane
 // runs the light loop and its adds.  gh: the groups of the hit sphere,
 // formed with key hit_id.  kSoft: with the soft shadow boundary, whose
 // occluders add through groups of their own.
-template <bool kSoft, class W, class Cnt, class View, class Tab>
+template <bool kSoft, class W, class Cnt, class View, class Tab, class See>
 TPT_WARP void nee_adj_warp(const W& w, const View& S, const RenderParams& p,
                            bool lam, V3 pos, V3 normal, V3 rd, V3 alb,
-                           int hit_id, uint32_t st, uint32_t see, V3 g_le,
+                           int hit_id, uint32_t st, See see, V3 g_le,
                            const Group& gh, Tab T, V3& g_pos, V3& g_n,
                            Cnt& cnt) {
   const V3 zero = v3(0.0f, 0.0f, 0.0f);
@@ -378,10 +473,10 @@ TPT_WARP void nee_adj_warp(const W& w, const View& S, const RenderParams& p,
 // kSoft: with the soft-silhouette terms; a miss lane's groups are then
 // those of its silhouette candidate, which its silhouette term adds to
 // (its other adds are 0).
-template <bool kSoft, class W, class Cnt, class View, class Tab>
+template <bool kSoft, class W, class Cnt, class View, class Tab, class Rec>
 TPT_WARP void bounce_adj_warp(const W& w, const View& S,
                               const RenderParams& p, bool active, V3 ro,
-                              V3 rd, uint32_t st, const BounceRec& rec, V3 e,
+                              V3 rd, uint32_t st, const Rec& rec, V3 e,
                               V3 g_e, V3 g_c, V3& g_ro, V3& g_rd,
                               Tab T, Cnt& cnt) {
   const V3 zero = v3(0.0f, 0.0f, 0.0f);
@@ -403,7 +498,22 @@ TPT_WARP void bounce_adj_warp(const W& w, const View& S,
   float d_sil = 0.0f, g_w = 0.0f;
   if constexpr (kSoft) {
     if constexpr (Cnt::kOn) c0 = w.clock();
-    if (active && !hit) {  // e += w_m (L - sky), w_m = 0
+    if constexpr (coop_scans<View>::value) {
+      // the warp walks the miss lanes' scans together
+      float nb, d_c;
+      const int cand =
+          silhouette_warp(w, S, active && !hit, ro, rd, p.t_min, d_c, nb);
+      if (active && !hit) {
+        key = cand;
+        d_sil = d_c;
+        if (key >= 0)
+          g_w = dot(g_e, sub(tangent_radiance(S, p, key, nb, ro, rd),
+                             sky_color(rd, p.mitsuba != 0)));
+      } else if (hit) {
+        d_sil = discr(S, id, ro, rd);
+        g_w = hit_weight_grad(S, p, rec, rd, e, g_e, g_c);
+      }
+    } else if (active && !hit) {  // e += w_m (L - sky), w_m = 0
       float nb;
       key = silhouette_candidate(S, ro, rd, p.t_min, d_sil, nb);
       if (key >= 0)
@@ -451,9 +561,14 @@ TPT_WARP void bounce_adj_warp(const W& w, const View& S,
     g_n = normalize_adj(sub(add(add(pos, normal), ruv), pos), g_dir);
     alb = v3(S.at(ROW_ALB, id), S.at(ROW_ALB + 1, id), S.at(ROW_ALB + 2, id));
   }
-  if (p.light_sampling)
+  if constexpr (kSoft && coop_scans<View>::value) {
+    if (p.light_sampling)
+      nee_adj_coop(w, S, p, lam, pos, normal, rd, alb, key, st, rec.see, g_e,
+                   gh, T, g_pos, g_n, cnt);
+  } else if (p.light_sampling) {
     nee_adj_warp<kSoft>(w, S, p, lam, pos, normal, rd, alb, key, st, rec.see,
                         g_e, gh, T, g_pos, g_n, cnt);
+  }
   float g_rough = 0.0f, g_ri = 0.0f;
   if (sc && mt == MAT_METAL) {
     V3 rius = unit_sphere(st);
@@ -627,7 +742,7 @@ TPT_WARP unsigned long long grad_tiles(const W& w, const View& S,
         Carry k;
         k.ro = k.rd = k.e = zero;
         k.st = 0;
-        BounceRec rec = unpack_rec(0u, 0.0f);  // id -1
+        typename Tape::Rec rec = Tape::none();  // id -1
         V3 g_e = zero, g_c = zero;
         if (has) {
           k = tape.get(item % WD, (item / WD) * p.max_depth + d, rec);

@@ -23,7 +23,13 @@
 // Counters (kOn false compiles to nothing) report the work: the kSt* slots
 // below.  A counter with kTrips set (TripStats, the stats render kernel
 // K2's) makes the loop walk a padded pixel grid and report each pixel's
-// samples; kTrips false compiles to the loop without it.
+// samples; kTrips false compiles to the loop without it.  A counter with
+// kTape set (csrc/coopgrad.cuh TapeSink, the scaled gradient's
+// tape-writing forward) receives each bounce's carry record: the ray, RNG
+// state and attenuation it started from (head), its hit, gate and
+// dielectric draw (hit, refl), its emission and whether the path went on
+// (tail), and each sample's bounces (sample_depth); kTape false compiles
+// to the loop without it.
 
 #pragma once
 
@@ -54,6 +60,7 @@ enum {
 struct NoCoopCount {
   static constexpr bool kOn = false;
   static constexpr bool kTrips = false;
+  static constexpr bool kTape = false;
   TPT_HD void add(int, unsigned long long) {}
 };
 
@@ -63,6 +70,7 @@ struct NoCoopCount {
 struct LoopStats {
   static constexpr bool kOn = true;
   static constexpr bool kTrips = false;
+  static constexpr bool kTape = false;
   unsigned long long v[kStSlots] = {};
   bool lead;
   __device__ explicit LoopStats(int tid) : lead((tid & 31) == 0) {}
@@ -119,6 +127,7 @@ TPT_HD void atomic_add_i32(int32_t* p, int32_t v) {
 struct TripStats {
   static constexpr bool kOn = false;
   static constexpr bool kTrips = true;
+  static constexpr bool kTape = false;
   int grid_h, grid_w, wc, spp;
   int32_t* trips;
   int32_t* work;
@@ -160,6 +169,7 @@ TPT_WARP bool bounce_merged(const W& w, const View& S, const RenderParams& p,
       nearest_hit_warp(w, S, busy, ro, rd, p.t_min, p.t_max, t, cnt);
   if constexpr (Cnt::kOn) cnt.add(kStCycHit, w.clock() - c0);
   const bool hit = busy && id >= 0;
+  if constexpr (Cnt::kTape) cnt.hit(id, t, !p.light_sampling || do_me);
   c = v3(0.0f, 0.0f, 0.0f);
   if (busy && !hit) e = sky_color(rd, p.mitsuba != 0);
   V3 pos = v3(0.0f, 0.0f, 0.0f), normal = pos, alb = pos, em = pos;
@@ -198,6 +208,7 @@ TPT_WARP bool bounce_merged(const W& w, const View& S, const RenderParams& p,
     bool took_refl;
     dir = scatter_dielectric(st, rd, normal, refl, S.at(ROW_RI, id),
                              took_refl);
+    if constexpr (Cnt::kTape) cnt.refl(took_refl);
     attenuation = v3(1.0f, 1.0f, 1.0f);
   }
   V3 gated = (!p.light_sampling || do_me) ? em : v3(0.0f, 0.0f, 0.0f);
@@ -292,8 +303,11 @@ TPT_WARP unsigned long long render_tiles_merged(const W& w, const View& S,
       cnt.add(kStLoopBusy, popc(bm));
     }
     V3 e, c;
+    if constexpr (Cnt::kTape)
+      cnt.head(busy, px, py, p.spp - 1 - left, depth, ro, rd, st, atten);
     const bool go =
         bounce_merged(w, S, p, busy, ro, rd, st, do_me, rays, e, c, cnt);
+    if constexpr (Cnt::kTape) cnt.tail(busy, go, e);
     if (busy) {
       col = add(col, mul(atten, e));
       ++depth;
@@ -302,6 +316,8 @@ TPT_WARP unsigned long long render_tiles_merged(const W& w, const View& S,
       } else {
         sum = add(sum, col);
         busy = false;
+        if constexpr (Cnt::kTape)
+          cnt.sample_depth(px, py, p.spp - 1 - left, depth);
         bool image = true;
         if constexpr (Cnt::kTrips) {
           image = px < p.width && py < p.height;

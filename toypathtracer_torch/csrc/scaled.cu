@@ -62,7 +62,10 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "coop.cuh"
+#include "coopgrad.cuh"
 #include "launch.cuh"
 
 namespace {
@@ -413,8 +416,57 @@ constexpr int kCoopBlocks = 5;
 
 // The cooperative form (csrc/coop.cuh): persistent blocks whose warps take
 // 16x2-pixel tiles from the launch-wide counter *next_tile (zeroed by the
-// caller) through merged.cuh render_tiles_merged.  Dynamic shared memory: [NEE
-// scratch per warp] [chunk boxes] [group boxes] [camera] [emissive ids].
+// caller) through merged.cuh render_tiles_merged, counting into cnt; this
+// lane's rays.  Dynamic shared memory: [NEE scratch per warp] [chunk boxes]
+// [group boxes] [camera] [emissive ids].  View: tpt::CoopView, whose NEE
+// takes its lights in one pass (at most kCoopNeeGroup), or
+// tpt::CoopViewLights (any number, in passes).
+template <class View, class Cnt>
+__device__ __forceinline__ unsigned long long coop_render_body(
+    const float* __restrict__ tab, const float* __restrict__ rows,
+    const float* __restrict__ gbox, int n_groups,
+    const int32_t* __restrict__ mat, const int32_t* __restrict__ lights,
+    const float* __restrict__ cam, const tpt::RenderParams& p, int n_chunks,
+    int chunk, float* __restrict__ out, int* __restrict__ next_tile,
+    Cnt& cnt) {
+  extern __shared__ float s_nee[];
+  constexpr bool kPasses = std::is_same<View, tpt::CoopViewLights>::value;
+  const int nee =
+      tpt::nee_words(kPasses ? tpt::nee_group(p.n_lights) : p.n_lights, 32);
+  float* s_box = s_nee + kWarps * nee;
+  float* s_gbox = s_box + 6 * n_chunks;
+  float* s_cam = s_gbox + 6 * n_groups;
+  int32_t* s_lights = reinterpret_cast<int32_t*>(s_cam + tpt::kCameraFloats);
+
+  const int tid = threadIdx.y * kBlockX + threadIdx.x;
+  stage_boxes(rows, n_chunks, chunk, s_box, tid, kBlockX * kBlockY);
+  for (int i = tid; i < 6 * n_groups; i += kBlockX * kBlockY)
+    s_gbox[i] = gbox[i];
+  if (tid < tpt::kCameraFloats) s_cam[tid] = cam[tid];
+  if constexpr (kPasses) {
+    for (int i = tid; i < p.n_lights; i += kBlockX * kBlockY)
+      s_lights[i] = lights[i];
+  } else if (tid < p.n_lights) {
+    s_lights[tid] = lights[tid];
+  }
+  __syncthreads();
+
+  View S;
+  static_cast<tpt::ChunkedView&>(S) = rows_view(rows, s_box, n_chunks, chunk);
+  S.tab = tab;
+  S.mat = mat;
+  S.lights = s_lights;
+  S.n = p.n_spheres;
+  S.n_lights = p.n_lights;
+  S.gbox = s_gbox;
+  S.n_groups = n_groups;
+  S.nee = s_nee + (tid >> 5) * nee;
+  const tpt::DeviceWarp w(tid);
+  return tpt::render_tiles_merged(w, S, s_cam, p, next_tile, out, cnt);
+}
+
+// The cooperative form for scenes of at most kCoopNeeGroup lights, and its
+// stats instance.
 template <bool kStats>
 __global__ void __launch_bounds__(kBlockX * kBlockY, kCoopBlocks)
 coop_render_kernel(const float* __restrict__ tab,
@@ -427,42 +479,72 @@ coop_render_kernel(const float* __restrict__ tab,
                    unsigned long long* __restrict__ rays,
                    int* __restrict__ next_tile,
                    unsigned long long* __restrict__ stats) {
-  extern __shared__ float s_nee[];
   __shared__ unsigned long long warp_rays[kWarps];
-  const int nee = tpt::nee_words(p.n_lights, 32);
-  float* s_box = s_nee + kWarps * nee;
-  float* s_gbox = s_box + 6 * n_chunks;
-  float* s_cam = s_gbox + 6 * n_groups;
-  int32_t* s_lights = reinterpret_cast<int32_t*>(s_cam + tpt::kCameraFloats);
-
   const int tid = threadIdx.y * kBlockX + threadIdx.x;
-  stage_boxes(rows, n_chunks, chunk, s_box, tid, kBlockX * kBlockY);
-  for (int i = tid; i < 6 * n_groups; i += kBlockX * kBlockY)
-    s_gbox[i] = gbox[i];
-  if (tid < tpt::kCameraFloats) s_cam[tid] = cam[tid];
-  if (tid < p.n_lights) s_lights[tid] = lights[tid];
-  __syncthreads();
-
-  tpt::CoopView S;
-  static_cast<tpt::ChunkedView&>(S) = rows_view(rows, s_box, n_chunks, chunk);
-  S.tab = tab;
-  S.mat = mat;
-  S.lights = s_lights;
-  S.n = p.n_spheres;
-  S.n_lights = p.n_lights;
-  S.gbox = s_gbox;
-  S.n_groups = n_groups;
-  S.nee = s_nee + (tid >> 5) * nee;
-  const tpt::DeviceWarp w(tid);
   unsigned long long count;
   if constexpr (kStats) {
     tpt::LoopStats cs(tid);
-    count = tpt::render_tiles_merged(w, S, s_cam, p, next_tile, out, cs);
+    count = coop_render_body<tpt::CoopView>(tab, rows, gbox, n_groups, mat,
+                                            lights, cam, p, n_chunks, chunk,
+                                            out, next_tile, cs);
     tpt::flush_loop_stats(cs.v, stats, tid);
   } else {
     tpt::NoCoopCount none;
-    count = tpt::render_tiles_merged(w, S, s_cam, p, next_tile, out, none);
+    count = coop_render_body<tpt::CoopView>(tab, rows, gbox, n_groups, mat,
+                                            lights, cam, p, n_chunks, chunk,
+                                            out, next_tile, none);
   }
+  add_rays(count, warp_rays, rays, tid);
+}
+
+// The cooperative form past kCoopNeeGroup lights: NEE in passes of
+// kCoopNeeGroup lights (a separate instance, so that the one-pass
+// instance keeps its registers: one kernel holding both ran the 8-light
+// scaled frame 1.7% slower on an H100, PERF.md).
+__global__ void __launch_bounds__(kBlockX * kBlockY, kCoopBlocks)
+lights_render_kernel(const float* __restrict__ tab,
+                     const float* __restrict__ rows,
+                     const float* __restrict__ gbox, int n_groups,
+                     const int32_t* __restrict__ mat,
+                     const int32_t* __restrict__ lights,
+                     const float* __restrict__ cam, tpt::RenderParams p,
+                     int n_chunks, int chunk, float* __restrict__ out,
+                     unsigned long long* __restrict__ rays,
+                     int* __restrict__ next_tile) {
+  __shared__ unsigned long long warp_rays[kWarps];
+  const int tid = threadIdx.y * kBlockX + threadIdx.x;
+  tpt::NoCoopCount none;
+  const unsigned long long count = coop_render_body<tpt::CoopViewLights>(
+      tab, rows, gbox, n_groups, mat, lights, cam, p, n_chunks, chunk, out,
+      next_tile, none);
+  add_rays(count, warp_rays, rays, tid);
+}
+
+// The cooperative form's tape-writing instance, the forward of the scaled
+// scene's gradient (csrc/coopgrad.cuh): the same loop with a TapeSink a
+// lane, which writes each bounce's carry record and each sample's bounces
+// to the FrameTape ft.  Its image and rays are coop_render_kernel's (or
+// lights_render_kernel's: kLights) bit for bit.
+template <bool kLights>
+__global__ void __launch_bounds__(kBlockX * kBlockY, kCoopBlocks)
+tape_render_kernel(const float* __restrict__ tab,
+                   const float* __restrict__ rows,
+                   const float* __restrict__ gbox, int n_groups,
+                   const int32_t* __restrict__ mat,
+                   const int32_t* __restrict__ lights,
+                   const float* __restrict__ cam, tpt::RenderParams p,
+                   int n_chunks, int chunk, float* __restrict__ out,
+                   unsigned long long* __restrict__ rays,
+                   int* __restrict__ next_tile, tpt::FrameTape ft) {
+  __shared__ unsigned long long warp_rays[kWarps];
+  const int tid = threadIdx.y * kBlockX + threadIdx.x;
+  tpt::TapeSink sink;
+  sink.tape = ft;
+  using View = typename std::conditional<kLights, tpt::CoopViewLights,
+                                         tpt::CoopView>::type;
+  const unsigned long long count = coop_render_body<View>(
+      tab, rows, gbox, n_groups, mat, lights, cam, p, n_chunks, chunk, out,
+      next_tile, sink);
   add_rays(count, warp_rays, rays, tid);
 }
 
@@ -587,21 +669,30 @@ int tpt_shadow_chunks_launch(const float* rows, const int32_t* order,
 
 // A scaled render kernel on `stream`: image `out` (height, width, 3) and
 // the ray count added to `rays` (zeroed by the caller).  form 0: the
-// per-lane kernel; 1: the cooperative kernel, which takes gbox, the
-// (tpt_scaled_groups(n_chunks), 6) group boxes, and next_tile, one int
-// zeroed by the caller.  stats: null, or kStSlots zeroed totals that the
-// form's stats instance adds to.
+// per-lane kernel (at most kMaxLights lights); 1: the cooperative kernel
+// (any number: past kCoopNeeGroup its lights instance, which has no stats
+// instance), which takes gbox, the (tpt_scaled_groups(n_chunks), 6)
+// group boxes, and next_tile, one int zeroed by the caller; 2: the
+// cooperative kernel's tape-writing instance, which also writes the
+// FrameTape (tape_rec, tape_see, tape_depth: the gradient's forward,
+// csrc/coopgrad.cuh).  stats: null, or kStSlots zeroed totals that the
+// form's stats instance adds to (forms 0 and 1).
 int tpt_scaled_render_launch(const float* tab, const float* rows,
                              const float* gbox, const int32_t* mat,
                              const int32_t* lights, const float* cam,
                              const tpt::RenderParams* p, int n_chunks,
                              int chunk, int form, float* out,
                              unsigned long long* rays, int* next_tile,
-                             unsigned long long* stats, void* stream) {
+                             unsigned long long* stats, float* tape_rec,
+                             uint32_t* tape_see, int32_t* tape_depth,
+                             void* stream) {
   if (bad_chunks(n_chunks, chunk) || p->n_spheres != n_chunks * chunk ||
-      p->n_lights < 0 || p->n_lights > tpt::kMaxLights || p->height < 1 ||
-      p->width < 1 || form < 0 || form > 1 ||
-      (form == 1 && (!gbox || !next_tile)))
+      p->n_lights < 0 || (form == 0 && p->n_lights > tpt::kMaxLights) ||
+      p->height < 1 || p->width < 1 || form < 0 || form > 2 ||
+      (form >= 1 && (!gbox || !next_tile)) ||
+      (form == 1 && stats && p->n_lights > tpt::kCoopNeeGroup) ||
+      (form == 2 && (stats || !tape_rec || !tape_depth ||
+                     (p->n_lights > 0 && !tape_see))))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_groups = tpt_scaled_groups(n_chunks);
   size_t smem = sizeof(float) * (6 * n_chunks + tpt::kCameraFloats) +
@@ -620,9 +711,14 @@ int tpt_scaled_render_launch(const float* tab, const float* rows,
                                      n_chunks, chunk, out, rays, stats);
   } else {
     smem += sizeof(float) * (6 * n_groups +
-                             kWarps * tpt::nee_words(p->n_lights, 32));
+                             kWarps * tpt::nee_words(
+                                          tpt::nee_group(p->n_lights), 32));
+    const bool many = p->n_lights > tpt::kCoopNeeGroup;
     auto kernel = stats ? coop_render_kernel<true> : coop_render_kernel<false>;
-    err = tpt::allow_smem(kernel, smem);
+    auto tape = many ? tape_render_kernel<true> : tape_render_kernel<false>;
+    err = form == 2 ? tpt::allow_smem(tape, smem)
+          : many    ? tpt::allow_smem(lights_render_kernel, smem)
+                    : tpt::allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     // as many blocks as fit on the card at once, or as the tiles need
     int dev = 0, sms = 0;
@@ -633,9 +729,28 @@ int tpt_scaled_render_launch(const float* tab, const float* rows,
     const int tiles = ((p->width + 15) / 16) * ((p->height + 1) / 2);
     const int blocks = (tiles + kWarps - 1) / kWarps;
     const dim3 block(kBlockX, kBlockY);
-    kernel<<<blocks < sms * kCoopBlocks ? blocks : sms * kCoopBlocks, block,
-             smem, s>>>(tab, rows, gbox, n_groups, mat, lights, cam, *p,
-                        n_chunks, chunk, out, rays, next_tile, stats);
+    const int grid = blocks < sms * kCoopBlocks ? blocks : sms * kCoopBlocks;
+    if (form == 2) {
+      tpt::FrameTape ft;
+      ft.rec = tape_rec;
+      ft.see = tape_see;
+      ft.depth = tape_depth;
+      ft.words = tpt::light_words(p->n_lights);
+      ft.spp = p->spp;
+      ft.max_depth = p->max_depth;
+      ft.width = p->width;
+      tape<<<grid, block, smem, s>>>(tab, rows, gbox, n_groups, mat, lights,
+                                     cam, *p, n_chunks, chunk, out, rays,
+                                     next_tile, ft);
+    } else if (many) {
+      lights_render_kernel<<<grid, block, smem, s>>>(
+          tab, rows, gbox, n_groups, mat, lights, cam, *p, n_chunks, chunk,
+          out, rays, next_tile);
+    } else {
+      kernel<<<grid, block, smem, s>>>(tab, rows, gbox, n_groups, mat, lights,
+                                       cam, *p, n_chunks, chunk, out, rays,
+                                       next_tile, stats);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -51,8 +51,10 @@ enum {
 enum { MAT_LAMBERT = 0, MAT_METAL = 1, MAT_DIELECTRIC = 2 };
 
 // Largest scene the per-thread kernels stage in shared memory (60 bytes per
-// sphere), and their lights (NEE's `see` bits); the merged K1 stages up to
-// kMaxSpheres and reads device memory beyond, and takes any light count.
+// sphere), and their lights (NEE's `see` bits in a uint32_t, 16 of them in
+// the gradient kernels' carry records); the merged K1 stages up to
+// kMaxSpheres and reads device memory beyond, and takes any light count,
+// as do the gradient kernels' instances that keep `see` in LightBits.
 constexpr int kMaxSpheres = 512;
 constexpr int kMaxLights = 16;
 constexpr int kCameraFloats = 22;
@@ -286,19 +288,47 @@ TPT_HD Cone cone(const View& S, int e, V3 pos, float eps1, float eps2) {
   return q;
 }
 
+// A lane's seen lights, NEE's `see`: bit k set when light k contributed.
+// A uint32_t where a launch has at most kMaxLights lights (a shift by 32 or
+// more would be undefined: the launchers refuse more), or LightBits, words
+// of memory that hold any number, light_words(n_lights) a record (the
+// gradient kernels' instances past kMaxLights).  The overloads below give
+// the two the same interface; on a uint32_t they are the operations the
+// code wrote before, so those instances compile as they did.
+struct LightBits {
+  uint32_t* w;
+};
+
+TPT_HD int light_words(int n_lights) { return (n_lights + 31) / 32; }
+TPT_HD void see_clear(uint32_t& s, int) { s = 0; }
+TPT_HD void see_set(uint32_t& s, int k) { s |= 1u << k; }
+// The bits a carry record packs (trace.cuh pack_rec: 16 lights).
+TPT_HD uint32_t see_pack(uint32_t s) { return s << 16; }
+TPT_HD void see_clear(LightBits& s, int n_lights) {
+  for (int i = 0; i < light_words(n_lights); ++i) s.w[i] = 0u;
+}
+TPT_HD void see_set(LightBits& s, int k) { s.w[k >> 5] |= 1u << (k & 31); }
+// `see >> k` for LightBits: the word of light k shifted so that its bit 0
+// is light k's, so that (see >> k) & 1u reads light k's bit from either
+// (the 16-light instances' code keeps that expression, and its SASS).
+TPT_HD uint32_t operator>>(const LightBits& s, int k) {
+  return s.w[k >> 5] >> (k & 31);
+}
+TPT_HD uint32_t see_pack(const LightBits&) { return 0u; }
+
 // Lambert NEE (Test.cpp:94-133): per light in emissive-id order, unless the
 // hit sphere is that light, a cone sample (2 draws), one shadow ray, and the
 // contribution if the light is visible.  Adds the shadow rays to `rays` and
 // sets bit k of `see` when light k contributed.  vis=false skips the shadow
 // tests (no light is seen) but draws and counts the same: the gradient
 // kernel's replays need the path and the RNG state, not the radiance.
-template <class View>
+template <class View, class See>
 TPT_HD V3 nee(const View& S, const RenderParams& p, V3 pos, V3 normal,
               V3 rd, V3 alb, int hit_id, bool vis, uint32_t& st,
-              uint32_t& rays, uint32_t& see) {
+              uint32_t& rays, See& see) {
   V3 light_e = v3(0.0f, 0.0f, 0.0f);
   V3 nl = dot(normal, rd) < 0.0f ? normal : neg(normal);
-  see = 0;
+  see_clear(see, S.n_lights);
   for (int k = 0; k < S.n_lights; ++k) {
     int e = S.lights[k];
     if (e == hit_id) continue;  // self-skip (ComputeShader.hlsl:204)
@@ -317,7 +347,7 @@ TPT_HD V3 nee(const View& S, const RenderParams& p, V3 pos, V3 normal,
     light_e = v3(light_e.x + (alb.x * em.x) * fac,
                  light_e.y + (alb.y * em.y) * fac,
                  light_e.z + (alb.z * em.z) * fac);
-    see |= 1u << k;
+    see_set(see, k);
   }
   return light_e;
 }
@@ -351,14 +381,17 @@ TPT_HD V3 scatter_dielectric(uint32_t& st, V3 rd, V3 normal, V3 refl,
 }
 
 // What the adjoint of a bounce needs besides the bounce's inputs.
-struct BounceRec {
+template <class See>
+struct BounceRecOf {
   int id;          // the sphere hit, -1 on a miss
   float t;         // its root
   bool scattered;  // the path goes on (false: a miss or an absorbed metal ray)
   bool gated;      // the sphere's emission counts (the do_me gate, hlsl:314)
   bool refl;       // dielectric: the draw chose the reflected ray
-  uint32_t see;    // NEE: bit k set when light k contributed
+  See see;         // NEE: bit k set when light k contributed
 };
+
+using BounceRec = BounceRecOf<uint32_t>;
 
 // One bounce of one sample (ComputeShader.hlsl:294-343): trace (ro, rd),
 // shade the nearest hit with NEE, scatter.  Sets this depth's emission e
@@ -366,10 +399,10 @@ struct BounceRec {
 // atten *= c), advances (ro, rd, st, do_me), and returns false where the
 // path ends: a miss (e = sky) or an absorbed metal ray (e = the ungated
 // emission).
-template <class View>
+template <class View, class See>
 TPT_HD bool bounce(const View& S, const RenderParams& p, bool vis,
                    V3& ro, V3& rd, uint32_t& st, bool& do_me, uint32_t& rays,
-                   V3& e, V3& c, BounceRec& rec) {
+                   V3& e, V3& c, BounceRecOf<See>& rec) {
   ++rays;
   float t;
   int id = nearest_hit(S, ro, rd, p.t_min, p.t_max, t);
@@ -378,7 +411,7 @@ TPT_HD bool bounce(const View& S, const RenderParams& p, bool vis,
   rec.scattered = false;
   rec.gated = !p.light_sampling || do_me;
   rec.refl = false;
-  rec.see = 0;
+  see_clear(rec.see, S.n_lights);
   c = v3(0.0f, 0.0f, 0.0f);
   if (id < 0) {
     e = sky_color(rd, p.mitsuba != 0);
@@ -890,8 +923,8 @@ TPT_HD void silhouette_adj(const SceneView& S, const RenderParams& p, int i,
 
 // The continuation attenuation c that bounce() set: the albedo, 1 for a
 // dielectric, 0 where the path ended.
-template <class View>
-TPT_HD V3 carry_c(const View& S, const BounceRec& r) {
+template <class View, class Rec>
+TPT_HD V3 carry_c(const View& S, const Rec& r) {
   if (!r.scattered) return v3(0.0f, 0.0f, 0.0f);
   if (S.mat[r.id] == MAT_DIELECTRIC) return v3(1.0f, 1.0f, 1.0f);
   return v3(S.at(ROW_ALB, r.id), S.at(ROW_ALB + 1, r.id),
@@ -900,9 +933,9 @@ TPT_HD V3 carry_c(const View& S, const BounceRec& r) {
 
 // The cotangent of a hit lane's soft weight w: e = w e_hit + (1 - w) sky
 // and c = w c_hit, with e and c the bounce's own.
-template <class View>
+template <class View, class Rec>
 TPT_HD float hit_weight_grad(const View& S, const RenderParams& p,
-                             const BounceRec& rec, V3 rd, V3 e, V3 g_e,
+                             const Rec& rec, V3 rd, V3 e, V3 g_e,
                              V3 g_c) {
   return dot(g_e, sub(e, sky_color(rd, p.mitsuba != 0))) +
          dot(g_c, carry_c(S, rec));
@@ -1133,10 +1166,11 @@ struct Carry {
   V3 e, atten;
 };
 
-TPT_HD uint32_t pack_rec(const BounceRec& r) {
+template <class See>
+TPT_HD uint32_t pack_rec(const BounceRecOf<See>& r) {
   return (uint32_t)(r.id + 1) | (r.scattered ? 1u << 10 : 0u) |
          (r.gated ? 1u << 11 : 0u) | (r.refl ? 1u << 12 : 0u) |
-         (r.see << 16);
+         see_pack(r.see);
 }
 
 TPT_HD BounceRec unpack_rec(uint32_t bits, float t) {
@@ -1151,9 +1185,13 @@ TPT_HD BounceRec unpack_rec(uint32_t bits, float t) {
 }
 
 // A tape of Carry records in an array: a sample's, for grad_pixel_stored
-// (the g++ tests).
+// (the g++ tests).  A tape names its bounce record (Rec) and binds a
+// record to its slot before the bounce runs (bind: where LightBits keep
+// the seen lights; nothing for a uint32_t).
 struct ArrayTape {
+  using Rec = BounceRec;
   Carry* c;
+  TPT_HD void bind(Rec&, int) const {}
   TPT_HD void put(int d, const Carry& x, const BounceRec&) const { c[d] = x; }
   TPT_HD Carry get(int d) const { return c[d]; }
 };
@@ -1168,7 +1206,7 @@ TPT_HD V3 trace_sample_tape(const View& S, const RenderParams& p, V3 ro,
   V3 atten = v3(1.0f, 1.0f, 1.0f);
   bool do_me = true;
   V3 e, c;
-  BounceRec rec;
+  typename Tape::Rec rec;
   depth = 0;
   while (depth < p.max_depth) {
     Carry k;
@@ -1176,6 +1214,7 @@ TPT_HD V3 trace_sample_tape(const View& S, const RenderParams& p, V3 ro,
     k.rd = rd;
     k.st = st;
     k.atten = atten;
+    tape.bind(rec, slot0 + depth);
     bool go = bounce(S, p, true, ro, rd, st, do_me, rays, e, c, rec);
     k.t = rec.t;
     k.bits = pack_rec(rec);

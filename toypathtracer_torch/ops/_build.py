@@ -30,9 +30,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # sinf/cosf/expf/logf stay the accurate library functions.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
-SOURCES = ("render.cu", "grad.cu", "scaled.cu", "probe.cu")
+SOURCES = ("render.cu", "grad.cu", "scaled.cu", "chunkgrad.cu", "probe.cu")
 HEADERS = ("trace.cuh", "warp.cuh", "merged.cuh", "flat.cuh", "gradwarp.cuh",
-           "chunks.cuh", "coop.cuh", "probe.cuh", "launch.cuh")
+           "chunks.cuh", "coop.cuh", "coopgrad.cuh", "probe.cuh",
+           "launch.cuh")
 
 
 class RenderParams(ctypes.Structure):
@@ -168,7 +169,8 @@ def kernel_label(mangled: str):
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C
-    interface of csrc/render.cu, grad.cu, scaled.cu and probe.cu."""
+    interface of csrc/render.cu, grad.cu, scaled.cu, chunkgrad.cu and
+    probe.cu."""
     lib = ctypes.CDLL(str(build()))
     ptr = ctypes.c_void_p
     params = ctypes.POINTER(RenderParams)
@@ -191,8 +193,11 @@ def load_library() -> ctypes.CDLL:
     lib.tpt_grad_pool_scratch.argtypes = [params, i32, ptr, ptr]
     lib.tpt_grad_pool_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                          ptr, i32, i32, params, ptr, ptr, ptr,
-                                         i32, ptr, ptr, ptr, ptr, i32, ptr]
-    lib.tpt_grad_pool_sum_launch.argtypes = [ptr, ptr, i32, i32, ptr, ptr]
+                                         i32, ptr, ptr, ptr, ptr, i32, ptr,
+                                         ptr, i32, ptr, ptr]
+    lib.tpt_grad_pool_sum_launch.argtypes = [ptr, ptr, ptr, i32, i32, ptr,
+                                             ptr]
+    lib.tpt_grad_dir_ids.argtypes = []
     lib.tpt_hit_chunks_launch.argtypes = [ptr, i32, i32, ptr, ptr, i32, f32,
                                           f32, ptr, ptr, ptr, ptr]
     lib.tpt_coop_hit_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr,
@@ -203,7 +208,11 @@ def load_library() -> ctypes.CDLL:
                                              f32, i32, ptr, ptr, ptr, ptr]
     lib.tpt_scaled_render_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
                                              params, i32, i32, i32, ptr, ptr,
-                                             ptr, ptr, ptr]
+                                             ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.tpt_chunk_sweep_launch.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
+        i32, i32, params, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr,
+        ptr, i32, ptr]
     lib.tpt_scaled_groups.argtypes = [i32]
     lib.tpt_probe_launch.argtypes = [i32, i32, i32, ptr, ptr]
     for fn in (lib.tpt_render_launch, lib.tpt_render_thread_launch,
@@ -212,9 +221,11 @@ def load_library() -> ctypes.CDLL:
                lib.tpt_grad_launch, lib.tpt_grad_scratch,
                lib.tpt_grad_sum_launch, lib.tpt_grad_pool_scratch,
                lib.tpt_grad_pool_launch, lib.tpt_grad_pool_sum_launch,
+               lib.tpt_grad_dir_ids,
                lib.tpt_hit_chunks_launch,
                lib.tpt_coop_hit_launch,
                lib.tpt_shadow_chunks_launch, lib.tpt_scaled_render_launch,
+               lib.tpt_chunk_sweep_launch,
                lib.tpt_scaled_groups, lib.tpt_probe_launch):
         fn.restype = ctypes.c_int
     lib.tpt_error_string.argtypes = [ctypes.c_int]

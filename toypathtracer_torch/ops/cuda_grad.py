@@ -31,7 +31,11 @@ scene.  `launches` counts wrapper launches: "grad" the main path's form
 partials), "grad_soft" its soft instance, "grad_pool", "grad_pool_soft",
 "grad_replay", "grad_replay_soft" and "grad_stats" the others, "lockstep"
 K4 and "lockstep_baseline" its baseline.  `launch_pool` also runs the
-scaled scene's chunked instance (ops/cuda_scaled.render_tile_scaled_grad).
+scaled scene's chunked instance (ops/cuda_scaled.
+render_tile_scaled_grad_form(..., "chunk")), and `pool_table_launch` the
+table of the cooperative chunked form's sweep.  Past 16 lights the warp
+form runs its lights instance, which keeps each bounce's seen lights in
+words of their own, as the pool form always does.
 
 Every gradient route warns where cfg.diff_wavefront asks for the
 differentiable wavefront, which the port does not have: the lockstep form
@@ -69,15 +73,17 @@ from .cuda_render import (MAX_LIGHTS, MAX_SPHERES, check_device,
 # the warp form's table is per warp in shared memory, up to
 # tpt::kMaxSpheres (MAX_SPHERES, as the per-thread render kernel); the
 # replaying form's is per thread (csrc/grad.cu kGradMaxSpheres); the pool
-# form's in device memory, any number.  Each keeps a lane's seen lights as
-# 16 bits of its carry record (MAX_LIGHTS).  The caps bind on a card only
+# form's in device memory, any number.  The replaying form keeps a lane's
+# seen lights as 16 bits of its carry record (MAX_LIGHTS); the warp form
+# past MAX_LIGHTS lights, and the pool form always, keep them in words of
+# their own, any number.  The caps bind on a card only
 # (cuda_render.check_caps): on the CPU the plain version takes any scene.
 FORMS = {"replay": 0, "warp": 1}
 MAIN_FORM = "warp"
 COUNTERS = {"warp": "grad", "replay": "grad_replay", "pool": "grad_pool"}
 SOFT_SUFFIX = "_soft"
-FORM_CAPS = {"warp": (MAX_SPHERES, MAX_LIGHTS), "replay": (64, MAX_LIGHTS),
-             "pool": (None, MAX_LIGHTS)}
+FORM_CAPS = {"warp": (MAX_SPHERES, None), "replay": (64, MAX_LIGHTS),
+             "pool": (None, None)}
 TABLES = {"warp": "a (14, N) table per warp in shared memory",
           "replay": "a (14, 64) table per thread",
           "pool": "a table per warp in device memory"}
@@ -101,9 +107,11 @@ launches = {"grad": 0, "grad_soft": 0, "grad_pool": 0, "grad_pool_soft": 0,
             "grad_replay": 0, "grad_replay_soft": 0, "grad_stats": 0,
             "lockstep": 0, "lockstep_baseline": 0}
 
-# The last pool launch's scratch (launch_pool): blocks, the slots its
-# warps drew and the pool's capacity, launches (2 where the first ran out
-# of slots), and the bytes of its directory, pool and carries.
+# The last pool launch's scratch (pool_table_launch): blocks, the slots its
+# warps drew and the pool's capacity, the directory blocks they drew and
+# their capacity, launches (more than 1 where a pool ran out), and the
+# bytes of its directory (with its blocks), pool and, for launch_pool,
+# carries.
 last_pool = {}
 
 
@@ -158,50 +166,107 @@ def _launch_grad(scene, tab, cfg, frame, g_img, x0, y0, height, width, form,
     return out, rays, d_tab
 
 
+def pool_grid(params, dev, chunked: bool, blocks=None):
+    """(blocks, floats of carries a block) of a pool launch on `dev`: as
+    many blocks as fit on the card at once (the chunked instance's
+    occupancy for `chunked`), or `blocks`."""
+    lib = _build.load_library()
+    rows, tape_floats = ctypes.c_int(), ctypes.c_longlong()
+    with torch.cuda.device(dev):
+        cuda_call(lib, "grad_pool", lib.tpt_grad_pool_scratch(
+            ctypes.byref(params), int(chunked), ctypes.byref(rows),
+            ctypes.byref(tape_floats)))
+    per_block = tape_floats.value // rows.value
+    return (rows.value if blocks is None else int(blocks)), per_block
+
+
+def pool_table_launch(launch, params, dev, n_blocks: int, cap=None):
+    """A launch that adds into a PoolTable a warp (csrc/gradwarp.cuh), then
+    csrc/grad.cu's sum_pool: the (14, N) d_tab.  launch(dir, blocks, next,
+    block_cap, pool, cap, n_blocks) launches the kernel on the table's
+    scratch (next: two int32 counters, the slots' and the blocks').  The
+    pool starts at a slot for every two pixel samples (a slot is a sphere
+    a warp adds to, 64 bytes; the 100k-sphere frame's warps draw about one
+    for every 16 samples, one for every 7 with the soft estimator), and
+    the blocks of its directory (64 slot indices for 64 consecutive
+    spheres a warp adds to, 256 bytes; never more than the slots) at a
+    quarter as many; where the launch's warps drew more of either, it
+    runs again with as many as they drew, and a third time where the
+    second drew more slots than the first could count (`cap` sets the
+    first slot capacity instead).  The directory holds 4 bytes per (64
+    spheres, warp), 264 bytes a sphere on a 132-SM H100 (csrc/grad.cu).
+    Records the scratch in `last_pool`."""
+    lib = _build.load_library()
+    n = params.n_spheres
+    n_warps = 4 * n_blocks  # csrc/grad.cu kGradWarps
+    if cap is None:
+        cap = min(n_warps * n, max(1 << 16, params.height * params.width
+                                   * params.spp // 2))
+    ids = lib.tpt_grad_dir_ids()
+    dir_rows = -(-n // ids)
+    block_cap = min(n_warps * dir_rows, max(1, cap // 4))
+    for attempt in (1, 2, 3):
+        direc = torch.full((dir_rows * n_warps,), -1, dtype=torch.int32,
+                           device=dev)
+        blocks_t = torch.full((block_cap * ids,), -1, dtype=torch.int32,
+                              device=dev)
+        pool = torch.zeros((cap * 16,), dtype=torch.float32, device=dev)
+        nxt = torch.zeros((2,), dtype=torch.int32, device=dev)
+        launch(direc, blocks_t, nxt, block_cap, pool, cap, n_blocks)
+        drawn, drawn_blocks = (int(v) for v in nxt.cpu())
+        if drawn <= cap and drawn_blocks <= block_cap:
+            break
+        if attempt == 3:
+            raise RuntimeError(f"K3's pool ran out three times ({drawn} "
+                               f"slots drawn of {cap}, {drawn_blocks} "
+                               f"blocks of {block_cap})")
+        cap, block_cap = max(cap, drawn), max(block_cap, drawn_blocks)
+    d_tab = torch.empty((14, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.tpt_grad_pool_sum_launch(
+            direc.data_ptr(), blocks_t.data_ptr(), pool.data_ptr(), n_blocks,
+            n, d_tab.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    cuda_call(lib, "grad_pool_sum", code)
+    last_pool.clear()
+    last_pool.update(blocks=n_blocks, slots=drawn, cap=cap,
+                     dir_blocks=drawn_blocks, block_cap=block_cap,
+                     launches=attempt,
+                     dir_bytes=4 * (direc.numel() + blocks_t.numel()),
+                     pool_bytes=4 * pool.numel())
+    return d_tab
+
+
 def launch_pool(tab, mat, lights, cam, params, g_img, dev, chunks=None,
-                blocks=None, cap=None):
+                blocks=None, cap=None, stats=False):
     """K3's pool instance on `dev` (csrc/grad.cu pool_grad_kernel, or with
     `chunks`, a dict of the chunked scene's "rows", "box", "sil_box",
     "prox_box", "n_chunks" and "chunk", chunk_grad_kernel): ((height,
     width, 3) image, 0-d int64 rays, (14, N) d_tab) for the pixel cotangent
     g_img.  `blocks`: the grid (default: as many blocks as fit on the card
     at once); the warp form's grid makes the result bit-equal to the warp
-    form's.  The pool starts at a slot for every two pixel samples (a
-    slot is a sphere a warp adds to, 64 bytes; the 100k-sphere frame's
-    warps draw about one for every 16 samples, one for every 7 with the
-    soft estimator); where the launch's warps drew more, it runs again
-    with as many as they drew (`cap` sets the first capacity instead).
-    The directory is dense, 4 bytes per (sphere, warp), which caps the
-    scene at about 4.7 million spheres on an 80 GB card (csrc/grad.cu).
-    Records the scratch in `last_pool`."""
+    form's.  The table's scratch and its reruns: pool_table_launch (`cap`
+    its first slot capacity).  Records the scratch in `last_pool`.
+    stats=True (with `chunks`) launches the chunked instance's stats
+    instance and returns a fourth value, its counters by STAT_FIELDS."""
     lib = _build.load_library()
     height, width = params.height, params.width
-    n = params.n_spheres
-    rows, tape_floats = ctypes.c_int(), ctypes.c_longlong()
-    with torch.cuda.device(dev):
-        cuda_call(lib, "grad_pool", lib.tpt_grad_pool_scratch(
-            ctypes.byref(params), int(chunks is not None), ctypes.byref(rows),
-            ctypes.byref(tape_floats)))
-    n_blocks = rows.value if blocks is None else int(blocks)
-    per_block = tape_floats.value // rows.value
-    n_warps = 4 * n_blocks  # csrc/grad.cu kGradWarps
+    n_blocks, per_block = pool_grid(params, dev, chunks is not None, blocks)
     tape = torch.empty((n_blocks * per_block,), dtype=torch.float32,
                        device=dev)
     out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
-    if cap is None:
-        cap = min(n_warps * n,
-                  max(1 << 16, height * width * params.spp // 2))
+    counts = torch.zeros((len(STAT_FIELDS),), dtype=torch.int64,
+                         device=dev) if stats else None
     c = chunks or {}
 
     def ptr(key):
         t = c.get(key)
         return None if t is None else t.data_ptr()
-    for attempt in (1, 2):
-        direc = torch.full((n * n_warps,), -1, dtype=torch.int32, device=dev)
-        pool = torch.zeros((cap * 16,), dtype=torch.float32, device=dev)
-        nxt = torch.zeros((1,), dtype=torch.int32, device=dev)
+
+    def launch(direc, blocks_t, nxt, block_cap, pool, cap, n_blocks):
         rays.zero_()
+        if stats:
+            counts.zero_()
         with torch.cuda.device(dev):
             code = lib.tpt_grad_pool_launch(
                 tab.data_ptr(), mat.data_ptr(), lights.data_ptr(),
@@ -209,26 +274,16 @@ def launch_pool(tab, mat, lights, cam, params, g_img, dev, chunks=None,
                 ptr("prox_box"), c.get("n_chunks", 0), c.get("chunk", 0),
                 ctypes.byref(params), g_img.data_ptr(), out.data_ptr(),
                 rays.data_ptr(), n_blocks, tape.data_ptr(), direc.data_ptr(),
+                blocks_t.data_ptr(), nxt[1:].data_ptr(), block_cap,
                 pool.data_ptr(), nxt.data_ptr(), cap,
+                counts.data_ptr() if stats else None,
                 torch.cuda.current_stream(dev).cuda_stream)
         cuda_call(lib, "grad_pool", code)
-        drawn = int(nxt.item())
-        if drawn <= cap:
-            break
-        if attempt == 2:
-            raise RuntimeError(f"K3's pool ran out twice ({drawn} slots "
-                               f"drawn of {cap})")
-        cap = drawn
-    d_tab = torch.empty((14, n), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        code = lib.tpt_grad_pool_sum_launch(
-            direc.data_ptr(), pool.data_ptr(), n_blocks, n, d_tab.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    cuda_call(lib, "grad_pool_sum", code)
-    last_pool.clear()
-    last_pool.update(blocks=n_blocks, slots=drawn, cap=cap, launches=attempt,
-                     dir_bytes=4 * direc.numel(), pool_bytes=4 * pool.numel(),
-                     tape_bytes=4 * tape.numel())
+    d_tab = pool_table_launch(launch, params, dev, n_blocks, cap)
+    last_pool["tape_bytes"] = 4 * tape.numel()
+    if stats:
+        return out, rays, d_tab, dict(zip(STAT_FIELDS,
+                                          (int(v) for v in counts.cpu())))
     return out, rays, d_tab
 
 
@@ -326,6 +381,10 @@ def render_tile_grad_form(scene: Scene, cfg: RenderConfig, frame: int, g_img,
         raise ValueError("the stats instances run on a card")
     if stats and form == "pool":
         raise ValueError("K3's pool form has no stats instance")
+    if (stats and scene.device.type == "cuda"
+            and len(scene.emissive_ids) > MAX_LIGHTS):
+        raise ValueError(f"the stats instances take at most {MAX_LIGHTS} "
+                         f"emissive spheres, got {len(scene.emissive_ids)}")
     tab = checked_tab(scene, x0, y0, height, width, tab, FORM_CAPS[form],
                       f"the gradient kernel K3 ({form} form: "
                       f"{TABLES[form]})")

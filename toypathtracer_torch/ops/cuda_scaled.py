@@ -22,17 +22,35 @@ There is no fallback: on a CUDA tensor a failed build, a refused launch or
 an unsupported shape raises.  `launches` counts kernel launches, per form.
 
 The scaled scene's gradient (scaled.py:712 render_frame_scaled(...,
-differentiable=True), BASELINE config 5 with gradients):
-`render_tile_scaled_grad` launches the gradient kernel's chunked instance
-(csrc/grad.cu chunk_grad_kernel, K3 over csrc/chunks.cuh's chunk walks
-with a table per warp in device memory; its soft instance where
-cfg.soft_silhouette_eps > 0), autograd through the plain version on the
-CPU; `render_tile_scaled_diff` / `render_frame_scaled(...,
-differentiable=True)` are the differentiable renders: on a card a
-torch.autograd.Function on the packed scene table whose forward is the
-scaled render kernel and whose backward is the chunked K3, on the CPU
-autograd through the plain version.  Gradients reach every float field of
-the ScaledScene through pack_scene; the chunk boxes carry none.
+differentiable=True), BASELINE config 5 with gradients), K3 over chunks:
+on a card its cooperative form (csrc/coopgrad.cuh) is two kernels -- the
+scaled render kernel's tape-writing instance (csrc/scaled.cu
+tape_render_kernel, `render_tile_scaled_tape`: the image, the rays, and
+each bounce's carry record in a frame-sized tape, 64 bytes a (pixel,
+sample, bounce) plus a word per 32 lights: 2.5 GB at 1280x720, spp 4,
+depth 10) and the reverse sweep over that tape (csrc/chunkgrad.cu
+chunk_sweep_kernel, `sweep_scaled_tape`; its soft instance, with the soft
+estimator's chunk scans as warp walks, where cfg.soft_silhouette_eps >
+0).  `render_tile_scaled_grad` runs both; `render_tile_scaled_grad_form`
+also reaches "chunk", the per-lane chunked instance (csrc/grad.cu
+chunk_grad_kernel, the per-lane walks, kept as the baseline the
+cooperative form's cotangent is held bit-equal to), and its stats
+instance.  On the CPU: autograd through the plain version.
+`render_tile_scaled_diff` / `render_frame_scaled(..., differentiable=True)`
+are the differentiable renders: on a card a torch.autograd.Function on the
+packed scene table whose forward is the tape-writing render where the
+table requires a gradient (else the scaled render kernel) and whose
+backward is the sweep over the tape the forward kept, so a training step
+traces each path once; on the CPU autograd through the plain version.  A
+frame whose tape does not fit in the card's free memory raises, naming
+the row bands (render_tile_scaled_diff on sub-images) that do fit.
+Gradients reach every float field of the ScaledScene through pack_scene;
+the chunk boxes carry none.
+
+The sphere and chunk limits of the kernels' storage bind on a card only
+(`_check_scene`): the per-lane render form and the per-lane chunked K3 keep a
+lane's seen lights in 16 bits (MAX_LIGHTS); every other kernel here takes
+any number of lights, and the plain versions any scene.
 """
 
 from __future__ import annotations
@@ -43,11 +61,13 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig, resolve_device, warn_diff_wavefront
-from ..scaled import (ChunkTraversal, ScaledScene, chunk_index, group_boxes,
-                      pack_chunks, render_tile_scaled_grad_plain,
-                      render_tile_scaled_plain, soft_boxes)
+from ..scaled import (ChunkTraversal, ScaledScene, boxes_grouped,
+                      chunk_index, group_boxes, pack_chunks,
+                      render_tile_scaled_grad_plain,
+                      render_tile_scaled_plain, soft_boxes, sphere_records,
+                      walk_order)
 from . import _build
-from .cuda_grad import launch_pool
+from .cuda_grad import launch_pool, pool_grid, pool_table_launch
 from .cuda_render import (LOOP_FIELDS, MAX_LIGHTS, STAT_FIELDS, STAT_SLOTS,
                           cuda_call, kernel_camera, pack_scene,
                           render_params)
@@ -55,6 +75,10 @@ from .cuda_render import (LOOP_FIELDS, MAX_LIGHTS, STAT_FIELDS, STAT_SLOTS,
 # Largest chunk count whose AABBs the kernels stage in shared memory
 # (csrc/chunks.cuh kMaxChunks).
 MAX_CHUNKS = 4096
+# Lights the cooperative render's NEE takes in one pass (csrc/coop.cuh
+# kCoopNeeGroup); past them its lights instance, which has no stats
+# instance, takes them in passes.
+COOP_NEE_GROUP = 16
 
 # The scaled render kernel's forms (tpt_scaled_render_launch's `form`)
 # and their launch counters: "scaled_render" counts the main path's form.
@@ -73,9 +97,20 @@ SHADOW_MAIN_FORM = "coop"
 SHADOW_COUNTERS = {"coop": "shadow_chunks",
                    "thread": "shadow_chunks_baseline"}
 
+# The scaled gradient's forms (render_tile_scaled_grad_form): "coop", the main
+# path's (the tape-writing render and the sweep), and "chunk", the per-lane
+# chunked instance, the baseline.  Launch counters: "scaled_tape" counts the
+# tape-writing render, "scaled_grad" / "scaled_grad_soft" the sweep,
+# "scaled_grad_baseline" / "scaled_grad_baseline_soft" the per-lane kernel and
+# "scaled_grad_stats" its stats instance.
+GRAD_FORMS = ("coop", "chunk")
+GRAD_MAIN_FORM = "coop"
+
 launches = {"scaled_render": 0, "scaled_render_lane": 0,
-            "scaled_render_stats": 0, "scaled_grad": 0,
-            "scaled_grad_soft": 0, "hit_chunks": 0,
+            "scaled_render_stats": 0, "scaled_tape": 0, "scaled_grad": 0,
+            "scaled_grad_soft": 0, "scaled_grad_baseline": 0,
+            "scaled_grad_baseline_soft": 0, "scaled_grad_stats": 0,
+            "hit_chunks": 0,
             "hit_chunks_baseline": 0, "hit_chunks_counted": 0,
             "shadow_chunks": 0, "shadow_chunks_baseline": 0,
             "shadow_chunks_counted": 0}
@@ -270,19 +305,25 @@ def shadow_chunks_form(rows: torch.Tensor, ro, dirs, t_ls, chunk: int,
     return occ.reshape(shape)
 
 
-def _check_scene(scene: ScaledScene):
+def _check_scene(scene: ScaledScene, kernel: str = None):
+    """The scene's shapes on any device; on a card also the limits of the
+    named kernel's storage: the chunk boxes the kernels stage in shared
+    memory, and for the per-lane render form and the per-lane chunked K3
+    ("lane", "chunk") the 16 lights of a uint32 mask.  The plain versions
+    take any count of lights."""
     n, K = scene.n_spheres, scene.chunk
     if n % K or scene.chunk_aabb.shape != (n // K, 6):
         raise ValueError(f"{n} spheres in chunks of {K} need "
                          f"({n // K}, 6) chunk boxes, got "
                          f"{tuple(scene.chunk_aabb.shape)}")
-    if n // K > MAX_CHUNKS:
+    if scene.device.type == "cuda" and n // K > MAX_CHUNKS:
         raise ValueError(f"the scaled render kernel stages at most "
                          f"{MAX_CHUNKS} chunk boxes in shared memory, got "
                          f"{n // K}")
-    if len(scene.emissive_ids) > MAX_LIGHTS:
-        raise ValueError(f"the scaled render kernel takes at most "
-                         f"{MAX_LIGHTS} emissive spheres, got "
+    if (scene.device.type == "cuda" and kernel in ("lane", "chunk")
+            and len(scene.emissive_ids) > MAX_LIGHTS):
+        raise ValueError(f"the {kernel} form takes at most {MAX_LIGHTS} "
+                         f"emissive spheres, got "
                          f"{len(scene.emissive_ids)}")
     if any(not 0 <= e < n for e in scene.emissive_ids):
         raise ValueError(f"emissive ids out of range: {scene.emissive_ids}")
@@ -329,12 +370,16 @@ def render_tile_scaled_form(scene: ScaledScene, cfg: RenderConfig,
     counters give that do not depend on warps: the hit rays' sphere tests
     ("need") and, for "lane", whose shadow rays take the chunks in order,
     theirs and the slab tests of both kinds ("slabs")."""
-    _check_scene(scene)
+    _check_scene(scene, form)
     if form not in FORMS:
         raise ValueError(f"no scaled render form {form!r}")
     if not (height >= 1 and width >= 1 and x0 >= 0 and y0 >= 0):
         raise ValueError(f"bad sub-image {height}x{width} at ({x0}, {y0})")
     dev = scene.device
+    if (stats and dev.type == "cuda"
+            and len(scene.emissive_ids) > COOP_NEE_GROUP):
+        raise ValueError(f"the stats instances take at most {COOP_NEE_GROUP} "
+                         f"emissive spheres, got {len(scene.emissive_ids)}")
     if dev.type == "cpu":
         if not stats:
             return render_tile_scaled_plain(scene, cfg, frame, x0, y0,
@@ -368,7 +413,8 @@ def render_tile_scaled_form(scene: ScaledScene, cfg: RenderConfig,
             lights.data_ptr(), cam.data_ptr(), ctypes.byref(params),
             scene.n_chunks, scene.chunk, FORMS[form], out.data_ptr(),
             rays.data_ptr(), next_tile.data_ptr(),
-            counts.data_ptr() if stats else None, _stream(dev))
+            counts.data_ptr() if stats else None, None, None, None,
+            _stream(dev))
     cuda_call(lib, "scaled_render", code)
     launches["scaled_render_stats" if stats else COUNTERS[form]] += 1
     if stats:
@@ -376,65 +422,232 @@ def render_tile_scaled_form(scene: ScaledScene, cfg: RenderConfig,
     return out, rays
 
 
-def render_tile_scaled_grad(scene: ScaledScene, cfg: RenderConfig,
-                            frame: int, g_img, x0: int, y0: int, height: int,
-                            width: int, tab=None):
-    """Value and packed-scene cotangent of the (height, width) sub-image of
-    a ScaledScene at global pixel (x0, y0) for the pixel cotangent g_img
-    ((height, width, 3)): the gradient kernel's chunked instance on a card
-    (with cfg.soft_silhouette_eps > 0 its soft instance, the soft scans
-    over scaled.soft_boxes), autograd through the plain version on the
-    CPU.  `tab`: the packed table (default pack_scene(scene)).  Returns
-    ((height, width, 3) float32 image, 0-d int64 ray count, d_packed (14,
-    N) float32)."""
-    _check_scene(scene)
+def _chunk_inputs(scene: ScaledScene, cfg: RenderConfig, walk: bool):
+    """The chunked gradient kernels' scene inputs on the card: the
+    pack_chunks rows and chunk boxes, with the soft estimator the scans'
+    inflated boxes (scaled.soft_boxes) and, for the cooperative sweep
+    (`walk`), a spatial order of the chunks (scaled.walk_order, computed on
+    the card: no host round trip a step) and the sphere records, with each
+    scan's boxes in that order and their group boxes."""
+    C, K = scene.n_chunks, scene.chunk
+    rows = pack_chunks(scene)
+    box = rows[:, 4 * K:4 * K + 6].contiguous()
+    chunks = dict(rows=rows, box=box, n_chunks=C, chunk=K)
+    if cfg.soft_silhouette_eps > 0.0:
+        rmax = scene.radius.detach().reshape(C, K).amax(dim=1)
+        b = soft_boxes(box, rmax, cfg.soft_silhouette_eps)
+        chunks.update(sil_box=b["silhouette"], prox_box=b["proximity"])
+        if walk:
+            order = walk_order(box)
+            for key, kind in (("sil", "silhouette"), ("prox", "proximity")):
+                wb = b[kind][order.long()].contiguous()
+                chunks[key + "_walk"] = wb
+                chunks[key + "_gbox"] = boxes_grouped(wb)
+            chunks.update(order=order, rec=sphere_records(rows, K),
+                          n_groups=chunks["sil_gbox"].shape[0])
+    return chunks
+
+
+def _grad_args(scene: ScaledScene, g_img, x0, y0, height, width, tab):
     if not (height >= 1 and width >= 1 and x0 >= 0 and y0 >= 0):
         raise ValueError(f"bad sub-image {height}x{width} at ({x0}, {y0})")
     if tuple(g_img.shape) != (height, width, 3):
         raise ValueError(f"pixel cotangent must be ({height}, {width}, 3), "
                          f"got {tuple(g_img.shape)}")
+    dev = scene.device
+    if dev.type == "cuda":
+        tab = (pack_scene(scene) if tab is None else tab).detach()
+        tab = tab.contiguous()
+        if tab.shape != (14, scene.n_spheres) or tab.device != dev:
+            raise ValueError(f"packed table must be (14, {scene.n_spheres}) "
+                             f"on {dev}, got {tuple(tab.shape)} on "
+                             f"{tab.device}")
+    return g_img.detach().to(device=dev, dtype=torch.float32).contiguous(), tab
+
+
+def tape_bytes(scene: ScaledScene, cfg: RenderConfig, height: int,
+               width: int) -> int:
+    """Bytes of the tape the tape-writing render keeps for a (height,
+    width) sub-image: a 64-byte record and light_words(lights) words a
+    (pixel, sample, bounce), and a bounce count a (pixel, sample)."""
+    samples = height * width * cfg.samples_per_pixel
+    words = -(-len(scene.emissive_ids) // 32)
+    return samples * (cfg.max_depth * (64 + 4 * words) + 4)
+
+
+def render_tile_scaled_tape(scene: ScaledScene, cfg: RenderConfig,
+                            frame: int, x0: int, y0: int, height: int,
+                            width: int, tab=None):
+    """The scaled render kernel's tape-writing instance on a card (the
+    forward of the cooperative chunked gradient): ((height, width, 3)
+    image, 0-d int64 rays, tape), the image and rays the scaled render
+    kernel's bit for bit, the tape a dict of its tensors ("rec", "see",
+    "depth") for sweep_scaled_tape.  Raises where the tape
+    (tape_bytes) does not fit in the card's free memory: render the frame
+    in row bands instead (render_tile_scaled_diff on sub-images); it never
+    falls back to another kernel."""
+    _check_scene(scene, "coop")
+    if scene.device.type != "cuda":
+        raise ValueError("the tape-writing render runs on a card")
+    dev = scene.device
+    need = tape_bytes(scene, cfg, height, width)
+    free, _ = torch.cuda.mem_get_info(dev)
+    # and what the caching allocator holds unused (an earlier step's tape)
+    free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    if need > free:
+        rows = max(1, height * free // (2 * need))
+        raise MemoryError(
+            f"the scaled gradient's tape for {height}x{width} pixels, spp "
+            f"{cfg.samples_per_pixel}, depth {cfg.max_depth} takes {need} "
+            f"bytes and the card has {free} free: differentiate bands of "
+            f"at most {rows} rows (render_tile_scaled_diff on sub-images)")
+    lib = _build.load_library()
+    tab = (pack_scene(scene) if tab is None else tab).detach().contiguous()
+    rows = pack_chunks(scene)
+    gbox = group_boxes(rows, scene.chunk)
+    mat = scene.mat_ids().contiguous()
+    lights, cam = kernel_camera(scene, cfg)
+    samples = height * width * cfg.samples_per_pixel
+    words = -(-len(scene.emissive_ids) // 32)
+    tape = {"rec": torch.empty((samples * cfg.max_depth * 16,),
+                               dtype=torch.float32, device=dev),
+            "see": torch.empty((max(1, samples * cfg.max_depth * words),),
+                               dtype=torch.int32, device=dev),
+            "depth": torch.empty((samples,), dtype=torch.int32, device=dev)}
+    out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    next_tile = torch.zeros((1,), dtype=torch.int32, device=dev)
+    params = render_params(scene, cfg, frame, x0, y0, height, width)
+    with torch.cuda.device(dev):
+        code = lib.tpt_scaled_render_launch(
+            tab.data_ptr(), rows.data_ptr(), gbox.data_ptr(), mat.data_ptr(),
+            lights.data_ptr(), cam.data_ptr(), ctypes.byref(params),
+            scene.n_chunks, scene.chunk, 2, out.data_ptr(), rays.data_ptr(),
+            next_tile.data_ptr(), None, tape["rec"].data_ptr(),
+            tape["see"].data_ptr(), tape["depth"].data_ptr(), _stream(dev))
+    cuda_call(lib, "scaled_tape", code)
+    launches["scaled_tape"] += 1
+    tape["tile"] = (frame, x0, y0, height, width)
+    return out, rays, tape
+
+
+def sweep_scaled_tape(scene: ScaledScene, cfg: RenderConfig, g_img, tape,
+                      tab=None):
+    """The cooperative chunked gradient's reverse sweep on a card
+    (csrc/chunkgrad.cu, its soft instance where cfg.soft_silhouette_eps >
+    0) over the tape render_tile_scaled_tape wrote for the same scene,
+    config and sub-image: d_packed (14, N) for the pixel cotangent g_img,
+    the per-lane chunked instance's cotangent bit for bit (it runs on that
+    kernel's grid and sums through the same table).  Records the table's
+    scratch in cuda_grad.last_pool."""
+    frame, x0, y0, height, width = tape["tile"]
+    _check_scene(scene, "coop")
+    g_img, tab = _grad_args(scene, g_img, x0, y0, height, width, tab)
+    chunks = _chunk_inputs(scene, cfg, walk=True)
+    params = render_params(scene, cfg, frame, x0, y0, height, width)
+    lights, _ = kernel_camera(scene, cfg)
+    mat = scene.mat_ids().contiguous()
+    dev = scene.device
+    lib = _build.load_library()
+
+    def ptr(key):
+        t = chunks.get(key)
+        return None if t is None else t.data_ptr()
+
+    def launch(direc, blocks_t, nxt, block_cap, pool, cap, n_blocks):
+        with torch.cuda.device(dev):
+            code = lib.tpt_chunk_sweep_launch(
+                tab.data_ptr(), mat.data_ptr(), lights.data_ptr(),
+                ptr("rows"), ptr("box"), ptr("sil_box"), ptr("prox_box"),
+                ptr("order"), ptr("rec"), ptr("sil_walk"), ptr("sil_gbox"),
+                ptr("prox_walk"), ptr("prox_gbox"), chunks.get("n_groups", 0),
+                chunks["n_chunks"], chunks["chunk"], ctypes.byref(params),
+                g_img.data_ptr(), n_blocks, tape["rec"].data_ptr(),
+                tape["see"].data_ptr(), tape["depth"].data_ptr(),
+                direc.data_ptr(), blocks_t.data_ptr(), nxt[1:].data_ptr(),
+                block_cap, pool.data_ptr(), nxt.data_ptr(), cap, _stream(dev))
+        cuda_call(lib, "scaled_sweep", code)
+    n_blocks, _ = pool_grid(params, dev, chunked=True)
+    d_tab = pool_table_launch(launch, params, dev, n_blocks)
+    launches["scaled_grad_soft" if cfg.soft_silhouette_eps > 0.0
+             else "scaled_grad"] += 1
+    return d_tab
+
+
+def render_tile_scaled_grad(scene: ScaledScene, cfg: RenderConfig,
+                            frame: int, g_img, x0: int, y0: int, height: int,
+                            width: int, tab=None):
+    """Value and packed-scene cotangent of the (height, width) sub-image of
+    a ScaledScene at global pixel (x0, y0) for the pixel cotangent g_img
+    ((height, width, 3)): on a card K3's cooperative chunked form (the
+    tape-writing render, then the sweep over its tape; with
+    cfg.soft_silhouette_eps > 0 its soft instance), autograd through the
+    plain version on the CPU.  `tab`: the packed table (default
+    pack_scene(scene)).  Returns ((height, width, 3) float32 image, 0-d
+    int64 ray count, d_packed (14, N) float32)."""
+    return render_tile_scaled_grad_form(scene, cfg, frame, g_img, x0, y0,
+                                        height, width, GRAD_MAIN_FORM,
+                                        tab=tab)
+
+
+def render_tile_scaled_grad_form(scene: ScaledScene, cfg: RenderConfig,
+                                 frame: int, g_img, x0: int, y0: int,
+                                 height: int, width: int, form: str,
+                                 tab=None, stats: bool = False):
+    """render_tile_scaled_grad through the form `form` (GRAD_FORMS) on a
+    card: "coop" (two launches: render_tile_scaled_tape and
+    sweep_scaled_tape) or "chunk" (the per-lane chunk_grad_kernel, one launch,
+    at most MAX_LIGHTS lights; stats=True its stats instance, returning a
+    fourth value, its counters by cuda_grad.STAT_FIELDS).  Both give the
+    same image, rays and cotangent bit for bit on the same grid.  On the
+    CPU the plain version, whatever the form."""
+    if form not in GRAD_FORMS:
+        raise ValueError(f"no scaled gradient form {form!r}")
+    if stats and form != "chunk":
+        raise ValueError("only the chunk form has a stats instance")
+    _check_scene(scene, form)
+    g_img, tab = _grad_args(scene, g_img, x0, y0, height, width, tab)
     warn_diff_wavefront(cfg)
     dev = scene.device
-    g_img = g_img.detach().to(device=dev, dtype=torch.float32).contiguous()
     if dev.type == "cpu":
+        if stats:
+            raise ValueError("the stats instances run on a card")
         return render_tile_scaled_grad_plain(scene, cfg, frame, g_img, x0,
                                              y0, height, width, tab=tab)
     if dev.type != "cuda":
         raise ValueError(f"no renderer for device {dev}")
-    tab = (pack_scene(scene) if tab is None else tab).detach().contiguous()
-    if tab.shape != (14, scene.n_spheres) or tab.device != dev:
-        raise ValueError(f"packed table must be (14, {scene.n_spheres}) on "
-                         f"{dev}, got {tuple(tab.shape)} on {tab.device}")
-    C, K = scene.n_chunks, scene.chunk
-    rows = pack_chunks(scene)
-    box = rows[:, 4 * K:4 * K + 6].contiguous()
-    chunks = dict(rows=rows, box=box, n_chunks=C, chunk=K)
-    soft = cfg.soft_silhouette_eps > 0.0
-    if soft:
-        rmax = scene.radius.detach().reshape(C, K).amax(dim=1)
-        b = soft_boxes(box, rmax, cfg.soft_silhouette_eps)
-        chunks.update(sil_box=b["silhouette"], prox_box=b["proximity"])
+    if form == "coop":
+        img, rays, tape = render_tile_scaled_tape(scene, cfg, frame, x0, y0,
+                                                  height, width, tab=tab)
+        return img, rays, sweep_scaled_tape(scene, cfg, g_img, tape, tab=tab)
+    chunks = _chunk_inputs(scene, cfg, walk=False)
     lights, cam = kernel_camera(scene, cfg)
     out = launch_pool(tab, scene.mat_ids().contiguous(), lights, cam,
                       render_params(scene, cfg, frame, x0, y0, height, width),
-                      g_img, dev, chunks=chunks)
-    launches["scaled_grad_soft" if soft else "scaled_grad"] += 1
+                      g_img, dev, chunks=chunks, stats=stats)
+    launches["scaled_grad_stats" if stats else "scaled_grad_baseline_soft"
+             if cfg.soft_silhouette_eps > 0.0 else "scaled_grad_baseline"] += 1
     return out
 
 
 class _ScaledPackedRender(torch.autograd.Function):
-    """image = render(tab) of a ScaledScene on a card: forward the scaled
-    render kernel, backward the gradient kernel's chunked instance.  The
-    forward is the reference's lockstep primal: the scaled render kernel's
-    image equals the chunked K3's primal bit for bit, since both run
-    csrc/trace.cuh's per-pixel function over csrc/chunks.cuh's walks (the
-    cooperative form is held bit-equal to the per-lane render_pixel), as
-    K1's image is K4's on the flat scene; chip_smoke.py holds the two
-    equal on the card.  So the forward takes the fast kernel."""
+    """image = render(tab) of a ScaledScene on a card.  Where the table
+    requires a gradient the forward is the tape-writing render and the
+    backward the sweep over the tape it kept (K3's cooperative chunked
+    form: each path traced once a step); else the forward is the scaled
+    render kernel.  Both forwards give the scaled render kernel's image
+    and rays bit for bit, which is the reference's lockstep primal.  The
+    first backward frees the tape; a second one through a retained graph
+    (retain_graph=True) writes it again with the same forward."""
 
     @staticmethod
     def forward(ctx, tab, scene, cfg, frame, tile):
-        img, rays = render_tile_scaled(scene, cfg, frame, *tile)
+        ctx.tape = None
+        if ctx.needs_input_grad[0]:
+            img, rays, ctx.tape = render_tile_scaled_tape(scene, cfg, frame,
+                                                          *tile, tab=tab)
+        else:
+            img, rays = render_tile_scaled(scene, cfg, frame, *tile)
         ctx.save_for_backward(tab)
         ctx.args = (scene, cfg, frame, tile)
         ctx.mark_non_differentiable(rays)
@@ -443,9 +656,12 @@ class _ScaledPackedRender(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_img, _g_rays):
         tab, = ctx.saved_tensors
-        scene, cfg, frame, (x0, y0, height, width) = ctx.args
-        _, _, d_tab = render_tile_scaled_grad(scene, cfg, frame, g_img, x0,
-                                              y0, height, width, tab=tab)
+        scene, cfg, frame, tile = ctx.args
+        tape, ctx.tape = ctx.tape, None
+        if tape is None:
+            tape = render_tile_scaled_tape(scene, cfg, frame, *tile,
+                                           tab=tab)[2]
+        d_tab = sweep_scaled_tape(scene, cfg, g_img, tape, tab=tab)
         return d_tab, None, None, None, None
 
 

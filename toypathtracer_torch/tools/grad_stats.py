@@ -2,7 +2,7 @@
 
     python -m toypathtracer_torch.tools.grad_stats [--forms replay,warp]
         [--width 1280] [--height 720] [--spp 4] [--depth 10] [--frame 0]
-        [--soft-eps 0.05] [--out PATH]
+        [--soft-eps 0.05] [--scaled N] [--out PATH]
 
 Launches each form's stats instance once (ops/cuda_grad.
 render_tile_grad_form with stats=True) on the 46-sphere frame for a
@@ -17,6 +17,10 @@ With --soft-eps > 0 each form's soft instance runs (the soft-silhouette
 estimator); the warp form's "soft" share is then the cycles of its
 silhouette and shadow-boundary scans and their adjoints' setup, a part of
 "adj" as "group" is.
+
+With --scaled N the chunked instance's stats instance runs instead, on
+make_scaled_scene(N) (chunk_stats: the forward trace, the reverse sweep
+and the soft scans).
 
 Needs a card: cycle counts and times are never taken on the CPU.  Writes
 build/grad_stats_torch.json at the root of the checkout (or --out) and
@@ -84,6 +88,29 @@ def form_stats(scene, cfg: RenderConfig, form: str, g, frame: int = 0,
     return out
 
 
+def chunk_stats(scene, cfg: RenderConfig, g, frame: int = 0) -> dict:
+    """One launch of the stats instance of K3's chunked instance
+    (csrc/grad.cu chunk_grad_stats_kernel, the per-lane chunk walks)
+    over the whole frame of a ScaledScene on the card: the shares of its
+    threads' SM cycles in the forward trace, the reverse sweep and, inside
+    the sweep, the grouping and the soft scans (the silhouette and
+    shadow-boundary scans with their adjoints' setup)."""
+    from ..ops import cuda_scaled
+    H, W = cfg.height, cfg.width
+    _, rays, _, c = cuda_scaled.render_tile_scaled_grad_form(
+        scene, cfg, frame, g, 0, 0, H, W, "chunk", stats=True)
+    total = c["cycles_all"]
+    shares = {k: c[f"cycles_{k}"] / total
+              for k in ("fwd", "adj", "group", "soft")}
+    shares["other"] = 1.0 - shares["fwd"] - shares["adj"]
+    samples = H * W * cfg.samples_per_pixel
+    return {"form": "chunk", "soft_eps": cfg.soft_silhouette_eps,
+            "spheres": scene.n_spheres, "rays": int(rays), "counters": c,
+            "cycle_shares": shares,
+            "adjoint_bounces_per_sample": c["adj_bounces"] / samples,
+            "reverse_lane_busy": c["adj_bounces"] / max(c["adj_slots"], 1)}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--forms", default="replay,warp")
@@ -94,6 +121,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--frame", type=int, default=0)
     ap.add_argument("--soft-eps", type=float, default=0.0,
                     help="the soft-silhouette estimator's eps (0: off)")
+    ap.add_argument("--scaled", type=int, default=0,
+                    help="the chunked instance on make_scaled_scene(N) "
+                         "instead of the forms on the 46-sphere scene")
     ap.add_argument("--out", default=None,
                     help=f"output path (default {OUT})")
     args = ap.parse_args(argv)
@@ -102,15 +132,20 @@ def main(argv=None) -> dict:
     cfg = RenderConfig(width=args.width, height=args.height,
                        samples_per_pixel=args.spp, max_depth=args.depth,
                        soft_silhouette_eps=args.soft_eps)
-    scene = make_scene(big=True).to("cuda")
     g = cotangent(cfg.height, cfg.width)
     res = {"device": torch.cuda.get_device_name(0),
            "config": {"width": cfg.width, "height": cfg.height,
                       "spp": cfg.samples_per_pixel,
                       "max_depth": cfg.max_depth, "frame": args.frame,
-                      "soft_eps": args.soft_eps},
-           "forms": [form_stats(scene, cfg, f, g, args.frame)
-                     for f in args.forms.split(",")]}
+                      "soft_eps": args.soft_eps}}
+    if args.scaled:
+        from ..scaled import make_scaled_scene
+        scene = make_scaled_scene(args.scaled).to("cuda")
+        res["forms"] = [chunk_stats(scene, cfg, g, args.frame)]
+    else:
+        scene = make_scene(big=True).to("cuda")
+        res["forms"] = [form_stats(scene, cfg, f, g, args.frame)
+                        for f in args.forms.split(",")]
     out = Path(args.out) if args.out else OUT
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(res, indent=1))

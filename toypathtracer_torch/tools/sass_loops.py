@@ -1,7 +1,7 @@
 """The instruction mix of a kernel's innermost loops, from its SASS.
 
     python -m toypathtracer_torch.tools.sass_loops [--kernels LABEL,...]
-        [--compare DIR [--same HERE=THERE,...]] [--out PATH]
+        [--compare DIR [--same HERE=THERE,...]] [--digests] [--out PATH]
 
 Builds csrc/ (ops/_build), disassembles the library with the CUDA
 toolkit's `cuobjdump -sass`, and for each named kernel (labels as
@@ -27,6 +27,12 @@ the parameters they read: a struct argument that grew moves them), and
 those that only one has.  --same HERE=THERE,...
 compares a kernel renamed here with its name there (a kernel that became
 a template: --same "hit_chunks_kernel<0>=hit_chunks_kernel").
+
+With --digests it lists instead each kernel's SHA-256 over its SASS
+(addresses and instructions, as the comparison sees them) and the
+toolkit's nvcc version: a record that a later build on the same toolkit
+can be held against without the other checkout (chip_smoke.py's
+KEPT_SASS).
 
 Needs the CUDA toolkit (nvcc and cuobjdump), so it runs where the kernels
 build, on the machine with the card.  Writes build/sass_loops.json at the
@@ -189,6 +195,23 @@ def without_parameter_offsets(code) -> list:
     return [(a, PARAM.sub("c[0x0][PARAM]", t)) for a, t in code]
 
 
+def digests(funcs: dict) -> dict:
+    """{label: SHA-256 of its (address, instruction) lines}: equal
+    exactly where sass_diff would call two kernels identical."""
+    import hashlib
+    return {k: hashlib.sha256("\n".join(f"{a:x} {t}" for a, t in v)
+                              .encode()).hexdigest()
+            for k, v in sorted(funcs.items())}
+
+
+def nvcc_version() -> str:
+    """The toolkit's release line from `nvcc --version`."""
+    out = subprocess.run([_build.find_nvcc(), "--version"], check=True,
+                         capture_output=True, text=True).stdout
+    lines = [ln for ln in out.splitlines() if "release" in ln]
+    return lines[-1].strip() if lines else out.strip().splitlines()[-1]
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", default=",".join(DEFAULT))
@@ -197,12 +220,17 @@ def main(argv=None) -> dict:
     ap.add_argument("--same", default="", metavar="HERE=THERE,...",
                     help="kernels renamed here, compared with their old "
                          "names there")
+    ap.add_argument("--digests", action="store_true",
+                    help="each kernel's SASS digest and the nvcc version")
     ap.add_argument("--out", default=None,
                     help=f"output path (default {OUT})")
     args = ap.parse_args(argv)
     lib = _build.build()
     funcs = disassemble(lib)
-    if args.compare:
+    if args.digests:
+        res = {"library": lib.name, "nvcc": nvcc_version(),
+               "digests": digests(funcs)}
+    elif args.compare:
         same = dict(p.split("=", 1) for p in args.same.split(",") if p)
         res = {"library": lib.name,
                **compare(funcs, Path(args.compare), same)}

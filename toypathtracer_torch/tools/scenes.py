@@ -58,3 +58,45 @@ def shadow_boundary_scene() -> Scene:
         mat_type=[0, 2, 0, 1, 0], emissive_ids=[4],
         camera=CameraSpec(look_from=(0.0, 0.6, 1.2),
                           look_at=(0.2, -0.2, -1.0), aperture=0.0))
+
+
+def _lit(scene: Scene, ids, seed: int) -> Scene:
+    """`scene` with the spheres `ids` made dim lights of colours from a
+    seeded numpy generator."""
+    rng = np.random.RandomState(seed)
+    emissive = scene.emissive.clone()
+    emissive[torch.as_tensor(ids)] = torch.as_tensor(
+        rng.uniform(0.5, 3.0, (len(ids), 3)), dtype=torch.float32)
+    lights = tuple(sorted(scene.emissive_ids + tuple(int(i) for i in ids)))
+    return scene.replace(emissive=emissive, emissive_ids=lights)
+
+
+def many_lights_scene(n_lights: int = 40, seed: int = 5) -> Scene:
+    """crowded_scene (130 spheres) with n_lights - 2 of its appended
+    spheres made emissive beside make_scene's two lights: more lights than
+    the gradient kernel's 16-light instances keep in their carry records
+    (40 by default, past a word of 32 too), each a dim light of a colour
+    from a seeded numpy generator, so that every light's NEE term and its
+    gradient are on screen."""
+    scene = crowded_scene()
+    extra = n_lights - len(scene.emissive_ids)
+    return _lit(scene, 46 + np.arange(extra) * (84 // extra), seed)
+
+
+def few_spheres_many_lights_scene(n_lights: int = 17,
+                                  seed: int = 5) -> Scene:
+    """make_scene(big=False) (9 spheres, one light) with n_lights - 1 of
+    crowded_scene's small floor spheres appended, each a dim light of a
+    seeded colour: 17 lights by default, one past the 16 that the gradient
+    kernel's 16-light instances keep in a carry record, in a scene small
+    enough for the JAX package's jax.grad of its render to compile on a
+    CPU core in a couple of minutes (its time grows with the lights)."""
+    small = make_scene(big=False)
+    extra = n_lights - len(small.emissive_ids)
+    floor = crowded_scene(extra=extra)
+    fields = ("center", "radius", "albedo", "emissive", "roughness", "ri")
+    scene = small.replace(
+        **{f: torch.cat([getattr(small, f), getattr(floor, f)[46:]])
+           for f in fields},
+        mat_type=small.mat_type + floor.mat_type[46:])
+    return _lit(scene, small.n_spheres + np.arange(extra), seed)

@@ -2,7 +2,8 @@
 of the port in turns, on one card.
 
     python -m toypathtracer_torch.tools.turns DIR [DIR ...] [--rounds 4]
-        [--metrics k1_ms,k2_ms,step_ms,k6_ms,k5_ms,k3_ms,k3_soft_ms]
+        [--metrics k1_ms,k2_ms,step_ms,k6_ms,k5_ms,k3_ms,k3_soft_ms,
+                   scaled_ms]
         [--out PATH]
 
 Each DIR is the root of a checkout of the repo (this one is "."; an older
@@ -31,7 +32,10 @@ process imports its own checkout's package, renders one warm-up frame
 - "k3_ms", "k3_soft_ms": ops.cuda_grad.render_tile_grad_form's warp form
   (the gradient kernel on the training step's path) for a seeded uniform
   pixel cotangent, hard and with soft_silhouette_eps 0.05, CUDA events
-  over 8 calls after one warm-up call.
+  over 8 calls after one warm-up call;
+- "scaled_ms": ops.cuda_scaled.render_tile_scaled, the scaled render
+  kernel's wrapper call on make_scaled_scene(100_000) at the same config,
+  CUDA events over 4 calls after one warm-up call.
 
 --metrics times only the metrics named (default all).
 
@@ -128,11 +132,18 @@ for key, eps in (("k3_ms", 0.0), ("k3_soft_ms", 0.05)):
     cuda_grad.render_tile_grad_form(*args)
     r[key] = time_device_call(cuda_grad.render_tile_grad_form, *args,
                               repeats=8)[0] * 1e3
+if "scaled_ms" in want:
+    from toypathtracer_torch.scaled import make_scaled_scene
+    ss = make_scaled_scene(100_000).to("cuda")
+    cuda_scaled.render_tile_scaled(ss, cfg, 0, 0, 0, H, W)
+    r["scaled_ms"] = time_device_call(cuda_scaled.render_tile_scaled, ss,
+                                      cfg, 0, 0, 0, H, W,
+                                      repeats=4)[0] * 1e3
 print(json.dumps(r), flush=True)
 '''
 
 METRICS = ("k1_ms", "k2_ms", "step_ms", "k6_ms", "k5_ms", "k3_ms",
-           "k3_soft_ms")
+           "k3_soft_ms", "scaled_ms")
 
 
 def run_child(root: Path, metrics) -> dict:
