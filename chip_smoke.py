@@ -143,7 +143,26 @@ non-zero):
      the geometry recovery of tests/test_scaled.py:305 through the soft
      instance (60 Adam steps, one tape render and one soft sweep a step):
      final error < 0.4 x initial, final loss < 0.2 x first.
- 18. the `kernels` line: render, render_baseline, grad, grad_replay,
+ 18. row-sharded rendering and training on one card (parallel/mesh.py,
+     parallel/distributed.py) at the reference workload, 8 bands of 90
+     rows on cuda:0: the frame bit-equal to the single-device frame (8
+     merged-K1 launches, none of the per-thread K1) and a 16-frame
+     session bit-equal to the unsharded one; make_mesh() over every card
+     present; the 100k-sphere scaled frame bit-equal (8 cooperative
+     scaled render launches, none of the per-lane form); the sharded
+     training step, albedo hard and centre/radius at eps 0.05 (8 render
+     and 8 K3 launches, no other), the loss within 1e-5 relative and each
+     field within JAX's contract where it holds, within 1e-5 x its max
+     always (the worst printed); each sharded and unsharded path timed
+     in turns with CUDA events; InverseRenderer(mesh=...) (4 Adam steps'
+     losses within 1e-5 of the unsharded run's) and the multi-view
+     recovery of tests/test_sharding.py:218 through K3's soft instance
+     (errz < 0.06, last loss < 0.5 x first); NCCL at world size 1 (frame
+     and step bit-equal to the mesh without a group); two processes on
+     the card over gloo (toypathtracer_torch.tools.distributed_smoke, 4
+     bands each): rays and loss agree, the gathered rows bit-equal to the
+     single-process 8-band frame, gradients within rtol 1e-5, atol 1e-8.
+ 19. the `kernels` line: render, render_baseline, grad, grad_replay,
      lockstep, grad_soft, scaled_render, hit_chunks, hit_chunks_baseline, shadow_chunks,
      shadow_chunks_baseline, render_stats, render_stats_baseline,
      issue_rate, launch_floor, grad_pool, scaled_grad_sweep,
@@ -151,8 +170,8 @@ non-zero):
      scaled_grad_baseline,
      scaled_grad_baseline_soft (the per-lane chunked instance),
      scaled_grad_tape (the cooperative form's forward).
-Then the card's name and power limit as nvidia-smi reports them, and the
-`ok` line last.  Exits non-zero without a CUDA device.
+Then the script's wall time (and its time before phase 18), the card's
+name and power limit as nvidia-smi reports them, and the `ok` line last.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -333,6 +352,7 @@ def main() -> int:
     from toypathtracer_torch.tools import render_parts, sass_loops
     from toypathtracer_torch.tools.scenes import crowded_scene
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
@@ -613,6 +633,8 @@ def main() -> int:
     probe = probe_phases(smi)
     pool = pool_phases(cfg, smi, usage)
     scaled_grad = scaled_grad_phases(cfg, smi, usage)
+    before_sharded_s = time.perf_counter() - t_start
+    sharded_phases(smi)
 
     tol = ("rays rel <= 5e-4, mean |diff| <= 1e-3, 8x8 block mean <= 0.02, "
            "max <= 0.2; 600 spheres at 320x176 rays rel <= 5e-4, mean "
@@ -657,6 +679,8 @@ def main() -> int:
          "ptxas": usage.get("render_kernel<0>", {}),
          "vs_plain": {"tolerance": "bit-equal to the merged K1"}},
         *grad, soft, *scaled, *stats, *probe, pool, *scaled_grad]})
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start,
+          "seconds_before_sharded_phase": before_sharded_s})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -2724,6 +2748,313 @@ def scaled_grad_phases(cfg, smi, usage):
                          "image_bit_equal_to_scaled_render"]
                          for n, v in out.items()}}})
     return entries
+
+
+def grads_vs(got, want):
+    """Per field: whether JAX's sharded-gradient contract holds (rtol
+    1e-6, atol 1e-9 + 1e-7 max|g|; tests/test_sharding.py) and the worst
+    max |diff| / max |g|."""
+    out = {}
+    for f, w in want.items():
+        d = (got[f] - w).abs()
+        scale = float(w.abs().max())
+        tol = 1e-6 * w.abs() + 1e-9 + 1e-7 * scale
+        out[f] = {"contract": bool((d <= tol).all()),
+                  "rel": float(d.max()) / scale if scale > 0 else
+                  (0.0 if float(d.max()) == 0 else float("inf"))}
+    return out
+
+
+def sharded_phases(smi, dev=None, cfg=None, scaled_n=100_000, bands=8,
+                   backend="nccl"):
+    """Phase 18: row-sharded rendering and training on one card
+    (parallel/mesh.py, parallel/distributed.py): 8 bands on the card at
+    the reference workload, bit-equal to the single device, with the
+    launches each path makes and its ms beside the unsharded path's in
+    turns; make_mesh() over every card present; the scaled frame; the
+    sharded training step (albedo hard, centre/radius at eps 0.05) and
+    InverseRenderer(mesh=...) with the multi-view recovery of
+    tests/test_sharding.py:218; NCCL at world size 1; two processes
+    sharing the card over gloo through the port's worker.  Returns the
+    phase's summary (also emitted)."""
+    import os
+    import tempfile
+    from functools import partial
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from toypathtracer_torch import (FLAG_PROGRESSIVE, RenderConfig,
+                                     make_scaled_scene, make_scene)
+    from toypathtracer_torch.inverse import (InverseRenderer,
+                                             make_sharded_value_and_grad,
+                                             render_loss)
+    from toypathtracer_torch.ops import cuda_grad, cuda_render, cuda_scaled
+    from toypathtracer_torch.parallel.mesh import (make_mesh,
+                                                   render_frame_sharded)
+    from toypathtracer_torch.profiling import time_device_call
+    from toypathtracer_torch.render.frame import RenderSession
+    from toypathtracer_torch.scene import (MAT_LAMBERT, CameraSpec,
+                                           scene_from_arrays)
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    cfg = cfg or RenderConfig(width=1280, height=720, samples_per_pixel=4,
+                              max_depth=10)
+    H, W = cfg.height, cfg.width
+    counters = (cuda_render.launches, cuda_grad.launches,
+                cuda_scaled.launches)
+
+    def zero():
+        for c in counters:
+            for k in c:
+                c[k] = 0
+
+    def counted():
+        return {k: v for c in counters for k, v in c.items() if v}
+
+    def in_turns(a, b, repeats):
+        """ms of a and b, timed a, b, b, a with CUDA events."""
+        runs = {"a": [], "b": []}
+        for k in ("a", "b", "b", "a"):
+            runs[k].append(time_device_call(a if k == "a" else b,
+                                            repeats=repeats)[0] * 1e3)
+        return sum(runs["a"]) / 2, sum(runs["b"]) / 2
+
+    out = {"phase": "sharded", "bands": bands, "device": smi}
+    t_phase = time.perf_counter()
+    mesh = make_mesh([dev] * bands)
+    scene = make_scene(big=True).to(dev)
+
+    # ---- (a) the sharded frame on one card --------------------------------
+    zero()
+    img_s, rays_s = render_frame_sharded(scene, cfg, 0, mesh)
+    torch.cuda.synchronize()
+    frame_launches = counted()
+    img_1, rays_1 = cuda_render.render_frame(scene, cfg, 0, device=dev)
+    fn = partial(render_frame_sharded, mesh=mesh)
+    sess_s = RenderSession(scene, cfg, flags=FLAG_PROGRESSIVE, render_fn=fn,
+                           device=dev)
+    sess_1 = RenderSession(scene, cfg, flags=FLAG_PROGRESSIVE, device=dev)
+    r_s = [int(sess_s.step(0.0)[1]) for _ in range(16)]
+    r_1 = [int(sess_1.step(0.0)[1]) for _ in range(16)]
+    torch.cuda.synchronize()
+    ms_1, ms_s = in_turns(lambda: cuda_render.render_frame(scene, cfg, 0,
+                                                           device=dev),
+                          lambda: fn(scene, cfg, 0), 8)
+    out["frame"] = {
+        "bit_equal": bool(torch.equal(img_s, img_1)),
+        "rays": int(rays_s), "rays_single": int(rays_1),
+        "launches": frame_launches,
+        "session_16_frames_bit_equal": bool(torch.equal(
+            sess_s.state.accum, sess_1.state.accum)) and r_s == r_1,
+        "ms": ms_s, "ms_single": ms_1}
+    check(out["frame"]["bit_equal"] and int(rays_s) == int(rays_1),
+          "sharded frame != single-device frame")
+    check(frame_launches == {"render": bands},
+          f"sharded frame launched {frame_launches}")
+    check(out["frame"]["session_16_frames_bit_equal"],
+          "sharded session != single-device session")
+
+    # ---- (b) make_mesh() over every card present --------------------------
+    all_cards = make_mesh()
+    img_b, rays_b = render_frame_sharded(scene, cfg, 0, all_cards)
+    out["all_cards"] = {
+        "count": len(all_cards.devices),
+        "bit_equal": bool(torch.equal(img_b.to(dev), img_1))
+        and int(rays_b) == int(rays_1)}
+    check(len(all_cards.devices) == torch.cuda.device_count(),
+          "make_mesh() is not every card")
+    check(out["all_cards"]["bit_equal"], "make_mesh() frame != single")
+
+    # ---- (c) the scaled frame ---------------------------------------------
+    sd = make_scaled_scene(scaled_n).to(dev)
+    zero()
+    simg_s, srays_s = cuda_scaled.render_frame_scaled_sharded(sd, cfg, 0,
+                                                              mesh)
+    torch.cuda.synchronize()
+    scaled_launches = counted()
+    simg_1, srays_1 = cuda_scaled.render_frame_scaled(sd, cfg, 0, device=dev)
+    sms_1, sms_s = in_turns(
+        lambda: cuda_scaled.render_frame_scaled(sd, cfg, 0, device=dev),
+        lambda: cuda_scaled.render_frame_scaled_sharded(sd, cfg, 0, mesh),
+        2)
+    out["scaled"] = {"spheres": sd.n_spheres,
+                     "bit_equal": bool(torch.equal(simg_s, simg_1)),
+                     "rays": int(srays_s), "rays_single": int(srays_1),
+                     "launches": scaled_launches, "ms": sms_s,
+                     "ms_single": sms_1}
+    check(out["scaled"]["bit_equal"] and int(srays_s) == int(srays_1),
+          "sharded scaled frame != single-device frame")
+    check(scaled_launches == {"scaled_render": bands},
+          f"sharded scaled frame launched {scaled_launches}")
+    del sd
+
+    # ---- (d) the sharded training step ------------------------------------
+    target, _ = cuda_render.render_frame(scene, cfg, 0, device=dev)
+    rng = np.random.RandomState(3)
+    pert = scene.replace(
+        albedo=(scene.albedo + torch.from_numpy(
+            rng.uniform(-0.1, 0.1, (scene.n_spheres, 3)).astype(np.float32)
+        ).to(dev)).clamp(0.0, 1.0),
+        center=scene.center + torch.from_numpy(
+            rng.uniform(-0.02, 0.02, (scene.n_spheres, 3)).astype(np.float32)
+        ).to(dev))
+
+    def single_step(c, fields):
+        leaves = {f: getattr(pert, f).detach().requires_grad_(True)
+                  for f in fields}
+        loss = render_loss(pert.replace(**leaves), target, c, 1)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(fields, grads))
+
+    steps = {}
+    for name, eps, fields in (("albedo_hard", 0.0, ("albedo",)),
+                              ("center_radius_eps0.05", 0.05,
+                               ("center", "radius"))):
+        c = cfg.replace(soft_silhouette_eps=eps)
+        vg = make_sharded_value_and_grad(c, mesh, fields=fields)
+        zero()
+        ln, gn = vg(pert, target, 1)
+        torch.cuda.synchronize()
+        launches = counted()
+        l1, g1 = single_step(c, fields)
+        ms_1, ms_s = in_turns(lambda: single_step(c, fields),
+                              lambda: vg(pert, target, 1), 2)
+        cmp = grads_vs(gn, g1)
+        key = "grad_soft" if eps else "grad"
+        steps[name] = {"loss": float(ln), "loss_single": float(l1),
+                       "loss_rel": abs(float(ln) - float(l1))
+                       / abs(float(l1)),
+                       "launches": launches, "grads": cmp,
+                       "contract_met": all(v["contract"]
+                                           for v in cmp.values()),
+                       "ms": ms_s, "ms_single": ms_1}
+        check(launches == {"render": bands, key: bands},
+              f"sharded step {name} launched {launches}")
+        check(steps[name]["loss_rel"] <= 1e-5, f"sharded loss {name}")
+        # JAX's contract where it holds; where reassociation over the
+        # frame misses it, each field within 1e-5 x its max (printed)
+        check(all(v["rel"] <= 1e-5 for v in cmp.values()),
+              f"sharded grads {name}: {cmp}")
+    out["step"] = steps
+
+    # ---- (e) InverseRenderer(mesh=...) ------------------------------------
+    fits = [InverseRenderer(cfg, target, trainable=("albedo",),
+                            learning_rate=1e-2, mesh=m, device=dev).fit(
+        pert, steps=4, resample=False)[1] for m in (None, mesh)]
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(*fits))
+    cfg_soft = RenderConfig(width=64, height=40, samples_per_pixel=2,
+                            max_depth=2, soft_silhouette_eps=0.05)
+    cams = (CameraSpec(look_from=(0.0, 0.0, 3.0), look_at=(0, 0, 0),
+                       aperture=0.0),
+            CameraSpec(look_from=(3.0, 0.0, 0.0), look_at=(0, 0, 0),
+                       aperture=0.0))
+
+    def one_sphere(z):
+        return scene_from_arrays(
+            [[0.0, 0.0, z]], [0.6], [[0.8, 0.3, 0.2]], [[0.0, 0.0, 0.0]],
+            [0.0], [0.0], (MAT_LAMBERT,), (), cams[0], device=dev)
+    truth = one_sphere(0.0)
+    targets = torch.stack([cuda_render.render_frame(
+        truth.replace(camera=c), cfg_soft, 0, device=dev)[0] for c in cams])
+    zero()
+    t0 = time.perf_counter()
+    fitted, losses = InverseRenderer(
+        cfg_soft, targets, trainable=("center",), learning_rate=5e-3,
+        cameras=cams, mesh=mesh, device=dev).fit(one_sphere(0.12), steps=60,
+                                                 resample=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    errz = float(fitted.center[0, 2].abs())
+    out["inverse"] = {"adam_losses": fits[1], "adam_losses_single": fits[0],
+                      "adam_loss_rel": loss_rel,
+                      "multiview_errz": errz, "multiview_losses":
+                      [losses[0], losses[-1]],
+                      "multiview_launches": counted(),
+                      "multiview_step_ms": fit_s / 60 * 1e3}
+    check(loss_rel <= 1e-5, f"InverseRenderer(mesh) losses {fits}")
+    check(errz < 0.06 and losses[-1] < 0.5 * losses[0],
+          f"multi-view + mesh recovery: errz {errz}, losses {losses[0]} -> "
+          f"{losses[-1]}")
+    check(out["inverse"]["multiview_launches"].get("grad_soft") ==
+          60 * 2 * bands, f"recovery launched {counted()}")
+
+    # ---- (f) NCCL at world size 1 -----------------------------------------
+    tmp = tempfile.mkdtemp(prefix="tpt_sharded_")
+    vg_hard = make_sharded_value_and_grad(cfg, mesh, fields=("albedo",))
+    ln0, gn0 = vg_hard(pert, target, 1)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/init1",
+                            world_size=1, rank=0)
+    try:
+        gmesh = make_mesh([dev] * bands, group=dist.group.WORLD)
+        img_g, rays_g = render_frame_sharded(scene, cfg, 0, gmesh)
+        ln_g, gn_g = make_sharded_value_and_grad(
+            cfg, gmesh, fields=("albedo",))(pert, target, 1)
+        torch.cuda.synchronize()
+        out["nccl_world_1"] = {
+            "backend": dist.get_backend(),
+            "frame_bit_equal": bool(torch.equal(img_g, img_s))
+            and int(rays_g) == int(rays_s),
+            "step_bit_equal": float(ln_g) == float(ln0)
+            and torch.equal(gn_g["albedo"], gn0["albedo"])}
+    finally:
+        dist.destroy_process_group()
+    check(out["nccl_world_1"]["frame_bit_equal"]
+          and out["nccl_world_1"]["step_bit_equal"],
+          f"{backend} at world size 1 != no group")
+
+    # ---- (g) two processes sharing the card over gloo ---------------------
+    root = os.path.dirname(os.path.abspath(__file__))
+    npz = os.path.join(tmp, "rank0.npz")
+    per = bands // 2
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "toypathtracer_torch.tools.distributed_smoke",
+         str(r), "2", f"file://{tmp}/init2", str(per), str(dev), "gloo",
+         npz], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=root, env=dict(os.environ, PYTHONPATH=root)) for r in range(2)]
+    try:
+        res = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    for p, (o, e) in zip(procs, res):
+        check(p.returncode == 0, f"worker failed: {o}\n{e[-3000:]}")
+    lines = [dict(kv.split("=") for kv in o.split("SMOKE ")[1].split())
+             for o, _ in res]
+    wcfg = RenderConfig(width=64, height=8 * bands, samples_per_pixel=1,
+                        max_depth=3)
+    wscene = make_scene(big=True).to(dev)
+    wimg, wrays = render_frame_sharded(wscene, wcfg, 0, mesh)
+    wl, wg = make_sharded_value_and_grad(wcfg, mesh)(
+        wscene.replace(center=wscene.center + 0.03),
+        torch.zeros((wcfg.height, 64, 3), device=dev), 1)
+    got = np.load(npz)
+    g_ok = all(np.allclose(got[f], wg[f].cpu().numpy(), rtol=1e-5,
+                           atol=1e-8) for f in wg)
+    out["two_processes"] = {
+        "lines": lines, "wall_s": wall_s,
+        "step_s": [float(x["step_s"]) for x in lines],
+        "rays_agree": len({x["rays"] for x in lines}) == 1
+        and int(lines[0]["rays"]) == int(wrays),
+        "loss_agree": len({x["loss"] for x in lines}) == 1,
+        "loss_rel": abs(float(lines[0]["loss"]) - float(wl)) / abs(float(wl)),
+        "rows_bit_equal": bool(np.array_equal(got["frame"],
+                                              wimg.cpu().numpy())),
+        "grads_within": g_ok}
+    tp = out["two_processes"]
+    check(tp["rays_agree"] and tp["loss_agree"] and tp["loss_rel"] <= 1e-6,
+          f"two processes: {lines}")
+    check({x["local_rows"] for x in lines} == {str(wcfg.height // 2)},
+          "two processes: rows per rank")
+    check(tp["rows_bit_equal"], "two processes: rows != single-process")
+    check(g_ok, "two processes: grads != single-process 8-band step")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
 
 
 def stats_phases(cfg, smi, k1, usage):

@@ -899,3 +899,54 @@ def test_forty_lights_on_the_card(card, eps):
     assert int(rays_s) == int(want_rays) == int(rays_sp)
     assert torch.equal(img_s, want)
     assert_rows_close(d_s, d_sp, 2e-3 if eps else 1e-3)
+
+
+def test_sharded_frames_on_one_card_are_bit_equal(card):
+    """Four bands on one card (parallel/mesh): the frame and the scaled
+    frame bit-equal to the single-device ones, one merged K1 / cooperative
+    scaled render launch a band."""
+    from toypathtracer_torch.parallel.mesh import (make_mesh,
+                                                   render_frame_sharded)
+    mesh = make_mesh([card] * 4)
+    scene = make_scene(big=True).to(card)
+    cfg = RenderConfig(width=96, height=40, samples_per_pixel=2, max_depth=6)
+    before = dict(cuda_render.launches)
+    img, rays = render_frame_sharded(scene, cfg, 1, mesh)
+    assert cuda_render.launches["render"] - before["render"] == 4
+    want, want_rays = cuda_render.render_frame(scene, cfg, 1)
+    assert torch.equal(img, want) and int(rays) == int(want_rays)
+    ss = make_scaled_scene(n=3000, chunk=256, extent=40.0).to(card)
+    before = dict(cuda_scaled.launches)
+    img, rays = cuda_scaled.render_frame_scaled_sharded(ss, cfg, 0, mesh)
+    assert (cuda_scaled.launches["scaled_render"]
+            - before["scaled_render"]) == 4
+    want, want_rays = cuda_scaled.render_frame_scaled(ss, cfg, 0)
+    assert torch.equal(img, want) and int(rays) == int(want_rays)
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.05], ids=["hard", "soft"])
+def test_sharded_step_on_one_card_matches_single_device(card, eps):
+    """make_sharded_value_and_grad over four bands on one card: one render
+    and one K3 launch a band, the loss within 1e-5 and each field within
+    1e-5 x its max of the single-device step's."""
+    from toypathtracer_torch.inverse import (make_sharded_value_and_grad,
+                                             render_loss)
+    from toypathtracer_torch.parallel.mesh import make_mesh
+    scene = make_scene(big=True).to(card)
+    cfg = RenderConfig(width=96, height=40, samples_per_pixel=2, max_depth=4,
+                       soft_silhouette_eps=eps)
+    target = torch.zeros((40, 96, 3), device=card)
+    before = dict(cuda_grad.launches)
+    loss, grads = make_sharded_value_and_grad(cfg, make_mesh([card] * 4))(
+        scene, target, 0)
+    key = "grad_soft" if eps else "grad"
+    assert cuda_grad.launches[key] - before[key] == 4
+    leaves = {f: getattr(scene, f).clone().requires_grad_(True)
+              for f in cuda_grad.PARAM_FIELDS}
+    l1 = render_loss(scene.replace(**leaves), target, cfg, 0)
+    g1 = torch.autograd.grad(l1, list(leaves.values()))
+    l1 = l1.detach()
+    assert abs(float(loss) - float(l1)) <= 1e-5 * abs(float(l1))
+    for f, want in zip(cuda_grad.PARAM_FIELDS, g1):
+        assert float((grads[f] - want).abs().max()) <= \
+            1e-5 * float(want.abs().max()) + 1e-12, f

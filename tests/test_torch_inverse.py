@@ -115,10 +115,15 @@ def test_multiview_loss_is_the_mean_of_the_views():
 
 
 def test_mesh_and_missing_card_raise():
+    """A mesh trains image_l2 only and raises JAX's ValueError
+    (toypathtracer_tpu/inverse.py:322) for another loss; "cuda" without a
+    card raises."""
+    from toypathtracer_torch.parallel.mesh import make_mesh
     cfg = RenderConfig(width=8, height=4)
     target = torch.zeros(4, 8, 3)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        InverseRenderer(cfg, target, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="image_l2"):
+        InverseRenderer(cfg, target, mesh=make_mesh([torch.device("cpu")]),
+                        loss_fn=image_l2_tonemapped)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device"):
             InverseRenderer(cfg, target)

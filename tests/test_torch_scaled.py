@@ -366,15 +366,20 @@ def test_cli_renders_the_scaled_scene(tmp_path, capsys):
 @pytest.mark.parametrize("call", ["differentiable", "silhouette_chunks",
                                   "lights_occlusion_proximity", "sharded"])
 def test_out_of_slice_routes_raise(scene800, call):
-    """The row-sharded render (ROADMAP.md queue 1 item 10) is not in the
-    port and raises, naming ROADMAP.md.  The scaled gradient's routes
-    compute: the differentiable frame (its image the forward render's) and
-    ChunkedScenePort's soft scans on a plane of lanes
+    """Routes that once raised now compute.  The row-sharded render on a
+    2-band CPU mesh is bit-equal to the single-device frame
+    (tests/test_torch_sharding.py holds it at 8 bands); the scaled
+    gradient's routes: the differentiable frame (its image the forward
+    render's) and ChunkedScenePort's soft scans on a plane of lanes
     (tests/test_torch_scaled_grad.py holds their values)."""
     s = scene800[0]
     if call == "sharded":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cuda_scaled.render_frame_scaled_sharded(s, CFG, 0, mesh=None)
+        from toypathtracer_torch.parallel.mesh import make_mesh
+        img, rays = cuda_scaled.render_frame_scaled_sharded(
+            s, CFG, 0, mesh=make_mesh([torch.device("cpu")] * 2))
+        want, want_rays = cuda_scaled.render_frame_scaled(s, CFG, 0,
+                                                          device="cpu")
+        assert torch.equal(img, want) and int(rays) == int(want_rays)
         return
     if call == "differentiable":
         center = s.center.clone().requires_grad_(True)

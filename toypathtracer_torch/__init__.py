@@ -8,7 +8,8 @@ CUDA kernels, with a plain PyTorch version of each for the CPU.  It imports neit
 nor toypathtracer_tpu.
 
 Layer map:
-  inverse.py            InverseRenderer, losses, Adam (the training step)
+  inverse.py            InverseRenderer, losses, Adam (the training step),
+                        make_sharded_value_and_grad (row-sharded)
   demo_inverse.py       albedo-recovery demo (python -m ...demo_inverse)
   ops/tracecore.py      plain PyTorch path-tracing math (lockstep lanes),
                         differentiable with autograd
@@ -16,7 +17,8 @@ Layer map:
   ops/cuda_grad.py      the gradient and lockstep kernels' wrappers and the
                         autograd Function of the training step
   ops/cuda_scaled.py    the scaled scene's kernel wrappers: chunk traversal
-                        (hit_chunks), shadow bitmask, scaled render
+                        (hit_chunks), shadow bitmask, scaled render (also
+                        row-sharded)
   scaled.py             the 100k-sphere chunked scene, its plain traversal
                         and plain render
   ops/_build.py         nvcc build of csrc/ at first use, ctypes binding
@@ -30,7 +32,14 @@ Layer map:
   csrc/scaled.cu        the traversal, shadow and scaled render kernels
   render/wavefront.py   the kernels' plain versions
   render/frame.py       progressive accumulation and RenderSession
-  cli.py                headless HUD CLI
+  parallel/mesh.py      row-sharded frames over a RowMesh of devices (the
+                        bands on each device's kernels, the ray count
+                        summed)
+  parallel/distributed.py  torch.distributed process groups: initialize,
+                        the global mesh, host_local_slice, gather_image
+  tools/distributed_smoke.py  one process of the two-process sharded
+                        smoke (render and training step over a group)
+  cli.py                headless HUD CLI (--backend sharded)
   io.py                 sRGB + TGA/PNG output
 """
 

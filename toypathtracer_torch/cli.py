@@ -5,17 +5,21 @@ Usage:
     python -m toypathtracer_torch [--frames 30] [--width 1280 --height 720]
         [--spp 4] [--max-depth 10] [--small] [--animate] [--no-progressive]
         [--no-light-sampling] [--mitsuba-compare] [--output out.png|out.tga]
-        [--device cuda|cpu] [--scaled N]
+        [--device cuda|cpu] [--scaled N] [--backend auto|sharded]
 
 Renders on the card by default; `--device cpu` runs the plain PyTorch
 renderer on the CPU.  `--scaled N` renders the procedurally instanced
 N-sphere scene (the chunked traversal; `--animate` orbits its beacons).
+`--backend sharded` splits each frame's rows over every visible card
+(parallel/mesh.render_frame_sharded; with `--device cpu` one band on the
+CPU).
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from functools import partial
 
 from . import io as image_io
 from .config import FLAG_ANIMATE, FLAG_PROGRESSIVE, RenderConfig
@@ -54,7 +58,13 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda: the CUDA kernel (default); cpu: the plain "
                          "PyTorch renderer")
+    ap.add_argument("--backend", default="auto", choices=["auto", "sharded"],
+                    help="auto: the whole frame on one device; sharded: "
+                         "its rows split over every card (one CPU band "
+                         "with --device cpu)")
     args = ap.parse_args(argv)
+    if args.scaled and args.backend != "auto":
+        raise SystemExit("--scaled uses its own chunked renderer")
 
     cfg = RenderConfig(
         width=args.width, height=args.height,
@@ -74,13 +84,22 @@ def main(argv=None) -> int:
     if args.animate:
         flags |= FLAG_ANIMATE
 
-    sess = RenderSession(scene, cfg, flags=flags, device=args.device)
+    render_fn, backend = None, "auto"
+    if args.backend == "sharded":
+        import torch
+        from .parallel.mesh import make_mesh, render_frame_sharded
+        mesh = make_mesh([torch.device("cpu")] if args.device == "cpu"
+                         else None)
+        render_fn = partial(render_frame_sharded, mesh=mesh)
+        backend = f"sharded x{mesh.size}"
+    sess = RenderSession(scene, cfg, flags=flags, render_fn=render_fn,
+                         device=args.device)
     if sess.device.type == "cuda":
         import torch
         kind = torch.cuda.get_device_name(sess.device)
     else:
         kind = "cpu"
-    print(f"device={args.device} ({kind}) "
+    print(f"backend={backend} device={args.device} ({kind}) "
           f"scene={n_spheres}-sphere "
           f"{cfg.width}x{cfg.height} spp={cfg.samples_per_pixel}")
     title = f"{args.device.upper()} path tracer"

@@ -1,5 +1,5 @@
 """Inverse rendering: recover scene parameters from images (counterpart of
-toypathtracer_tpu/inverse.py, single device).
+toypathtracer_tpu/inverse.py).
 
 Adam on a pixel loss against a target render optimises the trainable
 Scene fields.  The loss's render is ops/cuda_grad.render_frame_diff: on a
@@ -12,9 +12,12 @@ unless cfg.soft_silhouette_eps > 0: then the soft-silhouette estimator's
 sigmoid terms carry the silhouette and shadow-boundary gradients that
 geometry recovery (centers, radii, animation time) needs.  The JAX
 package's recipe for geometry (toypathtracer_tpu/inverse.py): a small eps
-such as 0.05 with image_l2_tonemapped.  Not ported yet, and raising
-NotImplementedError rather than ignored: row-sharded multi-device
-training (`mesh`).
+such as 0.05 with image_l2_tonemapped.
+
+With a `mesh` (parallel/mesh.RowMesh) the step is row-sharded
+(make_sharded_value_and_grad): each band renders and differentiates its
+rows on its device, and the band losses and scene gradients are summed,
+over the process group with torch.distributed where there is one.
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from .config import RenderConfig, resolve_device
-from .ops.cuda_grad import PARAM_FIELDS, render_frame_diff
+from .ops.cuda_grad import PARAM_FIELDS, render_frame_diff, render_tile_diff
+from .parallel.mesh import (RowMesh, all_reduce_sum, check_divisible,
+                            device_scope, replicate)
 from .scene import Scene
 
 
@@ -83,6 +88,67 @@ def multiview_render_loss(scene: Scene, cameras, targets, cfg: RenderConfig,
     return total / len(cameras)
 
 
+def make_sharded_value_and_grad(cfg: RenderConfig, mesh: RowMesh,
+                                cameras: Optional[tuple] = None,
+                                fields: Sequence[str] = PARAM_FIELDS):
+    """value_and_grad of the pixel-L2 loss with the image's rows split
+    into the mesh's bands (toypathtracer_tpu/inverse.py:182).  Returns
+    `f(scene, target, frame) -> (loss, {field: gradient})` over `fields`,
+    both on mesh.devices[0].  `target` is the whole (H, W, 3) frame, or
+    (V, H, W, 3) with `cameras` (a tuple of V CameraSpec, the views
+    unrolled in each band); each band reads its rows.
+
+    Each band's loss is sum(d * d) / (H * W * 3 * V), so the band losses
+    sum to the frame's mean, through ops/cuda_grad.render_tile_diff at the
+    band's global y0 (the render kernel forward, the gradient kernel
+    backward on a card; the plain versions on the CPU).  Each band takes
+    its gradient on leaves of its own, so no band's gradient reaches
+    another's sum: bands on one device share the replica's storage but
+    not its autograd leaves.  Band losses and gradients are summed in
+    band order on mesh.devices[0], then over the group."""
+    _check_fields(fields)
+    check_divisible(cfg.height, mesh.size)
+    n_views = 1 if cameras is None else len(cameras)
+    denom = float(cfg.height * cfg.width * 3 * n_views)
+    dev0 = mesh.devices[0]
+
+    def value_and_grad(scene: Scene, target, frame: int):
+        target = torch.as_tensor(target, dtype=torch.float32)
+        replicas = replicate(scene, mesh)
+        loss, grads = None, None
+        for dev, y0, rows in mesh.bands(cfg.height):
+            with device_scope(dev):
+                leaves = {f: getattr(replicas[dev], f).detach()
+                          .requires_grad_(True) for f in fields}
+                s = replicas[dev].replace(**leaves)
+                band = target.narrow(-3, y0, rows).to(dev)
+                views = ((None, band),) if cameras is None else \
+                    tuple(zip(cameras, band))
+                total = 0.0
+                for cam, want in views:
+                    view = s if cam is None else s.replace(camera=cam)
+                    img, _ = render_tile_diff(view, cfg, frame, 0, y0, rows,
+                                              cfg.width)
+                    d = img - want
+                    total = total + torch.sum(d * d)
+                band_loss = total / denom
+                band_grads = torch.autograd.grad(band_loss,
+                                                 list(leaves.values()))
+            band_loss = band_loss.detach().to(dev0)
+            band_grads = [g.to(dev0) for g in band_grads]
+            if loss is None:
+                loss, grads = band_loss, band_grads
+            else:
+                loss = loss + band_loss
+                grads = [a + b for a, b in zip(grads, band_grads)]
+        flat = all_reduce_sum(torch.cat([loss.reshape(1)] +
+                                        [g.reshape(-1) for g in grads]), mesh)
+        parts = flat[1:].split([g.numel() for g in grads])
+        return flat[0], {f: p.reshape(g.shape)
+                         for f, p, g in zip(fields, parts, grads)}
+    return value_and_grad
+
+
 # optax.adam's moment decays (the JAX package keeps its defaults).
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
@@ -119,17 +185,19 @@ def adam_update(params: dict, grads: dict, state: dict, lr: float,
 
 @dataclasses.dataclass
 class InverseRenderer:
-    """Adam-on-pixel-loss scene recovery (BASELINE.json config 3), on one
-    device: the card by default (render, lockstep and gradient kernels),
-    or device="cpu" (their plain versions).  Optimises `trainable` Scene
-    fields to match `target` ((H, W, 3) linear radiance, layout as
-    render_frame; (V, H, W, 3) with `cameras`)."""
+    """Adam-on-pixel-loss scene recovery (BASELINE.json config 3) on the
+    card by default (render, lockstep and gradient kernels), or
+    device="cpu" (their plain versions); with a `mesh`, row-sharded over
+    its bands (make_sharded_value_and_grad; image_l2 only, and `device`
+    is the mesh's first).  Optimises `trainable` Scene fields to match
+    `target` ((H, W, 3) linear radiance, layout as render_frame; (V, H, W,
+    3) with `cameras`)."""
 
     cfg: RenderConfig
     target: torch.Tensor
     trainable: Tuple[str, ...] = ("center", "radius", "albedo", "emissive")
     learning_rate: float = 2e-2
-    mesh: Optional[object] = None
+    mesh: Optional[RowMesh] = None
     loss_fn: Callable = image_l2
     clip_norm: Optional[float] = 1.0  # None disables gradient clipping
     # Multi-view: a tuple of CameraSpec, one per target view (the scene's
@@ -145,11 +213,19 @@ class InverseRenderer:
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded training is not ported yet (ROADMAP queue 1 "
-                "item 10); drop mesh to train on one device")
         _check_fields(self.trainable)
+        self._sharded = None
+        if self.mesh is not None:
+            if self.loss_fn is not image_l2:
+                raise ValueError("mesh sharding implements image_l2 only "
+                                 "(the per-band partial sums assume it)")
+            if self.lockstep_primal:
+                raise ValueError("lockstep_primal is not implemented for "
+                                 "mesh-sharded training; drop mesh or "
+                                 "lockstep_primal")
+            self.device = self.mesh.devices[0]
+            self._sharded = make_sharded_value_and_grad(
+                self.cfg, self.mesh, self.cameras, self.trainable)
         self.device = resolve_device(self.device)
         self.target = torch.as_tensor(self.target, dtype=torch.float32,
                                       device=self.device)
@@ -157,6 +233,8 @@ class InverseRenderer:
     def value_and_grad(self, scene: Scene, frame: int):
         """(loss, {field: gradient}) of the trainable fields at `scene`
         (on the renderer's device)."""
+        if self._sharded is not None:
+            return self._sharded(scene, self.target, frame)
         leaves = {f: getattr(scene, f).detach().requires_grad_(True)
                   for f in self.trainable}
         s = scene.replace(**leaves)

@@ -12,8 +12,9 @@ instances.
 `render_tile_scaled` / `render_frame_scaled` render a ScaledScene through
 the scaled render kernel, one launch a frame (the port of
 scaled.py::_render_frame_scaled_pallas): the warp-cooperative form
-(csrc/coop.cuh).  `render_tile_scaled_form` reaches both forms of that
-kernel -- "coop" (the main path's) and "lane" (the per-lane form it
+(csrc/coop.cuh); `render_frame_scaled_sharded` splits the frame's rows
+into a parallel/mesh.RowMesh's bands, one launch a band.
+`render_tile_scaled_form` reaches both forms of that kernel -- "coop" (the main path's) and "lane" (the per-lane form it
 replaced, the baseline it is held bit-equal to) -- and their stats
 instances, which also return the traversal's work counters.  All are in
 csrc/scaled.cu.  CUDA tensors launch the kernels; CPU tensors take the
@@ -56,11 +57,13 @@ any number of lights, and the plain versions any scene.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..config import RenderConfig, resolve_device, warn_diff_wavefront
+from ..parallel.mesh import RowMesh, device_scope, join_bands, replicate
 from ..scaled import (ChunkTraversal, ScaledScene, boxes_grouped,
                       chunk_index, group_boxes, pack_chunks,
                       render_tile_scaled_grad_plain,
@@ -335,14 +338,38 @@ def _check_scene(scene: ScaledScene, kernel: str = None):
                              f"{scene.device}, got {t.dtype} on {t.device}")
 
 
+class ScaledInputs(NamedTuple):
+    """A ScaledScene's packed inputs to the scaled render on its device,
+    built once where several sub-images share them (the bands of
+    render_frame_scaled_sharded on one device): the packed table, the
+    pack_chunks rows and, on a card, the group boxes over the rows' order
+    and the int32 material ids."""
+    tab: torch.Tensor
+    rows: torch.Tensor
+    gbox: Optional[torch.Tensor]
+    mat: Optional[torch.Tensor]
+
+
+def scaled_inputs(scene: ScaledScene) -> ScaledInputs:
+    """The ScaledInputs of `scene` on its device."""
+    tab = pack_scene(scene).detach().contiguous()
+    rows = pack_chunks(scene)
+    if scene.device.type != "cuda":
+        return ScaledInputs(tab, rows, None, None)
+    return ScaledInputs(tab, rows, group_boxes(rows, scene.chunk),
+                        scene.mat_ids().contiguous())
+
+
 def render_tile_scaled(scene: ScaledScene, cfg: RenderConfig, frame: int,
-                       x0: int, y0: int, height: int, width: int):
+                       x0: int, y0: int, height: int, width: int,
+                       inputs: Optional[ScaledInputs] = None):
     """Render the (height, width) sub-image of a ScaledScene whose
     lower-left pixel is the global pixel (x0, y0), on the scene's device:
     the scaled render kernel on a card, the plain version on the CPU.
+    `inputs`: the scene's scaled_inputs, built here when None.
     Returns ((height, width, 3) float32, 0-d int64 ray count)."""
     return render_tile_scaled_form(scene, cfg, frame, x0, y0, height, width,
-                                   MAIN_FORM)
+                                   MAIN_FORM, inputs=inputs)
 
 
 def stats_dict(v) -> dict:
@@ -362,11 +389,13 @@ def stats_dict(v) -> dict:
 
 def render_tile_scaled_form(scene: ScaledScene, cfg: RenderConfig,
                             frame: int, x0: int, y0: int, height: int,
-                            width: int, form: str, stats: bool = False):
+                            width: int, form: str, stats: bool = False,
+                            inputs: Optional[ScaledInputs] = None):
     """render_tile_scaled through the kernel form `form` (FORMS); both
     forms compute the same image and ray count.  stats=True launches the
     form's stats instance and returns a third value, stats_dict of its
-    counters.  On the CPU it returns the counts the plain version's work
+    counters.  `inputs`: the scene's scaled_inputs, built here when
+    None.  On the CPU it returns the counts the plain version's work
     counters give that do not depend on warps: the hit rays' sphere tests
     ("need") and, for "lane", whose shadow rays take the chunks in order,
     theirs and the slab tests of both kinds ("slabs")."""
@@ -382,8 +411,12 @@ def render_tile_scaled_form(scene: ScaledScene, cfg: RenderConfig,
                          f"emissive spheres, got {len(scene.emissive_ids)}")
     if dev.type == "cpu":
         if not stats:
+            if inputs is None:
+                return render_tile_scaled_plain(scene, cfg, frame, x0, y0,
+                                                height, width)
             return render_tile_scaled_plain(scene, cfg, frame, x0, y0,
-                                            height, width)
+                                            height, width, tab=inputs.tab,
+                                            rows=inputs.rows)
         img, rays, work = render_tile_scaled_plain(scene, cfg, frame, x0, y0,
                                                    height, width, True)
         counts = {"hit": {"need": int(work.hit_tests.sum())}}
@@ -394,12 +427,9 @@ def render_tile_scaled_form(scene: ScaledScene, cfg: RenderConfig,
     if dev.type != "cuda":
         raise ValueError(f"no renderer for device {dev}")
     lib = _build.load_library()
-    tab = pack_scene(scene).detach().contiguous()
-    rows = pack_chunks(scene)
-    gbox = group_boxes(rows, scene.chunk)
+    tab, rows, gbox, mat = scaled_inputs(scene) if inputs is None else inputs
     if gbox.shape[0] != lib.tpt_scaled_groups(scene.n_chunks):
         raise ValueError("scaled.GROUP differs from the kernel's group size")
-    mat = scene.mat_ids().contiguous()
     lights, cam = kernel_camera(scene, cfg)
     out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
@@ -703,8 +733,34 @@ def render_frame_scaled(scene: ScaledScene, cfg: RenderConfig, frame: int,
     return render_tile_scaled(scene, cfg, frame, 0, 0, cfg.height, cfg.width)
 
 
-def render_frame_scaled_sharded(*args, **kw):
-    """The row-sharded multi-device scaled render (scaled.py:830)."""
-    raise NotImplementedError(
-        "render_frame_scaled_sharded, the multi-device scaled render, is "
-        "not ported yet (ROADMAP.md queue 1 item 10)")
+def render_frame_scaled_sharded(scene: ScaledScene, cfg: RenderConfig,
+                                frame: int, mesh: RowMesh,
+                                pallas: Optional[bool] = None,
+                                interpret: bool = False):
+    """Render one frame of a ScaledScene with its rows split into the
+    mesh's bands (the JAX package's scaled.py:830, BASELINE config 5's
+    "tiles + ray batches sharded across a pod slice"): each band is
+    render_tile_scaled at its global y0 on its device, the scaled render
+    kernel on a card and the plain chunk traversal on the CPU, with the
+    scene and its scaled_inputs built once per distinct device; the ray
+    counts are summed as parallel/mesh.render_frame_sharded sums them.
+    Bit-equal to render_frame_scaled.  `pallas` and `interpret` are
+    accepted for the JAX signature and, as row_blocks, never change the
+    image or move a card's band off its kernel.
+
+    Returns (image, 0-d int64 ray count of the whole frame): the full (H,
+    W, 3) frame on mesh.devices[0], or with a process group this
+    process's rows."""
+    replicas = replicate(scene, mesh)
+    inputs = {}
+    for dev, rep in replicas.items():
+        _check_scene(rep)
+        with device_scope(dev):
+            inputs[dev] = scaled_inputs(rep)
+    out = []
+    for dev, y0, rows in mesh.bands(cfg.height):
+        with device_scope(dev):
+            out.append(render_tile_scaled(replicas[dev], cfg, frame, 0, y0,
+                                          rows, cfg.width,
+                                          inputs=inputs[dev]))
+    return join_bands(out, mesh)

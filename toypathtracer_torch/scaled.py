@@ -848,13 +848,15 @@ def _flat(planes):
 
 def render_tile_scaled_plain(scene: ScaledScene, cfg: RenderConfig,
                              frame: int, x0: int, y0: int, height: int,
-                             width: int, with_work: bool = False, tab=None):
+                             width: int, with_work: bool = False, tab=None,
+                             rows=None):
     """Render the (height, width) sub-image at global pixel (x0, y0) of a
     ScaledScene on its device: tracecore.render_pixels with the chunk
     traversal -- the plain version of the scaled render kernel, and under
     autograd (`tab`, default pack_scene(scene), requiring grad) the plain
     version of the chunked gradient kernel, with the soft-silhouette
-    estimator's chunk scans where cfg.soft_silhouette_eps > 0.  Returns
+    estimator's chunk scans where cfg.soft_silhouette_eps > 0.  `rows`:
+    the scene's pack_chunks rows, packed here when None.  Returns
     ((height, width, 3) float32, 0-d int64 ray count), plus the per-lane
     tracecore.Work when with_work."""
     from .render.wavefront import camera_scalars, gradient_soft_eps
@@ -869,7 +871,8 @@ def render_tile_scaled_plain(scene: ScaledScene, cfg: RenderConfig,
         tab, scene.mat_ids().to(torch.int64),
         scene.emissive_ids, cfg, camera_scalars(scene, cfg),
         xx.reshape(-1), yy.reshape(-1), frame,
-        traversal=ChunkTraversal(pack_chunks(scene), scene.chunk, tab=tab),
+        traversal=ChunkTraversal(pack_chunks(scene) if rows is None
+                                 else rows, scene.chunk, tab=tab),
         soft_eps=gradient_soft_eps(cfg, tab))
     img = torch.stack(col, dim=-1).reshape(height, width, 3)
     rays = work.traced.sum() + work.shadow.sum()
