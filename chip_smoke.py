@@ -162,14 +162,37 @@ non-zero):
      the card over gloo (toypathtracer_torch.tools.distributed_smoke, 4
      bands each): rays and loss agree, the gathered rows bit-equal to the
      single-process 8-band frame, gradients within rtol 1e-5, atol 1e-8.
- 19. the `kernels` line: render, render_baseline, grad, grad_replay,
+ 19. parity: the CPU-exact parity renderer (render/parity.py, plain
+     PyTorch, the reference's scalar C++ semantics) on the card against
+     the reference's goldens with tests/test_parity.py's gates: tiny_f1,
+     tiny_pp_d2_f1, tiny_pp_d3_f1, small_anim_f2 and (inside the phase's
+     budget) tiny_f16; the share of the 2^24-point sampler grid where the
+     card's sinf/cosf differ from glibc's, and its sqrt from sqrtf's; no
+     counted kernel launched.
+ 20. viewer: serve.Viewer at 1280x720, spp 4, depth 10 on the card, its
+     HTTP server on 127.0.0.1 at port 0: one K1 launch a frame, /frame.png
+     equal to io.png_bytes of the session's image, /stats frame counts
+     advancing and reset by a toggle, the 'g' round trip through the
+     plain renderer (no kernel launched there) back to K1, --batch 8
+     bit-equal to 8 single steps (8 K1 launches), the HUD's Mray/s beside
+     the session's ms/frame, --scaled 100000 through the cooperative
+     scaled render kernel (one launch a frame).
+ 21. resume at 1280x720: the CLI's 2 frames, --save-state, --resume and
+     2 more equal to 4 straight frames (PNG bytes, accumulator, int64
+     rays; 8 K1 launches); InverseRenderer's 2 Adam steps, the train
+     state saved and loaded, 2 more bit-equal to 4 straight steps (8 K1
+     and 8 K3 warp-form launches); a train state in the JAX package's
+     layout written with numpy loaded onto the card.
+ 22. the `kernels` line: render, render_baseline, grad, grad_replay,
      lockstep, grad_soft, scaled_render, hit_chunks, hit_chunks_baseline, shadow_chunks,
      shadow_chunks_baseline, render_stats, render_stats_baseline,
      issue_rate, launch_floor, grad_pool, scaled_grad_sweep,
      scaled_grad_sweep_soft (the cooperative form's sweeps),
      scaled_grad_baseline,
      scaled_grad_baseline_soft (the per-lane chunked instance),
-     scaled_grad_tape (the cooperative form's forward).
+     scaled_grad_tape (the cooperative form's forward); render, grad and
+     scaled_render count the launches of phases 20-21 beside the main
+     path's (`launches_by_path`).
 Then the script's wall time (and its time before phase 18), the card's
 name and power limit as nvidia-smi reports them, and the `ok` line last.  Exits non-zero without a CUDA device.
 """
@@ -635,6 +658,22 @@ def main() -> int:
     scaled_grad = scaled_grad_phases(cfg, smi, usage)
     before_sharded_s = time.perf_counter() - t_start
     sharded_phases(smi)
+    t_new = time.perf_counter()
+    parity_phase(smi)
+    viewer = viewer_phase(smi)
+    resume = resume_phase(smi)
+    new_paths_s = time.perf_counter() - t_new
+    # the new paths' launches, each counted from 0 in its own phase
+    new_paths = {
+        "render": {
+            "viewer": viewer["launches"].get("render", 0) + viewer[
+                "g_round_trip"]["cuda"]["launches"].get("render", 0),
+            "viewer_batch8": viewer["batch8"]["launches"].get("render", 0),
+            "resume_cli": resume["cli"]["launches"].get("render", 0),
+            "resume_fit": resume["train"]["launches"].get("render", 0)},
+        "grad": {"resume_fit": resume["train"]["launches"].get("grad", 0)},
+        "scaled_render": {"viewer_scaled": viewer["scaled"]["launches"].get(
+            "scaled_render", 0)}}
 
     tol = ("rays rel <= 5e-4, mean |diff| <= 1e-3, 8x8 block mean <= 0.02, "
            "max <= 0.2; 600 spheres at 320x176 rays rel <= 5e-4, mean "
@@ -644,7 +683,7 @@ def main() -> int:
                 "frac_within_1e-4": f0["frac_within_1e-4"],
                 "block_mean_abs": bm, "block_max_abs": bx,
                 "crowded_600": crowd_r}
-    emit({"kernels": [
+    kernels = [
         {"name": "render", "route": "cuda",
          "source": "toypathtracer_torch/csrc/render.cu",
          "replaces": "toypathtracer_tpu/ops/pallas_render.py:152",
@@ -678,9 +717,16 @@ def main() -> int:
          "cycle_shares": parts["thread"]["cycle_shares"],
          "ptxas": usage.get("render_kernel<0>", {}),
          "vs_plain": {"tolerance": "bit-equal to the merged K1"}},
-        *grad, soft, *scaled, *stats, *probe, pool, *scaled_grad]})
+        *grad, soft, *scaled, *stats, *probe, pool, *scaled_grad]
+    for k in kernels:
+        if k["name"] in new_paths:
+            by_path = {"main_path": k["launches"], **new_paths[k["name"]]}
+            k["launches"] = sum(by_path.values())
+            k["launches_by_path"] = by_path
+    emit({"kernels": kernels})
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start,
-          "seconds_before_sharded_phase": before_sharded_s})
+          "seconds_before_sharded_phase": before_sharded_s,
+          "seconds_parity_viewer_resume": new_paths_s})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -3054,6 +3100,453 @@ def sharded_phases(smi, dev=None, cfg=None, scaled_n=100_000, bands=8,
     check(g_ok, "two processes: grads != single-process 8-band step")
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
+    return out
+
+
+GOLDEN_DIR = "tests/golden"
+
+
+def golden(name):
+    """A golden of the reference's compiled C++ (tools/gen_golden.py)."""
+    import os
+
+    import numpy as np
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        GOLDEN_DIR, f"{name}.npz")
+    with np.load(path) as g:
+        return {k: g[k] for k in g.files}
+
+
+def zero_launches():
+    from toypathtracer_torch.ops import cuda_grad, cuda_render, cuda_scaled
+    for counts in (cuda_render.launches, cuda_grad.launches,
+                   cuda_scaled.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def launched():
+    """Every kernel launched since zero_launches, by counter."""
+    from toypathtracer_torch.ops import cuda_grad, cuda_render, cuda_scaled
+    return {k: v for counts in (cuda_render.launches, cuda_grad.launches,
+                                cuda_scaled.launches)
+            for k, v in counts.items() if v}
+
+
+def parity_phase(smi, budget_s=45.0):
+    """The parity renderer (render/parity.py, plain PyTorch, the
+    reference's scalar C++ semantics) on the card against the goldens,
+    with tests/test_parity.py's gates; the card's sinf/cosf against
+    glibc's on the sampler grid.  tiny_f16 runs where the phase is still
+    inside `budget_s`."""
+    import numpy as np
+
+    from toypathtracer_torch import (FLAG_ANIMATE, FLAG_PROGRESSIVE,
+                                     RenderConfig, make_scene)
+    from toypathtracer_torch.ops import libm
+    from toypathtracer_torch.ops import tracecore as tc
+    from toypathtracer_torch.render.frame import (lerp_factor,
+                                                  scene_for_frame)
+    from toypathtracer_torch.render.parity import (render_frame_parity_pp,
+                                                   render_frames_parity)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    # the card's float32 sinf/cosf (torch.sin/cos on CUDA) against glibc's
+    # (ops/libm on the host) on the 2^24-point sampler grid, both angle forms
+    r = torch.arange(1 << 24, dtype=torch.int32).to(torch.float32) \
+        * tc.INV_2_24
+    trig = {}
+    for form, a in (("unit_vector", (r * 2.0) * tc.PI_F),
+                    ("light_cone", tc.TWO_PI * r)):
+        a_d = a.to(dev)
+        for fn, host, card in (("sin", libm.sinf, torch.sin),
+                               ("cos", libm.cosf, torch.cos)):
+            want = host(a)
+            got = card(a_d).cpu()
+            ulp = (got.view(torch.int32).to(torch.int64)
+                   - want.view(torch.int32).to(torch.int64)).abs()
+            trig[f"{form}_{fn}"] = {
+                "share_differing": float((got != want).double().mean()),
+                "max_ulp": int(ulp.max())}
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 4, 1 << 20).astype(np.float32))
+    trig["sqrt_share_differing"] = float(
+        (torch.sqrt(x.to(dev)).cpu() != libm.sqrtf(x)).double().mean())
+    out = {"phase": "parity", "nvidia_smi": smi, "trig_vs_glibc": trig}
+
+    def frame_gates(a, g):
+        d = np.abs(a - g["image"]).max(axis=-1)
+        return d, {"median": float(np.median(d)),
+                   "tight_share": float((d < 1e-3).mean()),
+                   "first_pixel_abs": float(np.abs(a[0, 0]
+                                                   - g["image"][0, 0]).max())}
+
+    scene = make_scene(big=True)
+    zero_launches()
+    t = time.perf_counter()
+    (img, rays), = render_frames_parity(scene, RenderConfig(width=64,
+                                                            height=36),
+                                        [0], device="cuda")
+    a, g = img.cpu().numpy(), golden("tiny_f1")
+    d, tiny = frame_gates(a, g)
+    tiny.update(col0_median=float(np.median(d[:, 0])),
+                rays=int(rays), rays_golden=int(g["rays"]),
+                rays_rel=abs(int(rays) - int(g["rays"])) / int(g["rays"]),
+                seconds=time.perf_counter() - t)
+    out["tiny_f1"] = tiny
+    for name, depth, flip in (("tiny_pp_d2_f1", 2, 0.0),
+                              ("tiny_pp_d3_f1", 3, 0.02)):
+        t = time.perf_counter()
+        img, rays = render_frame_parity_pp(
+            scene, RenderConfig(width=64, height=36, max_depth=depth), 0,
+            device="cuda")
+        g = golden(name)
+        d = np.abs(img.cpu().numpy() - g["image"]).max(axis=-1)
+        out[name] = {"flipped_share": float((d >= 2e-4).mean()),
+                     "flipped_gate": flip, "median": float(np.median(d)),
+                     "max": float(d.max()), "rays": int(rays),
+                     "rays_golden": int(g["rays"]),
+                     "rays_rel": abs(int(rays) - int(g["rays"]))
+                     / int(g["rays"]),
+                     "seconds": time.perf_counter() - t}
+
+    def progressive(cfg, frames, flags):
+        scenes = [scene_for_frame(scene, np.float32(f / 60.0), flags)
+                  for f in range(frames)]
+        res = render_frames_parity(scenes, cfg, list(range(frames)),
+                                   device="cuda")
+        acc = np.zeros((cfg.height, cfg.width, 3), np.float32)
+        for f, (im, _) in enumerate(res):
+            fac = lerp_factor(f, flags, cfg)
+            acc = acc * fac + im.cpu().numpy() * (np.float32(1.0) - fac)
+        return acc, [int(rr) for _, rr in res]
+
+    t = time.perf_counter()
+    a, pf = progressive(RenderConfig(width=128, height=72), 2,
+                        FLAG_ANIMATE | FLAG_PROGRESSIVE)
+    g = golden("small_anim_f2")
+    _, anim = frame_gates(a, g)
+    anim.update(per_frame_rays=pf,
+                per_frame_rays_golden=[int(v) for v in g["per_frame_rays"]],
+                per_frame_rays_rel=[abs(p - int(q)) / int(q) for p, q in
+                                    zip(pf, g["per_frame_rays"])],
+                seconds=time.perf_counter() - t)
+    out["small_anim_f2"] = anim
+    if time.perf_counter() - t_phase < budget_s:
+        t = time.perf_counter()
+        a, pf = progressive(RenderConfig(width=64, height=36), 16,
+                            FLAG_PROGRESSIVE)
+        g = golden("tiny_f16")
+        blk = [np.sqrt(np.clip(x, 0, None)).reshape(9, 4, 16, 4, 3)
+               .mean(axis=(1, 3)) for x in (a, g["image"])]
+        bd = np.abs(blk[0] - blk[1])
+        out["tiny_f16"] = {"block_mean_abs": float(bd.mean()),
+                           "block_max_abs": float(bd.max()),
+                           "rays_rel": abs(sum(pf) - int(g["rays"]))
+                           / int(g["rays"]),
+                           "seconds": time.perf_counter() - t}
+    else:
+        out["tiny_f16"] = "left out: the phase's budget was spent"
+    out["launches"] = launched()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["gates"] = ("tests/test_parity.py's: tiny_f1 first pixel <= 2e-5, "
+                    "col0 median < 1e-3, median < 0.02, tight > 0.25, rays "
+                    "< 2%; pp d2/d3 flipped <= 0 / 0.02 (|diff| >= 2e-4), "
+                    "median < 5e-7, rays < 2e-3; small_anim_f2 tight > "
+                    "0.15, median < 0.02, first pixel <= 2e-5, rays per "
+                    "frame < 2%; tiny_f16 4x4 blocks mean < 0.02, max < "
+                    "0.2, rays < 2%")
+    emit(out)
+    check(tiny["first_pixel_abs"] <= 2e-5 and tiny["col0_median"] < 1e-3
+          and tiny["median"] < 0.02 and tiny["tight_share"] > 0.25
+          and tiny["rays_rel"] < 0.02, f"parity tiny_f1: {tiny}")
+    for name in ("tiny_pp_d2_f1", "tiny_pp_d3_f1"):
+        p = out[name]
+        check(p["flipped_share"] <= p["flipped_gate"] and p["median"] < 5e-7
+              and p["rays_rel"] < 2e-3, f"parity {name}: {p}")
+    check(anim["tight_share"] > 0.15 and anim["median"] < 0.02
+          and anim["first_pixel_abs"] <= 2e-5
+          and max(anim["per_frame_rays_rel"]) < 0.02,
+          f"parity small_anim_f2: {anim}")
+    if isinstance(out["tiny_f16"], dict):
+        f16 = out["tiny_f16"]
+        check(f16["block_mean_abs"] < 0.02 and f16["block_max_abs"] < 0.2
+              and f16["rays_rel"] < 0.02, f"parity tiny_f16: {f16}")
+    check(not out["launches"], f"the parity route launched kernels: "
+          f"{out['launches']}")
+    return out
+
+
+def viewer_phase(smi):
+    """The live viewer (serve.py) on the card at the reference workload:
+    its HTTP server on 127.0.0.1, port 0; K1 once a frame; /frame.png the
+    session's image; toggles and the 'g' round trip through the plain
+    renderer reset the frame count; --batch 8 bit-equal to 8 single
+    steps; the HUD's Mray/s beside the session's ms/frame; --scaled
+    through the cooperative scaled render kernel."""
+    import argparse
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from toypathtracer_torch import io as image_io
+    from toypathtracer_torch.render.frame import sum_rays
+    from toypathtracer_torch.serve import make_handler, make_viewer
+
+    t_phase = time.perf_counter()
+    args = argparse.Namespace(width=1280, height=720, spp=4, max_depth=10,
+                              small=False, scaled=0, animate=False, ppl=1,
+                              batch=1, backend="auto", device="cuda")
+    v, label = make_viewer(args)
+    v.time_scale = 0.0
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(v))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def get(path):
+        return urllib.request.urlopen(base + path, timeout=60).read()
+
+    def stats():
+        return json.loads(get("/stats"))
+
+    out = {"phase": "viewer", "nvidia_smi": smi, "backend": label,
+           "size": "1280x720, spp 4, depth 10, 46 spheres"}
+    try:
+        zero_launches()
+        n = 6
+        for _ in range(n):
+            v.step_once()
+        torch.cuda.synchronize()
+        out["launches"] = launched()
+        s = stats()
+        png = get("/frame.png")
+        out["frames"] = s["frames"]
+        out["png_equal"] = png == image_io.png_bytes(
+            v.sess.state.accum.cpu().numpy())
+        out["hud"] = s["hud"]
+        out["hud_mray_s"] = s["mray_s"]
+        hud_s, hud_rays = v.timer.averages()
+        out["hud_ms_per_frame"] = hud_s * 1e3
+        out["hud_rays_per_frame"] = hud_rays
+        # the session's own ms/frame: 8 frames between two syncs
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(8):
+            v.sess.step(0.0)
+        torch.cuda.synchronize()
+        out["session_ms_per_frame"] = (time.perf_counter() - t) / 8 * 1e3
+        frames_before = stats()["frames"]
+        get("/set?animate=1&progressive=1")
+        v.step_once()
+        out["toggle"] = {"frames_before": frames_before,
+                         "frames_after": stats()["frames"],
+                         "animate": stats()["animate"]}
+        get("/set?animate=0&progressive=1")
+        v.step_once()
+        v.step_once()
+        zero_launches()
+        get("/set?backend=plain")
+        v.step_once()
+        plain = {"backend": stats()["backend"], "frames": stats()["frames"],
+                 "launches": launched()}
+        get("/set?backend=cuda")
+        v.step_once()
+        back = {"backend": stats()["backend"], "frames": stats()["frames"],
+                "launches": launched()}
+        out["g_round_trip"] = {"plain": plain, "cuda": back,
+                               "backends": stats()["backends"]}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    # --batch 8 against 8 single steps (a static view: the same time)
+    args.batch = 8
+    vb, _ = make_viewer(args)
+    args.batch = 1
+    vs, _ = make_viewer(args)
+    vb.time_scale = vs.time_scale = 0.0
+    zero_launches()
+    vb.step_once()
+    torch.cuda.synchronize()
+    batch_launches = launched()
+    rays_single = 0
+    for _ in range(8):
+        vs.step_once()
+    torch.cuda.synchronize()
+    out["batch8"] = {
+        "frames": vb.sess.state.frame,
+        "bit_equal": bool(torch.equal(vb.sess.state.accum,
+                                      vs.sess.state.accum)),
+        "rays_per_frame_batched": vb.timer.averages()[1],
+        "rays_per_frame_single": vs.timer.averages()[1],
+        "launches": batch_launches, "hud_mray_s": vb.timer.mray_s(),
+        "hud_ms_per_frame": vb.timer.averages()[0] * 1e3}
+    # --scaled: the cooperative scaled render kernel, one launch a frame
+    args.scaled = 100_000
+    t = time.perf_counter()
+    vsc, sc_label = make_viewer(args)
+    vsc.time_scale = 0.0
+    zero_launches()
+    for _ in range(2):
+        vsc.step_once()
+    torch.cuda.synchronize()
+    out["scaled"] = {"backend": sc_label, "frames": vsc.sess.state.frame,
+                     "launches": launched(),
+                     "finite": bool(torch.isfinite(
+                         vsc.sess.state.accum).all()),
+                     "hud_mray_s": vsc.timer.mray_s(),
+                     "seconds": time.perf_counter() - t}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    check(out["launches"] == {"render": n},
+          f"viewer: {out['launches']} for {n} frames")
+    check(out["frames"] == n and out["png_equal"],
+          "viewer: /frame.png and /stats")
+    check(out["toggle"]["frames_after"] == 1 and out["toggle"]["animate"],
+          f"viewer toggle: {out['toggle']}")
+    check(plain["backend"] == "plain" and plain["frames"] == 1
+          and not plain["launches"], f"viewer g to plain: {plain}")
+    check(back["backend"] == "cuda" and back["frames"] == 1
+          and back["launches"] == {"render": 1},
+          f"viewer g back to the kernel: {back}")
+    b8 = out["batch8"]
+    check(b8["frames"] == 8 and b8["bit_equal"]
+          and b8["rays_per_frame_batched"] == b8["rays_per_frame_single"]
+          and b8["launches"] == {"render": 8}, f"viewer batch 8: {b8}")
+    check(out["scaled"]["launches"] == {"scaled_render": 2}
+          and out["scaled"]["finite"], f"viewer scaled: {out['scaled']}")
+    check(out["hud_mray_s"] > 0, "viewer HUD")
+    return out
+
+
+def resume_phase(smi):
+    """Resume at 1280x720 on the card: the CLI's 2 frames, --save-state,
+    --resume and 2 more equal to 4 straight frames (image bytes, the int64
+    rays); InverseRenderer's 2 Adam steps, the train state saved and
+    loaded, 2 more equal to 4 straight steps bit for bit (K3's warp form);
+    a train state in the JAX package's layout, written on the host, loaded
+    onto the card."""
+    import json as _json
+    import os
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from toypathtracer_torch import RenderConfig, make_scene
+    from toypathtracer_torch import checkpoint as ckpt
+    from toypathtracer_torch.cli import main as cli_main
+    from toypathtracer_torch.inverse import InverseRenderer
+    from toypathtracer_torch.ops import cuda_render
+    from toypathtracer_torch.ops.cuda_grad import PARAM_FIELDS
+
+    t_phase = time.perf_counter()
+    out = {"phase": "resume", "nvidia_smi": smi,
+           "size": "1280x720, spp 4, depth 10, 46 spheres"}
+    tmp = tempfile.mkdtemp(prefix="resume_")
+
+    def cli(name, *extra):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["--output", os.path.join(tmp, name + ".png"),
+                           *extra])
+        check(rc == 0, f"CLI {name}")
+        m = re.search(r"frames \d+-\d+: (\d+) rays", buf.getvalue())
+        with open(os.path.join(tmp, name + ".png"), "rb") as f:
+            return f.read(), int(m.group(1))
+
+    zero_launches()
+    s1, s2, s4 = (os.path.join(tmp, k + ".npz") for k in ("s1", "s2", "s4"))
+    _, rays12 = cli("a", "--frames", "2", "--save-state", s1)
+    png_b, rays34 = cli("b", "--frames", "2", "--resume", s1,
+                        "--save-state", s2)
+    png_c, rays_all = cli("c", "--frames", "4", "--save-state", s4)
+    cli_launches = launched()
+    a = ckpt.load_frame_state(s2)
+    b = ckpt.load_frame_state(s4)
+    out["cli"] = {"png_equal": png_b == png_c, "rays_1_2": rays12,
+                  "rays_3_4": rays34, "rays_straight": rays_all,
+                  "accum_bit_equal": bool(torch.equal(a.accum, b.accum)),
+                  "frames": [a.frame, b.frame], "launches": cli_launches}
+
+    cfg = RenderConfig()
+    scene = make_scene(big=True)
+    target, _ = cuda_render.render_frame(scene, cfg, 0)
+    start = scene.replace(albedo=scene.albedo * 0.7)
+
+    def renderer():
+        return InverseRenderer(cfg, target, trainable=("albedo",),
+                               learning_rate=0.02)
+    zero_launches()
+    t = time.perf_counter()
+    straight, losses = renderer().fit(start, 4)
+    torch.cuda.synchronize()
+    straight_s = time.perf_counter() - t
+    r = renderer()
+    half, first = r.fit(start, 2)
+    path = os.path.join(tmp, "train")
+    ckpt.save_train_state(path, half, r.opt_state, step=2)
+    loaded, state, step = ckpt.load_train_state(path)
+    resumed, second = renderer().fit(loaded, 2, frame0=step,
+                                     opt_state=state)
+    torch.cuda.synchronize()
+    fit_launches = launched()
+    out["train"] = {
+        "steps": "4 straight; 2, saved, loaded, 2",
+        "losses_equal": first + second == losses, "losses": losses,
+        "fields_bit_equal": {f: bool(torch.equal(getattr(resumed, f),
+                                                 getattr(straight, f)))
+                             for f in PARAM_FIELDS},
+        "ms_per_step": straight_s / 4 * 1e3, "launches": fit_launches,
+        "state_device": str(state["albedo"][0].device)}
+
+    # the JAX package's layout (toypathtracer_tpu/checkpoint.py:84-97),
+    # written with numpy alone: the scene's .npz with its JSON meta, the
+    # Adam leaves in optax's flatten order
+    jpath = os.path.join(tmp, "jax_layout")
+    small = make_scene(big=False)
+    cam = {k: list(v) if isinstance(v, tuple) else v
+           for k, v in vars(small.camera).items()}
+    meta = dict(mat_type=list(small.mat_type),
+                emissive_ids=list(small.emissive_ids), camera=cam)
+    arrays = {f: getattr(small, f).numpy() for f in PARAM_FIELDS}
+    np.savez(jpath + ".scene.npz", **arrays, meta=np.frombuffer(
+        _json.dumps(meta).encode(), dtype=np.uint8))
+    rng = np.random.default_rng(0)
+    leaves = [np.asarray(3, np.int32)] + [
+        rng.normal(size=arrays[f].shape).astype(np.float32)
+        for f in PARAM_FIELDS * 2]
+    np.savez(jpath + ".opt.npz", step=np.int64(3),
+             **{f"leaf_{i}": x for i, x in enumerate(leaves)})
+    js, jstate, jstep = ckpt.load_train_state(jpath)
+    n = len(PARAM_FIELDS)
+    out["jax_layout"] = {
+        "step": jstep, "count": jstate["count"],
+        "on_card": all(getattr(js, f).is_cuda for f in PARAM_FIELDS)
+        and all(jstate[f][0].is_cuda for f in PARAM_FIELDS),
+        "values_equal": all(
+            np.array_equal(jstate[f][0].cpu().numpy(), leaves[1 + i])
+            and np.array_equal(jstate[f][1].cpu().numpy(), leaves[1 + n + i])
+            and np.array_equal(getattr(js, f).cpu().numpy(), arrays[f])
+            for i, f in enumerate(PARAM_FIELDS))}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    c = out["cli"]
+    check(c["png_equal"] and c["accum_bit_equal"] and c["frames"] == [4, 4]
+          and c["rays_1_2"] + c["rays_3_4"] == c["rays_straight"],
+          f"resume CLI: {c}")
+    check(cli_launches == {"render": 8}, f"resume CLI launches: "
+          f"{cli_launches}")
+    tr = out["train"]
+    check(tr["losses_equal"] and all(tr["fields_bit_equal"].values()),
+          f"resumed fit: {tr}")
+    check(fit_launches == {"render": 8, "grad": 8},
+          f"resumed fit launches: {fit_launches}")
+    j = out["jax_layout"]
+    check(j["step"] == 3 and j["count"] == 3 and j["on_card"]
+          and j["values_equal"], f"JAX-layout train state: {j}")
     return out
 
 

@@ -950,3 +950,109 @@ def test_sharded_step_on_one_card_matches_single_device(card, eps):
     for f, want in zip(cuda_grad.PARAM_FIELDS, g1):
         assert float((grads[f] - want).abs().max()) <= \
             1e-5 * float(want.abs().max()) + 1e-12, f
+
+
+def golden(name):
+    """A golden of the reference's compiled C++ (tests/golden), read
+    without the JAX-side conftest."""
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent / "golden" / f"{name}.npz"
+    with np.load(path) as g:
+        return {k: g[k] for k in g.files}
+
+
+def test_parity_on_the_card_against_the_goldens(card):
+    """The parity renderer on the card (CUDA's sinf/cosf) at
+    tests/test_parity.py's gates: tiny_f1 and the depth-2 per-pixel
+    golden; no counted kernel launched."""
+    from toypathtracer_torch.render.parity import (render_frame_parity,
+                                                   render_frame_parity_pp)
+    scene = make_scene(big=True)
+    before = {**cuda_render.launches, **cuda_grad.launches}
+    img, rays = render_frame_parity(scene, RenderConfig(width=64, height=36),
+                                    0)
+    assert img.is_cuda
+    a, g = img.cpu().numpy(), golden("tiny_f1")
+    d = np.abs(a - g["image"]).max(axis=-1)
+    np.testing.assert_allclose(a[0, 0], g["image"][0, 0], atol=2e-5)
+    assert np.median(d[:, 0]) < 1e-3 and np.median(d) < 0.02
+    assert (d < 1e-3).mean() > 0.25
+    assert abs(int(rays) - int(g["rays"])) / int(g["rays"]) < 0.02
+    img, rays = render_frame_parity_pp(
+        scene, RenderConfig(width=64, height=36, max_depth=2), 0)
+    g = golden("tiny_pp_d2_f1")
+    d = np.abs(img.cpu().numpy() - g["image"]).max(axis=-1)
+    assert (d >= 2e-4).mean() <= 0.0 and np.median(d) < 5e-7
+    assert abs(int(rays) - int(g["rays"])) / int(g["rays"]) < 2e-3
+    assert {**cuda_render.launches, **cuda_grad.launches} == before
+
+
+def test_resume_bit_exact_on_the_card(card, tmp_path):
+    """A progressive session resumed from its saved frame state, and a fit
+    resumed from its saved train state, equal the uninterrupted runs bit
+    for bit (K1; K1 and K3's warp form)."""
+    from toypathtracer_torch import checkpoint as ckpt
+    cfg = RenderConfig(width=320, height=176, samples_per_pixel=2,
+                       max_depth=6)
+    scene = make_scene(big=True)
+    sess = RenderSession(scene, cfg, device="cuda")
+    for _ in range(3):
+        sess.step(0.0)
+    path = str(tmp_path / "frame.npz")
+    ckpt.save_frame_state(path, sess.state)
+    for _ in range(2):
+        live, _ = sess.step(0.0)
+    live = live.clone()
+    resumed = RenderSession(scene, cfg, device="cuda")
+    resumed.state = ckpt.load_frame_state(path)
+    for _ in range(2):
+        img, _ = resumed.step(0.0)
+    assert resumed.state.frame == 5 and torch.equal(img, live)
+
+    small = RenderConfig(width=64, height=32, samples_per_pixel=2,
+                         max_depth=4)
+    target, _ = cuda_render.render_frame(scene, small, 0)
+    start = scene.replace(albedo=scene.albedo * 0.7)
+
+    def renderer():
+        return InverseRenderer(small, target, trainable=("albedo", "center"),
+                               learning_rate=0.02)
+    before = cuda_grad.launches["grad"]
+    straight, losses = renderer().fit(start, 4)
+    assert cuda_grad.launches["grad"] - before == 4
+    r = renderer()
+    half, first = r.fit(start, 2)
+    tpath = str(tmp_path / "train")
+    ckpt.save_train_state(tpath, half, r.opt_state, step=2)
+    loaded, state, step = ckpt.load_train_state(tpath)
+    assert loaded.center.is_cuda and state["albedo"][0].is_cuda
+    back, second = renderer().fit(loaded, 2, frame0=step, opt_state=state)
+    assert first + second == losses
+    for f in cuda_grad.PARAM_FIELDS:
+        assert torch.equal(getattr(back, f), getattr(straight, f)), f
+
+
+def test_viewer_batch_matches_single_steps_on_the_card(card):
+    """Viewer(batch=4) on the card: one step renders 4 frames through 4
+    K1 launches, bit-equal to 4 single steps; the 'g' switch to the plain
+    renderer resets the accumulator on the card and launches no
+    kernel."""
+    from toypathtracer_torch.serve import Viewer
+    cfg = RenderConfig(width=320, height=176, samples_per_pixel=2,
+                       max_depth=6)
+    fns = {"cuda": None, "plain": render_frame_plain}
+    vb = Viewer(make_scene(big=True), cfg, render_fns=fns, batch=4)
+    vs = Viewer(make_scene(big=True), cfg, render_fns=fns)
+    vb.time_scale = vs.time_scale = 0.0
+    before = cuda_render.launches["render"]
+    vb.step_once()
+    assert cuda_render.launches["render"] - before == 4
+    for _ in range(4):
+        vs.step_once()
+    assert vb.sess.state.frame == vs.sess.state.frame == 4
+    assert torch.equal(vb.sess.state.accum, vs.sess.state.accum)
+    before = cuda_render.launches["render"]
+    vs.set_backend("plain")
+    vs.step_once()
+    assert cuda_render.launches["render"] == before
+    assert vs.sess.state.frame == 1 and vs.sess.state.accum.is_cuda

@@ -150,6 +150,84 @@ def test_cli_cpu_render(tmp_path, capsys):
         assert im.size == (32, 16) and im.mode == "RGB"
 
 
+def _cli(tmp_path, name, *extra, size=("32", "16")):
+    """Run the CLI on the CPU; returns (PNG bytes, rays, stdout lines)."""
+    import contextlib
+    import io
+    out = tmp_path / f"{name}.png"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli_main(["--device", "cpu", "--width", size[0], "--height",
+                         size[1], "--spp", "1", "--max-depth", "3",
+                         "--output", str(out), *extra]) == 0
+    lines = buf.getvalue().splitlines()
+    total = [m for m in (re.fullmatch(r"frames \d+-\d+: (\d+) rays", ln)
+                         for ln in lines) if m]
+    assert len(total) == 1
+    return out.read_bytes(), int(total[0].group(1)), lines
+
+
+def test_cli_resume_equals_a_straight_run(tmp_path):
+    """2 frames, --save-state, then --resume and 2 more: the image byte
+    for byte and the saved accumulator and counter of 4 frames run
+    straight, the rays of frames 3-4 those of the straight run's."""
+    from toypathtracer_torch import checkpoint
+    s1, s2, s4 = (str(tmp_path / f"{k}.npz") for k in ("s1", "s2", "s4"))
+    _, rays12, _ = _cli(tmp_path, "a", "--frames", "2", "--save-state", s1)
+    png_b, rays34, lines = _cli(tmp_path, "b", "--frames", "2", "--resume",
+                                s1, "--save-state", s2)
+    assert "frames 3-4: " in "".join(lines)
+    assert [ln for ln in lines if "path tracer" in ln][-1].endswith(
+        "frames 4")
+    png_c, rays_all, _ = _cli(tmp_path, "c", "--frames", "4",
+                              "--save-state", s4)
+    assert png_b == png_c and rays12 + rays34 == rays_all
+    a = checkpoint.load_frame_state(s2, device="cpu")
+    b = checkpoint.load_frame_state(s4, device="cpu")
+    assert a.frame == b.frame == 4 and torch.equal(a.accum, b.accum)
+    with pytest.raises(SystemExit, match="resume"):
+        _cli(tmp_path, "d", "--frames", "1", "--resume", s1,
+             size=("16", "16"))
+
+
+def test_cli_batch_equals_single_frames(tmp_path):
+    """--batch 3 over 5 frames (steps of 3 and 2, the HUD line a step in
+    per-frame units) gives the image and rays of single frames."""
+    png1, rays1, _ = _cli(tmp_path, "one", "--frames", "5")
+    png3, rays3, lines = _cli(tmp_path, "three", "--frames", "5",
+                              "--batch", "3")
+    assert png1 == png3 and rays1 == rays3
+    hud = [ln for ln in lines if ln.startswith("CPU path tracer")]
+    assert [ln.rsplit(" ", 1)[1] for ln in hud] == ["3", "5"]
+
+
+def test_cli_parity_backend(tmp_path):
+    """--backend parity renders render/parity.render_frame_parity."""
+    from toypathtracer_torch.render.parity import render_frame_parity
+    png, rays, lines = _cli(tmp_path, "p", "--frames", "1", "--backend",
+                            "parity", size=("8", "4"))
+    assert lines[0].startswith("backend=parity")
+    cfg = RenderConfig(width=8, height=4, samples_per_pixel=1, max_depth=3)
+    img, want_rays = render_frame_parity(make_scene(big=True), cfg, 0,
+                                         device="cpu")
+    from toypathtracer_torch import io as image_io
+    assert png == image_io.png_bytes(img.numpy())
+    assert rays == int(want_rays)
+
+
+def test_cli_accepts_the_tpu_knobs(tmp_path, capsys):
+    """--tile, --ppl and --merged (the JAX CLI's occupancy knobs) run
+    unchanged with the same image, and one stderr line says the card's
+    kernel ignores them."""
+    png0, rays0, _ = _cli(tmp_path, "k0", "--frames", "1")
+    capsys.readouterr()
+    png1, rays1, _ = _cli(tmp_path, "k1", "--frames", "1", "--tile",
+                          "8,64", "--ppl", "2", "--merged")
+    err = capsys.readouterr().err.splitlines()
+    assert png0 == png1 and rays0 == rays1
+    assert len(err) == 1 and "ignores" in err[0]
+
+
 def _imported_modules(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -5,19 +5,30 @@ Usage:
     python -m toypathtracer_torch [--frames 30] [--width 1280 --height 720]
         [--spp 4] [--max-depth 10] [--small] [--animate] [--no-progressive]
         [--no-light-sampling] [--mitsuba-compare] [--output out.png|out.tga]
-        [--device cuda|cpu] [--scaled N] [--backend auto|sharded]
+        [--device cuda|cpu] [--scaled N] [--backend auto|sharded|parity]
+        [--batch N] [--resume STATE.npz] [--save-state STATE.npz]
+        [--tile H,W] [--ppl K] [--merged]
 
 Renders on the card by default; `--device cpu` runs the plain PyTorch
 renderer on the CPU.  `--scaled N` renders the procedurally instanced
 N-sphere scene (the chunked traversal; `--animate` orbits its beacons).
 `--backend sharded` splits each frame's rows over every visible card
 (parallel/mesh.render_frame_sharded; with `--device cpu` one band on the
-CPU).
+CPU); `--backend parity` renders with the reference's scalar C++
+semantics (render/parity.py: slow, for validation).  `--batch N` renders N
+frames a step while accumulating a static view, the HUD line showing
+per-frame averages.  `--save-state` writes the accumulator and frame
+counter, and `--resume` continues from them: the resumed frames are those
+an uninterrupted run renders.  `--tile`, `--ppl` and `--merged` are the
+JAX CLI's TPU occupancy knobs, accepted so that its command lines run
+unchanged; they never change the image, and the card's kernel ignores
+them.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 from functools import partial
 
@@ -58,10 +69,30 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda: the CUDA kernel (default); cpu: the plain "
                          "PyTorch renderer")
-    ap.add_argument("--backend", default="auto", choices=["auto", "sharded"],
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "sharded", "parity"],
                     help="auto: the whole frame on one device; sharded: "
                          "its rows split over every card (one CPU band "
-                         "with --device cpu)")
+                         "with --device cpu); parity: the reference's "
+                         "scalar C++ semantics (slow, for validation)")
+    ap.add_argument("--batch", type=int, default=1, metavar="N",
+                    help="frames rendered a step while the view is static "
+                         "and progressive (render.frame.progressive_steps; "
+                         "the HUD prints per-frame averages a step)")
+    ap.add_argument("--resume", metavar="STATE.npz",
+                    help="continue the progressive accumulation saved by "
+                         "--save-state (the accumulator and frame counter)")
+    ap.add_argument("--save-state", metavar="STATE.npz",
+                    help="write the final accumulation state for --resume")
+    ap.add_argument("--tile", default=None, metavar="H,W",
+                    help="the JAX CLI's TPU pixel tile; never changes the "
+                         "image, ignored by the card's kernel")
+    ap.add_argument("--ppl", type=int, default=1, metavar="K",
+                    help="the JAX CLI's TPU pixels per lane; never changes "
+                         "the image, ignored by the card's kernel")
+    ap.add_argument("--merged", action="store_true",
+                    help="the JAX CLI's merged TPU wavefront; never "
+                         "changes the image, ignored by the card's kernel")
     args = ap.parse_args(argv)
     if args.scaled and args.backend != "auto":
         raise SystemExit("--scaled uses its own chunked renderer")
@@ -70,7 +101,15 @@ def main(argv=None) -> int:
         width=args.width, height=args.height,
         samples_per_pixel=args.spp, max_depth=args.max_depth,
         do_light_sampling=not args.no_light_sampling,
-        do_mitsuba_compare=args.mitsuba_compare)
+        do_mitsuba_compare=args.mitsuba_compare,
+        pix_per_lane=args.ppl, merged_wavefront=args.merged)
+    if args.tile:
+        th, tw = (int(v) for v in args.tile.split(","))
+        cfg = cfg.replace(tile_h=th, tile_w=tw)
+    if args.tile or args.ppl != 1 or args.merged:
+        print("--tile/--ppl/--merged are TPU occupancy knobs: they never "
+              "change the image, and the card's kernel ignores them",
+              file=sys.stderr)
     if args.scaled:
         scene = make_scaled_scene(n=args.scaled)
         n_spheres = args.scaled
@@ -92,8 +131,21 @@ def main(argv=None) -> int:
                          else None)
         render_fn = partial(render_frame_sharded, mesh=mesh)
         backend = f"sharded x{mesh.size}"
+    elif args.backend == "parity":
+        from .render.parity import render_frame_parity
+        render_fn = partial(render_frame_parity, device=args.device)
+        backend = "parity"
     sess = RenderSession(scene, cfg, flags=flags, render_fn=render_fn,
                          device=args.device)
+    frame0 = 0
+    if args.resume:
+        from .checkpoint import load_frame_state
+        state = load_frame_state(args.resume, device=sess.device)
+        if tuple(state.accum.shape) != (cfg.height, cfg.width, 3):
+            raise SystemExit(f"--resume state is {tuple(state.accum.shape)}"
+                             f", the render is {(cfg.height, cfg.width, 3)}")
+        sess.state = state
+        frame0 = state.frame
     if sess.device.type == "cuda":
         import torch
         kind = torch.cuda.get_device_name(sess.device)
@@ -103,14 +155,29 @@ def main(argv=None) -> int:
           f"scene={n_spheres}-sphere "
           f"{cfg.width}x{cfg.height} spp={cfg.samples_per_pixel}")
     title = f"{args.device.upper()} path tracer"
+    # several frames a step only while accumulating a static view: without
+    # progressive accumulation each frame overwrites the last, and an
+    # animation needs each frame's own time
+    batch = max(1, args.batch) if (flags & FLAG_PROGRESSIVE
+                                   and not flags & FLAG_ANIMATE) else 1
     img = None
-    for f in range(args.frames):
+    f = frame0
+    total = 0
+    while f < frame0 + args.frames:
+        n = min(batch, frame0 + args.frames - f)
         t0 = time.perf_counter()
-        img, raycount = sess.step(time=f / 60.0)
-        rays = sum_rays(raycount)  # host copy: waits for the frame
+        img, raycount = sess.steps(time=f / 60.0, n=n)
+        rays = sum_rays(raycount)  # host copy: waits for the frames
         dt = time.perf_counter() - t0
-        print(hud_string(title, dt, rays, f + 1))
+        print(hud_string(title, dt / n, rays // n, f + n))
+        total += rays
+        f += n
+    print(f"frames {frame0 + 1}-{f}: {total} rays")
 
+    if args.save_state:
+        from .checkpoint import save_frame_state
+        save_frame_state(args.save_state, sess.state)
+        print(f"saved state {args.save_state} (frame {sess.state.frame})")
     if args.output and img is not None:
         image_io.write_image(args.output, img.cpu().numpy())
         print(f"wrote {args.output}")

@@ -215,6 +215,7 @@ class InverseRenderer:
     def __post_init__(self):
         _check_fields(self.trainable)
         self._sharded = None
+        self.opt_state: dict = {}
         if self.mesh is not None:
             if self.loss_fn is not image_l2:
                 raise ValueError("mesh sharding implements image_l2 only "
@@ -249,18 +250,25 @@ class InverseRenderer:
         return loss.detach(), dict(zip(self.trainable, grads))
 
     def fit(self, scene: Scene, steps: int, frame0: int = 0,
-            resample: bool = True, callback: Optional[Callable] = None):
+            resample: bool = True, callback: Optional[Callable] = None,
+            opt_state: Optional[dict] = None):
         """Run `steps` Adam iterations from `scene`.
 
         resample=True: frame0 + i seeds step i's samples (unbiased
         stochastic gradients of the expected image, with a Monte-Carlo
         loss floor); resample=False: every step renders frame0, a
         deterministic objective whose loss can reach ~0 when the target
-        was rendered at frame0.  Returns (fitted scene on the renderer's
-        device, list of float losses)."""
+        was rendered at frame0.  `opt_state` resumes the Adam state of an
+        earlier fit (self.opt_state after it, or checkpoint.
+        load_train_state's); with frame0 at the steps already taken the
+        fit continues as one run would.  Returns (fitted scene on the
+        renderer's device, list of float losses); the Adam state is left
+        in self.opt_state."""
         scene = scene.to(self.device)
         params = {f: getattr(scene, f).detach() for f in self.trainable}
-        state: dict = {}
+        state: dict = {} if opt_state is None else {
+            k: (v if k == "count" else tuple(t.to(self.device) for t in v))
+            for k, v in opt_state.items()}
         losses = []
         for i in range(steps):
             frame = frame0 + i if resample else frame0
@@ -271,4 +279,5 @@ class InverseRenderer:
             losses.append(loss)
             if callback is not None:
                 callback(i, loss, scene.replace(**params))
+        self.opt_state = state
         return scene.replace(**params), [float(l) for l in losses]

@@ -1,5 +1,5 @@
-"""Image output: sRGB encoding and TGA/PNG writers, numpy only (a copy of
-toypathtracer_tpu/io.py without its native encoder).
+"""Image output: sRGB encoding and TGA/PNG writers (counterpart of
+toypathtracer_tpu/io.py).
 
   * exact sRGB curve `1.055 x^(1/2.4) - 0.055` as the C# CLI's TGA dump
     (reference: Cs/Program.cs:34-59) and the D3D/Metal blit shaders;
@@ -34,7 +34,13 @@ def linear_to_srgb_cheap(img: np.ndarray) -> np.ndarray:
 
 
 def to_u8(img: np.ndarray, cheap: bool = False) -> np.ndarray:
-    """(H, W, 3) linear bottom-up float -> (H, W, 3) uint8 top-down sRGB."""
+    """(H, W, 3) linear bottom-up float -> (H, W, 3) uint8 top-down sRGB,
+    by the native C++ encoder (native.py) where it builds, else numpy:
+    the same curve (tests/test_torch_native.py)."""
+    from . import native
+    out = native.srgb_encode(img, cheap=cheap)
+    if out is not None:
+        return out
     srgb = linear_to_srgb_cheap(img) if cheap else linear_to_srgb(img)
     u8 = np.clip(srgb * 255.0 + 0.5, 0.0, 255.0).astype(np.uint8)
     return u8[::-1]

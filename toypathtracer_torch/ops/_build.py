@@ -1,5 +1,5 @@
 """Build the CUDA sources of csrc/ with nvcc at first use and load them
-with ctypes.
+with ctypes; build_host does the same with g++ for a host C++ source.
 
 The library is a plain C interface (no PyTorch headers), so nvcc takes
 seconds.  Each source compiles in its own nvcc process, all started
@@ -24,6 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+HOST_BUILD_DIR = BUILD_DIR.parent / "torch_host"
 
 # -fmad=false: no FMA contraction, so the kernel rounds every product and
 # sum as the plain PyTorch version does (see PERF.md).  No --use_fast_math:
@@ -110,6 +111,40 @@ def build(verbose: bool = False) -> Path:
             print(text, flush=True)
             report.write_text(text)
         os.replace(so, out)
+    return out
+
+
+def build_host(name: str, source: Path, flags=("-O2",)) -> Path:
+    """Compile one host C++ source with g++ into
+    build/torch_host/lib<name>_<hash>.so unless that file exists (the hash
+    of the source and the flags); returns its path.  Written to a
+    temporary file beside it and renamed into place, so that concurrent
+    processes (pytest-xdist workers) never load a half-written library.
+    Raises where g++ is missing or fails."""
+    source = Path(source)
+    flags = (*flags, "-fPIC", "-shared")
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(source.read_bytes())
+    out = HOST_BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: {source.name} is built at "
+                           "first use")
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=HOST_BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([gxx, *flags, "-o", tmp, str(source)],
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed ({proc.returncode}) on "
+                               f"{source}:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
     return out
 
 

@@ -20,6 +20,12 @@ silhouette and shadow-boundary discriminants, which leave every forward
 value bit for bit as it was and carry sigma' terms into sphere centers and
 radii in the backward.
 
+The parity route (CPU_SAMPLERS, trace_cpu_exact; render/parity.py) replays
+the reference's scalar C++ core instead: rejection-loop samplers with a
+variable draw count, the root-based shadow test, the extra depth==kMaxDepth
+level, radiance folded backward as the recursion does, and the C library's
+sinf/cosf (ops/libm.py).
+
 Conventions:
   * a vec3 is a tuple of three equal-shape float32 tensors, so every dot
     product and sum keeps the JAX package's (and the kernel's) left-to-
@@ -35,12 +41,13 @@ Conventions:
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from ..config import KPI, RenderConfig
+from . import libm
 
 # Rows of the packed (SCENE_ROWS, N) scene table (the layout of
 # toypathtracer_tpu/ops/pallas_render.py:53-58 and csrc/trace.cuh).
@@ -163,8 +170,9 @@ def seed_pixels(x, y, frame: int):
     return (s & MASK32) | 1
 
 
-def random_in_unit_disk(state):
-    """Polar disk sample, 2 draws (ComputeShader.hlsl:18-24)."""
+def random_in_unit_disk(state, active=None):
+    """Polar disk sample, 2 draws (ComputeShader.hlsl:18-24).  `active` is
+    accepted for the rejection loop's signature: every lane draws."""
     state, r1 = rand01(state)
     a = r1 * TWO_PI
     state, r2 = rand01(state)
@@ -172,9 +180,10 @@ def random_in_unit_disk(state):
     return state, (torch.cos(a) * r, torch.sin(a) * r)
 
 
-def random_in_unit_sphere(state):
+def random_in_unit_sphere(state, active=None):
     """Sphere-volume sample, 3 draws (ComputeShader.hlsl:25-35); the cube
-    root is exp(log(x)/3), as in the JAX package."""
+    root is exp(log(x)/3), as in the JAX package.  `active` is accepted
+    for the rejection loop's signature: every lane draws."""
     state, r1 = rand01(state)
     z = r1 * 2.0 - 1.0
     state, r2 = rand01(state)
@@ -195,6 +204,93 @@ def random_unit_vector(state):
     a = r2 * TWO_PI
     r = torch.sqrt(1.0 - z * z)
     return state, (r * torch.cos(a), r * torch.sin(a), z)
+
+
+# ---------------------------------------------------------------------------
+# The parity route's samplers: the reference's CPU core (Maths.cpp:20-47).
+# A rejection loop runs while any lane has not accepted; a lane that has
+# accepted draws no more, so each lane's draw count, and with it the rest of
+# its RNG stream, is the scalar loop's.
+# ---------------------------------------------------------------------------
+
+
+def _reject(state, draw, active=None):
+    """Rejection loop over lanes: draw(state) -> (state, n components)
+    until the squared length is < 1.  Lanes outside `active` (whose
+    sample is not used) stop after their first draw."""
+    st, *p = draw(state)
+
+    def outside(p):
+        sq = p[0] * p[0]
+        for x in p[1:]:
+            sq = sq + x * x
+        return sq >= 1.0
+    todo = outside(p)
+    if active is not None:
+        todo = todo & active
+    while bool(todo.any()):
+        st2, *p2 = draw(st)
+        st = torch.where(todo, st2, st)
+        p = [torch.where(todo, b, a) for a, b in zip(p, p2)]
+        todo = todo & outside(p)
+    return st, tuple(p)
+
+
+def random_in_unit_disk_reject(state, active=None):
+    """Rejection-loop disk sample, 2 draws an iteration (Maths.cpp:20-28).
+    g++, which builds the reference, evaluates the float3 constructor's
+    arguments right to left: the first draw lands in .y, the second in
+    .x (tracecore.random_in_unit_disk_reject)."""
+    def draw(st):
+        st, r1 = rand01(st)
+        st, r2 = rand01(st)
+        return st, r2 * 2.0 - 1.0, r1 * 2.0 - 1.0
+    return _reject(state, draw, active)
+
+
+def random_in_unit_sphere_reject(state, active=None):
+    """Rejection-loop sphere sample, 3 draws an iteration
+    (Maths.cpp:30-37); draw order .z, .y, .x, as g++ evaluates them."""
+    def draw(st):
+        st, r1 = rand01(st)
+        st, r2 = rand01(st)
+        st, r3 = rand01(st)
+        return st, r3 * 2.0 - 1.0, r2 * 2.0 - 1.0, r1 * 2.0 - 1.0
+    return _reject(state, draw, active)
+
+
+def random_unit_vector_exact(state):
+    """Uniform direction, 2 draws, in the reference's C++ association
+    (Maths.cpp:39-47): the angle is (r * 2.0f) * kPI, and its sin, cos
+    and the root are the C library's (ops/libm.py)."""
+    state, r1 = rand01(state)
+    z = r1 * 2.0 - 1.0
+    state, r2 = rand01(state)
+    a = (r2 * 2.0) * PI_F
+    r = libm.sqrtf(1.0 - z * z)
+    return state, (r * libm.cosf(a), r * libm.sinf(a), z)
+
+
+class Samplers(NamedTuple):
+    """A sampler set (tracecore.Samplers).  GPU: the closed-form samplers
+    with a fixed draw count, the sqrt-free interval-overlap shadow test and
+    torch's sin/cos (the kernels' and every plain version's).  CPU: the
+    reference's scalar core, for the parity route only: rejection loops,
+    the root-based shadow test that rounds as the C++ does (ExactShadow),
+    and the C library's sinf/cosf, also in the light-cone samples."""
+    in_unit_disk: Callable
+    in_unit_sphere: Callable
+    unit_vector: Callable
+    exact_shadow: bool
+    sin: Callable
+    cos: Callable
+
+
+GPU_SAMPLERS = Samplers(random_in_unit_disk, random_in_unit_sphere,
+                        random_unit_vector, False, torch.sin, torch.cos)
+CPU_SAMPLERS = Samplers(random_in_unit_disk_reject,
+                        random_in_unit_sphere_reject,
+                        random_unit_vector_exact, True, libm.sinf, libm.cosf)
 
 
 # ---------------------------------------------------------------------------
@@ -304,7 +400,7 @@ class BruteForce(NamedTuple):
 
     def nearest_hit(self, ro, rd, t_min: float, t_max: float, active=None):
         t, i = nearest_hit(self.tab, ro, rd, t_min, t_max)
-        return t, i, 0, self.tab.shape[1]
+        return t, i, 0, self.tab.shape[-1]
 
     def occluded(self, pos, l, light: int, t_min: float, t_l, active=None):
         occ, tests = occluded(self.tab, pos, l, light, t_min, t_l)
@@ -322,6 +418,28 @@ class BruteForce(NamedTuple):
         return d_occ, self.tab.shape[1] - 1
 
 
+class ExactShadow(NamedTuple):
+    """BruteForce with the parity route's shadow test
+    (tracecore.light_visible(exact=True)): a sphere other than the light
+    occludes where its nearest valid root lies before the light's,
+    t < t_l, from the roots as the reference's nearest-hit test computes
+    them, so the comparison rounds as the C++ does.  Every sphere but the
+    light is tested."""
+    tab: torch.Tensor
+
+    def nearest_hit(self, ro, rd, t_min: float, t_max: float, active=None):
+        return BruteForce(self.tab).nearest_hit(ro, rd, t_min, t_max, active)
+
+    def occluded(self, pos, l, light: int, t_min: float, t_l, active=None):
+        tab = self.tab
+        t, valid = sphere_t(tab[ROW_CX], tab[ROW_CY], tab[ROW_CZ],
+                            tab[ROW_SQR], tuple(map(_col, pos)),
+                            tuple(map(_col, l)), t_min)
+        blocks = valid & (t < _col(t_l))
+        blocks[:, light] = False
+        return blocks.any(dim=1), 0, tab.shape[-1] - 1
+
+
 class Winner(NamedTuple):
     """Attributes of the sphere each lane hit (zeros on a miss)."""
     center: tuple
@@ -333,10 +451,22 @@ class Winner(NamedTuple):
     mat: torch.Tensor
 
 
+def sphere_row(tab, row: int, i: int):
+    """Entry `row` of sphere i: a 0-d tensor, or (P,) where `tab` is a
+    per-lane (SCENE_ROWS, P, N) table (the parity renderer's frames of an
+    animated sequence, one scene per lane)."""
+    return tab[row][..., i]
+
+
 def gather_winner(tab, mat, hit_id) -> Winner:
-    """Fetch the hit sphere's table columns (tracecore.gather_winner)."""
+    """Fetch the hit sphere's table columns (tracecore.gather_winner); a
+    per-lane table gives each lane its own scene's."""
     hit = hit_id >= 0
-    g = tab[:, hit_id.clamp_min(0)]
+    if tab.dim() == 3:
+        idx = hit_id.clamp_min(0).view(1, -1, 1).expand(tab.shape[0], -1, 1)
+        g = tab.gather(2, idx).squeeze(2)
+    else:
+        g = tab[:, hit_id.clamp_min(0)]
     g = torch.where(hit, g, 0.0)
     m = torch.where(hit, mat[hit_id.clamp_min(0)], -1)
     return Winner(center=(g[ROW_CX], g[ROW_CY], g[ROW_CZ]),
@@ -478,10 +608,12 @@ def soft_weight(d, soft_eps: float):
     return torch.sigmoid(d / soft_eps)
 
 
-def camera_get_ray(cam: dict, s, t, state):
-    """Thin-lens ray (Maths.h:437-442, GPU disk sampler): lens offset from
-    2 draws, direction ((((llc + s*h) + t*v) - origin) - offset)."""
-    state, (dx, dy) = random_in_unit_disk(state)
+def camera_get_ray(cam: dict, s, t, state, samplers=GPU_SAMPLERS,
+                   active=None):
+    """Thin-lens ray (Maths.h:437-442): lens offset from the sampler set's
+    disk sample, direction ((((llc + s*h) + t*v) - origin) - offset).
+    A rejection loop runs only for the `active` lanes (default: all)."""
+    state, (dx, dy) = samplers.in_unit_disk(state, active)
     rdx = cam["lens_radius"] * dx
     rdy = cam["lens_radius"] * dy
     off = add3(scale3(cam["u"], rdx), scale3(cam["v"], rdy))
@@ -498,16 +630,18 @@ def camera_get_ray(cam: dict, s, t, state):
 # ---------------------------------------------------------------------------
 
 
-def nee_cones(tab, emissive_ids, pos, hit_id, active, state):
+def nee_cones(tab, emissive_ids, pos, hit_id, active, state,
+              samplers=GPU_SAMPLERS):
     """Per-light solid-angle cone sample (Test.cpp:94-121): 2 draws per
     light in emissive_ids order, consumed only on lanes where
-    active & hit_id != light.  Returns (state, [(light, lane_on, l,
-    cos_a_max)])."""
+    active & hit_id != light; the angle's sin and cos are the sampler
+    set's.  Returns (state, [(light, lane_on, l, cos_a_max)])."""
     cones = []
     for e in emissive_ids:
         lane_on = active & (hit_id != e)
-        sc = (tab[ROW_CX, e], tab[ROW_CY, e], tab[ROW_CZ, e])
-        r = tab[ROW_R, e]
+        sc = (sphere_row(tab, ROW_CX, e), sphere_row(tab, ROW_CY, e),
+              sphere_row(tab, ROW_CZ, e))
+        r = sphere_row(tab, ROW_R, e)
         sw = normalize3(sub3(sc, pos))
         flat = torch.abs(sw[0]) > 0.01
         up = (torch.where(flat, 0.0, 1.0), torch.where(flat, 1.0, 0.0),
@@ -523,8 +657,8 @@ def nee_cones(tab, emissive_ids, pos, hit_id, active, state):
         cos_a = 1.0 - eps1 + eps1 * cos_a_max
         sin_a = sqrt_pos(1.0 - cos_a * cos_a)
         phi = TWO_PI * eps2
-        l = add3(add3(scale3(su, torch.cos(phi) * sin_a),
-                      scale3(sv, torch.sin(phi) * sin_a)),
+        l = add3(add3(scale3(su, samplers.cos(phi) * sin_a),
+                      scale3(sv, samplers.sin(phi) * sin_a)),
                  scale3(sw, cos_a))
         cones.append((e, lane_on, l, cos_a_max))
     return state, cones
@@ -557,8 +691,10 @@ def nee_light_e(tab, cfg: RenderConfig, cones, pos, alb, normal, rd,
     occ_tests = occ_slabs = prox_tests = shadow_cnt
     nl = sel3(dot3(normal, rd) < 0.0, normal, neg3(normal))
     for e, lane_on, l, cos_a_max in cones:
-        t_l, valid = sphere_t(tab[ROW_CX, e], tab[ROW_CY, e], tab[ROW_CZ, e],
-                              tab[ROW_SQR, e], pos, l, cfg.min_t)
+        t_l, valid = sphere_t(sphere_row(tab, ROW_CX, e),
+                              sphere_row(tab, ROW_CY, e),
+                              sphere_row(tab, ROW_CZ, e),
+                              sphere_row(tab, ROW_SQR, e), pos, l, cfg.min_t)
         light_hit = valid & (t_l < cfg.max_t)
         tested = lane_on & light_hit
         occ, slabs, tests = traversal.occluded(pos, l, e, cfg.min_t, t_l,
@@ -569,7 +705,7 @@ def nee_light_e(tab, cfg: RenderConfig, cones, pos, alb, normal, rd,
         omega = TWO_PI * (1.0 - cos_a_max)
         dl = dot3(l, nl)
         fac = torch.clamp_min(dl, 0.0) * omega / PI_F
-        em = (tab[ROW_EM, e], tab[ROW_EM + 1, e], tab[ROW_EM + 2, e])
+        em = tuple(sphere_row(tab, ROW_EM + k, e) for k in range(3))
         if soft_eps > 0.0:
             # only lanes whose light lies in front of the surface carry
             # the term (fac = 0 elsewhere); the others take no occluder
@@ -596,9 +732,11 @@ def nee_light_e(tab, cfg: RenderConfig, cones, pos, alb, normal, rd,
                                               prox_tests)
 
 
-def scatter_metal(state, refl, rough):
-    """Mirror plus roughness fuzz, 3 draws (Test.cpp:137-150)."""
-    state, rius = random_in_unit_sphere(state)
+def scatter_metal(state, refl, rough, samplers=GPU_SAMPLERS, active=None):
+    """Mirror plus roughness fuzz from the sampler set's sphere sample
+    (Test.cpp:137-150): 3 draws, or 3 an iteration of the rejection
+    loop, which needs to run only for the `active` lanes."""
+    state, rius = samplers.in_unit_sphere(state, active)
     return state, normalize3(add3(refl, scale3(rius, rough)))
 
 
@@ -620,7 +758,8 @@ def scatter_dielectric(state, rd, normal, refl, ri):
 
 
 def bounce(tab, mat, emissive_ids, cfg: RenderConfig, carry,
-           traversal=None, soft_eps: float = 0.0):
+           traversal=None, soft_eps: float = 0.0, samplers=GPU_SAMPLERS,
+           skip_empty: bool = False):
     """One bounce over all lanes (tracecore.bounce_parts with GPU
     samplers and the fused hard-shadow NEE).
 
@@ -636,9 +775,17 @@ def bounce(tab, mat, emissive_ids, cfg: RenderConfig, carry,
     silhouette discriminant, two-sided (hit lanes blend the hit radiance
     against the sky, miss lanes with a candidate the tangent radiance
     against the sky), and NEE gets the soft shadow boundary.  e and c keep
-    their values bit for bit; only the backward changes."""
+    their values bit for bit; only the backward changes.
+
+    samplers=CPU_SAMPLERS: the parity route's bounce (tracecore.bounce_parts
+    with CPU_SAMPLERS): rejection samplers, the C library's trig, and by
+    default the ExactShadow traversal.  skip_empty=True leaves out a
+    material branch that no lane takes (tracecore.bounce_parts(
+    skip_empty=True)): its placeholders are never selected, so every value
+    is the same, at the cost of a host sync per branch."""
     if traversal is None:
-        traversal = BruteForce(tab)
+        traversal = ExactShadow(tab) if samplers.exact_shadow \
+            else BruteForce(tab)
     ro, rd, alive, do_me, state, work = carry
     (traced, shadow, occ_tests, hit_tests, slab_tests, sil_tests,
      prox_tests) = work
@@ -658,13 +805,21 @@ def bounce(tab, mat, emissive_ids, cfg: RenderConfig, carry,
     die_on = hit & (w.mat == 2)
     refl = reflect3(rd, normal)
 
+    def runs(mask):
+        return not skip_empty or bool(mask.any())
+
     # Lambert: direction, then the NEE cones (own RNG thread)
-    st_l, ruv = random_unit_vector(state)
-    sdir_l = normalize3(sub3(add3(add3(pos, normal), ruv), pos))
     zero = torch.zeros_like(rd[0])
     light_e = (zero, zero, zero)
-    if cfg.do_light_sampling:
-        st_l, cones = nee_cones(tab, emissive_ids, pos, hit_id, lam_on, st_l)
+    lam_runs = runs(lam_on)
+    if lam_runs:
+        st_l, ruv = samplers.unit_vector(state)
+        sdir_l = normalize3(sub3(add3(add3(pos, normal), ruv), pos))
+    else:
+        st_l, sdir_l = state, rd
+    if cfg.do_light_sampling and lam_runs:
+        st_l, cones = nee_cones(tab, emissive_ids, pos, hit_id, lam_on, st_l,
+                                samplers)
         light_e, shadow_cnt, occ_work = nee_light_e(
             tab, cfg, cones, pos, w.alb, normal, rd, traversal, soft_eps)
         shadow = shadow + torch.where(lam_on, shadow_cnt, 0)
@@ -674,9 +829,11 @@ def bounce(tab, mat, emissive_ids, cfg: RenderConfig, carry,
 
     rough = torch.zeros_like(w.roughness) if cfg.do_mitsuba_compare \
         else w.roughness
-    st_m, sdir_m = scatter_metal(state, refl, rough)
+    st_m, sdir_m = scatter_metal(state, refl, rough, samplers, met_on) \
+        if runs(met_on) else (state, refl)
     met_ok = dot3(sdir_m, normal) > 0.0
-    st_d, sdir_d = scatter_dielectric(state, rd, normal, refl, w.ri)
+    st_d, sdir_d = scatter_dielectric(state, rd, normal, refl, w.ri) \
+        if runs(die_on) else (state, refl)
 
     new_state = torch.where(lam_on, st_l, torch.where(
         met_on, st_m, torch.where(die_on, st_d, state)))
@@ -799,3 +956,62 @@ def render_pixels(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
         return col, work
     return col, work, Trips(work.traced, sum(cuts), cuts[-1],
                             torch.stack(depths, dim=1))
+
+
+# ---------------------------------------------------------------------------
+# The parity route: the reference's scalar C++ recursion (Test.cpp:195-234)
+# ---------------------------------------------------------------------------
+
+
+def tail_parts(tab, mat, cfg: RenderConfig, carry):
+    """The recursion's depth == kMaxDepth level (tracecore.tail_parts;
+    Test.cpp:195-234 with `depth < kMaxDepth` failing): one more nearest
+    hit for each lane still alive, whose emission counts ungated; a miss
+    gives the sky; no scatter and no draw.  Returns (carry, e, c) with c =
+    0 and every lane dead."""
+    ro, rd, alive, do_me, state, work = carry
+    hit_t, hit_id = nearest_hit(tab, ro, rd, cfg.min_t, cfg.max_t)
+    hit = alive & (hit_id >= 0)
+    no_hit = alive & (hit_id < 0)
+    w = gather_winner(tab, mat, hit_id)
+    sky = sky_color(rd, cfg)
+    zero = torch.zeros_like(rd[0])
+    zero3 = (zero, zero, zero)
+    e = sel3(hit, w.em, sel3(no_hit, sky, zero3))
+    work = work._replace(traced=work.traced + alive.to(torch.int64))
+    return (ro, rd, torch.zeros_like(alive), do_me, state, work), e, zero3
+
+
+def trace_cpu_exact(tab, mat, emissive_ids, cfg: RenderConfig, ro, rd,
+                    state, traversal=None):
+    """The reference's scalar trace of a batch of rays
+    (tracecore.trace_cpu_exact): max_depth bounces with CPU_SAMPLERS, the
+    tail level, and radiance folded backward as the recursion multiplies
+    it on the way up (Test.cpp:216): col = e_d + c_d * col over the
+    reversed depths, which rounds differently from render_pixels' forward
+    accumulation.  Returns (col vec3, final RNG state, int64 per-lane ray
+    count: traced and shadow rays).
+
+    Once no lane is alive the remaining depths are left out: there every
+    lane has e = 0 and c = 1 (the tail e = 0 and c = 0 after a last live
+    depth's c), which leave the fold, the state and the count as they are,
+    bit for bit."""
+    zero = torch.zeros_like(ro[0])
+    izero = torch.zeros(zero.shape, dtype=torch.int64, device=zero.device)
+    alive = torch.ones(zero.shape, dtype=torch.bool, device=zero.device)
+    carry = (ro, rd, alive, alive, state, Work(izero, izero, izero))
+    parts = []
+    for _ in range(cfg.max_depth):
+        carry, e, c = bounce(tab, mat, emissive_ids, cfg, carry, traversal,
+                             samplers=CPU_SAMPLERS, skip_empty=True)
+        parts.append((e, c))
+        if not bool(carry[2].any()):
+            break
+    else:
+        carry, e, c = tail_parts(tab, mat, cfg, carry)
+        parts.append((e, c))
+    col = (zero, zero, zero)
+    for e, c in reversed(parts):
+        col = add3(e, mul3(c, col))
+    work = carry[5]
+    return col, carry[4], work.traced + work.shadow
