@@ -11,11 +11,13 @@ non-zero):
      soft one; the replaying soft instance's counts recorded in phase
      7g), K4's per-thread form, both K5 forms,
      both K6 forms, both K2 forms, the per-lane and the cooperative scaled
-     render kernels and the merged K1 held at their counts; the 16-light
+     render kernels and the merged K1 held at their counts, the
+     differentiable wavefront's pair at its first counts; the 16-light
      instances of K3's warp and replaying forms and the cooperative
      scaled render kernel held at the SASS they had before their lights
-     instances (KEPT_SASS digests, where the toolkit is the one they were
-     taken with).
+     instances, and the merged K1, its counted instance and the merged K2
+     at the SASS they had before K1's tape instance (KEPT_SASS digests,
+     where the toolkit is the one they were taken with).
   2. kernel vs plain at 320x176, spp 2, depth 6, frames 0-3: the big
      scene, the big scene without light sampling, the small scene; in each
      the merged K1 (the main path's) bit-equal to the per-thread K1 it
@@ -143,6 +145,17 @@ non-zero):
      the geometry recovery of tests/test_scaled.py:305 through the soft
      instance (60 Adam steps, one tape render and one soft sweep a step):
      final error < 0.4 x initial, final loss < 0.2 x first.
+ 17b. wavefront_grad: the differentiable wavefront (cfg.diff_wavefront)
+     at the reference workload with the flag on: 4 InverseRenderer Adam
+     steps (one tape-instance and one sweep launch a step, no warning, the
+     loss falling), K1's tape instance bit-equal to K1 (image, rays), the
+     sweep bit-equal to K3's warp form on its grid, three 8-row bands
+     against plain autograd through the plain wavefront (per row 1e-3),
+     albedo AD vs FD (5% + 1e-6); at 600 spheres the pool sweep bit-equal
+     to K3's pool form and 2 Adam steps; 40 lights against plain; 8
+     sharded bands within rtol 1e-4 of one device; the tape forward, the
+     sweep and the pair timed in turns with K1 + K3, the training step in
+     turns with the lockstep step; the tape's bytes.
  18. row-sharded rendering and training on one card (parallel/mesh.py,
      parallel/distributed.py) at the reference workload, 8 bands of 90
      rows on cuda:0: the frame bit-equal to the single-device frame (8
@@ -190,7 +203,9 @@ non-zero):
      scaled_grad_sweep_soft (the cooperative form's sweeps),
      scaled_grad_baseline,
      scaled_grad_baseline_soft (the per-lane chunked instance),
-     scaled_grad_tape (the cooperative form's forward); render, grad and
+     scaled_grad_tape (the cooperative form's forward), wave_tape,
+     wave_sweep and wave_sweep_pool (the differentiable wavefront's
+     pair); render, grad and
      scaled_render count the launches of phases 20-21 beside the main
      path's (`launches_by_path`).
 Then the script's wall time (and its time before phase 18), the card's
@@ -221,8 +236,9 @@ import torch
 # lights instance (past 16 lights; the 16-light kernel keeps its SASS,
 # KEPT_SASS), K3's lights
 # instances, its pool and chunked instances (their directory and, for the
-# pool's, lights repaired) and the cooperative chunked form's kernels at
-# their first counts.
+# pool's, lights repaired), the cooperative chunked form's kernels and the
+# differentiable wavefront's pair (K1's tape instance, the sweep and its
+# pool instance) at their first counts.
 KEPT_USAGE = {
     "render_kernel<1>": {"registers": 72, "spill_stores": 16},
     "coop_shadow_kernel<0>": {"registers": 40, "spill_stores": 12},
@@ -249,15 +265,20 @@ KEPT_USAGE = {
     "lights_render_kernel": {"registers": 96, "spill_stores": 290},
     "chunk_sweep_kernel<0>": {"registers": 64, "spill_stores": 552},
     "chunk_sweep_kernel<1>": {"registers": 64, "spill_stores": 644},
+    "merged_render_kernel<3>": {"registers": 64, "spill_stores": 880},
+    "wave_sweep_kernel": {"registers": 40, "spill_stores": 776},
+    "wave_sweep_pool_kernel": {"registers": 64, "spill_stores": 552},
 }
 
 
 # SHA-256 of the SASS (tools.sass_loops --digests) of the kernels whose
-# code the lights instances beside them must leave as it was: K3's warp
+# code the instances added beside them must leave as it was: K3's warp
 # form's and replaying form's 16-light instances, timed and stats, and
 # the cooperative scaled render kernel (the scaled main path's), as the
-# sources before those lights instances built them on an H100 with this
-# nvcc (tools.sass_loops --compare against that checkout lists them
+# sources before those lights instances built them; and K1, its counted
+# instance and K2 (merged_render_kernel<0>, <1>, <2>), as the sources
+# before K1's tape instance built them; on an H100 with this nvcc
+# (tools.sass_loops --compare against those checkouts lists them
 # identical).  A build by another toolkit is not comparable.
 KEPT_SASS = {
     "nvcc": "Cuda compilation tools, release 12.9, V12.9.86",
@@ -280,6 +301,12 @@ KEPT_SASS = {
             "8f836ea46018af04b513e9913beb7442cddb6d14920b03262b64c3aece08bedb",
         "coop_render_kernel<0>":
             "67a41a31b6dafea3a83ca6d6da83ccdccb692d98bfff91a12b6b2714651059d8",
+        "merged_render_kernel<0>":
+            "7eed620e22edd9eb7f16ca946945bbdc048c7d3fab1038ff1ad1406d7fda60a1",
+        "merged_render_kernel<1>":
+            "75ecb913aa3d3433cc4d3298b0ae565997f42fa45d5d9605f4d9edbd8435443f",
+        "merged_render_kernel<2>":
+            "3c4a90aadf96486f0f354a3e1fde8e5bf1f1bf6e5e273812c4c15cab2cad2fc0",
     }}
 
 
@@ -394,9 +421,9 @@ def main() -> int:
         got = usage.get(label, {})
         check(all(got.get(k) == v for k, v in want.items()),
               f"{label}: registers/spills {got}, expected {want}")
-    # the 16-light instances of K3's warp and replaying forms and the
-    # cooperative scaled render kernel: their SASS as the commit before
-    # their lights instances built it
+    # the 16-light instances of K3's warp and replaying forms, the
+    # cooperative scaled render kernel and K1's merged kernel's instances:
+    # their SASS as the commit before the instances beside them built it
     t1 = time.perf_counter()
     now = sass_loops.digests(sass_loops.disassemble(lib_path))
     nvcc = sass_loops.nvcc_version()
@@ -406,7 +433,7 @@ def main() -> int:
           "recorded_with": KEPT_SASS["nvcc"], "comparable": comparable,
           "identical": kept, "seconds": time.perf_counter() - t1})
     check(not comparable or all(kept.values()),
-          f"the 16-light kernels' SASS changed: {kept}")
+          f"the kept kernels' SASS changed: {kept}")
 
     # ---- 2. kernel vs plain, small size ---------------------------------
     small_cfg = RenderConfig(width=320, height=176, samples_per_pixel=2,
@@ -656,6 +683,7 @@ def main() -> int:
     probe = probe_phases(smi)
     pool = pool_phases(cfg, smi, usage)
     scaled_grad = scaled_grad_phases(cfg, smi, usage)
+    wave = wavefront_phases(smi, usage)
     before_sharded_s = time.perf_counter() - t_start
     sharded_phases(smi)
     t_new = time.perf_counter()
@@ -717,7 +745,7 @@ def main() -> int:
          "cycle_shares": parts["thread"]["cycle_shares"],
          "ptxas": usage.get("render_kernel<0>", {}),
          "vs_plain": {"tolerance": "bit-equal to the merged K1"}},
-        *grad, soft, *scaled, *stats, *probe, pool, *scaled_grad]
+        *grad, soft, *scaled, *stats, *probe, pool, *scaled_grad, *wave]
     for k in kernels:
         if k["name"] in new_paths:
             by_path = {"main_path": k["launches"], **new_paths[k["name"]]}
@@ -2794,6 +2822,408 @@ def scaled_grad_phases(cfg, smi, usage):
                          "image_bit_equal_to_scaled_render"]
                          for n, v in out.items()}}})
     return entries
+
+
+def wavefront_phases(smi, usage):
+    """Phase wavefront_grad: the differentiable wavefront
+    (cfg.diff_wavefront) at the reference workload with the flag on
+    (1280x720, spp 4, depth 10, 46 spheres): its main path, 4
+    InverseRenderer Adam steps on the albedo with no diff_wavefront
+    warning, one tape and one sweep launch a step and no K1 or K3, the
+    loss falling; K1's tape instance bit-equal (image, rays) to K1, the
+    sweep's d_packed bit-equal to K3's warp form on its grid, per row within 1e-3 x the row's max of autograd through the
+    plain wavefront on three 8-row bands, the albedo gradient against
+    central differences (the JAX test's gate, 5% + 1e-6); past 512 spheres
+    (600, crowded_scene) the pool sweep bit-equal to K3's pool form on the
+    full frame and 2 Adam steps on it (its main path); 40 lights
+    (many_lights_scene, 128x32, spp 2, depth 4) within 1e-3 x max of
+    plain; 8 row bands through make_sharded_value_and_grad within rtol
+    1e-4 (atol 1e-7) of one device, the JAX test's contract; timing with
+    CUDA events: the tape forward and the sweep alone and their sum, in
+    turns with K1 + the warp K3, the training step on the host clock in
+    turns with the lockstep step (the parent's route); the tape's bytes,
+    allocated and used; bounds from the plain version's work counters and
+    the tape's used bytes.  Returns the kernels' entries."""
+    import warnings
+
+    import numpy as np
+
+    from toypathtracer_torch import RenderConfig, make_scene
+    from toypathtracer_torch.inverse import (InverseRenderer,
+                                             make_sharded_value_and_grad,
+                                             render_loss)
+    from toypathtracer_torch.ops import cuda_grad, cuda_render
+    from toypathtracer_torch.ops import tracecore as tc
+    from toypathtracer_torch.parallel.mesh import make_mesh
+    from toypathtracer_torch.profiling import time_device_call
+    from toypathtracer_torch.render.wavefront import (camera_scalars,
+                                                      render_tile_grad_plain)
+    from toypathtracer_torch.tools import grad_stats
+    from toypathtracer_torch.tools.scenes import (crowded_scene,
+                                                  many_lights_scene)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = RenderConfig(width=1280, height=720, samples_per_pixel=4,
+                       max_depth=10, merged_wavefront=True,
+                       diff_wavefront=True)
+    lock = cfg.replace(diff_wavefront=False)
+    H, W = cfg.height, cfg.width
+    scene = make_scene(big=True).to(dev)
+    g = grad_stats.cotangent(H, W, 11, dev)
+
+    def with_warnings(fn):
+        """fn()'s value and the diff_wavefront warnings it raised."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+        return out, [str(w.message) for w in caught
+                     if "diff_wavefront" in str(w.message)]
+
+    # ---- the main path: Adam steps under the flag ------------------------
+    target, _ = cuda_render.render_frame(scene, cfg, 0)
+    rng = np.random.default_rng(7)
+    a_jit = rng.normal(0, 0.15, scene.albedo.shape).astype(np.float32)
+    a_jit[list(scene.emissive_ids)] = 0.0
+    start = scene.replace(albedo=torch.clamp(
+        scene.albedo + torch.from_numpy(a_jit).to(dev), 0.02, 0.98))
+
+    def fit(c, steps, sc=start, tgt=target):
+        return InverseRenderer(c, tgt, trainable=("albedo",),
+                               learning_rate=2e-2).fit(sc, steps=steps,
+                                                       resample=False)[1]
+    zero_launches()
+    losses, warned = with_warnings(lambda: fit(cfg, 4))
+    torch.cuda.synchronize()
+    main_launches = launched()
+    emit({"phase": "wavefront_grad", "part": "training_path",
+          "losses": losses,
+          "launches": main_launches, "warnings": warned})
+    check(not warned, f"the flat route warned: {warned}")
+    check(main_launches == {"wave_tape": 4, "wave_sweep": 4},
+          f"4 wavefront steps launched {main_launches}")
+    check(losses[-1] < losses[0], f"wavefront losses did not fall: {losses}")
+
+    # ---- the pair against K1 and K3 at full size -------------------------
+    img_t, rays_t, tape = cuda_grad.render_tile_wave_tape(scene, cfg, 0, 0,
+                                                          0, H, W)
+    d_t = cuda_grad.sweep_wave_tape(scene, cfg, g, tape)
+    d_t2 = cuda_grad.sweep_wave_tape(scene, cfg, g, tape)
+    img_k1, rays_k1 = cuda_render.render_tile(scene, cfg, 0, 0, 0, H, W)
+    img_k3, rays_k3, d_k3 = cuda_grad.render_tile_grad_form(
+        scene, lock, 0, g, 0, 0, H, W, "warp")
+    torch.cuda.synchronize()
+    depth = tape["depth"].long()
+    traced = int(depth.sum())
+    n_lights = len(scene.emissive_ids)
+    words = -(-n_lights // 32)
+    allocated = cuda_grad.tape_bytes(n_lights, cfg, H, W)
+    used = traced * (64 + 4 * words) + 4 * depth.numel()
+    del tape
+    eq = {"tape_image_bit_equal_to_k1": bool(torch.equal(img_t, img_k1)),
+          "tape_rays_equal_to_k1": int(rays_t) == int(rays_k1),
+          "sweep_bit_equal_to_warp_k3": bool(torch.equal(d_t, d_k3)),
+          "k3_image_bit_equal": bool(torch.equal(img_k3, img_t)),
+          "sweep_deterministic": bool(torch.equal(d_t, d_t2))}
+    emit({"phase": "wavefront_grad", "part": "pair",
+          "rays": int(rays_t),
+          "traced_rays": traced, "tape_bytes_allocated": allocated,
+          "tape_bytes_used": used, **eq})
+    check(all(eq.values()), f"the wavefront pair: {eq}")
+
+    # ---- against plain autograd on three 8-row bands ---------------------
+    bands = (0, 356, 712)
+    plain_t0 = time.perf_counter()
+    rel, err = [], 0.0
+    for y0 in bands:
+        gb = g[y0:y0 + 8].contiguous()
+        _, r_k, d_b = cuda_grad.render_tile_grad(scene, cfg, 0, gb, 0, y0, 8,
+                                                 W)
+        _, r_p, d_p = render_tile_grad_plain(scene, cfg, 0, gb, 0, y0, 8, W)
+        torch.cuda.synchronize()
+        check(int(r_k) == int(r_p), f"band {y0}: rays")
+        rel.append(max(row_rel(d_b, d_p)))
+        err = max(err, float((d_b - d_p).abs().max()))
+    torch.cuda.synchronize()
+    plain_bands_s = time.perf_counter() - plain_t0
+
+    # ---- finite differences on albedo[2, 0] -----------------------------
+    n_px = float(H * W * 3)
+    _, _, d_mean = cuda_grad.render_tile_grad(
+        scene, cfg, 0, torch.full((H, W, 3), 1.0 / n_px, device=dev), 0, 0,
+        H, W)
+    tab = cuda_render.pack_scene(scene)
+    vals = []
+    for sign in (1.0, -1.0):
+        t = tab.clone()
+        t[6, 2] += sign * 1e-3
+        im, _ = cuda_render.render_tile(scene, cfg, 0, 0, 0, H, W, tab=t)
+        vals.append(float(im.double().mean()))
+    g_fd = (vals[0] - vals[1]) / 2e-3
+    g_ad = float(d_mean[6, 2])
+    fd_ok = g_ad != 0.0 and abs(g_ad - g_fd) <= 0.05 * abs(g_fd) + 1e-6
+    emit({"phase": "wavefront_grad", "part": "vs_plain",
+          "bands": bands,
+          "row_rel_max": rel, "max_abs": err, "plain_bands_s": plain_bands_s,
+          "albedo_2_0": {"ad": g_ad, "fd": g_fd, "ok": fd_ok}})
+    check(max(rel) <= 1e-3, f"wavefront bands vs plain: {rel}")
+    check(fd_ok, f"wavefront albedo AD {g_ad} vs FD {g_fd}")
+
+    # ---- past 512 spheres: the pool sweep --------------------------------
+    crowd = crowded_scene(extra=554).to(dev)
+    img_c, rays_c, tape_c = cuda_grad.render_tile_wave_tape(crowd, cfg, 0, 0,
+                                                            0, H, W)
+    d_c = cuda_grad.sweep_wave_tape(crowd, cfg, g, tape_c)
+    crowd_pool = dict(cuda_grad.last_pool)
+    img_cp, rays_cp, d_cp = cuda_grad.render_tile_grad_form(
+        crowd, lock, 0, g, 0, 0, H, W, "pool")
+    pool_ms = time_device_call(cuda_grad.sweep_wave_tape, crowd, cfg, g,
+                               tape_c, repeats=3)[0] * 1e3
+    depth_c = tape_c["depth"].long()
+    traced_c = int(depth_c.sum())
+    used_c = traced_c * (64 + 4 * words) + 4 * depth_c.numel()
+    adj_ops_c = 150 * traced_c + 270 * (int(rays_c) - traced_c)
+    del tape_c
+    # one 8-row band against plain autograd (the pool sweep on the band)
+    gb = g[356:364].contiguous()
+    _, _, d_cb = cuda_grad.render_tile_grad(crowd, cfg, 0, gb, 0, 356, 8, W)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, d_cbp = render_tile_grad_plain(crowd, cfg, 0, gb, 0, 356, 8, W)
+    torch.cuda.synchronize()
+    plain_c_ms = (time.perf_counter() - t0) * 1e3
+    crowd_rel = max(row_rel(d_cb, d_cbp))
+    crowd_err = float((d_cb - d_cbp).abs().max())
+    target_c, _ = cuda_render.render_frame(crowd, cfg, 0)
+    start_c = crowd.replace(albedo=torch.clamp(crowd.albedo * 0.8, 0.02,
+                                               0.98))
+    zero_launches()
+    losses_c, warned_c = with_warnings(lambda: fit(cfg, 2, start_c,
+                                                   target_c))
+    torch.cuda.synchronize()
+    crowd_launches = launched()
+    pool_eq = {"image_bit_equal": bool(torch.equal(img_c, img_cp)),
+               "rays_equal": int(rays_c) == int(rays_cp),
+               "d_packed_bit_equal": bool(torch.equal(d_c, d_cp))}
+    emit({"phase": "wavefront_grad", "part": "pool",
+          "spheres": crowd.n_spheres,
+          "launches": crowd_launches, "losses": losses_c,
+          "warnings": warned_c, "sweep_ms": pool_ms, "pool": crowd_pool,
+          "tape_bytes_used": used_c, "band_row_rel_max": crowd_rel,
+          "band_plain_ms": plain_c_ms, **pool_eq})
+    check(all(pool_eq.values()), f"the pool sweep: {pool_eq}")
+    check(crowd_rel <= 1e-3, f"600 spheres: band vs plain {crowd_rel}")
+    check(crowd_launches == {"wave_tape": 2, "wave_sweep_pool": 2}
+          and not warned_c, f"600-sphere steps launched {crowd_launches}")
+    check(all(np.isfinite(losses_c)), "600-sphere losses finite")
+
+    # ---- 40 lights --------------------------------------------------------
+    many = many_lights_scene().to(dev)
+    small = cfg.replace(width=128, height=32, samples_per_pixel=2,
+                        max_depth=4)
+    gm = grad_stats.cotangent(32, 128, 5, dev)
+    _, r_m, d_m = cuda_grad.render_tile_grad(many, small, 0, gm, 0, 0, 32,
+                                             128)
+    _, r_mp, d_mp = render_tile_grad_plain(many, small, 0, gm, 0, 0, 32, 128)
+    _, _, d_mk = cuda_grad.render_tile_grad_form(
+        many, small.replace(diff_wavefront=False), 0, gm, 0, 0, 32, 128,
+        "warp")
+    torch.cuda.synchronize()
+    many_rel = max(row_rel(d_m, d_mp))
+    many_eq = bool(torch.equal(d_m, d_mk))
+    emit({"phase": "wavefront_grad", "part": "many_lights",
+          "lights": len(many.emissive_ids),
+          "row_rel_max": many_rel, "rays": int(r_m),
+          "rays_plain": int(r_mp), "bit_equal_to_k3": many_eq})
+    check(many_rel <= 1e-3 and int(r_m) == int(r_mp) and many_eq,
+          "40 lights: the wavefront pair")
+
+    # ---- 8 row bands through the sharded step ----------------------------
+    fields = ("center", "radius", "albedo", "emissive")
+    pert = scene.replace(center=scene.center + 0.03)
+    zero_launches()
+    (ln, gn), warned_s = with_warnings(
+        lambda: make_sharded_value_and_grad(cfg, make_mesh([dev] * 8),
+                                            fields=fields)(pert, target, 1))
+    torch.cuda.synchronize()
+    sharded_launches = launched()
+    leaves = {f: getattr(pert, f).detach().requires_grad_(True)
+              for f in fields}
+    l1 = render_loss(pert.replace(**leaves), target, cfg, 1)
+    g1 = dict(zip(fields, torch.autograd.grad(l1, list(leaves.values()))))
+    contract = {f: bool(((gn[f] - g1[f]).abs()
+                         <= 1e-4 * g1[f].abs() + 1e-7).all())
+                for f in fields}
+    worst = {f: float((gn[f] - g1[f]).abs().max())
+             / max(float(g1[f].abs().max()), 1e-30) for f in fields}
+    l1 = float(l1.detach())
+    loss_rel = abs(float(ln) - l1) / abs(l1)
+    emit({"phase": "wavefront_grad", "part": "sharded",
+          "bands": 8,
+          "launches": sharded_launches, "loss_rel": loss_rel,
+          "contract": contract, "rel_max": worst, "warnings": warned_s})
+    check(sharded_launches == {"wave_tape": 8, "wave_sweep": 8}
+          and not warned_s, f"sharded steps launched {sharded_launches}")
+    check(loss_rel <= 1e-6 and all(contract.values()),
+          f"sharded wavefront vs one device: {contract}, {loss_rel}")
+
+    # ---- timing ------------------------------------------------------------
+    def tape_only():
+        return cuda_grad.render_tile_wave_tape(scene, cfg, 0, 0, 0, H, W)
+    keep = tape_only()[2]
+
+    def pair():
+        _, _, t = tape_only()
+        return cuda_grad.sweep_wave_tape(scene, cfg, g, t)
+
+    def lockstep_pair():
+        cuda_render.render_tile(scene, cfg, 0, 0, 0, H, W)
+        return cuda_grad.render_tile_grad_form(scene, lock, 0, g, 0, 0, H, W,
+                                               "warp")
+    runs = {"pair": [], "k1_k3": []}
+    for k in ("pair", "k1_k3", "k1_k3", "pair"):
+        runs[k].append(time_device_call(
+            pair if k == "pair" else lockstep_pair, repeats=3)[0] * 1e3)
+    tape_ms = time_device_call(tape_only, repeats=3)[0] * 1e3
+    sweep_ms = time_device_call(cuda_grad.sweep_wave_tape, scene, cfg, g,
+                                keep, repeats=3)[0] * 1e3
+    del keep
+    k1_ms = time_device_call(cuda_render.render_tile, scene, cfg, 0, 0, 0, H,
+                             W, repeats=3)[0] * 1e3
+    k3_ms = time_device_call(cuda_grad.render_tile_grad_form, scene, lock, 0,
+                             g, 0, 0, H, W, "warp", repeats=3)[0] * 1e3
+    steps = {"wave": [], "lockstep": []}
+    for k in ("lockstep", "wave", "wave", "lockstep"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit(cfg if k == "wave" else lock, 3)
+        torch.cuda.synchronize()
+        steps[k].append((time.perf_counter() - t0) / 3 * 1e3)
+    # the plain wavefront's forward on the card
+    mat = torch.tensor(scene.mat_type, dtype=torch.int64, device=dev)
+    yy, xx = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    roots = RootCount(tab)
+    t0 = time.perf_counter()
+    col, work = tc.render_pixels_wavefront(
+        tab, mat, scene.emissive_ids, cfg, camera_scalars(scene, cfg),
+        xx.reshape(-1), yy.reshape(-1), 0)
+    torch.cuda.synchronize()
+    plain_wave_ms = (time.perf_counter() - t0) * 1e3
+    plain_wave_img = torch.stack(col, dim=-1).reshape(H, W, 3)
+    # the bound terms of K1's function on this frame (phase 4's count)
+    _, work_r = tc.render_pixels(
+        tab, mat, scene.emissive_ids, cfg, camera_scalars(scene, cfg),
+        xx.reshape(-1), yy.reshape(-1), 0, traversal=roots)
+    shadow = int(work_r.shadow.sum())
+    check(int(work.traced.sum()) == traced == int(work_r.traced.sum()),
+          "the tape's bounces != the plain traced rays")
+    fwd_ops = (16 * scene.n_spheres * traced + 3 * roots.hit_roots
+               + 16 * shadow + 3 * roots.light_roots
+               + 20 * int(work_r.occlusion_tests.sum()))
+    adj_ops = 150 * traced + 270 * shadow
+    scene_bytes = 4 * (14 * scene.n_spheres + scene.n_spheres + n_lights + 22)
+    img_bytes = 4 * 3 * H * W
+    bound = {
+        "tape": max(fwd_ops / 67e12, (scene_bytes + img_bytes + used)
+                    / 3.35e12) * 1e3,
+        "sweep": max(adj_ops / 67e12, (scene_bytes + img_bytes + used
+                                       + 4 * 14 * scene.n_spheres)
+                     / 3.35e12) * 1e3}
+    bound_by = {"tape": "operations" if fwd_ops / 67e12 >= (
+        scene_bytes + img_bytes + used) / 3.35e12 else "bytes",
+        "sweep": "operations" if adj_ops / 67e12 >= (
+            scene_bytes + img_bytes + used + 56 * scene.n_spheres)
+        / 3.35e12 else "bytes"}
+    # the pair's bound: K3's operations (the forward's and the adjoint's)
+    # plus the tape's used bytes at the memory rate
+    k3_ops_ms = (fwd_ops + adj_ops) / 67e12 * 1e3
+    pair_bound = k3_ops_ms + used / 3.35e12 * 1e3
+    bytes_c = (4 * 15 * crowd.n_spheres + 4 * len(crowd.emissive_ids)
+               + img_bytes + used_c + 4 * 14 * crowd.n_spheres)
+    bound_c = max(adj_ops_c / 67e12, bytes_c / 3.35e12) * 1e3
+    pair_ms = sum(runs["pair"]) / 2
+    k1k3_ms = sum(runs["k1_k3"]) / 2
+    timing = {"phase": "wavefront_grad", "part": "timing",
+              "nvidia_smi": smi,
+              "pair_ms": pair_ms, "pair_runs": runs["pair"],
+              "k1_plus_k3_ms": k1k3_ms, "k1_plus_k3_runs": runs["k1_k3"],
+              "tape_ms": tape_ms, "sweep_ms": sweep_ms,
+              "tape_plus_sweep_ms": tape_ms + sweep_ms,
+              "k1_ms": k1_ms, "k3_ms": k3_ms,
+              "step_ms": sum(steps["wave"]) / 2,
+              "lockstep_step_ms": sum(steps["lockstep"]) / 2,
+              "step_runs": steps,
+              "plain_wavefront_forward_ms": plain_wave_ms,
+              "plain_bands_ms": plain_bands_s * 1e3,
+              "tape_bytes_allocated": allocated, "tape_bytes_used": used,
+              "bound_ms": bound, "bound_by": bound_by,
+              "pair_bound_ms": pair_bound, "k3_ops_ms": k3_ops_ms,
+              "ptxas": {k: usage.get(k, {}) for k in (
+                  "merged_render_kernel<3>", "wave_sweep_kernel",
+                  "wave_sweep_pool_kernel")},
+              "bound_peak": "67 TFLOP/s FP32, 3.35 TB/s (H100 SXM, 700 W)",
+              "seconds": time.perf_counter() - t_phase}
+    emit(timing)
+    check(bool(torch.equal(plain_wave_img, img_t.reshape(H, W, 3)))
+          or float((plain_wave_img - img_t).abs().max()) <= 1e-3,
+          "plain wavefront forward vs the tape instance")
+    tol = ("the tape instance's image and rays bit-equal to K1's; the "
+           "sweep's d_packed bit-equal to K3's warp form on its grid (the "
+           "pool form's at 600 spheres), per row <= 1e-3 x row max of "
+           "plain autograd on three 8-row bands and at 40 lights, albedo "
+           "FD <= 5% + 1e-6")
+    src = "toypathtracer_tpu/ops/tracecore.py:2223"
+    return [
+        {"name": "wave_tape", "route": "cuda",
+         "source": "toypathtracer_torch/csrc/render.cu",
+         "replaces": src + " (jnp under XLA, not a Pallas kernel)",
+         "launches": main_launches.get("wave_tape", 0),
+         "launches_by_path": {"main_path": main_launches.get("wave_tape",
+                                                             0),
+                              "crowded_600": crowd_launches.get(
+                                  "wave_tape", 0)},
+         "max_abs_err": float((img_t - plain_wave_img).abs().max()),
+         "ms": tape_ms, "plain_ms": plain_wave_ms, "bound_ms": bound["tape"],
+         "bound_by": bound_by["tape"], "library_ms": None,
+         "form": "merged_render_kernel<3> (K1's tape instance)",
+         "ptxas": usage.get("merged_render_kernel<3>", {}),
+         "vs_plain": {"tolerance": tol,
+                      "bit_equal_to_k1": eq["tape_image_bit_equal_to_k1"]}},
+        {"name": "wave_sweep", "route": "cuda",
+         "source": "toypathtracer_torch/csrc/wavegrad.cu",
+         "replaces": src + " (jnp under XLA, not a Pallas kernel)",
+         "launches": main_launches.get("wave_sweep", 0),
+         "max_abs_err": err, "ms": sweep_ms,
+         "plain_ms": plain_bands_s * 1e3,
+         "plain_ms_rows": 24, "bound_ms": bound["sweep"],
+         "bound_by": bound_by["sweep"], "library_ms": None,
+         "form": "wave_sweep_kernel (coopgrad.cuh sweep_tiles, shared "
+                 "tables)",
+         "pair_ms": pair_ms, "pair_bound_ms": pair_bound,
+         "baseline_ms": k1k3_ms,
+         "baseline": "K1 + K3's warp form, timed in turns with the pair",
+         "ptxas": usage.get("wave_sweep_kernel", {}),
+         "vs_plain": {"tolerance": tol, "band_row_rel_max": max(rel),
+                      "many_lights_row_rel_max": many_rel,
+                      "bit_equal_to_warp_k3":
+                          eq["sweep_bit_equal_to_warp_k3"]}},
+        {"name": "wave_sweep_pool", "route": "cuda",
+         "source": "toypathtracer_torch/csrc/wavegrad.cu",
+         "replaces": src + " (jnp under XLA, not a Pallas kernel)",
+         "launches": crowd_launches.get("wave_sweep_pool", 0),
+         "max_abs_err": crowd_err,
+         "ms": pool_ms, "plain_ms": plain_c_ms, "plain_ms_rows": 8,
+         "bound_ms": bound_c,
+         "bound_by": "bytes" if bytes_c / 3.35e12 >= adj_ops_c / 67e12
+         else "operations",
+         "library_ms": None,
+         "form": "wave_sweep_pool_kernel (a PoolTable a warp)",
+         "ptxas": usage.get("wave_sweep_pool_kernel", {}),
+         "vs_plain": {"tolerance": "bit-equal to K3's pool form on its "
+                                   "grid; an 8-row band per row <= 1e-3 x "
+                                   "row max of plain autograd",
+                      "band_row_rel_max": crowd_rel, **pool_eq}}]
 
 
 def grads_vs(got, want):

@@ -39,7 +39,13 @@ merged K1's and its five counter planes equal to the per-thread form's
 (at 600 spheres, past that form's cap, to the plain version's).
 Issue-rate probe (T1):
 each case at 64 trips within 1e-6 relative of its plain version; the
-launch floor (T2) positive and finite.
+launch floor (T2) positive and finite.  The differentiable wavefront's
+pair (K1's tape instance and the sweep over its tape): image and rays
+bit-equal to K1's, d_packed bit-equal to K3's warp form (its pool form at
+600 spheres) and per row within 1e-3 x the row's max of plain autograd
+through the plain wavefront; the tape freed at the first backward and
+written again for a retained graph's second; a tape that does not fit
+raises.
 """
 
 import numpy as np
@@ -1056,3 +1062,88 @@ def test_viewer_batch_matches_single_steps_on_the_card(card):
     vs.step_once()
     assert cuda_render.launches["render"] == before
     assert vs.sess.state.frame == 1 and vs.sess.state.accum.is_cuda
+
+
+WAVE = dict(merged_wavefront=True, diff_wavefront=True)
+
+
+@pytest.mark.parametrize("case", ["big", "crowded_600", "forty_lights"])
+def test_wave_pair_bit_equal_to_k1_and_k3(card, case):
+    """The differentiable wavefront's pair: K1's tape instance gives K1's
+    image and rays bit for bit; the sweep over its tape gives K3's
+    cotangent bit for bit on K3's grid (the warp form's, at 600 spheres
+    the pool form's), and per row within 1e-3 x the row's max of autograd
+    through the plain wavefront; one tape and one sweep launch."""
+    from toypathtracer_torch.tools.scenes import many_lights_scene
+    scene = {"big": make_scene(big=True), "crowded_600":
+             crowded_scene(extra=554),
+             "forty_lights": many_lights_scene()}[case].to(card)
+    cfg = RenderConfig(width=64, height=32, samples_per_pixel=2, max_depth=4,
+                       **WAVE)
+    g = torch.from_numpy(np.random.RandomState(9).rand(32, 64, 3)
+                         .astype(np.float32)).to(card)
+    args = (scene, cfg, 1, 0, 0, 32, 64)
+    k1_img, k1_rays = cuda_render.render_tile(*args)
+    pooled = scene.n_spheres > cuda_render.MAX_SPHERES
+    form, sweep = ("pool", "wave_sweep_pool") if pooled else \
+        ("warp", "wave_sweep")
+    lock = cfg.replace(diff_wavefront=False)
+    before = dict(cuda_grad.launches)
+    img, rays, tape = cuda_grad.render_tile_wave_tape(*args)
+    d = cuda_grad.sweep_wave_tape(scene, cfg, g, tape)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in cuda_grad.launches.items()
+            if v != before[k]} == {"wave_tape": 1, sweep: 1}
+    assert torch.equal(img, k1_img) and int(rays) == int(k1_rays)
+    _, _, d_k3 = cuda_grad.render_tile_grad_form(scene, lock, 1, g, 0, 0, 32,
+                                                 64, form)
+    assert torch.equal(d, d_k3)
+    _, rays_p, d_p = render_tile_grad_plain(scene, cfg, 1, g, 0, 0, 32, 64)
+    assert int(rays_p) == int(rays)
+    assert_rows_close(d, d_p, 1e-3)
+
+
+def test_wave_autograd_across_steps_and_a_retained_graph(card):
+    """Under cfg.diff_wavefront render_frame_diff on a card takes the pair
+    with no warning: each step one tape and one sweep launch and no K3,
+    its albedo gradient bit-equal to render_tile_grad's; two losses on one
+    render (retain_graph=True): the second backward writes the tape again
+    and each gets its own weights' cotangent bit for bit.  A tape that
+    does not fit raises, naming its bytes."""
+    import warnings
+    scene = make_scene(big=True).to(card)
+    cfg = RenderConfig(width=64, height=32, samples_per_pixel=2, max_depth=4,
+                       **WAVE)
+    rs = np.random.RandomState(4)
+    g1, g2 = (torch.from_numpy(rs.rand(32, 64, 3).astype(np.float32))
+              .to(card) for _ in range(2))
+
+    def want(albedo, g):
+        return cuda_grad.render_tile_grad(
+            scene.replace(albedo=albedo.detach().clone()), cfg, 0, g, 0, 0,
+            32, 64)[2][6:9].t()
+
+    def launched(before):
+        return {k: v - before[k] for k, v in cuda_grad.launches.items()
+                if v != before[k]}
+    albedo = scene.albedo.clone().requires_grad_(True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        d = want(albedo, g1)
+        before = dict(cuda_grad.launches)
+        img, _ = cuda_grad.render_frame_diff(scene.replace(albedo=albedo),
+                                             cfg, 0)
+        (img * g1).sum().backward()
+    assert launched(before) == {"wave_tape": 1, "wave_sweep": 1}
+    assert torch.equal(albedo.grad, d)
+    d1, d2 = want(albedo, g1), want(albedo, g2)
+    img, _ = cuda_grad.render_frame_diff(scene.replace(albedo=albedo), cfg, 0)
+    before = dict(cuda_grad.launches)
+    a1, = torch.autograd.grad((img * g1).sum(), albedo, retain_graph=True)
+    a2, = torch.autograd.grad((img * g2).sum(), albedo)
+    assert launched(before) == {"wave_tape": 1, "wave_sweep": 2}
+    assert torch.equal(a1, d1) and torch.equal(a2, d2)
+    huge = RenderConfig(width=1280, height=720, samples_per_pixel=255,
+                        max_depth=255, **WAVE)
+    with pytest.raises(MemoryError, match="bytes"):
+        cuda_grad.render_tile_wave_tape(scene, huge, 0, 0, 0, 720, 1280)

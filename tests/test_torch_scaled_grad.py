@@ -324,21 +324,27 @@ def test_lights_occlusion_proximity_matches_jax():
 
 
 def test_diff_wavefront_warns_on_every_gradient_route():
-    """cfg.diff_wavefront: the port's gradient routes run the lockstep
-    form and say so, as the JAX package does where it falls back
-    (ops/tracecore.py:2554-2568): the flat route (render_frame_diff and
-    the gradient it calls) and the scaled route; the flag's validation
-    stays JAX's (soft estimator with it: ValueError)."""
+    """cfg.diff_wavefront: the gradient routes that run the lockstep form
+    under it say so, as the JAX package does where it falls back
+    (ops/tracecore.py:2554-2568): the scaled route (a chunked port) and
+    K3's own forms (the in-kernel route); the flat route
+    (render_frame_diff and the gradient it calls) takes the wavefront and
+    does not warn (tests/test_torch_wavefront.py holds its values); the
+    flag's validation stays JAX's (soft estimator with it: ValueError)."""
     cfg = RenderConfig(width=8, height=4, samples_per_pixel=1, max_depth=2,
                        diff_wavefront=True, merged_wavefront=True)
     scene = make_scene(big=False)
     leaves = {f: getattr(scene, f).clone().requires_grad_(True)
               for f in cuda_grad.PARAM_FIELDS}
-    with pytest.warns(UserWarning, match="diff_wavefront ignored.*lockstep"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         img, _ = cuda_grad.render_frame_diff(scene.replace(**leaves), cfg, 0,
                                              device="cpu")
         img.sum().backward()
     assert torch.isfinite(leaves["albedo"].grad).all()
+    with pytest.warns(UserWarning, match="diff_wavefront ignored.*lockstep"):
+        cuda_grad.render_tile_grad_form(scene, cfg, 0, torch.ones(4, 8, 3),
+                                        0, 0, 4, 8, "warp")
     s = make_scaled_scene(n=800, chunk=128, extent=30.0)
     center = s.center.clone().requires_grad_(True)
     with pytest.warns(UserWarning, match="diff_wavefront ignored.*lockstep"):

@@ -98,16 +98,22 @@ class RenderConfig:
 
 
 def warn_diff_wavefront(cfg: RenderConfig):
-    """Every gradient route of the port runs the lockstep differentiable
-    form; the JAX package's differentiable wavefront (cfg.diff_wavefront,
-    tracecore.render_pixels_fused_merged) is not ported yet (ROADMAP.md
-    queue 1 item 14).  Where it is asked for, say so, as the JAX package
-    does where it falls back (ops/tracecore.py:2554-2568): a silently
-    mislabeled A/B wastes the time it was run for."""
+    """Where cfg.diff_wavefront asks for the differentiable wavefront on a
+    route that runs the lockstep differentiable form instead, say so, with
+    the JAX package's words (ops/tracecore.py:2554-2568: a silently
+    mislabeled A/B wastes the time it was run for).  The port falls back
+    where the JAX package does: the exact-shadow samplers of the parity
+    route (ops/tracecore.render_pixels_diff with CPU_SAMPLERS), the
+    chunked scene (ops/cuda_scaled's gradient routes) and the in-kernel
+    gradient route (K3's forms called as such, ops/cuda_grad.
+    render_tile_grad_form; the JAX package's Pallas gradient kernel).  The
+    flat scene's differentiable renders take the wavefront and do not
+    warn."""
     if cfg.diff_wavefront:
         warnings.warn(
-            "cfg.diff_wavefront ignored: the port's gradient routes run the "
-            "lockstep differentiable form instead", stacklevel=3)
+            "cfg.diff_wavefront ignored: exact-shadow samplers, chunked "
+            "ports and the in-kernel (unrolled) gradient route use the "
+            "lockstep differentiable form", stacklevel=3)
 
 
 def resolve_device(device) -> torch.device:

@@ -107,7 +107,10 @@ TPT_HD bool occluded_flat(const FlatView& S, V3 pos, V3 l, int light,
 }
 
 // NEE (trace.cuh nee) for the warp: item 2 above.  Every lane calls it;
-// lanes with lambert false draw and count nothing and get 0.
+// lanes with lambert false draw and count nothing and get 0.  A counter
+// with kTape set (the tape instance of csrc/render.cu) receives each
+// Lambert lane's seen lights, 32 to a word (see_word), for any number of
+// lights; kTape false compiles to the loop without it.
 template <class W, class Cnt>
 TPT_WARP V3 nee_warp(const W& w, const FlatView& S, const RenderParams& p,
                      bool lambert, V3 pos, V3 normal, V3 rd, V3 alb,
@@ -124,6 +127,7 @@ TPT_WARP V3 nee_warp(const W& w, const FlatView& S, const RenderParams& p,
   unsigned* occ = reinterpret_cast<unsigned*>(queue + G * WD);
   V3 light_e = v3(0.0f, 0.0f, 0.0f);
   const V3 nl = dot(normal, rd) < 0.0f ? normal : neg(normal);
+  uint32_t word = 0;  // kTape: the seen lights of the current 32
   for (int k0 = 0; k0 < S.n_lights; k0 += G) {
     const int g = S.n_lights - k0 < G ? S.n_lights - k0 : G;
     // the lanes' shadow rays of this group's lights, light by light
@@ -174,6 +178,15 @@ TPT_WARP V3 nee_warp(const W& w, const FlatView& S, const RenderParams& p,
     w.sync();
     // the visible lights' contributions, in light order
     for (int j = 0; j < g; ++j) {
+      if constexpr (Cnt::kTape) {
+        const int k = k0 + j;
+        if (((cands >> j) & 1u) && !((occ[j] >> lane) & 1u))
+          word |= 1u << (k & 31);
+        if ((k & 31) == 31 || k == S.n_lights - 1) {
+          if (lambert) cnt.see_word(k >> 5, word);
+          word = 0;
+        }
+      }
       if (!((cands >> j) & 1u) || ((occ[j] >> lane) & 1u)) continue;
       const int e = S.lights[k0 + j];
       const int i = j * WD + lane;

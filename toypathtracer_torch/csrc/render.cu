@@ -14,7 +14,13 @@
 // each warp's NEE scratch are always in shared memory.  Its counted
 // instance (merged_render_kernel<1>) adds the loop's iterations, busy lanes
 // and cycles by part (merged.cuh kSt*).  K4 (ops/cuda_grad.render_tile_lockstep) launches
-// the same kernel.
+// the same kernel.  Its tape instance (merged_render_kernel<3>, the
+// counter tape.cuh's TapeSink) is the differentiable wavefront's forward
+// (RenderConfig.diff_wavefront; the JAX package's jnp route
+// tracecore.render_pixels_fused_merged(differentiable=True)): K1's image
+// and rays, bit for bit, and each bounce's carry record written to a
+// frame-sized FrameTape that csrc/wavegrad.cu's sweep reads back.  The
+// other instances keep their parameters and code.
 //
 // render_kernel<0> is the per-thread kernel it replaced, kept as the
 // baseline it is held bit-equal to and timed against: one thread per pixel
@@ -59,8 +65,11 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "flat.cuh"
 #include "launch.cuh"
+#include "tape.cuh"
 
 namespace {
 
@@ -340,9 +349,12 @@ size_t merged_floats(const tpt::RenderParams* p, bool staged) {
 }
 
 // The merged kernel's instances: the timed K1, its counted instance
-// (merged.cuh LoopStats, adding kStSlots totals to MergedOut::stats), and
-// K2's stats instance (merged.cuh TripStats over the MergedOut grid).
-enum { kMergedTimed = 0, kMergedCounted = 1, kMergedStats = 2 };
+// (merged.cuh LoopStats, adding kStSlots totals to MergedOut::stats), K2's
+// stats instance (merged.cuh TripStats over the MergedOut grid), and the
+// differentiable wavefront's forward, the tape instance (tape.cuh
+// TapeSink, writing a FrameTape).
+enum { kMergedTimed = 0, kMergedCounted = 1, kMergedStats = 2,
+       kMergedTape = 3 };
 
 // What an instance writes besides the image and the rays: the counted
 // instance's totals; the stats instance's padded (grid_h, grid_w) tile
@@ -356,11 +368,20 @@ struct MergedOut {
   int32_t* depth;
 };
 
+// The last parameter of an instance: the tape instance's FrameTape, the
+// others' MergedOut (their parameters, and so their code, stay as they
+// were before the tape instance).
+template <int kMode>
+using MergedOutOf = typename std::conditional<kMode == kMergedTape,
+                                              tpt::FrameTape, MergedOut>::type;
+
 // K1 (csrc/flat.cuh, merged.cuh) and its instances (kMode).  sph: the (n,
 // 4) sphere records in device memory; staged: copy them, the table, the
 // material and emissive ids into shared memory first.  next_tile: one int
 // zeroed by the caller.  The stats instance walks x's padded grid of the
-// (p.height, p.width) image; its image and rays are K1's, bit for bit.
+// (p.height, p.width) image; its image and rays are K1's, bit for bit, as
+// are the tape instance's, which writes each bounce's record to the
+// FrameTape x.
 template <int kMode>
 __global__ void __launch_bounds__(kMergedThreads, kMergedBlocks)
 merged_render_kernel(const float* __restrict__ tab,
@@ -370,7 +391,7 @@ merged_render_kernel(const float* __restrict__ tab,
                      const float* __restrict__ cam, tpt::RenderParams p,
                      int staged, float* __restrict__ out,
                      unsigned long long* __restrict__ rays,
-                     int* __restrict__ next_tile, MergedOut x) {
+                     int* __restrict__ next_tile, MergedOutOf<kMode> x) {
   extern __shared__ float4 smem4[];
   __shared__ unsigned long long warp_rays[kMergedWarps];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -403,6 +424,10 @@ merged_render_kernel(const float* __restrict__ tab,
       ts.work = x.work;
       ts.depth = x.depth;
       count = tpt::render_tiles_merged(w, S, s_cam, p, next_tile, out, ts);
+    } else if constexpr (kMode == kMergedTape) {
+      tpt::TapeSink sink;
+      sink.tape = x;
+      count = tpt::render_tiles_merged(w, S, s_cam, p, next_tile, out, sink);
     } else {
       tpt::NoCoopCount none;
       count = tpt::render_tiles_merged(w, S, s_cam, p, next_tile, out, none);
@@ -452,20 +477,27 @@ size_t smem_bytes(const tpt::RenderParams* p) {
 
 // A merged instance's launch over the (h, w) pixel span of p in 16x2
 // tiles: as many blocks as the tiles need, at most as many of the timed
-// instance as fit on the card at once (the others deal tiles as it does).
+// instance as fit on the card at once (the others deal tiles as it does);
+// the tape instance, as many of its own as fit.
 template <int kMode>
 cudaError_t launch_merged(const float* tab, const tpt::Sphere4* sph,
                           const int32_t* mat, const int32_t* lights,
                           const float* cam, const tpt::RenderParams* p,
                           int h, int w, float* out, unsigned long long* rays,
-                          int* next_tile, const MergedOut& x, void* stream) {
+                          int* next_tile, const MergedOutOf<kMode>& x,
+                          void* stream) {
   const bool staged = p->n_spheres <= tpt::kMaxSpheres;
   const size_t smem = sizeof(float) * merged_floats(p, staged);
   int capacity = 0;
-  const cudaError_t err = tpt::cached_capacity(
-      kMergedThreads, smem, &capacity, merged_render_kernel<kMergedTimed>,
-      merged_render_kernel<kMergedCounted>,
-      merged_render_kernel<kMergedStats>);
+  cudaError_t err;
+  if constexpr (kMode == kMergedTape)
+    err = tpt::cached_capacity(kMergedThreads, smem, &capacity,
+                               merged_render_kernel<kMergedTape>);
+  else
+    err = tpt::cached_capacity(
+        kMergedThreads, smem, &capacity, merged_render_kernel<kMergedTimed>,
+        merged_render_kernel<kMergedCounted>,
+        merged_render_kernel<kMergedStats>);
   if (err != cudaSuccess) return err;
   const int tiles = ((w + tpt::DeviceWarp::kTileW - 1) /
                      tpt::DeviceWarp::kTileW) *
@@ -526,6 +558,37 @@ int tpt_render_stats_merged_launch(const float* tab, const tpt::Sphere4* sph,
   return static_cast<int>(launch_merged<kMergedStats>(
       tab, sph, mat, lights, cam, p, grid_h, grid_w, out, rays, next_tile, x,
       stream));
+}
+
+// The differentiable wavefront's forward on `stream`: K1's tape instance
+// (merged_render_kernel<3>) over the (p->height, p->width) sub-image, its
+// image, rays and next_tile as for tpt_render_launch (bit-equal to K1's),
+// and each bounce's record written to the FrameTape (tape.cuh) of
+// tape_rec (16 floats a slot), tape_see (light_words(p->n_lights) words a
+// slot) and tape_depth (the bounces of each (pixel, sample)), height *
+// width * spp * max_depth slots; a slot a sample did not reach is left as
+// it was.  Any number of spheres and lights.  Returns cudaGetLastError().
+int tpt_render_tape_launch(const float* tab, const tpt::Sphere4* sph,
+                           const int32_t* mat, const int32_t* lights,
+                           const float* cam, const tpt::RenderParams* p,
+                           float* out, unsigned long long* rays,
+                           int* next_tile, float* tape_rec,
+                           uint32_t* tape_see, int32_t* tape_depth,
+                           void* stream) {
+  if (bad_params(p) || !next_tile || !tape_rec || !tape_depth ||
+      (p->n_lights > 0 && !tape_see))
+    return static_cast<int>(cudaErrorInvalidValue);
+  tpt::FrameTape ft;
+  ft.rec = tape_rec;
+  ft.see = tape_see;
+  ft.depth = tape_depth;
+  ft.words = tpt::light_words(p->n_lights);
+  ft.spp = p->spp;
+  ft.max_depth = p->max_depth;
+  ft.width = p->width;
+  return static_cast<int>(launch_merged<kMergedTape>(
+      tab, sph, mat, lights, cam, p, p->height, p->width, out, rays,
+      next_tile, ft, stream));
 }
 
 // The per-thread kernel K1 replaced (render_kernel<0>), or with parts

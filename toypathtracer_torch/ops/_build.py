@@ -31,9 +31,10 @@ HOST_BUILD_DIR = BUILD_DIR.parent / "torch_host"
 # sinf/cosf/expf/logf stay the accurate library functions.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
-SOURCES = ("render.cu", "grad.cu", "scaled.cu", "chunkgrad.cu", "probe.cu")
+SOURCES = ("render.cu", "grad.cu", "scaled.cu", "chunkgrad.cu", "wavegrad.cu",
+           "probe.cu")
 HEADERS = ("trace.cuh", "warp.cuh", "merged.cuh", "flat.cuh", "gradwarp.cuh",
-           "chunks.cuh", "coop.cuh", "coopgrad.cuh", "probe.cuh",
+           "chunks.cuh", "coop.cuh", "coopgrad.cuh", "tape.cuh", "probe.cuh",
            "launch.cuh")
 
 
@@ -204,14 +205,21 @@ def kernel_label(mangled: str):
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C
-    interface of csrc/render.cu, grad.cu, scaled.cu, chunkgrad.cu and
-    probe.cu."""
+    interface of csrc/render.cu, grad.cu, scaled.cu, chunkgrad.cu,
+    wavegrad.cu and probe.cu."""
     lib = ctypes.CDLL(str(build()))
     ptr = ctypes.c_void_p
     params = ctypes.POINTER(RenderParams)
     i32, f32 = ctypes.c_int, ctypes.c_float
     lib.tpt_render_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, params, ptr,
                                       ptr, ptr, ptr, ptr]
+    lib.tpt_render_tape_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, params,
+                                           ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.tpt_wave_sweep_launch.argtypes = [ptr, ptr, ptr, params, ptr, i32,
+                                          ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.tpt_wave_sweep_pool_launch.argtypes = [ptr, ptr, ptr, params, ptr,
+                                               i32, ptr, ptr, ptr, ptr, ptr,
+                                               ptr, i32, ptr, ptr, i32, ptr]
     lib.tpt_render_thread_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr,
                                              ptr, ptr, ptr]
     lib.tpt_render_stats_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr,
@@ -250,7 +258,9 @@ def load_library() -> ctypes.CDLL:
         ptr, i32, ptr]
     lib.tpt_scaled_groups.argtypes = [i32]
     lib.tpt_probe_launch.argtypes = [i32, i32, i32, ptr, ptr]
-    for fn in (lib.tpt_render_launch, lib.tpt_render_thread_launch,
+    for fn in (lib.tpt_render_launch, lib.tpt_render_tape_launch,
+               lib.tpt_wave_sweep_launch, lib.tpt_wave_sweep_pool_launch,
+               lib.tpt_render_thread_launch,
                lib.tpt_render_stats_launch,
                lib.tpt_render_stats_merged_launch, lib.tpt_lockstep_launch,
                lib.tpt_grad_launch, lib.tpt_grad_scratch,

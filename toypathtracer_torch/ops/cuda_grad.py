@@ -37,15 +37,28 @@ table of the cooperative chunked form's sweep.  Past 16 lights the warp
 form runs its lights instance, which keeps each bounce's seen lights in
 words of their own, as the pool form always does.
 
-Every gradient route warns where cfg.diff_wavefront asks for the
-differentiable wavefront, which the port does not have: the lockstep form
-runs (config.warn_diff_wavefront).
+With cfg.diff_wavefront the differentiable render takes the differentiable
+wavefront, the route the JAX package's jnp backend takes
+(tracecore.render_pixels_fused_merged(differentiable=True)): on a card a
+kernel pair, K1's tape instance (csrc/render.cu merged_render_kernel<3>,
+the merged loop writing each bounce's carry record to a frame tape:
+`render_tile_wave_tape`) and a sweep over the tape (csrc/wavegrad.cu:
+`sweep_wave_tape`, its table per warp in shared memory up to 512 spheres,
+a PoolTable past them), whose cotangent is K3's bit for bit on K3's grid;
+on the CPU autograd through the plain wavefront
+(tracecore.render_pixels_wavefront).  `render_tile_grad` takes the pair
+(form "wave") under the flag; K3's own forms stay the lockstep
+differentiable form and warn under it, as the JAX package's in-kernel
+(unrolled) gradient route does (config.warn_diff_wavefront).  Launch
+counters "wave_tape", "wave_sweep" and "wave_sweep_pool".
 
 `render_frame_diff` / `render_tile_diff` are the differentiable renders of
 the training step: a torch.autograd.Function on the packed scene table
 whose forward is the render kernel (or the lockstep kernel) and whose
-backward is the gradient kernel; pack_scene's own autograd carries the
-table's cotangent back to the Scene fields.
+backward is the gradient kernel, or under cfg.diff_wavefront on a card
+whose forward is the tape instance and whose backward the sweep over the
+tape it kept; pack_scene's own autograd carries the table's cotangent back
+to the Scene fields.
 
 In this port the kernels compute one per-pixel function (csrc/trace.cuh
 render_pixel), so the lockstep primal is bit-equal to the render kernel's
@@ -78,15 +91,18 @@ from .cuda_render import (MAX_LIGHTS, MAX_SPHERES, check_device,
 # past MAX_LIGHTS lights, and the pool form always, keep them in words of
 # their own, any number.  The caps bind on a card only
 # (cuda_render.check_caps): on the CPU the plain version takes any scene.
+# "wave" is the differentiable wavefront's kernel pair (any scene; hard
+# selects only, as RenderConfig requires of diff_wavefront).
 FORMS = {"replay": 0, "warp": 1}
 MAIN_FORM = "warp"
 COUNTERS = {"warp": "grad", "replay": "grad_replay", "pool": "grad_pool"}
 SOFT_SUFFIX = "_soft"
 FORM_CAPS = {"warp": (MAX_SPHERES, None), "replay": (64, MAX_LIGHTS),
-             "pool": (None, None)}
+             "pool": (None, None), "wave": (None, None)}
 TABLES = {"warp": "a (14, N) table per warp in shared memory",
           "replay": "a (14, 64) table per thread",
-          "pool": "a table per warp in device memory"}
+          "pool": "a table per warp in device memory",
+          "wave": "a frame tape and a table per warp"}
 
 # The stats instances' counters (csrc/trace.cuh kGc*), summed over threads:
 # SM cycles in the forward trace, the replays, the adjoint sweep, the warp
@@ -105,7 +121,8 @@ PARAM_FIELDS = ("center", "radius", "albedo", "emissive", "roughness", "ri")
 
 launches = {"grad": 0, "grad_soft": 0, "grad_pool": 0, "grad_pool_soft": 0,
             "grad_replay": 0, "grad_replay_soft": 0, "grad_stats": 0,
-            "lockstep": 0, "lockstep_baseline": 0}
+            "lockstep": 0, "lockstep_baseline": 0, "wave_tape": 0,
+            "wave_sweep": 0, "wave_sweep_pool": 0}
 
 # The last pool launch's scratch (pool_table_launch): blocks, the slots its
 # warps drew and the pool's capacity, the directory blocks they drew and
@@ -309,6 +326,126 @@ def sum_partials(partial, form: str):
     return d_tab
 
 
+def tape_bytes(n_lights: int, cfg: RenderConfig, height: int,
+               width: int) -> int:
+    """Bytes of the frame tape a tape-writing render keeps for a (height,
+    width) sub-image (csrc/tape.cuh FrameTape): a 64-byte record and
+    light_words(n_lights) words a (pixel, sample, bounce), and a bounce
+    count a (pixel, sample)."""
+    samples = height * width * cfg.samples_per_pixel
+    words = -(-n_lights // 32)
+    return samples * (cfg.max_depth * (64 + 4 * words) + 4)
+
+
+def alloc_tape(n_lights: int, cfg: RenderConfig, height: int, width: int,
+               dev, what: str, remedy: str) -> dict:
+    """The tensors of a frame tape on the card `dev`: "rec" (16 floats a
+    slot), "see" (the seen lights' words) and "depth".  Raises
+    MemoryError, naming the bytes, where the tape (tape_bytes) does not
+    fit in the card's free memory and what the caching allocator holds
+    unused: `what` names the route and `remedy` the band entry point to
+    use instead."""
+    need = tape_bytes(n_lights, cfg, height, width)
+    free, _ = torch.cuda.mem_get_info(dev)
+    # and what the caching allocator holds unused (an earlier step's tape)
+    free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    if need > free:
+        rows = max(1, height * free // (2 * need))
+        raise MemoryError(
+            f"{what}'s tape for {height}x{width} pixels, spp "
+            f"{cfg.samples_per_pixel}, depth {cfg.max_depth} takes {need} "
+            f"bytes and the card has {free} free: differentiate bands of "
+            f"at most {rows} rows ({remedy})")
+    slots = height * width * cfg.samples_per_pixel * cfg.max_depth
+    words = -(-n_lights // 32)
+    return {"rec": torch.empty((slots * 16,), dtype=torch.float32,
+                               device=dev),
+            "see": torch.empty((max(1, slots * words),), dtype=torch.int32,
+                               device=dev),
+            "depth": torch.empty((height * width * cfg.samples_per_pixel,),
+                                 dtype=torch.int32, device=dev)}
+
+
+def render_tile_wave_tape(scene: Scene, cfg: RenderConfig, frame: int,
+                          x0: int, y0: int, height: int, width: int,
+                          tab=None):
+    """The differentiable wavefront's forward on a card: K1's tape instance
+    (csrc/render.cu merged_render_kernel<3>) over the (height, width)
+    sub-image at global pixel (x0, y0).  Returns ((height, width, 3)
+    image, 0-d int64 rays, tape): the image and rays K1's bit for bit, the
+    tape a dict of its tensors ("rec", "see", "depth"; alloc_tape) and the
+    sub-image ("tile") for sweep_wave_tape.  Any number of spheres and
+    lights.  Raises where the tape does not fit in the card's free memory;
+    it never falls back to another kernel."""
+    if scene.device.type != "cuda":
+        raise ValueError("the tape-writing render runs on a card")
+    tab = checked_tab(scene, x0, y0, height, width, tab)
+    tape = alloc_tape(len(scene.emissive_ids), cfg, height, width,
+                      scene.device, "the differentiable wavefront",
+                      "render_tile_diff on sub-images")
+    img, rays = launch_forward("render_tape", scene, tab, cfg, frame, x0, y0,
+                               height, width, tape["rec"].data_ptr(),
+                               tape["see"].data_ptr(),
+                               tape["depth"].data_ptr(), merged=True)
+    launches["wave_tape"] += 1
+    tape["tile"] = (frame, x0, y0, height, width)
+    return img, rays, tape
+
+
+def sweep_wave_tape(scene: Scene, cfg: RenderConfig, g_img, tape, tab=None):
+    """The differentiable wavefront's backward on a card (csrc/wavegrad.cu)
+    over the tape render_tile_wave_tape wrote for the same scene, config
+    and sub-image: d_packed (14, N) for the pixel cotangent g_img.  Up to
+    MAX_SPHERES spheres wave_sweep_kernel on K3's warp-form grid, whose
+    cotangent is K3's bit for bit; past them wave_sweep_pool_kernel on the
+    pool form's grid (pool_table_launch: its scratch and reruns, recorded
+    in last_pool), the pool form's bit for bit.  Hard selects only (the
+    soft estimator has no wavefront route)."""
+    if cfg.soft_silhouette_eps > 0.0:
+        raise ValueError("the differentiable wavefront has no soft-silhouette "
+                         "estimator (RenderConfig refuses the two together)")
+    frame, x0, y0, height, width = tape["tile"]
+    tab = checked_tab(scene, x0, y0, height, width, tab)
+    if tuple(g_img.shape) != (height, width, 3):
+        raise ValueError(f"pixel cotangent must be ({height}, {width}, 3), "
+                         f"got {tuple(g_img.shape)}")
+    check_device(scene, g_img)
+    g_img = g_img.detach().to(torch.float32).contiguous()
+    lib = _build.load_library()
+    mat, lights, _ = kernel_inputs(scene, cfg)
+    params = render_params(scene, cfg, frame, x0, y0, height, width)
+    dev, n = scene.device, scene.n_spheres
+    head = (tab.data_ptr(), mat.data_ptr(), lights.data_ptr(),
+            ctypes.byref(params), g_img.data_ptr())
+    taped = (tape["rec"].data_ptr(), tape["see"].data_ptr(),
+             tape["depth"].data_ptr())
+    if n <= MAX_SPHERES:
+        rows = grad_scratch(scene, cfg, frame, x0, y0, height, width,
+                            "warp")[0]
+        partial = torch.empty((rows, 14, n), dtype=torch.float32, device=dev)
+        d_tab = torch.empty((14, n), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            code = lib.tpt_wave_sweep_launch(
+                *head, rows, partial.data_ptr(), d_tab.data_ptr(), *taped,
+                torch.cuda.current_stream(dev).cuda_stream)
+        cuda_call(lib, "wave_sweep", code)
+        launches["wave_sweep"] += 1
+        return d_tab
+
+    def launch(direc, blocks_t, nxt, block_cap, pool, cap, n_blocks):
+        with torch.cuda.device(dev):
+            code = lib.tpt_wave_sweep_pool_launch(
+                *head, n_blocks, *taped, direc.data_ptr(),
+                blocks_t.data_ptr(), nxt[1:].data_ptr(), block_cap,
+                pool.data_ptr(), nxt.data_ptr(), cap,
+                torch.cuda.current_stream(dev).cuda_stream)
+        cuda_call(lib, "wave_sweep_pool", code)
+    n_blocks, _ = pool_grid(params, dev, chunked=False)
+    d_tab = pool_table_launch(launch, params, dev, n_blocks)
+    launches["wave_sweep_pool"] += 1
+    return d_tab
+
+
 def render_tile_lockstep(scene: Scene, cfg: RenderConfig, frame: int,
                          x0: int, y0: int, height: int, width: int, tab=None):
     """The gradient kernel's primal alone (K4) for the (height, width)
@@ -356,11 +493,16 @@ def render_tile_grad(scene: Scene, cfg: RenderConfig, frame: int, g_img,
     pool form past them) on a card, autograd through the plain version on
     the CPU.  `tab` is the packed table (default pack_scene(scene)).  With
     cfg.soft_silhouette_eps > 0 it is the soft-silhouette estimator's
-    cotangent (K3's soft instance on a card).
+    cotangent (K3's soft instance on a card); with cfg.diff_wavefront the
+    differentiable wavefront's (form "wave": the tape instance and the
+    sweep on a card, the plain wavefront on the CPU).
 
     Returns ((height, width, 3) float32 image, 0-d int64 ray count,
     d_packed (14, N) float32)."""
-    form = MAIN_FORM if scene.n_spheres <= MAX_SPHERES else "pool"
+    if cfg.diff_wavefront:
+        form = "wave"
+    else:
+        form = MAIN_FORM if scene.n_spheres <= MAX_SPHERES else "pool"
     return render_tile_grad_form(scene, cfg, frame, g_img, x0, y0, height,
                                  width, form, tab=tab)
 
@@ -373,14 +515,23 @@ def render_tile_grad_form(scene: Scene, cfg: RenderConfig, frame: int, g_img,
     form's kernel, on the CPU the plain version whatever the form.
     stats=True launches the form's stats instance (on a card; the warp and
     replaying forms) and returns a fourth value, its counters by
-    STAT_FIELDS.  blocks: the pool form's grid (launch_pool)."""
+    STAT_FIELDS.  blocks: the pool form's grid (launch_pool).  Form "wave"
+    is the differentiable wavefront's pair (two launches:
+    render_tile_wave_tape and sweep_wave_tape), the plain wavefront on the
+    CPU.  K3's own forms are the lockstep differentiable form: under
+    cfg.diff_wavefront they warn, as the JAX package's in-kernel gradient
+    route does, and their plain version is lockstep's."""
     if form not in FORM_CAPS:
         raise ValueError(f"no gradient kernel form {form!r}")
-    warn_diff_wavefront(cfg)
+    if form == "wave":
+        cfg = cfg.replace(merged_wavefront=True, diff_wavefront=True)
+    elif cfg.diff_wavefront:
+        warn_diff_wavefront(cfg)
+        cfg = cfg.replace(diff_wavefront=False)
     if stats and scene.device.type != "cuda":
         raise ValueError("the stats instances run on a card")
-    if stats and form == "pool":
-        raise ValueError("K3's pool form has no stats instance")
+    if stats and form in ("pool", "wave"):
+        raise ValueError(f"K3's {form} form has no stats instance")
     if (stats and scene.device.type == "cuda"
             and len(scene.emissive_ids) > MAX_LIGHTS):
         raise ValueError(f"the stats instances take at most {MAX_LIGHTS} "
@@ -393,6 +544,10 @@ def render_tile_grad_form(scene: Scene, cfg: RenderConfig, frame: int, g_img,
                          f"got {tuple(g_img.shape)}")
     check_device(scene, g_img)
     g_img = g_img.detach().to(torch.float32).contiguous()
+    if scene.device.type == "cuda" and form == "wave":
+        img, rays, tape = render_tile_wave_tape(scene, cfg, frame, x0, y0,
+                                                height, width, tab=tab)
+        return img, rays, sweep_wave_tape(scene, cfg, g_img, tape, tab=tab)
     if scene.device.type == "cuda" and form == "pool":
         mat, lights, cam = kernel_inputs(scene, cfg)
         out = launch_pool(tab, mat, lights, cam,
@@ -445,17 +600,58 @@ class _PackedRender(torch.autograd.Function):
         return d_tab, None, None, None, None, None
 
 
+class _WavePackedRender(torch.autograd.Function):
+    """image = render(tab) under cfg.diff_wavefront on a card.  Where the
+    table requires a gradient the forward is K1's tape instance and the
+    backward the sweep over the tape it kept (each path traced once a
+    step); else the forward is K1.  Both give K1's image and rays bit for
+    bit.  The first backward frees the tape; a second one through a
+    retained graph (retain_graph=True) writes it again with the same
+    forward."""
+
+    @staticmethod
+    def forward(ctx, tab, scene, cfg, frame, tile):
+        ctx.tape = None
+        if ctx.needs_input_grad[0]:
+            img, rays, ctx.tape = render_tile_wave_tape(scene, cfg, frame,
+                                                        *tile, tab=tab)
+        else:
+            img, rays = render_tile(scene, cfg, frame, *tile, tab=tab)
+        ctx.save_for_backward(tab)
+        ctx.args = (scene, cfg, frame, tile)
+        ctx.mark_non_differentiable(rays)
+        return img, rays
+
+    @staticmethod
+    def backward(ctx, g_img, _g_rays):
+        tab, = ctx.saved_tensors
+        scene, cfg, frame, tile = ctx.args
+        tape, ctx.tape = ctx.tape, None
+        if tape is None:
+            tape = render_tile_wave_tape(scene, cfg, frame, *tile,
+                                         tab=tab)[2]
+        d_tab = sweep_wave_tape(scene, cfg, g_img, tape, tab=tab)
+        return d_tab, None, None, None, None
+
+
 def render_tile_diff(scene: Scene, cfg: RenderConfig, frame: int, x0: int,
                      y0: int, height: int, width: int,
                      lockstep_primal: bool = False):
     """Differentiable (height, width) sub-image at global pixel (x0, y0) on
     the scene's device (pallas_grad.render_tile_pallas_diff): forward the
     render kernel (the lockstep kernel with lockstep_primal), backward the
-    gradient kernel; the plain versions on the CPU.  The band unit a
-    multi-device step differentiates.  Returns ((height, width, 3) float32,
-    0-d int64 ray count)."""
-    warn_diff_wavefront(cfg)
+    gradient kernel; the plain versions on the CPU.  With
+    cfg.diff_wavefront the differentiable wavefront: on a card the tape
+    instance forward and the sweep backward (_WavePackedRender), on the
+    CPU autograd through the plain wavefront; lockstep_primal is then not
+    read, as the JAX package's jnp backend does not read it
+    (toypathtracer_tpu/inverse.py:144-149).  The band unit a multi-device
+    step differentiates.  Returns ((height, width, 3) float32, 0-d int64
+    ray count)."""
     tab = pack_scene(scene)
+    if cfg.diff_wavefront and scene.device.type == "cuda":
+        return _WavePackedRender.apply(tab, scene, cfg, frame,
+                                       (x0, y0, height, width))
     return _PackedRender.apply(tab, scene, cfg, frame,
                                (x0, y0, height, width), lockstep_primal)
 

@@ -70,7 +70,9 @@ from ..scaled import (ChunkTraversal, ScaledScene, boxes_grouped,
                       render_tile_scaled_plain, soft_boxes, sphere_records,
                       walk_order)
 from . import _build
-from .cuda_grad import launch_pool, pool_grid, pool_table_launch
+from .cuda_grad import (alloc_tape, launch_pool, pool_grid,
+                        pool_table_launch)
+from .cuda_grad import tape_bytes as frame_tape_bytes
 from .cuda_render import (LOOP_FIELDS, MAX_LIGHTS, STAT_FIELDS, STAT_SLOTS,
                           cuda_call, kernel_camera, pack_scene,
                           render_params)
@@ -498,11 +500,8 @@ def _grad_args(scene: ScaledScene, g_img, x0, y0, height, width, tab):
 def tape_bytes(scene: ScaledScene, cfg: RenderConfig, height: int,
                width: int) -> int:
     """Bytes of the tape the tape-writing render keeps for a (height,
-    width) sub-image: a 64-byte record and light_words(lights) words a
-    (pixel, sample, bounce), and a bounce count a (pixel, sample)."""
-    samples = height * width * cfg.samples_per_pixel
-    words = -(-len(scene.emissive_ids) // 32)
-    return samples * (cfg.max_depth * (64 + 4 * words) + 4)
+    width) sub-image (cuda_grad.tape_bytes)."""
+    return frame_tape_bytes(len(scene.emissive_ids), cfg, height, width)
 
 
 def render_tile_scaled_tape(scene: ScaledScene, cfg: RenderConfig,
@@ -520,30 +519,15 @@ def render_tile_scaled_tape(scene: ScaledScene, cfg: RenderConfig,
     if scene.device.type != "cuda":
         raise ValueError("the tape-writing render runs on a card")
     dev = scene.device
-    need = tape_bytes(scene, cfg, height, width)
-    free, _ = torch.cuda.mem_get_info(dev)
-    # and what the caching allocator holds unused (an earlier step's tape)
-    free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
-    if need > free:
-        rows = max(1, height * free // (2 * need))
-        raise MemoryError(
-            f"the scaled gradient's tape for {height}x{width} pixels, spp "
-            f"{cfg.samples_per_pixel}, depth {cfg.max_depth} takes {need} "
-            f"bytes and the card has {free} free: differentiate bands of "
-            f"at most {rows} rows (render_tile_scaled_diff on sub-images)")
+    tape = alloc_tape(len(scene.emissive_ids), cfg, height, width, dev,
+                      "the scaled gradient",
+                      "render_tile_scaled_diff on sub-images")
     lib = _build.load_library()
     tab = (pack_scene(scene) if tab is None else tab).detach().contiguous()
     rows = pack_chunks(scene)
     gbox = group_boxes(rows, scene.chunk)
     mat = scene.mat_ids().contiguous()
     lights, cam = kernel_camera(scene, cfg)
-    samples = height * width * cfg.samples_per_pixel
-    words = -(-len(scene.emissive_ids) // 32)
-    tape = {"rec": torch.empty((samples * cfg.max_depth * 16,),
-                               dtype=torch.float32, device=dev),
-            "see": torch.empty((max(1, samples * cfg.max_depth * words),),
-                               dtype=torch.int32, device=dev),
-            "depth": torch.empty((samples,), dtype=torch.int32, device=dev)}
     out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     next_tile = torch.zeros((1,), dtype=torch.int32, device=dev)

@@ -45,8 +45,9 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from ..config import KPI, RenderConfig
+from ..config import KPI, RenderConfig, warn_diff_wavefront
 from . import libm
 
 # Rows of the packed (SCENE_ROWS, N) scene table (the layout of
@@ -903,7 +904,7 @@ class Trips(NamedTuple):
 
 def render_pixels(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
                   px, py, frame: int, traversal=None, stats: bool = False,
-                  soft_eps: float = 0.0):
+                  soft_eps: float = 0.0, samplers=GPU_SAMPLERS):
     """Render 1-D lanes of pixels (px, py: int64 global coordinates, y=0
     the bottom row): seed, spp thin-lens samples each traced for up to
     max_depth bounces, average (tracecore.render_pixels_lockstep; the
@@ -916,7 +917,8 @@ def render_pixels(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
     (default BruteForce(tab); scaled.ChunkTraversal for a ScaledScene).
     stats=True appends the per-lane Trips; the colour and Work are the
     same either way.  soft_eps > 0 adds the soft-silhouette estimator's
-    backward terms (bounce); the colour stays bit for bit as it is."""
+    backward terms (bounce); the colour stays bit for bit as it is.
+    `samplers` is the sampler set of the camera and the bounces."""
     state = seed_pixels(px, py, frame)
     fx = px.to(torch.float32)
     fy = py.to(torch.float32)
@@ -932,7 +934,7 @@ def render_pixels(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
         u = (fx + ur) * inv_w
         state, vr = rand01(state)
         v = (fy + vr) * inv_h
-        state, ro, rd = camera_get_ray(cam, u, v, state)
+        state, ro, rd = camera_get_ray(cam, u, v, state, samplers)
         col = (zero, zero, zero)
         atten = (zero + 1.0, zero + 1.0, zero + 1.0)
         alive = torch.ones_like(px, dtype=torch.bool)
@@ -941,7 +943,8 @@ def render_pixels(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
         for _ in range(cfg.max_depth):
             (ro, rd, alive, do_me, state, work), e, c = bounce(
                 tab, mat, emissive_ids, cfg,
-                (ro, rd, alive, do_me, state, work), traversal, soft_eps)
+                (ro, rd, alive, do_me, state, work), traversal, soft_eps,
+                samplers)
             col = add3(col, mul3(atten, e))
             atten = mul3(atten, c)
             if not bool(alive.any()):
@@ -956,6 +959,112 @@ def render_pixels(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
         return col, work
     return col, work, Trips(work.traced, sum(cuts), cuts[-1],
                             torch.stack(depths, dim=1))
+
+
+def render_pixels_wavefront(tab, mat, emissive_ids, cfg: RenderConfig,
+                            cam: dict, px, py, frame: int):
+    """render_pixels in the schedule of the JAX package's merged persistent
+    wavefront (tracecore.render_pixels_fused_merged, forward and
+    differentiable=True): the lanes are pixels, and each iteration every
+    lane with work traces one bounce of its current sample; a lane whose
+    sample ends (a miss, an absorbed metal ray, the depth cutoff) adds it
+    to its pixel's sum and at once draws its next sample's camera ray from
+    the same RNG state, with render_pixels' draws in render_pixels' order,
+    until every lane has finished spp samples.  So the loop runs about spp
+    x E[depth] iterations, not lockstep's spp x max_depth, and the kernel
+    pair on a card (K1's tape instance and csrc/wavegrad.cu's sweep) runs
+    the same schedule.  Each lane runs render_pixels' elementwise ops on the
+    same values, so the colour is render_pixels' bit for bit per pixel and
+    the Work counters equal its.  Returns (col vec3, per-lane Work).
+
+    Under autograd (grad enabled and `tab` requiring it) each iteration
+    runs through torch.utils.checkpoint (non-reentrant), so
+    the graph keeps the carries and recomputes an iteration's
+    intermediates in the backward: JAX's jax.checkpoint per iteration.  An
+    eager loop needs no static trip count: a plain `break` once no lane has
+    work replaces JAX's fixed-bound fori_loop whose step is a whole-tile
+    lax.cond.  Left out, because they change the order in which XLA issues
+    ops and not any lane's values: JAX's software pipelining (the hit of
+    the next ray carried one iteration ahead) and its merged sphere loop
+    (the next ray's argmin and the shadow rays' occlusion in one pass over
+    the spheres from the shared hit point); the bounce here is
+    render_pixels' (bounce, brute-force traversal, GPU samplers)."""
+    remat = torch.is_grad_enabled() and tab.requires_grad
+    spp = cfg.samples_per_pixel
+    fx = px.to(torch.float32)
+    fy = py.to(torch.float32)
+    inv_w = float(np.float32(cfg.inv_width))
+    inv_h = float(np.float32(cfg.inv_height))
+    zero = torch.zeros_like(fx)
+    one = zero + 1.0
+    zero3, one3 = (zero, zero, zero), (one, one, one)
+    izero = torch.zeros_like(px, dtype=torch.int64)
+    traversal = BruteForce(tab)
+
+    def camera_sample(state):
+        state, ur = rand01(state)
+        u = (fx + ur) * inv_w
+        state, vr = rand01(state)
+        v = (fy + vr) * inv_h
+        return camera_get_ray(cam, u, v, state)
+
+    def step(ro, rd, busy, do_me, state, depth, started, col, atten,
+             col_sum, work):
+        (ro, rd, alive, do_me, state, work), e, c = bounce(
+            tab, mat, emissive_ids, cfg, (ro, rd, busy, do_me, state, work),
+            traversal)
+        col = add3(col, mul3(atten, e))
+        atten = mul3(atten, c)
+        depth = depth + busy.to(torch.int64)
+        ended = busy & (~alive | (depth >= cfg.max_depth))
+        col_sum = sel3(ended, add3(col_sum, col), col_sum)
+        # the ended lanes' next samples
+        refill = ended & (started < spp)
+        st2, ro_n, rd_n = camera_sample(state)
+        state = torch.where(refill, st2, state)
+        ro = sel3(refill, ro_n, ro)
+        rd = sel3(refill, rd_n, rd)
+        col = sel3(refill, zero3, col)
+        atten = sel3(refill, one3, atten)
+        do_me = do_me | refill
+        depth = torch.where(refill, 0, depth)
+        started = started + refill.to(torch.int64)
+        busy = (busy & ~ended) | refill
+        return (ro, rd, busy, do_me, state, depth, started, col, atten,
+                col_sum, work)
+
+    state, ro, rd = camera_sample(seed_pixels(px, py, frame))
+    busy = torch.ones_like(px, dtype=torch.bool)
+    carry = (ro, rd, busy, busy, state, izero, izero + 1, zero3, one3, zero3,
+             Work(izero, izero, izero, izero, izero, izero, izero))
+    while bool(carry[2].any()):
+        if remat:
+            carry = checkpoint(step, *carry, use_reentrant=False,
+                               preserve_rng_state=False)
+        else:
+            carry = step(*carry)
+    inv_spp = float(np.float32(1.0 / spp))
+    return scale3(carry[9], inv_spp), carry[10]
+
+
+def render_pixels_diff(tab, mat, emissive_ids, cfg: RenderConfig, cam: dict,
+                       px, py, frame: int, traversal=None,
+                       soft_eps: float = 0.0, samplers=GPU_SAMPLERS):
+    """The differentiable render's dispatch (tracecore.render_pixels with
+    differentiable=True): with cfg.diff_wavefront the wavefront
+    (render_pixels_wavefront), else lockstep (render_pixels).  As in the
+    JAX package the flag falls back to lockstep with a warning
+    (config.warn_diff_wavefront) for exact-shadow samplers (the parity
+    route) and for a traversal of its own (the chunked scene).  Returns
+    (col vec3, per-lane Work)."""
+    if cfg.diff_wavefront:
+        if samplers.exact_shadow or traversal is not None:
+            warn_diff_wavefront(cfg)
+        else:
+            return render_pixels_wavefront(tab, mat, emissive_ids, cfg, cam,
+                                           px, py, frame)
+    return render_pixels(tab, mat, emissive_ids, cfg, cam, px, py, frame,
+                         traversal, soft_eps=soft_eps, samplers=samplers)
 
 
 # ---------------------------------------------------------------------------

@@ -36,14 +36,18 @@ def camera_scalars(scene: Scene, cfg: RenderConfig) -> dict:
             for k, v in cam.items()}
 
 
+def differentiated(tab) -> bool:
+    """Whether autograd will differentiate a render from `tab` (grad
+    enabled and the table requiring it)."""
+    return torch.is_grad_enabled() and tab.requires_grad
+
+
 def gradient_soft_eps(cfg: RenderConfig, tab) -> float:
     """The soft-silhouette estimator's eps for a render from `tab`: the
-    config's where autograd will differentiate the render (grad enabled and
-    the table requiring it), else 0.  The estimator changes the gradient
-    and not the image, so a render that is not differentiated skips it."""
-    if torch.is_grad_enabled() and tab.requires_grad:
-        return cfg.soft_silhouette_eps
-    return 0.0
+    config's where autograd will differentiate the render, else 0.  The
+    estimator changes the gradient and not the image, so a render that is
+    not differentiated skips it."""
+    return cfg.soft_silhouette_eps if differentiated(tab) else 0.0
 
 
 def render_tile_plain(scene: Scene, cfg: RenderConfig, frame: int, x0: int,
@@ -51,34 +55,40 @@ def render_tile_plain(scene: Scene, cfg: RenderConfig, frame: int, x0: int,
     """Render the (height, width) sub-image whose lower-left pixel is the
     global pixel (x0, y0), on the scene's device, from `tab` (default
     pack_scene(scene)).  Autograd runs through it when `tab` or the scene
-    requires grad, with the soft-silhouette estimator's terms where
-    cfg.soft_silhouette_eps > 0.  Returns ((height, width, 3) float32,
-    int64 ray count as a 0-d tensor)."""
+    requires grad: the lockstep form, with the soft-silhouette estimator's
+    terms where cfg.soft_silhouette_eps > 0, or with cfg.diff_wavefront
+    the wavefront (tracecore.render_pixels_diff), whose image is the same
+    bit for bit.  Returns ((height, width, 3) float32, int64 ray count as a
+    0-d tensor)."""
     if tab is None:
         tab = pack_scene(scene)
     col, work = render_pixel_grid(scene, cfg, frame, height, width, tab,
                                   x0, y0,
-                                  soft_eps=gradient_soft_eps(cfg, tab))
+                                  soft_eps=gradient_soft_eps(cfg, tab),
+                                  diff=differentiated(tab))
     img = torch.stack(col, dim=-1).reshape(height, width, 3)
     return img, work.traced.sum() + work.shadow.sum()
 
 
 def render_pixel_grid(scene: Scene, cfg: RenderConfig, frame: int,
                       height: int, width: int, tab, x0: int = 0, y0: int = 0,
-                      stats: bool = False, soft_eps: float = 0.0):
+                      stats: bool = False, soft_eps: float = 0.0,
+                      diff: bool = False):
     """tracecore.render_pixels over the (height, width) pixels whose
     lower-left is the global pixel (x0, y0), row-major, from the packed
-    table `tab`."""
+    table `tab`; diff=True: the differentiable render's dispatch,
+    tracecore.render_pixels_diff."""
     dev = scene.device
     yy, xx = torch.meshgrid(
         torch.arange(y0, y0 + height, device=dev, dtype=torch.int64),
         torch.arange(x0, x0 + width, device=dev, dtype=torch.int64),
         indexing="ij")
     mat = torch.tensor(scene.mat_type, dtype=torch.int64, device=dev)
-    return tc.render_pixels(
-        tab, mat, scene.emissive_ids, cfg, camera_scalars(scene, cfg),
-        xx.reshape(-1), yy.reshape(-1), frame, stats=stats,
-        soft_eps=soft_eps)
+    args = (tab, mat, scene.emissive_ids, cfg, camera_scalars(scene, cfg),
+            xx.reshape(-1), yy.reshape(-1), frame)
+    if diff and not stats:
+        return tc.render_pixels_diff(*args, soft_eps=soft_eps)
+    return tc.render_pixels(*args, stats=stats, soft_eps=soft_eps)
 
 
 def render_frame_plain(scene: Scene, cfg: RenderConfig, frame: int):
@@ -93,10 +103,12 @@ def render_tile_grad_plain(scene: Scene, cfg: RenderConfig, frame: int,
                            tab=None):
     """Value and packed-scene cotangent of a sub-image for the pixel
     cotangent g_img ((height, width, 3)): autograd through
-    render_tile_plain, the gradient kernel's plain version.  Its graph
-    holds every bounce's (pixels, spheres) intermediates, so it takes a
-    band of a large frame, not the frame.  Returns (image, 0-d int64 ray
-    count, d_packed (SCENE_ROWS, N) float32).  With
+    render_tile_plain, the gradient kernel's plain version, and with
+    cfg.diff_wavefront the plain version of the differentiable wavefront's
+    kernel pair (the wavefront, each iteration rematerialized).  The
+    lockstep graph holds every bounce's (pixels, spheres) intermediates,
+    so it takes a band of a large frame, not the frame.  Returns (image,
+    0-d int64 ray count, d_packed (SCENE_ROWS, N) float32).  With
     cfg.soft_silhouette_eps > 0 it is the soft-silhouette estimator's
     cotangent."""
     if tab is None:
