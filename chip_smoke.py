@@ -12,12 +12,15 @@ non-zero):
      7g), K4's per-thread form, both K5 forms,
      both K6 forms, both K2 forms, the per-lane and the cooperative scaled
      render kernels and the merged K1 held at their counts, the
-     differentiable wavefront's pair at its first counts; the 16-light
+     differentiable wavefront's pair (K1's staged and scalar tape
+     instances, the sweeps) at their first counts; the 16-light
      instances of K3's warp and replaying forms and the cooperative
      scaled render kernel held at the SASS they had before their lights
-     instances, and the merged K1, its counted instance and the merged K2
-     at the SASS they had before K1's tape instance (KEPT_SASS digests,
-     where the toolkit is the one they were taken with).
+     instances, the merged K1, its counted instance and the merged K2 at
+     the SASS they had before K1's tape instance, and K1's scalar tape
+     instance, the sweeps and the scaled tape-writing render at the SASS
+     they had before the staged one (KEPT_SASS digests, where the
+     toolkit is the one they were taken with).
   2. kernel vs plain at 320x176, spp 2, depth 6, frames 0-3: the big
      scene, the big scene without light sampling, the small scene; in each
      the merged K1 (the main path's) bit-equal to the per-thread K1 it
@@ -148,14 +151,20 @@ non-zero):
  17b. wavefront_grad: the differentiable wavefront (cfg.diff_wavefront)
      at the reference workload with the flag on: 4 InverseRenderer Adam
      steps (one tape-instance and one sweep launch a step, no warning, the
-     loss falling), K1's tape instance bit-equal to K1 (image, rays), the
-     sweep bit-equal to K3's warp form on its grid, three 8-row bands
+     loss falling), K1's staged tape instance bit-equal to K1 (image,
+     rays) and its tape word for word the scalar instance's at every
+     used slot, the sweep bit-equal to K3's warp form on its grid, three
+     8-row bands
      against plain autograd through the plain wavefront (per row 1e-3),
      albedo AD vs FD (5% + 1e-6); at 600 spheres the pool sweep bit-equal
      to K3's pool form and 2 Adam steps; 40 lights against plain; 8
-     sharded bands within rtol 1e-4 of one device; the tape forward, the
-     sweep and the pair timed in turns with K1 + K3, the training step in
-     turns with the lockstep step; the tape's bytes.
+     sharded bands within rtol 1e-4 of one device; the staged tape
+     instance timed in turns with the scalar one and K1 (CUDA events on
+     the wrappers, and each kernel's device time from a torch.profiler
+     trace of the same turns, profiling.trace_to), the sweep, the pair in
+     turns with K1 + K3, the training step in turns with the lockstep
+     step; one traced step of each route (the device's idle share, each
+     kernel's device time); the tape's bytes.
  18. row-sharded rendering and training on one card (parallel/mesh.py,
      parallel/distributed.py) at the reference workload, 8 bands of 90
      rows on cuda:0: the frame bit-equal to the single-device frame (8
@@ -203,9 +212,10 @@ non-zero):
      scaled_grad_sweep_soft (the cooperative form's sweeps),
      scaled_grad_baseline,
      scaled_grad_baseline_soft (the per-lane chunked instance),
-     scaled_grad_tape (the cooperative form's forward), wave_tape,
-     wave_sweep and wave_sweep_pool (the differentiable wavefront's
-     pair); render, grad and
+     scaled_grad_tape (the cooperative form's forward), wave_tape (K1's
+     staged tape instance), wave_tape_baseline (the scalar one), wave_sweep
+     and wave_sweep_pool (the differentiable wavefront's pair); render,
+     grad and
      scaled_render count the launches of phases 20-21 beside the main
      path's (`launches_by_path`).
 Then the script's wall time (and its time before phase 18), the card's
@@ -237,7 +247,7 @@ import torch
 # KEPT_SASS), K3's lights
 # instances, its pool and chunked instances (their directory and, for the
 # pool's, lights repaired), the cooperative chunked form's kernels and the
-# differentiable wavefront's pair (K1's tape instance, the sweep and its
+# differentiable wavefront's pair (K1's tape instances, the sweep and its
 # pool instance) at their first counts.
 KEPT_USAGE = {
     "render_kernel<1>": {"registers": 72, "spill_stores": 16},
@@ -266,6 +276,7 @@ KEPT_USAGE = {
     "chunk_sweep_kernel<0>": {"registers": 64, "spill_stores": 552},
     "chunk_sweep_kernel<1>": {"registers": 64, "spill_stores": 644},
     "merged_render_kernel<3>": {"registers": 64, "spill_stores": 880},
+    "merged_render_kernel<4>": {"registers": 64, "spill_stores": 892},
     "wave_sweep_kernel": {"registers": 40, "spill_stores": 776},
     "wave_sweep_pool_kernel": {"registers": 64, "spill_stores": 552},
 }
@@ -275,9 +286,12 @@ KEPT_USAGE = {
 # code the instances added beside them must leave as it was: K3's warp
 # form's and replaying form's 16-light instances, timed and stats, and
 # the cooperative scaled render kernel (the scaled main path's), as the
-# sources before those lights instances built them; and K1, its counted
+# sources before those lights instances built them; K1, its counted
 # instance and K2 (merged_render_kernel<0>, <1>, <2>), as the sources
-# before K1's tape instance built them; on an H100 with this nvcc
+# before K1's tape instance built them; and K1's scalar tape instance
+# (<3>), the wavefront's sweeps and the scaled tape-writing render
+# (tape_render_kernel<0>, <1>), as the sources before K1's staged tape
+# instance built them; on an H100 with this nvcc
 # (tools.sass_loops --compare against those checkouts lists them
 # identical).  A build by another toolkit is not comparable.
 KEPT_SASS = {
@@ -307,6 +321,16 @@ KEPT_SASS = {
             "75ecb913aa3d3433cc4d3298b0ae565997f42fa45d5d9605f4d9edbd8435443f",
         "merged_render_kernel<2>":
             "3c4a90aadf96486f0f354a3e1fde8e5bf1f1bf6e5e273812c4c15cab2cad2fc0",
+        "merged_render_kernel<3>":
+            "3dcda71e6f358bb059c8ba5cf0127f0425fe3c9dc01b9a379742917f7b327774",
+        "wave_sweep_kernel":
+            "63426693d48c37f7bdac0639d7ddc040be9bb291d60fa5e452724aa41e6ec02b",
+        "wave_sweep_pool_kernel":
+            "3e648074171731e4c8572ecfef4c0f45cc7a9d149abb6ee5b6cf538e52ebfe7b",
+        "tape_render_kernel<0>":
+            "20ca8bd63307246c24ad973093f2a90291aed38de1441ec358508253f88d6c11",
+        "tape_render_kernel<1>":
+            "37514468ad9783f8afeddb1f184540e046e0b50bd457fd6c8127376404e7fe8c",
     }}
 
 
@@ -2855,7 +2879,8 @@ def wavefront_phases(smi, usage):
     from toypathtracer_torch.ops import cuda_grad, cuda_render
     from toypathtracer_torch.ops import tracecore as tc
     from toypathtracer_torch.parallel.mesh import make_mesh
-    from toypathtracer_torch.profiling import time_device_call
+    from toypathtracer_torch.profiling import (time_device_call, trace_to,
+                                               trace_summary)
     from toypathtracer_torch.render.wavefront import (camera_scalars,
                                                       render_tile_grad_plain)
     from toypathtracer_torch.tools import grad_stats
@@ -2919,16 +2944,34 @@ def wavefront_phases(smi, usage):
     words = -(-n_lights // 32)
     allocated = cuda_grad.tape_bytes(n_lights, cfg, H, W)
     used = traced * (64 + 4 * words) + 4 * depth.numel()
-    del tape
+    # the scalar tape instance it replaced: the same words at every used
+    # slot
+    img_b, rays_b, tape_b = cuda_grad.render_tile_wave_tape(
+        scene, cfg, 0, 0, 0, H, W, form="scalar")
+    used_slots = (torch.arange(cfg.max_depth, device=dev)[None, :]
+                  < depth[:, None]).reshape(-1)
+
+    def used_words(t):
+        return (t["rec"].view(torch.int32).reshape(-1, 16)[used_slots],
+                t["see"].reshape(-1, words)[used_slots])
+    (rec_s, see_s), (rec_b, see_b) = used_words(tape), used_words(tape_b)
+    tapes_eq = {"rec": bool(torch.equal(rec_s, rec_b)),
+                "see": bool(torch.equal(see_s, see_b)),
+                "depth": bool(torch.equal(tape["depth"], tape_b["depth"]))}
+    del tape, tape_b, rec_s, see_s, rec_b, see_b, used_slots
     eq = {"tape_image_bit_equal_to_k1": bool(torch.equal(img_t, img_k1)),
           "tape_rays_equal_to_k1": int(rays_t) == int(rays_k1),
+          "staged_tape_equal_to_scalar": all(tapes_eq.values()),
+          "scalar_image_bit_equal_to_k1": bool(torch.equal(img_b, img_k1)),
+          "scalar_rays_equal_to_k1": int(rays_b) == int(rays_k1),
           "sweep_bit_equal_to_warp_k3": bool(torch.equal(d_t, d_k3)),
           "k3_image_bit_equal": bool(torch.equal(img_k3, img_t)),
           "sweep_deterministic": bool(torch.equal(d_t, d_t2))}
     emit({"phase": "wavefront_grad", "part": "pair",
           "rays": int(rays_t),
           "traced_rays": traced, "tape_bytes_allocated": allocated,
-          "tape_bytes_used": used, **eq})
+          "tape_bytes_used": used, "staged_vs_scalar_words": tapes_eq,
+          **eq})
     check(all(eq.values()), f"the wavefront pair: {eq}")
 
     # ---- against plain autograd on three 8-row bands ---------------------
@@ -3084,12 +3127,46 @@ def wavefront_phases(smi, usage):
     for k in ("pair", "k1_k3", "k1_k3", "pair"):
         runs[k].append(time_device_call(
             pair if k == "pair" else lockstep_pair, repeats=3)[0] * 1e3)
-    tape_ms = time_device_call(tape_only, repeats=3)[0] * 1e3
+    # the staged tape instance in turns with the scalar one and K1:
+    # the wrappers on CUDA events, then the kernels' device time from a
+    # torch.profiler trace of the same turns
+    forward = {
+        "staged": tape_only,
+        "scalar": lambda: cuda_grad.render_tile_wave_tape(
+            scene, cfg, 0, 0, 0, H, W, form="scalar"),
+        "k1": lambda: cuda_render.render_tile(scene, cfg, 0, 0, 0, H, W)}
+    turns = ("staged", "scalar", "k1", "k1", "scalar", "staged")
+    tape_runs = {k: [] for k in forward}
+    for k in turns:
+        tape_runs[k].append(time_device_call(forward[k], repeats=3)[0] * 1e3)
+    tape_ms, scalar_ms, k1_ms = (sum(tape_runs[k]) / 2 for k in forward)
+    emit({"phase": "wavefront_grad", "part": "tape_turns",
+          "nvidia_smi": smi, "runs_ms": tape_runs, "staged_ms": tape_ms,
+          "scalar_ms": scalar_ms, "k1_ms": k1_ms,
+          "note": "wrapper ms on CUDA events, 3 calls a run (the tape's "
+                  "allocation and uploads included)"})
+    turns_dir = trace_dir("wave_tape_turns")
+    with trace_to(turns_dir):
+        for k in turns:
+            forward[k]()
+        torch.cuda.synchronize()
+    traced_kernels = trace_summary(turns_dir)["kernels"]
+    labels = {"staged": "merged_render_kernel<4>",
+              "scalar": "merged_render_kernel<3>",
+              "k1": "merged_render_kernel<0>"}
+    device_ms = {}
+    for k, label in labels.items():
+        got = traced_kernels.get(label, {"ms": 0.0, "launches": 0})
+        check(got["launches"] == 2, f"the turns' trace: {label} {got}")
+        device_ms[k] = got["ms"] / got["launches"]
+    emit({"phase": "wavefront_grad", "part": "tape_kernels_traced",
+          "nvidia_smi": smi, "kernel_device_ms": device_ms,
+          "kernels": labels,
+          "note": "device ms of each kernel from a torch.profiler trace "
+                  "(profiling.trace_to) of one launch a turn, two turns"})
     sweep_ms = time_device_call(cuda_grad.sweep_wave_tape, scene, cfg, g,
                                 keep, repeats=3)[0] * 1e3
     del keep
-    k1_ms = time_device_call(cuda_render.render_tile, scene, cfg, 0, 0, 0, H,
-                             W, repeats=3)[0] * 1e3
     k3_ms = time_device_call(cuda_grad.render_tile_grad_form, scene, lock, 0,
                              g, 0, 0, H, W, "warp", repeats=3)[0] * 1e3
     steps = {"wave": [], "lockstep": []}
@@ -3099,6 +3176,43 @@ def wavefront_phases(smi, usage):
         fit(cfg if k == "wave" else lock, 3)
         torch.cuda.synchronize()
         steps[k].append((time.perf_counter() - t0) / 3 * 1e3)
+    emit({"phase": "wavefront_grad", "part": "step_turns",
+          "nvidia_smi": smi, "runs_ms": steps,
+          "pair_runs_ms": runs["pair"], "k1_plus_k3_runs_ms": runs["k1_k3"],
+          "note": "steps: host clock around 3 Adam steps; pair and K1 + "
+                  "K3: CUDA events, 3 calls a run"})
+    # one traced step of each route (the second of two, each ending in a
+    # synchronize): the device's idle share and each kernel's device time
+    step_traces = {}
+    for k, c in (("wave", cfg), ("lockstep", lock)):
+        ir = InverseRenderer(c, target, trainable=("albedo",),
+                             learning_rate=2e-2)
+        ir.fit(start, steps=1, resample=False)
+        torch.cuda.synchronize()
+        d = trace_dir(f"{k}_step")
+        with trace_to(d):
+            for _ in range(2):
+                with torch.profiler.record_function(f"{k}_step"):
+                    ir.fit(start, steps=1, resample=False)
+                    torch.cuda.synchronize()
+        step_traces[k] = trace_summary(d, window=f"{k}_step")
+    wave_k = step_traces["wave"]["kernels"]
+    emit({"phase": "wavefront_grad", "part": "step_trace",
+          "nvidia_smi": smi,
+          "idle_share": step_traces["wave"]["idle_share"],
+          "span_ms": step_traces["wave"]["span_ms"],
+          "busy_ms": step_traces["wave"]["busy_ms"],
+          "tape_kernel_ms": wave_k.get("merged_render_kernel<4>", {}).get(
+              "ms"),
+          "sweep_kernel_ms": wave_k.get("wave_sweep_kernel", {}).get("ms"),
+          "kernels": wave_k, "copies_ms": step_traces["wave"]["copies_ms"],
+          "lockstep": step_traces["lockstep"],
+          "trace_files": {k: v["file"] for k, v in step_traces.items()}})
+    check(wave_k.get("merged_render_kernel<4>", {}).get("launches") == 1
+          and wave_k.get("wave_sweep_kernel", {}).get("launches") == 1,
+          f"the traced wavefront step's kernels: {wave_k}")
+    check(all(0.0 <= v["idle_share"] < 1.0 for v in step_traces.values()),
+          f"idle shares {[v['idle_share'] for v in step_traces.values()]}")
     # the plain wavefront's forward on the card
     mat = torch.tensor(scene.mat_type, dtype=torch.int64, device=dev)
     yy, xx = torch.meshgrid(torch.arange(H, device=dev),
@@ -3149,6 +3263,8 @@ def wavefront_phases(smi, usage):
               "pair_ms": pair_ms, "pair_runs": runs["pair"],
               "k1_plus_k3_ms": k1k3_ms, "k1_plus_k3_runs": runs["k1_k3"],
               "tape_ms": tape_ms, "sweep_ms": sweep_ms,
+              "scalar_tape_ms": scalar_ms,
+              "tape_kernel_device_ms": device_ms,
               "tape_plus_sweep_ms": tape_ms + sweep_ms,
               "k1_ms": k1_ms, "k3_ms": k3_ms,
               "step_ms": sum(steps["wave"]) / 2,
@@ -3160,19 +3276,20 @@ def wavefront_phases(smi, usage):
               "bound_ms": bound, "bound_by": bound_by,
               "pair_bound_ms": pair_bound, "k3_ops_ms": k3_ops_ms,
               "ptxas": {k: usage.get(k, {}) for k in (
-                  "merged_render_kernel<3>", "wave_sweep_kernel",
-                  "wave_sweep_pool_kernel")},
+                  "merged_render_kernel<4>", "merged_render_kernel<3>",
+                  "wave_sweep_kernel", "wave_sweep_pool_kernel")},
               "bound_peak": "67 TFLOP/s FP32, 3.35 TB/s (H100 SXM, 700 W)",
               "seconds": time.perf_counter() - t_phase}
     emit(timing)
     check(bool(torch.equal(plain_wave_img, img_t.reshape(H, W, 3)))
           or float((plain_wave_img - img_t).abs().max()) <= 1e-3,
           "plain wavefront forward vs the tape instance")
-    tol = ("the tape instance's image and rays bit-equal to K1's; the "
-           "sweep's d_packed bit-equal to K3's warp form on its grid (the "
-           "pool form's at 600 spheres), per row <= 1e-3 x row max of "
-           "plain autograd on three 8-row bands and at 40 lights, albedo "
-           "FD <= 5% + 1e-6")
+    tol = ("the tape instances' image and rays bit-equal to K1's, the "
+           "staged instance's tape word for word the scalar one's at every "
+           "used slot; the sweep's d_packed bit-equal to K3's warp form on "
+           "its grid (the pool form's at 600 spheres), per row <= 1e-3 x "
+           "row max of plain autograd on three 8-row bands and at 40 "
+           "lights, albedo FD <= 5% + 1e-6")
     src = "toypathtracer_tpu/ops/tracecore.py:2223"
     return [
         {"name": "wave_tape", "route": "cuda",
@@ -3186,10 +3303,30 @@ def wavefront_phases(smi, usage):
          "max_abs_err": float((img_t - plain_wave_img).abs().max()),
          "ms": tape_ms, "plain_ms": plain_wave_ms, "bound_ms": bound["tape"],
          "bound_by": bound_by["tape"], "library_ms": None,
-         "form": "merged_render_kernel<3> (K1's tape instance)",
+         "kernel_device_ms": device_ms["staged"],
+         "baseline_ms": scalar_ms,
+         "baseline_kernel_device_ms": device_ms["scalar"],
+         "baseline": "merged_render_kernel<3> (the scalar tape instance "
+                     "it replaced), in turns",
+         "form": "merged_render_kernel<4> (K1's staged tape instance)",
+         "ptxas": usage.get("merged_render_kernel<4>", {}),
+         "vs_plain": {"tolerance": tol,
+                      "bit_equal_to_k1": eq["tape_image_bit_equal_to_k1"],
+                      "tape_equal_to_scalar":
+                          eq["staged_tape_equal_to_scalar"]}},
+        {"name": "wave_tape_baseline", "route": "cuda",
+         "source": "toypathtracer_torch/csrc/render.cu",
+         "replaces": src + " (jnp under XLA, not a Pallas kernel)",
+         "launches": main_launches.get("wave_tape_baseline", 0),
+         "max_abs_err": float((img_b - plain_wave_img).abs().max()),
+         "ms": scalar_ms, "plain_ms": plain_wave_ms,
+         "bound_ms": bound["tape"], "bound_by": bound_by["tape"],
+         "library_ms": None, "kernel_device_ms": device_ms["scalar"],
+         "form": "merged_render_kernel<3> (the scalar tape instance, "
+                 "the staged one's baseline)",
          "ptxas": usage.get("merged_render_kernel<3>", {}),
          "vs_plain": {"tolerance": tol,
-                      "bit_equal_to_k1": eq["tape_image_bit_equal_to_k1"]}},
+                      "bit_equal_to_k1": eq["scalar_image_bit_equal_to_k1"]}},
         {"name": "wave_sweep", "route": "cuda",
          "source": "toypathtracer_torch/csrc/wavegrad.cu",
          "replaces": src + " (jnp under XLA, not a Pallas kernel)",
@@ -3545,6 +3682,17 @@ def golden(name):
                         GOLDEN_DIR, f"{name}.npz")
     with np.load(path) as g:
         return {k: g[k] for k in g.files}
+
+
+def trace_dir(name: str) -> str:
+    """An empty directory build/traces/<name> of this checkout for a
+    profiling.trace_to trace."""
+    import shutil
+    from pathlib import Path
+    d = Path(__file__).resolve().parent / "build" / "traces" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return str(d)
 
 
 def zero_launches():

@@ -43,9 +43,11 @@ launch floor (T2) positive and finite.  The differentiable wavefront's
 pair (K1's tape instance and the sweep over its tape): image and rays
 bit-equal to K1's, d_packed bit-equal to K3's warp form (its pool form at
 600 spheres) and per row within 1e-3 x the row's max of plain autograd
-through the plain wavefront; the tape freed at the first backward and
-written again for a retained graph's second; a tape that does not fit
-raises.
+through the plain wavefront; the staged tape instance's tape word for
+word the scalar instance's at every used slot; the tape freed at the
+first backward and written again for a retained graph's second; a tape
+that does not fit raises.  The scaled scene's shadow query past 16
+lights (K6 in groups of 16) against its plain version.
 """
 
 import numpy as np
@@ -457,6 +459,49 @@ def test_shadow_chunks_kernel_matches_plain(card):
     torch.cuda.synchronize()
     assert int((bits != want).sum()) <= 1e-5 * bits.numel()
     assert 0 < float((want != 0).double().mean()) < 1
+
+
+def test_lights_visible_past_sixteen_lights_matches_plain(card):
+    """ChunkedScenePort.lights_visible at 20 lights on a card: K6 in two
+    launches (16 + 4 lights), each light's visibility against the plain
+    version's on the CPU within K6's rays gate; a single shadow_chunks
+    call on the card refuses 17 lights."""
+    scene = make_scaled_scene(n=3000, chunk=256, extent=40.0)
+    others = [i for i in range(scene.n_spheres)
+              if i not in scene.emissive_ids]
+    lights = list(scene.emissive_ids) + others[:12]
+    rng = np.random.default_rng(20)
+    n = 8192
+    ro = tuple(rng.uniform(-30, 30, n).astype(np.float32) for _ in range(3))
+    c = scene.center.numpy()
+    dirs = []
+    for e in lights:
+        d = tuple(c[e, a] - ro[a] + rng.normal(0, 2, n).astype(np.float32)
+                  for a in range(3))
+        norm = np.sqrt(d[0] ** 2 + d[1] ** 2 + d[2] ** 2)
+        dirs.append(tuple(x / norm for x in d))
+
+    def on(dev):
+        return (tuple(torch.from_numpy(x).to(dev) for x in ro),
+                [tuple(torch.from_numpy(x).to(dev) for x in l)
+                 for l in dirs])
+    ro_d, dirs_d = on(card)
+    port = ChunkedScenePort(scene.to(card))
+    before = cuda_scaled.launches["shadow_chunks"]
+    got = port.lights_visible(ro_d, dirs_d, lights, 1e-3, 1e7)
+    torch.cuda.synchronize()
+    assert cuda_scaled.launches["shadow_chunks"] == before + 2
+    want = ChunkedScenePort(scene).lights_visible(*on("cpu"), lights, 1e-3,
+                                                  1e7)
+    assert len(got) == len(want) == 20
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert int((g.cpu() != w).sum()) <= 1e-5 * n, k
+    assert any(bool(w.any()) for w in want[16:])
+    with pytest.raises(ValueError, match="at most 16"):
+        cuda_scaled.shadow_chunks(
+            port.rows, ro_d, tuple(x for l in dirs_d[:17] for x in l),
+            tuple(ro_d[0] for _ in range(17)), 256, tuple(lights[:17]),
+            1e-3)
 
 
 def beacon_rays(scene, card, n, n_lights, seed):
@@ -1101,6 +1146,52 @@ def test_wave_pair_bit_equal_to_k1_and_k3(card, case):
     _, rays_p, d_p = render_tile_grad_plain(scene, cfg, 1, g, 0, 0, 32, 64)
     assert int(rays_p) == int(rays)
     assert_rows_close(d, d_p, 1e-3)
+
+
+@pytest.mark.parametrize("case", ["big", "crowded_600", "forty_lights"])
+def test_staged_tape_instance_equal_to_scalar_instance(card, case):
+    """K1's staged tape instance (merged_render_kernel<4>, the main
+    path's) against the instance it replaced (<3>): every word of every
+    used slot (rec, see) and every sample's bounces equal; both images
+    and rays K1's bit for bit; the sweep over the staged tape K3's
+    cotangent bit for bit (the warp form's, the pool form's at 600
+    spheres); one launch of each instance."""
+    from toypathtracer_torch.tools.scenes import many_lights_scene
+    scene = {"big": make_scene(big=True), "crowded_600":
+             crowded_scene(extra=554),
+             "forty_lights": many_lights_scene()}[case].to(card)
+    cfg = RenderConfig(width=96, height=40, samples_per_pixel=3, max_depth=5,
+                       **WAVE)
+    g = torch.from_numpy(np.random.RandomState(3).rand(40, 96, 3)
+                         .astype(np.float32)).to(card)
+    args = (scene, cfg, 2, 0, 0, 40, 96)
+    k1_img, k1_rays = cuda_render.render_tile(*args)
+    before = dict(cuda_grad.launches)
+    img_s, rays_s, staged = cuda_grad.render_tile_wave_tape(*args)
+    img_b, rays_b, scalar = cuda_grad.render_tile_wave_tape(*args,
+                                                            form="scalar")
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in cuda_grad.launches.items()
+            if v != before[k]} == {"wave_tape": 1, "wave_tape_baseline": 1}
+    assert torch.equal(img_s, k1_img) and int(rays_s) == int(k1_rays)
+    assert torch.equal(img_b, k1_img) and int(rays_b) == int(k1_rays)
+    assert torch.equal(staged["depth"], scalar["depth"])
+    used = (torch.arange(cfg.max_depth, device=card)[None, :]
+            < staged["depth"].long()[:, None]).reshape(-1)
+    assert bool(used.any()) and not bool(used.all())
+    words = -(-len(scene.emissive_ids) // 32)
+    rec_s, rec_b = (t["rec"].view(torch.int32).reshape(-1, 16)[used]
+                    for t in (staged, scalar))
+    see_s, see_b = (t["see"].reshape(-1, words)[used]
+                    for t in (staged, scalar))
+    assert torch.equal(rec_s, rec_b) and torch.equal(see_s, see_b)
+    form = "pool" if scene.n_spheres > cuda_render.MAX_SPHERES else "warp"
+    d = cuda_grad.sweep_wave_tape(scene, cfg, g, staged)
+    _, _, d_k3 = cuda_grad.render_tile_grad_form(
+        scene, cfg.replace(diff_wavefront=False), 2, g, 0, 0, 40, 96, form)
+    assert torch.equal(d, d_k3)
+    with pytest.raises(ValueError, match="no tape instance"):
+        cuda_grad.render_tile_wave_tape(*args, form="bogus")
 
 
 def test_wave_autograd_across_steps_and_a_retained_graph(card):

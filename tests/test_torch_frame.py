@@ -11,6 +11,8 @@ up to 2.1e-5 (gate 5e-5).  The accumulation contracts are exact.
 """
 
 import ast
+import json
+import os
 import pathlib
 import re
 
@@ -29,6 +31,7 @@ from toypathtracer_torch.cli import main as cli_main
 from toypathtracer_torch.ops import cuda_render
 from toypathtracer_torch.render import frame as frame_mod
 from toypathtracer_torch.render.frame import RenderSession
+from toypathtracer_torch.render.wavefront import render_frame_plain
 
 torch.set_num_threads(1)
 
@@ -124,6 +127,71 @@ def test_hud_string_byte_identical(title, seconds, rays, frames):
         j_profiling.hud_string(title, seconds, rays, frames)
 
 
+def test_trace_to_writes_a_trace(tmp_path):
+    """profiling.trace_to, JAX's signature on torch.profiler: a render on
+    the CPU inside it leaves one Chrome trace file in log_dir, which
+    trace_summary reads (no device activity on the CPU: idle share 1);
+    kernel_label strips a kernel's return type, namespaces and
+    parameters."""
+    import inspect
+    assert list(inspect.signature(profiling.trace_to).parameters) == \
+        list(inspect.signature(j_profiling.trace_to).parameters)
+    cfg = RenderConfig(width=16, height=8, samples_per_pixel=1, max_depth=2)
+    with profiling.trace_to(str(tmp_path)) as prof:
+        render_frame_plain(make_scene(big=False), cfg, 0)
+        with torch.profiler.record_function("frame_1"):
+            render_frame_plain(make_scene(big=False), cfg, 1)
+    files = list(tmp_path.glob("*.pt.trace.json"))
+    assert len(files) == 1 and prof is not None
+    summary = profiling.trace_summary(tmp_path)
+    assert summary["file"] == files[0].name
+    assert summary["span_ms"] > 0 and summary["busy_ms"] == 0.0
+    assert summary["idle_share"] == 1.0 and summary["kernels"] == {}
+    one = profiling.trace_summary(files[0], window="frame_1")
+    assert 0 < one["span_ms"] < summary["span_ms"]
+    with pytest.raises(ValueError, match="frame_2"):
+        profiling.trace_summary(tmp_path, window="frame_2")
+    assert profiling.kernel_label(
+        "void (anonymous namespace)::merged_render_kernel<4>(float const*, "
+        "tpt::RenderParams, tpt::FrameTape)") == "merged_render_kernel<4>"
+    assert profiling.kernel_label("void wave_sweep_kernel(float const*, "
+                                  "int)") == "wave_sweep_kernel"
+
+
+def test_trace_summary_device_intervals(tmp_path):
+    """trace_summary on a hand-made Chrome trace: overlapping device
+    intervals counted once, copies apart from kernels, a window clipping
+    what lies outside it, metadata and flow events ignored."""
+    ev = [{"ph": "M", "name": "process_name"},
+          {"ph": "X", "cat": "cpu_op", "name": "aten::empty", "ts": 0,
+           "dur": 100},
+          {"ph": "X", "cat": "user_annotation", "name": "step", "ts": 10,
+           "dur": 80},
+          {"ph": "X", "cat": "kernel", "ts": 20, "dur": 30,
+           "name": "void (anonymous namespace)::merged_render_kernel<4>("
+                   "float const*, tpt::FrameTape)"},
+          {"ph": "X", "cat": "kernel", "ts": 40, "dur": 20,
+           "name": "void wave_sweep_kernel(float const*)"},
+          {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 80,
+           "dur": 40},
+          {"ph": "f", "cat": "ac2g", "name": "flow", "ts": 5}]
+    f = tmp_path / "x.pt.trace.json"
+    f.write_text(json.dumps({"traceEvents": ev}))
+    whole = profiling.trace_summary(f)
+    assert whole["span_ms"] == pytest.approx(0.120)
+    assert whole["busy_ms"] == pytest.approx(0.080)  # 20-60 and 80-120
+    assert whole["idle_share"] == pytest.approx(1 - 80 / 120)
+    assert whole["kernels"] == {
+        "merged_render_kernel<4>": {"ms": pytest.approx(0.030),
+                                    "launches": 1},
+        "wave_sweep_kernel": {"ms": pytest.approx(0.020), "launches": 1}}
+    assert whole["copies_ms"] == pytest.approx(0.040)
+    step = profiling.trace_summary(tmp_path, window="step")
+    assert step["span_ms"] == pytest.approx(0.080)
+    assert step["busy_ms"] == pytest.approx(0.050)  # 20-60 and 80-90
+    assert step["copies_ms"] == pytest.approx(0.010)
+
+
 def test_frame_timer_matches_jax():
     t = profiling.FrameTimer(title="T")
     j = j_profiling.FrameTimer(title="T")
@@ -213,6 +281,59 @@ def test_cli_parity_backend(tmp_path):
     from toypathtracer_torch import io as image_io
     assert png == image_io.png_bytes(img.numpy())
     assert rays == int(want_rays)
+
+
+# tests/test_io_cli.py:57's command line, and :69's common part, with the
+# port's --device cpu
+JAX_CLI = ["--width", "64", "--height", "8", "--spp", "1", "--max-depth",
+           "3", "--small", "--backend", "jnp", "--device", "cpu"]
+
+
+def test_cli_jax_command_line_renders(tmp_path, capsys):
+    """tests/test_io_cli.py:57 against the port: --backend jnp renders with
+    the plain PyTorch renderer on --device (one stderr line says so), the
+    image that of the default CPU backend."""
+    out = str(tmp_path / "cli.tga")
+    assert cli_main(JAX_CLI + ["--frames", "2", "--output", out]) == 0
+    captured = capsys.readouterr()
+    assert os.path.exists(out)
+    assert "Mrays/s" in captured.out and "frames 2" in captured.out
+    assert captured.out.splitlines()[0].startswith("backend=jnp ")
+    err = captured.err.splitlines()
+    assert err == ["--backend jnp: the plain PyTorch renderer on cpu"]
+    auto = str(tmp_path / "auto.tga")
+    assert cli_main([a for a in JAX_CLI if a not in ("--backend", "jnp")]
+                    + ["--frames", "2", "--output", auto]) == 0
+    assert open(out, "rb").read() == open(auto, "rb").read()
+
+
+def test_cli_jax_resume_command_lines(tmp_path, capsys):
+    """tests/test_io_cli.py:69 against the port: 2 frames with
+    --save-state, --resume and 2 more, byte for byte the image of 4
+    straight frames, the frame counter resumed."""
+    state = str(tmp_path / "state.npz")
+    a, b, c = (str(tmp_path / f"{k}.tga") for k in "abc")
+    assert cli_main(JAX_CLI + ["--frames", "2", "--save-state", state,
+                               "--output", a]) == 0
+    assert cli_main(JAX_CLI + ["--frames", "2", "--resume", state,
+                               "--output", b]) == 0
+    assert "frames 4" in capsys.readouterr().out
+    assert cli_main(JAX_CLI + ["--frames", "4", "--output", c]) == 0
+    np.testing.assert_array_equal(np.fromfile(b, np.uint8),
+                                  np.fromfile(c, np.uint8))
+
+
+@pytest.mark.parametrize("scaled", [[], ["--scaled", "512"]])
+def test_cli_pallas_backend_refuses_the_cpu(tmp_path, scaled):
+    """--backend pallas is the card's hand-written kernel: with --device
+    cpu the CLI stops with a message naming it, and renders nothing on
+    the plain renderer instead."""
+    out = tmp_path / "none.png"
+    with pytest.raises(SystemExit, match="--backend pallas runs the card"):
+        cli_main(["--device", "cpu", "--width", "16", "--height", "8",
+                  "--frames", "1", "--backend", "pallas", "--output",
+                  str(out), *scaled])
+    assert not out.exists()
 
 
 def test_cli_accepts_the_tpu_knobs(tmp_path, capsys):

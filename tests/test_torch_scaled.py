@@ -176,6 +176,48 @@ def shadow_rays(s, j):
     return ro, lights, dirs
 
 
+@pytest.fixture(scope="module")
+def scene800_c64():
+    """tests/test_scaled.py:76's scene (800 spheres, chunk 64)."""
+    return (make_scaled_scene(n=800, chunk=64, extent=30.0),
+            jscaled.make_scaled_scene(n=800, chunk=64, extent=30.0))
+
+
+@pytest.mark.parametrize("n_lights", [17, 20])
+def test_lights_visible_past_sixteen_lights_matches_jax(scene800_c64,
+                                                         n_lights):
+    """ChunkedScenePort.lights_visible on the CPU past 16 lights (the 8
+    beacons and as many other spheres as lights) equal to JAX's jnp scan
+    lane for lane; the plain mask takes them 32 at a time, so one call
+    here, while a shadow_chunks call on a card takes 16."""
+    s, j = scene800_c64
+    rng = np.random.default_rng(n_lights)
+    n = 512
+    ro = tuple(rng.uniform(-25, 25, n).astype(np.float32) for _ in range(3))
+    others = [i for i in range(s.n_spheres) if i not in s.emissive_ids]
+    lights = list(s.emissive_ids) + others[:n_lights - len(s.emissive_ids)]
+    c = s.center.numpy()
+    dirs = []
+    for e in lights:
+        d = tuple(c[e, a] - ro[a] + rng.normal(0, 2, n).astype(np.float32)
+                  for a in range(3))
+        norm = np.sqrt(d[0] ** 2 + d[1] ** 2 + d[2] ** 2)
+        dirs.append(tuple(x / norm for x in d))
+    want = jscaled.ChunkedScenePort(j).lights_visible(
+        tuple(map(jnp.asarray, ro)),
+        [tuple(map(jnp.asarray, l)) for l in dirs], lights, 1e-3, 1e7)
+    got = ChunkedScenePort(s).lights_visible(
+        tuple(map(torch.from_numpy, ro)),
+        [tuple(map(torch.from_numpy, l)) for l in dirs], lights, 1e-3, 1e7)
+    assert len(got) == len(want) == n_lights
+    for k, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=k)
+    seen = np.stack([g.numpy() for g in got])
+    assert seen[16:].any() and not seen[16:].all()
+    assert cuda_scaled.mask_lights("cpu") == 32
+    assert cuda_scaled.mask_lights("cuda") == cuda_scaled.MAX_LIGHTS == 16
+
+
 @pytest.mark.parametrize("route", ["jnp_scan", "pallas_interpret"])
 def test_shadow_chunks_matches_jax(scene3k, route):
     s, j = scene3k
@@ -421,9 +463,9 @@ def test_wrappers_refuse_unsupported_inputs(scene800, case):
         elif case == "too_many_chunks":
             big = torch.zeros((cuda_scaled.MAX_CHUNKS + 1, 4 * 1 + 8))
             cuda_scaled.hit_chunks(big, ro, ro, 1, 1e-3, 1e7)
-        elif case == "too_many_lights":
-            cuda_scaled.shadow_chunks(rows, ro, ro * 17, (ro[0],) * 17, 128,
-                                      list(range(17)), 1e-3)
+        elif case == "too_many_lights":  # the plain mask's 32 bits
+            cuda_scaled.shadow_chunks(rows, ro, ro * 33, (ro[0],) * 33, 128,
+                                      list(range(33)), 1e-3)
         elif case == "ragged_scene":
             cuda_scaled.render_frame_scaled(
                 s.replace(chunk_aabb=s.chunk_aabb[:-1]), CFG, 0,

@@ -161,3 +161,34 @@ def test_command_line_viewer(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device"):
         main(["--width", "16", "--height", "8", "--port", "0"])
+
+
+def test_viewer_takes_the_jax_backend_names():
+    """The JAX viewer's backend names: "jnp" and "pallas" switch to the
+    port's plain renderer and the card's kernel where the viewer has them
+    (set_backend), and serve's --backend jnp runs the plain renderer on
+    the CPU while --backend pallas stops there, naming the card."""
+    import argparse
+    fns = {"cuda": render_frame_plain, "plain": None}
+    v = Viewer(make_scene(big=False), TINY, render_fns=fns, backend="plain",
+               device="cpu")
+    assert v.set_backend("pallas") is True
+    v.step_once()
+    assert v.backend == "cuda"
+    assert v.set_backend("jnp") is True
+    v.step_once()
+    assert v.backend == "plain"
+    cpu_only = viewer(render_fns={"plain": None})
+    assert cpu_only.set_backend("jnp") is True
+    assert cpu_only.set_backend("pallas") is False
+
+    def args(backend):
+        return argparse.Namespace(width=16, height=8, spp=1, max_depth=2,
+                                  small=True, scaled=0, animate=False, ppl=1,
+                                  batch=0, backend=backend, device="cpu")
+    v, label = make_viewer(args("jnp"))
+    assert label == "plain" and sorted(v.render_fns) == ["plain"]
+    v.step_once()
+    assert v.sess.state.frame == 1 and v.sess.device.type == "cpu"
+    with pytest.raises(SystemExit, match="--backend pallas runs the card"):
+        make_viewer(args("pallas"))

@@ -1,7 +1,7 @@
-"""The differentiable wavefront's kernel pair (K1's tape instance, csrc/
-render.cu merged_render_kernel<3>, and the sweep of csrc/wavegrad.cu),
-its per-lane code built with g++ for the CPU and held bit for bit against
-the kernels it stands beside.
+"""The differentiable wavefront's kernel pair (K1's tape instances, csrc/
+render.cu merged_render_kernel<4> and <3>, and the sweep of
+csrc/wavegrad.cu), its per-lane code built with g++ for the CPU and held
+bit for bit against the kernels it stands beside.
 
 Without nvcc the TPT_HD and TPT_WARP macros are plain `inline`, and the
 warp policies of csrc/warp.cuh (HostLane, one lane) and csrc/hostwarp.h
@@ -13,6 +13,9 @@ Held exactly: the tape-writing merged loop on the flat scene
 flat.cuh nee_warp's kTape hook) writes for every (pixel, sample, bounce)
 the record trace.cuh's trace_sample_tape writes, and each sample's
 bounces, and its image and rays are the merged loop's without the tape;
+so does the loop with a StagedTapeSink (tape.cuh: each record staged in
+the lane's slot and written in quarters by four lanes, the staged
+instance's writer), word for word the TapeSink's tape;
 the sweep (coopgrad.cuh sweep_tiles over the flat SceneView) gives the
 cotangent of K3's warp form (gradwarp.cuh grad_tiles, its 16-light
 WarpTape records or past 16 lights LightTapeOf's) on the same warps, and
@@ -146,9 +149,10 @@ struct Tables {
 };
 
 // The merged loop (K1) over the whole sub-image in one warp of `lanes`
-// lanes, the table read where it lies: with tape true K1's tape instance
-// (a TapeSink a lane writing the FrameTape rec, see, depth), else K1.
-// Returns the rays, or -1 if the warp stalled.
+// lanes, the table read where it lies: with tape 1 K1's scalar tape
+// instance (a TapeSink a lane writing the FrameTape rec, see, depth), with
+// tape 2 its staged instance (a StagedTapeSink a lane over the warp's
+// staging slots), else K1.  Returns the rays, or -1 if the warp stalled.
 extern "C" long long tpt_wave_tape_cpu(const Flat* s,
                                        const tpt::RenderParams* p,
                                        float* out, float* rec, uint32_t* see,
@@ -161,8 +165,16 @@ extern "C" long long tpt_wave_tape_cpu(const Flat* s,
   const tpt::FrameTape ft = frame_tape(p, rec, see, depth);
   int next_tile = 0;
   unsigned long long lane_rays[32] = {};
+  std::vector<float> stage(lanes * tpt::StagedTapeSink::kStageWords);
   const bool ok = run_warps(1, lanes, [&](auto& w, int, int l) {
-    if (tape) {
+    if (tape == 2) {
+      tpt::StagedTapeSink sink;
+      sink.tape = ft;
+      sink.stage = stage.data();
+      sink.lane = l;
+      lane_rays[l] = tpt::render_tiles_merged(w, S, s->cam, *p, &next_tile,
+                                              out, sink);
+    } else if (tape) {
       tpt::TapeSink sink;
       sink.tape = ft;
       lane_rays[l] = tpt::render_tiles_merged(w, S, s->cam, *p, &next_tile,
@@ -360,8 +372,9 @@ class Case:
                 "depth": np.full(samples, -7, np.int32)}
 
     def forward(self, lib, which, lanes=1):
-        """which: "tape" (K1's tape instance), "k1" (K1) or "reference"
-        (trace_sample_tape).  Returns (image, rays, tape)."""
+        """which: "tape" (K1's scalar tape instance), "staged" (its staged
+        instance), "k1" (K1) or "reference" (trace_sample_tape).  Returns
+        (image, rays, tape)."""
         out = np.zeros(self.shape, np.float32)
         t = self.tape()
         ptrs = (out.ctypes.data, t["rec"].ctypes.data, t["see"].ctypes.data,
@@ -373,7 +386,7 @@ class Case:
         else:
             rays = lib.tpt_wave_tape_cpu(ctypes.byref(self.args),
                                          ctypes.byref(self.params), *ptrs,
-                                         lanes, int(which == "tape"))
+                                         lanes, WRITERS[which])
         assert rays >= 0, "a 32-lane warp stalled at a collective"
         return out, rays, t
 
@@ -398,6 +411,10 @@ class Case:
             int(pooled))
         assert rays >= 0, "a 32-lane warp stalled at a collective"
         return out, rays, acc
+
+
+# tpt_wave_tape_cpu's tape argument
+WRITERS = {"k1": 0, "tape": 1, "staged": 2}
 
 
 def cotangent(shape, seed):
@@ -436,6 +453,41 @@ def test_tape_loop_writes_trace_sample_tape_records(host_lib, case, lanes):
     assert_tapes_equal(tape, ref)
     assert_tapes_equal(untouched, c.tape())  # K1 writes no tape
     assert (tape["depth"] >= 1).all()
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+@pytest.mark.parametrize("case", ["big", "small_no_nee", "forty_lights"])
+def test_staged_tape_loop_writes_tape_sink_records(host_lib, case, lanes):
+    """K1's staged tape instance (StagedTapeSink: each record staged in
+    the lane's slot and handed to the tape in quarters, four lanes a
+    record): image and rays bit-equal to K1, every word of the tape (rec,
+    see, depth) equal to TapeSink's and to trace_sample_tape's, the slots
+    no sample reached untouched; at 40 lights the seen lights span two
+    words, without light sampling no Lambert lane writes one."""
+    cfg = RenderConfig(width=16, height=8, samples_per_pixel=2, max_depth=4)
+    scene = make_scene(big=True)
+    if case == "small_no_nee":
+        scene = make_scene(big=False)
+        cfg = cfg.replace(do_light_sampling=False)
+    elif case == "forty_lights":
+        scene = many_lights_scene()
+        cfg = cfg.replace(width=8, height=4, max_depth=3)
+    c = Case(scene, cfg, frame=2, x0=3, y0=5)
+    img_s, rays_s, staged = c.forward(host_lib, "staged", lanes)
+    img_t, rays_t, tape = c.forward(host_lib, "tape", lanes)
+    img_r, rays_r, ref = c.forward(host_lib, "reference")
+    np.testing.assert_array_equal(img_s, img_t)
+    np.testing.assert_array_equal(img_s, img_r)
+    assert rays_s == rays_t == rays_r
+    assert_tapes_equal(staged, tape)
+    assert_tapes_equal(staged, ref)
+    assert (staged["depth"] >= 1).all()
+    # the slots past each sample's last bounce keep the empty tape's NaN
+    reached = (np.arange(cfg.max_depth)[None, :]
+               < staged["depth"].reshape(-1, 1))
+    rec = staged["rec"].reshape(-1, cfg.max_depth, 16)
+    assert (rec[~reached] == 0x7fc00001).all()
+    assert (rec[reached] != 0x7fc00001).any(axis=-1).all()
 
 
 @pytest.mark.parametrize("lanes,n_warps", [(1, 3), (32, 3)])

@@ -5,13 +5,18 @@ Usage:
     python -m toypathtracer_torch [--frames 30] [--width 1280 --height 720]
         [--spp 4] [--max-depth 10] [--small] [--animate] [--no-progressive]
         [--no-light-sampling] [--mitsuba-compare] [--output out.png|out.tga]
-        [--device cuda|cpu] [--scaled N] [--backend auto|sharded|parity]
+        [--device cuda|cpu] [--scaled N]
+        [--backend auto|pallas|jnp|sharded|parity]
         [--batch N] [--resume STATE.npz] [--save-state STATE.npz]
         [--tile H,W] [--ppl K] [--merged]
 
 Renders on the card by default; `--device cpu` runs the plain PyTorch
 renderer on the CPU.  `--scaled N` renders the procedurally instanced
 N-sphere scene (the chunked traversal; `--animate` orbits its beacons).
+The JAX CLI's `--backend pallas` is the card's hand-written render kernel
+here (with `--device cpu` it stops: the CPU has no kernel and nothing
+falls back), and `--backend jnp` the plain PyTorch renderer on `--device`;
+each says on stderr what runs.
 `--backend sharded` splits each frame's rows over every visible card
 (parallel/mesh.render_frame_sharded; with `--device cpu` one band on the
 CPU); `--backend parity` renders with the reference's scalar C++
@@ -38,6 +43,34 @@ from .profiling import hud_string
 from .render.frame import RenderSession, sum_rays
 from .scaled import make_scaled_scene
 from .scene import make_scene
+
+
+def pick_backend(name: str, device: str, scaled: bool = False):
+    """The JAX CLI's `pallas` and `jnp` backends (its _pick_backend) on the
+    port: "pallas" the card's hand-written render kernel (the session's
+    default there: None), "jnp" the plain PyTorch renderer (of the scaled
+    scene with `scaled`) on `device`.  Prints one stderr line naming what
+    runs.  "pallas" with device "cpu" exits with an error: the CPU has no
+    kernel, and nothing falls back to the plain renderer."""
+    kind = "scaled render kernel" if scaled else "render kernel K1"
+    if name == "pallas":
+        if device != "cuda":
+            raise SystemExit(
+                "--backend pallas runs the card's hand-written "
+                f"{kind}, and --device {device} has none: use --device "
+                "cuda, or --backend jnp for the plain PyTorch renderer")
+        print(f"--backend pallas: the hand-written {kind} (CUDA) on the "
+              "card", file=sys.stderr)
+        return None
+    if name != "jnp":
+        raise ValueError(f"no kernel-or-plain backend {name!r}")
+    if scaled:
+        from .scaled import render_frame_scaled_plain as fn
+    else:
+        from .render.wavefront import render_frame_plain as fn
+    print(f"--backend jnp: the plain PyTorch renderer on {device}",
+          file=sys.stderr)
+    return fn
 
 
 def main(argv=None) -> int:
@@ -70,8 +103,10 @@ def main(argv=None) -> int:
                     help="cuda: the CUDA kernel (default); cpu: the plain "
                          "PyTorch renderer")
     ap.add_argument("--backend", default="auto",
-                    choices=["auto", "sharded", "parity"],
-                    help="auto: the whole frame on one device; sharded: "
+                    choices=["auto", "pallas", "jnp", "sharded", "parity"],
+                    help="auto: the whole frame on one device; pallas: the "
+                         "card's hand-written kernel (no CPU form); jnp: "
+                         "the plain PyTorch renderer on --device; sharded: "
                          "its rows split over every card (one CPU band "
                          "with --device cpu); parity: the reference's "
                          "scalar C++ semantics (slow, for validation)")
@@ -94,7 +129,7 @@ def main(argv=None) -> int:
                     help="the JAX CLI's merged TPU wavefront; never "
                          "changes the image, ignored by the card's kernel")
     args = ap.parse_args(argv)
-    if args.scaled and args.backend != "auto":
+    if args.scaled and args.backend not in ("auto", "pallas", "jnp"):
         raise SystemExit("--scaled uses its own chunked renderer")
 
     cfg = RenderConfig(
@@ -135,6 +170,10 @@ def main(argv=None) -> int:
         from .render.parity import render_frame_parity
         render_fn = partial(render_frame_parity, device=args.device)
         backend = "parity"
+    elif args.backend in ("pallas", "jnp"):
+        render_fn = pick_backend(args.backend, args.device,
+                                 bool(args.scaled))
+        backend = args.backend
     sess = RenderSession(scene, cfg, flags=flags, render_fn=render_fn,
                          device=args.device)
     frame0 = 0

@@ -24,12 +24,14 @@
 // below.  A counter with kTrips set (TripStats, the stats render kernel
 // K2's) makes the loop walk a padded pixel grid and report each pixel's
 // samples; kTrips false compiles to the loop without it.  A counter with
-// kTape set (csrc/coopgrad.cuh TapeSink, the scaled gradient's
-// tape-writing forward) receives each bounce's carry record: the ray, RNG
+// kTape set (csrc/tape.cuh TapeSink or StagedTapeSink, the gradients'
+// tape-writing forwards) receives each bounce's carry record: the ray, RNG
 // state and attenuation it started from (head), its hit, gate and
 // dielectric draw (hit, refl), its emission and whether the path went on
-// (tail), and each sample's bounces (sample_depth); kTape false compiles
-// to the loop without it.
+// (tail), and each sample's bounces (sample_depth); after tail every lane
+// calls flush with the iteration's busy lanes, where a staging counter
+// hands the records to the tape; kTape false compiles to the loop without
+// it.
 
 #pragma once
 
@@ -307,7 +309,10 @@ TPT_WARP unsigned long long render_tiles_merged(const W& w, const View& S,
       cnt.head(busy, px, py, p.spp - 1 - left, depth, ro, rd, st, atten);
     const bool go =
         bounce_merged(w, S, p, busy, ro, rd, st, do_me, rays, e, c, cnt);
-    if constexpr (Cnt::kTape) cnt.tail(busy, go, e);
+    if constexpr (Cnt::kTape) {
+      cnt.tail(busy, go, e);
+      cnt.flush(w, bm);
+    }
     if (busy) {
       col = add(col, mul(atten, e));
       ++depth;

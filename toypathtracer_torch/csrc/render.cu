@@ -14,13 +14,18 @@
 // each warp's NEE scratch are always in shared memory.  Its counted
 // instance (merged_render_kernel<1>) adds the loop's iterations, busy lanes
 // and cycles by part (merged.cuh kSt*).  K4 (ops/cuda_grad.render_tile_lockstep) launches
-// the same kernel.  Its tape instance (merged_render_kernel<3>, the
-// counter tape.cuh's TapeSink) is the differentiable wavefront's forward
-// (RenderConfig.diff_wavefront; the JAX package's jnp route
+// the same kernel.  Its tape instances are the differentiable wavefront's
+// forward (RenderConfig.diff_wavefront; the JAX package's jnp route
 // tracecore.render_pixels_fused_merged(differentiable=True)): K1's image
 // and rays, bit for bit, and each bounce's carry record written to a
-// frame-sized FrameTape that csrc/wavegrad.cu's sweep reads back.  The
-// other instances keep their parameters and code.
+// frame-sized FrameTape that csrc/wavegrad.cu's sweep reads back.  On the
+// main path the staged instance (merged_render_kernel<4>, the counter
+// tape.cuh's StagedTapeSink: each lane's record staged in a 64-byte slot
+// of shared memory, 2 KB a warp after the NEE scratches, and written as
+// whole lines in 16-byte stores); beside it the instance it replaced
+// (merged_render_kernel<3>, TapeSink: a store a word), kept as its
+// bit-equality and timing baseline.  The other instances keep their
+// parameters and code.
 //
 // render_kernel<0> is the per-thread kernel it replaced, kept as the
 // baseline it is held bit-equal to and timed against: one thread per pixel
@@ -351,10 +356,19 @@ size_t merged_floats(const tpt::RenderParams* p, bool staged) {
 // The merged kernel's instances: the timed K1, its counted instance
 // (merged.cuh LoopStats, adding kStSlots totals to MergedOut::stats), K2's
 // stats instance (merged.cuh TripStats over the MergedOut grid), and the
-// differentiable wavefront's forward, the tape instance (tape.cuh
-// TapeSink, writing a FrameTape).
+// differentiable wavefront's forwards, the tape instances writing a
+// FrameTape: through tape.cuh's TapeSink, and staged (StagedTapeSink).
 enum { kMergedTimed = 0, kMergedCounted = 1, kMergedStats = 2,
-       kMergedTape = 3 };
+       kMergedTape = 3, kMergedStaged = 4 };
+
+// Floats of the staged tape instance's slots (a record a lane) after the
+// NEE scratches, and 4 more to align them to 16 bytes.
+constexpr size_t kStageFloats =
+    kMergedThreads * tpt::StagedTapeSink::kStageWords + 4;
+
+constexpr bool writes_tape(int mode) {
+  return mode == kMergedTape || mode == kMergedStaged;
+}
 
 // What an instance writes besides the image and the rays: the counted
 // instance's totals; the stats instance's padded (grid_h, grid_w) tile
@@ -368,11 +382,11 @@ struct MergedOut {
   int32_t* depth;
 };
 
-// The last parameter of an instance: the tape instance's FrameTape, the
+// The last parameter of an instance: the tape instances' FrameTape, the
 // others' MergedOut (their parameters, and so their code, stay as they
 // were before the tape instance).
 template <int kMode>
-using MergedOutOf = typename std::conditional<kMode == kMergedTape,
+using MergedOutOf = typename std::conditional<writes_tape(kMode),
                                               tpt::FrameTape, MergedOut>::type;
 
 // K1 (csrc/flat.cuh, merged.cuh) and its instances (kMode).  sph: the (n,
@@ -380,8 +394,8 @@ using MergedOutOf = typename std::conditional<kMode == kMergedTape,
 // material and emissive ids into shared memory first.  next_tile: one int
 // zeroed by the caller.  The stats instance walks x's padded grid of the
 // (p.height, p.width) image; its image and rays are K1's, bit for bit, as
-// are the tape instance's, which writes each bounce's record to the
-// FrameTape x.
+// are the tape instances', which write each bounce's record to the
+// FrameTape x (the staged one through its slots after the NEE scratches).
 template <int kMode>
 __global__ void __launch_bounds__(kMergedThreads, kMergedBlocks)
 merged_render_kernel(const float* __restrict__ tab,
@@ -427,6 +441,17 @@ merged_render_kernel(const float* __restrict__ tab,
     } else if constexpr (kMode == kMergedTape) {
       tpt::TapeSink sink;
       sink.tape = x;
+      count = tpt::render_tiles_merged(w, S, s_cam, p, next_tile, out, sink);
+    } else if constexpr (kMode == kMergedStaged) {
+      // the slots after the warps' NEE scratches, aligned to 16 bytes
+      const uintptr_t end = reinterpret_cast<uintptr_t>(
+          s_cam + tpt::kCameraFloats +
+          kMergedWarps * tpt::flat_nee_words(p.n_lights, 32));
+      tpt::StagedTapeSink sink;
+      sink.tape = x;
+      sink.stage = reinterpret_cast<float*>((end + 15) & ~uintptr_t(15)) +
+                   (tid >> 5) * 32 * tpt::StagedTapeSink::kStageWords;
+      sink.lane = tid & 31;
       count = tpt::render_tiles_merged(w, S, s_cam, p, next_tile, out, sink);
     } else {
       tpt::NoCoopCount none;
@@ -478,7 +503,7 @@ size_t smem_bytes(const tpt::RenderParams* p) {
 // A merged instance's launch over the (h, w) pixel span of p in 16x2
 // tiles: as many blocks as the tiles need, at most as many of the timed
 // instance as fit on the card at once (the others deal tiles as it does);
-// the tape instance, as many of its own as fit.
+// a tape instance, as many of its own as fit.
 template <int kMode>
 cudaError_t launch_merged(const float* tab, const tpt::Sphere4* sph,
                           const int32_t* mat, const int32_t* lights,
@@ -487,12 +512,14 @@ cudaError_t launch_merged(const float* tab, const tpt::Sphere4* sph,
                           int* next_tile, const MergedOutOf<kMode>& x,
                           void* stream) {
   const bool staged = p->n_spheres <= tpt::kMaxSpheres;
-  const size_t smem = sizeof(float) * merged_floats(p, staged);
+  const size_t smem =
+      sizeof(float) * (merged_floats(p, staged) +
+                       (kMode == kMergedStaged ? kStageFloats : 0));
   int capacity = 0;
   cudaError_t err;
-  if constexpr (kMode == kMergedTape)
+  if constexpr (writes_tape(kMode))
     err = tpt::cached_capacity(kMergedThreads, smem, &capacity,
-                               merged_render_kernel<kMergedTape>);
+                               merged_render_kernel<kMode>);
   else
     err = tpt::cached_capacity(
         kMergedThreads, smem, &capacity, merged_render_kernel<kMergedTimed>,
@@ -560,23 +587,29 @@ int tpt_render_stats_merged_launch(const float* tab, const tpt::Sphere4* sph,
       stream));
 }
 
-// The differentiable wavefront's forward on `stream`: K1's tape instance
-// (merged_render_kernel<3>) over the (p->height, p->width) sub-image, its
-// image, rays and next_tile as for tpt_render_launch (bit-equal to K1's),
-// and each bounce's record written to the FrameTape (tape.cuh) of
-// tape_rec (16 floats a slot), tape_see (light_words(p->n_lights) words a
-// slot) and tape_depth (the bounces of each (pixel, sample)), height *
-// width * spp * max_depth slots; a slot a sample did not reach is left as
-// it was.  Any number of spheres and lights.  Returns cudaGetLastError().
+// The differentiable wavefront's forward on `stream`: one of K1's tape
+// instances over the (p->height, p->width) sub-image, its image, rays and
+// next_tile as for tpt_render_launch (bit-equal to K1's), and each
+// bounce's record written to the FrameTape (tape.cuh) of tape_rec (16
+// floats a slot, 64-byte aligned), tape_see (light_words(p->n_lights)
+// words a slot) and tape_depth (the bounces of each (pixel, sample)),
+// height * width * spp * max_depth slots (at most 2^31 - 1); a slot a
+// sample did not reach is left as it was.  form 1: the staged instance
+// (merged_render_kernel<4>), 0: the one it replaced (<3>); both write the
+// same tape.  Any number of spheres and lights.  Returns
+// cudaGetLastError().
 int tpt_render_tape_launch(const float* tab, const tpt::Sphere4* sph,
                            const int32_t* mat, const int32_t* lights,
                            const float* cam, const tpt::RenderParams* p,
                            float* out, unsigned long long* rays,
                            int* next_tile, float* tape_rec,
-                           uint32_t* tape_see, int32_t* tape_depth,
+                           uint32_t* tape_see, int32_t* tape_depth, int form,
                            void* stream) {
+  const size_t slots = static_cast<size_t>(p->height) * p->width * p->spp *
+                       p->max_depth;
   if (bad_params(p) || !next_tile || !tape_rec || !tape_depth ||
-      (p->n_lights > 0 && !tape_see))
+      (p->n_lights > 0 && !tape_see) || (form != 0 && form != 1) ||
+      slots > INT32_MAX || reinterpret_cast<uintptr_t>(tape_rec) % 64)
     return static_cast<int>(cudaErrorInvalidValue);
   tpt::FrameTape ft;
   ft.rec = tape_rec;
@@ -586,9 +619,11 @@ int tpt_render_tape_launch(const float* tab, const tpt::Sphere4* sph,
   ft.spp = p->spp;
   ft.max_depth = p->max_depth;
   ft.width = p->width;
-  return static_cast<int>(launch_merged<kMergedTape>(
-      tab, sph, mat, lights, cam, p, p->height, p->width, out, rays,
-      next_tile, ft, stream));
+  auto launch = form ? launch_merged<kMergedStaged>
+                     : launch_merged<kMergedTape>;
+  return static_cast<int>(launch(tab, sph, mat, lights, cam, p, p->height,
+                                 p->width, out, rays, next_tile, ft,
+                                 stream));
 }
 
 // The per-thread kernel K1 replaced (render_kernel<0>), or with parts

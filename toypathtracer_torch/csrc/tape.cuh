@@ -1,13 +1,14 @@
 // The frame tape of the gradient's tape-writing forwards and the reverse
 // sweeps that read it: each bounce's carry record at a slot indexed by
 // (pixel, sample, bounce) of the sub-image, written by the merged path loop
-// (csrc/merged.cuh) through a TapeSink counter.  Two forwards write it:
+// (csrc/merged.cuh) through a tape counter (kTape).  Two forwards write it:
 // the scaled render's tape instance (csrc/scaled.cu tape_render_kernel, on
-// coop.cuh's traversals) and K1's (csrc/render.cu merged_render_kernel's
-// tape instance, on flat.cuh's); coopgrad.cuh's sweep_tiles reads it back
-// (csrc/chunkgrad.cu over the chunked scene, csrc/wavegrad.cu over the
-// flat one).  It needs no traversal, so render.cu includes it without
-// coop.cuh.
+// coop.cuh's traversals, with a TapeSink) and K1's (csrc/render.cu
+// merged_render_kernel's tape instances, on flat.cuh's: the staged one
+// with a StagedTapeSink, and beside it the TapeSink one it replaced);
+// coopgrad.cuh's sweep_tiles reads it back (csrc/chunkgrad.cu over the
+// chunked scene, csrc/wavegrad.cu over the flat one).  It needs no
+// traversal, so render.cu includes it without coop.cuh.
 
 #pragma once
 
@@ -95,8 +96,10 @@ struct FrameTape {
   }
 };
 
-// The merged loop's counter that writes the FrameTape (merged.cuh kTape):
-// one per lane, holding the slot of the bounce its lane traces.
+// The merged loop's counter that writes the FrameTape (merged.cuh kTape)
+// with a store a word: one per lane, holding the slot of the bounce its
+// lane traces.  The 32 lanes of a warp hold 32 different (pixel, sample)
+// slots, so each store touches 32 lines, 4 bytes of a sector each.
 struct TapeSink {
   static constexpr bool kOn = false;
   static constexpr bool kTrips = false;
@@ -148,6 +151,115 @@ struct TapeSink {
   }
   TPT_HD void sample_depth(int px, int py, int s, int d) const {
     tape.depth[static_cast<size_t>(py * tape.width + px) * tape.spp + s] = d;
+  }
+  // the records are written: nothing to hand off
+  template <class W>
+  TPT_HD void flush(const W&, unsigned) const {}
+};
+
+// The n-th (from 0) set bit of m, or -1 where m has no more.
+TPT_HD int nth_bit(unsigned m, int n) {
+  for (int i = 0; i < n && m; ++i) m &= m - 1u;
+  return m ? lowest(m) : -1;
+}
+
+// The merged loop's counter that writes the FrameTape through a staging
+// slot a lane (kStageWords floats; the warp's W::kWidth slots in shared
+// memory on the card): K1's staged tape instance (csrc/render.cu
+// merged_render_kernel<4>).  head puts the bounce's inputs in the lane's
+// slot before the bounce runs, hit its root and id, tail its flags and
+// emission, so no word of the record is carried across the bounce; flush
+// (every lane, after tail) hands the busy lanes' records to the tape as
+// whole 64-byte lines in 16-byte stores, four lanes a record and
+// W::kWidth / 4 records a round, between two warp barriers.  The seen
+// lights' words are written once each: by see_word for a Lambert hit, as
+// zeros by tail for any other busy lane.  The tape is TapeSink's word for
+// word.  Slots are ints: a tape of 2^31 slots would hold 128 GiB of
+// records.  Quarter q of lane l's record lies at quarter q ^ ((l / 2) % 4)
+// of its staging slot, so that the 8 lanes of a shared-memory phase that
+// store the same quarter reach 8 different bank groups.
+struct StagedTapeSink {
+  static constexpr bool kOn = false;
+  static constexpr bool kTrips = false;
+  static constexpr bool kTape = true;
+  static constexpr int kStageWords = kRecWords;
+  FrameTape tape;
+  float* stage;  // the warp's slots, kStageWords floats a lane
+  int lane = 0;
+  int slot = 0;
+  bool gated = false, took = false, seen = false;
+  TPT_HD float* quarter(int owner, int q) const {
+    return stage + owner * kStageWords + ((q ^ ((owner >> 1) & 3)) << 2);
+  }
+  TPT_HD void put4(int q, float a, float b, float c, float d) const {
+    float* o = quarter(lane, q);
+#ifdef __CUDA_ARCH__
+    *reinterpret_cast<float4*>(o) = make_float4(a, b, c, d);
+#else
+    o[0] = a;
+    o[1] = b;
+    o[2] = c;
+    o[3] = d;
+#endif
+  }
+  TPT_HD void add(int, unsigned long long) {}
+  // the bounce's inputs, before it runs; its root and id come from hit
+  TPT_HD void head(bool busy, int px, int py, int s, int d, V3 ro, V3 rd,
+                   uint32_t st, V3 atten) {
+    if (!busy) return;
+    slot = ((py * tape.width + px) * tape.spp + s) * tape.max_depth + d;
+    seen = false;
+    put4(0, ro.x, ro.y, ro.z, rd.x);
+    put4(1, rd.y, rd.z, 0.0f, FrameTape::as_float(st));
+    put4(3, atten.x, atten.y, atten.z, 0.0f);
+  }
+  TPT_HD void hit(int id_, float t_, bool gated_) {
+    quarter(lane, 1)[2] = t_;
+    quarter(lane, 3)[3] = FrameTape::as_float(static_cast<uint32_t>(id_ + 1));
+    gated = gated_;
+    took = false;
+  }
+  TPT_HD void refl(bool r) { took = r; }
+  TPT_HD void see_word(int i, uint32_t word) {
+    tape.see[static_cast<size_t>(slot) * tape.words + i] = word;
+    seen = true;
+  }
+  // the bounce's outputs: its flags and emission; a busy lane whose seen
+  // lights no see_word wrote saw none
+  TPT_HD void tail(bool busy, bool go, V3 e) const {
+    if (!busy) return;
+    put4(2, FrameTape::as_float(FrameTape::flags(go, gated, took)), e.x,
+         e.y, e.z);
+    if (!seen)
+      for (int i = 0; i < tape.words; ++i)
+        tape.see[static_cast<size_t>(slot) * tape.words + i] = 0u;
+  }
+  TPT_HD void sample_depth(int px, int py, int s, int d) const {
+    tape.depth[static_cast<size_t>(py * tape.width + px) * tape.spp + s] = d;
+  }
+  // The busy lanes' (bm) records from their slots to the tape.  Every
+  // lane of the warp calls it.
+  template <class W>
+  TPT_WARP void flush(const W& w, unsigned bm) const {
+    w.sync();
+    const int n = 4 * popc(bm);
+    for (int base = 0; base < n; base += W::kWidth) {
+      const int i = base + w.lane();
+      const int owner = i < n ? nth_bit(bm, i >> 2) : w.lane();
+      const int at = w.shfl(slot, owner);
+      if (i < n) {
+        const float* src = quarter(owner, i & 3);
+        float* dst = tape.rec + static_cast<size_t>(at) * kRecWords +
+                     ((i & 3) << 2);
+#ifdef __CUDA_ARCH__
+        *reinterpret_cast<float4*>(dst) =
+            *reinterpret_cast<const float4*>(src);
+#else
+        for (int j = 0; j < 4; ++j) dst[j] = src[j];
+#endif
+      }
+    }
+    w.sync();
   }
 };
 

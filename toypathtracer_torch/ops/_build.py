@@ -214,7 +214,8 @@ def load_library() -> ctypes.CDLL:
     lib.tpt_render_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, params, ptr,
                                       ptr, ptr, ptr, ptr]
     lib.tpt_render_tape_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, params,
-                                           ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+                                           ptr, ptr, ptr, ptr, ptr, ptr, i32,
+                                           ptr]
     lib.tpt_wave_sweep_launch.argtypes = [ptr, ptr, ptr, params, ptr, i32,
                                           ptr, ptr, ptr, ptr, ptr, ptr]
     lib.tpt_wave_sweep_pool_launch.argtypes = [ptr, ptr, ptr, params, ptr,

@@ -40,9 +40,11 @@ words of their own, as the pool form always does.
 With cfg.diff_wavefront the differentiable render takes the differentiable
 wavefront, the route the JAX package's jnp backend takes
 (tracecore.render_pixels_fused_merged(differentiable=True)): on a card a
-kernel pair, K1's tape instance (csrc/render.cu merged_render_kernel<3>,
-the merged loop writing each bounce's carry record to a frame tape:
-`render_tile_wave_tape`) and a sweep over the tape (csrc/wavegrad.cu:
+kernel pair, K1's tape instance (csrc/render.cu merged_render_kernel<4>,
+the merged loop staging each bounce's carry record in shared memory and
+writing it to a frame tape as whole lines: `render_tile_wave_tape`; its
+form "scalar", <3>, the instance it replaced, stays as the baseline) and
+a sweep over the tape (csrc/wavegrad.cu:
 `sweep_wave_tape`, its table per warp in shared memory up to 512 spheres,
 a PoolTable past them), whose cotangent is K3's bit for bit on K3's grid;
 on the CPU autograd through the plain wavefront
@@ -50,7 +52,8 @@ on the CPU autograd through the plain wavefront
 (form "wave") under the flag; K3's own forms stay the lockstep
 differentiable form and warn under it, as the JAX package's in-kernel
 (unrolled) gradient route does (config.warn_diff_wavefront).  Launch
-counters "wave_tape", "wave_sweep" and "wave_sweep_pool".
+counters "wave_tape" (the staged instance), "wave_tape_baseline",
+"wave_sweep" and "wave_sweep_pool".
 
 `render_frame_diff` / `render_tile_diff` are the differentiable renders of
 the training step: a torch.autograd.Function on the packed scene table
@@ -122,7 +125,16 @@ PARAM_FIELDS = ("center", "radius", "albedo", "emissive", "roughness", "ri")
 launches = {"grad": 0, "grad_soft": 0, "grad_pool": 0, "grad_pool_soft": 0,
             "grad_replay": 0, "grad_replay_soft": 0, "grad_stats": 0,
             "lockstep": 0, "lockstep_baseline": 0, "wave_tape": 0,
-            "wave_sweep": 0, "wave_sweep_pool": 0}
+            "wave_tape_baseline": 0, "wave_sweep": 0, "wave_sweep_pool": 0}
+
+# The differentiable wavefront's tape instances (render_tile_wave_tape):
+# "staged", the main path's (merged_render_kernel<4>: each record staged in
+# shared memory and written as whole lines), and "scalar", the one it
+# replaced (<3>: a store a word), its baseline; tpt_render_tape_launch's
+# form, and their launch counters.
+TAPE_FORMS = {"scalar": 0, "staged": 1}
+TAPE_MAIN_FORM = "staged"
+TAPE_COUNTERS = {"staged": "wave_tape", "scalar": "wave_tape_baseline"}
 
 # The last pool launch's scratch (pool_table_launch): blocks, the slots its
 # warps drew and the pool's capacity, the directory blocks they drew and
@@ -368,15 +380,19 @@ def alloc_tape(n_lights: int, cfg: RenderConfig, height: int, width: int,
 
 def render_tile_wave_tape(scene: Scene, cfg: RenderConfig, frame: int,
                           x0: int, y0: int, height: int, width: int,
-                          tab=None):
+                          tab=None, form: str = TAPE_MAIN_FORM):
     """The differentiable wavefront's forward on a card: K1's tape instance
-    (csrc/render.cu merged_render_kernel<3>) over the (height, width)
-    sub-image at global pixel (x0, y0).  Returns ((height, width, 3)
-    image, 0-d int64 rays, tape): the image and rays K1's bit for bit, the
-    tape a dict of its tensors ("rec", "see", "depth"; alloc_tape) and the
+    of `form` (TAPE_FORMS; the main path's "staged", csrc/render.cu
+    merged_render_kernel<4>, or "scalar", <3>, the one it replaced) over
+    the (height, width) sub-image at global pixel (x0, y0).  Returns
+    ((height, width, 3) image, 0-d int64 rays, tape): the image and rays
+    K1's bit for bit, the tape a dict of its tensors ("rec", "see",
+    "depth"; alloc_tape; the same words from either form) and the
     sub-image ("tile") for sweep_wave_tape.  Any number of spheres and
     lights.  Raises where the tape does not fit in the card's free memory;
     it never falls back to another kernel."""
+    if form not in TAPE_FORMS:
+        raise ValueError(f"no tape instance {form!r}")
     if scene.device.type != "cuda":
         raise ValueError("the tape-writing render runs on a card")
     tab = checked_tab(scene, x0, y0, height, width, tab)
@@ -386,8 +402,9 @@ def render_tile_wave_tape(scene: Scene, cfg: RenderConfig, frame: int,
     img, rays = launch_forward("render_tape", scene, tab, cfg, frame, x0, y0,
                                height, width, tape["rec"].data_ptr(),
                                tape["see"].data_ptr(),
-                               tape["depth"].data_ptr(), merged=True)
-    launches["wave_tape"] += 1
+                               tape["depth"].data_ptr(), TAPE_FORMS[form],
+                               merged=True)
+    launches[TAPE_COUNTERS[form]] += 1
     tape["tile"] = (frame, x0, y0, height, width)
     return img, rays, tape
 

@@ -50,8 +50,10 @@ the chunk boxes carry none.
 
 The sphere and chunk limits of the kernels' storage bind on a card only
 (`_check_scene`): the per-lane render form and the per-lane chunked K3 keep a
-lane's seen lights in 16 bits (MAX_LIGHTS); every other kernel here takes
-any number of lights, and the plain versions any scene.
+lane's seen lights in 16 bits (MAX_LIGHTS), and K6 answers for 16 lights a
+launch (`mask_lights`: 32 a call of its plain version, an int32 mask;
+ChunkedScenePort.lights_visible takes any number in groups); every other
+kernel here takes any number of lights, and the plain versions any scene.
 """
 
 from __future__ import annotations
@@ -240,6 +242,14 @@ def hit_chunks_form(rows: torch.Tensor, ro, rd, chunk: int, t_min: float,
     return out
 
 
+def mask_lights(dev) -> int:
+    """The lights one shadow_chunks call takes on `dev`: the kernels' 16
+    (a lane's 16-bit mask, coop.cuh nee_pass) on a card, the 32 bits of
+    the plain version's int32 mask (ChunkTraversal.occlusion_bits)
+    elsewhere."""
+    return MAX_LIGHTS if torch.device(dev).type == "cuda" else 32
+
+
 def shadow_chunks(rows: torch.Tensor, ro, dirs, t_ls, chunk: int,
                   light_ids, t_min: float, index=None):
     """NEE occlusion bitmask (shadow_chunks_tiles): bit k of each ray is
@@ -263,11 +273,15 @@ def shadow_chunks_form(rows: torch.Tensor, ro, dirs, t_ls, chunk: int,
     if form not in SHADOW_FORMS:
         raise ValueError(f"no K6 form {form!r}")
     n_l = len(light_ids)
-    if n_l > MAX_LIGHTS or len(dirs) != 3 * n_l or len(t_ls) != n_l:
-        raise ValueError(f"{n_l} lights (at most {MAX_LIGHTS}) need "
-                         f"{3 * n_l} direction and {n_l} t_l planes, got "
-                         f"{len(dirs)} and {len(t_ls)}")
+    if len(dirs) != 3 * n_l or len(t_ls) != n_l:
+        raise ValueError(f"{n_l} lights need {3 * n_l} direction and {n_l} "
+                         f"t_l planes, got {len(dirs)} and {len(t_ls)}")
     dev = rows.device
+    cap = mask_lights(dev)
+    if n_l > cap:
+        raise ValueError(f"K6's mask on {dev.type} holds at most {cap} "
+                         f"lights, got {n_l}: query them in groups "
+                         f"(ChunkedScenePort.lights_visible)")
     shape = ro[0].shape
     R = _planes(ro, shape, dev)
     L = _planes(dirs, shape, dev) if n_l else R[:0]

@@ -791,9 +791,12 @@ class ChunkedScenePort:
     def lights_visible(self, ro, dirs, light_ids, t_min: float,
                        t_max: float):
         """Per light: its own root t_l < t_max and no other sphere over
-        (t_min, t_l) (scaled.py:299): a list of bool lane planes."""
+        (t_min, t_l) (scaled.py:299): a list of bool lane planes.  Any
+        number of lights: K6 (or its plain version on the CPU) answers for
+        them in groups of cuda_scaled.mask_lights, each a launch."""
         from .ops import cuda_scaled
         s = self.scene
+        light_ids, dirs = list(light_ids), list(dirs)
         t_ls, hits = [], []
         for e, l in zip(light_ids, dirs):
             t_l, valid = tc.sphere_t(s.center[e, 0], s.center[e, 1],
@@ -801,10 +804,17 @@ class ChunkedScenePort:
                                      s.radius[e] * s.radius[e], ro, l, t_min)
             t_ls.append(t_l)
             hits.append(valid & (t_l < t_max))
-        occ = cuda_scaled.shadow_chunks(
-            self.rows, ro, tuple(c for l in dirs for c in l), tuple(t_ls),
-            s.chunk, tuple(light_ids), t_min, index=self.chunk_index)
-        return [h & (((occ >> k) & 1) == 0) for k, h in enumerate(hits)]
+        group = cuda_scaled.mask_lights(s.device)
+        seen = []
+        for k0 in range(0, len(light_ids), group):
+            k1 = k0 + group
+            occ = cuda_scaled.shadow_chunks(
+                self.rows, ro, tuple(c for l in dirs[k0:k1] for c in l),
+                tuple(t_ls[k0:k1]), s.chunk, tuple(light_ids[k0:k1]), t_min,
+                index=self.chunk_index)
+            seen += [h & (((occ >> k) & 1) == 0)
+                     for k, h in enumerate(hits[k0:k1])]
+        return seen
 
     def silhouette_chunks(self, ro, rd, t_min: float, hit_id, eps: float):
         """The soft estimator's silhouette query over chunks (scaled.py:396)

@@ -20,14 +20,16 @@ browser tab served by a stdlib HTTP server:
   * `GET /set?backend=<name>` switches the renderer between frames (key
     'g' in the page): the reference's GPU/CPU flip (TestWin.cpp:419-423),
     here "cuda" (the card's kernel) and "plain" (the plain PyTorch
-    renderer on the same card).  Only the user switches; a switch resets
-    the accumulation on the session's device;
+    renderer on the same card), also under the JAX viewer's names
+    "pallas" and "jnp".  Only the user switches; a switch resets the
+    accumulation on the session's device;
   * animation time follows the wall clock scaled by 0.2, as the web
     frontend's (Cpp/Emscripten/main.cpp:57).
 
 Usage:
     python -m toypathtracer_torch.serve [--port 8000] [--width 1280 ...]
-        [--device cuda|cpu] [--scaled N] [--backend auto|sharded|parity]
+        [--device cuda|cpu] [--scaled N]
+        [--backend auto|pallas|jnp|sharded|parity]
 """
 
 from __future__ import annotations
@@ -98,6 +100,11 @@ step();
 """
 
 
+# The JAX viewer's backend names and the port's: its Pallas kernel is the
+# card's hand-written kernel here, its jnp renderer the plain PyTorch one.
+BACKEND_ALIASES = {"pallas": "cuda", "jnp": "plain"}
+
+
 class Viewer:
     """Owns the render loop and a thread-safe snapshot of (png, hud) for
     the HTTP handlers.  Flag and backend changes are applied between
@@ -149,8 +156,11 @@ class Viewer:
 
     def set_backend(self, name: str) -> bool:
         """Ask for a renderer switch (applied between frames; it resets
-        the accumulation, TestWin.cpp:419-423).  False for an unknown
-        name."""
+        the accumulation, TestWin.cpp:419-423).  The JAX viewer's names
+        stand for the port's where the viewer has no backend of that name
+        (BACKEND_ALIASES).  False for an unknown name."""
+        if name not in self.render_fns:
+            name = BACKEND_ALIASES.get(name, name)
         if name not in self.render_fns:
             return False
         with self._lock:
@@ -278,9 +288,12 @@ def make_viewer(args) -> tuple:
                        samples_per_pixel=args.spp, max_depth=args.max_depth,
                        pix_per_lane=args.ppl)
     flags = FLAG_PROGRESSIVE | (FLAG_ANIMATE if args.animate else 0)
+    if args.backend in ("pallas", "jnp"):
+        from .cli import pick_backend
+        pick_backend(args.backend, args.device, bool(args.scaled))
     if args.scaled:
         from .scaled import make_scaled_scene, render_frame_scaled_plain
-        if args.backend != "auto":
+        if args.backend not in ("auto", "pallas", "jnp"):
             raise SystemExit("--scaled uses its own chunked renderer")
         scene = make_scaled_scene(n=args.scaled)
         plain = render_frame_scaled_plain
@@ -301,13 +314,15 @@ def make_viewer(args) -> tuple:
         fns = {"parity": partial(render_frame_parity, device=args.device)}
         name = "parity"
     elif on_card:
-        # the card's kernel and, on the 'g' key, the plain version
-        fns, name = {"cuda": None, "plain": plain}, "cuda"
+        # the card's kernel and, on the 'g' key, the plain version;
+        # --backend jnp starts on the plain version
+        fns = {"cuda": None, "plain": plain}
+        name = "plain" if args.backend == "jnp" else "cuda"
     else:
         fns, name = {"plain": None}, "plain"
     viewer = Viewer(scene, cfg, flags=flags, render_fns=fns,
-                    backend=next(iter(fns)), batch=batch,
-                    device=args.device)
+                    backend=name if name in fns else next(iter(fns)),
+                    batch=batch, device=args.device)
     return viewer, " ".join(x for x in (label, name) if x)
 
 
@@ -335,9 +350,12 @@ def main(argv=None) -> int:
                          "the card, 1 on the CPU; at most 64); animation "
                          "always steps one frame")
     ap.add_argument("--backend", default="auto",
-                    choices=["auto", "sharded", "parity"],
-                    help="auto: the card's kernel, 'g' flipping to the "
-                         "plain renderer; sharded and parity stay fixed")
+                    choices=["auto", "pallas", "jnp", "sharded", "parity"],
+                    help="auto and pallas: the card's kernel, 'g' flipping "
+                         "to the plain renderer (pallas has no CPU form); "
+                         "jnp: the plain renderer on --device, 'g' "
+                         "flipping to the card's kernel on a card; "
+                         "sharded and parity stay fixed")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda: the card (default); cpu: the plain "
                          "PyTorch renderer on the CPU")
