@@ -13,7 +13,8 @@ non-zero):
      both K6 forms, both K2 forms, the per-lane and the cooperative scaled
      render kernels and the merged K1 held at their counts, the
      differentiable wavefront's pair (K1's staged and scalar tape
-     instances, the sweeps) at their first counts; the 16-light
+     instances, the sweeps, the redesigned sweep) at their first counts;
+     the 16-light
      instances of K3's warp and replaying forms and the cooperative
      scaled render kernel held at the SASS they had before their lights
      instances, the merged K1, its counted instance and the merged K2 at
@@ -150,21 +151,28 @@ non-zero):
      final error < 0.4 x initial, final loss < 0.2 x first.
  17b. wavefront_grad: the differentiable wavefront (cfg.diff_wavefront)
      at the reference workload with the flag on: 4 InverseRenderer Adam
-     steps (one tape-instance and one sweep launch a step, no warning, the
-     loss falling), K1's staged tape instance bit-equal to K1 (image,
-     rays) and its tape word for word the scalar instance's at every
-     used slot, the sweep bit-equal to K3's warp form on its grid, three
-     8-row bands
-     against plain autograd through the plain wavefront (per row 1e-3),
-     albedo AD vs FD (5% + 1e-6); at 600 spheres the pool sweep bit-equal
-     to K3's pool form and 2 Adam steps; 40 lights against plain; 8
+     steps (one tape-instance and one sweep launch a step, none of the
+     kept sweep, no warning, the loss falling), K1's staged tape instance
+     bit-equal to K1 (image, rays) and its tape word for word the scalar
+     instance's at every used slot, the main sweep (csrc/wavesweep.cu
+     wave_run_kernel) within 1e-4 x each row's max of the kept sweep
+     (wave_sweep_kernel) and bit-equal launch to launch, the kept sweep
+     bit-equal to K3's warp form on its grid and the main one on the kept
+     one's deal bit-equal to it, three 8-row bands of both against plain
+     autograd through the plain wavefront (per row 1e-3), albedo AD vs FD
+     (5% + 1e-6); at 600 spheres the redesigned pool sweep
+     (wave_run_pool_kernel) within 1e-4 of the kept one, which is bit-equal
+     to K3's pool form, the two in turns, and 2 Adam steps; 40 lights
+     against plain and the kept sweep; 8
      sharded bands within rtol 1e-4 of one device; the staged tape
      instance timed in turns with the scalar one and K1 (CUDA events on
      the wrappers, and each kernel's device time from a torch.profiler
-     trace of the same turns, profiling.trace_to), the sweep, the pair in
-     turns with K1 + K3, the training step in turns with the lockstep
-     step; one traced step of each route (the device's idle share, each
-     kernel's device time); the tape's bytes.
+     trace of the same turns, profiling.trace_to), the main sweep in turns
+     with the kept one (the same two ways), both sweeps' cycles by part
+     (tools.grad_stats --forms wave), the pair in turns with K1 + K3, the
+     training step in turns with the lockstep step; one traced step of
+     each route (the device's idle share, each kernel's device time, no
+     cudaMemGetInfo in the wavefront step); the tape's bytes.
  18. row-sharded rendering and training on one card (parallel/mesh.py,
      parallel/distributed.py) at the reference workload, 8 bands of 90
      rows on cuda:0: the frame bit-equal to the single-device frame (8
@@ -214,7 +222,9 @@ non-zero):
      scaled_grad_baseline_soft (the per-lane chunked instance),
      scaled_grad_tape (the cooperative form's forward), wave_tape (K1's
      staged tape instance), wave_tape_baseline (the scalar one), wave_sweep
-     and wave_sweep_pool (the differentiable wavefront's pair); render,
+     (the redesigned sweep), wave_sweep_baseline (the kept one),
+     wave_sweep_pool and wave_sweep_pool_baseline (the same past 512
+     spheres); render,
      grad and
      scaled_render count the launches of phases 20-21 beside the main
      path's (`launches_by_path`).
@@ -248,7 +258,9 @@ import torch
 # instances, its pool and chunked instances (their directory and, for the
 # pool's, lights repaired), the cooperative chunked form's kernels and the
 # differentiable wavefront's pair (K1's tape instances, the sweep and its
-# pool instance) at their first counts.
+# pool instance) and the redesigned sweep (the main path's instance of
+# csrc/wavesweep.cu wave_run_kernel, and its pool instance) at their first
+# counts.
 KEPT_USAGE = {
     "render_kernel<1>": {"registers": 72, "spill_stores": 16},
     "coop_shadow_kernel<0>": {"registers": 40, "spill_stores": 12},
@@ -279,6 +291,8 @@ KEPT_USAGE = {
     "merged_render_kernel<4>": {"registers": 64, "spill_stores": 892},
     "wave_sweep_kernel": {"registers": 40, "spill_stores": 776},
     "wave_sweep_pool_kernel": {"registers": 64, "spill_stores": 552},
+    "wave_run_kernel<1,0>": {"registers": 128, "spill_stores": 40},
+    "wave_run_pool_kernel": {"registers": 128, "spill_stores": 56},
 }
 
 
@@ -2855,16 +2869,22 @@ def wavefront_phases(smi, usage):
     InverseRenderer Adam steps on the albedo with no diff_wavefront
     warning, one tape and one sweep launch a step and no K1 or K3, the
     loss falling; K1's tape instance bit-equal (image, rays) to K1, the
-    sweep's d_packed bit-equal to K3's warp form on its grid, per row within 1e-3 x the row's max of autograd through the
+    main sweep's d_packed within 1e-4 x each row's max of the kept
+    sweep's, the kept sweep's bit-equal to K3's warp form on its grid,
+    both per row within 1e-3 x the row's max of autograd through the
     plain wavefront on three 8-row bands, the albedo gradient against
     central differences (the JAX test's gate, 5% + 1e-6); past 512 spheres
-    (600, crowded_scene) the pool sweep bit-equal to K3's pool form on the
-    full frame and 2 Adam steps on it (its main path); 40 lights
+    (600, crowded_scene) the redesigned pool sweep within 1e-4 x each row's
+    max of the kept pool sweep, which is bit-equal to K3's pool form on
+    the full frame, the two in turns, and 2 Adam steps on it (its main
+    path); 40 lights
     (many_lights_scene, 128x32, spp 2, depth 4) within 1e-3 x max of
     plain; 8 row bands through make_sharded_value_and_grad within rtol
     1e-4 (atol 1e-7) of one device, the JAX test's contract; timing with
-    CUDA events: the tape forward and the sweep alone and their sum, in
-    turns with K1 + the warp K3, the training step on the host clock in
+    CUDA events: the tape forward, the main sweep in turns with the kept
+    one (and their device time from a trace), both sweeps' cycles by part,
+    the pair in turns with K1 + the warp K3, the training step on the
+    host clock in
     turns with the lockstep step (the parent's route); the tape's bytes,
     allocated and used; bounds from the plain version's work counters and
     the tape's used bytes.  Returns the kernels' entries."""
@@ -2880,7 +2900,7 @@ def wavefront_phases(smi, usage):
     from toypathtracer_torch.ops import tracecore as tc
     from toypathtracer_torch.parallel.mesh import make_mesh
     from toypathtracer_torch.profiling import (time_device_call, trace_to,
-                                               trace_summary)
+                                               trace_summary, traced_kernel)
     from toypathtracer_torch.render.wavefront import (camera_scalars,
                                                       render_tile_grad_plain)
     from toypathtracer_torch.tools import grad_stats
@@ -2896,6 +2916,7 @@ def wavefront_phases(smi, usage):
     H, W = cfg.height, cfg.width
     scene = make_scene(big=True).to(dev)
     g = grad_stats.cotangent(H, W, 11, dev)
+    run_label = cuda_grad.SWEEP_LABELS[cuda_grad.SWEEP_MAIN_FORM]
 
     def with_warnings(fn):
         """fn()'s value and the diff_wavefront warnings it raised."""
@@ -2934,6 +2955,12 @@ def wavefront_phases(smi, usage):
                                                           0, H, W)
     d_t = cuda_grad.sweep_wave_tape(scene, cfg, g, tape)
     d_t2 = cuda_grad.sweep_wave_tape(scene, cfg, g, tape)
+    # the kept sweep (wave_sweep_kernel) on the same tape, and the
+    # redesigned one on the kept sweep's deal and grid
+    d_kept = cuda_grad.sweep_wave_tape(scene, cfg, g, tape, form="tiles")
+    d_deal = cuda_grad.sweep_wave_tape(scene, cfg, g, tape,
+                                       form="runs_on_tiles_deal")
+    sweep_rel = max(row_rel(d_t, d_kept))
     img_k1, rays_k1 = cuda_render.render_tile(scene, cfg, 0, 0, 0, H, W)
     img_k3, rays_k3, d_k3 = cuda_grad.render_tile_grad_form(
         scene, lock, 0, g, 0, 0, H, W, "warp")
@@ -2964,11 +2991,16 @@ def wavefront_phases(smi, usage):
           "staged_tape_equal_to_scalar": all(tapes_eq.values()),
           "scalar_image_bit_equal_to_k1": bool(torch.equal(img_b, img_k1)),
           "scalar_rays_equal_to_k1": int(rays_b) == int(rays_k1),
-          "sweep_bit_equal_to_warp_k3": bool(torch.equal(d_t, d_k3)),
+          "kept_sweep_bit_equal_to_warp_k3": bool(torch.equal(d_kept,
+                                                              d_k3)),
+          "runs_on_kept_deal_bit_equal_to_kept": bool(torch.equal(d_deal,
+                                                                  d_kept)),
+          "sweep_within_1e-4_of_kept": sweep_rel <= 1e-4,
           "k3_image_bit_equal": bool(torch.equal(img_k3, img_t)),
           "sweep_deterministic": bool(torch.equal(d_t, d_t2))}
+    del d_deal
     emit({"phase": "wavefront_grad", "part": "pair",
-          "rays": int(rays_t),
+          "rays": int(rays_t), "sweep_row_rel_vs_kept": sweep_rel,
           "traced_rays": traced, "tape_bytes_allocated": allocated,
           "tape_bytes_used": used, "staged_vs_scalar_words": tapes_eq,
           **eq})
@@ -2976,19 +3008,24 @@ def wavefront_phases(smi, usage):
 
     # ---- against plain autograd on three 8-row bands ---------------------
     bands = (0, 356, 712)
-    plain_t0 = time.perf_counter()
-    rel, err = [], 0.0
+    plain_bands_s = 0.0
+    rel, err, rel_kept, err_kept = [], 0.0, [], 0.0
     for y0 in bands:
         gb = g[y0:y0 + 8].contiguous()
         _, r_k, d_b = cuda_grad.render_tile_grad(scene, cfg, 0, gb, 0, y0, 8,
                                                  W)
+        _, _, tb = cuda_grad.render_tile_wave_tape(scene, cfg, 0, 0, y0, 8, W)
+        d_bk = cuda_grad.sweep_wave_tape(scene, cfg, gb, tb, form="tiles")
+        torch.cuda.synchronize()
+        plain_t0 = time.perf_counter()
         _, r_p, d_p = render_tile_grad_plain(scene, cfg, 0, gb, 0, y0, 8, W)
         torch.cuda.synchronize()
+        plain_bands_s += time.perf_counter() - plain_t0
         check(int(r_k) == int(r_p), f"band {y0}: rays")
         rel.append(max(row_rel(d_b, d_p)))
         err = max(err, float((d_b - d_p).abs().max()))
-    torch.cuda.synchronize()
-    plain_bands_s = time.perf_counter() - plain_t0
+        rel_kept.append(max(row_rel(d_bk, d_p)))
+        err_kept = max(err_kept, float((d_bk - d_p).abs().max()))
 
     # ---- finite differences on albedo[2, 0] -----------------------------
     n_px = float(H * W * 3)
@@ -3008,8 +3045,10 @@ def wavefront_phases(smi, usage):
     emit({"phase": "wavefront_grad", "part": "vs_plain",
           "bands": bands,
           "row_rel_max": rel, "max_abs": err, "plain_bands_s": plain_bands_s,
+          "kept_sweep_row_rel_max": rel_kept, "kept_sweep_max_abs": err_kept,
           "albedo_2_0": {"ad": g_ad, "fd": g_fd, "ok": fd_ok}})
-    check(max(rel) <= 1e-3, f"wavefront bands vs plain: {rel}")
+    check(max(rel) <= 1e-3 and max(rel_kept) <= 1e-3,
+          f"wavefront bands vs plain: {rel}, the kept sweep's {rel_kept}")
     check(fd_ok, f"wavefront albedo AD {g_ad} vs FD {g_fd}")
 
     # ---- past 512 spheres: the pool sweep --------------------------------
@@ -3018,10 +3057,18 @@ def wavefront_phases(smi, usage):
                                                             0, H, W)
     d_c = cuda_grad.sweep_wave_tape(crowd, cfg, g, tape_c)
     crowd_pool = dict(cuda_grad.last_pool)
+    d_c2 = cuda_grad.sweep_wave_tape(crowd, cfg, g, tape_c)
+    d_ck = cuda_grad.sweep_wave_tape(crowd, cfg, g, tape_c, form="tiles")
+    kept_pool = dict(cuda_grad.last_pool)
     img_cp, rays_cp, d_cp = cuda_grad.render_tile_grad_form(
         crowd, lock, 0, g, 0, 0, H, W, "pool")
-    pool_ms = time_device_call(cuda_grad.sweep_wave_tape, crowd, cfg, g,
-                               tape_c, repeats=3)[0] * 1e3
+    # the redesigned pool sweep in turns with the kept one
+    pool_runs = {"runs": [], "tiles": []}
+    for k in ("runs", "tiles", "tiles", "runs"):
+        pool_runs[k].append(time_device_call(
+            lambda: cuda_grad.sweep_wave_tape(crowd, cfg, g, tape_c, form=k),
+            repeats=3)[0] * 1e3)
+    pool_ms, kept_pool_ms = (sum(pool_runs[k]) / 2 for k in ("runs", "tiles"))
     depth_c = tape_c["depth"].long()
     traced_c = int(depth_c.sum())
     used_c = traced_c * (64 + 4 * words) + 4 * depth_c.numel()
@@ -3030,6 +3077,8 @@ def wavefront_phases(smi, usage):
     # one 8-row band against plain autograd (the pool sweep on the band)
     gb = g[356:364].contiguous()
     _, _, d_cb = cuda_grad.render_tile_grad(crowd, cfg, 0, gb, 0, 356, 8, W)
+    _, _, tb = cuda_grad.render_tile_wave_tape(crowd, cfg, 0, 0, 356, 8, W)
+    d_cbk = cuda_grad.sweep_wave_tape(crowd, cfg, gb, tb, form="tiles")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, _, d_cbp = render_tile_grad_plain(crowd, cfg, 0, gb, 0, 356, 8, W)
@@ -3037,6 +3086,8 @@ def wavefront_phases(smi, usage):
     plain_c_ms = (time.perf_counter() - t0) * 1e3
     crowd_rel = max(row_rel(d_cb, d_cbp))
     crowd_err = float((d_cb - d_cbp).abs().max())
+    crowd_rel_kept = max(row_rel(d_cbk, d_cbp))
+    crowd_err_kept = float((d_cbk - d_cbp).abs().max())
     target_c, _ = cuda_render.render_frame(crowd, cfg, 0)
     start_c = crowd.replace(albedo=torch.clamp(crowd.albedo * 0.8, 0.02,
                                                0.98))
@@ -3045,17 +3096,25 @@ def wavefront_phases(smi, usage):
                                                    target_c))
     torch.cuda.synchronize()
     crowd_launches = launched()
+    pool_rel = max(row_rel(d_c, d_ck))
     pool_eq = {"image_bit_equal": bool(torch.equal(img_c, img_cp)),
                "rays_equal": int(rays_c) == int(rays_cp),
-               "d_packed_bit_equal": bool(torch.equal(d_c, d_cp))}
+               "kept_d_packed_bit_equal_to_k3_pool": bool(torch.equal(d_ck,
+                                                                      d_cp)),
+               "d_packed_within_1e-4_of_kept": pool_rel <= 1e-4,
+               "deterministic": bool(torch.equal(d_c, d_c2))}
     emit({"phase": "wavefront_grad", "part": "pool",
-          "spheres": crowd.n_spheres,
+          "spheres": crowd.n_spheres, "nvidia_smi": smi,
           "launches": crowd_launches, "losses": losses_c,
-          "warnings": warned_c, "sweep_ms": pool_ms, "pool": crowd_pool,
+          "warnings": warned_c, "sweep_ms": pool_ms,
+          "kept_sweep_ms": kept_pool_ms, "runs_ms": pool_runs,
+          "row_rel_vs_kept": pool_rel, "kept_pool": kept_pool,
+          "pool": crowd_pool,
           "tape_bytes_used": used_c, "band_row_rel_max": crowd_rel,
           "band_plain_ms": plain_c_ms, **pool_eq})
     check(all(pool_eq.values()), f"the pool sweep: {pool_eq}")
-    check(crowd_rel <= 1e-3, f"600 spheres: band vs plain {crowd_rel}")
+    check(crowd_rel <= 1e-3 and crowd_rel_kept <= 1e-3,
+          f"600 spheres: band vs plain {crowd_rel}, kept {crowd_rel_kept}")
     check(crowd_launches == {"wave_tape": 2, "wave_sweep_pool": 2}
           and not warned_c, f"600-sphere steps launched {crowd_launches}")
     check(all(np.isfinite(losses_c)), "600-sphere losses finite")
@@ -3071,15 +3130,21 @@ def wavefront_phases(smi, usage):
     _, _, d_mk = cuda_grad.render_tile_grad_form(
         many, small.replace(diff_wavefront=False), 0, gm, 0, 0, 32, 128,
         "warp")
+    _, _, tape_m = cuda_grad.render_tile_wave_tape(many, small, 0, 0, 0, 32,
+                                                   128)
+    d_mkept = cuda_grad.sweep_wave_tape(many, small, gm, tape_m,
+                                        form="tiles")
     torch.cuda.synchronize()
     many_rel = max(row_rel(d_m, d_mp))
-    many_eq = bool(torch.equal(d_m, d_mk))
+    many_kept_rel = max(row_rel(d_m, d_mkept))
+    many_eq = bool(torch.equal(d_mkept, d_mk))
     emit({"phase": "wavefront_grad", "part": "many_lights",
           "lights": len(many.emissive_ids),
           "row_rel_max": many_rel, "rays": int(r_m),
-          "rays_plain": int(r_mp), "bit_equal_to_k3": many_eq})
-    check(many_rel <= 1e-3 and int(r_m) == int(r_mp) and many_eq,
-          "40 lights: the wavefront pair")
+          "rays_plain": int(r_mp), "row_rel_vs_kept": many_kept_rel,
+          "kept_bit_equal_to_k3": many_eq})
+    check(many_rel <= 1e-3 and int(r_m) == int(r_mp) and many_eq
+          and many_kept_rel <= 1e-4, "40 lights: the wavefront pair")
 
     # ---- 8 row bands through the sharded step ----------------------------
     fields = ("center", "radius", "albedo", "emissive")
@@ -3164,8 +3229,46 @@ def wavefront_phases(smi, usage):
           "kernels": labels,
           "note": "device ms of each kernel from a torch.profiler trace "
                   "(profiling.trace_to) of one launch a turn, two turns"})
-    sweep_ms = time_device_call(cuda_grad.sweep_wave_tape, scene, cfg, g,
-                                keep, repeats=3)[0] * 1e3
+    # the redesigned sweep in turns with the kept one on one tape: the
+    # wrappers on CUDA events, then the kernels' device time from a trace
+    # of the same turns; their cycles by part (tools.grad_stats --forms
+    # wave: the stats instances)
+    sweeps = {"runs": lambda: cuda_grad.sweep_wave_tape(scene, cfg, g, keep),
+              "tiles": lambda: cuda_grad.sweep_wave_tape(scene, cfg, g, keep,
+                                                         form="tiles")}
+    sweep_order = ("runs", "tiles", "tiles", "runs", "runs", "tiles")
+    sweep_runs = {k: [] for k in sweeps}
+    for k in sweep_order:
+        sweep_runs[k].append(time_device_call(sweeps[k], repeats=3)[0] * 1e3)
+    sweep_ms, kept_sweep_ms = (sum(sweep_runs[k]) / len(sweep_runs[k])
+                               for k in ("runs", "tiles"))
+    sweeps_dir = trace_dir("wave_sweep_turns")
+    with trace_to(sweeps_dir):
+        for k in sweep_order:
+            sweeps[k]()
+        torch.cuda.synchronize()
+    sweep_traced = trace_summary(sweeps_dir)["kernels"]
+    sweep_device_ms = {}
+    for k, label in (("runs", run_label), ("tiles", "wave_sweep_kernel")):
+        got = traced_kernel(sweep_traced, label)
+        check(got.get("launches") == 3, f"the sweeps' trace: {label} {got}")
+        sweep_device_ms[k] = got["ms"] / got["launches"]
+    emit({"phase": "wavefront_grad", "part": "sweep_turns",
+          "nvidia_smi": smi, "runs_ms": sweep_runs, "sweep_ms": sweep_ms,
+          "kept_sweep_ms": kept_sweep_ms,
+          "kernel_device_ms": sweep_device_ms,
+          "kernels": {"runs": run_label, "tiles": "wave_sweep_kernel"},
+          "ptxas": {k: usage.get(k, {}) for k in (run_label,
+                                                  "wave_sweep_kernel")},
+          "note": "wrapper ms on CUDA events, 3 calls a run, three runs "
+                  "each in turns; device ms from a torch.profiler trace "
+                  "of one launch a turn"})
+    shares = grad_stats.wave_stats(scene, cfg, g)
+    emit({"phase": "wavefront_grad", "part": "sweep_cycle_shares",
+          "nvidia_smi": smi, "sweeps": shares})
+    check(shares[0]["bit_equal_to_tiles"]
+          and shares[1]["row_rel_vs_tiles"] <= 1e-4,
+          "the sweeps' stats instances")
     del keep
     k3_ms = time_device_call(cuda_grad.render_tile_grad_form, scene, lock, 0,
                              g, 0, 0, H, W, "warp", repeats=3)[0] * 1e3
@@ -3204,13 +3307,17 @@ def wavefront_phases(smi, usage):
           "busy_ms": step_traces["wave"]["busy_ms"],
           "tape_kernel_ms": wave_k.get("merged_render_kernel<4>", {}).get(
               "ms"),
-          "sweep_kernel_ms": wave_k.get("wave_sweep_kernel", {}).get("ms"),
+          "sweep_kernel_ms": traced_kernel(wave_k, run_label).get("ms"),
           "kernels": wave_k, "copies_ms": step_traces["wave"]["copies_ms"],
+          "runtime": step_traces["wave"]["runtime"],
           "lockstep": step_traces["lockstep"],
           "trace_files": {k: v["file"] for k, v in step_traces.items()}})
     check(wave_k.get("merged_render_kernel<4>", {}).get("launches") == 1
-          and wave_k.get("wave_sweep_kernel", {}).get("launches") == 1,
+          and traced_kernel(wave_k, run_label).get("launches") == 1
+          and "wave_sweep_kernel" not in wave_k,
           f"the traced wavefront step's kernels: {wave_k}")
+    check("cudaMemGetInfo" not in step_traces["wave"]["runtime"],
+          "the traced wavefront step asked for the card's free memory")
     check(all(0.0 <= v["idle_share"] < 1.0 for v in step_traces.values()),
           f"idle shares {[v['idle_share'] for v in step_traces.values()]}")
     # the plain wavefront's forward on the card
@@ -3256,6 +3363,8 @@ def wavefront_phases(smi, usage):
     bytes_c = (4 * 15 * crowd.n_spheres + 4 * len(crowd.emissive_ids)
                + img_bytes + used_c + 4 * 14 * crowd.n_spheres)
     bound_c = max(adj_ops_c / 67e12, bytes_c / 3.35e12) * 1e3
+    pool_bound_by = ("bytes" if bytes_c / 3.35e12 >= adj_ops_c / 67e12
+                     else "operations")
     pair_ms = sum(runs["pair"]) / 2
     k1k3_ms = sum(runs["k1_k3"]) / 2
     timing = {"phase": "wavefront_grad", "part": "timing",
@@ -3263,6 +3372,8 @@ def wavefront_phases(smi, usage):
               "pair_ms": pair_ms, "pair_runs": runs["pair"],
               "k1_plus_k3_ms": k1k3_ms, "k1_plus_k3_runs": runs["k1_k3"],
               "tape_ms": tape_ms, "sweep_ms": sweep_ms,
+              "kept_sweep_ms": kept_sweep_ms,
+              "sweep_kernel_device_ms": sweep_device_ms,
               "scalar_tape_ms": scalar_ms,
               "tape_kernel_device_ms": device_ms,
               "tape_plus_sweep_ms": tape_ms + sweep_ms,
@@ -3277,7 +3388,9 @@ def wavefront_phases(smi, usage):
               "pair_bound_ms": pair_bound, "k3_ops_ms": k3_ops_ms,
               "ptxas": {k: usage.get(k, {}) for k in (
                   "merged_render_kernel<4>", "merged_render_kernel<3>",
-                  "wave_sweep_kernel", "wave_sweep_pool_kernel")},
+                  run_label, "wave_sweep_kernel", "wave_run_pool_kernel",
+                  "wave_sweep_pool_kernel")},
+              "pool_sweep_ms": pool_ms, "kept_pool_sweep_ms": kept_pool_ms,
               "bound_peak": "67 TFLOP/s FP32, 3.35 TB/s (H100 SXM, 700 W)",
               "seconds": time.perf_counter() - t_phase}
     emit(timing)
@@ -3286,10 +3399,12 @@ def wavefront_phases(smi, usage):
           "plain wavefront forward vs the tape instance")
     tol = ("the tape instances' image and rays bit-equal to K1's, the "
            "staged instance's tape word for word the scalar one's at every "
-           "used slot; the sweep's d_packed bit-equal to K3's warp form on "
-           "its grid (the pool form's at 600 spheres), per row <= 1e-3 x "
-           "row max of plain autograd on three 8-row bands and at 40 "
-           "lights, albedo FD <= 5% + 1e-6")
+           "used slot; the main sweep's d_packed per row <= 1e-4 x row max "
+           "of the kept sweep's, two launches bit-equal; the kept sweep's "
+           "bit-equal to K3's warp form on its grid (the pool sweep's to "
+           "the pool form's at 600 spheres); both per row <= 1e-3 x row "
+           "max of plain autograd on three 8-row bands, the main one also "
+           "at 40 lights; albedo FD <= 5% + 1e-6")
     src = "toypathtracer_tpu/ops/tracecore.py:2223"
     return [
         {"name": "wave_tape", "route": "cuda",
@@ -3328,39 +3443,83 @@ def wavefront_phases(smi, usage):
          "vs_plain": {"tolerance": tol,
                       "bit_equal_to_k1": eq["scalar_image_bit_equal_to_k1"]}},
         {"name": "wave_sweep", "route": "cuda",
-         "source": "toypathtracer_torch/csrc/wavegrad.cu",
+         "source": "toypathtracer_torch/csrc/wavesweep.cu",
          "replaces": src + " (jnp under XLA, not a Pallas kernel)",
          "launches": main_launches.get("wave_sweep", 0),
+         "launches_by_path": {"main_path": main_launches.get("wave_sweep",
+                                                             0),
+                              "sharded_step": sharded_launches.get(
+                                  "wave_sweep", 0)},
          "max_abs_err": err, "ms": sweep_ms,
+         "kernel_device_ms": sweep_device_ms["runs"],
          "plain_ms": plain_bands_s * 1e3,
          "plain_ms_rows": 24, "bound_ms": bound["sweep"],
          "bound_by": bound_by["sweep"], "library_ms": None,
-         "form": "wave_sweep_kernel (coopgrad.cuh sweep_tiles, shared "
-                 "tables)",
+         "form": f"{run_label} (wavesweep.cuh sweep_runs, sorted blocks "
+                 "of 2 tiles a warp)",
+         "baseline_ms": kept_sweep_ms,
+         "baseline_kernel_device_ms": sweep_device_ms["tiles"],
+         "baseline": "wave_sweep_kernel (the kept sweep it replaced), in "
+                     "turns",
          "pair_ms": pair_ms, "pair_bound_ms": pair_bound,
-         "baseline_ms": k1k3_ms,
-         "baseline": "K1 + K3's warp form, timed in turns with the pair",
-         "ptxas": usage.get("wave_sweep_kernel", {}),
+         "pair_baseline_ms": k1k3_ms,
+         "pair_baseline": "K1 + K3's warp form, timed in turns with the pair",
+         "ptxas": usage.get(run_label, {}),
          "vs_plain": {"tolerance": tol, "band_row_rel_max": max(rel),
                       "many_lights_row_rel_max": many_rel,
-                      "bit_equal_to_warp_k3":
-                          eq["sweep_bit_equal_to_warp_k3"]}},
-        {"name": "wave_sweep_pool", "route": "cuda",
+                      "row_rel_vs_kept": sweep_rel,
+                      "deterministic": eq["sweep_deterministic"]}},
+        {"name": "wave_sweep_baseline", "route": "cuda",
          "source": "toypathtracer_torch/csrc/wavegrad.cu",
+         "replaces": src + " (jnp under XLA, not a Pallas kernel)",
+         "launches": main_launches.get("wave_sweep_baseline", 0),
+         "max_abs_err": err_kept, "ms": kept_sweep_ms,
+         "kernel_device_ms": sweep_device_ms["tiles"],
+         "plain_ms": plain_bands_s * 1e3,
+         "plain_ms_rows": 24, "bound_ms": bound["sweep"],
+         "bound_by": bound_by["sweep"], "library_ms": None,
+         "form": "wave_sweep_kernel (coopgrad.cuh sweep_tiles on K3's grid, "
+                 "the main sweep's baseline)",
+         "ptxas": usage.get("wave_sweep_kernel", {}),
+         "vs_plain": {"tolerance": tol, "band_row_rel_max": max(rel_kept),
+                      "bit_equal_to_warp_k3":
+                          eq["kept_sweep_bit_equal_to_warp_k3"]}},
+        {"name": "wave_sweep_pool", "route": "cuda",
+         "source": "toypathtracer_torch/csrc/wavesweep.cu",
          "replaces": src + " (jnp under XLA, not a Pallas kernel)",
          "launches": crowd_launches.get("wave_sweep_pool", 0),
          "max_abs_err": crowd_err,
          "ms": pool_ms, "plain_ms": plain_c_ms, "plain_ms_rows": 8,
-         "bound_ms": bound_c,
-         "bound_by": "bytes" if bytes_c / 3.35e12 >= adj_ops_c / 67e12
-         else "operations",
+         "bound_ms": bound_c, "bound_by": pool_bound_by,
          "library_ms": None,
-         "form": "wave_sweep_pool_kernel (a PoolTable a warp)",
+         "form": "wave_run_pool_kernel (sorted shares, the fused adds, a "
+                 "PoolTable a warp)",
+         "baseline_ms": kept_pool_ms,
+         "baseline": "wave_sweep_pool_kernel (the kept pool sweep), in "
+                     "turns",
+         "ptxas": usage.get("wave_run_pool_kernel", {}),
+         "vs_plain": {"tolerance": "within 1e-4 x row max of the kept pool "
+                                   "sweep, which is bit-equal to K3's pool "
+                                   "form on its grid; an 8-row band per row "
+                                   "<= 1e-3 x row max of plain autograd",
+                      "band_row_rel_max": crowd_rel, **pool_eq}},
+        {"name": "wave_sweep_pool_baseline", "route": "cuda",
+         "source": "toypathtracer_torch/csrc/wavegrad.cu",
+         "replaces": src + " (jnp under XLA, not a Pallas kernel)",
+         "launches": crowd_launches.get("wave_sweep_pool_baseline", 0),
+         "max_abs_err": crowd_err_kept,
+         "ms": kept_pool_ms, "plain_ms": plain_c_ms, "plain_ms_rows": 8,
+         "bound_ms": bound_c, "bound_by": pool_bound_by,
+         "library_ms": None,
+         "form": "wave_sweep_pool_kernel (coopgrad.cuh sweep_tiles with a "
+                 "PoolTable a warp, the main pool sweep's baseline)",
          "ptxas": usage.get("wave_sweep_pool_kernel", {}),
          "vs_plain": {"tolerance": "bit-equal to K3's pool form on its "
                                    "grid; an 8-row band per row <= 1e-3 x "
                                    "row max of plain autograd",
-                      "band_row_rel_max": crowd_rel, **pool_eq}}]
+                      "band_row_rel_max": crowd_rel_kept,
+                      "bit_equal_to_k3_pool":
+                          pool_eq["kept_d_packed_bit_equal_to_k3_pool"]}}]
 
 
 def grads_vs(got, want):

@@ -41,12 +41,16 @@ Issue-rate probe (T1):
 each case at 64 trips within 1e-6 relative of its plain version; the
 launch floor (T2) positive and finite.  The differentiable wavefront's
 pair (K1's tape instance and the sweep over its tape): image and rays
-bit-equal to K1's, d_packed bit-equal to K3's warp form (its pool form at
-600 spheres) and per row within 1e-3 x the row's max of plain autograd
-through the plain wavefront; the staged tape instance's tape word for
-word the scalar instance's at every used slot; the tape freed at the
-first backward and written again for a retained graph's second; a tape
-that does not fit raises.  The scaled scene's shadow query past 16
+bit-equal to K1's; the main path's sweep (csrc/wavesweep.cu) within 1e-4
+x each row's max of the kept sweep (csrc/wavegrad.cu), two launches
+bit-equal; the kept sweep's d_packed bit-equal to K3's warp form (the
+pool sweep's to the pool form at 600 spheres); both per row within 1e-3 x
+the row's max of plain autograd through the plain wavefront; the staged
+tape instance's tape word for word the scalar instance's at every used
+slot; the tape freed at the first backward and written again for a
+retained graph's second; a tape that does not fit raises, and a tape
+that fits asks the card for no free-memory count.  The scaled scene's
+shadow query past 16
 lights (K6 in groups of 16) against its plain version.
 """
 
@@ -1115,10 +1119,15 @@ WAVE = dict(merged_wavefront=True, diff_wavefront=True)
 @pytest.mark.parametrize("case", ["big", "crowded_600", "forty_lights"])
 def test_wave_pair_bit_equal_to_k1_and_k3(card, case):
     """The differentiable wavefront's pair: K1's tape instance gives K1's
-    image and rays bit for bit; the sweep over its tape gives K3's
-    cotangent bit for bit on K3's grid (the warp form's, at 600 spheres
-    the pool form's), and per row within 1e-3 x the row's max of autograd
-    through the plain wavefront; one tape and one sweep launch."""
+    image and rays bit for bit; the main path's sweep over its tape (the
+    redesigned sweep, csrc/wavesweep.cu; at 600 spheres its pool instance)
+    is within 1e-4 x each row's max of the kept sweep (csrc/wavegrad.cu
+    wave_sweep_kernel, wave_sweep_pool_kernel), which gives K3's cotangent
+    bit for bit on K3's grid (the warp form's, the pool form's), and per
+    row within 1e-3 x the row's max of autograd through the plain
+    wavefront; two launches bit-equal; one tape and one sweep launch, none
+    of the kept sweep.  Of the sweeps only the kept one is K3's bit for
+    bit: the main sweep takes its adds in another order."""
     from toypathtracer_torch.tools.scenes import many_lights_scene
     scene = {"big": make_scene(big=True), "crowded_600":
              crowded_scene(extra=554),
@@ -1142,7 +1151,10 @@ def test_wave_pair_bit_equal_to_k1_and_k3(card, case):
     assert torch.equal(img, k1_img) and int(rays) == int(k1_rays)
     _, _, d_k3 = cuda_grad.render_tile_grad_form(scene, lock, 1, g, 0, 0, 32,
                                                  64, form)
-    assert torch.equal(d, d_k3)
+    d_kept = cuda_grad.sweep_wave_tape(scene, cfg, g, tape, form="tiles")
+    assert torch.equal(d_kept, d_k3)
+    assert_rows_close(d, d_kept, 1e-4)
+    assert torch.equal(cuda_grad.sweep_wave_tape(scene, cfg, g, tape), d)
     _, rays_p, d_p = render_tile_grad_plain(scene, cfg, 1, g, 0, 0, 32, 64)
     assert int(rays_p) == int(rays)
     assert_rows_close(d, d_p, 1e-3)
@@ -1153,9 +1165,9 @@ def test_staged_tape_instance_equal_to_scalar_instance(card, case):
     """K1's staged tape instance (merged_render_kernel<4>, the main
     path's) against the instance it replaced (<3>): every word of every
     used slot (rec, see) and every sample's bounces equal; both images
-    and rays K1's bit for bit; the sweep over the staged tape K3's
-    cotangent bit for bit (the warp form's, the pool form's at 600
-    spheres); one launch of each instance."""
+    and rays K1's bit for bit; the kept sweep over the staged tape K3's
+    cotangent bit for bit (the warp form's; the pool sweep the pool
+    form's at 600 spheres); one launch of each instance."""
     from toypathtracer_torch.tools.scenes import many_lights_scene
     scene = {"big": make_scene(big=True), "crowded_600":
              crowded_scene(extra=554),
@@ -1186,12 +1198,100 @@ def test_staged_tape_instance_equal_to_scalar_instance(card, case):
                     for t in (staged, scalar))
     assert torch.equal(rec_s, rec_b) and torch.equal(see_s, see_b)
     form = "pool" if scene.n_spheres > cuda_render.MAX_SPHERES else "warp"
-    d = cuda_grad.sweep_wave_tape(scene, cfg, g, staged)
+    d = cuda_grad.sweep_wave_tape(scene, cfg, g, staged, form="tiles")
     _, _, d_k3 = cuda_grad.render_tile_grad_form(
         scene, cfg.replace(diff_wavefront=False), 2, g, 0, 0, 40, 96, form)
     assert torch.equal(d, d_k3)
     with pytest.raises(ValueError, match="no tape instance"):
         cuda_grad.render_tile_wave_tape(*args, form="bogus")
+
+
+@pytest.mark.parametrize("case,width,height,spp,depth", [
+    ("big", 64, 32, 2, 4), ("big", 96, 40, 3, 10), ("big", 70, 21, 5, 3),
+    ("forty_lights", 64, 32, 2, 4)])
+def test_run_sweep_against_kept_sweep(card, case, width, height, spp, depth):
+    """The redesigned sweep (csrc/wavesweep.cu wave_run_kernel, the main
+    path's) on the tape of K1's staged instance: within 1e-4 x each row's
+    max of the kept sweep (wave_sweep_kernel, K3's cotangent bit for bit
+    on its grid), a sub-image whose edge tiles lie partly outside it
+    included; two launches bit-equal; its loop on the kept sweep's deal,
+    launch bounds and grid ("runs_on_tiles_deal") the kept sweep's bit for
+    bit; both stats instances bit-equal to their timed instances, their
+    lane slots and adjoint bounces consistent; the kept sweep has no stats
+    instance; the launch counters: "wave_sweep" for the main sweep,
+    "wave_sweep_baseline" for the kept one, "wave_sweep_tiles_deal" for
+    the deal form."""
+    from toypathtracer_torch.tools.scenes import many_lights_scene
+    scene = {"big": make_scene(big=True),
+             "forty_lights": many_lights_scene()}[case].to(card)
+    cfg = RenderConfig(width=width, height=height, samples_per_pixel=spp,
+                       max_depth=depth, **WAVE)
+    g = torch.from_numpy(np.random.RandomState(21).rand(height, width, 3)
+                         .astype(np.float32)).to(card)
+    _, _, tape = cuda_grad.render_tile_wave_tape(scene, cfg, 3, 0, 0, height,
+                                                 width)
+    before = dict(cuda_grad.launches)
+    kept = cuda_grad.sweep_wave_tape(scene, cfg, g, tape, form="tiles")
+    d = cuda_grad.sweep_wave_tape(scene, cfg, g, tape)
+    d2 = cuda_grad.sweep_wave_tape(scene, cfg, g, tape)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in cuda_grad.launches.items()
+            if v != before[k]} == {"wave_sweep": 2, "wave_sweep_baseline": 1}
+    assert torch.equal(d, d2) and float(kept.abs().max()) > 0
+    assert_rows_close(d, kept, 1e-4)
+    _, _, d_k3 = cuda_grad.render_tile_grad_form(
+        scene, cfg.replace(diff_wavefront=False), 3, g, 0, 0, height, width,
+        "warp")
+    assert torch.equal(kept, d_k3)
+    before = dict(cuda_grad.launches)
+    assert torch.equal(cuda_grad.sweep_wave_tape(
+        scene, cfg, g, tape, form="runs_on_tiles_deal"), kept)
+    assert cuda_grad.launches["wave_sweep_tiles_deal"] == before[
+        "wave_sweep_tiles_deal"] + 1
+    ds, c = cuda_grad.sweep_wave_tape(scene, cfg, g, tape, stats=True)
+    ks, kc = cuda_grad.sweep_wave_tape(scene, cfg, g, tape,
+                                       form="runs_on_tiles_deal", stats=True)
+    assert torch.equal(ds, d) and torch.equal(ks, kept)
+    assert c["adj_bounces"] == kc["adj_bounces"] > 0
+    assert c["adj_slots"] >= c["adj_bounces"]
+    assert c["cycles_all"] > c["cycles_adj"] > c["cycles_bounce"] > 0
+    with pytest.raises(ValueError, match="no wavefront sweep"):
+        cuda_grad.sweep_wave_tape(scene, cfg, g, tape, form="bogus")
+    with pytest.raises(ValueError, match="no stats instance"):
+        cuda_grad.sweep_wave_tape(scene, cfg, g, tape, form="tiles",
+                                  stats=True)
+
+
+def test_alloc_tape_queries_free_memory_only_when_it_fails(card,
+                                                           monkeypatch):
+    """alloc_tape allocates the tape directly: a tape that fits asks the
+    card nothing (torch.cuda.mem_get_info is not called); one larger than
+    the card raises MemoryError naming its bytes, the free memory and the
+    band height to use instead, and leaves nothing allocated."""
+    cfg = RenderConfig(width=64, height=32, samples_per_pixel=2, max_depth=4,
+                       **WAVE)
+    real = torch.cuda.mem_get_info
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", counted)
+    tape = cuda_grad.alloc_tape(2, cfg, 32, 64, card, "the route", "bands")
+    assert tape["rec"].numel() == 32 * 64 * 2 * 4 * 16 and not calls
+    del tape
+    huge = cfg.replace(width=1280, height=720, samples_per_pixel=255,
+                       max_depth=255)
+    need = cuda_grad.tape_bytes(2, huge, 720, 1280)
+    assert need > torch.cuda.get_device_properties(card).total_memory
+    held = torch.cuda.memory_allocated(card)
+    with pytest.raises(MemoryError) as err:
+        cuda_grad.alloc_tape(2, huge, 720, 1280, card, "the route",
+                             "render_tile_diff on sub-images")
+    msg = str(err.value)
+    assert f"takes {need} bytes" in msg and "free" in msg
+    assert "bands of at most" in msg and "render_tile_diff" in msg
+    assert calls and torch.cuda.memory_allocated(card) == held
 
 
 def test_wave_autograd_across_steps_and_a_retained_graph(card):

@@ -192,6 +192,60 @@ def test_trace_summary_device_intervals(tmp_path):
     assert step["copies_ms"] == pytest.approx(0.010)
 
 
+
+def test_trace_summary_runtime_calls(tmp_path):
+    """trace_summary's "runtime": the host's CUDA runtime and driver calls
+    that start inside the window, host ms and calls by name (the traced
+    wavefront step's cudaMemGetInfo is read so), those outside it left
+    out; device intervals unchanged by them."""
+    ev = [{"ph": "X", "cat": "user_annotation", "name": "step", "ts": 10,
+           "dur": 80},
+          {"ph": "X", "cat": "cuda_runtime", "name": "cudaMemGetInfo",
+           "ts": 5, "dur": 3},
+          {"ph": "X", "cat": "cuda_runtime", "name": "cudaMemGetInfo",
+           "ts": 12, "dur": 40},
+          {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+           "ts": 60, "dur": 4},
+          {"ph": "X", "cat": "cuda_driver", "name": "cuLaunchKernel",
+           "ts": 65, "dur": 2},
+          {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+           "ts": 70, "dur": 6},
+          {"ph": "X", "cat": "kernel", "ts": 70, "dur": 10,
+           "name": "void wave_run_kernel<4, false>(float const*)"}]
+    f = tmp_path / "r.pt.trace.json"
+    f.write_text(json.dumps({"traceEvents": ev}))
+    step = profiling.trace_summary(f, window="step")
+    assert step["runtime"] == {
+        "cudaMemGetInfo": {"ms": pytest.approx(0.040), "calls": 1},
+        "cudaLaunchKernel": {"ms": pytest.approx(0.010), "calls": 2},
+        "cuLaunchKernel": {"ms": pytest.approx(0.002), "calls": 1}}
+    assert step["kernels"] == {"wave_run_kernel<4, false>": {
+        "ms": pytest.approx(0.010), "launches": 1}}
+    assert step["busy_ms"] == pytest.approx(0.010)
+    assert profiling.trace_summary(f)["runtime"]["cudaMemGetInfo"][
+        "calls"] == 2
+
+
+def test_traced_kernel_by_ptxas_label():
+    """traced_kernel finds a trace_summary kernel entry by the kernel's
+    ptxas label (bool template arguments as 1/0, no spaces), the
+    wavefront sweeps' labels among them; {} where it is not there."""
+    from toypathtracer_torch.ops import cuda_grad
+    kernels = {"wave_run_kernel<true, false>": {"ms": 1.5, "launches": 3},
+               "wave_run_kernel<false, false>": {"ms": 4.0, "launches": 1},
+               "wave_sweep_kernel": {"ms": 5.0, "launches": 2},
+               "merged_render_kernel<4>": {"ms": 3.0, "launches": 1}}
+    labels = cuda_grad.SWEEP_LABELS
+    assert profiling.traced_kernel(kernels, labels["runs"]) == {
+        "ms": 1.5, "launches": 3}
+    assert profiling.traced_kernel(kernels, labels["runs_on_tiles_deal"])[
+        "ms"] == 4.0
+    assert profiling.traced_kernel(kernels, labels["tiles"])["launches"] == 2
+    assert profiling.traced_kernel(kernels, "merged_render_kernel<4>")[
+        "ms"] == 3.0
+    assert profiling.traced_kernel(kernels, "wave_run_kernel<1,1>") == {}
+
+
 def test_frame_timer_matches_jax():
     t = profiling.FrameTimer(title="T")
     j = j_profiling.FrameTimer(title="T")

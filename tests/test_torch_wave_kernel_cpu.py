@@ -48,6 +48,7 @@ HARNESS = r"""
 #include "flat.cuh"
 #include "hostwarp.h"
 #include "tape.cuh"
+#include "wavesweep.cuh"
 
 struct Flat {
   const float* tab;
@@ -251,6 +252,88 @@ extern "C" int tpt_wave_sweep_cpu(const Flat* s, const tpt::RenderParams* p,
   return 0;
 }
 
+// The redesigned sweep (csrc/wavesweep.cu wave_run_kernel: wavesweep.cuh
+// sweep_runs, with fused its cheaper adds, bounce_adj_fused) over a tape,
+// in warps of `lanes` lanes: run > 0, blocks of block_warps warps, each
+// block's share run x block_warps tiles whose items depth_order sorts
+// (under the same warp policy) and SortedQueue deals to its warps; run 0,
+// sweep_tiles' deal over n_warps warps.  The warps' tables (with
+// pooled a PoolTable a warp) summed in warp order into acc.
+// Returns 0, or -1 if a warp stalled.
+extern "C" int tpt_wave_run_cpu(const Flat* s, const tpt::RenderParams* p,
+                                const float* g, float* acc, float* rec,
+                                uint32_t* see, int32_t* depth, int n_warps,
+                                int lanes, int run, int fused,
+                                int block_warps, int pooled) {
+  const tpt::SceneView S = scene_view(*s, p);
+  const tpt::FrameTape ft = frame_tape(p, rec, see, depth);
+  const int tw = lanes == 32 ? 8 : 1, th = lanes / tw;
+  const int tiles = ((p->width + tw - 1) / tw) * ((p->height + th - 1) / th);
+  const int per_block = run > 0 ? run * block_warps : 1;
+  const int blocks = run > 0 ? (tiles + per_block - 1) / per_block : 0;
+  if (run > 0) n_warps = blocks * block_warps;
+  Tables t(p->n_spheres, n_warps, pooled != 0);
+  std::vector<float> ws(tpt::run_scratch_words(lanes));
+  const int items = per_block * p->spp * lanes;
+  std::vector<int> dep(items), order(items), cnt(p->max_depth + 2);
+  auto with_table = [&](auto& w, const auto& q, auto T) {
+    tpt::NoGradCount none;
+    if (fused)
+      tpt::sweep_runs<true>(w, S, *p, g, T, ft, ws.data(), q, none);
+    else
+      tpt::sweep_runs(w, S, *p, g, T, ft, ws.data(), q, none);
+  };
+  auto sweep = [&](auto& w, int wi, const auto& q) {
+    if (pooled)
+      with_table(w, q, t.pool_table(wi));
+    else
+      with_table(w, q, t.table(wi));
+  };
+  if (run == 0)
+    return run_warps(n_warps, lanes, [&](auto& w, int wi, int) {
+             sweep(w, wi, tpt::TileQueue{tpt::tiles_deal(wi, n_warps,
+                                                         tiles)});
+           }) ? (t.sum(acc), 0) : -1;
+  for (int b = 0; b < blocks; ++b) {
+    tpt::RunDeal share{b * per_block, 1, tiles - b * per_block < per_block
+                                             ? tiles - b * per_block
+                                             : per_block};
+    const int n = share.count * p->spp * lanes;
+    for (int i = 0; i < n; ++i)
+      dep[i] = lanes == 32 ? tpt::item_depth<32>(share, *p, ft, i)
+                           : tpt::item_depth<1>(share, *p, ft, i);
+    int valid = 0;
+    if (!run_warps(1, lanes, [&](auto& w, int, int l) {
+          const int v = tpt::depth_order(w, dep.data(), n, p->max_depth,
+                                         cnt.data(), order.data());
+          if (l == 0) valid = v;
+        }))
+      return -1;
+    for (int wi = 0; wi < block_warps; ++wi)
+      if (!run_warps(1, lanes, [&](auto& w, int, int) {
+            sweep(w, b * block_warps + wi,
+                  tpt::SortedQueue{share, dep.data(), order.data(), valid, wi,
+                                   block_warps});
+          }))
+        return -1;
+  }
+  t.sum(acc);
+  return 0;
+}
+
+// depth_order over dep[0..n) into order in one warp of `lanes` lanes;
+// returns its count of items with a bounce, or -1 if the warp stalled.
+extern "C" int tpt_depth_order_cpu(const int* dep, int n, int max_depth,
+                                   int* order, int lanes) {
+  std::vector<int> cnt(max_depth + 1);
+  int valid = 0;
+  const bool ok = run_warps(1, lanes, [&](auto& w, int, int l) {
+    const int v = tpt::depth_order(w, dep, n, max_depth, cnt.data(), order);
+    if (l == 0) valid = v;
+  });
+  return ok ? valid : -1;
+}
+
 // K3's warp form (csrc/grad.cu warp_grad_kernel: WarpTape records up to
 // kMaxLights lights, lights_warp_grad_kernel's LightTapeOf<false> past
 // them), or with pooled its pool form (pool_grad_kernel: LightTapeOf<true>
@@ -333,6 +416,9 @@ def host_lib(tmp_path_factory):
     lib.tpt_wave_reference_cpu.restype = ctypes.c_longlong
     lib.tpt_wave_sweep_cpu.argtypes = [flat, params, ptr, ptr, ptr, ptr, ptr,
                                        i32, i32, i32]
+    lib.tpt_wave_run_cpu.argtypes = [flat, params, ptr, ptr, ptr, ptr, ptr,
+                                     i32, i32, i32, i32, i32, i32]
+    lib.tpt_depth_order_cpu.argtypes = [ptr, i32, i32, ptr, i32]
     lib.tpt_warp_form_cpu.argtypes = [flat, params, ptr, ptr, ptr, i32, i32,
                                       i32]
     lib.tpt_warp_form_cpu.restype = ctypes.c_longlong
@@ -398,6 +484,22 @@ class Case:
             g.ctypes.data, acc.ctypes.data, tape["rec"].ctypes.data,
             tape["see"].ctypes.data, tape["depth"].ctypes.data, n_warps,
             lanes, int(pooled))
+        assert code == 0, "a 32-lane warp stalled at a collective"
+        return acc
+
+    def run_sweep(self, lib, g, tape, n_warps, lanes, run, fused=False,
+                  block_warps=4, pooled=False):
+        """The redesigned sweep (sweep_runs; fused: with bounce_adj_fused's
+        adds) over `tape`: run > 0, sorted blocks of block_warps warps and
+        run tiles a warp; run 0, the kept sweep's deal and batches over
+        n_warps warps; pooled: a PoolTable a warp."""
+        acc = np.zeros_like(self.keep["tab"])
+        g = np.ascontiguousarray(g, np.float32)
+        code = lib.tpt_wave_run_cpu(
+            ctypes.byref(self.args), ctypes.byref(self.params),
+            g.ctypes.data, acc.ctypes.data, tape["rec"].ctypes.data,
+            tape["see"].ctypes.data, tape["depth"].ctypes.data, n_warps,
+            lanes, run, int(fused), block_warps, int(pooled))
         assert code == 0, "a 32-lane warp stalled at a collective"
         return acc
 
@@ -524,6 +626,24 @@ def test_pool_sweep_bit_equal_to_pool_form(host_lib, lanes):
     assert np.abs(d_sweep).max() > 0
 
 
+@pytest.mark.parametrize("lanes", [1, 32])
+def test_run_pool_sweep_against_kept_pool_sweep(host_lib, lanes):
+    """Past 512 spheres (600, tools/scenes.crowded_scene): the redesigned
+    sweep with a PoolTable a warp (csrc/wavesweep.cu wave_run_pool_kernel:
+    sorted blocks, the fused adds) within 1e-4 x each row's max of the kept
+    pool sweep on the same tape, two runs bit-equal."""
+    cfg = RenderConfig(width=16, height=8, samples_per_pixel=2, max_depth=3)
+    c = Case(crowded_scene(extra=554), cfg, frame=0)
+    g = cotangent(c.shape, 3)
+    _, _, tape = c.forward(host_lib, "staged", 1)
+    d_kept = c.sweep(host_lib, g, tape, 2, lanes, pooled=True)
+    d_run = c.run_sweep(host_lib, g, tape, 0, lanes, 1, True, 2, True)
+    assert_rows_close(d_run, d_kept, 1e-4)
+    np.testing.assert_array_equal(
+        c.run_sweep(host_lib, g, tape, 0, lanes, 1, True, 2, True), d_run)
+    assert np.abs(d_run).max() > 0
+
+
 def test_forty_lights_pair_matches_plain_wavefront(host_lib):
     """40 lights (tools/scenes.many_lights_scene): the pair's cotangent
     bit-equal to K3's lights instance on the same warps and, row by row,
@@ -545,3 +665,85 @@ def test_forty_lights_pair_matches_plain_wavefront(host_lib):
         scale = np.abs(d_plain[r]).max()
         np.testing.assert_allclose(d_sweep[r], d_plain[r], rtol=0,
                                    atol=1e-3 * scale + 1e-12, err_msg=r)
+
+
+def assert_rows_close(got, want, rel):
+    """Per row of a (14, N) table: max |got - want| <= rel x the row's max
+    |want| (exact where the row is zero)."""
+    for r in range(want.shape[0]):
+        scale = np.abs(want[r]).max()
+        np.testing.assert_allclose(got[r], want[r], rtol=0,
+                                   atol=rel * scale, err_msg=r)
+
+
+@pytest.mark.parametrize("lanes,n_warps", [(1, 3), (32, 3)])
+@pytest.mark.parametrize("spp,depth", [(6, 4), (2, 10)])
+def test_run_sweep_against_kept_sweep(host_lib, spp, depth, lanes, n_warps):
+    """The redesigned sweep (sweep_runs): on the kept sweep's deal (run 0)
+    bit-equal to it on the same warps -- the same claims in the same order,
+    with the next sample claimed and the next record fetched before the
+    adjoint -- over two sample batches (spp 6) and at depth 10; with its
+    blocks' items sorted by bounces and dealt to 1, 2 or 4 warps (runs of 1,
+    2 and 3 tiles a warp), with and without the fused adds, within 1e-4 x
+    each row's max of it, each two runs bit-equal."""
+    cfg = RenderConfig(width=24, height=12, samples_per_pixel=spp,
+                       max_depth=depth)
+    c = Case(make_scene(big=True), cfg, frame=1, x0=2, y0=3)
+    g = cotangent(c.shape, 5)
+    _, _, tape = c.forward(host_lib, "staged", 1)
+    d_kept = c.sweep(host_lib, g, tape, n_warps, lanes)
+    assert np.abs(d_kept).max() > 0
+    np.testing.assert_array_equal(c.run_sweep(host_lib, g, tape, n_warps,
+                                              lanes, 0), d_kept)
+    for run, fused, bw in ((1, False, 4), (3, False, 2), (1, True, 1),
+                           (3, True, 4), (2, True, 2), (0, True, 4)):
+        d_run = c.run_sweep(host_lib, g, tape, n_warps, lanes, run, fused,
+                            bw)
+        assert_rows_close(d_run, d_kept, 1e-4)
+        np.testing.assert_array_equal(
+            c.run_sweep(host_lib, g, tape, n_warps, lanes, run, fused, bw),
+            d_run)
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+def test_run_sweep_edge_tiles_and_forty_lights(host_lib, lanes):
+    """Past the sub-image's edge (a 13x6 sub-image: tiles with pixels
+    outside it, whose items the queue passes over and the sort puts last)
+    and at 40 lights (the seen lights in two words, the second read where
+    it lies): the redesigned sweep bit-equal to the kept one on its deal
+    and within 1e-4 x each row's max with sorted blocks, its adds and the
+    fused ones; within 1e-3 x each row's max of autograd through the plain
+    wavefront."""
+    cfg = RenderConfig(width=13, height=6, samples_per_pixel=2, max_depth=3,
+                       merged_wavefront=True, diff_wavefront=True)
+    scene = many_lights_scene()
+    c = Case(scene, cfg, frame=0)
+    g = cotangent(c.shape, 13)
+    _, _, tape = c.forward(host_lib, "staged", lanes)
+    d_kept = c.sweep(host_lib, g, tape, 2, lanes)
+    np.testing.assert_array_equal(c.run_sweep(host_lib, g, tape, 2, lanes, 0),
+                                  d_kept)
+    d_run = c.run_sweep(host_lib, g, tape, 2, lanes, 2, False, 2)
+    assert_rows_close(d_run, d_kept, 1e-4)
+    d_fused = c.run_sweep(host_lib, g, tape, 2, lanes, 1, True, 4)
+    assert_rows_close(d_fused, d_kept, 1e-4)
+    _, _, d_plain = render_tile_grad_plain(scene, cfg, 0, torch.from_numpy(g),
+                                           0, 0, 6, 13)
+    assert_rows_close(d_run, d_plain.numpy(), 1e-3)
+
+
+@pytest.mark.parametrize("lanes", [1, 32])
+def test_depth_order_is_a_stable_sort_by_bounces(host_lib, lanes):
+    """depth_order (wavesweep.cuh: a block's items from the most bounces to
+    the fewest, each count's items in index order) under one lane and 32
+    host threads: numpy's stable argsort of -bounces, over 0..max_depth
+    bounces and lengths that are not a multiple of the warp's width; the
+    count of items with a bounce returned."""
+    rng = np.random.default_rng(17)
+    for n, max_depth in ((1, 1), (45, 10), (300, 3), (1024, 255)):
+        dep = rng.integers(0, max_depth + 1, n).astype(np.int32)
+        order = np.full(n, -1, np.int32)
+        valid = host_lib.tpt_depth_order_cpu(dep.ctypes.data, n, max_depth,
+                                             order.ctypes.data, lanes)
+        np.testing.assert_array_equal(order, np.argsort(-dep, kind="stable"))
+        assert valid == int((dep > 0).sum())

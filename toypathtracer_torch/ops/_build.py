@@ -32,10 +32,10 @@ HOST_BUILD_DIR = BUILD_DIR.parent / "torch_host"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 SOURCES = ("render.cu", "grad.cu", "scaled.cu", "chunkgrad.cu", "wavegrad.cu",
-           "probe.cu")
+           "wavesweep.cu", "probe.cu")
 HEADERS = ("trace.cuh", "warp.cuh", "merged.cuh", "flat.cuh", "gradwarp.cuh",
-           "chunks.cuh", "coop.cuh", "coopgrad.cuh", "tape.cuh", "probe.cuh",
-           "launch.cuh")
+           "chunks.cuh", "coop.cuh", "coopgrad.cuh", "tape.cuh",
+           "wavesweep.cuh", "probe.cuh", "launch.cuh")
 
 
 class RenderParams(ctypes.Structure):
@@ -206,7 +206,7 @@ def kernel_label(mangled: str):
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C
     interface of csrc/render.cu, grad.cu, scaled.cu, chunkgrad.cu,
-    wavegrad.cu and probe.cu."""
+    wavegrad.cu, wavesweep.cu and probe.cu."""
     lib = ctypes.CDLL(str(build()))
     ptr = ctypes.c_void_p
     params = ctypes.POINTER(RenderParams)
@@ -221,6 +221,12 @@ def load_library() -> ctypes.CDLL:
     lib.tpt_wave_sweep_pool_launch.argtypes = [ptr, ptr, ptr, params, ptr,
                                                i32, ptr, ptr, ptr, ptr, ptr,
                                                ptr, i32, ptr, ptr, i32, ptr]
+    lib.tpt_wave_run_scratch.argtypes = [params, ptr]
+    lib.tpt_wave_run_launch.argtypes = [ptr, ptr, ptr, params, ptr, i32, i32,
+                                        ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.tpt_wave_run_pool_launch.argtypes = [ptr, ptr, ptr, params, ptr, i32,
+                                             ptr, ptr, ptr, ptr, ptr, ptr,
+                                             i32, ptr, ptr, i32, ptr]
     lib.tpt_render_thread_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr,
                                              ptr, ptr, ptr]
     lib.tpt_render_stats_launch.argtypes = [ptr, ptr, ptr, ptr, params, ptr,
@@ -261,6 +267,8 @@ def load_library() -> ctypes.CDLL:
     lib.tpt_probe_launch.argtypes = [i32, i32, i32, ptr, ptr]
     for fn in (lib.tpt_render_launch, lib.tpt_render_tape_launch,
                lib.tpt_wave_sweep_launch, lib.tpt_wave_sweep_pool_launch,
+               lib.tpt_wave_run_scratch, lib.tpt_wave_run_launch,
+               lib.tpt_wave_run_pool_launch,
                lib.tpt_render_thread_launch,
                lib.tpt_render_stats_launch,
                lib.tpt_render_stats_merged_launch, lib.tpt_lockstep_launch,

@@ -44,16 +44,18 @@ kernel pair, K1's tape instance (csrc/render.cu merged_render_kernel<4>,
 the merged loop staging each bounce's carry record in shared memory and
 writing it to a frame tape as whole lines: `render_tile_wave_tape`; its
 form "scalar", <3>, the instance it replaced, stays as the baseline) and
-a sweep over the tape (csrc/wavegrad.cu:
-`sweep_wave_tape`, its table per warp in shared memory up to 512 spheres,
-a PoolTable past them), whose cotangent is K3's bit for bit on K3's grid;
-on the CPU autograd through the plain wavefront
-(tracecore.render_pixels_wavefront).  `render_tile_grad` takes the pair
-(form "wave") under the flag; K3's own forms stay the lockstep
+a sweep over the tape (`sweep_wave_tape`: csrc/wavesweep.cu, its table
+per warp in shared memory up to 512 spheres, a PoolTable past them),
+whose cotangent is within 1e-4 of each row's max of the sweep it
+replaced (csrc/wavegrad.cu, form "tiles", kept as the baseline), which is
+K3's bit for bit on K3's grid; on the CPU autograd through the plain
+wavefront (tracecore.render_pixels_wavefront).  `render_tile_grad` takes
+the pair (form "wave") under the flag; K3's own forms stay the lockstep
 differentiable form and warn under it, as the JAX package's in-kernel
 (unrolled) gradient route does (config.warn_diff_wavefront).  Launch
 counters "wave_tape" (the staged instance), "wave_tape_baseline",
-"wave_sweep" and "wave_sweep_pool".
+"wave_sweep", "wave_sweep_baseline", "wave_sweep_tiles_deal",
+"wave_sweep_pool", "wave_sweep_pool_baseline" and "wave_sweep_stats".
 
 `render_frame_diff` / `render_tile_diff` are the differentiable renders of
 the training step: a torch.autograd.Function on the packed scene table
@@ -125,7 +127,10 @@ PARAM_FIELDS = ("center", "radius", "albedo", "emissive", "roughness", "ri")
 launches = {"grad": 0, "grad_soft": 0, "grad_pool": 0, "grad_pool_soft": 0,
             "grad_replay": 0, "grad_replay_soft": 0, "grad_stats": 0,
             "lockstep": 0, "lockstep_baseline": 0, "wave_tape": 0,
-            "wave_tape_baseline": 0, "wave_sweep": 0, "wave_sweep_pool": 0}
+            "wave_tape_baseline": 0, "wave_sweep": 0,
+            "wave_sweep_baseline": 0, "wave_sweep_tiles_deal": 0,
+            "wave_sweep_pool": 0,
+            "wave_sweep_pool_baseline": 0, "wave_sweep_stats": 0}
 
 # The differentiable wavefront's tape instances (render_tile_wave_tape):
 # "staged", the main path's (merged_render_kernel<4>: each record staged in
@@ -135,6 +140,36 @@ launches = {"grad": 0, "grad_soft": 0, "grad_pool": 0, "grad_pool_soft": 0,
 TAPE_FORMS = {"scalar": 0, "staged": 1}
 TAPE_MAIN_FORM = "staged"
 TAPE_COUNTERS = {"staged": "wave_tape", "scalar": "wave_tape_baseline"}
+
+# The differentiable wavefront's sweeps (sweep_wave_tape): "runs", the
+# main path's (csrc/wavesweep.cu wave_run_kernel<true, false>: blocks of 2
+# tiles a warp whose samples are sorted by bounces and dealt to the warps,
+# the next record fetched during the adjoint, cheaper adds, 128
+# registers; past MAX_SPHERES wave_run_pool_kernel); "tiles", the one it
+# replaced (csrc/wavegrad.cu wave_sweep_kernel: K3's reverse half on K3's
+# grid; wave_sweep_pool_kernel), its baseline; and "runs_on_tiles_deal"
+# (wave_run_kernel<false, false>: the redesign's loop on the kept sweep's
+# deal, launch bounds and grid with its adds, the kept sweep's cotangent
+# bit for bit; no pool instance).  Their launch counters (up to
+# MAX_SPHERES spheres, and past them) and their timed and stats instances'
+# ptxas labels.  The stats instances' counters (wavesweep.cuh kWc*)
+# follow STAT_FIELDS: SM cycles in the tape reads, the queue's claims and
+# the bounces' adjoint (inside cycles_adj, the whole sweep loop), and
+# waiting at the block's end.
+SWEEP_FORMS = ("runs", "runs_on_tiles_deal", "tiles")
+SWEEP_MAIN_FORM = "runs"
+SWEEP_COUNTERS = {"runs": "wave_sweep",
+                  "runs_on_tiles_deal": "wave_sweep_tiles_deal",
+                  "tiles": "wave_sweep_baseline"}
+POOL_SWEEP_COUNTERS = {"runs": "wave_sweep_pool",
+                       "tiles": "wave_sweep_pool_baseline"}
+SWEEP_LABELS = {"runs": "wave_run_kernel<1,0>",
+                "runs_on_tiles_deal": "wave_run_kernel<0,0>",
+                "tiles": "wave_sweep_kernel"}
+SWEEP_STATS_LABELS = {"runs": "wave_run_kernel<1,1>",
+                      "runs_on_tiles_deal": "wave_run_kernel<0,1>"}
+WAVE_STAT_FIELDS = STAT_FIELDS + ("cycles_tape", "cycles_queue",
+                                  "cycles_bounce", "cycles_wait")
 
 # The last pool launch's scratch (pool_table_launch): blocks, the slots its
 # warps drew and the pool's capacity, the directory blocks they drew and
@@ -352,30 +387,34 @@ def tape_bytes(n_lights: int, cfg: RenderConfig, height: int,
 def alloc_tape(n_lights: int, cfg: RenderConfig, height: int, width: int,
                dev, what: str, remedy: str) -> dict:
     """The tensors of a frame tape on the card `dev`: "rec" (16 floats a
-    slot), "see" (the seen lights' words) and "depth".  Raises
-    MemoryError, naming the bytes, where the tape (tape_bytes) does not
-    fit in the card's free memory and what the caching allocator holds
-    unused: `what` names the route and `remedy` the band entry point to
-    use instead."""
+    slot), "see" (the seen lights' words) and "depth".  Allocated directly:
+    only where the caching allocator cannot give them (OutOfMemoryError)
+    does it ask the card for its free memory, and raise MemoryError naming
+    the tape's bytes (tape_bytes), the free memory and what the allocator
+    holds unused: `what` names the route and `remedy` the band entry point
+    to use instead."""
+    slots = height * width * cfg.samples_per_pixel * cfg.max_depth
+    words = -(-n_lights // 32)
+    try:
+        return {"rec": torch.empty((slots * 16,), dtype=torch.float32,
+                                   device=dev),
+                "see": torch.empty((max(1, slots * words),),
+                                   dtype=torch.int32, device=dev),
+                "depth": torch.empty((height * width
+                                      * cfg.samples_per_pixel,),
+                                     dtype=torch.int32, device=dev)}
+    except torch.cuda.OutOfMemoryError:
+        pass
     need = tape_bytes(n_lights, cfg, height, width)
     free, _ = torch.cuda.mem_get_info(dev)
     # and what the caching allocator holds unused (an earlier step's tape)
     free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
-    if need > free:
-        rows = max(1, height * free // (2 * need))
-        raise MemoryError(
-            f"{what}'s tape for {height}x{width} pixels, spp "
-            f"{cfg.samples_per_pixel}, depth {cfg.max_depth} takes {need} "
-            f"bytes and the card has {free} free: differentiate bands of "
-            f"at most {rows} rows ({remedy})")
-    slots = height * width * cfg.samples_per_pixel * cfg.max_depth
-    words = -(-n_lights // 32)
-    return {"rec": torch.empty((slots * 16,), dtype=torch.float32,
-                               device=dev),
-            "see": torch.empty((max(1, slots * words),), dtype=torch.int32,
-                               device=dev),
-            "depth": torch.empty((height * width * cfg.samples_per_pixel,),
-                                 dtype=torch.int32, device=dev)}
+    rows = max(1, height * free // (2 * need))
+    raise MemoryError(
+        f"{what}'s tape for {height}x{width} pixels, spp "
+        f"{cfg.samples_per_pixel}, depth {cfg.max_depth} takes {need} "
+        f"bytes and the card has {free} free: differentiate bands of "
+        f"at most {rows} rows ({remedy})")
 
 
 def render_tile_wave_tape(scene: Scene, cfg: RenderConfig, frame: int,
@@ -409,18 +448,44 @@ def render_tile_wave_tape(scene: Scene, cfg: RenderConfig, frame: int,
     return img, rays, tape
 
 
-def sweep_wave_tape(scene: Scene, cfg: RenderConfig, g_img, tape, tab=None):
-    """The differentiable wavefront's backward on a card (csrc/wavegrad.cu)
-    over the tape render_tile_wave_tape wrote for the same scene, config
-    and sub-image: d_packed (14, N) for the pixel cotangent g_img.  Up to
-    MAX_SPHERES spheres wave_sweep_kernel on K3's warp-form grid, whose
-    cotangent is K3's bit for bit; past them wave_sweep_pool_kernel on the
-    pool form's grid (pool_table_launch: its scratch and reruns, recorded
-    in last_pool), the pool form's bit for bit.  Hard selects only (the
-    soft estimator has no wavefront route)."""
+def run_scratch(params, dev) -> int:
+    """Partial rows (blocks) of the main path's sweep on `dev`
+    (wave_run_kernel<true, ..>, wave_run_pool_kernel)."""
+    lib = _build.load_library()
+    rows = ctypes.c_int()
+    with torch.cuda.device(dev):
+        cuda_call(lib, "wave_sweep", lib.tpt_wave_run_scratch(
+            ctypes.byref(params), ctypes.byref(rows)))
+    return rows.value
+
+
+def sweep_wave_tape(scene: Scene, cfg: RenderConfig, g_img, tape, tab=None,
+                    form: str = SWEEP_MAIN_FORM, stats: bool = False):
+    """The differentiable wavefront's backward on a card over the tape
+    render_tile_wave_tape wrote for the same scene, config and sub-image:
+    d_packed (14, N) for the pixel cotangent g_img.  Up to MAX_SPHERES
+    spheres the sweep of `form` (SWEEP_FORMS): "runs", the main path's
+    (csrc/wavesweep.cu wave_run_kernel<true, ..>); "runs_on_tiles_deal",
+    the same loop on the kept sweep's deal, batches and K3's grid, whose
+    cotangent is the kept sweep's bit for bit; or "tiles" (csrc/wavegrad.cu
+    wave_sweep_kernel on K3's warp-form grid, whose cotangent is K3's bit
+    for bit).  Past them "runs" and "tiles" with a PoolTable a warp
+    (pool_table_launch: its scratch and reruns, recorded in last_pool):
+    "runs" csrc/wavesweep.cu wave_run_pool_kernel, "tiles"
+    csrc/wavegrad.cu wave_sweep_pool_kernel on the pool form's grid, the
+    pool form's bit for bit.  stats=True launches the stats instance of
+    "runs" or "runs_on_tiles_deal" (up to MAX_SPHERES spheres) and returns
+    (d_packed, its counters by WAVE_STAT_FIELDS).  Hard selects only (the
+    soft estimator has no wavefront route).  Raises where a launch fails;
+    there is no fallback to another sweep."""
     if cfg.soft_silhouette_eps > 0.0:
         raise ValueError("the differentiable wavefront has no soft-silhouette "
                          "estimator (RenderConfig refuses the two together)")
+    if form not in SWEEP_FORMS:
+        raise ValueError(f"no wavefront sweep {form!r}")
+    if stats and form not in SWEEP_STATS_LABELS:
+        raise ValueError(f"the sweep {form!r} has no stats instance (the "
+                         "kept sweep is counted as runs_on_tiles_deal)")
     frame, x0, y0, height, width = tape["tile"]
     tab = checked_tab(scene, x0, y0, height, width, tab)
     if tuple(g_img.shape) != (height, width, 3):
@@ -437,29 +502,57 @@ def sweep_wave_tape(scene: Scene, cfg: RenderConfig, g_img, tape, tab=None):
     taped = (tape["rec"].data_ptr(), tape["see"].data_ptr(),
              tape["depth"].data_ptr())
     if n <= MAX_SPHERES:
-        rows = grad_scratch(scene, cfg, frame, x0, y0, height, width,
-                            "warp")[0]
+        counts = torch.zeros((len(WAVE_STAT_FIELDS),), dtype=torch.int64,
+                             device=dev) if stats else None
+        if form == "runs":
+            rows = run_scratch(params, dev)
+        else:
+            rows = grad_scratch(scene, cfg, frame, x0, y0, height, width,
+                                "warp")[0]
         partial = torch.empty((rows, 14, n), dtype=torch.float32, device=dev)
         d_tab = torch.empty((14, n), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
         with torch.cuda.device(dev):
-            code = lib.tpt_wave_sweep_launch(
-                *head, rows, partial.data_ptr(), d_tab.data_ptr(), *taped,
-                torch.cuda.current_stream(dev).cuda_stream)
-        cuda_call(lib, "wave_sweep", code)
-        launches["wave_sweep"] += 1
+            if form == "tiles":
+                code = lib.tpt_wave_sweep_launch(
+                    *head, rows, partial.data_ptr(), d_tab.data_ptr(),
+                    *taped, stream)
+            else:
+                code = lib.tpt_wave_run_launch(
+                    *head, int(form == "runs"), rows, partial.data_ptr(),
+                    d_tab.data_ptr(), *taped,
+                    counts.data_ptr() if stats else None, stream)
+        cuda_call(lib, SWEEP_COUNTERS[form], code)
+        if stats:
+            launches["wave_sweep_stats"] += 1
+            return d_tab, dict(zip(WAVE_STAT_FIELDS,
+                                   (int(v) for v in counts.cpu())))
+        launches[SWEEP_COUNTERS[form]] += 1
         return d_tab
+    if stats or form not in POOL_SWEEP_COUNTERS:
+        raise ValueError(f"past {MAX_SPHERES} spheres the sweeps are "
+                         f"{tuple(POOL_SWEEP_COUNTERS)}, with no stats "
+                         "instance")
 
     def launch(direc, blocks_t, nxt, block_cap, pool, cap, n_blocks):
         with torch.cuda.device(dev):
-            code = lib.tpt_wave_sweep_pool_launch(
-                *head, n_blocks, *taped, direc.data_ptr(),
-                blocks_t.data_ptr(), nxt[1:].data_ptr(), block_cap,
-                pool.data_ptr(), nxt.data_ptr(), cap,
-                torch.cuda.current_stream(dev).cuda_stream)
-        cuda_call(lib, "wave_sweep_pool", code)
-    n_blocks, _ = pool_grid(params, dev, chunked=False)
+            pool_args = (direc.data_ptr(), blocks_t.data_ptr(),
+                         nxt[1:].data_ptr(), block_cap, pool.data_ptr(),
+                         nxt.data_ptr(), cap,
+                         torch.cuda.current_stream(dev).cuda_stream)
+            if form == "runs":
+                code = lib.tpt_wave_run_pool_launch(*head, n_blocks, *taped,
+                                                    *pool_args)
+            else:
+                code = lib.tpt_wave_sweep_pool_launch(*head, n_blocks,
+                                                      *taped, *pool_args)
+        cuda_call(lib, POOL_SWEEP_COUNTERS[form], code)
+    if form == "runs":
+        n_blocks = run_scratch(params, dev)
+    else:
+        n_blocks = pool_grid(params, dev, chunked=False)[0]
     d_tab = pool_table_launch(launch, params, dev, n_blocks)
-    launches["wave_sweep_pool"] += 1
+    launches[POOL_SWEEP_COUNTERS[form]] += 1
     return d_tab
 
 

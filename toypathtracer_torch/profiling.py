@@ -116,6 +116,7 @@ def trace_to(log_dir: str):
 
 # Chrome-trace categories of work on the device.
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+RUNTIME_CATEGORIES = ("cuda_runtime", "cuda_driver")
 
 
 def kernel_label(name: str) -> str:
@@ -144,6 +145,16 @@ def kernel_label(name: str) -> str:
     return name[start:]
 
 
+def traced_kernel(kernels: dict, label: str) -> dict:
+    """A trace_summary "kernels" entry by the kernel's ptxas label
+    (ops/_build.kernel_label: "wave_run_kernel<1,0>" is
+    "wave_run_kernel<true, false>" in a trace); {} where it is not there."""
+    def norm(k):
+        return re.sub(r"\s", "", k).replace("false", "0").replace("true",
+                                                                   "1")
+    return next((v for k, v in kernels.items() if norm(k) == label), {})
+
+
 def trace_summary(path, window: str = None) -> dict:
     """The device's view of a trace_to trace (a *.pt.trace.json file, or
     the directory holding it: its newest): "span_ms", the block's span
@@ -152,7 +163,9 @@ def trace_summary(path, window: str = None) -> dict:
     the union of the device's kernel, copy and set intervals within it;
     "idle_share", 1 - busy / span; "kernels", each kernel's device ms and
     launches within it by kernel_label; "copies_ms", the copies' and
-    sets' device ms."""
+    sets' device ms; "runtime", the host's CUDA runtime and driver calls
+    that start within it (cudaMemGetInfo, cudaMalloc, ...): host ms and
+    calls by name."""
     path = Path(path)
     if path.is_dir():
         files = sorted(path.glob("*.pt.trace.json"),
@@ -175,8 +188,13 @@ def trace_summary(path, window: str = None) -> dict:
         hi = lo + float(marks[-1]["dur"])
     device = []
     kernels: dict = {}
+    runtime: dict = {}
     copies = 0.0
     for e in events:
+        if e.get("cat", "") in RUNTIME_CATEGORIES and lo <= float(e["ts"]) < hi:
+            r = runtime.setdefault(e["name"], {"ms": 0.0, "calls": 0})
+            r["ms"] += float(e["dur"]) * 1e-3
+            r["calls"] += 1
         if e.get("cat", "") not in DEVICE_CATEGORIES:
             continue
         a = max(float(e["ts"]), lo)
@@ -200,4 +218,4 @@ def trace_summary(path, window: str = None) -> dict:
     return {"file": path.name, "window": window, "span_ms": span,
             "busy_ms": busy,
             "idle_share": 1.0 - busy / span if span > 0 else None,
-            "kernels": kernels, "copies_ms": copies}
+            "kernels": kernels, "copies_ms": copies, "runtime": runtime}

@@ -1,8 +1,10 @@
-"""Where the gradient kernel (K3) spends its SM cycles.
+"""Where the gradient kernel (K3) and the differentiable wavefront's sweep
+spend their SM cycles.
 
     python -m toypathtracer_torch.tools.grad_stats [--forms replay,warp]
         [--width 1280] [--height 720] [--spp 4] [--depth 10] [--frame 0]
         [--soft-eps 0.05] [--scaled N] [--out PATH]
+    python -m toypathtracer_torch.tools.grad_stats --forms wave
 
 Launches each form's stats instance once (ops/cuda_grad.
 render_tile_grad_form with stats=True) on the 46-sphere frame for a
@@ -21,6 +23,19 @@ silhouette and shadow-boundary scans and their adjoints' setup, a part of
 With --scaled N the chunked instance's stats instance runs instead, on
 make_scaled_scene(N) (chunk_stats: the forward trace, the reverse sweep
 and the soft scans).
+
+The form "wave" is the differentiable wavefront's sweep over the tape of
+K1's staged tape instance for that frame (wave_stats): the stats
+instances of the redesigned sweep (csrc/wavesweep.cu wave_run_kernel,
+wavesweep.cuh sweep_runs) on the kept sweep's deal, grid and launch
+bounds ("runs_on_tiles_deal"), where its cotangent is the kept sweep's
+(csrc/wavegrad.cu wave_sweep_kernel) bit for bit and its counters split
+the kept schedule's loop into the tape reads, the queue's claims and the
+bounces' adjoint (with, inside it, the hit's grouping); and as the main
+path runs it ("runs": sorted blocks, the fused adds).  Each with its wait
+at the block's end, its lane busy share (adjoint bounces / lane slots)
+and, where the build kept its -Xptxas -v report, its registers and
+spills.
 
 Needs a card: cycle counts and times are never taken on the CPU.  Writes
 build/grad_stats_torch.json at the root of the checkout (or --out) and
@@ -46,6 +61,11 @@ OUT = Path(__file__).resolve().parents[2] / "build" / "grad_stats_torch.json"
 PARTS = ("fwd", "replay", "adj", "group", "zero", "reduce", "soft")
 # Parts counted inside "adj".
 WITHIN_ADJ = ("group", "soft")
+# The sweeps' parts: inside "adj" (the sweep loop) the tape reads, the
+# queue's claims and the bounces' adjoint, inside which "group"; and
+# outside it the wait at the block's end for its other warps.
+WAVE_PARTS = ("adj", "tape", "queue", "bounce", "group", "zero", "reduce",
+              "wait")
 
 
 def cotangent(height: int, width: int, seed: int = 11, device="cuda"):
@@ -111,6 +131,56 @@ def chunk_stats(scene, cfg: RenderConfig, g, frame: int = 0) -> dict:
             "reverse_lane_busy": c["adj_bounces"] / max(c["adj_slots"], 1)}
 
 
+def wave_stats(scene, cfg: RenderConfig, g, frame: int = 0) -> list:
+    """The differentiable wavefront's sweeps' stats instances over the
+    frame's tape (K1's staged tape instance; `scene` and `g` on the card):
+    the redesigned sweep on the kept sweep's deal, grid and launch bounds
+    ("runs_on_tiles_deal") and as the main path runs it ("runs").  Each
+    entry: its counters, their shares of the threads' cycles ("adj" the
+    sweep loop; within it "tape", "queue", "bounce" and their remainder
+    "loop_other"; "group" within "bounce"; "wait" at the block's end;
+    "other", staging the scene and a sorted block's counting sort), the
+    lane busy share, whether its cotangent is the timed kept sweep's bit
+    for bit (the first must be), and the largest over the 14 rows of max
+    |its cotangent - the kept sweep's| / the row's max |value|."""
+    from ..ops import _build
+    H, W = cfg.height, cfg.width
+    wcfg = cfg.replace(merged_wavefront=True, diff_wavefront=True)
+    _, _, tape = cuda_grad.render_tile_wave_tape(scene, wcfg, frame, 0, 0,
+                                                 H, W)
+    kept = cuda_grad.sweep_wave_tape(scene, wcfg, g, tape, form="tiles")
+    lib = _build.build()
+    report = lib.with_suffix(".ptxas.txt")
+    usage = (_build.ptxas_usage(report.read_text()) if report.exists()
+             else {})
+    out = []
+    samples = H * W * cfg.samples_per_pixel
+    for form in ("runs_on_tiles_deal", "runs"):
+        d, c = cuda_grad.sweep_wave_tape(scene, wcfg, g, tape, form=form,
+                                         stats=True)
+        total = c["cycles_all"]
+        shares = {k: c[f"cycles_{k}"] / total for k in WAVE_PARTS}
+        shares["loop_other"] = shares["adj"] - sum(
+            shares[k] for k in ("tape", "queue", "bounce"))
+        shares["other"] = 1.0 - sum(shares[k] for k in (
+            "adj", "zero", "reduce", "wait"))
+        err = (d - kept).abs().amax(dim=1)
+        scale = kept.abs().amax(dim=1)
+        rel = torch.where(scale > 0, err / scale.clamp_min(1e-30),
+                          torch.where(err > 0, torch.inf, 0.0))
+        out.append({
+            "sweep": form, "counters": c, "cycle_shares": shares,
+            "adjoint_bounces_per_sample": c["adj_bounces"] / samples,
+            "reverse_lane_busy": c["adj_bounces"] / max(c["adj_slots"], 1),
+            "mean_hit_group": c["hit_lanes"] / max(c["hit_groups"], 1),
+            "bit_equal_to_tiles": bool(torch.equal(d, kept)),
+            "row_rel_vs_tiles": float(rel.max()),
+            "ptxas": {"stats": usage.get(cuda_grad.SWEEP_STATS_LABELS[form],
+                                         {}),
+                      "timed": usage.get(cuda_grad.SWEEP_LABELS[form], {})}})
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--forms", default="replay,warp")
@@ -142,6 +212,9 @@ def main(argv=None) -> dict:
         from ..scaled import make_scaled_scene
         scene = make_scaled_scene(args.scaled).to("cuda")
         res["forms"] = [chunk_stats(scene, cfg, g, args.frame)]
+    elif args.forms == "wave":
+        res["forms"] = wave_stats(make_scene(big=True).to("cuda"), cfg, g,
+                                  args.frame)
     else:
         scene = make_scene(big=True).to("cuda")
         res["forms"] = [form_stats(scene, cfg, f, g, args.frame)
